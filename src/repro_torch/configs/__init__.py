@@ -1,0 +1,31 @@
+"""Architecture registry (PyTorch port of ``repro.configs``).
+
+Each module exposes ``config()`` (the exact published architecture) and
+``smoke_config()`` (a reduced same-family variant for CPU tests).  The
+port carries the configs it can serve; the rest of the reference's
+registry is queued in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+ARCHITECTURES: List[str] = [
+    "qwen2_5_3b",
+]
+
+
+def _norm(name: str) -> str:
+    return name.replace("-", "_").replace(".", "_")
+
+
+def get_config(name: str):
+    return importlib.import_module(f"repro_torch.configs.{_norm(name)}").config()
+
+
+def get_smoke_config(name: str):
+    return importlib.import_module(f"repro_torch.configs.{_norm(name)}").smoke_config()
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCHITECTURES}

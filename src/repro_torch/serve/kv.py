@@ -1,0 +1,347 @@
+"""The KV-cache API (port of ``repro.serve.kv``, attention state only).
+
+    spec = KVCacheSpec(num_slots=8, max_len=512, layout="paged")
+    kv = spec.build(params, cfg)            # -> KVCache (host handle)
+    logits, kv.state = prefill_chunk(params, cfg, kv.state, ...)
+
+``KVCache.state`` is a :class:`KVState` the model paths accept wherever
+they accept the dense cache dict.  Two interchangeable layouts:
+
+* :class:`DenseSlots` — one worst-case ``(max_len,)`` row per slot; the
+  parity oracle.
+* :class:`Paged` — a flat ``(num_pages, page_size, KV, D)`` pool per layer
+  plus per-slot block tables (``serve.block_table``), with ref-counted
+  prefix sharing and copy-on-write.  ``kv_dtype="int8"`` stores pages as
+  int8 with per-(row, kv head) f32 scales.
+
+Pools live on the parameters' device and are updated in place by the
+model paths.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+
+from ..models import layers as L
+from ..models.config import torch_dtype
+from ..models.model import init_decode_cache, params_device, require_chunkable
+from ..models.transformer import _unit_and_groups, tree_leaves
+from .block_table import PagedTables
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class KVState:
+    """Device KV state: the per-layer cache tree plus, for the paged
+    layout, the block-table tensor.  ``page_size == 0`` means dense slots
+    (``tables`` is ``None`` and ``data`` is the dense cache dict)."""
+
+    data: Tree
+    tables: Optional[torch.Tensor] = None  # (num_slots, num_blocks) int32
+    page_size: int = 0
+
+    @property
+    def is_paged(self) -> bool:
+        return self.page_size > 0
+
+
+def copy_pages_state(state: KVState, ops: Sequence[Tuple[int, int]]) -> KVState:
+    """Apply ``(src, dst)`` page copies to every pool leaf, in place (the
+    device half of copy-on-write).  Group leaves carry a leading
+    ``n_groups`` dim ahead of the page axis."""
+    if not ops:
+        return state
+    dev = state.tables.device
+    src = torch.tensor([s for s, _ in ops], dtype=torch.long, device=dev)
+    dst = torch.tensor([d for _, d in ops], dtype=torch.long, device=dev)
+    stack = state.data["stack"]
+    for x in tree_leaves(stack["groups"]):  # (n_groups, num_pages, ...)
+        x[:, dst] = x[:, src]
+    for x in tree_leaves(stack["tail"]):  # (num_pages, ...)
+        x[dst] = x[src]
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Layouts
+# ---------------------------------------------------------------------------
+
+
+class DenseSlots:
+    """One ``(max_len,)`` row of KV per slot — the worst-case layout and
+    the parity oracle for :class:`Paged`."""
+
+    name = "dense"
+
+    @staticmethod
+    def build_data(spec: "KVCacheSpec", params: Tree, cfg) -> Tree:
+        return init_decode_cache(params, cfg, spec.num_slots, spec.max_len, linear=True)
+
+    @staticmethod
+    def index(slot, position):
+        """(slot, position) -> physical (row, column): the identity."""
+        return slot, position
+
+
+class Paged:
+    """Flat page pool + block tables; ``index`` is the translation the
+    attention paths use."""
+
+    name = "paged"
+    index = staticmethod(L.paged_index)
+
+    @staticmethod
+    def build_data(spec: "KVCacheSpec", params: Tree, cfg) -> Tree:
+        require_chunkable(cfg, "the paged KV layout")
+        num_pages, ps = spec.resolve_pages(cfg), spec.page_size
+        kv, hd = cfg.n_kv_heads, cfg.hd
+        dtype = spec.resolved_kv_dtype(cfg)
+        dev = params_device(params)
+
+        def one_layer(lead):
+            shape = lead + (num_pages, ps, kv, hd)
+            layer = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                     "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            if spec.kv_dtype == "int8":
+                # per-row dequant scales (1.0 = the all-zero rows' identity
+                # scale, matching the write path's convention)
+                sshape = lead + (num_pages, ps, kv)
+                layer["k_scale"] = torch.ones(sshape, dtype=torch.float32, device=dev)
+                layer["v_scale"] = torch.ones(sshape, dtype=torch.float32, device=dev)
+            return {"attn": layer}
+
+        unit, n_groups, tail = _unit_and_groups(cfg)
+        groups = tuple(one_layer((n_groups,)) for _ in unit)
+        tail_cs = [one_layer(()) for _ in range(tail)]
+        return {"stack": {"groups": groups, "tail": tail_cs}}
+
+
+_LAYOUTS = {DenseSlots.name: DenseSlots, Paged.name: Paged}
+
+
+# ---------------------------------------------------------------------------
+# Spec + host handle
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCacheSpec:
+    """Declarative description of a serving KV cache (see the reference's
+    ``KVCacheSpec``): ``num_slots`` concurrent requests, ``max_len``
+    positions per slot, ``layout`` dense|paged, ``page_size``,
+    ``num_pages`` (None = worst case ``num_slots * blocks_per_slot``) and
+    ``kv_dtype`` (paged only: None = compute dtype, "int8" = quantized
+    pages with per-row scales, or a float dtype name)."""
+
+    num_slots: int
+    max_len: int
+    layout: str = "dense"
+    page_size: int = 16
+    num_pages: Optional[int] = None
+    kv_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.layout not in _LAYOUTS:
+            raise ValueError(f"unknown KV layout {self.layout!r}; want dense|paged")
+        if self.num_slots < 1 or self.max_len < 1 or self.page_size < 1:
+            raise ValueError(  # typed, not assert: must survive python -O
+                f"KVCacheSpec sizes must be >= 1: num_slots={self.num_slots}, "
+                f"max_len={self.max_len}, page_size={self.page_size}"
+            )
+        if self.kv_dtype is not None:
+            if self.layout != "paged":
+                raise ValueError("kv_dtype is a paged-layout knob; dense slots "
+                                 "always use the compute dtype")
+            torch_dtype(self.kv_dtype)  # raises on unknown dtype strings
+
+    @property
+    def layout_cls(self):
+        return _LAYOUTS[self.layout]
+
+    def buffer_len(self, cfg) -> int:
+        """Logical per-slot buffer length: sliding-window layers need
+        ``window + 1`` rows even when ``max_len`` is shorter."""
+        buf = self.max_len
+        if "L" in cfg.pattern:
+            buf = max(buf, cfg.sliding_window + 1)
+        return buf
+
+    def blocks_per_slot(self, cfg) -> int:
+        return -(-self.buffer_len(cfg) // self.page_size)
+
+    def resolve_pages(self, cfg) -> int:
+        if self.num_pages is not None:
+            return self.num_pages
+        return self.num_slots * self.blocks_per_slot(cfg)
+
+    def resolved_kv_dtype(self, cfg) -> torch.dtype:
+        return torch_dtype(self.kv_dtype) if self.kv_dtype is not None else cfg.compute_dtype
+
+    def bytes_per_token(self, cfg) -> int:
+        """Pool bytes one cached token costs across all attention layers
+        (k + v rows, plus the per-row f32 scales for int8 pages)."""
+        itemsize = torch.empty((), dtype=self.resolved_kv_dtype(cfg)).element_size()
+        per_tok = 2 * cfg.n_kv_heads * cfg.hd * itemsize
+        if self.kv_dtype == "int8":
+            per_tok += 2 * cfg.n_kv_heads * 4
+        n_attn = sum(1 for k in cfg.pattern if k in "GLB")
+        return per_tok * n_attn
+
+    def bytes_per_page(self, cfg) -> int:
+        return self.page_size * self.bytes_per_token(cfg)
+
+    def pages_for_bytes(self, cfg, budget_bytes: int) -> int:
+        return budget_bytes // self.bytes_per_page(cfg)
+
+    def memory_bytes(self, cfg) -> int:
+        """Cache bytes this spec allocates (all layers)."""
+        if self.layout == "paged":
+            return self.resolve_pages(cfg) * self.bytes_per_page(cfg)
+        return self.num_slots * self.buffer_len(cfg) * self.bytes_per_token(cfg)
+
+    def build(self, params: Tree, cfg) -> "KVCache":
+        return KVCache(self, params, cfg)
+
+
+class KVCache:
+    """Host handle pairing a :class:`KVState` with its page bookkeeping.
+
+    The engine calls the mutators (``admit_slot`` / ``share`` /
+    ``prepare_step`` / ``free_slot`` / ``fork_slot``) between steps; each
+    keeps the device block tables in sync (uploaded lazily, once per
+    ``state`` read).  For the dense layout they are no-ops."""
+
+    def __init__(self, spec: KVCacheSpec, params: Tree, cfg):
+        self.spec = spec
+        self.cfg = cfg
+        self.device = params_device(params)
+        self._dirty = False
+        data = spec.layout_cls.build_data(spec, params, cfg)
+        if spec.layout == "paged":
+            self.tables: Optional[PagedTables] = PagedTables(
+                spec.num_slots, spec.blocks_per_slot(cfg), spec.resolve_pages(cfg),
+                spec.page_size,
+            )
+            self._state = KVState(data=data, tables=self._upload_tables(),
+                                  page_size=spec.page_size)
+        else:
+            self.tables = None
+            self._state = KVState(data=data, tables=None, page_size=0)
+
+    def _upload_tables(self) -> torch.Tensor:
+        return torch.as_tensor(self.tables.device_tables(), device=self.device)
+
+    @property
+    def state(self) -> KVState:
+        """Device KV state; host table mutations are uploaded here, once
+        per read after any number of mutations."""
+        if self._dirty:
+            self._state = dataclasses.replace(self._state, tables=self._upload_tables())
+            self._dirty = False
+        return self._state
+
+    @state.setter
+    def state(self, new: KVState) -> None:
+        self._state = new
+
+    @property
+    def page_size(self) -> int:
+        return self.spec.page_size if self.tables is not None else 0
+
+    @property
+    def num_pages(self) -> int:
+        return self.tables.num_pages if self.tables is not None else 0
+
+    @property
+    def used_pages(self) -> int:
+        return self.tables.used_pages if self.tables is not None else 0
+
+    def memory_bytes(self) -> int:
+        return sum(x.numel() * x.element_size() for x in tree_leaves(self._state.data))
+
+    def sync(self) -> None:
+        """Mark the device block tables stale (no-op for dense)."""
+        if self.tables is not None:
+            self._dirty = True
+
+    def reset_accounting(self) -> None:
+        """Rebaseline ``touched_pages`` without dropping live or cached pages."""
+        if self.tables is not None:
+            self.tables.reset_touched()
+
+    def check_invariants(self) -> None:
+        """Page-accounting invariants (``PagedTables.check_invariants``)."""
+        if self.tables is not None:
+            self.tables.check_invariants()
+
+    # -- mutators (no-ops for DenseSlots) -----------------------------------
+
+    def admit_slot(self, slot: int, prompt, max_new: int) -> Optional[int]:
+        """Reserve pages for a request; returns prompt tokens covered by
+        shared prefix pages, or None when the pool cannot hold it yet."""
+        if self.tables is None:
+            return 0
+        shared = self.tables.admit(slot, prompt, max_new)
+        if shared is not None:
+            self.sync()
+        return shared
+
+    def probe_shared(self, prompt) -> int:
+        """Prompt tokens the prefix cache could supply right now."""
+        if self.tables is None:
+            return 0
+        return self.tables.probe_shareable(prompt)
+
+    def share(self, slot: int, prompt, pos: int) -> int:
+        """Map prefix-cache pages covering ``prompt`` from ``pos`` on."""
+        if self.tables is None:
+            return 0
+        n = self.tables.try_share(slot, prompt, pos)
+        if n:
+            self.sync()
+        return n
+
+    def prepare_step(self, grants) -> None:
+        """Allocate/COW the pages the step's grants will write, apply any
+        copy-on-write page copies on the device, sync the tables."""
+        if self.tables is None:
+            return
+        ops = []
+        for slot, pos0, toks in grants:
+            ops += self.tables.prepare_write(slot, pos0, len(toks))
+        if ops:
+            copy_pages_state(self._state, ops)
+        self.sync()
+
+    def prepare_write(self, slot: int, start: int, n: int) -> None:
+        self.prepare_step([(slot, start, [0] * n)])
+
+    def register_prompt_pages(self, slot: int, prompt, upto: int) -> None:
+        """Publish fully-written prompt pages into the prefix cache."""
+        if self.tables is not None:
+            self.tables.register_prompt_pages(slot, prompt, upto)
+
+    def trim_slot(self, slot: int, keep_tokens: int) -> int:
+        """Drop the blocks of ``slot`` past ``keep_tokens`` positions."""
+        if self.tables is None:
+            return 0
+        n = self.tables.trim(slot, keep_tokens)
+        if n:
+            self.sync()
+        return n
+
+    def free_slot(self, slot: int) -> None:
+        if self.tables is not None:
+            self.tables.free_slot(slot)
+            self.sync()
+
+    def fork_slot(self, parent: int, child: int) -> None:
+        """Share every page of ``parent`` with ``child`` (copy-on-write on
+        the next write).  Dense layout: unsupported."""
+        if self.tables is None:
+            raise NotImplementedError("fork_slot requires the paged layout")
+        self.tables.fork(parent, child)
+        self.sync()
