@@ -29,9 +29,10 @@ import chip_smoke as cs
 from repro_torch.configs import get_config
 from repro_torch.models.model import compute_params, init_params
 
-FAMILIES = (  # first match wins
-    ("paged_attention (K4)", re.compile(r"paged_attention_kernel")),
-    ("rmsnorm (K2)", re.compile(r"rmsnorm_kernel")),
+FAMILIES = (  # first match wins; K4's two kernels are sub-rows of K4
+    ("K4 paged_attention: main", re.compile(r"paged_attention_kernel")),
+    ("K4 paged_attention: split merge", re.compile(r"paged_attention_combine")),
+    ("K2 rmsnorm", re.compile(r"rmsnorm_kernel")),
     ("matmul (cuBLAS)", re.compile(r"gemm|xmma|nvjet|cutlass|cublas|splitK", re.I)),
     ("index / scatter / gather", re.compile(r"index|scatter|gather", re.I)),
     ("reduce / argmax / softmax", re.compile(r"reduce|argmax|softmax", re.I)),
@@ -117,6 +118,7 @@ def main() -> int:
             "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / (wall * 1e3),
             "kernels_per_step": len(ks) / eng.steps,
+            "k4_ms": sum(v for k, v in by_fam.items() if k.startswith("K4")),
             "families_ms": {k: v for k, v in sorted(by_fam.items(), key=lambda x: -x[1])},
             "families_launches": dict(n_fam),
             "top_kernels_ms": dict(sorted(by_name.items(), key=lambda x: -x[1])[:8]),

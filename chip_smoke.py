@@ -13,8 +13,8 @@ without printing a result:
    Triton RMSNorm JIT, with their build seconds;
 3. kernels — each kernel against its plain PyTorch version on the card at
    qwen2.5-3b widths (paged attention: bf16 and int8 pools, window,
-   softcap, hostile tables, padding and fully masked queries, split and
-   unsplit grids; RMSNorm: d = 2048, both modes, bf16 and f32, row counts
+   softcap, hostile tables, padding and fully masked queries, the decode
+   step's grid split many ways, a prefill-sized grid unsplit; RMSNorm: d = 2048, both modes, bf16 and f32, row counts
    on and off the block), with device times (CUDA-graph replay) beside
    each kernel's bound;
 4. serving — qwen2.5-3b at full width (36 layers, random weights from
@@ -166,30 +166,40 @@ def paged_scenario(rng: np.random.Generator, ctx, spans, dtype=torch.bfloat16):
     )
 
 
-def paged_cost(a):
-    """(bytes, flops) a causal call (no window) needs: q and out once, each
-    page an admissible query reads once (all KV heads, k and v, with
-    scales), the int inputs; 4*D flops per (head, admissible key)."""
+def paged_cost(a, window=0):
+    """(bytes, flops) the call needs.  Bytes: q and the output once; each
+    slot's admissible key rows once, k and v, all KV heads, with their
+    scales (a row is admissible to some query of the slot: at or before
+    its position, inside the window, in a block whose table entry is
+    good); the int inputs.  Flops: 4*D per (head, admissible key) of each
+    query."""
     tables = a["tables"].cpu().numpy()
     q_pos = a["q_pos"].cpu().numpy()
     q_slots = a["q_slots"].cpu().numpy()
     num_pages = a["k_pool"].shape[0]
     row_bytes = KV * D * a["k_pool"].element_size() + (KV * 4 if "k_scale" in a else 0)
-    pages, keys = set(), 0
-    for pos, slot in zip(q_pos, q_slots):
-        if slot < 0:
-            continue
-        for b in range(min(pos // PAGE + 1, tables.shape[1])):
-            page = tables[slot, b]
-            if 0 <= page < num_pages:
-                pages.add(int(page))
-                keys += min(PAGE, pos - b * PAGE + 1)
-    nbytes = (2 * a["q"].numel() * a["q"].element_size() + 2 * len(pages) * PAGE * row_bytes
+    good = (tables >= 0) & (tables < num_pages)
+    kpos = np.arange(tables.shape[1] * PAGE)
+    rows = keys = 0
+    for slot in np.unique(q_slots[q_slots >= 0]):
+        pos = q_pos[q_slots == slot][:, None]
+        adm = (kpos <= pos) & np.repeat(good[slot], PAGE)
+        if window > 0:
+            adm &= kpos > pos - window
+        keys += int(adm.sum())
+        rows += int(adm.any(axis=0).sum())
+    nbytes = (2 * a["q"].numel() * a["q"].element_size() + 2 * rows * row_bytes
               + (tables.size + 2 * q_pos.size) * 4)
     return nbytes, 4.0 * D * H * keys
 
 
-def k4_checks(rng):
+def decode_scenario(rng, prompt_lens):
+    """The serving run's decode step, mid-generation: one query per slot at
+    ``prompt_len + NEW_TOKENS // 2`` cached positions."""
+    return paged_scenario(rng, [n + NEW_TOKENS // 2 for n in prompt_lens], [1] * SLOTS)
+
+
+def k4_checks(rng, prompt_lens):
     ctx = [int(x) for x in rng.integers(PROMPT_MIN, MAX_LEN, SLOTS)]
     spans = [1, 64, 1, 9, 1, 33, 1, 1]  # decode, prefill chunks and verify-sized spans
     base = paged_scenario(rng, ctx, spans)
@@ -216,6 +226,19 @@ def k4_checks(rng):
     many_slots = many["q_slots"].clone()
     many_slots[::5] = -1
     cases["many_queries"] = (dict(many, q_slots=many_slots), {"window": 200}, many_slots < 0)
+    # the decode steps' grid (one query per slot, as k4_timing times it) plus
+    # a padding query: the block range splits many ways, and the splits past
+    # a short slot's last block are empty
+    dec = decode_scenario(rng, prompt_lens)
+    dec = {k: (torch.cat([v, v[:1]]) if k in ("q", "q_pos", "q_slots") else v)
+           for k, v in dec.items()}
+    dec["q_slots"][-1] = -1
+    pad = dec["q_slots"] < 0
+    kq, ks = _paged_quantize(dec["k_pool"])
+    vq, vs = _paged_quantize(dec["v_pool"])
+    cases["decode"] = (dec, {}, pad)
+    cases["decode_int8"] = (dict(dec, k_pool=kq, v_pool=vq, k_scale=ks, v_scale=vs), {}, pad)
+    cases["decode_window"] = (dec, {"window": 100}, pad)
 
     max_err = 0.0
     for name, (a, kw, zero_rows) in cases.items():
@@ -232,6 +255,8 @@ def k4_checks(rng):
             check(bool((out[zero_rows] == 0).all()), f"K4 {name}: rows not exactly zero")
         t = a["q"].shape[0]
         splits, _ = flash_attention.split_blocks(t * KV, BLOCKS, flash_attention._sm_count(0))
+        if name.startswith("decode"):
+            check(splits > 2, f"K4 {name}: {splits} splits, the decode grid should split > 2 ways")
         log(f"K4 {name:15s} T={t:3d} splits={splits} max|err|={err:.3e} ok")
     return max_err
 
@@ -240,12 +265,12 @@ def k4_timing(rng, prompt_lens):
     """Kernel, plain version and bound at two main-path shapes: a decode
     step (one query per slot, mid-generation) and a mixed packed step (4
     prefill chunks of 64)."""
-    decode = paged_scenario(rng, [n + NEW_TOKENS // 2 for n in prompt_lens], [1] * SLOTS)
+    decode = decode_scenario(rng, prompt_lens)
     mixed = paged_scenario(rng, [n for n in prompt_lens], [CHUNK] * 4 + [1] * 4)
     rows = {}
     for shape, a in (("decode", decode), ("mixed", mixed)):
         kern = time_ms(lambda: flash_attention.paged_flash_attention(**a))
-        plain = time_ms(lambda: ref.paged_attention_xla(**a), iters=10)
+        plain = time_ms(lambda: ref.paged_attention_ref(**a), iters=10)
         nbytes, flops = paged_cost(a)
         b, by = bound_ms(nbytes, flops)
         rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by,
@@ -435,7 +460,7 @@ def main() -> int:
     cfg = get_config("qwen2_5_3b")
     prompt_lens = [int(n) for n in rng.integers(PROMPT_MIN, PROMPT_MAX + 1, SLOTS)]
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompt_lens]
-    k4_err = k4_checks(rng)
+    k4_err = k4_checks(rng, prompt_lens)
     k2_err = k2_checks(rng)
     k4_t = k4_timing(rng, prompt_lens)
     k2_t = k2_timing(rng)

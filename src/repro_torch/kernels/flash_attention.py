@@ -8,7 +8,7 @@ the block range split over more CTAs when the grid is too small for the
 card); this module checks the arguments, picks the split, allocates the
 output and the split's scratch, and launches it on PyTorch's current
 stream.  It takes CUDA tensors only: the plain version for the CPU is
-``kernels.ref.paged_attention_xla``, chosen by ``kernels.ops`` from the
+``kernels.ref.paged_attention_ref``, chosen by ``kernels.ops`` from the
 tensors' device.
 
 ``paged_flash_attention.launches`` counts launches (nothing else adds to
@@ -25,8 +25,8 @@ import torch
 from . import _build
 
 SOURCE = "paged_attention.cu"
-HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 16  # H / KV; padded to a power of two GP with D * GP <= 2048
+# (head dim, H / KV) the source instantiates: the configs the port serves
+SERVED = {(128, 8)}  # qwen2.5-3b
 WARPS = 4  # kWarps in the source: blocks a CTA walks at once
 
 _P = ctypes.c_void_p
@@ -66,8 +66,8 @@ def _ptr(x) -> int:
 
 
 def paged_flash_attention(
-    q: torch.Tensor,  # (T, H, D) bf16 | f32
-    k_pool: torch.Tensor,  # (num_pages, page_size, KV, D) q's dtype | int8
+    q: torch.Tensor,  # (T, H, D) bf16
+    k_pool: torch.Tensor,  # (num_pages, page_size, KV, D) bf16 | int8
     v_pool: torch.Tensor,
     tables: torch.Tensor,  # (num_slots, num_blocks) int
     q_pos: torch.Tensor,  # (T,) int
@@ -94,18 +94,16 @@ def paged_flash_attention(
                          f"{tuple(q.shape)}, {tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
     t, h, d = q.shape
     num_pages, page_size, kvh, dk = k_pool.shape
-    if dk != d or d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} (pool {dk}) not in {HEAD_DIMS}")
-    if h % kvh or not 1 <= h // kvh <= (MAX_GROUP if d <= 128 else MAX_GROUP // 2):
-        raise ValueError(f"H/KV = {h}/{kvh} must be a whole group of at most {MAX_GROUP} "
-                         f"heads (at most {MAX_GROUP // 2} for D > 128)")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    if dk != d or h % kvh or (d, h // kvh) not in SERVED:
+        raise ValueError(f"head dim {d} (pool {dk}) and group H/KV = {h}/{kvh}: the kernel "
+                         f"is built for (head dim, group) in {sorted(SERVED)}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"q must be bfloat16, got {q.dtype}")
     quantized = k_pool.dtype == torch.int8
     if (k_scale is not None) != (v_scale is not None) or quantized != (k_scale is not None):
         raise ValueError("int8 pools need both k_scale and v_scale; float pools neither")
     if not quantized and k_pool.dtype != q.dtype:
-        raise TypeError(f"pool dtype {k_pool.dtype} must be q's ({q.dtype}) or int8")
+        raise TypeError(f"pool dtype {k_pool.dtype} must be bfloat16 or int8")
     if v_pool.dtype != k_pool.dtype:
         raise TypeError("k and v pools must share a dtype")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):

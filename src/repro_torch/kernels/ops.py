@@ -42,12 +42,12 @@ def _device_type(x: torch.Tensor) -> str:
 def paged_flash_attention(q, k_pool, v_pool, tables, q_pos, q_slots,
                           window=0, softcap=0.0, k_scale=None, v_scale=None):
     """Fused paged attention: the CUDA kernel on the card, the vectorised
-    plain path (``ref.paged_attention_xla``) on the CPU."""
+    plain path (``ref.paged_attention_ref``) on the CPU."""
     if _device_type(q) == "cuda":
         return _fa.paged_flash_attention(
             q, k_pool, v_pool, tables, q_pos, q_slots, window=window,
             softcap=softcap, k_scale=k_scale, v_scale=v_scale)
-    return _ref.paged_attention_xla(
+    return _ref.paged_attention_ref(
         q, k_pool, v_pool, tables, q_pos, q_slots, window=window,
         softcap=softcap, k_scale=k_scale, v_scale=v_scale)
 

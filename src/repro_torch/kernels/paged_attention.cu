@@ -4,8 +4,8 @@
 //
 // Contract (pinned by tests/test_torch_kernels.py on the plain version and
 // by tests/test_torch_kernels_gpu.py and chip_smoke.py on the card):
-//   q (T, H, D) bf16|f32; k/v pools (P, page_size, KV, D) in q's dtype or
-//   int8 with per-(row, kv head) f32 scales (P, page_size, KV); block tables
+//   q (T, H, D) bf16; k/v pools (P, page_size, KV, D) bf16, or int8 with
+//   per-(row, kv head) f32 scales (P, page_size, KV); block tables
 //   (num_slots, num_blocks) int32; q_pos / q_slots (T,) int32.
 //   Query t of slot s attends keys at absolute positions kp <= q_pos[t]
 //   (and kp > q_pos[t] - window when window > 0) found through
@@ -34,7 +34,7 @@
 //     pages: no barrier inside the loop.
 //   * The warps' (max, sum, acc) merge once through shared memory.  With one
 //     split the CTA writes the output; with several it writes its partial
-//     and `combine_kernel` merges the splits (flash-decoding).
+//     and `paged_attention_combine` merges the splits (flash-decoding).
 // All softmax math is f32; the output is rounded once to q's dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,14 +46,11 @@ constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
@@ -195,7 +192,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 // Merge the splits' partials of one (token, KV head, query head) into the
 // output: one thread per output dim.
 template <int D, typename QT>
-__global__ void __launch_bounds__(D) combine_kernel(
+__global__ void __launch_bounds__(D) paged_attention_combine(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     QT* __restrict__ out, int G, int KV, int splits) {
   const int t = blockIdx.x;
@@ -236,34 +233,10 @@ cudaError_t launch(const Args& a) {
       a.num_blocks, a.blocks_per_split, a.window, a.softcap, a.sm_scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return e;
-  combine_kernel<D, QT><<<dim3(a.T, a.KV, a.G), D, 0, a.stream>>>(
+  paged_attention_combine<D, QT><<<dim3(a.T, a.KV, a.G), D, 0, a.stream>>>(
       static_cast<const float*>(a.part_acc), static_cast<const float*>(a.part_ml),
       static_cast<QT*>(a.out), a.G, a.KV, a.splits);
   return cudaGetLastError();
-}
-
-template <int D, int GP>
-cudaError_t dispatch_dtype(int q_is_bf16, int kv_is_int8, const Args& a) {
-  if (q_is_bf16) {
-    if (kv_is_int8) return launch<D, GP, __nv_bfloat16, int8_t, true>(a);
-    return launch<D, GP, __nv_bfloat16, __nv_bfloat16, false>(a);
-  }
-  if (kv_is_int8) return launch<D, GP, float, int8_t, true>(a);
-  return launch<D, GP, float, float, false>(a);
-}
-
-// GP: g rounded up to a power of two; D * GP <= 2048 keeps a lane's query,
-// accumulator and row slices (3 * D * GP / 32 floats) in registers.
-template <int D>
-cudaError_t dispatch_group(int G, int q_is_bf16, int kv_is_int8, const Args& a) {
-  if (G == 1) return dispatch_dtype<D, 1>(q_is_bf16, kv_is_int8, a);
-  if (G == 2) return dispatch_dtype<D, 2>(q_is_bf16, kv_is_int8, a);
-  if (G <= 4) return dispatch_dtype<D, 4>(q_is_bf16, kv_is_int8, a);
-  if (G <= 8) return dispatch_dtype<D, 8>(q_is_bf16, kv_is_int8, a);
-  if constexpr (D <= 128) {
-    if (G <= 16) return dispatch_dtype<D, 16>(q_is_bf16, kv_is_int8, a);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -287,16 +260,17 @@ extern "C" int repro_paged_attention(
     return -1;
   }
   const int G = H / KV;
+  // Only the shapes the port serves are instantiated: qwen2.5-3b (D 128,
+  // g 8) with bf16 queries over bf16 or int8 pools.  A config with another
+  // head dim or group adds its launch<D, GP, ...> here (GP: g rounded up to
+  // a power of two, D * GP <= 2048 so a lane's query, accumulator and row
+  // slices stay in registers) and its (D, g) to SERVED in flash_attention.py.
+  if (D != 128 || G != 8 || !q_is_bf16) return -1;
   const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, q_pos, q_slots, out,
                part_acc, part_ml, T, G, KV, num_pages, page_size, num_slots, num_blocks,
                splits, blocks_per_split, window, softcap, sm_scale,
                static_cast<cudaStream_t>(stream)};
-  cudaError_t e;
-  switch (D) {
-    case 64: e = dispatch_group<64>(G, q_is_bf16, kv_is_int8, a); break;
-    case 128: e = dispatch_group<128>(G, q_is_bf16, kv_is_int8, a); break;
-    case 256: e = dispatch_group<256>(G, q_is_bf16, kv_is_int8, a); break;
-    default: return -1;
-  }
+  const cudaError_t e = kv_is_int8 ? launch<128, 8, __nv_bfloat16, int8_t, true>(a)
+                                   : launch<128, 8, __nv_bfloat16, __nv_bfloat16, false>(a);
   return static_cast<int>(e);
 }

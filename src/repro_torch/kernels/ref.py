@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the ported kernels (the correctness references).
 
-Ports of ``repro.kernels.ref`` plus the vectorised XLA path
-``repro.kernels.flash_attention.paged_attention_xla``.  On the CPU the
+Ports of ``repro.kernels.ref``.  Its paged attention and the vectorised
+XLA path ``paged_attention_xla`` (``repro.kernels.flash_attention``)
+compute the same function, so one port stands for both.  On the CPU the
 dispatcher (``kernels.ops``) runs these; on the card ``chip_smoke.py``
 holds each hand-written kernel against them on the same inputs.
 """
@@ -14,18 +15,46 @@ import torch
 NEG_INF = -1e30
 
 
-def _paged_gather_attend(q, k_pool, v_pool, tables, q_pos, q_slots, window,
-                         softcap, k_scale, v_scale, pages_safe, page_ok):
+def paged_attention_ref(
+    q: torch.Tensor,  # (T, H, D) packed query tokens
+    k_pool: torch.Tensor,  # (num_pages, page_size, KV, D)
+    v_pool: torch.Tensor,  # (num_pages, page_size, KV, D)
+    tables: torch.Tensor,  # (num_slots, num_blocks) int32
+    q_pos: torch.Tensor,  # (T,) absolute positions
+    q_slots: torch.Tensor,  # (T,) slot per query; < 0 = padding
+    window: int = 0,
+    softcap: float = 0.0,
+    k_scale: torch.Tensor = None,  # (num_pages, page_size, KV) f32, int8 pools
+    v_scale: torch.Tensor = None,
+) -> torch.Tensor:
+    """Plain paged attention, the path the port runs on the CPU.  Port of
+    both ``repro.kernels.ref.paged_attention_ref`` and the vectorised
+    ``repro.kernels.flash_attention.paged_attention_xla``, which compute
+    the same function: gather only each token's own pages through its
+    slot's block table (one (T, num_blocks) gather, never the whole pool),
+    mask by position (causal / sliding window) and by bad table entries
+    (negative or ``>= num_pages``, redirected to page 0 and masked).
+    Padding queries and fully-masked queries return zero rows.  int8 pools
+    pass per-row scales."""
+    if (k_scale is not None) != (v_scale is not None):
+        # raised, not assert-ed: a half-passed pair would silently attend
+        # over raw int8 codes for one of K/V
+        raise ValueError("pass both k_scale and v_scale, or neither")
     t, h, d = q.shape
     num_pages, page_size, kvh, _ = k_pool.shape
     nb = tables.shape[1]
     g = h // kvh
+    q_pos = q_pos.long()
+    q_slots = q_slots.long()
     valid_q = q_slots >= 0
-    keys = k_pool[pages_safe].float()  # (T, NB, ps, KV, D)
-    vals = v_pool[pages_safe].float()
+    pages = tables[q_slots.clamp(0, tables.shape[0] - 1)].long()  # (T, NB)
+    page_ok = (pages >= 0) & (pages < num_pages)
+    safe = torch.where(page_ok, pages, 0)
+    keys = k_pool[safe].float()  # (T, NB, ps, KV, D)
+    vals = v_pool[safe].float()
     if k_scale is not None:
-        keys = keys * k_scale[pages_safe][..., None]
-        vals = vals * v_scale[pages_safe][..., None]
+        keys = keys * k_scale[safe][..., None]
+        vals = vals * v_scale[safe][..., None]
     keys = keys.reshape(t, nb * page_size, kvh, d)
     vals = vals.reshape(t, nb * page_size, kvh, d)
     qg = q.reshape(t, kvh, g, d).float() / math.sqrt(d)
@@ -44,69 +73,6 @@ def _paged_gather_attend(q, k_pool, v_pool, tables, q_pos, q_slots, window,
     out = torch.einsum("thgk,tkhd->thgd", w, vals)
     out = torch.where(valid_q[:, None, None, None], out, 0.0)
     return out.reshape(t, h, d).to(q.dtype)
-
-
-def _check_scales(k_scale, v_scale):
-    if (k_scale is not None) != (v_scale is not None):
-        # raised, not assert-ed: a half-passed pair would silently attend
-        # over raw int8 codes for one of K/V
-        raise ValueError("pass both k_scale and v_scale, or neither")
-
-
-def paged_attention_ref(
-    q: torch.Tensor,  # (T, H, D) packed query tokens
-    k_pool: torch.Tensor,  # (num_pages, page_size, KV, D)
-    v_pool: torch.Tensor,  # (num_pages, page_size, KV, D)
-    tables: torch.Tensor,  # (num_slots, num_blocks) int32
-    q_pos: torch.Tensor,  # (T,) absolute positions
-    q_slots: torch.Tensor,  # (T,) slot per query; < 0 = padding
-    window: int = 0,
-    softcap: float = 0.0,
-    k_scale: torch.Tensor = None,  # (num_pages, page_size, KV) f32, int8 pools
-    v_scale: torch.Tensor = None,
-) -> torch.Tensor:
-    """Naive paged attention (port of ``repro.kernels.ref.paged_attention_ref``):
-    gather each query's logical KV buffer through its slot's block table,
-    mask by position (causal / sliding window) and by bad table entries
-    (negative or ``>= num_pages``).  Padding queries and fully-masked
-    queries return zero rows.  int8 pools pass per-row scales."""
-    _check_scales(k_scale, v_scale)
-    num_pages = k_pool.shape[0]
-    q_pos = q_pos.long()
-    q_slots = q_slots.long()
-    pages = tables[q_slots.clamp(0, tables.shape[0] - 1)].long()  # (T, NB)
-    page_ok = (pages >= 0) & (pages < num_pages)
-    safe = pages.clamp(0, num_pages - 1)
-    return _paged_gather_attend(q, k_pool, v_pool, tables, q_pos, q_slots,
-                                window, softcap, k_scale, v_scale, safe, page_ok)
-
-
-def paged_attention_xla(
-    q: torch.Tensor,
-    k_pool: torch.Tensor,
-    v_pool: torch.Tensor,
-    tables: torch.Tensor,
-    q_pos: torch.Tensor,
-    q_slots: torch.Tensor,
-    window: int = 0,
-    softcap: float = 0.0,
-    k_scale: torch.Tensor = None,
-    v_scale: torch.Tensor = None,
-) -> torch.Tensor:
-    """Vectorised plain paged attention (port of
-    ``repro.kernels.flash_attention.paged_attention_xla``), the path the
-    port runs on the CPU.  Same contract as the kernel: it gathers only
-    each token's own pages (one (T, num_blocks) gather, never the whole
-    pool), bad table entries are redirected to page 0 and masked."""
-    _check_scales(k_scale, v_scale)
-    num_pages = k_pool.shape[0]
-    q_pos = q_pos.long()
-    q_slots = q_slots.long()
-    pages = tables[q_slots.clamp(0, tables.shape[0] - 1)].long()  # (T, NB)
-    page_ok = (pages >= 0) & (pages < num_pages)
-    safe = torch.where(page_ok, pages, 0)
-    return _paged_gather_attend(q, k_pool, v_pool, tables, q_pos, q_slots,
-                                window, softcap, k_scale, v_scale, safe, page_ok)
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -34,18 +34,25 @@ def cuda():
 class TestKernelsOnCard:
     @pytest.mark.parametrize("int8", [False, True])
     @pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 5.0)])
-    @pytest.mark.parametrize("h,d,dtype", [
-        (16, 128, torch.bfloat16),  # qwen2.5-3b: g = 8
-        (14, 64, torch.bfloat16),  # g = 7: lanes of a padding head idle
-        (16, 128, torch.float32),
-    ], ids=["g8_bf16", "g7_d64_bf16", "g8_f32"])
-    def test_paged_attention(self, cuda, int8, window, softcap, h, d, dtype):
-        a = packed_scenario(page_size=16, kvh=2, h=h, d=d, seed=3, lens=(40, 19, 33))
+    @pytest.mark.parametrize("decode", [False, True], ids=["packed", "decode"])
+    def test_paged_attention(self, cuda, int8, window, softcap, decode):
+        """qwen2.5-3b's widths (16 heads over 2 KV heads, head dim 128).
+        ``decode`` keeps one query per slot over long contexts: a grid of a
+        few CTAs, whose block range the wrapper splits three ways or more,
+        some splits empty for the shorter slots."""
+        lens = (300, 40, 190) if decode else (40, 19, 33)
+        a = packed_scenario(page_size=16, kvh=2, h=16, d=128, seed=3, lens=lens)
+        if decode:  # each slot's last query, and a copy of the first to pad
+            keep = np.r_[0, 0, 4, len(a["q_pos"]) - 1]
+            a["q"], a["q_pos"], a["q_slots"] = (a[k][keep] for k in ("q", "q_pos", "q_slots"))
+            splits, _ = flash_attention.split_blocks(
+                2 * len(keep), a["tables"].shape[1], flash_attention._sm_count(0))
+            assert splits >= 3
         a["tables"][1, 0] = -2  # hostile entry
         a["q_slots"][0] = -1  # padding query
         ta = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
         for k in ("q", "k_pool", "v_pool"):
-            ta[k] = ta[k].to(dtype)
+            ta[k] = ta[k].to(torch.bfloat16)
         if int8:
             for k in ("k", "v"):
                 codes, scale = quantize_pool(np32(ta[f"{k}_pool"]))
@@ -56,6 +63,15 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         np.testing.assert_allclose(np32(out), np32(want), **TOL["kernel_bf16_gpu"])
         assert (out[0] == 0).all()
+
+    @pytest.mark.parametrize("h,d,dtype", [(14, 64, torch.bfloat16), (16, 128, torch.float32)])
+    def test_paged_attention_refuses_unserved_shapes(self, cuda, h, d, dtype):
+        a = packed_scenario(page_size=16, kvh=2, h=h, d=d, seed=3)
+        ta = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
+        for k in ("q", "k_pool", "v_pool"):
+            ta[k] = ta[k].to(dtype)
+        with pytest.raises((ValueError, TypeError)):
+            flash_attention.paged_flash_attention(**ta)
 
     @pytest.mark.parametrize("rows", [8, 257])
     @pytest.mark.parametrize("model", [False, True])
