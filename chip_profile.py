@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Where the serving time goes on the card: device time by kernel family
-and the device's idle share, for the run that ``chip_smoke.py`` drives.
+"""Where the time goes on the card: device time by kernel family and the
+device's idle share, for the serving and training runs that
+``chip_smoke.py`` drives.
 
     python3 chip_profile.py            # from the root of a checkout, one GPU
 
 qwen2.5-3b at full width (random weights from ``--seed``) serves the same
 eight requests as ``chip_smoke.py`` through the paged engine, unpacked and
-packed.  Each layout runs twice: once on the host clock alone (the wall
-time a user sees), then under ``torch.profiler`` for the kernels' device
-times.  The idle share is one minus the union of the kernels' device
-intervals over the unprofiled wall time.  Prints one JSON line per layout
-and nothing else is claimed: profiling slows the host, never the kernels.
+packed, then trains one DropCompute step of ``chip_smoke.py``'s training
+run (step 0: 4 workers x 2 micro-batches of 2048 tokens at its tau).  Each
+run goes twice: once on the host clock alone (the wall time a user sees),
+then under ``torch.profiler`` for the kernels' device times (training: a
+warm-up step first).  The idle share is one minus the union of the
+kernels' device intervals over the unprofiled wall time.  Prints one JSON
+line per run and nothing else is claimed: profiling slows the host, never
+the kernels.
 """
 from __future__ import annotations
 
@@ -32,7 +36,11 @@ from repro_torch.models.model import compute_params, init_params
 FAMILIES = (  # first match wins; K4's two kernels are sub-rows of K4
     ("K4 paged_attention: main", re.compile(r"paged_attention_kernel")),
     ("K4 paged_attention: split merge", re.compile(r"paged_attention_combine")),
+    ("K3 flash_attention: forward", re.compile(r"attn_fwd")),
+    ("K3 flash_attention: backward", re.compile(r"attn_bwd")),
     ("K2 rmsnorm", re.compile(r"rmsnorm_kernel")),
+    ("K2 rmsnorm: backward", re.compile(r"rmsnorm_bwd_kernel|colsum_kernel")),
+    ("K1 masked_accum", re.compile(r"masked_accum_kernel")),
     ("matmul (cuBLAS)", re.compile(r"gemm|xmma|nvjet|cutlass|cublas|splitK", re.I)),
     ("index / scatter / gather", re.compile(r"index|scatter|gather", re.I)),
     ("reduce / argmax / softmax", re.compile(r"reduce|argmax|softmax", re.I)),
@@ -79,6 +87,52 @@ def union_us(intervals) -> float:
     return busy
 
 
+def profile_record(prof, wall_s: float, per: int) -> dict:
+    """Device busy time, idle share and time by kernel family of one
+    profiled run (``per``: the steps or micro-batches to divide counts by)."""
+    ks = kernel_intervals(prof)
+    if not ks:
+        raise RuntimeError("the profiler recorded no device kernels")
+    by_fam, by_name, n_fam = defaultdict(float), defaultdict(float), defaultdict(int)
+    for name, s, e in ks:
+        by_fam[family(name)] += (e - s) / 1e3
+        by_name[name[:90]] += (e - s) / 1e3
+        n_fam[family(name)] += 1
+    busy_ms = union_us(ks) / 1e3
+    return {
+        "wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / (wall_s * 1e3), "kernels_per_unit": len(ks) / per,
+        "families_ms": {k: v for k, v in sorted(by_fam.items(), key=lambda x: -x[1])},
+        "families_launches": dict(n_fam),
+        "top_kernels_ms": dict(sorted(by_name.items(), key=lambda x: -x[1])[:8]),
+    }
+
+
+def train_profile(cfg, seed: int) -> dict:
+    """One training step of ``chip_smoke.train_phase``'s run (its step 0)."""
+    n, m = cs.TRAIN_WORKERS, cs.TRAIN_MB
+    data = cs.DataConfig(vocab_size=cfg.vocab_size, seq_len=cs.TRAIN_SEQ, batch_size=n * m,
+                         strategy="pack", seed=seed)
+    latency = cs.LatencyModel(base=0.45, noise=cs.NoiseModel(kind="paper_lognormal"))
+    draws = [latency.sample_at(step, n, m, seed=seed + 1) for step in range(cs.TRAIN_STEPS)]
+    tau = float(np.median(np.stack(draws).sum(-1)))
+    tcfg = cs.TrainConfig(steps=1, n_workers=n, microbatches=m, lr=1e-4, clip_norm=1.0,
+                          seed=seed, latency=latency, drop=cs.DropConfig(enabled=True, tau=tau))
+    kept = int(cs.drop_mask(draws[0], tau, 1).sum())
+    params = init_params(cfg, seed=seed, device="cuda")
+    cs.train(cfg, data, tcfg, params=params, device="cuda")  # warm-up: JIT, cuBLAS plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs.train(cfg, data, tcfg, params=params, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cs.train(cfg, data, tcfg, params=params, device="cuda")
+        torch.cuda.synchronize()
+    return {"run": "train", "kept_microbatches": kept, **profile_record(prof, wall, kept)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -104,26 +158,13 @@ def main() -> int:
         with torch.profiler.profile(activities=acts) as prof:
             eng.run()
             torch.cuda.synchronize()
-        ks = kernel_intervals(prof)
-        if not ks:
-            raise RuntimeError("the profiler recorded no device kernels")
-        by_fam, by_name, n_fam = defaultdict(float), defaultdict(float), defaultdict(int)
-        for name, s, e in ks:
-            by_fam[family(name)] += (e - s) / 1e3
-            by_name[name[:90]] += (e - s) / 1e3
-            n_fam[family(name)] += 1
-        busy_ms = union_us(ks) / 1e3
-        rec = {
-            "layout": "packed" if packed else "unpacked", "steps": steps,
-            "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / (wall * 1e3),
-            "kernels_per_step": len(ks) / eng.steps,
-            "k4_ms": sum(v for k, v in by_fam.items() if k.startswith("K4")),
-            "families_ms": {k: v for k, v in sorted(by_fam.items(), key=lambda x: -x[1])},
-            "families_launches": dict(n_fam),
-            "top_kernels_ms": dict(sorted(by_name.items(), key=lambda x: -x[1])[:8]),
-        }
+        rec = {"run": "serve", "layout": "packed" if packed else "unpacked", "steps": steps,
+               **profile_record(prof, wall, eng.steps)}
+        rec["k4_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K4"))
         print(json.dumps(rec), flush=True)
+    del params, eng
+    cs.free_device()
+    print(json.dumps(train_profile(cfg, args.seed)), flush=True)
     return 0
 
 

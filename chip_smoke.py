@@ -8,22 +8,42 @@ without printing a result:
 
 1. device — the card's name and power limit (``nvidia-smi``); fails
    without CUDA;
-2. build — the CUDA paged-attention kernel from
-   ``src/repro_torch/kernels/paged_attention.cu`` (``nvcc``, sm_90a) and the
-   Triton RMSNorm JIT, with their build seconds;
+2. build — both CUDA sources, ``paged_attention.cu`` and
+   ``flash_attention.cu`` (``nvcc``, sm_90a, the two builds started
+   together), and the Triton kernels' JIT, with their build seconds;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   qwen2.5-3b widths (paged attention: bf16 and int8 pools, window,
-   softcap, hostile tables, padding and fully masked queries, the decode
-   step's grid split many ways, a prefill-sized grid unsplit; RMSNorm: d = 2048, both modes, bf16 and f32, row counts
-   on and off the block), with device times (CUDA-graph replay) beside
-   each kernel's bound;
+   qwen2.5-3b widths, timed by CUDA-graph replay with L2 flushed, beside
+   its bound, its plain version's time and, where one PyTorch call computes
+   the same function, that call's time:
+   * paged attention (K4): bf16 and int8 pools, window, softcap, hostile
+     tables, padding and fully masked queries, the decode step's grid split
+     many ways, a prefill-sized grid unsplit;
+   * RMSNorm (K2): d = 2048, both modes, bf16 and f32, row counts on and
+     off the block; its backward at the training shape (2048 x 2048);
+   * flash attention (K3), forward and backward, at the training shape
+     (B 1, H 16, KV 2, S 2048, D 128, bf16, causal), with a window and with
+     segment ids (queries without a key: the TPU kernel's visited-range
+     mean), row by row; a planted fault must fail the same check;
+   * masked accumulation (K1) on the largest leaf (36 x 2048 x 11008, bf16
+     gradients), keep 0 and 1;
 4. serving — qwen2.5-3b at full width (36 layers, random weights from
    ``--seed``) through ``ContinuousBatcher(cache="paged", chunk_size=64,
    token_budget=256)``, unpacked then packed, 8 requests of 128-512 prompt
    tokens and 32 new tokens each; the launch counters must show 36
    paged-attention and 73 RMSNorm launches per engine step, and the first
    prefill step's logits must agree with the dense-cache engine's plain
-   attention.
+   attention;
+5. training — qwen2.5-3b at 36 layers through ``repro_torch.train.train``:
+   f32 master weights, bf16 compute, remat, synthetic packed sequences of
+   2048 tokens, 4 virtual workers x 2 micro-batches of one sequence,
+   AdamW (lr 1e-4, clip 1.0), DropCompute at a fixed tau (the median of
+   the run's per-worker latency sums under ``paper_lognormal``), 3 steps.
+   Losses must be finite, the drop fractions those of the numpy latency
+   draws, and the launch counters those the code implies per kept
+   micro-batch; then a 2-layer full-width model at 256 tokens must give
+   ``loss_sum`` and every gradient leaf on the card (kernels, bf16)
+   within a stated tolerance of the CPU's (plain versions, f32), and a
+   planted K3 backward fault must fall outside it.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +51,10 @@ The last two lines of standard output are the ``kernels`` JSON record and
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -45,10 +69,16 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import get_config  # noqa: E402  (fails outside a checkout)
-from repro_torch.kernels import _build, flash_attention, ops, ref, rmsnorm  # noqa: E402
+from repro_torch.core import DropConfig, LatencyModel, NoiseModel, drop_mask  # noqa: E402
+from repro_torch.core.engine import make_grad_fn  # noqa: E402
+from repro_torch.data import DataConfig  # noqa: E402
+from repro_torch.kernels import _build, flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
+from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.layers import _paged_quantize  # noqa: E402
 from repro_torch.models.model import compute_params, init_params, prefill_chunk  # noqa: E402
+from repro_torch.models.transformer import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, KVCacheSpec, Request  # noqa: E402
+from repro_torch.train import TrainConfig, train  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -77,6 +107,40 @@ K2_BF16_ULPS = 1
 # difference relative to the largest logit: 3%, against the 0.9% the first
 # kernel showed on the card.
 LOGITS_REL_TOL = 0.03
+# K3 against its plain version, bf16, row by row: the largest relative
+# error of one row, ||got_r - want_r|| / ||want_r||, over the query rows of
+# out and dq and the key rows of dk and dv (``row_rel_err``).  A causal
+# row's magnitude falls as 1/sqrt(its key count), so a limit relative to a
+# whole tensor's largest value would let late rows be wrong; per row the
+# kernel's roundings (P and dS to bf16 before the tensor-core products,
+# each output once: 2^-9 relative each) stay near 1e-3 wherever the row
+# lies.  The limit sits between the sound readings and a planted fault
+# (``k3_planted_fault``: the diagonal 64-key tile skipped for query rows
+# from S/2 on), whose readings the smoke also checks: see PERF.md.  The
+# log-sum-exp is compared absolutely (f32 in both).
+K3_ROW_TOL = 2e-2
+K3_LSE_TOL = 1e-3
+# K2's backward against its plain version, bf16: the largest difference
+# over the largest magnitude (every row of dx is O(1) at the same scale, so
+# no row hides under another); dx is rounded once.  K1 is exact at keep 0
+# and 1 with scale 1 (the product keep * grad is exact in f32).
+TRAIN_REL_TOL = 2e-2
+K2_BWD_F32_REL_TOL = 1e-5
+# The 2-layer full-width model at 256 tokens, card (kernels, bf16 compute)
+# against the CPU (plain versions, f32): bf16 rounds the compute copy of
+# the weights and every activation (2^-9 relative each), so the loss sum,
+# an average of ~255 CE terms near log(V), moves by well under 1%.  Every
+# gradient leaf is held on its own, ||g_card - g_cpu|| / ||g_cpu||; the
+# limit sits between the sound run's worst leaf and a planted backward
+# fault (``one_head_dkdv``: K3's dK/dV from one query head of each group
+# instead of all g), whose worst leaf the smoke also checks: see PERF.md.
+PARITY_LOSS_REL_TOL = 0.01
+PARITY_LEAF_REL_TOL = 0.05
+
+# the training phase: qwen2.5-3b, 4 virtual workers x 2 micro-batches of one
+# 2048-token sequence, 3 steps
+TRAIN_SEQ, TRAIN_WORKERS, TRAIN_MB, TRAIN_STEPS = 2048, 4, 2, 3
+PARITY_LAYERS, PARITY_SEQ = 2, 256
 
 
 class SmokeFailure(RuntimeError):
@@ -127,6 +191,26 @@ def time_ms(fn, iters: int = 30) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def time_ms_eager(fn, iters: int = 5) -> float:
+    """Median device time of one call of ``fn`` between two events, L2
+    flushed before each: for calls that cannot be captured in a CUDA graph
+    (a host sync inside, or autograd's backward).  Host launch time is
+    inside, which at the millisecond sizes timed this way is small."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -342,6 +426,206 @@ def k2_timing(rng, d=2048, eps=1e-6):
 
 
 # ---------------------------------------------------------------------------
+# K3: training flash attention, forward and backward
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def row_rel_err(got, want) -> float:
+    """max over rows (the last axis) of ||got_r - want_r|| / ||want_r||, a
+    row's norm taken as at least 2^-12 of the largest row's: a row that is
+    zero in exact arithmetic (dq of a query with one admissible key) is f32
+    rounding noise in both versions, ~1e-6 against rows of ~10."""
+    got, want = got.float(), want.float()
+    num = torch.linalg.vector_norm(got - want, dim=-1)
+    den = torch.linalg.vector_norm(want, dim=-1)
+    return (num / den.clamp(min=2.0 ** -12 * den.max().item() + 1e-30)).max().item()
+
+
+def k3_planted_fault(q, k, v, do, want, wants):
+    """What a K3 kernel that skips the diagonal 64-key tile for query rows
+    from S/2 on would return (the plain versions on that mask), held
+    against the sound plain result by the checks' own metrics; returns
+    the readings (row errors of out, dq, dk, dv; the whole-tensor metric
+    of out)."""
+    s = q.shape[2]
+    rows = torch.arange(s, device=DEV)[:, None]
+    keys = torch.arange(s, device=DEV)[None]
+    tile = (rows >= s // 2) & (keys // 64 == rows // 64)
+    mask = ref.attention_mask(s, s, True, 0, device=DEV) & ~tile
+    bad, bad_lse = ref.flash_attention_fwd_ref(q, k, v, mask=mask)
+    bad_grads = ref.flash_attention_bwd_ref(q, k, v, bad, bad_lse, do, mask=mask)
+    return ([row_rel_err(bad, want)] + [row_rel_err(g, w) for g, w in zip(bad_grads, wants)],
+            rel_err(bad, want))
+
+
+def attn_inputs(rng):
+    """q, k, v, dO as transposed (1, heads, S, D) views of (1, S, heads, D)
+    bf16 storage at the training length, the layout the model passes."""
+
+    def t(heads):
+        x = torch.from_numpy(rng.standard_normal((1, TRAIN_SEQ, heads, D), dtype=np.float32))
+        return x.to(DEV, torch.bfloat16).transpose(1, 2)
+
+    return t(H), t(KV), t(KV), t(H)
+
+
+def k3_cases():
+    seg = torch.zeros((1, TRAIN_SEQ), dtype=torch.int32, device=DEV)
+    seg[:, 700:] += 1
+    seg[:, 1500:] += 1
+    qseg = seg.clone()
+    qseg[:, 1000:1010] = 9  # no key has segment 9: the visited-range mean
+    return {"causal": {}, "window": {"window": 256},
+            "segments": {"q_segment_ids": qseg, "kv_segment_ids": seg}}
+
+
+def k3_checks(rng):
+    """Forward (out, lse) and backward (dq, dk, dv) against the plain
+    versions at the training shape, row by row, and the same metric
+    against a planted fault; returns (fwd max|err|, bwd max|err|)."""
+    q, k, v, do = attn_inputs(rng)
+    fwd_err = bwd_err = 0.0
+    for name, kw in k3_cases().items():
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        # the backward's plain version takes the kernel's own out and lse: where
+        # one key dominates a softmax, dq is smaller than what one bf16 ulp of
+        # O moves through delta = rowsum(dO * O), so feeding the two versions
+        # different roundings of O would compare the roundings
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x.float()).all()) for x in (out, lse, *grads)),
+              f"K3 {name}: non-finite output")
+        e_out = row_rel_err(out, want)
+        e_lse = (lse - want_lse).abs().max().item()
+        errs = [row_rel_err(g, w) for g, w in zip(grads, wants)]
+        log(f"K3 {name:8s} S={TRAIN_SEQ}: row rel err fwd {e_out:.2e} (lse abs {e_lse:.1e}), "
+            f"bwd dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} (whole-tensor metric: "
+            f"fwd {rel_err(out, want):.2e}, bwd {max(rel_err(g, w) for g, w in zip(grads, wants)):.2e})")
+        check(e_out <= K3_ROW_TOL, f"K3 fwd {name}: row relative error {e_out}")
+        check(e_lse <= K3_LSE_TOL, f"K3 fwd {name}: lse off by {e_lse}")
+        if name == "segments":
+            lonely = np.s_[:, :, 1000:1010]
+            check(row_rel_err(out[lonely], want[lonely]) <= K3_ROW_TOL,
+                  "K3 fwd: queries without a key differ from the visited-range mean")
+        check(max(errs) <= K3_ROW_TOL, f"K3 bwd {name}: row relative errors (dq, dk, dv) {errs}")
+        if name == "causal":
+            bad, whole = k3_planted_fault(q, k, v, do, want, wants)
+            log(f"K3 planted fault (diagonal 64-key tile skipped from row {TRAIN_SEQ // 2}): "
+                f"row rel err out {bad[0]:.2e} dq {bad[1]:.2e} dk {bad[2]:.2e} dv {bad[3]:.2e}; "
+                f"whole-tensor metric of out {whole:.2e}")
+            check(min(bad) > K3_ROW_TOL, f"K3: the row metric lets a planted fault pass: {bad}")
+        fwd_err = max(fwd_err, (out.float() - want.float()).abs().max().item())
+        bwd_err = max(bwd_err, max((g.float() - w.float()).abs().max().item()
+                                   for g, w in zip(grads, wants)))
+        again = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"K3 bwd {name}: two runs differ (it has no atomics: it must not)")
+        log(f"K3 {name:8s}: deterministic ok")
+    return fwd_err, bwd_err
+
+
+def k3_timing(rng):
+    """Kernel, plain version, F.scaled_dot_product_attention (GQA) and the
+    bounds at the training shape, causal."""
+    q, k, v, do = attn_inputs(rng)
+    # admissible (query, key) pairs of one head: the work K3 must do
+    pairs = int(ref.attention_mask(TRAIN_SEQ, TRAIN_SEQ, True, 0, device=DEV).sum().item())
+    io = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # bf16 q, k, v, o
+    out, lse = flash_attention.flash_attention_fwd(q, k, v)
+    fwd = time_ms(lambda: flash_attention.flash_attention_fwd(q, k, v))
+    bwd = time_ms(lambda: flash_attention.flash_attention_bwd(q, k, v, out, lse, do))
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v)
+    plain_fwd = time_ms_eager(lambda: ref.flash_attention_fwd_ref(q, k, v), iters=3)
+    plain_bwd = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, want, want_lse, do), iters=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(sdpa(ql, kl, vl, is_causal=True, enable_gqa=True), (ql, kl, vl), do)
+
+    lib_both = time_ms_eager(lib_fwd_bwd, iters=10)
+    # forward: 2 products (QK^T, PV) of 2*D flops per admissible pair and
+    # head; backward: 5 (S again, dP, dV, dQ, dK) — P is not an input
+    fb, fby = bound_ms(io + 4 * lse.numel(), 4.0 * D * H * pairs)
+    bb, bby = bound_ms(io + 2 * q.numel() + 4 * lse.numel() + 2 * (q.numel() + 2 * k.numel()),
+                       10.0 * D * H * pairs)
+    log(f"K3 time S={TRAIN_SEQ} causal: fwd kernel {fwd * 1e3:.1f} us, plain {plain_fwd * 1e3:.1f} "
+        f"us, SDPA {lib_fwd * 1e3:.1f} us, bound {fb * 1e3:.1f} us ({fby}); bwd kernel "
+        f"{bwd * 1e3:.1f} us, plain {plain_bwd * 1e3:.1f} us, bound {bb * 1e3:.1f} us ({bby}); "
+        f"fwd+bwd kernels {(fwd + bwd) * 1e3:.1f} us, SDPA fwd+bwd {lib_both * 1e3:.1f} us")
+    return (dict(ms=fwd, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby, library_ms=lib_fwd),
+            dict(ms=bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby, library_ms=lib_both))
+
+
+# ---------------------------------------------------------------------------
+# K2 backward and K1
+# ---------------------------------------------------------------------------
+
+
+def k2_bwd_checks_and_timing(rng, d=2048, rows=TRAIN_SEQ, eps=1e-6):
+    max_err = 0.0
+    for dtype, tol in ((torch.bfloat16, TRAIN_REL_TOL), (torch.float32, K2_BWD_F32_REL_TOL)):
+        for model in (True, False):
+            x, dy = (torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32))
+                     .to(DEV, dtype) for _ in range(2))
+            s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV, dtype)
+            dx, ds = rmsnorm.rmsnorm_bwd(x, s, dy, eps=eps, model=model)
+            wdx, wds = ref.rmsnorm_bwd_ref(x, s, dy, eps, model)
+            torch.cuda.synchronize()
+            e = max(rel_err(dx, wdx), rel_err(ds, wds))
+            check(e <= tol, f"K2 bwd {dtype} model={model}: relative error {e}")
+            max_err = max(max_err, (dx.float() - wdx.float()).abs().max().item(),
+                          (ds.float() - wds.float()).abs().max().item())
+            log(f"K2 bwd rows={rows} {str(dtype)[6:]:8s} {'model' if model else 'f32'}: "
+                f"rel err {e:.2e} ok")
+    x, dy = (torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32))
+             .to(DEV, torch.bfloat16) for _ in range(2))
+    s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV, torch.bfloat16)
+    kern = time_ms(lambda: rmsnorm.rmsnorm_bwd(x, s, dy, eps=eps, model=True))
+    plain = time_ms(lambda: ref.rmsnorm_bwd_ref(x, s, dy, eps, True))
+    xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
+
+    def lib():
+        y = torch.nn.functional.rms_norm(xl, (d,), weight=sl, eps=eps)
+        torch.autograd.grad(y, (xl, sl), dy)
+
+    library = time_ms_eager(lib, iters=20)
+    b, by = bound_ms(3 * x.numel() * 2 + 2 * d * 2, 8.0 * x.numel())
+    log(f"K2 bwd time rows={rows}: kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
+        f"F.rms_norm fwd+bwd (autograd) {library * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by})")
+    return max_err, dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b, bound_by=by)
+
+
+def k1_checks_and_timing(rng, shape=(36, 2048, 11008)):
+    """The largest leaf of the stacked qwen2.5-3b tree (w_gate / w_in)."""
+    n = math.prod(shape)
+    acc = torch.empty(shape, dtype=torch.float32, device=DEV).normal_()
+    g = torch.empty(shape, dtype=torch.bfloat16, device=DEV).normal_()
+    for keep in (0.0, 1.0):
+        want = ref.masked_accum_ref(acc, g, keep, 1.0)
+        got = masked_accum.masked_accum(acc.clone(), g, keep, 1.0)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K1 keep={keep}: differs from the plain version")
+        del want, got
+        log(f"K1 {shape} bf16 grads keep={keep}: exact ok")
+    kern = time_ms(lambda: masked_accum.masked_accum(acc, g, 1.0, 1.0), iters=10)
+    plain = time_ms(lambda: ref.masked_accum_ref(acc, g, 1.0, 1.0), iters=5)
+    library = time_ms(lambda: acc.add_(g, alpha=1.0), iters=10)
+    b, by = bound_ms(n * (4 + 4 + 2), 2.0 * n)
+    log(f"K1 time {n / 1e6:.0f} M elements: kernel {kern:.3f} ms, plain {plain:.3f} ms, "
+        f"acc.add_ {library:.3f} ms, bound {b:.3f} ms ({by})")
+    return 0.0, dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b, bound_by=by)
+
+
+# ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
 
@@ -422,6 +706,157 @@ def serve(cfg, params, prompts, packed: bool):
     return {u: r.output for u, r in eng.finished.items()}, runs
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def launches_per_microbatch(cfg, n_leaves: int):
+    """Kernel calls one kept micro-batch makes, from the code: each layer
+    runs two RMSNorms and one attention, the final norm one more RMSNorm;
+    under remat (``transformer._apply_stack_train``) the backward runs each
+    layer's forward again, the final norm's not; each backward call of the
+    K2 / K3 Functions is one backward launch; each gradient leaf is added
+    once by K1 (``core.accumulate_grads``)."""
+    n = cfg.n_layers
+    again = n if cfg.remat else 0
+    return {"paged_attention": 0, "flash_attention": n + again, "flash_attention_bwd": n,
+            "rmsnorm": 2 * n + 1 + 2 * again, "rmsnorm_bwd": 2 * n + 1,
+            "masked_accum": n_leaves}
+
+
+def train_phase(cfg, seed: int):
+    """qwen2.5-3b at full depth through ``repro_torch.train.train``."""
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
+          "the training phase wants remat, bf16 compute and f32 master weights")
+    n, m = TRAIN_WORKERS, TRAIN_MB
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=n * m,
+                      strategy="pack", seed=seed)
+    latency = LatencyModel(base=0.45, noise=NoiseModel(kind="paper_lognormal"))
+    # the trainer's own draws (trainer._latencies_at): tau at the median of
+    # the workers' latency sums drops the second micro-batch of about half
+    draws = [latency.sample_at(step, n, m, seed=seed + 1) for step in range(TRAIN_STEPS)]
+    tau = float(np.median(np.stack(draws).sum(-1)))
+    masks = [drop_mask(t, tau, 1).numpy() for t in draws]
+    want_drops = [1.0 - float(np.float32(k.sum()) / np.float32(k.size)) for k in masks]
+    kept = int(sum(k.sum() for k in masks))
+    check(0 < kept < n * m * TRAIN_STEPS and max(want_drops) > 0,
+          f"tau {tau} should drop some micro-batches, not all: {want_drops}")
+    tcfg = TrainConfig(steps=TRAIN_STEPS, n_workers=n, microbatches=m, optimizer="adamw",
+                       lr=1e-4, clip_norm=1.0, seed=seed, latency=latency,
+                       drop=DropConfig(enabled=True, tau=tau))
+    params = init_params(cfg, seed=seed, device=DEV)
+    n_leaves = len(tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the training path starts here
+    t0 = time.perf_counter()
+    res = train(cfg, data, tcfg, params=params, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in res.losses), f"non-finite losses {res.losses}")
+    check(res.drop_fractions == want_drops,
+          f"drop fractions {res.drop_fractions}, the latency draws give {want_drops}")
+    per_mb = launches_per_microbatch(cfg, n_leaves)
+    want = {k: kept * v for k, v in per_mb.items()}
+    check(counts == want, f"training launches {counts}, the code implies {want}")
+    steps = res.metrics["step_s"]
+    kept_per_step = [int(k.sum()) for k in masks]
+    tok_s = [kps * TRAIN_SEQ / s for kps, s in zip(kept_per_step, steps)]
+    mb_ms = [[round(t * 1e3, 1) for t in ts] for ts in res.metrics["microbatch_s"]]
+    log(f"train qwen2.5-3b: {cfg.n_layers} layers, seq {TRAIN_SEQ}, {n} workers x {m} "
+        f"micro-batches, tau {tau:.4f} s, drop fractions {res.drop_fractions} (kept "
+        f"{kept_per_step} micro-batches), losses {[round(x, 4) for x in res.losses]}")
+    log(f"train: step wall s {[round(x, 3) for x in steps]}; per kept micro-batch ms {mb_ms}; "
+        f"kept tokens/s {[round(x, 1) for x in tok_s]}; peak device memory {peak:.2f} GiB; "
+        f"whole call {wall:.1f} s")
+    log(f"train launches over {kept} kept micro-batches: {counts} (per micro-batch {per_mb})")
+    del params, res
+    return counts
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in named_leaves(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+@contextlib.contextmanager
+def one_head_dkdv():
+    """A planted backward fault: K3's dK and dV summed over one query head of
+    each KV head's group instead of all g (the other heads' dO zeroed for
+    them: their dS is then zero); dQ is left sound."""
+    sound = ops.flash_attention_bwd  # what ops.FlashAttentionFn.backward calls
+
+    def faulty(q, k, v, out, lse, dout, *args):
+        dq, _, _ = sound(q, k, v, out, lse, dout, *args)
+        first = torch.arange(q.shape[1], device=q.device) % (q.shape[1] // k.shape[1]) == 0
+        _, dk, dv = sound(q, k, v, out, lse, dout * first[:, None, None], *args)
+        return dq, dk, dv
+
+    ops.flash_attention_bwd = faulty
+    try:
+        yield
+    finally:
+        ops.flash_attention_bwd = sound
+
+
+def parity_phase(cfg, seed: int):
+    """A 2-layer full-width model: loss_sum and every gradient leaf on the
+    card (kernels, bf16 compute) against the CPU (plain, f32); then the
+    same metric on the card with a planted K3 backward fault."""
+    small = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    cpu_cfg = dataclasses.replace(small, dtype="float32")
+    params = init_params(cpu_cfg, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, PARITY_SEQ)))
+
+    def run(p, c, dev):
+        grad_fn = make_grad_fn(lambda pp, mb: model_lib.loss_fn(pp, c, mb))
+        g, ls, _ = grad_fn(model_lib.train_params(p, c), {"tokens": tokens.to(dev)})
+        return float(ls), {k: x.float().cpu() for k, x in named_leaves(g)}
+
+    def leaf_errs(g):
+        return {k: (torch.linalg.vector_norm(g[k] - w) / torch.linalg.vector_norm(w)).item()
+                for k, w in cpu_g.items()}
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_g = run(params, cpu_cfg, "cpu")
+    t_cpu = time.perf_counter() - t0
+    card_params = tree_map(lambda x: x.to(DEV), params)
+    card_loss, card_g = run(card_params, small, DEV)
+    with one_head_dkdv():
+        _, bad_g = run(card_params, small, DEV)
+    el = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    errs, bad = leaf_errs(card_g), leaf_errs(bad_g)
+    worst, bad_worst = max(errs, key=errs.get), max(bad, key=bad.get)
+    log(f"parity {PARITY_LAYERS} layers seq {PARITY_SEQ}: loss_sum card {card_loss:.4f} / cpu "
+        f"{cpu_loss:.4f} (rel {el:.2e}); the CPU pass took {t_cpu:.1f} s")
+    log("parity per-leaf ||g_card - g_cpu|| / ||g_cpu||: "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+    log(f"parity worst leaf {worst} {errs[worst]:.2e}; planted fault (dK/dV from one query "
+        f"head): worst leaf {bad_worst} {bad[bad_worst]:.2e}, "
+        + ", ".join(f"{k} {e:.2e}" for k, e in bad.items() if e > PARITY_LEAF_REL_TOL))
+    check(math.isfinite(card_loss) and all(math.isfinite(e) for e in errs.values()),
+          "non-finite card result")
+    check(el <= PARITY_LOSS_REL_TOL, f"loss_sum relative difference {el}")
+    check(errs[worst] <= PARITY_LEAF_REL_TOL, f"gradient leaf {worst}: relative difference "
+          f"{errs[worst]}")
+    check(bad[bad_worst] > PARITY_LEAF_REL_TOL,
+          f"the per-leaf metric lets a planted dK/dV fault pass: {bad}")
+
+
+def free_device() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -441,19 +876,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build
+    # 2. build: one nvcc per CUDA source, started together
     t0 = time.perf_counter()
-    flash_attention.load_library()
-    t_k4 = time.perf_counter() - t0
-    log(f"build: paged_attention.cu (nvcc sm_90a) {t_k4:.1f} s -> "
-        f"{_build.library_path(flash_attention.SOURCE).relative_to(_build.BUILD_DIR.parents[1])}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(f) for f in (flash_attention.load_library,
+                                           flash_attention.load_train_library)]
+        for b in builds:
+            b.result()
+    for src in (flash_attention.SOURCE, flash_attention.TRAIN_SOURCE):
+        log(f"build: {src} (nvcc sm_90a) -> "
+            f"{_build.library_path(src).relative_to(_build.BUILD_DIR.parents[1])}")
+    log(f"build: both CUDA sources in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    ones = torch.ones(2048, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
         for model in (False, True):
-            rmsnorm.rmsnorm(torch.ones(4, 2048, device="cuda", dtype=dtype),
-                            torch.ones(2048, device="cuda"), model=model)
+            x = torch.ones(4, 2048, device="cuda", dtype=dtype)
+            rmsnorm.rmsnorm(x, ones, model=model)
+            rmsnorm.rmsnorm_bwd(x, ones.to(dtype), x, model=model)
+        masked_accum.masked_accum(torch.zeros(4096, device="cuda"),
+                                  torch.ones(4096, device="cuda", dtype=dtype), 1.0)
     torch.cuda.synchronize()
-    log(f"build: rmsnorm Triton JIT (4 variants) {time.perf_counter() - t0:.1f} s")
+    log(f"build: Triton JIT (rmsnorm, rmsnorm_bwd, masked_accum) {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels vs plain versions
     rng = np.random.default_rng(args.seed)
@@ -462,8 +906,14 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompt_lens]
     k4_err = k4_checks(rng, prompt_lens)
     k2_err = k2_checks(rng)
+    k3_fwd_err, k3_bwd_err = k3_checks(rng)
+    k2b_err, k2b_t = k2_bwd_checks_and_timing(rng)
+    k1_err, k1_t = k1_checks_and_timing(rng)
+    free_device()
     k4_t = k4_timing(rng, prompt_lens)
     k2_t = k2_timing(rng)
+    k3f_t, k3b_t = k3_timing(rng)
+    free_device()
 
     # 4. serving at full width
     t0 = time.perf_counter()
@@ -479,23 +929,50 @@ def main() -> int:
     same = sum(a == b for u in out_unpacked for a, b in zip(out_unpacked[u], out_packed[u]))
     log(f"packed vs unpacked greedy agreement: {same}/{SLOTS * NEW_TOKENS}")
     check(counts["paged_attention"] > 0 and counts["rmsnorm"] > 0, f"kernels not run: {counts}")
+    serve_counts = counts
+    del params
+    free_device()
+
+    # 5. training at full depth, then the 2-layer card-vs-CPU parity
+    train_counts = train_phase(cfg, args.seed)
+    free_device()
+    parity_phase(cfg, args.seed)
+    launches = {k: serve_counts[k] + train_counts[k] for k in serve_counts}
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was launched no time on the main paths")
 
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/paged_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:238",
-             launches=counts["paged_attention"], max_abs_err=k4_err,
+             launches=launches["paged_attention"], max_abs_err=k4_err,
              ms=k4_t["decode"]["ms"], plain_ms=k4_t["decode"]["plain_ms"],
              bound_ms=k4_t["decode"]["bound_ms"], bound_by=k4_t["decode"]["bound_by"],
              library_ms=None),
         dict(name="rmsnorm", route="triton",
              source="src/repro_torch/kernels/rmsnorm.py",
              replaces="src/repro/kernels/rmsnorm.py:27",
-             launches=counts["rmsnorm"], max_abs_err=k2_err,
+             launches=launches["rmsnorm"], max_abs_err=k2_err,
              ms=k2_t["decode"]["ms"], plain_ms=k2_t["decode"]["plain_ms"],
              bound_ms=k2_t["decode"]["bound_ms"], bound_by=k2_t["decode"]["bound_by"],
              library_ms=k2_t["decode"]["library_ms"]),
+        dict(name="rmsnorm_bwd", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+             replaces="src/repro/kernels/rmsnorm.py:27",
+             launches=launches["rmsnorm_bwd"], max_abs_err=k2b_err, **k2b_t),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:91",
+             launches=launches["flash_attention"], max_abs_err=k3_fwd_err, **k3f_t),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:91",
+             launches=launches["flash_attention_bwd"], max_abs_err=k3_bwd_err, **k3b_t),
+        dict(name="masked_accum", route="triton",
+             source="src/repro_torch/kernels/masked_accum.py",
+             replaces="src/repro/kernels/masked_accum.py:33",
+             launches=launches["masked_accum"], max_abs_err=k1_err, **k1_t),
     ]
+    log(f"launches, serving: {serve_counts}; training: {train_counts}")
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

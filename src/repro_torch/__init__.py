@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of ``repro`` for one NVIDIA H100 (Hopper, sm_90a).
 
 The module layout mirrors ``repro``: ``models`` (config, layers, stack,
-serving entry points), ``configs`` (published architectures), ``kernels``
-(hand-written CUDA/Triton kernels beside their plain PyTorch versions)
-and ``serve`` (paged KV cache and the continuous-batching engine).
+training and serving entry points), ``configs`` (published
+architectures), ``kernels`` (hand-written CUDA/Triton kernels beside their
+plain PyTorch versions), ``serve`` (paged KV cache and the
+continuous-batching engine), ``core`` (DropCompute's Algorithm 1, its
+engines, latency models and Algorithm 2), ``data``, ``optim``, ``train``
+(the trainer and its resilience subsystem) and ``launch`` (the CLI).
 
 The package imports ``torch`` only.  Entry points run on CUDA unless the
 caller passes ``device="cpu"``; without a GPU they raise instead of
@@ -13,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,3 +31,10 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch path"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU): host-clock
+    timings of device work end here."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,4 +1,5 @@
-"""``paged_flash_attention``: the CUDA paged-attention kernel's wrapper.
+"""Wrappers of the CUDA attention kernels: ``paged_flash_attention`` (serving)
+and ``flash_attention_fwd`` / ``flash_attention_bwd`` (training).
 
 Port of the TPU kernel ``repro.kernels.flash_attention.paged_flash_attention``
 (src/repro/kernels/flash_attention.py:238, body ``_paged_attn_kernel``
@@ -13,6 +14,17 @@ tensors' device.
 
 ``paged_flash_attention.launches`` counts launches (nothing else adds to
 it), so a run can show that the serving path went through the kernel.
+
+The training kernels are ports of the TPU kernel
+``repro.kernels.flash_attention.flash_attention`` (:91, body
+``_attn_kernel`` :29) and a backward the Pallas package never had; their
+source is ``flash_attention.cu``, their plain versions
+``ref.flash_attention_fwd_ref`` / ``ref.flash_attention_bwd_ref``.  They
+take (B, H, S, D) tensors of any strides with D contiguous (the model
+passes transposed views of its (B, S, H, D) activations), so nothing is
+copied; outputs and gradients come back in the inputs' layouts.
+``flash_attention_fwd.launches`` / ``flash_attention_bwd.launches`` count
+calls (the backward's three launches count as one call).
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ import torch
 from . import _build
 
 SOURCE = "paged_attention.cu"
+TRAIN_SOURCE = "flash_attention.cu"
 # (head dim, H / KV) the source instantiates: the configs the port serves
 SERVED = {(128, 8)}  # qwen2.5-3b
 WARPS = 4  # kWarps in the source: blocks a CTA walks at once
@@ -151,3 +164,145 @@ def paged_flash_attention(
 
 
 paged_flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: flash attention forward and backward
+# ---------------------------------------------------------------------------
+
+#: (head dim, H / KV) the training source instantiates
+TRAINED = {(128, 8)}  # qwen2.5-3b
+_LL = ctypes.c_longlong
+
+
+def load_train_library() -> ctypes.CDLL:
+    """Build (first use) and load ``flash_attention.cu``; sets the C signatures."""
+    lib = _build.load(TRAIN_SOURCE)
+    lib.repro_flash_attention_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_P, _I, _I, _F, _P]
+    lib.repro_flash_attention_bwd.argtypes = [_P] * 12 + [_I] * 6 + [_P, _I, _I, _F, _P]
+    lib.repro_flash_attention_fwd.restype = ctypes.c_int
+    lib.repro_flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+class UnbuiltShapeError(ValueError):
+    """Training attention at a head dim, group, dtype or sequence length
+    that ``flash_attention.cu`` is not built for."""
+
+
+def _length_ok(s: int) -> bool:
+    return s > 0 and s % 64 == 0 and (s <= 128 or s % 128 == 0)
+
+
+def require_trained(head_dim: int, group: int, dtype: torch.dtype, *lengths: int) -> None:
+    """Raise ``UnbuiltShapeError`` unless the training kernels take attention
+    with this head dim, group (H / KV), dtype and query / key lengths."""
+    if (head_dim, group) not in TRAINED:
+        raise UnbuiltShapeError(f"head dim {head_dim} and group H/KV = {group}: the kernels "
+                                f"are built for (head dim, group) in {sorted(TRAINED)}")
+    if dtype != torch.bfloat16:
+        raise UnbuiltShapeError(f"the kernels take bfloat16 q, k, v, not {dtype}")
+    if not all(_length_ok(s) for s in lengths):
+        raise UnbuiltShapeError(f"sequence lengths {lengths}: the kernels take multiples "
+                                f"of 64, and of 128 above 128")
+
+
+def _check_train(q, k, v, q_segment_ids, kv_segment_ids):
+    """Raise on anything the training kernels do not take; return
+    (b, h, kvh, sq, sk, d) and the segment ids as contiguous int32."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash-attention kernels take CUDA tensors, got {q.device}")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B, H, Sq, D) and equal k, v (B, KV, Sk, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    kb, kvh, sk, dk = k.shape
+    if kb != b or dk != d or h % kvh:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair: want equal "
+                         f"batch and head dim, and H a multiple of KV")
+    require_trained(d, h // kvh, q.dtype, sq, sk)
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
+    if q_segment_ids is not None:
+        if q_segment_ids.shape != (b, sq) or kv_segment_ids.shape != (b, sk):
+            raise ValueError("segment ids must have shapes (B, Sq) and (B, Sk)")
+        q_segment_ids = q_segment_ids.to(q.device, torch.int32).contiguous()
+        kv_segment_ids = kv_segment_ids.to(q.device, torch.int32).contiguous()
+    return (b, h, kvh, sq, sk, d), q_segment_ids, kv_segment_ids
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when its rows are D contiguous elements at 16-byte
+    aligned addresses (every stride a multiple of 8 elements), else a
+    contiguous copy."""
+    if x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:-1]) and x.data_ptr() % 16 == 0:
+        return x
+    return x.contiguous()
+
+
+def _strides(*xs):
+    """(batch, head, position) element strides of each (B, heads, S, D) tensor."""
+    flat = [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
+    return (_LL * len(flat))(*flat)
+
+
+def flash_attention_fwd(q, k, v, causal=True, window=0, q_segment_ids=None,
+                        kv_segment_ids=None):
+    """(out (B, H, Sq, D), lse (B, H, Sq) f32) from the CUDA forward kernel.
+
+    ``out`` is laid out as (B, Sq, H, D) in memory (a transposed view is
+    returned), the model's activation layout."""
+    dims, qs, ks = _check_train(q, k, v, q_segment_ids, kv_segment_ids)
+    b, h, kvh, sq, sk, d = dims
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = load_train_library()
+    with torch.cuda.device(q.device):
+        err = lib.repro_flash_attention_fwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(qs), _ptr(ks),
+            b, h, kvh, sq, sk, d, _strides(q, k, v, out), int(causal), int(window),
+            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash-attention forward launch failed (code {err})")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=0,
+                        q_segment_ids=None, kv_segment_ids=None):
+    """(dq, dk, dv), each in its input's layout, from the CUDA backward
+    (rowsum(dO * O), then dK/dV per KV-head key tile, then dQ by a second
+    pass: deterministic, no atomics)."""
+    dims, qs, ks = _check_train(q, k, v, q_segment_ids, kv_segment_ids)
+    b, h, kvh, sq, sk, d = dims
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, sq):
+        raise ValueError("out and dout must have q's shape, lse (B, H, Sq)")
+    if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError("out and dout must have q's dtype, lse float32")
+    q, k, v, out, dout = (_rows(x) for x in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.stride() != q.stride() or dk.stride() != k.stride() or dv.stride() != v.stride():
+        raise RuntimeError("gradient buffers must share their inputs' strides")
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = load_train_library()
+    with torch.cuda.device(q.device):
+        err = lib.repro_flash_attention_bwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse), _ptr(delta),
+            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(qs), _ptr(ks), b, h, kvh, sq, sk, d,
+            _strides(q, k, v, out, dout), int(causal), int(window), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash-attention backward launch failed (code {err})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0

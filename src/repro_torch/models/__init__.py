@@ -1,4 +1,4 @@
-"""Model definitions for the port's serving path ('G'/'L' decoder stacks)."""
+"""Model definitions for the port's training and serving paths ('G'/'L' decoder stacks)."""
 from .config import ModelConfig
 from .model import (
     UnsupportedPatternError,

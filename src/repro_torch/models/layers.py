@@ -1,4 +1,5 @@
-"""Core layers for the G/L decoder serving path (port of ``repro.models.layers``).
+"""Core layers for G/L decoder stacks, serving and training (port of
+``repro.models.layers``).
 
 Plain functions on tensors and nested-dict parameters with the reference's
 path names and shapes.  Parameters live in ``cfg.param_dtype`` and are
@@ -67,7 +68,9 @@ def init_norm(cfg: ModelConfig, device=None) -> Params:
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig, eps: float = 1e-6):
     """RMSNorm goes through ``kernels.ops.rmsnorm`` in model mode (f32
     statistics, compute-dtype multiplies — ``layers.py:54-57``): the Triton
-    kernel on the card, its plain version on the CPU.  LayerNorm is plain."""
+    kernel on the card, its plain version on the CPU; when x or the scale
+    requires grad, its gradient is the RMSNorm backward kernel's
+    (``ops.RMSNormFn``).  LayerNorm is plain."""
     if cfg.norm == "rmsnorm":
         return kernel_ops.rmsnorm(x, p["scale"], eps=eps, model=True)
     xf = x.float()
@@ -352,10 +355,13 @@ def apply_attention(
     page_tables: Optional[torch.Tensor] = None,
     page_size: int = 0,
     index: Optional[StepIndex] = None,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One attention block over a serving cache (the cache branches of
+    rope=None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One attention block: over a serving cache (the cache branches of
     ``layers.apply_attention``: token-packed ``:528-585`` and chunked
-    ``:601-658``, dense or paged layout).
+    ``:601-658``, dense or paged layout), or, with ``cache=None``, over the
+    sequence itself (training; ``apply_attention_nocache``, whose RoPE
+    angles ``rope`` a caller may make once for all layers).
 
     slot_ids (packed step): x is (1, P, d); token j writes its K/V to slot
     ``slot_ids[j]`` at absolute position ``positions[0, j]`` and attends
@@ -368,9 +374,9 @@ def apply_attention(
     ``step_index`` for this kind, made here when not given.
     """
     if kind not in ("G", "L"):
-        raise ValueError(f"serving attention runs 'G'/'L' blocks, got {kind!r}")
+        raise ValueError(f"attention runs 'G'/'L' blocks in the port, got {kind!r}")
     if cache is None:
-        raise NotImplementedError("attention without a serving cache is not ported yet")
+        return apply_attention_nocache(p, x, cfg, kind, positions, rope), None
     if index is None:
         index = step_index(cfg, kind, positions, cache, decode_pos, seq_lens, slot_ids,
                            page_tables, page_size)
@@ -398,6 +404,34 @@ def apply_attention(
     wo = p["wo"].to(cd)
     y = out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
     return y, cache
+
+
+def require_no_softcap(cfg: ModelConfig) -> None:
+    if cfg.logit_softcap > 0.0:
+        raise NotImplementedError(
+            "logit_softcap in training attention is not ported yet (the K3 kernel "
+            "has no softcap); see ROADMAP.md")
+
+
+def apply_attention_nocache(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                            positions: torch.Tensor, rope=None) -> torch.Tensor:
+    """The no-cache branch of ``layers.apply_attention`` (``:586-600``) for
+    'G' (causal) and 'L' (causal, sliding window) blocks: x (B, S, d) ->
+    (B, S, d).  The reference takes ``sdpa`` up to 2048 tokens, ``sdpa_flash``
+    above and the banded ``sdpa_local_banded`` for long 'L' sequences; all
+    compute one function, which here is ``kernels.ops.flash_attention``
+    (K3: the CUDA kernel on the card, with its backward kernel under
+    autograd; the plain version on the CPU).  q, k, v stay in their
+    (B, S, heads, D) storage and reach the kernel as transposed views."""
+    require_no_softcap(cfg)
+    if rope is None and cfg.pos == "rope":
+        rope = rope_angles(positions, cfg.hd, cfg.rope_theta)
+    q, k, v = _qkv(p, x, cfg, rope)  # (B, S, heads, D)
+    window = cfg.sliding_window if kind == "L" else 0
+    out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                     causal=True, window=window).transpose(1, 2)
+    wo = p["wo"].to(cfg.compute_dtype)
+    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
 def init_attention_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,

@@ -8,13 +8,18 @@ Layers are organised as in the reference (``transformer.py:188-206``):
 so the parameter and cache trees have the reference's ``groups`` tuple
 plus ``tail`` list.  The reference's ``lax.scan`` over groups becomes a
 loop over the stacked slices (views, so cache writes land in the stacked
-storage); serving has no remat.
+storage).  Serving has no remat; training (no caches) rematerialises each
+group under ``cfg.remat`` (``transformer.py:269``, ``:298``) with
+``torch.utils.checkpoint``, and slices a stacked leaf with one ``unbind``
+so its gradient is stacked once, not summed from per-layer full-size
+zeros.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ModelConfig
@@ -40,6 +45,16 @@ def tree_leaves(tree: Tree) -> list:
     return out
 
 
+def tree_unflatten(template: Tree, leaves) -> Tree:
+    """The tree shaped like ``template`` with its leaves, in ``tree_leaves``
+    order, replaced by ``leaves``."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return out
+
+
 def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Tree:
     if kind not in ("G", "L"):
         raise ValueError(f"the port builds 'G'/'L' blocks, got {kind!r}")
@@ -54,14 +69,16 @@ def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Tree:
 def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, cache: Tree, decode_pos=None,
                 seq_lens=None, slot_ids=None, page_tables=None,
-                page_size: int = 0, index=None) -> Tuple[torch.Tensor, Tree]:
+                page_size: int = 0, index=None, rope=None) -> Tuple[torch.Tensor, Tree]:
     """Returns (x, cache); the cache is updated in place.  ``index`` is the
-    step's ``layers.step_index`` for ``kind`` (made here when None)."""
+    step's ``layers.step_index`` for ``kind`` (made here when None).
+    ``cache=None`` runs the training path (``rope``: the sequence's RoPE
+    angles, made once per forward)."""
     h = L.apply_norm(p["norm1"], x, cfg)
     y, _ = L.apply_attention(
-        p["attn"], h, cfg, kind, positions, cache["attn"], decode_pos=decode_pos,
-        seq_lens=seq_lens, slot_ids=slot_ids, page_tables=page_tables,
-        page_size=page_size, index=index,
+        p["attn"], h, cfg, kind, positions, None if cache is None else cache["attn"],
+        decode_pos=decode_pos, seq_lens=seq_lens, slot_ids=slot_ids,
+        page_tables=page_tables, page_size=page_size, index=index, rope=rope,
     )
     x = x + y
     h = L.apply_norm(p["norm2"], x, cfg)
@@ -124,14 +141,47 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return {"groups": groups, "tail": tail_cs}
 
 
+def _apply_stack_train(params: Tree, x: torch.Tensor, cfg: ModelConfig,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """Every layer without caches (training / plain forward).  Under
+    ``cfg.remat`` with grad enabled, each group's blocks run inside one
+    ``checkpoint`` (as the reference's ``jax.checkpoint(group_body)``) and
+    each tail block in its own: only the group inputs stay alive, and the
+    backward runs each group's forward again."""
+    unit, n_groups, _ = _unit_and_groups(cfg)
+    rope = (L.rope_angles(positions, cfg.hd, cfg.rope_theta) if cfg.pos == "rope" else None)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def run(x_, blocks, kinds):
+        for p, kind in zip(blocks, kinds):
+            x_ = apply_block(p, x_, cfg, kind, positions, None, rope=rope)[0]
+        return x_
+
+    # one unbind per stacked leaf: its backward stacks the layers' gradients
+    # once (indexing each layer would add a full-size zeros tensor per layer)
+    slices = [[leaf.unbind(0) for leaf in tree_leaves(g)] for g in params["groups"]]
+    for gi in range(n_groups):
+        blocks = [tree_unflatten(params["groups"][j], [u[gi] for u in slices[j]])
+                  for j in range(len(unit))]
+        x = (checkpoint(run, x, blocks, unit, use_reentrant=False) if remat
+             else run(x, blocks, unit))
+    for i, p in enumerate(params["tail"]):
+        kinds = cfg.pattern[n_groups * len(unit) + i]
+        x = (checkpoint(run, x, [p], kinds, use_reentrant=False) if remat
+             else run(x, [p], kinds))
+    return x
+
+
 def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, caches: Tree, decode_pos=None,
+                positions: torch.Tensor, caches: Optional[Tree] = None, decode_pos=None,
                 seq_lens=None, slot_ids=None, page_tables=None,
                 page_size: int = 0) -> Tuple[torch.Tensor, Tree]:
-    """Apply every layer over a serving cache.  Returns (x, caches); the
-    caches are updated in place (group slices are views).  The step's
-    addressing (``layers.step_index``) is made once per layer kind: every
-    layer of a kind shares it."""
+    """Apply every layer.  Over a serving cache, returns (x, caches) with
+    the caches updated in place (group slices are views), the step's
+    addressing (``layers.step_index``) made once per layer kind.  With
+    ``caches=None`` (training), returns (x, None)."""
+    if caches is None:
+        return _apply_stack_train(params, x, cfg, positions), None
     unit, n_groups, tail = _unit_and_groups(cfg)
     kw = dict(decode_pos=decode_pos, seq_lens=seq_lens, slot_ids=slot_ids,
               page_tables=page_tables, page_size=page_size)

@@ -34,8 +34,13 @@ def iter_port_modules():
 def test_every_port_module_imports_without_jax_or_repro():
     names = iter_port_modules()
     for expected in ("repro_torch.kernels.ops", "repro_torch.kernels.flash_attention",
-                     "repro_torch.kernels.rmsnorm", "repro_torch.models.convert",
-                     "repro_torch.serve.scheduler", "repro_torch.configs.qwen2_5_3b"):
+                     "repro_torch.kernels.rmsnorm", "repro_torch.kernels.masked_accum",
+                     "repro_torch.models.convert", "repro_torch.serve.scheduler",
+                     "repro_torch.configs.qwen2_5_3b", "repro_torch.core.dropcompute",
+                     "repro_torch.core.engine", "repro_torch.core.threshold",
+                     "repro_torch.data.synthetic", "repro_torch.optim.optimizers",
+                     "repro_torch.train.trainer", "repro_torch.train.resilience.controller",
+                     "repro_torch.launch.train"):
         assert expected in names, names
     code = (
         "import sys\n"
@@ -70,7 +75,8 @@ def test_kernel_modules_import_triton_lazily():
         "import sys\n"
         "sys.modules['triton'] = None\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.rmsnorm\n"
-        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.kernels.masked_accum\n"
+        "import repro_torch.train, repro_torch.launch.train\n"
         "print('LAZY')\n"
     )
     env = dict(os.environ)

@@ -12,15 +12,41 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, ref, rmsnorm  # noqa: E402
+from repro_torch.kernels import flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
 from test_torch_parity_util import (  # noqa: E402
     BF16_ULPS,
+    K3_ROW_TOL,
     TOL,
     bf16_ulps,
     np32,
     packed_scenario,
     quantize_pool,
+    row_rel_err,
+    skip_diagonal_tile_mask,
 )
+
+
+#: K2's backward against its plain version in bf16: the largest difference
+#: over the largest magnitude of the plain result (every row of dx has the
+#: same scale); dx is rounded once.  K3 is held row by row (``K3_ROW_TOL``).
+REL_TOL = 2e-2
+
+
+def rel_err(got, want) -> float:
+    got, want = np32(got), np32(want)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def attn_inputs(cuda, b, sq, sk, seed, h=16, kvh=2, d=128):
+    """bf16 q (B, H, Sq, D), k/v (B, KV, Sk, D) and dO, as transposed views
+    of (B, S, heads, D) storage: the layout the model passes."""
+    rng = np.random.default_rng(seed)
+
+    def t(s, heads):
+        x = torch.from_numpy(rng.normal(size=(b, s, heads, d)).astype(np.float32))
+        return x.to(cuda, torch.bfloat16).transpose(1, 2)
+
+    return t(sq, h), t(sk, kvh), t(sk, kvh), t(sq, h)
 
 
 @pytest.fixture
@@ -86,3 +112,116 @@ class TestKernelsOnCard:
         xf = x.float()
         np.testing.assert_allclose(np32(rmsnorm.rmsnorm(xf, s, model=model)),
                                    np32(ref.rmsnorm_ref(xf, s)), atol=1e-5, rtol=1e-5)
+
+    @pytest.mark.parametrize("case", ["causal", "window", "segments", "right_aligned",
+                                      "non_causal"])
+    def test_flash_attention(self, cuda, case):
+        """Forward (out, lse) and backward (dq, dk, dv) against the plain
+        versions at qwen2.5-3b's head layout (16 heads over 2 KV heads,
+        head dim 128).  ``segments`` has queries whose segment no key
+        shares: they return the mean of the TPU kernel's visited range."""
+        b, sq, sk, causal, window = dict(
+            causal=(2, 256, 256, True, 0), window=(1, 512, 512, True, 100),
+            segments=(1, 256, 256, True, 0), right_aligned=(1, 128, 256, True, 0),
+            non_causal=(1, 128, 128, False, 0))[case]
+        q, k, v, do = attn_inputs(cuda, b, sq, sk, seed=sq + sk)
+        kw = dict(causal=causal, window=window)
+        if case == "segments":
+            seg = np.zeros((b, sq), np.int32)
+            seg[:, 100:] = 1
+            seg[:, 200:] = 2
+            qseg = seg.copy()
+            qseg[:, 150:160] = 7  # no key has segment 7
+            kw.update(q_segment_ids=torch.from_numpy(qseg).to(cuda),
+                      kv_segment_ids=torch.from_numpy(seg).to(cuda))
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert out.stride() == q.stride()  # (B, S, H, D) storage, like q
+        assert row_rel_err(out, want) <= K3_ROW_TOL
+        if case == "segments":
+            lonely = np.s_[:, :, 150:160]
+            assert np.abs(np32(want[lonely])).max() > 0  # the visited-range mean, not zeros
+            assert row_rel_err(out[lonely], want[lonely]) <= K3_ROW_TOL
+        np.testing.assert_allclose(np32(lse), np32(want_lse), atol=1e-3, rtol=0)
+        grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        # on the kernel's own out and lse, as in chip_smoke.k3_checks: where one
+        # key dominates a softmax, one bf16 ulp of O moves dq by more than dq
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        for name, got, w in zip(("dq", "dk", "dv"), grads, wants):
+            assert got.shape == w.shape, name
+            assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
+
+    def test_flash_attention_check_catches_a_planted_fault(self, cuda):
+        """The row metric passes the kernel and fails what a kernel skipping
+        its diagonal key tile for the later half of the rows would return
+        (out, dq, dk and dv each)."""
+        q, k, v, do = attn_inputs(cuda, 1, 1024, 1024, seed=8)
+        out, lse = flash_attention.flash_attention_fwd(q, k, v)
+        grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, do)
+        want, _ = ref.flash_attention_fwd_ref(q, k, v)
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do)
+        mask = skip_diagonal_tile_mask(1024, device=cuda)
+        bad, bad_lse = ref.flash_attention_fwd_ref(q, k, v, mask=mask)
+        bads = ref.flash_attention_bwd_ref(q, k, v, bad, bad_lse, do, mask=mask)
+        for got, fault, w in zip((out, *grads), (bad, *bads), (want, *wants)):
+            assert row_rel_err(got, w) <= K3_ROW_TOL < row_rel_err(fault, w)
+
+    def test_flash_attention_backward_is_deterministic(self, cuda):
+        q, k, v, do = attn_inputs(cuda, 1, 256, 256, seed=5)
+        out, lse = flash_attention.flash_attention_fwd(q, k, v)
+        a = flash_attention.flash_attention_bwd(q, k, v, out, lse, do)
+        b = flash_attention.flash_attention_bwd(q, k, v, out, lse, do)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def test_flash_attention_autograd_counts(self, cuda):
+        q, k, v, do = attn_inputs(cuda, 1, 128, 128, seed=6)
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        f0, b0 = flash_attention.flash_attention_fwd.launches, flash_attention.flash_attention_bwd.launches
+        ops.flash_attention(q, k, v).backward(do)
+        assert flash_attention.flash_attention_fwd.launches == f0 + 1
+        assert flash_attention.flash_attention_bwd.launches == b0 + 1
+        assert q.grad.shape == q.shape and k.grad.shape == k.shape
+
+    @pytest.mark.parametrize("h,kvh,sq,dtype", [(14, 2, 128, torch.bfloat16),
+                                                (16, 2, 96, torch.bfloat16),
+                                                (16, 2, 128, torch.float32)])
+    def test_flash_attention_refuses_unbuilt_shapes(self, cuda, h, kvh, sq, dtype):
+        q, k, v, _ = attn_inputs(cuda, 1, sq, sq, seed=7, h=h, kvh=kvh)
+        with pytest.raises((ValueError, TypeError)):
+            flash_attention.flash_attention_fwd(q.to(dtype), k.to(dtype), v.to(dtype))
+
+    @pytest.mark.parametrize("rows", [8, 2048, 257])
+    @pytest.mark.parametrize("model", [False, True])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_rmsnorm_bwd(self, cuda, rows, model, dtype):
+        rng = np.random.default_rng(rows)
+        x = torch.from_numpy(rng.normal(size=(rows, 2048)).astype(np.float32)).to(cuda, dtype)
+        dy = torch.from_numpy(rng.normal(size=(rows, 2048)).astype(np.float32)).to(cuda, dtype)
+        s = torch.from_numpy((1 + 0.1 * rng.normal(size=2048)).astype(np.float32))
+        s = s.to(cuda, dtype)
+        dx, ds = rmsnorm.rmsnorm_bwd(x, s, dy, model=model)
+        want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy, model=model)
+        torch.cuda.synchronize()
+        assert dx.dtype == x.dtype and ds.dtype == s.dtype
+        tol = REL_TOL if dtype == torch.bfloat16 else 1e-5
+        assert rel_err(dx, want_dx) <= tol
+        assert rel_err(ds, want_ds) <= tol
+
+    @pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("n", [4096, 65536 + 3])
+    def test_masked_accum(self, cuda, gdtype, n):
+        """Exact: keep and scale are powers of two, so keep * scale * grad
+        is exact in f32 and the one rounding of the sum is the same."""
+        rng = np.random.default_rng(n)
+        acc = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+        g = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda, gdtype)
+        for keep in (0.0, 1.0):
+            for scale in (1.0, 0.125):
+                want = ref.masked_accum_ref(acc, g, keep, scale)
+                got = masked_accum.masked_accum(acc.clone(), g, keep, scale)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (keep, scale)
+        kept = masked_accum.masked_accum(acc.clone(), g, 0.0)
+        assert torch.equal(kept, acc)  # keep = 0 leaves the accumulator untouched

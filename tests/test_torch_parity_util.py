@@ -13,6 +13,10 @@ Tolerances (``TOL``), each with its reason:
 * ``kernel_bf16_gpu`` — a CUDA/Triton kernel against its plain version on
   the card in bf16: one bf16 rounding of an O(1) output (2^-8) plus the
   order of the f32 sums.
+* ``K3_ROW_TOL`` — K3 against its plain version on the card in bf16, by
+  ``row_rel_err``: each row's own roundings (P and dS to bf16 before the
+  products, each output once, 2^-9 relative each) stay near 1e-3; a
+  planted fault (``skip_diagonal_tile_mask``) reads above 0.1.
 * ``BF16_ULPS`` — bf16 RMSNorm, where XLA on the CPU may fuse the two bf16
   multiplies: at most one bf16 ulp apart.
 """
@@ -28,6 +32,7 @@ TOL = {
     "kernel_bf16_gpu": dict(atol=2e-2, rtol=2e-2),
 }
 BF16_ULPS = 1
+K3_ROW_TOL = 2e-2
 
 
 def np32(x) -> np.ndarray:
@@ -41,6 +46,23 @@ def assert_close(got, want, kind: str) -> None:
     np.testing.assert_allclose(np32(got), np32(want), **TOL[kind])
 
 
+def tree_np(tree):
+    """A port tree (dict / tuple / list of tensors) with numpy f32 leaves."""
+    if isinstance(tree, dict):
+        return {k: tree_np(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_np(v) for v in tree)
+    return np32(tree)
+
+
+def assert_tree_close(got, want, kind: str) -> None:
+    """Every leaf of a port tree against the same path of a JAX tree (the
+    two share path names, so ``jax.tree.map`` pairs them by path)."""
+    import jax
+
+    jax.tree.map(lambda w, g: assert_close(g, w, kind), want, tree_np(got))
+
+
 def bf16_ulps(a, b) -> int:
     """Largest distance in bf16 ulps between two bf16 arrays (JAX or torch)."""
 
@@ -50,6 +72,32 @@ def bf16_ulps(a, b) -> int:
         return torch.where(i < 0, -(i & 0x7FFF), i)
 
     return int((line(a) - line(b)).abs().max().item())
+
+
+def row_rel_err(got, want) -> float:
+    """max over rows (the last axis) of ||got_r - want_r|| / ||want_r||, a
+    row's norm taken as at least 2^-12 of the largest row's: a row that is
+    zero in exact arithmetic (dq of a query with one admissible key) is f32
+    rounding noise in both versions, ~1e-6 against rows of ~10.  Held per
+    row, a causal attention output (whose row norm falls as 1/sqrt(the
+    row's key count)) cannot hide a wrong late row under an early one."""
+    got = torch.from_numpy(np32(got))
+    want = torch.from_numpy(np32(want))
+    num = torch.linalg.vector_norm(got - want, dim=-1)
+    den = torch.linalg.vector_norm(want, dim=-1)
+    return float((num / den.clamp(min=2.0 ** -12 * float(den.max()) + 1e-30)).max())
+
+
+def skip_diagonal_tile_mask(s: int, device=None, tile: int = 64):
+    """Causal (1, S, S) admissible pairs less each query row's own 64-key
+    tile for the rows from S/2 on: a planted K3 fault (a kernel that skips
+    its diagonal tile late in the sequence)."""
+    from repro_torch.kernels import ref
+
+    rows = torch.arange(s, device=device)[:, None]
+    keys = torch.arange(s, device=device)[None]
+    skipped = (rows >= s // 2) & (keys // tile == rows // tile)
+    return ref.attention_mask(s, s, True, 0, device=device) & ~skipped
 
 
 def to_torch(x, dtype=None):
