@@ -7,8 +7,10 @@ device's idle share, for the serving and training runs that
 
 qwen2.5-3b at full width (random weights from ``--seed``) serves the same
 eight requests as ``chip_smoke.py`` through the paged engine, unpacked and
-packed, then trains one DropCompute step of ``chip_smoke.py``'s training
-run (step 0: 4 workers x 2 micro-batches of 2048 tokens at its tau).  Each
+packed; mamba2-130m at full width and depth serves ``chip_smoke.py``'s
+mamba requests the same way; then qwen2.5-3b trains one DropCompute step
+of ``chip_smoke.py``'s training run (step 0: 4 workers x 2 micro-batches
+of 2048 tokens at its tau).  Each
 run goes twice: once on the host clock alone (the wall time a user sees),
 then under ``torch.profiler`` for the kernels' device times (training: a
 warm-up step first).  The idle share is one minus the union of the
@@ -41,6 +43,8 @@ FAMILIES = (  # first match wins; K4's two kernels are sub-rows of K4
     ("K2 rmsnorm", re.compile(r"rmsnorm_kernel")),
     ("K2 rmsnorm: backward", re.compile(r"rmsnorm_bwd_kernel|colsum_kernel")),
     ("K1 masked_accum", re.compile(r"masked_accum_kernel")),
+    ("K6 ssd_chunk", re.compile(r"ssd_chunk_kernel")),
+    ("K5 ssd_segment", re.compile(r"ssd_segment_kernel")),
     ("matmul (cuBLAS)", re.compile(r"gemm|xmma|nvjet|cutlass|cublas|splitK", re.I)),
     ("index / scatter / gather", re.compile(r"index|scatter|gather", re.I)),
     ("reduce / argmax / softmax", re.compile(r"reduce|argmax|softmax", re.I)),
@@ -55,8 +59,8 @@ def family(name: str) -> str:
     return "other elementwise"
 
 
-def timed_run(cfg, params, prompts, packed):
-    eng = cs.engine(cfg, params, prompts, packed)
+def timed_run(cfg, params, prompts, packed, make=cs.engine):
+    eng = make(cfg, params, prompts, packed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.run()
@@ -133,6 +137,23 @@ def train_profile(cfg, seed: int) -> dict:
     return {"run": "train", "kept_microbatches": kept, **profile_record(prof, wall, kept)}
 
 
+def serve_profiles(cfg, params, prompts, make) -> None:
+    """Warm up, then for the unpacked and the packed engine: the wall time
+    unprofiled, then the profiled run's record (one JSON line each)."""
+    timed_run(cfg, params, prompts, True, make)  # warm-up: kernel builds, cuBLAS plans
+    for packed in (False, True):
+        wall, steps = timed_run(cfg, params, prompts, packed, make)
+        eng = make(cfg, params, prompts, packed)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            eng.run()
+            torch.cuda.synchronize()
+        rec = {"run": "serve", "model": cfg.name, "layout": "packed" if packed else "unpacked",
+               "steps": steps, **profile_record(prof, wall, eng.steps)}
+        rec["k4_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K4"))
+        print(json.dumps(rec), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -149,20 +170,16 @@ def main() -> int:
     lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     params = compute_params(init_params(cfg, seed=args.seed, device="cuda"), cfg)
-    timed_run(cfg, params, prompts, packed=True)  # warm-up: kernel builds, cuBLAS plans
+    serve_profiles(cfg, params, prompts, cs.engine)
+    del params
+    cs.free_device()
 
-    for packed in (False, True):
-        wall, steps = timed_run(cfg, params, prompts, packed)
-        eng = cs.engine(cfg, params, prompts, packed)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            eng.run()
-            torch.cuda.synchronize()
-        rec = {"run": "serve", "layout": "packed" if packed else "unpacked", "steps": steps,
-               **profile_record(prof, wall, eng.steps)}
-        rec["k4_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K4"))
-        print(json.dumps(rec), flush=True)
-    del params, eng
+    mcfg = get_config("mamba2_130m")
+    _, mprompts = cs.mamba_requests(mcfg, args.seed)
+    params = compute_params(init_params(mcfg, seed=args.seed, device="cuda"), mcfg)
+    serve_profiles(mcfg, params, mprompts,
+                   lambda c, p, pr, packed: cs.mamba_engine(c, p, pr, "paged", packed))
+    del params
     cs.free_device()
     print(json.dumps(train_profile(cfg, args.seed)), flush=True)
     return 0

@@ -8,9 +8,10 @@ without printing a result:
 
 1. device — the card's name and power limit (``nvidia-smi``); fails
    without CUDA;
-2. build — both CUDA sources, ``paged_attention.cu`` and
-   ``flash_attention.cu`` (``nvcc``, sm_90a, the two builds started
-   together), and the Triton kernels' JIT, with their build seconds;
+2. build — the three CUDA sources, ``paged_attention.cu``,
+   ``flash_attention.cu`` and ``ssd_chunk.cu`` (``nvcc``, sm_90a, the
+   builds started together), and the Triton kernels' JIT, with their build
+   seconds;
 3. kernels — each kernel against its plain PyTorch version on the card at
    qwen2.5-3b widths, timed by CUDA-graph replay with L2 flushed, beside
    its bound, its plain version's time and, where one PyTorch call computes
@@ -26,6 +27,13 @@ without printing a result:
      mean), row by row; a planted fault must fail the same check;
    * masked accumulation (K1) on the largest leaf (36 x 2048 x 11008, bf16
      gradients), keep 0 and 1;
+   * the SSD terms at mamba2-130m's widths (24 heads of 64, state 128,
+     f32), row by row: K6 (intra-chunk) over 8 rows of one and of two
+     256-token chunks and at the serving run's 64-row steps, K5
+     (segment-masked) at the packed mixed capacity (257: decodes, prefill
+     chunks, padding) and the packed decode capacity (8); each check also
+     against a planted fault it must reject (K6's diagonal key tile
+     skipped; K5's segment mask dropped);
 4. serving — qwen2.5-3b at full width (36 layers, random weights from
    ``--seed``) through ``ContinuousBatcher(cache="paged", chunk_size=64,
    token_budget=256)``, unpacked then packed, 8 requests of 128-512 prompt
@@ -33,7 +41,20 @@ without printing a result:
    paged-attention and 73 RMSNorm launches per engine step, and the first
    prefill step's logits must agree with the dense-cache engine's plain
    attention;
-5. training — qwen2.5-3b at 36 layers through ``repro_torch.train.train``:
+5. Mamba-2 serving — mamba2-130m at full width and depth (24 layers,
+   d_model 768, random weights from ``--seed``, f32 master and bf16 compute
+   copy) through ``ContinuousBatcher(chunk_size=64, token_budget=256)`` on
+   the dense-slot and the paged layout, unpacked then packed, 8 requests of
+   128-512 prompt tokens and 32 new tokens each: full-length streams, no
+   prefix-shared tokens, no leaked pages, and the launch counters the code
+   implies (one K6 per layer per dense step, one K5 per layer per packed
+   step, 25 RMSNorms per step); first, a 2-layer full-width model's first
+   dense and first packed step on the card (kernels, bf16) must give logits
+   within a stated limit of the CPU's (plain versions, f32), and a planted
+   K6 or K5 fault must fall outside it; last, the dense decode step's
+   device time with the port's 64-row chunk against the reference's
+   256-row padding, and the packed-vs-unpacked agreement in f32;
+6. training — qwen2.5-3b at 36 layers through ``repro_torch.train.train``:
    f32 master weights, bf16 compute, remat, synthetic packed sequences of
    2048 tokens, 4 virtual workers x 2 micro-batches of one sequence,
    AdamW (lr 1e-4, clip 1.0), DropCompute at a fixed tau (the median of
@@ -46,7 +67,9 @@ without printing a result:
    planted K3 backward fault must fall outside it.
 
 The last two lines of standard output are the ``kernels`` JSON record and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  K6 and K5's record rows are read at the
+mamba serving run's shapes: 8 rows of one 64-row chunk, and the packed
+mixed step.
 """
 from __future__ import annotations
 
@@ -73,16 +96,27 @@ from repro_torch.core import DropConfig, LatencyModel, NoiseModel, drop_mask  # 
 from repro_torch.core.engine import make_grad_fn  # noqa: E402
 from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
+from repro_torch.kernels import ssd_chunk  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.layers import _paged_quantize  # noqa: E402
-from repro_torch.models.model import compute_params, init_params, prefill_chunk  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    compute_params,
+    init_decode_cache,
+    init_params,
+    packed_prefill,
+    prefill_chunk,
+)
 from repro_torch.models.transformer import tree_leaves, tree_map  # noqa: E402
-from repro_torch.serve import ContinuousBatcher, KVCacheSpec, Request  # noqa: E402
+from repro_torch.serve import ContinuousBatcher, KVCacheSpec, Request, pack_step  # noqa: E402
 from repro_torch.train import TrainConfig, train  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet; full 700 W power limit)
+# Published H100 SXM peaks (NVIDIA data sheet; full 700 W power limit).  The
+# SSD kernels compute in f32 on the FMA pipes, so their operations bound is
+# taken at the f32 rate outside the tensor cores, not the bf16 one.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 
 DEV = "cuda"
 
@@ -136,6 +170,22 @@ K2_BWD_F32_REL_TOL = 1e-5
 # instead of all g), whose worst leaf the smoke also checks: see PERF.md.
 PARITY_LOSS_REL_TOL = 0.01
 PARITY_LEAF_REL_TOL = 0.05
+# K6 / K5 against their plain versions on the card, both f32, row by row
+# (``row_rel_err``): the same sums in another order and CUDA's expf (2 ulp)
+# against torch's exp, ~1e-6 a row; a planted fault (the diagonal key tile
+# skipped, the segment mask dropped) zeroes or mixes whole rows, ~0.1-1.
+SSD_ROW_TOL = 1e-4
+# The 2-layer full-width mamba2-130m, first dense and first packed step, card
+# (kernels, bf16 compute) against the CPU (plain versions, f32), row by row
+# (``row_rel_err`` over the vocabulary of each token's logits).  bf16 rounds
+# the weights' compute copy and every activation of the block (projections,
+# conv taps, gate, norm: 2^-9 relative each): each layer's output moves ~1%
+# and the worst logit row ~7.5% (the same comparison in bf16 on the CPU); a
+# planted K6 or K5 fault changes whole rows of the SSD output, which the
+# norms carry into the logits at their own size (0.58-1.7 on the CPU).
+MAMBA_LOGITS_ROW_TOL = 0.2
+# mamba2-130m's SSD widths: heads, head dim, state
+M_H, M_P, M_N = 24, 64, 128
 
 # the training phase: qwen2.5-3b, 4 virtual workers x 2 micro-batches of one
 # 2048-token sequence, 3 steps
@@ -213,9 +263,9 @@ def time_ms_eager(fn, iters: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -626,6 +676,151 @@ def k1_checks_and_timing(rng, shape=(36, 2048, 11008)):
 
 
 # ---------------------------------------------------------------------------
+# K6 / K5: the SSD intra-chunk and segment-masked terms
+# ---------------------------------------------------------------------------
+
+
+def f32(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(DEV)
+
+
+def ssd_chunk_scenario(rng, bs, nc, l):
+    """K6's inputs as the model forms them: x, B, C; dt in [0.1, 0.9] and
+    cum its running sum times mamba2-130m's decay rates (1..16) inside each
+    chunk (up to ~3,000 at 256 rows)."""
+    dt = rng.uniform(0.1, 0.9, (bs, nc, l, M_H)).astype(np.float32)
+    a = np.exp(np.log(np.linspace(1.0, 16.0, M_H, dtype=np.float32)))
+    cum = np.cumsum(dt * a, axis=2, dtype=np.float32)
+    return (f32(rng, bs, nc, l, M_H, M_P), torch.from_numpy(dt).to(DEV),
+            torch.from_numpy(cum).to(DEV), f32(rng, bs, nc, l, M_N), f32(rng, bs, nc, l, M_N))
+
+
+def packed_segments(spans, pad: int):
+    """Slot ids of a packed step: ``spans`` tokens for slots 0, 1, ...,
+    then ``pad`` padding entries."""
+    return [s for s, n in enumerate(spans) for _ in range(n)] + [-1] * pad
+
+
+def ssd_segment_scenario(rng, seg):
+    """K5's inputs over a packed step's slot ids: dt 0 on padding, cum one
+    running sum over the whole packed axis (thousands at 257 tokens)."""
+    seg = np.asarray(seg, np.int32)
+    t = len(seg)
+    dt = rng.uniform(0.1, 0.9, (t, M_H)).astype(np.float32)
+    dt[seg < 0] = 0.0
+    a = np.linspace(1.0, 16.0, M_H, dtype=np.float32)
+    cum = np.cumsum(dt * a, axis=0, dtype=np.float32)
+    return (f32(rng, t, M_H, M_P), torch.from_numpy(dt).to(DEV), torch.from_numpy(cum).to(DEV),
+            f32(rng, t, M_N), f32(rng, t, M_N), torch.from_numpy(seg).to(DEV))
+
+
+def ssd_diagonal_skipped(l: int):
+    """K6's planted fault: the causal mask less each row's own 64-key tile."""
+    rows = torch.arange(l, device=DEV)
+    return (rows[:, None] >= rows[None]) & (rows[:, None] // 64 != rows[None] // 64)
+
+
+def segment_mask_dropped(seg):
+    """K5's planted fault: every valid token in one segment."""
+    return torch.where(seg >= 0, 0, seg)
+
+
+# the serving run's packed steps: a mixed step at the mixed capacity (257:
+# 4 decodes, 3 prefill chunks of 64, one of 60, one padding entry) and a
+# decode step at the decode capacity (one token per slot)
+K5_MIXED = packed_segments([1, 1, 1, 1, 64, 64, 64, 60], 1)
+K5_DECODE = packed_segments([1] * SLOTS, 0)
+
+
+def k6_checks(rng):
+    """K6 against its plain version, row by row, at full width: 8 rows of
+    one and of two 256-token chunks and the serving run's 64-row steps; the
+    same metric on a planted fault (the diagonal 64-key tile skipped)."""
+    max_err = 0.0
+    for bs, nc, l in ((8, 1, 256), (8, 2, 256), (8, 1, 64)):
+        a = ssd_chunk_scenario(rng, bs, nc, l)
+        got = ssd_chunk.ssd_chunk(*a)
+        want = ref.ssd_chunk_ref(*a)
+        bad = ref.ssd_chunk_ref(*a, mask=ssd_diagonal_skipped(l))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K6 B{bs} NC{nc} L{l}: non-finite output")
+        e, e_bad = row_rel_err(got, want), row_rel_err(bad, want)
+        max_err = max(max_err, (got - want).abs().max().item())
+        log(f"K6 B={bs} NC={nc} L={l}: row rel err {e:.2e}; planted fault (diagonal 64-key "
+            f"tile skipped) {e_bad:.2e}")
+        check(e <= SSD_ROW_TOL, f"K6 B{bs} NC{nc} L{l}: row relative error {e}")
+        check(e_bad > SSD_ROW_TOL, f"K6: the row metric lets a planted fault pass: {e_bad}")
+    return max_err
+
+
+def k5_checks(rng):
+    """K5 against its plain version, row by row, at the packed mixed and
+    decode capacities and a padding-heavy step; padding rows exact zeros;
+    the same metric on a planted fault (the segment mask dropped)."""
+    max_err = 0.0
+    cases = {"mixed": K5_MIXED, "decode": K5_DECODE,
+             "padded": packed_segments([40, 1, 90], 126)}
+    for name, seg in cases.items():
+        a = ssd_segment_scenario(rng, seg)
+        got = ssd_chunk.ssd_segment(*a)
+        want = ref.ssd_segment_ref(*a)
+        bad = ref.ssd_segment_ref(*a[:5], segment_mask_dropped(a[5]))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K5 {name}: non-finite output")
+        pad = a[5] < 0
+        check(bool((got[pad] == 0).all()), f"K5 {name}: padding rows not exactly zero")
+        e, e_bad = row_rel_err(got, want), row_rel_err(bad, want)
+        max_err = max(max_err, (got - want).abs().max().item())
+        log(f"K5 {name:6s} T={len(seg)} ({int(pad.sum())} padding): row rel err {e:.2e}; "
+            f"planted fault (segment mask dropped) {e_bad:.2e}; cum up to {a[2].max().item():.0f}")
+        check(e <= SSD_ROW_TOL, f"K5 {name}: row relative error {e}")
+        check(e_bad > SSD_ROW_TOL, f"K5: the row metric lets a planted fault pass: {e_bad}")
+    return max_err
+
+
+def ssd_cost(pairs: int, *tensors):
+    """(bytes, flops) an SSD term needs: each tensor read or written once;
+    per admissible (i, j) pair 2N flops for C_i . B_j (once for every head)
+    and 2P per head for att . x."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return nbytes, 2.0 * pairs * (M_N + M_P * M_H)
+
+
+def k6_timing(rng):
+    """Kernel, plain version and bound: the serving run's 64-row steps (8
+    rows of one chunk) and one full 256-token chunk a row."""
+    rows = {}
+    for shape, (bs, nc, l) in (("serve", (8, 1, 64)), ("chunk256", (8, 1, 256))):
+        a = ssd_chunk_scenario(rng, bs, nc, l)
+        kern = time_ms(lambda: ssd_chunk.ssd_chunk(*a))
+        plain = time_ms(lambda: ref.ssd_chunk_ref(*a), iters=10)
+        nbytes, flops = ssd_cost(bs * nc * l * (l + 1) // 2, *a, a[0])
+        b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
+        rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by)
+        log(f"K6 time B={bs} NC={nc} L={l}: kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} "
+            f"us, bound {b * 1e3:.2f} us ({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP "
+            f"at the f32 rate)")
+    return rows
+
+
+def k5_timing(rng):
+    """Kernel, plain version and bound at the packed mixed and decode steps."""
+    rows = {}
+    for shape, seg in (("mixed", K5_MIXED), ("decode", K5_DECODE)):
+        a = ssd_segment_scenario(rng, seg)
+        kern = time_ms(lambda: ssd_chunk.ssd_segment(*a))
+        plain = time_ms(lambda: ref.ssd_segment_ref(*a), iters=10)
+        lens = np.bincount(np.asarray([s for s in seg if s >= 0]))
+        nbytes, flops = ssd_cost(int((lens * (lens + 1) // 2).sum()), *a, a[0])
+        b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
+        rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by)
+        log(f"K5 time {shape:6s} T={len(seg)}: kernel {kern * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by}; {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP at the f32 rate)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
 
@@ -707,6 +902,214 @@ def serve(cfg, params, prompts, packed: bool):
 
 
 # ---------------------------------------------------------------------------
+# Mamba-2 serving
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def planted_ssd_fault(kind: str):
+    """Route the model's K6 (``"chunk"``: the diagonal 64-key tile skipped)
+    or K5 (``"segment"``: the segment mask dropped) through the plain
+    version with that fault, on the card."""
+    name = f"ssd_{kind}"
+    sound = getattr(ops, name)  # what models.ssm calls
+
+    def chunk(x, dt, cum, b, c):
+        return ref.ssd_chunk_ref(x, dt, cum, b, c, mask=ssd_diagonal_skipped(x.shape[2]))
+
+    def segment(x, dt, cum, b, c, seg):
+        return ref.ssd_segment_ref(x, dt, cum, b, c, segment_mask_dropped(seg))
+
+    setattr(ops, name, chunk if kind == "chunk" else segment)
+    try:
+        yield
+    finally:
+        setattr(ops, name, sound)
+
+
+def mamba_first_steps(cfg, params, prompts):
+    """Logits (on the CPU, f32) of the serving run's first dense step (64
+    prompt tokens in every slot: K6) and first packed step (64 in each of
+    the four oldest slots, the budget's 256: K5), each from a fresh cache."""
+    dev = params["embed"]["embedding"].device
+    tokens = np.stack([np.asarray(p[:CHUNK]) for p in prompts])
+    cache = init_decode_cache(params, cfg, SLOTS, MAX_LEN, linear=True)
+    dense, _ = prefill_chunk(params, cfg, cache, tokens, np.zeros(SLOTS, np.int64),
+                             np.full(SLOTS, CHUNK, np.int64))
+    lay = pack_step([(i, 0, list(p[:CHUNK])) for i, p in enumerate(prompts[:BUDGET // CHUNK])],
+                    BUDGET + 1)
+    cache = init_decode_cache(params, cfg, SLOTS, MAX_LEN, linear=True)
+    packed, _ = packed_prefill(params, cfg, cache, lay.tokens, lay.slot_ids, lay.positions)
+    valid = torch.from_numpy(lay.slot_ids >= 0).to(dev)
+    return {"dense": dense.float().cpu(), "packed": packed[valid].float().cpu()}
+
+
+def mamba_parity(cfg, seed: int, prompts):
+    """A 2-layer full-width mamba2-130m: the first dense and packed steps'
+    logits on the card (kernels, bf16 compute) against the CPU (plain
+    versions, f32), then the same metric with a planted K6 and K5 fault."""
+    small = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    cpu_cfg = dataclasses.replace(small, dtype="float32")
+    params = init_params(cpu_cfg, seed=seed, device="cpu")
+    t0 = time.perf_counter()
+    want = mamba_first_steps(cpu_cfg, params, prompts)
+    t_cpu = time.perf_counter() - t0
+    card = compute_params(tree_map(lambda x: x.to(DEV), params), small)
+
+    def errs(got):
+        return {k: row_rel_err(got[k], w) for k, w in want.items()}
+
+    sound = errs(mamba_first_steps(small, card, prompts))
+    with planted_ssd_fault("chunk"):
+        bad_chunk = errs(mamba_first_steps(small, card, prompts))["dense"]
+    with planted_ssd_fault("segment"):
+        bad_seg = errs(mamba_first_steps(small, card, prompts))["packed"]
+    log(f"mamba parity {PARITY_LAYERS} layers: first-step logits, row rel err card vs cpu: "
+        f"dense (K6) {sound['dense']:.2e}, packed (K5) {sound['packed']:.2e}; planted K6 fault "
+        f"(diagonal tile skipped) {bad_chunk:.2e}, planted K5 fault (segment mask dropped) "
+        f"{bad_seg:.2e}; the CPU pass took {t_cpu:.1f} s")
+    check(all(math.isfinite(e) and e <= MAMBA_LOGITS_ROW_TOL for e in sound.values()),
+          f"mamba first-step logits differ from the CPU's: {sound}")
+    check(min(bad_chunk, bad_seg) > MAMBA_LOGITS_ROW_TOL,
+          f"the logits metric lets a planted fault pass: K6 {bad_chunk}, K5 {bad_seg}")
+
+
+def mamba_requests(cfg, seed: int):
+    """The mamba phase's prompt lengths and prompts (its own draws)."""
+    rng = np.random.default_rng(seed + 1)
+    lens = [int(n) for n in rng.integers(PROMPT_MIN, PROMPT_MAX + 1, SLOTS)]
+    return lens, [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def mamba_engine(cfg, params, prompts, cache: str, packed: bool) -> ContinuousBatcher:
+    """The mamba serving run's engine with every request submitted."""
+    eng = ContinuousBatcher(params, cfg, batch_slots=SLOTS, max_len=MAX_LEN, chunk_size=CHUNK,
+                            token_budget=BUDGET, cache=cache, page_size=PAGE, packed=packed)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=NEW_TOKENS))
+    return eng
+
+
+def mamba_serve(cfg, params, prompts, cache: str, packed: bool):
+    """One serving run of the mamba phase, checked; returns the streams,
+    the run's launches and its numbers."""
+    eng = mamba_engine(cfg, params, prompts, cache, packed)
+    before = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = ops.launch_counts()
+    runs = {k: after[k] - before[k] for k in after}
+    tag = f"mamba {cache} {'packed' if packed else 'unpacked'}"
+    check(sorted(eng.finished) == list(range(SLOTS)), f"{tag}: unfinished requests")
+    for r in eng.finished.values():
+        check(len(r.output) == NEW_TOKENS and not r.truncated,
+              f"{tag}: request {r.uid} has {len(r.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output), f"{tag}: token out of range")
+    summary = eng.stats_summary()
+    check(summary.get("shared_tokens", 0.0) == 0.0, f"{tag}: prefix-shared tokens {summary}")
+    if eng.kv is not None:
+        eng.kv.check_invariants()
+        check(eng.kv.used_pages == 0, f"{tag}: {eng.kv.used_pages} pages leaked")
+    steps, n = eng.steps, cfg.n_layers
+    want = {k: 0 for k in runs}
+    want["ssd_segment" if packed else "ssd_chunk"] = n * steps
+    want["rmsnorm"] = (n + 1) * steps
+    check(runs == want, f"{tag}: launches {runs} over {steps} steps, the code implies {want}")
+    decode_ms = [st.wall_time * 1e3 for st in eng.step_stats if st.prefill_tokens == 0]
+    mixed_ms = [st.wall_time * 1e3 for st in eng.step_stats if st.prefill_tokens > 0]
+    gen = sum(len(r.output) for r in eng.finished.values())
+    rec = dict(steps=steps, mixed_steps=len(mixed_ms), decode_ms=statistics.median(decode_ms),
+               mixed_ms=statistics.median(mixed_ms), gen_tok_s=gen / wall,
+               processed_tok_s=(gen + sum(map(len, prompts))) / wall, wall_s=wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"serve {tag}: {steps} steps ({len(mixed_ms)} mixed, {len(decode_ms)} decode-only), "
+        f"launches/step K6={runs['ssd_chunk'] / steps:.0f} K5={runs['ssd_segment'] / steps:.0f} "
+        f"K2={runs['rmsnorm'] / steps:.0f}; median step ms: decode-only {rec['decode_ms']:.2f}, "
+        f"mixed {rec['mixed_ms']:.2f}; {rec['gen_tok_s']:.1f} generated tok/s, "
+        f"{rec['processed_tok_s']:.1f} processed tok/s over {wall:.2f} s; peak device memory "
+        f"{rec['peak_gib']:.2f} GiB")
+    return {u: r.output for u, r in eng.finished.items()}, runs, rec
+
+
+def decode_step_ms(cfg, params, row_tile: int) -> float:
+    """Device time of one dense decode step (8 slots, one token each, over
+    a carried state), by CUDA-graph replay, with short steps run as one
+    chunk rounded up to ``row_tile`` rows: 64 is the port's, 256
+    (``ssm_chunk``) the reference's padding."""
+    cache = init_decode_cache(params, cfg, SLOTS, MAX_LEN, linear=True)
+    tokens = torch.ones((SLOTS, 1), dtype=torch.long, device=DEV)
+    pos = torch.full((SLOTS,), 300, dtype=torch.long, device=DEV)
+    lens = torch.ones(SLOTS, dtype=torch.long, device=DEV)
+    sound, ssm.ROW_TILE = ssm.ROW_TILE, row_tile
+    try:
+        return time_ms(lambda: prefill_chunk(params, cfg, cache, tokens, pos, lens), iters=20)
+    finally:
+        ssm.ROW_TILE = sound
+
+
+def f32_agreement(cfg, seed: int, prompts) -> int:
+    """Greedy tokens (of 256) on which the packed and the unpacked engine
+    agree when the model computes in f32 (the two paths sum in different
+    orders: in bf16 a near-tie of random weights' logits flips early)."""
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(c32, seed=seed, device=DEV)
+    outs = []
+    for packed in (False, True):
+        eng = mamba_engine(c32, params, prompts, "dense", packed)
+        eng.run()
+        outs.append({u: r.output for u, r in eng.finished.items()})
+    return sum(x == y for u in outs[0] for x, y in zip(outs[0][u], outs[1][u]))
+
+
+def mamba_phase(seed: int):
+    """mamba2-130m at full width and depth: the 2-layer parity first, then
+    the four serving runs (the counters' window), then the decode step with
+    and without the shortened chunk (in turns)."""
+    cfg = get_config("mamba2_130m")
+    lens, prompts = mamba_requests(cfg, seed)
+    mamba_parity(cfg, seed, prompts)
+    free_device()
+    t0 = time.perf_counter()
+    params = compute_params(init_params(cfg, seed=seed, device=DEV), cfg)
+    torch.cuda.synchronize()
+    log(f"mamba2-130m: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.param_count() / 1e6:.1f} M parameters, f32 init + bf16 compute copy in "
+        f"{time.perf_counter() - t0:.1f} s; prompt lens {lens}")
+    outs, recs = {}, {}
+    ops.reset_launch_counts()  # the main path starts here
+    for cache in ("dense", "paged"):
+        for packed in (False, True):
+            outs[cache, packed], _, recs[cache, packed] = mamba_serve(cfg, params, prompts,
+                                                                      cache, packed)
+    counts = ops.launch_counts()  # ... and ends here
+    total = SLOTS * NEW_TOKENS
+
+    def agree(a, b):
+        return sum(x == y for u in a for x, y in zip(a[u], b[u]))
+
+    for packed in (False, True):
+        log(f"mamba dense vs paged cache ({'packed' if packed else 'unpacked'}) greedy agreement: "
+            f"{agree(outs['dense', packed], outs['paged', packed])}/{total}")
+    log(f"mamba packed vs unpacked greedy agreement: "
+        f"{agree(outs['dense', False], outs['dense', True])}/{total}")
+    check(counts["ssd_chunk"] > 0 and counts["ssd_segment"] > 0 and counts["rmsnorm"] > 0,
+          f"mamba: kernels not run: {counts}")
+    short = [decode_step_ms(cfg, params, t) for t in (ssm.ROW_TILE, cfg.ssm_chunk,
+                                                      cfg.ssm_chunk, ssm.ROW_TILE)]
+    log(f"mamba dense decode step (8 slots), device ms by graph replay, in turns 64-row chunk / "
+        f"256-row padding / 256 / 64: {' / '.join(f'{x:.3f}' for x in short)}")
+    del params
+    free_device()
+    log(f"mamba packed vs unpacked greedy agreement in f32 compute: "
+        f"{f32_agreement(cfg, seed, prompts)}/{total}")
+    return counts, recs
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -722,7 +1125,7 @@ def launches_per_microbatch(cfg, n_leaves: int):
     again = n if cfg.remat else 0
     return {"paged_attention": 0, "flash_attention": n + again, "flash_attention_bwd": n,
             "rmsnorm": 2 * n + 1 + 2 * again, "rmsnorm_bwd": 2 * n + 1,
-            "masked_accum": n_leaves}
+            "masked_accum": n_leaves, "ssd_chunk": 0, "ssd_segment": 0}
 
 
 def train_phase(cfg, seed: int):
@@ -878,15 +1281,15 @@ def main() -> int:
 
     # 2. build: one nvcc per CUDA source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(f) for f in (flash_attention.load_library,
-                                           flash_attention.load_train_library)]
-        for b in builds:
+    loaders = (flash_attention.load_library, flash_attention.load_train_library,
+               ssd_chunk.load_library)
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        for b in [pool.submit(f) for f in loaders]:
             b.result()
-    for src in (flash_attention.SOURCE, flash_attention.TRAIN_SOURCE):
+    for src in (flash_attention.SOURCE, flash_attention.TRAIN_SOURCE, ssd_chunk.SOURCE):
         log(f"build: {src} (nvcc sm_90a) -> "
             f"{_build.library_path(src).relative_to(_build.BUILD_DIR.parents[1])}")
-    log(f"build: both CUDA sources in {time.perf_counter() - t0:.1f} s")
+    log(f"build: {len(loaders)} CUDA sources in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ones = torch.ones(2048, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
@@ -910,9 +1313,14 @@ def main() -> int:
     k2b_err, k2b_t = k2_bwd_checks_and_timing(rng)
     k1_err, k1_t = k1_checks_and_timing(rng)
     free_device()
+    k6_err = k6_checks(rng)
+    k5_err = k5_checks(rng)
+    free_device()
     k4_t = k4_timing(rng, prompt_lens)
     k2_t = k2_timing(rng)
     k3f_t, k3b_t = k3_timing(rng)
+    k6_t = k6_timing(rng)
+    k5_t = k5_timing(rng)
     free_device()
 
     # 4. serving at full width
@@ -933,11 +1341,15 @@ def main() -> int:
     del params
     free_device()
 
-    # 5. training at full depth, then the 2-layer card-vs-CPU parity
+    # 5. Mamba-2 serving at full width and depth
+    mamba_counts, _ = mamba_phase(args.seed)
+    free_device()
+
+    # 6. training at full depth, then the 2-layer card-vs-CPU parity
     train_counts = train_phase(cfg, args.seed)
     free_device()
     parity_phase(cfg, args.seed)
-    launches = {k: serve_counts[k] + train_counts[k] for k in serve_counts}
+    launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] for k in serve_counts}
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was launched no time on the main paths")
 
@@ -971,8 +1383,17 @@ def main() -> int:
              source="src/repro_torch/kernels/masked_accum.py",
              replaces="src/repro/kernels/masked_accum.py:33",
              launches=launches["masked_accum"], max_abs_err=k1_err, **k1_t),
+        dict(name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd_chunk.py:104",
+             launches=launches["ssd_chunk"], max_abs_err=k6_err, **k6_t["serve"],
+             library_ms=None),
+        dict(name="ssd_segment", route="cuda", source="src/repro_torch/kernels/ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd_chunk.py:65",
+             launches=launches["ssd_segment"], max_abs_err=k5_err, **k5_t["mixed"],
+             library_ms=None),
     ]
-    log(f"launches, serving: {serve_counts}; training: {train_counts}")
+    log(f"launches, qwen serving: {serve_counts}; mamba serving: {mamba_counts}; "
+        f"training: {train_counts}")
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

@@ -3,7 +3,9 @@
 Each module exposes ``config()`` (the exact published architecture) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).  The
 port carries the configs it can serve; the rest of the reference's
-registry is queued in ROADMAP.md.
+registry is queued in ROADMAP.md.  ``mamba2_tiny`` (a CPU-sized 'M'
+config for the serving parity tests) stays out of ``ARCHITECTURES``, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import importlib
 from typing import List
 
 ARCHITECTURES: List[str] = [
+    "mamba2_130m",
     "qwen2_5_3b",
 ]
 

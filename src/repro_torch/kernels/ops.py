@@ -2,7 +2,8 @@
 
 * CUDA tensors go to the hand-written kernel (``flash_attention.py`` for
   paged attention and training attention, ``rmsnorm.py`` for RMSNorm and
-  its backward, ``masked_accum.py`` for the DropCompute accumulate).  A
+  its backward, ``masked_accum.py`` for the DropCompute accumulate,
+  ``ssd_chunk.py`` for Mamba-2's intra-chunk and segment-masked SSD terms).  A
   kernel that fails to build or launch raises: there is no fallback to
   the plain version.
 * CPU tensors go to the plain PyTorch version in ``ref.py``.
@@ -12,6 +13,8 @@ Gradients: ``flash_attention`` and ``rmsnorm`` are ``torch.autograd``
 Functions whose backward dispatches the same way (the CUDA / Triton
 backward kernels on the card, the explicit formulas of ``ref.py`` on the
 CPU); they take the autograd path only when an input requires grad.
+The SSD terms have no backward yet: under an input that requires grad
+they raise (training 'M' layers is the next slice).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from . import flash_attention as _fa
 from . import masked_accum as _ma
 from . import ref as _ref
 from . import rmsnorm as _rms
+from . import ssd_chunk as _ssd
 
 #: kernel name -> the wrapper whose ``launches`` attribute counts it
 KERNELS = {
@@ -32,6 +36,8 @@ KERNELS = {
     "flash_attention": _fa.flash_attention_fwd,
     "flash_attention_bwd": _fa.flash_attention_bwd,
     "masked_accum": _ma.masked_accum,
+    "ssd_chunk": _ssd.ssd_chunk,
+    "ssd_segment": _ssd.ssd_segment,
 }
 
 
@@ -162,3 +168,28 @@ def masked_accum(acc, grad, keep=1.0, scale=1.0):
     if _device_type(acc) == "cuda":
         return _ma.masked_accum(acc, grad, keep, scale)
     return acc.copy_(_ref.masked_accum_ref(acc, grad, keep, scale))
+
+
+def _no_ssd_grad(name, *xs) -> None:
+    if _needs_grad(*xs):
+        raise NotImplementedError(
+            f"{name}: the SSD kernels have no backward yet (training 'M' layers needs "
+            f"the K6 backward, which is slice 4 of the port)")
+
+
+def ssd_chunk(x, dt, cum, b, c):
+    """Intra-chunk SSD term (K6) of x (B, NC, L, H, P), dt / cum (B, NC, L, H),
+    b / c (B, NC, L, N): the CUDA kernel on the card, ``ref.ssd_chunk_ref``
+    on the CPU.  Forward only (raises under an input that requires grad)."""
+    _no_ssd_grad("ssd_chunk", x, dt, cum, b, c)
+    fn = _ssd.ssd_chunk if _device_type(x) == "cuda" else _ref.ssd_chunk_ref
+    return fn(x, dt, cum, b, c)
+
+
+def ssd_segment(x, dt, cum, b, c, seg):
+    """Segment-masked SSD term (K5) of a packed step, x (T, H, P), dt / cum
+    (T, H), b / c (T, N), seg (T,): the CUDA kernel on the card,
+    ``ref.ssd_segment_ref`` on the CPU.  Forward only."""
+    _no_ssd_grad("ssd_segment", x, dt, cum, b, c)
+    fn = _ssd.ssd_segment if _device_type(x) == "cuda" else _ref.ssd_segment_ref
+    return fn(x, dt, cum, b, c, seg)

@@ -5,7 +5,8 @@ XLA path ``paged_attention_xla`` (``repro.kernels.flash_attention``)
 compute the same function, so one port stands for both.  The backward
 passes (flash attention, RMSNorm) have no reference kernel: their plain
 versions are the explicit gradient formulas, held on the CPU against
-``jax.grad`` of the reference's jnp paths.  On the CPU the dispatcher
+``jax.grad`` of the reference's jnp paths.  The SSD terms (``ssd_chunk_ref``,
+``ssd_segment_ref``) are the plain versions of K6 and K5.  On the CPU the dispatcher
 (``kernels.ops``) runs these; on the card ``chip_smoke.py`` holds each
 hand-written kernel against them on the same inputs.
 """
@@ -250,3 +251,70 @@ def masked_accum_ref(acc: torch.Tensor, grad: torch.Tensor, keep: float,
     the coefficient keep * scale is formed in f32 first, as JAX does."""
     coef = float(np.float32(keep) * np.float32(scale))
     return acc + coef * grad.float()
+
+
+# ---------------------------------------------------------------------------
+# K6 / K5: the SSD dual form's masked, decay-weighted "attention"
+# ---------------------------------------------------------------------------
+
+
+def _ssd_att(scores, cum_q, cum_k, dt_k, mask):
+    """scores (..., I, J) times exp(-(cum_i - cum_j)) * dt_j per head where
+    ``mask`` (..., I, J) admits the pair, else exactly 0; cum/dt (..., I|J,
+    H).  The exponent is masked before the exp: outside the mask cum_i -
+    cum_j is negative (j after i), and exp of its negation overflows."""
+    diff = cum_q[..., :, None, :] - cum_k[..., None, :, :]  # (..., I, J, H)
+    m = mask[..., None]
+    decay = torch.exp(-torch.where(m, diff, 0.0)) * m
+    return scores[..., None] * decay * dt_k[..., None, :, :]
+
+
+def ssd_chunk_ref(
+    x: torch.Tensor,  # (B, NC, L, H, P)
+    dt: torch.Tensor,  # (B, NC, L, H)
+    cum: torch.Tensor,  # (B, NC, L, H) cumulative log-decay within the chunk
+    b: torch.Tensor,  # (B, NC, L, N), shared by every head
+    c: torch.Tensor,  # (B, NC, L, N)
+    mask: torch.Tensor = None,  # (L, L) admissible (i, j); default causal
+) -> torch.Tensor:
+    """Intra-chunk SSD term, (B, NC, L, H, P) in x's dtype (port of
+    ``repro.kernels.ref.ssd_chunk_ref``, the ``y_intra`` of
+    ``repro.models.ssm._ssd_chunked``):
+
+        y_i = sum_{j<=i} (C_i . B_j) exp(-(cum_i - cum_j)) dt_j x_j
+
+    in f32.  ``mask`` names the admissible pairs in place of the causal
+    triangle (a check plants a kernel fault with it)."""
+    l = x.shape[2]
+    if mask is None:
+        mask = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    scores = torch.einsum("bgin,bgjn->bgij", c.float(), b.float())
+    att = _ssd_att(scores, cum.float(), cum.float(), dt.float(), mask)
+    return torch.einsum("bgijh,bgjhp->bgihp", att, x.float()).to(x.dtype)
+
+
+def ssd_segment_ref(
+    x: torch.Tensor,  # (T, H, P) packed tokens
+    dt: torch.Tensor,  # (T, H)
+    cum: torch.Tensor,  # (T, H) cumulative log-decay over the packed axis
+    b: torch.Tensor,  # (T, N)
+    c: torch.Tensor,  # (T, N)
+    seg: torch.Tensor,  # (T,) int segment (slot) ids; < 0 = padding
+) -> torch.Tensor:
+    """Segment-masked SSD term for token-packed steps, (T, H, P) in x's dtype
+    (port of ``repro.kernels.ref.ssd_segment_ref``):
+
+        y_i = sum_{j<=i, seg_j == seg_i, seg_i >= 0} (C_i . B_j)
+              exp(-(cum_i - cum_j)) dt_j x_j
+
+    ``cum`` is one running sum over the whole packed axis: segments are
+    contiguous and padding carries dt = 0, so cum_i - cum_j of a
+    same-segment pair is that segment's own decay.  Padding rows are exact
+    zeros."""
+    t = x.shape[0]
+    seg = seg.long()
+    mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+    mask = mask & (seg[:, None] == seg[None, :]) & (seg >= 0)[:, None]
+    scores = c.float() @ b.float().T
+    att = _ssd_att(scores, cum.float(), cum.float(), dt.float(), mask)
+    return torch.einsum("ijh,jhp->ihp", att, x.float()).to(x.dtype)

@@ -1,0 +1,178 @@
+"""Wrappers of the CUDA SSD kernels: ``ssd_chunk`` (K6, the intra-chunk term
+of Mamba-2's chunked scan) and ``ssd_segment`` (K5, its segment-masked form
+over a token-packed step).
+
+Ports of the TPU kernels ``repro.kernels.ssd_chunk.ssd_chunk``
+(src/repro/kernels/ssd_chunk.py:104, body ``_ssd_chunk_kernel`` :27) and
+``ssd_segment`` (:65, body ``_ssd_segment_kernel`` :45).  Both kernels are
+one template in ``ssd_chunk.cu`` with a mask policy: one CTA per (64-row
+query tile, group of heads, chunk), C . B^T formed once per key tile for
+every head of the group, key tiles right of the diagonal never visited
+and, for K5, key tiles without a same-segment pair skipped.  This module
+checks the arguments, picks the head group so the grid fills the card,
+allocates the output and launches on PyTorch's current stream.  It takes
+CUDA tensors only: the plain versions for the CPU are
+``kernels.ref.ssd_chunk_ref`` / ``ssd_segment_ref``, chosen by
+``kernels.ops`` from the tensors' device.
+
+``ssd_chunk.launches`` / ``ssd_segment.launches`` count launches (nothing
+else adds to them), so a run can show that the serving path went through
+the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+SOURCE = "ssd_chunk.cu"
+#: (state N, head dim P) the source instantiates: the configs the port serves
+BUILT = {(128, 64)}  # mamba2-130m
+#: rows of a query tile and keys of a key tile in the kernel (``kTile``); a
+#: dense step shorter than ``ssm_chunk`` runs one chunk of its length
+#: rounded up to this (``models.ssm.chunk_len``)
+ROW_TILE = 64
+HEAD_GROUPS = (4, 2, 1)  # heads per CTA the source instantiates, largest first
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P] * 7 + [_I] * 7 + [_P]
+
+
+class UnbuiltShapeError(ValueError):
+    """SSD inputs at a state size, head dim or dtype that ``ssd_chunk.cu``
+    is not built for."""
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library; sets the C signature."""
+    lib = _build.load(SOURCE)
+    lib.repro_ssd.argtypes = _ARGTYPES
+    lib.repro_ssd.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def heads_per_cta(tiles: int, heads: int, sms: int) -> int:
+    """The largest head group whose grid (``tiles`` query tiles over every
+    chunk, times the head groups) still gives each SM a CTA: a larger group
+    shares each C . B^T among more heads, a smaller one fills the card."""
+    for hg in HEAD_GROUPS:
+        if tiles * -(-heads // hg) >= sms:
+            return hg
+    return HEAD_GROUPS[-1]
+
+
+def require_built(n: int, p: int, dtype: torch.dtype = torch.float32) -> None:
+    """Raise ``UnbuiltShapeError`` unless the kernels take state size ``n``,
+    head dim ``p`` and ``dtype``."""
+    if (n, p) not in BUILT:
+        raise UnbuiltShapeError(f"state {n} and head dim {p}: the SSD kernels are built for "
+                                f"(state, head dim) in {sorted(BUILT)}")
+    if dtype != torch.float32:
+        raise UnbuiltShapeError(f"the SSD kernels take float32 inputs, not {dtype}")
+
+
+def _check(x, dt, cum, b, c, seg=None):
+    """Raise on anything the kernels do not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the SSD kernels take CUDA tensors, got {x.device}")
+    named = [("dt", dt), ("cum", cum), ("b", b), ("c", c)]
+    if seg is not None:
+        named.append(("seg", seg))
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for name, t in [("x", x)] + named[:4]:
+        if t.dtype != torch.float32:
+            raise UnbuiltShapeError(f"{name} is {t.dtype}: the SSD kernels take float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    require_built(b.shape[-1], x.shape[-1], x.dtype)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself at a 16-byte aligned address (the kernel reads rows in
+    16-byte loads), else an aligned copy (a fresh allocation is aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, dt, cum, b, c, seg, g, length, segment):
+    """The output, and whether a kernel was launched (not for empty input)."""
+    h = x.shape[-2]
+    x, b, c = _aligned(x), _aligned(b), _aligned(c)
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y, False
+    tiles = g * -(-length // ROW_TILE)
+    hg = heads_per_cta(tiles, h, _sm_count(x.device.index))
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.repro_ssd(
+            x.data_ptr(), dt.data_ptr(), cum.data_ptr(), b.data_ptr(), c.data_ptr(),
+            seg.data_ptr() if seg is not None else 0, y.data_ptr(), g, length, h,
+            x.shape[-1], b.shape[-1], int(segment), hg,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"SSD kernel launch failed (code {err})")
+    return y, True
+
+
+def ssd_chunk(
+    x: torch.Tensor,  # (B, NC, L, H, P) f32
+    dt: torch.Tensor,  # (B, NC, L, H)
+    cum: torch.Tensor,  # (B, NC, L, H) cumulative log-decay within the chunk
+    b: torch.Tensor,  # (B, NC, L, N), shared by every head
+    c: torch.Tensor,  # (B, NC, L, N)
+) -> torch.Tensor:
+    """Intra-chunk SSD term (B, NC, L, H, P) from the CUDA kernel (K6)."""
+    _check(x, dt, cum, b, c)
+    bs, nc, l, h, p = x.shape
+    n = b.shape[-1]
+    if dt.shape != (bs, nc, l, h) or cum.shape != dt.shape or b.shape != (bs, nc, l, n) \
+            or c.shape != b.shape:
+        raise ValueError(f"want x (B, NC, L, H, P), dt and cum (B, NC, L, H), b and c "
+                         f"(B, NC, L, N); got {tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(cum.shape)}, {tuple(b.shape)}, {tuple(c.shape)}")
+    y, launched = _launch(x, dt, cum, b, c, None, bs * nc, l, segment=False)
+    ssd_chunk.launches += int(launched)
+    return y
+
+
+def ssd_segment(
+    x: torch.Tensor,  # (T, H, P) f32 packed tokens
+    dt: torch.Tensor,  # (T, H)
+    cum: torch.Tensor,  # (T, H) cumulative log-decay over the packed axis
+    b: torch.Tensor,  # (T, N)
+    c: torch.Tensor,  # (T, N)
+    seg: torch.Tensor,  # (T,) int segment (slot) ids; < 0 = padding
+) -> torch.Tensor:
+    """Segment-masked SSD term (T, H, P) from the CUDA kernel (K5).  The
+    mask is applied pair by pair, so any ``seg`` gives the plain version's
+    function; a key tile without an admissible pair is skipped, which over
+    ``pack_step``'s contiguous segments leaves the tiles a row tile's own
+    segments cover.  ``seg`` is cast to contiguous int32 (a few hundred
+    bytes)."""
+    _check(x, dt, cum, b, c, seg)
+    t, h, p = x.shape
+    n = b.shape[-1]
+    if dt.shape != (t, h) or cum.shape != dt.shape or b.shape != (t, n) \
+            or c.shape != b.shape or seg.shape != (t,):
+        raise ValueError(f"want x (T, H, P), dt and cum (T, H), b and c (T, N), seg (T,); "
+                         f"got {tuple(x.shape)}, {tuple(dt.shape)}, {tuple(cum.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}, {tuple(seg.shape)}")
+    y, launched = _launch(x, dt, cum, b, c, seg.to(torch.int32).contiguous(), 1, t,
+                          segment=True)
+    ssd_segment.launches += int(launched)
+    return y
+
+
+ssd_chunk.launches = 0
+ssd_segment.launches = 0

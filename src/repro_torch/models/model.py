@@ -9,7 +9,8 @@
 
 ``batch`` is a dict: ``tokens`` (B, S) int, optional ``weights`` (B, S)
 per-token loss weights.  The port trains and serves decoder-only 'G'/'L'
-stacks; other families raise ``UnsupportedPatternError``.
+stacks and serves 'M' (Mamba-2) stacks; other families raise
+``UnsupportedPatternError``.
 
 Parameters are nested dicts with the reference's path names and shapes
 (``models.convert.params_from_jax`` maps a JAX tree onto them).  Caches are
@@ -37,17 +38,17 @@ class UnsupportedPatternError(NotImplementedError):
     """A serving path was asked for a model it cannot run.
 
     Typed (and raised unconditionally, not ``assert``-ed) so callers can
-    catch it.  The port serves decoder-only 'G'/'L' stacks; recurrent,
-    MoE, enc-dec and VLM models raise it."""
+    catch it.  The port serves decoder-only 'G'/'L'/'M' stacks; RG-LRU
+    ('R'), MoE, enc-dec and VLM models raise it."""
 
 
 def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
     """Raise ``UnsupportedPatternError`` unless the port can run ``cfg``
-    through multi-token serving steps: decoder-only 'G'/'L' attention
-    stacks without experts or a VLM prefix."""
-    if not set(cfg.pattern) <= {"G", "L"}:
+    through multi-token serving steps: decoder-only stacks of 'G'/'L'
+    attention and 'M' (Mamba-2) layers without experts or a VLM prefix."""
+    if not set(cfg.pattern) <= {"G", "L", "M"}:
         raise UnsupportedPatternError(
-            f"{what} supports 'G'/'L' layer patterns in the PyTorch port, got "
+            f"{what} supports 'G'/'L'/'M' layer patterns in the PyTorch port, got "
             f"{cfg.pattern!r}"
         )
     if cfg.is_encdec:
@@ -60,10 +61,16 @@ def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
 
 def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> None:
     """Raise before any work what the training path would raise at its
-    first attention call: ``logit_softcap`` (not ported), and on the card
-    attention that the training kernels are not built for
+    first layer: 'M' layers (``UnsupportedPatternError``: the SSD kernels
+    have no backward yet, slice 4), ``logit_softcap`` (not ported), and on
+    the card attention that the training kernels are not built for
     (``kernels.flash_attention.UnbuiltShapeError``: head dim, group,
     compute dtype, sequence length)."""
+    require_chunkable(cfg, "training")
+    if "M" in cfg.pattern:
+        raise UnsupportedPatternError(
+            f"training {cfg.name!r} needs the backward of the SSD kernel (K6) for its 'M' "
+            f"layers, which is slice 4 of the port; the port serves it")
     L.require_no_softcap(cfg)
     if torch.device(device).type == "cuda":
         _fa.require_trained(cfg.hd, cfg.n_heads // cfg.n_kv_heads, cfg.compute_dtype, seq_len)
@@ -88,14 +95,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
     }
 
 
-#: leaves the reference reads in f32 whatever the compute dtype
-_F32_LEAVES = ("q_norm", "k_norm")
+#: leaves the reference reads in f32 whatever the compute dtype (QK-norm
+#: scales; the SSD block's decay, step bias, skip and gated-norm scale)
+_F32_LEAVES = ("q_norm", "k_norm", "a_log", "dt_bias", "d_skip", "norm_scale")
 
 
 def compute_params(params: Tree, cfg: ModelConfig) -> Tree:
     """The tree with every leaf the reference casts to ``cfg.dtype`` at use
     already cast, made once (a serving engine calls this at construction).
-    Leaves read in f32 (QK-norm scales, LayerNorm affine) stay as they are.
+    Leaves read in f32 (QK-norm scales, LayerNorm affine, the SSD block's
+    ``a_log``, ``dt_bias``, ``d_skip``, ``norm_scale``) stay as they are.
     The cast is deterministic, so outputs are unchanged; for the f32
     master / bf16 compute recipe it halves the bytes each step reads.
     Idempotent: casting a cast tree returns the same tensors."""
@@ -151,7 +160,8 @@ def _cache_rebuild(cache, new_data):
 
 def init_decode_cache(params: Tree, cfg: ModelConfig, batch: int, seq_len: int,
                       linear: bool = False) -> Tree:
-    """Pre-allocated dense KV cache on the parameters' device.
+    """Pre-allocated dense KV cache on the parameters' device ('M' layers:
+    slot-indexed conv windows and SSM states).
     ``linear=True`` (full-length sliding-window buffers) is what
     ``prefill_chunk``/``packed_prefill`` need; the ring layout is kept for
     the reference's shape but the port has no ring-buffer decode path."""
@@ -216,8 +226,9 @@ def packed_prefill(params: Tree, cfg: ModelConfig, cache: Tree, tokens, slot_ids
 def forward_features(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final hidden states (B, S, d), aux loss scalar) — ``model.py:100-140``
-    for G/L decoders: embed, the stack without caches (remat per group
-    under ``cfg.remat``), the final norm."""
+    for G/L/M decoders: embed, the stack without caches (remat per group
+    under ``cfg.remat``; 'M' layers run the cache-free SSD scan, forward
+    only), the final norm."""
     require_chunkable(cfg, "training")
     dev = params_device(params)
     tokens = _long(batch["tokens"], dev)

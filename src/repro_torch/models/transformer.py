@@ -1,4 +1,5 @@
-"""Block assembly for G/L decoder stacks (port of ``repro.models.transformer``).
+"""Block assembly for G/L attention and 'M' (Mamba-2) stacks (port of
+``repro.models.transformer``).
 
 Layers are organised as in the reference (``transformer.py:188-206``):
 
@@ -22,7 +23,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import ssm as SSD
 from .config import ModelConfig
+from .recurrent import packed_step
 
 Tree = Any
 
@@ -56,8 +59,11 @@ def tree_unflatten(template: Tree, leaves) -> Tree:
 
 
 def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Tree:
+    if kind == "M":  # ``transformer.py:88-89``: one norm and the SSD mixer
+        return {"norm1": L.init_norm(cfg, device=device),
+                "ssd": SSD.init_ssd(gen, cfg, device=device)}
     if kind not in ("G", "L"):
-        raise ValueError(f"the port builds 'G'/'L' blocks, got {kind!r}")
+        raise ValueError(f"the port builds 'G'/'L'/'M' blocks, got {kind!r}")
     return {
         "norm1": L.init_norm(cfg, device=device),
         "attn": L.init_attention(gen, cfg, device=device),
@@ -71,10 +77,15 @@ def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 seq_lens=None, slot_ids=None, page_tables=None,
                 page_size: int = 0, index=None, rope=None) -> Tuple[torch.Tensor, Tree]:
     """Returns (x, cache); the cache is updated in place.  ``index`` is the
-    step's ``layers.step_index`` for ``kind`` (made here when None).
+    step's ``layers.step_index`` for a 'G'/'L' kind (made here when None),
+    its ``recurrent.packed_step`` for 'M' on a packed step.
     ``cache=None`` runs the training path (``rope``: the sequence's RoPE
     angles, made once per forward)."""
     h = L.apply_norm(p["norm1"], x, cfg)
+    if kind == "M":  # ``transformer.py:156-167``
+        y, _ = SSD.apply_ssd(p["ssd"], h, cfg, None if cache is None else cache["ssd"],
+                             seq_lens=seq_lens, slot_ids=slot_ids, step=index)
+        return x + y, cache
     y, _ = L.apply_attention(
         p["attn"], h, cfg, kind, positions, None if cache is None else cache["attn"],
         decode_pos=decode_pos, seq_lens=seq_lens, slot_ids=slot_ids,
@@ -88,6 +99,8 @@ def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      linear: bool = False, device=None) -> Tree:
+    if kind == "M":  # slot-indexed conv window and SSM state
+        return {"ssd": SSD.init_ssd_cache(cfg, batch, device=device)}
     return {"attn": L.init_attention_cache(cfg, kind, batch, seq_len, linear=linear,
                                            device=device)}
 
@@ -178,7 +191,8 @@ def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
                 page_size: int = 0) -> Tuple[torch.Tensor, Tree]:
     """Apply every layer.  Over a serving cache, returns (x, caches) with
     the caches updated in place (group slices are views), the step's
-    addressing (``layers.step_index``) made once per layer kind.  With
+    addressing (``layers.step_index``; for 'M' on a packed step,
+    ``recurrent.packed_step``) made once per layer kind.  With
     ``caches=None`` (training), returns (x, None)."""
     if caches is None:
         return _apply_stack_train(params, x, cfg, positions), None
@@ -189,7 +203,12 @@ def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
 
     def block(p, kind, c, x):
         if kind not in indices:
-            indices[kind] = L.step_index(cfg, kind, positions, c["attn"], **kw)
+            if kind == "M":
+                indices[kind] = (None if slot_ids is None else
+                                 packed_step(slot_ids, c["ssd"]["state"].shape[0],
+                                             cfg.ssm_conv))
+            else:
+                indices[kind] = L.step_index(cfg, kind, positions, c["attn"], **kw)
         return apply_block(p, x, cfg, kind, positions, c, index=indices[kind], **kw)[0]
 
     for gi in range(n_groups):

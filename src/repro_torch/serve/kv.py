@@ -1,4 +1,4 @@
-"""The KV-cache API (port of ``repro.serve.kv``, attention state only).
+"""The KV-cache API (port of ``repro.serve.kv``).
 
     spec = KVCacheSpec(num_slots=8, max_len=512, layout="paged")
     kv = spec.build(params, cfg)            # -> KVCache (host handle)
@@ -14,6 +14,12 @@ they accept the dense cache dict.  Two interchangeable layouts:
   prefix sharing and copy-on-write.  ``kv_dtype="int8"`` stores pages as
   int8 with per-(row, kv head) f32 scales.
 
+'M' (Mamba-2) layers carry slot-indexed ``{"ssd": {"conv", "state"}}``
+leaves in both layouts, beside the page pools and never addressed through
+the block tables: admission zeroes a slot's rows, prefix sharing is off
+(a shared page would skip the prompt tokens the carried state must scan)
+and ``trim_slot`` refuses (the state has consumed the trimmed tokens).
+
 Pools live on the parameters' device and are updated in place by the
 model paths.
 """
@@ -26,8 +32,13 @@ import torch
 
 from ..models import layers as L
 from ..models.config import torch_dtype
-from ..models.model import init_decode_cache, params_device, require_chunkable
-from ..models.transformer import _unit_and_groups, tree_leaves
+from ..models.model import (
+    UnsupportedPatternError,
+    init_decode_cache,
+    params_device,
+    require_chunkable,
+)
+from ..models.transformer import _unit_and_groups, init_block_cache, tree_leaves, tree_map
 from .block_table import PagedTables
 
 Tree = Any
@@ -48,21 +59,61 @@ class KVState:
         return self.page_size > 0
 
 
+#: the per-layer cache keys of recurrent state: slot-indexed, never paged
+RECURRENT_KEYS = ("ssd",)
+
+
+def _layer_leaves(data: Tree, recurrent: bool):
+    """(leaf, grouped) for the recurrent (``recurrent=True``) or the
+    attention leaves of a cache tree; ``grouped`` leaves carry a leading
+    ``n_groups`` dim ahead of the page or slot axis."""
+    stack = data["stack"]
+    for grouped, layers in ((True, stack["groups"]), (False, stack["tail"])):
+        for layer in layers:
+            for key, sub in layer.items():
+                if (key in RECURRENT_KEYS) == recurrent:
+                    yield from ((x, grouped) for x in tree_leaves(sub))
+
+
 def copy_pages_state(state: KVState, ops: Sequence[Tuple[int, int]]) -> KVState:
     """Apply ``(src, dst)`` page copies to every pool leaf, in place (the
-    device half of copy-on-write).  Group leaves carry a leading
-    ``n_groups`` dim ahead of the page axis."""
+    device half of copy-on-write).  Recurrent leaves are slot-indexed,
+    not page-indexed, and pass through untouched."""
     if not ops:
         return state
     dev = state.tables.device
     src = torch.tensor([s for s, _ in ops], dtype=torch.long, device=dev)
     dst = torch.tensor([d for _, d in ops], dtype=torch.long, device=dev)
-    stack = state.data["stack"]
-    for x in tree_leaves(stack["groups"]):  # (n_groups, num_pages, ...)
-        x[:, dst] = x[:, src]
-    for x in tree_leaves(stack["tail"]):  # (num_pages, ...)
-        x[dst] = x[src]
+    for x, grouped in _layer_leaves(state.data, recurrent=False):
+        if grouped:  # (n_groups, num_pages, ...)
+            x[:, dst] = x[:, src]
+        else:  # (num_pages, ...)
+            x[dst] = x[src]
     return state
+
+
+def reset_recurrent_state(data: Tree, slots) -> Tree:
+    """Zero the recurrent rows of ``slots`` in a cache tree (the dense dict
+    or ``KVState.data``), in place: a freed slot's conv window and SSM
+    state must not seed its next tenant.  Attention leaves are untouched
+    (their rows are position-masked)."""
+    for x, grouped in _layer_leaves(data, recurrent=True):
+        if grouped:  # (n_groups, num_slots, ...)
+            x[:, list(slots)] = 0
+        else:
+            x[list(slots)] = 0
+    return data
+
+
+def copy_recurrent_state(data: Tree, src: int, dst: int) -> Tree:
+    """Copy slot ``src``'s recurrent rows onto ``dst``, in place (the fork
+    path: an eager copy, since the next step rewrites the row anyway)."""
+    for x, grouped in _layer_leaves(data, recurrent=True):
+        if grouped:
+            x[:, dst] = x[:, src]
+        else:
+            x[dst] = x[src]
+    return data
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +152,12 @@ class Paged:
         dtype = spec.resolved_kv_dtype(cfg)
         dev = params_device(params)
 
-        def one_layer(lead):
+        def one_layer(kind, lead):
+            if kind == "M":
+                # recurrent state is O(1) per slot: the dense layout's
+                # slot-indexed rows, beside the page pools
+                one = init_block_cache(cfg, kind, spec.num_slots, 1, device=dev)
+                return tree_map(lambda x: x.expand(lead + tuple(x.shape)).clone(), one)
             shape = lead + (num_pages, ps, kv, hd)
             layer = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                      "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -114,8 +170,8 @@ class Paged:
             return {"attn": layer}
 
         unit, n_groups, tail = _unit_and_groups(cfg)
-        groups = tuple(one_layer((n_groups,)) for _ in unit)
-        tail_cs = [one_layer(()) for _ in range(tail)]
+        groups = tuple(one_layer(kind, (n_groups,)) for kind in unit)
+        tail_cs = [one_layer(cfg.pattern[n_groups * len(unit) + i], ()) for i in range(tail)]
         return {"stack": {"groups": groups, "tail": tail_cs}}
 
 
@@ -248,6 +304,11 @@ class KVCache:
         self._state = new
 
     @property
+    def has_recurrent(self) -> bool:
+        """True when the pattern carries per-slot recurrent state leaves."""
+        return bool(set(self.cfg.pattern) & {"R", "M"})
+
+    @property
     def page_size(self) -> int:
         return self.spec.page_size if self.tables is not None else 0
 
@@ -281,23 +342,34 @@ class KVCache:
 
     def admit_slot(self, slot: int, prompt, max_new: int) -> Optional[int]:
         """Reserve pages for a request; returns prompt tokens covered by
-        shared prefix pages, or None when the pool cannot hold it yet."""
+        shared prefix pages, or None when the pool cannot hold it yet.
+        The slot's recurrent rows are zeroed in both layouts (the previous
+        tenant's state must not seed the new request)."""
         if self.tables is None:
+            if self.has_recurrent:
+                reset_recurrent_state(self._state.data, [slot])
             return 0
         shared = self.tables.admit(slot, prompt, max_new)
         if shared is not None:
+            if self.has_recurrent:
+                reset_recurrent_state(self._state.data, [slot])
             self.sync()
         return shared
 
     def probe_shared(self, prompt) -> int:
-        """Prompt tokens the prefix cache could supply right now."""
-        if self.tables is None:
+        """Prompt tokens the prefix cache could supply right now (never
+        any for recurrent patterns: sharing is attention-only)."""
+        if self.tables is None or self.has_recurrent:
             return 0
         return self.tables.probe_shareable(prompt)
 
     def share(self, slot: int, prompt, pos: int) -> int:
-        """Map prefix-cache pages covering ``prompt`` from ``pos`` on."""
-        if self.tables is None:
+        """Map prefix-cache pages covering ``prompt`` from ``pos`` on.
+        Disabled for recurrent patterns: a shared page lets the engine skip
+        prefilling those tokens, but the carried state must scan every
+        prompt token, so nothing is shared (or published, see
+        ``register_prompt_pages``)."""
+        if self.tables is None or self.has_recurrent:
             return 0
         n = self.tables.try_share(slot, prompt, pos)
         if n:
@@ -320,12 +392,21 @@ class KVCache:
         self.prepare_step([(slot, start, [0] * n)])
 
     def register_prompt_pages(self, slot: int, prompt, upto: int) -> None:
-        """Publish fully-written prompt pages into the prefix cache."""
-        if self.tables is not None:
+        """Publish fully-written prompt pages into the prefix cache
+        (nothing for recurrent patterns: an empty prefix cache is what keeps
+        ``admit`` from mapping shared pages for them)."""
+        if self.tables is not None and not self.has_recurrent:
             self.tables.register_prompt_pages(slot, prompt, upto)
 
     def trim_slot(self, slot: int, keep_tokens: int) -> int:
-        """Drop the blocks of ``slot`` past ``keep_tokens`` positions."""
+        """Drop the blocks of ``slot`` past ``keep_tokens`` positions.
+        Recurrent patterns refuse: the carried state has already consumed
+        the trimmed tokens and cannot roll back."""
+        if self.has_recurrent:
+            raise UnsupportedPatternError(
+                "trim_slot cannot roll back recurrent state ('R'/'M' layers): the "
+                "carried state already consumed the trimmed tokens; rollback is "
+                "attention-only")
         if self.tables is None:
             return 0
         n = self.tables.trim(slot, keep_tokens)
@@ -340,8 +421,11 @@ class KVCache:
 
     def fork_slot(self, parent: int, child: int) -> None:
         """Share every page of ``parent`` with ``child`` (copy-on-write on
-        the next write).  Dense layout: unsupported."""
+        the next write); recurrent rows are copied eagerly.  Dense layout:
+        unsupported."""
         if self.tables is None:
             raise NotImplementedError("fork_slot requires the paged layout")
         self.tables.fork(parent, child)
+        if self.has_recurrent:
+            copy_recurrent_state(self._state.data, parent, child)
         self.sync()

@@ -10,7 +10,9 @@ unconditional, and the oldest prefill always gets at least one token).
 ``packed=True`` runs the token-packed step (``serve.packing`` +
 ``models.model.packed_prefill``) so granted tokens alone set the compute;
 ``cache="paged"`` puts KV in a page pool with prefix sharing
-(``serve.kv``).  Scheduling, deferral and accounting match the reference
+(``serve.kv``).  'M' (Mamba-2) layers carry per-slot recurrent state: a
+recycled slot's rows are zeroed on admission, and prefix sharing (and the
+in-flight prefix dedup that waits for it) is off for them.  Scheduling, deferral and accounting match the reference
 exactly; ``tests/test_torch_serve.py`` holds the streams, step counts,
 per-step stats and block tables to it.
 
@@ -38,7 +40,7 @@ from ..models.model import (
     require_chunkable,
 )
 from . import packing
-from .kv import KVCache, KVCacheSpec
+from .kv import KVCache, KVCacheSpec, reset_recurrent_state
 from .sampling import SamplingParams, greedy_tokens
 
 __all__ = [
@@ -240,6 +242,7 @@ class ContinuousBatcher:
         self.packed_decode_capacity = batch_slots if packed else None
         self.params = compute_params(params, cfg)
         self.cfg = cfg
+        self.recurrent = bool(set(cfg.pattern) & {"R", "M"})
         self.device = params_device(self.params)
         self.max_len = max_len
         self.chunk_size = chunk_size
@@ -340,7 +343,11 @@ class ContinuousBatcher:
 
     def _dedup_inflight_prefix(self, head: Request) -> bool:
         """Park ``head`` while an active slot is still prefilling a prompt
-        whose shareable prefix pages ``head`` could map once written."""
+        whose shareable prefix pages ``head`` could map once written.  Never
+        for recurrent patterns: no pages are ever published for them, so
+        parking would wait on nothing."""
+        if self.recurrent:
+            return False
         ps = self.kv.page_size
         limit = (len(head.prompt) - 1) // ps  # head's shareable-block cap
         if limit == 0:
@@ -370,6 +377,11 @@ class ContinuousBatcher:
                     shared = self.kv.admit_slot(i, head.prompt, head.max_new_tokens)
                     if shared is None:
                         break  # the pool cannot guarantee the head yet
+                elif self.recurrent:
+                    # the dense layout has no KVCache.admit_slot: zero the
+                    # recycled slot's recurrent rows here (carried state is
+                    # read unmasked every step, unlike position-masked KV)
+                    reset_recurrent_state(self.cache, [i])
                 s.req = self.queue.pop(0)
                 s.pos = shared  # shared prefix pages are already in the cache
                 self._shared_step += shared

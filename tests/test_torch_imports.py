@@ -40,7 +40,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                      "repro_torch.core.engine", "repro_torch.core.threshold",
                      "repro_torch.data.synthetic", "repro_torch.optim.optimizers",
                      "repro_torch.train.trainer", "repro_torch.train.resilience.controller",
-                     "repro_torch.launch.train"):
+                     "repro_torch.launch.train", "repro_torch.kernels.ssd_chunk",
+                     "repro_torch.models.ssm", "repro_torch.models.recurrent",
+                     "repro_torch.configs.mamba2_130m", "repro_torch.configs.mamba2_tiny"):
         assert expected in names, names
     code = (
         "import sys\n"
@@ -76,6 +78,7 @@ def test_kernel_modules_import_triton_lazily():
         "sys.modules['triton'] = None\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.rmsnorm\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.masked_accum\n"
+        "import repro_torch.kernels.ssd_chunk, repro_torch.models.ssm\n"
         "import repro_torch.train, repro_torch.launch.train\n"
         "print('LAZY')\n"
     )

@@ -9,8 +9,10 @@ int8 scales, hostile block tables, padding and fully masked queries
 kernel (:17-138) and its backward against ``jax.grad`` of ``layers.sdpa``
 and ``layers.sdpa_flash``; the RMSNorm backward against ``jax.grad`` of
 ``apply_norm``; masked accumulation against the interpret-mode kernel
-(:357-380).  Inputs are made with numpy from a seed and fed to both
-packages.
+(:357-380); the SSD intra-chunk (K6) and segment-masked (K5) terms against
+the interpret-mode Pallas kernels and the reference's oracles
+(``tests/test_ssd_kernel.py``).  Inputs are made with numpy from a seed
+and fed to both packages.
 """
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from repro.models import ModelConfig as JConfig  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.kernels import flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
+from repro_torch.kernels import ssd_chunk  # noqa: E402
 from test_torch_parity_util import (  # noqa: E402
     BF16_ULPS,
     K3_ROW_TOL,
@@ -36,6 +39,9 @@ from test_torch_parity_util import (  # noqa: E402
     quantize_pool,
     row_rel_err,
     skip_diagonal_tile_mask,
+    ssd_chunk_inputs,
+    ssd_segment_inputs,
+    ssd_skip_diagonal_tile_mask,
 )
 
 torch.set_num_threads(1)
@@ -182,9 +188,15 @@ class TestDispatch:
         acc, g = torch.randn(6), torch.randn(6)
         want = ref.masked_accum_ref(acc, g, 1.0, 0.5)
         assert torch.equal(ops.masked_accum(acc, g, 1.0, 0.5), want) and torch.equal(acc, want)
+        x, dt, cum, b, c = (torch.from_numpy(v) for v in ssd_chunk_inputs(1, 2, 8, 2, 4, 3, 0))
+        assert torch.equal(ops.ssd_chunk(x, dt, cum, b, c), ref.ssd_chunk_ref(x, dt, cum, b, c))
+        seg = torch.tensor([0] * 5 + [1] * 9 + [-1] * 2)
+        args = (x.reshape(16, 2, 4), dt.reshape(16, 2), cum.reshape(16, 2), b.reshape(16, 3),
+                c.reshape(16, 3), seg)
+        assert torch.equal(ops.ssd_segment(*args), ref.ssd_segment_ref(*args))
         counts = ops.launch_counts()
         assert set(counts) == {"paged_attention", "rmsnorm", "rmsnorm_bwd", "flash_attention",
-                               "flash_attention_bwd", "masked_accum"}
+                               "flash_attention_bwd", "masked_accum", "ssd_chunk", "ssd_segment"}
         assert all(n == 0 for n in counts.values()), counts
 
     def test_kernel_wrappers_refuse_cpu_tensors(self):
@@ -203,6 +215,12 @@ class TestDispatch:
             flash_attention.flash_attention_bwd(q, kv, kv, q, torch.ones(1, 16, 128), q)
         with pytest.raises(ValueError, match="CUDA"):
             masked_accum.masked_accum(torch.ones(4), torch.ones(4), 1.0)
+        x, dt, cum, b, c = (torch.from_numpy(v) for v in ssd_chunk_inputs(1, 1, 64, 2, 64, 128, 0))
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd_chunk.ssd_chunk(x, dt, cum, b, c)
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd_chunk.ssd_segment(x[0, 0], dt[0, 0], cum[0, 0], b[0, 0], c[0, 0],
+                                  torch.zeros(64, dtype=torch.int32))
 
     def test_other_devices_raise(self):
         x = torch.ones(2, 8, device="meta")
@@ -229,6 +247,22 @@ class TestDispatch:
         splits, per = flash_attention.split_blocks(ctas, num_blocks, sms)
         assert (splits, per) == want
         assert splits * per >= num_blocks > (splits - 1) * per  # no empty tail split
+
+    @pytest.mark.parametrize("tiles,heads,want", [
+        (32, 24, 4),  # K6 at B 8, L 256: 192 CTAs of 4 heads
+        (8, 24, 1),  # K6 at B 8, L 64 (a decode or 64-token step): 192 CTAs of one head
+        (5, 24, 1),  # K5 at T 257: 120 CTAs, the most it can have
+        (16, 24, 2),  # 192 CTAs of 2 heads
+    ])
+    def test_ssd_heads_per_cta(self, tiles, heads, want):
+        assert ssd_chunk.heads_per_cta(tiles, heads, 132) == want
+
+    def test_ssd_refuses_unbuilt_shapes(self):
+        ssd_chunk.require_built(128, 64)
+        for n, p, dtype in ((16, 64, torch.float32), (128, 32, torch.float32),
+                            (128, 64, torch.bfloat16)):
+            with pytest.raises(ssd_chunk.UnbuiltShapeError):
+                ssd_chunk.require_built(n, p, dtype)
 
     def test_rmsnorm_block_shape(self):
         assert rmsnorm.block_shape(2048) == (4, 2048, 8)
@@ -259,6 +293,17 @@ def test_ctypes_signature_matches_the_cuda_source():
     parameters, pointer for pointer (a miscount only shows on the card)."""
     assert _c_argtypes(flash_attention.SOURCE, "repro_paged_attention") == \
         flash_attention._ARGTYPES
+
+
+def test_ssd_ctypes_signature_matches_the_cuda_source(monkeypatch):
+    class Fn:
+        pass
+
+    class Lib:
+        repro_ssd = Fn()
+
+    monkeypatch.setattr(ssd_chunk._build, "load", lambda source: Lib)
+    assert _c_argtypes(ssd_chunk.SOURCE, "repro_ssd") == ssd_chunk.load_library().repro_ssd.argtypes
 
 
 @pytest.mark.parametrize("entry", ["repro_flash_attention_fwd", "repro_flash_attention_bwd"])
@@ -531,3 +576,74 @@ class TestMaskedAccumPlain:
         before = acc.clone()
         ops.masked_accum(acc, torch.randn(257), 0.0)
         assert torch.equal(acc, before)
+
+
+# ---------------------------------------------------------------------------
+# K6 / K5: the SSD intra-chunk and segment-masked terms (plain versions)
+# ---------------------------------------------------------------------------
+
+
+class TestSsdPlain:
+    @pytest.mark.parametrize("bs,nc,l,h,p,n", [
+        (1, 2, 64, 2, 32, 16),
+        (2, 1, 128, 3, 64, 32),
+        (1, 4, 32, 1, 16, 8),
+        (2, 1, 20, 3, 8, 4),  # a chunk length off any tile
+    ])
+    def test_chunk_matches_interpret_kernel_and_ref(self, bs, nc, l, h, p, n):
+        a = ssd_chunk_inputs(bs, nc, l, h, p, n, seed=l + h)
+        kern = jops.ssd_chunk(*map(jnp.asarray, a), interpret=True)
+        oracle = jref.ssd_chunk_ref(*map(jnp.asarray, a))
+        got = ops.ssd_chunk(*(torch.from_numpy(v) for v in a))
+        assert got.dtype == torch.float32 and tuple(got.shape) == (bs, nc, l, h, p)
+        assert_close(got, kern, "ssd_f32")
+        assert_close(got, oracle, "ssd_f32")
+
+    def test_chunk_mask_override(self):
+        """``mask`` replaces the causal triangle (how a check plants a
+        kernel fault): the triangle itself changes nothing, the triangle
+        less its diagonal 16-key tiles changes every row."""
+        a = [torch.from_numpy(v) for v in ssd_chunk_inputs(1, 1, 32, 2, 8, 4, seed=3)]
+        tri = torch.ones(32, 32, dtype=torch.bool).tril()
+        assert torch.equal(ref.ssd_chunk_ref(*a, mask=tri), ref.ssd_chunk_ref(*a))
+        bad = ref.ssd_chunk_ref(*a, mask=ssd_skip_diagonal_tile_mask(32, tile=16))
+        assert (bad - ref.ssd_chunk_ref(*a)).abs().amax(dim=(0, 1, 3, 4)).min() > 1e-3
+
+    @pytest.mark.parametrize("seg", [
+        [0] * 5 + [1] * 7 + [2] * 3 + [-1] * 3,
+        [3] * 9 + [0] * 1 + [2] * 12 + [-1] * 1,  # slots out of order, one single-token segment
+        [-1] * 4,  # nothing but padding
+    ])
+    def test_segment_matches_interpret_kernel_and_ref(self, seg):
+        a = ssd_segment_inputs(seg, h=3, p=8, n=4, seed=len(seg))
+        kern = jops.ssd_segment(*map(jnp.asarray, a), interpret=True)
+        oracle = jref.ssd_segment_ref(*map(jnp.asarray, a))
+        got = ops.ssd_segment(*(torch.from_numpy(v) for v in a))
+        assert_close(got, kern, "ssd_f32")
+        assert_close(got, oracle, "ssd_f32")
+        pad = np.asarray(seg) < 0
+        assert (got[torch.from_numpy(pad)] == 0).all()  # padding rows: exact zeros
+
+    def test_segment_isolates_requests(self):
+        """A token's term is its own segment's alone: changing another
+        segment's inputs leaves it bit for bit."""
+        seg = [0] * 6 + [1] * 6
+        a = [torch.from_numpy(v) for v in ssd_segment_inputs(seg, h=2, p=4, n=3, seed=1)]
+        before = ops.ssd_segment(*a)
+        a[0][:6] += 5.0
+        a[3][:6] -= 1.0
+        after = ops.ssd_segment(*a)
+        assert torch.equal(before[6:], after[6:])
+        assert not torch.equal(before[:6], after[:6])
+
+    def test_segment_large_cumulative_decay(self):
+        """Over a 257-token packed axis with a up to 16 the running sum
+        reaches the thousands; the decay is formed from differences, so
+        the term stays finite and matches the reference."""
+        seg = [0] * 100 + [1] * 120 + [2] * 30 + [-1] * 7
+        a = ssd_segment_inputs(seg, h=2, p=4, n=3, seed=2, a_max=16.0)
+        assert a[2].max() > 1000
+        oracle = jref.ssd_segment_ref(*map(jnp.asarray, a))
+        got = ops.ssd_segment(*(torch.from_numpy(v) for v in a))
+        assert bool(torch.isfinite(got).all())
+        assert_close(got, oracle, "ssd_f32")

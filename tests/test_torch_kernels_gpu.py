@@ -13,9 +13,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
+from repro_torch.kernels import ssd_chunk  # noqa: E402
 from test_torch_parity_util import (  # noqa: E402
     BF16_ULPS,
     K3_ROW_TOL,
+    SSD_ROW_TOL,
     TOL,
     bf16_ulps,
     np32,
@@ -23,6 +25,9 @@ from test_torch_parity_util import (  # noqa: E402
     quantize_pool,
     row_rel_err,
     skip_diagonal_tile_mask,
+    ssd_chunk_inputs,
+    ssd_segment_inputs,
+    ssd_skip_diagonal_tile_mask,
 )
 
 
@@ -225,3 +230,67 @@ class TestKernelsOnCard:
                 assert torch.equal(got, want), (keep, scale)
         kept = masked_accum.masked_accum(acc.clone(), g, 0.0)
         assert torch.equal(kept, acc)  # keep = 0 leaves the accumulator untouched
+
+    # -----------------------------------------------------------------------
+    # K6 / K5 at mamba2-130m's widths: 24 heads of 64, state 128, f32
+    # -----------------------------------------------------------------------
+
+    @pytest.mark.parametrize("bs,nc,l", [(8, 1, 256), (8, 2, 256), (8, 1, 64), (3, 1, 100),
+                                         (1, 3, 1)])
+    def test_ssd_chunk(self, cuda, bs, nc, l):
+        """Full-width chunks (one and two a row), the serving run's 64-row
+        steps, and lengths off the 64-row tile."""
+        torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+        a = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(bs, nc, l, 24, 64, 128,
+                                                                      seed=l + nc)]
+        n0 = ssd_chunk.ssd_chunk.launches
+        got = ssd_chunk.ssd_chunk(*a)
+        want = ref.ssd_chunk_ref(*a)
+        torch.cuda.synchronize()
+        assert ssd_chunk.ssd_chunk.launches == n0 + 1
+        assert bool(torch.isfinite(got).all())
+        assert row_rel_err(got, want) <= SSD_ROW_TOL
+
+    @pytest.mark.parametrize("seg", [
+        [0] * 64 + [1] * 64 + [2] * 64 + [3] * 64 + [-1],  # the mixed packed step (T 257)
+        list(range(8)),  # the packed decode step: one token for each of 8 slots
+        [5] * 30 + [2] * 1 + [7] * 50 + [-1] * 19,  # ragged T 100
+        [0] * 40 + [-1] * 90,  # a query tile without a segment: an empty key range
+        [-1] * 70,  # nothing but padding
+    ])
+    def test_ssd_segment(self, cuda, seg):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        a = [torch.from_numpy(v).to(cuda) for v in ssd_segment_inputs(seg, 24, 64, 128,
+                                                                        seed=len(seg), a_max=16.0)]
+        n0 = ssd_chunk.ssd_segment.launches
+        got = ssd_chunk.ssd_segment(*a)
+        want = ref.ssd_segment_ref(*a)
+        torch.cuda.synchronize()
+        assert ssd_chunk.ssd_segment.launches == n0 + 1
+        assert bool(torch.isfinite(got).all())
+        assert row_rel_err(got, want) <= SSD_ROW_TOL
+        pad = a[5] < 0
+        assert (got[pad] == 0).all()  # padding rows: exact zeros
+
+    def test_ssd_checks_catch_planted_faults(self, cuda):
+        """The row metric passes both kernels and fails a K6 that skips its
+        diagonal 64-key tile and a K5 whose segment mask is dropped (the
+        requests leak into each other)."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        a = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(8, 1, 256, 24, 64, 128, 1)]
+        want = ref.ssd_chunk_ref(*a)
+        bad = ref.ssd_chunk_ref(*a, mask=ssd_skip_diagonal_tile_mask(256, device=cuda))
+        assert row_rel_err(ssd_chunk.ssd_chunk(*a), want) <= SSD_ROW_TOL < row_rel_err(bad, want)
+        seg = [0] * 64 + [1] * 64 + [2] * 64 + [3] * 64 + [-1]
+        s = [torch.from_numpy(v).to(cuda) for v in ssd_segment_inputs(seg, 24, 64, 128, 2)]
+        want = ref.ssd_segment_ref(*s)
+        leak = ref.ssd_segment_ref(*s[:5], torch.where(s[5] >= 0, 0, s[5]))
+        assert row_rel_err(ssd_chunk.ssd_segment(*s), want) <= SSD_ROW_TOL < row_rel_err(leak, want)
+
+    def test_ssd_refuses_unbuilt_shapes(self, cuda):
+        a = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(1, 1, 64, 2, 32, 16, 0)]
+        with pytest.raises(ssd_chunk.UnbuiltShapeError):
+            ssd_chunk.ssd_chunk(*a)  # state 16, head dim 32
+        b = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(1, 1, 64, 2, 64, 128, 0)]
+        with pytest.raises(ssd_chunk.UnbuiltShapeError):
+            ssd_chunk.ssd_chunk(b[0].bfloat16(), *b[1:])

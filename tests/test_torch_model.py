@@ -148,7 +148,7 @@ def test_compute_dtype_and_cast_once():
 
 
 def test_unsupported_patterns_raise_typed():
-    for kw in (dict(layer_pattern="RRG"), dict(layer_pattern="M"), dict(n_experts=4),
+    for kw in (dict(layer_pattern="RRG"), dict(layer_pattern="MR"), dict(n_experts=4),
                dict(enc_layers=2), dict(prefix_len=4)):
         with pytest.raises(UnsupportedPatternError):
             model.init_params(ModelConfig(**kw), device="cpu")

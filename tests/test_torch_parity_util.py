@@ -8,6 +8,10 @@ Tolerances (``TOL``), each with its reason:
 * ``kernel_f32`` — a plain kernel version against the JAX reference on the
   CPU in f32: the same math in another summation order, ~1e-6 apart.
 * ``norm_f32`` — RMSNorm in f32 on the CPU: a mean and an rsqrt, ~1e-7.
+* ``ssd_f32`` — an SSD term (K5 / K6 plain versions) against the JAX
+  reference on the CPU in f32: up to L products of C . B (O(sqrt N)),
+  a decay and x summed in another order; outputs reach O(10-100), so the
+  gap scales with them (~1e-7 relative).
 * ``model_f32`` — prefill logits and cache rows of a small f32 model:
   a few layers of matmuls in another order; logits of O(1-10).
 * ``kernel_bf16_gpu`` — a CUDA/Triton kernel against its plain version on
@@ -17,6 +21,10 @@ Tolerances (``TOL``), each with its reason:
   ``row_rel_err``: each row's own roundings (P and dS to bf16 before the
   products, each output once, 2^-9 relative each) stay near 1e-3; a
   planted fault (``skip_diagonal_tile_mask``) reads above 0.1.
+* ``SSD_ROW_TOL`` — K5 / K6 against their plain versions on the card, both
+  f32, by ``row_rel_err``: the same sums in another order and CUDA's expf
+  (2 ulp) against torch's exp, ~1e-6 a row; a planted fault (the diagonal
+  key tile skipped, or the segment mask dropped) reads above 0.1.
 * ``BF16_ULPS`` — bf16 RMSNorm, where XLA on the CPU may fuse the two bf16
   multiplies: at most one bf16 ulp apart.
 """
@@ -28,11 +36,13 @@ torch = pytest.importorskip("torch")
 TOL = {
     "kernel_f32": dict(atol=1e-5, rtol=0.0),
     "norm_f32": dict(atol=1e-6, rtol=0.0),
+    "ssd_f32": dict(atol=1e-5, rtol=1e-5),
     "model_f32": dict(atol=1e-4, rtol=1e-4),
     "kernel_bf16_gpu": dict(atol=2e-2, rtol=2e-2),
 }
 BF16_ULPS = 1
 K3_ROW_TOL = 2e-2
+SSD_ROW_TOL = 1e-4
 
 
 def np32(x) -> np.ndarray:
@@ -98,6 +108,43 @@ def skip_diagonal_tile_mask(s: int, device=None, tile: int = 64):
     keys = torch.arange(s, device=device)[None]
     skipped = (rows >= s // 2) & (keys // tile == rows // tile)
     return ref.attention_mask(s, s, True, 0, device=device) & ~skipped
+
+
+def ssd_chunk_inputs(bs, nc, l, h, p, n, seed):
+    """``tests/test_ssd_kernel.py``'s inputs, drawn with numpy: x, dt in
+    [0.1, 0.9], cum a running sum of steps in [0.01, 0.2] within each
+    chunk, B and C."""
+    rng = np.random.default_rng(seed)
+    steps = rng.uniform(0.01, 0.2, size=(bs, nc, l, h)).astype(np.float32)
+    return (rng.normal(size=(bs, nc, l, h, p)).astype(np.float32),
+            rng.uniform(0.1, 0.9, size=(bs, nc, l, h)).astype(np.float32),
+            np.cumsum(steps, axis=2, dtype=np.float32),
+            rng.normal(size=(bs, nc, l, n)).astype(np.float32),
+            rng.normal(size=(bs, nc, l, n)).astype(np.float32))
+
+
+def ssd_skip_diagonal_tile_mask(l: int, device=None, tile: int = 64):
+    """Causal (L, L) admissible pairs less each row's own ``tile``-key tile:
+    a planted K6 fault (a kernel that skips its diagonal key tile)."""
+    rows = torch.arange(l, device=device)
+    tri = rows[:, None] >= rows[None]
+    return tri & ~(rows[:, None] // tile == rows[None] // tile)
+
+
+def ssd_segment_inputs(seg, h, p, n, seed, a_max=2.0):
+    """A packed step's SSD inputs over segments ``seg`` (< 0 padding, dt 0
+    there), ``cum`` one running sum of dt * a over the whole packed axis as
+    the model forms it (a up to ``a_max``)."""
+    rng = np.random.default_rng(seed)
+    seg = np.asarray(seg, np.int32)
+    t = len(seg)
+    dt = rng.uniform(0.1, 0.9, size=(t, h)).astype(np.float32)
+    dt[seg < 0] = 0.0
+    a = np.linspace(1.0, a_max, h, dtype=np.float32)
+    return (rng.normal(size=(t, h, p)).astype(np.float32), dt,
+            np.cumsum(dt * a, axis=0, dtype=np.float32),
+            rng.normal(size=(t, n)).astype(np.float32),
+            rng.normal(size=(t, n)).astype(np.float32), seg)
 
 
 def to_torch(x, dtype=None):
