@@ -39,7 +39,10 @@ FAMILIES = (  # first match wins; K4's two kernels are sub-rows of K4
     ("K4 paged_attention: main", re.compile(r"paged_attention_kernel")),
     ("K4 paged_attention: split merge", re.compile(r"paged_attention_combine")),
     ("K3 flash_attention: forward", re.compile(r"attn_fwd")),
-    ("K3 flash_attention: backward", re.compile(r"attn_bwd")),
+    ("K3 flash_attention: backward delta", re.compile(r"attn_bwd_delta")),
+    ("K3 flash_attention: backward dK/dV", re.compile(r"attn_bwd_dkdv")),
+    ("K3 flash_attention: backward group sum", re.compile(r"attn_bwd_group_sum")),
+    ("K3 flash_attention: backward dQ", re.compile(r"attn_bwd_dq")),
     ("K2 rmsnorm", re.compile(r"rmsnorm_kernel")),
     ("K2 rmsnorm: backward", re.compile(r"rmsnorm_bwd_kernel|colsum_kernel")),
     ("K1 masked_accum", re.compile(r"masked_accum_kernel")),

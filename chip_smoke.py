@@ -24,7 +24,10 @@ without printing a result:
    * flash attention (K3), forward and backward, at the training shape
      (B 1, H 16, KV 2, S 2048, D 128, bf16, causal), with a window and with
      segment ids (queries without a key: the TPU kernel's visited-range
-     mean), row by row; a planted fault must fail the same check;
+     mean), row by row; a planted fault must fail the same check; the
+     backward also timed launch by launch (delta, dK/dV partials, group
+     sum, dQ) beside SDPA's backward alone; ptxas's registers and spills
+     of each K3 kernel are printed with the build;
    * masked accumulation (K1) on the largest leaf (36 x 2048 x 11008, bf16
      gradients), keep 0 and 1;
    * the SSD terms at mamba2-130m's widths (24 heads of 64, state 128,
@@ -211,25 +214,29 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, iters: int = 30) -> float:
-    """Median device time of one call of ``fn``.
-
-    The call is captured once into a CUDA graph and replayed between two
-    events, behind a short spin kernel that keeps the device busy while
-    the host enqueues: the events then bracket the call's kernels alone,
-    not the host's launch cost (Triton's launcher takes longer on the host
-    than RMSNorm takes on the card).  L2 is flushed (64 MiB write) before
-    each call, as the serving loop finds it: 36 layers of weights and
-    pools pass through L2 between two calls of one layer's kernel."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+def capture(fn) -> torch.cuda.CUDAGraph:
+    """``fn`` captured once into a CUDA graph, after a warm-up call off the
+    capture (builds, allocator)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture: builds, allocator
+    with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
+    return graph
+
+
+def replay_ms(graph: torch.cuda.CUDAGraph, iters: int = 30) -> float:
+    """Median device time of one replay of ``graph``, between two events,
+    behind a short spin kernel that keeps the device busy while the host
+    enqueues: the events then bracket the graph's kernels alone, not the
+    host's launch cost (Triton's launcher takes longer on the host than
+    RMSNorm takes on the card).  L2 is flushed (64 MiB write) before each
+    replay, as the serving loop finds it: 36 layers of weights and pools
+    pass through L2 between two calls of one layer's kernel."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     pairs = []
     for _ in range(iters):
         flush.zero_()
@@ -241,6 +248,12 @@ def time_ms(fn, iters: int = 30) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def time_ms(fn, iters: int = 30) -> float:
+    """Median device time of one call of ``fn``, captured into a CUDA graph
+    and replayed (``replay_ms``)."""
+    return replay_ms(capture(fn), iters)
 
 
 def time_ms_eager(fn, iters: int = 5) -> float:
@@ -261,6 +274,29 @@ def time_ms_eager(fn, iters: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def ptxas_lines(source: str):
+    """One line per kernel of ``source`` from its build's ``ptxas -v``
+    report: registers, spill stores / loads, and whether ptxas serialized
+    its wgmma instructions for want of registers."""
+    import re
+
+    kernel = re.compile(r"\d+(attn_[a-z_]+)E")
+    out, name, spills = [], None, ""
+    for line in _build.ptxas_report(source).splitlines():
+        m = kernel.search(line)
+        if "Compiling entry function" in line and m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers at launch, {spills}")
+        if "wgmma.mma_async instructions are serialized" in line and kernel.search(line):
+            out.append(f"wgmma serialized in {kernel.search(line).group(1)}")
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -581,9 +617,63 @@ def k3_checks(rng):
     return fwd_err, bwd_err
 
 
+# the backward's launches, in order: kernel names in flash_attention.cu
+K3_BWD_KERNELS = {"delta": "attn_bwd_delta", "dkdv": "attn_bwd_dkdv",
+                  "group_sum": "attn_bwd_group_sum", "dq": "attn_bwd_dq"}
+
+
+def kernel_split_ms(fn, kernels, iters: int = 10) -> dict:
+    """Median device time of each of ``fn``'s kernels (``kernels``: label ->
+    a substring of the kernel's name), from ``torch.profiler`` over eager
+    calls with L2 flushed before each; fails if a kernel is missing."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    times = {label: [] for label in kernels}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for label, name in kernels.items():
+            if name in ev.name:
+                times[label].append((ev.time_range.end - ev.time_range.start) / 1e3)
+    check(all(len(t) == iters for t in times.values()),
+          f"the profiler saw {({k: len(t) for k, t in times.items()})} launches, want {iters} each")
+    return {label: statistics.median(t) for label, t in times.items()}
+
+
+def sdpa_bwd_ms(q, k, v, do) -> float:
+    """SDPA's backward alone on the kernels' footing: its forward captured
+    into one CUDA graph, ``torch.autograd.grad`` into a second one on the
+    same pool (as ``torch.cuda.make_graphed_callables`` does), and only the
+    second replayed and timed."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for _ in range(2):
+            torch.autograd.grad(sdpa(ql, kl, vl, is_causal=True, enable_gqa=True),
+                                (ql, kl, vl), do)
+    torch.cuda.current_stream().wait_stream(side)
+    fwd_graph, bwd_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(fwd_graph):
+        out = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+    with torch.cuda.graph(bwd_graph, pool=fwd_graph.pool()):
+        torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+    fwd_graph.replay()
+    return replay_ms(bwd_graph)
+
+
 def k3_timing(rng):
     """Kernel, plain version, F.scaled_dot_product_attention (GQA) and the
-    bounds at the training shape, causal."""
+    bounds at the training shape, causal; the backward also launch by
+    launch (delta, dK/dV partials, their group sum, dQ) and SDPA's backward
+    alone."""
     q, k, v, do = attn_inputs(rng)
     # admissible (query, key) pairs of one head: the work K3 must do
     pairs = int(ref.attention_mask(TRAIN_SEQ, TRAIN_SEQ, True, 0, device=DEV).sum().item())
@@ -591,11 +681,14 @@ def k3_timing(rng):
     out, lse = flash_attention.flash_attention_fwd(q, k, v)
     fwd = time_ms(lambda: flash_attention.flash_attention_fwd(q, k, v))
     bwd = time_ms(lambda: flash_attention.flash_attention_bwd(q, k, v, out, lse, do))
+    parts = kernel_split_ms(lambda: flash_attention.flash_attention_bwd(q, k, v, out, lse, do),
+                            K3_BWD_KERNELS)
     want, want_lse = ref.flash_attention_fwd_ref(q, k, v)
     plain_fwd = time_ms_eager(lambda: ref.flash_attention_fwd_ref(q, k, v), iters=3)
     plain_bwd = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, want, want_lse, do), iters=5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    lib_bwd = sdpa_bwd_ms(q, k, v, do)
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
 
     def lib_fwd_bwd():
@@ -607,12 +700,15 @@ def k3_timing(rng):
     fb, fby = bound_ms(io + 4 * lse.numel(), 4.0 * D * H * pairs)
     bb, bby = bound_ms(io + 2 * q.numel() + 4 * lse.numel() + 2 * (q.numel() + 2 * k.numel()),
                        10.0 * D * H * pairs)
+    split = ", ".join(f"{n} {t * 1e3:.1f}" for n, t in parts.items())
     log(f"K3 time S={TRAIN_SEQ} causal: fwd kernel {fwd * 1e3:.1f} us, plain {plain_fwd * 1e3:.1f} "
-        f"us, SDPA {lib_fwd * 1e3:.1f} us, bound {fb * 1e3:.1f} us ({fby}); bwd kernel "
-        f"{bwd * 1e3:.1f} us, plain {plain_bwd * 1e3:.1f} us, bound {bb * 1e3:.1f} us ({bby}); "
-        f"fwd+bwd kernels {(fwd + bwd) * 1e3:.1f} us, SDPA fwd+bwd {lib_both * 1e3:.1f} us")
+        f"us, SDPA {lib_fwd * 1e3:.1f} us, bound {fb * 1e3:.1f} us ({fby}); bwd kernels "
+        f"{bwd * 1e3:.1f} us (device time by launch, profiler: {split} us), plain "
+        f"{plain_bwd * 1e3:.1f} us, SDPA bwd alone {lib_bwd * 1e3:.1f} us (graph-captured "
+        f"autograd.grad), bound {bb * 1e3:.1f} us ({bby}); fwd+bwd kernels "
+        f"{(fwd + bwd) * 1e3:.1f} us, SDPA fwd+bwd {lib_both * 1e3:.1f} us (eager, events)")
     return (dict(ms=fwd, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby, library_ms=lib_fwd),
-            dict(ms=bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby, library_ms=lib_both))
+            dict(ms=bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby, library_ms=lib_bwd))
 
 
 # ---------------------------------------------------------------------------
@@ -1290,6 +1386,8 @@ def main() -> int:
         log(f"build: {src} (nvcc sm_90a) -> "
             f"{_build.library_path(src).relative_to(_build.BUILD_DIR.parents[1])}")
     log(f"build: {len(loaders)} CUDA sources in {time.perf_counter() - t0:.1f} s")
+    for line in ptxas_lines(flash_attention.TRAIN_SOURCE):
+        log(f"build: ptxas -v, {flash_attention.TRAIN_SOURCE}: {line}")
     t0 = time.perf_counter()
     ones = torch.ones(2048, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):

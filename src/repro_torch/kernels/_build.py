@@ -5,7 +5,8 @@ Each kernel source exposes a plain C entry point (no PyTorch headers), so
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` itself and loads
 the result with ``ctypes``.  Libraries land in ``build/repro_torch/`` at the
 root of the checkout, named by a hash of the source and the flags, so a
-source edit rebuilds and an unchanged one is reused.
+source edit rebuilds and an unchanged one is reused; beside each library,
+``<name>.log`` keeps what ``ptxas -v`` said of its kernels.
 
 Nothing here runs at import time: the CPU test suite imports every module
 on a machine without ``nvcc``.
@@ -25,7 +26,7 @@ KERNEL_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -55,6 +56,13 @@ def library_path(source: str) -> pathlib.Path:
     return BUILD_DIR / f"{pathlib.Path(source).stem}-{digest}.so"
 
 
+def ptxas_report(source: str) -> str:
+    """What ``ptxas -v`` printed for ``source``'s kernels when its library
+    was built (registers, shared memory, spills), or "" if not built here."""
+    log = library_path(source).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def load(source: str) -> ctypes.CDLL:
     """Build ``source`` if its hash has no library yet, then load it.
     Raises :class:`KernelBuildError` with the compiler's output on failure."""
@@ -73,6 +81,7 @@ def load(source: str) -> ctypes.CDLL:
                     f"nvcc failed on {source} (exit {proc.returncode}):\n"
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
                 )
+            path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
         finally:
             if os.path.exists(tmp):

@@ -18,13 +18,17 @@ it), so a run can show that the serving path went through the kernel.
 The training kernels are ports of the TPU kernel
 ``repro.kernels.flash_attention.flash_attention`` (:91, body
 ``_attn_kernel`` :29) and a backward the Pallas package never had; their
-source is ``flash_attention.cu``, their plain versions
-``ref.flash_attention_fwd_ref`` / ``ref.flash_attention_bwd_ref``.  They
-take (B, H, S, D) tensors of any strides with D contiguous (the model
-passes transposed views of its (B, S, H, D) activations), so nothing is
-copied; outputs and gradients come back in the inputs' layouts.
-``flash_attention_fwd.launches`` / ``flash_attention_bwd.launches`` count
-calls (the backward's three launches count as one call).
+source is ``flash_attention.cu`` (TMA loads into an mbarrier ring,
+``wgmma`` products), their plain versions ``ref.flash_attention_fwd_ref``
+/ ``ref.flash_attention_bwd_ref``.  They take (B, H, S, D) tensors of any
+strides with D contiguous (the model passes transposed views of its
+(B, S, H, D) activations), so nothing is copied; outputs and gradients
+come back in the inputs' layouts.  Their schedule, which tiles each CTA
+visits, which of those skip the mask and the CTAs' launch order, is
+``tile_plan``, made here once per shape and read by the kernels as a
+device table.  ``flash_attention_fwd.launches`` /
+``flash_attention_bwd.launches`` count calls (the backward's four
+launches count as one call).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from . import _build
@@ -173,13 +178,24 @@ paged_flash_attention.launches = 0
 #: (head dim, H / KV) the training source instantiates
 TRAINED = {(128, 8)}  # qwen2.5-3b
 _LL = ctypes.c_longlong
+#: tile sizes of ``flash_attention.cu``: a forward / dQ CTA takes 128 query
+#: rows (two warpgroups of 64) and walks 64-key steps; a dK/dV CTA takes 64
+#: keys and walks 64-row query steps
+TILE, STEP = 128, 64
+#: kinds of schedule: (outer, inner) tile sizes, the outer axis a CTA owns
+#: and the inner axis it walks (``"fwd"``: query tiles over key tiles;
+#: ``"dkdv"``: key tiles over query steps; ``"dq"``: query tiles over key steps)
+PLAN_KINDS = {"fwd": (TILE, STEP), "dkdv": (STEP, STEP), "dq": (TILE, STEP)}
 
 
 def load_train_library() -> ctypes.CDLL:
     """Build (first use) and load ``flash_attention.cu``; sets the C signatures."""
     lib = _build.load(TRAIN_SOURCE)
-    lib.repro_flash_attention_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_P, _I, _I, _F, _P]
-    lib.repro_flash_attention_bwd.argtypes = [_P] * 12 + [_I] * 6 + [_P, _I, _I, _F, _P]
+    if getattr(lib, "_signed", False):
+        return lib
+    lib._signed = True
+    lib.repro_flash_attention_fwd.argtypes = [_P] * 8 + [_I] * 6 + [_P, _I, _I, _F, _P]
+    lib.repro_flash_attention_bwd.argtypes = [_P] * 16 + [_I] * 6 + [_P, _I, _I, _F, _P]
     lib.repro_flash_attention_fwd.restype = ctypes.c_int
     lib.repro_flash_attention_bwd.restype = ctypes.c_int
     return lib
@@ -207,9 +223,86 @@ def require_trained(head_dim: int, group: int, dtype: torch.dtype, *lengths: int
                                 f"of 64, and of 128 above 128")
 
 
+def _key_ranges(sq: int, sk: int, causal: bool, window: int):
+    """Per query row, the admissible keys ``[lo, hi)`` by the causal and
+    window terms (right-aligned positions; empty when hi <= lo)."""
+    qpos = np.arange(sq) + sk - sq
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return lo, np.maximum(hi, lo)
+
+
+def _query_ranges(sq: int, sk: int, causal: bool, window: int):
+    """Per key, the query rows ``[lo, hi)`` that admit it."""
+    kpos = np.arange(sk) - (sk - sq)  # the row whose position is the key's
+    lo = np.clip(kpos, 0, sq) if causal else np.zeros(sk, np.int64)
+    hi = np.clip(kpos + window, 0, sq) if window > 0 else np.full(sk, sq)
+    return lo, np.maximum(hi, lo)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(kind: str, sq: int, sk: int, causal: bool, window: int) -> np.ndarray:
+    """The schedule a training kernel reads: one row per CTA, in launch
+    order (the longest walk first, so the causal triangle's heavy tiles do
+    not run in the last wave), of six int32 columns
+
+        (outer start, inner lo, inner hi, free lo, free hi, inner end)
+
+    A CTA owns ``outer`` elements from ``outer start`` (query rows for
+    ``"fwd"`` / ``"dq"``, keys for ``"dkdv"``) and walks inner tiles
+    ``[inner lo, inner hi)`` (indices in units of ``PLAN_KINDS[kind][1]``);
+    tiles in ``[free lo, free hi)`` hold only admissible pairs by the causal
+    and window terms and skip the mask (with segment ids every tile is
+    masked); inner elements at or past ``inner end`` are out of range.
+
+    ``"fwd"`` walks the TPU kernel's visited range at its default 128/128
+    blocks (``src/repro/kernels/flash_attention.py:45-53``), so a query
+    with no admissible key gets the mean of the same values; the backward
+    plans walk every tile holding an admissible pair, and only those."""
+    outer_n, inner = PLAN_KINDS[kind]
+    n_outer, n_inner = (sk, sq) if kind == "dkdv" else (sq, sk)
+    lo, hi = (_query_ranges if kind == "dkdv" else _key_ranges)(sq, sk, causal, window)
+    rows = []
+    for start in range(0, n_outer, outer_n):
+        a, b = lo[start:start + outer_n], hi[start:start + outer_n]
+        end = n_inner
+        if kind == "fwd":  # _attn_kernel's lo / hi for the block holding these rows
+            bq, bk = min(128, sq), min(128, sk)
+            t_hi = sk // bk
+            if causal:
+                t_hi = min((start + bq - 1 + sk - sq) // bk + 1, t_hi)
+            t_lo = max((start + sk - sq - window + 1) // bk, 0) if window > 0 else 0
+            end = max(t_hi, 0) * bk
+            s_lo, s_hi = t_lo * bk // inner, -(-end // inner)
+        else:
+            some = b > a
+            s_lo = int(a[some].min()) // inner if some.any() else 0
+            s_hi = -(-int(b[some].max()) // inner) if some.any() else 0
+        f_lo = -(-int(a.max()) // inner)
+        f_hi = min(int(b.min()), end) // inner
+        f_lo, f_hi = max(f_lo, s_lo), min(f_hi, s_hi)
+        if f_hi <= f_lo:
+            f_lo = f_hi = s_lo
+        rows.append((start, s_lo, max(s_hi, s_lo), f_lo, f_hi, end))
+    plan = np.array(rows, dtype=np.int32).reshape(-1, 6)
+    order = np.argsort(-(plan[:, 2] - plan[:, 1]), kind="stable")
+    plan = plan[order]
+    plan.flags.writeable = False
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_tensor(kind: str, sq: int, sk: int, causal: bool, window: int,
+                 device: torch.device) -> torch.Tensor:
+    """``tile_plan`` on the device, made once per shape (so a CUDA-graph
+    capture of a later call allocates nothing)."""
+    return torch.from_numpy(tile_plan(kind, sq, sk, causal, window).copy()).to(device)
+
+
 def _check_train(q, k, v, q_segment_ids, kv_segment_ids):
     """Raise on anything the training kernels do not take; return
-    (b, h, kvh, sq, sk, d) and the segment ids as contiguous int32."""
+    (b, h, kvh, sq, sk, d) and the segment ids as contiguous, 16-byte
+    aligned int32 (the kernels copy them to shared memory in bulk)."""
     if q.device.type != "cuda":
         raise ValueError(f"the flash-attention kernels take CUDA tensors, got {q.device}")
     for name, x in (("k", k), ("v", v)):
@@ -231,23 +324,35 @@ def _check_train(q, k, v, q_segment_ids, kv_segment_ids):
     if q_segment_ids is not None:
         if q_segment_ids.shape != (b, sq) or kv_segment_ids.shape != (b, sk):
             raise ValueError("segment ids must have shapes (B, Sq) and (B, Sk)")
-        q_segment_ids = q_segment_ids.to(q.device, torch.int32).contiguous()
-        kv_segment_ids = kv_segment_ids.to(q.device, torch.int32).contiguous()
+        q_segment_ids = _aligned(q_segment_ids.to(q.device, torch.int32).contiguous())
+        kv_segment_ids = _aligned(kv_segment_ids.to(q.device, torch.int32).contiguous())
     return (b, h, kvh, sq, sk, d), q_segment_ids, kv_segment_ids
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` when it starts on a 16-byte boundary, else a fresh copy."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when its rows are D contiguous elements at 16-byte
-    aligned addresses (every stride a multiple of 8 elements), else a
+    aligned addresses (every stride of an axis longer than 1 a positive
+    multiple of 8 elements: what a TMA tensor map takes), else a
     contiguous copy."""
-    if x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:-1]) and x.data_ptr() % 16 == 0:
+    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s > 0 and s % 8 == 0 for s, n in zip(x.stride()[:-1], x.shape) if n > 1)):
         return x
     return x.contiguous()
 
 
 def _strides(*xs):
-    """(batch, head, position) element strides of each (B, heads, S, D) tensor."""
-    flat = [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
+    """(batch, head, position) element strides of each (B, heads, S, D)
+    tensor; an axis of length 1 gets its contiguous stride (it is never
+    stepped along, and the tensor map wants a positive multiple of 16 bytes)."""
+    flat = []
+    for x in xs:
+        for i in range(3):
+            flat.append(x.stride(i) if x.shape[i] > 1 else math.prod(x.shape[i + 1:]))
     return (_LL * len(flat))(*flat)
 
 
@@ -262,10 +367,11 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, q_segment_ids=None,
     q, k, v = _rows(q), _rows(k), _rows(v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    plan = _plan_tensor("fwd", sq, sk, bool(causal), int(window), q.device)
     lib = load_train_library()
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(qs), _ptr(ks),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(qs), _ptr(ks), _ptr(plan),
             b, h, kvh, sq, sk, d, _strides(q, k, v, out), int(causal), int(window),
             1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -276,9 +382,10 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, q_segment_ids=None,
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=0,
                         q_segment_ids=None, kv_segment_ids=None):
-    """(dq, dk, dv), each in its input's layout, from the CUDA backward
-    (rowsum(dO * O), then dK/dV per KV-head key tile, then dQ by a second
-    pass: deterministic, no atomics)."""
+    """(dq, dk, dv), each in its input's layout, from the CUDA backward:
+    delta = rowsum(dO * O); dK, dV per (key tile, query head) as f32
+    partials, summed over each group in a fixed order; dQ by a second pass.
+    Deterministic, no atomics."""
     dims, qs, ks = _check_train(q, k, v, q_segment_ids, kv_segment_ids)
     b, h, kvh, sq, sk, d = dims
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, sq):
@@ -286,16 +393,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=0,
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("out and dout must have q's dtype, lse float32")
     q, k, v, out, dout = (_rows(x) for x in (q, k, v, out, dout))
-    lse = lse.contiguous()
+    lse = _aligned(lse.contiguous())
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.stride() != q.stride() or dk.stride() != k.stride() or dv.stride() != v.stride():
         raise RuntimeError("gradient buffers must share their inputs' strides")
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dk_part = torch.empty((b, h, sk, d), dtype=torch.float32, device=q.device)
+    dv_part = torch.empty_like(dk_part)
+    plans = [_plan_tensor(kind, sq, sk, bool(causal), int(window), q.device)
+             for kind in ("dkdv", "dq")]
     lib = load_train_library()
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_bwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse), _ptr(delta),
-            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(qs), _ptr(ks), b, h, kvh, sq, sk, d,
+            _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dk_part), _ptr(dv_part), _ptr(qs), _ptr(ks),
+            _ptr(plans[0]), _ptr(plans[1]), b, h, kvh, sq, sk, d,
             _strides(q, k, v, out, dout), int(causal), int(window), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

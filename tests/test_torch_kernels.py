@@ -517,6 +517,115 @@ def test_k3_row_metric_separates_rounding_from_a_planted_fault():
 
 
 # ---------------------------------------------------------------------------
+# K3: the tile plan the CUDA kernels read as their schedule
+# ---------------------------------------------------------------------------
+
+
+def _tpu_visited(sq, sk, causal, window):
+    """Per query row, the keys ``[lo, hi)`` that the TPU kernel walks at its
+    default 128/128 blocks: ``_attn_kernel``'s bounds
+    (``src/repro/kernels/flash_attention.py:45-53``) written out again for
+    the 128-row block holding each row."""
+    bq, bk = min(128, sq), min(128, sk)
+    lo, hi = np.zeros(sq, np.int64), np.zeros(sq, np.int64)
+    for i in range(sq):
+        q_start = i // bq * bq
+        h = min((q_start + bq - 1 + (sk - sq)) // bk + 1, sk // bk) if causal else sk // bk
+        l_ = max((q_start + (sk - sq) - window + 1) // bk, 0) if window > 0 else 0
+        lo[i], hi[i] = l_ * bk, h * bk
+    return lo, hi
+
+
+_PLAN_SHAPES = [(64, 64), (128, 128), (256, 256), (2048, 2048),  # square
+                (64, 128), (128, 256), (256, 2048), (64, 2048)]  # right-aligned
+
+
+class TestTilePlan:
+    """``flash_attention.tile_plan`` against ``ref.attention_mask`` and the
+    TPU kernel's visited range: every admissible pair lies in a tile some
+    CTA visits, a tile marked mask-free holds only admissible pairs, every
+    outer tile has one CTA, and CTAs run longest walk first."""
+
+    @staticmethod
+    def _covered(kind, sq, sk, causal, window):
+        plan = flash_attention.tile_plan(kind, sq, sk, causal, window)
+        outer_n, inner = flash_attention.PLAN_KINDS[kind]
+        mask = ref.attention_mask(sq, sk, causal, window)[0].numpy()
+        if kind == "dkdv":
+            mask = mask.T  # (keys, queries): outer first
+        n_outer, n_inner = mask.shape
+        visited = np.zeros_like(mask)
+        free = np.zeros_like(mask)
+        for start, lo, hi, f_lo, f_hi, end in plan.tolist():
+            rows = slice(start, min(start + outer_n, n_outer))
+            visited[rows, lo * inner:min(hi * inner, end)] = True
+            assert lo <= f_lo <= f_hi <= hi
+            if f_hi > f_lo:
+                assert f_hi * inner <= end <= n_inner
+                free[rows, f_lo * inner:f_hi * inner] = True
+        return plan, mask, visited, free
+
+    @pytest.mark.parametrize("kind", ["fwd", "dkdv", "dq"])
+    @pytest.mark.parametrize("window", [0, 1, 100, 256])
+    @pytest.mark.parametrize("sq,sk", _PLAN_SHAPES)
+    def test_covers_every_admissible_pair(self, kind, sq, sk, window):
+        plan, mask, visited, free = self._covered(kind, sq, sk, True, window)
+        assert not (mask & ~visited).any()  # every admissible pair is visited
+        assert not (free & ~mask).any()  # mask-free tiles hold only admissible pairs
+        outer_n = flash_attention.PLAN_KINDS[kind][0]
+        assert sorted(plan[:, 0].tolist()) == list(range(0, mask.shape[0], outer_n))
+        walk = plan[:, 2] - plan[:, 1]
+        assert (np.diff(walk) <= 0).all()  # longest walk first
+        if kind != "fwd":  # the backward visits only tiles holding an admissible pair
+            inner = flash_attention.PLAN_KINDS[kind][1]
+            for start, lo, hi, *_ in plan.tolist():
+                rows = mask[start:start + outer_n]
+                for t in range(lo, hi):
+                    assert rows[:, t * inner:(t + 1) * inner].any()
+
+    @pytest.mark.parametrize("kind", ["fwd", "dkdv", "dq"])
+    @pytest.mark.parametrize("window", [0, 100])
+    @pytest.mark.parametrize("s", [64, 128, 2048])
+    def test_non_causal(self, kind, s, window):
+        plan, mask, visited, free = self._covered(kind, s, s, False, window)
+        assert not (mask & ~visited).any()
+        assert not (free & ~mask).any()
+
+    @pytest.mark.parametrize("window", [0, 1, 100, 256])
+    @pytest.mark.parametrize("sq,sk", _PLAN_SHAPES)
+    def test_forward_visits_the_tpu_kernels_range(self, sq, sk, window):
+        """The forward's key range per query row is ``_attn_kernel``'s
+        lo/hi, the range whose mean a query without keys returns."""
+        plan = flash_attention.tile_plan("fwd", sq, sk, True, window)
+        lo, hi = np.zeros(sq, np.int64), np.zeros(sq, np.int64)
+        outer_n, inner = flash_attention.PLAN_KINDS["fwd"]
+        for start, t_lo, t_hi, _, _, end in plan.tolist():
+            rows = slice(start, start + outer_n)
+            lo[rows], hi[rows] = t_lo * inner, min(t_hi * inner, end)
+        want_lo, want_hi = _tpu_visited(sq, sk, True, window)
+        np.testing.assert_array_equal(lo, want_lo)
+        np.testing.assert_array_equal(hi, want_hi)
+        ref_lo, ref_hi = ref.visited_keys(sq, sk, True, window)
+        np.testing.assert_array_equal(lo, ref_lo.numpy())
+        np.testing.assert_array_equal(hi, ref_hi.numpy())
+
+    def test_causal_training_shape(self):
+        """At S 2048: 16 query tiles, the last one (32 key steps) first, its
+        two diagonal steps alone masked."""
+        plan = flash_attention.tile_plan("fwd", 2048, 2048, True, 0)
+        assert plan[0].tolist() == [1920, 0, 32, 0, 30, 2048]
+        assert plan[-1].tolist() == [0, 0, 2, 0, 0, 128]
+        dkdv = flash_attention.tile_plan("dkdv", 2048, 2048, True, 0)
+        assert dkdv[0].tolist() == [0, 0, 32, 1, 32, 2048]  # key tile 0: every query step
+
+    def test_device_plan_is_made_once(self):
+        a = flash_attention._plan_tensor("dq", 256, 256, True, 0, torch.device("cpu"))
+        b = flash_attention._plan_tensor("dq", 256, 256, True, 0, torch.device("cpu"))
+        assert a is b and a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), flash_attention.tile_plan("dq", 256, 256, True, 0))
+
+
+# ---------------------------------------------------------------------------
 # K2 backward and K1
 # ---------------------------------------------------------------------------
 

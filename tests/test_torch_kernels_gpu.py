@@ -119,24 +119,35 @@ class TestKernelsOnCard:
                                    np32(ref.rmsnorm_ref(xf, s)), atol=1e-5, rtol=1e-5)
 
     @pytest.mark.parametrize("case", ["causal", "window", "segments", "right_aligned",
-                                      "non_causal"])
+                                      "non_causal", "s64", "q64_k128", "b2_s2048",
+                                      "window_mid_tile", "segments_mid_tile"])
     def test_flash_attention(self, cuda, case):
         """Forward (out, lse) and backward (dq, dk, dv) against the plain
         versions at qwen2.5-3b's head layout (16 heads over 2 KV heads,
-        head dim 128).  ``segments`` has queries whose segment no key
-        shares: they return the mean of the TPU kernel's visited range."""
+        head dim 128).  The segment cases have queries whose segment no key
+        shares: they return the mean of the TPU kernel's visited range.
+        ``s64`` and ``q64_k128`` are shorter than one 128-row tile (the
+        rest of the tile is padding); ``window_mid_tile`` puts the window's
+        edge inside 128-key tiles and 64-row steps, ``segments_mid_tile``
+        the segment boundaries."""
         b, sq, sk, causal, window = dict(
             causal=(2, 256, 256, True, 0), window=(1, 512, 512, True, 100),
             segments=(1, 256, 256, True, 0), right_aligned=(1, 128, 256, True, 0),
-            non_causal=(1, 128, 128, False, 0))[case]
+            non_causal=(1, 128, 128, False, 0), s64=(1, 64, 64, True, 0),
+            q64_k128=(1, 64, 128, True, 0), b2_s2048=(2, 2048, 2048, True, 0),
+            window_mid_tile=(1, 1024, 1024, True, 203),
+            segments_mid_tile=(2, 512, 512, True, 0))[case]
         q, k, v, do = attn_inputs(cuda, b, sq, sk, seed=sq + sk)
         kw = dict(causal=causal, window=window)
-        if case == "segments":
+        lonely = None
+        if case in ("segments", "segments_mid_tile"):
             seg = np.zeros((b, sq), np.int32)
-            seg[:, 100:] = 1
-            seg[:, 200:] = 2
+            cuts, lonely = (((100, 200), np.s_[:, :, 150:160]) if case == "segments"
+                            else ((37, 190, 333), np.s_[:, :, 400:411]))
+            for cut in cuts:
+                seg[:, cut:] += 1
             qseg = seg.copy()
-            qseg[:, 150:160] = 7  # no key has segment 7
+            qseg[:, lonely[2]] = 7  # no key has segment 7
             kw.update(q_segment_ids=torch.from_numpy(qseg).to(cuda),
                       kv_segment_ids=torch.from_numpy(seg).to(cuda))
         out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
@@ -144,8 +155,7 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         assert out.stride() == q.stride()  # (B, S, H, D) storage, like q
         assert row_rel_err(out, want) <= K3_ROW_TOL
-        if case == "segments":
-            lonely = np.s_[:, :, 150:160]
+        if lonely is not None:
             assert np.abs(np32(want[lonely])).max() > 0  # the visited-range mean, not zeros
             assert row_rel_err(out[lonely], want[lonely]) <= K3_ROW_TOL
         np.testing.assert_allclose(np32(lse), np32(want_lse), atol=1e-3, rtol=0)
