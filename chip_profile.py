@@ -17,6 +17,16 @@ warm-up step first).  The idle share is one minus the union of the
 kernels' device intervals over the unprofiled wall time.  Prints one JSON
 line per run and nothing else is claimed: profiling slows the host, never
 the kernels.
+
+    python3 chip_profile.py --only kernels --tag change
+
+times the kernels ``chip_smoke.py`` times, at its main-path shapes
+(``k4_timing``, ``k2_timing``, ``k2_bwd_checks_and_timing``), and prints one
+JSON line; ``--only qwen`` (qwen2.5-3b's serving runs) and ``--only
+train`` run one part of the profile.  A copy of this script placed at the root of another checkout (a
+``git archive`` of a parent commit) imports that checkout's
+``chip_smoke.py`` and kernels, so one call can time two trees in turns;
+``--tag`` labels each line.
 """
 from __future__ import annotations
 
@@ -35,16 +45,19 @@ import chip_smoke as cs
 from repro_torch.configs import get_config
 from repro_torch.models.model import compute_params, init_params
 
-FAMILIES = (  # first match wins; K4's two kernels are sub-rows of K4
-    ("K4 paged_attention: main", re.compile(r"paged_attention_kernel")),
+FAMILIES = (  # first match wins; K4's and K2 backward's two kernels are sub-rows
+    # (each pattern also names the kernel the previous version had there, so
+    # that a copy of this script files a checkout of an older commit the same way)
+    ("K4 paged_attention: main", re.compile(r"paged_attention_tc|paged_attention_kernel")),
     ("K4 paged_attention: split merge", re.compile(r"paged_attention_combine")),
     ("K3 flash_attention: forward", re.compile(r"attn_fwd")),
     ("K3 flash_attention: backward delta", re.compile(r"attn_bwd_delta")),
     ("K3 flash_attention: backward dK/dV", re.compile(r"attn_bwd_dkdv")),
     ("K3 flash_attention: backward group sum", re.compile(r"attn_bwd_group_sum")),
     ("K3 flash_attention: backward dQ", re.compile(r"attn_bwd_dq")),
+    ("K2 rmsnorm: backward rows", re.compile(r"rmsnorm_bwd_rows|rmsnorm_bwd_kernel")),
+    ("K2 rmsnorm: backward dscale sum", re.compile(r"rmsnorm_bwd_colsum|colsum_kernel")),
     ("K2 rmsnorm", re.compile(r"rmsnorm_kernel")),
-    ("K2 rmsnorm: backward", re.compile(r"rmsnorm_bwd_kernel|colsum_kernel")),
     ("K1 masked_accum", re.compile(r"masked_accum_kernel")),
     ("K6 ssd_chunk", re.compile(r"ssd_chunk_kernel")),
     ("K5 ssd_segment", re.compile(r"ssd_segment_kernel")),
@@ -137,7 +150,11 @@ def train_profile(cfg, seed: int) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         cs.train(cfg, data, tcfg, params=params, device="cuda")
         torch.cuda.synchronize()
-    return {"run": "train", "kept_microbatches": kept, **profile_record(prof, wall, kept)}
+    rec = {"tag": TAG, "run": "train", "kept_microbatches": kept,
+           **profile_record(prof, wall, kept)}
+    rec["k2_bwd_ms"] = sum(v for k, v in rec["families_ms"].items()
+                           if k.startswith("K2 rmsnorm: backward"))
+    return rec
 
 
 def serve_profiles(cfg, params, prompts, make) -> None:
@@ -151,22 +168,48 @@ def serve_profiles(cfg, params, prompts, make) -> None:
         with torch.profiler.profile(activities=acts) as prof:
             eng.run()
             torch.cuda.synchronize()
-        rec = {"run": "serve", "model": cfg.name, "layout": "packed" if packed else "unpacked",
+        rec = {"tag": TAG, "run": "serve", "model": cfg.name,
+               "layout": "packed" if packed else "unpacked",
                "steps": steps, **profile_record(prof, wall, eng.steps)}
         rec["k4_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K4"))
         print(json.dumps(rec), flush=True)
 
 
+TAG = ""
+
+
+def kernel_times(seed: int) -> dict:
+    """``chip_smoke.py``'s K4, K2 and K2-backward timings (the checks inside
+    them included) at its main-path shapes, from a stream seeded as its
+    run's."""
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
+    k4 = cs.k4_timing(rng, lens)
+    k2 = cs.k2_timing(rng)
+    _, k2b = cs.k2_bwd_checks_and_timing(rng)
+    return {"tag": TAG, "run": "kernels", "k4": k4, "k2": k2, "k2_bwd": k2b}
+
+
 def main() -> int:
+    global TAG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("qwen", "train", "kernels"), default=None)
+    ap.add_argument("--tag", default="")
     args = ap.parse_args()
+    TAG = args.tag
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if args.only == "kernels":
+        print(json.dumps(kernel_times(args.seed)), flush=True)
+        return 0
+    if args.only == "train":
+        print(json.dumps(train_profile(get_config("qwen2_5_3b"), args.seed)), flush=True)
+        return 0
 
     rng = np.random.default_rng(args.seed)
     cfg = get_config("qwen2_5_3b")
@@ -176,6 +219,8 @@ def main() -> int:
     serve_profiles(cfg, params, prompts, cs.engine)
     del params
     cs.free_device()
+    if args.only == "qwen":
+        return 0
 
     mcfg = get_config("mamba2_130m")
     _, mprompts = cs.mamba_requests(mcfg, args.seed)

@@ -8,19 +8,25 @@ without printing a result:
 
 1. device — the card's name and power limit (``nvidia-smi``); fails
    without CUDA;
-2. build — the three CUDA sources, ``paged_attention.cu``,
-   ``flash_attention.cu`` and ``ssd_chunk.cu`` (``nvcc``, sm_90a, the
-   builds started together), and the Triton kernels' JIT, with their build
-   seconds;
+2. build — the four CUDA sources, ``paged_attention.cu``,
+   ``flash_attention.cu``, ``ssd_chunk.cu`` and ``rmsnorm_bwd.cu``
+   (``nvcc``, sm_90a, the builds started together; ptxas's registers and
+   spills of the K3, K4 and K2-backward kernels printed), and the Triton
+   kernels' JIT, with their build seconds;
 3. kernels — each kernel against its plain PyTorch version on the card at
    qwen2.5-3b widths, timed by CUDA-graph replay with L2 flushed, beside
    its bound, its plain version's time and, where one PyTorch call computes
    the same function, that call's time:
    * paged attention (K4): bf16 and int8 pools, window, softcap, hostile
      tables, padding and fully masked queries, the decode step's grid split
-     many ways, a prefill-sized grid unsplit;
+     many ways, a prefill-sized grid; the tile plan passed or made by the
+     wrapper; a planted fault (a tile's last page skipped) must fail the
+     same check;
    * RMSNorm (K2): d = 2048, both modes, bf16 and f32, row counts on and
-     off the block; its backward at the training shape (2048 x 2048);
+     off the block, timed at serving's and training's shapes; its backward
+     at the training shape (2048 x 2048): two runs bit-identical, and a
+     planted fault (one CTA's rows left out of dscale) must fail the f32
+     check; timed beside ``F.rms_norm``'s backward alone (graph-captured);
    * flash attention (K3), forward and backward, at the training shape
      (B 1, H 16, KV 2, S 2048, D 128, bf16, causal), with a window and with
      segment ids (queries without a key: the TPU kernel's visited-range
@@ -276,27 +282,35 @@ def time_ms_eager(fn, iters: int = 5) -> float:
     return statistics.median(times)
 
 
-def ptxas_lines(source: str):
-    """One line per kernel of ``source`` from its build's ``ptxas -v``
-    report: registers, spill stores / loads, and whether ptxas serialized
-    its wgmma instructions for want of registers."""
+def ptxas_lines(source: str, names: str = r"attn_[a-z_]+"):
+    """One line per kernel of ``source`` whose name matches ``names``, from
+    its build's ``ptxas -v`` report: registers at launch and the most bytes
+    spilled (stores / loads) over its template instances, and whether ptxas
+    serialized its wgmma instructions for want of registers."""
     import re
 
-    kernel = re.compile(r"\d+(attn_[a-z_]+)E")
-    out, name, spills = [], None, ""
+    kernel = re.compile(r"\d+(" + names + r")[EI]")
+    seen, notes, name, spills = {}, [], None, (0, 0)
     for line in _build.ptxas_report(source).splitlines():
         m = kernel.search(line)
         if "Compiling entry function" in line and m:
             name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append(f"{name}: {m.group(1)} registers at launch, {spills}")
+            seen.setdefault(name, []).append((int(m.group(1)), *spills))
+            name = None
         if "wgmma.mma_async instructions are serialized" in line and kernel.search(line):
-            out.append(f"wgmma serialized in {kernel.search(line).group(1)}")
-    return out
+            notes.append(f"wgmma serialized in {kernel.search(line).group(1)}")
+    out = []
+    for k, v in seen.items():
+        regs = sorted({r for r, _, _ in v})
+        span = f"{regs[0]}" if len(regs) == 1 else f"{regs[0]}-{regs[-1]}"
+        out.append(f"{k}: {span} registers at launch ({len(v)} instance(s)), spill stores "
+                   f"{max(x for _, x, _ in v)} B, loads {max(x for _, _, x in v)} B (most)")
+    return out + notes
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -369,6 +383,25 @@ def decode_scenario(rng, prompt_lens):
     return paged_scenario(rng, [n + NEW_TOKENS // 2 for n in prompt_lens], [1] * SLOTS)
 
 
+def skip_last_page(a, plan_row):
+    """A planted K4 fault: inputs on which the plain version returns what a
+    kernel that skips the last page of tile ``plan_row`` (first token,
+    tokens, slot, block lo, block hi) would return: the tile's tokens move
+    to a new slot whose table is their slot's with that block masked."""
+    t0, n, slot, _, hi = (int(x) for x in plan_row)
+    tables = torch.cat([a["tables"], a["tables"][slot:slot + 1]])
+    tables[-1, hi - 1] = -1
+    slots = a["q_slots"].clone()
+    slots[t0:t0 + n] = tables.shape[0] - 1
+    return dict(a, tables=tables, q_slots=slots)
+
+
+def step_plan(a, window=0):
+    """The tile plan of a scenario, as ``step_index`` makes it for a step."""
+    return flash_attention.tile_plan_tensor(a["q_pos"], a["q_slots"], a["k_pool"].shape[1],
+                                            a["tables"].shape[1], window)
+
+
 def k4_checks(rng, prompt_lens):
     ctx = [int(x) for x in rng.integers(PROMPT_MIN, MAX_LEN, SLOTS)]
     spans = [1, 64, 1, 9, 1, 33, 1, 1]  # decode, prefill chunks and verify-sized spans
@@ -412,9 +445,12 @@ def k4_checks(rng, prompt_lens):
 
     max_err = 0.0
     for name, (a, kw, zero_rows) in cases.items():
+        plan = step_plan(a, kw.get("window", 0))
         out = flash_attention.paged_flash_attention(**a, **kw)
+        again = flash_attention.paged_flash_attention(**a, **kw, plan=plan)
         want = ref.paged_attention_ref(**a, **kw)
         torch.cuda.synchronize()
+        check(torch.equal(out, again), f"K4 {name}: the step's plan and the wrapper's differ")
         err = (out.float() - want.float()).abs().max().item()
         max_err = max(max_err, err)
         check(bool(torch.isfinite(out.float()).all()), f"K4 {name}: non-finite output")
@@ -424,10 +460,21 @@ def k4_checks(rng, prompt_lens):
             check(int(zero_rows.sum()) > 0, f"K4 {name}: scenario has no zero rows")
             check(bool((out[zero_rows] == 0).all()), f"K4 {name}: rows not exactly zero")
         t = a["q"].shape[0]
-        splits, _ = flash_attention.split_blocks(t * KV, BLOCKS, flash_attention._sm_count(0))
+        splits, _ = flash_attention.split_blocks(plan.shape[0] * KV, BLOCKS,
+                                                 flash_attention._sm_count(0))
         if name.startswith("decode"):
             check(splits > 2, f"K4 {name}: {splits} splits, the decode grid should split > 2 ways")
-        log(f"K4 {name:15s} T={t:3d} splits={splits} max|err|={err:.3e} ok")
+        if name in ("bf16", "many_queries"):
+            # the planted fault: the last page of the tile with the most tokens skipped
+            row = plan[int(plan[:, 1].argmax())].tolist()
+            bad = ref.paged_attention_ref(**skip_last_page(a, row), **kw)
+            bad_err = (bad.float() - want.float()).abs().max().item()
+            check(not torch.allclose(bad.float(), want.float(), **K4_TOL),
+                  f"K4 {name}: K4_TOL lets a planted fault pass (max |err| {bad_err})")
+            log(f"K4 {name}: planted fault (tile of {row[1]} tokens, its last page "
+                f"skipped): max|err|={bad_err:.3e}, rejected")
+        log(f"K4 {name:15s} T={t:3d} tiles={plan.shape[0]:3d} splits={splits} "
+            f"max|err|={err:.3e} ok")
     return max_err
 
 
@@ -439,13 +486,15 @@ def k4_timing(rng, prompt_lens):
     mixed = paged_scenario(rng, [n for n in prompt_lens], [CHUNK] * 4 + [1] * 4)
     rows = {}
     for shape, a in (("decode", decode), ("mixed", mixed)):
-        kern = time_ms(lambda: flash_attention.paged_flash_attention(**a))
+        plan = step_plan(a)  # made once per step by step_index, outside the layers' calls
+        kern = time_ms(lambda: flash_attention.paged_flash_attention(**a, plan=plan))
         plain = time_ms(lambda: ref.paged_attention_ref(**a), iters=10)
         nbytes, flops = paged_cost(a)
         b, by = bound_ms(nbytes, flops)
         rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by,
                            T=a["q"].shape[0])
-        log(f"K4 time {shape:6s} T={a['q'].shape[0]:4d}: kernel {kern * 1e3:.1f} us, "
+        log(f"K4 time {shape:6s} T={a['q'].shape[0]:4d} tiles={plan.shape[0]}: kernel "
+            f"{kern * 1e3:.1f} us, "
             f"plain {plain * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by}), "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
     return rows
@@ -492,11 +541,12 @@ def k2_checks(rng, d=2048, eps=1e-6):
 
 
 def k2_timing(rng, d=2048, eps=1e-6):
-    """At the main path's shapes: a decode step (8 rows) and the packed
-    mixed step (257 rows), bf16 model mode."""
+    """At the main paths' shapes: a decode step (8 rows), the packed mixed
+    step (257 rows) and a training micro-batch (2048 rows), bf16 model
+    mode."""
     rows_out = {}
     s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV)
-    for shape, rows in (("decode", SLOTS), ("mixed", BUDGET + 1)):
+    for shape, rows in (("decode", SLOTS), ("mixed", BUDGET + 1), ("train", TRAIN_SEQ)):
         x = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(DEV, torch.bfloat16)
         kern = time_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True))
         plain = time_ms(lambda: ref.rmsnorm_model(x, s, eps))
@@ -646,29 +696,6 @@ def kernel_split_ms(fn, kernels, iters: int = 10) -> dict:
     return {label: statistics.median(t) for label, t in times.items()}
 
 
-def sdpa_bwd_ms(q, k, v, do) -> float:
-    """SDPA's backward alone on the kernels' footing: its forward captured
-    into one CUDA graph, ``torch.autograd.grad`` into a second one on the
-    same pool (as ``torch.cuda.make_graphed_callables`` does), and only the
-    second replayed and timed."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture
-        for _ in range(2):
-            torch.autograd.grad(sdpa(ql, kl, vl, is_causal=True, enable_gqa=True),
-                                (ql, kl, vl), do)
-    torch.cuda.current_stream().wait_stream(side)
-    fwd_graph, bwd_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-    with torch.cuda.graph(fwd_graph):
-        out = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
-    with torch.cuda.graph(bwd_graph, pool=fwd_graph.pool()):
-        torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
-    fwd_graph.replay()
-    return replay_ms(bwd_graph)
-
-
 def k3_timing(rng):
     """Kernel, plain version, F.scaled_dot_product_attention (GQA) and the
     bounds at the training shape, causal; the backward also launch by
@@ -716,7 +743,40 @@ def k3_timing(rng):
 # ---------------------------------------------------------------------------
 
 
+def grad_only_ms(fwd, inputs, grad_out) -> float:
+    """A PyTorch function's backward alone on the kernels' footing: ``fwd``
+    of ``inputs`` (leaves that require grad) captured into one CUDA graph,
+    ``torch.autograd.grad`` into a second one on the same pool (as
+    ``torch.cuda.make_graphed_callables`` does), and only the second
+    replayed and timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for _ in range(2):
+            torch.autograd.grad(fwd(*inputs), inputs, grad_out)
+    torch.cuda.current_stream().wait_stream(side)
+    fwd_graph, bwd_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(fwd_graph):
+        out = fwd(*inputs)
+    with torch.cuda.graph(bwd_graph, pool=fwd_graph.pool()):
+        torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+    fwd_graph.replay()
+    return replay_ms(bwd_graph)
+
+
+def sdpa_bwd_ms(q, k, v, do) -> float:
+    """SDPA's backward alone (``grad_only_ms``), causal, GQA."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = tuple(x.detach().requires_grad_() for x in (q, k, v))
+    return grad_only_ms(lambda a, b, c: sdpa(a, b, c, is_causal=True, enable_gqa=True),
+                        leaves, do)
+
+
 def k2_bwd_checks_and_timing(rng, d=2048, rows=TRAIN_SEQ, eps=1e-6):
+    """The backward against its plain version at the training shape, both
+    modes, bf16 and f32; two runs bit-identical; a planted fault (the first
+    CTA's rows left out of dscale) against the f32 check; then timed beside
+    ``F.rms_norm``'s backward alone."""
     max_err = 0.0
     for dtype, tol in ((torch.bfloat16, TRAIN_REL_TOL), (torch.float32, K2_BWD_F32_REL_TOL)):
         for model in (True, False):
@@ -724,29 +784,40 @@ def k2_bwd_checks_and_timing(rng, d=2048, rows=TRAIN_SEQ, eps=1e-6):
                      .to(DEV, dtype) for _ in range(2))
             s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV, dtype)
             dx, ds = rmsnorm.rmsnorm_bwd(x, s, dy, eps=eps, model=model)
+            dx2, ds2 = rmsnorm.rmsnorm_bwd(x, s, dy, eps=eps, model=model)
             wdx, wds = ref.rmsnorm_bwd_ref(x, s, dy, eps, model)
             torch.cuda.synchronize()
             e = max(rel_err(dx, wdx), rel_err(ds, wds))
             check(e <= tol, f"K2 bwd {dtype} model={model}: relative error {e}")
+            check(torch.equal(dx, dx2) and torch.equal(ds, ds2),
+                  f"K2 bwd {dtype} model={model}: two runs differ (it has no atomics: it must not)")
             max_err = max(max_err, (dx.float() - wdx.float()).abs().max().item(),
                           (ds.float() - wds.float()).abs().max().item())
             log(f"K2 bwd rows={rows} {str(dtype)[6:]:8s} {'model' if model else 'f32'}: "
-                f"rel err {e:.2e} ok")
+                f"rel err {e:.2e}, deterministic ok")
+            if dtype == torch.float32 and not model:
+                _, per, _, _ = rmsnorm.bwd_partition(rows, d, 4, rmsnorm._sm_count(0))
+                keep = torch.ones(rows, dtype=torch.bool, device=DEV)
+                keep[:per] = False
+                bad = ref.rmsnorm_bwd_ref(x[keep], s, dy[keep], eps, model)[1]
+                e_bad = rel_err(bad, wds)
+                check(e_bad > K2_BWD_F32_REL_TOL,
+                      f"K2 bwd: the f32 check lets a planted fault pass ({e_bad})")
+                log(f"K2 bwd planted fault (the first CTA's {per} rows left out of dscale): "
+                    f"rel err {e_bad:.2e} against f32 limit {K2_BWD_F32_REL_TOL:.0e} "
+                    f"(bf16 limit {TRAIN_REL_TOL:.0e}), rejected")
     x, dy = (torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32))
              .to(DEV, torch.bfloat16) for _ in range(2))
     s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV, torch.bfloat16)
     kern = time_ms(lambda: rmsnorm.rmsnorm_bwd(x, s, dy, eps=eps, model=True))
     plain = time_ms(lambda: ref.rmsnorm_bwd_ref(x, s, dy, eps, True))
-    xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
-
-    def lib():
-        y = torch.nn.functional.rms_norm(xl, (d,), weight=sl, eps=eps)
-        torch.autograd.grad(y, (xl, sl), dy)
-
-    library = time_ms_eager(lib, iters=20)
+    leaves = (x.detach().requires_grad_(), s.detach().requires_grad_())
+    library = grad_only_ms(lambda a, b: torch.nn.functional.rms_norm(a, (d,), weight=b, eps=eps),
+                           leaves, dy)
     b, by = bound_ms(3 * x.numel() * 2 + 2 * d * 2, 8.0 * x.numel())
     log(f"K2 bwd time rows={rows}: kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
-        f"F.rms_norm fwd+bwd (autograd) {library * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by})")
+        f"F.rms_norm backward alone (graph-captured autograd.grad) {library * 1e3:.1f} us, "
+        f"bound {b * 1e3:.2f} us ({by})")
     return max_err, dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b, bound_by=by)
 
 
@@ -1378,27 +1449,29 @@ def main() -> int:
     # 2. build: one nvcc per CUDA source, started together
     t0 = time.perf_counter()
     loaders = (flash_attention.load_library, flash_attention.load_train_library,
-               ssd_chunk.load_library)
+               ssd_chunk.load_library, rmsnorm.load_bwd_library)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for b in [pool.submit(f) for f in loaders]:
             b.result()
-    for src in (flash_attention.SOURCE, flash_attention.TRAIN_SOURCE, ssd_chunk.SOURCE):
+    sources = {flash_attention.SOURCE: r"paged_attention_[a-z]+",
+               flash_attention.TRAIN_SOURCE: r"attn_[a-z_]+", ssd_chunk.SOURCE: None,
+               rmsnorm.BWD_SOURCE: r"rmsnorm_bwd_[a-z]+"}
+    for src in sources:
         log(f"build: {src} (nvcc sm_90a) -> "
             f"{_build.library_path(src).relative_to(_build.BUILD_DIR.parents[1])}")
     log(f"build: {len(loaders)} CUDA sources in {time.perf_counter() - t0:.1f} s")
-    for line in ptxas_lines(flash_attention.TRAIN_SOURCE):
-        log(f"build: ptxas -v, {flash_attention.TRAIN_SOURCE}: {line}")
+    for src, names in sources.items():
+        for line in (ptxas_lines(src, names) if names else []):
+            log(f"build: ptxas -v, {src}: {line}")
     t0 = time.perf_counter()
     ones = torch.ones(2048, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
         for model in (False, True):
-            x = torch.ones(4, 2048, device="cuda", dtype=dtype)
-            rmsnorm.rmsnorm(x, ones, model=model)
-            rmsnorm.rmsnorm_bwd(x, ones.to(dtype), x, model=model)
+            rmsnorm.rmsnorm(torch.ones(4, 2048, device="cuda", dtype=dtype), ones, model=model)
         masked_accum.masked_accum(torch.zeros(4096, device="cuda"),
                                   torch.ones(4096, device="cuda", dtype=dtype), 1.0)
     torch.cuda.synchronize()
-    log(f"build: Triton JIT (rmsnorm, rmsnorm_bwd, masked_accum) {time.perf_counter() - t0:.1f} s")
+    log(f"build: Triton JIT (rmsnorm, masked_accum) {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels vs plain versions
     rng = np.random.default_rng(args.seed)
@@ -1466,7 +1539,7 @@ def main() -> int:
              ms=k2_t["decode"]["ms"], plain_ms=k2_t["decode"]["plain_ms"],
              bound_ms=k2_t["decode"]["bound_ms"], bound_by=k2_t["decode"]["bound_by"],
              library_ms=k2_t["decode"]["library_ms"]),
-        dict(name="rmsnorm_bwd", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+        dict(name="rmsnorm_bwd", route="cuda", source="src/repro_torch/kernels/rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm.py:27",
              launches=launches["rmsnorm_bwd"], max_abs_err=k2b_err, **k2b_t),
         dict(name="flash_attention", route="cuda",

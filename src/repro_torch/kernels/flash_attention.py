@@ -3,10 +3,13 @@ and ``flash_attention_fwd`` / ``flash_attention_bwd`` (training).
 
 Port of the TPU kernel ``repro.kernels.flash_attention.paged_flash_attention``
 (src/repro/kernels/flash_attention.py:238, body ``_paged_attn_kernel``
-:166).  The kernel itself is ``paged_attention.cu`` (one CTA per (query
-token, KV head), pool read in its native ``(P, page_size, KV, D)`` layout,
-the block range split over more CTAs when the grid is too small for the
-card); this module checks the arguments, picks the split, allocates the
+:166).  The kernel itself is ``paged_attention.cu``: one CTA per (tile, KV
+head), a tile being a run of up to ``TILE_TOKENS`` consecutive query tokens
+of one slot (``paged_tile_plan``), its pages staged in shared memory and
+its products on tensor cores; the block range is split over more CTAs when
+the grid is too small for the card.  This module builds the tile plan
+(once per serving step in ``models.layers.step_index``, or here when the
+caller passes none), checks the arguments, picks the split, allocates the
 output and the split's scratch, and launches it on PyTorch's current
 stream.  It takes CUDA tensors only: the plain version for the CPU is
 ``kernels.ref.paged_attention_ref``, chosen by ``kernels.ops`` from the
@@ -45,12 +48,21 @@ SOURCE = "paged_attention.cu"
 TRAIN_SOURCE = "flash_attention.cu"
 # (head dim, H / KV) the source instantiates: the configs the port serves
 SERVED = {(128, 8)}  # qwen2.5-3b
-WARPS = 4  # kWarps in the source: blocks a CTA walks at once
+#: query tokens a tile holds at most (kTileTokens in the source)
+TILE_TOKENS = 8
+#: columns of a tile plan row: first token, tokens, slot, block lo, block hi
+PLAN_COLS = 5
+#: the fewest table blocks a split takes (a stage of 64 key positions at
+#: the served page size of 16)
+SPLIT_MIN_BLOCKS = 4
+#: CTAs of the paged kernel an SM holds at once (``__launch_bounds__`` in
+#: the source: 128 threads of at most 170 registers)
+CTAS_PER_SM = 3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 11 + [_I] * 11 + [_F, _F] + [_I, _I] + [_P]
+_ARGTYPES = [_P] * 11 + [_I] * 12 + [_F, _F] + [_I, _I] + [_P]
 
 
 def load_library() -> ctypes.CDLL:
@@ -68,15 +80,64 @@ def _sm_count(index: int) -> int:
 
 
 def split_blocks(ctas: int, num_blocks: int, sms: int):
-    """(splits, blocks_per_split) for a grid of ``ctas`` (token, KV head)
+    """(splits, blocks_per_split) for a grid of ``ctas`` (tile, KV head)
     CTAs over ``num_blocks`` table blocks: split the block range only when
-    the grid is under two CTAs per SM (decode), and never below ``WARPS``
-    blocks a split, so every warp of a CTA has a block to walk."""
+    the grid would not fill the card's ``CTAS_PER_SM`` CTAs an SM (decode,
+    mixed steps), and never below ``SPLIT_MIN_BLOCKS`` blocks a split, so
+    every split fills a stage."""
     splits = 1
-    if ctas < 2 * sms:
-        splits = min(-(-2 * sms // ctas), max(-(-num_blocks // WARPS), 1))
+    full = CTAS_PER_SM * sms
+    if ctas < full:
+        splits = min(-(-full // ctas), max(-(-num_blocks // SPLIT_MIN_BLOCKS), 1))
     per = -(-num_blocks // splits)
     return -(-num_blocks // per), per
+
+
+def paged_tile_plan(q_pos, q_slots, page_size: int, num_blocks: int,
+                    window: int = 0) -> np.ndarray:
+    """The paged kernel's tiles for one step: (tiles, ``PLAN_COLS``) int32
+    rows (first token, tokens, slot, block lo, block hi), the longest block
+    range first.
+
+    A tile is a run of at most ``TILE_TOKENS`` consecutive tokens (in the
+    step's token order) of one slot, cut where the slot changes, so every
+    token lies in exactly one tile whatever the order (interleaved slots
+    give short tiles; padding tokens, slot < 0, form tiles of their own
+    with an empty range).  Its block range is the union of its tokens'
+    admissible block ranges (their hull; the kernel masks each token by its own
+    position), empty when every token's range is."""
+    q_slots = np.asarray(q_slots, np.int64)
+    t = len(q_slots)
+    if t == 0:
+        return np.zeros((0, PLAN_COLS), np.int32)
+    # each token's admissible blocks [lo, hi) by the TPU kernel's formula
+    # (src/repro/kernels/flash_attention.py:184-188, floor division)
+    q_pos = np.asarray(q_pos, np.int64)
+    hi = np.where(q_slots >= 0, np.minimum(q_pos // page_size + 1, num_blocks), 0)
+    lo = (np.maximum((q_pos - window + 1) // page_size, 0) if window > 0
+          else np.zeros_like(q_pos))
+    idx = np.arange(t)
+    run = np.r_[True, q_slots[1:] != q_slots[:-1]]
+    run_start = np.maximum.accumulate(np.where(run, idx, 0))
+    starts = np.flatnonzero(run | ((idx - run_start) % TILE_TOKENS == 0))
+    some = hi > lo
+    big = np.iinfo(np.int64).max
+    t_lo = np.minimum.reduceat(np.where(some, lo, big), starts)
+    t_hi = np.maximum.reduceat(np.where(some, hi, 0), starts)
+    empty = t_hi == 0
+    plan = np.stack([starts, np.diff(np.r_[starts, t]), q_slots[starts],
+                     np.where(empty, 0, t_lo), t_hi], axis=1).astype(np.int32)
+    return plan[np.argsort(-(plan[:, 4] - plan[:, 3]), kind="stable")]
+
+
+def tile_plan_tensor(q_pos: torch.Tensor, q_slots: torch.Tensor, page_size: int,
+                     num_blocks: int, window: int = 0) -> torch.Tensor:
+    """``paged_tile_plan`` as an int32 tensor on ``q_pos``'s device: one
+    copy to the host and one back, made once per serving step and layer
+    kind."""
+    plan = paged_tile_plan(q_pos.cpu().numpy(), q_slots.cpu().numpy(), page_size, num_blocks,
+                           window)
+    return torch.from_numpy(plan).to(q_pos.device)
 
 
 def _ptr(x) -> int:
@@ -94,13 +155,17 @@ def paged_flash_attention(
     softcap: float = 0.0,
     k_scale: torch.Tensor = None,  # (num_pages, page_size, KV) f32, int8 pools
     v_scale: torch.Tensor = None,
+    plan: torch.Tensor = None,  # (tiles, PLAN_COLS) int32: tile_plan_tensor
 ) -> torch.Tensor:
     """Launch the CUDA kernel; raises on anything it does not take.
 
     The pools are never copied: they must be contiguous in their native
     layout and 16-byte aligned (the engine's pools are).  ``tables``/
     ``q_pos``/``q_slots`` are cast to contiguous int32 (a few hundred
-    bytes)."""
+    bytes).  ``plan`` must be ``tile_plan_tensor`` of these ``q_pos``,
+    ``q_slots``, the pools' page size, the tables' width and ``window``;
+    without one it is made here (a host round trip, so such a call cannot
+    be captured in a CUDA graph)."""
     if q.device.type != "cuda":
         raise ValueError(f"the paged-attention kernel takes CUDA tensors, got {q.device}")
     for name, x in (("k_pool", k_pool), ("v_pool", v_pool), ("tables", tables),
@@ -145,7 +210,15 @@ def paged_flash_attention(
     out = torch.empty_like(q)
     if t == 0:
         return out
-    splits, per_split = split_blocks(t * kvh, num_blocks, _sm_count(q.device.index))
+    if plan is None:
+        plan = tile_plan_tensor(q_pos, q_slots, page_size, num_blocks, int(window))
+    if (plan.dtype != torch.int32 or plan.dim() != 2 or plan.shape[1] != PLAN_COLS
+            or not 0 < plan.shape[0] <= t or plan.device != q.device):
+        raise ValueError(f"plan must be (tiles, {PLAN_COLS}) int32 on {q.device} with 1..{t} "
+                         f"tiles (tile_plan_tensor), got {tuple(plan.shape)} {plan.dtype}")
+    plan = plan.contiguous()
+    tiles = plan.shape[0]
+    splits, per_split = split_blocks(tiles * kvh, num_blocks, _sm_count(q.device.index))
     part_acc = part_ml = None
     if splits > 1:
         part_acc = torch.empty((t, kvh, splits, h // kvh, d), dtype=torch.float32,
@@ -157,8 +230,8 @@ def paged_flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_paged_attention(
             _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(k_scale), _ptr(v_scale),
-            _ptr(tables), _ptr(q_pos), _ptr(q_slots), _ptr(out), _ptr(part_acc),
-            _ptr(part_ml), t, h, kvh, d, num_pages, page_size, num_slots, num_blocks,
+            _ptr(tables), _ptr(q_pos), _ptr(plan), _ptr(out), _ptr(part_acc),
+            _ptr(part_ml), t, tiles, h, kvh, d, num_pages, page_size, num_slots, num_blocks,
             splits, per_split, int(window), float(softcap), 1.0 / math.sqrt(d),
             int(q.dtype == torch.bfloat16), int(quantized), stream,
         )

@@ -10,8 +10,8 @@
 * Any other device raises.
 
 Gradients: ``flash_attention`` and ``rmsnorm`` are ``torch.autograd``
-Functions whose backward dispatches the same way (the CUDA / Triton
-backward kernels on the card, the explicit formulas of ``ref.py`` on the
+Functions whose backward dispatches the same way (the CUDA backward
+kernels on the card, the explicit formulas of ``ref.py`` on the
 CPU); they take the autograd path only when an input requires grad.
 The SSD terms have no backward yet: under an input that requires grad
 they raise (training 'M' layers is the next slice).
@@ -58,13 +58,15 @@ def _device_type(x: torch.Tensor) -> str:
 
 
 def paged_flash_attention(q, k_pool, v_pool, tables, q_pos, q_slots,
-                          window=0, softcap=0.0, k_scale=None, v_scale=None):
-    """Fused paged attention: the CUDA kernel on the card, the vectorised
-    plain path (``ref.paged_attention_ref``) on the CPU."""
+                          window=0, softcap=0.0, k_scale=None, v_scale=None, plan=None):
+    """Fused paged attention: the CUDA kernel on the card (over ``plan``,
+    the step's tile plan, made by the wrapper when None), the vectorised
+    plain path (``ref.paged_attention_ref``) on the CPU, which needs no
+    plan."""
     if _device_type(q) == "cuda":
         return _fa.paged_flash_attention(
             q, k_pool, v_pool, tables, q_pos, q_slots, window=window,
-            softcap=softcap, k_scale=k_scale, v_scale=v_scale)
+            softcap=softcap, k_scale=k_scale, v_scale=v_scale, plan=plan)
     return _ref.paged_attention_ref(
         q, k_pool, v_pool, tables, q_pos, q_slots, window=window,
         softcap=softcap, k_scale=k_scale, v_scale=v_scale)
@@ -83,7 +85,7 @@ def rmsnorm_fwd(x, scale, eps=1e-6, model=False):
 
 
 def rmsnorm_bwd(x, scale, dy, eps=1e-6, model=False):
-    """(dx, dscale): the Triton backward on the card, ``ref.rmsnorm_bwd_ref``
+    """(dx, dscale): the CUDA backward on the card, ``ref.rmsnorm_bwd_ref``
     on the CPU."""
     if _device_type(x) == "cuda":
         return _rms.rmsnorm_bwd(x, scale, dy, eps=eps, model=model)

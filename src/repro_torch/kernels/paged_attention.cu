@@ -3,10 +3,11 @@
 // (src/repro/kernels/flash_attention.py:166, :238).
 //
 // Contract (pinned by tests/test_torch_kernels.py on the plain version and
-// by tests/test_torch_kernels_gpu.py and chip_smoke.py on the card):
+// the tile plan, and by tests/test_torch_kernels_gpu.py and chip_smoke.py on
+// the card):
 //   q (T, H, D) bf16; k/v pools (P, page_size, KV, D) bf16, or int8 with
 //   per-(row, kv head) f32 scales (P, page_size, KV); block tables
-//   (num_slots, num_blocks) int32; q_pos / q_slots (T,) int32.
+//   (num_slots, num_blocks) int32; q_pos (T,) int32; the tile plan (below).
 //   Query t of slot s attends keys at absolute positions kp <= q_pos[t]
 //   (and kp > q_pos[t] - window when window > 0) found through
 //   tables[s, kp / page_size].  A table entry < 0 or >= P masks its whole
@@ -19,22 +20,37 @@
 // at g = 8, far under the card's ~295 flop/B, so the kernel is bound by the
 // bytes of the pages it reads (and, at decode sizes, by latency).
 //
-// Design.  A CTA takes one (query token, KV head) and, when the grid would
-// be too small to fill the card (decode), one of `splits` slices of the
-// query's block range.  The pool is read in its native layout: a key row is
-// D contiguous elements at ((page * page_size + r) * KV + kvh) * D, so the
-// CTA's g query heads share every row it loads (no transpose of the pool).
-//   * Inside a warp, head h owns lanes [h*LPH, (h+1)*LPH) with LPH = 32/GP,
-//     GP the power of two at or above g (the lanes of heads g..GP-1 idle);
-//     a lane holds D/LPH contiguous dims of its head's pre-scaled query and
-//     output, loads the same dims of each K/V row (16-byte loads), and a
-//     log2(LPH)-step shuffle finishes each score.
-//   * Each warp walks its own blocks (b = warp, warp + NW, ...) with its own
-//     online softmax, one row at a time, skipping masked rows and bad
-//     pages: no barrier inside the loop.
-//   * The warps' (max, sum, acc) merge once through shared memory.  With one
-//     split the CTA writes the output; with several it writes its partial
-//     and `paged_attention_combine` merges the splits (flash-decoding).
+// Design.  The tile plan (`paged_tile_plan` in flash_attention.py, one row
+// per tile: first token, tokens, slot, block lo, block hi) cuts the step's
+// tokens into tiles: runs of up to 8 consecutive tokens of one slot, whose
+// block range is the union of their tokens' admissible ranges.  A CTA takes
+// one (tile, KV head) and, when the grid would be too small to fill the
+// card (decode), one of `splits` slices of the tile's block range; so a
+// prefill chunk's 64 tokens read their slot's pages 8 times, not 64.
+//   * Staging: the slice's keys go through a 2-stage ring in shared memory,
+//     64 key positions (K and V rows of one KV head) a stage, gathered by
+//     table entry with 16-byte `cp.async` (rows of bad entries and positions
+//     past the slice zero-filled, never read), a 16-byte chunk of a row
+//     stored at chunk ^ (row & 7) so that `ldmatrix` is conflict-free.  int8
+//     pages are converted to bf16 in shared memory once a stage (exact).
+//   * Products on tensor cores, `mma.sync` m16n8k16 (bf16 in, f32 out), with
+//     keys on M and one token's g = 8 heads on N (no padded query rows):
+//     S^T (16 keys x 8 heads) = K (16 x D) . Q^T, then O^T (D x 8) += V^T .
+//     P^T, V^T by `ldmatrix.trans`, P^T by `movmatrix.trans` of S^T's
+//     fragment.  A warp holds two tokens (16 query rows); 4 warps hold a
+//     tile of 8 tokens, and when the tile has fewer, the warps of one token
+//     pair split the stage's 16-key chunks between them.  ~160 registers
+//     a thread: three 128-thread CTAs an SM.
+//   * Softmax: online, per (token, head), in registers, with that token's own
+//     position mask, window and softcap; int8's k_scale multiplies the
+//     scores and v_scale the rows of P (in f32, before P is rounded to bf16).
+//   * A warp that owns its tokens alone writes them from its registers; the
+//     warps of a token pair that shared the chunks merge through shared
+//     memory first.  With one split the CTA writes the output; with several
+//     it writes its partial (the accumulator only where a key was seen) and
+//     `paged_attention_combine` merges the splits, launched
+//     with programmatic dependent launch (its CTAs are scheduled while the
+//     main kernel drains and wait for its partials in `griddepcontrol.wait`).
 // All softmax math is f32; the output is rounded once to q's dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,232 +61,504 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kTokensPerWarp = 2;
+constexpr int kTileTokens = kWarps * kTokensPerWarp;
+static_assert(kTileTokens == 8, "TILE_TOKENS in flash_attention.py plans tiles of 8 tokens");
+constexpr int kStageKeys = 64;                        // key positions a stage
+constexpr int kChunks = kStageKeys / 16;              // 16-key mma tiles a stage
+constexpr int kStages = 2;
+constexpr int kPlanCols = 5;
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// N contiguous elements at p (16-byte aligned when N*sizeof(T) is a
-// multiple of 16) as floats.
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&out)[N]) {
-  constexpr int kPer16 = 16 / sizeof(T);
-  if constexpr (N % kPer16 == 0) {
-#pragma unroll
-    for (int c = 0; c < N / kPer16; ++c) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kPer16; ++i) out[c * kPer16 + i] = to_f32(e[i]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_f32(p[i]);
-  }
+// 16 bytes from gmem to smem, or 16 zero bytes when !ok (nothing read)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n"); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+// c += a . b, m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float quad_max(float v) {  // over the 8 lanes of one lane % 4
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
-template <int D, int GP, typename QT, typename KVT, bool QUANT>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const QT* __restrict__ q, const KVT* __restrict__ k_pool,
+// Byte offset of 16-byte chunk `ch` of bf16 key row `row` (D*2 bytes a row)
+// in a swizzled stage.
+template <int D>
+__device__ __forceinline__ int swz(int row, int ch) {
+  return row * D * 2 + ((ch ^ (row & 7)) << 4);
+}
+
+template <int D, typename KVT, bool QUANT>
+struct Smem {
+  // the ring: K then V rows of each stage, as stored in the pool (int8 rows
+  // unswizzled; bf16 rows swizzled)
+  static constexpr int kRowBytes = D * sizeof(KVT);
+  static constexpr int kRing = kStages * 2 * kStageKeys * kRowBytes;
+  // int8: one stage converted to bf16 (K then V, swizzled)
+  static constexpr int kConv = QUANT ? 2 * kStageKeys * D * 2 : 0;
+  // the warps' (acc, m, l) for the merge, over the ring once it is drained
+  static constexpr int kMerge = kWarps * kTokensPerWarp * 8 * D * 4;
+  static constexpr int kBody = (kRing + kConv > kMerge) ? kRing + kConv : kMerge;
+  static constexpr int kMl = kWarps * kTokensPerWarp * 8 * 2 * 4;
+  static constexpr int kKeys = kStages * kStageKeys * 4 * (QUANT ? 3 : 1);  // ok, scales
+  static constexpr int kBytes = kBody + kMl + kKeys;
+};
+
+template <int D, int G, typename KVT, bool QUANT>
+__global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
+    const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k_pool,
     const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ tables,
-    const int* __restrict__ q_pos, const int* __restrict__ q_slots,
-    QT* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int G, int KV, int num_pages, int page_size, int num_slots, int num_blocks,
-    int blocks_per_split, int window, float softcap, float sm_scale) {
-  constexpr int LPH = 32 / GP;  // lanes per query head
-  constexpr int DPL = D / LPH;  // dims per lane
-  const int t = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int split = blockIdx.z;
-  const int splits = gridDim.z;
+    const int* __restrict__ q_pos, const int* __restrict__ plan,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int KV, int num_pages, int page_size, int num_slots,
+    int num_blocks, int blocks_per_split, int window, float softcap, float sm_scale) {
+  static_assert(G == 8, "one token's heads are the mma's N = 8");
+  static_assert(D % 16 == 0, "head dim in 16-wide mma steps");
+  using S = Smem<D, KVT, QUANT>;
+  constexpr int kCh = S::kRowBytes / 16;  // 16-byte chunks a pool row
+  constexpr int kPer16 = 16 / sizeof(KVT);
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  unsigned char* conv = smem + S::kRing;
+  float* s_m = reinterpret_cast<float*>(smem + S::kBody);       // [warp][tok][head]
+  float* s_l = s_m + kWarps * kTokensPerWarp * 8;
+  int* s_ok = reinterpret_cast<int*>(smem + S::kBody + S::kMl);  // [stage][key]
+  float* s_ks = reinterpret_cast<float*>(s_ok + kStages * kStageKeys);
+  float* s_vs = s_ks + kStages * kStageKeys;
+
+  asm volatile("griddepcontrol.launch_dependents;\n");  // the split merge may be scheduled
+  const int* tile = plan + blockIdx.x * kPlanCols;
+  const int t0 = tile[0], n_tok = tile[1], slot = tile[2];
+  const int kvh = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
   const int H = KV * G;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int h = lane / LPH;
-  const int d0 = (lane % LPH) * DPL;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (n_tok <= 0) return;  // (the wrapper's plans have no empty tiles)
 
-  const int slot = q_slots[t];
-  const int pos = q_pos[t];
-  const bool valid_q = slot >= 0;
-  const int slot_s = min(max(slot, 0), num_slots - 1);
-  // admissible logical blocks [lo, hi) (flash_attention.py:184-188); C's
-  // truncating division only differs from floor below 0, clamped away
-  const int hi = valid_q ? min(pos / page_size + 1, num_blocks) : 0;
-  const int lo = window > 0 ? max((pos - window + 1) / page_size, 0) : 0;
-  const int b_begin = lo + split * blocks_per_split;
-  const int b_end = min(hi, b_begin + blocks_per_split);
+  // this CTA's slice of the tile's block range, in key positions
+  int b_begin = tile[3] + split * blocks_per_split;
+  int b_end = min(min(tile[4], num_blocks), b_begin + blocks_per_split);
+  if (slot < 0 || b_begin >= b_end) b_begin = b_end = 0;  // padding: nothing to read
+  const int pos_begin = b_begin * page_size, pos_end = b_end * page_size;
+  const int n_stages = (pos_end - pos_begin + kStageKeys - 1) / kStageKeys;
+  const int* table = tables + (size_t)min(max(slot, 0), num_slots - 1) * num_blocks;
 
-  float qv[DPL];
-  if (h < G) {
-    load_f32<QT, DPL>(q + ((size_t)t * H + kvh * G + h) * D + d0, qv);
-  } else {
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) qv[i] = 0.f;  // padding head: computed, never written
-  }
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) qv[i] *= sm_scale;
-  float acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  float m = kNegInf, l = 0.f;
+  // warps: token pairs x key-chunk splits of a stage
+  const int pairs = (n_tok + kTokensPerWarp - 1) / kTokensPerWarp;
+  int ks_n = 1;  // warps sharing a token pair: a power of two, at most a stage's chunks
+  while (2 * ks_n * pairs <= kWarps && 2 * ks_n <= kChunks) ks_n *= 2;
+  const int pair = warp / ks_n, ks = warp % ks_n;
+  const bool active = pair < pairs;
+  const int tok0 = pair * kTokensPerWarp;
+  const int n_mine = active ? min(kTokensPerWarp, n_tok - tok0) : 0;
 
-  const int* table = tables + (size_t)slot_s * num_blocks;
-  for (int b = b_begin + warp; b < b_end; b += kWarps) {
-    const int page = table[b];
-    if (page < 0 || page >= num_pages) continue;  // bad entry: masked, never read
-    const int kbase = b * page_size;
-    // admissible rows of the block: kp <= pos and kp > pos - window
-    const int r_end = min(page_size, pos - kbase + 1);
-    const int r_begin = window > 0 ? max(0, pos - window + 1 - kbase) : 0;
-    for (int r = r_begin; r < r_end; ++r) {
-      const size_t row = ((size_t)page * page_size + r) * KV + kvh;
-      float kv[DPL];
-      load_f32<KVT, DPL>(k_pool + row * D + d0, kv);
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) s = fmaf(qv[i], kv[i], s);
-#pragma unroll
-      for (int o = LPH / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (QUANT) s *= k_scale[row];
-      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-      const float m_new = fmaxf(m, s);
-      const float alpha = __expf(m - m_new);
-      float p = __expf(s - m_new);
-      l = l * alpha + p;
-      m = m_new;
-      load_f32<KVT, DPL>(v_pool + row * D + d0, kv);
-      if (QUANT) p *= v_scale[row];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(p, kv[i], acc[i] * alpha);
+  auto issue = [&](int st) {
+    const int buf = st % kStages;
+    const int p0 = pos_begin + st * kStageKeys;
+    unsigned char* kdst = ring + buf * 2 * kStageKeys * S::kRowBytes;
+    unsigned char* vdst = kdst + kStageKeys * S::kRowBytes;
+    for (int idx = threadIdx.x; idx < kStageKeys * kCh; idx += kThreads) {
+      const int key = idx / kCh, ch = idx % kCh;
+      const int kp = p0 + key;
+      bool ok = kp < pos_end;
+      size_t row = 0;
+      if (ok) {
+        const int page = table[kp / page_size];
+        ok = page >= 0 && page < num_pages;  // bad entry: masked, never read
+        if (ok) row = ((size_t)page * page_size + kp % page_size) * KV + kvh;
+      }
+      const int dst = QUANT ? key * S::kRowBytes + ch * 16 : swz<D>(key, ch);
+      cp_async16(kdst + dst, k_pool + row * D + ch * kPer16, ok);
+      cp_async16(vdst + dst, v_pool + row * D + ch * kPer16, ok);
+      if (ch == 0) {
+        s_ok[buf * kStageKeys + key] = ok;
+        if constexpr (QUANT) {
+          cp_async4(s_ks + buf * kStageKeys + key, k_scale + row, ok);
+          cp_async4(s_vs + buf * kStageKeys + key, v_scale + row, ok);
+        }
+      }
     }
+  };
+
+  issue(0);  // the pages first: the query loads overlap their flight
+  cp_async_commit();
+  if (n_stages > 1) issue(1);
+  cp_async_commit();
+
+  // Q^T as the mma's B operand: per token, per 16-wide step of D, the
+  // pairs (d = 2*(lane%4) + {0,1}, + 8) of head lane / 4
+  uint32_t qf[kTokensPerWarp][D / 16][2];
+  int qpos[kTokensPerWarp];
+  float m[kTokensPerWarp][2], l[kTokensPerWarp][2];
+  float acc[kTokensPerWarp][D / 16][4];
+#pragma unroll
+  for (int j = 0; j < kTokensPerWarp; ++j) {
+    const int t = t0 + tok0 + min(j, max(n_mine - 1, 0));
+    qpos[j] = (j < n_mine) ? q_pos[t] : 0;
+    const __nv_bfloat16* qr = q + ((size_t)t * H + kvh * G + (lane >> 2)) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qf[j][kk][0] = j < n_mine ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
+      qf[j][kk][1] = j < n_mine ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8) : 0u;
+    }
+    m[j][0] = m[j][1] = kNegInf;
+    l[j][0] = l[j][1] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < D / 16; ++mt) acc[j][mt][0] = acc[j][mt][1] = acc[j][mt][2] = acc[j][mt][3] = 0.f;
+  }
+  int pmin = qpos[0], pmax = qpos[0];
+  if (n_mine > 1) {
+    pmin = min(pmin, qpos[1]);
+    pmax = max(pmax, qpos[1]);
   }
 
-  // merge the warps: shared [kWarps][GP][D] accumulators plus (max, sum)
-  extern __shared__ float smem[];
-  float* s_acc = smem;
-  float* s_m = s_acc + kWarps * GP * D;
-  float* s_l = s_m + kWarps * GP;
+  for (int st = 0; st < n_stages; ++st) {
+    const int buf = st % kStages;
+    cp_async_wait1();
+    __syncthreads();
+    const unsigned char* kb = ring + buf * 2 * kStageKeys * S::kRowBytes;
+    const unsigned char* vb = kb + kStageKeys * S::kRowBytes;
+    if constexpr (QUANT) {  // int8 rows -> bf16, swizzled (exact)
+      for (int idx = threadIdx.x; idx < 2 * kStageKeys * kCh; idx += kThreads) {
+        const int which = idx / (kStageKeys * kCh), rem = idx % (kStageKeys * kCh);
+        const int key = rem / kCh, ch = rem % kCh;
+        const int4 raw = *reinterpret_cast<const int4*>(kb + which * kStageKeys * S::kRowBytes +
+                                                        key * S::kRowBytes + ch * 16);
+        const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+        uint32_t w[8];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) s_acc[(warp * GP + h) * D + d0 + i] = acc[i];
-  if (lane % LPH == 0) {
-    s_m[warp * GP + h] = m;
-    s_l[warp * GP + h] = l;
+        for (int i = 0; i < 8; ++i) w[i] = pack_bf16((float)e[2 * i], (float)e[2 * i + 1]);
+        unsigned char* dst = conv + which * kStageKeys * D * 2;
+        *reinterpret_cast<uint4*>(dst + swz<D>(key, 2 * ch)) = make_uint4(w[0], w[1], w[2], w[3]);
+        *reinterpret_cast<uint4*>(dst + swz<D>(key, 2 * ch + 1)) = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+      __syncthreads();
+      kb = conv;
+      vb = conv + kStageKeys * D * 2;
+    }
+    const int p0 = pos_begin + st * kStageKeys;
+    if (active) {
+      for (int c = ks; c < kChunks; c += ks_n) {
+        const int kc0 = p0 + c * 16;
+        // the whole chunk past the slice, after every token, or before every window
+        if (kc0 >= pos_end || kc0 > pmax || (window > 0 && kc0 + 15 <= pmin - window)) continue;
+        float s[kTokensPerWarp][4];
+#pragma unroll
+        for (int j = 0; j < kTokensPerWarp; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t a[4];
+          ldsm_x4(a, kb + swz<D>(c * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+          for (int j = 0; j < kTokensPerWarp; ++j) {
+            if (j < n_mine) mma_bf16(s[j], a, qf[j][kk][0], qf[j][kk][1]);
+          }
+        }
+        // this lane's keys: rows r0 and r0 + 8 of the chunk
+        const int r0 = lane >> 2;
+        const int key0 = c * 16 + r0, key1 = key0 + 8;
+        const bool ok0 = s_ok[buf * kStageKeys + key0], ok1 = s_ok[buf * kStageKeys + key1];
+        float ksc0 = 1.f, ksc1 = 1.f, vsc0 = 1.f, vsc1 = 1.f;
+        if constexpr (QUANT) {
+          ksc0 = s_ks[buf * kStageKeys + key0];
+          ksc1 = s_ks[buf * kStageKeys + key1];
+          vsc0 = s_vs[buf * kStageKeys + key0];
+          vsc1 = s_vs[buf * kStageKeys + key1];
+        }
+        uint32_t pb[kTokensPerWarp][2];
+#pragma unroll
+        for (int j = 0; j < kTokensPerWarp; ++j) {
+          pb[j][0] = pb[j][1] = 0u;
+          if (j >= n_mine) continue;
+          const int kp0 = p0 + key0, kp1 = p0 + key1;
+          const bool in0 = ok0 && kp0 <= qpos[j] && (window <= 0 || kp0 > qpos[j] - window);
+          const bool in1 = ok1 && kp1 <= qpos[j] && (window <= 0 || kp1 > qpos[j] - window);
+          float p[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float x = s[j][i] * sm_scale * (i < 2 ? ksc0 : ksc1);
+            if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+            p[i] = (i < 2 ? in0 : in1) ? x : kNegInf;
+          }
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float m_new = fmaxf(m[j][hh], quad_max(fmaxf(p[hh], p[2 + hh])));
+            const float alpha = __expf(m[j][hh] - m_new);
+            // masked explicitly: with every key so far masked, m_new is
+            // still kNegInf and exp(s - m_new) would be 1
+            p[hh] = in0 ? __expf(p[hh] - m_new) : 0.f;
+            p[2 + hh] = in1 ? __expf(p[2 + hh] - m_new) : 0.f;
+            l[j][hh] = l[j][hh] * alpha + p[hh] + p[2 + hh];
+            m[j][hh] = m_new;
+#pragma unroll
+            for (int mt = 0; mt < D / 16; ++mt) {
+              acc[j][mt][hh] *= alpha;
+              acc[j][mt][2 + hh] *= alpha;
+            }
+          }
+          // P^T as the B operand: (keys 0-7, heads) and (keys 8-15, heads)
+          // of S^T's fragment, each transposed in registers
+          pb[j][0] = movmatrix_trans(pack_bf16(p[0] * vsc0, p[1] * vsc0));
+          pb[j][1] = movmatrix_trans(pack_bf16(p[2] * vsc1, p[3] * vsc1));
+        }
+#pragma unroll
+        for (int mt = 0; mt < D / 16; ++mt) {
+          uint32_t a[4];
+          ldsm_x4_trans(a, vb + swz<D>(c * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                       2 * mt + ((lane >> 3) & 1)));
+#pragma unroll
+          for (int j = 0; j < kTokensPerWarp; ++j) {
+            if (j < n_mine) mma_bf16(acc[j][mt], a, pb[j][0], pb[j][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage's buffers are free
+    if (st + kStages < n_stages) issue(st + kStages);
+    cp_async_commit();
+  }
+
+  asm volatile("cp.async.wait_group 0;\n");  // (only empty groups are left)
+  const int h0 = 2 * (lane & 3), r0 = lane >> 2;
+#pragma unroll
+  for (int j = 0; j < kTokensPerWarp; ++j) {
+    l[j][0] = quad_sum(l[j][0]);
+    l[j][1] = quad_sum(l[j][1]);
+  }
+  if (ks_n == 1) {
+    // one warp owns each token: its registers are the result.  A lane
+    // holds dims mt*16 + r0 (+8) of heads h0, h0 + 1; eight lanes write 32
+    // contiguous bytes of one head.
+#pragma unroll
+    for (int j = 0; j < kTokensPerWarp; ++j) {  // unrolled: acc stays in registers
+      if (j >= n_mine) continue;
+      const int t = t0 + tok0 + j;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int head = h0 + hh;
+        if (splits == 1) {
+          const float inv = 1.f / fmaxf(l[j][hh], 1e-30f);
+          __nv_bfloat16* o = out + ((size_t)t * H + kvh * G + head) * D + r0;
+#pragma unroll
+          for (int mt = 0; mt < D / 16; ++mt) {
+            o[mt * 16] = __float2bfloat16_rn(acc[j][mt][hh] * inv);
+            o[mt * 16 + 8] = __float2bfloat16_rn(acc[j][mt][2 + hh] * inv);
+          }
+        } else {
+          const size_t row = (((size_t)t * KV + kvh) * splits + split) * G + head;
+          if (r0 == 0) {
+            part_ml[row * 2] = m[j][hh];
+            part_ml[row * 2 + 1] = l[j][hh];
+          }
+          if (l[j][hh] > 0.f) {  // a split that saw no key leaves its acc unwritten
+            float* pa = part_acc + row * D + r0;
+#pragma unroll
+            for (int mt = 0; mt < D / 16; ++mt) {
+              pa[mt * 16] = acc[j][mt][hh];
+              pa[mt * 16 + 8] = acc[j][mt][2 + hh];
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // several warps share a token pair: merge their (m, l, acc) through
+  // shared memory (the ring is drained)
+  __syncthreads();
+  float* s_acc = reinterpret_cast<float*>(smem);  // [warp][tok][head][D]
+#pragma unroll
+  for (int j = 0; j < kTokensPerWarp; ++j) {
+    if (j >= n_mine) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int e = (warp * kTokensPerWarp + j) * 8 + h0 + hh;
+      if (r0 == 0) {
+        s_m[e] = m[j][hh];
+        s_l[e] = l[j][hh];
+      }
+#pragma unroll
+      for (int mt = 0; mt < D / 16; ++mt) {
+        s_acc[(size_t)e * D + mt * 16 + r0] = acc[j][mt][hh];
+        s_acc[(size_t)e * D + mt * 16 + r0 + 8] = acc[j][mt][2 + hh];
+      }
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int hh = i / D;
+  for (int i = threadIdx.x; i < n_tok * G * D; i += kThreads) {
+    const int tok = i / (G * D), hh = (i / D) % G, dd = i % D;
+    const int pr = tok / kTokensPerWarp, j = tok % kTokensPerWarp;
     float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w * GP + hh]);
+    for (int w = pr * ks_n; w < (pr + 1) * ks_n; ++w)
+      mx = fmaxf(mx, s_m[(w * kTokensPerWarp + j) * 8 + hh]);
     float sum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = __expf(s_m[w * GP + hh] - mx);
-      sum += s_l[w * GP + hh] * c;
-      a += s_acc[w * GP * D + i] * c;
+    for (int w = pr * ks_n; w < (pr + 1) * ks_n; ++w) {
+      const int e = (w * kTokensPerWarp + j) * 8 + hh;
+      const float cw = __expf(s_m[e] - mx);
+      sum += s_l[e] * cw;
+      a += s_acc[(size_t)e * D + dd] * cw;
     }
+    const int t = t0 + tok;
     if (splits == 1) {
-      out[((size_t)t * H + kvh * G) * D + i] = from_f32<QT>(a / fmaxf(sum, 1e-30f));
+      out[((size_t)t * H + kvh * G + hh) * D + dd] = __float2bfloat16_rn(a / fmaxf(sum, 1e-30f));
     } else {
-      const size_t cta = ((size_t)t * KV + kvh) * splits + split;
-      part_acc[cta * G * D + i] = a;
-      if (i % D == 0) {
-        part_ml[(cta * G + hh) * 2] = mx;
-        part_ml[(cta * G + hh) * 2 + 1] = sum;
+      const size_t row = (((size_t)t * KV + kvh) * splits + split) * G + hh;
+      if (sum > 0.f) part_acc[row * D + dd] = a;
+      if (dd == 0) {
+        part_ml[row * 2] = mx;
+        part_ml[row * 2 + 1] = sum;
       }
     }
   }
 }
 
-// Merge the splits' partials of one (token, KV head, query head) into the
-// output: one thread per output dim.
-template <int D, typename QT>
-__global__ void __launch_bounds__(D) paged_attention_combine(
+// Merge the splits' partials of one (token, KV head) into the output: one
+// thread per (head, dim), the splits' (m, l) staged in shared memory first.
+// A split with l = 0 saw no admissible key and wrote no acc, so it is
+// skipped (a token whose every split is empty gets an exact zero row).
+template <int D, int G>
+__global__ void __launch_bounds__(G * D) paged_attention_combine(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    QT* __restrict__ out, int G, int KV, int splits) {
-  const int t = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int hh = blockIdx.z;
-  const int d = threadIdx.x;
-  const size_t cta0 = ((size_t)t * KV + kvh) * splits;
+    __nv_bfloat16* __restrict__ out, int KV, int splits) {
+  extern __shared__ float s_ml[];  // [split][head][m, l]
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the partials are complete
+  const int t = blockIdx.x, kvh = blockIdx.y;
+  const size_t row0 = ((size_t)t * KV + kvh) * splits * G;  // (split, head) rows
+  for (int i = threadIdx.x; i < 2 * splits * G; i += blockDim.x) s_ml[i] = part_ml[row0 * 2 + i];
+  __syncthreads();
+  const int hh = threadIdx.x / D, d = threadIdx.x % D;
   float mx = kNegInf;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_ml[((cta0 + s) * G + hh) * 2]);
+  for (int s = 0; s < splits; ++s) {
+    if (s_ml[(s * G + hh) * 2 + 1] > 0.f) mx = fmaxf(mx, s_ml[(s * G + hh) * 2]);
+  }
   float sum = 0.f, a = 0.f;
   for (int s = 0; s < splits; ++s) {
-    const float c = __expf(part_ml[((cta0 + s) * G + hh) * 2] - mx);
-    sum += part_ml[((cta0 + s) * G + hh) * 2 + 1] * c;
-    a += part_acc[((cta0 + s) * G + hh) * D + d] * c;
+    const float l = s_ml[(s * G + hh) * 2 + 1];
+    if (l > 0.f) {
+      const float c = __expf(s_ml[(s * G + hh) * 2] - mx);
+      sum += l * c;
+      a += part_acc[(row0 + (size_t)s * G + hh) * D + d] * c;
+    }
   }
-  out[(((size_t)t * KV + kvh) * G + hh) * D + d] = from_f32<QT>(a / fmaxf(sum, 1e-30f));
+  out[((size_t)t * KV + kvh) * G * D + threadIdx.x] = __float2bfloat16_rn(a / fmaxf(sum, 1e-30f));
 }
 
 struct Args {
-  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *tables, *q_pos, *q_slots;
+  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *tables, *q_pos, *plan;
   void *out, *part_acc, *part_ml;
-  int T, G, KV, num_pages, page_size, num_slots, num_blocks, splits, blocks_per_split, window;
+  int T, tiles, G, KV, num_pages, page_size, num_slots, num_blocks, splits, blocks_per_split,
+      window;
   float softcap, sm_scale;
   cudaStream_t stream;
 };
 
-template <int D, int GP, typename QT, typename KVT, bool QUANT>
+template <int D, int G, typename KVT, bool QUANT>
 cudaError_t launch(const Args& a) {
-  const size_t smem = (size_t)(kWarps * GP * D + 2 * kWarps * GP) * sizeof(float);
-  dim3 grid(a.T, a.KV, a.splits);
-  paged_attention_kernel<D, GP, QT, KVT, QUANT><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const QT*>(a.q), static_cast<const KVT*>(a.k_pool),
+  auto kernel = paged_attention_tc<D, G, KVT, QUANT>;
+  const int smem = Smem<D, KVT, QUANT>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(a.tiles, a.KV, a.splits), kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k_pool),
       static_cast<const KVT*>(a.v_pool), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.tables),
-      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.q_slots),
-      static_cast<QT*>(a.out), static_cast<float*>(a.part_acc),
-      static_cast<float*>(a.part_ml), a.G, a.KV, a.num_pages, a.page_size, a.num_slots,
+      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.plan),
+      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.part_acc),
+      static_cast<float*>(a.part_ml), a.KV, a.num_pages, a.page_size, a.num_slots,
       a.num_blocks, a.blocks_per_split, a.window, a.softcap, a.sm_scale);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return e;
-  paged_attention_combine<D, QT><<<dim3(a.T, a.KV, a.G), D, 0, a.stream>>>(
-      static_cast<const float*>(a.part_acc), static_cast<const float*>(a.part_ml),
-      static_cast<QT*>(a.out), a.G, a.KV, a.splits);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.T, a.KV);
+  cfg.blockDim = dim3(G * D);
+  cfg.dynamicSmemBytes = 2 * a.splits * G * sizeof(float);
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, paged_attention_combine<D, G>,
+                            static_cast<const float*>(a.part_acc),
+                            static_cast<const float*>(a.part_ml),
+                            static_cast<__nv_bfloat16*>(a.out), a.KV, a.splits);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Returns 0 on success, a CUDA
 // error code when a launch is refused, or -1 for a shape the kernel does not
-// take (the wrapper checks shapes first).  `part_acc` (T, KV, splits, g, D)
-// and `part_ml` (T, KV, splits, g, 2) f32 scratch are used only when
-// splits > 1.  The launches are asynchronous on `stream`; nothing is
-// allocated here.
+// take (the wrapper checks shapes first).  `plan` is (tiles, 5) int32 and
+// must cover every token once (the wrapper's `paged_tile_plan`);
+// `part_acc` (T, KV, splits, g, D) and `part_ml` (T, KV, splits, g, 2) f32
+// scratch are used only when splits > 1.  The launches are asynchronous on
+// `stream`; nothing is allocated here.
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* tables, const void* q_pos,
-    const void* q_slots, void* out, void* part_acc, void* part_ml, int T, int H,
-    int KV, int D, int num_pages, int page_size, int num_slots, int num_blocks,
-    int splits, int blocks_per_split, int window, float softcap, float sm_scale,
-    int q_is_bf16, int kv_is_int8, void* stream) {
+    const void* v_scale, const void* tables, const void* q_pos, const void* plan, void* out,
+    void* part_acc, void* part_ml, int T, int tiles, int H, int KV, int D, int num_pages,
+    int page_size, int num_slots, int num_blocks, int splits, int blocks_per_split, int window,
+    float softcap, float sm_scale, int q_is_bf16, int kv_is_int8, void* stream) {
   if (T == 0) return 0;
   if (KV <= 0 || H % KV != 0 || page_size <= 0 || num_slots <= 0 || num_blocks <= 0 ||
-      splits <= 0 || blocks_per_split <= 0 || (splits > 1 && (!part_acc || !part_ml))) {
+      tiles <= 0 || splits <= 0 || blocks_per_split <= 0 ||
+      (splits > 1 && (!part_acc || !part_ml))) {
     return -1;
   }
   const int G = H / KV;
   // Only the shapes the port serves are instantiated: qwen2.5-3b (D 128,
   // g 8) with bf16 queries over bf16 or int8 pools.  A config with another
-  // head dim or group adds its launch<D, GP, ...> here (GP: g rounded up to
-  // a power of two, D * GP <= 2048 so a lane's query, accumulator and row
-  // slices stay in registers) and its (D, g) to SERVED in flash_attention.py.
+  // head dim adds its launch<D, 8, ...> here and its (D, g) to SERVED in
+  // flash_attention.py; another group needs the mma's N = g (8) reworked.
   if (D != 128 || G != 8 || !q_is_bf16) return -1;
-  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, q_pos, q_slots, out,
-               part_acc, part_ml, T, G, KV, num_pages, page_size, num_slots, num_blocks,
-               splits, blocks_per_split, window, softcap, sm_scale,
-               static_cast<cudaStream_t>(stream)};
-  const cudaError_t e = kv_is_int8 ? launch<128, 8, __nv_bfloat16, int8_t, true>(a)
-                                   : launch<128, 8, __nv_bfloat16, __nv_bfloat16, false>(a);
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, q_pos, plan, out, part_acc,
+               part_ml, T, tiles, G, KV, num_pages, page_size, num_slots, num_blocks, splits,
+               blocks_per_split, window, softcap, sm_scale, static_cast<cudaStream_t>(stream)};
+  const cudaError_t e = kv_is_int8 ? launch<128, 8, int8_t, true>(a)
+                                   : launch<128, 8, __nv_bfloat16, false>(a);
   return static_cast<int>(e);
 }

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
+from ..kernels.flash_attention import tile_plan_tensor
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -233,14 +234,14 @@ def _paged_write(cache, page, off, k_rows, v_rows):
     return cache
 
 
-def _paged_attend(q_tok, cache, page_tables, q_pos, q_slots, window, softcap):
+def _paged_attend(q_tok, cache, page_tables, index, window, softcap):
     """Fused paged attention over flattened query tokens (T, H, D): the
     one entry point of the packed, chunked and verify paged branches.
     ``kernels.ops`` picks the CUDA kernel or the plain path by device."""
     return kernel_ops.paged_flash_attention(
-        q_tok, cache["k"], cache["v"], page_tables, q_pos, q_slots,
+        q_tok, cache["k"], cache["v"], page_tables, index.q_pos, index.q_slots,
         window=window, softcap=softcap,
-        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"), plan=index.plan,
     )
 
 
@@ -258,7 +259,9 @@ class StepIndex:
     rows JAX's ``mode="drop"`` scatters discard are filtered out here
     (torch indexing would raise or corrupt memory instead), with one host
     sync per step and kind.  ``q_pos``/``q_slots`` (int32) address the
-    paged kernel's queries; ``gather``/``mask`` are the dense layout's
+    paged kernel's queries and ``plan`` is its tile plan
+    (``kernels.flash_attention.tile_plan_tensor``: one more host round
+    trip per step and kind); ``gather``/``mask`` are the dense layout's
     per-query slot rows and attention mask."""
 
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -266,6 +269,7 @@ class StepIndex:
     write_at: Tuple[torch.Tensor, torch.Tensor]
     q_pos: Optional[torch.Tensor] = None
     q_slots: Optional[torch.Tensor] = None
+    plan: Optional[torch.Tensor] = None
     gather: Optional[torch.Tensor] = None
     mask: Optional[torch.Tensor] = None
 
@@ -323,9 +327,11 @@ def step_index(
         page, off = paged_index(page_tables, rows, wp, page_size, num_pages)
         page, off = page.reshape(-1), off.reshape(-1)
         keep = ((page >= 0) & (page < num_pages)).nonzero()[:, 0]  # one sync
-        q_slots = slots if slot_ids is not None else torch.where(active, rows, -1)
-        return StepIndex(rope, keep, (page[keep], off[keep]),
-                         q_pos=qpos.reshape(-1).int(), q_slots=q_slots.reshape(-1).int())
+        q_slots = (slots if slot_ids is not None else torch.where(active, rows, -1)).reshape(-1)
+        qpos = qpos.reshape(-1)
+        plan = tile_plan_tensor(qpos, q_slots, page_size, page_tables.shape[-1], window)
+        return StepIndex(rope, keep, (page[keep], off[keep]), q_pos=qpos.int(),
+                         q_slots=q_slots.int(), plan=plan)
 
     rows, wp = rows.reshape(-1), wp.reshape(-1)
     keep = (wp < buf_len).nonzero()[:, 0]  # one sync
@@ -387,8 +393,8 @@ def apply_attention(
     v_rows = v.reshape(-1, *v.shape[-2:])[index.write_rows]
     if page_tables is not None:
         _paged_write(cache, *index.write_at, k_rows, v_rows)
-        out = _paged_attend(q.reshape(-1, *q.shape[-2:]), cache, page_tables, index.q_pos,
-                            index.q_slots, window, cfg.logit_softcap).reshape(q.shape)
+        out = _paged_attend(q.reshape(-1, *q.shape[-2:]), cache, page_tables, index, window,
+                            cfg.logit_softcap).reshape(q.shape)
     else:
         cache["k"][index.write_at] = k_rows.to(cache["k"].dtype)
         cache["v"][index.write_at] = v_rows.to(cache["v"].dtype)

@@ -12,7 +12,10 @@ and ``layers.sdpa_flash``; the RMSNorm backward against ``jax.grad`` of
 (:357-380); the SSD intra-chunk (K6) and segment-masked (K5) terms against
 the interpret-mode Pallas kernels and the reference's oracles
 (``tests/test_ssd_kernel.py``).  Inputs are made with numpy from a seed
-and fed to both packages.
+and fed to both packages.  Beside them, the schedules the CUDA kernels
+read: K3's ``tile_plan``, K4's ``paged_tile_plan`` (with a numpy walk of
+the paged kernel's schedule held to the plain version) and K2 backward's
+row and column partition.
 """
 import numpy as np
 import pytest
@@ -35,10 +38,13 @@ from test_torch_parity_util import (  # noqa: E402
     TOL,
     assert_close,
     bf16_ulps,
+    dscale_without_rows,
+    np32,
     packed_scenario,
     quantize_pool,
     row_rel_err,
     skip_diagonal_tile_mask,
+    skip_last_page,
     ssd_chunk_inputs,
     ssd_segment_inputs,
     ssd_skip_diagonal_tile_mask,
@@ -270,6 +276,255 @@ class TestDispatch:
         assert rmsnorm.block_shape(100)[1] == 128
 
 
+# ---------------------------------------------------------------------------
+# K4's tile plan and a numpy walk of it; K2 backward's partition
+# ---------------------------------------------------------------------------
+
+
+def jax_block_range(pos, slot, page_size, num_blocks, window):
+    """[lo, hi) of one query by ``_paged_attn_kernel``'s formula
+    (src/repro/kernels/flash_attention.py:184-188), in Python ints."""
+    hi = min(pos // page_size + 1, num_blocks) if slot >= 0 else 0
+    lo = max((pos - window + 1) // page_size, 0) if window > 0 else 0
+    return lo, hi
+
+
+def plan_scenario(name, page_size=4):
+    """Small steps in the shapes of chip_smoke.py's K4 cases (qwen's group of
+    8 heads over 2 KV heads, head dim 16): ``mixed`` has decode tokens,
+    prefill chunks longer than a tile and a verify-sized span; the others
+    change it as their names say."""
+    if name == "decode":
+        a = packed_scenario(page_size=page_size, kvh=2, h=16, d=16, seed=31,
+                            lens=(45, 12, 30, 7))
+        last = [int(np.flatnonzero(a["q_slots"] == s).max()) for s in range(3)]
+        keep = np.r_[last, 0]
+        a = dict(a, q=a["q"][keep], q_pos=a["q_pos"][keep], q_slots=a["q_slots"][keep])
+        a["q_slots"][-1] = -1  # a padding query
+        return a
+    a = packed_scenario(page_size=page_size, kvh=2, h=16, d=16, seed=37, lens=(41, 23, 37))
+    if name == "hostile_tables":
+        a["tables"][0, 0] = -3
+        a["tables"][2, 1] = a["k_pool"].shape[0] + 5
+    elif name == "padding":
+        a["q_slots"][::6] = -1
+    elif name == "fully_masked":
+        a["tables"][2, :] = -1
+    elif name == "interleaved":  # the slots' tokens shuffled together
+        order = np.random.default_rng(5).permutation(len(a["q_pos"]))
+        a = dict(a, q=a["q"][order], q_pos=a["q_pos"][order], q_slots=a["q_slots"][order])
+    return a
+
+
+PLAN_CASES = [("mixed", 0), ("mixed", 7), ("mixed", 100), ("decode", 0), ("decode", 9),
+              ("hostile_tables", 0), ("padding", 5), ("fully_masked", 0), ("interleaved", 0),
+              ("interleaved", 6)]
+
+
+def walk_plan(a, window=0, softcap=0.0, sms=132):
+    """A numpy walk of the paged kernel's schedule, f32: each (tile, KV
+    head, split) of ``paged_tile_plan`` / ``split_blocks`` walks its slice
+    in stages of 64 key positions and chunks of 16, the chunks dealt to the
+    warps of each token pair as ``paged_attention.cu`` deals them, each
+    warp with its own online softmax per (token, head); the warps merge,
+    then the splits (``paged_attention_combine``)."""
+    q = np32(a["q"])
+    kp_, vp_ = np32(a["k_pool"]), np32(a["v_pool"])
+    if "k_scale" in a:
+        kp_, vp_ = kp_ * a["k_scale"][..., None], vp_ * a["v_scale"][..., None]
+    tables, q_pos, q_slots = (np.asarray(a[k]) for k in ("tables", "q_pos", "q_slots"))
+    t, h, d = q.shape
+    num_pages, ps, kvh, _ = kp_.shape
+    g, nb = h // kvh, tables.shape[1]
+    plan = flash_attention.paged_tile_plan(q_pos, q_slots, ps, nb, window)
+    splits, per = flash_attention.split_blocks(len(plan) * kvh, nb, sms)
+    parts = np.zeros((t, kvh, splits, g, d + 2), np.float64)
+    for t0, n, slot, b_lo, b_hi in plan:
+        pairs = -(-n // 2)
+        ks_n = 1  # warps a token pair's chunks are dealt to (kWarps = TILE_TOKENS / 2)
+        while 2 * ks_n * pairs <= flash_attention.TILE_TOKENS // 2 and 2 * ks_n <= 4:
+            ks_n *= 2
+        for kv in range(kvh):
+            for sp in range(splits):
+                b0 = b_lo + sp * per
+                b1 = min(b_hi, nb, b0 + per)
+                if slot < 0 or b0 >= b1:
+                    b0 = b1 = 0
+                # per (warp, token): m, l (g,), acc (g, d)
+                st = {}
+                for p0 in range(b0 * ps, b1 * ps, 64):
+                    for c in range(4):
+                        keys = np.arange(p0 + 16 * c, p0 + 16 * c + 16)
+                        blk = np.minimum(keys // ps, nb - 1)
+                        page = tables[slot, blk]
+                        ok = (keys < b1 * ps) & (page >= 0) & (page < num_pages)
+                        rows = np.where(ok, page, 0), keys % ps
+                        kk, vv = kp_[rows[0], rows[1], kv], vp_[rows[0], rows[1], kv]
+                        for tok in range(n):
+                            w = (tok // 2) * ks_n + c % ks_n
+                            pos = q_pos[t0 + tok]
+                            s = q[t0 + tok, kv * g:(kv + 1) * g] @ kk.T / np.sqrt(d)
+                            if softcap > 0:
+                                s = softcap * np.tanh(s / softcap)
+                            inn = ok & (keys <= pos)
+                            if window > 0:
+                                inn &= keys > pos - window
+                            m, l, acc = st.get((w, tok), (np.full(g, -1e30), np.zeros(g),
+                                                          np.zeros((g, d))))
+                            m_new = np.maximum(m, np.where(inn, s, -1e30).max(axis=1))
+                            p = np.exp(np.where(inn, s - m_new[:, None], -np.inf))
+                            alpha = np.exp(m - m_new)
+                            st[w, tok] = (m_new, l * alpha + p.sum(1), acc * alpha[:, None] + p @ vv)
+                for tok in range(n):
+                    ws = [st[k] for k in st if k[1] == tok] or [
+                        (np.full(g, -1e30), np.zeros(g), np.zeros((g, d)))]
+                    mx = np.max([m for m, _, _ in ws], axis=0)
+                    cw = [np.exp(m - mx) for m, _, _ in ws]
+                    parts[t0 + tok, kv, sp, :, 0] = mx
+                    parts[t0 + tok, kv, sp, :, 1] = sum(l * c for (_, l, _), c in zip(ws, cw))
+                    parts[t0 + tok, kv, sp, :, 2:] = sum(x * c[:, None] for (_, _, x), c in zip(ws, cw))
+    mx = parts[..., 0].max(axis=2, keepdims=True)
+    cw = np.exp(parts[..., 0] - mx)
+    total = (parts[..., 1] * cw).sum(2)
+    acc = (parts[..., 2:] * cw[..., None]).sum(2)
+    return (acc / np.maximum(total, 1e-30)[..., None]).reshape(t, h, d).astype(np.float32), plan
+
+
+class TestPagedTilePlan:
+    @pytest.mark.parametrize("name,window", PLAN_CASES)
+    def test_tiles_partition_the_tokens(self, name, window):
+        """Every token (so every (token, head) row) lies in exactly one tile;
+        a tile is a run of at most TILE_TOKENS consecutive tokens of one
+        slot; its block range is the union of its tokens' [lo, hi) by the
+        JAX formula; the longest range comes first."""
+        a = plan_scenario(name)
+        ps, nb = a["k_pool"].shape[1], a["tables"].shape[1]
+        plan = flash_attention.paged_tile_plan(a["q_pos"], a["q_slots"], ps, nb, window)
+        assert plan.dtype == np.int32 and plan.shape[1] == flash_attention.PLAN_COLS
+        seen = np.zeros(len(a["q_pos"]), int)
+        for t0, n, slot, lo, hi in plan:
+            assert 1 <= n <= flash_attention.TILE_TOKENS
+            seen[t0:t0 + n] += 1
+            assert (a["q_slots"][t0:t0 + n] == slot).all()
+            blocks = set()
+            for tok in range(t0, t0 + n):
+                tlo, thi = jax_block_range(int(a["q_pos"][tok]), slot, ps, nb, window)
+                blocks |= set(range(tlo, thi))
+            assert set(range(lo, hi)) == blocks
+        assert (seen == 1).all()
+        lengths = plan[:, 4] - plan[:, 3]
+        assert (np.diff(lengths) <= 0).all()
+
+    def test_tables_do_not_change_the_plan(self):
+        """Bad entries are masked by the kernel, not planned around."""
+        a, b = plan_scenario("mixed"), plan_scenario("fully_masked")
+        args = (4, a["tables"].shape[1], 3)
+        np.testing.assert_array_equal(
+            flash_attention.paged_tile_plan(a["q_pos"], a["q_slots"], *args),
+            flash_attention.paged_tile_plan(b["q_pos"], b["q_slots"], *args))
+
+    def test_runs_are_cut_into_tiles(self):
+        assert flash_attention.TILE_TOKENS == 8
+        pos = np.r_[np.arange(100, 164), 300, np.arange(9), -1, -1]
+        slots = np.r_[[0] * 64, 1, [2] * 9, -1, -1]
+        plan = flash_attention.paged_tile_plan(pos, slots, 16, 34)
+        got = sorted(map(tuple, plan[:, :3].tolist()))
+        assert got == [(t, 8, 0) for t in range(0, 64, 8)] + [(64, 1, 1), (65, 8, 2),
+                                                              (73, 1, 2), (74, 2, -1)]
+        assert plan[plan[:, 2] < 0, 3:].tolist() == [[0, 0]]  # padding: an empty range
+        assert tuple(plan[0]) == (64, 1, 1, 0, 19)  # the longest range first
+
+    def test_tensor_plan_is_the_numpy_plan(self):
+        a = plan_scenario("padding")
+        got = flash_attention.tile_plan_tensor(torch.from_numpy(a["q_pos"]),
+                                               torch.from_numpy(a["q_slots"]), 4, 11, 5)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), flash_attention.paged_tile_plan(
+            a["q_pos"], a["q_slots"], 4, 11, 5))
+
+    @pytest.mark.parametrize("name,window", PLAN_CASES)
+    @pytest.mark.parametrize("int8", [False, True])
+    def test_walk_matches_plain_version(self, name, window, int8):
+        """The plan's walk (tiles, splits, 64-key stages, 16-key chunks dealt
+        to warps, online softmax, the warps' and the splits' merges) gives
+        ``ref.paged_attention_ref``'s output; padding and fully masked
+        queries exact zeros."""
+        a = plan_scenario(name)
+        if int8:
+            a["k_pool"], a["k_scale"] = quantize_pool(a["k_pool"])
+            a["v_pool"], a["v_scale"] = quantize_pool(a["v_pool"])
+        softcap = 5.0 if window == 7 else 0.0
+        got, plan = walk_plan(a, window=window, softcap=softcap)
+        ta = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
+        want = ref.paged_attention_ref(**ta, window=window, softcap=softcap).numpy()
+        assert_close(got, want, "kernel_f32")
+        zero = a["q_slots"] < 0
+        if name == "fully_masked":
+            zero |= a["q_slots"] == 2
+        np.testing.assert_array_equal(got[zero], 0.0)
+        if name == "decode":
+            splits, _ = flash_attention.split_blocks(len(plan) * 2, a["tables"].shape[1], 132)
+            assert splits > 1  # the split merge is exercised
+
+    def test_planted_skip_of_a_tiles_last_page_is_caught(self):
+        """``skip_last_page`` (the card checks' planted fault) moves a tile's
+        output past ``K4_TOL``."""
+        a = plan_scenario("mixed")
+        ta = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
+        want = ref.paged_attention_ref(**ta)
+        plan = flash_attention.paged_tile_plan(a["q_pos"], a["q_slots"], 4, a["tables"].shape[1])
+        bad = {k: torch.from_numpy(np.asarray(v)) for k, v in skip_last_page(a, plan[0]).items()}
+        got = ref.paged_attention_ref(**bad)
+        assert not torch.allclose(got, want, atol=2e-2, rtol=2e-2)
+        t0, n = plan[0, :2]
+        others = np.ones(len(a["q_pos"]), bool)
+        others[t0:t0 + n] = False
+        assert torch.equal(got[others], want[others])
+
+
+class TestRmsnormBackwardPartition:
+    @pytest.mark.parametrize("rows,d,itemsize", [
+        (2048, 2048, 2),  # the training shape: 128 CTAs of 16 rows, one batch each
+        (8, 2048, 2), (257, 2048, 4), (3, 100, 2), (100000, 2048, 4), (131, 4096, 4),
+        (1, 8, 2)])
+    def test_every_row_and_column_once(self, rows, d, itemsize):
+        ctas, per, batch, col_ctas = rmsnorm.bwd_partition(rows, d, itemsize, 132)
+        assert ctas <= 132
+        seen = np.zeros(rows, int)
+        for c in range(ctas):
+            r = np.arange(c * per, min((c + 1) * per, rows))
+            assert len(r) > 0  # no empty CTA
+            seen[r] += 1
+        assert (seen == 1).all()
+        cols = np.zeros(d, int)
+        for c in range(col_ctas):
+            cols[c * rmsnorm.BWD_COL_CTA:(c + 1) * rmsnorm.BWD_COL_CTA] += 1
+        assert (cols == 1).all()
+        assert 1 <= batch <= per
+        head = (2 * d + batch) * 4
+        assert head + (-head) % 16 + 2 * batch * d * itemsize <= rmsnorm.BWD_SMEM
+        if (rows, d) == (2048, 2048):
+            assert (ctas, per, batch, col_ctas) == (128, 16, 16, 64)
+
+    def test_too_wide_a_row_is_refused(self):
+        with pytest.raises(ValueError, match="shared memory"):
+            rmsnorm.bwd_partition(4, 1 << 16, 4, 132)
+
+    def test_planted_dscale_fault_fails_the_f32_check(self):
+        """One CTA's rows left out of dscale (``dscale_without_rows``, the
+        card checks' planted fault) at the training row count: far outside
+        the f32 tolerance the card holds dscale to (1e-5)."""
+        rng = np.random.default_rng(0)
+        x, dy = (torch.from_numpy(rng.normal(size=(2048, 256)).astype(np.float32))
+                 for _ in range(2))
+        s = torch.from_numpy((1 + 0.1 * rng.normal(size=256)).astype(np.float32))
+        _, per, _, _ = rmsnorm.bwd_partition(2048, 256, 4, 132)
+        want = ref.rmsnorm_bwd_ref(x, s, dy)[1]
+        bad = dscale_without_rows(x, s, dy, slice(0, per))
+        e = float((bad - want).abs().max() / want.abs().max())
+        assert e > 100 * 1e-5
+
+
 def test_tolerance_table_is_shared():
     """One table for every port test file (later slices extend it)."""
     assert {"kernel_f32", "norm_f32", "model_f32", "kernel_bf16_gpu"} <= set(TOL)
@@ -293,6 +548,10 @@ def test_ctypes_signature_matches_the_cuda_source():
     parameters, pointer for pointer (a miscount only shows on the card)."""
     assert _c_argtypes(flash_attention.SOURCE, "repro_paged_attention") == \
         flash_attention._ARGTYPES
+
+
+def test_rmsnorm_bwd_ctypes_signature_matches_the_cuda_source():
+    assert _c_argtypes(rmsnorm.BWD_SOURCE, "repro_rmsnorm_bwd") == rmsnorm._BWD_ARGTYPES
 
 
 def test_ssd_ctypes_signature_matches_the_cuda_source(monkeypatch):

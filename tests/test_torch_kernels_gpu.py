@@ -20,11 +20,13 @@ from test_torch_parity_util import (  # noqa: E402
     SSD_ROW_TOL,
     TOL,
     bf16_ulps,
+    dscale_without_rows,
     np32,
     packed_scenario,
     quantize_pool,
     row_rel_err,
     skip_diagonal_tile_mask,
+    skip_last_page,
     ssd_chunk_inputs,
     ssd_segment_inputs,
     ssd_skip_diagonal_tile_mask,
@@ -94,6 +96,34 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         np.testing.assert_allclose(np32(out), np32(want), **TOL["kernel_bf16_gpu"])
         assert (out[0] == 0).all()
+
+    @pytest.mark.parametrize("int8", [False, True])
+    def test_paged_attention_tiles_and_planted_fault(self, cuda, int8):
+        """Prefill chunks longer than a tile (16 tokens) beside decode tokens:
+        the step's plan passed in gives the wrapper's own result, bit for
+        bit, within tolerance of the plain version; a kernel that skipped a
+        tile's last page (``skip_last_page``, by the plain version) would
+        fall outside it."""
+        a = packed_scenario(page_size=16, kvh=2, h=16, d=128, seed=9, lens=(300, 70, 53))
+        plan = flash_attention.paged_tile_plan(a["q_pos"], a["q_slots"], 16, a["tables"].shape[1])
+        assert plan[:, 1].max() == flash_attention.TILE_TOKENS
+        ta = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
+        for k in ("q", "k_pool", "v_pool"):
+            ta[k] = ta[k].to(torch.bfloat16)
+        if int8:
+            for k in ("k", "v"):
+                codes, scale = quantize_pool(np32(ta[f"{k}_pool"]))
+                ta[f"{k}_pool"] = torch.from_numpy(codes).to(cuda)
+                ta[f"{k}_scale"] = torch.from_numpy(scale).to(cuda)
+        out = flash_attention.paged_flash_attention(**ta)
+        again = flash_attention.paged_flash_attention(
+            **ta, plan=torch.from_numpy(plan).to(cuda))
+        want = ref.paged_attention_ref(**ta)
+        bad = ref.paged_attention_ref(**skip_last_page(ta, plan[0]))
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        np.testing.assert_allclose(np32(out), np32(want), **TOL["kernel_bf16_gpu"])
+        assert not np.allclose(np32(bad), np32(want), **TOL["kernel_bf16_gpu"])
 
     @pytest.mark.parametrize("h,d,dtype", [(14, 64, torch.bfloat16), (16, 128, torch.float32)])
     def test_paged_attention_refuses_unserved_shapes(self, cuda, h, d, dtype):
@@ -217,12 +247,34 @@ class TestKernelsOnCard:
         s = torch.from_numpy((1 + 0.1 * rng.normal(size=2048)).astype(np.float32))
         s = s.to(cuda, dtype)
         dx, ds = rmsnorm.rmsnorm_bwd(x, s, dy, model=model)
+        dx2, ds2 = rmsnorm.rmsnorm_bwd(x, s, dy, model=model)
         want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy, model=model)
         torch.cuda.synchronize()
         assert dx.dtype == x.dtype and ds.dtype == s.dtype
+        assert torch.equal(dx, dx2) and torch.equal(ds, ds2)  # no atomics: bit-identical
         tol = REL_TOL if dtype == torch.bfloat16 else 1e-5
         assert rel_err(dx, want_dx) <= tol
         assert rel_err(ds, want_ds) <= tol
+        if dtype == torch.float32:  # one CTA's rows left out of dscale must fail the check
+            _, per, _, _ = rmsnorm.bwd_partition(rows, 2048, 4, rmsnorm._sm_count(0))
+            assert rel_err(dscale_without_rows(x, s, dy, slice(0, per), model=model),
+                           want_ds) > tol
+
+    @pytest.mark.parametrize("d,dtype", [(100, torch.bfloat16), (2050, torch.float16),
+                                         (4100, torch.float32)])
+    def test_rmsnorm_bwd_unaligned_width(self, cuda, d, dtype):
+        """Rows that are not a multiple of 16 bytes take the kernel's
+        element-wise staging path; f32 scale beside 16-bit rows."""
+        rng = np.random.default_rng(d)
+        x, dy = (torch.from_numpy(rng.normal(size=(300, d)).astype(np.float32)).to(cuda, dtype)
+                 for _ in range(2))
+        s = torch.from_numpy((1 + 0.1 * rng.normal(size=d)).astype(np.float32)).to(cuda)
+        for model in (False, True):
+            dx, ds = rmsnorm.rmsnorm_bwd(x, s, dy, model=model)
+            want_dx, want_ds = ref.rmsnorm_bwd_ref(x, s, dy, model=model)
+            tol = REL_TOL if dtype != torch.float32 else 1e-5
+            assert dx.dtype == dtype and ds.dtype == torch.float32
+            assert rel_err(dx, want_dx) <= tol and rel_err(ds, want_ds) <= tol
 
     @pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("n", [4096, 65536 + 3])

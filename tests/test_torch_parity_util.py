@@ -33,6 +33,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import ref  # noqa: E402
+
 TOL = {
     "kernel_f32": dict(atol=1e-5, rtol=0.0),
     "norm_f32": dict(atol=1e-6, rtol=0.0),
@@ -178,6 +180,32 @@ def packed_scenario(page_size=16, kvh=2, h=4, d=16, seed=0, lens=(20, 9, 16)):
         v_pool=rng.normal(size=(num_pages, page_size, kvh, d)).astype(np.float32),
         tables=tables, q_pos=q_pos, q_slots=q_slots,
     )
+
+
+def skip_last_page(a, plan_row):
+    """A planted K4 fault: inputs (numpy arrays or tensors) on which the
+    plain version returns what a kernel that skips the last page of tile
+    ``plan_row`` (first token, tokens, slot, block lo, block hi) would
+    return.  The tile's tokens move to a new slot whose table is their
+    slot's with that block's entry made hostile (masked); every other
+    token sees its slot unchanged."""
+    t0, n, slot, _, hi = (int(x) for x in plan_row)
+    tables, slots = a["tables"], a["q_slots"]
+    if isinstance(tables, torch.Tensor):
+        tables, slots = torch.cat([tables, tables[slot:slot + 1]]), slots.clone()
+    else:
+        tables, slots = np.concatenate([tables, tables[slot:slot + 1]]), slots.copy()
+    tables[-1, hi - 1] = -1
+    slots[t0:t0 + n] = len(tables) - 1
+    return dict(a, tables=tables, q_slots=slots)
+
+
+def dscale_without_rows(x, s, dy, rows, eps=1e-6, model=False):
+    """A planted K2-backward fault: dscale with ``rows`` (a slice, e.g. one
+    CTA's) left out of the column sums, by the plain version."""
+    keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    keep[rows] = False
+    return ref.rmsnorm_bwd_ref(x[keep], s, dy[keep], eps, model)[1]
 
 
 def quantize_pool(pool):
