@@ -18,15 +18,16 @@ kernels' device intervals over the unprofiled wall time.  Prints one JSON
 line per run and nothing else is claimed: profiling slows the host, never
 the kernels.
 
-    python3 chip_profile.py --only kernels --tag change
+    python3 chip_profile.py --only kernels mamba --tag change
 
-times the kernels ``chip_smoke.py`` times, at its main-path shapes
-(``k4_timing``, ``k2_timing``, ``k2_bwd_checks_and_timing``), and prints one
-JSON line; ``--only qwen`` (qwen2.5-3b's serving runs) and ``--only
-train`` run one part of the profile.  A copy of this script placed at the root of another checkout (a
-``git archive`` of a parent commit) imports that checkout's
-``chip_smoke.py`` and kernels, so one call can time two trees in turns;
-``--tag`` labels each line.
+runs the named parts alone: ``kernels`` times the kernels ``chip_smoke.py``
+times, at its main-path shapes (``k4_timing``, ``k2_timing``,
+``k2_bwd_checks_and_timing``, and K6 / K5 at the mamba serving shapes) and
+prints one JSON line; ``qwen`` and ``mamba`` profile one model's serving
+runs, ``train`` the training step.  A copy of this script placed at the
+root of another checkout (a ``git archive`` of a parent commit) imports
+that checkout's ``chip_smoke.py`` and kernels, so one call can time two
+trees in turns; ``--tag`` labels each line.
 """
 from __future__ import annotations
 
@@ -176,25 +177,48 @@ def serve_profiles(cfg, params, prompts, make) -> None:
 
 
 TAG = ""
+PARTS = ("kernels", "qwen", "mamba", "train")
+
+
+#: K6's (chunks, rows) at the mamba serving run's decode and 64-token steps
+#: and at a full 256-row chunk
+SSD_CHUNK_SHAPES = {"decode": (8, 16), "serve": (8, 64), "chunk256": (8, 256)}
+
+
+def ssd_times(rng) -> dict:
+    """K6 and K5 alone (us, graph replay, L2 flushed) at the mamba serving
+    shapes, through calls that every checkout's ``chip_smoke.py`` has since
+    the SSD kernels were ported, so a parent tree is timed the same way."""
+    out = {}
+    for name, (bs, l) in SSD_CHUNK_SHAPES.items():
+        a = cs.ssd_chunk_scenario(rng, bs, 1, l)
+        out[f"k6_{name}"] = cs.time_ms(lambda: cs.ssd_chunk.ssd_chunk(*a)) * 1e3
+    for name, seg in (("mixed", cs.K5_MIXED), ("decode", cs.K5_DECODE)):
+        a = cs.ssd_segment_scenario(rng, seg)
+        out[f"k5_{name}"] = cs.time_ms(lambda: cs.ssd_chunk.ssd_segment(*a)) * 1e3
+    return out
 
 
 def kernel_times(seed: int) -> dict:
     """``chip_smoke.py``'s K4, K2 and K2-backward timings (the checks inside
     them included) at its main-path shapes, from a stream seeded as its
-    run's."""
+    run's, then K6 and K5 (``ssd_times``)."""
     rng = np.random.default_rng(seed)
     lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
     k4 = cs.k4_timing(rng, lens)
     k2 = cs.k2_timing(rng)
     _, k2b = cs.k2_bwd_checks_and_timing(rng)
-    return {"tag": TAG, "run": "kernels", "k4": k4, "k2": k2, "k2_bwd": k2b}
+    return {"tag": TAG, "run": "kernels", "k4": k4, "k2": k2, "k2_bwd": k2b,
+            "ssd_us": ssd_times(rng)}
 
 
 def main() -> int:
     global TAG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("qwen", "train", "kernels"), default=None)
+    ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS[1:],
+                    help="parts to run, always in the order kernels, qwen, mamba, train "
+                         "(default: all but kernels)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -204,32 +228,26 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    if args.only == "kernels":
-        print(json.dumps(kernel_times(args.seed)), flush=True)
-        return 0
-    if args.only == "train":
-        print(json.dumps(train_profile(get_config("qwen2_5_3b"), args.seed)), flush=True)
-        return 0
-
-    rng = np.random.default_rng(args.seed)
     cfg = get_config("qwen2_5_3b")
-    lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
-    params = compute_params(init_params(cfg, seed=args.seed, device="cuda"), cfg)
-    serve_profiles(cfg, params, prompts, cs.engine)
-    del params
-    cs.free_device()
-    if args.only == "qwen":
-        return 0
-
-    mcfg = get_config("mamba2_130m")
-    _, mprompts = cs.mamba_requests(mcfg, args.seed)
-    params = compute_params(init_params(mcfg, seed=args.seed, device="cuda"), mcfg)
-    serve_profiles(mcfg, params, mprompts,
-                   lambda c, p, pr, packed: cs.mamba_engine(c, p, pr, "paged", packed))
-    del params
-    cs.free_device()
-    print(json.dumps(train_profile(cfg, args.seed)), flush=True)
+    for part in [p for p in PARTS if p in args.only]:
+        if part == "kernels":
+            print(json.dumps(kernel_times(args.seed)), flush=True)
+        elif part == "qwen":
+            rng = np.random.default_rng(args.seed)
+            lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
+            prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+            params = compute_params(init_params(cfg, seed=args.seed, device="cuda"), cfg)
+            serve_profiles(cfg, params, prompts, cs.engine)
+        elif part == "mamba":
+            mcfg = get_config("mamba2_130m")
+            _, mprompts = cs.mamba_requests(mcfg, args.seed)
+            params = compute_params(init_params(mcfg, seed=args.seed, device="cuda"), mcfg)
+            serve_profiles(mcfg, params, mprompts,
+                           lambda c, p, pr, packed: cs.mamba_engine(c, p, pr, "paged", packed))
+        else:
+            print(json.dumps(train_profile(cfg, args.seed)), flush=True)
+        params = None
+        cs.free_device()
     return 0
 
 

@@ -11,7 +11,8 @@ without printing a result:
 2. build — the four CUDA sources, ``paged_attention.cu``,
    ``flash_attention.cu``, ``ssd_chunk.cu`` and ``rmsnorm_bwd.cu``
    (``nvcc``, sm_90a, the builds started together; ptxas's registers and
-   spills of the K3, K4 and K2-backward kernels printed), and the Triton
+   spills of the K3, K4 and K2-backward kernels printed, and of each SSD
+   kernel instance with its shared memory and CTAs an SM), and the Triton
    kernels' JIT, with their build seconds;
 3. kernels — each kernel against its plain PyTorch version on the card at
    qwen2.5-3b widths, timed by CUDA-graph replay with L2 flushed, beside
@@ -38,11 +39,15 @@ without printing a result:
      gradients), keep 0 and 1;
    * the SSD terms at mamba2-130m's widths (24 heads of 64, state 128,
      f32), row by row: K6 (intra-chunk) over 8 rows of one and of two
-     256-token chunks and at the serving run's 64-row steps, K5
-     (segment-masked) at the packed mixed capacity (257: decodes, prefill
-     chunks, padding) and the packed decode capacity (8); each check also
-     against a planted fault it must reject (K6's diagonal key tile
-     skipped; K5's segment mask dropped);
+     256-token chunks, at the serving run's 64-row and 16-row (decode)
+     steps and at 17 rows, K5 (segment-masked) at the packed mixed capacity
+     (257: decodes, prefill chunks, padding), the packed decode capacity
+     (8), a padding-heavy step and one segment over 13 key tiles; each
+     check also against a planted fault it must reject (K6's diagonal
+     16-key tile skipped; K5's segment mask dropped), beside the row error
+     of the plain version with its operands rounded to TF32 (what one TF32
+     pass would give); two runs bit-identical; times at the serving
+     shapes beside the f32-FMA bound and the tensor-core bound;
 4. serving — qwen2.5-3b at full width (36 layers, random weights from
    ``--seed``) through ``ContinuousBatcher(cache="paged", chunk_size=64,
    token_budget=256)``, unpacked then packed, 8 requests of 128-512 prompt
@@ -61,7 +66,7 @@ without printing a result:
    dense and first packed step on the card (kernels, bf16) must give logits
    within a stated limit of the CPU's (plain versions, f32), and a planted
    K6 or K5 fault must fall outside it; last, the dense decode step's
-   device time with the port's 64-row chunk against the reference's
+   device time with the port's 16-row chunk against the reference's
    256-row padding, and the packed-vs-unpacked agreement in f32;
 6. training — qwen2.5-3b at 36 layers through ``repro_torch.train.train``:
    f32 master weights, bf16 compute, remat, synthetic packed sequences of
@@ -77,7 +82,8 @@ without printing a result:
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K6 and K5's record rows are read at the
-mamba serving run's shapes: 8 rows of one 64-row chunk, and the packed
+mamba serving run's shapes: 8 rows of one 64-row chunk (a 64-token
+prefill step), and the packed
 mixed step.
 """
 from __future__ import annotations
@@ -121,11 +127,14 @@ from repro_torch.serve import ContinuousBatcher, KVCacheSpec, Request, pack_step
 from repro_torch.train import TrainConfig, train  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; full 700 W power limit).  The
-# SSD kernels compute in f32 on the FMA pipes, so their operations bound is
-# taken at the f32 rate outside the tensor cores, not the bf16 one.
+# SSD kernels compute at f32 accuracy: their record's operations bound is
+# taken at the f32 rate outside the tensor cores, as since they were first
+# ported; beside it the tensor-core bound of their design, three TF32
+# products per f32 product.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 DEV = "cuda"
 
@@ -180,9 +189,13 @@ K2_BWD_F32_REL_TOL = 1e-5
 PARITY_LOSS_REL_TOL = 0.01
 PARITY_LEAF_REL_TOL = 0.05
 # K6 / K5 against their plain versions on the card, both f32, row by row
-# (``row_rel_err``): the same sums in another order and CUDA's expf (2 ulp)
-# against torch's exp, ~1e-6 a row; a planted fault (the diagonal key tile
-# skipped, the segment mask dropped) zeroes or mixes whole rows, ~0.1-1.
+# (``row_rel_err``): C . B^T summed in the plain version's order, att . x in
+# 3xTF32 (dropped lo.lo terms ~2^-22 relative), CUDA's expf (2 ulp) against
+# torch's exp: ~3e-7 a row.  The rows are ill-conditioned where a steep
+# decay leaves one cancelling C_i . B_i term (another summation order of it
+# alone reads up to 4e-4: PERF.md, the SSD findings); a planted fault (the
+# diagonal key tile skipped, the segment mask dropped) zeroes or mixes whole
+# rows, ~0.1-1.
 SSD_ROW_TOL = 1e-4
 # The 2-layer full-width mamba2-130m, first dense and first packed step, card
 # (kernels, bf16 compute) against the CPU (plain versions, f32), row by row
@@ -311,6 +324,32 @@ def ptxas_lines(source: str, names: str = r"attn_[a-z_]+"):
         out.append(f"{k}: {span} registers at launch ({len(v)} instance(s)), spill stores "
                    f"{max(x for _, x, _ in v)} B, loads {max(x for _, _, x in v)} B (most)")
     return out + notes
+
+
+def ssd_build_lines():
+    """One line per SSD kernel instance (K6 / K5, heads a CTA):
+    ptxas's registers and spills, and the dynamic shared memory and CTAs an
+    SM the runtime counts for it."""
+    import re
+
+    inst = re.compile(r"(ssd_[a-z]+_kernel)ILi\d+ELi\d+ELi(\d)E")
+    out, name, spills = [], None, (0, 0)
+    for line in _build.ptxas_report(ssd_chunk.SOURCE).splitlines():
+        m = inst.search(line)
+        if "Compiling entry function" in line and m:
+            name = m.groups()
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernel, hg = name
+            ctas, smem = ssd_chunk.occupancy(int(hg), kernel == "ssd_segment_kernel")
+            out.append(f"{kernel} heads {hg}: {m.group(1)} registers, spill "
+                       f"stores {spills[0]} B, loads {spills[1]} B, {smem} B dynamic shared "
+                       f"memory, {ctas} CTAs an SM")
+            name = None
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -882,9 +921,33 @@ def ssd_segment_scenario(rng, seg):
 
 
 def ssd_diagonal_skipped(l: int):
-    """K6's planted fault: the causal mask less each row's own 64-key tile."""
-    rows = torch.arange(l, device=DEV)
-    return (rows[:, None] >= rows[None]) & (rows[:, None] // 64 != rows[None] // 64)
+    """K6's planted fault: the causal mask less each row's own key tile."""
+    rows = torch.arange(l, device=DEV) // ssd_chunk.ROW_TILE
+    return torch.ones(l, l, dtype=torch.bool, device=DEV).tril() & (rows[:, None] != rows[None])
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 ``t`` rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero: ``cvt.rna.tf32.f32``)."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def ssd_tf32(x, dt, cum, b, c, mask):
+    """The SSD term of (B, NC, L, ...) inputs under ``mask`` (L, L), its
+    product operands (C, B, att, x) each rounded once to TF32: what a
+    single TF32 pass on the tensor cores would return."""
+    s = torch.einsum("bgin,bgjn->bgij", tf32_round(c), tf32_round(b))
+    diff = cum[..., :, None, :] - cum[..., None, :, :]
+    m = mask[..., None]
+    att = s[..., None] * torch.exp(-torch.where(m, diff, 0.0)) * m * dt[..., None, :, :]
+    return torch.einsum("bgijh,bgjhp->bgihp", tf32_round(att), tf32_round(x))
+
+
+def segment_mask(seg):
+    """K5's admissible pairs (T, T)."""
+    seg = seg.long()
+    tri = torch.ones(len(seg), len(seg), dtype=torch.bool, device=seg.device).tril()
+    return tri & (seg[:, None] == seg[None]) & (seg >= 0)[:, None]
 
 
 def segment_mask_dropped(seg):
@@ -901,20 +964,27 @@ K5_DECODE = packed_segments([1] * SLOTS, 0)
 
 def k6_checks(rng):
     """K6 against its plain version, row by row, at full width: 8 rows of
-    one and of two 256-token chunks and the serving run's 64-row steps; the
-    same metric on a planted fault (the diagonal 64-key tile skipped)."""
+    one and of two 256-token chunks, the serving run's 64-row and 16-row
+    steps, 17 rows; the same metric on a planted fault (the diagonal 16-key
+    tile skipped) and on the plain version with TF32 operands; two runs
+    bit-identical."""
     max_err = 0.0
-    for bs, nc, l in ((8, 1, 256), (8, 2, 256), (8, 1, 64)):
+    for bs, nc, l in ((8, 1, 256), (8, 2, 256), (8, 1, 64), (8, 1, 16), (2, 1, 17)):
         a = ssd_chunk_scenario(rng, bs, nc, l)
         got = ssd_chunk.ssd_chunk(*a)
+        again = ssd_chunk.ssd_chunk(*a)
         want = ref.ssd_chunk_ref(*a)
         bad = ref.ssd_chunk_ref(*a, mask=ssd_diagonal_skipped(l))
+        one_pass = ssd_tf32(*a, torch.ones(l, l, dtype=torch.bool, device=DEV).tril())
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"K6 B{bs} NC{nc} L{l}: non-finite output")
-        e, e_bad = row_rel_err(got, want), row_rel_err(bad, want)
+        check(torch.equal(got, again), f"K6 B{bs} NC{nc} L{l}: two runs differ")
+        e, e_bad, e_tf32 = (row_rel_err(v, want) for v in (got, bad, one_pass))
         max_err = max(max_err, (got - want).abs().max().item())
-        log(f"K6 B={bs} NC={nc} L={l}: row rel err {e:.2e}; planted fault (diagonal 64-key "
-            f"tile skipped) {e_bad:.2e}")
+        log(f"K6 B={bs} NC={nc} L={l}: row rel err {e:.2e} (two runs bit-identical); planted "
+            f"fault (diagonal {ssd_chunk.ROW_TILE}-key tile skipped) {e_bad:.2e}; plain version "
+            f"with TF32 operands {e_tf32:.2e} ({'above' if e_tf32 > SSD_ROW_TOL else 'within'} "
+            f"SSD_ROW_TOL)")
         check(e <= SSD_ROW_TOL, f"K6 B{bs} NC{nc} L{l}: row relative error {e}")
         check(e_bad > SSD_ROW_TOL, f"K6: the row metric lets a planted fault pass: {e_bad}")
     return max_err
@@ -926,20 +996,27 @@ def k5_checks(rng):
     the same metric on a planted fault (the segment mask dropped)."""
     max_err = 0.0
     cases = {"mixed": K5_MIXED, "decode": K5_DECODE,
-             "padded": packed_segments([40, 1, 90], 126)}
+             "padded": packed_segments([40, 1, 90], 126),
+             "long": packed_segments([5, 200, 9], 43)}  # one segment over 13 key tiles
     for name, seg in cases.items():
         a = ssd_segment_scenario(rng, seg)
         got = ssd_chunk.ssd_segment(*a)
+        again = ssd_chunk.ssd_segment(*a)
         want = ref.ssd_segment_ref(*a)
         bad = ref.ssd_segment_ref(*a[:5], segment_mask_dropped(a[5]))
+        one_pass = ssd_tf32(*(v[None, None] for v in a[:5]), segment_mask(a[5]))[0, 0]
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"K5 {name}: non-finite output")
+        check(torch.equal(got, again), f"K5 {name}: two runs differ")
         pad = a[5] < 0
         check(bool((got[pad] == 0).all()), f"K5 {name}: padding rows not exactly zero")
-        e, e_bad = row_rel_err(got, want), row_rel_err(bad, want)
+        e, e_bad, e_tf32 = (row_rel_err(v, want) for v in (got, bad, one_pass))
         max_err = max(max_err, (got - want).abs().max().item())
-        log(f"K5 {name:6s} T={len(seg)} ({int(pad.sum())} padding): row rel err {e:.2e}; "
-            f"planted fault (segment mask dropped) {e_bad:.2e}; cum up to {a[2].max().item():.0f}")
+        log(f"K5 {name:6s} T={len(seg)} ({int(pad.sum())} padding): row rel err {e:.2e} (two "
+            f"runs bit-identical); planted fault (segment mask dropped) {e_bad:.2e}; plain "
+            f"version with TF32 operands {e_tf32:.2e} "
+            f"({'above' if e_tf32 > SSD_ROW_TOL else 'within'} SSD_ROW_TOL); cum up to "
+            f"{a[2].max().item():.0f}")
         check(e <= SSD_ROW_TOL, f"K5 {name}: row relative error {e}")
         check(e_bad > SSD_ROW_TOL, f"K5: the row metric lets a planted fault pass: {e_bad}")
     return max_err
@@ -953,11 +1030,22 @@ def ssd_cost(pairs: int, *tensors):
     return nbytes, 2.0 * pairs * (M_N + M_P * M_H)
 
 
+def ssd_bounds(nbytes: float, flops: float) -> str:
+    """Both bounds of an SSD call, for the log: the f32-FMA one (the
+    record's) and the tensor-core one (3 TF32 products per f32 product)."""
+    b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
+    tc, tc_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    return (f"bound {b * 1e3:.2f} us ({by}, f32 FMA) / {tc * 1e3:.2f} us ({tc_by}, 3xTF32 tensor "
+            f"cores); {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+
+
 def k6_timing(rng):
-    """Kernel, plain version and bound: the serving run's 64-row steps (8
-    rows of one chunk) and one full 256-token chunk a row."""
+    """Kernel, plain version and bounds: the serving run's 16-row decode
+    and 64-row prefill steps (8 rows of one chunk) and one full 256-token
+    chunk a row."""
     rows = {}
-    for shape, (bs, nc, l) in (("serve", (8, 1, 64)), ("chunk256", (8, 1, 256))):
+    for shape, (bs, nc, l) in (("decode", (8, 1, 16)), ("serve", (8, 1, 64)),
+                               ("chunk256", (8, 1, 256))):
         a = ssd_chunk_scenario(rng, bs, nc, l)
         kern = time_ms(lambda: ssd_chunk.ssd_chunk(*a))
         plain = time_ms(lambda: ref.ssd_chunk_ref(*a), iters=10)
@@ -965,8 +1053,7 @@ def k6_timing(rng):
         b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
         rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by)
         log(f"K6 time B={bs} NC={nc} L={l}: kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} "
-            f"us, bound {b * 1e3:.2f} us ({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP "
-            f"at the f32 rate)")
+            f"us, {ssd_bounds(nbytes, flops)}")
     return rows
 
 
@@ -982,8 +1069,7 @@ def k5_timing(rng):
         b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
         rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by)
         log(f"K5 time {shape:6s} T={len(seg)}: kernel {kern * 1e3:.1f} us, plain "
-            f"{plain * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by}; {nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP at the f32 rate)")
+            f"{plain * 1e3:.1f} us, {ssd_bounds(nbytes, flops)}")
     return rows
 
 
@@ -1075,7 +1161,7 @@ def serve(cfg, params, prompts, packed: bool):
 
 @contextlib.contextmanager
 def planted_ssd_fault(kind: str):
-    """Route the model's K6 (``"chunk"``: the diagonal 64-key tile skipped)
+    """Route the model's K6 (``"chunk"``: the diagonal key tile skipped)
     or K5 (``"segment"``: the segment mask dropped) through the plain
     version with that fault, on the card."""
     name = f"ssd_{kind}"
@@ -1205,8 +1291,8 @@ def mamba_serve(cfg, params, prompts, cache: str, packed: bool):
 def decode_step_ms(cfg, params, row_tile: int) -> float:
     """Device time of one dense decode step (8 slots, one token each, over
     a carried state), by CUDA-graph replay, with short steps run as one
-    chunk rounded up to ``row_tile`` rows: 64 is the port's, 256
-    (``ssm_chunk``) the reference's padding."""
+    chunk rounded up to ``row_tile`` rows: ``ssm.ROW_TILE`` (16) is the
+    port's, 256 (``ssm_chunk``) the reference's padding."""
     cache = init_decode_cache(params, cfg, SLOTS, MAX_LEN, linear=True)
     tokens = torch.ones((SLOTS, 1), dtype=torch.long, device=DEV)
     pos = torch.full((SLOTS,), 300, dtype=torch.long, device=DEV)
@@ -1267,8 +1353,9 @@ def mamba_phase(seed: int):
           f"mamba: kernels not run: {counts}")
     short = [decode_step_ms(cfg, params, t) for t in (ssm.ROW_TILE, cfg.ssm_chunk,
                                                       cfg.ssm_chunk, ssm.ROW_TILE)]
-    log(f"mamba dense decode step (8 slots), device ms by graph replay, in turns 64-row chunk / "
-        f"256-row padding / 256 / 64: {' / '.join(f'{x:.3f}' for x in short)}")
+    log(f"mamba dense decode step (8 slots), device ms by graph replay, in turns "
+        f"{ssm.ROW_TILE}-row chunk / 256-row padding / 256 / {ssm.ROW_TILE}: "
+        f"{' / '.join(f'{x:.3f}' for x in short)}")
     del params
     free_device()
     log(f"mamba packed vs unpacked greedy agreement in f32 compute: "
@@ -1461,7 +1548,7 @@ def main() -> int:
             f"{_build.library_path(src).relative_to(_build.BUILD_DIR.parents[1])}")
     log(f"build: {len(loaders)} CUDA sources in {time.perf_counter() - t0:.1f} s")
     for src, names in sources.items():
-        for line in (ptxas_lines(src, names) if names else []):
+        for line in (ptxas_lines(src, names) if names else ssd_build_lines()):
             log(f"build: ptxas -v, {src}: {line}")
     t0 = time.perf_counter()
     ones = torch.ones(2048, device="cuda")

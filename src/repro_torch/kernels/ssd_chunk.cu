@@ -3,51 +3,68 @@
 // src/repro/kernels/ssd_chunk.py:27, :104) and `_ssd_segment_kernel` /
 // `ssd_segment` (K5, :45, :65).
 //
-// Contract (pinned by tests/test_torch_kernels.py on the plain versions and by
-// tests/test_torch_kernels_gpu.py and chip_smoke.py on the card), all f32 and
-// contiguous:
+// Contract (pinned by tests/test_torch_kernels.py on the plain versions and
+// the work plan, and by tests/test_torch_kernels_gpu.py and chip_smoke.py on
+// the card), all f32 and contiguous:
 //   x (G, L, H, P); dt, cum (G, L, H); b, c (G, L, N), shared by every head;
-//   seg (L,) int32 for the segment kernel (G = 1, L the packed axis).
+//   seg (L,) int32 for the segment kernel (G = 1, L the packed axis; each
+//   segment one contiguous run, as serve.pack_step lays a step out).
 //   y[g, i, h, :] = sum_j [mask_ij] (C_i . B_j) exp(-(cum_i - cum_j)) dt_j x_j
 //   K6 (ssd_chunk_kernel): mask = j <= i inside each of the G chunks.
 //   K5 (ssd_segment_kernel): mask = j <= i and seg_j == seg_i and seg_i >= 0.
 //   The decay is always formed from the difference cum_j - cum_i, never as
 //   exp(-cum_i) * exp(cum_j): over a packed axis cum reaches the thousands and
 //   either factor alone over- or underflows.  A masked pair contributes an
-//   exact 0 (its exp is never taken), so a padding row writes exact zeros.
+//   exact 0 (a select, so its exp never reaches the sum), and a padding row
+//   writes exact zeros.
 //
 // Bound: per admissible (i, j) pair, 2N flops for C_i . B_j (once for all
 // heads) and 2P flops per head for the att . x product, against one read of
-// x, dt, cum, B, C and one write of y: at mamba2-130m's widths (H 24, P 64,
-// N 128) ~ 3,300 flops a pair over ~30 bytes a row, far above the card's f32
-// ratio (67 TFLOP/s over 3.35 TB/s = 20 flop/B), so the kernel is bound by
-// f32 operations.  They run on the FMA pipes in f32, as the reference
-// computes them (TF32 or bf16 tensor cores would change the precision).
+// x, dt, cum, B, C and one write of y.  On the FMA pipes (67 TFLOP/s f32) a
+// 256-row chunk is bound by operations; with att . x on the tensor cores at
+// f32 accuracy (three TF32 products, 495 TFLOP/s) it is about balanced with
+// its bytes, and the short serving steps are bound by bytes and latency.
 //
-// Design.  A CTA takes one 64-row query tile of one chunk and a group of HG
-// heads (HG chosen by the wrapper so the grid fills the card), 256 threads.
-//   * The query tile's C is staged once, transposed (C^T, N x 64), in shared
-//     memory.  For each key tile at or left of the diagonal (tiles right of it
-//     are never visited), the CTA stages B^T and forms S = C . B^T (64 x 64)
-//     in registers, a 4 x 4 block a thread: once per key tile for all HG
-//     heads, where the TPU kernel formed it again for every head.
-//   * The segment kernel first asks whether any pair of the (query, key) tile
-//     is admissible (one __syncthreads_or over the pairs' masks) and skips the
-//     key tile when none is: segments are contiguous, so a row tile walks only
-//     the key tiles its own segments cover.
-//   * Per head, each thread turns its 16 scores into att = S * exp(cum_j -
-//     cum_i) * dt_j (or 0), stores att^T in shared memory, the head's 64 x P
-//     x tile is staged, and each thread adds a 4 x 4 block of att . x (float4
-//     shared loads: two 16-byte loads per 16 FMAs) to its HG accumulators,
-//     which live in registers across the key tiles.  Rows past L are never
-//     written; keys past L load as zeros.
+// Design.  A CTA is 4 warps on one 16-row query tile of one chunk and HG
+// heads (HG = 4, 2, 1, picked by the wrapper so the grid fills the card:
+// `ssd_plan` in ssd_chunk.py); blockIdx.x runs the row tiles from the last
+// (the most key tiles) to the first.  Per key tile of 16 keys:
+//   * S = C . B^T (16 x 16) once for the CTA's heads, on the FMA pipes in
+//     f32: each warp computes 64 of its elements, each a dot product summed
+//     in order over the state (the plain version's order), and writes them
+//     to shared memory where every lane reads its fragment.  Three TF32
+//     products missed the f32 checks on this product, and so did a split of
+//     the state over the warps: where C_i . B_i cancels and the decay is
+//     steep, a row is that one small term, and any other rounding of it
+//     moves the row by more than the 1e-4 it is allowed.
+//   * att = S exp(cum_j - cum_i) dt_j is formed on the lane's fragment of S
+//     in registers and fed to att . x on the tensor cores, `mma.sync` m16n8k8
+//     TF32 with f32 accumulators, each operand split into hi = tf32(v) and
+//     lo = tf32(v - hi) and the product taken as lo.hi + hi.lo + hi.hi
+//     ("3xTF32"): inside an 8-key k-step the key order is permuted (k = t <->
+//     key 2t, k = t + 4 <-> key 2t + 1, t the lane's index in its quad), so a
+//     lane's S elements are its own A elements, and x's B fragment reads keys
+//     in the same order.  A warp holds one head and 64 / (4 / HG) columns.
+//   * Loads: B, the heads' x rows, cum, dt (and seg for K5) of a key tile go
+//     through a 3-stage `cp.async` ring, keys past L zero-filled; the tile's
+//     C rows are staged once.  Rows are padded in shared memory (B, C to N +
+//     4, x to P + 4 floats) so the loads are free of bank conflicts.  Two
+//     barriers a key tile: the tile has landed; S is in.
+//   * Key tiles run from the first the row tile needs to its diagonal: 0 for
+//     K6; for K5 the start of the segment of its first non-padding row,
+//     found in the kernel by walking `seg` back from that row (segments are
+//     contiguous).  Key tiles right of the diagonal are never loaded.
+// All arithmetic is f32; nothing is allocated here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 64;       // query rows and keys per tile
-constexpr int kThreads = 256;   // 16 x 16 threads, a 4 x 4 block of a 64 x 64 tile each
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 16;   // rows of the query tile
+constexpr int kKeys = 16;   // keys of a key tile
+constexpr int kStages = 3;  // key tiles in the cp.async ring
 
 struct Args {
   const float* x;
@@ -57,241 +74,371 @@ struct Args {
   const float* c;
   const int* seg;
   float* y;
-  int L, H;
+  int G, L, H;
 };
 
+// Shared-memory layout, in floats: the tile's C rows, then kStages key tiles
+// (B rows, the heads' x rows, cum and dt as [key][head], seg), then S in
+// the lanes' fragment order ([element][lane]).
 template <int N, int P, int HG>
-constexpr int smem_floats() {
-  // C^T and B^T (N x 64 each), att^T (64 x 64), the x tile (64 x P), and per
-  // head the query cum, key cum and key dt (64 each); two int arrays of 64.
-  return 2 * N * kTile + kTile * kTile + kTile * P + 3 * HG * kTile + 2 * kTile;
+struct Smem {
+  static constexpr int kBC = N + 4;  // a B or C row: 8 consecutive rows on distinct banks
+  static constexpr int kX = P + 4;   // an x row: a B fragment's key rows 2t, 2t + 1 conflict-free
+  static constexpr int b = 0;
+  static constexpr int x = b + kKeys * kBC;
+  static constexpr int cum = x + HG * kKeys * kX;
+  static constexpr int dt = cum + kKeys * HG;
+  static constexpr int seg = dt + kKeys * HG;
+  static constexpr int stage = seg + kKeys;
+  static constexpr int c = 0;
+  static constexpr int stages = c + kRows * kBC;
+  static constexpr int frag = stages + kStages * stage;
+  static constexpr int floats = frag + kRows * kKeys;
+  static_assert(stage % 4 == 0 && stages % 4 == 0 && x % 4 == 0, "16-byte cp.async targets");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Stage rows [r0, r0 + 64) of a (rows, N) f32 matrix transposed into dst
-// (N x 64): dst[k * 64 + r] = src[(r0 + r) * N + k]; rows >= L load as 0.
+// 16 (4) bytes from gmem to smem, or zeros when !ok (nothing read)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 template <int N>
-__device__ __forceinline__ void stage_transposed(const float* __restrict__ src, int r0, int L,
-                                                 float* __restrict__ dst) {
-  constexpr int kVec = N / 4;  // float4s a row
-  for (int e = threadIdx.x; e < kTile * kVec; e += kThreads) {
-    const int r = e % kTile;  // consecutive threads: consecutive rows (conflict-free stores)
-    const int k4 = e / kTile;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < L) v = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * N) + k4);
-    dst[(4 * k4 + 0) * kTile + r] = v.x;
-    dst[(4 * k4 + 1) * kTile + r] = v.y;
-    dst[(4 * k4 + 2) * kTile + r] = v.z;
-    dst[(4 * k4 + 3) * kTile + r] = v.w;
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v = hi + lo with hi, lo TF32 (hi the nearest TF32, lo the nearest to the rest)
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b at f32 accuracy: lo.hi + hi.lo + hi.hi (the small terms first)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], uint32_t bhi0,
+                                           uint32_t bhi1, uint32_t blo0, uint32_t blo1) {
+  mma_tf32(d, alo, bhi0, bhi1);
+  mma_tf32(d, ahi, blo0, blo1);
+  mma_tf32(d, ahi, bhi0, bhi1);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// The first key any row of [row0, row0 + 16) admits under K5's mask: the
+// start of the segment of its first non-padding row (a later row's segment
+// starts later, segments being contiguous runs), or -1 when every row is
+// padding.  The warp walks back from that row 128 keys a step.
+__device__ int segment_start(const int* __restrict__ seg, int row0, int L, int lane) {
+  const int r = row0 + lane;
+  const int sv = (lane < kRows && r < L) ? __ldg(seg + r) : -1;
+  const unsigned valid = __ballot_sync(~0u, sv >= 0);
+  if (!valid) return -1;
+  const int first = __ffs(valid) - 1;
+  const int s = __shfl_sync(~0u, sv, first);
+  int start = row0 + first;
+  while (start > 0) {
+    bool differs[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = start - 1 - lane - 32 * q;
+      differs[q] = j < 0 || __ldg(seg + j) != s;
+    }
+    int k = -1;  // keys start - 1 ... start - k equal s, key start - 1 - k does not
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned d = __ballot_sync(~0u, differs[q]);
+      if (k < 0 && d) k = 32 * q + __ffs(d) - 1;
+    }
+    if (k >= 0) return start - k;
+    start -= 128;
   }
+  return 0;
 }
 
 template <int N, int P, int HG, bool SEGMENT>
 __device__ __forceinline__ void ssd_tile(const Args& a) {
-  static_assert(P == 64, "a thread's 4 x 4 output block spans P = 64 columns");
-  static_assert(N % 4 == 0, "B and C rows load as float4");
+  using S = Smem<N, P, HG>;
+  constexpr int WS = kWarps / HG;  // warps on one head, each a slice of P
+  constexpr int NT = P / 8 / WS;   // the mma's 8-column tiles of P a warp holds
+  static_assert(kWarps % HG == 0 && P % (8 * WS) == 0 && N % 4 == 0, "tiles");
+  static_assert(2 * kKeys * HG <= kThreads, "one cum / dt copy a thread");
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sCT = smem;                    // N x 64: C^T of the query tile
-  float* sBT = sCT + N * kTile;         // N x 64: B^T of the key tile
-  float* sAT = sBT + N * kTile;         // 64 x 64: att^T (key-major)
-  float* sX = sAT + kTile * kTile;      // 64 x P: x tile of one head
-  float* sCumQ = sX + kTile * P;        // HG x 64
-  float* sCumK = sCumQ + HG * kTile;    // HG x 64
-  float* sDtK = sCumK + HG * kTile;     // HG x 64
-  int* sSegQ = reinterpret_cast<int*>(sDtK + HG * kTile);  // 64
-  int* sSegK = sSegQ + kTile;                              // 64
+  float* sm = reinterpret_cast<float*>(smem4);
 
   const int L = a.L, H = a.H;
-  const int qt = blockIdx.x;
-  const int i0 = qt * kTile;
-  const int h0 = blockIdx.y * HG;
-  const size_t g = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  // blockIdx.x -> (row tile, chunk, head group), the last row tile first
+  // (ssd_chunk.py's SsdPlan.work is the same map)
+  const int groups = (H + HG - 1) / HG;
+  const int tiles = (L + kRows - 1) / kRows;
+  const int per_tile = a.G * groups;
+  const int bid = blockIdx.x;
+  const int qt = tiles - 1 - bid / per_tile;
+  const int g = (bid % per_tile) / groups;
+  const int h0 = (bid % groups) * HG;
 
-  const float* x = a.x + g * L * H * P;
-  const float* dt = a.dt + g * L * H;
-  const float* cum = a.cum + g * L * H;
-  const float* bm = a.b + g * L * N;
-  const float* cm = a.c + g * L * N;
-  float* y = a.y + g * L * H * P;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int hh = warp / WS, ws = warp % WS;  // the warp's head (of the CTA's) and P slice
+  const int h = h0 + hh;
+  const int row0 = qt * kRows;
+  const int ra = row0 + gid, rb = ra + 8;  // the lane's rows in the fragments
 
-  stage_transposed<N>(cm, i0, L, sCT);
-  for (int e = tid; e < HG * kTile; e += kThreads) {
-    const int hh = e / kTile, r = e % kTile;
-    const int h = h0 + hh, i = i0 + r;
-    sCumQ[e] = (h < H && i < L) ? cum[(size_t)i * H + h] : 0.f;
+  const size_t gl = static_cast<size_t>(g) * L;
+  const float* x = a.x + gl * H * P;
+  const float* dt = a.dt + gl * H;
+  const float* cum = a.cum + gl * H;
+  const float* bm = a.b + gl * N;
+  const float* cm = a.c + gl * N;
+  float* y = a.y + gl * H * P;
+
+  // the tile's C rows, once (the first cp.async group)
+  constexpr int kChN = N / 4;
+  for (int e = tid; e < kRows * kChN; e += kThreads) {
+    const int r = e / kChN, ch = e % kChN;
+    const bool ok = row0 + r < L;
+    cp_async16(sm + S::c + r * S::kBC + ch * 4,
+               cm + static_cast<size_t>(ok ? row0 + r : 0) * N + ch * 4, ok);
   }
+  cp_async_commit();
+
+  const bool head_ok = h < H;  // warp-uniform
+  const float cqa = (head_ok && ra < L) ? __ldg(cum + static_cast<size_t>(ra) * H + h) : 0.f;
+  const float cqb = (head_ok && rb < L) ? __ldg(cum + static_cast<size_t>(rb) * H + h) : 0.f;
+  int sqa = -1, sqb = -1;
   if (SEGMENT) {
-    for (int r = tid; r < kTile; r += kThreads) sSegQ[r] = (i0 + r < L) ? a.seg[i0 + r] : -1;
+    sqa = ra < L ? __ldg(a.seg + ra) : -1;
+    sqb = rb < L ? __ldg(a.seg + rb) : -1;
   }
 
-  float acc[HG][4][4];
-#pragma unroll
-  for (int hh = 0; hh < HG; ++hh)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[hh][r][q] = 0.f;
+  auto load_tile = [&](int buf, int kt) {
+    float* st = sm + S::stages + buf * S::stage;
+    const int j0 = kt * kKeys;
+    for (int e = tid; e < kKeys * kChN; e += kThreads) {
+      const int r = e / kChN, ch = e % kChN;
+      const bool ok = j0 + r < L;
+      cp_async16(st + S::b + r * S::kBC + ch * 4,
+                 bm + static_cast<size_t>(ok ? j0 + r : 0) * N + ch * 4, ok);
+    }
+    constexpr int kChP = P / 4;  // a key's HG heads are contiguous in x: one run of HG * P floats
+    for (int e = tid; e < kKeys * HG * kChP; e += kThreads) {
+      const int ch = e % kChP, head = (e / kChP) % HG, r = e / (kChP * HG);
+      const int j = j0 + r, hx = h0 + head;
+      const bool ok = j < L && hx < H;
+      cp_async16(st + S::x + (head * kKeys + r) * S::kX + ch * 4,
+                 x + (ok ? (static_cast<size_t>(j) * H + hx) * P : 0) + ch * 4, ok);
+    }
+    if (tid < 2 * kKeys * HG) {
+      const int which = tid / (kKeys * HG), r = (tid / HG) % kKeys, head = tid % HG;
+      const int j = j0 + r, hx = h0 + head;
+      const bool ok = j < L && hx < H;
+      cp_async4(st + (which ? S::dt : S::cum) + r * HG + head,
+                (which ? dt : cum) + (ok ? static_cast<size_t>(j) * H + hx : 0), ok);
+    }
+    if (SEGMENT && tid < kKeys) {
+      const bool ok = j0 + tid < L;
+      cp_async4(st + S::seg + tid, a.seg + (ok ? j0 + tid : 0), ok);
+    }
+  };
 
-  // the S / att stage: thread (ty, tx) holds keys j = 4 ty + r, queries i = 4 tx + q
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int j0 = kt * kTile;
-    __syncthreads();  // the previous key tile's shared buffers are free
-    if (SEGMENT) {
-      for (int r = tid; r < kTile; r += kThreads) sSegK[r] = (j0 + r < L) ? a.seg[j0 + r] : -2;
-      __syncthreads();
-      int any = 0;
+  float acc[NT][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+  for (int pt = 0; pt < NT; ++pt)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int jl = 4 * ty + r, il = 4 * tx + q;
-          const int sq = sSegQ[il];
-          any |= (j0 + jl <= i0 + il) && sq >= 0 && sq == sSegK[jl];
+    for (int e = 0; e < 4; ++e) acc[pt][e] = 0.f;
+
+  // key tiles [lo, hi]: from the first the tile admits to its diagonal
+  // (rows and key tiles are both 16 wide); the same in every warp
+  const int hi = qt;
+  int lo = 0;
+  if (SEGMENT) {
+    const int j = segment_start(a.seg, row0, L, lane);
+    lo = j < 0 ? hi + 1 : j / kKeys;
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (lo + s <= hi) load_tile(s, lo + s);
+    cp_async_commit();
+  }
+  // S: this lane computes row sr, keys sk and sk + 8, and stores them where
+  // the lane that holds them as fragment elements reads them: element
+  // (nt, e) of lane 4 gid + tig is row gid + 8 (e >> 1), key 8 nt + 2 tig + (e & 1)
+  const int sr = 4 * warp + lane / 8, sk = lane % 8;
+  const float* c_row = sm + S::c + sr * S::kBC;
+  float* frag = sm + S::frag;
+  const int to = ((2 * (sr >> 3) + (sk & 1)) * 32 + 4 * (sr & 7) + (sk >> 1));  // + 4 * 32 for sk + 8
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int it = kt - lo;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // key tile kt has landed; the buffer refilled next was read last iteration
+    if (kt + kStages - 1 <= hi) load_tile((it + kStages - 1) % kStages, kt + kStages - 1);
+    cp_async_commit();
+
+    const float* st = sm + S::stages + (it % kStages) * S::stage;
+    {
+      const float* b0 = st + S::b + sk * S::kBC;
+      const float* b1 = b0 + 8 * S::kBC;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < N; k += 4) {
+        const float4 cv = *reinterpret_cast<const float4*>(c_row + k);
+        s0 = dot4(cv, *reinterpret_cast<const float4*>(b0 + k), s0);
+        s1 = dot4(cv, *reinterpret_cast<const float4*>(b1 + k), s1);
+      }
+      frag[to] = s0;
+      frag[to + 4 * 32] = s1;
+    }
+    __syncthreads();  // S is in (read before the next iteration's first barrier)
+    if (!head_ok) continue;  // warp-uniform
+
+    const int j0 = kt * kKeys;
+    const float* sCum = st + S::cum;
+    const float* sDt = st + S::dt;
+    const float* sX = st + S::x + hh * kKeys * S::kX;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {  // att . x, k-step over keys 8 nt ... 8 nt + 7
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = frag[(nt * 4 + e) * 32 + lane];
+        const int i = e < 2 ? ra : rb, jl = nt * 8 + 2 * tig + (e & 1);
+        bool ok = j0 + jl <= i && i < L;
+        if (SEGMENT) {
+          const int si = e < 2 ? sqa : sqb;
+          ok = ok && si >= 0 && reinterpret_cast<const int*>(st + S::seg)[jl] == si;
         }
-      if (!__syncthreads_or(any)) continue;  // no admissible pair in this key tile
-    }
-    stage_transposed<N>(bm, j0, L, sBT);
-    for (int e = tid; e < HG * kTile; e += kThreads) {
-      const int hh = e / kTile, r = e % kTile;
-      const int h = h0 + hh, j = j0 + r;
-      const bool ok = h < H && j < L;
-      sCumK[e] = ok ? cum[(size_t)j * H + h] : 0.f;
-      sDtK[e] = ok ? dt[(size_t)j * H + h] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[r][q] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < N; ++k) {
-      const float4 cv = *reinterpret_cast<const float4*>(sCT + k * kTile + 4 * tx);
-      const float4 bv = *reinterpret_cast<const float4*>(sBT + k * kTile + 4 * ty);
-      const float cq[4] = {cv.x, cv.y, cv.z, cv.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) s[r][q] = fmaf(br[r], cq[q], s[r][q]);
-    }
-    bool adm[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int jl = 4 * ty + r, il = 4 * tx + q;
-        bool ok = (j0 + jl <= i0 + il) && (i0 + il < L);
-        if (SEGMENT) ok = ok && sSegQ[il] >= 0 && sSegQ[il] == sSegK[jl];
-        adm[r][q] = ok;
+        const float ck = sCum[jl * HG + hh], dk = sDt[jl * HG + hh];
+        v[e] = ok ? s * expf(ck - (e < 2 ? cqa : cqb)) * dk : 0.f;
       }
-
+      // A fragment (row, k): (gid, t) = key 2t -> v[0], (gid + 8, t) -> v[2],
+      // (gid, t + 4) = key 2t + 1 -> v[1], (gid + 8, t + 4) -> v[3]
+      uint32_t ah[4], al[4];
+      split(v[0], ah[0], al[0]);
+      split(v[2], ah[1], al[1]);
+      split(v[1], ah[2], al[2]);
+      split(v[3], ah[3], al[3]);
+      const float* x0 = sX + (nt * 8 + 2 * tig) * S::kX;  // key 2t's row; key 2t + 1's next
 #pragma unroll
-    for (int hh = 0; hh < HG; ++hh) {
-      const int h = h0 + hh;
-      if (h >= H) break;  // uniform across the CTA
-      if (hh > 0) __syncthreads();  // the previous head's att^T and x tile are read
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int jl = 4 * ty + r;
-        const float ck = sCumK[hh * kTile + jl], dk = sDtK[hh * kTile + jl];
-        float v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float cq = sCumQ[hh * kTile + 4 * tx + q];
-          v[q] = adm[r][q] ? s[r][q] * expf(ck - cq) * dk : 0.f;
-        }
-        *reinterpret_cast<float4*>(sAT + jl * kTile + 4 * tx) = make_float4(v[0], v[1], v[2], v[3]);
-      }
-      for (int e = tid; e < kTile * (P / 4); e += kThreads) {
-        const int r = e / (P / 4), p4 = e % (P / 4);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (j0 + r < L)
-          v = __ldg(reinterpret_cast<const float4*>(x + ((size_t)(j0 + r) * H + h) * P) + p4);
-        reinterpret_cast<float4*>(sX)[e] = v;
-      }
-      __syncthreads();
-      // the att . x stage: thread (ty, tx) holds rows i = 4 ty + r, columns p = 4 tx + q
-#pragma unroll 4
-      for (int jl = 0; jl < kTile; ++jl) {
-        const float4 av = *reinterpret_cast<const float4*>(sAT + jl * kTile + 4 * ty);
-        const float4 xv = *reinterpret_cast<const float4*>(sX + jl * P + 4 * tx);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[hh][r][q] = fmaf(ar[r], xq[q], acc[hh][r][q]);
+      for (int pt = 0; pt < NT; ++pt) {
+        const int p = (ws * NT + pt) * 8 + gid;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(x0[p], bh0, bl0);
+        split(x0[S::kX + p], bh1, bl1);
+        mma_3xtf32(acc[pt], ah, al, bh0, bh1, bl0, bl1);
       }
     }
   }
+  cp_async_wait<0>();  // only empty groups, or C's when no key tile ran
 
+  if (!head_ok) return;
 #pragma unroll
-  for (int hh = 0; hh < HG; ++hh) {
-    const int h = h0 + hh;
-    if (h >= H) break;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + 4 * ty + r;
-      if (i < L) {
-        *reinterpret_cast<float4*>(y + ((size_t)i * H + h) * P + 4 * tx) =
-            make_float4(acc[hh][r][0], acc[hh][r][1], acc[hh][r][2], acc[hh][r][3]);
-      }
-    }
+  for (int pt = 0; pt < NT; ++pt) {
+    const int p = (ws * NT + pt) * 8 + 2 * tig;
+    if (ra < L)
+      *reinterpret_cast<float2*>(y + (static_cast<size_t>(ra) * H + h) * P + p) =
+          make_float2(acc[pt][0], acc[pt][1]);
+    if (rb < L)
+      *reinterpret_cast<float2*>(y + (static_cast<size_t>(rb) * H + h) * P + p) =
+          make_float2(acc[pt][2], acc[pt][3]);
   }
 }
 
 template <int N, int P, int HG>
-__global__ void __launch_bounds__(kThreads) ssd_chunk_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 2) ssd_chunk_kernel(Args a) {
   ssd_tile<N, P, HG, false>(a);
 }
 
 template <int N, int P, int HG>
-__global__ void __launch_bounds__(kThreads) ssd_segment_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 2) ssd_segment_kernel(Args a) {
   ssd_tile<N, P, HG, true>(a);
 }
 
+// The kernel instance, with its dynamic shared memory allowed, and its size.
 template <int N, int P, int HG>
-cudaError_t launch(const Args& a, int G, bool segment, cudaStream_t stream) {
-  const size_t bytes = smem_floats<N, P, HG>() * sizeof(float);
-  auto kernel = segment ? ssd_segment_kernel<N, P, HG> : ssd_chunk_kernel<N, P, HG>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.L + kTile - 1) / kTile, (a.H + HG - 1) / HG, G);
-  kernel<<<grid, kThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
+cudaError_t prepare(bool segment, void (**kernel)(Args), size_t* bytes) {
+  *bytes = Smem<N, P, HG>::floats * sizeof(float);
+  *kernel = segment ? ssd_segment_kernel<N, P, HG> : ssd_chunk_kernel<N, P, HG>;
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*bytes));
+}
+
+// Only mamba2-130m's widths are instantiated: state N 128, head dim P 64.
+// Another config adds its instances here and its (N, P) to BUILT in
+// ssd_chunk.py.
+cudaError_t prepare(int heads_per_cta, bool segment, void (**kernel)(Args), size_t* bytes) {
+  switch (heads_per_cta) {
+    case 1: return prepare<128, 64, 1>(segment, kernel, bytes);
+    case 2: return prepare<128, 64, 2>(segment, kernel, bytes);
+    case 4: return prepare<128, 64, 4>(segment, kernel, bytes);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  segment = 0: K6 over G chunks of
 // L rows; segment = 1: K5 over one packed axis of L tokens (G must be 1, seg
-// given).  heads_per_cta is the HG instantiated below (1, 2 or 4).  Returns 0
-// on success, a CUDA error code when a launch is refused, or -1 for a shape
-// the kernel is not built for (the wrapper checks shapes first).  The launch
-// is asynchronous on `stream`; nothing is allocated here.
+// given).  heads_per_cta (1, 2 or 4) is chosen by ssd_plan in ssd_chunk.py.
+// Returns 0 on success, a CUDA error code when a launch is refused, or -1
+// for a shape the kernel is not built for (the wrapper checks shapes first).
+// The launch is asynchronous on `stream`.
 extern "C" int repro_ssd(const void* x, const void* dt, const void* cum, const void* b,
                          const void* c, const void* seg, void* y, int G, int L, int H, int P,
                          int N, int segment, int heads_per_cta, void* stream) {
   if (G == 0 || L == 0 || H == 0) return 0;
-  if (G < 0 || L < 0 || H < 0 || G > 65535 || (segment && (G != 1 || !seg))) return -1;
-  // Only mamba2-130m's widths are instantiated: head dim P 64, state N 128.
-  // Another config adds its launch<N, P, HG> here and its (N, P) to BUILT in
-  // ssd_chunk.py (P = 64 is what a thread's 4 x 4 output block spans).
-  if (P != 64 || N != 128) return -1;
+  if (G < 0 || L < 0 || H < 0 || (segment && (G != 1 || !seg))) return -1;
+  if (P != 64 || N != 128 || (heads_per_cta != 1 && heads_per_cta != 2 && heads_per_cta != 4))
+    return -1;
+  const long long ctas = static_cast<long long>((L + kRows - 1) / kRows) * G *
+                         ((H + heads_per_cta - 1) / heads_per_cta);
+  if (ctas > 0x7fffffffLL) return -1;
+  void (*kernel)(Args);
+  size_t bytes;
+  const cudaError_t e = prepare(heads_per_cta, segment != 0, &kernel, &bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
                static_cast<const float*>(cum), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<const int*>(seg),
-               static_cast<float*>(y), L, H};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (heads_per_cta) {
-    case 1: return static_cast<int>(launch<128, 64, 1>(a, G, segment != 0, s));
-    case 2: return static_cast<int>(launch<128, 64, 2>(a, G, segment != 0, s));
-    case 4: return static_cast<int>(launch<128, 64, 4>(a, G, segment != 0, s));
-    default: return -1;
-  }
+               static_cast<float*>(y), G, L, H};
+  kernel<<<static_cast<unsigned>(ctas), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of instance (heads_per_cta, segment) that fit on one SM (registers and
+// shared memory, as the runtime counts them), its dynamic shared memory in
+// *smem_bytes; -1 for an instance not built.
+extern "C" int repro_ssd_occupancy(int heads_per_cta, int segment, int* smem_bytes) {
+  void (*kernel)(Args);
+  size_t bytes;
+  if (prepare(heads_per_cta, segment != 0, &kernel, &bytes) != cudaSuccess) return -1;
+  int ctas = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, bytes) != cudaSuccess)
+    return -1;
+  *smem_bytes = static_cast<int>(bytes);
+  return ctas;
 }

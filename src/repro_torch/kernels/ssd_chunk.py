@@ -5,15 +5,17 @@ over a token-packed step).
 Ports of the TPU kernels ``repro.kernels.ssd_chunk.ssd_chunk``
 (src/repro/kernels/ssd_chunk.py:104, body ``_ssd_chunk_kernel`` :27) and
 ``ssd_segment`` (:65, body ``_ssd_segment_kernel`` :45).  Both kernels are
-one template in ``ssd_chunk.cu`` with a mask policy: one CTA per (64-row
-query tile, group of heads, chunk), C . B^T formed once per key tile for
-every head of the group, key tiles right of the diagonal never visited
-and, for K5, key tiles without a same-segment pair skipped.  This module
-checks the arguments, picks the head group so the grid fills the card,
-allocates the output and launches on PyTorch's current stream.  It takes
-CUDA tensors only: the plain versions for the CPU are
-``kernels.ref.ssd_chunk_ref`` / ``ssd_segment_ref``, chosen by
-``kernels.ops`` from the tensors' device.
+one template in ``ssd_chunk.cu`` with a mask policy: a CTA of 4 warps on
+one 16-row query tile and 1, 2 or 4 heads, C . B^T once per 16-key tile
+for its heads (f32 on the FMA pipes, each element summed in order over the
+state), att . x on the tensor cores in 3xTF32 (f32 accuracy), key tiles
+through a ``cp.async``
+ring from the first the tile admits (for K5 its first row's segment) to
+its diagonal.  This module checks the arguments, plans the grid
+(``ssd_plan``: heads a CTA, so the grid fills the card), allocates the
+output and launches on PyTorch's current stream.  It takes CUDA tensors
+only: the plain versions for the CPU are ``kernels.ref.ssd_chunk_ref`` /
+``ssd_segment_ref``, chosen by ``kernels.ops`` from the tensors' device.
 
 ``ssd_chunk.launches`` / ``ssd_segment.launches`` count launches (nothing
 else adds to them), so a run can show that the serving path went through
@@ -22,7 +24,9 @@ the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Tuple
 
 import torch
 
@@ -31,15 +35,16 @@ from . import _build
 SOURCE = "ssd_chunk.cu"
 #: (state N, head dim P) the source instantiates: the configs the port serves
 BUILT = {(128, 64)}  # mamba2-130m
-#: rows of a query tile and keys of a key tile in the kernel (``kTile``); a
-#: dense step shorter than ``ssm_chunk`` runs one chunk of its length
-#: rounded up to this (``models.ssm.chunk_len``)
-ROW_TILE = 64
-HEAD_GROUPS = (4, 2, 1)  # heads per CTA the source instantiates, largest first
+#: rows of a CTA's query tile and keys of a key tile in the kernel (``kRows``,
+#: ``kKeys``); a dense step shorter than ``ssm_chunk`` runs one chunk of its
+#: length rounded up to this (``models.ssm.chunk_len``)
+ROW_TILE = 16
+HEAD_GROUPS = (4, 2, 1)  # heads a CTA the source instantiates, largest first
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 7 + [_I] * 7 + [_P]
+_OCCUPANCY_ARGTYPES = [_I] * 2 + [_P]
 
 
 class UnbuiltShapeError(ValueError):
@@ -52,7 +57,20 @@ def load_library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.repro_ssd.argtypes = _ARGTYPES
     lib.repro_ssd.restype = ctypes.c_int
+    lib.repro_ssd_occupancy.argtypes = _OCCUPANCY_ARGTYPES
+    lib.repro_ssd_occupancy.restype = ctypes.c_int
     return lib
+
+
+def occupancy(heads: int, segment: bool) -> Tuple[int, int]:
+    """(CTAs an SM, dynamic shared memory bytes) of one kernel instance on
+    the current card, as the runtime counts them from its registers and
+    shared memory."""
+    smem = ctypes.c_int(0)
+    ctas = load_library().repro_ssd_occupancy(heads, int(segment), ctypes.byref(smem))
+    if ctas < 0:
+        raise RuntimeError(f"no SSD kernel instance for {heads} heads a CTA")
+    return ctas, smem.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,14 +78,46 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def heads_per_cta(tiles: int, heads: int, sms: int) -> int:
-    """The largest head group whose grid (``tiles`` query tiles over every
-    chunk, times the head groups) still gives each SM a CTA: a larger group
-    shares each C . B^T among more heads, a smaller one fills the card."""
+@dataclasses.dataclass(frozen=True)
+class SsdPlan:
+    """The kernel's grid over ``groups`` chunks of ``length`` rows and
+    ``n_heads`` heads: each CTA takes one ``ROW_TILE``-row query tile of
+    one chunk and ``heads`` consecutive heads; its 4 warps each hold one
+    head and a slice of the head dim."""
+
+    groups: int
+    length: int
+    n_heads: int
+    heads: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.length // ROW_TILE)
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.groups * -(-self.n_heads // self.heads)
+
+    def work(self, cta: int) -> Tuple[int, int, int]:
+        """(chunk, first row, first head) of CTA ``cta`` (``blockIdx.x``):
+        ``ssd_chunk.cu``'s map, the last row tile (the most key tiles)
+        first."""
+        groups = -(-self.n_heads // self.heads)
+        per_tile = self.groups * groups
+        tile = self.tiles - 1 - cta // per_tile
+        return (cta % per_tile) // groups, tile * ROW_TILE, (cta % groups) * self.heads
+
+
+def ssd_plan(groups: int, length: int, heads: int, sms: int) -> SsdPlan:
+    """The grid for ``groups`` chunks of ``length`` rows and ``heads``
+    heads on ``sms`` SMs: the largest head group (each shares C . B^T among
+    more heads) whose grid still gives each SM a CTA; when none does, one
+    head a CTA, the most CTAs the tiles allow."""
     for hg in HEAD_GROUPS:
-        if tiles * -(-heads // hg) >= sms:
-            return hg
-    return HEAD_GROUPS[-1]
+        plan = SsdPlan(groups, length, heads, hg)
+        if plan.ctas >= sms:
+            return plan
+    return plan
 
 
 def require_built(n: int, p: int, dtype: torch.dtype = torch.float32) -> None:
@@ -111,14 +161,13 @@ def _launch(x, dt, cum, b, c, seg, g, length, segment):
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y, False
-    tiles = g * -(-length // ROW_TILE)
-    hg = heads_per_cta(tiles, h, _sm_count(x.device.index))
+    plan = ssd_plan(g, length, h, _sm_count(x.device.index))
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.repro_ssd(
             x.data_ptr(), dt.data_ptr(), cum.data_ptr(), b.data_ptr(), c.data_ptr(),
             seg.data_ptr() if seg is not None else 0, y.data_ptr(), g, length, h,
-            x.shape[-1], b.shape[-1], int(segment), hg,
+            x.shape[-1], b.shape[-1], int(segment), plan.heads,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"SSD kernel launch failed (code {err})")
@@ -154,12 +203,11 @@ def ssd_segment(
     c: torch.Tensor,  # (T, N)
     seg: torch.Tensor,  # (T,) int segment (slot) ids; < 0 = padding
 ) -> torch.Tensor:
-    """Segment-masked SSD term (T, H, P) from the CUDA kernel (K5).  The
-    mask is applied pair by pair, so any ``seg`` gives the plain version's
-    function; a key tile without an admissible pair is skipped, which over
-    ``pack_step``'s contiguous segments leaves the tiles a row tile's own
-    segments cover.  ``seg`` is cast to contiguous int32 (a few hundred
-    bytes)."""
+    """Segment-masked SSD term (T, H, P) from the CUDA kernel (K5).  Each
+    segment must be one contiguous run of tokens, as ``pack_step`` lays a
+    step out (the plain version's ``cum`` assumes it too): a row tile's
+    keys start at its first row's segment.  ``seg`` is cast to contiguous
+    int32 (a few hundred bytes)."""
     _check(x, dt, cum, b, c, seg)
     t, h, p = x.shape
     n = b.shape[-1]

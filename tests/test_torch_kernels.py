@@ -14,8 +14,9 @@ the interpret-mode Pallas kernels and the reference's oracles
 (``tests/test_ssd_kernel.py``).  Inputs are made with numpy from a seed
 and fed to both packages.  Beside them, the schedules the CUDA kernels
 read: K3's ``tile_plan``, K4's ``paged_tile_plan`` (with a numpy walk of
-the paged kernel's schedule held to the plain version) and K2 backward's
-row and column partition.
+the paged kernel's schedule held to the plain version), K2 backward's
+row and column partition, and the SSD kernels' ``ssd_plan`` (with a numpy
+walk of K6's and K5's schedule held to the plain versions).
 """
 import numpy as np
 import pytest
@@ -254,14 +255,33 @@ class TestDispatch:
         assert (splits, per) == want
         assert splits * per >= num_blocks > (splits - 1) * per  # no empty tail split
 
-    @pytest.mark.parametrize("tiles,heads,want", [
-        (32, 24, 4),  # K6 at B 8, L 256: 192 CTAs of 4 heads
-        (8, 24, 1),  # K6 at B 8, L 64 (a decode or 64-token step): 192 CTAs of one head
-        (5, 24, 1),  # K5 at T 257: 120 CTAs, the most it can have
-        (16, 24, 2),  # 192 CTAs of 2 heads
+    @pytest.mark.parametrize("groups,length,want", [
+        (8, 256, 4),  # K6 at B 8, L 256: 768 CTAs of 4 heads
+        (8, 64, 4),  # K6 at B 8, L 64 (a 64-token step): 192 CTAs of 4 heads
+        (8, 16, 1),  # K6 at B 8, L 16 (a decode step): 192 CTAs of one head
+        (1, 257, 2),  # K5 at T 257: 204 CTAs of 2 heads
+        (1, 8, 1),  # K5 at T 8: 24 CTAs, every (row tile, head) its own
+        (2, 17, 1),  # a 17-row step: 96 CTAs of one head
     ])
-    def test_ssd_heads_per_cta(self, tiles, heads, want):
-        assert ssd_chunk.heads_per_cta(tiles, heads, 132) == want
+    def test_ssd_heads_per_cta(self, groups, length, want):
+        """``ssd_plan`` at the serving shapes (24 heads, 132 SMs): its heads
+        a CTA; every (chunk, 16-row query tile, head) in exactly one CTA;
+        the last row tile (the most key tiles) first; the grid gives each SM
+        a CTA wherever the step has that many (row tile, head) units."""
+        heads, sms = 24, 132
+        plan = ssd_chunk.ssd_plan(groups, length, heads, sms)
+        assert plan.heads == want and want in ssd_chunk.HEAD_GROUPS
+        seen = []
+        for cta in range(plan.ctas):
+            g, r, h0 = plan.work(cta)
+            seen += [(g, r, h) for h in range(h0, min(h0 + plan.heads, heads))]
+        tiles = -(-length // ssd_chunk.ROW_TILE)
+        want_units = {(g, t * ssd_chunk.ROW_TILE, h)
+                      for g in range(groups) for t in range(tiles) for h in range(heads)}
+        assert sorted(seen) == sorted(want_units)  # each exactly once
+        rows = [plan.work(c)[1] for c in range(plan.ctas)]
+        assert rows == sorted(rows, reverse=True)  # the most key tiles first
+        assert plan.ctas >= min(sms, len(want_units))
 
     def test_ssd_refuses_unbuilt_shapes(self):
         ssd_chunk.require_built(128, 64)
@@ -554,15 +574,18 @@ def test_rmsnorm_bwd_ctypes_signature_matches_the_cuda_source():
     assert _c_argtypes(rmsnorm.BWD_SOURCE, "repro_rmsnorm_bwd") == rmsnorm._BWD_ARGTYPES
 
 
-def test_ssd_ctypes_signature_matches_the_cuda_source(monkeypatch):
+@pytest.mark.parametrize("entry", ["repro_ssd", "repro_ssd_occupancy"])
+def test_ssd_ctypes_signature_matches_the_cuda_source(entry, monkeypatch):
     class Fn:
         pass
 
     class Lib:
         repro_ssd = Fn()
+        repro_ssd_occupancy = Fn()
 
     monkeypatch.setattr(ssd_chunk._build, "load", lambda source: Lib)
-    assert _c_argtypes(ssd_chunk.SOURCE, "repro_ssd") == ssd_chunk.load_library().repro_ssd.argtypes
+    lib = ssd_chunk.load_library()
+    assert _c_argtypes(ssd_chunk.SOURCE, entry) == getattr(lib, entry).argtypes
 
 
 @pytest.mark.parametrize("entry", ["repro_flash_attention_fwd", "repro_flash_attention_bwd"])
@@ -1015,3 +1038,117 @@ class TestSsdPlain:
         got = ops.ssd_segment(*(torch.from_numpy(v) for v in a))
         assert bool(torch.isfinite(got).all())
         assert_close(got, oracle, "ssd_f32")
+
+
+def segment_start(seg, row0, length):
+    """``ssd_chunk.cu``'s ``segment_start``: the first key the 16-row tile
+    from ``row0`` admits under K5's mask, the start of its first
+    non-padding row's segment (segments are contiguous runs), or -1 when
+    every row is padding."""
+    rows = [r for r in range(row0, min(row0 + ssd_chunk.ROW_TILE, length)) if seg[r] >= 0]
+    if not rows:
+        return -1
+    r = rows[0]
+    while r > 0 and seg[r - 1] == seg[r]:
+        r -= 1
+    return r
+
+
+def walk_ssd(x, dt, cum, b, c, seg=None, sms=132, late_start=0, skip_diagonal=False):
+    """A numpy walk of the SSD kernels' schedule, f64: each CTA of
+    ``ssd_plan`` (its ``work`` map) takes one 16-row tile and its heads;
+    it multiplies the 16-key tiles from 0 (K6) or the tile's
+    ``segment_start`` (K5) to its diagonal, pair by pair under the mask;
+    its 4 warps each write one head's slice of the head dim for the rows
+    below L.  Returns y and how many times each element was written.
+    ``late_start`` / ``skip_diagonal`` plant faults (the first or the
+    diagonal key tile left out)."""
+    rt_n = ssd_chunk.ROW_TILE
+    gs, length, h, p = x.shape
+    plan = ssd_chunk.ssd_plan(gs, length, h, sms)
+    ws_n = 4 // plan.heads  # warps on one head, each a slice of the head dim
+    y = np.zeros(x.shape)
+    writes = np.zeros(x.shape, int)
+    for cta in range(plan.ctas):
+        g, row0, h0 = plan.work(cta)
+        lo = 0 if seg is None else segment_start(seg, row0, length)
+        tiles = range(lo // rt_n + late_start, row0 // rt_n + (0 if skip_diagonal else 1))
+        rows = np.arange(row0, min(row0 + rt_n, length))
+        acc = np.zeros((len(rows), h, p))
+        for kt in tiles if lo >= 0 else ():
+            keys = np.arange(kt * rt_n, min(kt * rt_n + rt_n, length))
+            s = c[g, rows].astype(np.float64) @ b[g, keys].T.astype(np.float64)
+            ok = keys[None] <= rows[:, None]
+            if seg is not None:
+                ok &= (seg[keys][None] == seg[rows][:, None]) & (seg[rows] >= 0)[:, None]
+            for hh in range(h0, min(h0 + plan.heads, h)):
+                decay = np.exp(np.where(ok, cum[g, keys, hh][None] - cum[g, rows, hh][:, None],
+                                        0.0))
+                att = np.where(ok, s * decay * dt[g, keys, hh][None], 0.0)
+                acc[:, hh] += att @ x[g, keys, hh]
+        for warp in range(4):
+            hh = h0 + warp // ws_n
+            cols = slice((warp % ws_n) * p // ws_n, (warp % ws_n + 1) * p // ws_n)
+            if hh < h:
+                y[g, rows, hh, cols] = acc[:, hh, cols]
+                writes[g, rows, hh, cols] += 1
+    return y, writes
+
+
+SSD_WALK_CASES = {  # name: (groups, rows, segments or None)
+    "chunk_256": (2, 256, None),
+    "chunk_64": (3, 64, None),
+    "chunk_16": (4, 16, None),
+    "chunk_17": (2, 17, None),
+    "chunk_100": (1, 100, None),
+    "mixed": (1, 129, [0, 1, 2, 3] + [4] * 40 + [5] * 52 + [6] * 30 + [-1] * 3),
+    "decode": (1, 8, list(range(8))),
+    "long_segment": (1, 150, [2] * 5 + [7] * 120 + [1] * 9 + [-1] * 16),
+    "padding": (1, 70, [0] * 20 + [-1] * 50),
+}
+
+
+def ssd_walk_inputs(name):
+    groups, rows, seg = SSD_WALK_CASES[name]
+    if seg is None:
+        return [v.reshape(groups, *v.shape[2:])
+                for v in ssd_chunk_inputs(1, groups, rows, 3, 16, 4, seed=rows)], None
+    x, dt, cum, b, c, seg = ssd_segment_inputs(seg, h=3, p=16, n=4, seed=rows, a_max=16.0)
+    return [v[None] for v in (x, dt, cum, b, c)], seg
+
+
+def ssd_walk_want(a, seg):
+    """The plain version of the walk's inputs, (G, L, H, P)."""
+    t = [torch.from_numpy(v) for v in a]
+    if seg is None:
+        return ref.ssd_chunk_ref(*(v[None] for v in t))[0].numpy()
+    return ref.ssd_segment_ref(*(v[0] for v in t), torch.from_numpy(seg))[None].numpy()
+
+
+class TestSsdPlan:
+    @pytest.mark.parametrize("name", list(SSD_WALK_CASES))
+    @pytest.mark.parametrize("sms", [132, 8])
+    def test_walk_matches_plain_version(self, name, sms):
+        """The schedule (``ssd_plan``'s CTAs and map, warps' heads and
+        head-dim slices, key tiles from each tile's start to its diagonal)
+        writes every output element once and gives the plain version's
+        result; K5's padding rows exact zeros.  At 8 SMs the plan takes
+        groups of 4 heads (more than the 3 there are), at 132 the serving
+        plans."""
+        a, seg = ssd_walk_inputs(name)
+        got, writes = walk_ssd(*a, seg=seg, sms=sms)
+        assert (writes == 1).all()
+        assert_close(got, ssd_walk_want(a, seg), "ssd_f32")
+        if seg is not None:
+            np.testing.assert_array_equal(got[0, np.asarray(seg) < 0], 0.0)
+
+    @pytest.mark.parametrize("name,fault", [("mixed", "late_start"), ("long_segment", "late_start"),
+                                            ("chunk_64", "skip_diagonal")])
+    def test_walk_catches_planted_faults(self, name, fault):
+        """A CTA that starts one key tile late (K5) or stops short of its
+        diagonal (K6) changes rows by far more than ``TOL["ssd_f32"]``:
+        the walk's key ranges are exactly what the sum needs."""
+        a, seg = ssd_walk_inputs(name)
+        kw = {"late_start": 1} if fault == "late_start" else {"skip_diagonal": True}
+        got, _ = walk_ssd(*a, seg=seg, **kw)
+        assert row_rel_err(got, ssd_walk_want(a, seg)) > 1e-2

@@ -298,10 +298,10 @@ class TestKernelsOnCard:
     # -----------------------------------------------------------------------
 
     @pytest.mark.parametrize("bs,nc,l", [(8, 1, 256), (8, 2, 256), (8, 1, 64), (3, 1, 100),
-                                         (1, 3, 1)])
+                                         (1, 3, 1), (8, 1, 16), (2, 1, 17)])
     def test_ssd_chunk(self, cuda, bs, nc, l):
         """Full-width chunks (one and two a row), the serving run's 64-row
-        steps, and lengths off the 64-row tile."""
+        and 16-row (decode) steps, and lengths off the 16-row tile."""
         torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
         a = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(bs, nc, l, 24, 64, 128,
                                                                       seed=l + nc)]
@@ -319,6 +319,7 @@ class TestKernelsOnCard:
         [5] * 30 + [2] * 1 + [7] * 50 + [-1] * 19,  # ragged T 100
         [0] * 40 + [-1] * 90,  # a query tile without a segment: an empty key range
         [-1] * 70,  # nothing but padding
+        [2] * 5 + [7] * 200 + [1] * 9 + [-1] * 43,  # a segment over 13 key tiles and 4 row blocks
     ])
     def test_ssd_segment(self, cuda, seg):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -334,14 +335,23 @@ class TestKernelsOnCard:
         pad = a[5] < 0
         assert (got[pad] == 0).all()  # padding rows: exact zeros
 
+    def test_ssd_runs_are_bit_identical(self, cuda):
+        """No atomics and a fixed order of sums: two runs agree bit for bit."""
+        a = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(8, 1, 256, 24, 64, 128, 3)]
+        assert torch.equal(ssd_chunk.ssd_chunk(*a), ssd_chunk.ssd_chunk(*a))
+        seg = [0] * 64 + [1] * 64 + [2] * 64 + [3] * 64 + [-1]
+        s = [torch.from_numpy(v).to(cuda) for v in ssd_segment_inputs(seg, 24, 64, 128, 4)]
+        assert torch.equal(ssd_chunk.ssd_segment(*s), ssd_chunk.ssd_segment(*s))
+
     def test_ssd_checks_catch_planted_faults(self, cuda):
         """The row metric passes both kernels and fails a K6 that skips its
-        diagonal 64-key tile and a K5 whose segment mask is dropped (the
-        requests leak into each other)."""
+        diagonal key tile (``ROW_TILE`` keys) and a K5 whose segment mask is
+        dropped (the requests leak into each other)."""
         torch.backends.cuda.matmul.allow_tf32 = False
         a = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(8, 1, 256, 24, 64, 128, 1)]
         want = ref.ssd_chunk_ref(*a)
-        bad = ref.ssd_chunk_ref(*a, mask=ssd_skip_diagonal_tile_mask(256, device=cuda))
+        bad = ref.ssd_chunk_ref(*a, mask=ssd_skip_diagonal_tile_mask(256, device=cuda,
+                                                                    tile=ssd_chunk.ROW_TILE))
         assert row_rel_err(ssd_chunk.ssd_chunk(*a), want) <= SSD_ROW_TOL < row_rel_err(bad, want)
         seg = [0] * 64 + [1] * 64 + [2] * 64 + [3] * 64 + [-1]
         s = [torch.from_numpy(v).to(cuda) for v in ssd_segment_inputs(seg, 24, 64, 128, 2)]

@@ -22,9 +22,10 @@ Tolerances (``TOL``), each with its reason:
   products, each output once, 2^-9 relative each) stay near 1e-3; a
   planted fault (``skip_diagonal_tile_mask``) reads above 0.1.
 * ``SSD_ROW_TOL`` — K5 / K6 against their plain versions on the card, both
-  f32, by ``row_rel_err``: the same sums in another order and CUDA's expf
-  (2 ulp) against torch's exp, ~1e-6 a row; a planted fault (the diagonal
-  key tile skipped, or the segment mask dropped) reads above 0.1.
+  f32, by ``row_rel_err``: C . B^T in the plain version's order, att . x in
+  3xTF32 and CUDA's expf (2 ulp) against torch's exp, ~3e-7 a row; a
+  planted fault (the diagonal key tile skipped, or the segment mask
+  dropped) reads above 0.1.
 * ``BF16_ULPS`` — bf16 RMSNorm, where XLA on the CPU may fuse the two bf16
   multiplies: at most one bf16 ulp apart.
 """

@@ -42,6 +42,7 @@ from repro.serve import Request as JRequest  # noqa: E402
 from repro.serve import pack_step as jpack_step  # noqa: E402
 from repro_torch.configs import ARCHITECTURES, get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ROW_TILE  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import ModelConfig, UnsupportedPatternError, model  # noqa: E402
 from repro_torch.models import recurrent, ssm  # noqa: E402
@@ -203,13 +204,13 @@ class TestSsdChunked:
                                     *(t(v[:, :13]) for v in (b, c)), 13, init_state=t(st))
         assert_close(gf, alone, "model_f32")
 
-    @pytest.mark.parametrize("s", [1, 20, 64, 65, 127])
+    @pytest.mark.parametrize("s", [1, 15, 16, 17, 20, 64, 65, 127])
     def test_short_step_chunk_matches_reference_padding(self, s):
         """The port runs a step shorter than ssm_chunk (128 here) as one chunk
-        of its length rounded up to 64 rows; the reference pads it to 128.
-        Same y and final state on the same inputs."""
+        of its length rounded up to the kernel's row tile; the reference pads
+        it to 128.  Same y and final state on the same inputs."""
         cfg = ModelConfig(**LONG_CHUNK)
-        assert ssm.chunk_len(s, 128) == (64 if s <= 64 else 128)
+        assert ssm.chunk_len(s, 128) == min(128, -(-s // ROW_TILE) * ROW_TILE)
         x, dt, a, b, c, st = ssd_inputs(2, s, 3, 4, 5, seed=s)
         pad = 128 - s
         jx, jdt, jb, jc = (jnp.pad(jnp.asarray(v), [(0, 0), (0, pad)] + [(0, 0)] * (v.ndim - 2))
@@ -222,8 +223,9 @@ class TestSsdChunked:
         assert_close(gf, wf, "model_f32")
 
     def test_chunk_len(self):
-        assert [ssm.chunk_len(s, 256) for s in (1, 64, 65, 200, 256, 300)] == \
-            [64, 64, 128, 256, 256, 256]
+        r = ROW_TILE
+        assert [ssm.chunk_len(s, 256) for s in (1, r, r + 1, 200, 256, 300)] == \
+            [r, r, 2 * r, -(-200 // r) * r, 256, 256]
         assert [ssm.chunk_len(s, 8) for s in (1, 8, 9)] == [8, 8, 8]
 
 
