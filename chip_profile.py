@@ -10,13 +10,18 @@ eight requests as ``chip_smoke.py`` through the paged engine, unpacked and
 packed; mamba2-130m at full width and depth serves ``chip_smoke.py``'s
 mamba requests the same way; then qwen2.5-3b trains one DropCompute step
 of ``chip_smoke.py``'s training run (step 0: 4 workers x 2 micro-batches
-of 2048 tokens at its tau).  Each
-run goes twice: once on the host clock alone (the wall time a user sees),
-then under ``torch.profiler`` for the kernels' device times (training: a
-warm-up step first).  The idle share is one minus the union of the
-kernels' device intervals over the unprofiled wall time.  Prints one JSON
-line per run and nothing else is claimed: profiling slows the host, never
-the kernels.
+of 2048 tokens at its tau).  Each run goes in two modes, eager
+(``repro_torch.graphs.disable_graphs()``) and graphed (each step a captured
+CUDA graph, the default), and in each mode twice: once on the host clock
+alone (the wall time a user sees), then under ``torch.profiler`` for the
+kernels' device times (a warm-up run first, which also captures the
+graphs).  The idle share is one minus the union of the kernels' device
+intervals over the unprofiled wall time; host launches are the launch
+calls the profiler records on the host (kernel launches, graph launches,
+copies and fills), per step (serving) or per kept micro-batch (training,
+where the graphed run's tail, every launch after its step's last graph
+launch, is counted apart).  Prints one JSON line per run and nothing else
+is claimed: profiling slows the host, never the kernels.
 
     python3 chip_profile.py --only kernels mamba --tag change
 
@@ -25,9 +30,10 @@ times, at its main-path shapes (``k4_timing``, ``k2_timing``,
 ``k2_bwd_checks_and_timing``, and K6 / K5 at the mamba serving shapes) and
 prints one JSON line; ``qwen`` and ``mamba`` profile one model's serving
 runs, ``train`` the training step.  A copy of this script placed at the
-root of another checkout (a ``git archive`` of a parent commit) imports
-that checkout's ``chip_smoke.py`` and kernels, so one call can time two
-trees in turns; ``--tag`` labels each line.
+root of another checkout (a ``git archive`` of a later commit: its
+``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
+checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
+in turns; ``--tag`` labels each line.
 """
 from __future__ import annotations
 
@@ -76,20 +82,18 @@ def family(name: str) -> str:
     return "other elementwise"
 
 
-def timed_run(cfg, params, prompts, packed, make=cs.engine):
-    eng = make(cfg, params, prompts, packed)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, eng.steps
+#: host calls that put work on the card (runtime and driver API names)
+LAUNCH_CALLS = re.compile(r"^(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|cuLaunchKernelEx"
+                          r"|cudaGraphLaunch|cudaMemcpyAsync|cudaMemsetAsync)")
 
 
 def kernel_intervals(prof):
-    """(name, start_us, end_us) of every device kernel in the trace."""
+    """(name, start_us, end_us) of every device kernel in the trace (not
+    the device-side copies of ``record_function`` spans)."""
     out = []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start
+                and not getattr(e, "is_user_annotation", False) and e.name != "train_step"):
             out.append((e.name, e.time_range.start, e.time_range.end))
     return out
 
@@ -108,12 +112,22 @@ def union_us(intervals) -> float:
     return busy
 
 
-def profile_record(prof, wall_s: float, per: int) -> dict:
-    """Device busy time, idle share and time by kernel family of one
-    profiled run (``per``: the steps or micro-batches to divide counts by)."""
-    ks = kernel_intervals(prof)
+def host_launches(prof):
+    """(name, start_us) of every launch call the host made in the trace."""
+    return [(e.name, e.time_range.start) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU and LAUNCH_CALLS.match(e.name)]
+
+
+def profile_record(prof, wall_s: float, per: int, window=None) -> dict:
+    """Device busy time, idle share, time by kernel family and host launches
+    of one profiled run (``per``: the steps or micro-batches to divide
+    counts by; ``window``: (start, end) us, the kernels starting and the
+    launches made inside it alone)."""
+    lo, hi = window or (float("-inf"), float("inf"))
+    ks = [k for k in kernel_intervals(prof) if lo <= k[1] <= hi]
     if not ks:
         raise RuntimeError("the profiler recorded no device kernels")
+    calls = [c for c in host_launches(prof) if lo <= c[1] <= hi]
     by_fam, by_name, n_fam = defaultdict(float), defaultdict(float), defaultdict(int)
     for name, s, e in ks:
         by_fam[family(name)] += (e - s) / 1e3
@@ -123,57 +137,90 @@ def profile_record(prof, wall_s: float, per: int) -> dict:
     return {
         "wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / (wall_s * 1e3), "kernels_per_unit": len(ks) / per,
+        "host_launches_per_unit": len(calls) / per if calls else "not measured",
+        "graph_launches": sum(1 for n, _ in calls if n.startswith("cudaGraphLaunch")),
         "families_ms": {k: v for k, v in sorted(by_fam.items(), key=lambda x: -x[1])},
         "families_launches": dict(n_fam),
         "top_kernels_ms": dict(sorted(by_name.items(), key=lambda x: -x[1])[:8]),
     }
 
 
-def train_profile(cfg, seed: int) -> dict:
-    """One training step of ``chip_smoke.train_phase``'s run (its step 0)."""
+def train_profile(cfg, seed: int, eager: bool) -> dict:
+    """Step 1 of a 2-step run of ``chip_smoke.train_phase``'s training (its
+    steps 0 and 1), eager or graphed: step 0 builds the kernels and
+    captures the micro-batch graph, step 1 replays it.  The record covers
+    the trainer's ``train_step`` span of step 1 (host launches in it, device
+    kernels that start in it); its wall time is step 1's ``step_s`` of an
+    unprofiled run."""
     n, m = cs.TRAIN_WORKERS, cs.TRAIN_MB
-    data = cs.DataConfig(vocab_size=cfg.vocab_size, seq_len=cs.TRAIN_SEQ, batch_size=n * m,
-                         strategy="pack", seed=seed)
-    latency = cs.LatencyModel(base=0.45, noise=cs.NoiseModel(kind="paper_lognormal"))
-    draws = [latency.sample_at(step, n, m, seed=seed + 1) for step in range(cs.TRAIN_STEPS)]
-    tau = float(np.median(np.stack(draws).sum(-1)))
-    tcfg = cs.TrainConfig(steps=1, n_workers=n, microbatches=m, lr=1e-4, clip_norm=1.0,
+    data, latency, tau, masks = cs.train_setup(cfg, seed)
+    tcfg = cs.TrainConfig(steps=2, n_workers=n, microbatches=m, lr=1e-4, clip_norm=1.0,
                           seed=seed, latency=latency, drop=cs.DropConfig(enabled=True, tau=tau))
-    kept = int(cs.drop_mask(draws[0], tau, 1).sum())
+    kept = int(masks[1].sum())
     params = init_params(cfg, seed=seed, device="cuda")
-    cs.train(cfg, data, tcfg, params=params, device="cuda")  # warm-up: JIT, cuBLAS plans
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cs.train(cfg, data, tcfg, params=params, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        cs.train(cfg, data, tcfg, params=params, device="cuda")
-        torch.cuda.synchronize()
-    rec = {"tag": TAG, "run": "train", "kept_microbatches": kept,
-           **profile_record(prof, wall, kept)}
+    with cs.mode(eager):
+        res = cs.train(cfg, data, tcfg, params=params, device="cuda")
+        wall = res.metrics["step_s"][1]
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            cs.train(cfg, data, tcfg, params=params, device="cuda")
+            torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name == "train_step" and e.device_type == torch.autograd.DeviceType.CPU)
+    lo, hi = spans[-1]
+    rec = {"tag": TAG, "run": "train", "mode": "eager" if eager else "graphed",
+           "kept_microbatches": kept, **profile_record(prof, wall, kept, window=(lo, hi))}
     rec["k2_bwd_ms"] = sum(v for k, v in rec["families_ms"].items()
                            if k.startswith("K2 rmsnorm: backward"))
+    calls = [t for _, t in host_launches(prof) if lo <= t <= hi]
+    graph_at = [t for name, t in host_launches(prof)
+                if name.startswith("cudaGraphLaunch") and lo <= t <= hi]
+    if graph_at:  # the eager calls around the replays: the refill before, the tail after
+        rec["refill_host_launches"] = sum(1 for t in calls if t < graph_at[0])
+        rec["tail_host_launches"] = sum(1 for t in calls if t > graph_at[-1])
     return rec
 
 
+def warm_engine(cfg, params, prompts, packed, make, eager):
+    """An engine that has served a warm-up set (the prompts' lengths, other
+    tokens, so no prefix is shared with them: kernels built, its step
+    graphs captured), with ``prompts`` submitted."""
+    warm = [[(t + 1) % cfg.vocab_size for t in p] for p in prompts]
+    eng = make(cfg, params, warm, packed)
+    with cs.mode(eager):
+        eng.run()
+    eng.reset_stats()
+    for i, p in enumerate(prompts):
+        eng.submit(cs.Request(uid=i, prompt=list(p), max_new_tokens=cs.NEW_TOKENS))
+    return eng
+
+
 def serve_profiles(cfg, params, prompts, make) -> None:
-    """Warm up, then for the unpacked and the packed engine: the wall time
+    """For the unpacked and the packed engine, eager and graphed, each on an
+    engine warmed up on another set (``warm_engine``): the wall time
     unprofiled, then the profiled run's record (one JSON line each)."""
-    timed_run(cfg, params, prompts, True, make)  # warm-up: kernel builds, cuBLAS plans
     for packed in (False, True):
-        wall, steps = timed_run(cfg, params, prompts, packed, make)
-        eng = make(cfg, params, prompts, packed)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            eng.run()
+        for eager in (True, False):
+            eng = warm_engine(cfg, params, prompts, packed, make, eager)
             torch.cuda.synchronize()
-        rec = {"tag": TAG, "run": "serve", "model": cfg.name,
-               "layout": "packed" if packed else "unpacked",
-               "steps": steps, **profile_record(prof, wall, eng.steps)}
-        rec["k4_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K4"))
-        print(json.dumps(rec), flush=True)
+            t0 = time.perf_counter()
+            with cs.mode(eager):
+                eng.run()
+            torch.cuda.synchronize()
+            wall, steps = time.perf_counter() - t0, eng.steps
+            eng = warm_engine(cfg, params, prompts, packed, make, eager)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with cs.mode(eager), torch.profiler.profile(activities=acts) as prof:
+                eng.run()
+                torch.cuda.synchronize()
+            rec = {"tag": TAG, "run": "serve", "model": cfg.name,
+                   "layout": "packed" if packed else "unpacked",
+                   "mode": "eager" if eager else "graphed",
+                   "steps": steps, **profile_record(prof, wall, eng.steps)}
+            rec["k4_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K4"))
+            print(json.dumps(rec), flush=True)
+            del eng
+            cs.free_device()
 
 
 TAG = ""
@@ -245,7 +292,9 @@ def main() -> int:
             serve_profiles(mcfg, params, mprompts,
                            lambda c, p, pr, packed: cs.mamba_engine(c, p, pr, "paged", packed))
         else:
-            print(json.dumps(train_profile(cfg, args.seed)), flush=True)
+            for eager in (True, False):
+                print(json.dumps(train_profile(cfg, args.seed, eager)), flush=True)
+                cs.free_device()
         params = None
         cs.free_device()
     return 0

@@ -4,7 +4,14 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, in order; any failed check raises and the script exits non-zero
-without printing a result:
+without printing a result.  Every serving and training path runs twice:
+eagerly under ``repro_torch.graphs.disable_graphs()`` and as the default,
+each step a captured CUDA graph (``graphs.StepGraph``; its capture time and
+pool size printed); the graphed runs are the main path (the launch
+counters' window) and must give the eager runs' streams, losses and
+gradient leaves (bit-identical, or within ``GRAPH_LEAF_GAP`` of a leaf's
+norm with the leaf that differs named).  A planted fault, one replay whose
+input copy is skipped, must fail the stream check.
 
 1. device — the card's name and power limit (``nvidia-smi``); fails
    without CUDA;
@@ -21,8 +28,9 @@ without printing a result:
    * paged attention (K4): bf16 and int8 pools, window, softcap, hostile
      tables, padding and fully masked queries, the decode step's grid split
      many ways, a prefill-sized grid; the tile plan passed or made by the
-     wrapper; a planted fault (a tile's last page skipped) must fail the
-     same check;
+     wrapper, and padded to a packed step's fixed rows as the engine makes
+     it (timed padded, the unpadded plan beside); a planted fault (a tile's
+     last page skipped) must fail the same check;
    * RMSNorm (K2): d = 2048, both modes, bf16 and f32, row counts on and
      off the block, timed at serving's and training's shapes; its backward
      at the training shape (2048 x 2048): two runs bit-identical, and a
@@ -52,9 +60,10 @@ without printing a result:
    ``--seed``) through ``ContinuousBatcher(cache="paged", chunk_size=64,
    token_budget=256)``, unpacked then packed, 8 requests of 128-512 prompt
    tokens and 32 new tokens each; the launch counters must show 36
-   paged-attention and 73 RMSNorm launches per engine step, and the first
-   prefill step's logits must agree with the dense-cache engine's plain
-   attention;
+   paged-attention and 73 RMSNorm launches per engine step (a replay adds
+   what its capture recorded), and the first prefill step's logits must
+   agree with the dense-cache engine's plain attention; the planted
+   stale-input fault runs here;
 5. Mamba-2 serving — mamba2-130m at full width and depth (24 layers,
    d_model 768, random weights from ``--seed``, f32 master and bf16 compute
    copy) through ``ContinuousBatcher(chunk_size=64, token_budget=256)`` on
@@ -75,7 +84,9 @@ without printing a result:
    the run's per-worker latency sums under ``paper_lognormal``), 3 steps.
    Losses must be finite, the drop fractions those of the numpy latency
    draws, and the launch counters those the code implies per kept
-   micro-batch; then a 2-layer full-width model at 256 tokens must give
+   micro-batch; the final parameters and step 0's accumulated gradient
+   (36 layers) of the graphed run against the eager run's; then a 2-layer
+   full-width model at 256 tokens must give
    ``loss_sum`` and every gradient leaf on the card (kernels, bf16)
    within a stated tolerance of the CPU's (plain versions, f32), and a
    planted K3 backward fault must fall outside it.
@@ -106,10 +117,12 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.configs import get_config  # noqa: E402  (fails outside a checkout)
-from repro_torch.core import DropConfig, LatencyModel, NoiseModel, drop_mask  # noqa: E402
+from repro_torch import graphs  # noqa: E402  (fails outside a checkout)
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import Accumulator, DropConfig, LatencyModel, NoiseModel  # noqa: E402
+from repro_torch.core import accumulate_grads, drop_mask  # noqa: E402
 from repro_torch.core.engine import make_grad_fn  # noqa: E402
-from repro_torch.data import DataConfig  # noqa: E402
+from repro_torch.data import DataConfig, microbatches_at  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
 from repro_torch.kernels import ssd_chunk  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
@@ -188,6 +201,11 @@ K2_BWD_F32_REL_TOL = 1e-5
 # instead of all g), whose worst leaf the smoke also checks: see PERF.md.
 PARITY_LOSS_REL_TOL = 0.01
 PARITY_LEAF_REL_TOL = 0.05
+# A graphed step against the same step run eagerly (``disable_graphs``): the
+# same kernels on the same inputs, so bit-identical is expected; where a
+# library picks another algorithm under capture, the largest gap of a
+# gradient leaf (or a loss) must stay below 1e-3 of its norm.
+GRAPH_LEAF_GAP = 1e-3
 # K6 / K5 against their plain versions on the card, both f32, row by row
 # (``row_rel_err``): C . B^T summed in the plain version's order, att . x in
 # 3xTF32 (dropped lo.lo terms ~2^-22 relative), CUDA's expf (2 ulp) against
@@ -435,10 +453,17 @@ def skip_last_page(a, plan_row):
     return dict(a, tables=tables, q_slots=slots)
 
 
-def step_plan(a, window=0):
-    """The tile plan of a scenario, as ``step_index`` makes it for a step."""
+def step_plan(a, window=0, rows=None):
+    """The tile plan of a scenario, as the engine makes it for a step
+    (``rows``: padded with empty tiles to that many rows)."""
     return flash_attention.tile_plan_tensor(a["q_pos"], a["q_slots"], a["k_pool"].shape[1],
-                                            a["tables"].shape[1], window)
+                                            a["tables"].shape[1], window, rows)
+
+
+def packed_rows(a) -> int:
+    """The plan rows of a packed step of the scenario's tokens and slots
+    (``step_plan_rows``): what the engine pads its plan to."""
+    return flash_attention.step_plan_rows(a["q"].shape[0], a["tables"].shape[0], True)
 
 
 def k4_checks(rng, prompt_lens):
@@ -487,17 +512,26 @@ def k4_checks(rng, prompt_lens):
         plan = step_plan(a, kw.get("window", 0))
         out = flash_attention.paged_flash_attention(**a, **kw)
         again = flash_attention.paged_flash_attention(**a, **kw, plan=plan)
+        # the engine's plan: padded to a packed step's fixed rows, where the
+        # scenario is shaped like one (each slot one run of tokens)
+        rows = packed_rows(a)
+        padded = (flash_attention.paged_flash_attention(
+            **a, **kw, plan=step_plan(a, kw.get("window", 0), rows))
+            if plan.shape[0] <= rows else None)
         want = ref.paged_attention_ref(**a, **kw)
         torch.cuda.synchronize()
         check(torch.equal(out, again), f"K4 {name}: the step's plan and the wrapper's differ")
-        err = (out.float() - want.float()).abs().max().item()
-        max_err = max(max_err, err)
-        check(bool(torch.isfinite(out.float()).all()), f"K4 {name}: non-finite output")
-        check(torch.allclose(out.float(), want.float(), **K4_TOL),
-              f"K4 {name}: max |err| {err} beyond {K4_TOL}")
-        if zero_rows is not None:
-            check(int(zero_rows.sum()) > 0, f"K4 {name}: scenario has no zero rows")
-            check(bool((out[zero_rows] == 0).all()), f"K4 {name}: rows not exactly zero")
+        for got in (out, padded):
+            if got is None:
+                continue
+            err = (got.float() - want.float()).abs().max().item()
+            max_err = max(max_err, err)
+            check(bool(torch.isfinite(got.float()).all()), f"K4 {name}: non-finite output")
+            check(torch.allclose(got.float(), want.float(), **K4_TOL),
+                  f"K4 {name}: max |err| {err} beyond {K4_TOL}")
+            if zero_rows is not None:
+                check(int(zero_rows.sum()) > 0, f"K4 {name}: scenario has no zero rows")
+                check(bool((got[zero_rows] == 0).all()), f"K4 {name}: rows not exactly zero")
         t = a["q"].shape[0]
         splits, _ = flash_attention.split_blocks(plan.shape[0] * KV, BLOCKS,
                                                  flash_attention._sm_count(0))
@@ -513,29 +547,35 @@ def k4_checks(rng, prompt_lens):
             log(f"K4 {name}: planted fault (tile of {row[1]} tokens, its last page "
                 f"skipped): max|err|={bad_err:.3e}, rejected")
         log(f"K4 {name:15s} T={t:3d} tiles={plan.shape[0]:3d} splits={splits} "
-            f"max|err|={err:.3e} ok")
+            f"max|err|={err:.3e} ok"
+            + (f"; padded to {rows} rows (a packed step's plan) ok" if padded is not None
+               else ""))
     return max_err
 
 
 def k4_timing(rng, prompt_lens):
     """Kernel, plain version and bound at two main-path shapes: a decode
     step (one query per slot, mid-generation) and a mixed packed step (4
-    prefill chunks of 64)."""
+    prefill chunks of 64), each over the plan the engine makes (padded to
+    a packed step's fixed rows; the decode step's needs no padding), the
+    unpadded plan's time beside it."""
     decode = decode_scenario(rng, prompt_lens)
     mixed = paged_scenario(rng, [n for n in prompt_lens], [CHUNK] * 4 + [1] * 4)
     rows = {}
     for shape, a in (("decode", decode), ("mixed", mixed)):
-        plan = step_plan(a)  # made once per step by step_index, outside the layers' calls
+        plan = step_plan(a, rows=packed_rows(a))  # made once per step by the engine
+        tight = step_plan(a)
         kern = time_ms(lambda: flash_attention.paged_flash_attention(**a, plan=plan))
+        kern_tight = time_ms(lambda: flash_attention.paged_flash_attention(**a, plan=tight))
         plain = time_ms(lambda: ref.paged_attention_ref(**a), iters=10)
         nbytes, flops = paged_cost(a)
         b, by = bound_ms(nbytes, flops)
         rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by,
-                           T=a["q"].shape[0])
-        log(f"K4 time {shape:6s} T={a['q'].shape[0]:4d} tiles={plan.shape[0]}: kernel "
-            f"{kern * 1e3:.1f} us, "
-            f"plain {plain * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by}), "
-            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+                           T=a["q"].shape[0], unpadded_ms=kern_tight)
+        log(f"K4 time {shape:6s} T={a['q'].shape[0]:4d} plan rows={plan.shape[0]} "
+            f"({tight.shape[0]} tiles): kernel {kern * 1e3:.1f} us (unpadded plan "
+            f"{kern_tight * 1e3:.1f} us), plain {plain * 1e3:.1f} us, bound {b * 1e3:.2f} us "
+            f"({by}), {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
     return rows
 
 
@@ -1115,18 +1155,53 @@ def engine(cfg, params, prompts, packed: bool) -> ContinuousBatcher:
     return eng
 
 
-def serve(cfg, params, prompts, packed: bool):
-    eng = engine(cfg, params, prompts, packed)
+def mode(eager: bool):
+    """The context a run's mode needs: ``graphs.disable_graphs()`` for an
+    eager run, nothing for the default (each step a CUDA graph)."""
+    return graphs.disable_graphs() if eager else contextlib.nullcontext()
+
+
+def graph_line(eng_or_acc) -> str:
+    """The captures of an engine's (or accumulator's) step graphs: how
+    many, the host seconds their warm-ups and captures took, the device
+    memory their pool holds."""
+    stats = eng_or_acc.step_graph.stats()
+    return (f"{len(stats)} graphs captured in {sum(t for t, _ in stats.values()):.2f} s, "
+            f"pool {sum(b for _, b in stats.values()) / 2**30:.2f} GiB")
+
+
+def run_engine(eng, eager: bool):
+    """Run an engine to the end in ``eager`` or graphed mode; returns its
+    wall seconds, its launches and its peak device memory (GiB)."""
     before = ops.launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run()
+    with mode(eager):
+        eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     after = ops.launch_counts()
-    runs = {k: after[k] - before[k] for k in after}
-    tag = "packed" if packed else "unpacked"
+    return wall, {k: after[k] - before[k] for k in after}, torch.cuda.max_memory_allocated() / 2**30
+
+
+def step_record(eng, prompts, wall, peak) -> dict:
+    decode_ms = [st.wall_time * 1e3 for st in eng.step_stats if st.prefill_tokens == 0]
+    mixed_ms = [st.wall_time * 1e3 for st in eng.step_stats if st.prefill_tokens > 0]
+    gen = sum(len(r.output) for r in eng.finished.values())
+    return dict(steps=eng.steps, mixed_steps=len(mixed_ms), decode_ms=statistics.median(decode_ms),
+                mixed_ms=statistics.median(mixed_ms), gen_tok_s=gen / wall,
+                processed_tok_s=(gen + sum(map(len, prompts))) / wall, wall_s=wall, peak_gib=peak,
+                step_stats=eng.step_stats,
+                first_token_steps={r.first_token_step for r in eng.finished.values()})
+
+
+def serve(cfg, params, prompts, packed: bool, eager: bool = False, tag: str = ""):
+    """One qwen serving run, eager (``disable_graphs``) or graphed, checked;
+    returns the streams, the run's launches and its numbers."""
+    eng = engine(cfg, params, prompts, packed)
+    wall, runs, peak = run_engine(eng, eager)
+    tag = f"{tag or ('eager' if eager else 'graphed')} {'packed' if packed else 'unpacked'}"
     check(sorted(eng.finished) == list(range(SLOTS)), f"{tag}: unfinished requests")
     for r in eng.finished.values():
         check(len(r.output) == NEW_TOKENS and not r.truncated,
@@ -1139,19 +1214,89 @@ def serve(cfg, params, prompts, packed: bool):
           f"{tag}: {runs['paged_attention']} paged-attention launches over {steps} steps")
     check(runs["rmsnorm"] == (2 * cfg.n_layers + 1) * steps,
           f"{tag}: {runs['rmsnorm']} rmsnorm launches over {steps} steps")
-    decode_ms = [s.wall_time * 1e3 for s in eng.step_stats if s.prefill_tokens == 0]
-    mixed_ms = [s.wall_time * 1e3 for s in eng.step_stats if s.prefill_tokens > 0]
-    gen = sum(len(r.output) for r in eng.finished.values())
+    rec = step_record(eng, prompts, wall, peak)
     summary = eng.stats_summary()
-    log(f"serve {tag}: {steps} steps ({len(mixed_ms)} mixed, {len(decode_ms)} decode-only), "
-        f"launches/step K4={runs['paged_attention'] / steps:.0f} "
+    log(f"serve {tag}: {steps} steps ({rec['mixed_steps']} mixed, {steps - rec['mixed_steps']} "
+        f"decode-only), launches/step K4={runs['paged_attention'] / steps:.0f} "
         f"K2={runs['rmsnorm'] / steps:.0f}; median step ms: decode-only "
-        f"{statistics.median(decode_ms):.2f}, mixed {statistics.median(mixed_ms):.2f}; "
-        f"{gen / wall:.1f} generated tok/s, {(gen + sum(map(len, prompts))) / wall:.1f} "
-        f"processed tok/s over {wall:.2f} s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; peak pages "
-        f"{summary['peak_used_pages']:.0f}/{summary['num_pages']:.0f}")
-    return {u: r.output for u, r in eng.finished.items()}, runs
+        f"{rec['decode_ms']:.2f}, mixed {rec['mixed_ms']:.2f}; {rec['gen_tok_s']:.1f} generated "
+        f"tok/s, {rec['processed_tok_s']:.1f} processed tok/s over {wall:.2f} s; peak device "
+        f"memory {peak:.2f} GiB; peak pages {summary['peak_used_pages']:.0f}/"
+        f"{summary['num_pages']:.0f}" + ("" if eager else f"; {graph_line(eng)}"))
+    return {u: r.output for u, r in eng.finished.items()}, runs, rec
+
+
+@contextlib.contextmanager
+def stale_inputs(at_replay: int):
+    """A planted fault: the ``at_replay``-th replay of any step graph skips
+    copying its inputs into the graph's static buffers, so it recomputes
+    the previous step of its shape."""
+    sound = graphs.StepGraph.load_inputs
+    replays = [0]
+
+    def faulty(self, static, inputs):
+        replays[0] += 1
+        if replays[0] != at_replay:
+            sound(self, static, inputs)
+
+    graphs.StepGraph.load_inputs = faulty
+    try:
+        yield replays
+    finally:
+        graphs.StepGraph.load_inputs = sound
+
+
+def first_token_replay(rec) -> int:
+    """Which replay (counted from 1 over an unpacked run's graphs: a mixed
+    and a decode step shape) is the first to emit some request's first
+    token, by the run's schedule: a stale input there feeds that request's
+    last prompt column another token, so its first token changes."""
+    seen, replays = set(), 0
+    for st in rec["step_stats"]:
+        mixed = st.prefill_tokens > 0  # the step's shape: (B, CHUNK) or (B, 1)
+        if mixed in seen:
+            replays += 1
+            if st.step in rec["first_token_steps"]:
+                return replays
+        seen.add(mixed)
+    raise SmokeFailure("no replayed step emits a first token")
+
+
+def agreement(a, b) -> int:
+    """Greedy tokens on which two runs' streams agree."""
+    return sum(x == y for u in a for x, y in zip(a[u], b[u]))
+
+
+def same_streams(tag, graphed, eager) -> None:
+    total = SLOTS * NEW_TOKENS
+    same = agreement(graphed, eager)
+    log(f"{tag}: graphed vs eager greedy streams: {same}/{total} tokens agree")
+    check(graphed == eager, f"{tag}: the graphed streams differ from the eager ones "
+                            f"({same}/{total} tokens agree)")
+
+
+def qwen_serving(cfg, params, prompts):
+    """qwen2.5-3b's serving runs: eager (``disable_graphs``) unpacked and
+    packed, the planted stale-input fault, then the graphed runs (the main
+    path, the counters' window); the streams of each layout must be
+    identical, the fault's must not."""
+    eager = {p: serve(cfg, params, prompts, p, eager=True) for p in (False, True)}
+    at = first_token_replay(eager[False][2])
+    with stale_inputs(at) as replays:
+        bad, _, _ = serve(cfg, params, prompts, False, tag="planted fault (stale inputs)")
+    check(replays[0] >= at, f"the planted fault saw {replays[0]} replays, not {at}")
+    bad_same = agreement(bad, eager[False][0])
+    log(f"planted fault, the input copy of replay {at} (of {replays[0]}) skipped: "
+        f"{bad_same}/{SLOTS * NEW_TOKENS} tokens agree with the eager streams, rejected")
+    check(bad != eager[False][0], "the stream check lets a replay with stale inputs pass")
+    ops.reset_launch_counts()  # the main path starts here
+    graphed = {p: serve(cfg, params, prompts, p) for p in (False, True)}
+    counts = ops.launch_counts()  # ... and ends here
+    for p in (False, True):
+        same_streams(f"qwen {'packed' if p else 'unpacked'}", graphed[p][0], eager[p][0])
+    same = agreement(graphed[False][0], graphed[True][0])
+    log(f"packed vs unpacked greedy agreement: {same}/{SLOTS * NEW_TOKENS}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1243,20 +1388,14 @@ def mamba_engine(cfg, params, prompts, cache: str, packed: bool) -> ContinuousBa
     return eng
 
 
-def mamba_serve(cfg, params, prompts, cache: str, packed: bool):
-    """One serving run of the mamba phase, checked; returns the streams,
-    the run's launches and its numbers."""
+def mamba_serve(cfg, params, prompts, cache: str, packed: bool, eager: bool = False):
+    """One serving run of the mamba phase, eager (``disable_graphs``) or
+    graphed, checked; returns the streams, the run's launches and its
+    numbers."""
     eng = mamba_engine(cfg, params, prompts, cache, packed)
-    before = ops.launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    after = ops.launch_counts()
-    runs = {k: after[k] - before[k] for k in after}
-    tag = f"mamba {cache} {'packed' if packed else 'unpacked'}"
+    wall, runs, peak = run_engine(eng, eager)
+    tag = (f"mamba {cache} {'packed' if packed else 'unpacked'} "
+           f"{'eager' if eager else 'graphed'}")
     check(sorted(eng.finished) == list(range(SLOTS)), f"{tag}: unfinished requests")
     for r in eng.finished.values():
         check(len(r.output) == NEW_TOKENS and not r.truncated,
@@ -1272,19 +1411,14 @@ def mamba_serve(cfg, params, prompts, cache: str, packed: bool):
     want["ssd_segment" if packed else "ssd_chunk"] = n * steps
     want["rmsnorm"] = (n + 1) * steps
     check(runs == want, f"{tag}: launches {runs} over {steps} steps, the code implies {want}")
-    decode_ms = [st.wall_time * 1e3 for st in eng.step_stats if st.prefill_tokens == 0]
-    mixed_ms = [st.wall_time * 1e3 for st in eng.step_stats if st.prefill_tokens > 0]
-    gen = sum(len(r.output) for r in eng.finished.values())
-    rec = dict(steps=steps, mixed_steps=len(mixed_ms), decode_ms=statistics.median(decode_ms),
-               mixed_ms=statistics.median(mixed_ms), gen_tok_s=gen / wall,
-               processed_tok_s=(gen + sum(map(len, prompts))) / wall, wall_s=wall,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"serve {tag}: {steps} steps ({len(mixed_ms)} mixed, {len(decode_ms)} decode-only), "
+    rec = step_record(eng, prompts, wall, peak)
+    log(f"serve {tag}: {steps} steps ({rec['mixed_steps']} mixed, "
+        f"{steps - rec['mixed_steps']} decode-only), "
         f"launches/step K6={runs['ssd_chunk'] / steps:.0f} K5={runs['ssd_segment'] / steps:.0f} "
         f"K2={runs['rmsnorm'] / steps:.0f}; median step ms: decode-only {rec['decode_ms']:.2f}, "
         f"mixed {rec['mixed_ms']:.2f}; {rec['gen_tok_s']:.1f} generated tok/s, "
         f"{rec['processed_tok_s']:.1f} processed tok/s over {wall:.2f} s; peak device memory "
-        f"{rec['peak_gib']:.2f} GiB")
+        f"{peak:.2f} GiB" + ("" if eager else f"; {graph_line(eng)}"))
     return {u: r.output for u, r in eng.finished.items()}, runs, rec
 
 
@@ -1315,13 +1449,14 @@ def f32_agreement(cfg, seed: int, prompts) -> int:
         eng = mamba_engine(c32, params, prompts, "dense", packed)
         eng.run()
         outs.append({u: r.output for u, r in eng.finished.items()})
-    return sum(x == y for u in outs[0] for x, y in zip(outs[0][u], outs[1][u]))
+    return agreement(outs[0], outs[1])
 
 
 def mamba_phase(seed: int):
     """mamba2-130m at full width and depth: the 2-layer parity first, then
-    the four serving runs (the counters' window), then the decode step with
-    and without the shortened chunk (in turns)."""
+    the four serving runs eager (``disable_graphs``) and graphed (the
+    counters' window; streams identical), then the decode step with and
+    without the shortened chunk (in turns)."""
     cfg = get_config("mamba2_130m")
     lens, prompts = mamba_requests(cfg, seed)
     mamba_parity(cfg, seed, prompts)
@@ -1332,23 +1467,21 @@ def mamba_phase(seed: int):
     log(f"mamba2-130m: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.param_count() / 1e6:.1f} M parameters, f32 init + bf16 compute copy in "
         f"{time.perf_counter() - t0:.1f} s; prompt lens {lens}")
+    layouts = [(cache, packed) for cache in ("dense", "paged") for packed in (False, True)]
+    eager = {k: mamba_serve(cfg, params, prompts, *k, eager=True)[0] for k in layouts}
     outs, recs = {}, {}
     ops.reset_launch_counts()  # the main path starts here
-    for cache in ("dense", "paged"):
-        for packed in (False, True):
-            outs[cache, packed], _, recs[cache, packed] = mamba_serve(cfg, params, prompts,
-                                                                      cache, packed)
+    for k in layouts:
+        outs[k], _, recs[k] = mamba_serve(cfg, params, prompts, *k)
     counts = ops.launch_counts()  # ... and ends here
     total = SLOTS * NEW_TOKENS
-
-    def agree(a, b):
-        return sum(x == y for u in a for x, y in zip(a[u], b[u]))
-
+    for k in layouts:
+        same_streams(f"mamba {k[0]} {'packed' if k[1] else 'unpacked'}", outs[k], eager[k])
     for packed in (False, True):
         log(f"mamba dense vs paged cache ({'packed' if packed else 'unpacked'}) greedy agreement: "
-            f"{agree(outs['dense', packed], outs['paged', packed])}/{total}")
+            f"{agreement(outs['dense', packed], outs['paged', packed])}/{total}")
     log(f"mamba packed vs unpacked greedy agreement: "
-        f"{agree(outs['dense', False], outs['dense', True])}/{total}")
+        f"{agreement(outs['dense', False], outs['dense', True])}/{total}")
     check(counts["ssd_chunk"] > 0 and counts["ssd_segment"] > 0 and counts["rmsnorm"] > 0,
           f"mamba: kernels not run: {counts}")
     short = [decode_step_ms(cfg, params, t) for t in (ssm.ROW_TILE, cfg.ssm_chunk,
@@ -1382,10 +1515,9 @@ def launches_per_microbatch(cfg, n_leaves: int):
             "masked_accum": n_leaves, "ssd_chunk": 0, "ssd_segment": 0}
 
 
-def train_phase(cfg, seed: int):
-    """qwen2.5-3b at full depth through ``repro_torch.train.train``."""
-    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
-          "the training phase wants remat, bf16 compute and f32 master weights")
+def train_setup(cfg, seed: int):
+    """The training run's data, latency model, tau and the masks its numpy
+    latency draws give."""
     n, m = TRAIN_WORKERS, TRAIN_MB
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=n * m,
                       strategy="pack", seed=seed)
@@ -1395,43 +1527,136 @@ def train_phase(cfg, seed: int):
     draws = [latency.sample_at(step, n, m, seed=seed + 1) for step in range(TRAIN_STEPS)]
     tau = float(np.median(np.stack(draws).sum(-1)))
     masks = [drop_mask(t, tau, 1).numpy() for t in draws]
+    return data, latency, tau, masks
+
+
+def train_run(cfg, seed: int, eager: bool):
+    """One 3-step training run from ``--seed``'s weights, eager or graphed:
+    (result, final f32 parameters, launches, peak GiB, wall s)."""
+    data, latency, tau, _ = train_setup(cfg, seed)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, n_workers=TRAIN_WORKERS, microbatches=TRAIN_MB,
+                       optimizer="adamw", lr=1e-4, clip_norm=1.0, seed=seed, latency=latency,
+                       drop=DropConfig(enabled=True, tau=tau))
+    params = init_params(cfg, seed=seed, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    with mode(eager):
+        res = train(cfg, data, tcfg, params=params, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = ops.launch_counts()
+    return (res, params, {k: after[k] - before[k] for k in after},
+            torch.cuda.max_memory_allocated() / 2**30, wall)
+
+
+def leaf_gaps(names, got, want) -> dict:
+    """Per named leaf: 0 when the two are bit-identical, else their largest
+    gap over the leaf's norm (each pair moved to the card in turn)."""
+    gaps = {}
+    for k, g, w in zip(names, got, want):
+        g, w = g.to(DEV), w.to(DEV)
+        gaps[k] = 0.0 if torch.equal(g, w) else float(
+            (g.float() - w.float()).abs().max() / torch.linalg.vector_norm(w.float()))
+    return gaps
+
+
+def check_gaps(what: str, gaps: dict) -> None:
+    """Bit-identical, or else the call that differs named with its largest
+    gap, which must stay below 1e-3 of its leaf's norm."""
+    differ = {k: v for k, v in gaps.items() if v}
+    if not differ:
+        log(f"{what}: graphed and eager bit-identical ({len(gaps)} leaves)")
+        return
+    worst = max(differ, key=differ.get)
+    log(f"{what}: graphed and eager differ in {len(differ)} of {len(gaps)} leaves; largest gap "
+        f"{worst} {differ[worst]:.3e} of its norm")
+    check(differ[worst] < GRAPH_LEAF_GAP, f"{what}: leaf {worst} differs by {differ[worst]}")
+
+
+def train_phase(cfg, seed: int):
+    """qwen2.5-3b at full depth through ``repro_torch.train.train``, eager
+    (``disable_graphs``) then graphed (the counters' window): losses and
+    final parameters compared, launch counters checked in both."""
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
+          "the training phase wants remat, bf16 compute and f32 master weights")
+    n, m = TRAIN_WORKERS, TRAIN_MB
+    _, _, tau, masks = train_setup(cfg, seed)
     want_drops = [1.0 - float(np.float32(k.sum()) / np.float32(k.size)) for k in masks]
     kept = int(sum(k.sum() for k in masks))
     check(0 < kept < n * m * TRAIN_STEPS and max(want_drops) > 0,
           f"tau {tau} should drop some micro-batches, not all: {want_drops}")
-    tcfg = TrainConfig(steps=TRAIN_STEPS, n_workers=n, microbatches=m, optimizer="adamw",
-                       lr=1e-4, clip_norm=1.0, seed=seed, latency=latency,
-                       drop=DropConfig(enabled=True, tau=tau))
-    params = init_params(cfg, seed=seed, device=DEV)
-    n_leaves = len(tree_leaves(params))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()  # the training path starts here
-    t0 = time.perf_counter()
-    res = train(cfg, data, tcfg, params=params, device=DEV)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()  # ... and ends here
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    check(all(math.isfinite(x) for x in res.losses), f"non-finite losses {res.losses}")
-    check(res.drop_fractions == want_drops,
-          f"drop fractions {res.drop_fractions}, the latency draws give {want_drops}")
+    n_leaves = len(tree_leaves(init_params(cfg, seed=seed, device="meta")))
     per_mb = launches_per_microbatch(cfg, n_leaves)
     want = {k: kept * v for k, v in per_mb.items()}
-    check(counts == want, f"training launches {counts}, the code implies {want}")
-    steps = res.metrics["step_s"]
     kept_per_step = [int(k.sum()) for k in masks]
-    tok_s = [kps * TRAIN_SEQ / s for kps, s in zip(kept_per_step, steps)]
-    mb_ms = [[round(t * 1e3, 1) for t in ts] for ts in res.metrics["microbatch_s"]]
-    log(f"train qwen2.5-3b: {cfg.n_layers} layers, seq {TRAIN_SEQ}, {n} workers x {m} "
-        f"micro-batches, tau {tau:.4f} s, drop fractions {res.drop_fractions} (kept "
-        f"{kept_per_step} micro-batches), losses {[round(x, 4) for x in res.losses]}")
-    log(f"train: step wall s {[round(x, 3) for x in steps]}; per kept micro-batch ms {mb_ms}; "
-        f"kept tokens/s {[round(x, 1) for x in tok_s]}; peak device memory {peak:.2f} GiB; "
-        f"whole call {wall:.1f} s")
-    log(f"train launches over {kept} kept micro-batches: {counts} (per micro-batch {per_mb})")
-    del params, res
+    runs = {}
+    for eager in (True, False):
+        tag = "eager" if eager else "graphed"
+        if not eager:
+            ops.reset_launch_counts()  # the training path starts here (read in train_run)
+        res, params, counts, peak, wall = train_run(cfg, seed, eager)
+        check(all(math.isfinite(x) for x in res.losses), f"{tag}: non-finite losses {res.losses}")
+        check(res.drop_fractions == want_drops,
+              f"{tag}: drop fractions {res.drop_fractions}, the latency draws give {want_drops}")
+        check(counts == want, f"{tag} training launches {counts}, the code implies {want}")
+        steps = res.metrics["step_s"]
+        tok_s = [kps * TRAIN_SEQ / st for kps, st in zip(kept_per_step, steps)]
+        mb_ms = [[round(t * 1e3, 1) for t in ts] for ts in res.metrics["microbatch_s"]]
+        log(f"train {tag} qwen2.5-3b: {cfg.n_layers} layers, seq {TRAIN_SEQ}, {n} workers x {m} "
+            f"micro-batches, tau {tau:.4f} s, drop fractions {res.drop_fractions} (kept "
+            f"{kept_per_step} micro-batches), losses {res.losses}")
+        log(f"train {tag}: step wall s {[round(x, 3) for x in steps]}; per kept micro-batch ms "
+            f"{mb_ms}; kept tokens/s {[round(x, 1) for x in tok_s]}; peak device memory "
+            f"{peak:.2f} GiB; whole call {wall:.1f} s")
+        log(f"train {tag} launches over {kept} kept micro-batches: {counts} (per micro-batch "
+            f"{per_mb})")
+        runs[tag] = (res.losses, [x.cpu() for x in tree_leaves(params)])
+        del res, params
+        free_device()
+    (got, got_p), (want_l, want_p) = runs["graphed"], runs["eager"]
+    same = [a == b for a, b in zip(got, want_l)]
+    log(f"train: graphed vs eager losses {'bit-identical' if all(same) else 'differ'}: {got} / "
+        f"{want_l}")
+    if not all(same):
+        step = same.index(False)
+        gap = abs(got[step] - want_l[step]) / abs(want_l[step])
+        log(f"train: step {step}'s loss differs by {gap:.3e} of it")
+        check(gap < GRAPH_LEAF_GAP, f"train: step {step}'s loss differs by {gap}")
+    names = [k for k, _ in named_leaves(init_params(cfg, seed=seed, device="meta"))]
+    check_gaps("train: final parameters after 3 steps", leaf_gaps(names, got_p, want_p))
     return counts
+
+
+def grad_phase(cfg, seed: int):
+    """One step's accumulated gradient at full depth (step 0's micro-batches,
+    its keep mask), eager and graphed: bit-identical, or within
+    ``GRAPH_LEAF_GAP`` of each leaf's norm; then the capture's cost."""
+    data, _, _, masks = train_setup(cfg, seed)
+    mbs = microbatches_at(0, data, TRAIN_WORKERS * TRAIN_MB)
+    mbs = {"tokens": torch.from_numpy(mbs["tokens"]).to(DEV, torch.long),
+           "weights": torch.from_numpy(mbs["weights"]).to(DEV)}
+    mask = masks[0].reshape(-1)
+    params = init_params(cfg, seed=seed, device=DEV)
+    compute = model_lib.train_params(params, cfg)
+    grad_fn = make_grad_fn(lambda p, mb: model_lib.loss_fn(p, cfg, mb))
+    grads = {}
+    for eager in (True, False):
+        acc = Accumulator(grad_fn, compute)
+        with mode(eager):
+            g, loss, _ = accumulate_grads(grad_fn, compute, mbs, mask, DropConfig(),
+                                          accumulator=acc)
+        torch.cuda.synchronize()
+        grads[eager] = (acc, float(loss))
+    acc, loss = grads[False]
+    log(f"grad check: {int(mask.sum())} of {mask.size} micro-batches kept; loss graphed "
+        f"{loss!r} / eager {grads[True][1]!r}; {graph_line(acc)}")
+    names = [k for k, _ in named_leaves(acc.tree)]
+    check_gaps(f"grad check: step 0's accumulated gradient, {cfg.n_layers} layers",
+               leaf_gaps(names, acc.leaves, grads[True][0].leaves))
+    check(loss == grads[True][1] or abs(loss - grads[True][1]) < GRAPH_LEAF_GAP * abs(loss),
+          f"grad check: loss {loss} against eager {grads[True][1]}")
 
 
 def named_leaves(tree, prefix=""):
@@ -1588,14 +1813,9 @@ def main() -> int:
     log(f"qwen2.5-3b: {cfg.param_count() / 1e9:.3f} B parameters, f32 init + bf16 "
         f"compute copy in {time.perf_counter() - t0:.1f} s; prompt lens {prompt_lens}")
     first_step_logits_check(cfg, params, prompts)
-    ops.reset_launch_counts()  # the main path starts here
-    out_unpacked, runs_u = serve(cfg, params, prompts, packed=False)
-    out_packed, runs_p = serve(cfg, params, prompts, packed=True)
-    counts = ops.launch_counts()  # ... and ends here
-    same = sum(a == b for u in out_unpacked for a, b in zip(out_unpacked[u], out_packed[u]))
-    log(f"packed vs unpacked greedy agreement: {same}/{SLOTS * NEW_TOKENS}")
-    check(counts["paged_attention"] > 0 and counts["rmsnorm"] > 0, f"kernels not run: {counts}")
-    serve_counts = counts
+    serve_counts = qwen_serving(cfg, params, prompts)
+    check(serve_counts["paged_attention"] > 0 and serve_counts["rmsnorm"] > 0,
+          f"kernels not run: {serve_counts}")
     del params
     free_device()
 
@@ -1605,6 +1825,8 @@ def main() -> int:
 
     # 6. training at full depth, then the 2-layer card-vs-CPU parity
     train_counts = train_phase(cfg, args.seed)
+    free_device()
+    grad_phase(cfg, args.seed)
     free_device()
     parity_phase(cfg, args.seed)
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] for k in serve_counts}

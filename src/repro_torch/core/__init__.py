@@ -2,6 +2,7 @@
 contribution (Algorithm 1, drop masks, engines) plus the numpy carry-overs
 (latency simulation, closed-form theory, Algorithm 2)."""
 from .dropcompute import (
+    Accumulator,
     DropConfig,
     accumulate_grads,
     completed_fraction,
@@ -24,6 +25,7 @@ from .theory import (
 from .threshold import ThresholdResult, gather_latency_profile, select_threshold
 
 __all__ = [
+    "Accumulator",
     "DropConfig",
     "accumulate_grads",
     "completed_fraction",

@@ -11,6 +11,12 @@ dropped micro-batch is skipped, so it costs nothing, and each kept one's
 gradients are added into an f32 accumulator by the masked-accumulate
 kernel (``kernels.ops.masked_accum``, K1).  Adding the reference's zeros
 for a dropped micro-batch changes no bit, so both give the same sums.
+
+The accumulator is an :class:`Accumulator`: allocated once and zeroed in
+place each step, with its micro-batch step (forward, backward, the K1
+adds) captured on the card as one CUDA graph per micro-batch shape
+(``graphs.StepGraph``, the reference's jitted step); the keep decision
+stays on the host between the replays.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from ..graphs import StepGraph
 from ..kernels import ops as kernel_ops
 from ..models.transformer import tree_leaves, tree_map
 
@@ -149,6 +156,53 @@ def add_microbatch(grad_fn, params: Tree, mb: dict, acc_leaves: list):
     return loss_sum, w_sum
 
 
+class Accumulator:
+    """The f32 gradient accumulator of ``params`` (a tree shaped like them,
+    ``tree``), allocated once and zeroed in place each step, and the step
+    that adds one kept micro-batch into it (``add_microbatch``).  On the
+    card that step runs as one CUDA graph per micro-batch shape (its
+    forward, backward and K1 adds over ``params`` and the accumulator at
+    fixed addresses; the micro-batch's tensors copied into static
+    buffers), so ``params`` must be updated in place between steps, not
+    replaced.  Its (loss_sum, weight_sum) outputs are overwritten by the
+    next ``add``: read or add them before it."""
+
+    def __init__(self, grad_fn, params: Tree):
+        self.params = params
+        dev = tree_leaves(params)[0].device
+        self.tree = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev),
+                             params)
+        self.leaves = tree_leaves(self.tree)
+        self._grad_fn = grad_fn
+        self._names: list = []  # the micro-batch's keys, set by ``add``
+        leaves, names = self.leaves, self._names
+
+        def step(*values):  # holds no reference to self: the graphs go with it
+            return add_microbatch(grad_fn, params, dict(zip(names, values)), leaves)
+
+        self.step_graph = StepGraph(step, dev)
+
+    def zero_(self) -> None:
+        for a in self.leaves:
+            a.zero_()
+
+    def add(self, mb: dict):
+        """Add micro-batch ``mb`` (a dict of tensors) in; returns its
+        (loss_sum, weight_sum)."""
+        self._names[:] = sorted(mb)
+        values = [mb[k] for k in self._names]
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in zip(self._names, values))
+        return self.step_graph(key, *values)
+
+    @staticmethod
+    def reuse(acc: "Accumulator | None", grad_fn, params: Tree) -> "Accumulator":
+        """``acc`` when it accumulates ``params`` through ``grad_fn``, else a
+        new accumulator (the engines keep theirs across steps)."""
+        if acc is not None and acc.params is params and acc._grad_fn is grad_fn:
+            return acc
+        return Accumulator(grad_fn, params)
+
+
 def normalize_grads(acc_leaves: list, w_sum: torch.Tensor, kept: float, m: int,
                     normalize: str) -> torch.Tensor:
     """Divide the summed gradients in place by Algorithm 1's denominator
@@ -170,6 +224,7 @@ def accumulate_grads(
     microbatches: dict,
     mask,
     cfg: DropConfig,
+    accumulator: "Accumulator | None" = None,
 ) -> Tuple[Tree, torch.Tensor, dict]:
     """Accumulate the kept micro-batches' gradients (Algorithm 1).
 
@@ -180,17 +235,20 @@ def accumulate_grads(
       microbatches: dict of tensors with leading dim M.
       mask: (M,) keep mask on the host (numpy, list or CPU tensor).
       cfg: DropConfig.
+      accumulator: an ``Accumulator`` of ``params`` through ``grad_fn`` kept
+        across steps (its graphs are captured once); made here when None.
 
-    Returns (grads, loss, stats): grads an f32 tree shaped like ``params``,
-    normalized per ``cfg.normalize``, with the reference's ``stats`` keys
-    plus ``microbatch_marks``, a (start, end) pair per kept micro-batch
-    for ``elapsed_s`` (CUDA events on the card: no sync here).
+    Returns (grads, loss, stats): grads an f32 tree shaped like ``params``
+    (the accumulator's, valid until its next step), normalized per
+    ``cfg.normalize``, with the reference's ``stats`` keys plus
+    ``microbatch_marks``, a (start, end) pair per kept micro-batch for
+    ``elapsed_s`` (CUDA events on the card: no sync here).
     """
     keep = _host_mask(mask)
     m = keep.shape[0]
     dev = tree_leaves(params)[0].device
-    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev), params)
-    acc_leaves = tree_leaves(acc)
+    acc = Accumulator.reuse(accumulator, grad_fn, params)
+    acc.zero_()
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     w_sum = torch.zeros((), dtype=torch.float32, device=dev)
     marks = []
@@ -198,14 +256,13 @@ def accumulate_grads(
         if keep[i] <= 0.5:
             continue  # dropped: never computed
         start = _mark(dev)
-        l, w = add_microbatch(grad_fn, params, {k: v[i] for k, v in microbatches.items()},
-                              acc_leaves)
-        loss_sum = loss_sum + l
+        l, w = acc.add({k: v[i] for k, v in microbatches.items()})
+        loss_sum = loss_sum + l  # in stream order, before the next add overwrites l, w
         w_sum = w_sum + w
         marks.append((start, _mark(dev)))
 
     kept = float(keep.sum())
-    denom = normalize_grads(acc_leaves, w_sum, kept, m, cfg.normalize)
+    denom = normalize_grads(acc.leaves, w_sum, kept, m, cfg.normalize)
     kept_t = torch.tensor(np.float32(kept), device=dev)
     stats = {
         "completed_microbatches": kept_t,
@@ -214,7 +271,7 @@ def accumulate_grads(
         "grad_denom": denom,
         "microbatch_marks": marks,
     }
-    return acc, loss_sum / torch.clamp(w_sum, min=1.0), stats
+    return acc.tree, loss_sum / torch.clamp(w_sum, min=1.0), stats
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,15 @@
   compute time decides it.
 * ``InGraphEngine`` — the drop decision comes from a latency tensor
   (measured before, or sampled from a ``LatencyModel``): deterministic,
-  used by the reproducible experiments.  The name is the reference's; the
-  port has no graph, the mask is made on the host and dropped
-  micro-batches are skipped.
+  used by the reproducible experiments.  The mask is made on the host and
+  dropped micro-batches are skipped.
+
+Both add each kept micro-batch through their ``dropcompute.Accumulator``,
+kept across steps: on the card one CUDA-graph replay a micro-batch (the
+reference's jitted ``grad_fn`` and accumulate, ``core/engine.py:62-63``),
+so HostTimedEngine's clock reads the card's compute time, not the time
+the host takes to issue the micro-batch's kernels one by one.  Their
+returned gradients are that accumulator's, valid until the next ``step``.
 """
 from __future__ import annotations
 
@@ -21,9 +27,8 @@ import numpy as np
 import torch
 
 from .. import synchronize
-from ..models.transformer import tree_leaves, tree_map, tree_unflatten
-from .dropcompute import (DropConfig, accumulate_grads, add_microbatch, drop_mask,
-                          normalize_grads)
+from ..models.transformer import tree_leaves, tree_unflatten
+from .dropcompute import Accumulator, DropConfig, accumulate_grads, drop_mask, normalize_grads
 from .simulate import LatencyModel
 
 Tree = Any
@@ -62,13 +67,14 @@ class HostTimedEngine:
     def __init__(self, grad_fn: GradFn, cfg: DropConfig):
         self.cfg = cfg
         self._grad_fn = grad_fn
+        self._acc = None
         self.latency_log: list[list[float]] = []
 
     def step(self, params: Tree, microbatches: dict) -> Tuple[Tree, torch.Tensor, dict]:
         m = next(iter(microbatches.values())).shape[0]
         dev = tree_leaves(params)[0].device
-        g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev), params)
-        acc_leaves = tree_leaves(g_sum)
+        self._acc = acc = Accumulator.reuse(self._acc, self._grad_fn, params)
+        acc.zero_()
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         w_sum = torch.zeros((), dtype=torch.float32, device=dev)
         lat: list[float] = []
@@ -80,8 +86,7 @@ class HostTimedEngine:
                     and (time.perf_counter() - t0) > self.cfg.tau):
                 break  # drop the remaining compute, go to the All-Reduce
             tm0 = time.perf_counter()
-            l, w = add_microbatch(self._grad_fn, params,
-                                  {k: v[i] for k, v in microbatches.items()}, acc_leaves)
+            l, w = acc.add({k: v[i] for k, v in microbatches.items()})
             synchronize(dev)
             lat.append(time.perf_counter() - tm0)
             loss_sum = loss_sum + l
@@ -89,13 +94,13 @@ class HostTimedEngine:
             computed += 1
         self.latency_log.append(lat)
 
-        normalize_grads(acc_leaves, w_sum, computed, m, self.cfg.normalize)
+        normalize_grads(acc.leaves, w_sum, computed, m, self.cfg.normalize)
         stats = {
             "completed_microbatches": float(computed),
             "completed_fraction": computed / m,
             "computed_weight": w_sum,
         }
-        return g_sum, loss_sum / torch.clamp(w_sum, min=1.0), stats
+        return acc.tree, loss_sum / torch.clamp(w_sum, min=1.0), stats
 
     def profile(self) -> np.ndarray:
         """(I, 1, M) latency tensor for Algorithm 2 (ragged rows NaN-padded)."""
@@ -116,12 +121,15 @@ class InGraphEngine:
     def __init__(self, grad_fn: GradFn, cfg: DropConfig):
         self.cfg = cfg
         self._grad_fn = grad_fn
+        self._acc = None
 
     def step(self, params, microbatches, latencies):
         mask = drop_mask(latencies, self.cfg.tau, self.cfg.min_microbatches)
         if not self.cfg.enabled:
             mask = torch.ones_like(mask)
-        return accumulate_grads(self._grad_fn, params, microbatches, mask.reshape(-1), self.cfg)
+        self._acc = Accumulator.reuse(self._acc, self._grad_fn, params)
+        return accumulate_grads(self._grad_fn, params, microbatches, mask.reshape(-1), self.cfg,
+                                accumulator=self._acc)
 
 
 def simulated_latencies(

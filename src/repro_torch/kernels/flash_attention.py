@@ -8,10 +8,11 @@ head), a tile being a run of up to ``TILE_TOKENS`` consecutive query tokens
 of one slot (``paged_tile_plan``), its pages staged in shared memory and
 its products on tensor cores; the block range is split over more CTAs when
 the grid is too small for the card.  This module builds the tile plan
-(once per serving step in ``models.layers.step_index``, or here when the
-caller passes none), checks the arguments, picks the split, allocates the
-output and the split's scratch, and launches it on PyTorch's current
-stream.  It takes CUDA tensors only: the plain version for the CPU is
+(padded to a row count fixed by the step's shape, ``step_plan_rows``: the
+serving engine makes it on the host once per step and layer kind; or here,
+with a host round trip, when the caller passes none), checks the
+arguments, picks the split, allocates the output and the split's scratch,
+and launches it on PyTorch's current stream (so a CUDA graph captures it).  It takes CUDA tensors only: the plain version for the CPU is
 ``kernels.ref.paged_attention_ref``, chosen by ``kernels.ops`` from the
 tensors' device.
 
@@ -93,8 +94,32 @@ def split_blocks(ctas: int, num_blocks: int, sms: int):
     return -(-num_blocks // per), per
 
 
+def plan_rows(tokens: int, runs: int) -> int:
+    """The most tiles ``paged_tile_plan`` cuts ``tokens`` tokens into when
+    they form at most ``runs`` runs of one slot: a run of n tokens gives
+    ceil(n / TILE_TOKENS) = 1 + (n - 1) // TILE_TOKENS tiles, so the runs
+    give at most runs + (tokens - runs) // TILE_TOKENS; never more than
+    ``tokens``."""
+    runs = max(min(runs, tokens), 1)
+    return min(tokens, runs + (tokens - runs) // TILE_TOKENS)
+
+
+def step_plan_rows(tokens: int, batch: int, packed: bool) -> int:
+    """The fixed row count of a serving step's plan (``paged_tile_plan``'s
+    ``rows``), set by the step's shape alone, so the kernel's grid and
+    split (``split_blocks``) are too and the step can be captured in a CUDA
+    graph.  Unpacked, ``tokens`` = B x C: each of the ``batch`` rows is its
+    slot's run of granted tokens and a run of padding (at most 2 runs of C
+    tokens; merging runs never adds tiles).  Packed, ``tokens`` = the
+    capacity: each of the ``batch`` slots is one contiguous run and the
+    padding one more."""
+    if packed:
+        return plan_rows(tokens, batch + 1)
+    return batch * plan_rows(tokens // batch, 2)
+
+
 def paged_tile_plan(q_pos, q_slots, page_size: int, num_blocks: int,
-                    window: int = 0) -> np.ndarray:
+                    window: int = 0, rows: int = None) -> np.ndarray:
     """The paged kernel's tiles for one step: (tiles, ``PLAN_COLS``) int32
     rows (first token, tokens, slot, block lo, block hi), the longest block
     range first.
@@ -104,8 +129,12 @@ def paged_tile_plan(q_pos, q_slots, page_size: int, num_blocks: int,
     token lies in exactly one tile whatever the order (interleaved slots
     give short tiles; padding tokens, slot < 0, form tiles of their own
     with an empty range).  Its block range is the union of its tokens'
-    admissible block ranges (their hull; the kernel masks each token by its own
-    position), empty when every token's range is."""
+    admissible block ranges (their hull; the kernel masks each token by its
+    own position), empty when every token's range is.
+
+    ``rows`` pads the plan with empty tiles (no tokens, slot -1, lo = hi
+    = 0: their CTAs return at once) to that many rows
+    (``step_plan_rows``); a plan with more tiles raises ``ValueError``."""
     q_slots = np.asarray(q_slots, np.int64)
     t = len(q_slots)
     if t == 0:
@@ -127,16 +156,25 @@ def paged_tile_plan(q_pos, q_slots, page_size: int, num_blocks: int,
     empty = t_hi == 0
     plan = np.stack([starts, np.diff(np.r_[starts, t]), q_slots[starts],
                      np.where(empty, 0, t_lo), t_hi], axis=1).astype(np.int32)
-    return plan[np.argsort(-(plan[:, 4] - plan[:, 3]), kind="stable")]
+    plan = plan[np.argsort(-(plan[:, 4] - plan[:, 3]), kind="stable")]
+    if rows is None:
+        return plan
+    if len(plan) > rows:
+        raise ValueError(f"the step cuts into {len(plan)} tiles, more than its plan's "
+                         f"{rows} rows (step_plan_rows)")
+    pad = np.zeros((rows - len(plan), PLAN_COLS), np.int32)
+    pad[:, 2] = -1
+    return np.concatenate([plan, pad])
 
 
 def tile_plan_tensor(q_pos: torch.Tensor, q_slots: torch.Tensor, page_size: int,
-                     num_blocks: int, window: int = 0) -> torch.Tensor:
-    """``paged_tile_plan`` as an int32 tensor on ``q_pos``'s device: one
-    copy to the host and one back, made once per serving step and layer
-    kind."""
+                     num_blocks: int, window: int = 0, rows: int = None) -> torch.Tensor:
+    """``paged_tile_plan`` of device tensors, as an int32 tensor on
+    ``q_pos``'s device: one copy to the host and one back, so a step that
+    makes its plan this way cannot be captured in a CUDA graph (the serving
+    engine makes its plans on the host from its numpy inputs instead)."""
     plan = paged_tile_plan(q_pos.cpu().numpy(), q_slots.cpu().numpy(), page_size, num_blocks,
-                           window)
+                           window, rows)
     return torch.from_numpy(plan).to(q_pos.device)
 
 
@@ -155,17 +193,18 @@ def paged_flash_attention(
     softcap: float = 0.0,
     k_scale: torch.Tensor = None,  # (num_pages, page_size, KV) f32, int8 pools
     v_scale: torch.Tensor = None,
-    plan: torch.Tensor = None,  # (tiles, PLAN_COLS) int32: tile_plan_tensor
+    plan: torch.Tensor = None,  # (rows, PLAN_COLS) int32: paged_tile_plan
 ) -> torch.Tensor:
     """Launch the CUDA kernel; raises on anything it does not take.
 
     The pools are never copied: they must be contiguous in their native
     layout and 16-byte aligned (the engine's pools are).  ``tables``/
     ``q_pos``/``q_slots`` are cast to contiguous int32 (a few hundred
-    bytes).  ``plan`` must be ``tile_plan_tensor`` of these ``q_pos``,
-    ``q_slots``, the pools' page size, the tables' width and ``window``;
-    without one it is made here (a host round trip, so such a call cannot
-    be captured in a CUDA graph)."""
+    bytes).  ``plan`` must be ``paged_tile_plan`` of these ``q_pos``,
+    ``q_slots``, the pools' page size, the tables' width and ``window``
+    (padded or not) on the device; without one it is made here
+    (``tile_plan_tensor``: a host round trip, so such a call cannot be
+    captured in a CUDA graph)."""
     if q.device.type != "cuda":
         raise ValueError(f"the paged-attention kernel takes CUDA tensors, got {q.device}")
     for name, x in (("k_pool", k_pool), ("v_pool", v_pool), ("tables", tables),
@@ -215,7 +254,7 @@ def paged_flash_attention(
     if (plan.dtype != torch.int32 or plan.dim() != 2 or plan.shape[1] != PLAN_COLS
             or not 0 < plan.shape[0] <= t or plan.device != q.device):
         raise ValueError(f"plan must be (tiles, {PLAN_COLS}) int32 on {q.device} with 1..{t} "
-                         f"tiles (tile_plan_tensor), got {tuple(plan.shape)} {plan.dtype}")
+                         f"rows (paged_tile_plan), got {tuple(plan.shape)} {plan.dtype}")
     plan = plan.contiguous()
     tiles = plan.shape[0]
     splits, per_split = split_blocks(tiles * kvh, num_blocks, _sm_count(q.device.index))

@@ -51,6 +51,14 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the counters: a CUDA
+    graph's replay launches what its capture recorded
+    (``graphs.StepGraph``), with no wrapper called."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
+
+
 def _device_type(x: torch.Tensor) -> str:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel or plain path for device {x.device}")

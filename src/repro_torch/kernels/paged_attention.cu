@@ -176,7 +176,7 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
   const int kvh = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
   const int H = KV * G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (n_tok <= 0) return;  // (the wrapper's plans have no empty tiles)
+  if (n_tok <= 0) return;  // an empty tile: padding rows of a step's fixed-size plan
 
   // this CTA's slice of the tile's block range, in key positions
   int b_begin = tile[3] + split * blocks_per_split;

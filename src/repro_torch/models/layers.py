@@ -11,8 +11,12 @@ Caches are updated **in place**: JAX returns a new cache from every write,
 the port writes into the pool it was given (copying a KV pool per layer
 per step would cost more than the step).  JAX's ``mode="drop"`` scatters
 silently discard out-of-range rows; torch indexing would raise or corrupt
-memory instead, so every scatter here writes only the rows the reference
-keeps, picked once per step by ``step_index``.
+memory instead, and filtering the rows first (``nonzero``) would sync the
+host and give the step a shape that depends on the data.  So every KV
+pool is allocated with a spare row past its last (``pool_with_spare``):
+the rows the reference drops are written there (``spare``), where no read
+reaches, and a step's shapes are set by its inputs' shapes alone (a CUDA
+graph can capture it).
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
-from ..kernels.flash_attention import tile_plan_tensor
+from ..kernels.flash_attention import step_plan_rows, tile_plan_tensor
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -191,6 +195,31 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Spare rows: where the writes the reference drops land
+# ---------------------------------------------------------------------------
+
+
+def pool_with_spare(lead: Tuple[int, ...], rows: int, row_shape: Tuple[int, ...], dtype,
+                    device=None, fill: float = 0.0) -> torch.Tensor:
+    """A tensor of shape ``lead + (rows,) + row_shape`` filled with
+    ``fill``, whose storage holds, past the last row of each lead index,
+    one spare row: ``spare`` of a (rows, ...) slice reaches it, nothing
+    else does (every shape and every read sees ``rows`` rows)."""
+    buf = torch.full(lead + (rows + 1,) + row_shape, fill, dtype=dtype, device=device)
+    return buf.narrow(len(lead), 0, rows)
+
+
+def spare(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (rows, ...), a contiguous slice of a ``pool_with_spare``
+    tensor, seen with its spare row: (rows + 1, ...), the last the spare.
+    Writes sent to index ``rows`` land there, which no read reaches (the
+    reference's ``mode="drop"``)."""
+    if not x.is_contiguous():
+        raise ValueError("spare() takes a contiguous (rows, ...) cache slice")
+    return x.as_strided((x.shape[0] + 1,) + tuple(x.shape[1:]), x.stride(), x.storage_offset())
+
+
+# ---------------------------------------------------------------------------
 # Paged KV addressing
 # ---------------------------------------------------------------------------
 
@@ -219,19 +248,28 @@ def _paged_quantize(rows: torch.Tensor):
 
 def _paged_write(cache, page, off, k_rows, v_rows):
     """Scatter K/V rows (N, KV, D) into the paged pool at ``(page, off)``
-    (N,), in place.  int8 pools (marked by ``k_scale``/``v_scale``)
-    quantize each row and scatter its scale."""
+    (N,), in place; ``page == num_pages`` writes to the pool's spare page
+    (the reference's dropped write).  int8 pools (marked by
+    ``k_scale``/``v_scale``) quantize each row and scatter its scale."""
     if "k_scale" in cache:
         kq, ks = _paged_quantize(k_rows)
         vq, vs = _paged_quantize(v_rows)
-        cache["k"][page, off] = kq
-        cache["v"][page, off] = vq
-        cache["k_scale"][page, off] = ks
-        cache["v_scale"][page, off] = vs
+        spare(cache["k"])[page, off] = kq
+        spare(cache["v"])[page, off] = vq
+        spare(cache["k_scale"])[page, off] = ks
+        spare(cache["v_scale"])[page, off] = vs
     else:
-        cache["k"][page, off] = k_rows.to(cache["k"].dtype)
-        cache["v"][page, off] = v_rows.to(cache["v"].dtype)
+        spare(cache["k"])[page, off] = k_rows.to(cache["k"].dtype)
+        spare(cache["v"])[page, off] = v_rows.to(cache["v"].dtype)
     return cache
+
+
+def _dense_write(cache, flat, k_rows, v_rows):
+    """Scatter K/V rows (N, KV, D) into dense slots (B, L, KV, D) at the
+    flattened ``slot * L + position`` (N,), in place; ``B * L`` writes to
+    the spare row (the reference's dropped write)."""
+    for name, rows in (("k", k_rows), ("v", v_rows)):
+        spare(cache[name].flatten(0, 1))[flat] = rows.to(cache[name].dtype)
 
 
 def _paged_attend(q_tok, cache, page_tables, index, window, softcap):
@@ -252,21 +290,20 @@ class StepIndex:
     It is the same for every layer of the kind, so ``apply_stack`` makes
     it once per step and kind (``step_index``) and each layer only
     projects, writes and attends.  ``rope`` is the (cos, sin) of the
-    step's positions (None without rotary positions).  ``write_rows``
-    picks, from the step's K/V rows flattened over the token dims, the
-    rows that land in the cache, and ``write_at`` says where: (page,
-    offset) in the paged pool or (slot, position) in dense slots.  The
-    rows JAX's ``mode="drop"`` scatters discard are filtered out here
-    (torch indexing would raise or corrupt memory instead), with one host
-    sync per step and kind.  ``q_pos``/``q_slots`` (int32) address the
-    paged kernel's queries and ``plan`` is its tile plan
-    (``kernels.flash_attention.tile_plan_tensor``: one more host round
-    trip per step and kind); ``gather``/``mask`` are the dense layout's
-    per-query slot rows and attention mask."""
+    step's positions (None without rotary positions).  ``write_at`` says
+    where each of the step's K/V rows, flattened over the token dims,
+    lands: (page, offset) in the paged pool, or the flattened ``slot * L +
+    position`` in dense slots; the rows JAX's ``mode="drop"`` scatters
+    discard go to the pool's spare page or the slots' spare row, so no
+    host sync picks them.  ``q_pos``/``q_slots`` (int32) address the paged
+    kernel's queries and ``plan`` is its tile plan (``paged_tile_plan``,
+    padded to ``step_plan_rows``: the caller's, made on the host, or made
+    here from the device tensors with a host round trip);
+    ``gather``/``mask`` are the dense layout's per-query slot rows and
+    attention mask."""
 
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
-    write_rows: torch.Tensor
-    write_at: Tuple[torch.Tensor, torch.Tensor]
+    write_at: Tuple[torch.Tensor, ...]
     q_pos: Optional[torch.Tensor] = None
     q_slots: Optional[torch.Tensor] = None
     plan: Optional[torch.Tensor] = None
@@ -284,9 +321,13 @@ def step_index(
     slot_ids: Optional[torch.Tensor] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: int = 0,
+    plan: Optional[torch.Tensor] = None,
 ) -> StepIndex:
     """The addressing of ``apply_attention``'s cache branches (token-packed
-    ``layers.py:528-585``, chunked ``:601-658``) for one layer kind."""
+    ``layers.py:528-585``, chunked ``:601-658``) for one layer kind.
+    ``plan`` is the paged kernel's tile plan for this kind, made by the
+    caller (``model.chunk_plans`` / ``packed_plans``); without one it is made here from the
+    device tensors, a host round trip a captured step cannot make."""
     window = cfg.sliding_window if kind == "L" else 0
     dev = positions.device
     rope = (rope_angles(positions, cfg.hd, cfg.rope_theta)
@@ -325,27 +366,29 @@ def step_index(
     if page_tables is not None:
         num_pages = cache["k"].shape[0]
         page, off = paged_index(page_tables, rows, wp, page_size, num_pages)
-        page, off = page.reshape(-1), off.reshape(-1)
-        keep = ((page >= 0) & (page < num_pages)).nonzero()[:, 0]  # one sync
+        page = torch.where((page >= 0) & (page < num_pages), page, num_pages)  # spare page
         q_slots = (slots if slot_ids is not None else torch.where(active, rows, -1)).reshape(-1)
         qpos = qpos.reshape(-1)
-        plan = tile_plan_tensor(qpos, q_slots, page_size, page_tables.shape[-1], window)
-        return StepIndex(rope, keep, (page[keep], off[keep]), q_pos=qpos.int(),
+        if plan is None:
+            packed = slot_ids is not None
+            plan = tile_plan_tensor(qpos, q_slots, page_size, page_tables.shape[-1], window,
+                                    step_plan_rows(qpos.shape[0], page_tables.shape[0]
+                                                   if packed else positions.shape[0], packed))
+        return StepIndex(rope, (page.reshape(-1), off.reshape(-1)), q_pos=qpos.int(),
                          q_slots=q_slots.int(), plan=plan)
 
-    rows, wp = rows.reshape(-1), wp.reshape(-1)
-    keep = (wp < buf_len).nonzero()[:, 0]  # one sync
+    num_slots = cache["k"].shape[0]
+    flat = torch.where(wp < buf_len, rows * buf_len + wp, num_slots * buf_len)  # spare row
     kpos = torch.arange(buf_len, device=dev)
     if slot_ids is not None:
         mask = (kpos[None, :] <= qpos[:, None]) & valid[:, None]  # (P, L)
         if window > 0:
             mask &= kpos[None, :] > qpos[:, None] - window
-        return StepIndex(rope, keep, (rows[keep], wp[keep]), gather=rows,
-                         mask=mask[:, None, None, :])
+        return StepIndex(rope, (flat,), gather=rows, mask=mask[:, None, None, :])
     mask = kpos[None, None, :] <= qpos[..., None]  # (B, C, L)
     if window > 0:
         mask &= kpos[None, None, :] > qpos[..., None] - window
-    return StepIndex(rope, keep, (rows[keep], wp[keep]), mask=mask[:, None])
+    return StepIndex(rope, (flat.reshape(-1),), mask=mask[:, None])
 
 
 def apply_attention(
@@ -377,7 +420,9 @@ def apply_attention(
     Both need a linear cache.  ``page_tables``/``page_size`` select the
     paged layout: writes go through ``paged_index``, reads through the
     fused ``kernels.ops.paged_flash_attention``.  ``index`` is the step's
-    ``step_index`` for this kind, made here when not given.
+    ``step_index`` for this kind, made here when not given.  The cache's
+    pools must come from ``init_attention_cache`` or the paged layout
+    (``serve.kv``): the rows the reference drops go to their spare row.
     """
     if kind not in ("G", "L"):
         raise ValueError(f"attention runs 'G'/'L' blocks in the port, got {kind!r}")
@@ -389,15 +434,14 @@ def apply_attention(
     cd = cfg.compute_dtype
     window = cfg.sliding_window if kind == "L" else 0
     q, k, v = _qkv(p, x, cfg, index.rope)
-    k_rows = k.reshape(-1, *k.shape[-2:])[index.write_rows]
-    v_rows = v.reshape(-1, *v.shape[-2:])[index.write_rows]
+    k_rows = k.reshape(-1, *k.shape[-2:])
+    v_rows = v.reshape(-1, *v.shape[-2:])
     if page_tables is not None:
         _paged_write(cache, *index.write_at, k_rows, v_rows)
         out = _paged_attend(q.reshape(-1, *q.shape[-2:]), cache, page_tables, index, window,
                             cfg.logit_softcap).reshape(q.shape)
     else:
-        cache["k"][index.write_at] = k_rows.to(cache["k"].dtype)
-        cache["v"][index.write_at] = v_rows.to(cache["v"].dtype)
+        _dense_write(cache, *index.write_at, k_rows, v_rows)
         if slot_ids is not None:
             kk = cache["k"][index.gather]  # (P, L, KV, D)
             vv = cache["v"][index.gather]
@@ -441,20 +485,25 @@ def apply_attention_nocache(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: 
 
 
 def init_attention_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
-                         linear: bool = False, device=None) -> Dict[str, torch.Tensor]:
-    """Pre-allocated dense cache for one attention layer.  ``linear=True``
-    gives sliding-window layers the full length (plus one row when
-    ``seq_len == window``), which the chunked and packed paths require."""
+                         linear: bool = False, device=None,
+                         lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """Pre-allocated dense cache for one attention layer (``lead`` adds
+    leading dims: a group's stacked layers).  ``linear=True`` gives
+    sliding-window layers the full length (plus one row when ``seq_len ==
+    window``), which the chunked and packed paths require.  Each layer's
+    (batch x length) rows have a spare row past them (``pool_with_spare``)
+    for the writes the reference drops."""
     if kind == "L":
         buf = max(seq_len, cfg.sliding_window + 1) if linear else min(cfg.sliding_window, seq_len)
     else:
         buf = seq_len
     kv, hd = cfg.n_kv_heads, cfg.hd
-    shape = (batch, buf, kv, hd)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-    }
+
+    def rows():
+        flat = pool_with_spare(lead, batch * buf, (kv, hd), cfg.compute_dtype, device)
+        return flat.unflatten(len(lead), (batch, buf))
+
+    return {"k": rows(), "v": rows()}
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,11 @@
     logits, cache = prefill_chunk(params, cfg, cache, tokens, pos, lens)
     logits, cache = packed_prefill(params, cfg, cache, tokens, slots, positions)
 
+A serving step reads the host only through its inputs: with a paged cache
+the caller passes the paged kernel's tile plans (``chunk_plans`` /
+``packed_plans``, made on the host), so the step can be captured in a CUDA
+graph (``repro_torch.graphs``).
+
 ``batch`` is a dict: ``tokens`` (B, S) int, optional ``weights`` (B, S)
 per-token loss weights.  The port trains and serves decoder-only 'G'/'L'
 stacks and serves 'M' (Mamba-2) stacks; other families raise
@@ -20,8 +25,9 @@ in place; the functions return them for the reference's call shape.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -29,7 +35,7 @@ from .. import resolve_device
 from ..kernels import flash_attention as _fa
 from . import layers as L
 from .config import ModelConfig
-from .transformer import apply_stack, init_stack, init_stack_cache
+from .transformer import apply_stack, init_stack, init_stack_cache, tree_leaves
 
 Tree = Any
 
@@ -125,7 +131,7 @@ def compute_params(params: Tree, cfg: ModelConfig) -> Tree:
     return walk(params)
 
 
-def train_params(params: Tree, cfg: ModelConfig) -> Tree:
+def train_params(params: Tree, cfg: ModelConfig, out: Optional[Tree] = None) -> Tree:
     """The compute copy a training step differentiates: ``compute_params``
     except the ``embed`` leaves, which stay the f32 master tensors (shared,
     not copied).  The reference casts each parameter at use, so its f32
@@ -135,8 +141,17 @@ def train_params(params: Tree, cfg: ModelConfig) -> Tree:
     is read by ``embed``'s gather and by each CE chunk's ``unembed``, and
     JAX sums those cotangents in f32.  Kept in f32, its gradient sums in
     f32 here too (the gather's scatter-add included); the casts to the
-    compute dtype happen at use, inside each CE chunk, as in the reference."""
-    return {k: (v if k == "embed" else compute_params(v, cfg)) for k, v in params.items()}
+    compute dtype happen at use, inside each CE chunk, as in the reference.
+
+    ``out``, an earlier result for the same ``params``, is refilled in place
+    and returned: its tensors keep their addresses, which a training step
+    captured in a CUDA graph reads."""
+    if out is None:
+        return {k: (v if k == "embed" else compute_params(v, cfg)) for k, v in params.items()}
+    for dst, src in zip(tree_leaves(out), tree_leaves(params)):
+        if dst is not src:
+            dst.copy_(src)
+    return out
 
 
 def params_device(params: Tree) -> torch.device:
@@ -174,13 +189,62 @@ def _long(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).long()
 
 
-def prefill_chunk(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_lens):
+def _attention_kinds(cfg: ModelConfig):
+    return sorted(set(cfg.pattern) & {"G", "L"})
+
+
+def _step_plans(cfg: ModelConfig, cache: Tree, q_pos, q_slots, batch: int,
+               packed: bool) -> Optional[Dict[str, np.ndarray]]:
+    """The paged kernel's tile plan of a serving step for each attention
+    kind (``kernels.flash_attention.paged_tile_plan``), made on the host
+    from the step's query positions and slots (numpy, in the step's token
+    order) and padded to the row count its shape fixes (``step_plan_rows``);
+    None for a dense cache, which needs none."""
+    _, tables, page_size = _cache_parts(cache)
+    if tables is None:
+        return None
+    rows = _fa.step_plan_rows(len(q_pos), batch, packed)
+    return {kind: _fa.paged_tile_plan(q_pos, q_slots, page_size, tables.shape[-1],
+                                      cfg.sliding_window if kind == "L" else 0, rows)
+            for kind in _attention_kinds(cfg)}
+
+
+def chunk_plans(cfg: ModelConfig, cache: Tree, pos, seq_lens, chunk: int):
+    """``_step_plans`` of a ``prefill_chunk`` step of (B, ``chunk``) tokens
+    from its numpy ``pos`` and ``seq_lens``: slot i's queries at ``pos[i]``
+    on, its columns past ``seq_lens[i]`` padding."""
+    pos, lens = np.asarray(pos, np.int64), np.asarray(seq_lens, np.int64)
+    offs = np.arange(chunk)
+    q_pos = (pos[:, None] + offs[None, :]).reshape(-1)
+    q_slots = np.where(offs[None, :] < lens[:, None], np.arange(len(pos))[:, None], -1)
+    return _step_plans(cfg, cache, q_pos, q_slots.reshape(-1), len(pos), packed=False)
+
+
+def packed_plans(cfg: ModelConfig, cache: Tree, slot_ids, positions):
+    """``_step_plans`` of a ``packed_prefill`` step from its numpy
+    ``slot_ids`` and ``positions``."""
+    _, tables, _ = _cache_parts(cache)
+    if tables is None:
+        return None
+    return _step_plans(cfg, cache, np.asarray(positions, np.int64),
+                      np.asarray(slot_ids, np.int64), tables.shape[0], packed=True)
+
+
+def _device_plans(plans, device):
+    return None if plans is None else {k: torch.as_tensor(v, device=device)
+                                       for k, v in plans.items()}
+
+
+def prefill_chunk(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_lens,
+                  plans=None):
     """Process up to C prompt tokens per slot in one step (chunked prefill).
 
     Slot i consumes ``tokens[i, :seq_lens[i]]`` at absolute positions
     ``pos[i]..pos[i]+seq_lens[i]-1``, writing its KV rows there; padding
     columns write nothing.  Returns (logits (B, C, V), cache).  With C == 1
-    and seq_lens in {0, 1} this is a decode step that skips idle slots."""
+    and seq_lens in {0, 1} this is a decode step that skips idle slots.
+    ``plans`` (paged cache): ``chunk_plans`` of this step, made on the host;
+    without them the step makes them from its device tensors."""
     require_chunkable(cfg, "chunked prefill")
     data, tables, page_size = _cache_parts(cache)
     dev = params_device(params)
@@ -192,6 +256,7 @@ def prefill_chunk(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_
     x, new_stack = apply_stack(
         params["stack"], x, cfg, positions, data["stack"], decode_pos=pos,
         seq_lens=_long(seq_lens, dev), page_tables=tables, page_size=page_size,
+        plans=_device_plans(plans, dev),
     )
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg)
@@ -199,10 +264,11 @@ def prefill_chunk(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_
 
 
 def packed_prefill(params: Tree, cfg: ModelConfig, cache: Tree, tokens, slot_ids,
-                   positions):
+                   positions, plans=None):
     """Token-packed engine step: one row per granted token, ``slot_ids[j] <
     0`` marks padding.  Each token writes its K/V at (slot, position) and
-    attends only within its own slot.  Returns (logits (P, V), cache)."""
+    attends only within its own slot.  Returns (logits (P, V), cache).
+    ``plans`` (paged cache): ``packed_plans`` of this step."""
     require_chunkable(cfg, "packed prefill")
     data, tables, page_size = _cache_parts(cache)
     dev = params_device(params)
@@ -211,7 +277,7 @@ def packed_prefill(params: Tree, cfg: ModelConfig, cache: Tree, tokens, slot_ids
     x = L.embed(params["embed"], tokens, cfg, pos2)
     x, new_stack = apply_stack(
         params["stack"], x, cfg, pos2, data["stack"], slot_ids=_long(slot_ids, dev),
-        page_tables=tables, page_size=page_size,
+        page_tables=tables, page_size=page_size, plans=_device_plans(plans, dev),
     )
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg)
@@ -273,8 +339,9 @@ def _ce_sums(params, cfg, x, targets, w):
     loss_parts, w_parts = [], []
     for c in range(0, s + pad, _CE_CHUNK):
         args = (x[:, c:c + _CE_CHUNK], targets[:, c:c + _CE_CHUNK], w[:, c:c + _CE_CHUNK])
-        if remat:
-            ls, ws = checkpoint(_ce_once, params, cfg, *args, use_reentrant=False)
+        if remat:  # no random numbers drawn: no RNG state to save (see transformer)
+            ls, ws = checkpoint(_ce_once, params, cfg, *args, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             ls, ws = _ce_once(params, cfg, *args)
         loss_parts.append(ls)
@@ -314,6 +381,7 @@ def per_token_losses(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]):
 
 __all__ = [
     "UnsupportedPatternError",
+    "chunk_plans",
     "compute_params",
     "forward",
     "forward_features",
@@ -322,6 +390,7 @@ __all__ = [
     "train_params",
     "init_decode_cache",
     "init_params",
+    "packed_plans",
     "packed_prefill",
     "prefill_chunk",
     "require_chunkable",

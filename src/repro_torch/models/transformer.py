@@ -98,11 +98,15 @@ def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
-                     linear: bool = False, device=None) -> Tree:
+                     linear: bool = False, device=None, lead: Tuple[int, ...] = ()) -> Tree:
+    """One block's serving cache (``lead``: leading dims, a group's stacked
+    layers)."""
     if kind == "M":  # slot-indexed conv window and SSM state
-        return {"ssd": SSD.init_ssd_cache(cfg, batch, device=device)}
+        one = SSD.init_ssd_cache(cfg, batch, device="meta")
+        return {"ssd": tree_map(lambda x: torch.zeros(lead + tuple(x.shape), dtype=x.dtype,
+                                                      device=device), one)}
     return {"attn": L.init_attention_cache(cfg, kind, batch, seq_len, linear=linear,
-                                           device=device)}
+                                           device=device, lead=lead)}
 
 
 def _unit_and_groups(cfg: ModelConfig) -> Tuple[str, int, int]:
@@ -141,9 +145,8 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int,
                      linear: bool = False, device=None) -> Tree:
     unit, n_groups, tail = _unit_and_groups(cfg)
     groups = tuple(
-        tree_map(lambda x: torch.zeros((n_groups,) + tuple(x.shape), dtype=x.dtype,
-                                       device=device),
-                 init_block_cache(cfg, kind, batch, seq_len, linear=linear, device="meta"))
+        init_block_cache(cfg, kind, batch, seq_len, linear=linear, device=device,
+                         lead=(n_groups,))
         for kind in unit
     )
     tail_cs = [
@@ -160,7 +163,10 @@ def _apply_stack_train(params: Tree, x: torch.Tensor, cfg: ModelConfig,
     ``cfg.remat`` with grad enabled, each group's blocks run inside one
     ``checkpoint`` (as the reference's ``jax.checkpoint(group_body)``) and
     each tail block in its own: only the group inputs stay alive, and the
-    backward runs each group's forward again."""
+    backward runs each group's forward again.  No block draws random
+    numbers (no dropout), so the recomputation needs no saved RNG state
+    (``preserve_rng_state=False``: saving it would read the generator's
+    state, which a CUDA-graph capture of the step refuses)."""
     unit, n_groups, _ = _unit_and_groups(cfg)
     rope = (L.rope_angles(positions, cfg.hd, cfg.rope_theta) if cfg.pos == "rope" else None)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -176,24 +182,25 @@ def _apply_stack_train(params: Tree, x: torch.Tensor, cfg: ModelConfig,
     for gi in range(n_groups):
         blocks = [tree_unflatten(params["groups"][j], [u[gi] for u in slices[j]])
                   for j in range(len(unit))]
-        x = (checkpoint(run, x, blocks, unit, use_reentrant=False) if remat
-             else run(x, blocks, unit))
+        x = (checkpoint(run, x, blocks, unit, use_reentrant=False, preserve_rng_state=False)
+             if remat else run(x, blocks, unit))
     for i, p in enumerate(params["tail"]):
         kinds = cfg.pattern[n_groups * len(unit) + i]
-        x = (checkpoint(run, x, [p], kinds, use_reentrant=False) if remat
-             else run(x, [p], kinds))
+        x = (checkpoint(run, x, [p], kinds, use_reentrant=False, preserve_rng_state=False)
+             if remat else run(x, [p], kinds))
     return x
 
 
 def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, caches: Optional[Tree] = None, decode_pos=None,
                 seq_lens=None, slot_ids=None, page_tables=None,
-                page_size: int = 0) -> Tuple[torch.Tensor, Tree]:
+                page_size: int = 0, plans=None) -> Tuple[torch.Tensor, Tree]:
     """Apply every layer.  Over a serving cache, returns (x, caches) with
     the caches updated in place (group slices are views), the step's
-    addressing (``layers.step_index``; for 'M' on a packed step,
-    ``recurrent.packed_step``) made once per layer kind.  With
-    ``caches=None`` (training), returns (x, None)."""
+    addressing (``layers.step_index``, given ``plans[kind]``, the paged
+    kernel's tile plan of each attention kind, when ``plans`` is a dict;
+    for 'M' on a packed step, ``recurrent.packed_step``) made once per
+    layer kind.  With ``caches=None`` (training), returns (x, None)."""
     if caches is None:
         return _apply_stack_train(params, x, cfg, positions), None
     unit, n_groups, tail = _unit_and_groups(cfg)
@@ -208,7 +215,8 @@ def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
                                  packed_step(slot_ids, c["ssd"]["state"].shape[0],
                                              cfg.ssm_conv))
             else:
-                indices[kind] = L.step_index(cfg, kind, positions, c["attn"], **kw)
+                indices[kind] = L.step_index(cfg, kind, positions, c["attn"], **kw,
+                                             plan=(plans or {}).get(kind))
         return apply_block(p, x, cfg, kind, positions, c, index=indices[kind], **kw)[0]
 
     for gi in range(n_groups):

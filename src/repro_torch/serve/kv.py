@@ -158,15 +158,17 @@ class Paged:
                 # slot-indexed rows, beside the page pools
                 one = init_block_cache(cfg, kind, spec.num_slots, 1, device=dev)
                 return tree_map(lambda x: x.expand(lead + tuple(x.shape)).clone(), one)
-            shape = lead + (num_pages, ps, kv, hd)
-            layer = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                     "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            # one spare page past each layer's pool (index num_pages, the
+            # tables' unallocated sentinel, so K4 masks it and never reads
+            # it): the writes the reference drops land there
+            layer = {name: L.pool_with_spare(lead, num_pages, (ps, kv, hd), dtype, dev)
+                     for name in ("k", "v")}
             if spec.kv_dtype == "int8":
                 # per-row dequant scales (1.0 = the all-zero rows' identity
                 # scale, matching the write path's convention)
-                sshape = lead + (num_pages, ps, kv)
-                layer["k_scale"] = torch.ones(sshape, dtype=torch.float32, device=dev)
-                layer["v_scale"] = torch.ones(sshape, dtype=torch.float32, device=dev)
+                for name in ("k_scale", "v_scale"):
+                    layer[name] = L.pool_with_spare(lead, num_pages, (ps, kv), torch.float32,
+                                                    dev, fill=1.0)
             return {"attn": layer}
 
         unit, n_groups, tail = _unit_and_groups(cfg)
@@ -281,21 +283,20 @@ class KVCache:
                 spec.num_slots, spec.blocks_per_slot(cfg), spec.resolve_pages(cfg),
                 spec.page_size,
             )
-            self._state = KVState(data=data, tables=self._upload_tables(),
-                                  page_size=spec.page_size)
+            tables = torch.as_tensor(self.tables.device_tables(), device=self.device)
+            self._state = KVState(data=data, tables=tables, page_size=spec.page_size)
         else:
             self.tables = None
             self._state = KVState(data=data, tables=None, page_size=0)
 
-    def _upload_tables(self) -> torch.Tensor:
-        return torch.as_tensor(self.tables.device_tables(), device=self.device)
-
     @property
     def state(self) -> KVState:
         """Device KV state; host table mutations are uploaded here, once
-        per read after any number of mutations."""
+        per read after any number of mutations, into the one device tables
+        tensor the cache keeps (a step captured in a CUDA graph reads it at
+        a fixed address)."""
         if self._dirty:
-            self._state = dataclasses.replace(self._state, tables=self._upload_tables())
+            self._state.tables.copy_(torch.from_numpy(self.tables.device_tables()))
             self._dirty = False
         return self._state
 

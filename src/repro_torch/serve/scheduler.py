@@ -10,7 +10,13 @@ unconditional, and the oldest prefill always gets at least one token).
 ``packed=True`` runs the token-packed step (``serve.packing`` +
 ``models.model.packed_prefill``) so granted tokens alone set the compute;
 ``cache="paged"`` puts KV in a page pool with prefix sharing
-(``serve.kv``).  'M' (Mamba-2) layers carry per-slot recurrent state: a
+(``serve.kv``).  On the card each step shape runs as one captured CUDA
+graph (``repro_torch.graphs.StepGraph``, the reference's jitted
+``_engine_step`` / ``_packed_engine_step``): the embedding through the
+greedy tokens, over the step's inputs and the paged kernel's tile plans
+(made on the host) copied into static buffers; admission, prefix sharing
+and copy-on-write page copies run eagerly between the replays, in place on
+the same tensors.  'M' (Mamba-2) layers carry per-slot recurrent state: a
 recycled slot's rows are zeroed on admission, and prefix sharing (and the
 in-flight prefix dedup that waits for it) is off for them.  Scheduling, deferral and accounting match the reference
 exactly; ``tests/test_torch_serve.py`` holds the streams, step counts,
@@ -27,13 +33,15 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
+from ..graphs import StepGraph
 from ..models.config import ModelConfig
 from ..models.model import (
     UnsupportedPatternError,
+    chunk_plans,
     compute_params,
     init_decode_cache,
+    packed_plans,
     packed_prefill,
     params_device,
     prefill_chunk,
@@ -263,6 +271,10 @@ class ContinuousBatcher:
         self.step_stats: List[StepStats] = []
         self._shared_step = 0
         self._step_callbacks: List = []
+        #: the attention kinds whose tile plans a paged step takes, in order
+        self._plan_kinds = sorted(set(cfg.pattern) & {"G", "L"}) if self.kv is not None else []
+        #: the step program, one CUDA graph per step shape on the card
+        self.step_graph = StepGraph(self._program, self.device)
 
     # ------------------------------------------------------------------
     def add_step_callback(self, fn) -> None:
@@ -421,8 +433,22 @@ class ContinuousBatcher:
             spent += grant
         return n
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _program(self, tokens, where, third, *plans):
+        """One step from the embedding through the greedy tokens: a dense
+        (B, C) step (``where`` the slots' positions, ``third`` their token
+        counts) or a packed one (``where`` the slot ids, ``third`` the
+        positions); ``plans`` the paged kernel's tile plans, one per
+        attention kind."""
+        step = packed_prefill if self.packed else prefill_chunk
+        logits, _ = step(self.params, self.cfg, self.cache, tokens, where, third,
+                         plans=dict(zip(self._plan_kinds, plans)) if plans else None)
+        return greedy_tokens(logits)
+
+    def _run(self, key, tokens, where, third, plans) -> np.ndarray:
+        """Run the step program (its graph for ``key`` on the card) and read
+        its tokens back, which syncs the step."""
+        plans = [plans[k] for k in self._plan_kinds] if plans else []
+        return self.step_graph(key, tokens, where, third, *plans).cpu().numpy()
 
     def _run_dense(self, grants) -> Dict[int, np.ndarray]:
         """Dense (B, C) step; returns {slot: per-granted-column argmax}."""
@@ -436,11 +462,8 @@ class ContinuousBatcher:
             tokens[i, : len(toks)] = toks
             pos[i] = pos0
             lens[i] = len(toks)
-        logits, self.cache = prefill_chunk(
-            self.params, self.cfg, self.cache, self._tensor(tokens),
-            self._tensor(pos), self._tensor(lens),
-        )
-        next_tok = greedy_tokens(logits).cpu().numpy()  # (B, C); syncs the step
+        next_tok = self._run((b, c), tokens, pos, lens,
+                             chunk_plans(self.cfg, self.cache, pos, lens, c))  # (B, C)
         return {i: next_tok[i, : len(toks)] for i, _, toks in grants}
 
     def _run_packed(self, grants) -> Dict[int, np.ndarray]:
@@ -450,13 +473,10 @@ class ContinuousBatcher:
         if all(len(toks) == 1 for _, _, toks in grants):
             capacity = self.packed_decode_capacity
         layout = packing.pack_step(grants, capacity)
-        logits, self.cache = packed_prefill(
-            self.params, self.cfg, self.cache,
-            self._tensor(layout.tokens.astype(np.int64)),
-            self._tensor(layout.slot_ids.astype(np.int64)),
-            self._tensor(layout.positions.astype(np.int64)),
-        )
-        next_tok = greedy_tokens(logits).cpu().numpy()  # (P,); syncs the step
+        slot_ids = layout.slot_ids.astype(np.int64)
+        positions = layout.positions.astype(np.int64)
+        next_tok = self._run(capacity, layout.tokens.astype(np.int64), slot_ids, positions,
+                             packed_plans(self.cfg, self.cache, slot_ids, positions))  # (P,)
         return {i: next_tok[j : j + m] for i, (j, m) in layout.spans.items()}
 
     def step(self):

@@ -13,14 +13,21 @@ is tracked per step, so loss-vs-wallclock curves come out of any run.
 Threshold selection is static (``auto_threshold``: one-shot Algorithm 2
 after ``calibration_steps``) or online (``online_tau``: a
 ``resilience.TauController`` re-estimates tau* from rolling telemetry).
-Nothing here compiles, so the controller's recompile cost is 0.
+A tau change needs no new capture (the keep mask never enters a graph),
+so the controller's recompile cost is 0.
 
-A step: the f32 master parameters are cast once into a compute copy
-(``models.train_params``), ``core.accumulate_grads`` runs each kept
-micro-batch's forward and backward and adds its gradients into an f32
-accumulator (the masked-accumulate kernel), the compute copy is freed,
-then the gradients are clipped and the optimizer updates the master
-parameters in place (``Optimizer.step``).  The latency draws, masks and
+A step: the f32 master parameters are cast into a compute copy
+(``models.train_params``, one buffer refilled in place each step),
+``core.accumulate_grads`` runs each kept micro-batch's forward and
+backward and adds its gradients into an f32 accumulator (the
+masked-accumulate kernel; the accumulator is one buffer zeroed in place
+each step), then the gradients are clipped and the optimizer updates the
+master parameters in place (``Optimizer.step``).  On the card each kept
+micro-batch is one CUDA-graph replay (``core.Accumulator``, the
+reference's ``jax.jit(step)`` at ``trainer.py:150``); Algorithm 1's keep
+decision stays on the host between the replays.  The tail (normalisation,
+clipping, the optimizer) runs eagerly: its learning rate and bias
+corrections are host floats each step, which a graph would freeze.  The latency draws, masks and
 simulated times are the reference's numpy, so drop fractions, tau
 trajectories and ``sim_times`` equal the reference's exactly.
 
@@ -37,7 +44,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device, synchronize
-from ..core.dropcompute import DropConfig, accumulate_grads, drop_mask, elapsed_s
+from ..core.dropcompute import Accumulator, DropConfig, accumulate_grads, drop_mask, elapsed_s
 from ..core.engine import make_grad_fn
 from ..core.simulate import LatencyModel
 from ..core.threshold import select_threshold
@@ -167,6 +174,8 @@ def train(
     opt = _make_opt(tcfg)
     opt_state = opt.init(params)
     grad_fn = make_grad_fn(lambda p, mb: loss_fn(p, model_cfg, mb))
+    compute = train_params(params, model_cfg)  # refilled in place each step
+    accumulator = Accumulator(grad_fn, compute)
 
     tau = tcfg.drop.tau
     profile: List[np.ndarray] = []
@@ -214,15 +223,17 @@ def train(
 
         synchronize(dev)
         h0 = time.monotonic()
-        compute = train_params(params, model_cfg)
-        grads, loss, stats = accumulate_grads(grad_fn, compute, mbs, mask_nm.reshape(total_m),
-                                              tcfg.drop)
-        del compute
-        if tcfg.clip_norm > 0:
-            grads = clip_by_global_norm(grads, tcfg.clip_norm)
-        opt_state = opt.step(grads, opt_state, params)
-        del grads
-        loss = float(loss)  # syncs the device
+        # a span a torch.profiler trace can cut steps by (free when not profiling)
+        with torch.profiler.record_function("train_step"):
+            if step:
+                train_params(params, model_cfg, out=compute)
+            grads, loss, stats = accumulate_grads(grad_fn, compute, mbs,
+                                                  mask_nm.reshape(total_m), tcfg.drop,
+                                                  accumulator=accumulator)
+            if tcfg.clip_norm > 0:
+                grads = clip_by_global_norm(grads, tcfg.clip_norm)
+            opt_state = opt.step(grads, opt_state, params)
+            loss = float(loss)  # syncs the device
         host_step_s = time.monotonic() - h0
 
         # simulated iteration time (eq. in §4.3)

@@ -40,8 +40,8 @@ from test_torch_parity_util import (  # noqa: E402
     assert_close,
     bf16_ulps,
     dscale_without_rows,
-    np32,
     packed_scenario,
+    plan_scenario,
     quantize_pool,
     row_rel_err,
     skip_diagonal_tile_mask,
@@ -49,6 +49,7 @@ from test_torch_parity_util import (  # noqa: E402
     ssd_chunk_inputs,
     ssd_segment_inputs,
     ssd_skip_diagonal_tile_mask,
+    walk_plan,
 )
 
 torch.set_num_threads(1)
@@ -309,105 +310,9 @@ def jax_block_range(pos, slot, page_size, num_blocks, window):
     return lo, hi
 
 
-def plan_scenario(name, page_size=4):
-    """Small steps in the shapes of chip_smoke.py's K4 cases (qwen's group of
-    8 heads over 2 KV heads, head dim 16): ``mixed`` has decode tokens,
-    prefill chunks longer than a tile and a verify-sized span; the others
-    change it as their names say."""
-    if name == "decode":
-        a = packed_scenario(page_size=page_size, kvh=2, h=16, d=16, seed=31,
-                            lens=(45, 12, 30, 7))
-        last = [int(np.flatnonzero(a["q_slots"] == s).max()) for s in range(3)]
-        keep = np.r_[last, 0]
-        a = dict(a, q=a["q"][keep], q_pos=a["q_pos"][keep], q_slots=a["q_slots"][keep])
-        a["q_slots"][-1] = -1  # a padding query
-        return a
-    a = packed_scenario(page_size=page_size, kvh=2, h=16, d=16, seed=37, lens=(41, 23, 37))
-    if name == "hostile_tables":
-        a["tables"][0, 0] = -3
-        a["tables"][2, 1] = a["k_pool"].shape[0] + 5
-    elif name == "padding":
-        a["q_slots"][::6] = -1
-    elif name == "fully_masked":
-        a["tables"][2, :] = -1
-    elif name == "interleaved":  # the slots' tokens shuffled together
-        order = np.random.default_rng(5).permutation(len(a["q_pos"]))
-        a = dict(a, q=a["q"][order], q_pos=a["q_pos"][order], q_slots=a["q_slots"][order])
-    return a
-
-
 PLAN_CASES = [("mixed", 0), ("mixed", 7), ("mixed", 100), ("decode", 0), ("decode", 9),
               ("hostile_tables", 0), ("padding", 5), ("fully_masked", 0), ("interleaved", 0),
               ("interleaved", 6)]
-
-
-def walk_plan(a, window=0, softcap=0.0, sms=132):
-    """A numpy walk of the paged kernel's schedule, f32: each (tile, KV
-    head, split) of ``paged_tile_plan`` / ``split_blocks`` walks its slice
-    in stages of 64 key positions and chunks of 16, the chunks dealt to the
-    warps of each token pair as ``paged_attention.cu`` deals them, each
-    warp with its own online softmax per (token, head); the warps merge,
-    then the splits (``paged_attention_combine``)."""
-    q = np32(a["q"])
-    kp_, vp_ = np32(a["k_pool"]), np32(a["v_pool"])
-    if "k_scale" in a:
-        kp_, vp_ = kp_ * a["k_scale"][..., None], vp_ * a["v_scale"][..., None]
-    tables, q_pos, q_slots = (np.asarray(a[k]) for k in ("tables", "q_pos", "q_slots"))
-    t, h, d = q.shape
-    num_pages, ps, kvh, _ = kp_.shape
-    g, nb = h // kvh, tables.shape[1]
-    plan = flash_attention.paged_tile_plan(q_pos, q_slots, ps, nb, window)
-    splits, per = flash_attention.split_blocks(len(plan) * kvh, nb, sms)
-    parts = np.zeros((t, kvh, splits, g, d + 2), np.float64)
-    for t0, n, slot, b_lo, b_hi in plan:
-        pairs = -(-n // 2)
-        ks_n = 1  # warps a token pair's chunks are dealt to (kWarps = TILE_TOKENS / 2)
-        while 2 * ks_n * pairs <= flash_attention.TILE_TOKENS // 2 and 2 * ks_n <= 4:
-            ks_n *= 2
-        for kv in range(kvh):
-            for sp in range(splits):
-                b0 = b_lo + sp * per
-                b1 = min(b_hi, nb, b0 + per)
-                if slot < 0 or b0 >= b1:
-                    b0 = b1 = 0
-                # per (warp, token): m, l (g,), acc (g, d)
-                st = {}
-                for p0 in range(b0 * ps, b1 * ps, 64):
-                    for c in range(4):
-                        keys = np.arange(p0 + 16 * c, p0 + 16 * c + 16)
-                        blk = np.minimum(keys // ps, nb - 1)
-                        page = tables[slot, blk]
-                        ok = (keys < b1 * ps) & (page >= 0) & (page < num_pages)
-                        rows = np.where(ok, page, 0), keys % ps
-                        kk, vv = kp_[rows[0], rows[1], kv], vp_[rows[0], rows[1], kv]
-                        for tok in range(n):
-                            w = (tok // 2) * ks_n + c % ks_n
-                            pos = q_pos[t0 + tok]
-                            s = q[t0 + tok, kv * g:(kv + 1) * g] @ kk.T / np.sqrt(d)
-                            if softcap > 0:
-                                s = softcap * np.tanh(s / softcap)
-                            inn = ok & (keys <= pos)
-                            if window > 0:
-                                inn &= keys > pos - window
-                            m, l, acc = st.get((w, tok), (np.full(g, -1e30), np.zeros(g),
-                                                          np.zeros((g, d))))
-                            m_new = np.maximum(m, np.where(inn, s, -1e30).max(axis=1))
-                            p = np.exp(np.where(inn, s - m_new[:, None], -np.inf))
-                            alpha = np.exp(m - m_new)
-                            st[w, tok] = (m_new, l * alpha + p.sum(1), acc * alpha[:, None] + p @ vv)
-                for tok in range(n):
-                    ws = [st[k] for k in st if k[1] == tok] or [
-                        (np.full(g, -1e30), np.zeros(g), np.zeros((g, d)))]
-                    mx = np.max([m for m, _, _ in ws], axis=0)
-                    cw = [np.exp(m - mx) for m, _, _ in ws]
-                    parts[t0 + tok, kv, sp, :, 0] = mx
-                    parts[t0 + tok, kv, sp, :, 1] = sum(l * c for (_, l, _), c in zip(ws, cw))
-                    parts[t0 + tok, kv, sp, :, 2:] = sum(x * c[:, None] for (_, _, x), c in zip(ws, cw))
-    mx = parts[..., 0].max(axis=2, keepdims=True)
-    cw = np.exp(parts[..., 0] - mx)
-    total = (parts[..., 1] * cw).sum(2)
-    acc = (parts[..., 2:] * cw[..., None]).sum(2)
-    return (acc / np.maximum(total, 1e-30)[..., None]).reshape(t, h, d).astype(np.float32), plan
 
 
 class TestPagedTilePlan:

@@ -1,5 +1,6 @@
 """The port's hand-written kernels against their plain versions on the card,
-in the working dtype (``TOL["kernel_bf16_gpu"]``).
+in the working dtype (``TOL["kernel_bf16_gpu"]``), and the steps captured
+as CUDA graphs against the same steps run eagerly (``disable_graphs()``).
 
 Every test is marked ``gpu`` and skips without a CUDA device.  The file
 imports neither ``jax`` nor ``repro`` (a GPU host need not have JAX), so
@@ -7,13 +8,20 @@ it runs there on its own:
 
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import core, graphs  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
 from repro_torch.kernels import ssd_chunk  # noqa: E402
+from repro_torch.models import model  # noqa: E402
+from repro_torch.models.transformer import tree_leaves  # noqa: E402
+from repro_torch.serve import ContinuousBatcher, Request  # noqa: E402
 from test_torch_parity_util import (  # noqa: E402
     BF16_ULPS,
     K3_ROW_TOL,
@@ -366,3 +374,67 @@ class TestKernelsOnCard:
         b = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(1, 1, 64, 2, 64, 128, 0)]
         with pytest.raises(ssd_chunk.UnbuiltShapeError):
             ssd_chunk.ssd_chunk(b[0].bfloat16(), *b[1:])
+
+
+def two_layers(name, cuda):
+    """A model at its published widths with 2 layers (random weights, seed 0)."""
+    cfg = dataclasses.replace(get_config(name), n_layers=2)
+    return cfg, model.init_params(cfg, seed=0, device=cuda)
+
+
+@pytest.mark.gpu
+class TestGraphsOnCard:
+    @pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+    @pytest.mark.parametrize("cache", ["dense", "paged"])
+    @pytest.mark.parametrize("name", ["qwen2_5_3b", "mamba2_130m"])
+    def test_graphed_streams_equal_eager(self, cuda, name, cache, packed):
+        """The engine's steps captured as CUDA graphs (the default on the
+        card) serve the eager engine's greedy streams, launch the same
+        kernels, and capture one graph per step shape."""
+        cfg, params = two_layers(name, cuda)
+        params = model.compute_params(params, cfg)
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 17, 70, 5, 33)]
+
+        def serve():
+            eng = ContinuousBatcher(params, cfg, batch_slots=4, max_len=128, chunk_size=16,
+                                    token_budget=40, cache=cache, page_size=16, packed=packed)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+            ops.reset_launch_counts()
+            eng.run()
+            torch.cuda.synchronize()
+            return {u: r.output for u, r in eng.finished.items()}, ops.launch_counts(), eng
+
+        with graphs.disable_graphs():
+            want, want_counts, _ = serve()
+        got, got_counts, eng = serve()
+        assert got == want and len(got) == len(prompts)
+        assert got_counts == want_counts
+        assert len(eng.step_graph.keys) == 2  # a mixed and a decode shape
+
+    def test_graphed_microbatch_equals_eager(self, cuda):
+        """One training step of three micro-batches, the middle one dropped:
+        graphed (a capture, then a replay) and eager give the same loss and
+        the same gradient leaves, bit for bit, and the same launches."""
+        cfg, params = two_layers("qwen2_5_3b", cuda)
+        compute = model.train_params(params, cfg)
+        grad = core.make_grad_fn(lambda p, mb: model.loss_fn(p, cfg, mb))
+        rng = np.random.default_rng(2)
+        mbs = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1, 256))).to(cuda),
+               "weights": torch.ones((3, 1, 256), device=cuda)}
+
+        def run():
+            acc = core.Accumulator(grad, compute)
+            ops.reset_launch_counts()
+            g, loss, _ = core.accumulate_grads(grad, compute, mbs, [1, 0, 1], core.DropConfig(),
+                                               accumulator=acc)
+            return [x.clone() for x in tree_leaves(g)], float(loss), ops.launch_counts(), acc
+
+        with graphs.disable_graphs():
+            want, want_loss, want_counts, _ = run()
+        got, loss, counts, acc = run()
+        assert len(acc.step_graph.keys) == 1
+        assert loss == want_loss
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert counts == want_counts
