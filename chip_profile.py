@@ -29,7 +29,8 @@ runs the named parts alone: ``kernels`` times the kernels ``chip_smoke.py``
 times, at its main-path shapes (``k4_timing``, ``k2_timing``,
 ``k2_bwd_checks_and_timing``, and K6 / K5 at the mamba serving shapes) and
 prints one JSON line; ``qwen`` and ``mamba`` profile one model's serving
-runs, ``train`` the training step.  A copy of this script placed at the
+runs, ``train`` the training step, ``localsgd`` the last round of
+``chip_smoke.py``'s Local-SGD run (qwen2.5-3b, 36 layers).  A copy of this script placed at the
 root of another checkout (a ``git archive`` of a later commit: its
 ``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
 checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
@@ -93,7 +94,8 @@ def kernel_intervals(prof):
     out = []
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start
-                and not getattr(e, "is_user_annotation", False) and e.name != "train_step"):
+                and not getattr(e, "is_user_annotation", False)
+                and e.name not in ("train_step", "localsgd_round")):
             out.append((e.name, e.time_range.start, e.time_range.end))
     return out
 
@@ -181,6 +183,32 @@ def train_profile(cfg, seed: int, eager: bool) -> dict:
     return rec
 
 
+def localsgd_profile(cfg, seed: int, eager: bool) -> dict:
+    """The last round of ``chip_smoke.localsgd_phase``'s Local-SGD run (2
+    workers x 2 local steps, its keep mask; the first round builds the
+    kernels and captures the step graphs), eager or graphed: the kernels
+    that start and the launches made in its ``localsgd_round`` span; its
+    wall time is that round's wall in an unprofiled run."""
+    _, keep = cs.localsgd_keep(seed)
+
+    def run():
+        params = init_params(cfg, seed=seed, device="cuda")
+        return cs.localsgd_run(cfg, params, keep, seed, cs.TRAIN_SEQ, cs.LSGD_LR, eager)[1]
+
+    wall = run()[-1]
+    cs.free_device()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name == "localsgd_round" and e.device_type == torch.autograd.DeviceType.CPU)
+    steps = int(keep[-1].size)
+    return {"tag": TAG, "run": "localsgd", "mode": "eager" if eager else "graphed",
+            "kept_steps": int(keep[-1].sum()), "steps": steps,
+            **profile_record(prof, wall, steps, window=spans[-1])}
+
+
 def warm_engine(cfg, params, prompts, packed, make, eager):
     """An engine that has served a warm-up set (the prompts' lengths, other
     tokens, so no prefix is shared with them: kernels built, its step
@@ -224,7 +252,7 @@ def serve_profiles(cfg, params, prompts, make) -> None:
 
 
 TAG = ""
-PARTS = ("kernels", "qwen", "mamba", "train")
+PARTS = ("kernels", "qwen", "mamba", "train", "localsgd")
 
 
 #: K6's (chunks, rows) at the mamba serving run's decode and 64-token steps
@@ -264,8 +292,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS[1:],
-                    help="parts to run, always in the order kernels, qwen, mamba, train "
-                         "(default: all but kernels)")
+                    help="parts to run, always in the order kernels, qwen, mamba, train, "
+                         "localsgd (default: all but kernels)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -292,8 +320,9 @@ def main() -> int:
             serve_profiles(mcfg, params, mprompts,
                            lambda c, p, pr, packed: cs.mamba_engine(c, p, pr, "paged", packed))
         else:
+            prof = train_profile if part == "train" else localsgd_profile
             for eager in (True, False):
-                print(json.dumps(train_profile(cfg, args.seed, eager)), flush=True)
+                print(json.dumps(prof(cfg, args.seed, eager)), flush=True)
                 cs.free_device()
         params = None
         cs.free_device()

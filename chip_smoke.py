@@ -44,7 +44,8 @@ input copy is skipped, must fail the stream check.
      sum, dQ) beside SDPA's backward alone; ptxas's registers and spills
      of each K3 kernel are printed with the build;
    * masked accumulation (K1) on the largest leaf (36 x 2048 x 11008, bf16
-     gradients), keep 0 and 1;
+     gradients), keep 0 and 1, and as the Local-SGD step (keep 1, scale
+     -lr: within one f32 spacing of the sum);
    * the SSD terms at mamba2-130m's widths (24 heads of 64, state 128,
      f32), row by row: K6 (intra-chunk) over 8 rows of one and of two
      256-token chunks, at the serving run's 64-row and 16-row (decode)
@@ -89,7 +90,26 @@ input copy is skipped, must fail the stream check.
    full-width model at 256 tokens must give
    ``loss_sum`` and every gradient leaf on the card (kernels, bf16)
    within a stated tolerance of the CPU's (plain versions, f32), and a
-   planted K3 backward fault must fall outside it.
+   planted K3 backward fault must fall outside it;
+7. Local-SGD + DropCompute (appendix B.3) — qwen2.5-3b at 36 layers through
+   ``core.local_sgd.LocalSGD`` (f32 P, W and S trees, the bf16 compute
+   copy, remat): 2 workers x 2 local steps of one 2048-token sequence x 2
+   rounds, lr 1e-4, the keep mask of fig. 12's single-server straggler
+   scenario capped at tau = 0.32 (the first seed from ``--seed`` that drops
+   a step, printed); eager then graphed: finite round losses, graphed equal
+   to eager (losses and final parameters), the launch counters the code
+   implies (14 K1 launches a kept step, none a dropped step, 14 a worker
+   for S += W), each round's wall seconds, each local step's device ms and
+   the allocated peak; then a 2-layer full-width model at 256 tokens,
+   lr 1e-2: round losses and every leaf's update on the card (kernels,
+   bf16) within a stated tolerance of the CPU's (plain versions, f32), and
+   a planted K1 fault (the scale's sign flipped for one leaf) outside it;
+8. checkpoints — a 2-layer full-width qwen through ``train`` (2 workers x
+   2 micro-batches, AdamW, DropCompute with the online controller, the
+   badnode scenario): run A saves at step 1, run B resumes from it; B's
+   losses, drop fractions, tau trajectory and final parameters must equal
+   the uninterrupted 3-step run's bit for bit; the bytes written and the
+   save and restore seconds are printed, the directory deleted.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K6 and K5's record rows are read at the
@@ -108,8 +128,10 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -122,6 +144,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Accumulator, DropConfig, LatencyModel, NoiseModel  # noqa: E402
 from repro_torch.core import accumulate_grads, drop_mask  # noqa: E402
 from repro_torch.core.engine import make_grad_fn  # noqa: E402
+from repro_torch.core.local_sgd import LocalSGD, StragglerScenario  # noqa: E402
 from repro_torch.data import DataConfig, microbatches_at  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
 from repro_torch.kernels import ssd_chunk  # noqa: E402
@@ -137,7 +160,8 @@ from repro_torch.models.model import (  # noqa: E402
 )
 from repro_torch.models.transformer import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, KVCacheSpec, Request, pack_step  # noqa: E402
-from repro_torch.train import TrainConfig, train  # noqa: E402
+from repro_torch.train import TrainConfig, checkpoint, train  # noqa: E402
+from repro_torch.train.resilience import ControllerConfig, make_scenario  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; full 700 W power limit).  The
 # SSD kernels compute at f32 accuracy: their record's operations bound is
@@ -231,6 +255,36 @@ M_H, M_P, M_N = 24, 64, 128
 # 2048-token sequence, 3 steps
 TRAIN_SEQ, TRAIN_WORKERS, TRAIN_MB, TRAIN_STEPS = 2048, 4, 2, 3
 PARITY_LAYERS, PARITY_SEQ = 2, 256
+
+# the Local-SGD phase (appendix B.3): 2 workers x 2 local steps of one
+# 2048-token sequence, 2 rounds, lr 1e-4; the keep mask from fig. 12's
+# single-server straggler scenario capped at tau = H x 0.1 x 1.6
+LSGD_WORKERS, LSGD_H, LSGD_ROUNDS, LSGD_LR = 2, 2, 2, 1e-4
+LSGD_SCENARIO = dict(mode="single_server", p=0.3, delay=1.0, base=0.1, server_size=1)
+LSGD_TAU = LSGD_H * 0.1 * 1.6
+# K1 as the local step (scale -lr) against its plain version: the product
+# keep * scale * grad is rounded, and Triton may fuse it into the add (one
+# rounding where the plain version has two).  The two results then differ by
+# at most half a spacing of the product plus half a spacing of each result
+# (``f32_spacing``; a result across a binade edge has twice the spacing), so
+# the limit is two spacings of the plain sum plus one of the product.  Where
+# the add cancels, the sum's spacing is far below the product's.
+# The 2-layer card-vs-CPU Local-SGD check: lr 1e-2 (an update of 1e-4 would
+# sit near the f32 spacing of the weights, so the comparison would read
+# rounding); each leaf's update over the run, dP = P_final - P_start, is a
+# sum of -lr x gradients, each within the gradient parity's 5%
+# (PARITY_LEAF_REL_TOL), so ||dP_card - dP_cpu|| / ||dP_cpu|| is held to
+# the same 5%; the round losses, means of CE terms, to PARITY_LOSS_REL_TOL.
+# A planted fault (K1's scale sign flipped for one leaf's local steps) turns
+# that leaf's update around: ~2.
+LSGD_PARITY_LR = 1e-2
+LSGD_FAULT_LEAF = "/stack/groups/0/attn/wq"
+
+# the checkpoint phase: a 2-layer full-width qwen through the trainer, 2
+# workers x 2 micro-batches (with one micro-batch a worker,
+# min_microbatches 1 keeps everything), 3 steps, the badnode scenario with
+# the online controller deciding every step from step 1, saved at step 1
+CKPT_LAYERS, CKPT_WORKERS, CKPT_MB, CKPT_STEPS, CKPT_AT = 2, 2, 2, 3, 1
 
 
 class SmokeFailure(RuntimeError):
@@ -900,6 +954,12 @@ def k2_bwd_checks_and_timing(rng, d=2048, rows=TRAIN_SEQ, eps=1e-6):
     return max_err, dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b, bound_by=by)
 
 
+def f32_spacing(t: torch.Tensor) -> torch.Tensor:
+    """The distance from each f32 element to the next f32 away from zero."""
+    t = t.abs()
+    return torch.nextafter(t, torch.full_like(t, math.inf)) - t
+
+
 def k1_checks_and_timing(rng, shape=(36, 2048, 11008)):
     """The largest leaf of the stacked qwen2.5-3b tree (w_gate / w_in)."""
     n = math.prod(shape)
@@ -912,13 +972,27 @@ def k1_checks_and_timing(rng, shape=(36, 2048, 11008)):
         check(torch.equal(got, want), f"K1 keep={keep}: differs from the plain version")
         del want, got
         log(f"K1 {shape} bf16 grads keep={keep}: exact ok")
+    # the Local-SGD step, w += keep * -lr * g: the product is rounded now, and
+    # the kernel may fuse it into the add (one rounding where the plain
+    # version has two): the FMA limit above
+    want = ref.masked_accum_ref(acc, g, 1.0, -LSGD_LR)
+    got = masked_accum.masked_accum(acc.clone(), g, 1.0, -LSGD_LR)
+    gap = (got - want).abs()
+    limit = 2 * f32_spacing(want) + f32_spacing(float(np.float32(-LSGD_LR)) * g.float())
+    err = float(gap.max())
+    worst = float((gap / limit).max())
+    log(f"K1 {shape} bf16 grads, local step (keep 1, scale -{LSGD_LR}): max abs err {err:.3e}; "
+        f"{int((gap > 0).sum())} of {n} differ, by {worst:.2f} of the FMA limit (2 spacings "
+        f"of the sum + 1 of the product) at most")
+    check(worst <= 1.0, f"K1 local step: {worst} of the FMA limit from the plain version")
+    del want, got, gap, limit
     kern = time_ms(lambda: masked_accum.masked_accum(acc, g, 1.0, 1.0), iters=10)
     plain = time_ms(lambda: ref.masked_accum_ref(acc, g, 1.0, 1.0), iters=5)
     library = time_ms(lambda: acc.add_(g, alpha=1.0), iters=10)
     b, by = bound_ms(n * (4 + 4 + 2), 2.0 * n)
     log(f"K1 time {n / 1e6:.0f} M elements: kernel {kern:.3f} ms, plain {plain:.3f} ms, "
         f"acc.add_ {library:.3f} ms, bound {b:.3f} ms ({by})")
-    return 0.0, dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b, bound_by=by)
+    return err, dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b, bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -1733,6 +1807,300 @@ def parity_phase(cfg, seed: int):
           f"the per-leaf metric lets a planted dK/dV fault pass: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# Local-SGD + DropCompute (appendix B.3)
+# ---------------------------------------------------------------------------
+
+
+def localsgd_keep(seed: int):
+    """(seed used, keep mask (rounds, N, H)): fig. 12's single-server
+    scenario drawn from ``seed`` and capped at tau as ``localsgd_speedup``
+    caps it (``cum < tau``); the first seed from ``seed`` on whose mask
+    drops a step."""
+    sc = StragglerScenario(**LSGD_SCENARIO)
+    for s in range(seed, seed + 1000):
+        t = sc.sample(np.random.default_rng(s), LSGD_ROUNDS, LSGD_WORKERS, LSGD_H)
+        keep = (np.cumsum(t, axis=-1) < LSGD_TAU).astype(np.float32)
+        if 0 < keep.sum() < keep.size:
+            return s, keep
+    raise SmokeFailure("no seed in 1000 drops a local step")
+
+
+def localsgd_batches(cfg, seed: int, seq: int, r: int, dev):
+    """Round r's micro-batches: worker n's H packed sequences of ``seq``
+    tokens from ``data.synthetic`` (one sequence a local step)."""
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=LSGD_H,
+                      strategy="pack", seed=seed)
+    out = []
+    for n in range(LSGD_WORKERS):
+        mbs = microbatches_at(r, data, LSGD_H, worker=n)
+        out.append({"tokens": torch.from_numpy(mbs["tokens"]).to(dev, torch.long),
+                    "weights": torch.from_numpy(mbs["weights"]).to(dev)})
+    return out
+
+
+def localsgd_run(cfg, params, keep, seed: int, seq: int, lr: float, eager: bool = False,
+                 fault_leaf=None):
+    """Local-SGD on ``params`` (updated in place) through
+    ``core.local_sgd.LocalSGD``, the model's loss and its compute copy:
+    (round losses, round wall s, per-step (kept, device ms), the state).
+    ``fault_leaf`` plants a K1 fault: its local steps add with the scale's
+    sign flipped."""
+    dev = tree_leaves(params)[0].device
+
+    def loss(p, mb):
+        ls, w = model_lib.loss_fn(p, cfg, mb)
+        return ls / w
+
+    state = LocalSGD(loss, params, LSGD_WORKERS, LSGD_H, lr,
+                     cast=lambda w, out=None: model_lib.train_params(w, cfg, out=out))
+    batches = [localsgd_batches(cfg, seed, seq, r, dev) for r in range(LSGD_ROUNDS)]
+    losses, walls, steps = [], [], []
+    with mode(eager), flipped_scale(state, fault_leaf):
+        for r in range(LSGD_ROUNDS):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # a span a torch.profiler trace can cut rounds by (free when not profiling)
+            with torch.profiler.record_function("localsgd_round"):
+                losses.append(float(state.round(batches[r], keep[r])))  # syncs
+            walls.append(time.perf_counter() - t0)
+            steps.append([(bool(k), s.elapsed_time(e) if dev.type == "cuda" else (e - s) * 1e3)
+                          for k, s, e in state.step_marks])
+    return losses, walls, steps, state
+
+
+@contextlib.contextmanager
+def flipped_scale(state, leaf):
+    """A planted K1 fault: the local steps of the working copy's leaf named
+    ``leaf`` add ``+lr * g`` instead of ``-lr * g`` (S += W left sound)."""
+    if leaf is None:
+        yield
+        return
+    names = [k for k, _ in named_leaves(state.work)]
+    target = state.w_leaves[names.index(leaf)]
+    sound = ops.masked_accum  # what core.local_sgd calls
+
+    def faulty(acc, grad, keep=1.0, scale=1.0):
+        return sound(acc, grad, keep, -scale if acc is target and scale < 0 else scale)
+
+    ops.masked_accum = faulty
+    try:
+        yield
+    finally:
+        ops.masked_accum = sound
+
+
+def step_replay_ms(state, cfg, seed: int, keep: float, iters: int = 5) -> float:
+    """Median device ms of one local step (``LocalSGD.step``; a graph
+    replay once captured) on round 0's first micro-batch, between two
+    events after a sync."""
+    mb = {k: v[0] for k, v in localsgd_batches(cfg, seed, TRAIN_SEQ, 0, DEV)[0].items()}
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        state.step(mb, keep)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def localsgd_launches(cfg, n_leaves: int, kept: int, dropped: int) -> dict:
+    """What the code implies: a kept local step is a kept micro-batch's
+    launches (``launches_per_microbatch``: forward under remat, backward,
+    one K1 add a leaf into W) plus the post-step loss's forward (a
+    forward-only pass: one attention and two RMSNorms a layer, one more
+    RMSNorm); a dropped step is that forward alone; each worker adds W
+    into S once, one K1 launch a leaf."""
+    n = cfg.n_layers
+    fwd = {"flash_attention": n, "rmsnorm": 2 * n + 1}
+    per_kept = launches_per_microbatch(cfg, n_leaves)
+    out = {k: kept * v + (kept + dropped) * fwd.get(k, 0) for k, v in per_kept.items()}
+    out["masked_accum"] += n_leaves * LSGD_WORKERS * LSGD_ROUNDS
+    return out
+
+
+def localsgd_phase(cfg, seed: int):
+    """qwen2.5-3b at 36 layers, eager then graphed (the counters' window):
+    finite round losses, graphed equal to eager (losses and final
+    parameters), the launches the code implies, device ms of each kept and
+    dropped local step, the allocated peak."""
+    mask_seed, keep = localsgd_keep(seed)
+    kept, dropped = int(keep.sum()), int(keep.size - keep.sum())
+    log(f"localsgd: keep mask from seed {mask_seed} (single-server scenario, tau "
+        f"{LSGD_TAU:.2f}): {keep.astype(int).tolist()} ({kept} kept, {dropped} dropped)")
+    names = [k for k, _ in named_leaves(init_params(cfg, seed=seed, device="meta"))]
+    want = localsgd_launches(cfg, len(names), kept, dropped)
+    runs = {}
+    for eager in (True, False):
+        tag = "eager" if eager else "graphed"
+        params = init_params(cfg, seed=seed, device=DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, walls, steps, state = localsgd_run(cfg, params, keep, seed, TRAIN_SEQ,
+                                                   LSGD_LR, eager)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(x) for x in losses), f"localsgd {tag}: losses {losses}")
+        check(counts == want, f"localsgd {tag} launches {counts}, the code implies {want}")
+        kept_ms = [round(ms, 1) for rnd in steps for k, ms in rnd if k]
+        drop_ms = [round(ms, 1) for rnd in steps for k, ms in rnd if not k]
+        log(f"localsgd {tag} qwen2.5-3b: {cfg.n_layers} layers, seq {TRAIN_SEQ}, "
+            f"{LSGD_WORKERS} workers x {LSGD_H} local steps x {LSGD_ROUNDS} rounds, lr "
+            f"{LSGD_LR}: round losses {losses}; round wall s {[round(w, 3) for w in walls]}")
+        log(f"localsgd {tag}: device ms a kept local step {kept_ms}, a dropped step {drop_ms} "
+            f"(round by round, worker by worker); allocated peak {peak:.2f} GiB"
+            + ("" if eager else f"; {graph_line(state)}"))
+        log(f"localsgd {tag} launches: {counts} (K1: {len(names)} a kept step, 0 a dropped "
+            f"step, {len(names)} a worker for S += W)")
+        runs[tag] = (losses, [x.cpu() for x in tree_leaves(params)])
+        if not eager:  # a replay of each graph alone: the run's first calls captured them
+            log(f"localsgd graphed, each step's graph replayed alone (device ms, median of 5): "
+                f"kept {step_replay_ms(state, cfg, seed, 1.0):.1f}, dropped "
+                f"{step_replay_ms(state, cfg, seed, 0.0):.1f}")
+        del params, state
+        free_device()
+    (got, got_p), (want_l, want_p) = runs["graphed"], runs["eager"]
+    log(f"localsgd: graphed vs eager round losses "
+        f"{'bit-identical' if got == want_l else 'differ'}: {got} / {want_l}")
+    for g, w in zip(got, want_l):
+        check(g == w or abs(g - w) < GRAPH_LEAF_GAP * abs(w), f"localsgd: loss {g} / {w}")
+    check_gaps("localsgd: final parameters", leaf_gaps(names, got_p, want_p))
+    return counts, mask_seed, keep
+
+
+def localsgd_parity(cfg, seed: int, keep):
+    """A 2-layer full-width model at 256 tokens: the round losses and every
+    leaf's update on the card (kernels, bf16 compute) against the CPU
+    (plain versions, f32), and the same metric with a planted K1 fault."""
+    small = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    cpu_cfg = dataclasses.replace(small, dtype="float32")
+    start = init_params(cpu_cfg, seed=seed, device="cpu")
+
+    def run(c, dev, fault=None):
+        p = tree_map(lambda x: x.clone().to(dev), start)
+        losses, _, _, _ = localsgd_run(c, p, keep, seed, PARITY_SEQ, LSGD_PARITY_LR,
+                                       fault_leaf=fault)
+        return losses, {k: (x.cpu().double() - s.double())
+                        for (k, x), s in zip(named_leaves(p), tree_leaves(start))}
+
+    def leaf_errs(d):
+        return {k: float(torch.linalg.vector_norm(d[k] - w) / torch.linalg.vector_norm(w))
+                for k, w in cpu_d.items()}
+
+    t0 = time.perf_counter()
+    cpu_l, cpu_d = run(cpu_cfg, "cpu")
+    t_cpu = time.perf_counter() - t0
+    card_l, card_d = run(small, DEV)
+    _, bad_d = run(small, DEV, LSGD_FAULT_LEAF)
+    errs, bad = leaf_errs(card_d), leaf_errs(bad_d)
+    worst, bad_worst = max(errs, key=errs.get), max(bad, key=bad.get)
+    el = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    log(f"localsgd parity {PARITY_LAYERS} layers seq {PARITY_SEQ} lr {LSGD_PARITY_LR}: round "
+        f"losses card {card_l} / cpu {cpu_l} (rel {el:.2e}); the CPU run took {t_cpu:.1f} s")
+    log("localsgd parity per-leaf ||dP_card - dP_cpu|| / ||dP_cpu||: "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+    log(f"localsgd parity worst leaf {worst} {errs[worst]:.2e}; planted fault (K1 scale sign "
+        f"flipped for {LSGD_FAULT_LEAF}): worst leaf {bad_worst} {bad[bad_worst]:.2e}")
+    check(all(math.isfinite(x) for x in card_l + list(errs.values())), "non-finite card result")
+    check(el <= PARITY_LOSS_REL_TOL, f"localsgd round loss relative difference {el}")
+    check(errs[worst] <= PARITY_LEAF_REL_TOL, f"localsgd leaf {worst}: update differs by "
+          f"{errs[worst]}")
+    check(bad[LSGD_FAULT_LEAF] > PARITY_LEAF_REL_TOL,
+          f"the per-leaf update metric lets a planted K1 sign fault pass: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: save, resume, and the uninterrupted run
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """The host seconds of the trainer's ``checkpoint.save`` and
+    ``checkpoint.restore`` calls (the card synced around each), by name."""
+    secs, sound = {}, (checkpoint.save, checkpoint.restore)
+
+    def timed(fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            secs[fn.__name__] = time.perf_counter() - t0
+            return out
+        return call
+
+    checkpoint.save, checkpoint.restore = (timed(f) for f in sound)
+    try:
+        yield secs
+    finally:
+        checkpoint.save, checkpoint.restore = sound
+
+
+def checkpoint_phase(cfg, seed: int):
+    """A 2-layer full-width qwen through ``train``: run A saves at step 1,
+    run B resumes from it for steps 1-2; B's losses, drop fractions, tau
+    trajectory and final parameters must equal the uninterrupted run's bit
+    for bit.  Prints the bytes written and the seconds to save and restore;
+    the directory is deleted after."""
+    small = dataclasses.replace(cfg, n_layers=CKPT_LAYERS)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      batch_size=CKPT_WORKERS * CKPT_MB, strategy="pack", seed=seed)
+    latency = make_scenario("badnode", base=LatencyModel(
+        base=0.45, noise=NoiseModel(kind="paper_lognormal")), seed=seed, onset=0)
+
+    def tcfg(**kw):
+        base = dict(steps=CKPT_STEPS, n_workers=CKPT_WORKERS, microbatches=CKPT_MB,
+                    optimizer="adamw", lr=1e-4, clip_norm=1.0, seed=seed, latency=latency,
+                    drop=DropConfig(enabled=True, tau=float("inf")), online_tau=True,
+                    controller=ControllerConfig(warmup_steps=1, check_every=1))
+        base.update(kw)
+        return TrainConfig(**base)
+
+    def run(**kw):
+        params = init_params(small, seed=seed, device=DEV)
+        t0 = time.perf_counter()
+        res = train(small, data, tcfg(**kw), params=params, device=DEV)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="checkpoint-", dir=root)
+    try:
+        full, _ = run()
+        with timed_checkpoints() as secs:
+            part, t_a = run(steps=CKPT_AT, ckpt_dir=path, ckpt_every=CKPT_AT)
+            nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            resumed, t_b = run(resume_from=path)
+    finally:
+        shutil.rmtree(path)
+    log(f"checkpoint {CKPT_LAYERS} layers ({small.param_count() / 1e6:.0f} M parameters, AdamW "
+        f"m and v): {nbytes} bytes ({nbytes / 2**30:.2f} GiB) written at step {CKPT_AT}; save "
+        f"{secs['save']:.2f} s, restore into the card's tensors {secs['restore']:.2f} s; run A "
+        f"{t_a:.1f} s, run B ({CKPT_STEPS - CKPT_AT} steps) {t_b:.1f} s")
+    log(f"checkpoint: uninterrupted losses {full.losses}, drops {full.drop_fractions}, tau "
+        f"trajectory {full.tau_trajectory}; resumed {resumed.losses}, {resumed.drop_fractions}, "
+        f"{resumed.tau_trajectory}")
+    check(part.losses == full.losses[:CKPT_AT], f"run A {part.losses} / {full.losses}")
+    check(resumed.losses == full.losses[CKPT_AT:], "resumed losses differ")
+    check(resumed.drop_fractions == full.drop_fractions[CKPT_AT:], "resumed drops differ")
+    check(resumed.tau_trajectory == full.tau_trajectory and resumed.tau == full.tau,
+          "resumed tau trajectory differs")
+    check(len(full.tau_trajectory) > 1, f"tau never moved: {full.tau_trajectory}")
+    names = [k for k, _ in named_leaves(full.params)]
+    gaps = leaf_gaps(names, tree_leaves(resumed.params), tree_leaves(full.params))
+    differ = [k for k, v in gaps.items() if v]
+    check(not differ, f"resumed final parameters differ from the uninterrupted run's: {differ}")
+    log(f"checkpoint: resumed run equals the uninterrupted one bit for bit (losses, drop "
+        f"fractions, tau trajectory, {len(names)} parameter leaves)")
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -1829,7 +2197,18 @@ def main() -> int:
     grad_phase(cfg, args.seed)
     free_device()
     parity_phase(cfg, args.seed)
-    launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] for k in serve_counts}
+    free_device()
+
+    # 7. Local-SGD at full depth, then the 2-layer card-vs-CPU check
+    localsgd_counts, _, keep = localsgd_phase(cfg, args.seed)
+    free_device()
+    localsgd_parity(cfg, args.seed, keep)
+    free_device()
+
+    # 8. checkpoints: save, resume, and the uninterrupted run
+    checkpoint_phase(cfg, args.seed)
+    launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
+                for k in serve_counts}
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was launched no time on the main paths")
 
@@ -1873,7 +2252,7 @@ def main() -> int:
              library_ms=None),
     ]
     log(f"launches, qwen serving: {serve_counts}; mamba serving: {mamba_counts}; "
-        f"training: {train_counts}")
+        f"training: {train_counts}; Local-SGD: {localsgd_counts}")
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

@@ -8,10 +8,12 @@
 Selects an architecture from the port's registry (``--arch``, the reduced
 smoke config unless ``--full-config``), builds the synthetic data and the
 DropCompute trainer, and runs on one device: CUDA unless ``--device cpu``.
-``--mesh``, ``--ckpt`` and ``--resume`` are refused: the SPMD path and
-checkpoints are not ported yet.  So is, on CUDA, a config whose attention
-the training kernels are not built for (the smoke config is f32 with head
-dim 32: run it with ``--device cpu``).
+``--ckpt DIR`` saves a checkpoint every 50 steps, ``--resume DIR`` resumes
+from one (parameters, optimizer state and the adapted tau-controller
+state), as the reference's launcher does.  ``--mesh`` is refused: the SPMD
+path is not ported yet.  So is, on CUDA, a config whose attention the
+training kernels are not built for (the smoke config is f32 with head dim
+32: run it with ``--device cpu``).
 """
 import argparse
 import sys
@@ -53,13 +55,14 @@ def main(argv=None):
     ap.add_argument("--inject-real-delays", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
-    ap.add_argument("--ckpt", default="", help="not ported: refused")
-    ap.add_argument("--resume", default="", help="not ported: refused")
+    ap.add_argument("--ckpt", default="", help="checkpoint dir, saved every 50 steps")
+    ap.add_argument("--resume", default="",
+                    help="checkpoint dir to resume from (params, opt state "
+                         "AND the adapted tau-controller state)")
     ap.add_argument("--mesh", default="", help="not ported: refused")
     args = ap.parse_args(argv)
-    for flag in ("mesh", "ckpt", "resume"):
-        if getattr(args, flag):
-            ap.error(f"--{flag} is not ported to repro_torch yet (see ROADMAP.md)")
+    if args.mesh:
+        ap.error("--mesh is not ported to repro_torch yet (see ROADMAP.md)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     try:
@@ -82,6 +85,8 @@ def main(argv=None):
         calibration_steps=min(20, args.steps // 2),
         online_tau=args.online_tau, inject_real_delays=args.inject_real_delays,
         latency=latency, tc=args.tc, seed=args.seed,
+        ckpt_dir=args.ckpt or None, ckpt_every=50 if args.ckpt else 0,
+        resume_from=args.resume or None,
     )
     r = train(cfg, data, tcfg, device=args.device)
     print(f"[train] loss {r.losses[0]:.3f} -> {r.losses[-1]:.3f}  "

@@ -1,11 +1,5 @@
 """Training loop with DropCompute (port of ``repro.train``)."""
-from .trainer import (
-    TrainConfig,
-    TrainResult,
-    UnsupportedCheckpointError,
-    UnsupportedDistError,
-    train,
-)
+from . import checkpoint
+from .trainer import TrainConfig, TrainResult, UnsupportedDistError, train
 
-__all__ = ["TrainConfig", "TrainResult", "UnsupportedCheckpointError", "UnsupportedDistError",
-           "train"]
+__all__ = ["TrainConfig", "TrainResult", "UnsupportedDistError", "checkpoint", "train"]

@@ -31,8 +31,15 @@ corrections are host floats each step, which a graph would freeze.  The latency 
 simulated times are the reference's numpy, so drop fractions, tau
 trajectories and ``sim_times`` equal the reference's exactly.
 
-Left out until ported (each raises a typed error): the SPMD path
-(``mesh=``) and checkpoints (``ckpt_dir=``, ``resume_from=``).
+Checkpoints (``trainer.py:223-260``, ``:343-344``): ``ckpt_dir`` with
+``ckpt_every`` saves ``{"params", "opt"}`` and the resilience state (tau,
+the ``TauController`` state, the ``ComputeTelemetry`` window, the tau
+trajectory) after every ``ckpt_every``-th step, in the reference's npz +
+``meta.json`` format (``checkpoint``); ``resume_from`` restores them in
+place before the first step and runs the remaining steps, so a resumed run
+repeats the uninterrupted run's losses, drop fractions and tau.
+
+Left out until ported (it raises a typed error): the SPMD path (``mesh=``).
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ from ..models.config import ModelConfig
 from ..models.model import init_params, loss_fn, require_trainable, train_params
 from ..models.transformer import tree_map
 from ..optim import clip_by_global_norm, make as make_opt
+from . import checkpoint as ckpt
 from .resilience import ComputeTelemetry, ControllerConfig, TauController
 
 Tree = Any
@@ -60,10 +68,6 @@ Tree = Any
 
 class UnsupportedDistError(NotImplementedError):
     """``mesh=`` asks for the SPMD path, which the port has not ported."""
-
-
-class UnsupportedCheckpointError(NotImplementedError):
-    """``ckpt_dir=`` / ``resume_from=``: checkpoints are not ported yet."""
 
 
 @dataclasses.dataclass
@@ -89,9 +93,9 @@ class TrainConfig:
     mesh: Optional[Any] = None  # not ported: raises UnsupportedDistError
     # bookkeeping
     log_every: int = 10
-    ckpt_dir: Optional[str] = None  # not ported: raises UnsupportedCheckpointError
+    ckpt_dir: Optional[str] = None
     ckpt_every: int = 0
-    resume_from: Optional[str] = None  # not ported: raises UnsupportedCheckpointError
+    resume_from: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -156,9 +160,6 @@ def train(
     work (``models.model.require_trainable``)."""
     if tcfg.mesh is not None:
         raise UnsupportedDistError("the SPMD path (mesh=) is not ported yet; see ROADMAP.md")
-    if tcfg.ckpt_dir or tcfg.resume_from:
-        raise UnsupportedCheckpointError(
-            "checkpoints (ckpt_dir=, resume_from=) are not ported yet; see ROADMAP.md")
     n, m = tcfg.n_workers, tcfg.microbatches
     total_m = n * m
     if data_cfg.batch_size % total_m:
@@ -173,9 +174,6 @@ def train(
 
     opt = _make_opt(tcfg)
     opt_state = opt.init(params)
-    grad_fn = make_grad_fn(lambda p, mb: loss_fn(p, model_cfg, mb))
-    compute = train_params(params, model_cfg)  # refilled in place each step
-    accumulator = Accumulator(grad_fn, compute)
 
     tau = tcfg.drop.tau
     profile: List[np.ndarray] = []
@@ -185,10 +183,40 @@ def train(
         ccfg = tcfg.controller or ControllerConfig(min_microbatches=tcfg.drop.min_microbatches)
         controller = TauController(ccfg, tcfg.tc, tau=tau, total_steps=tcfg.steps,
                                    default_recompile_cost_s=0.0)
-    trajectory: List[Tuple[int, float]] = [(0, tau)]
+
+    # resume: params / opt state (in place) plus the adapted tau and controller
+    start_step = 0
+    if tcfg.resume_from:
+        restored, start_step = ckpt.restore(tcfg.resume_from, {"params": params, "opt": opt_state})
+        opt_state = restored["opt"]
+        state = ckpt.resilience_state(tcfg.resume_from)
+        if state:
+            tau = float("inf") if state.get("tau") is None else float(state["tau"])
+            if controller is not None and state.get("controller"):
+                controller.load_state_dict(state["controller"])
+                tau = controller.tau
+            if state.get("telemetry"):
+                telemetry.load_state_dict(state["telemetry"])
+    trajectory: List[Tuple[int, float]] = [(start_step, tau)]
+
+    def save_ckpt(step_now: int) -> None:
+        res_state = {
+            "tau": None if not np.isfinite(tau) else float(tau),
+            "controller": controller.state_dict() if controller else None,
+            "telemetry": telemetry.state_dict(),
+            "trajectory": [[int(s), (None if not np.isfinite(t) else float(t))]
+                           for s, t in (controller.trajectory if controller else trajectory)],
+        }
+        ckpt.save(tcfg.ckpt_dir, {"params": params, "opt": opt_state}, step_now,
+                  extra={"resilience": res_state})
+
+    grad_fn = make_grad_fn(lambda p, mb: loss_fn(p, model_cfg, mb))
+    # made after the restore; refilled in place before every later step
+    compute = train_params(params, model_cfg)
+    accumulator = Accumulator(grad_fn, compute)
 
     losses, sim_times, drops, step_s, microbatch_s = [], [], [], [], []
-    for step in range(tcfg.steps):
+    for step in range(start_step, tcfg.steps):
         mbs = microbatches_at(step, data_cfg, total_m)
         mbs = {"tokens": torch.from_numpy(mbs["tokens"]).to(dev, torch.long),
                "weights": torch.from_numpy(mbs["weights"]).to(dev)}
@@ -225,7 +253,7 @@ def train(
         h0 = time.monotonic()
         # a span a torch.profiler trace can cut steps by (free when not profiling)
         with torch.profiler.record_function("train_step"):
-            if step:
+            if step > start_step:
                 train_params(params, model_cfg, out=compute)
             grads, loss, stats = accumulate_grads(grad_fn, compute, mbs,
                                                   mask_nm.reshape(total_m), tcfg.drop,
@@ -247,6 +275,8 @@ def train(
         step_s.append(host_step_s)
         microbatch_s.append(elapsed_s(stats["microbatch_marks"]))
         telemetry.record(step, t, host_step_s=host_step_s, tau=tau, drop_fraction=drop_frac)
+        if tcfg.ckpt_dir and tcfg.ckpt_every and (step + 1) % tcfg.ckpt_every == 0:
+            save_ckpt(step + 1)
 
     final_trajectory = list(controller.trajectory) if controller else trajectory
     metrics: Dict[str, Any] = {

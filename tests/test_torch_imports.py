@@ -42,7 +42,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                      "repro_torch.train.trainer", "repro_torch.train.resilience.controller",
                      "repro_torch.launch.train", "repro_torch.kernels.ssd_chunk",
                      "repro_torch.models.ssm", "repro_torch.models.recurrent",
-                     "repro_torch.configs.mamba2_130m", "repro_torch.configs.mamba2_tiny"):
+                     "repro_torch.configs.mamba2_130m", "repro_torch.configs.mamba2_tiny",
+                     "repro_torch.core.local_sgd", "repro_torch.train.checkpoint"):
         assert expected in names, names
     code = (
         "import sys\n"

@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import core, graphs  # noqa: E402
+from repro_torch.core import local_sgd  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
 from repro_torch.kernels import ssd_chunk  # noqa: E402
@@ -301,6 +302,29 @@ class TestKernelsOnCard:
         kept = masked_accum.masked_accum(acc.clone(), g, 0.0)
         assert torch.equal(kept, acc)  # keep = 0 leaves the accumulator untouched
 
+    @pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
+    def test_masked_accum_local_step(self, cuda, gdtype):
+        """K1 as the Local-SGD step, ``w += 1 * -lr * g``: the product is
+        rounded, and the kernel may fuse it into the add (one rounding where
+        the plain version has two): each element within half a spacing of
+        the product plus half a spacing of each result (doubled across a
+        binade edge), so two f32 spacings of the sum plus one of the
+        product."""
+        rng = np.random.default_rng(7)
+        n = 65536 + 3
+        w = torch.from_numpy(rng.normal(scale=0.02, size=n).astype(np.float32)).to(cuda)
+        g = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda, gdtype)
+        want = ref.masked_accum_ref(w, g, 1.0, -1e-4)
+        got = masked_accum.masked_accum(w.clone(), g, 1.0, -1e-4)
+
+        def spacing(t):
+            t = t.abs()
+            return torch.nextafter(t, torch.full_like(t, np.inf)) - t
+
+        limit = 2 * spacing(want) + spacing(float(np.float32(-1e-4)) * g.float())
+        assert bool(((got - want).abs() <= limit).all())
+        assert not torch.equal(got, w)  # the step moved the weights
+
     # -----------------------------------------------------------------------
     # K6 / K5 at mamba2-130m's widths: 24 heads of 64, state 128, f32
     # -----------------------------------------------------------------------
@@ -438,3 +462,34 @@ class TestGraphsOnCard:
         assert loss == want_loss
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert counts == want_counts
+
+    def test_graphed_localsgd_equals_eager(self, cuda):
+        """Two Local-SGD rounds of 2 workers x 2 local steps, one step
+        dropped: graphed (a kept-step and a dropped-step graph) and eager
+        give the same round losses and averaged parameters, bit for bit, and
+        the same launches; K1 adds each leaf once a kept step and once a
+        worker (S += W)."""
+        cfg, _ = two_layers("qwen2_5_3b", cuda)
+        rng = np.random.default_rng(3)
+        tokens = rng.integers(0, cfg.vocab_size, (2, 2, 2, 1, 256))
+        keep = np.array([[[1, 0], [1, 1]], [[1, 1], [1, 1]]], np.float32)
+
+        def loss(p, mb):
+            ls, w = model.loss_fn(p, cfg, mb)
+            return ls / w
+
+        def run():
+            params = model.init_params(cfg, seed=0, device=cuda)
+            ops.reset_launch_counts()
+            p, losses = local_sgd.localsgd_train(
+                loss, params, lambda r, n: {"tokens": tokens[r, n]}, 2, 2, 2, 1e-3,
+                keep_mask=keep, cast=lambda w, out=None: model.train_params(w, cfg, out=out))
+            return [x.clone() for x in tree_leaves(p)], losses, ops.launch_counts()
+
+        with graphs.disable_graphs():
+            want, want_losses, want_counts = run()
+        got, losses, counts = run()
+        assert losses == want_losses
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert counts == want_counts
+        assert counts["masked_accum"] == len(got) * (7 + 4)
