@@ -30,7 +30,9 @@ times, at its main-path shapes (``k4_timing``, ``k2_timing``,
 ``k2_bwd_checks_and_timing``, and K6 / K5 at the mamba serving shapes) and
 prints one JSON line; ``qwen`` and ``mamba`` profile one model's serving
 runs, ``train`` the training step, ``localsgd`` the last round of
-``chip_smoke.py``'s Local-SGD run (qwen2.5-3b, 36 layers).  A copy of this script placed at the
+``chip_smoke.py``'s Local-SGD run (qwen2.5-3b, 36 layers), ``dp`` one
+graphed training step of ``chip_smoke.py``'s phase 9a (one NCCL rank,
+``mesh="1"``) with its ``dp_allreduce`` span apart.  A copy of this script placed at the
 root of another checkout (a ``git archive`` of a later commit: its
 ``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
 checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
@@ -39,6 +41,7 @@ in turns; ``--tag`` labels each line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -51,6 +54,7 @@ import torch
 
 import chip_smoke as cs
 from repro_torch.configs import get_config
+from repro_torch.dist import procs
 from repro_torch.models.model import compute_params, init_params
 
 FAMILIES = (  # first match wins; K4's and K2 backward's two kernels are sub-rows
@@ -95,7 +99,7 @@ def kernel_intervals(prof):
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start
                 and not getattr(e, "is_user_annotation", False)
-                and e.name not in ("train_step", "localsgd_round")):
+                and e.name not in ("train_step", "localsgd_round", "dp_allreduce")):
             out.append((e.name, e.time_range.start, e.time_range.end))
     return out
 
@@ -147,20 +151,24 @@ def profile_record(prof, wall_s: float, per: int, window=None) -> dict:
     }
 
 
-def train_profile(cfg, seed: int, eager: bool) -> dict:
+def train_profile(cfg, seed: int, eager: bool, mesh=None) -> dict:
     """Step 1 of a 2-step run of ``chip_smoke.train_phase``'s training (its
     steps 0 and 1), eager or graphed: step 0 builds the kernels and
     captures the micro-batch graph, step 1 replays it.  The record covers
     the trainer's ``train_step`` span of step 1 (host launches in it, device
     kernels that start in it); its wall time is step 1's ``step_s`` of an
-    unprofiled run."""
+    unprofiled run.  With ``mesh`` ("1": ``chip_smoke``'s phase 9a, one
+    NCCL rank in this process) the record adds the step's ``dp_allreduce``
+    span: its host ms and the device ms of the kernels that start in it."""
     n, m = cs.TRAIN_WORKERS, cs.TRAIN_MB
     data, latency, tau, masks = cs.train_setup(cfg, seed)
     tcfg = cs.TrainConfig(steps=2, n_workers=n, microbatches=m, lr=1e-4, clip_norm=1.0,
-                          seed=seed, latency=latency, drop=cs.DropConfig(enabled=True, tau=tau))
+                          seed=seed, latency=latency, drop=cs.DropConfig(enabled=True, tau=tau),
+                          mesh=mesh)
     kept = int(masks[1].sum())
     params = init_params(cfg, seed=seed, device="cuda")
-    with cs.mode(eager):
+    group = procs.local_group(backend="nccl", device="cuda") if mesh else contextlib.nullcontext()
+    with group, cs.mode(eager):
         res = cs.train(cfg, data, tcfg, params=params, device="cuda")
         wall = res.metrics["step_s"][1]
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -170,8 +178,18 @@ def train_profile(cfg, seed: int, eager: bool) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.name == "train_step" and e.device_type == torch.autograd.DeviceType.CPU)
     lo, hi = spans[-1]
-    rec = {"tag": TAG, "run": "train", "mode": "eager" if eager else "graphed",
+    rec = {"tag": TAG, "run": "dp" if mesh else "train", "mode": "eager" if eager else "graphed",
            "kept_microbatches": kept, **profile_record(prof, wall, kept, window=(lo, hi))}
+    if mesh:
+        ar = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.name == "dp_allreduce" and e.device_type == torch.autograd.DeviceType.CPU
+              and lo <= e.time_range.start <= hi]
+        (a_lo, a_hi), = ar
+        rec["dp_allreduce_host_ms"] = (a_hi - a_lo) / 1e3
+        rec["dp_allreduce_device_ms"] = sum(
+            (e - s) / 1e3 for _, s, e in kernel_intervals(prof) if a_lo <= s <= a_hi)
+        rec["dp_allreduce_kernels"] = sorted({name for name, s, _ in kernel_intervals(prof)
+                                              if a_lo <= s <= a_hi})
     rec["k2_bwd_ms"] = sum(v for k, v in rec["families_ms"].items()
                            if k.startswith("K2 rmsnorm: backward"))
     calls = [t for _, t in host_launches(prof) if lo <= t <= hi]
@@ -252,7 +270,7 @@ def serve_profiles(cfg, params, prompts, make) -> None:
 
 
 TAG = ""
-PARTS = ("kernels", "qwen", "mamba", "train", "localsgd")
+PARTS = ("kernels", "qwen", "mamba", "train", "localsgd", "dp")
 
 
 #: K6's (chunks, rows) at the mamba serving run's decode and 64-token steps
@@ -293,7 +311,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS[1:],
                     help="parts to run, always in the order kernels, qwen, mamba, train, "
-                         "localsgd (default: all but kernels)")
+                         "localsgd, dp (default: all but kernels)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -319,6 +337,8 @@ def main() -> int:
             params = compute_params(init_params(mcfg, seed=args.seed, device="cuda"), mcfg)
             serve_profiles(mcfg, params, mprompts,
                            lambda c, p, pr, packed: cs.mamba_engine(c, p, pr, "paged", packed))
+        elif part == "dp":  # one graphed step of phase 9a
+            print(json.dumps(train_profile(cfg, args.seed, False, mesh="1")), flush=True)
         else:
             prof = train_profile if part == "train" else localsgd_profile
             for eager in (True, False):

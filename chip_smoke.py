@@ -109,7 +109,24 @@ input copy is skipped, must fail the stream check.
    badnode scenario): run A saves at step 1, run B resumes from it; B's
    losses, drop fractions, tau trajectory and final parameters must equal
    the uninterrupted 3-step run's bit for bit; the bytes written and the
-   save and restore seconds are printed, the directory deleted.
+   save and restore seconds are printed, the directory deleted;
+9. data parallel (``repro_torch.dist``, the trainer's ``mesh=``) — 9a: the
+   training phase's run (36 layers) as one rank of a one-rank NCCL group in
+   this process: losses, drop fractions and every final leaf bit-identical
+   to the training phase's graphed run, the launches its kept micro-batches
+   imply, each step's All-Reduce device ms (12.34 GB of f32 in place);
+   9b: the same data and latencies at 4 layers of the same widths on two
+   ranks sharing the card (spawned processes, gloo with CUDA tensors, 2
+   workers a rank; the card's compute mode must be ``Default`` and its free
+   memory twice a rank's reckoning) against 9a's code at 4 layers on one
+   rank: every rank's replica, losses, drop fractions and tau trajectory the
+   same, each rank's kept and computed micro-batches those of its workers'
+   masks, drop fractions and tau exact, the losses within
+   ``GRAPH_LEAF_GAP`` of the one-rank run's and every final leaf within the
+   larger of ``GRAPH_LEAF_GAP`` and ``DP_ORDER_FACTOR`` times the gap the
+   one-rank run itself shows with its sums in the reverse order; each rank's step wall,
+   All-Reduce seconds and peak memory printed; then a planted fault (rank 1
+   skips one kept micro-batch) that the same check must reject.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K6 and K5's record rows are read at the
@@ -146,6 +163,8 @@ from repro_torch.core import accumulate_grads, drop_mask  # noqa: E402
 from repro_torch.core.engine import make_grad_fn  # noqa: E402
 from repro_torch.core.local_sgd import LocalSGD, StragglerScenario  # noqa: E402
 from repro_torch.data import DataConfig, microbatches_at  # noqa: E402
+from repro_torch.dist import Distribution, procs  # noqa: E402
+from repro_torch.launch import steps as dp_steps  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
 from repro_torch.kernels import ssd_chunk  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
@@ -285,6 +304,24 @@ LSGD_FAULT_LEAF = "/stack/groups/0/attn/wq"
 # min_microbatches 1 keeps everything), 3 steps, the badnode scenario with
 # the online controller deciding every step from step 1, saved at step 1
 CKPT_LAYERS, CKPT_WORKERS, CKPT_MB, CKPT_STEPS, CKPT_AT = 2, 2, 2, 3, 1
+
+# the data-parallel phase: 9b runs the training phase's data and latencies
+# (4 workers x 2 micro-batches, 3 steps) on 2 gloo ranks sharing the card, at
+# 4 layers so that two replicas fit on it; each rank's training pool is
+# reckoned at 6 GiB (PERF.md); the spawned group's time limit
+DP_LAYERS, DP_RANKS, DP_POOL_GIB, DP_TIMEOUT_S = 4, 2, 6.0, 600
+# 9b's final leaves against one rank's differ only by the order of the f32
+# sums (each rank sums its own blocks, then the two sums are added), which
+# GRAPH_LEAF_GAP covers for a leaf whose gradient is well conditioned.  A
+# leaf whose gradient is a cancelling sum is not: the attention K bias, whose
+# every token's term nearly cancels (softmax ignores a shift of all keys but
+# for RoPE's rotation of it), read 6.4e-3 of its norm on an H100 at 4
+# layers (PERF.md, the data-parallel findings).  So the same one-rank run is
+# made again with each step's kept micro-batches added in the reverse order
+# (``reversed_sums``: the same sums, another order, no second rank), and
+# each leaf is held to the larger of GRAPH_LEAF_GAP and DP_ORDER_FACTOR
+# times that run's gap for it.
+DP_ORDER_FACTOR = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -1604,13 +1641,19 @@ def train_setup(cfg, seed: int):
     return data, latency, tau, masks
 
 
-def train_run(cfg, seed: int, eager: bool):
-    """One 3-step training run from ``--seed``'s weights, eager or graphed:
-    (result, final f32 parameters, launches, peak GiB, wall s)."""
-    data, latency, tau, _ = train_setup(cfg, seed)
-    tcfg = TrainConfig(steps=TRAIN_STEPS, n_workers=TRAIN_WORKERS, microbatches=TRAIN_MB,
+def train_config(seed: int, latency, tau: float, **kw) -> TrainConfig:
+    """The training phase's TrainConfig (``kw``: ``mesh`` and the like)."""
+    return TrainConfig(steps=TRAIN_STEPS, n_workers=TRAIN_WORKERS, microbatches=TRAIN_MB,
                        optimizer="adamw", lr=1e-4, clip_norm=1.0, seed=seed, latency=latency,
-                       drop=DropConfig(enabled=True, tau=tau))
+                       drop=DropConfig(enabled=True, tau=tau), **kw)
+
+
+def train_run(cfg, seed: int, eager: bool, tau=None, **kw):
+    """One 3-step training run from ``--seed``'s weights, eager or graphed,
+    at the phase's tau unless given (``kw`` to ``train_config``): (result,
+    final f32 parameters, launches, peak GiB, wall s)."""
+    data, latency, setup_tau, _ = train_setup(cfg, seed)
+    tcfg = train_config(seed, latency, setup_tau if tau is None else tau, **kw)
     params = init_params(cfg, seed=seed, device=DEV)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1652,7 +1695,9 @@ def check_gaps(what: str, gaps: dict) -> None:
 def train_phase(cfg, seed: int):
     """qwen2.5-3b at full depth through ``repro_torch.train.train``, eager
     (``disable_graphs``) then graphed (the counters' window): losses and
-    final parameters compared, launch counters checked in both."""
+    final parameters compared, launch counters checked in both.  Returns the
+    graphed run's launches and its (losses, final leaves on the host, drop
+    fractions)."""
     check(cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
           "the training phase wants remat, bf16 compute and f32 master weights")
     n, m = TRAIN_WORKERS, TRAIN_MB
@@ -1686,10 +1731,10 @@ def train_phase(cfg, seed: int):
             f"{peak:.2f} GiB; whole call {wall:.1f} s")
         log(f"train {tag} launches over {kept} kept micro-batches: {counts} (per micro-batch "
             f"{per_mb})")
-        runs[tag] = (res.losses, [x.cpu() for x in tree_leaves(params)])
+        runs[tag] = (res.losses, [x.cpu() for x in tree_leaves(params)], res.drop_fractions)
         del res, params
         free_device()
-    (got, got_p), (want_l, want_p) = runs["graphed"], runs["eager"]
+    (got, got_p, _), (want_l, want_p, _) = runs["graphed"], runs["eager"]
     same = [a == b for a, b in zip(got, want_l)]
     log(f"train: graphed vs eager losses {'bit-identical' if all(same) else 'differ'}: {got} / "
         f"{want_l}")
@@ -1700,7 +1745,7 @@ def train_phase(cfg, seed: int):
         check(gap < GRAPH_LEAF_GAP, f"train: step {step}'s loss differs by {gap}")
     names = [k for k, _ in named_leaves(init_params(cfg, seed=seed, device="meta"))]
     check_gaps("train: final parameters after 3 steps", leaf_gaps(names, got_p, want_p))
-    return counts
+    return counts, runs["graphed"]
 
 
 def grad_phase(cfg, seed: int):
@@ -2101,6 +2146,247 @@ def checkpoint_phase(cfg, seed: int):
         f"fractions, tau trajectory, {len(names)} parameter leaves)")
 
 
+# ---------------------------------------------------------------------------
+# data parallel: 9a one NCCL rank at full depth, 9b two gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+
+def dp_nccl_phase(cfg, seed: int, graphed):
+    """9a: the training phase's run as one rank of a one-rank NCCL group in
+    this process (``mesh="1"``, graphed): losses, drop fractions and every
+    final leaf must equal the training phase's graphed run bit for bit, and
+    the launches those of its kept micro-batches.  Prints each step's
+    All-Reduce device ms (CUDA events around the collective).  Returns the
+    launches."""
+    want_losses, want_leaves, want_drops = graphed
+    _, _, tau, masks = train_setup(cfg, seed)
+    kept = int(sum(k.sum() for k in masks))
+    per_mb = launches_per_microbatch(cfg, len(want_leaves))
+    want_counts = {k: kept * v for k, v in per_mb.items()}
+    with procs.local_group(backend="nccl", device=DEV):
+        ops.reset_launch_counts()  # the data-parallel path starts here (read in train_run)
+        res, params, counts, peak, wall = train_run(cfg, seed, eager=False, mesh="1")
+    nbytes = 4 * sum(x.numel() for x in tree_leaves(params)) + 12
+    ar_ms = [x * 1e3 for x in res.metrics["allreduce_s"]]
+    log(f"dp 9a one NCCL rank, {cfg.n_layers} layers: losses {res.losses}, drop fractions "
+        f"{res.drop_fractions}, kept {res.metrics['kept_local']}; step wall s "
+        f"{[round(x, 3) for x in res.metrics['step_s']]}; all-reduce device ms a step "
+        f"{[round(x, 3) for x in ar_ms]} over {nbytes} bytes (15 in-place calls); peak device "
+        f"memory {peak:.2f} GiB; whole call {wall:.1f} s")
+    log(f"dp 9a launches over {kept} kept micro-batches: {counts}")
+    check(counts == want_counts, f"dp 9a launches {counts}, the code implies {want_counts}")
+    check(res.losses == want_losses, f"dp 9a losses {res.losses} / train {want_losses}")
+    check(res.drop_fractions == want_drops,
+          f"dp 9a drop fractions {res.drop_fractions} / train {want_drops}")
+    names = [k for k, _ in named_leaves(params)]
+    differ = [k for k, v in leaf_gaps(names, tree_leaves(params), want_leaves).items() if v]
+    check(not differ, f"dp 9a final leaves differ from the training phase's: {differ}")
+    log(f"dp 9a: one NCCL rank equals the training phase's graphed run bit for bit (losses, "
+        f"drop fractions, {len(names)} final leaves)")
+    return counts
+
+
+def dp_tau(cfg, seed: int):
+    """(tau, masks) for 9b: the training phase's tau (the median of the
+    workers' latency sums) unless some rank then drops nothing in the run;
+    else the first of a few other quantiles under which every rank drops."""
+    _, latency, _, _ = train_setup(cfg, seed)
+    draws = np.stack([latency.sample_at(step, TRAIN_WORKERS, TRAIN_MB, seed=seed + 1)
+                      for step in range(TRAIN_STEPS)])
+    per = TRAIN_WORKERS // DP_RANKS
+    for q in (50, 40, 60, 30, 70):
+        tau = float(np.percentile(draws.sum(-1), q))
+        masks = [drop_mask(t, tau, 1).numpy() for t in draws]
+        if all(sum((1 - k[r * per:(r + 1) * per]).sum() for k in masks) > 0
+               for r in range(DP_RANKS)):
+            return tau, masks
+    raise SmokeFailure("no tau drops a micro-batch on every rank")
+
+
+def dp_rank_bytes(cfg) -> dict:
+    """A 9b rank's device memory, reckoned: the f32 master, AdamW's m and v,
+    the f32 accumulator, the bf16 compute copy (the embedding stays the
+    master) and the training pool of a 4-layer model (``DP_POOL_GIB``)."""
+    named = named_leaves(init_params(cfg, seed=0, device="meta"))
+    p = sum(x.numel() for _, x in named)
+    body = sum(x.numel() for k, x in named if not k.startswith("/embed/"))
+    return {"f32 master": 4 * p, "AdamW m and v": 8 * p, "accumulator": 4 * p,
+            "bf16 compute copy": 2 * body, "training pool": int(DP_POOL_GIB * 2**30)}
+
+
+def skip_first_kept_microbatch() -> None:
+    """A planted fault: this process's first kept micro-batch is never
+    added (its loss and weight come back 0)."""
+    sound, done = Accumulator.add, []
+
+    def add(self, mb):
+        if not done:
+            done.append(True)
+            zero = torch.zeros((), device=self.leaves[0].device)
+            return zero, zero
+        return sound(self, mb)
+
+    Accumulator.add = add
+
+
+def dp_rank(rank: int, world: int, cfg, seed: int, tau: float, plant: bool) -> dict:
+    """One 9b rank (a spawned process on GPU 0, gloo): the training phase's
+    run at ``cfg``'s depth with ``mesh`` the 2-rank gloo group; returns its
+    readings, whether its final replica equals rank 0's (a broadcast of each
+    leaf compared on the card) and, on rank 0, the final leaves."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if plant and rank == 1:
+        skip_first_kept_microbatch()
+    dev = f"{DEV}:0"
+    mesh = Distribution.from_spec(str(world), device=dev, backend="gloo")
+    params = init_params(cfg, seed=seed, device=dev)
+    data, latency, _, _ = train_setup(cfg, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train(cfg, data, train_config(seed, latency, tau, mesh=mesh), params=params, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params, same = res.params, True
+    for leaf in tree_leaves(params):
+        theirs = leaf.clone()
+        torch.distributed.broadcast(theirs, src=0)
+        same = same and torch.equal(theirs, leaf)
+    out = {"losses": res.losses, "drop_fractions": res.drop_fractions,
+           "tau_trajectory": res.tau_trajectory, "step_s": res.metrics["step_s"],
+           "allreduce_s": res.metrics["allreduce_s"], "kept_local": res.metrics["kept_local"],
+           "counts": counts, "peak_gib": peak, "wall_s": wall, "same_as_rank0": same}
+    if rank == 0:
+        out["leaves"] = [x.cpu() for x in tree_leaves(params)]
+    return out
+
+
+@contextlib.contextmanager
+def reversed_sums():
+    """Each step's kept micro-batches added in the reverse order (the data-
+    parallel step's ``sum_kept``): the same sums in another f32 order."""
+    sound = dp_steps.sum_kept
+
+    def reverse(acc, microbatches, keep):
+        return sound(acc, {k: v.flip(0) for k, v in microbatches.items()}, keep[::-1].copy())
+
+    dp_steps.sum_kept = reverse
+    try:
+        yield
+    finally:
+        dp_steps.sum_kept = sound
+
+
+def dp_check(got, one, masks, per_mb: dict, names, order_gaps: dict) -> None:
+    """9b's ranks (``got``) against the one-rank run (``one``: losses, drop
+    fractions, tau trajectory, final leaves): every rank's replica, losses,
+    drop fractions and tau trajectory the same; each rank's kept count (from
+    its masks) and the micro-batches it computed (its launches) exact; the
+    drop fractions and tau trajectory exact, the losses within
+    ``GRAPH_LEAF_GAP`` and every final leaf within the larger of
+    ``GRAPH_LEAF_GAP`` and ``DP_ORDER_FACTOR`` times ``order_gaps`` (the
+    one-rank run's own gap under another order of its sums), against the
+    one-rank run.  Prints the gaps before it checks them."""
+    r0, per = got[0], TRAIN_WORKERS // DP_RANKS
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
+    gaps = leaf_gaps(names, r0["leaves"], one["leaves"])
+    limits = {k: max(GRAPH_LEAF_GAP, DP_ORDER_FACTOR * order_gaps[k]) for k in gaps}
+    worst = max(gaps, key=lambda k: gaps[k] / limits[k])
+    log(f"dp 9b vs one rank: losses {r0['losses']} / {one['losses']} (largest gap {loss_gap:.3e} "
+        f"of the loss); final leaves, gap of its norm (the one-rank run's under reversed sums): "
+        + ", ".join(f"{k} {v:.2e} ({order_gaps[k]:.2e})" for k, v in gaps.items()))
+    for r, res in enumerate(got):
+        own = [int(k[r * per:(r + 1) * per].sum()) for k in masks]
+        want = {k: sum(own) * v for k, v in per_mb.items()}
+        computed = res["counts"]["masked_accum"] / per_mb["masked_accum"]
+        log(f"dp 9b rank {r}: kept {res['kept_local']} (its workers' masks {own}), computed "
+            f"{computed:g} micro-batches")
+        check(res["same_as_rank0"], f"rank {r}'s final replica differs from rank 0's")
+        check(all(res[k] == r0[k] for k in ("losses", "drop_fractions", "tau_trajectory")),
+              f"rank {r}'s losses, drops or tau differ from rank 0's")
+        check(res["kept_local"] == own, f"rank {r} kept {res['kept_local']}, its masks {own}")
+        check(res["counts"] == want, f"rank {r} launches {res['counts']}: computed {computed:g} "
+              f"micro-batches where its workers kept {sum(own)} ({want})")
+    check(r0["drop_fractions"] == one["drop_fractions"],
+          f"drop fractions {r0['drop_fractions']} / one rank {one['drop_fractions']}")
+    check(r0["tau_trajectory"] == one["tau_trajectory"], "tau trajectories differ")
+    check(loss_gap < GRAPH_LEAF_GAP, f"losses differ by {loss_gap} of the loss")
+    check(gaps[worst] < limits[worst], f"leaf {worst} differs by {gaps[worst]} of its norm, "
+          f"its limit {limits[worst]}")
+
+
+def dp_gloo_phase(cfg, seed: int) -> None:
+    """9b: qwen2.5-3b's widths at ``DP_LAYERS`` layers, the training phase's
+    data and latencies (2 workers a rank x 2 micro-batches, 3 steps) on two
+    gloo ranks sharing the card, against 9a's code at the same depth on one
+    rank; then the same with a planted fault (rank 1 skips one kept
+    micro-batch), which ``dp_check`` must reject."""
+    small = dataclasses.replace(cfg, n_layers=DP_LAYERS)
+    tau, masks = dp_tau(cfg, seed)
+    mode_line = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                               capture_output=True, text=True, check=True).stdout.strip()
+    log(f"dp 9b: compute mode {mode_line}; tau {tau:.4f} s, masks {[k.tolist() for k in masks]}")
+    check(mode_line.splitlines()[0] == "Default",
+          f"two processes on one card need compute mode Default, not {mode_line}")
+    runs = {}
+    for order in ("sound", "reversed"):
+        with procs.local_group(backend="nccl", device=DEV), (
+                reversed_sums() if order == "reversed" else contextlib.nullcontext()):
+            res, params, _, peak1, wall1 = train_run(small, seed, eager=False, tau=tau, mesh="1")
+        runs[order] = {"losses": res.losses, "drop_fractions": res.drop_fractions,
+                       "tau_trajectory": res.tau_trajectory,
+                       "leaves": [x.cpu() for x in tree_leaves(params)]}
+        log(f"dp 9b one rank ({order} order of the sums), {DP_LAYERS} layers "
+            f"({small.param_count()} parameters): losses {res.losses}, drop fractions "
+            f"{res.drop_fractions}; step wall s {[round(x, 3) for x in res.metrics['step_s']]}; "
+            f"peak {peak1:.2f} GiB; {wall1:.1f} s")
+        names = [k for k, _ in named_leaves(params)]
+        del res, params
+        free_device()
+    one = runs["sound"]
+    order_gaps = leaf_gaps(names, runs["reversed"]["leaves"], one["leaves"])
+    del runs
+    reckon = dp_rank_bytes(small)
+    free, total = torch.cuda.mem_get_info()
+    parts = ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in reckon.items())
+    log(f"dp 9b rank memory, reckoned: {parts}; total {sum(reckon.values()) / 2**30:.2f} GiB a "
+        f"rank; free on the card {free / 2**30:.2f} of {total / 2**30:.2f} GiB")
+    check(free >= 2 * sum(reckon.values()),
+          f"two ranks want 2 x {sum(reckon.values())} bytes, the card has {free} free")
+    per_mb = launches_per_microbatch(small, len(names))
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    for plant in (False, True):
+        t0 = time.perf_counter()
+        got = procs.spawn(dp_rank, DP_RANKS, backend="gloo", device=f"{DEV}:0",
+                          timeout_s=DP_TIMEOUT_S, workdir=root, args=(small, seed, tau, plant))
+        spawn_s = time.perf_counter() - t0
+        tag = "planted fault (rank 1 skips one kept micro-batch)" if plant else "sound"
+        for r, g in enumerate(got):
+            log(f"dp 9b {tag}, rank {r}: losses {g['losses']}, drops {g['drop_fractions']}; "
+                f"step wall s {[round(x, 3) for x in g['step_s']]}; all-reduce s "
+                f"{[round(x, 3) for x in g['allreduce_s']]} ({4 * small.param_count() + 12} "
+                f"bytes, gloo through the host); peak {g['peak_gib']:.2f} GiB; train "
+                f"{g['wall_s']:.1f} s; launches {g['counts']}")
+        log(f"dp 9b {tag}: {DP_RANKS} ranks spawned and joined in {spawn_s:.1f} s")
+        if not plant:
+            dp_check(got, one, masks, per_mb, names, order_gaps)
+            log(f"dp 9b: two gloo ranks match one rank (drop fractions, tau trajectory and kept "
+                f"counts exact; losses within {GRAPH_LEAF_GAP}, {len(names)} leaves within "
+                f"their limits)")
+        else:
+            try:
+                dp_check(got, one, masks, per_mb, names, order_gaps)
+            except SmokeFailure as e:
+                log(f"dp 9b planted fault rejected: {e}")
+            else:
+                raise SmokeFailure("dp 9b: the planted skipped micro-batch passed the checks")
+        del got
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -2192,7 +2478,7 @@ def main() -> int:
     free_device()
 
     # 6. training at full depth, then the 2-layer card-vs-CPU parity
-    train_counts = train_phase(cfg, args.seed)
+    train_counts, train_graphed = train_phase(cfg, args.seed)
     free_device()
     grad_phase(cfg, args.seed)
     free_device()
@@ -2207,8 +2493,15 @@ def main() -> int:
 
     # 8. checkpoints: save, resume, and the uninterrupted run
     checkpoint_phase(cfg, args.seed)
+    free_device()
+
+    # 9. data parallel: one NCCL rank at full depth, then two gloo ranks
+    dp_counts = dp_nccl_phase(cfg, args.seed, train_graphed)
+    del train_graphed
+    free_device()
+    dp_gloo_phase(cfg, args.seed)
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
-                for k in serve_counts}
+                + dp_counts[k] for k in serve_counts}
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was launched no time on the main paths")
 
@@ -2252,7 +2545,8 @@ def main() -> int:
              library_ms=None),
     ]
     log(f"launches, qwen serving: {serve_counts}; mamba serving: {mamba_counts}; "
-        f"training: {train_counts}; Local-SGD: {localsgd_counts}")
+        f"training: {train_counts}; Local-SGD: {localsgd_counts}; data parallel (9a): "
+        f"{dp_counts}")
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

@@ -203,15 +203,37 @@ class Accumulator:
         return Accumulator(grad_fn, params)
 
 
-def normalize_grads(acc_leaves: list, w_sum: torch.Tensor, kept: float, m: int,
+def sum_kept(acc: Accumulator, microbatches: dict, keep: np.ndarray):
+    """Algorithm 1's loop: zero ``acc`` and add each kept micro-batch into
+    it, in order (``keep`` (M,) on the host; a dropped one is never
+    computed).  Returns the kept micro-batches' (loss_sum, weight_sum) and a
+    (start, end) mark around each add for ``elapsed_s``."""
+    dev = acc.leaves[0].device
+    acc.zero_()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    w_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    marks = []
+    for i in range(keep.shape[0]):
+        if keep[i] <= 0.5:
+            continue  # dropped: never computed
+        start = _mark(dev)
+        l, w = acc.add({k: v[i] for k, v in microbatches.items()})
+        loss_sum = loss_sum + l  # in stream order, before the next add overwrites l, w
+        w_sum = w_sum + w
+        marks.append((start, _mark(dev)))
+    return loss_sum, w_sum, marks
+
+
+def normalize_grads(acc_leaves: list, w_sum: torch.Tensor, kept, m: int,
                     normalize: str) -> torch.Tensor:
     """Divide the summed gradients in place by Algorithm 1's denominator
     and return it: the computed weight ("computed"), or the weight the
-    full M micro-batches would have had ("nominal")."""
+    full ``m`` micro-batches would have had ("nominal"); ``kept`` (the
+    kept micro-batches' count) is a number or a tensor."""
     if normalize == "computed":
         denom = torch.clamp(w_sum, min=1.0)
     else:
-        kept_t = torch.tensor(np.float32(kept), device=w_sum.device)
+        kept_t = torch.as_tensor(kept, dtype=torch.float32, device=w_sum.device)
         denom = torch.clamp(w_sum / torch.clamp(kept_t, min=1.0) * m, min=1.0)
     for a in acc_leaves:
         a.div_(denom)
@@ -248,18 +270,7 @@ def accumulate_grads(
     m = keep.shape[0]
     dev = tree_leaves(params)[0].device
     acc = Accumulator.reuse(accumulator, grad_fn, params)
-    acc.zero_()
-    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    w_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    marks = []
-    for i in range(m):
-        if keep[i] <= 0.5:
-            continue  # dropped: never computed
-        start = _mark(dev)
-        l, w = acc.add({k: v[i] for k, v in microbatches.items()})
-        loss_sum = loss_sum + l  # in stream order, before the next add overwrites l, w
-        w_sum = w_sum + w
-        marks.append((start, _mark(dev)))
+    loss_sum, w_sum, marks = sum_kept(acc, microbatches, keep)
 
     kept = float(keep.sum())
     denom = normalize_grads(acc.leaves, w_sum, kept, m, cfg.normalize)

@@ -1,4 +1,4 @@
-"""Training launcher (port of ``repro.launch.train``, single device).
+"""Training launcher (port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --steps 3 --drop-compute --tau 1.2 --device cpu  # smoke config
@@ -10,12 +10,22 @@ smoke config unless ``--full-config``), builds the synthetic data and the
 DropCompute trainer, and runs on one device: CUDA unless ``--device cpu``.
 ``--ckpt DIR`` saves a checkpoint every 50 steps, ``--resume DIR`` resumes
 from one (parameters, optimizer state and the adapted tau-controller
-state), as the reference's launcher does.  ``--mesh`` is refused: the SPMD
-path is not ported yet.  So is, on CUDA, a config whose attention the
-training kernels are not built for (the smoke config is f32 with head dim
-32: run it with ``--device cpu``).
+state), as the reference's launcher does.  A config whose attention the
+training kernels are not built for is refused on CUDA (the smoke config is
+f32 with head dim 32: run it with ``--device cpu``).
+
+``--mesh N`` trains data-parallel on N ranks (``repro_torch.dist``): under
+``torchrun`` each process joins the group it made; run alone, the launcher
+spawns N local ranks, one a GPU (NCCL; fewer GPUs than N raise
+``NotEnoughDevicesError``), or all on the CPU with ``--device cpu``
+(gloo).  Rank 0 prints.  A model axis (``--mesh 2,2``) is refused.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
+        --steps 3 --batch 8 --seq 32 --workers 4 --microbatches 2 \
+        --drop-compute --tau 1.0 --device cpu --mesh 2
 """
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -24,13 +34,14 @@ import torch
 from repro_torch.configs import ARCHITECTURES, get_config, get_smoke_config
 from repro_torch.core import DropConfig, LatencyModel, NoiseModel
 from repro_torch.data import DataConfig
+from repro_torch.dist import Distribution, UnsupportedDistError, procs
 from repro_torch.kernels.flash_attention import UnbuiltShapeError
 from repro_torch.models.model import require_trainable
 from repro_torch.train import TrainConfig, train
 from repro_torch.train.resilience import SCENARIOS, make_scenario
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, help=f"one of {ARCHITECTURES}")
     ap.add_argument("--smoke", action="store_true", default=True,
@@ -59,18 +70,13 @@ def main(argv=None):
     ap.add_argument("--resume", default="",
                     help="checkpoint dir to resume from (params, opt state "
                          "AND the adapted tau-controller state)")
-    ap.add_argument("--mesh", default="", help="not ported: refused")
-    args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh is not ported to repro_torch yet (see ROADMAP.md)")
+    ap.add_argument("--mesh", default="",
+                    help="data-parallel ranks, e.g. 2 (one GPU a rank, or --device cpu)")
+    return ap
 
+
+def _run(args, verbose: bool) -> int:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    try:
-        require_trainable(cfg, args.seq, torch.device(args.device or "cuda"))
-    except (UnbuiltShapeError, NotImplementedError) as e:
-        ap.error(f"{cfg.name} on {args.device or 'cuda'}: {e}")
-    print(f"[train] arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"family={cfg.family} pattern={cfg.layer_pattern}", flush=True)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq, batch_size=args.batch,
                       strategy="pack", seed=args.seed)
     latency = LatencyModel(base=0.45, noise=NoiseModel(kind=args.noise))
@@ -86,9 +92,11 @@ def main(argv=None):
         online_tau=args.online_tau, inject_real_delays=args.inject_real_delays,
         latency=latency, tc=args.tc, seed=args.seed,
         ckpt_dir=args.ckpt or None, ckpt_every=50 if args.ckpt else 0,
-        resume_from=args.resume or None,
+        resume_from=args.resume or None, mesh=args.mesh or None,
     )
     r = train(cfg, data, tcfg, device=args.device)
+    if not verbose:
+        return 0
     print(f"[train] loss {r.losses[0]:.3f} -> {r.losses[-1]:.3f}  "
           f"sim time {r.metrics['total_sim_time']:.0f}s  "
           f"drop {np.mean(r.drop_fractions):.1%}  tau={r.tau}  "
@@ -97,6 +105,45 @@ def main(argv=None):
         print("[train] tau trajectory: "
               + " -> ".join(f"{s}:{t:.2f}" if np.isfinite(t) else f"{s}:inf"
                             for s, t in r.tau_trajectory))
+    return 0
+
+
+def _rank_main(rank: int, world_size: int, argv) -> None:
+    """One spawned rank of ``--mesh N``: the same run, rank 0 printing."""
+    _run(_parser().parse_args(argv), verbose=rank == 0)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
+    dist = None
+    if args.mesh:
+        try:
+            dist = Distribution.from_spec(args.mesh, device=args.device)
+        except (UnsupportedDistError, ValueError) as e:
+            ap.error(str(e))
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    try:
+        require_trainable(cfg, args.seq, torch.device(args.device or "cuda"))
+    except (UnbuiltShapeError, NotImplementedError) as e:
+        ap.error(f"{cfg.name} on {args.device or 'cuda'}: {e}")
+    torchrun = dist is not None and "LOCAL_RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if torchrun:  # join the group torchrun made
+        procs.init_from_env(device=args.device)
+    if dist is None or dist.rank == 0:
+        print(f"[train] arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+              f"family={cfg.family} pattern={cfg.layer_pattern}"
+              + (f" ranks={dist.dp_size}" if dist else ""), flush=True)
+    if dist is None:
+        return _run(args, verbose=True)
+    if torchrun:
+        try:
+            return _run(args, verbose=dist.rank == 0)
+        finally:
+            torch.distributed.destroy_process_group()
+    procs.spawn(_rank_main, dist.dp_size, device=args.device, args=(argv,))
     return 0
 
 

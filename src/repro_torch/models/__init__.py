@@ -1,5 +1,5 @@
 """Model definitions for the port's training and serving paths ('G'/'L' decoder stacks)."""
-from .config import ModelConfig
+from .config import InputShape, ModelConfig
 from .model import (
     UnsupportedPatternError,
     compute_params,
@@ -10,6 +10,7 @@ from .model import (
 )
 
 __all__ = [
+    "InputShape",
     "ModelConfig",
     "UnsupportedPatternError",
     "compute_params",

@@ -191,6 +191,18 @@ class ModelConfig:
         return self
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """A workload shape (the reference's): sequence length, global batch,
+    mode ("train" | "prefill" | "decode") and, to train, DropCompute's M."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str
+    microbatches: int = 8
+
+
 @functools.lru_cache(maxsize=64)
 def _exact_param_count(cfg: ModelConfig) -> int:
     from . import model as _model  # lazy: avoids an import cycle

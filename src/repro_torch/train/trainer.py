@@ -1,5 +1,5 @@
-"""Training loop with DropCompute as a first-class feature (port of the
-single-device path of ``repro.train.trainer``, ``trainer.py:134-359``).
+"""Training loop with DropCompute as a first-class feature (port of
+``repro.train.trainer``, ``trainer.py:134-359``).
 
 The trainer virtualizes N data-parallel workers on one device: each step
 draws an (N, M) micro-batch latency tensor from a ``LatencyModel`` (or a
@@ -16,19 +16,20 @@ after ``calibration_steps``) or online (``online_tau``: a
 A tau change needs no new capture (the keep mask never enters a graph),
 so the controller's recompile cost is 0.
 
-A step: the f32 master parameters are cast into a compute copy
-(``models.train_params``, one buffer refilled in place each step),
-``core.accumulate_grads`` runs each kept micro-batch's forward and
-backward and adds its gradients into an f32 accumulator (the
+A step (``launch.steps.TrainStep``): the f32 master parameters are cast
+into a compute copy (``models.train_params``, one buffer refilled in
+place each step), each kept micro-batch's forward and backward adds its
+gradients into an f32 accumulator (``core.dropcompute.sum_kept``; the
 masked-accumulate kernel; the accumulator is one buffer zeroed in place
-each step), then the gradients are clipped and the optimizer updates the
-master parameters in place (``Optimizer.step``).  On the card each kept
+each step), then the gradients are normalised and clipped and the
+optimizer updates the master parameters in place (``Optimizer.step``).
+On the card each kept
 micro-batch is one CUDA-graph replay (``core.Accumulator``, the
 reference's ``jax.jit(step)`` at ``trainer.py:150``); Algorithm 1's keep
 decision stays on the host between the replays.  The tail (normalisation,
 clipping, the optimizer) runs eagerly: its learning rate and bias
-corrections are host floats each step, which a graph would freeze.  The latency draws, masks and
-simulated times are the reference's numpy, so drop fractions, tau
+corrections are host floats each step, which a graph would freeze.  The
+latency draws, masks and simulated times are the reference's numpy, so drop fractions, tau
 trajectories and ``sim_times`` equal the reference's exactly.
 
 Checkpoints (``trainer.py:223-260``, ``:343-344``): ``ckpt_dir`` with
@@ -39,7 +40,17 @@ trajectory) after every ``ckpt_every``-th step, in the reference's npz +
 place before the first step and runs the remaining steps, so a resumed run
 repeats the uninterrupted run's losses, drop fractions and tau.
 
-Left out until ported (it raises a typed error): the SPMD path (``mesh=``).
+The data-parallel path (``mesh="N"``, the reference's SPMD path,
+``trainer.py:123-131``, ``:177-201``): each of the N ranks of the process
+group runs ``train`` with the same arguments and holds ``W / N`` of the W
+workers.  Its step (built by ``Distribution.train_step``) takes its own
+workers' rows of the global batch and joins one gradient All-Reduce.  The
+latency draws, masks, tau selection and simulated times are the same host
+numpy on every rank (from the shared ``(seed, step)`` draws), so the ranks'
+tau trajectories agree with no collective.  Parameters are made the same on
+every rank (``Distribution.shard``) after init and after a restore; rank 0
+writes the checkpoints.  A mesh with ``model > 1`` raises
+``UnsupportedDistError``.
 """
 from __future__ import annotations
 
@@ -51,23 +62,21 @@ import numpy as np
 import torch
 
 from .. import resolve_device, synchronize
-from ..core.dropcompute import Accumulator, DropConfig, accumulate_grads, drop_mask, elapsed_s
-from ..core.engine import make_grad_fn
+from ..core.dropcompute import DropConfig, drop_mask, elapsed_s
 from ..core.simulate import LatencyModel
 from ..core.threshold import select_threshold
-from ..data.synthetic import DataConfig, microbatches_at
-from ..models.config import ModelConfig
-from ..models.model import init_params, loss_fn, require_trainable, train_params
+from ..data.synthetic import DataConfig, batch_at
+from ..dist.api import Distribution, UnsupportedDistError
+from ..models.config import InputShape, ModelConfig
+from ..launch.steps import make_train_step
+from ..models.model import init_params, require_trainable
 from ..models.transformer import tree_map
-from ..optim import clip_by_global_norm, make as make_opt
 from . import checkpoint as ckpt
 from .resilience import ComputeTelemetry, ControllerConfig, TauController
 
 Tree = Any
 
-
-class UnsupportedDistError(NotImplementedError):
-    """``mesh=`` asks for the SPMD path, which the port has not ported."""
+__all__ = ["TrainConfig", "TrainResult", "UnsupportedDistError", "train"]
 
 
 @dataclasses.dataclass
@@ -90,7 +99,7 @@ class TrainConfig:
     controller: Optional[ControllerConfig] = None
     telemetry_window: int = 64
     inject_real_delays: bool = False
-    mesh: Optional[Any] = None  # not ported: raises UnsupportedDistError
+    mesh: Optional[Any] = None  # "N" | (N,) | Distribution: the data-parallel path
     # bookkeeping
     log_every: int = 10
     ckpt_dir: Optional[str] = None
@@ -129,11 +138,12 @@ class TrainResult:
         return out
 
 
-def _make_opt(tcfg: TrainConfig):
-    # sgd: no decay, as the reference's _make_step
-    if tcfg.optimizer == "sgd":
-        return make_opt("sgd", tcfg.lr)
-    return make_opt(tcfg.optimizer, tcfg.lr, weight_decay=tcfg.weight_decay)
+def _resolve_dist(mesh, device) -> Optional[Distribution]:
+    """None | "4" | (4,) | Distribution -> Optional[Distribution]; a spec's
+    ranks run on ``device`` (``procs.rank_device``'s rules)."""
+    if mesh is None or isinstance(mesh, Distribution):
+        return mesh
+    return Distribution.from_spec(mesh, device=device)
 
 
 def _latencies_at(tcfg: TrainConfig, step: int, n: int, m: int) -> np.ndarray:
@@ -149,30 +159,49 @@ def train(
     eval_fn: Optional[Callable[[Tree], float]] = None,
     device=None,
 ) -> TrainResult:
-    """Train on one device (CUDA unless ``device`` names another).
-    ``params`` (the f32 master tree) are moved there and updated in place
-    (the reference returns new arrays); without them they are drawn from
-    ``tcfg.seed``.  Returns the trained parameters with the per-step
-    losses, simulated times, drop fractions and tau trajectory;
-    ``metrics`` adds each step's wall seconds (``step_s``) and each kept
-    micro-batch's seconds on the device's timeline (``microbatch_s``).
-    A config the training kernels are not built for raises before any
-    work (``models.model.require_trainable``)."""
-    if tcfg.mesh is not None:
-        raise UnsupportedDistError("the SPMD path (mesh=) is not ported yet; see ROADMAP.md")
+    """Train on one device (CUDA unless ``device`` names another), or with
+    ``tcfg.mesh`` as one rank of the data-parallel group (every rank calls
+    ``train`` alike; ``device`` as ``procs.rank_device`` reads it: by
+    default the GPU of the rank's local rank).  ``params`` (the f32 master
+    tree) are moved there and updated in place (the reference returns new
+    arrays); without them they are drawn from ``tcfg.seed``.  Returns the
+    trained parameters with the per-step losses, simulated times, drop
+    fractions and tau trajectory; ``metrics`` adds each step's wall seconds
+    (``step_s``) and each kept micro-batch's seconds on the device's
+    timeline (``microbatch_s``), and on the data-parallel path each step's
+    All-Reduce seconds on the same timeline (``allreduce_s``) and the
+    micro-batches this rank kept (``kept_local``).  A config the training
+    kernels are not built for, a mesh without its process group, or workers
+    that do not split over the ranks raise before any work."""
+    dist = _resolve_dist(tcfg.mesh, device)
     n, m = tcfg.n_workers, tcfg.microbatches
     total_m = n * m
     if data_cfg.batch_size % total_m:
         raise ValueError(f"global batch {data_cfg.batch_size} must divide into {n} workers "
                          f"x {m} microbatches")
-    dev = resolve_device(device)
+    if dist is not None:
+        dist.check_group()
+        dist.workers_of(dist.rank, n)
+        dev = dist.device
+    else:
+        dev = resolve_device(device)
     require_trainable(model_cfg, data_cfg.seq_len, dev)
     if params is None:
         params = init_params(model_cfg, seed=tcfg.seed, device=dev)
     else:
         params = tree_map(lambda p: p.to(dev), params)
 
-    opt = _make_opt(tcfg)
+    shape = InputShape("train_cli", data_cfg.seq_len, data_cfg.batch_size, "train",
+                       microbatches=m)
+    # sgd: no decay, as the reference's _make_step
+    kw = dict(optimizer=tcfg.optimizer, lr=tcfg.lr, clip_norm=tcfg.clip_norm,
+              weight_decay=None if tcfg.optimizer == "sgd" else tcfg.weight_decay)
+    if dist is not None:
+        bundle = dist.train_step(model_cfg, shape, tcfg.drop, n_workers=n, **kw)
+        opt, train_step = bundle.opt, bundle.fn
+        dist.shard(params)
+    else:  # all N workers on this device, no collective
+        opt, train_step = make_train_step(model_cfg, shape, tcfg.drop, n, **kw)
     opt_state = opt.init(params)
 
     tau = tcfg.drop.tau
@@ -184,11 +213,14 @@ def train(
         controller = TauController(ccfg, tcfg.tc, tau=tau, total_steps=tcfg.steps,
                                    default_recompile_cost_s=0.0)
 
-    # resume: params / opt state (in place) plus the adapted tau and controller
+    # resume: params / opt state (in place, on every rank) plus the adapted
+    # tau and controller
     start_step = 0
     if tcfg.resume_from:
         restored, start_step = ckpt.restore(tcfg.resume_from, {"params": params, "opt": opt_state})
         opt_state = restored["opt"]
+        if dist is not None:
+            dist.shard(params)
         state = ckpt.resilience_state(tcfg.resume_from)
         if state:
             tau = float("inf") if state.get("tau") is None else float(state["tau"])
@@ -200,28 +232,27 @@ def train(
     trajectory: List[Tuple[int, float]] = [(start_step, tau)]
 
     def save_ckpt(step_now: int) -> None:
-        res_state = {
-            "tau": None if not np.isfinite(tau) else float(tau),
-            "controller": controller.state_dict() if controller else None,
-            "telemetry": telemetry.state_dict(),
-            "trajectory": [[int(s), (None if not np.isfinite(t) else float(t))]
-                           for s, t in (controller.trajectory if controller else trajectory)],
-        }
-        ckpt.save(tcfg.ckpt_dir, {"params": params, "opt": opt_state}, step_now,
-                  extra={"resilience": res_state})
-
-    grad_fn = make_grad_fn(lambda p, mb: loss_fn(p, model_cfg, mb))
-    # made after the restore; refilled in place before every later step
-    compute = train_params(params, model_cfg)
-    accumulator = Accumulator(grad_fn, compute)
+        """Rank 0 writes; every rank waits for the files."""
+        if dist is None or dist.rank == 0:
+            res_state = {
+                "tau": None if not np.isfinite(tau) else float(tau),
+                "controller": controller.state_dict() if controller else None,
+                "telemetry": telemetry.state_dict(),
+                "trajectory": [[int(s), (None if not np.isfinite(t) else float(t))]
+                               for s, t in (controller.trajectory if controller else trajectory)],
+            }
+            ckpt.save(tcfg.ckpt_dir, {"params": params, "opt": opt_state}, step_now,
+                      extra={"resilience": res_state})
+        if dist is not None:
+            dist.barrier()
 
     losses, sim_times, drops, step_s, microbatch_s = [], [], [], [], []
+    allreduce_s, kept_local = [], []
     for step in range(start_step, tcfg.steps):
-        mbs = microbatches_at(step, data_cfg, total_m)
-        mbs = {"tokens": torch.from_numpy(mbs["tokens"]).to(dev, torch.long),
-               "weights": torch.from_numpy(mbs["weights"]).to(dev)}
+        b = batch_at(step, data_cfg)  # the global batch; the step takes its workers' rows
+        batch = {k: b[k] for k in ("tokens", "weights")}
 
-        # latency draws for the N virtual workers (Algorithm 1 input)
+        # latency draws for the N workers (Algorithm 1 input)
         t = _latencies_at(tcfg, step, n, m)
         profile.append(t)
 
@@ -249,19 +280,14 @@ def train(
             if worst > 0:
                 time.sleep(worst)
 
+        # tau is a host float the step reads: nothing to rebuild or recapture
+        train_step.drop = dataclasses.replace(tcfg.drop, tau=tau)
         synchronize(dev)
         h0 = time.monotonic()
         # a span a torch.profiler trace can cut steps by (free when not profiling)
         with torch.profiler.record_function("train_step"):
-            if step > start_step:
-                train_params(params, model_cfg, out=compute)
-            grads, loss, stats = accumulate_grads(grad_fn, compute, mbs,
-                                                  mask_nm.reshape(total_m), tcfg.drop,
-                                                  accumulator=accumulator)
-            if tcfg.clip_norm > 0:
-                grads = clip_by_global_norm(grads, tcfg.clip_norm)
-            opt_state = opt.step(grads, opt_state, params)
-            loss = float(loss)  # syncs the device
+            _, opt_state, stats = train_step(params, opt_state, batch, t)
+            loss = float(stats["loss"])  # syncs the device
         host_step_s = time.monotonic() - h0
 
         # simulated iteration time (eq. in §4.3)
@@ -274,6 +300,9 @@ def train(
         drops.append(drop_frac)
         step_s.append(host_step_s)
         microbatch_s.append(elapsed_s(stats["microbatch_marks"]))
+        if dist is not None:
+            allreduce_s.append(elapsed_s(stats["allreduce_marks"])[0])
+            kept_local.append(stats["kept_local"])
         telemetry.record(step, t, host_step_s=host_step_s, tau=tau, drop_fraction=drop_frac)
         if tcfg.ckpt_dir and tcfg.ckpt_every and (step + 1) % tcfg.ckpt_every == 0:
             save_ckpt(step + 1)
@@ -284,10 +313,12 @@ def train(
         "mean_drop": float(np.mean(drops)) if drops else 0.0,
         "total_sim_time": float(np.sum(sim_times)),
         "tau_changes": max(len(final_trajectory) - 1, 0),
-        "bundle_rebuilds": 0,
+        "bundle_rebuilds": (controller.rebuilds if controller else 0) if dist is not None else 0,
         "step_s": step_s,
         "microbatch_s": microbatch_s,
     }
+    if dist is not None:
+        metrics.update(allreduce_s=allreduce_s, kept_local=kept_local)
     if eval_fn is not None:
         metrics["eval"] = float(eval_fn(params))
     return TrainResult(params, losses, sim_times, drops, float(tau), metrics,

@@ -43,7 +43,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                      "repro_torch.launch.train", "repro_torch.kernels.ssd_chunk",
                      "repro_torch.models.ssm", "repro_torch.models.recurrent",
                      "repro_torch.configs.mamba2_130m", "repro_torch.configs.mamba2_tiny",
-                     "repro_torch.core.local_sgd", "repro_torch.train.checkpoint"):
+                     "repro_torch.core.local_sgd", "repro_torch.train.checkpoint",
+                     "repro_torch.dist", "repro_torch.dist.api", "repro_torch.dist.mesh",
+                     "repro_torch.dist.procs", "repro_torch.launch.steps"):
         assert expected in names, names
     code = (
         "import sys\n"
@@ -80,7 +82,7 @@ def test_kernel_modules_import_triton_lazily():
         "import repro_torch.kernels.ops, repro_torch.kernels.rmsnorm\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.masked_accum\n"
         "import repro_torch.kernels.ssd_chunk, repro_torch.models.ssm\n"
-        "import repro_torch.train, repro_torch.launch.train\n"
+        "import repro_torch.train, repro_torch.launch.train, repro_torch.dist\n"
         "print('LAZY')\n"
     )
     env = dict(os.environ)
