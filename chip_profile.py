@@ -32,7 +32,10 @@ prints one JSON line; ``qwen`` and ``mamba`` profile one model's serving
 runs, ``train`` the training step, ``localsgd`` the last round of
 ``chip_smoke.py``'s Local-SGD run (qwen2.5-3b, 36 layers), ``dp`` one
 graphed training step of ``chip_smoke.py``'s phase 9a (one NCCL rank,
-``mesh="1"``) with its ``dp_allreduce`` span apart.  A copy of this script placed at the
+``mesh="1"``) with its ``dp_allreduce`` span apart, ``mamba_train`` one
+eager and one graphed step of its phase 10 (mamba2-130m at 24 layers,
+micro-batches of 4 x 2048 tokens; K6's forward and its backward's four
+kernels filed apart).  A copy of this script placed at the
 root of another checkout (a ``git archive`` of a later commit: its
 ``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
 checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
@@ -71,6 +74,10 @@ FAMILIES = (  # first match wins; K4's and K2 backward's two kernels are sub-row
     ("K2 rmsnorm: backward dscale sum", re.compile(r"rmsnorm_bwd_colsum|colsum_kernel")),
     ("K2 rmsnorm", re.compile(r"rmsnorm_kernel")),
     ("K1 masked_accum", re.compile(r"masked_accum_kernel")),
+    ("K6 ssd_chunk: backward column pass", re.compile(r"ssd_column_kernel")),
+    ("K6 ssd_chunk: backward dS", re.compile(r"ssd_bwd_ds_kernel")),
+    ("K6 ssd_chunk: backward dB / dC", re.compile(r"ssd_bwd_bc_kernel")),
+    ("K6 ssd_chunk: backward finish", re.compile(r"ssd_bwd_finish_kernel")),
     ("K6 ssd_chunk", re.compile(r"ssd_chunk_kernel")),
     ("K5 ssd_segment", re.compile(r"ssd_segment_kernel")),
     ("matmul (cuBLAS)", re.compile(r"gemm|xmma|nvjet|cutlass|cublas|splitK", re.I)),
@@ -151,7 +158,7 @@ def profile_record(prof, wall_s: float, per: int, window=None) -> dict:
     }
 
 
-def train_profile(cfg, seed: int, eager: bool, mesh=None) -> dict:
+def train_profile(cfg, seed: int, eager: bool, mesh=None, seqs: int = 1) -> dict:
     """Step 1 of a 2-step run of ``chip_smoke.train_phase``'s training (its
     steps 0 and 1), eager or graphed: step 0 builds the kernels and
     captures the micro-batch graph, step 1 replays it.  The record covers
@@ -159,9 +166,12 @@ def train_profile(cfg, seed: int, eager: bool, mesh=None) -> dict:
     kernels that start in it); its wall time is step 1's ``step_s`` of an
     unprofiled run.  With ``mesh`` ("1": ``chip_smoke``'s phase 9a, one
     NCCL rank in this process) the record adds the step's ``dp_allreduce``
-    span: its host ms and the device ms of the kernels that start in it."""
+    span: its host ms and the device ms of the kernels that start in it.
+    ``seqs`` > 1 (``chip_smoke``'s phase 10: mamba2-130m, micro-batches of
+    ``M_TRAIN_SEQS`` sequences) needs a ``chip_smoke.py`` whose
+    ``train_setup`` takes ``seqs``."""
     n, m = cs.TRAIN_WORKERS, cs.TRAIN_MB
-    data, latency, tau, masks = cs.train_setup(cfg, seed)
+    data, latency, tau, masks = cs.train_setup(cfg, seed, *([seqs] if seqs > 1 else []))
     tcfg = cs.TrainConfig(steps=2, n_workers=n, microbatches=m, lr=1e-4, clip_norm=1.0,
                           seed=seed, latency=latency, drop=cs.DropConfig(enabled=True, tau=tau),
                           mesh=mesh)
@@ -178,7 +188,8 @@ def train_profile(cfg, seed: int, eager: bool, mesh=None) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.name == "train_step" and e.device_type == torch.autograd.DeviceType.CPU)
     lo, hi = spans[-1]
-    rec = {"tag": TAG, "run": "dp" if mesh else "train", "mode": "eager" if eager else "graphed",
+    run = "dp" if mesh else ("mamba_train" if seqs > 1 else "train")
+    rec = {"tag": TAG, "run": run, "mode": "eager" if eager else "graphed",
            "kept_microbatches": kept, **profile_record(prof, wall, kept, window=(lo, hi))}
     if mesh:
         ar = [(e.time_range.start, e.time_range.end) for e in prof.events()
@@ -192,6 +203,8 @@ def train_profile(cfg, seed: int, eager: bool, mesh=None) -> dict:
                                               if a_lo <= s <= a_hi})
     rec["k2_bwd_ms"] = sum(v for k, v in rec["families_ms"].items()
                            if k.startswith("K2 rmsnorm: backward"))
+    rec["k6_bwd_ms"] = sum(v for k, v in rec["families_ms"].items()
+                           if k.startswith("K6 ssd_chunk: backward"))
     calls = [t for _, t in host_launches(prof) if lo <= t <= hi]
     graph_at = [t for name, t in host_launches(prof)
                 if name.startswith("cudaGraphLaunch") and lo <= t <= hi]
@@ -270,7 +283,7 @@ def serve_profiles(cfg, params, prompts, make) -> None:
 
 
 TAG = ""
-PARTS = ("kernels", "qwen", "mamba", "train", "localsgd", "dp")
+PARTS = ("kernels", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train")
 
 
 #: K6's (chunks, rows) at the mamba serving run's decode and 64-token steps
@@ -311,7 +324,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS[1:],
                     help="parts to run, always in the order kernels, qwen, mamba, train, "
-                         "localsgd, dp (default: all but kernels)")
+                         "localsgd, dp, mamba_train (default: all but kernels)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -339,6 +352,12 @@ def main() -> int:
                            lambda c, p, pr, packed: cs.mamba_engine(c, p, pr, "paged", packed))
         elif part == "dp":  # one graphed step of phase 9a
             print(json.dumps(train_profile(cfg, args.seed, False, mesh="1")), flush=True)
+        elif part == "mamba_train":  # phase 10's step 1, eager then graphed
+            mcfg = get_config("mamba2_130m")
+            for eager in (True, False):
+                print(json.dumps(train_profile(mcfg, args.seed, eager, seqs=cs.M_TRAIN_SEQS)),
+                      flush=True)
+                cs.free_device()
         else:
             prof = train_profile if part == "train" else localsgd_profile
             for eager in (True, False):

@@ -56,7 +56,14 @@ input copy is skipped, must fail the stream check.
      16-key tile skipped; K5's segment mask dropped), beside the row error
      of the plain version with its operands rounded to TF32 (what one TF32
      pass would give); two runs bit-identical; times at the serving
-     shapes beside the f32-FMA bound and the tensor-core bound;
+     shapes and (K6) at the Mamba-2 training micro-batch beside the f32-FMA
+     bound and the tensor-core bound;
+   * K6's backward (four launches: column pass, dS, dB / dC, finish) at the
+     training shape (B 4, NC 8, L 256) and at L 64: dx row by row, ddt,
+     dcum, dB and dC by norm, two runs bit-identical, two planted faults
+     (dB without the diagonal key tile, dcum without its row part); timed
+     beside its plain version and both bounds; K2's backward again at
+     mamba2-130m's width (d 768, 8,192 rows), bf16 and f32;
 4. serving — qwen2.5-3b at full width (36 layers, random weights from
    ``--seed``) through ``ContinuousBatcher(cache="paged", chunk_size=64,
    token_budget=256)``, unpacked then packed, 8 requests of 128-512 prompt
@@ -126,11 +133,29 @@ input copy is skipped, must fail the stream check.
    larger of ``GRAPH_LEAF_GAP`` and ``DP_ORDER_FACTOR`` times the gap the
    one-rank run itself shows with its sums in the reverse order; each rank's step wall,
    All-Reduce seconds and peak memory printed; then a planted fault (rank 1
-   skips one kept micro-batch) that the same check must reject.
+   skips one kept micro-batch) that the same check must reject;
+10. Mamba-2 training — mamba2-130m at 24 layers (random weights from
+   ``--seed``, f32 master, bf16 compute copy, remat) through ``train``: the
+   training phase's 4 workers x 2 micro-batches, each of 4 packed
+   2048-token sequences (8,192 tokens), AdamW (lr 1e-4, clip 1.0), its tau
+   rule, 3 steps, eager then graphed (the counters' window): finite losses,
+   the drop fractions of the latency draws, the launches the code implies
+   a kept micro-batch (per layer one K6 forward and one more under remat,
+   one K6 backward, one K2 forward and one more under remat, one K2
+   backward; the final norm; one K1 a leaf), the graphed run's losses and
+   final parameters and step 0's accumulated gradient against the eager
+   run's; step walls, ms a kept micro-batch, kept tokens/s, peak memory
+   beside the reckoning of its trees; then a 2-layer full-width model at
+   256 tokens: ``loss_sum`` and every gradient leaf on the card (kernels,
+   bf16) against the CPU (plain, f32), each leaf within the larger of 5%
+   and twice the CPU's own bf16 gap, and a planted K6-backward fault (dcum
+   without its row part) outside it.
 
 The last two lines of standard output are the ``kernels`` JSON record and
-``{"ok": true, "device": {...}}``.  K6 and K5's record rows are read at the
-mamba serving run's shapes: 8 rows of one 64-row chunk (a 64-token
+``{"ok": true, "device": {...}}``.  K6's backward's record row is read at
+the Mamba-2 training shape, its launches from phase 10.  K6 and K5's
+record rows are read at the mamba serving run's shapes: 8 rows of one
+64-row chunk (a 64-token
 prefill step), and the packed
 mixed step.
 """
@@ -269,6 +294,31 @@ SSD_ROW_TOL = 1e-4
 MAMBA_LOGITS_ROW_TOL = 0.2
 # mamba2-130m's SSD widths: heads, head dim, state
 M_H, M_P, M_N = 24, 64, 128
+# K6's backward against its plain version on the card, both f32: dx row by
+# row (``row_rel_err``: u = sum_i S_ij e_ij dy_i in 3xTF32 as the forward's
+# att . x, times dt), ddt, dcum, dB and dC each relative to its norm (dot
+# products over the head dim; dcum the difference of the column and row
+# parts, the row part dy . y read from the forward kernel's y; dB and dC
+# sums over the heads and the chunk in another order than the plain
+# version's).  A planted fault (the diagonal key tile left out, or dcum's
+# row part dropped) moves a whole output, ~0.01-1.
+SSD_BWD_TOL = 1e-4
+
+# the Mamba-2 training phase (10): mamba2-130m at 24 layers, the training
+# phase's 4 virtual workers x 2 micro-batches, each of 4 packed 2048-token
+# sequences (8,192 tokens), 3 steps
+M_TRAIN_SEQS = 4
+# its 2-layer card-vs-CPU gradient check: bf16 rounds the compute copy and
+# every activation of the block (the projections, the conv taps, the gate,
+# the norms) where the CPU's f32 run does not; on the CPU a bf16 compute
+# copy moves every gradient leaf of this model by 2.5-3.8% of its norm (a_log
+# and dt_bias, whose gradients sum dcum's cancelling difference over every
+# token, as much as the rest).  Each leaf is held to the larger of
+# PARITY_LEAF_REL_TOL and M_LEAF_FACTOR times that control's gap for it,
+# measured in this run (the CPU's plain versions in bf16 against f32); a
+# planted K6-backward fault (dcum's row part dropped) moves the leaves 17x
+# to 40,000x on the CPU.
+M_LEAF_FACTOR = 2
 
 # the training phase: qwen2.5-3b, 4 virtual workers x 2 micro-batches of one
 # 2048-token sequence, 3 steps
@@ -436,9 +486,10 @@ def ptxas_lines(source: str, names: str = r"attn_[a-z_]+"):
 
 
 def ssd_build_lines():
-    """One line per SSD kernel instance (K6 / K5, heads a CTA):
-    ptxas's registers and spills, and the dynamic shared memory and CTAs an
-    SM the runtime counts for it."""
+    """One line per SSD kernel instance (K6 / K5 / the K6 backward's column
+    pass, heads a CTA): ptxas's registers and spills, and the dynamic shared
+    memory and CTAs an SM the runtime counts for it; then the K6 backward's
+    other three kernels."""
     import re
 
     inst = re.compile(r"(ssd_[a-z]+_kernel)ILi\d+ELi\d+ELi(\d)E")
@@ -453,12 +504,12 @@ def ssd_build_lines():
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             kernel, hg = name
-            ctas, smem = ssd_chunk.occupancy(int(hg), kernel == "ssd_segment_kernel")
+            ctas, smem = ssd_chunk.occupancy(int(hg), kernel[4:-7])
             out.append(f"{kernel} heads {hg}: {m.group(1)} registers, spill "
                        f"stores {spills[0]} B, loads {spills[1]} B, {smem} B dynamic shared "
                        f"memory, {ctas} CTAs an SM")
             name = None
-    return out
+    return out + ptxas_lines(ssd_chunk.SOURCE, r"ssd_bwd_[a-z]+_kernel")
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -1192,11 +1243,12 @@ def ssd_bounds(nbytes: float, flops: float) -> str:
 
 def k6_timing(rng):
     """Kernel, plain version and bounds: the serving run's 16-row decode
-    and 64-row prefill steps (8 rows of one chunk) and one full 256-token
-    chunk a row."""
+    and 64-row prefill steps (8 rows of one chunk), one full 256-token
+    chunk a row, and the Mamba-2 training micro-batch (4 sequences of 2048
+    tokens: 32 chunks of 256)."""
     rows = {}
     for shape, (bs, nc, l) in (("decode", (8, 1, 16)), ("serve", (8, 1, 64)),
-                               ("chunk256", (8, 1, 256))):
+                               ("chunk256", (8, 1, 256)), ("train", (4, 8, 256))):
         a = ssd_chunk_scenario(rng, bs, nc, l)
         kern = time_ms(lambda: ssd_chunk.ssd_chunk(*a))
         plain = time_ms(lambda: ref.ssd_chunk_ref(*a), iters=10)
@@ -1222,6 +1274,83 @@ def k5_timing(rng):
         log(f"K5 time {shape:6s} T={len(seg)}: kernel {kern * 1e3:.1f} us, plain "
             f"{plain * 1e3:.1f} us, {ssd_bounds(nbytes, flops)}")
     return rows
+
+
+def norm_rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor."""
+    got, want = got.float(), want.float()
+    return (torch.linalg.vector_norm(got - want)
+            / torch.linalg.vector_norm(want).clamp(min=1e-30)).item()
+
+
+def ssd_bwd_errs(got, want):
+    """K6 backward's metrics: dx row by row, the other four by norm."""
+    return [row_rel_err(got[0], want[0])] + [norm_rel_err(g, w) for g, w in zip(got[1:], want[1:])]
+
+
+def ssd_bwd_scenario(rng, bs, nc, l):
+    """K6's inputs as the model forms them (``ssd_chunk_scenario``), the
+    forward kernel's y, and a cotangent dy."""
+    a = ssd_chunk_scenario(rng, bs, nc, l)
+    return a, ssd_chunk.ssd_chunk(*a), f32(rng, bs, nc, l, M_H, M_P)
+
+
+def k6_bwd_checks(rng):
+    """K6's backward against its plain version at the training shape (4
+    sequences of 2048 tokens: B 4, NC 8, L 256) and at L 64: all five
+    outputs, two runs bit-identical, and the same metrics on two planted
+    faults (the plain backward without the diagonal 16-key tile, read on
+    dB; dcum without its row part)."""
+    max_err = 0.0
+    names = ("dx", "ddt", "dcum", "db", "dc")
+    for bs, nc, l in ((4, 8, 256), (4, 8, 64)):
+        a, y, dy = ssd_bwd_scenario(rng, bs, nc, l)
+        got = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
+        again = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
+        want = ref.ssd_chunk_bwd_ref(*a, dy)
+        torch.cuda.synchronize()
+        tag = f"K6 bwd B={bs} NC={nc} L={l}"
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"{tag}: non-finite output")
+        check(all(torch.equal(p, q) for p, q in zip(got, again)), f"{tag}: two runs differ")
+        errs = ssd_bwd_errs(got, want)
+        max_err = max([max_err] + [(g - w).abs().max().item() for g, w in zip(got, want)])
+        bad_db = norm_rel_err(ref.ssd_chunk_bwd_ref(*a, dy, mask=ssd_diagonal_skipped(l))[3],
+                              want[3])
+        bad_dcum = norm_rel_err(want[2] + (dy * y).sum(-1), want[2])
+        del want
+        log(f"{tag}: " + ", ".join(f"{k} {e:.2e}" for k, e in zip(names, errs))
+            + f" (dx row by row, the rest by norm; two runs bit-identical); planted faults: "
+            f"dB without the diagonal {ssd_chunk.ROW_TILE}-key tile {bad_db:.2e}, dcum without "
+            f"its row part {bad_dcum:.2e}; scratch {ssd_chunk.scratch_bytes(bs * nc, l, M_H) / 1e6:.1f} MB")
+        check(max(errs) <= SSD_BWD_TOL, f"{tag}: errors {errs} against {SSD_BWD_TOL}")
+        check(min(bad_db, bad_dcum) > SSD_BWD_TOL,
+              f"{tag}: the metrics let a planted fault pass: dB {bad_db}, dcum {bad_dcum}")
+    return max_err
+
+
+def ssd_bwd_cost(bs, nc, l, tensors):
+    """(bytes, flops) of K6's backward: each input (x, dt, cum, B, C, y, dy)
+    read and each output (dx, ddt, dcum, dB, dC) written once; per
+    admissible pair 2N flops each for S, dB and dC, and per head 2P each for
+    u = S e dy and q = dy . x."""
+    pairs = bs * nc * l * (l + 1) // 2
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return nbytes, 2.0 * pairs * (3 * M_N + 2 * M_P * M_H)
+
+
+def k6_bwd_timing(rng):
+    """K6's backward at the training shape: kernel (its four launches in one
+    graph), plain version, both bounds."""
+    bs, nc, l = 4, 8, 256
+    a, y, dy = ssd_bwd_scenario(rng, bs, nc, l)
+    kern = time_ms(lambda: ssd_chunk.ssd_chunk_bwd(*a, y, dy))
+    plain = time_ms(lambda: ref.ssd_chunk_bwd_ref(*a, dy), iters=5)
+    outs = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
+    nbytes, flops = ssd_bwd_cost(bs, nc, l, [*a, y, dy, *outs])
+    b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
+    log(f"K6 bwd time B={bs} NC={nc} L={l}: kernel {kern * 1e3:.1f} us, plain "
+        f"{plain * 1e3:.1f} us, {ssd_bounds(nbytes, flops)}")
+    return dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -1613,24 +1742,28 @@ def mamba_phase(seed: int):
 
 
 def launches_per_microbatch(cfg, n_leaves: int):
-    """Kernel calls one kept micro-batch makes, from the code: each layer
-    runs two RMSNorms and one attention, the final norm one more RMSNorm;
+    """Kernel calls one kept micro-batch makes, from the code: each
+    attention ('G' / 'L') layer runs two RMSNorms and one attention, each
+    'M' layer one RMSNorm and one K6 over all its chunks (the sequence is
+    one call's worth of 256-token chunks), the final norm one more RMSNorm;
     under remat (``transformer._apply_stack_train``) the backward runs each
     layer's forward again, the final norm's not; each backward call of the
-    K2 / K3 Functions is one backward launch; each gradient leaf is added
-    once by K1 (``core.accumulate_grads``)."""
-    n = cfg.n_layers
-    again = n if cfg.remat else 0
-    return {"paged_attention": 0, "flash_attention": n + again, "flash_attention_bwd": n,
-            "rmsnorm": 2 * n + 1 + 2 * again, "rmsnorm_bwd": 2 * n + 1,
-            "masked_accum": n_leaves, "ssd_chunk": 0, "ssd_segment": 0}
+    K2 / K3 / K6 Functions is one backward launch; each gradient leaf is
+    added once by K1 (``core.accumulate_grads``)."""
+    n_a = sum(1 for k in cfg.pattern if k in "GL")
+    n_m = sum(1 for k in cfg.pattern if k == "M")
+    again_a, again_m = (n_a, n_m) if cfg.remat else (0, 0)
+    return {"paged_attention": 0, "flash_attention": n_a + again_a, "flash_attention_bwd": n_a,
+            "rmsnorm": 2 * n_a + n_m + 1 + 2 * again_a + again_m,
+            "rmsnorm_bwd": 2 * n_a + n_m + 1, "masked_accum": n_leaves,
+            "ssd_chunk": n_m + again_m, "ssd_chunk_bwd": n_m, "ssd_segment": 0}
 
 
-def train_setup(cfg, seed: int):
-    """The training run's data, latency model, tau and the masks its numpy
-    latency draws give."""
+def train_setup(cfg, seed: int, seqs: int = 1):
+    """The training run's data (``seqs`` packed sequences a micro-batch),
+    latency model, tau and the masks its numpy latency draws give."""
     n, m = TRAIN_WORKERS, TRAIN_MB
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=n * m,
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=n * m * seqs,
                       strategy="pack", seed=seed)
     latency = LatencyModel(base=0.45, noise=NoiseModel(kind="paper_lognormal"))
     # the trainer's own draws (trainer._latencies_at): tau at the median of
@@ -1648,11 +1781,12 @@ def train_config(seed: int, latency, tau: float, **kw) -> TrainConfig:
                        drop=DropConfig(enabled=True, tau=tau), **kw)
 
 
-def train_run(cfg, seed: int, eager: bool, tau=None, **kw):
+def train_run(cfg, seed: int, eager: bool, tau=None, seqs: int = 1, **kw):
     """One 3-step training run from ``--seed``'s weights, eager or graphed,
-    at the phase's tau unless given (``kw`` to ``train_config``): (result,
-    final f32 parameters, launches, peak GiB, wall s)."""
-    data, latency, setup_tau, _ = train_setup(cfg, seed)
+    at the phase's tau unless given (``kw`` to ``train_config``; ``seqs``
+    sequences a micro-batch): (result, final f32 parameters, launches, peak
+    GiB, wall s)."""
+    data, latency, setup_tau, _ = train_setup(cfg, seed, seqs)
     tcfg = train_config(seed, latency, setup_tau if tau is None else tau, **kw)
     params = init_params(cfg, seed=seed, device=DEV)
     torch.cuda.synchronize()
@@ -1748,11 +1882,12 @@ def train_phase(cfg, seed: int):
     return counts, runs["graphed"]
 
 
-def grad_phase(cfg, seed: int):
-    """One step's accumulated gradient at full depth (step 0's micro-batches,
-    its keep mask), eager and graphed: bit-identical, or within
-    ``GRAPH_LEAF_GAP`` of each leaf's norm; then the capture's cost."""
-    data, _, _, masks = train_setup(cfg, seed)
+def grad_phase(cfg, seed: int, seqs: int = 1):
+    """One step's accumulated gradient at full depth (step 0's micro-batches
+    of ``seqs`` sequences, its keep mask), eager and graphed: bit-identical,
+    or within ``GRAPH_LEAF_GAP`` of each leaf's norm; then the capture's
+    cost."""
+    data, _, _, masks = train_setup(cfg, seed, seqs)
     mbs = microbatches_at(0, data, TRAIN_WORKERS * TRAIN_MB)
     mbs = {"tokens": torch.from_numpy(mbs["tokens"]).to(DEV, torch.long),
            "weights": torch.from_numpy(mbs["weights"]).to(DEV)}
@@ -2387,6 +2522,163 @@ def dp_gloo_phase(cfg, seed: int) -> None:
         del got
 
 
+# ---------------------------------------------------------------------------
+# Mamba-2 training (phase 10)
+# ---------------------------------------------------------------------------
+
+
+def memory_reckoning(meta) -> dict:
+    """GB of the training run's persistent trees, from the parameter tree
+    (``meta`` tensors): the f32 master, AdamW's m and v, the f32
+    accumulator, and the bf16 compute copy of every leaf but the embedding
+    (which the copy shares with the master: ``model.train_params``)."""
+    total = sum(x.numel() for x in tree_leaves(meta))
+    emb = meta["embed"]["embedding"].numel()
+    return {"master f32": 4 * total / 1e9, "AdamW m, v": 8 * total / 1e9,
+            "accumulator": 4 * total / 1e9, "bf16 compute copy": 2 * (total - emb) / 1e9}
+
+
+def mamba_train_phase(seed: int):
+    """mamba2-130m at 24 layers through ``repro_torch.train.train``: the
+    training phase's workers, micro-batches, optimizer and tau rule with
+    micro-batches of ``M_TRAIN_SEQS`` sequences; eager (``disable_graphs``),
+    then graphed (the counters' window): finite losses, the drop fractions
+    of the latency draws, the launches the code implies a kept micro-batch
+    (K6 forward twice a layer under remat, its backward once, K2, K1 a
+    leaf), the graphed run's losses and final parameters against the eager
+    run's; step walls, ms a kept micro-batch, kept tokens/s and the peak
+    beside the reckoning.  Returns the graphed run's launches."""
+    cfg = get_config("mamba2_130m")
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
+          and set(cfg.pattern) == {"M"},
+          "the Mamba-2 training phase wants 'M' layers, remat, bf16 compute, f32 master weights")
+    n, m = TRAIN_WORKERS, TRAIN_MB
+    _, _, tau, masks = train_setup(cfg, seed, M_TRAIN_SEQS)
+    want_drops = [1.0 - float(np.float32(k.sum()) / np.float32(k.size)) for k in masks]
+    kept = int(sum(k.sum() for k in masks))
+    check(0 < kept < n * m * TRAIN_STEPS and max(want_drops) > 0,
+          f"tau {tau} should drop some micro-batches, not all: {want_drops}")
+    meta = init_params(cfg, seed=seed, device="meta")
+    names = [k for k, _ in named_leaves(meta)]
+    per_mb = launches_per_microbatch(cfg, len(names))
+    want = {k: kept * v for k, v in per_mb.items()}
+    kept_per_step = [int(k.sum()) for k in masks]
+    tokens_mb = M_TRAIN_SEQS * TRAIN_SEQ
+    reck = memory_reckoning(meta)
+    runs = {}
+    for eager in (True, False):
+        tag = "eager" if eager else "graphed"
+        if not eager:
+            ops.reset_launch_counts()  # the Mamba-2 training path starts here
+        res, params, counts, peak, wall = train_run(cfg, seed, eager, seqs=M_TRAIN_SEQS)
+        check(all(math.isfinite(x) for x in res.losses),
+              f"mamba train {tag}: non-finite losses {res.losses}")
+        check(res.drop_fractions == want_drops, f"mamba train {tag}: drop fractions "
+              f"{res.drop_fractions}, the latency draws give {want_drops}")
+        check(counts == want, f"mamba train {tag} launches {counts}, the code implies {want}")
+        steps = res.metrics["step_s"]
+        tok_s = [kps * tokens_mb / st for kps, st in zip(kept_per_step, steps)]
+        mb_ms = [[round(t * 1e3, 2) for t in ts] for ts in res.metrics["microbatch_s"]]
+        rest = peak * 2**30 / 1e9 - sum(reck.values())
+        log(f"mamba train {tag} mamba2-130m: {cfg.n_layers} layers, {n} workers x {m} "
+            f"micro-batches of {M_TRAIN_SEQS} x {TRAIN_SEQ} tokens, tau {tau:.4f} s, drop "
+            f"fractions {res.drop_fractions} (kept {kept_per_step}), losses {res.losses}")
+        log(f"mamba train {tag}: step wall s {[round(x, 3) for x in steps]}; per kept "
+            f"micro-batch ms {mb_ms}; kept tokens/s {[round(x, 1) for x in tok_s]}; whole call "
+            f"{wall:.1f} s")
+        log(f"mamba train {tag}: peak device memory {peak:.2f} GiB ({peak * 2**30 / 1e9:.2f} GB) "
+            f"against the reckoning " + ", ".join(f"{k} {v:.2f}" for k, v in reck.items())
+            + f" GB, the rest (activations of one remat group and the layer inputs, gradients, "
+            f"CE chunks, workspace) {rest:.2f} GB")
+        log(f"mamba train {tag} launches over {kept} kept micro-batches: {counts} (per "
+            f"micro-batch {per_mb})")
+        runs[tag] = (res.losses, [x.cpu() for x in tree_leaves(params)])
+        del res, params
+        free_device()
+    (got, got_p), (want_l, want_p) = runs["graphed"], runs["eager"]
+    same = [a == b for a, b in zip(got, want_l)]
+    log(f"mamba train: graphed vs eager losses {'bit-identical' if all(same) else 'differ'}: "
+        f"{got} / {want_l}")
+    if not all(same):
+        step = same.index(False)
+        gap = abs(got[step] - want_l[step]) / abs(want_l[step])
+        check(gap < GRAPH_LEAF_GAP, f"mamba train: step {step}'s loss differs by {gap}")
+    check_gaps("mamba train: final parameters after 3 steps", leaf_gaps(names, got_p, want_p))
+    return counts
+
+
+@contextlib.contextmanager
+def dcum_row_dropped():
+    """A planted K6-backward fault: dcum's row part (dy . y) left out, the
+    rest of the kernel's gradients sound."""
+    sound = ops.ssd_chunk_bwd  # what ops.SsdChunkFn.backward calls
+
+    def faulty(x, dt, cum, b, c, y, dy):
+        dx, ddt, dcum, db, dc = sound(x, dt, cum, b, c, y, dy)
+        return dx, ddt, dcum + (dy * y).sum(-1), db, dc
+
+    ops.ssd_chunk_bwd = faulty
+    try:
+        yield
+    finally:
+        ops.ssd_chunk_bwd = sound
+
+
+def mamba_train_parity(seed: int):
+    """A 2-layer full-width mamba2-130m at 256 tokens: loss_sum and every
+    gradient leaf on the card (kernels, bf16 compute) against the CPU
+    (plain versions, f32); each leaf within the larger of
+    PARITY_LEAF_REL_TOL and M_LEAF_FACTOR times the CPU's own bf16 gap; the
+    same metric on a planted K6-backward fault."""
+    cfg = get_config("mamba2_130m")
+    small = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    cpu_cfg = dataclasses.replace(small, dtype="float32")
+    params = init_params(cpu_cfg, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed + 2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, PARITY_SEQ)))
+
+    def run(p, c, dev):
+        grad_fn = make_grad_fn(lambda pp, mb: model_lib.loss_fn(pp, c, mb))
+        g, ls, _ = grad_fn(model_lib.train_params(p, c), {"tokens": tokens.to(dev)})
+        return float(ls), {k: x.float().cpu() for k, x in named_leaves(g)}
+
+    def leaf_errs(g):
+        return {k: (torch.linalg.vector_norm(g[k] - w) / torch.linalg.vector_norm(w)).item()
+                for k, w in cpu_g.items()}
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_g = run(params, cpu_cfg, "cpu")
+    t_cpu = time.perf_counter() - t0
+    _, ctl_g = run(params, small, "cpu")  # the CPU's plain versions in bf16
+    control = leaf_errs(ctl_g)
+    card_params = tree_map(lambda x: x.to(DEV), params)
+    before = ops.launch_counts()
+    card_loss, card_g = run(card_params, small, DEV)
+    after = ops.launch_counts()
+    with dcum_row_dropped():
+        _, bad_g = run(card_params, small, DEV)
+    el = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    errs, bad = leaf_errs(card_g), leaf_errs(bad_g)
+    limit = {k: max(PARITY_LEAF_REL_TOL, M_LEAF_FACTOR * control[k]) for k in errs}
+    over = {k: e for k, e in errs.items() if e > limit[k]}
+    caught = {k: e for k, e in bad.items() if e > limit[k]}
+    log(f"mamba train parity {PARITY_LAYERS} layers seq {PARITY_SEQ}: loss_sum card "
+        f"{card_loss:.4f} / cpu {cpu_loss:.4f} (rel {el:.2e}); the CPU f32 pass took "
+        f"{t_cpu:.1f} s; K6 launches fwd {after['ssd_chunk'] - before['ssd_chunk']}, bwd "
+        f"{after['ssd_chunk_bwd'] - before['ssd_chunk_bwd']}")
+    log("mamba train parity per-leaf ||g_card - g_cpu|| / ||g_cpu|| (CPU bf16 control; limit): "
+        + ", ".join(f"{k} {e:.2e} ({control[k]:.2e}; {limit[k]:.2e})" for k, e in errs.items()))
+    log("mamba train parity planted fault (dcum without its row part): "
+        + ", ".join(f"{k} {e:.2e}" for k, e in bad.items()))
+    check(after["ssd_chunk_bwd"] - before["ssd_chunk_bwd"] == PARITY_LAYERS,
+          "mamba train parity: the card run did not go through the K6 backward")
+    check(math.isfinite(card_loss) and all(math.isfinite(e) for e in errs.values()),
+          "mamba train parity: non-finite card result")
+    check(el <= PARITY_LOSS_REL_TOL, f"mamba train parity: loss_sum relative difference {el}")
+    check(not over, f"mamba train parity: leaves over their limits {over}")
+    check(bool(caught), f"mamba train parity: the metric lets a planted dcum fault pass: {bad}")
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -2453,11 +2745,18 @@ def main() -> int:
     k6_err = k6_checks(rng)
     k5_err = k5_checks(rng)
     free_device()
+    k6b_err = k6_bwd_checks(rng)
+    free_device()
+    # K2's backward at mamba2-130m's width (8,192 rows: a training micro-batch)
+    k2b768_err, k2b768_t = k2_bwd_checks_and_timing(rng, d=768, rows=M_TRAIN_SEQS * TRAIN_SEQ)
+    free_device()
     k4_t = k4_timing(rng, prompt_lens)
     k2_t = k2_timing(rng)
     k3f_t, k3b_t = k3_timing(rng)
     k6_t = k6_timing(rng)
     k5_t = k5_timing(rng)
+    free_device()
+    k6b_t = k6_bwd_timing(rng)
     free_device()
 
     # 4. serving at full width
@@ -2500,8 +2799,17 @@ def main() -> int:
     del train_graphed
     free_device()
     dp_gloo_phase(cfg, args.seed)
+    free_device()
+
+    # 10. Mamba-2 training at full depth, its step-0 gradient, then the 2-layer
+    # card-vs-CPU gradient parity
+    mamba_train_counts = mamba_train_phase(args.seed)
+    free_device()
+    grad_phase(get_config("mamba2_130m"), args.seed, seqs=M_TRAIN_SEQS)
+    free_device()
+    mamba_train_parity(args.seed)
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
-                + dp_counts[k] for k in serve_counts}
+                + dp_counts[k] + mamba_train_counts[k] for k in serve_counts}
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was launched no time on the main paths")
 
@@ -2543,10 +2851,14 @@ def main() -> int:
              replaces="src/repro/kernels/ssd_chunk.py:65",
              launches=launches["ssd_segment"], max_abs_err=k5_err, **k5_t["mixed"],
              library_ms=None),
+        dict(name="ssd_chunk_bwd", route="cuda", source="src/repro_torch/kernels/ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd_chunk.py:104",
+             launches=launches["ssd_chunk_bwd"], max_abs_err=k6b_err, **k6b_t),
     ]
+    log(f"K2 bwd at d 768 (8,192 rows): max abs err {k2b768_err:.3e}, {k2b768_t}")
     log(f"launches, qwen serving: {serve_counts}; mamba serving: {mamba_counts}; "
         f"training: {train_counts}; Local-SGD: {localsgd_counts}; data parallel (9a): "
-        f"{dp_counts}")
+        f"{dp_counts}; Mamba-2 training: {mamba_train_counts}")
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

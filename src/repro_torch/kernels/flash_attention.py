@@ -314,8 +314,11 @@ def load_train_library() -> ctypes.CDLL:
 
 
 class UnbuiltShapeError(ValueError):
-    """Training attention at a head dim, group, dtype or sequence length
-    that ``flash_attention.cu`` is not built for."""
+    """A shape or dtype that a kernel is not built for: training attention
+    at a head dim, group, dtype or sequence length ``flash_attention.cu``
+    does not take, or SSD inputs at a state size, head dim, dtype or chunk
+    length ``ssd_chunk.cu`` does not take (``kernels.ssd_chunk`` raises this
+    class too, so one ``except`` covers both)."""
 
 
 def _length_ok(s: int) -> bool:

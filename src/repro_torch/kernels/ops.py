@@ -9,12 +9,13 @@
 * CPU tensors go to the plain PyTorch version in ``ref.py``.
 * Any other device raises.
 
-Gradients: ``flash_attention`` and ``rmsnorm`` are ``torch.autograd``
-Functions whose backward dispatches the same way (the CUDA backward
-kernels on the card, the explicit formulas of ``ref.py`` on the
-CPU); they take the autograd path only when an input requires grad.
-The SSD terms have no backward yet: under an input that requires grad
-they raise (training 'M' layers is the next slice).
+Gradients: ``flash_attention``, ``rmsnorm`` and ``ssd_chunk`` are
+``torch.autograd`` Functions whose backward dispatches the same way (the
+CUDA backward kernels on the card, the explicit formulas of ``ref.py`` on
+the CPU); they take the autograd path only when an input requires grad.
+``ssd_segment`` (K5) is forward-only: it serves token-packed steps, and the
+reference trains no packed layout, so it raises under an input that
+requires grad.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ KERNELS = {
     "flash_attention_bwd": _fa.flash_attention_bwd,
     "masked_accum": _ma.masked_accum,
     "ssd_chunk": _ssd.ssd_chunk,
+    "ssd_chunk_bwd": _ssd.ssd_chunk_bwd,
     "ssd_segment": _ssd.ssd_segment,
 }
 
@@ -180,26 +182,55 @@ def masked_accum(acc, grad, keep=1.0, scale=1.0):
     return acc.copy_(_ref.masked_accum_ref(acc, grad, keep, scale))
 
 
-def _no_ssd_grad(name, *xs) -> None:
-    if _needs_grad(*xs):
-        raise NotImplementedError(
-            f"{name}: the SSD kernels have no backward yet (training 'M' layers needs "
-            f"the K6 backward, which is slice 4 of the port)")
+def ssd_chunk_fwd(x, dt, cum, b, c):
+    """K6 without autograd: the CUDA kernel on the card, ``ref.ssd_chunk_ref``
+    on the CPU."""
+    fn = _ssd.ssd_chunk if _device_type(x) == "cuda" else _ref.ssd_chunk_ref
+    return fn(x, dt, cum, b, c)
+
+
+def ssd_chunk_bwd(x, dt, cum, b, c, y, dy):
+    """(dx, ddt, dcum, db, dc) of K6: the CUDA backward on the card (it reads
+    the forward's output ``y``), ``ref.ssd_chunk_bwd_ref`` on the CPU."""
+    if _device_type(x) == "cuda":
+        return _ssd.ssd_chunk_bwd(x, dt, cum, b, c, y, dy)
+    return _ref.ssd_chunk_bwd_ref(x, dt, cum, b, c, dy)
+
+
+class SsdChunkFn(torch.autograd.Function):
+    """K6 with its backward kernel; saves the inputs and the output (the
+    backward's row part of dcum is dy . y), never an (L, L) matrix."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cum, b, c):
+        y = ssd_chunk_fwd(x, dt, cum, b, c)
+        ctx.save_for_backward(x, dt, cum, b, c, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_chunk_bwd(*ctx.saved_tensors, dy.contiguous())
 
 
 def ssd_chunk(x, dt, cum, b, c):
     """Intra-chunk SSD term (K6) of x (B, NC, L, H, P), dt / cum (B, NC, L, H),
     b / c (B, NC, L, N): the CUDA kernel on the card, ``ref.ssd_chunk_ref``
-    on the CPU.  Forward only (raises under an input that requires grad)."""
-    _no_ssd_grad("ssd_chunk", x, dt, cum, b, c)
-    fn = _ssd.ssd_chunk if _device_type(x) == "cuda" else _ref.ssd_chunk_ref
-    return fn(x, dt, cum, b, c)
+    on the CPU.  Differentiable through ``SsdChunkFn`` when an input
+    requires grad."""
+    if _needs_grad(x, dt, cum, b, c):
+        return SsdChunkFn.apply(x, dt, cum, b, c)
+    return ssd_chunk_fwd(x, dt, cum, b, c)
 
 
 def ssd_segment(x, dt, cum, b, c, seg):
     """Segment-masked SSD term (K5) of a packed step, x (T, H, P), dt / cum
     (T, H), b / c (T, N), seg (T,): the CUDA kernel on the card,
-    ``ref.ssd_segment_ref`` on the CPU.  Forward only."""
-    _no_ssd_grad("ssd_segment", x, dt, cum, b, c)
+    ``ref.ssd_segment_ref`` on the CPU.  Forward only: K5 serves packed
+    steps, and no training path runs a packed layout (the reference trains
+    none), so an input that requires grad raises."""
+    if _needs_grad(x, dt, cum, b, c):
+        raise NotImplementedError(
+            "ssd_segment (K5) is forward-only: it serves token-packed steps, and training "
+            "runs the dense chunked scan (ssd_chunk, K6), which has a backward")
     fn = _ssd.ssd_segment if _device_type(x) == "cuda" else _ref.ssd_segment_ref
     return fn(x, dt, cum, b, c, seg)

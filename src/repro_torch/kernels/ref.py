@@ -13,6 +13,7 @@ hand-written kernel against them on the same inputs.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -291,6 +292,51 @@ def ssd_chunk_ref(
     scores = torch.einsum("bgin,bgjn->bgij", c.float(), b.float())
     att = _ssd_att(scores, cum.float(), cum.float(), dt.float(), mask)
     return torch.einsum("bgijh,bgjhp->bgihp", att, x.float()).to(x.dtype)
+
+
+def ssd_chunk_bwd_ref(
+    x: torch.Tensor,  # (B, NC, L, H, P)
+    dt: torch.Tensor,  # (B, NC, L, H)
+    cum: torch.Tensor,  # (B, NC, L, H)
+    b: torch.Tensor,  # (B, NC, L, N)
+    c: torch.Tensor,  # (B, NC, L, N)
+    dy: torch.Tensor,  # (B, NC, L, H, P) the cotangent of ssd_chunk_ref's output
+    mask: torch.Tensor = None,  # (L, L) admissible (i, j); default causal
+) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, dcum, db, dc): the backward of ``ssd_chunk_ref`` in closed
+    form, in f32, each in its input's dtype.  With att_ij = S_ij e_ij dt_j,
+    S_ij = C_i . B_j, e_ij = exp(-(cum_i - cum_j)) and q_ij = dy_i . x_j per
+    head, and g_ij = q_ij att_ij on the admissible pairs:
+
+        dx_j   = sum_i att_ij dy_i
+        ddt_j  = sum_i q_ij S_ij e_ij
+        dcum_k = sum_i g_ik - sum_j g_kj          (column minus row)
+        dS_ij  = sum_h q_ij e_ij dt_j              (B and C are shared by
+        dC_i   = sum_j dS_ij B_j,  dB_j = sum_i dS_ij C_i      every head)
+
+    The exponent is masked before the exp, as in the forward (``_ssd_att``).
+    The Pallas package has no backward of this term; JAX differentiates
+    the reference's jnp form, which the CPU tests hold this to."""
+    l = x.shape[2]
+    if mask is None:
+        mask = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    xf, dyf, dtf, cumf = x.float(), dy.float(), dt.float(), cum.float()
+    bf, cf = b.float(), c.float()
+    scores = torch.einsum("bgin,bgjn->bgij", cf, bf)
+    m = mask[..., None]
+    diff = cumf[..., :, None, :] - cumf[..., None, :, :]  # (B, NC, I, J, H)
+    decay = torch.exp(-torch.where(m, diff, 0.0)) * m
+    att = scores[..., None] * decay * dtf[..., None, :, :]
+    q = torch.einsum("bgihp,bgjhp->bgijh", dyf, xf)
+    dx = torch.einsum("bgijh,bgihp->bgjhp", att, dyf)
+    ddt = (q * scores[..., None] * decay).sum(dim=2)
+    g = q * att
+    dcum = g.sum(dim=2) - g.sum(dim=3)
+    ds = (q * decay * dtf[..., None, :, :]).sum(dim=-1)  # (B, NC, I, J)
+    dc = torch.einsum("bgij,bgjn->bgin", ds, bf)
+    db = torch.einsum("bgij,bgin->bgjn", ds, cf)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dcum.to(cum.dtype), db.to(b.dtype),
+            dc.to(c.dtype))
 
 
 def ssd_segment_ref(

@@ -1,6 +1,6 @@
 """Wrappers of the CUDA SSD kernels: ``ssd_chunk`` (K6, the intra-chunk term
-of Mamba-2's chunked scan) and ``ssd_segment`` (K5, its segment-masked form
-over a token-packed step).
+of Mamba-2's chunked scan), its backward ``ssd_chunk_bwd``, and
+``ssd_segment`` (K5, its segment-masked form over a token-packed step).
 
 Ports of the TPU kernels ``repro.kernels.ssd_chunk.ssd_chunk``
 (src/repro/kernels/ssd_chunk.py:104, body ``_ssd_chunk_kernel`` :27) and
@@ -13,13 +13,22 @@ through a ``cp.async``
 ring from the first the tile admits (for K5 its first row's segment) to
 its diagonal.  This module checks the arguments, plans the grid
 (``ssd_plan``: heads a CTA, so the grid fills the card), allocates the
-output and launches on PyTorch's current stream.  It takes CUDA tensors
-only: the plain versions for the CPU are ``kernels.ref.ssd_chunk_ref`` /
-``ssd_segment_ref``, chosen by ``kernels.ops`` from the tensors' device.
+output and launches on PyTorch's current stream.
 
-``ssd_chunk.launches`` / ``ssd_segment.launches`` count launches (nothing
-else adds to them), so a run can show that the serving path went through
-the kernels.
+K6's backward has no TPU kernel (JAX differentiates the reference's jnp
+form): four launches in ``ssd_chunk.cu`` (``repro_ssd_bwd``), a column pass
+that is the forward's CTA with queries and keys swapped, a pass that sums
+dS = dL/d(C B^T) over every head (B and C are shared by the heads) into a
+scratch, one that forms dB and dC from it, and one that finishes ddt, dcum
+and dx.  No atomics: two runs are bit-identical.
+
+The wrappers take CUDA tensors only: the plain versions for the CPU are
+``kernels.ref.ssd_chunk_ref`` / ``ssd_chunk_bwd_ref`` / ``ssd_segment_ref``,
+chosen by ``kernels.ops`` from the tensors' device.
+
+``ssd_chunk.launches`` / ``ssd_chunk_bwd.launches`` / ``ssd_segment.launches``
+count calls that launch (nothing else adds to them), so a run can show that
+the serving and training paths went through the kernels.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .flash_attention import UnbuiltShapeError
 
 SOURCE = "ssd_chunk.cu"
 #: (state N, head dim P) the source instantiates: the configs the port serves
@@ -40,16 +50,20 @@ BUILT = {(128, 64)}  # mamba2-130m
 #: length rounded up to this (``models.ssm.chunk_len``)
 ROW_TILE = 16
 HEAD_GROUPS = (4, 2, 1)  # heads a CTA the source instantiates, largest first
+#: the longest chunk the backward takes (its ds pass keeps a 16 x L block of
+#: sums in shared memory); its L must also be a multiple of ``ROW_TILE``
+BWD_MAX_LEN = 256
+#: splits of the heads in the backward's ds pass: each split sums its heads
+#: into its own (G, L, L) scratch, and the bc pass adds the splits in order
+DS_SPLITS = 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 7 + [_I] * 7 + [_P]
 _OCCUPANCY_ARGTYPES = [_I] * 2 + [_P]
-
-
-class UnbuiltShapeError(ValueError):
-    """SSD inputs at a state size, head dim or dtype that ``ssd_chunk.cu``
-    is not built for."""
+_BWD_ARGTYPES = [_P] * 13 + [_I] * 7 + [_P]
+#: ``repro_ssd_occupancy``'s kinds: K6's forward, K5, the backward's column pass
+MODES = {"chunk": 0, "segment": 1, "column": 2}
 
 
 def load_library() -> ctypes.CDLL:
@@ -59,17 +73,19 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ssd.restype = ctypes.c_int
     lib.repro_ssd_occupancy.argtypes = _OCCUPANCY_ARGTYPES
     lib.repro_ssd_occupancy.restype = ctypes.c_int
+    lib.repro_ssd_bwd.argtypes = _BWD_ARGTYPES
+    lib.repro_ssd_bwd.restype = ctypes.c_int
     return lib
 
 
-def occupancy(heads: int, segment: bool) -> Tuple[int, int]:
-    """(CTAs an SM, dynamic shared memory bytes) of one kernel instance on
-    the current card, as the runtime counts them from its registers and
-    shared memory."""
+def occupancy(heads: int, mode: str) -> Tuple[int, int]:
+    """(CTAs an SM, dynamic shared memory bytes) of one kernel instance
+    (``mode`` one of ``MODES``) on the current card, as the runtime counts
+    them from its registers and shared memory."""
     smem = ctypes.c_int(0)
-    ctas = load_library().repro_ssd_occupancy(heads, int(segment), ctypes.byref(smem))
+    ctas = load_library().repro_ssd_occupancy(heads, MODES[mode], ctypes.byref(smem))
     if ctas < 0:
-        raise RuntimeError(f"no SSD kernel instance for {heads} heads a CTA")
+        raise RuntimeError(f"no SSD kernel instance for {heads} heads a CTA ({mode})")
     return ctas, smem.value
 
 
@@ -130,17 +146,16 @@ def require_built(n: int, p: int, dtype: torch.dtype = torch.float32) -> None:
         raise UnbuiltShapeError(f"the SSD kernels take float32 inputs, not {dtype}")
 
 
-def _check(x, dt, cum, b, c, seg=None):
-    """Raise on anything the kernels do not take."""
+def _check(x, dt, cum, b, c, seg=None, **more):
+    """Raise on anything the kernels do not take (``more``: further f32
+    tensors, the backward's y and dy)."""
     if x.device.type != "cuda":
         raise ValueError(f"the SSD kernels take CUDA tensors, got {x.device}")
-    named = [("dt", dt), ("cum", cum), ("b", b), ("c", c)]
-    if seg is not None:
-        named.append(("seg", seg))
-    for name, t in named:
+    f32 = [("dt", dt), ("cum", cum), ("b", b), ("c", c), *more.items()]
+    for name, t in f32 + ([("seg", seg)] if seg is not None else []):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    for name, t in [("x", x)] + named[:4]:
+    for name, t in [("x", x)] + f32:
         if t.dtype != torch.float32:
             raise UnbuiltShapeError(f"{name} is {t.dtype}: the SSD kernels take float32")
         if not t.is_contiguous():
@@ -222,5 +237,63 @@ def ssd_segment(
     return y
 
 
+def ds_splits(heads: int) -> int:
+    """Splits of the heads in the backward's ds pass."""
+    return min(DS_SPLITS, heads)
+
+
+def scratch_bytes(groups: int, length: int, heads: int) -> int:
+    """Bytes of the backward's dS scratch, (splits, G, L, L) f32."""
+    return 4 * ds_splits(heads) * groups * length * length
+
+
+def ssd_chunk_bwd(
+    x: torch.Tensor,  # (B, NC, L, H, P) f32, the forward's inputs
+    dt: torch.Tensor,  # (B, NC, L, H)
+    cum: torch.Tensor,  # (B, NC, L, H)
+    b: torch.Tensor,  # (B, NC, L, N)
+    c: torch.Tensor,  # (B, NC, L, N)
+    y: torch.Tensor,  # (B, NC, L, H, P) the forward's output
+    dy: torch.Tensor,  # (B, NC, L, H, P) its cotangent
+) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, dcum, db, dc) of K6 from the CUDA kernels.  ``y`` gives
+    dcum's row part, sum_j g_ij = dy_i . y_i, as flash attention's backward
+    reads its output.  Every output and the dS scratch (``scratch_bytes``)
+    are allocated here; L must be a multiple of ``ROW_TILE`` up to
+    ``BWD_MAX_LEN``."""
+    _check(x, dt, cum, b, c, y=y, dy=dy)
+    bs, nc, l, h, p = x.shape
+    n = b.shape[-1]
+    if dt.shape != (bs, nc, l, h) or cum.shape != dt.shape or b.shape != (bs, nc, l, n) \
+            or c.shape != b.shape or y.shape != x.shape or dy.shape != x.shape:
+        raise ValueError(f"want x, y and dy (B, NC, L, H, P), dt and cum (B, NC, L, H), b and "
+                         f"c (B, NC, L, N); got {tuple(x.shape)}, {tuple(y.shape)}, "
+                         f"{tuple(dy.shape)}, {tuple(dt.shape)}, {tuple(cum.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}")
+    if l % ROW_TILE or l > BWD_MAX_LEN:
+        raise UnbuiltShapeError(f"chunk length {l}: the SSD backward takes multiples of "
+                                f"{ROW_TILE} up to {BWD_MAX_LEN}")
+    x, b, c, y, dy = (_aligned(t) for t in (x, b, c, y, dy))
+    outs = tuple(torch.empty_like(t) for t in (x, dt, cum, b, c))
+    if x.numel() == 0:
+        return tuple(o.zero_() for o in outs)
+    g = bs * nc
+    splits = ds_splits(h)
+    ds = torch.empty((splits, g, l, l), dtype=torch.float32, device=x.device)
+    plan = ssd_plan(g, l, h, _sm_count(x.device.index))
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.repro_ssd_bwd(
+            x.data_ptr(), dt.data_ptr(), cum.data_ptr(), b.data_ptr(), c.data_ptr(),
+            dy.data_ptr(), y.data_ptr(), *(o.data_ptr() for o in outs), ds.data_ptr(),
+            g, l, h, p, n, plan.heads, splits,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"SSD backward launch failed (code {err})")
+    ssd_chunk_bwd.launches += 1
+    return outs
+
+
 ssd_chunk.launches = 0
+ssd_chunk_bwd.launches = 0
 ssd_segment.launches = 0

@@ -4,15 +4,21 @@
         --steps 3 --drop-compute --tau 1.2 --device cpu  # smoke config
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --full-config --seq 2048 --batch 8 --workers 4 --microbatches 2 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --steps 20 --drop-compute --auto-threshold --device cpu  # smoke config
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --full-config --seq 2048 --batch 32 --workers 4 --microbatches 2 --steps 3
 
 Selects an architecture from the port's registry (``--arch``, the reduced
 smoke config unless ``--full-config``), builds the synthetic data and the
 DropCompute trainer, and runs on one device: CUDA unless ``--device cpu``.
 ``--ckpt DIR`` saves a checkpoint every 50 steps, ``--resume DIR`` resumes
 from one (parameters, optimizer state and the adapted tau-controller
-state), as the reference's launcher does.  A config whose attention the
-training kernels are not built for is refused on CUDA (the smoke config is
-f32 with head dim 32: run it with ``--device cpu``).
+state), as the reference's launcher does.  A config that the training
+kernels are not built for is refused on CUDA before any work: attention
+other than head dim 128, group 8, bf16 (qwen's smoke config is f32 with
+head dim 32), or SSD layers other than state 128, head dim 64 (mamba's
+smoke config has state 16, head dim 32); run those with ``--device cpu``.
 
 ``--mesh N`` trains data-parallel on N ranks (``repro_torch.dist``): under
 ``torchrun`` each process joins the group it made; run alone, the launcher

@@ -13,8 +13,8 @@ the caller passes the paged kernel's tile plans (``chunk_plans`` /
 graph (``repro_torch.graphs``).
 
 ``batch`` is a dict: ``tokens`` (B, S) int, optional ``weights`` (B, S)
-per-token loss weights.  The port trains and serves decoder-only 'G'/'L'
-stacks and serves 'M' (Mamba-2) stacks; other families raise
+per-token loss weights.  The port trains and serves decoder-only stacks of
+'G'/'L' attention and 'M' (Mamba-2) layers; other families raise
 ``UnsupportedPatternError``.
 
 Parameters are nested dicts with the reference's path names and shapes
@@ -33,19 +33,21 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..kernels import flash_attention as _fa
+from ..kernels import ssd_chunk as _ssd
 from . import layers as L
 from .config import ModelConfig
+from .ssm import chunk_len
 from .transformer import apply_stack, init_stack, init_stack_cache, tree_leaves
 
 Tree = Any
 
 
 class UnsupportedPatternError(NotImplementedError):
-    """A serving path was asked for a model it cannot run.
+    """A serving or training path was asked for a model it cannot run.
 
     Typed (and raised unconditionally, not ``assert``-ed) so callers can
-    catch it.  The port serves decoder-only 'G'/'L'/'M' stacks; RG-LRU
-    ('R'), MoE, enc-dec and VLM models raise it."""
+    catch it.  The port trains and serves decoder-only 'G'/'L'/'M' stacks;
+    RG-LRU ('R'), MoE, enc-dec and VLM models raise it."""
 
 
 def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
@@ -67,19 +69,26 @@ def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
 
 def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> None:
     """Raise before any work what the training path would raise at its
-    first layer: 'M' layers (``UnsupportedPatternError``: the SSD kernels
-    have no backward yet, slice 4), ``logit_softcap`` (not ported), and on
-    the card attention that the training kernels are not built for
-    (``kernels.flash_attention.UnbuiltShapeError``: head dim, group,
-    compute dtype, sequence length)."""
+    first layer: a family the port does not run (``UnsupportedPatternError``),
+    ``logit_softcap`` (not ported), and on the card a shape the training
+    kernels are not built for (``kernels.flash_attention.UnbuiltShapeError``):
+    for 'G'/'L' layers attention's head dim, group, compute dtype and
+    sequence length; for 'M' layers the SSD kernels' (state, head dim) and
+    the chunk length the scan runs at ``seq_len`` (``ssm.chunk_len``), which
+    the K6 backward takes as a multiple of its row tile up to its limit."""
     require_chunkable(cfg, "training")
-    if "M" in cfg.pattern:
-        raise UnsupportedPatternError(
-            f"training {cfg.name!r} needs the backward of the SSD kernel (K6) for its 'M' "
-            f"layers, which is slice 4 of the port; the port serves it")
     L.require_no_softcap(cfg)
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type != "cuda":
+        return
+    if set(cfg.pattern) & {"G", "L"}:
         _fa.require_trained(cfg.hd, cfg.n_heads // cfg.n_kv_heads, cfg.compute_dtype, seq_len)
+    if "M" in cfg.pattern:
+        _ssd.require_built(cfg.ssm_state, cfg.ssm_head_dim)
+        chunk = chunk_len(seq_len, cfg.ssm_chunk)
+        if chunk % _ssd.ROW_TILE or chunk > _ssd.BWD_MAX_LEN:
+            raise _fa.UnbuiltShapeError(
+                f"chunk length {chunk} (ssm_chunk {cfg.ssm_chunk} at {seq_len} tokens): the SSD "
+                f"backward takes multiples of {_ssd.ROW_TILE} up to {_ssd.BWD_MAX_LEN}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:

@@ -1,5 +1,5 @@
-"""Mamba-2 / SSD (state-space duality) block for serving (port of
-``repro.models.ssm``)  [arXiv:2405.21060].
+"""Mamba-2 / SSD (state-space duality) block for training and serving (port
+of ``repro.models.ssm``)  [arXiv:2405.21060].
 
 The sequence is split into chunks.  Within a chunk the recurrence is a
 masked, decay-weighted "attention" (``kernels.ops.ssd_chunk``, K6: the CUDA
@@ -7,7 +7,12 @@ kernel on the card, its plain version on the CPU); across chunks a small
 recurrence over per-chunk states runs as a Python loop (the reference's
 ``lax.scan``; the chunk count is short).  A token-packed serving step runs
 the segment-masked form over the packed axis instead
-(``kernels.ops.ssd_segment``, K5).
+(``kernels.ops.ssd_segment``, K5, forward-only).
+
+Training runs the cache-free branch under autograd, as the reference
+differentiates it with ``jax.grad``: K6 through ``kernels.ops.SsdChunkFn``
+(its CUDA backward on the card), everything around it (the inter-chunk
+loop, the decays, the conv taps, the gated norm) through plain autograd.
 
 One difference from the reference, which pads every dense step to a
 multiple of ``ssm_chunk``: a step shorter than ``ssm_chunk`` runs one chunk
@@ -88,10 +93,25 @@ def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     return z, xbc, dt, di, n, nh
 
 
+class _Softplus(torch.autograd.Function):
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): the value in its own form,
+    max(x, 0) + log1p(exp(-|x|)), and the gradient sigmoid(x).  Autograd
+    of that form would give 1 at x = 0 (clamp passes the gradient at its
+    bound, |x| gives 0 there), where logaddexp's is 1/2."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.sigmoid(x)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus`` (``logaddexp(x, 0)``), in its own form:
-    max(x, 0) + log1p(exp(-|x|))."""
-    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+    return _Softplus.apply(x)
 
 
 def _conv_taps(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: int) -> torch.Tensor:

@@ -204,7 +204,8 @@ class TestDispatch:
         assert torch.equal(ops.ssd_segment(*args), ref.ssd_segment_ref(*args))
         counts = ops.launch_counts()
         assert set(counts) == {"paged_attention", "rmsnorm", "rmsnorm_bwd", "flash_attention",
-                               "flash_attention_bwd", "masked_accum", "ssd_chunk", "ssd_segment"}
+                               "flash_attention_bwd", "masked_accum", "ssd_chunk",
+                               "ssd_chunk_bwd", "ssd_segment"}
         assert all(n == 0 for n in counts.values()), counts
 
     def test_kernel_wrappers_refuse_cpu_tensors(self):
@@ -479,7 +480,7 @@ def test_rmsnorm_bwd_ctypes_signature_matches_the_cuda_source():
     assert _c_argtypes(rmsnorm.BWD_SOURCE, "repro_rmsnorm_bwd") == rmsnorm._BWD_ARGTYPES
 
 
-@pytest.mark.parametrize("entry", ["repro_ssd", "repro_ssd_occupancy"])
+@pytest.mark.parametrize("entry", ["repro_ssd", "repro_ssd_occupancy", "repro_ssd_bwd"])
 def test_ssd_ctypes_signature_matches_the_cuda_source(entry, monkeypatch):
     class Fn:
         pass
@@ -487,6 +488,7 @@ def test_ssd_ctypes_signature_matches_the_cuda_source(entry, monkeypatch):
     class Lib:
         repro_ssd = Fn()
         repro_ssd_occupancy = Fn()
+        repro_ssd_bwd = Fn()
 
     monkeypatch.setattr(ssd_chunk._build, "load", lambda source: Lib)
     lib = ssd_chunk.load_library()

@@ -26,10 +26,12 @@ from repro_torch.serve import ContinuousBatcher, Request  # noqa: E402
 from test_torch_parity_util import (  # noqa: E402
     BF16_ULPS,
     K3_ROW_TOL,
+    SSD_BWD_TOL,
     SSD_ROW_TOL,
     TOL,
     bf16_ulps,
     dscale_without_rows,
+    norm_rel_err,
     np32,
     packed_scenario,
     quantize_pool,
@@ -398,6 +400,82 @@ class TestKernelsOnCard:
         b = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(1, 1, 64, 2, 64, 128, 0)]
         with pytest.raises(ssd_chunk.UnbuiltShapeError):
             ssd_chunk.ssd_chunk(b[0].bfloat16(), *b[1:])
+
+    # -----------------------------------------------------------------------
+    # K6's backward at mamba2-130m's widths
+    # -----------------------------------------------------------------------
+
+    @staticmethod
+    def ssd_bwd_inputs(cuda, bs, nc, l, seed):
+        a = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(bs, nc, l, 24, 64, 128,
+                                                                      seed=seed)]
+        dy = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+            size=tuple(a[0].shape)).astype(np.float32)).to(cuda)
+        return a, ssd_chunk.ssd_chunk(*a), dy
+
+    @staticmethod
+    def ssd_bwd_errs(got, want):
+        """dx row by row, the other four relative to their norms."""
+        return [row_rel_err(got[0], want[0])] + [norm_rel_err(g, w)
+                                                 for g, w in zip(got[1:], want[1:])]
+
+    @pytest.mark.parametrize("bs,nc,l", [(4, 2, 256), (4, 1, 64), (1, 3, 16)])
+    def test_ssd_chunk_bwd(self, cuda, bs, nc, l):
+        """The training shape (256-row chunks), a 64-row and a 16-row chunk;
+        one launch counted a call."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        a, y, dy = self.ssd_bwd_inputs(cuda, bs, nc, l, seed=l + nc)
+        n0 = ssd_chunk.ssd_chunk_bwd.launches
+        got = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
+        want = ref.ssd_chunk_bwd_ref(*a, dy)
+        torch.cuda.synchronize()
+        assert ssd_chunk.ssd_chunk_bwd.launches == n0 + 1
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+        errs = self.ssd_bwd_errs(got, want)
+        assert max(errs) <= SSD_BWD_TOL, errs
+
+    def test_ssd_chunk_bwd_runs_are_bit_identical(self, cuda):
+        """No atomics, the sums over the heads in a fixed order."""
+        a, y, dy = self.ssd_bwd_inputs(cuda, 4, 2, 256, seed=9)
+        one, two = ssd_chunk.ssd_chunk_bwd(*a, y, dy), ssd_chunk.ssd_chunk_bwd(*a, y, dy)
+        assert all(torch.equal(p, q) for p, q in zip(one, two))
+
+    def test_ssd_chunk_bwd_checks_catch_planted_faults(self, cuda):
+        """The same metrics fail the plain backward with the diagonal key tile
+        left out (of dB among the rest) and with dcum's row part dropped."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        a, y, dy = self.ssd_bwd_inputs(cuda, 2, 2, 256, seed=4)
+        want = ref.ssd_chunk_bwd_ref(*a, dy)
+        got = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
+        assert max(self.ssd_bwd_errs(got, want)) <= SSD_BWD_TOL
+        skip = ssd_skip_diagonal_tile_mask(256, device=cuda, tile=ssd_chunk.ROW_TILE)
+        bad = ref.ssd_chunk_bwd_ref(*a, dy, mask=skip)
+        assert norm_rel_err(bad[3], want[3]) > SSD_BWD_TOL
+        assert norm_rel_err(want[2] + (dy * y).sum(-1), want[2]) > SSD_BWD_TOL
+
+    def test_ssd_chunk_fn_counts_one_backward_launch(self, cuda):
+        """``ops.ssd_chunk`` under autograd: one forward and one backward
+        launch, the gradients those of the wrapper called directly."""
+        a, y, dy = self.ssd_bwd_inputs(cuda, 2, 2, 256, seed=5)
+        leaves = [t.clone().requires_grad_() for t in a]
+        f0, b0 = ssd_chunk.ssd_chunk.launches, ssd_chunk.ssd_chunk_bwd.launches
+        out = ops.ssd_chunk(*leaves)
+        out.backward(dy)
+        assert ssd_chunk.ssd_chunk.launches == f0 + 1
+        assert ssd_chunk.ssd_chunk_bwd.launches == b0 + 1
+        assert torch.equal(out.detach(), y)
+        for leaf, w in zip(leaves, ssd_chunk.ssd_chunk_bwd(*a, y, dy)):
+            assert torch.equal(leaf.grad, w)
+
+    def test_ssd_chunk_bwd_refuses_unbuilt_shapes(self, cuda):
+        """Chunks off the 16-row tile or above 256 rows, and state 16."""
+        for l in (17, 512):
+            a, y, dy = self.ssd_bwd_inputs(cuda, 1, 1, l, seed=0)
+            with pytest.raises(ssd_chunk.UnbuiltShapeError, match="chunk length"):
+                ssd_chunk.ssd_chunk_bwd(*a, y, dy)
+        s = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(1, 1, 64, 2, 32, 16, 0)]
+        with pytest.raises(ssd_chunk.UnbuiltShapeError):
+            ssd_chunk.ssd_chunk_bwd(*s, s[0], s[0])
 
 
 def two_layers(name, cuda):

@@ -26,6 +26,12 @@ Tolerances (``TOL``), each with its reason:
   3xTF32 and CUDA's expf (2 ulp) against torch's exp, ~3e-7 a row; a
   planted fault (the diagonal key tile skipped, or the segment mask
   dropped) reads above 0.1.
+* ``SSD_BWD_TOL`` — K6's backward against its plain version on the card,
+  both f32: dx row by row (``row_rel_err``; u in 3xTF32 like the forward's
+  att . x), ddt, dcum, dB and dC each by ``norm_rel_err`` (dot products
+  over the head dim, dcum the difference of two of them, dB / dC sums over
+  the heads and the chunk in another order: ~1e-6); a planted fault (the
+  diagonal key tile left out, or dcum's row part dropped) reads above 0.01.
 * ``BF16_ULPS`` — bf16 RMSNorm, where XLA on the CPU may fuse the two bf16
   multiplies: at most one bf16 ulp apart.
 """
@@ -46,6 +52,7 @@ TOL = {
 BF16_ULPS = 1
 K3_ROW_TOL = 2e-2
 SSD_ROW_TOL = 1e-4
+SSD_BWD_TOL = 1e-4
 
 
 def np32(x) -> np.ndarray:
@@ -99,6 +106,14 @@ def row_rel_err(got, want) -> float:
     num = torch.linalg.vector_norm(got - want, dim=-1)
     den = torch.linalg.vector_norm(want, dim=-1)
     return float((num / den.clamp(min=2.0 ** -12 * float(den.max()) + 1e-30)).max())
+
+
+def norm_rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor."""
+    got = torch.from_numpy(np32(got))
+    want = torch.from_numpy(np32(want))
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want).clamp(min=1e-30))
 
 
 def skip_diagonal_tile_mask(s: int, device=None, tile: int = 64):

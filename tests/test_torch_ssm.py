@@ -19,7 +19,8 @@ Same numpy inputs (or JAX-initialised weights carried across by
   with slot reuse, and after a cancel (mirroring
   ``tests/test_serve_model_zoo.py:91-189``);
 * the recurrent-state lifecycle (admission zeroes, fork copies, sharing
-  off, trim refuses) and the typed refusals ('R' patterns, training 'M').
+  off, trim refuses) and the typed refusals ('R' patterns; training 'M'
+  at SSD shapes the kernels are not built for, K5 under grad).
 """
 import dataclasses
 
@@ -42,6 +43,7 @@ from repro.serve import Request as JRequest  # noqa: E402
 from repro.serve import pack_step as jpack_step  # noqa: E402
 from repro_torch.configs import ARCHITECTURES, get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import UnbuiltShapeError  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ROW_TILE  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import ModelConfig, UnsupportedPatternError, model  # noqa: E402
@@ -572,21 +574,34 @@ def test_r_patterns_still_refuse():
 
 
 def test_training_m_is_refused_before_any_work(tiny, capsys):
-    _, tc, _, tp = tiny
-    for dev in ("cpu", "cuda"):
-        with pytest.raises(UnsupportedPatternError, match="slice 4"):
-            model.require_trainable(tc, 16, torch.device(dev))
+    """Training 'M' layers runs (K6 has a backward); what is still refused
+    is refused before any work: on the card an 'M' config whose (state, head
+    dim) the SSD kernels are not built for, through ``require_trainable``,
+    the trainer and the launcher, and K5 (``ssd_segment``) under grad, which
+    no training path runs.  The forward-only calls work under ``no_grad``."""
+    _, tc, _, _ = tiny
+    cuda = torch.device("cuda")
+    with pytest.raises(UnbuiltShapeError, match="state 8 and head dim 16"):
+        model.require_trainable(tc, 16, cuda)
+    model.require_trainable(tc, 16, torch.device("cpu"))
     data = DataConfig(vocab_size=tc.vocab_size, seq_len=8, batch_size=4)
-    with pytest.raises(UnsupportedPatternError, match="slice 4"):
-        train(tc, data, TrainConfig(steps=1, n_workers=2, microbatches=2), device="cpu")
+    # the trainer's default device is CUDA: without a card it raises for the
+    # device, with one for the SSD shape, before any work either way
+    with pytest.raises((UnbuiltShapeError, RuntimeError), match="CUDA|state 8"):
+        train(tc, data, TrainConfig(steps=1, n_workers=2, microbatches=2))
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "mamba2-130m", "--steps", "1"])
-    assert "slice 4" in capsys.readouterr().err
-    # the SSD ops themselves refuse a gradient
+    assert "state 16 and head dim 32" in capsys.readouterr().err
+    # K5 refuses a gradient; K6 takes one
     x = torch.zeros(1, 1, 8, 2, 4, requires_grad=True)
     z = torch.zeros(1, 1, 8, 2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ops.ssd_chunk(x, z, z, torch.zeros(1, 1, 8, 3), torch.zeros(1, 1, 8, 3))
+    bc = torch.zeros(1, 1, 8, 3)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.ssd_segment(x[0, 0], z[0, 0], z[0, 0], bc[0, 0], bc[0, 0],
+                        torch.zeros(8, dtype=torch.long))
+    ops.ssd_chunk(x, z, z, bc, bc).sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape
     with torch.no_grad():  # forward only is fine
-        assert ops.ssd_chunk(x, z, z, torch.zeros(1, 1, 8, 3), torch.zeros(1, 1, 8, 3)).shape \
-            == x.shape
+        assert ops.ssd_chunk(x, z, z, bc, bc).shape == x.shape
+        assert ops.ssd_segment(x[0, 0], z[0, 0], z[0, 0], bc[0, 0], bc[0, 0],
+                               torch.zeros(8, dtype=torch.long)).shape == x.shape[2:]

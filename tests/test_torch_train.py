@@ -2,12 +2,14 @@
 
 JAX ``init_params`` feeds ``params_from_jax``; both packages then compute
 ``loss_fn``'s ``(loss_sum, w_sum)`` and its gradient for every leaf, the
-forward logits and ``per_token_losses`` on the qwen2.5-3b smoke config and
-on an 'LG' config with a sliding window (the reference takes its banded
-path there) and QK-norm; with remat and the chunked CE on; and a 10-step
-DropCompute ``train`` run whose drop fractions, tau trajectory (Algorithm 2
-calibrated mid-run) and simulated times must be identical and whose losses
-and final parameters must agree to ``TOL["model_f32"]``.
+forward logits and ``per_token_losses`` on the qwen2.5-3b smoke config, on
+an 'LG' config with a sliding window (the reference takes its banded path
+there) and QK-norm, and on the mamba2-130m smoke config (K6's backward
+through ``ops.SsdChunkFn``); with remat and the chunked CE on; and 10-step
+DropCompute ``train`` runs (qwen, and mamba with tau calibrated by
+Algorithm 2 mid-run or moved by the online controller) whose drop
+fractions, tau trajectory and simulated times must be identical and whose
+losses and final parameters must agree to ``TOL["model_f32"]``.
 """
 import dataclasses
 
@@ -24,14 +26,17 @@ from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
 from repro.data import DataConfig as JData  # noqa: E402
 from repro.models import ModelConfig as JConfig  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
+from repro.train.resilience import ControllerConfig as JControllerConfig  # noqa: E402
+from repro.train.resilience import make_scenario as jmake_scenario  # noqa: E402
 from repro_torch import core, train  # noqa: E402
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.kernels.flash_attention import UnbuiltShapeError  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import ModelConfig, UnsupportedPatternError, model  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
-from test_torch_parity_util import assert_close, assert_tree_close  # noqa: E402
+from repro_torch.train.resilience import ControllerConfig, make_scenario  # noqa: E402
+from test_torch_parity_util import TOL, assert_close, assert_tree_close, tree_np  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -44,6 +49,10 @@ LG = dict(name="lg", n_layers=3, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
 CONFIGS = {
     "qwen_smoke": (jget_smoke("qwen2_5_3b"), get_smoke_config("qwen2_5_3b"), 32),
     "lg_window": (JConfig(**LG), ModelConfig(**LG), 48),
+    # Mamba-2: 2 'M' layers, d 128, state 16, head dim 32, chunk 16: 32 tokens
+    # run two chunks, so K6's backward and the inter-chunk loop both carry
+    # gradient
+    "mamba_smoke": (jget_smoke("mamba2_130m"), get_smoke_config("mamba2_130m"), 32),
 }
 
 
@@ -161,6 +170,70 @@ def test_ten_step_run_matches_reference():
     assert got.tau == want.tau and got.metrics["tau_changes"] == want.metrics["tau_changes"]
 
 
+def _mamba_run_configs(pkg, cpkg, data_cls, ctl_cls, scenario, tau_mode):
+    """The mamba smoke config's 10-step run: tau calibrated by Algorithm 2
+    mid-run (``auto``), or moved by the online controller over a seeded
+    Pareto straggler scenario (``online``)."""
+    if tau_mode == "auto":
+        return _configs(pkg, cpkg, data_cls)
+    data = data_cls(vocab_size=503, seq_len=16, batch_size=8, seed=2)
+    return data, pkg.TrainConfig(
+        steps=10, n_workers=4, microbatches=2, lr=1e-3, seed=3, tc=0.5,
+        telemetry_window=8, drop=cpkg.DropConfig(enabled=True), online_tau=True,
+        latency=scenario("pareto", seed=0, onset=0),
+        controller=ctl_cls(warmup_steps=4, check_every=2))
+
+
+#: A leaf of the 10-step mamba run outside ``model_f32`` is held to this
+#: factor times the gap the reference shows against itself with remat on
+#: (another compiled program of the same sums).  AdamW's first step moves an
+#: element by +-lr whatever the size of its gradient, so where a step's
+#: gradient cancels (one tied-embedding element sums eight micro-batch terms
+#: of ~1e-2 to ~1e-5) an f32-sized gap in it becomes an lr-sized gap in the
+#: parameter: 1.3e-4 there, against 3.0e-5 for the reference with remat on.
+#: The gradients themselves agree to ~2x the reference's own jit-vs-eager
+#: spread (``test_loss_and_every_grad_leaf`` holds them to ``model_f32``).
+ADAM_ORDER_FACTOR = 8
+
+
+def _assert_params_close(got, want, control):
+    """Every leaf within ``model_f32`` of ``want``, or else its largest gap
+    within ``ADAM_ORDER_FACTOR`` times ``control``'s for the leaf."""
+    paths = [jax.tree_util.keystr(k) for k, _ in jax.tree_util.tree_leaves_with_path(want)]
+    for path, g, w, c in zip(paths, jax.tree.leaves(tree_np(got)), jax.tree.leaves(want),
+                             jax.tree.leaves(control)):
+        w, c = np.asarray(w), np.asarray(c)
+        if np.allclose(g, w, **TOL["model_f32"]):
+            continue
+        gap, ctl = float(np.abs(g - w).max()), float(np.abs(c - w).max())
+        assert gap <= ADAM_ORDER_FACTOR * ctl, (path, gap, ctl)
+
+
+@pytest.mark.parametrize("tau_mode", ["auto", "online"])
+def test_ten_step_mamba_run_matches_reference(tau_mode):
+    """mamba2-130m's smoke config through both trainers: the same drops,
+    tau and simulated times; losses to ``model_f32``; parameters to
+    ``model_f32`` or ``ADAM_ORDER_FACTOR`` times the reference's own gap
+    with remat on."""
+    jc, tc = jget_smoke("mamba2_130m"), get_smoke_config("mamba2_130m")
+    jp = jmodel.init_params(jax.random.PRNGKey(0), jc)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
+    jdata, jcfg = _mamba_run_configs(jtrain, jcore, JData, JControllerConfig, jmake_scenario,
+                                     tau_mode)
+    data, cfg = _mamba_run_configs(train, core, DataConfig, ControllerConfig, make_scenario,
+                                   tau_mode)
+    want = jtrain.train(jc, jdata, jcfg, params=jp)
+    control = jtrain.train(dataclasses.replace(jc, remat=True), jdata, jcfg, params=jp)
+    got = train.train(tc, data, cfg, params=tp, device="cpu")
+    assert got.drop_fractions == want.drop_fractions
+    assert got.tau_trajectory == want.tau_trajectory
+    assert got.sim_times == want.sim_times
+    assert len(got.tau_trajectory) >= 2 and any(d > 0 for d in got.drop_fractions)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4, atol=1e-4)
+    _assert_params_close(got.params, want.params, control.params)
+    assert got.tau == want.tau and got.metrics["tau_changes"] == want.metrics["tau_changes"]
+
+
 def test_trainer_refuses_unported_paths():
     cfg = get_smoke_config("qwen2_5_3b")
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, batch_size=8)
@@ -224,3 +297,41 @@ def test_launcher(capsys, tmp_path):
     with pytest.raises(SystemExit):  # the smoke config on the card: refused at parsing
         launch_train.main(["--arch", "qwen2.5-3b", "--steps", "1"])
     assert "head dim 32" in capsys.readouterr().err
+
+
+def test_launcher_trains_mamba(capsys):
+    """The reference launcher's own command (``repro/launch/train.py:3-4``)
+    at 3 steps on the CPU; without ``--device cpu`` the smoke config (state
+    16, head dim 32) is refused at parsing, before any work."""
+    assert launch_train.main(["--arch", "mamba2-130m", "--steps", "3", "--drop-compute",
+                              "--auto-threshold", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "pattern=M" in out and "[train] loss" in out and "drop" in out
+    with pytest.raises(SystemExit):
+        launch_train.main(["--arch", "mamba2-130m", "--steps", "1"])
+    assert "state 16 and head dim 32" in capsys.readouterr().err
+
+
+def test_training_refuses_unbuilt_ssd_shapes_before_any_work():
+    """On the card an 'M' config is refused up front unless the SSD kernels
+    are built for its (state, head dim) and K6's backward takes the chunk
+    the scan runs at the sequence length (a multiple of 16 up to 256); the
+    published mamba2-130m at 2048 tokens passes; the CPU takes anything.
+    One ``UnbuiltShapeError`` class covers attention and SSD."""
+    from repro_torch.kernels import ssd_chunk
+
+    assert ssd_chunk.UnbuiltShapeError is UnbuiltShapeError
+    cuda = torch.device("cuda")
+    smoke = get_smoke_config("mamba2_130m")
+    full = dataclasses.replace(smoke, name="mamba-widths", ssm_state=128, ssm_head_dim=64,
+                               ssm_chunk=256)
+    for cfg, seq, match in ((smoke, 2048, "state 16 and head dim 32"),
+                            (dataclasses.replace(full, ssm_chunk=512), 2048, "chunk length 512"),
+                            (dataclasses.replace(full, ssm_chunk=200), 2048, "chunk length 200")):
+        with pytest.raises(UnbuiltShapeError, match=match):
+            model.require_trainable(cfg, seq, cuda)
+    model.require_trainable(full, 2048, cuda)
+    model.require_trainable(full, 40, cuda)  # one 48-row chunk
+    model.require_trainable(get_config("mamba2_130m"), 2048, cuda)
+    for cfg in (smoke, dataclasses.replace(full, ssm_chunk=200)):
+        model.require_trainable(cfg, 2048, torch.device("cpu"))
