@@ -27,15 +27,16 @@ is claimed: profiling slows the host, never the kernels.
 
 runs the named parts alone: ``kernels`` times the kernels ``chip_smoke.py``
 times, at its main-path shapes (``k4_timing``, ``k2_timing``,
-``k2_bwd_checks_and_timing``, and K6 / K5 at the mamba serving shapes) and
-prints one JSON line; ``qwen`` and ``mamba`` profile one model's serving
+``k2_bwd_checks_and_timing``, K6 / K5 at the mamba serving shapes and K6
+forward and backward at the Mamba-2 training shape), with digests of K6's
+and K5's outputs, and prints one JSON line; ``qwen`` and ``mamba`` profile one model's serving
 runs, ``train`` the training step, ``localsgd`` the last round of
 ``chip_smoke.py``'s Local-SGD run (qwen2.5-3b, 36 layers), ``dp`` one
 graphed training step of ``chip_smoke.py``'s phase 9a (one NCCL rank,
 ``mesh="1"``) with its ``dp_allreduce`` span apart, ``mamba_train`` one
 eager and one graphed step of its phase 10 (mamba2-130m at 24 layers,
-micro-batches of 4 x 2048 tokens; K6's forward and its backward's four
-kernels filed apart).  A copy of this script placed at the
+micro-batches of 4 x 2048 tokens; K6's forward and its backward's kernels
+filed apart).  A copy of this script placed at the
 root of another checkout (a ``git archive`` of a later commit: its
 ``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
 checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
@@ -74,6 +75,8 @@ FAMILIES = (  # first match wins; K4's and K2 backward's two kernels are sub-row
     ("K2 rmsnorm: backward dscale sum", re.compile(r"rmsnorm_bwd_colsum|colsum_kernel")),
     ("K2 rmsnorm", re.compile(r"rmsnorm_kernel")),
     ("K1 masked_accum", re.compile(r"masked_accum_kernel")),
+    ("K6 ssd_chunk: backward key-tile pass", re.compile(r"ssd_bwd_keys_kernel")),
+    ("K6 ssd_chunk: backward dC", re.compile(r"ssd_bwd_dc_kernel")),
     ("K6 ssd_chunk: backward column pass", re.compile(r"ssd_column_kernel")),
     ("K6 ssd_chunk: backward dS", re.compile(r"ssd_bwd_ds_kernel")),
     ("K6 ssd_chunk: backward dB / dC", re.compile(r"ssd_bwd_bc_kernel")),
@@ -286,36 +289,62 @@ TAG = ""
 PARTS = ("kernels", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train")
 
 
-#: K6's (chunks, rows) at the mamba serving run's decode and 64-token steps
-#: and at a full 256-row chunk
-SSD_CHUNK_SHAPES = {"decode": (8, 16), "serve": (8, 64), "chunk256": (8, 256)}
+#: K6's (sequences, chunks, rows) at the mamba serving run's decode and
+#: 64-token steps, at a full 256-row chunk, and at the Mamba-2 training
+#: micro-batch (4 sequences of 8 chunks of 256); its backward at the last
+#: and at 64-row chunks
+SSD_CHUNK_SHAPES = {"decode": (8, 1, 16), "serve": (8, 1, 64), "chunk256": (8, 1, 256),
+                    "train": (4, 8, 256)}
+SSD_BWD_SHAPES = {"train": (4, 8, 256), "train64": (4, 8, 64)}
 
 
 def ssd_times(rng) -> dict:
     """K6 and K5 alone (us, graph replay, L2 flushed) at the mamba serving
-    shapes, through calls that every checkout's ``chip_smoke.py`` has since
-    the SSD kernels were ported, so a parent tree is timed the same way."""
+    and training shapes, and K6's backward at the training shapes, through
+    calls that every checkout's ``chip_smoke.py`` has since K6's backward
+    was ported (PR 20), so a parent tree is timed the same way."""
     out = {}
-    for name, (bs, l) in SSD_CHUNK_SHAPES.items():
-        a = cs.ssd_chunk_scenario(rng, bs, 1, l)
+    for name, (bs, nc, l) in SSD_CHUNK_SHAPES.items():
+        a = cs.ssd_chunk_scenario(rng, bs, nc, l)
         out[f"k6_{name}"] = cs.time_ms(lambda: cs.ssd_chunk.ssd_chunk(*a)) * 1e3
+    for name, (bs, nc, l) in SSD_BWD_SHAPES.items():
+        a, y, dy = cs.ssd_bwd_scenario(rng, bs, nc, l)
+        out[f"k6_bwd_{name}"] = cs.time_ms(lambda: cs.ssd_chunk.ssd_chunk_bwd(*a, y, dy)) * 1e3
     for name, seg in (("mixed", cs.K5_MIXED), ("decode", cs.K5_DECODE)):
         a = cs.ssd_segment_scenario(rng, seg)
         out[f"k5_{name}"] = cs.time_ms(lambda: cs.ssd_chunk.ssd_segment(*a)) * 1e3
     return out
 
 
+def ssd_digests(seed: int) -> dict:
+    """sha256 of K6's and K5's outputs (forward) at the shapes ``ssd_times``
+    times, on inputs from their own stream (``seed`` + 1), so that two
+    trees' digests are equal exactly when their kernels give the same
+    bits."""
+    import hashlib
+
+    rng = np.random.default_rng(seed + 1)
+    outs = {}
+    for name, (bs, nc, l) in SSD_CHUNK_SHAPES.items():
+        outs[f"k6_{name}"] = cs.ssd_chunk.ssd_chunk(*cs.ssd_chunk_scenario(rng, bs, nc, l))
+    for name, seg in (("mixed", cs.K5_MIXED), ("decode", cs.K5_DECODE)):
+        outs[f"k5_{name}"] = cs.ssd_chunk.ssd_segment(*cs.ssd_segment_scenario(rng, seg))
+    torch.cuda.synchronize()
+    return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16] for k, v in outs.items()}
+
+
 def kernel_times(seed: int) -> dict:
     """``chip_smoke.py``'s K4, K2 and K2-backward timings (the checks inside
     them included) at its main-path shapes, from a stream seeded as its
-    run's, then K6 and K5 (``ssd_times``)."""
+    run's, then K6 and K5 (``ssd_times``) and the digests of their outputs
+    (``ssd_digests``)."""
     rng = np.random.default_rng(seed)
     lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
     k4 = cs.k4_timing(rng, lens)
     k2 = cs.k2_timing(rng)
     _, k2b = cs.k2_bwd_checks_and_timing(rng)
     return {"tag": TAG, "run": "kernels", "k4": k4, "k2": k2, "k2_bwd": k2b,
-            "ssd_us": ssd_times(rng)}
+            "ssd_us": ssd_times(rng), "ssd_digests": ssd_digests(seed)}
 
 
 def main() -> int:

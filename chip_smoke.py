@@ -19,7 +19,8 @@ input copy is skipped, must fail the stream check.
    ``flash_attention.cu``, ``ssd_chunk.cu`` and ``rmsnorm_bwd.cu``
    (``nvcc``, sm_90a, the builds started together; ptxas's registers and
    spills of the K3, K4 and K2-backward kernels printed, and of each SSD
-   kernel instance with its shared memory and CTAs an SM), and the Triton
+   kernel instance and K6's backward's two kernels with their shared
+   memory and CTAs an SM), and the Triton
    kernels' JIT, with their build seconds;
 3. kernels — each kernel against its plain PyTorch version on the card at
    qwen2.5-3b widths, timed by CUDA-graph replay with L2 flushed, beside
@@ -58,12 +59,13 @@ input copy is skipped, must fail the stream check.
      pass would give); two runs bit-identical; times at the serving
      shapes and (K6) at the Mamba-2 training micro-batch beside the f32-FMA
      bound and the tensor-core bound;
-   * K6's backward (four launches: column pass, dS, dB / dC, finish) at the
-     training shape (B 4, NC 8, L 256) and at L 64: dx row by row, ddt,
-     dcum, dB and dC by norm, two runs bit-identical, two planted faults
-     (dB without the diagonal key tile, dcum without its row part); timed
-     beside its plain version and both bounds; K2's backward again at
-     mamba2-130m's width (d 768, 8,192 rows), bf16 and f32;
+   * K6's backward (two launches: the key-tile pass and the dC pass) at
+     the training shape (B 4, NC 8, L 256) and at L 64: dx row by row,
+     ddt, dcum, dB and dC by norm, two runs bit-identical, two planted
+     faults (dB without the diagonal key tile, dcum without its row part);
+     timed at both shapes, launch by launch too, beside its plain version
+     and both bounds; K2's backward again at mamba2-130m's width (d 768,
+     8,192 rows), bf16 and f32, and K2's forward timed there;
 4. serving — qwen2.5-3b at full width (36 layers, random weights from
    ``--seed``) through ``ContinuousBatcher(cache="paged", chunk_size=64,
    token_budget=256)``, unpacked then packed, 8 requests of 128-512 prompt
@@ -111,6 +113,10 @@ input copy is skipped, must fail the stream check.
    lr 1e-2: round losses and every leaf's update on the card (kernels,
    bf16) within a stated tolerance of the CPU's (plain versions, f32), and
    a planted K1 fault (the scale's sign flipped for one leaf) outside it;
+   then mamba2-130m at ``M_LSGD_LAYERS`` (24, its full depth) through the
+   same run, eager then graphed, with the same checks but the parity (the
+   local steps run K6 forward and backward, the post-step losses K6's
+   forward);
 8. checkpoints — a 2-layer full-width qwen through ``train`` (2 workers x
    2 micro-batches, AdamW, DropCompute with the online controller, the
    badnode scenario): run A saves at step 1, run B resumes from it; B's
@@ -133,7 +139,9 @@ input copy is skipped, must fail the stream check.
    larger of ``GRAPH_LEAF_GAP`` and ``DP_ORDER_FACTOR`` times the gap the
    one-rank run itself shows with its sums in the reverse order; each rank's step wall,
    All-Reduce seconds and peak memory printed; then a planted fault (rank 1
-   skips one kept micro-batch) that the same check must reject;
+   skips one kept micro-batch) that the same check must reject; then the
+   same two-rank run and check for mamba2-130m at ``M_DP_LAYERS`` (24, its
+   full depth; two replicas fit), without the planted fault;
 10. Mamba-2 training — mamba2-130m at 24 layers (random weights from
    ``--seed``, f32 master, bf16 compute copy, remat) through ``train``: the
    training phase's 4 workers x 2 micro-batches, each of 4 packed
@@ -360,6 +368,10 @@ CKPT_LAYERS, CKPT_WORKERS, CKPT_MB, CKPT_STEPS, CKPT_AT = 2, 2, 2, 3, 1
 # 4 layers so that two replicas fit on it; each rank's training pool is
 # reckoned at 6 GiB (PERF.md); the spawned group's time limit
 DP_LAYERS, DP_RANKS, DP_POOL_GIB, DP_TIMEOUT_S = 4, 2, 6.0, 600
+# mamba2-130m through phases 7 and 9b (its micro-batches one 2048-token
+# sequence, as qwen's there): the full depth in both; a 9b rank's training
+# pool reckoned from phase 10's (6.28 GB at 8,192 tokens a micro-batch)
+M_LSGD_LAYERS, M_DP_LAYERS, M_DP_POOL_GIB = 24, 24, 3.0
 # 9b's final leaves against one rank's differ only by the order of the f32
 # sums (each rank sums its own blocks, then the two sums are added), which
 # GRAPH_LEAF_GAP covers for a leaf whose gradient is well conditioned.  A
@@ -486,16 +498,17 @@ def ptxas_lines(source: str, names: str = r"attn_[a-z_]+"):
 
 
 def ssd_build_lines():
-    """One line per SSD kernel instance (K6 / K5 / the K6 backward's column
-    pass, heads a CTA): ptxas's registers and spills, and the dynamic shared
-    memory and CTAs an SM the runtime counts for it; then the K6 backward's
-    other three kernels."""
+    """One line per SSD kernel instance (K6 / K5, heads a CTA): ptxas's
+    registers and spills, and the dynamic shared memory and CTAs an SM the
+    runtime counts for it; then the same for the K6 backward's two
+    kernels."""
     import re
 
     inst = re.compile(r"(ssd_[a-z]+_kernel)ILi\d+ELi\d+ELi(\d)E")
+    bwd = re.compile(r"ssd_bwd_([a-z]+)_kernel")
     out, name, spills = [], None, (0, 0)
     for line in _build.ptxas_report(ssd_chunk.SOURCE).splitlines():
-        m = inst.search(line)
+        m = inst.search(line) or bwd.search(line)
         if "Compiling entry function" in line and m:
             name = m.groups()
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -503,13 +516,17 @@ def ssd_build_lines():
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            kernel, hg = name
-            ctas, smem = ssd_chunk.occupancy(int(hg), kernel[4:-7])
-            out.append(f"{kernel} heads {hg}: {m.group(1)} registers, spill "
-                       f"stores {spills[0]} B, loads {spills[1]} B, {smem} B dynamic shared "
-                       f"memory, {ctas} CTAs an SM")
+            if len(name) == 2:
+                kernel, hg = name
+                ctas, smem = ssd_chunk.occupancy(int(hg), kernel[4:-7])
+                what = f"{kernel} heads {hg}"
+            else:
+                ctas, smem = ssd_chunk.bwd_occupancy(name[0], M_H)
+                what = f"ssd_bwd_{name[0]}_kernel ({M_H} heads)"
+            out.append(f"{what}: {m.group(1)} registers, spill stores {spills[0]} B, loads "
+                       f"{spills[1]} B, {smem} B dynamic shared memory, {ctas} CTAs an SM")
             name = None
-    return out + ptxas_lines(ssd_chunk.SOURCE, r"ssd_bwd_[a-z]+_kernel")
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -763,11 +780,13 @@ def k2_checks(rng, d=2048, eps=1e-6):
 
 def k2_timing(rng, d=2048, eps=1e-6):
     """At the main paths' shapes: a decode step (8 rows), the packed mixed
-    step (257 rows) and a training micro-batch (2048 rows), bf16 model
-    mode."""
+    step (257 rows) and a training micro-batch (2048 rows) of qwen2.5-3b's
+    width ``d``, and a Mamba-2 training micro-batch (8,192 rows of 768),
+    bf16 model mode."""
     rows_out = {}
-    s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV)
-    for shape, rows in (("decode", SLOTS), ("mixed", BUDGET + 1), ("train", TRAIN_SEQ)):
+    for shape, rows, d in (("decode", SLOTS, d), ("mixed", BUDGET + 1, d), ("train", TRAIN_SEQ, d),
+                           ("mamba_train", M_TRAIN_SEQS * TRAIN_SEQ, 768)):
+        s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV)
         x = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(DEV, torch.bfloat16)
         kern = time_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True))
         plain = time_ms(lambda: ref.rmsnorm_model(x, s, eps))
@@ -777,7 +796,7 @@ def k2_timing(rng, d=2048, eps=1e-6):
         b, by = bound_ms(nbytes, 4.0 * x.numel())
         rows_out[shape] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=b,
                                bound_by=by, rows=rows)
-        log(f"K2 time {shape:6s} rows={rows:3d}: kernel {kern * 1e3:.1f} us, plain "
+        log(f"K2 time {shape:6s} rows={rows:3d} d={d}: kernel {kern * 1e3:.1f} us, plain "
             f"{plain * 1e3:.1f} us, F.rms_norm {lib * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by})")
     return rows_out
 
@@ -1321,7 +1340,7 @@ def k6_bwd_checks(rng):
         log(f"{tag}: " + ", ".join(f"{k} {e:.2e}" for k, e in zip(names, errs))
             + f" (dx row by row, the rest by norm; two runs bit-identical); planted faults: "
             f"dB without the diagonal {ssd_chunk.ROW_TILE}-key tile {bad_db:.2e}, dcum without "
-            f"its row part {bad_dcum:.2e}; scratch {ssd_chunk.scratch_bytes(bs * nc, l, M_H) / 1e6:.1f} MB")
+            f"its row part {bad_dcum:.2e}; scratch {ssd_chunk.scratch_bytes(bs * nc, l) / 1e6:.1f} MB")
         check(max(errs) <= SSD_BWD_TOL, f"{tag}: errors {errs} against {SSD_BWD_TOL}")
         check(min(bad_db, bad_dcum) > SSD_BWD_TOL,
               f"{tag}: the metrics let a planted fault pass: dB {bad_db}, dcum {bad_dcum}")
@@ -1338,19 +1357,31 @@ def ssd_bwd_cost(bs, nc, l, tensors):
     return nbytes, 2.0 * pairs * (3 * M_N + 2 * M_P * M_H)
 
 
+# the backward's launches, in order: kernel names in ssd_chunk.cu
+K6_BWD_KERNELS = {"keys": "ssd_bwd_keys_kernel", "dc": "ssd_bwd_dc_kernel"}
+
+
 def k6_bwd_timing(rng):
-    """K6's backward at the training shape: kernel (its four launches in one
-    graph), plain version, both bounds."""
-    bs, nc, l = 4, 8, 256
-    a, y, dy = ssd_bwd_scenario(rng, bs, nc, l)
-    kern = time_ms(lambda: ssd_chunk.ssd_chunk_bwd(*a, y, dy))
-    plain = time_ms(lambda: ref.ssd_chunk_bwd_ref(*a, dy), iters=5)
-    outs = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
-    nbytes, flops = ssd_bwd_cost(bs, nc, l, [*a, y, dy, *outs])
-    b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
-    log(f"K6 bwd time B={bs} NC={nc} L={l}: kernel {kern * 1e3:.1f} us, plain "
-        f"{plain * 1e3:.1f} us, {ssd_bounds(nbytes, flops)}")
-    return dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+    """K6's backward at the training shape (B 4, NC 8, L 256) and at L 64:
+    kernel (its launches in one graph), each launch's device time
+    (profiler), plain version, both bounds.  Returns the training shape's
+    record."""
+    rows = {}
+    for bs, nc, l in ((4, 8, 256), (4, 8, 64)):
+        a, y, dy = ssd_bwd_scenario(rng, bs, nc, l)
+        kern = time_ms(lambda: ssd_chunk.ssd_chunk_bwd(*a, y, dy))
+        parts = kernel_split_ms(lambda: ssd_chunk.ssd_chunk_bwd(*a, y, dy), K6_BWD_KERNELS)
+        plain = time_ms(lambda: ref.ssd_chunk_bwd_ref(*a, dy), iters=5)
+        outs = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
+        nbytes, flops = ssd_bwd_cost(bs, nc, l, [*a, y, dy, *outs])
+        b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
+        split = ", ".join(f"{n} {t * 1e3:.1f}" for n, t in parts.items())
+        log(f"K6 bwd time B={bs} NC={nc} L={l}: kernel {kern * 1e3:.1f} us (device time by "
+            f"launch, profiler: {split} us), plain {plain * 1e3:.1f} us, "
+            f"{ssd_bounds(nbytes, flops)}; scratch {ssd_chunk.scratch_bytes(bs * nc, l) / 1e6:.1f} MB")
+        rows[l] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+        del a, y, dy, outs
+    return rows[256]
 
 
 # ---------------------------------------------------------------------------
@@ -2092,11 +2123,13 @@ def localsgd_launches(cfg, n_leaves: int, kept: int, dropped: int) -> dict:
     """What the code implies: a kept local step is a kept micro-batch's
     launches (``launches_per_microbatch``: forward under remat, backward,
     one K1 add a leaf into W) plus the post-step loss's forward (a
-    forward-only pass: one attention and two RMSNorms a layer, one more
-    RMSNorm); a dropped step is that forward alone; each worker adds W
-    into S once, one K1 launch a leaf."""
-    n = cfg.n_layers
-    fwd = {"flash_attention": n, "rmsnorm": 2 * n + 1}
+    forward-only pass: per attention layer one attention and two RMSNorms,
+    per 'M' layer one K6 and one RMSNorm, one more RMSNorm); a dropped step
+    is that forward alone; each worker adds W into S once, one K1 launch a
+    leaf."""
+    n_a = sum(1 for k in cfg.pattern if k in "GL")
+    n_m = sum(1 for k in cfg.pattern if k == "M")
+    fwd = {"flash_attention": n_a, "rmsnorm": 2 * n_a + n_m + 1, "ssd_chunk": n_m}
     per_kept = launches_per_microbatch(cfg, n_leaves)
     out = {k: kept * v + (kept + dropped) * fwd.get(k, 0) for k, v in per_kept.items()}
     out["masked_accum"] += n_leaves * LSGD_WORKERS * LSGD_ROUNDS
@@ -2104,10 +2137,11 @@ def localsgd_launches(cfg, n_leaves: int, kept: int, dropped: int) -> dict:
 
 
 def localsgd_phase(cfg, seed: int):
-    """qwen2.5-3b at 36 layers, eager then graphed (the counters' window):
-    finite round losses, graphed equal to eager (losses and final
-    parameters), the launches the code implies, device ms of each kept and
-    dropped local step, the allocated peak."""
+    """``cfg`` (qwen2.5-3b at 36 layers; mamba2-130m at ``M_LSGD_LAYERS``),
+    eager then graphed (the counters' window): finite round losses, graphed
+    equal to eager (losses and final parameters), the launches the code
+    implies, device ms of each kept and dropped local step, the allocated
+    peak."""
     mask_seed, keep = localsgd_keep(seed)
     kept, dropped = int(keep.sum()), int(keep.size - keep.sum())
     log(f"localsgd: keep mask from seed {mask_seed} (single-server scenario, tau "
@@ -2129,14 +2163,14 @@ def localsgd_phase(cfg, seed: int):
         check(counts == want, f"localsgd {tag} launches {counts}, the code implies {want}")
         kept_ms = [round(ms, 1) for rnd in steps for k, ms in rnd if k]
         drop_ms = [round(ms, 1) for rnd in steps for k, ms in rnd if not k]
-        log(f"localsgd {tag} qwen2.5-3b: {cfg.n_layers} layers, seq {TRAIN_SEQ}, "
+        log(f"localsgd {tag} {cfg.name}: {cfg.n_layers} layers, seq {TRAIN_SEQ}, "
             f"{LSGD_WORKERS} workers x {LSGD_H} local steps x {LSGD_ROUNDS} rounds, lr "
             f"{LSGD_LR}: round losses {losses}; round wall s {[round(w, 3) for w in walls]}")
         log(f"localsgd {tag}: device ms a kept local step {kept_ms}, a dropped step {drop_ms} "
             f"(round by round, worker by worker); allocated peak {peak:.2f} GiB"
             + ("" if eager else f"; {graph_line(state)}"))
-        log(f"localsgd {tag} launches: {counts} (K1: {len(names)} a kept step, 0 a dropped "
-            f"step, {len(names)} a worker for S += W)")
+        log(f"localsgd {tag} {cfg.name} launches: {counts} (K1: {len(names)} a kept step, 0 a "
+            f"dropped step, {len(names)} a worker for S += W)")
         runs[tag] = (losses, [x.cpu() for x in tree_leaves(params)])
         if not eager:  # a replay of each graph alone: the run's first calls captured them
             log(f"localsgd graphed, each step's graph replayed alone (device ms, median of 5): "
@@ -2145,11 +2179,11 @@ def localsgd_phase(cfg, seed: int):
         del params, state
         free_device()
     (got, got_p), (want_l, want_p) = runs["graphed"], runs["eager"]
-    log(f"localsgd: graphed vs eager round losses "
+    log(f"localsgd {cfg.name}: graphed vs eager round losses "
         f"{'bit-identical' if got == want_l else 'differ'}: {got} / {want_l}")
     for g, w in zip(got, want_l):
         check(g == w or abs(g - w) < GRAPH_LEAF_GAP * abs(w), f"localsgd: loss {g} / {w}")
-    check_gaps("localsgd: final parameters", leaf_gaps(names, got_p, want_p))
+    check_gaps(f"localsgd {cfg.name}: final parameters", leaf_gaps(names, got_p, want_p))
     return counts, mask_seed, keep
 
 
@@ -2321,11 +2355,11 @@ def dp_nccl_phase(cfg, seed: int, graphed):
     return counts
 
 
-def dp_tau(cfg, seed: int):
+def dp_tau(cfg, seed: int, seqs: int = 1):
     """(tau, masks) for 9b: the training phase's tau (the median of the
     workers' latency sums) unless some rank then drops nothing in the run;
     else the first of a few other quantiles under which every rank drops."""
-    _, latency, _, _ = train_setup(cfg, seed)
+    _, latency, _, _ = train_setup(cfg, seed, seqs)
     draws = np.stack([latency.sample_at(step, TRAIN_WORKERS, TRAIN_MB, seed=seed + 1)
                       for step in range(TRAIN_STEPS)])
     per = TRAIN_WORKERS // DP_RANKS
@@ -2338,15 +2372,16 @@ def dp_tau(cfg, seed: int):
     raise SmokeFailure("no tau drops a micro-batch on every rank")
 
 
-def dp_rank_bytes(cfg) -> dict:
+def dp_rank_bytes(cfg, pool_gib: float) -> dict:
     """A 9b rank's device memory, reckoned: the f32 master, AdamW's m and v,
     the f32 accumulator, the bf16 compute copy (the embedding stays the
-    master) and the training pool of a 4-layer model (``DP_POOL_GIB``)."""
+    master) and the training pool (``DP_POOL_GIB`` for qwen's 4 layers,
+    ``M_DP_POOL_GIB`` for mamba2-130m)."""
     named = named_leaves(init_params(cfg, seed=0, device="meta"))
     p = sum(x.numel() for _, x in named)
     body = sum(x.numel() for k, x in named if not k.startswith("/embed/"))
     return {"f32 master": 4 * p, "AdamW m and v": 8 * p, "accumulator": 4 * p,
-            "bf16 compute copy": 2 * body, "training pool": int(DP_POOL_GIB * 2**30)}
+            "bf16 compute copy": 2 * body, "training pool": int(pool_gib * 2**30)}
 
 
 def skip_first_kept_microbatch() -> None:
@@ -2364,7 +2399,8 @@ def skip_first_kept_microbatch() -> None:
     Accumulator.add = add
 
 
-def dp_rank(rank: int, world: int, cfg, seed: int, tau: float, plant: bool) -> dict:
+def dp_rank(rank: int, world: int, cfg, seed: int, tau: float, plant: bool,
+            seqs: int = 1) -> dict:
     """One 9b rank (a spawned process on GPU 0, gloo): the training phase's
     run at ``cfg``'s depth with ``mesh`` the 2-rank gloo group; returns its
     readings, whether its final replica equals rank 0's (a broadcast of each
@@ -2375,7 +2411,7 @@ def dp_rank(rank: int, world: int, cfg, seed: int, tau: float, plant: bool) -> d
     dev = f"{DEV}:0"
     mesh = Distribution.from_spec(str(world), device=dev, backend="gloo")
     params = init_params(cfg, seed=seed, device=dev)
-    data, latency, _, _ = train_setup(cfg, seed)
+    data, latency, _, _ = train_setup(cfg, seed, seqs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2453,17 +2489,21 @@ def dp_check(got, one, masks, per_mb: dict, names, order_gaps: dict) -> None:
           f"its limit {limits[worst]}")
 
 
-def dp_gloo_phase(cfg, seed: int) -> None:
-    """9b: qwen2.5-3b's widths at ``DP_LAYERS`` layers, the training phase's
-    data and latencies (2 workers a rank x 2 micro-batches, 3 steps) on two
-    gloo ranks sharing the card, against 9a's code at the same depth on one
-    rank; then the same with a planted fault (rank 1 skips one kept
-    micro-batch), which ``dp_check`` must reject."""
-    small = dataclasses.replace(cfg, n_layers=DP_LAYERS)
+def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS, pool_gib: float = DP_POOL_GIB,
+                  with_fault: bool = True) -> None:
+    """9b: ``cfg``'s widths at ``layers`` layers (qwen2.5-3b at
+    ``DP_LAYERS``; mamba2-130m at ``M_DP_LAYERS``), the training phase's
+    data and latencies (2 workers a rank x 2 micro-batches of one 2048-token
+    sequence, 3 steps) on two gloo ranks sharing the card, against 9a's code
+    at the same depth on one rank; then (``with_fault``) the same with a planted
+    fault (rank 1 skips one kept micro-batch), which ``dp_check`` must
+    reject."""
+    small = dataclasses.replace(cfg, n_layers=layers)
     tau, masks = dp_tau(cfg, seed)
     mode_line = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                                capture_output=True, text=True, check=True).stdout.strip()
-    log(f"dp 9b: compute mode {mode_line}; tau {tau:.4f} s, masks {[k.tolist() for k in masks]}")
+    log(f"dp 9b {cfg.name}: compute mode {mode_line}; tau {tau:.4f} s, masks "
+        f"{[k.tolist() for k in masks]}")
     check(mode_line.splitlines()[0] == "Default",
           f"two processes on one card need compute mode Default, not {mode_line}")
     runs = {}
@@ -2474,7 +2514,7 @@ def dp_gloo_phase(cfg, seed: int) -> None:
         runs[order] = {"losses": res.losses, "drop_fractions": res.drop_fractions,
                        "tau_trajectory": res.tau_trajectory,
                        "leaves": [x.cpu() for x in tree_leaves(params)]}
-        log(f"dp 9b one rank ({order} order of the sums), {DP_LAYERS} layers "
+        log(f"dp 9b {cfg.name} one rank ({order} order of the sums), {layers} layers "
             f"({small.param_count()} parameters): losses {res.losses}, drop fractions "
             f"{res.drop_fractions}; step wall s {[round(x, 3) for x in res.metrics['step_s']]}; "
             f"peak {peak1:.2f} GiB; {wall1:.1f} s")
@@ -2484,7 +2524,7 @@ def dp_gloo_phase(cfg, seed: int) -> None:
     one = runs["sound"]
     order_gaps = leaf_gaps(names, runs["reversed"]["leaves"], one["leaves"])
     del runs
-    reckon = dp_rank_bytes(small)
+    reckon = dp_rank_bytes(small, pool_gib)
     free, total = torch.cuda.mem_get_info()
     parts = ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in reckon.items())
     log(f"dp 9b rank memory, reckoned: {parts}; total {sum(reckon.values()) / 2**30:.2f} GiB a "
@@ -2494,12 +2534,13 @@ def dp_gloo_phase(cfg, seed: int) -> None:
     per_mb = launches_per_microbatch(small, len(names))
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
-    for plant in (False, True):
+    for plant in (False, True)[:1 + with_fault]:
         t0 = time.perf_counter()
         got = procs.spawn(dp_rank, DP_RANKS, backend="gloo", device=f"{DEV}:0",
                           timeout_s=DP_TIMEOUT_S, workdir=root, args=(small, seed, tau, plant))
         spawn_s = time.perf_counter() - t0
-        tag = "planted fault (rank 1 skips one kept micro-batch)" if plant else "sound"
+        tag = (f"{cfg.name} planted fault (rank 1 skips one kept micro-batch)" if plant
+               else f"{cfg.name} sound")
         for r, g in enumerate(got):
             log(f"dp 9b {tag}, rank {r}: losses {g['losses']}, drops {g['drop_fractions']}; "
                 f"step wall s {[round(x, 3) for x in g['step_s']]}; all-reduce s "
@@ -2784,10 +2825,15 @@ def main() -> int:
     parity_phase(cfg, args.seed)
     free_device()
 
-    # 7. Local-SGD at full depth, then the 2-layer card-vs-CPU check
+    # 7. Local-SGD at full depth, then the 2-layer card-vs-CPU check; then
+    # mamba2-130m through the same path (K6's backward in the local steps)
     localsgd_counts, _, keep = localsgd_phase(cfg, args.seed)
     free_device()
     localsgd_parity(cfg, args.seed, keep)
+    free_device()
+    mcfg = get_config("mamba2_130m")
+    m_localsgd_counts, _, _ = localsgd_phase(
+        dataclasses.replace(mcfg, n_layers=M_LSGD_LAYERS), args.seed)
     free_device()
 
     # 8. checkpoints: save, resume, and the uninterrupted run
@@ -2800,6 +2846,8 @@ def main() -> int:
     free_device()
     dp_gloo_phase(cfg, args.seed)
     free_device()
+    dp_gloo_phase(mcfg, args.seed, layers=M_DP_LAYERS, pool_gib=M_DP_POOL_GIB, with_fault=False)
+    free_device()
 
     # 10. Mamba-2 training at full depth, its step-0 gradient, then the 2-layer
     # card-vs-CPU gradient parity
@@ -2809,7 +2857,8 @@ def main() -> int:
     free_device()
     mamba_train_parity(args.seed)
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
-                + dp_counts[k] + mamba_train_counts[k] for k in serve_counts}
+                + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k]
+                for k in serve_counts}
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was launched no time on the main paths")
 
@@ -2857,8 +2906,9 @@ def main() -> int:
     ]
     log(f"K2 bwd at d 768 (8,192 rows): max abs err {k2b768_err:.3e}, {k2b768_t}")
     log(f"launches, qwen serving: {serve_counts}; mamba serving: {mamba_counts}; "
-        f"training: {train_counts}; Local-SGD: {localsgd_counts}; data parallel (9a): "
-        f"{dp_counts}; Mamba-2 training: {mamba_train_counts}")
+        f"training: {train_counts}; Local-SGD: {localsgd_counts}; Mamba-2 Local-SGD: "
+        f"{m_localsgd_counts}; data parallel (9a): {dp_counts}; Mamba-2 training: "
+        f"{mamba_train_counts}")
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

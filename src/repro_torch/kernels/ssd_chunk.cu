@@ -66,24 +66,62 @@
 //     flash attention's "delta" trick, so no pass sums g by rows);
 //   dS_ij = sum_h (dy_i . x_j) e_ij dt_j over every head (B and C are one
 //     group), dC_i = sum_j dS_ij B_j, dB_j = sum_i dS_ij C_i.
-// Four launches, no atomics, so two runs are bit-identical:
-//   * column pass: ssd_tile in kColumn mode, the forward's CTA with the roles
-//     of queries and keys swapped (its rows are 16 keys j and HG heads, its
-//     key tiles the query tiles i >= j, staged "C" rows = B_j, streamed "B"
-//     rows = C_i, streamed "x" = dy, no dt factor, decay exp(cum_j - cum_i));
-//     S = B_j . C_i in f32 FMA in the forward's order, u in 3xTF32 mma.sync;
-//     it writes u where dx goes;
-//   * ds pass: per (query tile, chunk, split of the heads) dS over the
-//     split's heads in f32 FMA, into an (splits, G, L, L) scratch;
-//   * bc pass: per (16-row tile, chunk) dC (kind 0) or dB (kind 1) from the
-//     scratch summed over the splits in order, f32 FMA;
-//   * finish pass: a warp a (row, head): ddt, dcum, and dx = dt u in place.
-// Bound: per admissible pair 2N flops for S, 2N each for dB and dC, and per
-// head 2P for u and 2P for q = dy . x: about twice the forward's operations,
-// against reading x, dt, cum, B, C, dy, y once and writing the five
-// gradients once.  This first version is simple: the ds pass reloads x per
-// (head, key tile) and keeps its sums in shared memory, and the finish pass
-// re-reads u, x, dy and y from memory.
+// Bound: per admissible pair 2N flops each for S, dB and dC, and per head 2P
+// each for u and q = dy . x, against reading x, dt, cum, B, C, dy, y once
+// and writing the five gradients once.  At the training shape (32 chunks of
+// 256, 24 heads) u and q are 89% of the operations: all of it on the FMA
+// pipes takes ~109 us; u and q in 3xTF32 on the tensor cores take ~39 us,
+// below the ~66 us its bytes take.  What an unfused design loses is the
+// round trips: u and dS per head through memory, dy, x and C reloaded per
+// pass.
+// Design: two launches, no atomics, so two runs are bit-identical.
+//   * the key-tile pass (ssd_bwd_keys_kernel), in the shape of flash
+//     attention's dK/dV pass: a CTA of 4 warps owns one 16-key tile j of
+//     one chunk and every head; blockIdx.x runs the key tiles from the first
+//     (the most query tiles) to the last (ssd_chunk.py's SsdBwdPlan).
+//     - phase 0: S_ij = C_i . B_j for every query tile i >= j, once for all
+//       heads, in f32 on the FMA pipes summed in order over the state (the
+//       forward's S, bit for bit; 2 keys x 2 queries a thread), pairs of C
+//       tiles through a cp.async ring; S of the whole key column (16 x L)
+//       stays in shared memory in the mma's fragment order, and so does dS,
+//       zeroed; dt of the CTA's 16 rows for every head.
+//     - phase 1, per head in order: warp w walks the query tiles j + w,
+//       j + w + 4, ... (the heads-per-warp mapping would need u of 24
+//       heads, 96 KB, in registers; splitting the query tiles over the warps
+//       needs one head's u, 32 floats a lane), each tile's dy rows and cum
+//       through the warp's own 2-stage cp.async ring, so no barrier stops a
+//       warp inside a head.  Per tile: e_ij = exp(cum_j - cum_i) (__expf of
+//       the difference, -inf past the diagonal: a select, no branch); u_j +=
+//       (S_ij e_ij)^T dy_i and q^T = x_j dy_i^T on the tensor cores,
+//       mma.sync m16n8k8 TF32 in 3xTF32 (operands split by truncation, the
+//       small terms first; inside a k-step the queries or head-dim columns
+//       are permuted so that an accumulator fragment is the next product's
+//       A fragment and x_j's fragments are split once a head); q^T's
+//       fragment lands on the lane's own elements of S, so dS_ij += q_ij
+//       e_ij dt_j is a read-modify-write of shared memory no other lane
+//       touches, the heads summed in order.  A head's rows of x_j, dy_j and
+//       y_j and its cum_j, dt_j come in through a double-buffered slot
+//       loaded a head ahead.  At the end of a head the four warps' u
+//       partials are summed in order in shared memory and each warp writes
+//       dx = dt u for 16 head-dim columns and its partials of ddt = x . u
+//       and dy . y; ddt and dcum = dt ddt - dy . y of the head's 16 rows are
+//       finished after the next head's first barrier (two barriers a head).
+//       u never goes to memory.
+//     - phase 2: dS of the key column into the (G, L, L) f32 scratch (the
+//       blocks at or below the diagonal), and dB_j = sum_i dS_ij^T C_i on
+//       the tensor cores (3xTF32, dS^T's fragments straight from its
+//       fragment order), C through the ring again.
+//   * the dC pass (ssd_bwd_dc_kernel): per (16-row query tile, chunk), dC_i
+//     = sum_{j<=i} dS_ij B_j from the scratch in 3xTF32 mma.sync, each key
+//     tile's 16 x 16 block of dS and B_j through a cp.async ring.
+// The key-tile CTA takes 111 KB of shared memory at 24 heads (S and dS of 16
+// tiles, 32 KB; two head slots, 26 KB; the warps' rings, 35 KB; the u
+// partials, 16 KB): two CTAs an SM, 8 warps.  What bounds it now is each
+// warp's chain of dependent mma.sync, exp and shared-memory steps within a
+// tile (96 mma.sync a tile and head, with the splits, exps and loads
+// between them), which two warps an SM sub-partition do not hide; wgmma
+// over 64-query blocks (u^T = dy^T P with dy^T from registers, q = dy x^T
+// from shared memory) is the next step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -210,13 +248,12 @@ __device__ int segment_start(const int* __restrict__ seg, int row0, int L, int l
   return 0;
 }
 
-// What a CTA of ssd_tile computes (see the header): K6's forward, K5's, or
-// the column pass of K6's backward.
-enum Mode { kChunk = 0, kSegment = 1, kColumn = 2 };
+// What a CTA of ssd_tile computes (see the header): K6's forward or K5's.
+enum Mode { kChunk = 0, kSegment = 1 };
 
 template <int N, int P, int HG, int MODE>
 __device__ __forceinline__ void ssd_tile(const Args& a) {
-  constexpr bool SEGMENT = MODE == kSegment, COLUMN = MODE == kColumn;
+  constexpr bool SEGMENT = MODE == kSegment;
   using S = Smem<N, P, HG>;
   constexpr int WS = kWarps / HG;  // warps on one head, each a slice of P
   constexpr int NT = P / 8 / WS;   // the mma's 8-column tiles of P a warp holds
@@ -227,13 +264,12 @@ __device__ __forceinline__ void ssd_tile(const Args& a) {
 
   const int L = a.L, H = a.H;
   // blockIdx.x -> (row tile, chunk, head group), the row tile with the most
-  // key tiles first: the last for the forward (ssd_chunk.py's SsdPlan.work
-  // is the same map), the first for the column pass
+  // key tiles first: the last (ssd_chunk.py's SsdPlan.work is the same map)
   const int groups = (H + HG - 1) / HG;
   const int tiles = (L + kRows - 1) / kRows;
   const int per_tile = a.G * groups;
   const int bid = blockIdx.x;
-  const int qt = COLUMN ? bid / per_tile : tiles - 1 - bid / per_tile;
+  const int qt = tiles - 1 - bid / per_tile;
   const int g = (bid % per_tile) / groups;
   const int h0 = (bid % groups) * HG;
 
@@ -308,10 +344,9 @@ __device__ __forceinline__ void ssd_tile(const Args& a) {
     for (int e = 0; e < 4; ++e) acc[pt][e] = 0.f;
 
   // key tiles [lo, hi]: from the first the tile admits to its diagonal
-  // (rows and key tiles are both 16 wide), for the column pass from the
-  // diagonal to the last; the same in every warp
-  const int hi = COLUMN ? tiles - 1 : qt;
-  int lo = COLUMN ? qt : 0;
+  // (rows and key tiles are both 16 wide); the same in every warp
+  const int hi = qt;
+  int lo = 0;
   if (SEGMENT) {
     const int j = segment_start(a.seg, row0, L, lane);
     lo = j < 0 ? hi + 1 : j / kKeys;
@@ -363,19 +398,14 @@ __device__ __forceinline__ void ssd_tile(const Args& a) {
       for (int e = 0; e < 4; ++e) {
         const float s = frag[(nt * 4 + e) * 32 + lane];
         const int i = e < 2 ? ra : rb, jl = nt * 8 + 2 * tig + (e & 1);
-        // the column pass's rows are keys and its key tiles queries: a pair
-        // is admitted when the query comes at or after the key
-        bool ok = (COLUMN ? j0 + jl >= i && j0 + jl < L : j0 + jl <= i) && i < L;
+        bool ok = j0 + jl <= i && i < L;
         if (SEGMENT) {
           const int si = e < 2 ? sqa : sqb;
           ok = ok && si >= 0 && reinterpret_cast<const int*>(st + S::seg)[jl] == si;
         }
         const float ck = sCum[jl * HG + hh], dk = sDt[jl * HG + hh];
         const float cq = e < 2 ? cqa : cqb;
-        if (COLUMN)
-          v[e] = ok ? s * expf(cq - ck) : 0.f;
-        else
-          v[e] = ok ? s * expf(ck - cq) * dk : 0.f;
+        v[e] = ok ? s * expf(ck - cq) * dk : 0.f;
       }
       // A fragment (row, k): (gid, t) = key 2t -> v[0], (gid + 8, t) -> v[2],
       // (gid, t + 4) = key 2t + 1 -> v[1], (gid + 8, t + 4) -> v[3]
@@ -420,18 +450,11 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_segment_kernel(Args a) {
   ssd_tile<N, P, HG, kSegment>(a);
 }
 
-template <int N, int P, int HG>
-__global__ void __launch_bounds__(kThreads, 2) ssd_column_kernel(Args a) {
-  ssd_tile<N, P, HG, kColumn>(a);
-}
-
 // The kernel instance, with its dynamic shared memory allowed, and its size.
 template <int N, int P, int HG>
 cudaError_t prepare(int mode, void (**kernel)(Args), size_t* bytes) {
   *bytes = Smem<N, P, HG>::floats * sizeof(float);
-  *kernel = mode == kSegment  ? ssd_segment_kernel<N, P, HG>
-            : mode == kColumn ? ssd_column_kernel<N, P, HG>
-                              : ssd_chunk_kernel<N, P, HG>;
+  *kernel = mode == kSegment ? ssd_segment_kernel<N, P, HG> : ssd_chunk_kernel<N, P, HG>;
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*bytes));
 }
@@ -440,7 +463,7 @@ cudaError_t prepare(int mode, void (**kernel)(Args), size_t* bytes) {
 // Another config adds its instances here and its (N, P) to BUILT in
 // ssd_chunk.py.
 cudaError_t prepare(int heads_per_cta, int mode, void (**kernel)(Args), size_t* bytes) {
-  if (mode != kChunk && mode != kSegment && mode != kColumn) return cudaErrorInvalidValue;
+  if (mode != kChunk && mode != kSegment) return cudaErrorInvalidValue;
   switch (heads_per_cta) {
     case 1: return prepare<128, 64, 1>(mode, kernel, bytes);
     case 2: return prepare<128, 64, 2>(mode, kernel, bytes);
@@ -450,9 +473,13 @@ cudaError_t prepare(int heads_per_cta, int mode, void (**kernel)(Args), size_t* 
 }
 
 // ---------------------------------------------------------------------------
-// K6's backward: the ds, bc and finish passes (the column pass is ssd_tile's
-// kColumn mode above)
+// K6's backward: the key-tile pass and the dC pass (see the header)
 // ---------------------------------------------------------------------------
+
+constexpr int kBwdMaxTiles = 16;  // 16-row tiles of the longest chunk the backward takes
+constexpr int kPairStages = 2;    // pairs of C tiles in the key-tile pass's phase 0 / 2 ring
+constexpr int kDcStages = 4;      // key tiles in the dC pass's ring
+constexpr int kWarpStages = 2;    // dy tiles in each warp's ring in the key-tile pass
 
 struct BwdArgs {
   const float* x;
@@ -462,190 +489,503 @@ struct BwdArgs {
   const float* c;
   const float* dy;
   const float* y;
-  float* dx;   // u from the column pass on entry to the finish pass; dx after it
+  float* dx;
   float* ddt;
   float* dcum;
   float* db;
   float* dc;
-  float* ds;   // scratch (splits, G, L, L): each split's dS, lower block triangle
-  int G, L, H, splits;
+  float* ds;  // scratch (G, L, L): dS summed over the heads, lower block triangle
+  int G, L, H;
 };
 
-// dS_ij over split s's heads: sum_h (dy_i[h] . x_j[h]) exp(cum_j[h] - cum_i[h])
-// dt_j[h] for j <= i.  A CTA is one 16-row query tile of one chunk and one
-// split of the heads; it walks its heads in order and, per head, the key
-// tiles from the first to its diagonal.  Thread t owns the elements (row
-// t / 8, keys t % 8 and t % 8 + 8) of every key tile, kept in shared memory
-// and summed over the heads in order (no other thread touches them), each
-// q a dot product over the head dim summed in order.  blockIdx.x -> (query
-// tile, chunk, split), the last query tile (the most key tiles) first.
-template <int P>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_ds_kernel(BwdArgs a) {
-  constexpr int kX = P + 4;
-  constexpr int kMaxL = 256;
-  __shared__ __align__(16) float dyS[kRows * kX];
-  __shared__ __align__(16) float xS[kKeys * kX];
-  __shared__ float cumI[kRows], cumJ[kKeys], dtJ[kKeys];
-  __shared__ float dS[kRows * kMaxL];
+// Where the pair (key k, query q) of a 16 x 16 tile sits in fragment order
+// ([element][lane]): the mma accumulator's (row k, column q), held by lane
+// 4 (k % 8) + (q % 8) / 2 as its element 4 (q / 8) + 2 (k / 8) + q % 2.
+__device__ __forceinline__ int frag_at(int k, int q) {
+  return (4 * (q >> 3) + 2 * (k >> 3) + (q & 1)) * 32 + 4 * (k & 7) + ((q & 7) >> 1);
+}
 
-  const int L = a.L, H = a.H, tiles = L / kRows;
-  const int per_tile = a.G * a.splits;
-  const int it = tiles - 1 - blockIdx.x / per_tile;
-  const int g = (blockIdx.x % per_tile) / a.splits;
-  const int s = blockIdx.x % a.splits;
-  const int per = (H + a.splits - 1) / a.splits;
-  const int h_lo = s * per, h_hi = min(H, h_lo + per);
+// v ~ hi + lo for the backward's 3xTF32 products, both TF32 by truncation:
+// the tensor cores read a TF32 operand's top 19 bits and ignore the rest
+// (CUTLASS's 3xTF32 passes its small part so), so hi is v itself and lo is
+// v less its top 19 bits (exact in f32), read to its own top 19.  Dropped:
+// below 2^-21 of v, as with `split`'s rounding, in two instructions.
+__device__ __forceinline__ void split_trunc(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v);
+  lo = __float_as_uint(v - __uint_as_float(hi & 0xffffe000u));
+}
 
-  const int tid = threadIdx.x, sr = tid / 8, sk = tid % 8;
-  const int i = it * kRows + sr;
-  const size_t gl = static_cast<size_t>(g) * L;
-  constexpr int kChP = P / 4;
-  for (int jt = 0; jt <= it; ++jt) {
-    dS[sr * kMaxL + jt * kKeys + sk] = 0.f;
-    dS[sr * kMaxL + jt * kKeys + sk + 8] = 0.f;
+// acc[nb] += A . Bm over one 16-deep block in 3xTF32: A 16 x 16 given as
+// its two k-steps' fragments (hi, lo), Bm 16 rows of row stride ld read in
+// the permuted k order (k = t <-> row 2t, t + 4 <-> row 2t + 1 of a
+// k-step); acc[nb] the accumulator of columns 8 (nb0 + nb) ... + 7.
+template <int NB>
+__device__ __forceinline__ void mma_rows(float (&acc)[NB][4], const uint32_t (&ah)[2][4],
+                                         const uint32_t (&al)[2][4], const float* bm, int ld,
+                                         int nb0, int gid, int tig) {
+#pragma unroll
+  for (int kt = 0; kt < 2; ++kt) {
+    const float* b0 = bm + (kt * 8 + 2 * tig) * ld;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int n = (nb0 + nb) * 8 + gid;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_trunc(b0[n], bh0, bl0);
+      split_trunc(b0[ld + n], bh1, bl1);
+      mma_3xtf32(acc[nb], ah[kt], al[kt], bh0, bh1, bl0, bl1);
+    }
   }
-  for (int h = h_lo; h < h_hi; ++h) {
-    for (int jt = 0; jt <= it; ++jt) {
-      __syncthreads();  // the last tile's reads are done
-      if (jt == 0) {
-        for (int e = tid; e < kRows * kChP; e += kThreads) {
-          const int r = e / kChP, ch = e % kChP;
-          *reinterpret_cast<float4*>(dyS + r * kX + ch * 4) = __ldg(
-              reinterpret_cast<const float4*>(a.dy + ((gl + it * kRows + r) * H + h) * P) + ch);
-        }
-        if (tid < kRows) cumI[tid] = __ldg(a.cum + (gl + it * kRows + tid) * H + h);
+}
+
+// The key-tile pass's shared memory, in floats: S and dS of every query
+// tile in fragment order, the ddt and dy . y partials of two heads, two
+// slots of a head's rows of x_j, dy_j and y_j with its cum_j and dt_j, then
+// one region used by phases 0 and 2 (B_j and a ring of pairs of C tiles)
+// and by phase 1 (each warp's ring of dy tiles with their cum, each warp's
+// u); then, sized by H, dt of the 16 rows for every head ([head][key]).
+template <int N, int P>
+struct BwdSmem {
+  static constexpr int kBC = N + 4;  // a B or C row (as the forward's)
+  static constexpr int kX = P + 4;   // a dy or x row: u's B fragment rows 2t, 2t + 1 conflict-free
+  static constexpr int kTile = kRows * kKeys;
+  static constexpr int slot = kRows * kX + kRows;  // a warp's ring slot: 16 dy rows, 16 cum
+  static constexpr int xslot = 3 * kKeys * kX + 2 * kKeys;  // x_j, dy_j, y_j rows, cum_j, dt_j
+  static constexpr int s = 0;
+  static constexpr int d = s + kBwdMaxTiles * kTile;
+  static constexpr int dd = d + kBwdMaxTiles * kTile;  // [head parity][ddt, dy.y][warp][key]
+  static constexpr int xb = dd + 2 * 2 * kWarps * kKeys;
+  static constexpr int region = xb + 2 * xslot;
+  static constexpr int bj = region;
+  static constexpr int cring = bj + kKeys * kBC;
+  static constexpr int phase02 = cring + kPairStages * 2 * kRows * kBC;
+  static constexpr int wring = region;
+  static constexpr int red = wring + kWarps * kWarpStages * slot;
+  static constexpr int phase1 = red + kWarps * kKeys * P;
+  static constexpr int dt = phase02 > phase1 ? phase02 : phase1;
+  static constexpr int floats(int H) { return dt + kKeys * H; }
+  static_assert(xb % 4 == 0 && xslot % 4 == 0 && region % 4 == 0 && cring % 4 == 0 &&
+                    slot % 4 == 0 && red % 4 == 0, "16-byte cp.async targets");
+};
+
+// One CTA: key tile jt of chunk g, every head (blockIdx.x -> (jt, g), the
+// first key tile, which has the most query tiles, first).
+template <int N, int P>
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_keys_kernel(BwdArgs a) {
+  static_assert(kWarps == 4 && P % 16 == 0 && N % 32 == 0, "tiles");
+  using S = BwdSmem<N, P>;
+  constexpr int kX = S::kX, kBC = S::kBC, NT = P / 8, kChN = N / 4, kChP = P / 4;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* sS = sm + S::s;
+  float* sD = sm + S::d;
+  float* dd = sm + S::dd;
+  float* sdt = sm + S::dt;
+  const int L = a.L, H = a.H, T = L / kRows;
+
+  const int jt = blockIdx.x / a.G, g = blockIdx.x % a.G;
+  const int tiles = T - jt;  // query tiles jt ... T - 1
+  const int pairs = (tiles + 1) / 2;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int j0 = jt * kKeys;
+  const size_t gl = static_cast<size_t>(g) * L;
+
+  // the rows of x_j, dy_j and y_j, cum_j and dt_j of head h into x slot h % 2
+  auto load_x = [&](int h) {
+    float* xs = sm + S::xb + (h & 1) * S::xslot;
+    for (int e = tid; e < 3 * kKeys * kChP; e += kThreads) {
+      const int w = e / (kKeys * kChP), r = (e / kChP) % kKeys, ch = e % kChP;
+      const float* src = w == 0 ? a.x : w == 1 ? a.dy : a.y;
+      cp_async16(xs + (w * kKeys + r) * kX + ch * 4, src + ((gl + j0 + r) * H + h) * P + ch * 4,
+                 true);
+    }
+    if (tid < 2 * kKeys)
+      cp_async4(xs + 3 * kKeys * kX + tid, (tid < kKeys ? a.cum : a.dt) +
+                (gl + j0 + tid % kKeys) * H + h, true);
+  };
+  // C tiles jt + 2 p and (below T) jt + 2 p + 1 into ring buffer buf
+  auto load_pair = [&](int buf, int p) {
+    float* dst = sm + S::cring + buf * 2 * kRows * kBC;
+    const int rows = min(2 * kRows, (T - jt - 2 * p) * kRows);
+    for (int e = tid; e < rows * kChN; e += kThreads) {
+      const int r = e / kChN, ch = e % kChN;
+      cp_async16(dst + r * kBC + ch * 4, a.c + (gl + (jt + 2 * p) * kRows + r) * N + ch * 4, true);
+    }
+  };
+
+  // ---- phase 0: S = B_j . C_i for every query tile, C through a ring; dt
+  // of the 16 rows for every head
+  for (int e = tid; e < kKeys * kChN; e += kThreads) {
+    const int r = e / kChN, ch = e % kChN;
+    cp_async16(sm + S::bj + r * kBC + ch * 4, a.b + (gl + j0 + r) * N + ch * 4, true);
+  }
+  load_x(0);
+  for (int e = tid; e < kKeys * H; e += kThreads)  // row e / H, head e % H: read in order
+    cp_async4(sdt + (e % H) * kKeys + e / H, a.dt + (gl + j0) * H + e, true);
+#pragma unroll
+  for (int s = 0; s < kPairStages - 1; ++s) {
+    if (s < pairs) load_pair(s, s);
+    cp_async_commit();
+  }
+  for (int e = tid; e < tiles * S::kTile; e += kThreads) sD[e] = 0.f;
+  {
+    // S(keys sk, sk + 8; queries sq, sq + 8) of the pair's tile tt: two B
+    // and two C rows (float4 steps) feed four sums
+    const int tt = tid / 64, sk = (tid / 8) % 8, sq = tid % 8;
+    const float* b0 = sm + S::bj + sk * kBC;
+    const float* b1 = b0 + 8 * kBC;
+    for (int p = 0; p < pairs; ++p) {
+      cp_async_wait<kPairStages - 2>();
+      __syncthreads();  // pair p has landed; the buffer refilled next was read last iteration
+      if (p + kPairStages - 1 < pairs)
+        load_pair((p + kPairStages - 1) % kPairStages, p + kPairStages - 1);
+      cp_async_commit();
+      if (2 * p + tt >= tiles) continue;  // past T: the pair's second tile is not loaded
+      const float* c0 = sm + S::cring + ((p % kPairStages) * 2 + tt) * kRows * kBC + sq * kBC;
+      const float* c1 = c0 + 8 * kBC;
+      float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;  // each summed in order over the state
+#pragma unroll 4
+      for (int n = 0; n < N; n += 4) {
+        const float4 bv0 = *reinterpret_cast<const float4*>(b0 + n);
+        const float4 bv1 = *reinterpret_cast<const float4*>(b1 + n);
+        const float4 cv0 = *reinterpret_cast<const float4*>(c0 + n);
+        const float4 cv1 = *reinterpret_cast<const float4*>(c1 + n);
+        s00 = dot4(cv0, bv0, s00);
+        s01 = dot4(cv1, bv0, s01);
+        s10 = dot4(cv0, bv1, s10);
+        s11 = dot4(cv1, bv1, s11);
       }
-      for (int e = tid; e < kKeys * kChP; e += kThreads) {
+      float* st = sS + (2 * p + tt) * S::kTile;
+      st[frag_at(sk, sq)] = s00;
+      st[frag_at(sk, sq + 8)] = s01;
+      st[frag_at(sk + 8, sq)] = s10;
+      st[frag_at(sk + 8, sq + 8)] = s11;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // S, dS's zeros, dt and head 0's x slot are in; the region is free
+
+  // ---- phase 1: per head, each warp walks its query tiles jt + warp + 4 r
+  float* ring = sm + S::wring + warp * kWarpStages * S::slot;
+  float* red = sm + S::red;
+  const int n_w = tiles > warp ? (tiles - warp + kWarps - 1) / kWarps : 0;
+  const int items = H * n_w;  // (head, query tile) in order, across the heads
+  int next = 0;
+  auto issue = [&]() {  // the warp's next item into its ring (an empty group past the last)
+    if (next < items) {
+      const int h = next / n_w, it = jt + warp + kWarps * (next % n_w);
+      float* st = ring + (next % kWarpStages) * S::slot;
+#pragma unroll
+      for (int e = lane; e < kRows * kChP; e += 32) {
         const int r = e / kChP, ch = e % kChP;
-        *reinterpret_cast<float4*>(xS + r * kX + ch * 4) = __ldg(
-            reinterpret_cast<const float4*>(a.x + ((gl + jt * kKeys + r) * H + h) * P) + ch);
+        cp_async16(st + r * kX + ch * 4, a.dy + ((gl + it * kRows + r) * H + h) * P + ch * 4,
+                   true);
       }
-      if (tid < kKeys) {
-        cumJ[tid] = __ldg(a.cum + (gl + jt * kKeys + tid) * H + h);
-        dtJ[tid] = __ldg(a.dt + (gl + jt * kKeys + tid) * H + h);
-      }
-      __syncthreads();
-      const float* dr = dyS + sr * kX;
-      const float* x0 = xS + sk * kX;
-      const float* x1 = x0 + 8 * kX;
-      float q0 = 0.f, q1 = 0.f;
-#pragma unroll
-      for (int k = 0; k < P; k += 4) {
-        const float4 d4 = *reinterpret_cast<const float4*>(dr + k);
-        q0 = dot4(d4, *reinterpret_cast<const float4*>(x0 + k), q0);
-        q1 = dot4(d4, *reinterpret_cast<const float4*>(x1 + k), q1);
-      }
-      const int j0 = jt * kKeys + sk, j1 = j0 + 8;
-      if (j0 <= i) dS[sr * kMaxL + j0] += q0 * expf(cumJ[sk] - cumI[sr]) * dtJ[sk];
-      if (j1 <= i) dS[sr * kMaxL + j1] += q1 * expf(cumJ[sk + 8] - cumI[sr]) * dtJ[sk + 8];
+      if (lane < kRows)
+        cp_async4(st + kRows * kX + lane, a.cum + (gl + it * kRows + lane) * H + h, true);
     }
+    cp_async_commit();
+    ++next;
+  };
+#pragma unroll
+  for (int s = 0; s < kWarpStages - 1; ++s) issue();
+
+  // ddt and dcum of key tid for head hp, from the four warps' partials in order
+  auto finish_row = [&](int hp) {
+    const float* p = dd + (hp & 1) * 2 * kWarps * kKeys + tid;
+    const float d = ((p[0] + p[kKeys]) + p[2 * kKeys]) + p[3 * kKeys];
+    const float* q = p + kWarps * kKeys;
+    const float yy = ((q[0] + q[kKeys]) + q[2 * kKeys]) + q[3 * kKeys];
+    const size_t at = (gl + j0 + tid) * H + hp;
+    a.ddt[at] = d;
+    a.dcum[at] = sdt[hp * kKeys + tid] * d - yy;
+  };
+
+  const size_t ka = gl + j0 + gid, kb = ka + 8;  // this lane's keys, as rows of the arrays
+  for (int h = 0; h < H; ++h) {
+    __syncthreads();  // x slot h % 2 is in; the last head's epilogue is done
+    if (h > 0 && tid < kKeys) finish_row(h - 1);
+    // head h + 1's x slot (the one the last head used): a warp without query
+    // tiles loads its part now, in a group of its own, the others with their
+    // first tile's dy
+    if (n_w == 0) {
+      if (h + 1 < H) load_x(h + 1);
+      cp_async_commit();
+    }
+    const float* xs = sm + S::xb + (h & 1) * S::xslot;
+    const float* xc = xs + 3 * kKeys * kX;
+    const float cka = xc[gid], ckb = xc[gid + 8], dta = xc[kKeys + gid], dtb = xc[kKeys + gid + 8];
+    // x_j as the A operand of q^T = x_j dy_i^T, split once a head; inside an
+    // 8-wide k-step the head dim is permuted (k = t <-> 2t, t + 4 <-> 2t + 1)
+    uint32_t xh[NT][4], xl[NT][4];
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      const float2 xa = *reinterpret_cast<const float2*>(xs + gid * kX + ks * 8 + 2 * tig);
+      const float2 xb = *reinterpret_cast<const float2*>(xs + (gid + 8) * kX + ks * 8 + 2 * tig);
+      split_trunc(xa.x, xh[ks][0], xl[ks][0]);
+      split_trunc(xb.x, xh[ks][1], xl[ks][1]);
+      split_trunc(xa.y, xh[ks][2], xl[ks][2]);
+      split_trunc(xb.y, xh[ks][3], xl[ks][3]);
+    }
+    float u[NT][4];
+#pragma unroll
+    for (int pt = 0; pt < NT; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) u[pt][e] = 0.f;
+
+    for (int r = 0; r < n_w; ++r) {
+      const int k = h * n_w + r;
+      cp_async_wait<0>();
+      __syncwarp();  // item k has landed for every lane; slot k - 1 is read
+      if (r == 0 && h + 1 < H) load_x(h + 1);  // in item k + 1's group
+      issue();
+      const float* st = ring + (k % kWarpStages) * S::slot;
+      const float* cq = st + kRows * kX;
+      const int rt = warp + kWarps * r;  // the query tile, counted from jt
+      const float* sf = sS + rt * S::kTile;
+      float* df = sD + rt * S::kTile;
+      float ex[8];
+      // u_j += (S_ij e_ij)^T dy_i: rows keys, k the queries (permuted as the
+      // forward's att . x), columns the head dim
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float pv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // exp(-inf) = 0 for a pair past the diagonal: a select, no branch;
+          // __expf (ex2.approx of t log2 e: a few ulp where t is small, and
+          // where it is large the term is small) in place of expf's ten
+          // instructions
+          const int kl = gid + 8 * (e >> 1), ql = nt * 8 + 2 * tig + (e & 1);
+          const float t = (e >> 1 ? ckb : cka) - cq[ql];
+          ex[nt * 4 + e] = __expf(rt > 0 || ql >= kl ? t : __uint_as_float(0xff800000u));
+          pv[e] = sf[(nt * 4 + e) * 32 + lane] * ex[nt * 4 + e];
+        }
+        uint32_t ah[4], al[4];
+        split_trunc(pv[0], ah[0], al[0]);
+        split_trunc(pv[2], ah[1], al[1]);
+        split_trunc(pv[1], ah[2], al[2]);
+        split_trunc(pv[3], ah[3], al[3]);
+        const float* d0 = st + (nt * 8 + 2 * tig) * kX;  // query 2t's dy row; 2t + 1's next
+#pragma unroll
+        for (int pt = 0; pt < NT; ++pt) {
+          const int p = pt * 8 + gid;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_trunc(d0[p], bh0, bl0);
+          split_trunc(d0[kX + p], bh1, bl1);
+          mma_3xtf32(u[pt], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+      // q^T = x_j dy_i^T (keys x queries over the head dim), four partial
+      // sums per 8-query column tile (k-steps ks % 4) for independent chains
+      float q[2][4][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) q[nt][c][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < NT; ++ks)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float2 dv =
+              *reinterpret_cast<const float2*>(st + (nt * 8 + gid) * kX + ks * 8 + 2 * tig);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_trunc(dv.x, bh0, bl0);
+          split_trunc(dv.y, bh1, bl1);
+          mma_3xtf32(q[nt][ks % 4], xh[ks], xl[ks], bh0, bh1, bl0, bl1);
+        }
+      // dS_ij += q_ij e_ij dt_j, this lane's elements, the heads in order
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int f = nt * 4 + e;
+          const float qv = (q[nt][0][e] + q[nt][1][e]) + (q[nt][2][e] + q[nt][3][e]);
+          df[f * 32 + lane] += qv * ex[f] * (e >> 1 ? dtb : dta);
+        }
+    }
+    float* rw = red + warp * kKeys * P;  // this warp's u partial, fragment order
+#pragma unroll
+    for (int pt = 0; pt < NT; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rw[(pt * 4 + e) * 32 + lane] = u[pt][e];
+    __syncthreads();  // every warp's u partial is in
+
+    // epilogue of head h: warp w the head-dim tiles pt = 2w, 2w + 1 of u
+    // (the four partials summed in order); dx = dt u; this warp's partials
+    // of ddt = x . u and of dy . y over its 16 columns per key
+    float pa = 0.f, pb = 0.f, ya = 0.f, yb = 0.f;
+#pragma unroll
+    for (int m = 0; m < NT / kWarps; ++m) {
+      const int pt = (NT / kWarps) * warp + m;
+      float uu[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int at = (pt * 4 + e) * 32 + lane;
+        uu[e] = ((red[at] + red[kKeys * P + at]) + red[2 * kKeys * P + at]) + red[3 * kKeys * P + at];
+      }
+      const int p = pt * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(a.dx + (ka * H + h) * P + p) = make_float2(dta * uu[0], dta * uu[1]);
+      *reinterpret_cast<float2*>(a.dx + (kb * H + h) * P + p) = make_float2(dtb * uu[2], dtb * uu[3]);
+      const float* xr = xs + gid * kX + p;  // rows gid of x_j, dy_j, y_j; gid + 8 below
+      const float2 xa = *reinterpret_cast<const float2*>(xr);
+      const float2 xb = *reinterpret_cast<const float2*>(xr + 8 * kX);
+      const float2 da = *reinterpret_cast<const float2*>(xr + kKeys * kX);
+      const float2 db = *reinterpret_cast<const float2*>(xr + (kKeys + 8) * kX);
+      const float2 va = *reinterpret_cast<const float2*>(xr + 2 * kKeys * kX);
+      const float2 vb = *reinterpret_cast<const float2*>(xr + (2 * kKeys + 8) * kX);
+      pa = fmaf(xa.y, uu[1], fmaf(xa.x, uu[0], pa));
+      pb = fmaf(xb.y, uu[3], fmaf(xb.x, uu[2], pb));
+      ya = fmaf(da.y, va.y, fmaf(da.x, va.x, ya));
+      yb = fmaf(db.y, vb.y, fmaf(db.x, vb.x, yb));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o *= 2) {
+      pa += __shfl_xor_sync(~0u, pa, o);
+      pb += __shfl_xor_sync(~0u, pb, o);
+      ya += __shfl_xor_sync(~0u, ya, o);
+      yb += __shfl_xor_sync(~0u, yb, o);
+    }
+    if (tig == 0) {
+      float* w = dd + (h & 1) * 2 * kWarps * kKeys + warp * kKeys;
+      w[gid] = pa;
+      w[gid + 8] = pb;
+      w[kWarps * kKeys + gid] = ya;
+      w[kWarps * kKeys + gid + 8] = yb;
+    }
+    cp_async_wait<0>();  // head h + 1's x slot (and the next dy tile) before the next barrier
   }
-  float* out = a.ds + ((static_cast<size_t>(s) * a.G + g) * L + i) * L;
-  for (int jt = 0; jt <= it; ++jt) {
-    out[jt * kKeys + sk] = dS[sr * kMaxL + jt * kKeys + sk];
-    out[jt * kKeys + sk + 8] = dS[sr * kMaxL + jt * kKeys + sk + 8];
+  __syncthreads();
+  if (tid < kKeys) finish_row(H - 1);
+  cp_async_wait<0>();  // only empty groups
+  __syncthreads();     // the warps' rings are read: the region is free again
+
+  // ---- phase 2: dS to the scratch (rows i >= j0, columns of this key tile),
+  // then dB_j = sum_i dS_ij^T C_i, C through the ring again
+  for (int e = tid; e < tiles * S::kTile; e += kThreads) {
+    const int rt = e / S::kTile, q = (e / kKeys) % kRows, k = e % kKeys;
+    a.ds[(gl + (jt + rt) * kRows + q) * L + j0 + k] = sD[rt * S::kTile + frag_at(k, q)];
   }
-}
-
-// dC_t = sum_{j <= t's rows} dS[t rows, j] B_j (kind 0) or dB_t = sum_{i >=
-// t's rows} dS[i, t rows]^T C_i (kind 1) for one 16-row tile t of one chunk:
-// per source tile, the 16 x 16 block of dS summed over the splits in order
-// (the upper half of a diagonal block is zeros) and the tile's 16 rows of B
-// or C in shared memory, then 16 outputs a thread (row tid / 8, columns
-// 4 (tid % 8) + 32 m + 0..3) summed in order over the source rows.
-// blockIdx.x -> (tile, chunk, kind).
-template <int N>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_bc_kernel(BwdArgs a) {
-  constexpr int kBC = N + 4;
-  constexpr int kM = N / 32;  // float4 column groups a thread
-  static_assert(N % 32 == 0, "columns");
-  __shared__ __align__(16) float rowsS[kKeys * kBC];
-  __shared__ float blk[kRows][kKeys + 1];
-
-  const int L = a.L, tiles = L / kRows;
-  const int kind = blockIdx.x % 2;
-  const int g = (blockIdx.x / 2) % a.G;
-  const int t = blockIdx.x / (2 * a.G);
-  const int tid = threadIdx.x, r = tid / 8, cb = tid % 8;
-  const size_t gl = static_cast<size_t>(g) * L;
-  const float* src = kind ? a.c : a.b;
-  const size_t split_stride = static_cast<size_t>(a.G) * L * L;
-
-  float acc[kM][4];
 #pragma unroll
-  for (int m = 0; m < kM; ++m)
+  for (int s = 0; s < kPairStages - 1; ++s) {
+    if (s < pairs) load_pair(s, s);
+    cp_async_commit();
+  }
+  // on the tensor cores (3xTF32): warp w the columns 32 w ... 32 w + 31,
+  // dS_ij^T's fragments straight from dS's fragment order (a lane's
+  // accumulator elements are its A elements, as P's in phase 1)
+  constexpr int NB = N / 8 / kWarps;
+  float acc[NB][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
-
-  const int lo = kind ? t : 0, hi = kind ? tiles - 1 : t;
-  for (int u = lo; u <= hi; ++u) {
-    __syncthreads();  // the last block's reads are done
-    for (int e = tid; e < kRows * kKeys; e += kThreads) {
-      const int br = e / kKeys, bc = e % kKeys;
-      // kind 0: dS[t rows, u cols]; kind 1: dS[u rows, t cols], transposed
-      const size_t at = kind ? (gl + u * kRows + br) * L + t * kKeys + bc
-                             : (gl + t * kRows + br) * L + u * kKeys + bc;
-      float v = a.ds[at];
-      for (int sp = 1; sp < a.splits; ++sp) v += a.ds[sp * split_stride + at];
-      if (kind)
-        blk[bc][br] = v;
-      else
-        blk[br][bc] = v;
-    }
-    constexpr int kChN = N / 4;
-    for (int e = tid; e < kKeys * kChN; e += kThreads) {
-      const int rr = e / kChN, ch = e % kChN;
-      *reinterpret_cast<float4*>(rowsS + rr * kBC + ch * 4) =
-          __ldg(reinterpret_cast<const float4*>(src + (gl + u * kKeys + rr) * N) + ch);
-    }
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  for (int p = 0; p < pairs; ++p) {
+    cp_async_wait<kPairStages - 2>();
     __syncthreads();
+    if (p + kPairStages - 1 < pairs)
+      load_pair((p + kPairStages - 1) % kPairStages, p + kPairStages - 1);
+    cp_async_commit();
+    for (int t2 = 0; t2 < 2 && 2 * p + t2 < tiles; ++t2) {
+      const float* dsf = sD + (2 * p + t2) * S::kTile + lane;
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int k = 0; k < kKeys; ++k) {
-      const float w = blk[r][k];
-#pragma unroll
-      for (int m = 0; m < kM; ++m) {
-        const float4 v = *reinterpret_cast<const float4*>(rowsS + k * kBC + 4 * cb + 32 * m);
-        acc[m][0] = fmaf(w, v.x, acc[m][0]);
-        acc[m][1] = fmaf(w, v.y, acc[m][1]);
-        acc[m][2] = fmaf(w, v.z, acc[m][2]);
-        acc[m][3] = fmaf(w, v.w, acc[m][3]);
+      for (int kt = 0; kt < 2; ++kt) {
+        split_trunc(dsf[(4 * kt + 0) * 32], ah[kt][0], al[kt][0]);
+        split_trunc(dsf[(4 * kt + 2) * 32], ah[kt][1], al[kt][1]);
+        split_trunc(dsf[(4 * kt + 1) * 32], ah[kt][2], al[kt][2]);
+        split_trunc(dsf[(4 * kt + 3) * 32], ah[kt][3], al[kt][3]);
       }
+      mma_rows(acc, ah, al, sm + S::cring + ((p % kPairStages) * 2 + t2) * kRows * kBC, kBC,
+               NB * warp, gid, tig);
     }
   }
-  float* out = (kind ? a.db : a.dc) + (gl + t * kRows + r) * N;
+  cp_async_wait<0>();
 #pragma unroll
-  for (int m = 0; m < kM; ++m)
-    *reinterpret_cast<float4*>(out + 4 * cb + 32 * m) =
-        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  for (int nb = 0; nb < NB; ++nb) {
+    const int n = (NB * warp + nb) * 8 + 2 * tig;
+    *reinterpret_cast<float2*>(a.db + (gl + j0 + gid) * N + n) = make_float2(acc[nb][0], acc[nb][1]);
+    *reinterpret_cast<float2*>(a.db + (gl + j0 + gid + 8) * N + n) =
+        make_float2(acc[nb][2], acc[nb][3]);
+  }
 }
 
-// Per (chunk, row, head), one warp: ddt = x . u, dcum = dt ddt - dy . y (the
-// column part of dcum is sum_i g_ij = x_j . dx_j = dt_j ddt_j, the row part
-// sum_j g_ij = dy_i . y_i), dx = dt u written over u.  Lane sums combined by
-// a fixed butterfly, so runs are bit-identical.
-template <int P>
-__global__ void __launch_bounds__(256) ssd_bwd_finish_kernel(BwdArgs a) {
-  static_assert(P == 64, "two columns a lane");
-  const int lane = threadIdx.x % 32;
-  const size_t row = static_cast<size_t>(blockIdx.x) * 8 + threadIdx.x / 32;
-  if (row >= static_cast<size_t>(a.G) * a.L * a.H) return;  // warp-uniform
-  const size_t at = row * P + 2 * lane;
-  const float2 u = *reinterpret_cast<const float2*>(a.dx + at);
-  const float2 x = __ldg(reinterpret_cast<const float2*>(a.x + at));
-  const float2 d = __ldg(reinterpret_cast<const float2*>(a.dy + at));
-  const float2 y = __ldg(reinterpret_cast<const float2*>(a.y + at));
-  float sx = fmaf(x.y, u.y, x.x * u.x), sy = fmaf(d.y, y.y, d.x * y.x);
+// dC_i = sum_{j <= i} dS_ij B_j for one 16-row query tile of one chunk
+// (blockIdx.x -> (tile, chunk), the last tile, which has the most key
+// tiles, first): per key tile the 16 x 16 block of the scratch and B_j's
+// rows through a cp.async ring, on the tensor cores in 3xTF32 (warp w the
+// columns 32 w ... 32 w + 31), the key tiles in order.
+template <int N>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dc_kernel(BwdArgs a) {
+  constexpr int kBC = N + 4, kDS = kKeys + 8, kChN = N / 4, NB = N / 8 / kWarps;
+  constexpr int kStage = kRows * kDS + kKeys * kBC;  // kDS: A's float2 rows conflict-free
+  __shared__ __align__(16) float sm[kDcStages * kStage];
+  const int L = a.L, T = L / kRows;
+  const int it = T - 1 - blockIdx.x / a.G, g = blockIdx.x % a.G;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const size_t gl = static_cast<size_t>(g) * L;
+  auto load = [&](int buf, int jt) {
+    float* st = sm + buf * kStage;
+    if (tid < kRows * 4) {
+      const int r = tid / 4, ch = tid % 4;
+      cp_async16(st + r * kDS + ch * 4, a.ds + (gl + it * kRows + r) * L + jt * kKeys + ch * 4,
+                 true);
+    }
+    for (int e = tid; e < kKeys * kChN; e += kThreads) {
+      const int r = e / kChN, ch = e % kChN;
+      cp_async16(st + kRows * kDS + r * kBC + ch * 4, a.b + (gl + jt * kKeys + r) * N + ch * 4,
+                 true);
+    }
+  };
+  float acc[NB][4];
 #pragma unroll
-  for (int o = 16; o > 0; o /= 2) {
-    sx += __shfl_xor_sync(~0u, sx, o);
-    sy += __shfl_xor_sync(~0u, sy, o);
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kDcStages - 1; ++s) {
+    if (s <= it) load(s, s);
+    cp_async_commit();
   }
-  const float dtv = __ldg(a.dt + row);
-  *reinterpret_cast<float2*>(a.dx + at) = make_float2(dtv * u.x, dtv * u.y);
-  if (lane == 0) {
-    a.ddt[row] = sx;
-    a.dcum[row] = dtv * sx - sy;
+  for (int jt = 0; jt <= it; ++jt) {
+    cp_async_wait<kDcStages - 2>();
+    __syncthreads();
+    if (jt + kDcStages - 1 <= it) load((jt + kDcStages - 1) % kDcStages, jt + kDcStages - 1);
+    cp_async_commit();
+    const float* st = sm + (jt % kDcStages) * kStage;
+    // A = dS rows (queries) x keys, keys permuted as B's rows: a float2 a row
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      const float2 ra = *reinterpret_cast<const float2*>(st + gid * kDS + kt * 8 + 2 * tig);
+      const float2 rb = *reinterpret_cast<const float2*>(st + (gid + 8) * kDS + kt * 8 + 2 * tig);
+      split_trunc(ra.x, ah[kt][0], al[kt][0]);
+      split_trunc(rb.x, ah[kt][1], al[kt][1]);
+      split_trunc(ra.y, ah[kt][2], al[kt][2]);
+      split_trunc(rb.y, ah[kt][3], al[kt][3]);
+    }
+    mma_rows(acc, ah, al, st + kRows * kDS, kBC, NB * warp, gid, tig);
   }
+  cp_async_wait<0>();
+  float* out = a.dc + (gl + it * kRows + gid) * N;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const int n = (NB * warp + nb) * 8 + 2 * tig;
+    *reinterpret_cast<float2*>(out + n) = make_float2(acc[nb][0], acc[nb][1]);
+    *reinterpret_cast<float2*>(out + 8 * N + n) = make_float2(acc[nb][2], acc[nb][3]);
+  }
+}
+
+// The key-tile pass, with its dynamic shared memory allowed, and its size
+// for H heads.
+cudaError_t prepare_bwd(int H, size_t* bytes) {
+  *bytes = BwdSmem<128, 64>::floats(H) * sizeof(float);
+  return cudaFuncSetAttribute(ssd_bwd_keys_kernel<128, 64>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*bytes));
 }
 
 }  // namespace
@@ -678,10 +1018,9 @@ extern "C" int repro_ssd(const void* x, const void* dt, const void* cum, const v
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs of instance (heads_per_cta, mode: 0 K6, 1 K5, 2 the backward's column
-// pass) that fit on one SM (registers and shared memory, as the runtime
-// counts them), its dynamic shared memory in *smem_bytes; -1 for an instance
-// not built.
+// CTAs of instance (heads_per_cta, mode: 0 K6, 1 K5) that fit on one SM
+// (registers and shared memory, as the runtime counts them), its dynamic
+// shared memory in *smem_bytes; -1 for an instance not built.
 extern "C" int repro_ssd_occupancy(int heads_per_cta, int mode, int* smem_bytes) {
   void (*kernel)(Args);
   size_t bytes;
@@ -693,47 +1032,55 @@ extern "C" int repro_ssd_occupancy(int heads_per_cta, int mode, int* smem_bytes)
   return ctas;
 }
 
+// The same for K6's backward at H heads: kernel 0 the key-tile pass (its
+// dynamic shared memory grows with H), 1 the dC pass (static, *smem_bytes 0).
+extern "C" int repro_ssd_bwd_occupancy(int kernel, int heads, int* smem_bytes) {
+  size_t bytes = 0;
+  int ctas = 0;
+  cudaError_t e;
+  if (kernel == 0) {
+    if (heads < 1 || prepare_bwd(heads, &bytes) != cudaSuccess) return -1;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, ssd_bwd_keys_kernel<128, 64>,
+                                                      kThreads, bytes);
+  } else if (kernel == 1) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, ssd_bwd_dc_kernel<128>, kThreads, 0);
+  } else {
+    return -1;
+  }
+  if (e != cudaSuccess) return -1;
+  *smem_bytes = static_cast<int>(bytes);
+  return ctas;
+}
+
 // K6's backward: given dy, the cotangent of y = ssd_chunk(x, dt, cum, b, c),
-// writes dx, ddt, dcum (G, L, H[, P]) and db, dc (G, L, N).  Four launches on
-// `stream`, asynchronous: the column pass (u into dx, heads_per_cta heads a
-// CTA), the ds pass (into `ds`, (splits, G, L, L) f32 scratch the caller
-// allocates), the bc pass (db, dc from ds) and the finish pass (ddt, dcum,
-// dx = dt u).  L must be a multiple of 16 up to 256.  Returns 0, the first
-// refused launch's CUDA error code, or -1 for a shape it is not built for.
+// writes dx, ddt, dcum (G, L, H[, P]) and db, dc (G, L, N).  Two launches on
+// `stream`, asynchronous: the key-tile pass (dx, ddt, dcum, db, and dS summed
+// over the heads into `ds`, a (G, L, L) f32 scratch the caller allocates, of
+// which the blocks at or below the diagonal are written and read) and the dC
+// pass.  L must be a multiple of 16 up to 256.  Returns 0, the first refused
+// launch's CUDA error code, or -1 for a shape it is not built for.
 extern "C" int repro_ssd_bwd(const void* x, const void* dt, const void* cum, const void* b,
                              const void* c, const void* dy, const void* y, void* dx, void* ddt,
                              void* dcum, void* db, void* dc, void* ds, int G, int L, int H,
-                             int P, int N, int heads_per_cta, int splits, void* stream) {
+                             int P, int N, void* stream) {
   if (G == 0 || L == 0 || H == 0) return 0;
-  if (G < 0 || L < 0 || H < 0 || L % kRows || L > 256 || P != 64 || N != 128) return -1;
-  if (splits < 1 || splits > H || (heads_per_cta != 1 && heads_per_cta != 2 && heads_per_cta != 4))
+  if (G < 0 || L < 0 || H < 0 || L % kRows || L > kBwdMaxTiles * kRows || P != 64 || N != 128)
     return -1;
-  const long long tiles = L / kRows;
-  const long long col = tiles * G * ((H + heads_per_cta - 1) / heads_per_cta);
-  const long long rows = static_cast<long long>(G) * L * H;
-  if (col > 0x7fffffffLL || tiles * G * splits > 0x7fffffffLL || (rows + 7) / 8 > 0x7fffffffLL)
-    return -1;
+  const long long ctas = static_cast<long long>(G) * (L / kRows);
+  if (ctas > 0x7fffffffLL) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void (*kernel)(Args);
   size_t bytes;
-  cudaError_t e = prepare(heads_per_cta, kColumn, &kernel, &bytes);
+  cudaError_t e = prepare_bwd(H, &bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Args ca{static_cast<const float*>(dy), static_cast<const float*>(dt),
-                static_cast<const float*>(cum), static_cast<const float*>(c),
-                static_cast<const float*>(b), nullptr, static_cast<float*>(dx), G, L, H};
-  kernel<<<static_cast<unsigned>(col), kThreads, bytes, st>>>(ca);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   const BwdArgs ba{static_cast<const float*>(x),  static_cast<const float*>(dt),
                    static_cast<const float*>(cum), static_cast<const float*>(b),
                    static_cast<const float*>(c),  static_cast<const float*>(dy),
                    static_cast<const float*>(y),  static_cast<float*>(dx),
                    static_cast<float*>(ddt),      static_cast<float*>(dcum),
                    static_cast<float*>(db),       static_cast<float*>(dc),
-                   static_cast<float*>(ds),       G, L, H, splits};
-  ssd_bwd_ds_kernel<64><<<static_cast<unsigned>(tiles * G * splits), kThreads, 0, st>>>(ba);
+                   static_cast<float*>(ds),       G, L, H};
+  ssd_bwd_keys_kernel<128, 64><<<static_cast<unsigned>(ctas), kThreads, bytes, st>>>(ba);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_bc_kernel<128><<<static_cast<unsigned>(tiles * G * 2), kThreads, 0, st>>>(ba);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_finish_kernel<64><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(ba);
+  ssd_bwd_dc_kernel<128><<<static_cast<unsigned>(ctas), kThreads, 0, st>>>(ba);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,11 +16,16 @@ its diagonal.  This module checks the arguments, plans the grid
 output and launches on PyTorch's current stream.
 
 K6's backward has no TPU kernel (JAX differentiates the reference's jnp
-form): four launches in ``ssd_chunk.cu`` (``repro_ssd_bwd``), a column pass
-that is the forward's CTA with queries and keys swapped, a pass that sums
-dS = dL/d(C B^T) over every head (B and C are shared by the heads) into a
-scratch, one that forms dB and dC from it, and one that finishes ddt, dcum
-and dx.  No atomics: two runs are bit-identical.
+form): two launches in ``ssd_chunk.cu`` (``repro_ssd_bwd``), shaped as
+flash attention's dK/dV pass.  A CTA owns one 16-key tile of one chunk and
+every head (``SsdBwdPlan``): it forms S = C . B^T for each query tile at or
+below its diagonal once for all heads, then per head walks those query
+tiles (its 4 warps take every fourth, each through its own ``cp.async``
+ring of dy tiles), u = (S e)^T dy and q = x . dy^T on the tensor cores in
+3xTF32, dS summed over the heads in order in shared memory, and ends each
+head with dx, ddt and dcum of its own rows; then dB of its rows, and dS
+into a (G, L, L) scratch (``scratch_bytes``) from which a second pass forms
+dC.  No atomics: two runs are bit-identical.
 
 The wrappers take CUDA tensors only: the plain versions for the CPU are
 ``kernels.ref.ssd_chunk_ref`` / ``ssd_chunk_bwd_ref`` / ``ssd_segment_ref``,
@@ -50,20 +55,24 @@ BUILT = {(128, 64)}  # mamba2-130m
 #: length rounded up to this (``models.ssm.chunk_len``)
 ROW_TILE = 16
 HEAD_GROUPS = (4, 2, 1)  # heads a CTA the source instantiates, largest first
-#: the longest chunk the backward takes (its ds pass keeps a 16 x L block of
-#: sums in shared memory); its L must also be a multiple of ``ROW_TILE``
+#: the longest chunk the backward takes (its key-tile pass keeps S and dS of
+#: a 16-key column of the chunk in shared memory); its L must also be a
+#: multiple of ``ROW_TILE``
 BWD_MAX_LEN = 256
-#: splits of the heads in the backward's ds pass: each split sums its heads
-#: into its own (G, L, L) scratch, and the bc pass adds the splits in order
-DS_SPLITS = 4
+#: warps of the backward's key-tile CTA; warp w takes the query tiles
+#: jt + w, jt + w + 4, ... of its key tile jt (``kWarps`` in the source)
+BWD_WARPS = 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 7 + [_I] * 7 + [_P]
 _OCCUPANCY_ARGTYPES = [_I] * 2 + [_P]
-_BWD_ARGTYPES = [_P] * 13 + [_I] * 7 + [_P]
-#: ``repro_ssd_occupancy``'s kinds: K6's forward, K5, the backward's column pass
-MODES = {"chunk": 0, "segment": 1, "column": 2}
+_BWD_ARGTYPES = [_P] * 13 + [_I] * 5 + [_P]
+_BWD_OCCUPANCY_ARGTYPES = [_I, _I, _P]
+#: ``repro_ssd_occupancy``'s kinds: K6's forward, K5
+MODES = {"chunk": 0, "segment": 1}
+#: ``repro_ssd_bwd_occupancy``'s kernels: the key-tile pass, the dC pass
+BWD_KERNELS = {"keys": 0, "dc": 1}
 
 
 def load_library() -> ctypes.CDLL:
@@ -75,6 +84,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ssd_occupancy.restype = ctypes.c_int
     lib.repro_ssd_bwd.argtypes = _BWD_ARGTYPES
     lib.repro_ssd_bwd.restype = ctypes.c_int
+    lib.repro_ssd_bwd_occupancy.argtypes = _BWD_OCCUPANCY_ARGTYPES
+    lib.repro_ssd_bwd_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -86,6 +97,18 @@ def occupancy(heads: int, mode: str) -> Tuple[int, int]:
     ctas = load_library().repro_ssd_occupancy(heads, MODES[mode], ctypes.byref(smem))
     if ctas < 0:
         raise RuntimeError(f"no SSD kernel instance for {heads} heads a CTA ({mode})")
+    return ctas, smem.value
+
+
+def bwd_occupancy(kernel: str, heads: int) -> Tuple[int, int]:
+    """The same for one of the backward's kernels (``BWD_KERNELS``) at
+    ``heads`` heads (the key-tile pass keeps two rows of floats a head in
+    shared memory)."""
+    smem = ctypes.c_int(0)
+    ctas = load_library().repro_ssd_bwd_occupancy(BWD_KERNELS[kernel], heads,
+                                                  ctypes.byref(smem))
+    if ctas < 0:
+        raise RuntimeError(f"no SSD backward kernel {kernel}")
     return ctas, smem.value
 
 
@@ -237,14 +260,42 @@ def ssd_segment(
     return y
 
 
-def ds_splits(heads: int) -> int:
-    """Splits of the heads in the backward's ds pass."""
-    return min(DS_SPLITS, heads)
+@dataclasses.dataclass(frozen=True)
+class SsdBwdPlan:
+    """The backward's two grids over ``groups`` chunks of ``length`` rows
+    (a multiple of ``ROW_TILE``), one CTA per (chunk, 16-row tile) each."""
+
+    groups: int
+    length: int
+
+    @property
+    def tiles(self) -> int:
+        return self.length // ROW_TILE
+
+    @property
+    def ctas(self) -> int:
+        return self.groups * self.tiles
+
+    def keys_work(self, cta: int) -> Tuple[int, int]:
+        """(chunk, key tile) of the key-tile pass's CTA ``cta``: the first
+        key tile (the most query tiles at or below it) first."""
+        return cta % self.groups, cta // self.groups
+
+    def warp_tiles(self, key_tile: int, warp: int) -> range:
+        """The query tiles warp ``warp`` of key tile ``key_tile``'s CTA
+        walks, for every head, in order."""
+        return range(key_tile + warp, self.tiles, BWD_WARPS)
+
+    def dc_work(self, cta: int) -> Tuple[int, int]:
+        """(chunk, query tile) of the dC pass's CTA ``cta``: the last query
+        tile (the most key tiles) first."""
+        return cta % self.groups, self.tiles - 1 - cta // self.groups
 
 
-def scratch_bytes(groups: int, length: int, heads: int) -> int:
-    """Bytes of the backward's dS scratch, (splits, G, L, L) f32."""
-    return 4 * ds_splits(heads) * groups * length * length
+def scratch_bytes(groups: int, length: int) -> int:
+    """Bytes of the backward's dS scratch, (G, L, L) f32 (dS summed over
+    every head; the blocks at or below the diagonal written and read)."""
+    return 4 * groups * length * length
 
 
 def ssd_chunk_bwd(
@@ -256,11 +307,11 @@ def ssd_chunk_bwd(
     y: torch.Tensor,  # (B, NC, L, H, P) the forward's output
     dy: torch.Tensor,  # (B, NC, L, H, P) its cotangent
 ) -> Tuple[torch.Tensor, ...]:
-    """(dx, ddt, dcum, db, dc) of K6 from the CUDA kernels.  ``y`` gives
-    dcum's row part, sum_j g_ij = dy_i . y_i, as flash attention's backward
-    reads its output.  Every output and the dS scratch (``scratch_bytes``)
-    are allocated here; L must be a multiple of ``ROW_TILE`` up to
-    ``BWD_MAX_LEN``."""
+    """(dx, ddt, dcum, db, dc) of K6 from the CUDA kernels (two launches).
+    ``y`` gives dcum's row part, sum_j g_ij = dy_i . y_i, as flash
+    attention's backward reads its output.  Every output and the dS scratch
+    (``scratch_bytes``) are allocated here; L must be a multiple of
+    ``ROW_TILE`` up to ``BWD_MAX_LEN``."""
     _check(x, dt, cum, b, c, y=y, dy=dy)
     bs, nc, l, h, p = x.shape
     n = b.shape[-1]
@@ -278,16 +329,13 @@ def ssd_chunk_bwd(
     if x.numel() == 0:
         return tuple(o.zero_() for o in outs)
     g = bs * nc
-    splits = ds_splits(h)
-    ds = torch.empty((splits, g, l, l), dtype=torch.float32, device=x.device)
-    plan = ssd_plan(g, l, h, _sm_count(x.device.index))
+    ds = torch.empty((g, l, l), dtype=torch.float32, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.repro_ssd_bwd(
             x.data_ptr(), dt.data_ptr(), cum.data_ptr(), b.data_ptr(), c.data_ptr(),
             dy.data_ptr(), y.data_ptr(), *(o.data_ptr() for o in outs), ds.data_ptr(),
-            g, l, h, p, n, plan.heads, splits,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            g, l, h, p, n, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"SSD backward launch failed (code {err})")
     ssd_chunk_bwd.launches += 1

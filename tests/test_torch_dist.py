@@ -280,6 +280,39 @@ def test_ranks_agree(train_runs, run):
     assert same_tree(a["params"], b["params"])
 
 
+@pytest.fixture(scope="module")
+def mamba_runs():
+    """The static run through the mamba2-130m smoke config: the reference's
+    ``train(mesh="1")`` and the port's on 2 gloo ranks."""
+    jc, tc = jget_smoke("mamba2_130m"), get_smoke_config("mamba2_130m")
+    jp = np_tree(jmodel.init_params(jax.random.PRNGKey(0), jc))
+    t = _tcfgs(jtrain, jcore, JController)["static"]
+    want = jtrain.train(jc, JData(**DATA), dataclasses.replace(t, mesh="1"),
+                        params=jax.tree.map(jax.numpy.asarray, jp))
+    got = procs.spawn(ranks.run_train, 2, device="cpu", timeout_s=GROUP_TIMEOUT_S,
+                      args=(tc, DataConfig(**DATA), jp,
+                            _tcfgs(train, core, ControllerConfig)["static"]))
+    return want, got
+
+
+def test_mamba_train_matches_reference(mamba_runs):
+    """'M' layers through the data-parallel step: drop fractions exact,
+    losses within 1e-4, every leaf within ``TOL["model_f32"]``."""
+    want, got = mamba_runs
+    g = got[0]
+    assert g["drop_fractions"] == want.drop_fractions
+    assert any(d > 0 for d in g["drop_fractions"])
+    np.testing.assert_allclose(g["losses"], want.losses, rtol=1e-4, atol=1e-4)
+    assert_tree_close(g["params"], want.params, "model_f32")
+
+
+def test_mamba_ranks_agree(mamba_runs):
+    _, (a, b) = mamba_runs
+    for k in ("losses", "drop_fractions", "tau_trajectory", "sim_times"):
+        assert a[k] == b[k], k
+    assert same_tree(a["params"], b["params"])
+
+
 def test_resume_equals_the_uninterrupted_run(train_runs):
     _, _, _, _, got, _ = train_runs
     full, part, resumed = got[0]["static"], got[0]["part"], got[0]["resumed"]

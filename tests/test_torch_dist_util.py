@@ -73,6 +73,12 @@ def run_trains(rank, world, cfg, data, params_np, tcfgs, ckpt_dir):
     return out
 
 
+def run_train(rank, world, cfg, data, params_np, tcfg):
+    """``train(mesh=str(world))`` of one TrainConfig."""
+    tcfg = dataclasses.replace(tcfg, mesh=str(world))
+    return _result(ttrain.train(cfg, data, tcfg, params=_params(params_np, cfg), device="cpu"))
+
+
 def hang_on_rank1(rank, world):
     """Rank 1 never returns."""
     if rank == 1:

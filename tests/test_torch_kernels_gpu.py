@@ -406,8 +406,8 @@ class TestKernelsOnCard:
     # -----------------------------------------------------------------------
 
     @staticmethod
-    def ssd_bwd_inputs(cuda, bs, nc, l, seed):
-        a = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(bs, nc, l, 24, 64, 128,
+    def ssd_bwd_inputs(cuda, bs, nc, l, seed, h=24):
+        a = [torch.from_numpy(v).to(cuda) for v in ssd_chunk_inputs(bs, nc, l, h, 64, 128,
                                                                       seed=seed)]
         dy = torch.from_numpy(np.random.default_rng(seed + 1).normal(
             size=tuple(a[0].shape)).astype(np.float32)).to(cuda)
@@ -419,12 +419,15 @@ class TestKernelsOnCard:
         return [row_rel_err(got[0], want[0])] + [norm_rel_err(g, w)
                                                  for g, w in zip(got[1:], want[1:])]
 
-    @pytest.mark.parametrize("bs,nc,l", [(4, 2, 256), (4, 1, 64), (1, 3, 16)])
-    def test_ssd_chunk_bwd(self, cuda, bs, nc, l):
+    @pytest.mark.parametrize("bs,nc,l,h", [(4, 2, 256, 24), (4, 1, 64, 24), (1, 3, 16, 24),
+                                           (2, 2, 48, 3), (1, 2, 240, 5)])
+    def test_ssd_chunk_bwd(self, cuda, bs, nc, l, h):
         """The training shape (256-row chunks), a 64-row and a 16-row chunk;
-        one launch counted a call."""
+        chunks whose query tiles do not split evenly over the key-tile CTA's
+        4 warps (3 and 15 tiles) with 3 and 5 heads; one launch counted a
+        call."""
         torch.backends.cuda.matmul.allow_tf32 = False
-        a, y, dy = self.ssd_bwd_inputs(cuda, bs, nc, l, seed=l + nc)
+        a, y, dy = self.ssd_bwd_inputs(cuda, bs, nc, l, seed=l + nc, h=h)
         n0 = ssd_chunk.ssd_chunk_bwd.launches
         got = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
         want = ref.ssd_chunk_bwd_ref(*a, dy)

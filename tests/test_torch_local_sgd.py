@@ -1,7 +1,7 @@
 """The port's Local-SGD + DropCompute (appendix B.3) against
 ``repro.core.local_sgd`` on the CPU: the runtime model's draws and
 speedups exactly; ``localsgd_train`` on the reference test's quadratic and
-on the qwen2.5-3b smoke config through the model's loss (weights carried
+on the qwen2.5-3b and mamba2-130m smoke configs through the model's loss (weights carried
 across by ``params_from_jax``, the same numpy batches) within ``TOL``; and
 the port's own choices: a dropped step runs no backward while its loss
 still enters the round's mean, and a worker whose steps are all dropped
@@ -143,15 +143,15 @@ def test_dropped_step_runs_no_backward_and_its_loss_counts():
 
 
 # ---------------------------------------------------------------------------
-# the qwen2.5-3b smoke config through the model's loss
+# the qwen2.5-3b and mamba2-130m smoke configs through the model's loss
 # ---------------------------------------------------------------------------
 
 
-def test_qwen_smoke_matches_reference():
-    """2 workers x 2 local steps x 2 rounds, one step dropped and one worker
-    round all dropped: round losses and every final leaf within
-    ``TOL["model_f32"]`` of JAX's ``localsgd_train`` on the same batches."""
-    jc, tc = jget_smoke("qwen2_5_3b"), get_smoke_config("qwen2_5_3b")
+def _smoke_matches_reference(name):
+    """2 workers x 2 local steps x 2 rounds of ``name``'s smoke config, one
+    step dropped and one worker round all dropped: (port, reference) round
+    losses and final parameters on the same batches."""
+    jc, tc = jget_smoke(name), get_smoke_config(name)
     jp = jmodel.init_params(jax.random.PRNGKey(4), jc)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
     n, h, rounds, seq = 2, 2, 2, 32
@@ -176,7 +176,24 @@ def test_qwen_smoke_matches_reference():
     got_p, got_l = local_sgd.localsgd_train(
         loss, tp, data, n, rounds, h, 0.5, keep_mask=keep, device="cpu",
         cast=lambda w, out=None: model.train_params(w, tc, out=out))
+    return got_p, got_l, want_p, want_l
+
+
+def test_qwen_smoke_matches_reference():
+    """2 workers x 2 local steps x 2 rounds, one step dropped and one worker
+    round all dropped: round losses and every final leaf within
+    ``TOL["model_f32"]`` of JAX's ``localsgd_train`` on the same batches."""
+    got_p, got_l, want_p, want_l = _smoke_matches_reference("qwen2_5_3b")
     assert_close(got_l, want_l, "model_f32")
     assert_tree_close(got_p, want_p, "model_f32")
     # the run moved the weights (a vacuous match would not)
+    assert np.abs(np32(got_p["final_norm"]["scale"]) - 1.0).max() > 1e-3
+
+
+def test_mamba_smoke_matches_reference():
+    """The same run through the mamba2-130m smoke config ('M' layers: the
+    chunked scan and K6's plain backward under the local steps)."""
+    got_p, got_l, want_p, want_l = _smoke_matches_reference("mamba2_130m")
+    assert_close(got_l, want_l, "model_f32")
+    assert_tree_close(got_p, want_p, "model_f32")
     assert np.abs(np32(got_p["final_norm"]["scale"]) - 1.0).max() > 1e-3

@@ -211,10 +211,11 @@ class TestWrapperBeforeLaunch:
         assert ssd_chunk.UnbuiltShapeError is UnbuiltShapeError
 
     def test_scratch_at_the_training_shape(self):
-        """4 sequences of 2048 tokens in 256-token chunks, 24 heads: 4 splits
-        of the heads, (4, 32, 256, 256) f32 of dS partials."""
-        assert ssd_chunk.ds_splits(24) == 4 and ssd_chunk.ds_splits(3) == 3
-        assert ssd_chunk.scratch_bytes(32, 256, 24) == 4 * 32 * 256 * 256 * 4
+        """4 sequences of 2048 tokens in 256-token chunks: one (32, 256, 256)
+        f32 scratch of dS summed over every head, 8.4 MB whatever the heads
+        (the backward's two passes hand dS over through it)."""
+        assert ssd_chunk.scratch_bytes(32, 256) == 32 * 256 * 256 * 4 == 8_388_608
+        assert ssd_chunk.scratch_bytes(1, 48) == 48 * 48 * 4
 
     def test_chunk_lengths_the_backward_takes(self):
         """``require_trainable``'s rule on the scan's chunk at a sequence
