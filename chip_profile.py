@@ -29,7 +29,10 @@ runs the named parts alone: ``kernels`` times the kernels ``chip_smoke.py``
 times, at its main-path shapes (``k4_timing``, ``k2_timing``,
 ``k2_bwd_checks_and_timing``, K6 / K5 at the mamba serving shapes and K6
 forward and backward at the Mamba-2 training shape), with digests of K6's
-and K5's outputs, and prints one JSON line; ``qwen`` and ``mamba`` profile one model's serving
+and K5's outputs, and prints one JSON line; ``k6_precision`` times K6's
+backward against copies of its source with its two precision choices
+(``__expf``, truncating 3xTF32 splits) undone, with each one's errors;
+``qwen`` and ``mamba`` profile one model's serving
 runs, ``train`` the training step, ``localsgd`` the last round of
 ``chip_smoke.py``'s Local-SGD run (qwen2.5-3b, 36 layers), ``dp`` one
 graphed training step of ``chip_smoke.py``'s phase 9a (one NCCL rank,
@@ -286,7 +289,9 @@ def serve_profiles(cfg, params, prompts, make) -> None:
 
 
 TAG = ""
-PARTS = ("kernels", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train")
+PARTS = ("kernels", "k6_precision", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train")
+#: the parts that time kernels alone, run only when named
+KERNEL_PARTS = ("kernels", "k6_precision")
 
 
 #: K6's (sequences, chunks, rows) at the mamba serving run's decode and
@@ -347,13 +352,83 @@ def kernel_times(seed: int) -> dict:
             "ssd_us": ssd_times(rng), "ssd_digests": ssd_digests(seed)}
 
 
+#: K6's backward's two precision choices, each undone by one edit of a copy
+#: of its source: ``__expf`` (ex2.approx) back to ``expf``, and its 3xTF32
+#: splits by truncation back to rounding (``cvt.rna``, the forward's split)
+K6_BWD_PRECISE = {
+    "expf": [("= __expf(rt > 0", "= expf(rt > 0")],
+    "rounded": [("  hi = __float_as_uint(v);\n"
+                 "  lo = __float_as_uint(v - __uint_as_float(hi & 0xffffe000u));\n",
+                 "  split(v, hi, lo);\n")],
+}
+K6_BWD_PRECISE["both"] = K6_BWD_PRECISE["expf"] + K6_BWD_PRECISE["rounded"]
+
+
+@contextlib.contextmanager
+def ssd_source(name: str):
+    """``ssd_chunk``'s wrappers built from and launching ``name`` (a file in
+    the kernel directory) instead of ``ssd_chunk.cu``."""
+    sound = cs.ssd_chunk.SOURCE
+    cs.ssd_chunk.SOURCE = name
+    try:
+        yield
+    finally:
+        cs.ssd_chunk.SOURCE = sound
+
+
+def k6_bwd_precision(seed: int) -> dict:
+    """K6's backward from ``ssd_chunk.cu`` beside copies of it with one or
+    both of its precision choices undone (``K6_BWD_PRECISE``; the copies
+    built together, removed after): each one's errors against the plain
+    version (``chip_smoke.ssd_bwd_errs``: dx by row, the rest by norm) and
+    its time (graph replay, L2 flushed) at 4 x 8 x 256 and 4 x 8 x 64, in
+    turns: the source, each copy, each copy again in reverse, the source."""
+    import concurrent.futures
+
+    from repro_torch.kernels import _build
+
+    text = (_build.KERNEL_DIR / cs.ssd_chunk.SOURCE).read_text()
+    files = {"source": cs.ssd_chunk.SOURCE}
+    for name, edits in K6_BWD_PRECISE.items():
+        copy = text
+        for old, new in edits:
+            if copy.count(old) != 1:
+                raise RuntimeError(f"{name}: {old!r} is not in {cs.ssd_chunk.SOURCE} once")
+            copy = copy.replace(old, new)
+        files[name] = f"_precise_{name}.cu"
+        (_build.KERNEL_DIR / files[name]).write_text(copy)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(files)) as pool:
+            list(pool.map(_build.load, files.values()))
+        rng = np.random.default_rng(seed)
+        order = ["source", *K6_BWD_PRECISE, *reversed(K6_BWD_PRECISE), "source"]
+        rows = {}
+        for bs, nc, l in SSD_BWD_SHAPES.values():
+            a, y, dy = cs.ssd_bwd_scenario(rng, bs, nc, l)
+            want = cs.ref.ssd_chunk_bwd_ref(*a, dy)
+            row = {name: {"us": []} for name in files}
+            for name in order:
+                with ssd_source(files[name]):
+                    got = cs.ssd_chunk.ssd_chunk_bwd(*a, y, dy)
+                    row[name]["errs"] = cs.ssd_bwd_errs(got, want)
+                    row[name]["us"].append(
+                        cs.time_ms(lambda: cs.ssd_chunk.ssd_chunk_bwd(*a, y, dy)) * 1e3)
+            rows[f"{bs}x{nc}x{l}"] = row
+            del a, y, dy, want, got
+    finally:
+        for name in K6_BWD_PRECISE:
+            (_build.KERNEL_DIR / files[name]).unlink(missing_ok=True)
+    return {"tag": TAG, "run": "k6_precision", "rows": rows}
+
+
 def main() -> int:
     global TAG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS[1:],
-                    help="parts to run, always in the order kernels, qwen, mamba, train, "
-                         "localsgd, dp, mamba_train (default: all but kernels)")
+    ap.add_argument("--only", nargs="+", choices=PARTS,
+                    default=[p for p in PARTS if p not in KERNEL_PARTS],
+                    help="parts to run, always in the order kernels, k6_precision, qwen, mamba, "
+                         "train, localsgd, dp, mamba_train (default: all but the first two)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -367,6 +442,8 @@ def main() -> int:
     for part in [p for p in PARTS if p in args.only]:
         if part == "kernels":
             print(json.dumps(kernel_times(args.seed)), flush=True)
+        elif part == "k6_precision":
+            print(json.dumps(k6_bwd_precision(args.seed)), flush=True)
         elif part == "qwen":
             rng = np.random.default_rng(args.seed)
             lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]

@@ -57,8 +57,8 @@ input copy is skipped, must fail the stream check.
      16-key tile skipped; K5's segment mask dropped), beside the row error
      of the plain version with its operands rounded to TF32 (what one TF32
      pass would give); two runs bit-identical; times at the serving
-     shapes and (K6) at the Mamba-2 training micro-batch beside the f32-FMA
-     bound and the tensor-core bound;
+     shapes and (K6) at the Mamba-2 training micro-batch beside the
+     tensor-core bound (the record's) and the f32-FMA bound;
    * K6's backward (two launches: the key-tile pass and the dC pass) at
      the training shape (B 4, NC 8, L 256) and at L 64: dx row by row,
      ddt, dcum, dB and dC by norm, two runs bit-identical, two planted
@@ -139,9 +139,10 @@ input copy is skipped, must fail the stream check.
    larger of ``GRAPH_LEAF_GAP`` and ``DP_ORDER_FACTOR`` times the gap the
    one-rank run itself shows with its sums in the reverse order; each rank's step wall,
    All-Reduce seconds and peak memory printed; then a planted fault (rank 1
-   skips one kept micro-batch) that the same check must reject; then the
-   same two-rank run and check for mamba2-130m at ``M_DP_LAYERS`` (24, its
-   full depth; two replicas fit), without the planted fault;
+   skips one kept micro-batch) that the same checks must reject, the log
+   naming each that did; then the same two-rank runs, sound and planted,
+   for mamba2-130m at ``M_DP_LAYERS`` (24, its full depth; two replicas
+   fit);
 10. Mamba-2 training — mamba2-130m at 24 layers (random weights from
    ``--seed``, f32 master, bf16 compute copy, remat) through ``train``: the
    training phase's 4 workers x 2 micro-batches, each of 4 packed
@@ -216,10 +217,10 @@ from repro_torch.train import TrainConfig, checkpoint, train  # noqa: E402
 from repro_torch.train.resilience import ControllerConfig, make_scenario  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; full 700 W power limit).  The
-# SSD kernels compute at f32 accuracy: their record's operations bound is
-# taken at the f32 rate outside the tensor cores, as since they were first
-# ported; beside it the tensor-core bound of their design, three TF32
-# products per f32 product.
+# SSD kernels compute at f32 accuracy with their products on the tensor
+# cores, three TF32 products per f32 product: their record's operations
+# bound is taken so (``ssd_bound``); the log gives beside it the bound with
+# every product at the f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
@@ -1251,13 +1252,21 @@ def ssd_cost(pairs: int, *tensors):
     return nbytes, 2.0 * pairs * (M_N + M_P * M_H)
 
 
+def ssd_bound(nbytes: float, flops: float):
+    """The recorded bound of an SSD call, (ms, "bytes" or "operations"):
+    its products run on the tensor cores in 3xTF32 (S alone stays on the
+    FMA pipes, a few % of the operations), so three TF32 products an f32
+    product over the tensor cores' rate, against its bytes."""
+    return bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+
+
 def ssd_bounds(nbytes: float, flops: float) -> str:
-    """Both bounds of an SSD call, for the log: the f32-FMA one (the
-    record's) and the tensor-core one (3 TF32 products per f32 product)."""
+    """Both bounds of an SSD call, for the log: the recorded one
+    (``ssd_bound``) and, beside it, every product on the FMA pipes in f32."""
+    tc, tc_by = ssd_bound(nbytes, flops)
     b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
-    tc, tc_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
-    return (f"bound {b * 1e3:.2f} us ({by}, f32 FMA) / {tc * 1e3:.2f} us ({tc_by}, 3xTF32 tensor "
-            f"cores); {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
+    return (f"bound {tc * 1e3:.2f} us ({tc_by}, 3xTF32 tensor cores) / {b * 1e3:.2f} us ({by}, "
+            f"all on the f32 FMA pipes); {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
 
 
 def k6_timing(rng):
@@ -1272,7 +1281,7 @@ def k6_timing(rng):
         kern = time_ms(lambda: ssd_chunk.ssd_chunk(*a))
         plain = time_ms(lambda: ref.ssd_chunk_ref(*a), iters=10)
         nbytes, flops = ssd_cost(bs * nc * l * (l + 1) // 2, *a, a[0])
-        b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
+        b, by = ssd_bound(nbytes, flops)
         rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by)
         log(f"K6 time B={bs} NC={nc} L={l}: kernel {kern * 1e3:.1f} us, plain {plain * 1e3:.1f} "
             f"us, {ssd_bounds(nbytes, flops)}")
@@ -1288,7 +1297,7 @@ def k5_timing(rng):
         plain = time_ms(lambda: ref.ssd_segment_ref(*a), iters=10)
         lens = np.bincount(np.asarray([s for s in seg if s >= 0]))
         nbytes, flops = ssd_cost(int((lens * (lens + 1) // 2).sum()), *a, a[0])
-        b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
+        b, by = ssd_bound(nbytes, flops)
         rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by)
         log(f"K5 time {shape:6s} T={len(seg)}: kernel {kern * 1e3:.1f} us, plain "
             f"{plain * 1e3:.1f} us, {ssd_bounds(nbytes, flops)}")
@@ -1364,8 +1373,8 @@ K6_BWD_KERNELS = {"keys": "ssd_bwd_keys_kernel", "dc": "ssd_bwd_dc_kernel"}
 def k6_bwd_timing(rng):
     """K6's backward at the training shape (B 4, NC 8, L 256) and at L 64:
     kernel (its launches in one graph), each launch's device time
-    (profiler), plain version, both bounds.  Returns the training shape's
-    record."""
+    (profiler), plain version, both bounds (``ssd_bounds``; the record's is
+    ``ssd_bound``).  Returns the training shape's record."""
     rows = {}
     for bs, nc, l in ((4, 8, 256), (4, 8, 64)):
         a, y, dy = ssd_bwd_scenario(rng, bs, nc, l)
@@ -1374,7 +1383,7 @@ def k6_bwd_timing(rng):
         plain = time_ms(lambda: ref.ssd_chunk_bwd_ref(*a, dy), iters=5)
         outs = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
         nbytes, flops = ssd_bwd_cost(bs, nc, l, [*a, y, dy, *outs])
-        b, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
+        b, by = ssd_bound(nbytes, flops)
         split = ", ".join(f"{n} {t * 1e3:.1f}" for n, t in parts.items())
         log(f"K6 bwd time B={bs} NC={nc} L={l}: kernel {kern * 1e3:.1f} us (device time by "
             f"launch, profiler: {split} us), plain {plain * 1e3:.1f} us, "
@@ -2451,21 +2460,22 @@ def reversed_sums():
         dp_steps.sum_kept = sound
 
 
-def dp_check(got, one, masks, per_mb: dict, names, order_gaps: dict) -> None:
+def dp_faults(got, one, masks, per_mb: dict, names, order_gaps: dict) -> dict:
     """9b's ranks (``got``) against the one-rank run (``one``: losses, drop
-    fractions, tau trajectory, final leaves): every rank's replica, losses,
-    drop fractions and tau trajectory the same; each rank's kept count (from
-    its masks) and the micro-batches it computed (its launches) exact; the
-    drop fractions and tau trajectory exact, the losses within
-    ``GRAPH_LEAF_GAP`` and every final leaf within the larger of
-    ``GRAPH_LEAF_GAP`` and ``DP_ORDER_FACTOR`` times ``order_gaps`` (the
-    one-rank run's own gap under another order of its sums), against the
-    one-rank run.  Prints the gaps before it checks them."""
+    fractions, tau trajectory, final leaves).  Returns the checks that fail,
+    by kind: ``"ranks"``, every rank's replica, losses, drop fractions and
+    tau trajectory the same as rank 0's, and each rank's kept count (from
+    its masks) and the micro-batches it computed (its launches) exact;
+    ``"values"``, against the one-rank run, the drop fractions and tau
+    trajectory exact, the losses within ``GRAPH_LEAF_GAP`` and every final
+    leaf within the larger of ``GRAPH_LEAF_GAP`` and ``DP_ORDER_FACTOR``
+    times ``order_gaps`` (the one-rank run's own gap under another order of
+    its sums).  Prints the gaps first."""
+    faults = {"ranks": [], "values": []}
     r0, per = got[0], TRAIN_WORKERS // DP_RANKS
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
     gaps = leaf_gaps(names, r0["leaves"], one["leaves"])
     limits = {k: max(GRAPH_LEAF_GAP, DP_ORDER_FACTOR * order_gaps[k]) for k in gaps}
-    worst = max(gaps, key=lambda k: gaps[k] / limits[k])
     log(f"dp 9b vs one rank: losses {r0['losses']} / {one['losses']} (largest gap {loss_gap:.3e} "
         f"of the loss); final leaves, gap of its norm (the one-rank run's under reversed sums): "
         + ", ".join(f"{k} {v:.2e} ({order_gaps[k]:.2e})" for k, v in gaps.items()))
@@ -2475,29 +2485,36 @@ def dp_check(got, one, masks, per_mb: dict, names, order_gaps: dict) -> None:
         computed = res["counts"]["masked_accum"] / per_mb["masked_accum"]
         log(f"dp 9b rank {r}: kept {res['kept_local']} (its workers' masks {own}), computed "
             f"{computed:g} micro-batches")
-        check(res["same_as_rank0"], f"rank {r}'s final replica differs from rank 0's")
-        check(all(res[k] == r0[k] for k in ("losses", "drop_fractions", "tau_trajectory")),
-              f"rank {r}'s losses, drops or tau differ from rank 0's")
-        check(res["kept_local"] == own, f"rank {r} kept {res['kept_local']}, its masks {own}")
-        check(res["counts"] == want, f"rank {r} launches {res['counts']}: computed {computed:g} "
-              f"micro-batches where its workers kept {sum(own)} ({want})")
-    check(r0["drop_fractions"] == one["drop_fractions"],
-          f"drop fractions {r0['drop_fractions']} / one rank {one['drop_fractions']}")
-    check(r0["tau_trajectory"] == one["tau_trajectory"], "tau trajectories differ")
-    check(loss_gap < GRAPH_LEAF_GAP, f"losses differ by {loss_gap} of the loss")
-    check(gaps[worst] < limits[worst], f"leaf {worst} differs by {gaps[worst]} of its norm, "
-          f"its limit {limits[worst]}")
+        for ok, msg in (
+                (res["same_as_rank0"], f"rank {r}'s final replica differs from rank 0's"),
+                (all(res[k] == r0[k] for k in ("losses", "drop_fractions", "tau_trajectory")),
+                 f"rank {r}'s losses, drops or tau differ from rank 0's"),
+                (res["kept_local"] == own, f"rank {r} kept {res['kept_local']}, its masks {own}"),
+                (res["counts"] == want, f"rank {r} launches {res['counts']}: computed "
+                 f"{computed:g} micro-batches where its workers kept {sum(own)} ({want})")):
+            if not ok:
+                faults["ranks"].append(msg)
+    if r0["drop_fractions"] != one["drop_fractions"]:
+        faults["values"].append(f"drop fractions {r0['drop_fractions']} / one rank "
+                                f"{one['drop_fractions']}")
+    if r0["tau_trajectory"] != one["tau_trajectory"]:
+        faults["values"].append("tau trajectories differ")
+    if loss_gap >= GRAPH_LEAF_GAP:
+        faults["values"].append(f"losses differ by {loss_gap} of the loss")
+    faults["values"] += [f"leaf {k} differs by {gaps[k]:.3e} of its norm, its limit "
+                         f"{limits[k]:.3e}" for k in gaps if gaps[k] >= limits[k]]
+    return faults
 
 
-def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS, pool_gib: float = DP_POOL_GIB,
-                  with_fault: bool = True) -> None:
+def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS,
+                  pool_gib: float = DP_POOL_GIB) -> None:
     """9b: ``cfg``'s widths at ``layers`` layers (qwen2.5-3b at
     ``DP_LAYERS``; mamba2-130m at ``M_DP_LAYERS``), the training phase's
     data and latencies (2 workers a rank x 2 micro-batches of one 2048-token
     sequence, 3 steps) on two gloo ranks sharing the card, against 9a's code
-    at the same depth on one rank; then (``with_fault``) the same with a planted
-    fault (rank 1 skips one kept micro-batch), which ``dp_check`` must
-    reject."""
+    at the same depth on one rank, which must pass every check of
+    ``dp_faults``; then the same with a planted fault (rank 1 skips one kept
+    micro-batch), which they must reject, and the log says which did."""
     small = dataclasses.replace(cfg, n_layers=layers)
     tau, masks = dp_tau(cfg, seed)
     mode_line = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
@@ -2534,7 +2551,7 @@ def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS, pool_gib: float = DP_
     per_mb = launches_per_microbatch(small, len(names))
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
-    for plant in (False, True)[:1 + with_fault]:
+    for plant in (False, True):
         t0 = time.perf_counter()
         got = procs.spawn(dp_rank, DP_RANKS, backend="gloo", device=f"{DEV}:0",
                           timeout_s=DP_TIMEOUT_S, workdir=root, args=(small, seed, tau, plant))
@@ -2548,18 +2565,18 @@ def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS, pool_gib: float = DP_
                 f"bytes, gloo through the host); peak {g['peak_gib']:.2f} GiB; train "
                 f"{g['wall_s']:.1f} s; launches {g['counts']}")
         log(f"dp 9b {tag}: {DP_RANKS} ranks spawned and joined in {spawn_s:.1f} s")
+        faults = dp_faults(got, one, masks, per_mb, names, order_gaps)
+        failed = faults["ranks"] + faults["values"]
         if not plant:
-            dp_check(got, one, masks, per_mb, names, order_gaps)
+            check(not failed, "; ".join(failed))
             log(f"dp 9b: two gloo ranks match one rank (drop fractions, tau trajectory and kept "
                 f"counts exact; losses within {GRAPH_LEAF_GAP}, {len(names)} leaves within "
                 f"their limits)")
         else:
-            try:
-                dp_check(got, one, masks, per_mb, names, order_gaps)
-            except SmokeFailure as e:
-                log(f"dp 9b planted fault rejected: {e}")
-            else:
-                raise SmokeFailure("dp 9b: the planted skipped micro-batch passed the checks")
+            check(bool(failed), f"dp 9b {cfg.name}: the planted skipped micro-batch passed the checks")
+            log(f"dp 9b {cfg.name} planted fault rejected; by the ranks' own checks: "
+                f"{'; '.join(faults['ranks']) or 'none'}; by the values against one rank: "
+                f"{'; '.join(faults['values']) or 'none'}")
         del got
 
 
@@ -2846,7 +2863,7 @@ def main() -> int:
     free_device()
     dp_gloo_phase(cfg, args.seed)
     free_device()
-    dp_gloo_phase(mcfg, args.seed, layers=M_DP_LAYERS, pool_gib=M_DP_POOL_GIB, with_fault=False)
+    dp_gloo_phase(mcfg, args.seed, layers=M_DP_LAYERS, pool_gib=M_DP_POOL_GIB)
     free_device()
 
     # 10. Mamba-2 training at full depth, its step-0 gradient, then the 2-layer

@@ -78,7 +78,7 @@
 //   * the key-tile pass (ssd_bwd_keys_kernel), in the shape of flash
 //     attention's dK/dV pass: a CTA of 4 warps owns one 16-key tile j of
 //     one chunk and every head; blockIdx.x runs the key tiles from the first
-//     (the most query tiles) to the last (ssd_chunk.py's SsdBwdPlan).
+//     (the most query tiles) to the last.
 //     - phase 0: S_ij = C_i . B_j for every query tile i >= j, once for all
 //       heads, in f32 on the FMA pipes summed in order over the state (the
 //       forward's S, bit for bit; 2 keys x 2 queries a thread), pairs of C

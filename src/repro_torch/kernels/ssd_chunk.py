@@ -18,10 +18,10 @@ output and launches on PyTorch's current stream.
 K6's backward has no TPU kernel (JAX differentiates the reference's jnp
 form): two launches in ``ssd_chunk.cu`` (``repro_ssd_bwd``), shaped as
 flash attention's dK/dV pass.  A CTA owns one 16-key tile of one chunk and
-every head (``SsdBwdPlan``): it forms S = C . B^T for each query tile at or
-below its diagonal once for all heads, then per head walks those query
-tiles (its 4 warps take every fourth, each through its own ``cp.async``
-ring of dy tiles), u = (S e)^T dy and q = x . dy^T on the tensor cores in
+every head (the grid, one CTA per (chunk, tile), is mapped in the kernel):
+it forms S = C . B^T for each query tile at or below its diagonal once for
+all heads, then per head walks those query tiles (its 4 warps take every
+fourth, each through its own ``cp.async`` ring of dy tiles), u = (S e)^T dy and q = x . dy^T on the tensor cores in
 3xTF32, dS summed over the heads in order in shared memory, and ends each
 head with dx, ddt and dcum of its own rows; then dB of its rows, and dS
 into a (G, L, L) scratch (``scratch_bytes``) from which a second pass forms
@@ -59,9 +59,6 @@ HEAD_GROUPS = (4, 2, 1)  # heads a CTA the source instantiates, largest first
 #: a 16-key column of the chunk in shared memory); its L must also be a
 #: multiple of ``ROW_TILE``
 BWD_MAX_LEN = 256
-#: warps of the backward's key-tile CTA; warp w takes the query tiles
-#: jt + w, jt + w + 4, ... of its key tile jt (``kWarps`` in the source)
-BWD_WARPS = 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -258,38 +255,6 @@ def ssd_segment(
                           segment=True)
     ssd_segment.launches += int(launched)
     return y
-
-
-@dataclasses.dataclass(frozen=True)
-class SsdBwdPlan:
-    """The backward's two grids over ``groups`` chunks of ``length`` rows
-    (a multiple of ``ROW_TILE``), one CTA per (chunk, 16-row tile) each."""
-
-    groups: int
-    length: int
-
-    @property
-    def tiles(self) -> int:
-        return self.length // ROW_TILE
-
-    @property
-    def ctas(self) -> int:
-        return self.groups * self.tiles
-
-    def keys_work(self, cta: int) -> Tuple[int, int]:
-        """(chunk, key tile) of the key-tile pass's CTA ``cta``: the first
-        key tile (the most query tiles at or below it) first."""
-        return cta % self.groups, cta // self.groups
-
-    def warp_tiles(self, key_tile: int, warp: int) -> range:
-        """The query tiles warp ``warp`` of key tile ``key_tile``'s CTA
-        walks, for every head, in order."""
-        return range(key_tile + warp, self.tiles, BWD_WARPS)
-
-    def dc_work(self, cta: int) -> Tuple[int, int]:
-        """(chunk, query tile) of the dC pass's CTA ``cta``: the last query
-        tile (the most key tiles) first."""
-        return cta % self.groups, self.tiles - 1 - cta // self.groups
 
 
 def scratch_bytes(groups: int, length: int) -> int:

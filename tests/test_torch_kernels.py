@@ -43,8 +43,6 @@ from test_torch_parity_util import (  # noqa: E402
     packed_scenario,
     plan_scenario,
     quantize_pool,
-    SSD_BWD_TOL,
-    norm_rel_err,
     row_rel_err,
     skip_diagonal_tile_mask,
     skip_last_page,
@@ -1063,125 +1061,3 @@ class TestSsdPlan:
         kw = {"late_start": 1} if fault == "late_start" else {"skip_diagonal": True}
         got, _ = walk_ssd(*a, seg=seg, **kw)
         assert row_rel_err(got, ssd_walk_want(a, seg)) > 1e-2
-
-
-# ---------------------------------------------------------------------------
-# K6's backward: the schedule of its two passes (SsdBwdPlan)
-# ---------------------------------------------------------------------------
-
-
-def walk_ssd_bwd(x, dt, cum, b, c, dy, y, skip_diagonal=False):
-    """A numpy walk of the backward's schedule, f64 (inputs (G, L, ...)):
-    each key-tile CTA of ``SsdBwdPlan`` (``keys_work``) forms S for the
-    query tiles at or below its key tile, then per head each warp's query
-    tiles (``warp_tiles``) add to u and to dS (summed over the heads), and
-    the CTA writes dx, ddt, dcum of its 16 rows per head, dB of its rows and
-    its column of dS into the scratch; each dC CTA (``dc_work``) sums its
-    row of the scratch against B.  Returns the five gradients and how many
-    times each element of each was written.  ``skip_diagonal`` plants a
-    fault: no warp takes the key tile's own query tile."""
-    rt_n = ssd_chunk.ROW_TILE
-    gs, length, h, p = x.shape
-    plan = ssd_chunk.SsdBwdPlan(gs, length)
-    outs = [np.zeros(t.shape) for t in (x, dt, cum, b, c)]
-    writes = [np.zeros(t.shape, int) for t in (x, dt, cum, b, c)]
-    scratch = np.full((gs, length, length), np.nan)
-    pairs = np.zeros((gs, plan.tiles, plan.tiles), int)
-    for cta in range(plan.ctas):
-        g, jt = plan.keys_work(cta)
-        keys = np.arange(jt * rt_n, (jt + 1) * rt_n)
-        ds = np.zeros((length, rt_n))  # rows: queries
-        for hh in range(h):
-            u = np.zeros((rt_n, p))
-            for warp in range(ssd_chunk.BWD_WARPS):
-                for it in plan.warp_tiles(jt, warp):
-                    if skip_diagonal and it == jt:
-                        continue
-                    if hh == 0:
-                        pairs[g, it, jt] += 1
-                    qs = np.arange(it * rt_n, (it + 1) * rt_n)
-                    s = c[g, qs].astype(np.float64) @ b[g, keys].T.astype(np.float64)
-                    ok = keys[None] <= qs[:, None]
-                    e = np.exp(np.where(ok, cum[g, keys, hh][None] - cum[g, qs, hh][:, None],
-                                        -np.inf))
-                    u += (s * e).T @ dy[g, qs, hh]
-                    ds[qs] += (dy[g, qs, hh] @ x[g, keys, hh].T) * e * dt[g, keys, hh][None]
-            ddt = (x[g, keys, hh] * u).sum(-1)
-            outs[0][g, keys, hh] = dt[g, keys, hh][:, None] * u
-            outs[1][g, keys, hh] = ddt
-            outs[2][g, keys, hh] = dt[g, keys, hh] * ddt - (dy[g, keys, hh] * y[g, keys, hh]).sum(-1)
-            for i in range(3):
-                writes[i][g, keys, hh] += 1
-        below = slice(jt * rt_n, length)
-        outs[3][g, keys] = ds[below].T @ c[g, below]
-        writes[3][g, keys] += 1
-        scratch[g, below, jt * rt_n:(jt + 1) * rt_n] = ds[below]
-    for cta in range(plan.ctas):
-        g, it = plan.dc_work(cta)
-        qs = slice(it * rt_n, (it + 1) * rt_n)
-        cols = slice(0, (it + 1) * rt_n)  # the key tiles at or before the query tile
-        outs[4][g, qs] = scratch[g, qs, cols] @ b[g, cols]
-        writes[4][g, qs] += 1
-    return outs, writes, pairs
-
-
-#: (chunks, rows, heads): the training chunk, chunks whose query tiles do
-#: not split evenly over the 4 warps (3 and 15 tiles), a single tile
-SSD_BWD_WALK_CASES = [(2, 256, 3), (1, 48, 5), (2, 240, 2), (3, 64, 1), (1, 16, 4)]
-
-
-def ssd_bwd_walk_inputs(gs, length, h, seed=0):
-    """(x, dt, cum, b, c, dy, y) with G = gs chunks, head dim 64 and state
-    128 (the built widths), y the plain forward's."""
-    a = [v.reshape(gs, *v.shape[2:]) for v in ssd_chunk_inputs(1, gs, length, h, 64, 128, seed)]
-    dy = np.random.default_rng(seed + 1).normal(size=a[0].shape).astype(np.float32)
-    y = ref.ssd_chunk_ref(*(torch.from_numpy(v)[None] for v in a))[0].numpy()
-    return a + [dy, y]
-
-
-def ssd_bwd_walk_want(a):
-    t = [torch.from_numpy(v)[None] for v in a]
-    return [w[0].numpy() for w in ref.ssd_chunk_bwd_ref(*t[:5], t[5])]
-
-
-class TestSsdBwdPlan:
-    @pytest.mark.parametrize("gs,length,h", SSD_BWD_WALK_CASES)
-    def test_walk_matches_plain_backward(self, gs, length, h):
-        """The two passes' schedule writes every gradient element once,
-        takes every (query tile, key tile) pair at or below the diagonal
-        exactly once a head, and gives the plain backward's result under
-        its card metrics (dx row by row, the rest by norm)."""
-        a = ssd_bwd_walk_inputs(gs, length, h, seed=length + h)
-        got, writes, pairs = walk_ssd_bwd(*a)
-        for w in writes:
-            assert (w == 1).all()
-        tiles = length // ssd_chunk.ROW_TILE
-        np.testing.assert_array_equal(pairs, np.broadcast_to(np.tri(tiles, dtype=int), pairs.shape))
-        want = ssd_bwd_walk_want(a)
-        errs = [row_rel_err(got[0], want[0])] + [norm_rel_err(g, w) for g, w in zip(got[1:], want[1:])]
-        assert max(errs) <= SSD_BWD_TOL, errs
-
-    def test_plan_maps_every_tile_once_most_work_first(self):
-        """Both grids cover every (chunk, 16-row tile) once; the key-tile
-        pass starts with the first key tile, the dC pass with the last
-        query tile (the most work in each)."""
-        plan = ssd_chunk.SsdBwdPlan(3, 80)
-        assert plan.tiles == 5 and plan.ctas == 15
-        keys = [plan.keys_work(c) for c in range(plan.ctas)]
-        dcs = [plan.dc_work(c) for c in range(plan.ctas)]
-        want = sorted((g, t) for g in range(3) for t in range(5))
-        assert sorted(keys) == want and sorted(dcs) == want
-        assert [t for _, t in keys] == sorted(t for _, t in keys)
-        assert [t for _, t in dcs] == sorted((t for _, t in dcs), reverse=True)
-        assert [list(plan.warp_tiles(1, w)) for w in range(ssd_chunk.BWD_WARPS)] == \
-            [[1], [2], [3], [4]]
-        assert [list(plan.warp_tiles(0, w)) for w in range(ssd_chunk.BWD_WARPS)] == \
-            [[0, 4], [1], [2], [3]]
-
-    def test_walk_catches_a_skipped_diagonal_tile(self):
-        """A key-tile CTA that leaves out its own query tile moves dB (and
-        the rest) far outside the card's tolerance."""
-        a = ssd_bwd_walk_inputs(1, 64, 2, seed=3)
-        got, _, _ = walk_ssd_bwd(*a, skip_diagonal=True)
-        want = ssd_bwd_walk_want(a)
-        assert norm_rel_err(got[3], want[3]) > 1e2 * SSD_BWD_TOL

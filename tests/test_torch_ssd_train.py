@@ -7,7 +7,9 @@ Same numpy inputs through both packages:
   closed form) against ``jax.vjp`` of the reference's
   ``repro.kernels.ref.ssd_chunk_ref`` and against ``torch.autograd`` of the
   port's plain forward, at several (B, NC, L, H), L 16 and 64 among them,
-  and with a dt = 0 padded tail as ``models.ssm._ssd_dense`` makes it;
+  and at the built widths with the chunk lengths and head counts the card
+  tests give the CUDA backward (under its metrics, ``SSD_BWD_TOL``), and
+  with a dt = 0 padded tail as ``models.ssm._ssd_dense`` makes it;
   ``ops.ssd_chunk`` under autograd (``SsdChunkFn``) returns exactly the
   plain backward on the CPU;
 * ``models.ssm._ssd_chunked`` under autograd (y and the final state both in
@@ -41,13 +43,25 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops, ref, ssd_chunk  # noqa: E402
 from repro_torch.kernels.flash_attention import UnbuiltShapeError  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
-from test_torch_parity_util import assert_close, ssd_chunk_inputs  # noqa: E402
+from test_torch_parity_util import (  # noqa: E402
+    SSD_BWD_TOL,
+    assert_close,
+    norm_rel_err,
+    row_rel_err,
+    ssd_chunk_inputs,
+)
 
 torch.set_num_threads(1)
 
 NAMES = ("dx", "ddt", "dcum", "db", "dc")
 # (B, NC, L, H, P, N)
 SHAPES = [(1, 2, 16, 3, 8, 5), (2, 1, 64, 2, 4, 6), (1, 3, 16, 4, 16, 8), (2, 2, 32, 1, 8, 16)]
+#: at the built widths (head dim 64, state 128), the chunk lengths and head
+#: counts at which the card's tests hold the CUDA backward against this
+#: plain one: L 48 and 240 (3 and 15 row tiles, not a multiple of its 4
+#: warps) with 3 and 5 heads, the 256-row training chunk, L 64 and 16
+BUILT_SHAPES = [(2, 2, 48, 3, 64, 128), (1, 2, 240, 5, 64, 128), (1, 1, 256, 3, 64, 128),
+                (1, 2, 64, 1, 64, 128), (1, 1, 16, 4, 64, 128)]
 
 
 def _inputs(shape, seed, pad=0):
@@ -92,6 +106,29 @@ class TestSsdChunkBackward:
         got = ref.ssd_chunk_bwd_ref(*(torch.from_numpy(v) for v in args), torch.from_numpy(dy))
         for g, leaf in zip(got, leaves):
             assert_close(g, leaf.grad, "ssd_f32")
+
+    @pytest.mark.parametrize("against", ["jax", "autograd"])
+    @pytest.mark.parametrize("shape", BUILT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+    def test_plain_backward_at_the_built_widths(self, shape, against):
+        """At head dim 64 and state 128 the sums over them cancel, and the
+        elements no longer agree to ``ssd_f32``; the plain backward is held
+        to the card's contract instead (``SSD_BWD_TOL``, dx row by row, the
+        rest by norm), against ``jax.vjp`` of the reference and against
+        autograd of the plain forward."""
+        args, dy = _inputs(shape, seed=sum(shape))
+        t = [torch.from_numpy(v) for v in args]
+        got = ref.ssd_chunk_bwd_ref(*t, torch.from_numpy(dy))
+        if against == "jax":
+            want = _jax_vjp(args, dy)
+        else:
+            leaves = [v.clone().requires_grad_() for v in t]
+            ref.ssd_chunk_ref(*leaves).backward(torch.from_numpy(dy))
+            want = [leaf.grad for leaf in leaves]
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+        errs = [row_rel_err(got[0], want[0])] + [norm_rel_err(g, w)
+                                                 for g, w in zip(got[1:], want[1:])]
+        assert max(errs) <= SSD_BWD_TOL, dict(zip(NAMES, errs))
 
     def test_ops_ssd_chunk_differentiates_through_the_plain_backward(self):
         """On the CPU ``SsdChunkFn`` runs the plain forward and backward:
