@@ -43,7 +43,11 @@ filed apart).  A copy of this script placed at the
 root of another checkout (a ``git archive`` of a later commit: its
 ``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
 checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
-in turns; ``--tag`` labels each line.
+in turns; ``--tag`` labels each line.  Copied there together with this
+tree's ``chip_smoke.py``, ``--only kernels`` times that tree's kernels with
+this tree's timing code (K2's forward back to back, for one), as long as
+the kernel wrappers that code calls have the same names and signatures in
+both trees.
 """
 from __future__ import annotations
 
@@ -76,7 +80,7 @@ FAMILIES = (  # first match wins; K4's and K2 backward's two kernels are sub-row
     ("K3 flash_attention: backward dQ", re.compile(r"attn_bwd_dq")),
     ("K2 rmsnorm: backward rows", re.compile(r"rmsnorm_bwd_rows|rmsnorm_bwd_kernel")),
     ("K2 rmsnorm: backward dscale sum", re.compile(r"rmsnorm_bwd_colsum|colsum_kernel")),
-    ("K2 rmsnorm", re.compile(r"rmsnorm_kernel")),
+    ("K2 rmsnorm", re.compile(r"rmsnorm_fwd_rows|rmsnorm_kernel")),
     ("K1 masked_accum", re.compile(r"masked_accum_kernel")),
     ("K6 ssd_chunk: backward key-tile pass", re.compile(r"ssd_bwd_keys_kernel")),
     ("K6 ssd_chunk: backward dC", re.compile(r"ssd_bwd_dc_kernel")),

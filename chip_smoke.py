@@ -16,12 +16,13 @@ input copy is skipped, must fail the stream check.
 1. device — the card's name and power limit (``nvidia-smi``); fails
    without CUDA;
 2. build — the four CUDA sources, ``paged_attention.cu``,
-   ``flash_attention.cu``, ``ssd_chunk.cu`` and ``rmsnorm_bwd.cu``
+   ``flash_attention.cu``, ``ssd_chunk.cu`` and ``rmsnorm.cu``
    (``nvcc``, sm_90a, the builds started together; ptxas's registers and
-   spills of the K3, K4 and K2-backward kernels printed, and of each SSD
-   kernel instance and K6's backward's two kernels with their shared
-   memory and CTAs an SM), and the Triton
-   kernels' JIT, with their build seconds;
+   spills of the K3, K4 and K2 forward and backward kernels printed, K2's
+   forward's plan and dynamic shared memory at the main paths' shapes, and
+   each SSD kernel instance's and K6's backward's two kernels' with their
+   shared memory and CTAs an SM), and the Triton kernel's (K1) JIT, with
+   their build seconds;
 3. kernels — each kernel against its plain PyTorch version on the card at
    qwen2.5-3b widths, timed by CUDA-graph replay with L2 flushed, beside
    its bound, its plain version's time and, where one PyTorch call computes
@@ -32,8 +33,14 @@ input copy is skipped, must fail the stream check.
      wrapper, and padded to a packed step's fixed rows as the engine makes
      it (timed padded, the unpadded plan beside); a planted fault (a tile's
      last page skipped) must fail the same check;
-   * RMSNorm (K2): d = 2048, both modes, bf16 and f32, row counts on and
-     off the block, timed at serving's and training's shapes; its backward
+   * RMSNorm (K2): d = 2048 and 768 (serving's and both trainings' row
+     counts, ragged ones, rows that ring through the stage slots, rows one
+     slot wide), both modes, f32, bf16 and f16, row counts on and off the
+     plan; aligned and one element off alignment (the element-wise path,
+     the aligned run's bits); two runs bit-identical; rows 0..7 alone the
+     same bits as in the 8,192-row call; a planted fault (each row's last
+     16-byte vector left out of its sum) must fail the bf16 check; timed at
+     serving's and training's shapes, one replay and back to back; its backward
      at the training shape (2048 x 2048): two runs bit-identical, and a
      planted fault (one CTA's rows left out of dscale) must fail the f32
      check; timed beside ``F.rms_norm``'s backward alone (graph-captured);
@@ -65,7 +72,7 @@ input copy is skipped, must fail the stream check.
      faults (dB without the diagonal key tile, dcum without its row part);
      timed at both shapes, launch by launch too, beside its plain version
      and both bounds; K2's backward again at mamba2-130m's width (d 768,
-     8,192 rows), bf16 and f32, and K2's forward timed there;
+     8,192 rows), bf16 and f32;
 4. serving — qwen2.5-3b at full width (36 layers, random weights from
    ``--seed``) through ``ContinuousBatcher(cache="paged", chunk_size=64,
    token_budget=256)``, unpacked then packed, 8 requests of 128-512 prompt
@@ -162,7 +169,8 @@ input copy is skipped, must fail the stream check.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K6's backward's record row is read at
-the Mamba-2 training shape, its launches from phase 10.  K6 and K5's
+the Mamba-2 training shape, its launches from phase 10; K2's forward's at
+the Mamba-2 training micro-batch (8,192 x 768).  K6 and K5's
 record rows are read at the mamba serving run's shapes: 8 rows of one
 64-row chunk (a 64-token
 prefill step), and the packed
@@ -239,10 +247,20 @@ BLOCKS = -(-MAX_LEN // PAGE)
 # in f32 and round the output once to bf16, so they differ by ~1 bf16 ulp
 # (2^-8 relative) of an O(1) output; 2e-2 leaves room for that and for the
 # different summation order.  RMSNorm in f32: the kernel and the plain
-# version differ only in reduction order and rsqrt rounding (~1e-7).
+# version differ only in reduction order and rsqrt rounding (~1e-7); in bf16
+# and f16 by at most one ulp of the output (K2_BF16_ULPS holds both).
 K4_TOL = dict(atol=2e-2, rtol=2e-2)
 K2_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 K2_BF16_ULPS = 1
+# K2 in model mode, bf16 or f16: inv is rounded to x's dtype before the
+# multiplies, so a row whose inv (f64) lies within this of the midpoint
+# between two neighbouring values of the dtype (relative) may have it rounded
+# either way by the kernel and by the plain version, each with its own f32
+# sum of squares and rsqrt (~1e-6 apart at most); such a row is held to
+# whichever rounding it is nearer (``k2_model_ulps``).  Seen on the card: one
+# f16 row of 40,000 at 3.6e-8 from the midpoint, 2 ulps from the plain
+# version.
+K2_INV_TIE = 2.0 ** -18
 # First-step logits, paged kernel vs dense plain attention, both bf16: each
 # layer's attention output can differ by ~1 bf16 ulp (2^-8 relative), and 36
 # residual layers carry that into the logits.  The bound is on the largest
@@ -744,61 +762,178 @@ def k4_timing(rng, prompt_lens):
 # ---------------------------------------------------------------------------
 
 
-def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest distance in bf16 ulps between two bf16 tensors."""
-
-    def line(x):
-        i = x.contiguous().view(torch.int16).int()
-        return torch.where(i < 0, -(i & 0x7FFF), i)
-
-    return int((line(a) - line(b)).abs().max().item())
+def ulp_line(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 or f16 tensor's values as integers one ulp apart (both formats
+    order their bit patterns by sign and magnitude)."""
+    i = x.contiguous().view(torch.int16).int()
+    return torch.where(i < 0, -(i & 0x7FFF), i)
 
 
-def k2_checks(rng, d=2048, eps=1e-6):
-    block_rows = rmsnorm.block_shape(d)[0]
+def ulps16(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in ulps between two bf16 or two f16 tensors."""
+    return int((ulp_line(a) - ulp_line(b)).abs().max().item())
+
+
+def k2_plain(x, s, eps, model):
+    return (ref.rmsnorm_model if model else ref.rmsnorm_ref)(x, s, eps)
+
+
+def rmsnorm_without_last_vector(x, s, eps=1e-6, model=False):
+    """K2's planted fault: what a kernel that leaves each row's last 16-byte
+    vector out of its sum of squares (the mean still over d) would return,
+    by the plain version's numerics (``tests/test_torch_parity_util.py``
+    has its twin)."""
+    d = x.shape[-1]
+    ms = x[..., :d - 16 // x.element_size()].float().square().sum(-1, keepdim=True) / d
+    inv = torch.rsqrt(ms + eps)
+    if model:
+        return x * inv.to(x.dtype) * s.to(x.dtype)
+    return (x.float() * inv * s.float()).to(x.dtype)
+
+
+def k2_model_ulps(out, x, s, eps):
+    """(ulps, tie rows): the largest distance in ulps of ``out`` (bf16 or
+    f16) from ``ref.rmsnorm_model``, row by row; a row whose inv is a tie
+    (``K2_INV_TIE``) is also measured against the output with inv rounded
+    the other way, and the nearer of the two counts (the twin of
+    ``rmsnorm_model_ulps`` in ``tests/test_torch_parity_util.py``)."""
+    def row_ulps(a, b):
+        return (ulp_line(a) - ulp_line(b)).abs().amax(-1)
+
+    plain_inv = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + eps).to(x.dtype)
+    inv = torch.rsqrt(x.double().square().mean(-1, keepdim=True) + eps)
+    bits = plain_inv.view(torch.int16)  # inv > 0: its neighbours are one bit pattern away
+    other = torch.where(plain_inv.double() <= inv, (bits + 1).view(x.dtype),
+                        (bits - 1).view(x.dtype))
+    tie = ((inv - (plain_inv.double() + other.double()) / 2).abs() <= K2_INV_TIE * inv)[..., 0]
+    u = row_ulps(out, ref.rmsnorm_model(x, s, eps))
+    u_other = row_ulps(out, x * other * s.to(x.dtype))
+    return int(torch.where(tie, torch.minimum(u, u_other), u).max().item()), int(tie.sum().item())
+
+
+def k2_held(out, x, s, eps, model, tag) -> float:
+    """``out`` against the plain version: f32 within ``K2_F32_TOL``, bf16
+    and f16 within ``K2_BF16_ULPS`` ulps (in model mode by
+    ``k2_model_ulps``).  Returns the largest absolute difference."""
+    want = k2_plain(x, s, eps, model)
+    err = (out.float() - want.float()).abs().max().item()
+    if out.dtype == torch.float32:
+        check(torch.allclose(out, want, **K2_F32_TOL), f"{tag}: max |err| {err}")
+        log(f"{tag}: max|err|={err:.3e} ok")
+        return err
+    ulps, ties = k2_model_ulps(out, x, s, eps) if model else (ulps16(out, want), 0)
+    check(ulps <= K2_BF16_ULPS, f"{tag}: {ulps} ulps apart")
+    log(f"{tag}: max|err|={err:.3e} ({ulps} ulp{f'; {ties} rows of tied inv' if model else ''}) ok")
+    return err
+
+
+#: K2's checks, (rows, d): qwen2.5-3b's decode step, a full and a ragged
+#: packed step and 3 rows; Mamba-2's training micro-batch and one row fewer;
+#: a count whose stages ring through the slots (40,000 x 2048), and rows so
+#: wide that a stage is one row (600 x 29,000; in f32 one slot holds it)
+K2_SHAPES = ((8, 2048), (256, 2048), (3, 2048), (257, 2048), (8192, 768), (8191, 768),
+             (40000, 2048), (600, 29000))
+
+
+def k2_checks(rng, eps=1e-6):
+    """K2's forward against its plain version at ``K2_SHAPES`` in f32, bf16
+    and f16, both modes: aligned (the bulk-copy path) and as a view one
+    element off 16-byte alignment (the element-wise path, which must give
+    the aligned run's bits); two runs bit-identical; at Mamba-2's
+    micro-batch, rows 0..7 alone equal the same rows of the whole call bit
+    for bit, and the planted fault (``rmsnorm_without_last_vector``) must
+    fail the bf16 check.  Returns the largest absolute difference."""
+    sms = rmsnorm._sm_count(0)
     max_err = 0.0
-    for rows in (8, 256, 3, 257):
-        for dtype in (torch.float32, torch.bfloat16):
+    for rows, d in K2_SHAPES:
+        s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV)
+        x32 = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(DEV)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            x = x32.to(dtype)
+            off = torch.empty(rows * d + 1, dtype=dtype, device=DEV)[1:].view(rows, d)
+            off.copy_(x)
+            plan = rmsnorm.fwd_partition(rows, d, x.element_size(), sms)
+            on = rows == plan.ctas * plan.rows_per_cta and plan.rows_per_cta % plan.stage_rows == 0
             for model in (False, True):
-                x = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(DEV, dtype)
-                s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV)
+                tag = (f"K2 {rows:5d} x {d:5d} ({'on' if on else 'off'} the plan: {plan.ctas} CTAs "
+                       f"x {plan.rows_per_cta}, stages of {plan.stage_rows}, {plan.slots} slots) "
+                       f"{str(dtype)[6:]:8s} {'model' if model else 'f32'}")
                 out = rmsnorm.rmsnorm(x, s, eps=eps, model=model)
-                want = (ref.rmsnorm_model if model else ref.rmsnorm_ref)(x, s, eps)
-                torch.cuda.synchronize()
-                err = (out.float() - want.float()).abs().max().item()
-                max_err = max(max_err, err)
-                tag = (f"K2 rows={rows:3d} ({'on' if rows % block_rows == 0 else 'off'} the "
-                       f"block) {str(dtype)[6:]:8s} {'model' if model else 'f32'}")
-                if dtype == torch.float32:
-                    check(torch.allclose(out, want, **K2_F32_TOL), f"{tag}: max |err| {err}")
-                    log(f"{tag}: max|err|={err:.3e} ok")
-                else:
-                    ulps = bf16_ulps(out, want)
-                    check(ulps <= K2_BF16_ULPS, f"{tag}: {ulps} ulps apart")
-                    log(f"{tag}: max|err|={err:.3e} ({ulps} ulp) ok")
+                max_err = max(max_err, k2_held(out, x, s, eps, model, tag))
+                check(torch.equal(out, rmsnorm.rmsnorm(x, s, eps=eps, model=model)),
+                      f"{tag}: two runs differ (no atomics: they must not)")
+                check(torch.equal(rmsnorm.rmsnorm(off, s, eps=eps, model=model), out),
+                      f"{tag}: the element-wise path (x off alignment) differs from the bulk path")
+                if rows == 8192:
+                    check(torch.equal(rmsnorm.rmsnorm(x[:8], s, eps=eps, model=model), out[:8]),
+                          f"{tag}: rows 0..7 alone differ from the same rows of the whole call")
+                if rows == 8192 and dtype == torch.bfloat16:
+                    bad = rmsnorm_without_last_vector(x, s, eps, model)
+                    ulps = (k2_model_ulps(bad, x, s, eps)[0] if model
+                            else ulps16(bad, k2_plain(x, s, eps, model)))
+                    check(ulps > K2_BF16_ULPS, f"{tag}: the ulp check lets a planted fault pass")
+                    log(f"K2 planted fault (each row's last 16-byte vector left out of its sum) "
+                        f"{'model' if model else 'f32'}: {ulps} ulps against the limit "
+                        f"{K2_BF16_ULPS}: rejected")
+            del x, off, out
     return max_err
+
+
+def back_to_back_ms(fn, inputs, launches: int) -> float:
+    """Device time a launch of ``fn`` when ``launches`` calls run back to
+    back in one CUDA graph, call i on ``inputs[i % len(inputs)]`` and every
+    output kept (each call writes a buffer of its own): ``replay_ms`` of
+    the graph over the count."""
+    outs = []
+
+    def run():
+        outs.clear()
+        for i in range(launches):
+            outs.append(fn(inputs[i % len(inputs)]))
+
+    t = replay_ms(capture(run), iters=10) / launches
+    outs.clear()
+    return t
 
 
 def k2_timing(rng, d=2048, eps=1e-6):
     """At the main paths' shapes: a decode step (8 rows), the packed mixed
     step (257 rows) and a training micro-batch (2048 rows) of qwen2.5-3b's
     width ``d``, and a Mamba-2 training micro-batch (8,192 rows of 768),
-    bf16 model mode."""
+    bf16 model mode.  Per shape: one replay of one launch (``ms``, the
+    record's), the kernel's own time as one graph of back-to-back launches
+    over rotating inputs of at least 100 MB in all with every output its
+    own (``launch_ms``) and as the profiler's device time a launch
+    (``prof_ms``), the plain version, ``F.rms_norm`` (one replay and back to
+    back), and the bound."""
     rows_out = {}
     for shape, rows, d in (("decode", SLOTS, d), ("mixed", BUDGET + 1, d), ("train", TRAIN_SEQ, d),
                            ("mamba_train", M_TRAIN_SEQS * TRAIN_SEQ, 768)):
         s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV)
         x = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(DEV, torch.bfloat16)
-        kern = time_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True))
-        plain = time_ms(lambda: ref.rmsnorm_model(x, s, eps))
         sb = s.to(torch.bfloat16)
-        lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), weight=sb, eps=eps))
         nbytes = 2 * x.numel() * x.element_size() + s.numel() * 4
+        n_in = max(4, -(-100_000_000 // nbytes))
+        xs = x.expand(n_in, rows, d).clone()  # n_in copies of x, one buffer each
+        launches = max(n_in, 32)
+        kern = time_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True))
+        b2b = back_to_back_ms(lambda xi: rmsnorm.rmsnorm(xi, s, eps=eps, model=True), xs, launches)
+        # the only kernel the call launches (also the Triton forward's name)
+        prof = kernel_split_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True),
+                               {"k2": "rmsnorm"})["k2"]
+        plain = time_ms(lambda: ref.rmsnorm_model(x, s, eps))
+        lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), weight=sb, eps=eps))
+        lib_b2b = back_to_back_ms(
+            lambda xi: torch.nn.functional.rms_norm(xi, (d,), weight=sb, eps=eps), xs, launches)
         b, by = bound_ms(nbytes, 4.0 * x.numel())
-        rows_out[shape] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=b,
+        rows_out[shape] = dict(ms=kern, launch_ms=b2b, prof_ms=prof, plain_ms=plain,
+                               library_ms=lib, library_launch_ms=lib_b2b, bound_ms=b,
                                bound_by=by, rows=rows)
-        log(f"K2 time {shape:6s} rows={rows:3d} d={d}: kernel {kern * 1e3:.1f} us, plain "
-            f"{plain * 1e3:.1f} us, F.rms_norm {lib * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by})")
+        log(f"K2 time {shape:11s} rows={rows:4d} d={d}: kernel {kern * 1e3:.2f} us (one replay), "
+            f"{b2b * 1e3:.2f} us a launch back to back ({launches} in a graph), profiler "
+            f"{prof * 1e3:.2f} us; plain {plain * 1e3:.1f} us; F.rms_norm {lib * 1e3:.2f} us, "
+            f"{lib_b2b * 1e3:.2f} back to back; bound {b * 1e3:.2f} us ({by})")
+        del xs
     return rows_out
 
 
@@ -2765,13 +2900,13 @@ def main() -> int:
     # 2. build: one nvcc per CUDA source, started together
     t0 = time.perf_counter()
     loaders = (flash_attention.load_library, flash_attention.load_train_library,
-               ssd_chunk.load_library, rmsnorm.load_bwd_library)
+               ssd_chunk.load_library, rmsnorm.load_library)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for b in [pool.submit(f) for f in loaders]:
             b.result()
     sources = {flash_attention.SOURCE: r"paged_attention_[a-z]+",
                flash_attention.TRAIN_SOURCE: r"attn_[a-z_]+", ssd_chunk.SOURCE: None,
-               rmsnorm.BWD_SOURCE: r"rmsnorm_bwd_[a-z]+"}
+               rmsnorm.SOURCE: r"rmsnorm_(?:fwd|bwd)_[a-z]+"}
     for src in sources:
         log(f"build: {src} (nvcc sm_90a) -> "
             f"{_build.library_path(src).relative_to(_build.BUILD_DIR.parents[1])}")
@@ -2779,15 +2914,19 @@ def main() -> int:
     for src, names in sources.items():
         for line in (ptxas_lines(src, names) if names else ssd_build_lines()):
             log(f"build: ptxas -v, {src}: {line}")
+    sms = rmsnorm._sm_count(0)
+    for what, rows, d in (("decode", SLOTS, 2048), ("mixed", BUDGET + 1, 2048),
+                          ("train", TRAIN_SEQ, 2048), ("mamba_train", M_TRAIN_SEQS * TRAIN_SEQ, 768)):
+        plan = rmsnorm.fwd_partition(rows, d, 2, sms)
+        log(f"build: rmsnorm_fwd_rows at {what} ({rows} x {d} bf16): {plan.smem} B dynamic "
+            f"shared memory, {plan.ctas} CTAs of {plan.rows_per_cta} rows, stages of "
+            f"{plan.stage_rows} rows through {plan.slots} slots")
     t0 = time.perf_counter()
-    ones = torch.ones(2048, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
-        for model in (False, True):
-            rmsnorm.rmsnorm(torch.ones(4, 2048, device="cuda", dtype=dtype), ones, model=model)
         masked_accum.masked_accum(torch.zeros(4096, device="cuda"),
                                   torch.ones(4096, device="cuda", dtype=dtype), 1.0)
     torch.cuda.synchronize()
-    log(f"build: Triton JIT (rmsnorm, masked_accum) {time.perf_counter() - t0:.1f} s")
+    log(f"build: Triton JIT (masked_accum) {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels vs plain versions
     rng = np.random.default_rng(args.seed)
@@ -2796,6 +2935,7 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompt_lens]
     k4_err = k4_checks(rng, prompt_lens)
     k2_err = k2_checks(rng)
+    free_device()
     k3_fwd_err, k3_bwd_err = k3_checks(rng)
     k2b_err, k2b_t = k2_bwd_checks_and_timing(rng)
     k1_err, k1_t = k1_checks_and_timing(rng)
@@ -2887,14 +3027,12 @@ def main() -> int:
              ms=k4_t["decode"]["ms"], plain_ms=k4_t["decode"]["plain_ms"],
              bound_ms=k4_t["decode"]["bound_ms"], bound_by=k4_t["decode"]["bound_by"],
              library_ms=None),
-        dict(name="rmsnorm", route="triton",
-             source="src/repro_torch/kernels/rmsnorm.py",
+        dict(name="rmsnorm", route="cuda", source="src/repro_torch/kernels/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:27",
              launches=launches["rmsnorm"], max_abs_err=k2_err,
-             ms=k2_t["decode"]["ms"], plain_ms=k2_t["decode"]["plain_ms"],
-             bound_ms=k2_t["decode"]["bound_ms"], bound_by=k2_t["decode"]["bound_by"],
-             library_ms=k2_t["decode"]["library_ms"]),
-        dict(name="rmsnorm_bwd", route="cuda", source="src/repro_torch/kernels/rmsnorm_bwd.cu",
+             **{k: k2_t["mamba_train"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="rmsnorm_bwd", route="cuda", source="src/repro_torch/kernels/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:27",
              launches=launches["rmsnorm_bwd"], max_abs_err=k2b_err, **k2b_t),
         dict(name="flash_attention", route="cuda",

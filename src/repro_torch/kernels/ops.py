@@ -87,7 +87,7 @@ def _needs_grad(*xs) -> bool:
 
 
 def rmsnorm_fwd(x, scale, eps=1e-6, model=False):
-    """RMSNorm without autograd: the Triton kernel on the card,
+    """RMSNorm without autograd: the CUDA forward kernel on the card,
     ``ref.rmsnorm_model`` (``model=True``) or ``ref.rmsnorm_ref`` on the CPU."""
     if _device_type(x) == "cuda":
         return _rms.rmsnorm(x, scale, eps=eps, model=model)

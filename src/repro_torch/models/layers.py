@@ -72,9 +72,9 @@ def init_norm(cfg: ModelConfig, device=None) -> Params:
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig, eps: float = 1e-6):
     """RMSNorm goes through ``kernels.ops.rmsnorm`` in model mode (f32
-    statistics, compute-dtype multiplies — ``layers.py:54-57``): the Triton
-    kernel on the card, its plain version on the CPU; when x or the scale
-    requires grad, its gradient is the RMSNorm backward kernel's
+    statistics, compute-dtype multiplies — ``layers.py:54-57``): the CUDA
+    forward kernel on the card, its plain version on the CPU; when x or the
+    scale requires grad, its gradient is the RMSNorm backward kernel's
     (``ops.RMSNormFn``).  LayerNorm is plain."""
     if cfg.norm == "rmsnorm":
         return kernel_ops.rmsnorm(x, p["scale"], eps=eps, model=True)

@@ -14,9 +14,11 @@ the interpret-mode Pallas kernels and the reference's oracles
 (``tests/test_ssd_kernel.py``).  Inputs are made with numpy from a seed
 and fed to both packages.  Beside them, the schedules the CUDA kernels
 read: K3's ``tile_plan``, K4's ``paged_tile_plan`` (with a numpy walk of
-the paged kernel's schedule held to the plain version), K2 backward's
-row and column partition, and the SSD kernels' ``ssd_plan`` (with a numpy
-walk of K6's and K5's schedule held to the plain versions).
+the paged kernel's schedule held to the plain version), K2 forward's
+``fwd_partition`` (with a numpy walk of its stage ring held to the plain
+version) and its backward's row and column partition, and the SSD
+kernels' ``ssd_plan`` (with a numpy walk of K6's and K5's schedule held
+to the plain versions).
 """
 import numpy as np
 import pytest
@@ -35,6 +37,7 @@ from repro_torch.kernels import flash_attention, masked_accum, ops, ref, rmsnorm
 from repro_torch.kernels import ssd_chunk  # noqa: E402
 from test_torch_parity_util import (  # noqa: E402
     BF16_ULPS,
+    K2_INV_TIE,
     K3_ROW_TOL,
     TOL,
     assert_close,
@@ -43,6 +46,8 @@ from test_torch_parity_util import (  # noqa: E402
     packed_scenario,
     plan_scenario,
     quantize_pool,
+    rmsnorm_model_ulps,
+    rmsnorm_without_last_vector,
     row_rel_err,
     skip_diagonal_tile_mask,
     skip_last_page,
@@ -292,11 +297,6 @@ class TestDispatch:
             with pytest.raises(ssd_chunk.UnbuiltShapeError):
                 ssd_chunk.require_built(n, p, dtype)
 
-    def test_rmsnorm_block_shape(self):
-        assert rmsnorm.block_shape(2048) == (4, 2048, 8)
-        assert rmsnorm.block_shape(128) == (64, 128, 4)
-        assert rmsnorm.block_shape(100)[1] == 128
-
 
 # ---------------------------------------------------------------------------
 # K4's tile plan and a numpy walk of it; K2 backward's partition
@@ -408,6 +408,153 @@ class TestPagedTilePlan:
         assert torch.equal(got[others], want[others])
 
 
+#: the forward's main-path shapes (rows, d, itemsize): qwen2.5-3b's decode
+#: step, packed mixed step and training micro-batch, Mamba-2's training
+#: micro-batch; then ragged counts and f32
+FWD_SHAPES = [(8, 2048, 2), (257, 2048, 2), (2048, 2048, 2), (8192, 768, 2),
+              (1, 768, 2), (3, 2048, 2), (8191, 768, 2), (257, 2048, 4), (8192, 768, 4),
+              (100000, 2048, 4), (600, 29000, 4)]
+
+
+def walk_fwd(x, s, plan, model=False):
+    """A numpy walk of the forward kernel's schedule (``rmsnorm.cu``
+    ``rmsnorm_fwd_rows``) with the plan it launches: per CTA, the first
+    ``slots`` stages loaded, then stage by stage each row of the stage
+    normalised out of its slot (by the plain version) and, once the whole
+    stage is read, stage k + slots loaded into the same slot.  Asserts that
+    a slot is read only holding its stage and refilled only once read, and
+    that every row is written once."""
+    rows, d = x.shape
+    out = torch.full_like(x, float("nan"))
+    written = np.zeros(rows, int)
+    fn = ref.rmsnorm_model if model else ref.rmsnorm_ref
+    for c in range(plan.ctas):
+        r0 = c * plan.rows_per_cta
+        nrows = min(rows, r0 + plan.rows_per_cta) - r0
+        stages = -(-nrows // plan.stage_rows)
+        ring = [None] * plan.slots  # [stage, its rows, read?] a slot holds
+
+        def load(k):
+            slot = ring[k % plan.slots]
+            assert slot is None or slot[2], "a slot refilled before it was read"
+            lo = r0 + k * plan.stage_rows
+            ring[k % plan.slots] = [k, x[lo:min(lo + plan.stage_rows, r0 + nrows)].clone(), False]
+
+        for k in range(min(plan.slots, stages)):
+            load(k)
+        for k in range(stages):
+            slot = ring[k % plan.slots]
+            assert slot[0] == k and not slot[2], f"CTA {c} stage {k} not in its slot"
+            lo = r0 + k * plan.stage_rows
+            out[lo:lo + len(slot[1])] = fn(slot[1], s)
+            written[lo:lo + len(slot[1])] += 1
+            slot[2] = True
+            if k + plan.slots < stages:
+                load(k + plan.slots)
+    assert (written == 1).all()
+    return out
+
+
+class TestRmsnormForwardPartition:
+    @pytest.mark.parametrize("rows,d,itemsize", FWD_SHAPES)
+    def test_every_row_once_contiguously(self, rows, d, itemsize):
+        """``fwd_partition`` at 132 SMs: CTA c takes the contiguous rows
+        [c * rows_per_cta, ...), every row in one CTA, no CTA empty, at most
+        ``FWD_CTAS_PER_SM`` CTAs an SM; a small count takes a CTA a row."""
+        plan = rmsnorm.fwd_partition(rows, d, itemsize, 132)
+        assert plan.ctas <= 132 * rmsnorm.FWD_CTAS_PER_SM
+        seen = np.zeros(rows, int)
+        for c in range(plan.ctas):
+            r = np.arange(c * plan.rows_per_cta, min((c + 1) * plan.rows_per_cta, rows))
+            assert len(r) > 0
+            seen[r] += 1
+        assert (seen == 1).all()
+        if rows <= 132 * rmsnorm.FWD_CTAS_PER_SM:  # decode, the packed step: a CTA a row
+            assert plan[:4] == (rows, 1, 1, 1)
+        if (rows, d, itemsize) == (8192, 768, 2):  # Mamba-2's micro-batch: 2 stages in flight
+            assert plan[:4] == (512, 16, 8, 2)
+        if (rows, d, itemsize) == (2048, 2048, 2):  # qwen's: one stage of 16 KB
+            assert plan[:4] == (512, 4, 4, 1)
+
+    @pytest.mark.parametrize("rows,d,itemsize", FWD_SHAPES)
+    def test_stages_fit_the_shared_memory_requested(self, rows, d, itemsize):
+        """The ring, the scale row and the mbarriers fit in ``smem``, which
+        fits on the card, and in an SM's share for ``FWD_CTAS_PER_SM`` CTAs
+        wherever a row fits there; a stage is at most a row a warp and the
+        ring at most the kernel's ``kMaxSlots`` (read from the source)."""
+        plan = rmsnorm.fwd_partition(rows, d, itemsize, 132)
+        src = (rmsnorm._build.KERNEL_DIR / rmsnorm.SOURCE).read_text()
+        assert f"kMaxSlots = {rmsnorm.FWD_MAX_SLOTS};" in src
+        assert f"kFwdThreads = {32 * rmsnorm.FWD_WARPS};" in src
+        assert 1 <= plan.slots <= rmsnorm.FWD_MAX_SLOTS
+        assert 1 <= plan.stage_rows <= max(rmsnorm.FWD_WARPS, plan.rows_per_cta)
+        head = rmsnorm.FWD_HEAD + -(-4 * d // 16) * 16
+        assert head + plan.slots * plan.stage_rows * d * itemsize <= plan.smem <= rmsnorm.SMEM
+        if head + d * itemsize <= rmsnorm.FWD_CTA_SMEM:
+            assert plan.smem <= rmsnorm.FWD_CTA_SMEM
+        assert plan.slots * plan.stage_rows <= -(-plan.rows_per_cta // plan.stage_rows) * plan.stage_rows
+
+    def test_too_wide_a_row_is_refused(self):
+        rmsnorm.fwd_partition(4, 29000, 4, 132)  # 116,000 B beside its f32 scale row: fits
+        for d, itemsize in ((29100, 4), (1 << 16, 2)):
+            with pytest.raises(ValueError, match="shared memory"):
+                rmsnorm.fwd_partition(4, d, itemsize, 132)
+        with pytest.raises(ValueError, match="positive"):
+            rmsnorm.fwd_partition(0, 768, 2, 132)
+
+    @pytest.mark.parametrize("rows,d,sms,model", [
+        (257, 64, 132, True),  # small count: 257 CTAs of one row
+        (1000, 512, 16, False),  # 2 stages a CTA, both in flight
+        (5000, 512, 4, True),  # a ring of 3 slots refilled (40 stages a CTA)
+        (50, 20000, 4, False),  # one slot: each stage loaded once the last one is read
+    ])
+    def test_walk_of_the_stage_ring_matches_the_plain_version(self, rows, d, sms, model):
+        rng = np.random.default_rng(rows)
+        x = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32))
+        s = torch.from_numpy((1 + 0.1 * rng.normal(size=d)).astype(np.float32))
+        plan = rmsnorm.fwd_partition(rows, d, 4, sms)
+        got = walk_fwd(x, s, plan, model)
+        assert torch.equal(got, (ref.rmsnorm_model if model else ref.rmsnorm_ref)(x, s))
+
+    def test_planted_fault_fails_the_bf16_ulp_check(self):
+        """Each row's last 16-byte vector left out of its sum of squares
+        (``rmsnorm_without_last_vector``, the card checks' planted fault) at
+        Mamba-2's micro-batch: beyond the one bf16 ulp the card holds the
+        kernel to."""
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.normal(size=(8192, 768)).astype(np.float32)).to(torch.bfloat16)
+        s = torch.from_numpy((1 + 0.1 * rng.normal(size=768)).astype(np.float32))
+        bad = rmsnorm_without_last_vector(x, s, model=False)
+        assert bf16_ulps(bad, ref.rmsnorm_ref(x, s)) > BF16_ULPS
+        bad = rmsnorm_without_last_vector(x, s, model=True)
+        assert rmsnorm_model_ulps(bad, x, s)[0] > BF16_ULPS
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    def test_model_ulps_admits_the_other_rounding_of_a_tie_only(self, dtype):
+        """``rmsnorm_model_ulps`` (the card's check in model mode): rows
+        whose inv is a tie may have it rounded the other way; in any other
+        row, a 2-ulp error is still caught."""
+        rng = np.random.default_rng(1)
+        x = torch.from_numpy(rng.normal(size=(4000, 256)).astype(np.float32)).to(dtype)
+        s = torch.from_numpy((1 + 0.1 * rng.normal(size=256)).astype(np.float32))
+        want = ref.rmsnorm_model(x, s)
+        ulps, ties = rmsnorm_model_ulps(want, x, s)
+        assert ulps == 0 and ties > 0
+        inv = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + 1e-6).to(dtype)
+        inv64 = torch.rsqrt(x.double().square().mean(-1, keepdim=True) + 1e-6)
+        bits = inv.view(torch.int16)
+        other = torch.where(inv.double() <= inv64, (bits + 1).view(dtype), (bits - 1).view(dtype))
+        flipped = x * other * s.to(dtype)  # every row's inv rounded the other way
+        mid = (inv.double() + other.double()) / 2
+        tie = ((inv64 - mid).abs() <= K2_INV_TIE * inv64)[:, 0]
+        assert rmsnorm_model_ulps(torch.where(tie[:, None], flipped, want), x, s)[0] == 0
+        assert rmsnorm_model_ulps(flipped, x, s)[0] > BF16_ULPS  # the rest are no ties
+        off = want.clone()
+        r = int(torch.nonzero(~tie)[0])
+        off[r, 0] = (off[r, 0:1].view(torch.int16) + 2).view(dtype)[0]
+        assert rmsnorm_model_ulps(off, x, s)[0] == 2
+
+
 class TestRmsnormBackwardPartition:
     @pytest.mark.parametrize("rows,d,itemsize", [
         (2048, 2048, 2),  # the training shape: 128 CTAs of 16 rows, one batch each
@@ -428,7 +575,7 @@ class TestRmsnormBackwardPartition:
         assert (cols == 1).all()
         assert 1 <= batch <= per
         head = (2 * d + batch) * 4
-        assert head + (-head) % 16 + 2 * batch * d * itemsize <= rmsnorm.BWD_SMEM
+        assert head + (-head) % 16 + 2 * batch * d * itemsize <= rmsnorm.SMEM
         if (rows, d) == (2048, 2048):
             assert (ctas, per, batch, col_ctas) == (128, 16, 16, 64)
 
@@ -477,7 +624,11 @@ def test_ctypes_signature_matches_the_cuda_source():
 
 
 def test_rmsnorm_bwd_ctypes_signature_matches_the_cuda_source():
-    assert _c_argtypes(rmsnorm.BWD_SOURCE, "repro_rmsnorm_bwd") == rmsnorm._BWD_ARGTYPES
+    assert _c_argtypes(rmsnorm.SOURCE, "repro_rmsnorm_bwd") == rmsnorm._BWD_ARGTYPES
+
+
+def test_rmsnorm_fwd_ctypes_signature_matches_the_cuda_source():
+    assert _c_argtypes(rmsnorm.SOURCE, "repro_rmsnorm_fwd") == rmsnorm._FWD_ARGTYPES
 
 
 @pytest.mark.parametrize("entry", ["repro_ssd", "repro_ssd_occupancy", "repro_ssd_bwd",

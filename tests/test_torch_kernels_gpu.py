@@ -35,12 +35,15 @@ from test_torch_parity_util import (  # noqa: E402
     np32,
     packed_scenario,
     quantize_pool,
+    rmsnorm_model_ulps,
+    rmsnorm_without_last_vector,
     row_rel_err,
     skip_diagonal_tile_mask,
     skip_last_page,
     ssd_chunk_inputs,
     ssd_segment_inputs,
     ssd_skip_diagonal_tile_mask,
+    ulps16,
 )
 
 
@@ -145,19 +148,54 @@ class TestKernelsOnCard:
         with pytest.raises((ValueError, TypeError)):
             flash_attention.paged_flash_attention(**ta)
 
-    @pytest.mark.parametrize("rows", [8, 257])
+    @pytest.mark.parametrize("rows,d", [(8, 2048), (257, 2048), (8192, 768), (8191, 768),
+                                        (40000, 2048), (600, 29000)])
     @pytest.mark.parametrize("model", [False, True])
-    def test_rmsnorm(self, cuda, rows, model):
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+    def test_rmsnorm(self, cuda, rows, d, model, dtype):
+        """K2's forward against its plain version (f32 within 1e-5, bf16 and
+        f16 within one ulp; in model mode a row whose inv is a tie may round
+        it either way, ``rmsnorm_model_ulps``) at serving's and both
+        trainings' shapes, a ring of stages refilled (40,000 x 2048) and
+        rows a stage each (600 x 29,000; in f32 one slot); two runs
+        bit-identical; a view one element off 16-byte alignment (the
+        element-wise path) gives the aligned run's bits."""
         rng = np.random.default_rng(rows)
-        x = torch.from_numpy(rng.normal(size=(rows, 2048)).astype(np.float32))
-        x = x.to(cuda, torch.bfloat16)
-        s = torch.from_numpy((1 + 0.1 * rng.normal(size=2048)).astype(np.float32)).to(cuda)
+        x = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(cuda, dtype)
+        s = torch.from_numpy((1 + 0.1 * rng.normal(size=d)).astype(np.float32)).to(cuda)
         out = rmsnorm.rmsnorm(x, s, model=model)
         want = (ref.rmsnorm_model if model else ref.rmsnorm_ref)(x, s)
-        assert bf16_ulps(out.cpu(), want.cpu()) <= BF16_ULPS
-        xf = x.float()
-        np.testing.assert_allclose(np32(rmsnorm.rmsnorm(xf, s, model=model)),
-                                   np32(ref.rmsnorm_ref(xf, s)), atol=1e-5, rtol=1e-5)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(np32(out), np32(want), atol=1e-5, rtol=1e-5)
+        elif model:
+            assert rmsnorm_model_ulps(out, x, s)[0] <= BF16_ULPS
+        else:
+            assert ulps16(out, want) <= BF16_ULPS
+        assert torch.equal(out, rmsnorm.rmsnorm(x, s, model=model))
+        off = torch.empty(rows * d + 1, dtype=dtype, device=cuda)[1:].view(rows, d)
+        off.copy_(x)
+        assert off.data_ptr() % 16 != 0
+        assert torch.equal(rmsnorm.rmsnorm(off, s, model=model), out)
+
+    @pytest.mark.parametrize("model", [False, True])
+    def test_rmsnorm_rows_alone_and_planted_fault(self, cuda, model):
+        """At Mamba-2's micro-batch (8,192 x 768 bf16): rows 0..7 normalised
+        alone are the same bits as in the whole call (a row's output depends
+        on the row and the scale alone), and the planted fault (each row's
+        last 16-byte vector out of its sum) fails the one-ulp check."""
+        rng = np.random.default_rng(8192)
+        x = torch.from_numpy(rng.normal(size=(8192, 768)).astype(np.float32))
+        x = x.to(cuda, torch.bfloat16)
+        s = torch.from_numpy((1 + 0.1 * rng.normal(size=768)).astype(np.float32)).to(cuda)
+        out = rmsnorm.rmsnorm(x, s, model=model)
+        assert torch.equal(rmsnorm.rmsnorm(x[:8], s, model=model), out[:8])
+        bad = rmsnorm_without_last_vector(x, s, model=model)
+        if model:
+            assert rmsnorm_model_ulps(out, x, s)[0] <= BF16_ULPS
+            assert rmsnorm_model_ulps(bad, x, s)[0] > BF16_ULPS
+        else:
+            want = ref.rmsnorm_ref(x, s)
+            assert ulps16(out, want) <= BF16_ULPS and ulps16(bad, want) > BF16_ULPS
 
     @pytest.mark.parametrize("case", ["causal", "window", "segments", "right_aligned",
                                       "non_causal", "s64", "q64_k128", "b2_s2048",

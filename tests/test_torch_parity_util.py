@@ -94,6 +94,47 @@ def bf16_ulps(a, b) -> int:
     return int((line(a) - line(b)).abs().max().item())
 
 
+def ulp_line(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 or f16 tensor's values as integers one ulp apart (both formats
+    order their bit patterns by sign and magnitude)."""
+    i = x.detach().contiguous().view(torch.int16).int()
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def ulps16(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in ulps between two torch tensors of one 16-bit
+    float dtype, bf16 or f16."""
+    return int((ulp_line(a) - ulp_line(b)).abs().max().item())
+
+
+#: K2 in model mode, bf16 or f16: a row whose inv (in f64) lies within this
+#: of the midpoint between two neighbouring values of x's dtype (relative)
+#: may have inv rounded either way by a kernel and by the plain version, each
+#: with its own f32 sum of squares and rsqrt (~1e-6 apart at most)
+K2_INV_TIE = 2.0 ** -18
+
+
+def rmsnorm_model_ulps(out, x, s, eps=1e-6):
+    """(ulps, tie rows): the largest distance in ulps of ``out`` (bf16 or
+    f16) from ``ref.rmsnorm_model``, row by row; a row whose inv is a tie
+    (``K2_INV_TIE``) is also measured against the output with inv rounded
+    the other way, and the nearer of the two counts.  Every other row is
+    held to the plain version alone."""
+    def row_ulps(a, b):
+        return (ulp_line(a) - ulp_line(b)).abs().amax(-1)
+
+    plain_inv = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + eps).to(x.dtype)
+    inv = torch.rsqrt(x.double().square().mean(-1, keepdim=True) + eps)
+    # inv > 0: its neighbours in x's dtype are the bit patterns one apart
+    bits = plain_inv.view(torch.int16)
+    up, down = (bits + 1).view(x.dtype), (bits - 1).view(x.dtype)
+    other = torch.where(plain_inv.double() <= inv, up, down)
+    tie = ((inv - (plain_inv.double() + other.double()) / 2).abs() <= K2_INV_TIE * inv)[..., 0]
+    u = row_ulps(out, ref.rmsnorm_model(x, s, eps))
+    u_other = row_ulps(out, x * other * s.to(x.dtype))
+    return int(torch.where(tie, torch.minimum(u, u_other), u).max()), int(tie.sum())
+
+
 def row_rel_err(got, want) -> float:
     """max over rows (the last axis) of ||got_r - want_r|| / ||want_r||, a
     row's norm taken as at least 2^-12 of the largest row's: a row that is
@@ -320,6 +361,18 @@ def dscale_without_rows(x, s, dy, rows, eps=1e-6, model=False):
     keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
     keep[rows] = False
     return ref.rmsnorm_bwd_ref(x[keep], s, dy[keep], eps, model)[1]
+
+
+def rmsnorm_without_last_vector(x, s, eps=1e-6, model=False):
+    """A planted K2-forward fault: what a kernel that leaves each row's last
+    16-byte vector out of its sum of squares (the mean still over d) would
+    return, by the plain version's numerics."""
+    d = x.shape[-1]
+    ms = x[..., :d - 16 // x.element_size()].float().square().sum(-1, keepdim=True) / d
+    inv = torch.rsqrt(ms + eps)
+    if model:
+        return x * inv.to(x.dtype) * s.to(x.dtype)
+    return (x.float() * inv * s.float()).to(x.dtype)
 
 
 def quantize_pool(pool):
