@@ -39,7 +39,11 @@ graphed training step of ``chip_smoke.py``'s phase 9a (one NCCL rank,
 ``mesh="1"``) with its ``dp_allreduce`` span apart, ``mamba_train`` one
 eager and one graphed step of its phase 10 (mamba2-130m at 24 layers,
 micro-batches of 4 x 2048 tokens; K6's forward and its backward's kernels
-filed apart).  A copy of this script placed at the
+filed apart), ``bert_train`` one eager and one graphed step of its phase
+11c (bert-1.5b at 48 layers, 4 workers x 12 micro-batches of 16 x 128
+tokens, LANS; K3's (64, 1) build filed under K3).  ``kernels`` also times
+K3's (128, 8) build at the qwen training shape (``k3_timing``) with a
+digest of its outputs.  A copy of this script placed at the
 root of another checkout (a ``git archive`` of a later commit: its
 ``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
 checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
@@ -168,7 +172,8 @@ def profile_record(prof, wall_s: float, per: int, window=None) -> dict:
     }
 
 
-def train_profile(cfg, seed: int, eager: bool, mesh=None, seqs: int = 1) -> dict:
+def train_profile(cfg, seed: int, eager: bool, mesh=None, seqs: int = 1, run: str = None,
+                  shape: dict = None, optimizer: str = "adamw") -> dict:
     """Step 1 of a 2-step run of ``chip_smoke.train_phase``'s training (its
     steps 0 and 1), eager or graphed: step 0 builds the kernels and
     captures the micro-batch graph, step 1 replays it.  The record covers
@@ -179,12 +184,15 @@ def train_profile(cfg, seed: int, eager: bool, mesh=None, seqs: int = 1) -> dict
     span: its host ms and the device ms of the kernels that start in it.
     ``seqs`` > 1 (``chip_smoke``'s phase 10: mamba2-130m, micro-batches of
     ``M_TRAIN_SEQS`` sequences) needs a ``chip_smoke.py`` whose
-    ``train_setup`` takes ``seqs``."""
-    n, m = cs.TRAIN_WORKERS, cs.TRAIN_MB
-    data, latency, tau, masks = cs.train_setup(cfg, seed, *([seqs] if seqs > 1 else []))
-    tcfg = cs.TrainConfig(steps=2, n_workers=n, microbatches=m, lr=1e-4, clip_norm=1.0,
-                          seed=seed, latency=latency, drop=cs.DropConfig(enabled=True, tau=tau),
-                          mesh=mesh)
+    ``train_setup`` takes ``seqs``; ``shape`` (``seq``, ``mb``: phase 11's
+    BERT run) one whose ``train_setup`` takes those too.  ``run`` labels the
+    record."""
+    n, m = cs.TRAIN_WORKERS, (shape or {}).get("mb", cs.TRAIN_MB)
+    data, latency, tau, masks = cs.train_setup(cfg, seed, *([seqs] if seqs > 1 else []),
+                                               **(shape or {}))
+    tcfg = cs.TrainConfig(steps=2, n_workers=n, microbatches=m, optimizer=optimizer, lr=1e-4,
+                          clip_norm=1.0, seed=seed, latency=latency,
+                          drop=cs.DropConfig(enabled=True, tau=tau), mesh=mesh)
     kept = int(masks[1].sum())
     params = init_params(cfg, seed=seed, device="cuda")
     group = procs.local_group(backend="nccl", device="cuda") if mesh else contextlib.nullcontext()
@@ -198,7 +206,7 @@ def train_profile(cfg, seed: int, eager: bool, mesh=None, seqs: int = 1) -> dict
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.name == "train_step" and e.device_type == torch.autograd.DeviceType.CPU)
     lo, hi = spans[-1]
-    run = "dp" if mesh else ("mamba_train" if seqs > 1 else "train")
+    run = run or ("dp" if mesh else ("mamba_train" if seqs > 1 else "train"))
     rec = {"tag": TAG, "run": run, "mode": "eager" if eager else "graphed",
            "kept_microbatches": kept, **profile_record(prof, wall, kept, window=(lo, hi))}
     if mesh:
@@ -215,6 +223,7 @@ def train_profile(cfg, seed: int, eager: bool, mesh=None, seqs: int = 1) -> dict
                            if k.startswith("K2 rmsnorm: backward"))
     rec["k6_bwd_ms"] = sum(v for k, v in rec["families_ms"].items()
                            if k.startswith("K6 ssd_chunk: backward"))
+    rec["k3_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K3"))
     calls = [t for _, t in host_launches(prof) if lo <= t <= hi]
     graph_at = [t for name, t in host_launches(prof)
                 if name.startswith("cudaGraphLaunch") and lo <= t <= hi]
@@ -293,7 +302,8 @@ def serve_profiles(cfg, params, prompts, make) -> None:
 
 
 TAG = ""
-PARTS = ("kernels", "k6_precision", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train")
+PARTS = ("kernels", "k6_precision", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train",
+         "bert_train")
 #: the parts that time kernels alone, run only when named
 KERNEL_PARTS = ("kernels", "k6_precision")
 
@@ -342,18 +352,35 @@ def ssd_digests(seed: int) -> dict:
     return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16] for k, v in outs.items()}
 
 
+def k3_digests(seed: int) -> dict:
+    """sha256 of K3's forward (out, lse) and backward (dq, dk, dv) outputs
+    at the qwen training shape (``chip_smoke.attn_inputs``, causal), on
+    inputs from their own stream (``seed`` + 2): two trees' digests are
+    equal exactly when their (128, 8) builds give the same bits."""
+    import hashlib
+
+    q, k, v, do = cs.attn_inputs(np.random.default_rng(seed + 2))
+    out, lse = cs.flash_attention.flash_attention_fwd(q, k, v)
+    grads = cs.flash_attention.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    return {name: hashlib.sha256(x.float().cpu().numpy().tobytes()).hexdigest()[:16]
+            for name, x in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads))}
+
+
 def kernel_times(seed: int) -> dict:
-    """``chip_smoke.py``'s K4, K2 and K2-backward timings (the checks inside
-    them included) at its main-path shapes, from a stream seeded as its
-    run's, then K6 and K5 (``ssd_times``) and the digests of their outputs
-    (``ssd_digests``)."""
+    """``chip_smoke.py``'s K4, K2, K2-backward and K3 timings (the checks
+    inside them included) at its main-path shapes, from a stream seeded as
+    its run's, then K6 and K5 (``ssd_times``) and the digests of K6's, K5's
+    and K3's outputs (``ssd_digests``, ``k3_digests``)."""
     rng = np.random.default_rng(seed)
     lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
     k4 = cs.k4_timing(rng, lens)
     k2 = cs.k2_timing(rng)
     _, k2b = cs.k2_bwd_checks_and_timing(rng)
+    k3f, k3b = cs.k3_timing(rng)
     return {"tag": TAG, "run": "kernels", "k4": k4, "k2": k2, "k2_bwd": k2b,
-            "ssd_us": ssd_times(rng), "ssd_digests": ssd_digests(seed)}
+            "k3": {"fwd": k3f, "bwd": k3b}, "ssd_us": ssd_times(rng),
+            "ssd_digests": ssd_digests(seed), "k3_digests": k3_digests(seed)}
 
 
 #: K6's backward's two precision choices, each undone by one edit of a copy
@@ -432,7 +459,8 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=PARTS,
                     default=[p for p in PARTS if p not in KERNEL_PARTS],
                     help="parts to run, always in the order kernels, k6_precision, qwen, mamba, "
-                         "train, localsgd, dp, mamba_train (default: all but the first two)")
+                         "train, localsgd, dp, mamba_train, bert_train (default: all but the "
+                         "first two)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -467,6 +495,14 @@ def main() -> int:
             for eager in (True, False):
                 print(json.dumps(train_profile(mcfg, args.seed, eager, seqs=cs.M_TRAIN_SEQS)),
                       flush=True)
+                cs.free_device()
+        elif part == "bert_train":  # phase 11c's step 1, eager then graphed
+            bcfg = get_config("bert_1_5b")
+            shape = dict(seq=cs.BERT_SEQ, mb=cs.BERT_MB)
+            for eager in (True, False):
+                print(json.dumps(train_profile(bcfg, args.seed, eager, seqs=cs.BERT_SEQS,
+                                               run="bert_train", shape=shape,
+                                               optimizer="lans")), flush=True)
                 cs.free_device()
         else:
             prof = train_profile if part == "train" else localsgd_profile

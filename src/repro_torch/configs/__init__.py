@@ -2,8 +2,9 @@
 
 Each module exposes ``config()`` (the exact published architecture) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).  The
-port carries the configs it can serve; the rest of the reference's
-registry is queued in ROADMAP.md.  ``mamba2_tiny`` (a CPU-sized 'M'
+port carries the configs it runs; the rest of the reference's
+registry is queued in ROADMAP.md; ``PAPER_MODELS`` are the paper's own
+BERT models, as in the reference.  ``mamba2_tiny`` (a CPU-sized 'M'
 config for the serving parity tests) stays out of ``ARCHITECTURES``, as in
 the reference.
 """
@@ -16,6 +17,10 @@ ARCHITECTURES: List[str] = [
     "mamba2_130m",
     "qwen2_5_3b",
 ]
+
+# The paper's own models (DropCompute §5: BERT-Large + BERT-1.5B); encoder
+# stacks the port trains and never serves
+PAPER_MODELS: List[str] = ["bert_large", "bert_1_5b"]
 
 
 def _norm(name: str) -> str:

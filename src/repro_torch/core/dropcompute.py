@@ -277,7 +277,10 @@ def accumulate_grads(
     kept_t = torch.tensor(np.float32(kept), device=dev)
     stats = {
         "completed_microbatches": kept_t,
-        "completed_fraction": kept_t / m,
+        # the correctly rounded f32 quotient, the reference's jnp.sum(mask) / m:
+        # a CUDA tensor divided by a Python number is multiplied by the number's
+        # reciprocal instead, one ulp off (46 / 48, say)
+        "completed_fraction": torch.tensor(np.float32(kept) / np.float32(m), device=dev),
         "computed_weight": w_sum,
         "grad_denom": denom,
         "microbatch_marks": marks,

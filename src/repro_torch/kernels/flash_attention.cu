@@ -38,8 +38,13 @@
 // Bound: at Sq = Sk = 2048, D = 128, causal, the forward does ~4*D flops per
 // admissible (head, key, query) against ~(q + k + v + o) bytes read once:
 // ~1,000 flop/B, above the card's ~295, so it is bound by operations; so is
-// the backward (~2.5x the forward's flops).  So the design keeps the tensor
-// cores fed: wgmma, loads overlapped with the products, and accumulators
+// the backward (~2.5x the forward's flops).  At the BERT models' S = 128, D =
+// 64, bidirectional, a (batch, head) does 4 S^2 D flops against 8 S D bytes
+// of q, k, v and o: S / 2 = 64 flop/B, below the card's ~295, so that build
+// is bound by bytes (bert-1.5b's micro-batch: ~26 MB, ~7.9 us), and each
+// CTA's fixed cost (the Q load, the ring's fill, the epilogue) over its 2
+// key steps is what it pays beyond that.  For the shapes bound by operations
+// the design keeps the tensor cores fed: wgmma, loads overlapped with the products, and accumulators
 // that fit in registers (ptxas -v reports no spills; a dK/dV CTA that held
 // both dK and dV in one warpgroup spilled and serialized its wgmmas).
 //
@@ -58,9 +63,12 @@
 // (`tile_plan` in kernels/flash_attention.py, passed as a device table)
 // does not mark free, and on every tile with segment ids, whose key (or
 // query) ids are staged in shared memory by the same TMA transaction.  The
-// schedule lists CTAs longest walk first.  Only D = 128 in bf16 is
-// instantiated (qwen2.5-3b); Sq and Sk must be multiples of 64, and of 128
-// above 128; the wrapper raises on any other shape.
+// schedule lists CTAs longest walk first.  The kernels are templates on the
+// head dim D, instantiated in bf16 for D = 128 (qwen2.5-3b: a tile is two
+// slabs, the D-wide products m64n128k16) and D = 64 (the BERT models, group
+// 1, bidirectional: a tile is one slab, the D-wide products m64n64k16 with
+// half the accumulator registers); Sq and Sk must be multiples of 64, and
+// of 128 above 128; the wrapper raises on any other shape.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +79,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 128;
 constexpr int SLAB = 64;     // bf16 columns of one 128-byte swizzled slab
 constexpr int TILE = 128;    // query rows of a forward / dQ CTA
 constexpr int STEP = 64;     // keys of a forward / dQ step and of a dK/dV CTA;
@@ -161,11 +168,12 @@ __device__ __forceinline__ void tma_slab(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
-// a (rows, D) tile at position s: two slabs, columns [0, 64) then [64, 128)
+// a (rows, D) tile at position s: D / 64 slabs, columns [0, 64), [64, 128), ...
+template <int D>
 __device__ __forceinline__ void tma_tile(bf16* dst, int rows, const CUtensorMap* map,
                                          uint64_t* bar, int s, int h, int b) {
-  tma_slab(dst, map, bar, 0, s, h, b);
-  tma_slab(dst + rows * SLAB, map, bar, SLAB, s, h, b);
+#pragma unroll
+  for (int sl = 0; sl < D / SLAB; ++sl) tma_slab(dst + sl * rows * SLAB, map, bar, sl * SLAB, s, h, b);
 }
 
 // `bytes` (a multiple of 16, 16-byte aligned) from global to shared memory
@@ -198,7 +206,8 @@ __device__ __forceinline__ uint64_t kmajor(const bf16* tile, int rows, int r0, i
 }
 
 // MN-major operand (the reduction axis is the tile's rows): rows [16 kk,
-// 16 kk + 16) of a tile of `rows` rows, all D columns (slab 1 `lbo` bytes on)
+// 16 kk + 16) of a tile of `rows` rows, all D columns (slab 1, where D = 128
+// has one, `lbo` bytes on)
 __device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int rows, int kk) {
   return desc(tile + kk * 16 * SLAB, rows * SLAB * 2);
 }
@@ -298,8 +307,35 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[64], uint32_t a0, uint32_
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
-// D (64 x 64) = A . B^T reduced over D = 128: A is rows [a_r0, a_r0 + 64)
+// D (64 x 64 f32) += A (64 x 16 bf16 in registers, the accumulator's layout)
+// . B (16 x 64 bf16 in shared memory, MN-major: N contiguous)
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], uint32_t a0, uint32_t a1,
+                                           uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// the D-wide register-A product of one 16-row k-step: D = 128 or 64 columns,
+// chosen by the accumulator's size (D / 2 floats a thread)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t b) {
+  wgmma_rs128(d, a[0], a[1], a[2], a[3], b);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
+  wgmma_rs64(d, a[0], a[1], a[2], a[3], b);
+}
+
+// D (64 x 64) = A . B^T reduced over the head dim D: A is rows [a_r0, a_r0 + 64)
 // of an `a_rows`-row tile, B the 64 rows of a 64-row tile (both K-major)
+template <int D>
 __device__ __forceinline__ void product64(float (&d)[32], const bf16* a, int a_rows, int a_r0,
                                           const bf16* b) {
   wgmma_ss64_first(d, kmajor(a, a_rows, a_r0, 0), kmajor(b, STEP, 0, 0));
@@ -319,27 +355,38 @@ __device__ __forceinline__ float ex2(float x) {
 // forward
 // ---------------------------------------------------------------------------
 
-constexpr int TILE_BYTES = TILE * D * 2;  // a (128, D) bf16 tile
-constexpr int STEP_BYTES = STEP * D * 2;  // a (64, D) bf16 tile
-constexpr int F_K = TILE_BYTES;
-constexpr int F_V = F_K + STAGES * STEP_BYTES;
-constexpr int F_SEG = F_V + STAGES * STEP_BYTES;
-constexpr int F_BAR = F_SEG + STAGES * STEP * 4;
-constexpr size_t FWD_SMEM = F_BAR + 8 * (1 + 3 * STAGES) + 1024;
+// bytes of a (128, D) and a (64, D) bf16 tile: multiples of 1024, so every
+// tile of the maps below starts on a swizzle repeat
+template <int D>
+struct Tiles {
+  static constexpr int TILE_BYTES = TILE * D * 2, STEP_BYTES = STEP * D * 2;
+};
+
+// a forward CTA's shared memory: Q, the K and V rings, key segment ids, barriers
+template <int D>
+struct FwdSmem : Tiles<D> {
+  static constexpr int K = Tiles<D>::TILE_BYTES;
+  static constexpr int V = K + STAGES * Tiles<D>::STEP_BYTES;
+  static constexpr int SEG = V + STAGES * Tiles<D>::STEP_BYTES;
+  static constexpr int BAR = SEG + STAGES * STEP * 4;
+  static constexpr size_t BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
 
 // grid (H, B, query tiles in plan order); plan row: (q0, key step lo, hi,
 // free lo, free hi, key end), in 64-key steps
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o, float* __restrict__ lse,
     Layout lo, Problem p) {
+  using M = FwdSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + F_K);
-  bf16* sV = reinterpret_cast<bf16*>(smem + F_V);
-  int* sSeg = reinterpret_cast<int*>(smem + F_SEG);
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + F_BAR);
+  bf16* sK = reinterpret_cast<bf16*>(smem + M::K);
+  bf16* sV = reinterpret_cast<bf16*>(smem + M::V);
+  int* sSeg = reinterpret_cast<int*>(smem + M::SEG);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + M::BAR);
   uint64_t* full_k = bar_q + 1;
   uint64_t* full_v = full_k + STAGES;
   uint64_t* empty = full_v + STAGES;
@@ -364,18 +411,18 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
   if (warp >= CONSUMER_WARPS) {  // producer warpgroup: one thread issues every load
     regs_dec<PRODUCER_REGS>();
     if (warp == CONSUMER_WARPS && lane == 0) {
-      mbar_expect_tx(bar_q, TILE_BYTES);
-      tma_tile(sQ, TILE, &mq, bar_q, q0, hh, b);
+      mbar_expect_tx(bar_q, M::TILE_BYTES);
+      tma_tile<D>(sQ, TILE, &mq, bar_q, q0, hh, b);
       for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&full_k[s], STEP_BYTES + (p.q_seg ? STEP * 4 : 0));
-        tma_tile(sK + s * STEP * D, STEP, &mk, &full_k[s], t * STEP, kh, b);
+        mbar_expect_tx(&full_k[s], M::STEP_BYTES + (p.q_seg ? STEP * 4 : 0));
+        tma_tile<D>(sK + s * STEP * D, STEP, &mk, &full_k[s], t * STEP, kh, b);
         if (p.q_seg)
           bulk_copy(sSeg + s * STEP, p.kv_seg + (long long)b * p.sk + t * STEP, STEP * 4,
                     &full_k[s]);
-        mbar_expect_tx(&full_v[s], STEP_BYTES);
-        tma_tile(sV + s * STEP * D, STEP, &mv, &full_v[s], t * STEP, kh, b);
+        mbar_expect_tx(&full_v[s], M::STEP_BYTES);
+        tma_tile<D>(sV + s * STEP * D, STEP, &mv, &full_v[s], t * STEP, kh, b);
       }
     }
     return;
@@ -394,9 +441,9 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
     for (int e = 0; e < 2; ++e)
       if (r0 + 8 * e < p.sq) qseg[e] = p.q_seg[(long long)b * p.sq + r0 + 8 * e];
   }
-  float acc[64], sc[32];
+  float acc[D / 2], sc[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
   mbar_wait(bar_q, 0);
 
@@ -406,7 +453,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
     const bf16* tv = sV + s * STEP * D;
     mbar_wait(&full_k[s], parity);
     wg_fence();
-    product64(sc, sQ, TILE, wg * 64, tk);
+    product64<D>(sc, sQ, TILE, wg * 64, tk);
     wg_commit();
     wg_wait<0>();
     keep(sc);
@@ -454,16 +501,14 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
       l[(j >> 1) & 1] += pr;
     }
 #pragma unroll
-    for (int j = 0; j < 64; ++j) acc[j] *= alpha[(j >> 1) & 1];
+    for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
     uint32_t pa[16];
     to_a(sc, pa);
 
     mbar_wait(&full_v[s], parity);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < STEP / 16; ++kk)
-      wgmma_rs128(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                  mnmajor(tv, STEP, kk));
+    for (int kk = 0; kk < STEP / 16; ++kk) wgmma_rs(acc, pa + 4 * kk, mnmajor(tv, STEP, kk));
     wg_commit();
     wg_wait<0>();
     keep(acc);
@@ -480,7 +525,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
     const float inv = 1.f / fmaxf(l[e], 1e-30f);
     bf16* og = o + b * lo.b + hh * lo.h + (long long)r * lo.s + 2 * c;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * e] * inv, acc[4 * j + 2 * e + 1] * inv);
     if (c == 0)
@@ -490,14 +535,17 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
 }
 
 // ---------------------------------------------------------------------------
-// backward 1: delta = rowsum(dO * O), a half warp per (b, h, i) row
+// backward 1: delta = rowsum(dO * O), D / 8 lanes per (b, h, i) row (a half
+// warp at D = 128, a quarter at 64), 8 columns a lane
 // ---------------------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(128) attn_bwd_delta(
     const bf16* __restrict__ o, const bf16* __restrict__ dout, float* __restrict__ delta,
     Layout lo, Layout ldo, int b_count, int h, int sq) {
-  const long long rowid = ((long long)blockIdx.x * 128 + threadIdx.x) / 16;
-  const int col = (threadIdx.x % 16) * 8;
+  constexpr int LANES = D / 8;
+  const long long rowid = ((long long)blockIdx.x * 128 + threadIdx.x) / LANES;
+  const int col = (threadIdx.x % LANES) * 8;
   if (rowid >= (long long)b_count * h * sq) return;  // whole warps leave together
   const int i = rowid % sq;
   const int hh = (rowid / sq) % h;
@@ -513,22 +561,27 @@ __global__ void __launch_bounds__(128) attn_bwd_delta(
     acc += x.x * y.x + x.y * y.y;
   }
 #pragma unroll
-  for (int sh = 8; sh > 0; sh >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, sh);
-  if (threadIdx.x % 16 == 0) delta[rowid] = acc;  // (B, H, Sq): rowid = (b * h + hh) * sq + i
+  for (int sh = LANES / 2; sh > 0; sh >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, sh);
+  if (threadIdx.x % LANES == 0) delta[rowid] = acc;  // (B, H, Sq): rowid = (b * h + hh) * sq + i
 }
 
 // ---------------------------------------------------------------------------
 // backward 2: f32 partials of dK, dV for one (64-key tile, query head, batch)
 // ---------------------------------------------------------------------------
 
-constexpr int B_V = STEP_BYTES;
-constexpr int B_Q = 2 * STEP_BYTES;
-constexpr int B_DO = B_Q + STAGES * STEP_BYTES;
-constexpr int B_LSE = B_DO + STAGES * STEP_BYTES;
-constexpr int B_DELTA = B_LSE + STAGES * STEP * 4;
-constexpr int B_SEG = B_DELTA + STAGES * STEP * 4;
-constexpr int B_BAR = B_SEG + STAGES * STEP * 4;
-constexpr size_t DKDV_SMEM = B_BAR + 8 * (1 + 2 * STAGES) + 1024;
+// a dK/dV CTA's shared memory: K, V, the Q, dO, lse, delta and segment-id
+// rings, barriers
+template <int D>
+struct DkdvSmem : Tiles<D> {
+  static constexpr int V = Tiles<D>::STEP_BYTES;
+  static constexpr int Q = 2 * Tiles<D>::STEP_BYTES;
+  static constexpr int DO = Q + STAGES * Tiles<D>::STEP_BYTES;
+  static constexpr int LSE = DO + STAGES * Tiles<D>::STEP_BYTES;
+  static constexpr int DELTA = LSE + STAGES * STEP * 4;
+  static constexpr int SEG = DELTA + STAGES * STEP * 4;
+  static constexpr int BAR = SEG + STAGES * STEP * 4;
+  static constexpr size_t BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
 
 // The shared-memory tiles and the walk of one dK/dV CTA, as its consumers see them
 struct DkdvTiles {
@@ -544,7 +597,7 @@ struct DkdvTiles {
 // of the tile (S^T = K Q^T is formed by both), so each holds one 64 x D
 // accumulator; this thread keys kr0 and kr0 + 8, query columns 8 n + 2 c
 // (+1) of each 8-row chunk n.  Writes the warpgroup's partial (dK scaled).
-template <bool DK>
+template <int D, bool DK>
 __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem& p, int b, int hh,
                                               float* __restrict__ part) {
   const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
@@ -557,9 +610,9 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem&
     for (int e = 0; e < 2; ++e)
       if (kr0 + 8 * e < p.sk) kseg[e] = p.kv_seg[(long long)b * p.sk + kr0 + 8 * e];
   }
-  float acc[64], st[32], dpt[32];
+  float acc[D / 2], st[32], dpt[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   for (int j = t.s_lo, i = 0; j < t.s_hi; ++j, ++i) {
     const int s = i % STAGES, q0 = j * STEP;
@@ -569,10 +622,10 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem&
     mbar_wait(&t.full[s], (i / STAGES) & 1);
     // S^T = K Q^T (and for dK, dP^T = V dO^T): (64 keys, 64 queries)
     wg_fence();
-    product64(st, t.k, STEP, 0, tq);
+    product64<D>(st, t.k, STEP, 0, tq);
     wg_commit();
     if (DK) {
-      product64(dpt, t.v, STEP, 0, tdo);
+      product64<D>(dpt, t.v, STEP, 0, tdo);
       wg_commit();
     }
     wg_wait<0>();
@@ -615,9 +668,7 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem&
     const bf16* rhs = DK ? tq : tdo;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < STEP / 16; ++kk)
-      wgmma_rs128(acc, fa[4 * kk], fa[4 * kk + 1], fa[4 * kk + 2], fa[4 * kk + 3],
-                  mnmajor(rhs, STEP, kk));
+    for (int kk = 0; kk < STEP / 16; ++kk) wgmma_rs(acc, fa + 4 * kk, mnmajor(rhs, STEP, kk));
     wg_commit();
     wg_wait<0>();
     keep(acc);
@@ -632,7 +683,7 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem&
     if (key >= p.sk) continue;
     float* row = part + (((long long)b * p.h + hh) * p.sk + key) * D + 2 * c;
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<float2*>(row + 8 * n) =
           make_float2(acc[4 * n + 2 * e] * mul, acc[4 * n + 2 * e + 1] * mul);
   }
@@ -641,21 +692,23 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem&
 // grid (H, B, key tiles in plan order); plan row: (k0, query step lo, hi,
 // free lo, free hi, Sq).  Writes dk_part / dv_part (B, H, Sk, D) f32, dK
 // already scaled.
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dkdv(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
     const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk_part,
     float* __restrict__ dv_part, Problem p) {
+  using M = DkdvSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + B_V);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + B_Q);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + B_DO);
-  float* sLse = reinterpret_cast<float*>(smem + B_LSE);
-  float* sDelta = reinterpret_cast<float*>(smem + B_DELTA);
-  int* sSeg = reinterpret_cast<int*>(smem + B_SEG);
-  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + B_BAR);
+  bf16* sV = reinterpret_cast<bf16*>(smem + M::V);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + M::Q);
+  bf16* sdO = reinterpret_cast<bf16*>(smem + M::DO);
+  float* sLse = reinterpret_cast<float*>(smem + M::LSE);
+  float* sDelta = reinterpret_cast<float*>(smem + M::DELTA);
+  int* sSeg = reinterpret_cast<int*>(smem + M::SEG);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + M::BAR);
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + STAGES;
 
@@ -678,15 +731,15 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dkdv(
   if (warp >= CONSUMER_WARPS) {  // producer warpgroup: one thread issues every load
     regs_dec<PRODUCER_REGS>();
     if (warp == CONSUMER_WARPS && lane == 0) {
-      mbar_expect_tx(bar_kv, 2 * STEP_BYTES);
-      tma_tile(sK, STEP, &mk, bar_kv, k0, kh, b);
-      tma_tile(sV, STEP, &mv, bar_kv, k0, kh, b);
+      mbar_expect_tx(bar_kv, 2 * M::STEP_BYTES);
+      tma_tile<D>(sK, STEP, &mk, bar_kv, k0, kh, b);
+      tma_tile<D>(sV, STEP, &mv, bar_kv, k0, kh, b);
       for (int j = s_lo, i = 0; j < s_hi; ++j, ++i) {
         const int s = i % STAGES, q0 = j * STEP;
         if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * STEP_BYTES + 2 * STEP * 4 + (p.q_seg ? STEP * 4 : 0));
-        tma_tile(sQ + s * STEP * D, STEP, &mq, &full[s], q0, hh, b);
-        tma_tile(sdO + s * STEP * D, STEP, &mdo, &full[s], q0, hh, b);
+        mbar_expect_tx(&full[s], 2 * M::STEP_BYTES + 2 * STEP * 4 + (p.q_seg ? STEP * 4 : 0));
+        tma_tile<D>(sQ + s * STEP * D, STEP, &mq, &full[s], q0, hh, b);
+        tma_tile<D>(sdO + s * STEP * D, STEP, &mdo, &full[s], q0, hh, b);
         bulk_copy(sLse + s * STEP, lse + lrow + q0, STEP * 4, &full[s]);
         bulk_copy(sDelta + s * STEP, delta + lrow + q0, STEP * 4, &full[s]);
         if (p.q_seg)
@@ -701,15 +754,17 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dkdv(
                     k0, s_lo, s_hi, row[3], row[4]};
   mbar_wait(bar_kv, 0);
   if (warp < 4)
-    dkdv_consumer<false>(t, p, b, hh, dv_part);
+    dkdv_consumer<D, false>(t, p, b, hh, dv_part);
   else
-    dkdv_consumer<true>(t, p, b, hh, dk_part);
+    dkdv_consumer<D, true>(t, p, b, hh, dk_part);
 }
 
 // ---------------------------------------------------------------------------
-// backward 3: dK, dV = the g query heads' partials summed in head order
+// backward 3: dK, dV = the g query heads' partials summed in head order (at
+// g = 1 a cast of each partial to bf16)
 // ---------------------------------------------------------------------------
 
+template <int D>
 __global__ void __launch_bounds__(256) attn_bwd_group_sum(
     const float* __restrict__ dk_part, const float* __restrict__ dv_part, bf16* __restrict__ dk,
     bf16* __restrict__ dv, Layout lk, Layout lv, int b_count, int h, int kvh, int sk) {
@@ -743,28 +798,34 @@ __global__ void __launch_bounds__(256) attn_bwd_group_sum(
 // backward 4: dQ for one (128-query tile, head, batch), second pass
 // ---------------------------------------------------------------------------
 
-constexpr int Q_DO = TILE_BYTES;
-constexpr int Q_K = 2 * TILE_BYTES;
-constexpr int Q_V = Q_K + STAGES * STEP_BYTES;
-constexpr int Q_SEG = Q_V + STAGES * STEP_BYTES;
-constexpr int Q_BAR = Q_SEG + STAGES * STEP * 4;
-constexpr size_t DQ_SMEM = Q_BAR + 8 * (1 + 2 * STAGES) + 1024;
+// a dQ CTA's shared memory: Q, dO, the K, V and key segment-id rings, barriers
+template <int D>
+struct DqSmem : Tiles<D> {
+  static constexpr int DO = Tiles<D>::TILE_BYTES;
+  static constexpr int K = 2 * Tiles<D>::TILE_BYTES;
+  static constexpr int V = K + STAGES * Tiles<D>::STEP_BYTES;
+  static constexpr int SEG = V + STAGES * Tiles<D>::STEP_BYTES;
+  static constexpr int BAR = SEG + STAGES * STEP * 4;
+  static constexpr size_t BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
 
 // grid (H, B, query tiles in plan order); plan row: (q0, key step lo, hi,
 // free lo, free hi, Sk)
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
     const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
     Layout lq, Problem p) {
+  using M = DqSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + Q_DO);
-  bf16* sK = reinterpret_cast<bf16*>(smem + Q_K);
-  bf16* sV = reinterpret_cast<bf16*>(smem + Q_V);
-  int* sSeg = reinterpret_cast<int*>(smem + Q_SEG);
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + Q_BAR);
+  bf16* sdO = reinterpret_cast<bf16*>(smem + M::DO);
+  bf16* sK = reinterpret_cast<bf16*>(smem + M::K);
+  bf16* sV = reinterpret_cast<bf16*>(smem + M::V);
+  int* sSeg = reinterpret_cast<int*>(smem + M::SEG);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + M::BAR);
   uint64_t* full = bar_q + 1;
   uint64_t* empty = full + STAGES;
 
@@ -786,15 +847,15 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
   if (warp >= CONSUMER_WARPS) {  // producer warpgroup: one thread issues every load
     regs_dec<PRODUCER_REGS>();
     if (warp == CONSUMER_WARPS && lane == 0) {
-      mbar_expect_tx(bar_q, 2 * TILE_BYTES);
-      tma_tile(sQ, TILE, &mq, bar_q, q0, hh, b);
-      tma_tile(sdO, TILE, &mdo, bar_q, q0, hh, b);
+      mbar_expect_tx(bar_q, 2 * M::TILE_BYTES);
+      tma_tile<D>(sQ, TILE, &mq, bar_q, q0, hh, b);
+      tma_tile<D>(sdO, TILE, &mdo, bar_q, q0, hh, b);
       for (int j = s_lo, i = 0; j < s_hi; ++j, ++i) {
         const int s = i % STAGES, k0 = j * STEP;
         if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * STEP_BYTES + (p.q_seg ? STEP * 4 : 0));
-        tma_tile(sK + s * STEP * D, STEP, &mk, &full[s], k0, kh, b);
-        tma_tile(sV + s * STEP * D, STEP, &mv, &full[s], k0, kh, b);
+        mbar_expect_tx(&full[s], 2 * M::STEP_BYTES + (p.q_seg ? STEP * 4 : 0));
+        tma_tile<D>(sK + s * STEP * D, STEP, &mk, &full[s], k0, kh, b);
+        tma_tile<D>(sV + s * STEP * D, STEP, &mv, &full[s], k0, kh, b);
         if (p.q_seg)
           bulk_copy(sSeg + s * STEP, p.kv_seg + (long long)b * p.sk + k0, STEP * 4, &full[s]);
       }
@@ -820,9 +881,9 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
     rd[e] = delta[at];
     if (p.q_seg) qseg[e] = p.q_seg[(long long)b * p.sq + r];
   }
-  float acc[64], sc[32], dp[32];
+  float acc[D / 2], sc[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   mbar_wait(bar_q, 0);
 
   for (int j = s_lo, i = 0; j < s_hi; ++j, ++i) {
@@ -832,9 +893,9 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
     mbar_wait(&full[s], (i / STAGES) & 1);
     // S = Q K^T and dP = dO V^T: (64 queries, 64 keys) each
     wg_fence();
-    product64(sc, sQ, TILE, wg * 64, tk);
+    product64<D>(sc, sQ, TILE, wg * 64, tk);
     wg_commit();
-    product64(dp, sdO, TILE, wg * 64, tv);
+    product64<D>(dp, sdO, TILE, wg * 64, tv);
     wg_commit();
     wg_wait<0>();
     keep(sc);
@@ -862,9 +923,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
     // dQ += dS K: (64 queries, D), reduced over the 64 keys
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < STEP / 16; ++kk)
-      wgmma_rs128(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                  mnmajor(tk, STEP, kk));
+    for (int kk = 0; kk < STEP / 16; ++kk) wgmma_rs(acc, da + 4 * kk, mnmajor(tk, STEP, kk));
     wg_commit();
     wg_wait<0>();
     keep(acc);
@@ -878,7 +937,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
     if (r >= p.sq) continue;
     bf16* qg = dq + b * lq.b + hh * lq.h + (long long)r * lq.s + 2 * c;
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(qg + 8 * n) =
           __floats2bfloat162_rn(acc[4 * n + 2 * e] * p.scale, acc[4 * n + 2 * e + 1] * p.scale);
   }
@@ -914,14 +973,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (B, heads, S, D) bf16 tensor with element strides `l` as a 4-D map
-// (D, S, heads, B), loaded in (64, rows) boxes with the 128-byte swizzle;
+// a (B, heads, S, d) bf16 tensor with element strides `l` as a 4-D map
+// (d, S, heads, B), loaded in (64, rows) boxes with the 128-byte swizzle;
 // rows past S read as zeros
-bool make_map(CUtensorMap* map, const void* base, int b, int heads, int s, const Layout& l,
+bool make_map(CUtensorMap* map, const void* base, int b, int heads, int s, int d, const Layout& l,
               int rows) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)s, (cuuint64_t)heads, (cuuint64_t)b};
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)l.s * 2, (cuuint64_t)l.h * 2, (cuuint64_t)l.b * 2};
   const cuuint32_t box[4] = {(cuuint32_t)SLAB, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
@@ -930,8 +989,9 @@ bool make_map(CUtensorMap* map, const void* base, int b, int heads, int s, const
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Raise a kernel's dynamic shared-memory limit once per process (the first
-// call is made outside any CUDA-graph capture: the wrappers' first use).
+// Raise a kernel's dynamic shared-memory limit once per process (`done`: a
+// static of the launching instantiation; the first call is made outside any
+// CUDA-graph capture: the wrappers' first use).
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
   if (*done) return cudaSuccess;
@@ -940,20 +1000,92 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
   *done = e == cudaSuccess;
   return e;
 }
-bool fwd_smem_set = false, dkdv_smem_set = false, dq_smem_set = false;
 
 // a multiple of 64, and of 128 above 128
 bool length_ok(int s) { return s > 0 && s % 64 == 0 && (s <= 128 || s % 128 == 0); }
 
+// the head dims instantiated below
 bool shape_ok(int b, int h, int kvh, int sq, int sk, int d) {
-  return b > 0 && kvh > 0 && h % kvh == 0 && d == D && length_ok(sq) && length_ok(sk);
+  return b > 0 && kvh > 0 && h % kvh == 0 && (d == 128 || d == 64) && length_ok(sq) &&
+         length_ok(sk);
 }
 
 int tiles(int s) { return (s + TILE - 1) / TILE; }
 
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, const Problem& p,
+               int b, const long long* strides, cudaStream_t stream) {
+  const Layout lq{strides[0], strides[1], strides[2]}, lk{strides[3], strides[4], strides[5]},
+      lv{strides[6], strides[7], strides[8]}, lo{strides[9], strides[10], strides[11]};
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, b, p.h, p.sq, D, lq, TILE) || !make_map(&mk, k, b, p.kvh, p.sk, D, lk, STEP) ||
+      !make_map(&mv, v, b, p.kvh, p.sk, D, lv, STEP))
+    return -2;
+  static bool smem_set = false;
+  cudaError_t e = allow_smem(attn_fwd<D>, FwdSmem<D>::BYTES, &smem_set);
+  if (e != cudaSuccess) return (int)e;
+  attn_fwd<D><<<dim3(p.h, b, tiles(p.sq)), THREADS, FwdSmem<D>::BYTES, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), lo, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const void* lse, void* delta, void* dq, void* dk, void* dv, void* dk_part,
+               void* dv_part, const void* plan_dq, Problem p, int b, const long long* strides,
+               cudaStream_t s) {
+  const Layout lq{strides[0], strides[1], strides[2]}, lk{strides[3], strides[4], strides[5]},
+      lv{strides[6], strides[7], strides[8]}, lo{strides[9], strides[10], strides[11]},
+      ldo{strides[12], strides[13], strides[14]};
+  const int h = p.h, kvh = p.kvh, sq = p.sq, sk = p.sk;
+  static bool dkdv_smem_set = false, dq_smem_set = false;
+  cudaError_t e;
+  {  // 1. delta
+    const long long rows = (long long)b * h * sq;
+    attn_bwd_delta<D><<<(unsigned)((rows * (D / 8) + 127) / 128), 128, 0, s>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(delta),
+        lo, ldo, b, h, sq);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  {  // 2. dK, dV partials
+    CUtensorMap mq, mdo, mk, mv;
+    if (!make_map(&mq, q, b, h, sq, D, lq, STEP) || !make_map(&mdo, dout, b, h, sq, D, ldo, STEP) ||
+        !make_map(&mk, k, b, kvh, sk, D, lk, STEP) || !make_map(&mv, v, b, kvh, sk, D, lv, STEP))
+      return -2;
+    if ((e = allow_smem(attn_bwd_dkdv<D>, DkdvSmem<D>::BYTES, &dkdv_smem_set)) != cudaSuccess)
+      return (int)e;
+    attn_bwd_dkdv<D><<<dim3(h, b, sk / STEP), THREADS, DkdvSmem<D>::BYTES, s>>>(
+        mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk_part), static_cast<float*>(dv_part), p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  {  // 3. their sum over each group
+    const long long groups = (long long)b * kvh * sk * (D / 4);
+    attn_bwd_group_sum<D><<<(unsigned)((groups + 255) / 256), 256, 0, s>>>(
+        static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), lk, lv, b, h, kvh, sk);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  {  // 4. dQ
+    CUtensorMap mq, mdo, mk, mv;
+    if (!make_map(&mq, q, b, h, sq, D, lq, TILE) || !make_map(&mdo, dout, b, h, sq, D, ldo, TILE) ||
+        !make_map(&mk, k, b, kvh, sk, D, lk, STEP) || !make_map(&mv, v, b, kvh, sk, D, lv, STEP))
+      return -2;
+    p.plan = static_cast<const int*>(plan_dq);
+    if ((e = allow_smem(attn_bwd_dq<D>, DqSmem<D>::BYTES, &dq_smem_set)) != cudaSuccess)
+      return (int)e;
+    attn_bwd_dq<D><<<dim3(h, b, tiles(sq)), THREADS, DqSmem<D>::BYTES, s>>>(
+        mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dq), lq, p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 }  // namespace
 
-static_assert(FWD_SMEM <= 232448 && DKDV_SMEM <= 232448 && DQ_SMEM <= 232448,
+static_assert(FwdSmem<128>::BYTES <= 232448 && DkdvSmem<128>::BYTES <= 232448 &&
+                  DqSmem<128>::BYTES <= 232448,
               "a CTA's shared memory must fit in the SM's 227 KB");
 
 // strides: 3 per tensor, (batch, head, position) in elements; plan: the
@@ -965,19 +1097,11 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
                                          int d, const long long* strides, int causal, int window,
                                          float scale, void* stream) {
   if (!shape_ok(b, h, kvh, sq, sk, d) || (q_seg == nullptr) != (kv_seg == nullptr)) return -1;
-  const Layout lq{strides[0], strides[1], strides[2]}, lk{strides[3], strides[4], strides[5]},
-      lv{strides[6], strides[7], strides[8]}, lo{strides[9], strides[10], strides[11]};
   const Problem p{h, kvh, sq, sk, causal, window, scale, static_cast<const int*>(q_seg),
                   static_cast<const int*>(kv_seg), static_cast<const int*>(plan)};
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, b, h, sq, lq, TILE) || !make_map(&mk, k, b, kvh, sk, lk, STEP) ||
-      !make_map(&mv, v, b, kvh, sk, lv, STEP))
-    return -2;
-  cudaError_t e = allow_smem(attn_fwd, FWD_SMEM, &fwd_smem_set);
-  if (e != cudaSuccess) return (int)e;
-  attn_fwd<<<dim3(h, b, tiles(sq)), THREADS, FWD_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), lo, p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == 128 ? launch_fwd<128>(q, k, v, o, lse, p, b, strides, s)
+                  : launch_fwd<64>(q, k, v, o, lse, p, b, strides, s);
 }
 
 // strides: q, k, v, o, dout; dq / dk / dv share q's / k's / v's strides;
@@ -992,49 +1116,11 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                          int sk, int d, const long long* strides, int causal,
                                          int window, float scale, void* stream) {
   if (!shape_ok(b, h, kvh, sq, sk, d) || (q_seg == nullptr) != (kv_seg == nullptr)) return -1;
-  const Layout lq{strides[0], strides[1], strides[2]}, lk{strides[3], strides[4], strides[5]},
-      lv{strides[6], strides[7], strides[8]}, lo{strides[9], strides[10], strides[11]},
-      ldo{strides[12], strides[13], strides[14]};
-  Problem p{h, kvh, sq, sk, causal, window, scale, static_cast<const int*>(q_seg),
-            static_cast<const int*>(kv_seg), static_cast<const int*>(plan_dkdv)};
+  const Problem p{h, kvh, sq, sk, causal, window, scale, static_cast<const int*>(q_seg),
+                  static_cast<const int*>(kv_seg), static_cast<const int*>(plan_dkdv)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  {  // 1. delta
-    const long long rows = (long long)b * h * sq;
-    attn_bwd_delta<<<(unsigned)((rows * 16 + 127) / 128), 128, 0, s>>>(
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(delta),
-        lo, ldo, b, h, sq);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  {  // 2. dK, dV partials
-    CUtensorMap mq, mdo, mk, mv;
-    if (!make_map(&mq, q, b, h, sq, lq, STEP) || !make_map(&mdo, dout, b, h, sq, ldo, STEP) ||
-        !make_map(&mk, k, b, kvh, sk, lk, STEP) || !make_map(&mv, v, b, kvh, sk, lv, STEP))
-      return -2;
-    if ((e = allow_smem(attn_bwd_dkdv, DKDV_SMEM, &dkdv_smem_set)) != cudaSuccess) return (int)e;
-    attn_bwd_dkdv<<<dim3(h, b, sk / STEP), THREADS, DKDV_SMEM, s>>>(
-        mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dk_part), static_cast<float*>(dv_part), p);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  {  // 3. their sum over each group
-    const long long groups = (long long)b * kvh * sk * (D / 4);
-    attn_bwd_group_sum<<<(unsigned)((groups + 255) / 256), 256, 0, s>>>(
-        static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), lk, lv, b, h, kvh, sk);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  {  // 4. dQ
-    CUtensorMap mq, mdo, mk, mv;
-    if (!make_map(&mq, q, b, h, sq, lq, TILE) || !make_map(&mdo, dout, b, h, sq, ldo, TILE) ||
-        !make_map(&mk, k, b, kvh, sk, lk, STEP) || !make_map(&mv, v, b, kvh, sk, lv, STEP))
-      return -2;
-    p.plan = static_cast<const int*>(plan_dq);
-    if ((e = allow_smem(attn_bwd_dq, DQ_SMEM, &dq_smem_set)) != cudaSuccess) return (int)e;
-    attn_bwd_dq<<<dim3(h, b, tiles(sq)), THREADS, DQ_SMEM, s>>>(
-        mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dq), lq, p);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  return 0;
+  return d == 128 ? launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, dk_part, dv_part,
+                                    plan_dq, p, b, strides, s)
+                  : launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, dk_part, dv_part,
+                                   plan_dq, p, b, strides, s);
 }

@@ -104,7 +104,9 @@ class TrainStep:
         opt_state = self.opt.step(grads, opt_state, params)
         metrics = {
             "loss": loss_sum / torch.clamp(w_sum, min=1.0),
-            "completed_fraction": kept / (w * m),
+            # tensor by tensor: true division, the reference's f32 quotient (by
+            # a Python number CUDA multiplies by its reciprocal, an ulp off)
+            "completed_fraction": kept / torch.full_like(kept, w * m),
             "computed_weight": w_sum,
             "kept_local": int(own.sum()),
             "microbatch_marks": marks,

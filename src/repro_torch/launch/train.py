@@ -8,17 +8,24 @@
         --steps 20 --drop-compute --auto-threshold --device cpu  # smoke config
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --full-config --seq 2048 --batch 32 --workers 4 --microbatches 2 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch bert-1.5b \
+        --optimizer lans --steps 2 --device cpu  # smoke config
+    PYTHONPATH=src python -m repro_torch.launch.train --arch bert-1.5b \
+        --full-config --optimizer lans --seq 128 --batch 768 --workers 4 \
+        --microbatches 12 --steps 3 --drop-compute --auto-threshold  # B.1's micro-batch
 
-Selects an architecture from the port's registry (``--arch``, the reduced
-smoke config unless ``--full-config``), builds the synthetic data and the
+Selects an architecture from the port's registry (``--arch``: one of
+``ARCHITECTURES`` or the paper's ``PAPER_MODELS``, the reduced smoke config
+unless ``--full-config``), builds the synthetic data and the
 DropCompute trainer, and runs on one device: CUDA unless ``--device cpu``.
 ``--ckpt DIR`` saves a checkpoint every 50 steps, ``--resume DIR`` resumes
 from one (parameters, optimizer state and the adapted tau-controller
 state), as the reference's launcher does.  A config that the training
 kernels are not built for is refused on CUDA before any work: attention
-other than head dim 128, group 8, bf16 (qwen's smoke config is f32 with
-head dim 32), or SSD layers other than state 128, head dim 64 (mamba's
-smoke config has state 16, head dim 32); run those with ``--device cpu``.
+other than head dim 128, group 8 or head dim 64, group 1, in bf16 (qwen's
+smoke config is f32 with head dim 32, the BERT smoke configs f32 with head
+dim 32), or SSD layers other than state 128, head dim 64 (mamba's smoke
+config has state 16, head dim 32); run those with ``--device cpu``.
 
 ``--mesh N`` trains data-parallel on N ranks (``repro_torch.dist``): under
 ``torchrun`` each process joins the group it made; run alone, the launcher
@@ -37,7 +44,7 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHITECTURES, get_config, get_smoke_config
+from repro_torch.configs import ARCHITECTURES, PAPER_MODELS, get_config, get_smoke_config
 from repro_torch.core import DropConfig, LatencyModel, NoiseModel
 from repro_torch.data import DataConfig
 from repro_torch.dist import Distribution, UnsupportedDistError, procs
@@ -49,7 +56,7 @@ from repro_torch.train.resilience import SCENARIOS, make_scenario
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, help=f"one of {ARCHITECTURES}")
+    ap.add_argument("--arch", required=True, help=f"one of {ARCHITECTURES + PAPER_MODELS}")
     ap.add_argument("--smoke", action="store_true", default=True,
                     help="use the reduced same-family config (the default)")
     ap.add_argument("--full-config", dest="smoke", action="store_false")

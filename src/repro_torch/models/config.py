@@ -7,11 +7,13 @@ per-layer block sequence is ``layer_pattern`` repeated/truncated to
 
     'G' — global (full causal) attention block
     'L' — local (sliding-window) attention block
+    'B' — bidirectional (encoder) attention block
     'R' — RG-LRU recurrent block (Griffin / RecurrentGemma)
     'M' — Mamba-2 SSD block
 
-The port runs 'G'/'L' decoder stacks; the other families refuse with
-``UnsupportedPatternError`` at init (``models.model``).
+The port runs 'G'/'L'/'M' decoder stacks and trains 'B' encoder stacks;
+the other families refuse with ``UnsupportedPatternError`` at init
+(``models.model``).
 """
 from __future__ import annotations
 

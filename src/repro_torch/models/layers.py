@@ -423,11 +423,14 @@ def apply_attention(
     ``step_index`` for this kind, made here when not given.  The cache's
     pools must come from ``init_attention_cache`` or the paged layout
     (``serve.kv``): the rows the reference drops go to their spare row.
+    'B' (bidirectional encoder) blocks run only without a cache.
     """
-    if kind not in ("G", "L"):
-        raise ValueError(f"attention runs 'G'/'L' blocks in the port, got {kind!r}")
+    if kind not in ("G", "L", "B"):
+        raise ValueError(f"attention runs 'G'/'L'/'B' blocks in the port, got {kind!r}")
     if cache is None:
         return apply_attention_nocache(p, x, cfg, kind, positions, rope), None
+    if kind == "B":
+        raise ValueError("'B' (encoder) attention has no cache: it is never served")
     if index is None:
         index = step_index(cfg, kind, positions, cache, decode_pos, seq_lens, slot_ids,
                            page_tables, page_size)
@@ -466,10 +469,12 @@ def require_no_softcap(cfg: ModelConfig) -> None:
 def apply_attention_nocache(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                             positions: torch.Tensor, rope=None) -> torch.Tensor:
     """The no-cache branch of ``layers.apply_attention`` (``:586-600``) for
-    'G' (causal) and 'L' (causal, sliding window) blocks: x (B, S, d) ->
-    (B, S, d).  The reference takes ``sdpa`` up to 2048 tokens, ``sdpa_flash``
-    above and the banded ``sdpa_local_banded`` for long 'L' sequences; all
-    compute one function, which here is ``kernels.ops.flash_attention``
+    'G' (causal), 'L' (causal, sliding window) and 'B' (bidirectional: the
+    reference's ``mask = None`` and ``sdpa_flash(..., causal=(kind != "B"))``)
+    blocks: x (B, S, d) -> (B, S, d).  The reference takes ``sdpa`` up to
+    2048 tokens, ``sdpa_flash`` above and the banded ``sdpa_local_banded``
+    for long 'L' sequences; all compute one function, which here is
+    ``kernels.ops.flash_attention``
     (K3: the CUDA kernel on the card, with its backward kernel under
     autograd; the plain version on the CPU).  q, k, v stay in their
     (B, S, heads, D) storage and reach the kernel as transposed views."""
@@ -479,7 +484,7 @@ def apply_attention_nocache(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: 
     q, k, v = _qkv(p, x, cfg, rope)  # (B, S, heads, D)
     window = cfg.sliding_window if kind == "L" else 0
     out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                     causal=True, window=window).transpose(1, 2)
+                                     causal=kind != "B", window=window).transpose(1, 2)
     wo = p["wo"].to(cfg.compute_dtype)
     return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 

@@ -14,7 +14,9 @@ graph (``repro_torch.graphs``).
 
 ``batch`` is a dict: ``tokens`` (B, S) int, optional ``weights`` (B, S)
 per-token loss weights.  The port trains and serves decoder-only stacks of
-'G'/'L' attention and 'M' (Mamba-2) layers; other families raise
+'G'/'L' attention and 'M' (Mamba-2) layers, and trains encoder stacks of
+'B' (bidirectional) blocks, the paper's BERT models, which have no decode
+shapes and so are never served; other families raise
 ``UnsupportedPatternError``.
 
 Parameters are nested dicts with the reference's path names and shapes
@@ -46,19 +48,12 @@ class UnsupportedPatternError(NotImplementedError):
     """A serving or training path was asked for a model it cannot run.
 
     Typed (and raised unconditionally, not ``assert``-ed) so callers can
-    catch it.  The port trains and serves decoder-only 'G'/'L'/'M' stacks;
-    RG-LRU ('R'), MoE, enc-dec and VLM models raise it."""
+    catch it.  The port trains and serves decoder-only 'G'/'L'/'M' stacks
+    and trains 'B' encoder stacks; serving a 'B' stack, RG-LRU ('R'), MoE,
+    enc-dec and VLM models raise it."""
 
 
-def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
-    """Raise ``UnsupportedPatternError`` unless the port can run ``cfg``
-    through multi-token serving steps: decoder-only stacks of 'G'/'L'
-    attention and 'M' (Mamba-2) layers without experts or a VLM prefix."""
-    if not set(cfg.pattern) <= {"G", "L", "M"}:
-        raise UnsupportedPatternError(
-            f"{what} supports 'G'/'L'/'M' layer patterns in the PyTorch port, got "
-            f"{cfg.pattern!r}"
-        )
+def _require_family(cfg: ModelConfig, what: str) -> None:
     if cfg.is_encdec:
         raise UnsupportedPatternError(f"{what} does not support enc-dec models")
     if cfg.n_experts > 0:
@@ -67,20 +62,50 @@ def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
         raise UnsupportedPatternError(f"{what} does not support VLM prefixes in the port yet")
 
 
+def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
+    """Raise ``UnsupportedPatternError`` unless the port can run ``cfg``
+    through multi-token serving steps: decoder-only stacks of 'G'/'L'
+    attention and 'M' (Mamba-2) layers without experts or a VLM prefix.
+    A 'B' encoder stack has no decode shapes and is refused here (the
+    serving engine, the paged layout, ``init_decode_cache`` and the
+    prefill steps all ask)."""
+    if not set(cfg.pattern) <= {"G", "L", "M"}:
+        raise UnsupportedPatternError(
+            f"{what} supports 'G'/'L'/'M' layer patterns in the PyTorch port, got "
+            f"{cfg.pattern!r}"
+        )
+    _require_family(cfg, what)
+
+
+def require_stack(cfg: ModelConfig, what: str = "the PyTorch port") -> None:
+    """Raise ``UnsupportedPatternError`` unless the port can build ``cfg``
+    and run it without caches (initialisation, the training forward): the
+    serving stacks of ``require_chunkable``, or an encoder stack of 'B'
+    blocks alone (bidirectional attention: the BERT models), in both cases
+    without experts, a VLM prefix or an encoder-decoder split."""
+    pattern = set(cfg.pattern)
+    if not (pattern <= {"G", "L", "M"} or pattern == {"B"}):
+        raise UnsupportedPatternError(
+            f"{what} supports 'G'/'L'/'M' decoder or 'B' encoder layer patterns in the "
+            f"PyTorch port, got {cfg.pattern!r}"
+        )
+    _require_family(cfg, what)
+
+
 def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> None:
     """Raise before any work what the training path would raise at its
     first layer: a family the port does not run (``UnsupportedPatternError``),
     ``logit_softcap`` (not ported), and on the card a shape the training
     kernels are not built for (``kernels.flash_attention.UnbuiltShapeError``):
-    for 'G'/'L' layers attention's head dim, group, compute dtype and
+    for 'G'/'L'/'B' layers attention's head dim, group, compute dtype and
     sequence length; for 'M' layers the SSD kernels' (state, head dim) and
     the chunk length the scan runs at ``seq_len`` (``ssm.chunk_len``), which
     the K6 backward takes as a multiple of its row tile up to its limit."""
-    require_chunkable(cfg, "training")
+    require_stack(cfg, "training")
     L.require_no_softcap(cfg)
     if torch.device(device).type != "cuda":
         return
-    if set(cfg.pattern) & {"G", "L"}:
+    if set(cfg.pattern) & {"G", "L", "B"}:
         _fa.require_trained(cfg.hd, cfg.n_heads // cfg.n_kv_heads, cfg.compute_dtype, seq_len)
     if "M" in cfg.pattern:
         _ssd.require_built(cfg.ssm_state, cfg.ssm_head_dim)
@@ -97,7 +122,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
     Same tree as ``repro.models.model.init_params``; different numbers
     (the two frameworks' generators differ)."""
     cfg.validate()
-    require_chunkable(cfg, "the PyTorch port")
+    require_stack(cfg, "the PyTorch port")
     dev = torch.device("meta") if device == "meta" else resolve_device(device)
     gen = None
     if dev.type != "meta":
@@ -301,10 +326,11 @@ def packed_prefill(params: Tree, cfg: ModelConfig, cache: Tree, tokens, slot_ids
 def forward_features(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final hidden states (B, S, d), aux loss scalar) — ``model.py:100-140``
-    for G/L/M decoders: embed, the stack without caches (remat per group
-    under ``cfg.remat``; 'M' layers run the cache-free SSD scan, forward
-    only), the final norm."""
-    require_chunkable(cfg, "training")
+    for G/L/M decoders and 'B' encoders: embed (learned positions where
+    ``cfg.pos`` says so), the stack without caches (remat per group under
+    ``cfg.remat``; 'M' layers run the cache-free SSD scan, 'B' layers
+    bidirectional attention), the final norm."""
+    require_stack(cfg, "training")
     dev = params_device(params)
     tokens = _long(batch["tokens"], dev)
     positions = torch.arange(tokens.shape[1], device=dev)
@@ -403,5 +429,6 @@ __all__ = [
     "packed_prefill",
     "prefill_chunk",
     "require_chunkable",
+    "require_stack",
     "require_trainable",
 ]

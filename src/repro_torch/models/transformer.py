@@ -1,5 +1,5 @@
-"""Block assembly for G/L attention and 'M' (Mamba-2) stacks (port of
-``repro.models.transformer``).
+"""Block assembly for G/L attention, 'B' encoder and 'M' (Mamba-2) stacks
+(port of ``repro.models.transformer``).
 
 Layers are organised as in the reference (``transformer.py:188-206``):
 
@@ -62,8 +62,8 @@ def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Tree:
     if kind == "M":  # ``transformer.py:88-89``: one norm and the SSD mixer
         return {"norm1": L.init_norm(cfg, device=device),
                 "ssd": SSD.init_ssd(gen, cfg, device=device)}
-    if kind not in ("G", "L"):
-        raise ValueError(f"the port builds 'G'/'L'/'M' blocks, got {kind!r}")
+    if kind not in ("G", "L", "B"):  # ``transformer.py:73-84``: 'B' has 'G''s tree
+        raise ValueError(f"the port builds 'G'/'L'/'B'/'M' blocks, got {kind!r}")
     return {
         "norm1": L.init_norm(cfg, device=device),
         "attn": L.init_attention(gen, cfg, device=device),
@@ -80,7 +80,8 @@ def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
     step's ``layers.step_index`` for a 'G'/'L' kind (made here when None),
     its ``recurrent.packed_step`` for 'M' on a packed step.
     ``cache=None`` runs the training path (``rope``: the sequence's RoPE
-    angles, made once per forward)."""
+    angles, made once per forward); a 'B' block runs only there, as 'G'
+    does but with bidirectional attention (``transformer.py:114-143``)."""
     h = L.apply_norm(p["norm1"], x, cfg)
     if kind == "M":  # ``transformer.py:156-167``
         y, _ = SSD.apply_ssd(p["ssd"], h, cfg, None if cache is None else cache["ssd"],

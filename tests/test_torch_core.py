@@ -124,6 +124,20 @@ class TestAccumulateGrads:
                     "grad_denom"):
             assert_close(s[key], js[key], "model_f32")
 
+    def test_completed_fraction_is_the_exact_quotient(self):
+        """46 of 48 micro-batches kept: the completed fraction is the
+        correctly rounded f32 quotient, as the reference's ``jnp.sum(mask) /
+        m`` (``tests/test_torch_kernels_gpu.py`` holds the same on the card,
+        where dividing by a Python number was an ulp off)."""
+        params = {"w": torch.ones(4)}
+        grad = core.make_grad_fn(lambda p, mb: ((p["w"] * mb["x"]).sum(), torch.ones(())))
+        mask = np.ones(48, np.float32)
+        mask[[5, 40]] = 0
+        _, _, stats = core.accumulate_grads(grad, params, {"x": torch.ones(48, 4)}, mask,
+                                            core.DropConfig())
+        assert float(stats["completed_fraction"]) == float(np.float32(46) / np.float32(48))
+        assert float(stats["completed_fraction"]) == float(jnp.sum(jnp.asarray(mask)) / 48)
+
     def test_dropped_microbatches_are_never_computed(self, smoke):
         calls = []
         tc, tp, mbs = smoke[1], smoke[3], smoke[4]

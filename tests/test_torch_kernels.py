@@ -723,6 +723,17 @@ class TestFlashAttentionPlain:
         want, got, _ = _both_fwd(_qkv(1, 2, 2, sq, sk, 64, seed=6), causal=causal)
         assert_close(got, want, "kernel_f32")
 
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_bert_heads_non_causal(self, pallas_load, dtype):
+        """The (head dim 64, group 1) bidirectional build's case: bert-1.5b's
+        25 heads, one KV head each, at its 128 tokens."""
+        want, got, _ = _both_fwd(_qkv(2, 25, 25, 128, 128, 64, seed=25), dtype, causal=False)
+        if dtype == "float32":
+            assert_close(got, want, "kernel_f32")
+        else:  # the JAX suite's own bf16 tolerance (test_kernels.py:33)
+            np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                       atol=2e-2)
+
     @pytest.mark.parametrize("window", [0, 64])
     def test_segment_ids(self, pallas_load, window):
         seg = np.zeros((2, 256), np.int32)
@@ -791,6 +802,19 @@ class TestFlashAttentionBackwardPlain:
         tq, tk, tv, tdo = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do))
         out, lse = ref.flash_attention_fwd_ref(tq, tk, tv, causal=True, window=window)
         got = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, causal=True, window=window)
+        for g, w in zip(got, want):
+            assert_close(g.transpose(1, 2), w, "kernel_f32")
+
+    def test_non_causal_matches_grad_of_mask_free_sdpa(self):
+        """The bidirectional backward ('B' layers) against ``jax.grad`` of the
+        reference's ``sdpa(q, k, v, None)``, one KV head a query head, f32."""
+        rng = np.random.default_rng(25)
+        q, k, v, do = (rng.normal(size=(2, 40, 5, 16)).astype(np.float32) for _ in range(4))
+        want = _jax_grads(lambda a, b, c: jlayers.sdpa(a, b, c, None),
+                          *map(jnp.asarray, (q, k, v, do)))
+        tq, tk, tv, tdo = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do))
+        out, lse = ref.flash_attention_fwd_ref(tq, tk, tv, causal=False)
+        got = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, causal=False)
         for g, w in zip(got, want):
             assert_close(g.transpose(1, 2), w, "kernel_f32")
 

@@ -8,6 +8,7 @@ it runs there on its own:
 
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -247,6 +248,28 @@ class TestKernelsOnCard:
             assert got.shape == w.shape, name
             assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
 
+    @pytest.mark.parametrize("b,h,s", [(16, 25, 128), (2, 16, 512)],
+                             ids=["bert_1_5b", "bert_large_s512"])
+    def test_flash_attention_bert(self, cuda, b, h, s):
+        """The (head dim 64, group 1) bidirectional build at bert-1.5b's
+        micro-batch (16 x 128 tokens, 25 heads) and bert-large's phase-2
+        length (512 tokens, 16 heads): forward and backward against the
+        plain versions row by row, two backward runs bit-identical (no
+        atomics), and the causal flag, planted, outside the limit."""
+        q, k, v, do = attn_inputs(cuda, b, s, s, seed=s + h, h=h, kvh=h, d=64)
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, causal=False)
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=False)
+        grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=False)
+        again = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+        bad, _ = flash_attention.flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert row_rel_err(out, want) <= K3_ROW_TOL < row_rel_err(bad, want)
+        np.testing.assert_allclose(np32(lse), np32(want_lse), atol=1e-3, rtol=0)
+        for name, got, w in zip(("dq", "dk", "dv"), grads, wants):
+            assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
+        assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
     def test_flash_attention_check_catches_a_planted_fault(self, cuda):
         """The row metric passes the kernel and fails what a kernel skipping
         its diagonal key tile for the later half of the rows would return
@@ -285,6 +308,13 @@ class TestKernelsOnCard:
         q, k, v, _ = attn_inputs(cuda, 1, sq, sq, seed=7, h=h, kvh=kvh)
         with pytest.raises((ValueError, TypeError)):
             flash_attention.flash_attention_fwd(q.to(dtype), k.to(dtype), v.to(dtype))
+
+    @pytest.mark.parametrize("h,kvh,sq", [(16, 8, 128), (16, 16, 96)])
+    def test_flash_attention_refuses_unbuilt_head_dim_64_shapes(self, cuda, h, kvh, sq):
+        """Head dim 64 is built for group 1 at lengths the kernels take."""
+        q, k, v, _ = attn_inputs(cuda, 1, sq, sq, seed=7, h=h, kvh=kvh, d=64)
+        with pytest.raises(flash_attention.UnbuiltShapeError):
+            flash_attention.flash_attention_fwd(q, k, v, causal=False)
 
     @pytest.mark.parametrize("rows", [8, 2048, 257])
     @pytest.mark.parametrize("model", [False, True])
@@ -555,6 +585,21 @@ class TestGraphsOnCard:
         assert got == want and len(got) == len(prompts)
         assert got_counts == want_counts
         assert len(eng.step_graph.keys) == 2  # a mixed and a decode shape
+
+    @pytest.mark.parametrize("eager", [False, True])
+    def test_completed_fraction_is_the_exact_quotient(self, cuda, eager):
+        """46 of 48 micro-batches kept (bert-1.5b's 4 workers x 12): the
+        completed fraction is the correctly rounded f32 quotient, not an ulp
+        off as a CUDA tensor divided by a Python number is."""
+        params = {"w": torch.ones(4, device=cuda)}
+        grad = core.make_grad_fn(
+            lambda p, mb: ((p["w"] * mb["x"]).sum(), torch.ones((), device=cuda)))
+        mask = np.ones(48, np.float32)
+        mask[[5, 40]] = 0
+        with (graphs.disable_graphs() if eager else contextlib.nullcontext()):
+            _, _, stats = core.accumulate_grads(grad, params, {"x": torch.ones(48, 4, device=cuda)},
+                                                mask, core.DropConfig())
+        assert float(stats["completed_fraction"]) == float(np.float32(46) / np.float32(48))
 
     def test_graphed_microbatch_equals_eager(self, cuda):
         """One training step of three micro-batches, the middle one dropped:
