@@ -41,9 +41,14 @@ eager and one graphed step of its phase 10 (mamba2-130m at 24 layers,
 micro-batches of 4 x 2048 tokens; K6's forward and its backward's kernels
 filed apart), ``bert_train`` one eager and one graphed step of its phase
 11c (bert-1.5b at 48 layers, 4 workers x 12 micro-batches of 16 x 128
-tokens, LANS; K3's (64, 1) build filed under K3).  ``kernels`` also times
-K3's (128, 8) build at the qwen training shape (``k3_timing``) with a
-digest of its outputs.  A copy of this script placed at the
+tokens, LANS; K3's (64, 1) build filed under K3), ``rg_serve`` the
+serving runs of its phase 12c (recurrentgemma-2b at 26 layers, its nine
+requests; K4's (256, 10) build filed under K4), then each step shape's
+device time beside one RG-LRU mixer's and its products'
+(``rg_mixer_shares``).  ``kernels`` also times K3's (128, 8) build at the
+qwen training shape (``k3_timing``) with a digest of its outputs, gives a
+digest of K4's (128, 8) outputs (``k4_digests``) and times K4's (256, 10)
+build.  A copy of this script placed at the
 root of another checkout (a ``git archive`` of a later commit: its
 ``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
 checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
@@ -303,7 +308,7 @@ def serve_profiles(cfg, params, prompts, make) -> None:
 
 TAG = ""
 PARTS = ("kernels", "k6_precision", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train",
-         "bert_train")
+         "bert_train", "rg_serve")
 #: the parts that time kernels alone, run only when named
 KERNEL_PARTS = ("kernels", "k6_precision")
 
@@ -367,20 +372,124 @@ def k3_digests(seed: int) -> dict:
             for name, x in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads))}
 
 
+def k4_digests(seed: int) -> dict:
+    """sha256 of K4's outputs over qwen2.5-3b's decode and mixed steps
+    (``chip_smoke.decode_scenario`` / ``paged_scenario`` at its widths, the
+    wrapper's own plan), bf16 and int8 pools, on inputs from their own
+    stream (``seed`` + 3): two trees' digests are equal exactly when their
+    (128, 8) builds give the same bits."""
+    import hashlib
+
+    rng = np.random.default_rng(seed + 3)
+    lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
+    outs = {}
+    for name, a in (("decode", cs.decode_scenario(rng, lens)),
+                    ("mixed", cs.paged_scenario(rng, lens, [cs.CHUNK] * 4 + [1] * 4))):
+        outs[name] = cs.flash_attention.paged_flash_attention(**a)
+        kq, ks = cs._paged_quantize(a["k_pool"])
+        vq, vs = cs._paged_quantize(a["v_pool"])
+        outs[f"{name}_int8"] = cs.flash_attention.paged_flash_attention(
+            **dict(a, k_pool=kq, v_pool=vq, k_scale=ks, v_scale=vs))
+    torch.cuda.synchronize()
+    return {k: hashlib.sha256(v.float().cpu().numpy().tobytes()).hexdigest()[:16]
+            for k, v in outs.items()}
+
+
 def kernel_times(seed: int) -> dict:
     """``chip_smoke.py``'s K4, K2, K2-backward and K3 timings (the checks
     inside them included) at its main-path shapes, from a stream seeded as
-    its run's, then K6 and K5 (``ssd_times``) and the digests of K6's, K5's
-    and K3's outputs (``ssd_digests``, ``k3_digests``)."""
+    its run's, then K6 and K5 (``ssd_times``) and the digests of K4's
+    (128, 8), K6's, K5's and K3's outputs (``k4_digests``, ``ssd_digests``,
+    ``k3_digests``); with a ``chip_smoke.py`` that has phase 12, K4's
+    (256, 10) build at recurrentgemma's decode and mixed steps too."""
     rng = np.random.default_rng(seed)
     lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
     k4 = cs.k4_timing(rng, lens)
     k2 = cs.k2_timing(rng)
     _, k2b = cs.k2_bwd_checks_and_timing(rng)
     k3f, k3b = cs.k3_timing(rng)
-    return {"tag": TAG, "run": "kernels", "k4": k4, "k2": k2, "k2_bwd": k2b,
-            "k3": {"fwd": k3f, "bwd": k3b}, "ssd_us": ssd_times(rng),
-            "ssd_digests": ssd_digests(seed), "k3_digests": k3_digests(seed)}
+    rec = {"tag": TAG, "run": "kernels", "k4": k4, "k2": k2, "k2_bwd": k2b,
+           "k3": {"fwd": k3f, "bwd": k3b}, "ssd_us": ssd_times(rng),
+           "k4_digests": k4_digests(seed), "ssd_digests": ssd_digests(seed),
+           "k3_digests": k3_digests(seed)}
+    if hasattr(cs, "RG_DIMS"):
+        rg_lens = cs.rg_requests(get_config("recurrentgemma_2b"), seed)[0][:cs.SLOTS]
+        rec["k4_d256_g10"] = cs.k4_timing(rng, rg_lens, dims=cs.RG_DIMS, window=cs.RG_WINDOW)
+    return rec
+
+
+def rg_mixer_shares(cfg, params, seed: int) -> dict:
+    """Device time (graph replay, L2 flushed, us) of one recurrentgemma-2b
+    step at each of the engine's four step shapes (unpacked decode (8, 1)
+    and mixed (8, 64); packed decode 8 and mixed 257: four prefill chunks
+    of 256 tokens in all and four decodes), over a paged cache whose 8 slots hold 300 positions
+    each; beside it one 'R' layer's RG-LRU mixer (``rglru.apply_rglru``, a
+    layer's input in its carried state) and that mixer's three products
+    alone.  ``mixers_rest_share``: the part of the step the 18 mixers take
+    besides their products (conv, gates, scan, output gate), the work a
+    fused gates-and-scan kernel would take over."""
+    from repro_torch.models import rglru
+    from repro_torch.models.model import chunk_plans, packed_plans, packed_prefill, prefill_chunk
+    from repro_torch.models.recurrent import packed_step
+    from repro_torch.models.transformer import tree_map
+
+    rng = np.random.default_rng(seed + 4)
+    n_r = cfg.pattern.count("R")
+    layer = tree_map(lambda t: t[0], params["stack"]["groups"][cfg.layer_pattern.index("R")])
+    p = layer["rglru"]
+    kv = cs.KVCacheSpec(num_slots=cs.SLOTS, max_len=cs.RG_MAX_LEN, layout="paged",
+                        page_size=cs.PAGE).build(params, cfg)
+    ctx = 300
+    for i in range(cs.SLOTS):
+        kv.admit_slot(i, [1] * ctx, cs.CHUNK)
+        kv.prepare_write(i, 0, ctx + cs.CHUNK)
+    state = kv.state
+    cache = {k: v.clone() for k, v in rglru.init_rglru_cache(cfg, cs.SLOTS, device="cuda").items()}
+    out = {}
+    for name, packed, c in (("unpacked_decode", False, 1), ("unpacked_mixed", False, cs.CHUNK),
+                            ("packed_decode", True, 1), ("packed_mixed", True, cs.CHUNK)):
+        if packed:
+            # the budget's 256 tokens: three chunks, a 60-token one, four decodes
+            spans = [c] * 3 + [c - 4] + [1] * 4 if c > 1 else [1] * cs.SLOTS
+            cap = cs.BUDGET + 1 if c > 1 else cs.SLOTS
+            lay = cs.pack_step([(i, ctx, [1] * n) for i, n in enumerate(spans)], cap)
+            plans = packed_plans(cfg, state, lay.slot_ids, lay.positions)
+            plans = {k: torch.as_tensor(v, device="cuda") for k, v in plans.items()}
+            toks, slots, pos = (torch.as_tensor(x, device="cuda").long()
+                                for x in (lay.tokens, lay.slot_ids, lay.positions))
+            info = packed_step(slots, cs.SLOTS, cfg.rglru_conv)
+            x = torch.randn(1, cap, cfg.d_model, device="cuda").to(cfg.compute_dtype)
+            args = ((params, cfg, state, toks, slots, pos), dict(plans=plans),
+                    dict(slot_ids=slots, step=info))
+            run = packed_prefill
+        else:
+            pos_np = np.full(cs.SLOTS, ctx, np.int64)
+            lens_np = np.full(cs.SLOTS, c, np.int64)
+            plans = chunk_plans(cfg, state, pos_np, lens_np, c)
+            plans = {k: torch.as_tensor(v, device="cuda") for k, v in plans.items()}
+            toks = torch.ones((cs.SLOTS, c), dtype=torch.long, device="cuda")
+            pos, lens = (torch.as_tensor(v, device="cuda") for v in (pos_np, lens_np))
+            x = torch.randn(cs.SLOTS, c, cfg.d_model, device="cuda").to(cfg.compute_dtype)
+            args = ((params, cfg, state, toks, pos, lens), dict(plans=plans),
+                    dict(seq_lens=lens))
+            run = prefill_chunk
+        y = torch.randn(*x.shape[:2], p["w_out"].shape[0], device="cuda").to(cfg.compute_dtype)
+        step_args, step_kw, mixer_kw = args
+
+        def step():
+            return run(*step_args, **step_kw)
+
+        def mixer():
+            return rglru.apply_rglru(p, x, cfg, cache, **mixer_kw)
+
+        def products():
+            return x @ p["w_branch"], x @ p["w_gate_branch"], y @ p["w_out"]
+
+        rec = {k: cs.time_ms(f, iters=20) * 1e3
+               for k, f in (("step_us", step), ("mixer_us", mixer), ("products_us", products))}
+        rec["mixers_rest_share"] = n_r * (rec["mixer_us"] - rec["products_us"]) / rec["step_us"]
+        out[name] = rec
+    return {"tag": TAG, "run": "rg_mixer", "model": cfg.name, "r_layers": n_r, **out}
 
 
 #: K6's backward's two precision choices, each undone by one edit of a copy
@@ -459,8 +568,8 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=PARTS,
                     default=[p for p in PARTS if p not in KERNEL_PARTS],
                     help="parts to run, always in the order kernels, k6_precision, qwen, mamba, "
-                         "train, localsgd, dp, mamba_train, bert_train (default: all but the "
-                         "first two)")
+                         "train, localsgd, dp, mamba_train, bert_train, rg_serve (default: all "
+                         "but the first two)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -496,6 +605,12 @@ def main() -> int:
                 print(json.dumps(train_profile(mcfg, args.seed, eager, seqs=cs.M_TRAIN_SEQS)),
                       flush=True)
                 cs.free_device()
+        elif part == "rg_serve":  # phase 12c's serving runs, then the mixers' share
+            rcfg = get_config("recurrentgemma_2b")
+            _, rprompts = cs.rg_requests(rcfg, args.seed)
+            params = compute_params(init_params(rcfg, seed=args.seed, device="cuda"), rcfg)
+            serve_profiles(rcfg, params, rprompts, cs.rg_engine)
+            print(json.dumps(rg_mixer_shares(rcfg, params, args.seed)), flush=True)
         elif part == "bert_train":  # phase 11c's step 1, eager then graphed
             bcfg = get_config("bert_1_5b")
             shape = dict(seq=cs.BERT_SEQ, mb=cs.BERT_MB)

@@ -18,7 +18,8 @@ input copy is skipped, must fail the stream check.
 2. build — the four CUDA sources, ``paged_attention.cu``,
    ``flash_attention.cu``, ``ssd_chunk.cu`` and ``rmsnorm.cu``
    (``nvcc``, sm_90a, the builds started together; ptxas's registers and
-   spills of the K3, K4 and K2 forward and backward kernels printed, K2's
+   spills of the K3, K4 and K2 forward and backward kernels printed, K3's
+   and K4's per head dim, K2's
    forward's plan and dynamic shared memory at the main paths' shapes, and
    each SSD kernel instance's and K6's backward's two kernels' with their
    shared memory and CTAs an SM), and the Triton kernel's (K1) JIT, with
@@ -183,10 +184,32 @@ input copy is skipped, must fail the stream check.
    micro-batches of 16 x 128 tokens, the training phase's tau rule, 3
    steps, eager then graphed, with phase 10's checks and readings; 11d:
    bert-large at 24 layers with LAMB, 4 workers x 2 micro-batches of 16 x
-   128 tokens, 2 steps, the same.
+   128 tokens, 2 steps, the same;
+12. recurrentgemma-2b serving (the 'R' family: RG-LRU and local
+   attention) — 12a: K4's (head dim 256, group 10) build with phase 3's
+   K4 checks at recurrentgemma's widths (10 heads on 1 KV head, contexts
+   up to 2,332, its 2,048-token window on the unsplit and decode grids)
+   and two more planted faults (heads 8-9 given zero queries; one split's
+   partial dropped from a token's merge), timed at its decode and mixed
+   steps under the window; K2's forward at d 2,560 (5,120-byte rows) at
+   its steps' row counts, timed beside ``F.rms_norm``; 12b: a 3-layer
+   (RRL) full-width model's first dense and packed steps over paged caches
+   (K4 in the 'L' layer), card (kernels, bf16) against CPU (plain, f32),
+   logits within ``RG_LOGITS_ROW_TOL`` a row, a planted K4 fault outside
+   it; 12c: recurrentgemma-2b at full width and depth (26 layers: 18 'R',
+   8 'L'; random weights from ``--seed``, f32 master and a bf16 compute
+   copy) through ``ContinuousBatcher(cache="paged", chunk_size=64,
+   token_budget=256, page_size=16)``, unpacked then packed, eager then
+   graphed: 8 requests of 128-512 prompt tokens and one of 2,300 (past the
+   window), 32 new tokens each; full-length streams, no leaked pages, no
+   prefix-shared tokens, graphed equal to eager, 8 K4 and 53 K2 launches
+   an engine step; step times, tokens/s and peak memory printed.
 
 The last two lines of standard output are the ``kernels`` JSON record and
-``{"ok": true, "device": {...}}``.  K3's (64, 1) build has records of its
+``{"ok": true, "device": {...}}``.  K4's (256, 10) build has a record of
+its own (``paged_attention_d256_g10``), read at recurrentgemma's decode
+step with phase 12c's launches; K4's (128, 8) record keeps the earlier
+phases'.  K3's (64, 1) build has records of its
 own (``flash_attention_d64_g1`` and its backward), read at bert-1.5b's
 micro-batch with phase 11's launches; K3's (128, 8) records keep the
 earlier phases' launches.  K6's backward's record row is read at
@@ -436,6 +459,27 @@ M_LSGD_LAYERS, M_DP_LAYERS, M_DP_POOL_GIB = 24, 24, 3.0
 # times that run's gap for it.
 DP_ORDER_FACTOR = 4
 
+# phase 12, recurrentgemma-2b serving: its local attention's widths (10 heads
+# of 256 on 1 KV head, the (256, 10) build of K4) and window; 8 requests of
+# the serving run's 128-512 prompt tokens and one of RG_LONG (past the
+# window, so the long request's later queries mask keys), 32 new tokens
+# each, through the qwen run's engine; a slot holds the long one
+RG_H, RG_KV, RG_D, RG_WINDOW = 10, 1, 256, 2048
+RG_LONG = 2300
+RG_MAX_LEN = RG_LONG + NEW_TOKENS
+RG_BLOCKS = -(-RG_MAX_LEN // PAGE)
+RG_DIMS = (RG_H, RG_KV, RG_D, RG_BLOCKS)
+# 12b: a 3-layer (RRL: one 'L' layer) full-width model's first dense and
+# packed steps' logits, card (kernels, bf16) against the CPU (plain, f32),
+# by ``row_rel_err``: bf16 roundings over 3 layers, ~0.01 a row on an H100;
+# the planted K4 fault (heads 8-9 given zero queries, ``without_heads``)
+# reads ~0.15 there (PERF.md), so the limit sits between the two.
+RG_PARITY_LAYERS = 3
+RG_LOGITS_ROW_TOL = 0.05
+#: K2 at recurrentgemma's width: its decode step (8 rows), its packed mixed
+#: step (257) and its unpacked mixed step (8 x 64 = 512 rows) of 2,560
+RG_K2_ROWS = (SLOTS, BUDGET + 1, SLOTS * CHUNK)
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -593,17 +637,19 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
 # ---------------------------------------------------------------------------
 
 
-def paged_scenario(rng: np.random.Generator, ctx, spans, dtype=torch.bfloat16):
+def paged_scenario(rng: np.random.Generator, ctx, spans, dtype=torch.bfloat16, dims=None):
     """Pools whose slots own scattered pages, block tables, and packed
     queries: slot s has ``ctx[s]`` cached positions and ``spans[s]`` query
-    tokens at its last positions."""
+    tokens at its last positions.  ``dims``: (heads, KV heads, head dim,
+    table blocks), qwen2.5-3b's serving run's by default."""
+    h, kv, d, blocks = dims or (H, KV, D, BLOCKS)
     num_slots = len(ctx)
-    num_pages = num_slots * BLOCKS
+    num_pages = num_slots * blocks
     perm = rng.permutation(num_pages)
-    tables = np.full((num_slots, BLOCKS), num_pages, np.int32)
+    tables = np.full((num_slots, blocks), num_pages, np.int32)
     for s, n in enumerate(ctx):
         nb = -(-n // PAGE)
-        tables[s, :nb] = perm[s * BLOCKS : s * BLOCKS + nb]
+        tables[s, :nb] = perm[s * blocks : s * blocks + nb]
     q_pos = np.concatenate([np.arange(n - m, n) for n, m in zip(ctx, spans)]).astype(np.int32)
     q_slots = np.concatenate([np.full(m, s) for s, m in enumerate(spans)]).astype(np.int32)
     t = len(q_pos)
@@ -612,8 +658,8 @@ def paged_scenario(rng: np.random.Generator, ctx, spans, dtype=torch.bfloat16):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(DEV, dtype)
 
     return dict(
-        q=randn(t, H, D), k_pool=randn(num_pages, PAGE, KV, D),
-        v_pool=randn(num_pages, PAGE, KV, D),
+        q=randn(t, h, d), k_pool=randn(num_pages, PAGE, kv, d),
+        v_pool=randn(num_pages, PAGE, kv, d),
         tables=torch.from_numpy(tables).to(DEV), q_pos=torch.from_numpy(q_pos).to(DEV),
         q_slots=torch.from_numpy(q_slots).to(DEV),
     )
@@ -629,8 +675,8 @@ def paged_cost(a, window=0):
     tables = a["tables"].cpu().numpy()
     q_pos = a["q_pos"].cpu().numpy()
     q_slots = a["q_slots"].cpu().numpy()
-    num_pages = a["k_pool"].shape[0]
-    row_bytes = KV * D * a["k_pool"].element_size() + (KV * 4 if "k_scale" in a else 0)
+    num_pages, _, kv, d = a["k_pool"].shape
+    row_bytes = kv * d * a["k_pool"].element_size() + (kv * 4 if "k_scale" in a else 0)
     good = (tables >= 0) & (tables < num_pages)
     kpos = np.arange(tables.shape[1] * PAGE)
     rows = keys = 0
@@ -643,13 +689,14 @@ def paged_cost(a, window=0):
         rows += int(adm.any(axis=0).sum())
     nbytes = (2 * a["q"].numel() * a["q"].element_size() + 2 * rows * row_bytes
               + (tables.size + 2 * q_pos.size) * 4)
-    return nbytes, 4.0 * D * H * keys
+    return nbytes, 4.0 * d * a["q"].shape[1] * keys
 
 
-def decode_scenario(rng, prompt_lens):
+def decode_scenario(rng, prompt_lens, dims=None):
     """The serving run's decode step, mid-generation: one query per slot at
     ``prompt_len + NEW_TOKENS // 2`` cached positions."""
-    return paged_scenario(rng, [n + NEW_TOKENS // 2 for n in prompt_lens], [1] * SLOTS)
+    return paged_scenario(rng, [n + NEW_TOKENS // 2 for n in prompt_lens], [1] * len(prompt_lens),
+                          dims=dims)
 
 
 def skip_last_page(a, plan_row):
@@ -665,30 +712,74 @@ def skip_last_page(a, plan_row):
     return dict(a, tables=tables, q_slots=slots)
 
 
+def k4_instance(a):
+    """The paged kernel's instance for a scenario's (head dim, group)."""
+    _, h, d = a["q"].shape
+    return flash_attention.instance(d, h // a["k_pool"].shape[2])
+
+
 def step_plan(a, window=0, rows=None):
     """The tile plan of a scenario, as the engine makes it for a step
     (``rows``: padded with empty tiles to that many rows)."""
     return flash_attention.tile_plan_tensor(a["q_pos"], a["q_slots"], a["k_pool"].shape[1],
-                                            a["tables"].shape[1], window, rows)
+                                            a["tables"].shape[1], window, rows,
+                                            k4_instance(a).tile_tokens)
 
 
 def packed_rows(a) -> int:
     """The plan rows of a packed step of the scenario's tokens and slots
     (``step_plan_rows``): what the engine pads its plan to."""
-    return flash_attention.step_plan_rows(a["q"].shape[0], a["tables"].shape[0], True)
+    return flash_attention.step_plan_rows(a["q"].shape[0], a["tables"].shape[0], True,
+                                          k4_instance(a).tile_tokens)
 
 
-def k4_checks(rng, prompt_lens):
-    ctx = [int(x) for x in rng.integers(PROMPT_MIN, MAX_LEN, SLOTS)]
+def drop_split(a, token: int, split: int, per: int):
+    """A planted K4 fault: inputs on which the plain version returns what a
+    kernel whose split merge dropped ``token``'s partial of split ``split``
+    (table blocks [split * per, (split + 1) * per)) would return: the token
+    moves to a new slot whose table is its slot's with those blocks
+    masked."""
+    slot = int(a["q_slots"][token])
+    tables = torch.cat([a["tables"], a["tables"][slot:slot + 1]])
+    tables[-1, split * per:(split + 1) * per] = -1
+    slots = a["q_slots"].clone()
+    slots[token] = tables.shape[0] - 1
+    return dict(a, tables=tables, q_slots=slots)
+
+
+def without_heads(a, first: int):
+    """A planted K4 fault: the scenario with each group's query heads from
+    ``first`` on zeroed, which the kernel then computes as a kernel whose
+    second n8 tile of heads read no Q would."""
+    t, h, d = a["q"].shape
+    q = a["q"].clone()
+    q.view(t, a["k_pool"].shape[2], -1, d)[:, :, first:] = 0
+    return dict(a, q=q)
+
+
+def k4_checks(rng, prompt_lens, dims=None, max_len=MAX_LEN, windows=(100, 200, 100)):
+    """K4 against its plain version, row for row within ``K4_TOL``, at
+    ``dims`` (``paged_scenario``'s; qwen2.5-3b's by default) with contexts
+    up to ``max_len``: bf16 and int8 pools, a window (``windows``: the
+    plain case's, the unsplit grid's and the decode grid's), softcap,
+    hostile tables, padding and fully masked queries, an unsplit grid, the
+    decode grid split many ways; each over the wrapper's plan, the step's
+    plan and the packed step's padded plan.  Planted faults that must fail
+    the same check: a tile's last page skipped; at a group above 8 (two n8
+    tiles of heads), heads 8 on left out, and one split's partial dropped
+    from the merge.  Returns the largest absolute difference."""
+    h, kv, d, blocks = dims or (H, KV, D, BLOCKS)
+    inst = flash_attention.instance(d, h // kv)
+    ctx = [int(x) for x in rng.integers(PROMPT_MIN, max_len, SLOTS)]
     spans = [1, 64, 1, 9, 1, 33, 1, 1]  # decode, prefill chunks and verify-sized spans
-    base = paged_scenario(rng, ctx, spans)
+    base = paged_scenario(rng, ctx, spans, dims=dims)
     num_pages = base["k_pool"].shape[0]
     cases = {}
     cases["bf16"] = (base, {}, None)
     kq, ks = _paged_quantize(base["k_pool"])  # the model's write-path scheme
     vq, vs = _paged_quantize(base["v_pool"])
     cases["int8"] = (dict(base, k_pool=kq, v_pool=vq, k_scale=ks, v_scale=vs), {}, None)
-    cases["window"] = (base, {"window": 100}, None)
+    cases["window"] = (base, {"window": windows[0]}, None)
     cases["softcap"] = (base, {"softcap": 5.0}, None)
     hostile = base["tables"].clone()
     hostile[0, 2], hostile[1, 0], hostile[5, 3] = -3, num_pages + 7, -1
@@ -701,14 +792,15 @@ def k4_checks(rng, prompt_lens):
     cases["fully_masked"] = (dict(base, tables=masked), {}, base["q_slots"] == 3)
     # a grid large enough to run unsplit (the prefill steps' path), with a
     # window and padding on top
-    many = paged_scenario(rng, ctx, [CHUNK] * SLOTS)
+    many = paged_scenario(rng, ctx, [CHUNK] * SLOTS, dims=dims)
     many_slots = many["q_slots"].clone()
     many_slots[::5] = -1
-    cases["many_queries"] = (dict(many, q_slots=many_slots), {"window": 200}, many_slots < 0)
+    cases["many_queries"] = (dict(many, q_slots=many_slots), {"window": windows[1]},
+                             many_slots < 0)
     # the decode steps' grid (one query per slot, as k4_timing times it) plus
     # a padding query: the block range splits many ways, and the splits past
     # a short slot's last block are empty
-    dec = decode_scenario(rng, prompt_lens)
+    dec = decode_scenario(rng, prompt_lens, dims=dims)
     dec = {k: (torch.cat([v, v[:1]]) if k in ("q", "q_pos", "q_slots") else v)
            for k, v in dec.items()}
     dec["q_slots"][-1] = -1
@@ -717,7 +809,7 @@ def k4_checks(rng, prompt_lens):
     vq, vs = _paged_quantize(dec["v_pool"])
     cases["decode"] = (dec, {}, pad)
     cases["decode_int8"] = (dict(dec, k_pool=kq, v_pool=vq, k_scale=ks, v_scale=vs), {}, pad)
-    cases["decode_window"] = (dec, {"window": 100}, pad)
+    cases["decode_window"] = (dec, {"window": windows[2]}, pad)
 
     max_err = 0.0
     for name, (a, kw, zero_rows) in cases.items():
@@ -745,19 +837,40 @@ def k4_checks(rng, prompt_lens):
                 check(int(zero_rows.sum()) > 0, f"K4 {name}: scenario has no zero rows")
                 check(bool((got[zero_rows] == 0).all()), f"K4 {name}: rows not exactly zero")
         t = a["q"].shape[0]
-        splits, _ = flash_attention.split_blocks(plan.shape[0] * KV, BLOCKS,
-                                                 flash_attention._sm_count(0))
+        splits, per = flash_attention.split_blocks(plan.shape[0] * kv, blocks,
+                                                   flash_attention._sm_count(0), inst.ctas_per_sm)
         if name.startswith("decode"):
             check(splits > 2, f"K4 {name}: {splits} splits, the decode grid should split > 2 ways")
+        if h // kv > 8 and name in ("bf16", "many_queries"):
+            bad = flash_attention.paged_flash_attention(**without_heads(a, 8), **kw)
+            bad_err = (bad.float() - want.float()).abs().max().item()
+            check(not torch.allclose(bad.float(), want.float(), **K4_TOL),
+                  f"K4 {name}: K4_TOL lets a planted fault pass (max |err| {bad_err})")
+            log(f"K4 {name}: planted fault (heads 8-{h // kv - 1} left out): "
+                f"max|err|={bad_err:.3e}, rejected")
+        if h // kv > 8 and name == "decode":
+            # the token where split 1 weighs most: the shortest context
+            # that fills it
+            tok = int(torch.where((a["q_slots"] >= 0) & (a["q_pos"] >= 2 * per * PAGE),
+                                  a["q_pos"], 1 << 30).argmin())
+            bad = ref.paged_attention_ref(**drop_split(a, tok, 1, per), **kw)
+            bad_err = (bad.float() - want.float()).abs().max().item()
+            check(not torch.allclose(bad.float(), want.float(), **K4_TOL),
+                  f"K4 {name}: K4_TOL lets a planted fault pass (max |err| {bad_err})")
+            log(f"K4 {name}: planted fault (split 1 of {splits}, blocks {per}-{2 * per - 1}, "
+                f"dropped from token {tok}'s merge): max|err|={bad_err:.3e}, rejected")
         if name in ("bf16", "many_queries"):
-            # the planted fault: the last page of the tile with the most tokens skipped
-            row = plan[int(plan[:, 1].argmax())].tolist()
+            # the planted fault: the last page skipped of the tile where it
+            # weighs most, the shortest block range (of the longest tiles)
+            p = plan.cpu().numpy().astype(np.int64)
+            cand = np.flatnonzero((p[:, 2] >= 0) & (p[:, 4] > p[:, 3]))
+            row = p[cand[np.argmin((p[cand, 4] - p[cand, 3]) * 64 - p[cand, 1])]].tolist()
             bad = ref.paged_attention_ref(**skip_last_page(a, row), **kw)
             bad_err = (bad.float() - want.float()).abs().max().item()
             check(not torch.allclose(bad.float(), want.float(), **K4_TOL),
                   f"K4 {name}: K4_TOL lets a planted fault pass (max |err| {bad_err})")
-            log(f"K4 {name}: planted fault (tile of {row[1]} tokens, its last page "
-                f"skipped): max|err|={bad_err:.3e}, rejected")
+            log(f"K4 {name}: planted fault (tile of {row[1]} tokens over {row[4] - row[3]} "
+                f"blocks, its last page skipped): max|err|={bad_err:.3e}, rejected")
         log(f"K4 {name:15s} T={t:3d} tiles={plan.shape[0]:3d} splits={splits} "
             f"max|err|={err:.3e} ok"
             + (f"; padded to {rows} rows (a packed step's plan) ok" if padded is not None
@@ -765,26 +878,29 @@ def k4_checks(rng, prompt_lens):
     return max_err
 
 
-def k4_timing(rng, prompt_lens):
+def k4_timing(rng, prompt_lens, dims=None, window=0):
     """Kernel, plain version and bound at two main-path shapes: a decode
     step (one query per slot, mid-generation) and a mixed packed step (4
     prefill chunks of 64), each over the plan the engine makes (padded to
     a packed step's fixed rows; the decode step's needs no padding), the
-    unpadded plan's time beside it."""
-    decode = decode_scenario(rng, prompt_lens)
-    mixed = paged_scenario(rng, [n for n in prompt_lens], [CHUNK] * 4 + [1] * 4)
+    unpadded plan's time beside it; at ``dims`` (``paged_scenario``'s) and
+    ``window`` (the layer kind's)."""
+    decode = decode_scenario(rng, prompt_lens, dims=dims)
+    mixed = paged_scenario(rng, [n for n in prompt_lens], [CHUNK] * 4 + [1] * 4, dims=dims)
     rows = {}
     for shape, a in (("decode", decode), ("mixed", mixed)):
-        plan = step_plan(a, rows=packed_rows(a))  # made once per step by the engine
-        tight = step_plan(a)
+        a = dict(a, window=window)
+        plan = step_plan(a, window, rows=packed_rows(a))  # made once per step by the engine
+        tight = step_plan(a, window)
         kern = time_ms(lambda: flash_attention.paged_flash_attention(**a, plan=plan))
         kern_tight = time_ms(lambda: flash_attention.paged_flash_attention(**a, plan=tight))
         plain = time_ms(lambda: ref.paged_attention_ref(**a), iters=10)
-        nbytes, flops = paged_cost(a)
+        nbytes, flops = paged_cost(a, window)
         b, by = bound_ms(nbytes, flops)
         rows[shape] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by,
                            T=a["q"].shape[0], unpadded_ms=kern_tight)
-        log(f"K4 time {shape:6s} T={a['q'].shape[0]:4d} plan rows={plan.shape[0]} "
+        log(f"K4 time {shape:6s} (D {a['q'].shape[2]}, g {a['q'].shape[1] // a['k_pool'].shape[2]}, window {window}) "
+            f"T={a['q'].shape[0]:4d} plan rows={plan.shape[0]} "
             f"({tight.shape[0]} tiles): kernel {kern * 1e3:.1f} us (unpadded plan "
             f"{kern_tight * 1e3:.1f} us), plain {plain * 1e3:.1f} us, bound {b * 1e3:.2f} us "
             f"({by}), {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP")
@@ -1841,7 +1957,7 @@ def agreement(a, b) -> int:
 
 
 def same_streams(tag, graphed, eager) -> None:
-    total = SLOTS * NEW_TOKENS
+    total = sum(len(v) for v in eager.values())
     same = agreement(graphed, eager)
     log(f"{tag}: graphed vs eager greedy streams: {same}/{total} tokens agree")
     check(graphed == eager, f"{tag}: the graphed streams differ from the eager ones "
@@ -3093,6 +3209,213 @@ def bert_phase(seed: int, rng):
     return errs, timing, {k: counts[k] + large[k] for k in counts}
 
 
+# ---------------------------------------------------------------------------
+# recurrentgemma-2b serving (phase 12)
+# ---------------------------------------------------------------------------
+
+
+def k2_rg_checks(rng, eps=1e-6):
+    """12a: K2's forward at recurrentgemma's width (d 2,560: 5,120-byte
+    rows, the bulk-copy path in bf16) at its serving steps' row counts
+    (``RG_K2_ROWS``), f32 and bf16, both modes, against its plain version
+    (``k2_held``), two runs bit-identical, its plan printed; then timed by
+    graph replay with L2 flushed, bf16 model mode (the model's call),
+    beside its plain version, ``F.rms_norm`` and its bound.  Returns (the
+    largest absolute difference, {rows: times})."""
+    d, sms = 2560, rmsnorm._sm_count(0)
+    s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV)
+    max_err, times = 0.0, {}
+    for rows in RG_K2_ROWS:
+        x32 = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(DEV)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            plan = rmsnorm.fwd_partition(rows, d, x.element_size(), sms)
+            for model in (False, True):
+                tag = (f"K2 {rows:4d} x {d} ({plan.ctas} CTAs x {plan.rows_per_cta}, stages of "
+                       f"{plan.stage_rows}, {plan.slots} slots, {plan.smem} B) "
+                       f"{str(dtype)[6:]:8s} {'model' if model else 'f32'}")
+                out = rmsnorm.rmsnorm(x, s, eps=eps, model=model)
+                max_err = max(max_err, k2_held(out, x, s, eps, model, tag))
+                check(torch.equal(out, rmsnorm.rmsnorm(x, s, eps=eps, model=model)),
+                      f"{tag}: two runs differ")
+        x = x32.to(torch.bfloat16)
+        sb = s.to(torch.bfloat16)
+        kern = time_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True))
+        plain = time_ms(lambda: ref.rmsnorm_model(x, s, eps))
+        lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), weight=sb, eps=eps))
+        b, by = bound_ms(2 * x.numel() * x.element_size() + d * 4, 4.0 * x.numel())
+        times[rows] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+        log(f"K2 time rows={rows:4d} d={d}: kernel {kern * 1e3:.2f} us (one replay), plain "
+            f"{plain * 1e3:.1f} us, F.rms_norm {lib * 1e3:.2f} us, bound {b * 1e3:.2f} us ({by})")
+    return max_err, times
+
+
+@contextlib.contextmanager
+def planted_k4_fault():
+    """Route the model's K4 calls through the kernel with each group's
+    query heads from 8 on zeroed (``without_heads``): what a kernel whose
+    second n8 tile of heads read no Q computes."""
+    sound = ops.paged_flash_attention  # what models.layers calls
+
+    def faulty(q, k_pool, v_pool, *args, **kw):
+        a = without_heads({"q": q, "k_pool": k_pool}, 8)
+        return sound(a["q"], k_pool, v_pool, *args, **kw)
+
+    ops.paged_flash_attention = faulty
+    try:
+        yield
+    finally:
+        ops.paged_flash_attention = sound
+
+
+def rg_first_steps(cfg, params, prompts):
+    """Logits (on the CPU, f32) of the serving run's first dense step (64
+    prompt tokens in every slot) and first packed step (64 in each of the
+    four oldest slots, the budget's 256), each over a fresh paged cache, so
+    that the 'L' layers attend through K4 on the card."""
+    dev = params["embed"]["embedding"].device
+
+    def state(grants):
+        kv = KVCacheSpec(num_slots=SLOTS, max_len=RG_MAX_LEN, layout="paged",
+                         page_size=PAGE).build(params, cfg)
+        for i, p in enumerate(prompts):
+            check(kv.admit_slot(i, p, NEW_TOKENS) == 0, "unexpected prefix sharing")
+        kv.prepare_step(grants)
+        return kv.state
+
+    grants = [(i, 0, list(p[:CHUNK])) for i, p in enumerate(prompts)]
+    tokens = np.stack([np.asarray(g[2]) for g in grants])
+    dense, _ = prefill_chunk(params, cfg, state(grants), tokens, np.zeros(SLOTS, np.int64),
+                             np.full(SLOTS, CHUNK, np.int64))
+    grants = grants[:BUDGET // CHUNK]
+    lay = pack_step(grants, BUDGET + 1)
+    packed, _ = packed_prefill(params, cfg, state(grants), lay.tokens, lay.slot_ids,
+                               lay.positions)
+    valid = torch.from_numpy(lay.slot_ids >= 0).to(dev)
+    return {"dense": dense.float().cpu(), "packed": packed[valid].float().cpu()}
+
+
+def rg_parity(cfg, seed: int, prompts):
+    """12b: a 3-layer (RRL) full-width recurrentgemma: the first dense and
+    packed steps' logits on the card (kernels, bf16 compute) against the CPU
+    (plain versions, f32), by ``row_rel_err`` within ``RG_LOGITS_ROW_TOL``;
+    then the same metric with the planted K4 fault, which must fall outside
+    it."""
+    small = dataclasses.replace(cfg, n_layers=RG_PARITY_LAYERS)
+    check(small.pattern == "RRL", f"12b wants one 'L' layer, got {small.pattern}")
+    cpu_cfg = dataclasses.replace(small, dtype="float32")
+    params = init_params(cpu_cfg, seed=seed, device="cpu")
+    t0 = time.perf_counter()
+    want = rg_first_steps(cpu_cfg, params, prompts)
+    t_cpu = time.perf_counter() - t0
+    card = compute_params(tree_map(lambda x: x.to(DEV), params), small)
+    del params
+
+    def errs(got):
+        return {k: row_rel_err(got[k], w) for k, w in want.items()}
+
+    before = ops.launch_counts()["paged_attention"]
+    sound = errs(rg_first_steps(small, card, prompts))
+    check(ops.launch_counts()["paged_attention"] == before + 2, "12b: K4 did not run")
+    with planted_k4_fault():
+        bad = errs(rg_first_steps(small, card, prompts))
+    log(f"recurrentgemma parity {RG_PARITY_LAYERS} layers ({small.pattern}): first-step logits, "
+        f"row rel err card vs cpu: dense {sound['dense']:.2e}, packed {sound['packed']:.2e} "
+        f"(limit {RG_LOGITS_ROW_TOL}); planted K4 fault (heads 8-9 given zero queries) dense "
+        f"{bad['dense']:.2e}, packed {bad['packed']:.2e}; the CPU pass took {t_cpu:.1f} s")
+    check(all(math.isfinite(e) and e <= RG_LOGITS_ROW_TOL for e in sound.values()),
+          f"recurrentgemma first-step logits differ from the CPU's: {sound}")
+    check(min(bad.values()) > RG_LOGITS_ROW_TOL,
+          f"the logits metric lets a planted K4 fault pass: {bad}")
+
+
+def rg_requests(cfg, seed: int):
+    """The phase's prompt lengths and prompts (its own draws): the long
+    request first, then the serving run's 8 lengths of 128-512."""
+    rng = np.random.default_rng(seed + 2)
+    lens = [RG_LONG] + [int(n) for n in rng.integers(PROMPT_MIN, PROMPT_MAX + 1, SLOTS)]
+    return lens, [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def rg_engine(cfg, params, prompts, packed: bool) -> ContinuousBatcher:
+    """The recurrentgemma serving run's engine with every request submitted."""
+    eng = ContinuousBatcher(params, cfg, batch_slots=SLOTS, max_len=RG_MAX_LEN,
+                            chunk_size=CHUNK, token_budget=BUDGET, cache="paged",
+                            page_size=PAGE, packed=packed)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=NEW_TOKENS))
+    return eng
+
+
+def rg_serve(cfg, params, prompts, packed: bool, eager: bool = False):
+    """One serving run of recurrentgemma-2b through the paged engine, eager
+    (``disable_graphs``) or graphed, checked: every request to full length,
+    no prefix-shared tokens, no leaked pages, and the launches the code
+    implies (one K4 a 'L' layer, two K2 a layer and the final norm, a step;
+    nothing else).  Returns the streams, the launches and the numbers."""
+    eng = rg_engine(cfg, params, prompts, packed)
+    wall, runs, peak = run_engine(eng, eager)
+    tag = f"recurrentgemma {'packed' if packed else 'unpacked'} {'eager' if eager else 'graphed'}"
+    check(sorted(eng.finished) == list(range(len(prompts))), f"{tag}: unfinished requests")
+    for r in eng.finished.values():
+        check(len(r.output) == NEW_TOKENS and not r.truncated,
+              f"{tag}: request {r.uid} has {len(r.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output), f"{tag}: token out of range")
+    summary = eng.stats_summary()
+    check(summary["shared_tokens"] == 0.0,
+          f"{tag}: {summary['shared_tokens']} prefix-shared tokens")
+    eng.kv.check_invariants()
+    check(eng.kv.used_pages == 0, f"{tag}: {eng.kv.used_pages} pages leaked")
+    steps = eng.steps
+    want = {k: 0 for k in runs}
+    want["paged_attention"] = cfg.pattern.count("L") * steps
+    want["rmsnorm"] = (2 * cfg.n_layers + 1) * steps
+    check(runs == want, f"{tag}: launches {runs} over {steps} steps, the code implies {want}")
+    rec = step_record(eng, prompts, wall, peak)
+    log(f"serve {tag}: {steps} steps ({rec['mixed_steps']} mixed, "
+        f"{steps - rec['mixed_steps']} decode-only), launches/step "
+        f"K4={runs['paged_attention'] / steps:.0f} K2={runs['rmsnorm'] / steps:.0f}; median step "
+        f"ms: decode-only {rec['decode_ms']:.2f}, mixed {rec['mixed_ms']:.2f}; "
+        f"{rec['gen_tok_s']:.1f} generated tok/s, {rec['processed_tok_s']:.1f} processed tok/s "
+        f"over {wall:.2f} s; peak device memory {peak:.2f} GiB; peak pages "
+        f"{summary['peak_used_pages']:.0f}/{summary['num_pages']:.0f}"
+        + ("" if eager else f"; {graph_line(eng)}"))
+    return {u: r.output for u, r in eng.finished.items()}, runs, rec
+
+
+def rg_phase(seed: int):
+    """12b and 12c: the 3-layer card-vs-CPU check, then recurrentgemma-2b at
+    full width and depth (random weights from ``seed``, f32 master and a
+    bf16 compute copy) served unpacked and packed, eager then graphed (the
+    counters' window; streams identical)."""
+    cfg = get_config("recurrentgemma_2b")
+    lens, prompts = rg_requests(cfg, seed)
+    rg_parity(cfg, seed, prompts[:SLOTS])
+    free_device()
+    t0 = time.perf_counter()
+    params = compute_params(init_params(cfg, seed=seed, device=DEV), cfg)
+    torch.cuda.synchronize()
+    log(f"recurrentgemma-2b: {cfg.n_layers} layers ({cfg.pattern.count('R')} 'R', "
+        f"{cfg.pattern.count('L')} 'L'), d_model {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, f32 init + bf16 compute copy in "
+        f"{time.perf_counter() - t0:.1f} s; prompt lens {lens} (the first past the "
+        f"{cfg.sliding_window}-token window)")
+    eager = {p: rg_serve(cfg, params, prompts, p, eager=True)[0] for p in (False, True)}
+    outs, recs = {}, {}
+    ops.reset_launch_counts()  # the main path starts here
+    for p in (False, True):
+        outs[p], _, recs[p] = rg_serve(cfg, params, prompts, p)
+    counts = ops.launch_counts()  # ... and ends here
+    for p in (False, True):
+        same_streams(f"recurrentgemma {'packed' if p else 'unpacked'}", outs[p], eager[p])
+    log(f"recurrentgemma packed vs unpacked greedy agreement: {agreement(outs[False], outs[True])}"
+        f"/{len(prompts) * NEW_TOKENS}")
+    check(counts["paged_attention"] > 0 and counts["rmsnorm"] > 0,
+          f"recurrentgemma: kernels not run: {counts}")
+    del params
+    return counts, recs
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -3133,7 +3456,8 @@ def main() -> int:
             f"{_build.library_path(src).relative_to(_build.BUILD_DIR.parents[1])}")
     log(f"build: {len(loaders)} CUDA sources in {time.perf_counter() - t0:.1f} s")
     for src, names in sources.items():
-        lines = (ptxas_lines(src, names, head_dims=src == flash_attention.TRAIN_SOURCE) if names
+        lines = (ptxas_lines(src, names, head_dims=src in (flash_attention.TRAIN_SOURCE,
+                                                           flash_attention.SOURCE)) if names
                  else ssd_build_lines())
         for line in lines:
             log(f"build: ptxas -v, {src}: {line}")
@@ -3244,12 +3568,28 @@ def main() -> int:
     (k3d_fwd_err, k3d_bwd_err), k3d_t, bert_counts = bert_phase(args.seed, rng)
     check(bert_counts["flash_attention"] > 0 and bert_counts["flash_attention_bwd"] > 0
           and bert_counts["masked_accum"] > 0, f"bert: kernels not run: {bert_counts}")
+    free_device()
+
+    # 12. recurrentgemma-2b serving: K4's (256, 10) build and K2 at d 2560
+    # (12a), the 3-layer card-vs-CPU check (12b), the full model (12c)
+    rg_lens = rg_requests(get_config("recurrentgemma_2b"), args.seed)[0][:SLOTS]
+    k4_rg_err = k4_checks(rng, rg_lens, dims=RG_DIMS, max_len=RG_MAX_LEN,
+                          windows=(100, RG_WINDOW, RG_WINDOW))
+    free_device()
+    k2_rg_err, k2_rg_t = k2_rg_checks(rng)
+    k4_rg_t = k4_timing(rng, rg_lens, dims=RG_DIMS, window=RG_WINDOW)
+    free_device()
+    rg_counts, _ = rg_phase(args.seed)
+    free_device()
+
     # K3's (128, 8) records keep the earlier paths' launches; the (64, 1)
-    # build's records take phase 11's
+    # build's records take phase 11's; K4's (128, 8) record keeps the earlier
+    # paths', the (256, 10) build's takes phase 12's
     k3_own = ("flash_attention", "flash_attention_bwd")
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
                 + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k]
                 + (0 if k in k3_own else bert_counts[k])
+                + (0 if k == "paged_attention" else rg_counts[k])
                 for k in serve_counts}
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was launched no time on the main paths")
@@ -3261,6 +3601,12 @@ def main() -> int:
              launches=launches["paged_attention"], max_abs_err=k4_err,
              ms=k4_t["decode"]["ms"], plain_ms=k4_t["decode"]["plain_ms"],
              bound_ms=k4_t["decode"]["bound_ms"], bound_by=k4_t["decode"]["bound_by"],
+             library_ms=None),
+        dict(name="paged_attention_d256_g10", route="cuda",
+             source="src/repro_torch/kernels/paged_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:238",
+             launches=rg_counts["paged_attention"], max_abs_err=k4_rg_err,
+             **{k: k4_rg_t["decode"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
              library_ms=None),
         dict(name="rmsnorm", route="cuda", source="src/repro_torch/kernels/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:27",
@@ -3305,10 +3651,12 @@ def main() -> int:
              launches=launches["ssd_chunk_bwd"], max_abs_err=k6b_err, **k6b_t),
     ]
     log(f"K2 bwd at d 768 (8,192 rows): max abs err {k2b768_err:.3e}, {k2b768_t}")
+    log(f"K2 fwd at d 2560 (recurrentgemma): max abs err {k2_rg_err:.3e}, {k2_rg_t}")
     log(f"launches, qwen serving: {serve_counts}; mamba serving: {mamba_counts}; "
         f"training: {train_counts}; Local-SGD: {localsgd_counts}; Mamba-2 Local-SGD: "
         f"{m_localsgd_counts}; data parallel (9a): {dp_counts}; Mamba-2 training: "
-        f"{mamba_train_counts}; BERT training (11c, 11d): {bert_counts}")
+        f"{mamba_train_counts}; BERT training (11c, 11d): {bert_counts}; recurrentgemma "
+        f"serving (12c): {rg_counts}")
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

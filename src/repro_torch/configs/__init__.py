@@ -4,9 +4,9 @@ Each module exposes ``config()`` (the exact published architecture) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).  The
 port carries the configs it runs; the rest of the reference's
 registry is queued in ROADMAP.md; ``PAPER_MODELS`` are the paper's own
-BERT models, as in the reference.  ``mamba2_tiny`` (a CPU-sized 'M'
-config for the serving parity tests) stays out of ``ARCHITECTURES``, as in
-the reference.
+BERT models, as in the reference.  ``mamba2_tiny`` and ``hybrid_tiny``
+(CPU-sized 'M' and 'R' configs for the serving parity tests) stay out of
+``ARCHITECTURES``, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import List
 
 ARCHITECTURES: List[str] = [
     "mamba2_130m",
+    "recurrentgemma_2b",
     "qwen2_5_3b",
 ]
 

@@ -3,11 +3,12 @@ and ``flash_attention_fwd`` / ``flash_attention_bwd`` (training).
 
 Port of the TPU kernel ``repro.kernels.flash_attention.paged_flash_attention``
 (src/repro/kernels/flash_attention.py:238, body ``_paged_attn_kernel``
-:166).  The kernel itself is ``paged_attention.cu``: one CTA per (tile, KV
-head), a tile being a run of up to ``TILE_TOKENS`` consecutive query tokens
-of one slot (``paged_tile_plan``), its pages staged in shared memory and
-its products on tensor cores; the block range is split over more CTAs when
-the grid is too small for the card.  This module builds the tile plan
+:166).  The kernel itself is ``paged_attention.cu``, built for the (head
+dim, group) pairs of ``INSTANCES``: one CTA per (tile, KV head), a tile
+being a run of up to the instance's ``tile_tokens`` consecutive query
+tokens of one slot (``paged_tile_plan``), its pages staged in shared
+memory and its products on tensor cores; the block range is split over more
+CTAs when the grid is too small for the card.  This module builds the tile plan
 (padded to a row count fixed by the step's shape, ``step_plan_rows``: the
 serving engine makes it on the host once per step and layer kind; or here,
 with a host round trip, when the caller passes none), checks the
@@ -39,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,18 +49,54 @@ from . import _build
 
 SOURCE = "paged_attention.cu"
 TRAIN_SOURCE = "flash_attention.cu"
-# (head dim, H / KV) the source instantiates: the configs the port serves
-SERVED = {(128, 8)}  # qwen2.5-3b
-#: query tokens a tile holds at most (kTileTokens in the source)
-TILE_TOKENS = 8
+
+
+class Instance(NamedTuple):
+    """How the paged kernel is cut for one (head dim, group) (``Inst`` in
+    the source): query tokens a tile holds at most (4 warps of
+    ``tokens_per_warp``), key positions a ring stage, and CTAs an SM
+    (``__launch_bounds__``, within the shared memory a CTA takes)."""
+
+    tile_tokens: int
+    tokens_per_warp: int
+    stage_keys: int
+    ctas_per_sm: int
+
+
+#: (head dim, H / KV) -> the instance the source builds: the configs the
+#: port serves
+INSTANCES = {
+    (128, 8): Instance(8, 2, 64, 3),  # qwen2.5-3b: 128 threads of at most 170 registers
+    (256, 10): Instance(4, 1, 32, 2),  # recurrentgemma-2b: ~97 KB of shared memory a CTA
+}
+SERVED = set(INSTANCES)
+#: the (128, 8) instance's tile tokens and CTAs an SM, the defaults of the
+#: plan's functions
+TILE_TOKENS = INSTANCES[128, 8].tile_tokens
+CTAS_PER_SM = INSTANCES[128, 8].ctas_per_sm
 #: columns of a tile plan row: first token, tokens, slot, block lo, block hi
 PLAN_COLS = 5
-#: the fewest table blocks a split takes (a stage of 64 key positions at
-#: the served page size of 16)
+#: the fewest table blocks a split takes (64 key positions at the served
+#: page size of 16: one stage of the (128, 8) instance, two of (256, 10))
 SPLIT_MIN_BLOCKS = 4
-#: CTAs of the paged kernel an SM holds at once (``__launch_bounds__`` in
-#: the source: 128 threads of at most 170 registers)
-CTAS_PER_SM = 3
+
+
+def tile_tokens(head_dim: int, group: int) -> int:
+    """The tile tokens a serving step's plans take for (head dim, group):
+    the instance's, or ``TILE_TOKENS`` for a pair the kernel is not built
+    for (a plan only the CPU's plain path, which reads none, is given)."""
+    inst = INSTANCES.get((head_dim, group))
+    return TILE_TOKENS if inst is None else inst.tile_tokens
+
+
+def instance(head_dim: int, group: int) -> Instance:
+    """The paged kernel's instance for (head dim, group); raises for one the
+    source does not build."""
+    try:
+        return INSTANCES[head_dim, group]
+    except KeyError:
+        raise ValueError(f"head dim {head_dim} and group H/KV = {group}: the paged kernel is "
+                         f"built for (head dim, group) in {sorted(SERVED)}") from None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,31 +118,31 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_blocks(ctas: int, num_blocks: int, sms: int):
+def split_blocks(ctas: int, num_blocks: int, sms: int, ctas_per_sm: int = CTAS_PER_SM):
     """(splits, blocks_per_split) for a grid of ``ctas`` (tile, KV head)
     CTAs over ``num_blocks`` table blocks: split the block range only when
-    the grid would not fill the card's ``CTAS_PER_SM`` CTAs an SM (decode,
-    mixed steps), and never below ``SPLIT_MIN_BLOCKS`` blocks a split, so
-    every split fills a stage."""
+    the grid would not fill the card's ``ctas_per_sm`` CTAs an SM (the
+    instance's; decode, mixed steps), and never below ``SPLIT_MIN_BLOCKS``
+    blocks a split, so every split fills a stage."""
     splits = 1
-    full = CTAS_PER_SM * sms
+    full = ctas_per_sm * sms
     if ctas < full:
         splits = min(-(-full // ctas), max(-(-num_blocks // SPLIT_MIN_BLOCKS), 1))
     per = -(-num_blocks // splits)
     return -(-num_blocks // per), per
 
 
-def plan_rows(tokens: int, runs: int) -> int:
+def plan_rows(tokens: int, runs: int, tile_tokens: int = TILE_TOKENS) -> int:
     """The most tiles ``paged_tile_plan`` cuts ``tokens`` tokens into when
     they form at most ``runs`` runs of one slot: a run of n tokens gives
-    ceil(n / TILE_TOKENS) = 1 + (n - 1) // TILE_TOKENS tiles, so the runs
-    give at most runs + (tokens - runs) // TILE_TOKENS; never more than
+    ceil(n / tile_tokens) = 1 + (n - 1) // tile_tokens tiles, so the runs
+    give at most runs + (tokens - runs) // tile_tokens; never more than
     ``tokens``."""
     runs = max(min(runs, tokens), 1)
-    return min(tokens, runs + (tokens - runs) // TILE_TOKENS)
+    return min(tokens, runs + (tokens - runs) // tile_tokens)
 
 
-def step_plan_rows(tokens: int, batch: int, packed: bool) -> int:
+def step_plan_rows(tokens: int, batch: int, packed: bool, tile_tokens: int = TILE_TOKENS) -> int:
     """The fixed row count of a serving step's plan (``paged_tile_plan``'s
     ``rows``), set by the step's shape alone, so the kernel's grid and
     split (``split_blocks``) are too and the step can be captured in a CUDA
@@ -112,23 +150,24 @@ def step_plan_rows(tokens: int, batch: int, packed: bool) -> int:
     slot's run of granted tokens and a run of padding (at most 2 runs of C
     tokens; merging runs never adds tiles).  Packed, ``tokens`` = the
     capacity: each of the ``batch`` slots is one contiguous run and the
-    padding one more."""
+    padding one more.  ``tile_tokens`` is the instance's."""
     if packed:
-        return plan_rows(tokens, batch + 1)
-    return batch * plan_rows(tokens // batch, 2)
+        return plan_rows(tokens, batch + 1, tile_tokens)
+    return batch * plan_rows(tokens // batch, 2, tile_tokens)
 
 
 def paged_tile_plan(q_pos, q_slots, page_size: int, num_blocks: int,
-                    window: int = 0, rows: int = None) -> np.ndarray:
+                    window: int = 0, rows: int = None,
+                    tile_tokens: int = TILE_TOKENS) -> np.ndarray:
     """The paged kernel's tiles for one step: (tiles, ``PLAN_COLS``) int32
     rows (first token, tokens, slot, block lo, block hi), the longest block
     range first.
 
-    A tile is a run of at most ``TILE_TOKENS`` consecutive tokens (in the
-    step's token order) of one slot, cut where the slot changes, so every
-    token lies in exactly one tile whatever the order (interleaved slots
-    give short tiles; padding tokens, slot < 0, form tiles of their own
-    with an empty range).  Its block range is the union of its tokens'
+    A tile is a run of at most ``tile_tokens`` (the instance's,
+    ``INSTANCES``) consecutive tokens (in the step's token order) of one
+    slot, cut where the slot changes, so every token lies in exactly one
+    tile whatever the order (interleaved slots give short tiles; padding
+    tokens, slot < 0, form tiles of their own with an empty range).  Its block range is the union of its tokens'
     admissible block ranges (their hull; the kernel masks each token by its
     own position), empty when every token's range is.
 
@@ -148,7 +187,7 @@ def paged_tile_plan(q_pos, q_slots, page_size: int, num_blocks: int,
     idx = np.arange(t)
     run = np.r_[True, q_slots[1:] != q_slots[:-1]]
     run_start = np.maximum.accumulate(np.where(run, idx, 0))
-    starts = np.flatnonzero(run | ((idx - run_start) % TILE_TOKENS == 0))
+    starts = np.flatnonzero(run | ((idx - run_start) % tile_tokens == 0))
     some = hi > lo
     big = np.iinfo(np.int64).max
     t_lo = np.minimum.reduceat(np.where(some, lo, big), starts)
@@ -168,13 +207,14 @@ def paged_tile_plan(q_pos, q_slots, page_size: int, num_blocks: int,
 
 
 def tile_plan_tensor(q_pos: torch.Tensor, q_slots: torch.Tensor, page_size: int,
-                     num_blocks: int, window: int = 0, rows: int = None) -> torch.Tensor:
+                     num_blocks: int, window: int = 0, rows: int = None,
+                     tile_tokens: int = TILE_TOKENS) -> torch.Tensor:
     """``paged_tile_plan`` of device tensors, as an int32 tensor on
     ``q_pos``'s device: one copy to the host and one back, so a step that
     makes its plan this way cannot be captured in a CUDA graph (the serving
     engine makes its plans on the host from its numpy inputs instead)."""
     plan = paged_tile_plan(q_pos.cpu().numpy(), q_slots.cpu().numpy(), page_size, num_blocks,
-                           window, rows)
+                           window, rows, tile_tokens)
     return torch.from_numpy(plan).to(q_pos.device)
 
 
@@ -201,8 +241,9 @@ def paged_flash_attention(
     layout and 16-byte aligned (the engine's pools are).  ``tables``/
     ``q_pos``/``q_slots`` are cast to contiguous int32 (a few hundred
     bytes).  ``plan`` must be ``paged_tile_plan`` of these ``q_pos``,
-    ``q_slots``, the pools' page size, the tables' width and ``window``
-    (padded or not) on the device; without one it is made here
+    ``q_slots``, the pools' page size, the tables' width, ``window`` and the
+    instance's tile tokens (padded or not) on the device; without one it is
+    made here
     (``tile_plan_tensor``: a host round trip, so such a call cannot be
     captured in a CUDA graph)."""
     if q.device.type != "cuda":
@@ -219,6 +260,7 @@ def paged_flash_attention(
     if dk != d or h % kvh or (d, h // kvh) not in SERVED:
         raise ValueError(f"head dim {d} (pool {dk}) and group H/KV = {h}/{kvh}: the kernel "
                          f"is built for (head dim, group) in {sorted(SERVED)}")
+    inst = INSTANCES[d, h // kvh]
     if q.dtype != torch.bfloat16:
         raise TypeError(f"q must be bfloat16, got {q.dtype}")
     quantized = k_pool.dtype == torch.int8
@@ -250,14 +292,16 @@ def paged_flash_attention(
     if t == 0:
         return out
     if plan is None:
-        plan = tile_plan_tensor(q_pos, q_slots, page_size, num_blocks, int(window))
+        plan = tile_plan_tensor(q_pos, q_slots, page_size, num_blocks, int(window),
+                                tile_tokens=inst.tile_tokens)
     if (plan.dtype != torch.int32 or plan.dim() != 2 or plan.shape[1] != PLAN_COLS
             or not 0 < plan.shape[0] <= t or plan.device != q.device):
         raise ValueError(f"plan must be (tiles, {PLAN_COLS}) int32 on {q.device} with 1..{t} "
                          f"rows (paged_tile_plan), got {tuple(plan.shape)} {plan.dtype}")
     plan = plan.contiguous()
     tiles = plan.shape[0]
-    splits, per_split = split_blocks(tiles * kvh, num_blocks, _sm_count(q.device.index))
+    splits, per_split = split_blocks(tiles * kvh, num_blocks, _sm_count(q.device.index),
+                                     inst.ctas_per_sm)
     part_acc = part_ml = None
     if splits > 1:
         part_acc = torch.empty((t, kvh, splits, h // kvh, d), dtype=torch.float32,

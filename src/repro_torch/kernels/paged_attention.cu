@@ -17,30 +17,41 @@
 //
 // Bound: ~4*D flops per (head, key) against 2*D*sizeof(kv) bytes per
 // (kv head, key) shared by the g = H/KV grouped heads: ~2 flop/B for bf16
-// at g = 8, far under the card's ~295 flop/B, so the kernel is bound by the
-// bytes of the pages it reads (and, at decode sizes, by latency).
+// at g = 8 (2.5 at g = 10), far under the card's ~295 flop/B, so the kernel
+// is bound by the bytes of the pages it reads (and, at decode sizes, by
+// latency).
+//
+// Two instances (`Inst` below): (D 128, g 8), qwen2.5-3b, and (D 256,
+// g 10), recurrentgemma-2b's local attention; the numbers in brackets are
+// the second's.
 //
 // Design.  The tile plan (`paged_tile_plan` in flash_attention.py, one row
 // per tile: first token, tokens, slot, block lo, block hi) cuts the step's
-// tokens into tiles: runs of up to 8 consecutive tokens of one slot, whose
-// block range is the union of their tokens' admissible ranges.  A CTA takes
+// tokens into tiles: runs of up to 8 (4) consecutive tokens of one slot,
+// whose block range is the union of their tokens' admissible ranges.  A CTA takes
 // one (tile, KV head) and, when the grid would be too small to fill the
 // card (decode), one of `splits` slices of the tile's block range; so a
 // prefill chunk's 64 tokens read their slot's pages 8 times, not 64.
 //   * Staging: the slice's keys go through a 2-stage ring in shared memory,
-//     64 key positions (K and V rows of one KV head) a stage, gathered by
+//     64 (32) key positions (K and V rows of one KV head) a stage, gathered by
 //     table entry with 16-byte `cp.async` (rows of bad entries and positions
 //     past the slice zero-filled, never read), a 16-byte chunk of a row
 //     stored at chunk ^ (row & 7) so that `ldmatrix` is conflict-free.  int8
 //     pages are converted to bf16 in shared memory once a stage (exact).
 //   * Products on tensor cores, `mma.sync` m16n8k16 (bf16 in, f32 out), with
-//     keys on M and one token's g = 8 heads on N (no padded query rows):
-//     S^T (16 keys x 8 heads) = K (16 x D) . Q^T, then O^T (D x 8) += V^T .
-//     P^T, V^T by `ldmatrix.trans`, P^T by `movmatrix.trans` of S^T's
-//     fragment.  A warp holds two tokens (16 query rows); 4 warps hold a
-//     tile of 8 tokens, and when the tile has fewer, the warps of one token
-//     pair split the stage's 16-key chunks between them.  ~160 registers
-//     a thread: three 128-thread CTAs an SM.
+//     keys on M and one token's heads on N, one n8 tile for g = 8 (two for
+//     g = 10, heads 10-15 zero and never written): S^T (16 keys x 8 heads)
+//     = K (16 x D) . Q^T, then O^T (D x 8) += V^T . P^T for each n8 tile,
+//     V^T by `ldmatrix.trans`, P^T by `movmatrix.trans` of S^T's fragment.
+//     A warp holds two tokens (one); 4 warps hold a tile of 8 (4) tokens,
+//     and when the tile has fewer, the warps of one token group split the
+//     stage's 16-key chunks between them.  At D 128 Q^T's fragments stay in
+//     registers, ~160 a thread: three 128-thread CTAs an SM.  At D 256 one
+//     token's accumulator alone is 16 x 2 x 4 = 128 registers, so Q goes
+//     to shared memory (the tile's tokens, 16 swizzled rows each, zero rows
+//     for the padding heads) and each k-step's two n8 fragments come from
+//     one `ldmatrix.x4`; with 64 KB of 32-key stages and 32 KB of queries
+//     (~97 KB a CTA), two CTAs an SM.
 //   * Softmax: online, per (token, head), in registers, with that token's own
 //     position mask, window and softcap; int8's k_scale multiplies the
 //     scores and v_scale the rows of P (in f32, before P is rounded to bf16).
@@ -48,7 +59,8 @@
 //     warps of a token pair that shared the chunks merge through shared
 //     memory first.  With one split the CTA writes the output; with several
 //     it writes its partial (the accumulator only where a key was seen) and
-//     `paged_attention_combine` merges the splits, launched
+//     `paged_attention_combine` merges the splits (a thread per (head, dim),
+//     looping where g x D is over 1,024), launched
 //     with programmatic dependent launch (its CTAs are scheduled while the
 //     main kernel drains and wait for its partials in `griddepcontrol.wait`).
 // All softmax math is f32; the output is rounded once to q's dtype.
@@ -61,13 +73,32 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTokensPerWarp = 2;
-constexpr int kTileTokens = kWarps * kTokensPerWarp;
-static_assert(kTileTokens == 8, "TILE_TOKENS in flash_attention.py plans tiles of 8 tokens");
-constexpr int kStageKeys = 64;                        // key positions a stage
-constexpr int kChunks = kStageKeys / 16;              // 16-key mma tiles a stage
 constexpr int kStages = 2;
 constexpr int kPlanCols = 5;
+
+// How a CTA is cut for each served (head dim D, group G); INSTANCES in
+// flash_attention.py mirrors it (tile tokens, stage keys, CTAs an SM).
+//   kTokensPerWarp  query tokens a warp holds (a tile: kWarps of them);
+//   kNTiles         n8 tiles of one token's heads (G padded to 8 kNTiles);
+//   kStageKeys      key positions a ring stage (16-key mma chunks);
+//   kQInSmem        the tile's Q staged in shared memory and read by
+//                   `ldmatrix` each k-step, or held in registers;
+//   kCtasPerSm      the launch bounds' CTAs an SM.
+template <int D, int G>
+struct Inst;
+template <>
+struct Inst<128, 8> {  // qwen2.5-3b: ~160 registers, 64 KB: three CTAs an SM
+  static constexpr int kTokensPerWarp = 2, kNTiles = 1, kStageKeys = 64, kCtasPerSm = 3;
+  static constexpr bool kQInSmem = false;
+};
+template <>
+struct Inst<256, 10> {  // recurrentgemma-2b: the accumulator alone is 128 registers
+  static constexpr int kTokensPerWarp = 1, kNTiles = 2, kStageKeys = 32, kCtasPerSm = 2;
+  static constexpr bool kQInSmem = true;
+};
+static_assert(Inst<128, 8>::kTokensPerWarp * kWarps == 8 &&
+                  Inst<256, 10>::kTokensPerWarp * kWarps == 4,
+              "INSTANCES in flash_attention.py plans tiles of 8 and 4 tokens");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -124,31 +155,37 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
-// Byte offset of 16-byte chunk `ch` of bf16 key row `row` (D*2 bytes a row)
-// in a swizzled stage.
+// Byte offset of 16-byte chunk `ch` of bf16 row `row` (D*2 bytes a row) in
+// a swizzled buffer (key rows of a stage, or the tile's query rows).
 template <int D>
 __device__ __forceinline__ int swz(int row, int ch) {
   return row * D * 2 + ((ch ^ (row & 7)) << 4);
 }
 
-template <int D, typename KVT, bool QUANT>
+template <int D, int G, typename KVT, bool QUANT>
 struct Smem {
+  using I = Inst<D, G>;
+  static constexpr int kTpw = I::kTokensPerWarp;
+  static constexpr int kHp = I::kNTiles * 8;  // a token's heads, padded
+  static constexpr int kTileTokens = kWarps * kTpw;
   // the ring: K then V rows of each stage, as stored in the pool (int8 rows
   // unswizzled; bf16 rows swizzled)
   static constexpr int kRowBytes = D * sizeof(KVT);
-  static constexpr int kRing = kStages * 2 * kStageKeys * kRowBytes;
+  static constexpr int kRing = kStages * 2 * I::kStageKeys * kRowBytes;
   // int8: one stage converted to bf16 (K then V, swizzled)
-  static constexpr int kConv = QUANT ? 2 * kStageKeys * D * 2 : 0;
+  static constexpr int kConv = QUANT ? 2 * I::kStageKeys * D * 2 : 0;
   // the warps' (acc, m, l) for the merge, over the ring once it is drained
-  static constexpr int kMerge = kWarps * kTokensPerWarp * 8 * D * 4;
+  static constexpr int kMerge = kWarps * kTpw * kHp * D * 4;
   static constexpr int kBody = (kRing + kConv > kMerge) ? kRing + kConv : kMerge;
-  static constexpr int kMl = kWarps * kTokensPerWarp * 8 * 2 * 4;
-  static constexpr int kKeys = kStages * kStageKeys * 4 * (QUANT ? 3 : 1);  // ok, scales
-  static constexpr int kBytes = kBody + kMl + kKeys;
+  // the tile's queries (kQInSmem): kHp swizzled rows a token, padding heads zero
+  static constexpr int kQ = I::kQInSmem ? kTileTokens * kHp * D * 2 : 0;
+  static constexpr int kMl = kWarps * kTpw * kHp * 2 * 4;
+  static constexpr int kKeys = kStages * I::kStageKeys * 4 * (QUANT ? 3 : 1);  // ok, scales
+  static constexpr int kBytes = kBody + kQ + kMl + kKeys;
 };
 
 template <int D, int G, typename KVT, bool QUANT>
-__global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
+__global__ void __launch_bounds__(kThreads, Inst<D, G>::kCtasPerSm) paged_attention_tc(
     const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k_pool,
     const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ tables,
@@ -156,17 +193,25 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
     __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
     float* __restrict__ part_ml, int KV, int num_pages, int page_size, int num_slots,
     int num_blocks, int blocks_per_split, int window, float softcap, float sm_scale) {
-  static_assert(G == 8, "one token's heads are the mma's N = 8");
+  using I = Inst<D, G>;
+  using S = Smem<D, G, KVT, QUANT>;
+  constexpr int kTpw = I::kTokensPerWarp, kNt = I::kNTiles, kHp = S::kHp;
+  constexpr int kStageKeys = I::kStageKeys;
+  constexpr int kChunks = kStageKeys / 16;  // 16-key mma tiles a stage
+  static_assert(G <= kHp && kHp - G < 8, "a token's heads fill its n8 tiles");
+  static_assert(I::kQInSmem ? kNt == 2 : kHp == G,
+                "Q from shared memory: one ldmatrix.x4 is two n8 tiles' fragments; from "
+                "registers: no padding heads to guard");
   static_assert(D % 16 == 0, "head dim in 16-wide mma steps");
-  using S = Smem<D, KVT, QUANT>;
   constexpr int kCh = S::kRowBytes / 16;  // 16-byte chunks a pool row
   constexpr int kPer16 = 16 / sizeof(KVT);
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   unsigned char* conv = smem + S::kRing;
-  float* s_m = reinterpret_cast<float*>(smem + S::kBody);       // [warp][tok][head]
-  float* s_l = s_m + kWarps * kTokensPerWarp * 8;
-  int* s_ok = reinterpret_cast<int*>(smem + S::kBody + S::kMl);  // [stage][key]
+  unsigned char* qs = smem + S::kBody;                                   // [tok * kHp + head]
+  float* s_m = reinterpret_cast<float*>(smem + S::kBody + S::kQ);       // [warp][tok][head]
+  float* s_l = s_m + kWarps * kTpw * kHp;
+  int* s_ok = reinterpret_cast<int*>(smem + S::kBody + S::kQ + S::kMl);  // [stage][key]
   float* s_ks = reinterpret_cast<float*>(s_ok + kStages * kStageKeys);
   float* s_vs = s_ks + kStages * kStageKeys;
 
@@ -186,14 +231,14 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
   const int n_stages = (pos_end - pos_begin + kStageKeys - 1) / kStageKeys;
   const int* table = tables + (size_t)min(max(slot, 0), num_slots - 1) * num_blocks;
 
-  // warps: token pairs x key-chunk splits of a stage
-  const int pairs = (n_tok + kTokensPerWarp - 1) / kTokensPerWarp;
-  int ks_n = 1;  // warps sharing a token pair: a power of two, at most a stage's chunks
+  // warps: token groups (kTpw tokens) x key-chunk splits of a stage
+  const int pairs = (n_tok + kTpw - 1) / kTpw;
+  int ks_n = 1;  // warps sharing a token group: a power of two, at most a stage's chunks
   while (2 * ks_n * pairs <= kWarps && 2 * ks_n <= kChunks) ks_n *= 2;
   const int pair = warp / ks_n, ks = warp % ks_n;
   const bool active = pair < pairs;
-  const int tok0 = pair * kTokensPerWarp;
-  const int n_mine = active ? min(kTokensPerWarp, n_tok - tok0) : 0;
+  const int tok0 = pair * kTpw;
+  const int n_mine = active ? min(kTpw, n_tok - tok0) : 0;
 
   auto issue = [&](int st) {
     const int buf = st % kStages;
@@ -224,35 +269,61 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
   };
 
   issue(0);  // the pages first: the query loads overlap their flight
+  if constexpr (I::kQInSmem) {  // the tile's queries, with stage 0's group
+    constexpr int kQCh = D * 2 / 16;
+    for (int idx = threadIdx.x; idx < S::kTileTokens * kHp * kQCh; idx += kThreads) {
+      const int row = idx / kQCh, ch = idx % kQCh;
+      const int tok = row / kHp, head = row % kHp;
+      const bool ok = tok < n_tok && head < G;
+      const size_t src = ok ? ((size_t)(t0 + tok) * H + kvh * G + head) * D + ch * 8 : 0;
+      cp_async16(qs + swz<D>(row, ch), q + src, ok);
+    }
+  }
   cp_async_commit();
   if (n_stages > 1) issue(1);
   cp_async_commit();
 
-  // Q^T as the mma's B operand: per token, per 16-wide step of D, the
-  // pairs (d = 2*(lane%4) + {0,1}, + 8) of head lane / 4
-  uint32_t qf[kTokensPerWarp][D / 16][2];
-  int qpos[kTokensPerWarp];
-  float m[kTokensPerWarp][2], l[kTokensPerWarp][2];
-  float acc[kTokensPerWarp][D / 16][4];
+  // Q^T as the mma's B operand (held in registers unless kQInSmem): per
+  // token, per 16-wide step of D, per n8 tile, the pairs (d = 2*(lane%4) +
+  // {0,1}, + 8) of head 8 nt + lane / 4
+  constexpr int kQf = I::kQInSmem ? 1 : D / 16;
+  uint32_t qf[kTpw][kQf][kNt][2];
+  int qpos[kTpw];
+  float m[kTpw][kNt][2], l[kTpw][kNt][2];
+  float acc[kTpw][D / 16][kNt][4];
 #pragma unroll
-  for (int j = 0; j < kTokensPerWarp; ++j) {
+  for (int j = 0; j < kTpw; ++j) {
     const int t = t0 + tok0 + min(j, max(n_mine - 1, 0));
     qpos[j] = (j < n_mine) ? q_pos[t] : 0;
-    const __nv_bfloat16* qr = q + ((size_t)t * H + kvh * G + (lane >> 2)) * D + 2 * (lane & 3);
+    if constexpr (!I::kQInSmem) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[j][kk][0] = j < n_mine ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
-      qf[j][kk][1] = j < n_mine ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8) : 0u;
+      for (int nt = 0; nt < kNt; ++nt) {
+        const __nv_bfloat16* qr =
+            q + ((size_t)t * H + kvh * G + nt * 8 + (lane >> 2)) * D + 2 * (lane & 3);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          qf[j][kk][nt][0] = j < n_mine ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
+          qf[j][kk][nt][1] =
+              j < n_mine ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8) : 0u;
+        }
+      }
     }
-    m[j][0] = m[j][1] = kNegInf;
-    l[j][0] = l[j][1] = 0.f;
 #pragma unroll
-    for (int mt = 0; mt < D / 16; ++mt) acc[j][mt][0] = acc[j][mt][1] = acc[j][mt][2] = acc[j][mt][3] = 0.f;
+    for (int nt = 0; nt < kNt; ++nt) {
+      m[j][nt][0] = m[j][nt][1] = kNegInf;
+      l[j][nt][0] = l[j][nt][1] = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < D / 16; ++mt)
+        acc[j][mt][nt][0] = acc[j][mt][nt][1] = acc[j][mt][nt][2] = acc[j][mt][nt][3] = 0.f;
+    }
   }
   int pmin = qpos[0], pmax = qpos[0];
-  if (n_mine > 1) {
-    pmin = min(pmin, qpos[1]);
-    pmax = max(pmax, qpos[1]);
+#pragma unroll
+  for (int j = 1; j < kTpw; ++j) {
+    if (j < n_mine) {
+      pmin = min(pmin, qpos[j]);
+      pmax = max(pmax, qpos[j]);
+    }
   }
 
   for (int st = 0; st < n_stages; ++st) {
@@ -285,16 +356,29 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
         const int kc0 = p0 + c * 16;
         // the whole chunk past the slice, after every token, or before every window
         if (kc0 >= pos_end || kc0 > pmax || (window > 0 && kc0 + 15 <= pmin - window)) continue;
-        float s[kTokensPerWarp][4];
+        float s[kTpw][kNt][4];
 #pragma unroll
-        for (int j = 0; j < kTokensPerWarp; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        for (int j = 0; j < kTpw; ++j)
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) s[j][nt][0] = s[j][nt][1] = s[j][nt][2] = s[j][nt][3] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           uint32_t a[4];
           ldsm_x4(a, kb + swz<D>(c * 16 + (lane & 15), 2 * kk + (lane >> 4)));
 #pragma unroll
-          for (int j = 0; j < kTokensPerWarp; ++j) {
-            if (j < n_mine) mma_bf16(s[j], a, qf[j][kk][0], qf[j][kk][1]);
+          for (int j = 0; j < kTpw; ++j) {
+            if (j >= n_mine) continue;
+            if constexpr (I::kQInSmem) {
+              // matrices: heads 0-7 at d chunks 2kk, 2kk+1; heads 8-15 the same
+              uint32_t b[4];
+              ldsm_x4(b, qs + swz<D>((tok0 + j) * kHp + (lane & 7) + ((lane >> 4) << 3),
+                                     2 * kk + ((lane >> 3) & 1)));
+              mma_bf16(s[j][0], a, b[0], b[1]);
+              mma_bf16(s[j][1], a, b[2], b[3]);
+            } else {
+#pragma unroll
+              for (int nt = 0; nt < kNt; ++nt) mma_bf16(s[j][nt], a, qf[j][kk][nt][0], qf[j][kk][nt][1]);
+            }
           }
         }
         // this lane's keys: rows r0 and r0 + 8 of the chunk
@@ -308,41 +392,45 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
           vsc0 = s_vs[buf * kStageKeys + key0];
           vsc1 = s_vs[buf * kStageKeys + key1];
         }
-        uint32_t pb[kTokensPerWarp][2];
+        uint32_t pb[kTpw][kNt][2];
 #pragma unroll
-        for (int j = 0; j < kTokensPerWarp; ++j) {
-          pb[j][0] = pb[j][1] = 0u;
+        for (int j = 0; j < kTpw; ++j) {
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt) pb[j][nt][0] = pb[j][nt][1] = 0u;
           if (j >= n_mine) continue;
           const int kp0 = p0 + key0, kp1 = p0 + key1;
           const bool in0 = ok0 && kp0 <= qpos[j] && (window <= 0 || kp0 > qpos[j] - window);
           const bool in1 = ok1 && kp1 <= qpos[j] && (window <= 0 || kp1 > qpos[j] - window);
-          float p[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float x = s[j][i] * sm_scale * (i < 2 ? ksc0 : ksc1);
-            if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-            p[i] = (i < 2 ? in0 : in1) ? x : kNegInf;
-          }
+          for (int nt = 0; nt < kNt; ++nt) {
+            float p[4];
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const float m_new = fmaxf(m[j][hh], quad_max(fmaxf(p[hh], p[2 + hh])));
-            const float alpha = __expf(m[j][hh] - m_new);
-            // masked explicitly: with every key so far masked, m_new is
-            // still kNegInf and exp(s - m_new) would be 1
-            p[hh] = in0 ? __expf(p[hh] - m_new) : 0.f;
-            p[2 + hh] = in1 ? __expf(p[2 + hh] - m_new) : 0.f;
-            l[j][hh] = l[j][hh] * alpha + p[hh] + p[2 + hh];
-            m[j][hh] = m_new;
-#pragma unroll
-            for (int mt = 0; mt < D / 16; ++mt) {
-              acc[j][mt][hh] *= alpha;
-              acc[j][mt][2 + hh] *= alpha;
+            for (int i = 0; i < 4; ++i) {
+              float x = s[j][nt][i] * sm_scale * (i < 2 ? ksc0 : ksc1);
+              if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+              p[i] = (i < 2 ? in0 : in1) ? x : kNegInf;
             }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float m_new = fmaxf(m[j][nt][hh], quad_max(fmaxf(p[hh], p[2 + hh])));
+              const float alpha = __expf(m[j][nt][hh] - m_new);
+              // masked explicitly: with every key so far masked, m_new is
+              // still kNegInf and exp(s - m_new) would be 1
+              p[hh] = in0 ? __expf(p[hh] - m_new) : 0.f;
+              p[2 + hh] = in1 ? __expf(p[2 + hh] - m_new) : 0.f;
+              l[j][nt][hh] = l[j][nt][hh] * alpha + p[hh] + p[2 + hh];
+              m[j][nt][hh] = m_new;
+#pragma unroll
+              for (int mt = 0; mt < D / 16; ++mt) {
+                acc[j][mt][nt][hh] *= alpha;
+                acc[j][mt][nt][2 + hh] *= alpha;
+              }
+            }
+            // P^T as the B operand: (keys 0-7, heads) and (keys 8-15, heads)
+            // of S^T's fragment, each transposed in registers
+            pb[j][nt][0] = movmatrix_trans(pack_bf16(p[0] * vsc0, p[1] * vsc0));
+            pb[j][nt][1] = movmatrix_trans(pack_bf16(p[2] * vsc1, p[3] * vsc1));
           }
-          // P^T as the B operand: (keys 0-7, heads) and (keys 8-15, heads)
-          // of S^T's fragment, each transposed in registers
-          pb[j][0] = movmatrix_trans(pack_bf16(p[0] * vsc0, p[1] * vsc0));
-          pb[j][1] = movmatrix_trans(pack_bf16(p[2] * vsc1, p[3] * vsc1));
         }
 #pragma unroll
         for (int mt = 0; mt < D / 16; ++mt) {
@@ -350,8 +438,10 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
           ldsm_x4_trans(a, vb + swz<D>(c * 16 + (lane & 7) + ((lane >> 4) << 3),
                                        2 * mt + ((lane >> 3) & 1)));
 #pragma unroll
-          for (int j = 0; j < kTokensPerWarp; ++j) {
-            if (j < n_mine) mma_bf16(acc[j][mt], a, pb[j][0], pb[j][1]);
+          for (int j = 0; j < kTpw; ++j) {
+            if (j >= n_mine) continue;
+#pragma unroll
+            for (int nt = 0; nt < kNt; ++nt) mma_bf16(acc[j][mt][nt], a, pb[j][nt][0], pb[j][nt][1]);
           }
         }
       }
@@ -364,41 +454,47 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
   asm volatile("cp.async.wait_group 0;\n");  // (only empty groups are left)
   const int h0 = 2 * (lane & 3), r0 = lane >> 2;
 #pragma unroll
-  for (int j = 0; j < kTokensPerWarp; ++j) {
-    l[j][0] = quad_sum(l[j][0]);
-    l[j][1] = quad_sum(l[j][1]);
-  }
+  for (int j = 0; j < kTpw; ++j)
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      l[j][nt][0] = quad_sum(l[j][nt][0]);
+      l[j][nt][1] = quad_sum(l[j][nt][1]);
+    }
   if (ks_n == 1) {
     // one warp owns each token: its registers are the result.  A lane
-    // holds dims mt*16 + r0 (+8) of heads h0, h0 + 1; eight lanes write 32
-    // contiguous bytes of one head.
+    // holds dims mt*16 + r0 (+8) of heads 8 nt + h0, + 1; eight lanes write
+    // 32 contiguous bytes of one head.
 #pragma unroll
-    for (int j = 0; j < kTokensPerWarp; ++j) {  // unrolled: acc stays in registers
+    for (int j = 0; j < kTpw; ++j) {  // unrolled: acc stays in registers
       if (j >= n_mine) continue;
       const int t = t0 + tok0 + j;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int head = h0 + hh;
-        if (splits == 1) {
-          const float inv = 1.f / fmaxf(l[j][hh], 1e-30f);
-          __nv_bfloat16* o = out + ((size_t)t * H + kvh * G + head) * D + r0;
+      for (int nt = 0; nt < kNt; ++nt) {
 #pragma unroll
-          for (int mt = 0; mt < D / 16; ++mt) {
-            o[mt * 16] = __float2bfloat16_rn(acc[j][mt][hh] * inv);
-            o[mt * 16 + 8] = __float2bfloat16_rn(acc[j][mt][2 + hh] * inv);
-          }
-        } else {
-          const size_t row = (((size_t)t * KV + kvh) * splits + split) * G + head;
-          if (r0 == 0) {
-            part_ml[row * 2] = m[j][hh];
-            part_ml[row * 2 + 1] = l[j][hh];
-          }
-          if (l[j][hh] > 0.f) {  // a split that saw no key leaves its acc unwritten
-            float* pa = part_acc + row * D + r0;
+        for (int hh = 0; hh < 2; ++hh) {
+          const int head = nt * 8 + h0 + hh;
+          if (head >= G) continue;  // a padding head
+          if (splits == 1) {
+            const float inv = 1.f / fmaxf(l[j][nt][hh], 1e-30f);
+            __nv_bfloat16* o = out + ((size_t)t * H + kvh * G + head) * D + r0;
 #pragma unroll
             for (int mt = 0; mt < D / 16; ++mt) {
-              pa[mt * 16] = acc[j][mt][hh];
-              pa[mt * 16 + 8] = acc[j][mt][2 + hh];
+              o[mt * 16] = __float2bfloat16_rn(acc[j][mt][nt][hh] * inv);
+              o[mt * 16 + 8] = __float2bfloat16_rn(acc[j][mt][nt][2 + hh] * inv);
+            }
+          } else {
+            const size_t row = (((size_t)t * KV + kvh) * splits + split) * G + head;
+            if (r0 == 0) {
+              part_ml[row * 2] = m[j][nt][hh];
+              part_ml[row * 2 + 1] = l[j][nt][hh];
+            }
+            if (l[j][nt][hh] > 0.f) {  // a split that saw no key leaves its acc unwritten
+              float* pa = part_acc + row * D + r0;
+#pragma unroll
+              for (int mt = 0; mt < D / 16; ++mt) {
+                pa[mt * 16] = acc[j][mt][nt][hh];
+                pa[mt * 16 + 8] = acc[j][mt][nt][2 + hh];
+              }
             }
           }
         }
@@ -407,37 +503,40 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
     return;
   }
 
-  // several warps share a token pair: merge their (m, l, acc) through
+  // several warps share a token group: merge their (m, l, acc) through
   // shared memory (the ring is drained)
   __syncthreads();
   float* s_acc = reinterpret_cast<float*>(smem);  // [warp][tok][head][D]
 #pragma unroll
-  for (int j = 0; j < kTokensPerWarp; ++j) {
+  for (int j = 0; j < kTpw; ++j) {
     if (j >= n_mine) continue;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int e = (warp * kTokensPerWarp + j) * 8 + h0 + hh;
-      if (r0 == 0) {
-        s_m[e] = m[j][hh];
-        s_l[e] = l[j][hh];
-      }
+    for (int nt = 0; nt < kNt; ++nt) {
 #pragma unroll
-      for (int mt = 0; mt < D / 16; ++mt) {
-        s_acc[(size_t)e * D + mt * 16 + r0] = acc[j][mt][hh];
-        s_acc[(size_t)e * D + mt * 16 + r0 + 8] = acc[j][mt][2 + hh];
+      for (int hh = 0; hh < 2; ++hh) {
+        const int e = (warp * kTpw + j) * kHp + nt * 8 + h0 + hh;
+        if (r0 == 0) {
+          s_m[e] = m[j][nt][hh];
+          s_l[e] = l[j][nt][hh];
+        }
+#pragma unroll
+        for (int mt = 0; mt < D / 16; ++mt) {
+          s_acc[(size_t)e * D + mt * 16 + r0] = acc[j][mt][nt][hh];
+          s_acc[(size_t)e * D + mt * 16 + r0 + 8] = acc[j][mt][nt][2 + hh];
+        }
       }
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n_tok * G * D; i += kThreads) {
     const int tok = i / (G * D), hh = (i / D) % G, dd = i % D;
-    const int pr = tok / kTokensPerWarp, j = tok % kTokensPerWarp;
+    const int pr = tok / kTpw, j = tok % kTpw;
     float mx = kNegInf;
     for (int w = pr * ks_n; w < (pr + 1) * ks_n; ++w)
-      mx = fmaxf(mx, s_m[(w * kTokensPerWarp + j) * 8 + hh]);
+      mx = fmaxf(mx, s_m[(w * kTpw + j) * kHp + hh]);
     float sum = 0.f, a = 0.f;
     for (int w = pr * ks_n; w < (pr + 1) * ks_n; ++w) {
-      const int e = (w * kTokensPerWarp + j) * 8 + hh;
+      const int e = (w * kTpw + j) * kHp + hh;
       const float cw = __expf(s_m[e] - mx);
       sum += s_l[e] * cw;
       a += s_acc[(size_t)e * D + dd] * cw;
@@ -456,12 +555,20 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_tc(
   }
 }
 
-// Merge the splits' partials of one (token, KV head) into the output: one
-// thread per (head, dim), the splits' (m, l) staged in shared memory first.
-// A split with l = 0 saw no admissible key and wrote no acc, so it is
-// skipped (a token whose every split is empty gets an exact zero row).
+// Threads of a merge CTA: one a (head, dim) up to the 1,024 a block may
+// have, each looping over the rest ((256, 10) has 2,560 (head, dim) pairs).
 template <int D, int G>
-__global__ void __launch_bounds__(G * D) paged_attention_combine(
+struct Combine {
+  static constexpr int kThreads = G * D < 1024 ? G * D : 1024;
+};
+
+// Merge the splits' partials of one (token, KV head) into the output: the
+// splits' (m, l) staged in shared memory first, then each thread one (head,
+// dim) after another.  A split with l = 0 saw no admissible key and wrote
+// no acc, so it is skipped (a token whose every split is empty gets an
+// exact zero row).
+template <int D, int G>
+__global__ void __launch_bounds__(Combine<D, G>::kThreads) paged_attention_combine(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     __nv_bfloat16* __restrict__ out, int KV, int splits) {
   extern __shared__ float s_ml[];  // [split][head][m, l]
@@ -470,21 +577,23 @@ __global__ void __launch_bounds__(G * D) paged_attention_combine(
   const size_t row0 = ((size_t)t * KV + kvh) * splits * G;  // (split, head) rows
   for (int i = threadIdx.x; i < 2 * splits * G; i += blockDim.x) s_ml[i] = part_ml[row0 * 2 + i];
   __syncthreads();
-  const int hh = threadIdx.x / D, d = threadIdx.x % D;
-  float mx = kNegInf;
-  for (int s = 0; s < splits; ++s) {
-    if (s_ml[(s * G + hh) * 2 + 1] > 0.f) mx = fmaxf(mx, s_ml[(s * G + hh) * 2]);
-  }
-  float sum = 0.f, a = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float l = s_ml[(s * G + hh) * 2 + 1];
-    if (l > 0.f) {
-      const float c = __expf(s_ml[(s * G + hh) * 2] - mx);
-      sum += l * c;
-      a += part_acc[(row0 + (size_t)s * G + hh) * D + d] * c;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int hh = i / D, d = i % D;
+    float mx = kNegInf;
+    for (int s = 0; s < splits; ++s) {
+      if (s_ml[(s * G + hh) * 2 + 1] > 0.f) mx = fmaxf(mx, s_ml[(s * G + hh) * 2]);
     }
+    float sum = 0.f, a = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float l = s_ml[(s * G + hh) * 2 + 1];
+      if (l > 0.f) {
+        const float c = __expf(s_ml[(s * G + hh) * 2] - mx);
+        sum += l * c;
+        a += part_acc[(row0 + (size_t)s * G + hh) * D + d] * c;
+      }
+    }
+    out[((size_t)t * KV + kvh) * G * D + i] = __float2bfloat16_rn(a / fmaxf(sum, 1e-30f));
   }
-  out[((size_t)t * KV + kvh) * G * D + threadIdx.x] = __float2bfloat16_rn(a / fmaxf(sum, 1e-30f));
 }
 
 struct Args {
@@ -499,7 +608,7 @@ struct Args {
 template <int D, int G, typename KVT, bool QUANT>
 cudaError_t launch(const Args& a) {
   auto kernel = paged_attention_tc<D, G, KVT, QUANT>;
-  const int smem = Smem<D, KVT, QUANT>::kBytes;
+  const int smem = Smem<D, G, KVT, QUANT>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(a.tiles, a.KV, a.splits), kThreads, smem, a.stream>>>(
@@ -514,7 +623,7 @@ cudaError_t launch(const Args& a) {
   if (e != cudaSuccess || a.splits == 1) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.T, a.KV);
-  cfg.blockDim = dim3(G * D);
+  cfg.blockDim = dim3(Combine<D, G>::kThreads);
   cfg.dynamicSmemBytes = 2 * a.splits * G * sizeof(float);
   cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
@@ -550,15 +659,21 @@ extern "C" int repro_paged_attention(
     return -1;
   }
   const int G = H / KV;
-  // Only the shapes the port serves are instantiated: qwen2.5-3b (D 128,
-  // g 8) with bf16 queries over bf16 or int8 pools.  A config with another
-  // head dim adds its launch<D, 8, ...> here and its (D, g) to SERVED in
-  // flash_attention.py; another group needs the mma's N = g (8) reworked.
-  if (D != 128 || G != 8 || !q_is_bf16) return -1;
+  // Only the shapes the port serves are instantiated, with bf16 queries over
+  // bf16 or int8 pools: qwen2.5-3b (D 128, g 8) and recurrentgemma-2b's local
+  // attention (D 256, g 10).  Another (D, g) adds its Inst<D, G> above, its
+  // launch here, and its entry to INSTANCES in flash_attention.py.
+  if (!q_is_bf16) return -1;
   const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, q_pos, plan, out, part_acc,
                part_ml, T, tiles, G, KV, num_pages, page_size, num_slots, num_blocks, splits,
                blocks_per_split, window, softcap, sm_scale, static_cast<cudaStream_t>(stream)};
-  const cudaError_t e = kv_is_int8 ? launch<128, 8, int8_t, true>(a)
-                                   : launch<128, 8, __nv_bfloat16, false>(a);
+  cudaError_t e;
+  if (D == 128 && G == 8) {
+    e = kv_is_int8 ? launch<128, 8, int8_t, true>(a) : launch<128, 8, __nv_bfloat16, false>(a);
+  } else if (D == 256 && G == 10) {
+    e = kv_is_int8 ? launch<256, 10, int8_t, true>(a) : launch<256, 10, __nv_bfloat16, false>(a);
+  } else {
+    return -1;
+  }
   return static_cast<int>(e);
 }

@@ -1,4 +1,5 @@
-"""Model definitions for the port's training and serving paths ('G'/'L' decoder stacks)."""
+"""Model definitions for the port's training and serving paths ('G'/'L'/'R'/'M'
+decoder and 'B' encoder stacks)."""
 from .config import InputShape, ModelConfig
 from .model import (
     UnsupportedPatternError,

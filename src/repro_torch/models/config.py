@@ -11,8 +11,8 @@ per-layer block sequence is ``layer_pattern`` repeated/truncated to
     'R' — RG-LRU recurrent block (Griffin / RecurrentGemma)
     'M' — Mamba-2 SSD block
 
-The port runs 'G'/'L'/'M' decoder stacks and trains 'B' encoder stacks;
-the other families refuse with ``UnsupportedPatternError`` at init
+The port runs 'G'/'L'/'R'/'M' decoder stacks and trains 'B' encoder
+stacks; the other families refuse with ``UnsupportedPatternError`` at init
 (``models.model``).
 """
 from __future__ import annotations

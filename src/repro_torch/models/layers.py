@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
-from ..kernels.flash_attention import step_plan_rows, tile_plan_tensor
+from ..kernels.flash_attention import step_plan_rows, tile_plan_tensor, tile_tokens
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -371,9 +371,11 @@ def step_index(
         qpos = qpos.reshape(-1)
         if plan is None:
             packed = slot_ids is not None
+            tt = tile_tokens(cfg.hd, cfg.n_heads // cfg.n_kv_heads)
             plan = tile_plan_tensor(qpos, q_slots, page_size, page_tables.shape[-1], window,
                                     step_plan_rows(qpos.shape[0], page_tables.shape[0]
-                                                   if packed else positions.shape[0], packed))
+                                                   if packed else positions.shape[0], packed, tt),
+                                    tt)
         return StepIndex(rope, (page.reshape(-1), off.reshape(-1)), q_pos=qpos.int(),
                          q_slots=q_slots.int(), plan=plan)
 

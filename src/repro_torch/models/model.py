@@ -14,10 +14,11 @@ graph (``repro_torch.graphs``).
 
 ``batch`` is a dict: ``tokens`` (B, S) int, optional ``weights`` (B, S)
 per-token loss weights.  The port trains and serves decoder-only stacks of
-'G'/'L' attention and 'M' (Mamba-2) layers, and trains encoder stacks of
-'B' (bidirectional) blocks, the paper's BERT models, which have no decode
-shapes and so are never served; other families raise
-``UnsupportedPatternError``.
+'G'/'L' attention, 'R' (RG-LRU) and 'M' (Mamba-2) layers, and trains encoder
+stacks of 'B' (bidirectional) blocks, the paper's BERT models, which have
+no decode shapes and so are never served; other families raise
+``UnsupportedPatternError``.  On the card, training refuses 'R' layers
+(``require_trainable``).
 
 Parameters are nested dicts with the reference's path names and shapes
 (``models.convert.params_from_jax`` maps a JAX tree onto them).  Caches are
@@ -48,9 +49,9 @@ class UnsupportedPatternError(NotImplementedError):
     """A serving or training path was asked for a model it cannot run.
 
     Typed (and raised unconditionally, not ``assert``-ed) so callers can
-    catch it.  The port trains and serves decoder-only 'G'/'L'/'M' stacks
-    and trains 'B' encoder stacks; serving a 'B' stack, RG-LRU ('R'), MoE,
-    enc-dec and VLM models raise it."""
+    catch it.  The port serves decoder-only 'G'/'L'/'R'/'M' stacks, trains
+    'G'/'L'/'M' stacks and trains 'B' encoder stacks; serving a 'B' stack,
+    MoE, enc-dec and VLM models raise it."""
 
 
 def _require_family(cfg: ModelConfig, what: str) -> None:
@@ -62,16 +63,21 @@ def _require_family(cfg: ModelConfig, what: str) -> None:
         raise UnsupportedPatternError(f"{what} does not support VLM prefixes in the port yet")
 
 
+#: the decoder layer kinds the port builds and serves
+_DECODER = {"G", "L", "R", "M"}
+
+
 def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
     """Raise ``UnsupportedPatternError`` unless the port can run ``cfg``
     through multi-token serving steps: decoder-only stacks of 'G'/'L'
-    attention and 'M' (Mamba-2) layers without experts or a VLM prefix.
+    attention, 'R' (RG-LRU) and 'M' (Mamba-2) layers without experts or a
+    VLM prefix.
     A 'B' encoder stack has no decode shapes and is refused here (the
     serving engine, the paged layout, ``init_decode_cache`` and the
     prefill steps all ask)."""
-    if not set(cfg.pattern) <= {"G", "L", "M"}:
+    if not set(cfg.pattern) <= _DECODER:
         raise UnsupportedPatternError(
-            f"{what} supports 'G'/'L'/'M' layer patterns in the PyTorch port, got "
+            f"{what} supports 'G'/'L'/'R'/'M' layer patterns in the PyTorch port, got "
             f"{cfg.pattern!r}"
         )
     _require_family(cfg, what)
@@ -84,9 +90,9 @@ def require_stack(cfg: ModelConfig, what: str = "the PyTorch port") -> None:
     blocks alone (bidirectional attention: the BERT models), in both cases
     without experts, a VLM prefix or an encoder-decoder split."""
     pattern = set(cfg.pattern)
-    if not (pattern <= {"G", "L", "M"} or pattern == {"B"}):
+    if not (pattern <= _DECODER or pattern == {"B"}):
         raise UnsupportedPatternError(
-            f"{what} supports 'G'/'L'/'M' decoder or 'B' encoder layer patterns in the "
+            f"{what} supports 'G'/'L'/'R'/'M' decoder or 'B' encoder layer patterns in the "
             f"PyTorch port, got {cfg.pattern!r}"
         )
     _require_family(cfg, what)
@@ -100,11 +106,21 @@ def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> N
     for 'G'/'L'/'B' layers attention's head dim, group, compute dtype and
     sequence length; for 'M' layers the SSD kernels' (state, head dim) and
     the chunk length the scan runs at ``seq_len`` (``ssm.chunk_len``), which
-    the K6 backward takes as a multiple of its row tile up to its limit."""
+    the K6 backward takes as a multiple of its row tile up to its limit.
+    'R' (RG-LRU) layers are refused on the card: their local attention
+    needs K3 at recurrentgemma's head dim 256 and group 10, which is not
+    built, and the scan's gradient is not yet held against the
+    reference's."""
     require_stack(cfg, "training")
     L.require_no_softcap(cfg)
     if torch.device(device).type != "cuda":
         return
+    if "R" in cfg.pattern:
+        raise _fa.UnbuiltShapeError(
+            f"training 'R' (RG-LRU) layers on the card is not ported yet ({cfg.name}): it "
+            f"needs K3 built for head dim {cfg.hd}, group {cfg.n_heads // cfg.n_kv_heads} "
+            f"and the RG-LRU scan's gradient held against the reference (ROADMAP.md); "
+            f"serving 'R' runs on the card")
     if set(cfg.pattern) & {"G", "L", "B"}:
         _fa.require_trained(cfg.hd, cfg.n_heads // cfg.n_kv_heads, cfg.compute_dtype, seq_len)
     if "M" in cfg.pattern:
@@ -136,15 +152,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
 
 
 #: leaves the reference reads in f32 whatever the compute dtype (QK-norm
-#: scales; the SSD block's decay, step bias, skip and gated-norm scale)
-_F32_LEAVES = ("q_norm", "k_norm", "a_log", "dt_bias", "d_skip", "norm_scale")
+#: scales; the SSD block's decay, step bias, skip and gated-norm scale; the
+#: RG-LRU block's gates and decay)
+_F32_LEAVES = ("q_norm", "k_norm", "a_log", "dt_bias", "d_skip", "norm_scale",
+               "gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b", "lam")
 
 
 def compute_params(params: Tree, cfg: ModelConfig) -> Tree:
     """The tree with every leaf the reference casts to ``cfg.dtype`` at use
     already cast, made once (a serving engine calls this at construction).
     Leaves read in f32 (QK-norm scales, LayerNorm affine, the SSD block's
-    ``a_log``, ``dt_bias``, ``d_skip``, ``norm_scale``) stay as they are.
+    ``a_log``, ``dt_bias``, ``d_skip``, ``norm_scale``, the RG-LRU block's
+    gates and ``lam``) stay as they are.
     The cast is deterministic, so outputs are unchanged; for the f32
     master / bf16 compute recipe it halves the bytes each step reads.
     Idempotent: casting a cast tree returns the same tensors."""
@@ -209,8 +228,8 @@ def _cache_rebuild(cache, new_data):
 
 def init_decode_cache(params: Tree, cfg: ModelConfig, batch: int, seq_len: int,
                       linear: bool = False) -> Tree:
-    """Pre-allocated dense KV cache on the parameters' device ('M' layers:
-    slot-indexed conv windows and SSM states).
+    """Pre-allocated dense KV cache on the parameters' device ('R' and 'M'
+    layers: slot-indexed conv windows and recurrence states).
     ``linear=True`` (full-length sliding-window buffers) is what
     ``prefill_chunk``/``packed_prefill`` need; the ring layout is kept for
     the reference's shape but the port has no ring-buffer decode path."""
@@ -232,14 +251,16 @@ def _step_plans(cfg: ModelConfig, cache: Tree, q_pos, q_slots, batch: int,
     """The paged kernel's tile plan of a serving step for each attention
     kind (``kernels.flash_attention.paged_tile_plan``), made on the host
     from the step's query positions and slots (numpy, in the step's token
-    order) and padded to the row count its shape fixes (``step_plan_rows``);
+    order) at the kernel instance's tile tokens and padded to the row count
+    its shape fixes (``step_plan_rows``);
     None for a dense cache, which needs none."""
     _, tables, page_size = _cache_parts(cache)
     if tables is None:
         return None
-    rows = _fa.step_plan_rows(len(q_pos), batch, packed)
+    tt = _fa.tile_tokens(cfg.hd, cfg.n_heads // cfg.n_kv_heads)
+    rows = _fa.step_plan_rows(len(q_pos), batch, packed, tt)
     return {kind: _fa.paged_tile_plan(q_pos, q_slots, page_size, tables.shape[-1],
-                                      cfg.sliding_window if kind == "L" else 0, rows)
+                                      cfg.sliding_window if kind == "L" else 0, rows, tt)
             for kind in _attention_kinds(cfg)}
 
 
@@ -326,9 +347,9 @@ def packed_prefill(params: Tree, cfg: ModelConfig, cache: Tree, tokens, slot_ids
 def forward_features(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final hidden states (B, S, d), aux loss scalar) — ``model.py:100-140``
-    for G/L/M decoders and 'B' encoders: embed (learned positions where
+    for G/L/R/M decoders and 'B' encoders: embed (learned positions where
     ``cfg.pos`` says so), the stack without caches (remat per group under
-    ``cfg.remat``; 'M' layers run the cache-free SSD scan, 'B' layers
+    ``cfg.remat``; 'R' and 'M' layers run their cache-free scans, 'B' layers
     bidirectional attention), the final norm."""
     require_stack(cfg, "training")
     dev = params_device(params)

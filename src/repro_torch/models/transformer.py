@@ -1,5 +1,5 @@
-"""Block assembly for G/L attention, 'B' encoder and 'M' (Mamba-2) stacks
-(port of ``repro.models.transformer``).
+"""Block assembly for G/L attention, 'B' encoder, 'R' (RG-LRU) and 'M'
+(Mamba-2) stacks (port of ``repro.models.transformer``).
 
 Layers are organised as in the reference (``transformer.py:188-206``):
 
@@ -23,6 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import rglru as RG
 from . import ssm as SSD
 from .config import ModelConfig
 from .recurrent import packed_step
@@ -62,11 +63,15 @@ def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Tree:
     if kind == "M":  # ``transformer.py:88-89``: one norm and the SSD mixer
         return {"norm1": L.init_norm(cfg, device=device),
                 "ssd": SSD.init_ssd(gen, cfg, device=device)}
-    if kind not in ("G", "L", "B"):  # ``transformer.py:73-84``: 'B' has 'G''s tree
-        raise ValueError(f"the port builds 'G'/'L'/'B'/'M' blocks, got {kind!r}")
+    if kind == "R":  # ``transformer.py:84-87``: the RG-LRU mixer and an MLP
+        key, init_mixer = "rglru", RG.init_rglru
+    elif kind in ("G", "L", "B"):  # ``transformer.py:73-83``: 'B' has 'G''s tree
+        key, init_mixer = "attn", L.init_attention
+    else:
+        raise ValueError(f"the port builds 'G'/'L'/'B'/'R'/'M' blocks, got {kind!r}")
     return {
         "norm1": L.init_norm(cfg, device=device),
-        "attn": L.init_attention(gen, cfg, device=device),
+        key: init_mixer(gen, cfg, device=device),
         "norm2": L.init_norm(cfg, device=device),
         "mlp": L.init_mlp(gen, cfg, device=device),
     }
@@ -78,7 +83,7 @@ def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 page_size: int = 0, index=None, rope=None) -> Tuple[torch.Tensor, Tree]:
     """Returns (x, cache); the cache is updated in place.  ``index`` is the
     step's ``layers.step_index`` for a 'G'/'L' kind (made here when None),
-    its ``recurrent.packed_step`` for 'M' on a packed step.
+    its ``recurrent.packed_step`` for 'R' and 'M' on a packed step.
     ``cache=None`` runs the training path (``rope``: the sequence's RoPE
     angles, made once per forward); a 'B' block runs only there, as 'G'
     does but with bidirectional attention (``transformer.py:114-143``)."""
@@ -87,11 +92,15 @@ def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
         y, _ = SSD.apply_ssd(p["ssd"], h, cfg, None if cache is None else cache["ssd"],
                              seq_lens=seq_lens, slot_ids=slot_ids, step=index)
         return x + y, cache
-    y, _ = L.apply_attention(
-        p["attn"], h, cfg, kind, positions, None if cache is None else cache["attn"],
-        decode_pos=decode_pos, seq_lens=seq_lens, slot_ids=slot_ids,
-        page_tables=page_tables, page_size=page_size, index=index, rope=rope,
-    )
+    if kind == "R":  # ``transformer.py:144-155``
+        y, _ = RG.apply_rglru(p["rglru"], h, cfg, None if cache is None else cache["rglru"],
+                              seq_lens=seq_lens, slot_ids=slot_ids, step=index)
+    else:
+        y, _ = L.apply_attention(
+            p["attn"], h, cfg, kind, positions, None if cache is None else cache["attn"],
+            decode_pos=decode_pos, seq_lens=seq_lens, slot_ids=slot_ids,
+            page_tables=page_tables, page_size=page_size, index=index, rope=rope,
+        )
     x = x + y
     h = L.apply_norm(p["norm2"], x, cfg)
     x = x + L.apply_mlp(p["mlp"], h, cfg)
@@ -102,10 +111,11 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      linear: bool = False, device=None, lead: Tuple[int, ...] = ()) -> Tree:
     """One block's serving cache (``lead``: leading dims, a group's stacked
     layers)."""
-    if kind == "M":  # slot-indexed conv window and SSM state
-        one = SSD.init_ssd_cache(cfg, batch, device="meta")
-        return {"ssd": tree_map(lambda x: torch.zeros(lead + tuple(x.shape), dtype=x.dtype,
-                                                      device=device), one)}
+    if kind in ("R", "M"):  # slot-indexed conv window and recurrence state
+        key, init = ("rglru", RG.init_rglru_cache) if kind == "R" else ("ssd", SSD.init_ssd_cache)
+        one = init(cfg, batch, device="meta")
+        return {key: tree_map(lambda x: torch.zeros(lead + tuple(x.shape), dtype=x.dtype,
+                                                    device=device), one)}
     return {"attn": L.init_attention_cache(cfg, kind, batch, seq_len, linear=linear,
                                            device=device, lead=lead)}
 
@@ -200,8 +210,8 @@ def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
     the caches updated in place (group slices are views), the step's
     addressing (``layers.step_index``, given ``plans[kind]``, the paged
     kernel's tile plan of each attention kind, when ``plans`` is a dict;
-    for 'M' on a packed step, ``recurrent.packed_step``) made once per
-    layer kind.  With ``caches=None`` (training), returns (x, None)."""
+    for 'R' and 'M' on a packed step, ``recurrent.packed_step``) made once
+    per layer kind.  With ``caches=None`` (training), returns (x, None)."""
     if caches is None:
         return _apply_stack_train(params, x, cfg, positions), None
     unit, n_groups, tail = _unit_and_groups(cfg)
@@ -211,10 +221,10 @@ def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
 
     def block(p, kind, c, x):
         if kind not in indices:
-            if kind == "M":
-                indices[kind] = (None if slot_ids is None else
-                                 packed_step(slot_ids, c["ssd"]["state"].shape[0],
-                                             cfg.ssm_conv))
+            if kind in ("R", "M"):
+                slots, k = ((c["rglru"]["h"].shape[0], cfg.rglru_conv) if kind == "R"
+                            else (c["ssd"]["state"].shape[0], cfg.ssm_conv))
+                indices[kind] = None if slot_ids is None else packed_step(slot_ids, slots, k)
             else:
                 indices[kind] = L.step_index(cfg, kind, positions, c["attn"], **kw,
                                              plan=(plans or {}).get(kind))

@@ -14,9 +14,10 @@ they accept the dense cache dict.  Two interchangeable layouts:
   prefix sharing and copy-on-write.  ``kv_dtype="int8"`` stores pages as
   int8 with per-(row, kv head) f32 scales.
 
-'M' (Mamba-2) layers carry slot-indexed ``{"ssd": {"conv", "state"}}``
-leaves in both layouts, beside the page pools and never addressed through
-the block tables: admission zeroes a slot's rows, prefix sharing is off
+'R' (RG-LRU) and 'M' (Mamba-2) layers carry slot-indexed ``{"rglru":
+{"conv", "h"}}`` and ``{"ssd": {"conv", "state"}}`` leaves in both
+layouts, beside the page pools and never addressed through the block
+tables: admission zeroes a slot's rows, prefix sharing is off
 (a shared page would skip the prompt tokens the carried state must scan)
 and ``trim_slot`` refuses (the state has consumed the trimmed tokens).
 
@@ -60,7 +61,7 @@ class KVState:
 
 
 #: the per-layer cache keys of recurrent state: slot-indexed, never paged
-RECURRENT_KEYS = ("ssd",)
+RECURRENT_KEYS = ("rglru", "ssd")
 
 
 def _layer_leaves(data: Tree, recurrent: bool):
@@ -153,7 +154,7 @@ class Paged:
         dev = params_device(params)
 
         def one_layer(kind, lead):
-            if kind == "M":
+            if kind in ("R", "M"):
                 # recurrent state is O(1) per slot: the dense layout's
                 # slot-indexed rows, beside the page pools
                 one = init_block_cache(cfg, kind, spec.num_slots, 1, device=dev)

@@ -16,10 +16,11 @@ graph (``repro_torch.graphs.StepGraph``, the reference's jitted
 greedy tokens, over the step's inputs and the paged kernel's tile plans
 (made on the host) copied into static buffers; admission, prefix sharing
 and copy-on-write page copies run eagerly between the replays, in place on
-the same tensors.  'M' (Mamba-2) layers carry per-slot recurrent state: a
-recycled slot's rows are zeroed on admission, and prefix sharing (and the
-in-flight prefix dedup that waits for it) is off for them.  Scheduling, deferral and accounting match the reference
-exactly; ``tests/test_torch_serve.py`` holds the streams, step counts,
+the same tensors.  'R' (RG-LRU) and 'M' (Mamba-2) layers carry per-slot
+recurrent state, updated in place like the KV pools (so a replay carries
+it): a recycled slot's rows are zeroed on admission, and prefix sharing
+(and the in-flight prefix dedup that waits for it) is off for them.
+Scheduling, deferral and accounting match the reference exactly; ``tests/test_torch_serve.py`` holds the streams, step counts,
 per-step stats and block tables to it.
 
 Not ported yet (each raises a typed error): speculative decoding

@@ -46,7 +46,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                      "repro_torch.core.local_sgd", "repro_torch.train.checkpoint",
                      "repro_torch.dist", "repro_torch.dist.api", "repro_torch.dist.mesh",
                      "repro_torch.dist.procs", "repro_torch.launch.steps",
-                     "repro_torch.configs.bert_large", "repro_torch.configs.bert_1_5b"):
+                     "repro_torch.configs.bert_large", "repro_torch.configs.bert_1_5b",
+                     "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_2b",
+                     "repro_torch.configs.hybrid_tiny"):
         assert expected in names, names
     code = (
         "import sys\n"

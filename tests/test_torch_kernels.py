@@ -91,6 +91,19 @@ class TestPagedAttentionPlain:
         want, plain = run_both(a)
         assert_close(plain, want, "kernel_f32")
 
+    @pytest.mark.parametrize("window", [0, 7])
+    @pytest.mark.parametrize("int8", [False, True])
+    def test_recurrentgemma_shape(self, window, int8):
+        """(head dim 256, group 10), the (256, 10) instance's: 10 heads on one
+        KV head, with the window and int8 pages."""
+        a = packed_scenario(page_size=16, kvh=1, h=10, d=256, seed=24, lens=(40, 9, 33))
+        if int8:
+            a["k_pool"], a["k_scale"] = quantize_pool(a["k_pool"])
+            a["v_pool"], a["v_scale"] = quantize_pool(a["v_pool"])
+        want, plain = run_both(a, window=window, softcap=5.0 if window else 0.0)
+        assert plain.shape == (len(a["q_pos"]), 10, 256)
+        assert_close(plain, want, "kernel_f32")
+
     def test_hostile_tables(self):
         """Negative and >= num_pages entries mask their block (never wrap
         into another slot's pages); a slot whose every block is hostile
@@ -391,6 +404,103 @@ class TestPagedTilePlan:
         if name == "decode":
             splits, _ = flash_attention.split_blocks(len(plan) * 2, a["tables"].shape[1], 132)
             assert splits > 1  # the split merge is exercised
+
+    @pytest.mark.parametrize("name,window", PLAN_CASES)
+    @pytest.mark.parametrize("int8", [False, True])
+    def test_walk_of_the_d256_g10_instance(self, name, window, int8):
+        """The (256, 10) instance's schedule (tiles of 4 tokens, a warp a
+        token, 32-key stages of two chunks, two CTAs an SM for the split),
+        walked over 10 heads on one KV head, gives the plain version's
+        output; padding and fully masked queries exact zeros."""
+        inst = flash_attention.INSTANCES[256, 10]
+        a = plan_scenario(name, kvh=1, h=10, d=32)
+        if int8:
+            a["k_pool"], a["k_scale"] = quantize_pool(a["k_pool"])
+            a["v_pool"], a["v_scale"] = quantize_pool(a["v_pool"])
+        softcap = 5.0 if window == 7 else 0.0
+        got, plan = walk_plan(a, window=window, softcap=softcap, inst=inst)
+        assert 1 <= plan[:, 1].min() and plan[:, 1].max() <= inst.tile_tokens == 4
+        ta = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
+        want = ref.paged_attention_ref(**ta, window=window, softcap=softcap).numpy()
+        assert_close(got, want, "kernel_f32")
+        zero = a["q_slots"] < 0
+        if name == "fully_masked":
+            zero |= a["q_slots"] == 2
+        np.testing.assert_array_equal(got[zero], 0.0)
+        if name == "decode":
+            splits, _ = flash_attention.split_blocks(len(plan), a["tables"].shape[1], 132,
+                                                     inst.ctas_per_sm)
+            assert splits > 1  # the split merge is exercised
+
+    def test_instances(self):
+        """The served (head dim, group) pairs and their cuts: (128, 8) keeps
+        tiles of 8 tokens and three CTAs an SM; (256, 10) takes 4 and 2.  An
+        unbuilt pair raises; its plans (made for the CPU's plain path, which
+        reads none) take the default tile."""
+        assert flash_attention.SERVED == {(128, 8), (256, 10)}
+        assert flash_attention.instance(128, 8) == (8, 2, 64, 3)
+        assert flash_attention.instance(256, 10) == (4, 1, 32, 2)
+        for inst in flash_attention.INSTANCES.values():
+            assert inst.tile_tokens == 4 * inst.tokens_per_warp  # four warps a CTA
+            assert inst.stage_keys % 16 == 0
+            # a split fills a stage
+            assert flash_attention.SPLIT_MIN_BLOCKS * 16 >= inst.stage_keys
+        with pytest.raises(ValueError, match="built for"):
+            flash_attention.instance(64, 2)
+        assert flash_attention.tile_tokens(256, 10) == 4
+        assert flash_attention.tile_tokens(64, 2) == flash_attention.TILE_TOKENS == 8
+        # the instance's CTAs an SM set where a decode grid stops splitting
+        assert flash_attention.split_blocks(16, 130, 132, 2) == (17, 8)
+        assert flash_attention.split_blocks(16, 130, 132) == (22, 6)
+
+    @pytest.mark.parametrize("packed", [False, True])
+    def test_step_rows_bound_the_d256_g10_plans(self, packed):
+        """``step_plan_rows`` at 4 tokens a tile bounds every step's tiles,
+        as it does at 8 (``test_torch_graphs.py``)."""
+        rng = np.random.default_rng(2)
+        b, c = 8, 64
+        rows = flash_attention.step_plan_rows(b * c if not packed else 257, b, packed, 4)
+        for _ in range(20):
+            if packed:
+                spans = rng.multinomial(int(rng.integers(8, 257)), np.ones(b) / b)
+                slots = np.r_[np.repeat(np.arange(b), spans), [-1] * (257 - spans.sum())]
+                pos = np.r_[np.concatenate([np.arange(n) + 100 for n in spans]),
+                            [0] * (257 - spans.sum())]
+            else:
+                lens = rng.integers(0, c + 1, b)
+                offs = np.arange(c)
+                slots = np.where(offs[None] < lens[:, None], np.arange(b)[:, None], -1).ravel()
+                pos = (rng.integers(0, 500, b)[:, None] + offs[None]).ravel()
+            plan = flash_attention.paged_tile_plan(pos, slots, 16, 40, 0, rows, 4)
+            assert len(plan) == rows and plan[:, 1].max() <= 4
+        assert flash_attention.step_plan_rows(8 * 64, 8, False, 4) == 8 * 17
+
+    def test_planted_faults_of_the_d256_g10_check_are_caught(self):
+        """The card check's two planted faults move the output past
+        ``K4_TOL``: queries of heads 8-9 zeroed (a kernel whose second n8
+        tile read no Q), and one split's blocks masked for one token (a
+        merge that dropped that split's partial)."""
+        inst = flash_attention.INSTANCES[256, 10]
+        a = packed_scenario(page_size=16, kvh=1, h=10, d=256, seed=5, lens=(300, 40, 190))
+        keep = np.r_[0, 4, len(a["q_pos"]) - 1]
+        a = dict(a, q=a["q"][keep], q_pos=a["q_pos"][keep], q_slots=a["q_slots"][keep])
+        ta = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
+        want = ref.paged_attention_ref(**ta)
+        q_cut = ta["q"].clone()
+        q_cut[:, 8:10] = 0
+        no_heads = ref.paged_attention_ref(**dict(ta, q=q_cut))
+        splits, per = flash_attention.split_blocks(3, a["tables"].shape[1], 132,
+                                                   inst.ctas_per_sm)
+        assert splits >= 3
+        tables = torch.cat([ta["tables"], ta["tables"][:1]])
+        tables[-1, per:2 * per] = -1
+        slots = ta["q_slots"].clone()
+        slots[0] = tables.shape[0] - 1
+        dropped = ref.paged_attention_ref(**dict(ta, tables=tables, q_slots=slots))
+        for bad in (no_heads, dropped):
+            assert not torch.allclose(bad, want, atol=2e-2, rtol=2e-2)
+        assert torch.equal(no_heads[:, :8], want[:, :8])  # only heads 8-9 move
+        assert torch.equal(dropped[1:], want[1:])  # only the one token moves
 
     def test_planted_skip_of_a_tiles_last_page_is_caught(self):
         """``skip_last_page`` (the card checks' planted fault) moves a tile's

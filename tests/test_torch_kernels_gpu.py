@@ -140,6 +140,74 @@ class TestKernelsOnCard:
         np.testing.assert_allclose(np32(out), np32(want), **TOL["kernel_bf16_gpu"])
         assert not np.allclose(np32(bad), np32(want), **TOL["kernel_bf16_gpu"])
 
+    @pytest.mark.parametrize("int8", [False, True])
+    @pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 5.0)])
+    @pytest.mark.parametrize("decode", [False, True], ids=["packed", "decode"])
+    def test_paged_attention_d256_g10(self, cuda, int8, window, softcap, decode):
+        """recurrentgemma-2b's local attention (10 heads over 1 KV head, head
+        dim 256): the instance with two n8 tiles of heads a token, Q in
+        shared memory, tiles of 4 tokens and two CTAs an SM; ``decode`` as in
+        ``test_paged_attention`` (the split merge loops over 2,560 (head,
+        dim) pairs a CTA)."""
+        inst = flash_attention.INSTANCES[256, 10]
+        lens = (300, 40, 190) if decode else (40, 19, 33)
+        a = packed_scenario(page_size=16, kvh=1, h=10, d=256, seed=4, lens=lens)
+        if decode:
+            keep = np.r_[0, 0, 4, len(a["q_pos"]) - 1]
+            a["q"], a["q_pos"], a["q_slots"] = (a[k][keep] for k in ("q", "q_pos", "q_slots"))
+            splits, _ = flash_attention.split_blocks(
+                len(keep), a["tables"].shape[1], flash_attention._sm_count(0), inst.ctas_per_sm)
+            assert splits >= 3
+        else:
+            plan = flash_attention.paged_tile_plan(a["q_pos"], a["q_slots"], 16,
+                                                   a["tables"].shape[1], window, None,
+                                                   inst.tile_tokens)
+            assert plan[:, 1].max() == inst.tile_tokens == 4
+        a["tables"][1, 0] = -2  # hostile entry
+        a["q_slots"][0] = -1  # padding query
+        ta = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
+        for k in ("q", "k_pool", "v_pool"):
+            ta[k] = ta[k].to(torch.bfloat16)
+        if int8:
+            for k in ("k", "v"):
+                codes, scale = quantize_pool(np32(ta[f"{k}_pool"]))
+                ta[f"{k}_pool"] = torch.from_numpy(codes).to(cuda)
+                ta[f"{k}_scale"] = torch.from_numpy(scale).to(cuda)
+        out = flash_attention.paged_flash_attention(**ta, window=window, softcap=softcap)
+        want = ref.paged_attention_ref(**ta, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(np32(out), np32(want), **TOL["kernel_bf16_gpu"])
+        assert (out[0] == 0).all()
+        assert (out[1:, 8:10] != 0).any()  # the second n8 tile's heads are written
+
+    def test_paged_attention_d256_g10_planted_faults(self, cuda):
+        """Both faults fail the tolerance: the kernel given zeros for heads
+        8-9's queries (what a kernel whose second n8 tile read no Q computes),
+        and the plain version with one split's blocks masked for one token
+        (a merge that dropped that split's partial)."""
+        inst = flash_attention.INSTANCES[256, 10]
+        a = packed_scenario(page_size=16, kvh=1, h=10, d=256, seed=5, lens=(300, 40, 190))
+        keep = np.r_[0, 4, len(a["q_pos"]) - 1]
+        a["q"], a["q_pos"], a["q_slots"] = (a[k][keep] for k in ("q", "q_pos", "q_slots"))
+        ta = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
+        for k in ("q", "k_pool", "v_pool"):
+            ta[k] = ta[k].to(torch.bfloat16)
+        want = ref.paged_attention_ref(**ta)
+        q_cut = ta["q"].clone()
+        q_cut[:, 8:10] = 0
+        no_heads = flash_attention.paged_flash_attention(**dict(ta, q=q_cut))
+        splits, per = flash_attention.split_blocks(len(keep), a["tables"].shape[1],
+                                                   flash_attention._sm_count(0), inst.ctas_per_sm)
+        assert splits >= 3
+        tables = torch.cat([ta["tables"], ta["tables"][:1]])
+        tables[-1, per:2 * per] = -1  # split 1 of slot 0's first query
+        slots = ta["q_slots"].clone()
+        slots[0] = tables.shape[0] - 1
+        dropped = ref.paged_attention_ref(**dict(ta, tables=tables, q_slots=slots))
+        torch.cuda.synchronize()
+        for bad in (no_heads, dropped):
+            assert not np.allclose(np32(bad), np32(want), **TOL["kernel_bf16_gpu"])
+
     @pytest.mark.parametrize("h,d,dtype", [(14, 64, torch.bfloat16), (16, 128, torch.float32)])
     def test_paged_attention_refuses_unserved_shapes(self, cuda, h, d, dtype):
         a = packed_scenario(page_size=16, kvh=2, h=h, d=d, seed=3)

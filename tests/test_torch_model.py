@@ -148,7 +148,9 @@ def test_compute_dtype_and_cast_once():
 
 
 def test_unsupported_patterns_raise_typed():
-    for kw in (dict(layer_pattern="RRG"), dict(layer_pattern="MR"), dict(n_experts=4),
+    # 'R' and 'M' decoder layers are ported; an encoder block among decoder
+    # blocks, experts, an encoder-decoder split and a VLM prefix are not
+    for kw in (dict(layer_pattern="BG"), dict(layer_pattern="RB"), dict(n_experts=4),
                dict(enc_layers=2), dict(prefix_len=4)):
         with pytest.raises(UnsupportedPatternError):
             model.init_params(ModelConfig(**kw), device="cpu")

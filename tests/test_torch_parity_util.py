@@ -257,20 +257,21 @@ def skip_last_page(a, plan_row):
     return dict(a, tables=tables, q_slots=slots)
 
 
-def plan_scenario(name, page_size=4):
-    """Small steps in the shapes of chip_smoke.py's K4 cases (qwen's group of
-    8 heads over 2 KV heads, head dim 16): ``mixed`` has decode tokens,
-    prefill chunks longer than a tile and a verify-sized span; the others
-    change it as their names say."""
+def plan_scenario(name, page_size=4, kvh=2, h=16, d=16):
+    """Small steps in the shapes of chip_smoke.py's K4 cases (by default
+    qwen's group of 8 heads over 2 KV heads, head dim 16; recurrentgemma's
+    is ``kvh=1, h=10``): ``mixed`` has decode tokens, prefill chunks longer
+    than a tile and a verify-sized span; the others change it as their
+    names say."""
     if name == "decode":
-        a = packed_scenario(page_size=page_size, kvh=2, h=16, d=16, seed=31,
+        a = packed_scenario(page_size=page_size, kvh=kvh, h=h, d=d, seed=31,
                             lens=(45, 12, 30, 7))
         last = [int(np.flatnonzero(a["q_slots"] == s).max()) for s in range(3)]
         keep = np.r_[last, 0]
         a = dict(a, q=a["q"][keep], q_pos=a["q_pos"][keep], q_slots=a["q_slots"][keep])
         a["q_slots"][-1] = -1  # a padding query
         return a
-    a = packed_scenario(page_size=page_size, kvh=2, h=16, d=16, seed=37, lens=(41, 23, 37))
+    a = packed_scenario(page_size=page_size, kvh=kvh, h=h, d=d, seed=37, lens=(41, 23, 37))
     if name == "hostile_tables":
         a["tables"][0, 0] = -3
         a["tables"][2, 1] = a["k_pool"].shape[0] + 5
@@ -284,15 +285,21 @@ def plan_scenario(name, page_size=4):
     return a
 
 
-def walk_plan(a, window=0, softcap=0.0, sms=132, rows=None):
+def walk_plan(a, window=0, softcap=0.0, sms=132, rows=None, inst=None):
     """A numpy walk of the paged kernel's schedule, f32: each (tile, KV
     head, split) of ``paged_tile_plan`` / ``split_blocks`` walks its slice
-    in stages of 64 key positions and chunks of 16, the chunks dealt to the
-    warps of each token pair as ``paged_attention.cu`` deals them, each
-    warp with its own online softmax per (token, head); the warps merge,
-    then the splits (``paged_attention_combine``).  ``rows`` pads the plan
-    (a serving step's fixed row count): its empty tiles walk nothing.
+    in stages of ``inst.stage_keys`` key positions and chunks of 16, the
+    chunks dealt to the warps of each token group (``inst.tokens_per_warp``
+    tokens) as ``paged_attention.cu`` deals them, each warp with its own
+    online softmax per (token, head); the warps merge, then the splits
+    (``paged_attention_combine``).  ``inst`` is the kernel instance
+    (``flash_attention.INSTANCES``; the (128, 8) one when None): its tile
+    tokens cut the plan, its CTAs an SM set the split.  ``rows`` pads the
+    plan (a serving step's fixed row count): its empty tiles walk nothing.
     Returns (output, plan)."""
+    inst = inst or flash_attention.INSTANCES[128, 8]
+    warps = inst.tile_tokens // inst.tokens_per_warp
+    chunks = inst.stage_keys // 16
     q = np32(a["q"])
     kp_, vp_ = np32(a["k_pool"]), np32(a["v_pool"])
     if "k_scale" in a:
@@ -301,13 +308,14 @@ def walk_plan(a, window=0, softcap=0.0, sms=132, rows=None):
     t, h, d = q.shape
     num_pages, ps, kvh, _ = kp_.shape
     g, nb = h // kvh, tables.shape[1]
-    plan = flash_attention.paged_tile_plan(q_pos, q_slots, ps, nb, window, rows)
-    splits, per = flash_attention.split_blocks(len(plan) * kvh, nb, sms)
+    plan = flash_attention.paged_tile_plan(q_pos, q_slots, ps, nb, window, rows,
+                                           inst.tile_tokens)
+    splits, per = flash_attention.split_blocks(len(plan) * kvh, nb, sms, inst.ctas_per_sm)
     parts = np.zeros((t, kvh, splits, g, d + 2), np.float64)
     for t0, n, slot, b_lo, b_hi in plan:
-        pairs = -(-n // 2)
-        ks_n = 1  # warps a token pair's chunks are dealt to (kWarps = TILE_TOKENS / 2)
-        while 2 * ks_n * pairs <= flash_attention.TILE_TOKENS // 2 and 2 * ks_n <= 4:
+        pairs = -(-n // inst.tokens_per_warp)
+        ks_n = 1  # warps a token group's chunks are dealt to
+        while 2 * ks_n * pairs <= warps and 2 * ks_n <= chunks:
             ks_n *= 2
         for kv in range(kvh):
             for sp in range(splits):
@@ -317,8 +325,8 @@ def walk_plan(a, window=0, softcap=0.0, sms=132, rows=None):
                     b0 = b1 = 0
                 # per (warp, token): m, l (g,), acc (g, d)
                 st = {}
-                for p0 in range(b0 * ps, b1 * ps, 64):
-                    for c in range(4):
+                for p0 in range(b0 * ps, b1 * ps, inst.stage_keys):
+                    for c in range(chunks):
                         keys = np.arange(p0 + 16 * c, p0 + 16 * c + 16)
                         blk = np.minimum(keys // ps, nb - 1)
                         page = tables[slot, blk]
@@ -326,7 +334,7 @@ def walk_plan(a, window=0, softcap=0.0, sms=132, rows=None):
                         rows = np.where(ok, page, 0), keys % ps
                         kk, vv = kp_[rows[0], rows[1], kv], vp_[rows[0], rows[1], kv]
                         for tok in range(n):
-                            w = (tok // 2) * ks_n + c % ks_n
+                            w = (tok // inst.tokens_per_warp) * ks_n + c % ks_n
                             pos = q_pos[t0 + tok]
                             s = q[t0 + tok, kv * g:(kv + 1) * g] @ kk.T / np.sqrt(d)
                             if softcap > 0:

@@ -19,8 +19,9 @@ Same numpy inputs (or JAX-initialised weights carried across by
   with slot reuse, and after a cancel (mirroring
   ``tests/test_serve_model_zoo.py:91-189``);
 * the recurrent-state lifecycle (admission zeroes, fork copies, sharing
-  off, trim refuses) and the typed refusals ('R' patterns; training 'M'
-  at SSD shapes the kernels are not built for, K5 under grad).
+  off, trim refuses) and the typed refusals (training 'R' patterns on the
+  card; training 'M' at SSD shapes the kernels are not built for, K5 under
+  grad).
 """
 import dataclasses
 
@@ -563,14 +564,16 @@ class TestRecurrentLifecycle:
 
 
 def test_r_patterns_still_refuse():
+    """'R' stacks build and serve (``tests/test_torch_rglru.py``); what they
+    still refuse is training on the card, before any work."""
     for name in ("hybrid_tiny", "recurrentgemma_2b"):
         jc = jget_config(name)
         tc = ModelConfig(**dataclasses.asdict(jc))
         assert "R" in tc.pattern
-        with pytest.raises(UnsupportedPatternError, match="'G'/'L'/'M'"):
-            model.init_params(tc, device="meta")
-        with pytest.raises(UnsupportedPatternError):
-            model.require_chunkable(tc)
+        model.init_params(tc, device="meta")
+        model.require_chunkable(tc)
+        with pytest.raises(UnbuiltShapeError, match="training 'R'"):
+            model.require_trainable(tc, 16, torch.device("cuda"))
 
 
 def test_training_m_is_refused_before_any_work(tiny, capsys):

@@ -133,9 +133,13 @@ def test_training_refuses_what_is_not_ported():
     params = model.init_params(cap, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="softcap"):
         model.loss_fn(params, cap, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
-    rec = ModelConfig(**dict(LG, layer_pattern="RG"))
+    moe = ModelConfig(**dict(LG, n_experts=4))
     with pytest.raises(UnsupportedPatternError):
-        model.forward_features({}, rec, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+        model.forward_features({}, moe, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+    # 'R' layers build and run forward, but training them on the card is refused
+    rec = ModelConfig(**dict(LG, layer_pattern="RG"))
+    with pytest.raises(UnbuiltShapeError, match="training 'R'"):
+        model.require_trainable(rec, 8, torch.device("cuda"))
 
 
 # ---------------------------------------------------------------------------
