@@ -45,7 +45,10 @@ tokens, LANS; K3's (64, 1) build filed under K3), ``rg_serve`` the
 serving runs of its phase 12c (recurrentgemma-2b at 26 layers, its nine
 requests; K4's (256, 10) build filed under K4), then each step shape's
 device time beside one RG-LRU mixer's and its products'
-(``rg_mixer_shares``).  ``kernels`` also times K3's (128, 8) build at the
+(``rg_mixer_shares``), ``rg_train`` one eager and one graphed step of its
+phase 13c (recurrentgemma-2b at 26 layers, 4 workers x 2 micro-batches of
+one 8,192-token sequence; K3's (256, 10) build filed under K3), then the
+18 RG-LRU mixers' share of a kept micro-batch (``rg_train_mixer_share``).  ``kernels`` also times K3's (128, 8) build at the
 qwen training shape (``k3_timing``) with a digest of its outputs, gives a
 digest of K4's (128, 8) outputs (``k4_digests``) and times K4's (256, 10)
 build.  A copy of this script placed at the
@@ -308,7 +311,7 @@ def serve_profiles(cfg, params, prompts, make) -> None:
 
 TAG = ""
 PARTS = ("kernels", "k6_precision", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train",
-         "bert_train", "rg_serve")
+         "bert_train", "rg_serve", "rg_train")
 #: the parts that time kernels alone, run only when named
 KERNEL_PARTS = ("kernels", "k6_precision")
 
@@ -360,16 +363,23 @@ def ssd_digests(seed: int) -> dict:
 def k3_digests(seed: int) -> dict:
     """sha256 of K3's forward (out, lse) and backward (dq, dk, dv) outputs
     at the qwen training shape (``chip_smoke.attn_inputs``, causal), on
-    inputs from their own stream (``seed`` + 2): two trees' digests are
-    equal exactly when their (128, 8) builds give the same bits."""
+    inputs from their own stream (``seed`` + 2), and (``d64_``) of its
+    (64, 1) build at bert-1.5b's micro-batch, bidirectional: two trees'
+    digests are equal exactly when their builds give the same bits."""
     import hashlib
 
-    q, k, v, do = cs.attn_inputs(np.random.default_rng(seed + 2))
-    out, lse = cs.flash_attention.flash_attention_fwd(q, k, v)
-    grads = cs.flash_attention.flash_attention_bwd(q, k, v, out, lse, do)
+    rng = np.random.default_rng(seed + 2)
+    outs = {}
+    builds = [("", cs.attn_inputs(rng), True)]
+    if hasattr(cs, "bert_attn_inputs"):  # the (64, 1) bidirectional build at bert-1.5b's
+        builds.append(("d64_", cs.bert_attn_inputs(rng, 16, 25, 128), False))
+    for tag, (q, k, v, do), causal in builds:
+        out, lse = cs.flash_attention.flash_attention_fwd(q, k, v, causal=causal)
+        grads = cs.flash_attention.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        outs.update(zip((tag + n for n in ("out", "lse", "dq", "dk", "dv")), (out, lse, *grads)))
     torch.cuda.synchronize()
     return {name: hashlib.sha256(x.float().cpu().numpy().tobytes()).hexdigest()[:16]
-            for name, x in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads))}
+            for name, x in outs.items()}
 
 
 def k4_digests(seed: int) -> dict:
@@ -415,6 +425,9 @@ def kernel_times(seed: int) -> dict:
     if hasattr(cs, "RG_DIMS"):
         rg_lens = cs.rg_requests(get_config("recurrentgemma_2b"), seed)[0][:cs.SLOTS]
         rec["k4_d256_g10"] = cs.k4_timing(rng, rg_lens, dims=cs.RG_DIMS, window=cs.RG_WINDOW)
+    if (256, 10) in cs.flash_attention.TRAINED:  # the tree trains the 'R' family
+        k3f, k3b = cs.k3_rg_timing(rng)
+        rec["k3_d256_g10"] = {"fwd": k3f, "bwd": k3b}
     return rec
 
 
@@ -490,6 +503,48 @@ def rg_mixer_shares(cfg, params, seed: int) -> dict:
         rec["mixers_rest_share"] = n_r * (rec["mixer_us"] - rec["products_us"]) / rec["step_us"]
         out[name] = rec
     return {"tag": TAG, "run": "rg_mixer", "model": cfg.name, "r_layers": n_r, **out}
+
+
+def rg_train_mixer_share(cfg, seed: int, rec: dict) -> dict:
+    """One 'R' layer's RG-LRU mixer at the training micro-batch (1 x 8,192
+    tokens of d 2,560), beside ``rec`` (``train_profile``'s graphed record
+    of phase 13c's step 1): the mixer's forward (graph replay, L2 flushed),
+    its backward alone (``grad_only_ms``: x and every mixer leaf), and its
+    three products' forward.  A kept micro-batch runs each of the 18
+    mixers' forward twice (remat) and its backward once, so
+    ``mixers_share`` = 18 (2 fwd + bwd) over the micro-batch's device busy
+    ms; ``mixers_rest_share`` takes out the products, each product's
+    backward counted as two products of its size (conv, gates, scan and
+    output gate: the work a fused gates-and-scan kernel would take over)."""
+    from repro_torch.models import rglru
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    block = compute_params(rglru.init_rglru(g, cfg, device="cuda"), cfg)  # one layer's mixer
+    names = sorted(block)
+    vals = [block[k].detach().requires_grad_() for k in names]
+    x = torch.randn(1, cs.RG_TRAIN_SEQ, cfg.d_model, device="cuda", generator=g).to(
+        cfg.compute_dtype).requires_grad_()
+    dy = torch.randn(x.shape, device="cuda", generator=g).to(cfg.compute_dtype)
+    p = dict(zip(names, vals))
+
+    def mixer(xx, *vv):
+        return rglru.apply_rglru(dict(zip(names, vv)), xx, cfg)[0]
+
+    def products():
+        u = x @ p["w_branch"]
+        return u, x @ p["w_gate_branch"], u @ p["w_out"]
+
+    with torch.no_grad():
+        fwd = cs.time_ms(lambda: mixer(x, *vals), iters=10)
+        prod = cs.time_ms(products, iters=10)
+    bwd = cs.grad_only_ms(mixer, (x, *vals), dy)
+    n_r = cfg.pattern.count("R")
+    mb_ms = rec["device_busy_ms"] / rec["kept_microbatches"]
+    mixers = n_r * (2 * fwd + bwd)
+    return {"tag": TAG, "run": "rg_train_mixer", "model": cfg.name, "r_layers": n_r,
+            "mixer_fwd_ms": fwd, "mixer_bwd_ms": bwd, "products_fwd_ms": prod,
+            "microbatch_busy_ms": mb_ms, "mixers_share": mixers / mb_ms,
+            "mixers_rest_share": (mixers - n_r * 4 * prod) / mb_ms}
 
 
 #: K6's backward's two precision choices, each undone by one edit of a copy
@@ -568,8 +623,8 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=PARTS,
                     default=[p for p in PARTS if p not in KERNEL_PARTS],
                     help="parts to run, always in the order kernels, k6_precision, qwen, mamba, "
-                         "train, localsgd, dp, mamba_train, bert_train, rg_serve (default: all "
-                         "but the first two)")
+                         "train, localsgd, dp, mamba_train, bert_train, rg_serve, rg_train "
+                         "(default: all but the first two)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -611,6 +666,15 @@ def main() -> int:
             params = compute_params(init_params(rcfg, seed=args.seed, device="cuda"), rcfg)
             serve_profiles(rcfg, params, rprompts, cs.rg_engine)
             print(json.dumps(rg_mixer_shares(rcfg, params, args.seed)), flush=True)
+        elif part == "rg_train":  # phase 13c's step 1, eager then graphed; the mixers' share
+            rcfg = get_config("recurrentgemma_2b")
+            recs = {}
+            for eager in (True, False):
+                recs[eager] = train_profile(rcfg, args.seed, eager, run="rg_train",
+                                            shape=dict(seq=cs.RG_TRAIN_SEQ))
+                print(json.dumps(recs[eager]), flush=True)
+                cs.free_device()
+            print(json.dumps(rg_train_mixer_share(rcfg, args.seed, recs[False])), flush=True)
         elif part == "bert_train":  # phase 11c's step 1, eager then graphed
             bcfg = get_config("bert_1_5b")
             shape = dict(seq=cs.BERT_SEQ, mb=cs.BERT_MB)

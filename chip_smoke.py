@@ -203,7 +203,27 @@ input copy is skipped, must fail the stream check.
    graphed: 8 requests of 128-512 prompt tokens and one of 2,300 (past the
    window), 32 new tokens each; full-length streams, no leaked pages, no
    prefix-shared tokens, graphed equal to eager, 8 K4 and 53 K2 launches
-   an engine step; step times, tokens/s and peak memory printed.
+   an engine step; step times, tokens/s and peak memory printed;
+13. recurrentgemma-2b training (the 'R' family through DropCompute) —
+   13a: K3's (head dim 256, group 10) build, causal under the window, at
+   the training shape (B 1, 10 heads on 1 KV head, S 8,192, window
+   2,048) and at B 2 x 512 tokens under window 128, forward and backward
+   against the plain versions row by row, two backward runs bit-identical,
+   three planted faults outside the limit (``window=0`` passed; the
+   window's edge moved one 64-step inward in the schedule; the diagonal
+   step skipped); timed by graph replay with L2 flushed (one replay, and
+   back to back), the backward launch by launch, beside SDPA with the same
+   boolean band mask (forward, and its backward alone; the kernel each
+   ran is printed); K2's backward at 8,192 x 2,560 (phase 3's checks) beside
+   ``F.rms_norm``'s backward; 13b: a 3-layer (RRL) full-width model on 2 x
+   256 tokens, ``loss_sum`` and every gradient leaf on the card against the
+   CPU as in phase 10 (the RG-LRU leaves printed apart), a planted K3
+   backward fault (``one_head_dkdv``) outside it; 13c: recurrentgemma-2b at
+   full width and depth (26 layers, 2,836 M parameters, random weights from
+   ``--seed``) through ``train`` with AdamW, 4 workers x 2 micro-batches of
+   one 8,192-token sequence, the training phase's tau rule, 3 steps, eager
+   then graphed, with phase 10's checks and readings (launches: 2 K2 an 'R'
+   layer, and again under remat).
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K4's (256, 10) build has a record of
@@ -211,7 +231,9 @@ its own (``paged_attention_d256_g10``), read at recurrentgemma's decode
 step with phase 12c's launches; K4's (128, 8) record keeps the earlier
 phases'.  K3's (64, 1) build has records of its
 own (``flash_attention_d64_g1`` and its backward), read at bert-1.5b's
-micro-batch with phase 11's launches; K3's (128, 8) records keep the
+micro-batch with phase 11's launches, and so has its (256, 10) build
+(``flash_attention_d256_g10`` and its backward), read at recurrentgemma's
+training shape with phase 13c's launches; K3's (128, 8) records keep the
 earlier phases' launches.  K6's backward's record row is read at
 the Mamba-2 training shape, its launches from phase 10; K2's forward's at
 the Mamba-2 training micro-batch (8,192 x 768).  K6 and K5's
@@ -479,6 +501,15 @@ RG_LOGITS_ROW_TOL = 0.05
 #: K2 at recurrentgemma's width: its decode step (8 rows), its packed mixed
 #: step (257) and its unpacked mixed step (8 x 64 = 512 rows) of 2,560
 RG_K2_ROWS = (SLOTS, BUDGET + 1, SLOTS * CHUNK)
+# phase 13, recurrentgemma-2b training: one sequence of RG_TRAIN_SEQ tokens a
+# micro-batch (the RecurrentGemma report's training length; past twice the
+# window, so its edge cuts every later query's keys and the reference's
+# banded branch is the one it would take), the training phase's 4 workers x
+# 2 micro-batches, 3 steps; K3's (256, 10) build held at that shape and at 2
+# x 512 tokens under a window of 128 (its edge within one 128-key tile); the
+# 3-layer (RRL) card-vs-CPU gradient check on 2 x 256 tokens
+RG_TRAIN_SEQ = 8192
+RG_K3_SHAPES = {"train": (1, RG_TRAIN_SEQ, RG_WINDOW), "short": (2, 512, 128)}
 
 
 class SmokeFailure(RuntimeError):
@@ -2193,21 +2224,24 @@ def mamba_phase(seed: int):
 def launches_per_microbatch(cfg, n_leaves: int):
     """Kernel calls one kept micro-batch makes, from the code: each
     attention ('G' / 'L' / 'B') layer runs two norms and one attention, each
-    'M' layer one norm and one K6 over all its chunks (the sequence is one
-    call's worth of 256-token chunks), the final norm one more; a norm is
-    K2 when ``cfg.norm`` is RMSNorm (BERT's LayerNorm is plain PyTorch);
-    under remat (``transformer._apply_stack_train``) the backward runs each
-    layer's forward again, the final norm's not; each backward call of the
-    K2 / K3 / K6 Functions is one backward launch; each gradient leaf is
-    added once by K1 (``core.accumulate_grads``)."""
+    'R' (RG-LRU) layer two norms (its mixer and MLP run no kernel of their
+    own), each 'M' layer one norm and one K6 over all its chunks (the
+    sequence is one call's worth of 256-token chunks), the final norm one
+    more; a norm is K2 when ``cfg.norm`` is RMSNorm (BERT's LayerNorm is
+    plain PyTorch); under remat (``transformer._apply_stack_train``) the
+    backward runs each layer's forward again, the final norm's not; each
+    backward call of the K2 / K3 / K6 Functions is one backward launch;
+    each gradient leaf is added once by K1 (``core.accumulate_grads``)."""
     n_a = sum(1 for k in cfg.pattern if k in "GLB")
     n_m = sum(1 for k in cfg.pattern if k == "M")
-    again_a, again_m = (n_a, n_m) if cfg.remat else (0, 0)
+    n_r = sum(1 for k in cfg.pattern if k == "R")
+    norms = 2 * n_a + 2 * n_r + n_m  # the layers' own
+    again_a, again_m, again_n = (n_a, n_m, norms) if cfg.remat else (0, 0, 0)
     k2 = cfg.norm == "rmsnorm"
     return {"paged_attention": 0, "flash_attention": n_a + again_a, "flash_attention_bwd": n_a,
-            "rmsnorm": k2 * (2 * n_a + n_m + 1 + 2 * again_a + again_m),
-            "rmsnorm_bwd": k2 * (2 * n_a + n_m + 1), "masked_accum": n_leaves,
-            "ssd_chunk": n_m + again_m, "ssd_chunk_bwd": n_m, "ssd_segment": 0}
+            "rmsnorm": k2 * (norms + 1 + again_n), "rmsnorm_bwd": k2 * (norms + 1),
+            "masked_accum": n_leaves, "ssd_chunk": n_m + again_m, "ssd_chunk_bwd": n_m,
+            "ssd_segment": 0}
 
 
 def train_setup(cfg, seed: int, seqs: int = 1, seq: int = TRAIN_SEQ, mb: int = TRAIN_MB,
@@ -3129,15 +3163,17 @@ def mamba_train_parity(seed: int):
                  "dcum without its row part", "ssd_chunk_bwd")
 
 
-def train_parity(cfg, seed: int, tokens, plant, what: str, fault: str, kernel: str):
-    """A 2-layer full-width ``cfg`` on ``tokens``: loss_sum and every
-    gradient leaf on the card (kernels, bf16 compute) against the CPU (plain
-    versions, f32); each leaf within the larger of PARITY_LEAF_REL_TOL and
-    PARITY_CONTROL_FACTOR times the CPU's own bf16 gap; the card run must go
-    through the backward kernel ``kernel`` once a layer; the same metric
-    on the planted fault ``plant`` (a context manager; ``fault`` names it)
-    must put some leaf over its limit."""
-    small = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+def train_parity(cfg, seed: int, tokens, plant, what: str, fault: str, kernel: str,
+                 layers: int = PARITY_LAYERS, show: str = None):
+    """A ``layers``-layer full-width ``cfg`` on ``tokens``: loss_sum and
+    every gradient leaf on the card (kernels, bf16 compute) against the CPU
+    (plain versions, f32); each leaf within the larger of
+    PARITY_LEAF_REL_TOL and PARITY_CONTROL_FACTOR times the CPU's own bf16
+    gap; the card run must go through the backward kernel ``kernel`` once
+    a layer that has it; the same metric on the planted fault ``plant`` (a
+    context manager; ``fault`` names it) must put some leaf over its limit.
+    ``show``: the leaves whose path holds it get a log line of their own."""
+    small = dataclasses.replace(cfg, n_layers=layers)
     cpu_cfg = dataclasses.replace(small, dtype="float32")
     params = init_params(cpu_cfg, seed=seed, device="cpu")
 
@@ -3166,14 +3202,19 @@ def train_parity(cfg, seed: int, tokens, plant, what: str, fault: str, kernel: s
     limit = {k: max(PARITY_LEAF_REL_TOL, PARITY_CONTROL_FACTOR * control[k]) for k in errs}
     over = {k: e for k, e in errs.items() if e > limit[k]}
     caught = {k: e for k, e in bad.items() if e > limit[k]}
-    log(f"{what} {PARITY_LAYERS} layers, tokens {tuple(tokens.shape)}: loss_sum card "
-        f"{card_loss:.4f} / cpu {cpu_loss:.4f} (rel {el:.2e}); the CPU f32 pass took "
+    want_launches = launches_per_microbatch(small, 0)[kernel]
+    log(f"{what} {layers} layers ({small.pattern}), tokens {tuple(tokens.shape)}: loss_sum "
+        f"card {card_loss:.4f} / cpu {cpu_loss:.4f} (rel {el:.2e}); the CPU f32 pass took "
         f"{t_cpu:.1f} s; launches {kernel} {after[kernel] - before[kernel]}")
     log(f"{what} per-leaf ||g_card - g_cpu|| / ||g_cpu|| (CPU bf16 control; limit): "
         + ", ".join(f"{k} {e:.2e} ({control[k]:.2e}; {limit[k]:.2e})" for k, e in errs.items()))
+    if show:
+        log(f"{what} {show} leaves (card gap; CPU bf16 gap): " + ", ".join(
+            f"{k} {e:.2e} ({control[k]:.2e})" for k, e in errs.items() if show in k))
     log(f"{what} planted fault ({fault}): " + ", ".join(f"{k} {e:.2e}" for k, e in bad.items()))
-    check(after[kernel] - before[kernel] == PARITY_LAYERS,
-          f"{what}: the card run did not go through {kernel} once a layer")
+    check(want_launches > 0 and after[kernel] - before[kernel] == want_launches,
+          f"{what}: the card run did not go through {kernel} once a layer that has it "
+          f"({want_launches})")
     check(math.isfinite(card_loss) and all(math.isfinite(e) for e in errs.values()),
           f"{what}: non-finite card result")
     check(el <= PARITY_LOSS_REL_TOL, f"{what}: loss_sum relative difference {el}")
@@ -3416,6 +3457,220 @@ def rg_phase(seed: int):
     return counts, recs
 
 
+# ---------------------------------------------------------------------------
+# recurrentgemma-2b training (phase 13)
+# ---------------------------------------------------------------------------
+
+
+def rg_attn_inputs(rng, b: int, s: int):
+    """q, k, v, dO as transposed (B, heads, S, 256) views of (B, S, heads,
+    256) bf16 storage: recurrentgemma-2b's local attention (10 heads on 1 KV
+    head), the layout the model passes."""
+
+    def t(heads):
+        x = torch.from_numpy(rng.standard_normal((b, s, heads, RG_D), dtype=np.float32))
+        return x.to(DEV, torch.bfloat16).transpose(1, 2)
+
+    return t(RG_H), t(RG_KV), t(RG_KV), t(RG_H)
+
+
+@contextlib.contextmanager
+def planted_plan(edit):
+    """Every K3 launch inside made with its schedule (``tile_plan``) edited
+    by ``edit(kind, plan, sq)`` in a copy: a fault in the kernel's own walk."""
+    sound = flash_attention._plan_tensor  # what the wrappers call
+
+    def faulty(kind, sq, sk, causal, window, device):
+        plan = flash_attention.tile_plan(kind, sq, sk, causal, window).copy()
+        edit(kind, plan, sq)
+        return torch.from_numpy(plan).to(device)
+
+    flash_attention._plan_tensor = faulty
+    try:
+        yield
+    finally:
+        flash_attention._plan_tensor = sound
+
+
+def window_edge_moved(kind, plan, sq):
+    """The window's edge one 64-step inward in each CTA it cuts: the first
+    key step of a forward or dQ CTA whose walk starts past key 0, the last
+    query step of a dK/dV CTA whose walk ends before the last query."""
+    if kind == "dkdv":
+        plan[plan[:, 2] < sq // flash_attention.STEP, 2] -= 1
+    else:
+        plan[plan[:, 1] > 0, 1] += 1
+
+
+def diagonal_skipped(kind, plan, sq):
+    """The causal diagonal's step left out of every CTA's walk: the last key
+    step (forward, dQ), the first query step (dK/dV)."""
+    if kind == "dkdv":
+        plan[:, 1] += 1
+    else:
+        plan[:, 2] -= 1
+
+
+def k3_rg_checks(rng):
+    """13a: K3's (256, 10) build, causal under recurrentgemma's window, at
+    ``RG_K3_SHAPES``: forward (out, lse) and backward (dq, dk, dv) against
+    the plain versions row by row, two backward runs bit-identical, and
+    three planted faults the same metric must reject in each of out, dq,
+    dk and dv: ``window=0`` passed for the launches, the window's edge moved
+    one step inward in the schedule (``window_edge_moved``), the diagonal
+    step skipped (``diagonal_skipped``).  Returns (fwd max|err|, bwd
+    max|err|)."""
+    fwd_err = bwd_err = 0.0
+    for name, (b, s, w) in RG_K3_SHAPES.items():
+        q, k, v, do = rg_attn_inputs(rng, b, s)
+        kw = dict(causal=True, window=w)
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+        grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        again = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        faults = {"window 0": [flash_attention.flash_attention_fwd(q, k, v, causal=True)[0],
+                               *flash_attention.flash_attention_bwd(q, k, v, out, lse, do)]}
+        for fault, edit in (("window edge a step inward", window_edge_moved),
+                            ("diagonal step skipped", diagonal_skipped)):
+            with planted_plan(edit):
+                faults[fault] = [flash_attention.flash_attention_fwd(q, k, v, **kw)[0],
+                                 *flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)]
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x.float()).all()) for x in (out, lse, *grads)),
+              f"K3 rg {name}: non-finite output")
+        errs = [row_rel_err(g, x) for g, x in zip((out, *grads), (want, *wants))]
+        e_lse = (lse - want_lse).abs().max().item()
+        bad = {f: [row_rel_err(g, x) for g, x in zip(got, (want, *wants))]
+               for f, got in faults.items()}
+        log(f"K3 rg {name} (B {b}, H {RG_H}, KV {RG_KV}, S {s}, D {RG_D}, causal, window {w}): "
+            f"row rel err out {errs[0]:.2e} (lse abs {e_lse:.1e}) dq {errs[1]:.2e} dk "
+            f"{errs[2]:.2e} dv {errs[3]:.2e}; planted faults (out, dq, dk, dv): "
+            + "; ".join(f"{f} {', '.join(f'{x:.2e}' for x in e)}" for f, e in bad.items()))
+        check(max(errs) <= K3_ROW_TOL, f"K3 rg {name}: row relative errors {errs}")
+        check(e_lse <= K3_LSE_TOL, f"K3 rg {name}: lse off by {e_lse}")
+        for f, e in bad.items():
+            check(min(e) > K3_ROW_TOL, f"K3 rg {name}: the row metric lets a planted fault "
+                  f"({f}) pass: {e}")
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"K3 rg {name}: two backward runs differ (it has no atomics: it must not)")
+        fwd_err = max(fwd_err, (out.float() - want.float()).abs().max().item())
+        bwd_err = max(bwd_err, max((g.float() - x.float()).abs().max().item()
+                                   for g, x in zip(grads, wants)))
+        del want, wants, faults
+        free_device()
+    return fwd_err, bwd_err
+
+
+def longest_kernel(fn, calls: int = 3, sessions: int = 3) -> str:
+    """The name of the longest device kernel ``calls`` calls of ``fn`` run
+    (profiler): which backend a library call took.  Late in a long run the
+    profiler has returned none of a session's kernel records (phase 13 on
+    an H100): a session is made again, up to ``sessions`` times.  The name labels
+    a time and checks nothing, so a run whose sessions saw no kernel says
+    so in its place."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            return max(evs, key=lambda e: e.time_range.end - e.time_range.start).name[:80]
+    return f"kernel not seen: the profiler returned no records in {sessions} sessions"
+
+
+def k3_rg_timing(rng):
+    """13a: K3's (256, 10) build at the training shape (1 x 10 heads x
+    8,192, window 2,048, causal): one replay and back to back in one graph
+    (8 launches over two input sets), the backward also launch by launch
+    (profiler); the plain versions; SDPA with the same boolean band mask
+    (GQA), forward and its backward alone, with the kernel each ran (the
+    library calls); the bounds.  Returns (fwd, bwd) record fields."""
+    b, s, w = RG_K3_SHAPES["train"]
+    kw = dict(causal=True, window=w)
+    q, k, v, do = rg_attn_inputs(rng, b, s)
+    out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+    fwd = time_ms(lambda: flash_attention.flash_attention_fwd(q, k, v, **kw))
+    bwd = time_ms(lambda: flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+    sets = [rg_attn_inputs(rng, b, s) for _ in range(2)]
+    sets = [(x, y, z, d, *flash_attention.flash_attention_fwd(x, y, z, **kw)) for x, y, z, d in sets]
+    fwd_b2b = back_to_back_ms(lambda a: flash_attention.flash_attention_fwd(*a[:3], **kw), sets, 8)
+    bwd_b2b = back_to_back_ms(lambda a: flash_attention.flash_attention_bwd(
+        a[0], a[1], a[2], a[4], a[5], a[3], **kw), sets, 8)
+    del sets
+    free_device()
+    parts = kernel_split_ms(lambda: flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                            K3_BWD_KERNELS)
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    plain_fwd = time_ms_eager(lambda: ref.flash_attention_fwd_ref(q, k, v, **kw), iters=3)
+    plain_bwd = time_ms_eager(lambda: ref.flash_attention_bwd_ref(q, k, v, want, want_lse, do, **kw),
+                              iters=3)
+    del want, want_lse
+    free_device()
+    band = ref.attention_mask(s, s, True, w, device=DEV)[None]  # (1, 1, S, S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, attn_mask=band, enable_gqa=True))
+    lib_fwd_kernel = longest_kernel(lambda: sdpa(q, k, v, attn_mask=band, enable_gqa=True))
+    leaves = tuple(x.detach().requires_grad_() for x in (q, k, v))
+
+    def lib(a, bb, c):
+        return sdpa(a, bb, c, attn_mask=band, enable_gqa=True)
+
+    lib_bwd = grad_only_ms(lib, leaves, do)
+    lib_bwd_kernel = longest_kernel(lambda: torch.autograd.grad(lib(*leaves), leaves, do))
+    del leaves
+    free_device()
+    pairs = b * RG_H * int(band.sum().item())  # admissible (query, key) pairs, every head
+    io = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # bf16 q, k, v, o
+    fb, fby = bound_ms(io + 4 * lse.numel(), 4.0 * RG_D * pairs)
+    bb, bby = bound_ms(io + 2 * q.numel() + 4 * lse.numel() + 2 * (q.numel() + 2 * k.numel()),
+                       10.0 * RG_D * pairs)
+    split = ", ".join(f"{n} {t * 1e3:.1f}" for n, t in parts.items())
+    log(f"K3 rg time (B {b}, H {RG_H}, KV {RG_KV}, S {s}, D {RG_D}, window {w}, {pairs} "
+        f"admissible pairs): fwd kernel {fwd * 1e3:.1f} us one replay, {fwd_b2b * 1e3:.1f} us "
+        f"back to back, plain {plain_fwd * 1e3:.1f} us, SDPA with the band mask "
+        f"{lib_fwd * 1e3:.1f} us ({lib_fwd_kernel}), bound {fb * 1e3:.1f} us ({fby}); bwd "
+        f"kernels {bwd * 1e3:.1f} us one replay, {bwd_b2b * 1e3:.1f} us back to back (device "
+        f"time by launch, profiler: {split} us), plain {plain_bwd * 1e3:.1f} us, SDPA bwd alone "
+        f"{lib_bwd * 1e3:.1f} us ({lib_bwd_kernel}), bound {bb * 1e3:.1f} us ({bby})")
+    return (dict(ms=fwd, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby, library_ms=lib_fwd),
+            dict(ms=bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby, library_ms=lib_bwd))
+
+
+def rg_train_phase(seed: int, rng):
+    """Phase 13, training the 'R' family: 13a K3's (256, 10) build
+    (``k3_rg_checks``, ``k3_rg_timing``) and K2's backward at
+    recurrentgemma's width (8,192 x 2,560); 13b a 3-layer (RRL)
+    recurrentgemma-2b on 2 x 256 tokens, card against CPU (``train_parity``,
+    the planted fault ``one_head_dkdv``, the RG-LRU leaves printed apart);
+    13c recurrentgemma-2b at full width and depth through the trainer
+    (``full_train_phase``: one sequence of ``RG_TRAIN_SEQ`` tokens a
+    micro-batch).  Returns (the K3 errors and timings, K2's backward's
+    error and timing, the graphed run's launches)."""
+    errs = k3_rg_checks(rng)
+    timing = k3_rg_timing(rng)
+    free_device()
+    k2b = k2_bwd_checks_and_timing(rng, d=2560, rows=RG_TRAIN_SEQ)
+    free_device()
+    cfg = get_config("recurrentgemma_2b")
+    tokens = torch.from_numpy(np.random.default_rng(seed + 5).integers(
+        0, cfg.vocab_size, (2, PARITY_SEQ)))
+    train_parity(cfg, seed, tokens, one_head_dkdv, "recurrentgemma train parity",
+                 "dK/dV from one query head of each group", "flash_attention_bwd",
+                 layers=RG_PARITY_LAYERS, show="rglru")
+    free_device()
+    log(f"recurrentgemma-2b: {cfg.param_count() / 1e6:.1f} M parameters (the reference's "
+        f"param_count), {cfg.n_layers} layers ({cfg.pattern.count('R')} 'R', "
+        f"{cfg.pattern.count('L')} 'L'); cuts: none (full width and depth, "
+        f"{RG_TRAIN_SEQ}-token sequences)")
+    counts = full_train_phase(cfg, seed, "recurrentgemma train", 1, RG_TRAIN_SEQ)
+    free_device()
+    return errs, timing, k2b, counts
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -3582,13 +3837,24 @@ def main() -> int:
     rg_counts, _ = rg_phase(args.seed)
     free_device()
 
+    # 13. training the 'R' family: K3's (256, 10) build and K2's backward at d
+    # 2560 (13a), the 3-layer card-vs-CPU gradient check (13b), recurrentgemma-2b
+    # at full width and depth through DropCompute (13c)
+    (k3r_fwd_err, k3r_bwd_err), k3r_t, (k2b2560_err, k2b2560_t), rg_train_counts = \
+        rg_train_phase(args.seed, rng)
+    check(rg_train_counts["flash_attention"] > 0 and rg_train_counts["flash_attention_bwd"] > 0
+          and rg_train_counts["rmsnorm_bwd"] > 0 and rg_train_counts["masked_accum"] > 0,
+          f"recurrentgemma train: kernels not run: {rg_train_counts}")
+    free_device()
+
     # K3's (128, 8) records keep the earlier paths' launches; the (64, 1)
-    # build's records take phase 11's; K4's (128, 8) record keeps the earlier
-    # paths', the (256, 10) build's takes phase 12's
+    # build's records take phase 11's, the (256, 10) build's phase 13's; K4's
+    # (128, 8) record keeps the earlier paths', the (256, 10) build's takes
+    # phase 12's
     k3_own = ("flash_attention", "flash_attention_bwd")
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
                 + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k]
-                + (0 if k in k3_own else bert_counts[k])
+                + (0 if k in k3_own else bert_counts[k] + rg_train_counts[k])
                 + (0 if k == "paged_attention" else rg_counts[k])
                 for k in serve_counts}
     for k, v in launches.items():
@@ -3634,6 +3900,15 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:91",
              launches=bert_counts["flash_attention_bwd"], max_abs_err=k3d_bwd_err,
              **k3d_t["bert_1_5b"][1]),
+        dict(name="flash_attention_d256_g10", route="cuda",
+             source="src/repro_torch/kernels/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:91",
+             launches=rg_train_counts["flash_attention"], max_abs_err=k3r_fwd_err, **k3r_t[0]),
+        dict(name="flash_attention_bwd_d256_g10", route="cuda",
+             source="src/repro_torch/kernels/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:91",
+             launches=rg_train_counts["flash_attention_bwd"], max_abs_err=k3r_bwd_err,
+             **k3r_t[1]),
         dict(name="masked_accum", route="triton",
              source="src/repro_torch/kernels/masked_accum.py",
              replaces="src/repro/kernels/masked_accum.py:33",
@@ -3652,11 +3927,12 @@ def main() -> int:
     ]
     log(f"K2 bwd at d 768 (8,192 rows): max abs err {k2b768_err:.3e}, {k2b768_t}")
     log(f"K2 fwd at d 2560 (recurrentgemma): max abs err {k2_rg_err:.3e}, {k2_rg_t}")
+    log(f"K2 bwd at d 2560 (8,192 rows): max abs err {k2b2560_err:.3e}, {k2b2560_t}")
     log(f"launches, qwen serving: {serve_counts}; mamba serving: {mamba_counts}; "
         f"training: {train_counts}; Local-SGD: {localsgd_counts}; Mamba-2 Local-SGD: "
         f"{m_localsgd_counts}; data parallel (9a): {dp_counts}; Mamba-2 training: "
         f"{mamba_train_counts}; BERT training (11c, 11d): {bert_counts}; recurrentgemma "
-        f"serving (12c): {rg_counts}")
+        f"serving (12c): {rg_counts}; recurrentgemma training (13c): {rg_train_counts}")
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

@@ -49,7 +49,8 @@
 // both dK and dV in one warpgroup spilled and serialized its wgmmas).
 //
 // Design, for Hopper: every CTA is two consumer warpgroups (64 rows each)
-// and a producer warpgroup.  The producer's one thread issues TMA loads
+// and a producer warpgroup (at D = 256 no producer warpgroup: thread 0
+// issues the loads, `producer` / `refill`).  The producer's one thread issues TMA loads
 // (`cp.async.bulk.tensor`, 128-byte swizzle, a (rows, 128) bf16 tile as two
 // slabs of 64 columns) into a ring of `STAGES` buffers; `mbarrier`s signal
 // arrival (transaction bytes) and release (one arrival per consumer warp).
@@ -65,10 +66,22 @@
 // query) ids are staged in shared memory by the same TMA transaction.  The
 // schedule lists CTAs longest walk first.  The kernels are templates on the
 // head dim D, instantiated in bf16 for D = 128 (qwen2.5-3b: a tile is two
-// slabs, the D-wide products m64n128k16) and D = 64 (the BERT models, group
+// slabs, the D-wide products m64n128k16), D = 64 (the BERT models, group
 // 1, bidirectional: a tile is one slab, the D-wide products m64n64k16 with
-// half the accumulator registers); Sq and Sk must be multiples of 64, and
-// of 128 above 128; the wrapper raises on any other shape.
+// half the accumulator registers) and D = 256 (recurrentgemma-2b's local
+// attention, group 10, window 2,048: a tile is four slabs, the D-wide
+// products two m64n128k16 halves, and a consumer thread's 64 x 256 f32
+// accumulator takes 128 of its 232 registers; the dQ CTA's K / V ring has
+// one stage, `DqSmem`); Sq and Sk must be multiples of 64, and of 128
+// above 128; the wrapper raises on any other shape.
+//
+// At recurrentgemma-2b's training shape (10 heads on 1 KV head, S 8,192,
+// window 2,048, causal: 14.7 M admissible (query, key) pairs a head, 146.8
+// M in all) the forward's 4 D flops a pair are ~1.5e11, ~152 us at the
+// card's bf16 peak, against ~92 MB of q, k, v, o and dO (~27 us): bound by
+// operations, the backward (~2.5x) too.  The window bites here: a forward
+// CTA walks at most (2,048 + 128) / 64 = 34 key steps of the 128 below
+// it, and the schedule skips the rest.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,10 +100,13 @@ constexpr int STAGES = 2;    // ring depth of the streamed tiles
 constexpr int CONSUMER_WARPS = 8;  // two warpgroups
 // plus a producer warpgroup: with 9 warps one SM sub-partition holds 3 of
 // them and ptxas caps every thread at 168 registers; with 12, `setmaxnreg`
-// moves the producer's registers to the consumers (40 / 232 a thread)
+// moves the producer's registers to the consumers at run time (40 / 232 a
+// thread), though ptxas still compiles every thread within 168
+// (`OWN_PRODUCER`)
 constexpr int THREADS = (CONSUMER_WARPS + 4) * 32;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int PLAN_COLS = 6;
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a CTA may take
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -205,6 +221,36 @@ __device__ __forceinline__ uint64_t kmajor(const bf16* tile, int rows, int r0, i
   return desc(tile + (kk / 4) * rows * SLAB + r0 * SLAB + (kk % 4) * 16, 16);
 }
 
+// bytes from a K-major operand's k-step 0 to its k-step kk (`kmajor`)
+__device__ __forceinline__ int kstep_bytes(int rows, int kk) {
+  return ((kk / 4) * rows * SLAB + (kk % 4) * 16) * 2;
+}
+
+// descriptor `d` moved on by `bytes` (a multiple of 16 within shared
+// memory: the start-address field counts 16-byte units and does not carry)
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, int bytes) { return d + (bytes >> 4); }
+
+// `x`, opaque to the compiler.  At D = 256 a loop's operand descriptors
+// are formed from one such base each, where they are used (`kstep`):
+// otherwise the compiler hoists every k-step's descriptor out of the loop
+// and keeps them all live across it (16 k-steps x 2 operands x 2
+// registers; at a 168-register allocation the backward's kernels spilled
+// 2.7-3.6x the bytes without it).  The D = 64 and 128 builds form each
+// descriptor outright, as before the D = 256 build.
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+// k-step kk's descriptor of a K-major operand (`kmajor`): at D = 256 from
+// the opaque base of k-step 0
+template <int D>
+__device__ __forceinline__ uint64_t kstep(const bf16* tile, int rows, int r0, int kk,
+                                          uint64_t base) {
+  if constexpr (D == 256) return desc_at(base, kstep_bytes(rows, kk));
+  else return kmajor(tile, rows, r0, kk);
+}
+
 // MN-major operand (the reduction axis is the tile's rows): rows [16 kk,
 // 16 kk + 16) of a tile of `rows` rows, all D columns (slab 1, where D = 128
 // has one, `lbo` bytes on)
@@ -283,6 +329,31 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a, uint64_t 
       : "l"(a), "l"(b), "r"(1));
 }
 
+// D (64 x 32 f32, registers) = A (64 x 16) . B (32 x 16)^T, the first
+// k-step (write-only operands, as wgmma_ss64_first)
+__device__ __forceinline__ void wgmma_ss32_first(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// D (64 x 32 f32, registers) += A (64 x 16) . B (32 x 16)^T; both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // D (64 x 128 f32) += A (64 x 16 bf16 in registers, the accumulator's layout)
 // . B (16 x 128 bf16 in shared memory, MN-major: N contiguous)
 __device__ __forceinline__ void wgmma_rs128(float (&d)[64], uint32_t a0, uint32_t a1,
@@ -324,25 +395,60 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], uint32_t a0, uint32_t
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
-// the D-wide register-A product of one 16-row k-step: D = 128 or 64 columns,
-// chosen by the accumulator's size (D / 2 floats a thread)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t b) {
-  wgmma_rs128(d, a[0], a[1], a[2], a[3], b);
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
-  wgmma_rs64(d, a[0], a[1], a[2], a[3], b);
+// the D-wide register-A product of one 16-row k-step: acc (64 x D) += A (64
+// x 16, registers) . rows [16 kk, 16 kk + 16) of a `rows`-row tile (all D
+// columns, MN-major).  D = 64: one m64n64k16; D = 128: one m64n128k16; D =
+// 256: two m64n128k16, one a 128-column half (slabs 0-1, then 2-3), whose
+// accumulators are acc[0, 64) and acc[64, 128): the m64n256 layout, column
+// 8 j + 2 c at acc[4 j + ...], cut at j = 16.
+template <int D>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t* a,
+                                           const bf16* tile, int rows, int kk) {
+  if constexpr (D == 64) {
+    wgmma_rs64(acc, a[0], a[1], a[2], a[3], mnmajor(tile, rows, kk));
+  } else if constexpr (D == 128) {
+    wgmma_rs128(acc, a[0], a[1], a[2], a[3], mnmajor(tile, rows, kk));
+  } else {
+    static_assert(D == 256, "K3 is instantiated for head dims 64, 128 and 256");
+    const uint64_t b = desc_at(opaque(mnmajor(tile, rows, 0)), kk * 16 * SLAB * 2);
+    float(&lo)[64] = *reinterpret_cast<float(*)[64]>(&acc[0]);
+    float(&hi)[64] = *reinterpret_cast<float(*)[64]>(&acc[64]);
+    wgmma_rs128(lo, a[0], a[1], a[2], a[3], b);
+    wgmma_rs128(hi, a[0], a[1], a[2], a[3], desc_at(b, 2 * rows * SLAB * 2));
+  }
 }
 
-// D (64 x 64) = A . B^T reduced over the head dim D: A is rows [a_r0, a_r0 + 64)
-// of an `a_rows`-row tile, B the 64 rows of a 64-row tile (both K-major)
-template <int D>
-__device__ __forceinline__ void product64(float (&d)[32], const bf16* a, int a_rows, int a_r0,
-                                          const bf16* b) {
-  wgmma_ss64_first(d, kmajor(a, a_rows, a_r0, 0), kmajor(b, STEP, 0, 0));
+// D (64 x N) = A . B^T reduced over the head dim D: A is rows [a_r0, a_r0 +
+// 64) of an `a_rows`-row tile, B rows [b_r0, b_r0 + N) of a 64-row tile
+// (both K-major); N = 64 or 32 (`SUB`)
+template <int D, int N>
+__device__ __forceinline__ void product_ss(float (&d)[N / 2], const bf16* a, int a_rows, int a_r0,
+                                           const bf16* b, int b_r0) {
+  uint64_t da = kmajor(a, a_rows, a_r0, 0), db = kmajor(b, STEP, b_r0, 0);
+  if constexpr (D == 256) da = opaque(da), db = opaque(db);
+  if constexpr (N == 64) {
+    wgmma_ss64_first(d, da, db);
 #pragma unroll
-  for (int kk = 1; kk < D / 16; ++kk)
-    wgmma_ss64(d, kmajor(a, a_rows, a_r0, kk), kmajor(b, STEP, 0, kk));
+    for (int kk = 1; kk < D / 16; ++kk)
+      wgmma_ss64(d, kstep<D>(a, a_rows, a_r0, kk, da), kstep<D>(b, STEP, b_r0, kk, db));
+  } else {
+    static_assert(N == 32, "a sub-step is 64 or 32 wide");
+    wgmma_ss32_first(d, da, db);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      wgmma_ss32(d, kstep<D>(a, a_rows, a_r0, kk, da), kstep<D>(b, STEP, b_r0, kk, db));
+  }
 }
+
+// The width of the (64 x SUB) score tiles (S, P, dP, dS) a consumer holds at
+// once: a 64-wide step is taken as 64 / SUB sub-steps.  At D = 256 the
+// 64 x 256 f32 accumulator takes 128 registers a thread, so the build takes
+// 32-wide sub-steps (the scores' registers halved; the forward rescales O
+// once a sub-step; the K-major operand is read from shared memory once a
+// sub-step): ptxas -v counts 193-206 registers a thread for its three
+// kernels and no spills, within the 255 of an 8-warp CTA (`OWN_PRODUCER`).
+template <int D>
+constexpr int SUB = D == 256 ? STEP / 2 : STEP;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -350,6 +456,70 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+
+// ---------------------------------------------------------------------------
+// who issues a CTA's loads
+// ---------------------------------------------------------------------------
+
+// D = 64 and 128: a producer warpgroup of its own beside the two consumer
+// warpgroups (12 warps).  ptxas allocates every thread of a 12-warp CTA
+// within 168 registers, the consumers too (`setmaxnreg` moves registers at
+// run time but does not widen that allocation: the same build with 240 for
+// the consumers spilled the same bytes), and at D = 256 a consumer's 64 x
+// 256 f32 accumulator alone takes 128 of them, so its CTAs are the 8
+// consumer warps alone (up to 255 registers a thread) and thread 0 issues
+// the loads, `ring` steps ahead, as the consumers release the stages.
+template <int D>
+constexpr bool OWN_PRODUCER = D != 256;
+template <int D>
+constexpr int CTA_THREADS = OWN_PRODUCER<D> ? THREADS : CONSUMER_WARPS * 32;
+
+// A CTA's loads: `first()` (the tiles every step reads) and `step(i)` for
+// each of its `n` steps, step i into ring stage i % ring, a stage reused
+// once its `empty` barrier shows every consumer warp released it.  Returns
+// true in a producer warpgroup's threads (which then leave), after they
+// issued every load; without one, thread 0 issues first() and the first
+// `ring` steps here and the rest from `refill`.
+template <int D, typename First, typename Step>
+__device__ __forceinline__ bool producer(int n, int ring, uint64_t* empty, First first,
+                                         Step step) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if constexpr (OWN_PRODUCER<D>) {
+    if (warp < CONSUMER_WARPS) {
+      regs_inc<CONSUMER_REGS>();
+      return false;
+    }
+    regs_dec<PRODUCER_REGS>();
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      first();
+      for (int i = 0; i < n; ++i) {
+        if (i >= ring) mbar_wait(&empty[i % ring], (i / ring - 1) & 1);
+        step(i);
+      }
+    }
+    return true;
+  } else {
+    if (threadIdx.x == 0) {
+      first();
+      for (int i = 0; i < n && i < ring; ++i) step(i);
+    }
+    return false;
+  }
+}
+
+// Called by every consumer thread once its warp released step i's stage:
+// without a producer warpgroup, thread 0 waits until every consumer warp
+// has, then loads step i + ring into the stage.
+template <int D, typename Step>
+__device__ __forceinline__ void refill(int i, int n, int ring, uint64_t* empty, Step step) {
+  if constexpr (!OWN_PRODUCER<D>) {
+    if (threadIdx.x == 0 && i + ring < n) {
+      mbar_wait(&empty[i % ring], (i / ring) & 1);
+      step(i + ring);
+    }
+    __syncwarp();
+  }
+}
 
 // ---------------------------------------------------------------------------
 // forward
@@ -375,7 +545,7 @@ struct FwdSmem : Tiles<D> {
 // grid (H, B, query tiles in plan order); plan row: (q0, key step lo, hi,
 // free lo, free hi, key end), in 64-key steps
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1) attn_fwd(
+__global__ void __launch_bounds__(CTA_THREADS<D>, 1) attn_fwd(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o, float* __restrict__ lse,
     Layout lo, Problem p) {
@@ -408,26 +578,22 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
   }
   __syncthreads();
 
-  if (warp >= CONSUMER_WARPS) {  // producer warpgroup: one thread issues every load
-    regs_dec<PRODUCER_REGS>();
-    if (warp == CONSUMER_WARPS && lane == 0) {
-      mbar_expect_tx(bar_q, M::TILE_BYTES);
-      tma_tile<D>(sQ, TILE, &mq, bar_q, q0, hh, b);
-      for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
-        const int s = i % STAGES;
-        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&full_k[s], M::STEP_BYTES + (p.q_seg ? STEP * 4 : 0));
-        tma_tile<D>(sK + s * STEP * D, STEP, &mk, &full_k[s], t * STEP, kh, b);
-        if (p.q_seg)
-          bulk_copy(sSeg + s * STEP, p.kv_seg + (long long)b * p.sk + t * STEP, STEP * 4,
-                    &full_k[s]);
-        mbar_expect_tx(&full_v[s], M::STEP_BYTES);
-        tma_tile<D>(sV + s * STEP * D, STEP, &mv, &full_v[s], t * STEP, kh, b);
-      }
-    }
-    return;
-  }
-  regs_inc<CONSUMER_REGS>();
+  const int n = t_hi - t_lo;
+  auto load_q = [&] {
+    mbar_expect_tx(bar_q, M::TILE_BYTES);
+    tma_tile<D>(sQ, TILE, &mq, bar_q, q0, hh, b);
+  };
+  auto load_step = [&](int i) {  // key step t_lo + i
+    const int s = i % STAGES, t = t_lo + i;
+    mbar_expect_tx(&full_k[s], M::STEP_BYTES + (p.q_seg ? STEP * 4 : 0));
+    tma_tile<D>(sK + s * STEP * D, STEP, &mk, &full_k[s], t * STEP, kh, b);
+    if (p.q_seg)
+      bulk_copy(sSeg + s * STEP, p.kv_seg + (long long)b * p.sk + t * STEP, STEP * 4,
+                &full_k[s]);
+    mbar_expect_tx(&full_v[s], M::STEP_BYTES);
+    tma_tile<D>(sV + s * STEP * D, STEP, &mv, &full_v[s], t * STEP, kh, b);
+  };
+  if (producer<D>(n, STAGES, empty, load_q, load_step)) return;
 
   // consumers: warpgroup wg owns query rows [q0 + 64 wg, +64); this thread
   // rows r0 and r0 + 8, key columns 8 j + 2 c (+1) of each 8-key chunk j
@@ -441,7 +607,8 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
     for (int e = 0; e < 2; ++e)
       if (r0 + 8 * e < p.sq) qseg[e] = p.q_seg[(long long)b * p.sq + r0 + 8 * e];
   }
-  float acc[D / 2], sc[32];
+  constexpr int N = SUB<D>;
+  float acc[D / 2], sc[N / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
@@ -452,68 +619,73 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd(
     const bf16* tk = sK + s * STEP * D;
     const bf16* tv = sV + s * STEP * D;
     mbar_wait(&full_k[s], parity);
-    wg_fence();
-    product64<D>(sc, sQ, TILE, wg * 64, tk);
-    wg_commit();
-    wg_wait<0>();
-    keep(sc);
+#pragma unroll
+    for (int hf = 0; hf < STEP / N; ++hf) {  // sub-steps of N keys
+      wg_fence();
+      product_ss<D, N>(sc, sQ, TILE, wg * 64, tk, hf * N);
+      wg_commit();
+      wg_wait<0>();
+      keep(sc);
 
-    // logits in log2 units; masked (one uniform branch around the whole
-    // step, so unmasked steps run none of it): -1e30 inside the visited
-    // range, -inf past it
+      // logits in log2 units; masked (one uniform branch around the whole
+      // step, so unmasked steps run none of it): -1e30 inside the visited
+      // range, -inf past it
 #pragma unroll
-    for (int j = 0; j < 32; ++j) sc[j] *= sl2;
-    if (p.q_seg != nullptr || t < f_lo || t >= f_hi) {
+      for (int j = 0; j < N / 2; ++j) sc[j] *= sl2;
+      if (p.q_seg != nullptr || t < f_lo || t >= f_hi) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kcol = 8 * j + 2 * c + (e & 1), kpos = t * STEP + kcol;
-          const int qpos = r0 + 8 * (e >> 1) + off;
-          if (kpos >= k_end)
-            sc[4 * j + e] = -CUDART_INF_F;
-          else if (!admissible(p, qpos, kpos) ||
-                   (p.q_seg && sSeg[s * STEP + kcol] != qseg[e >> 1]))
-            sc[4 * j + e] = NEG;
+          for (int e = 0; e < 4; ++e) {
+            const int kcol = hf * N + 8 * j + 2 * c + (e & 1), kpos = t * STEP + kcol;
+            const int qpos = r0 + 8 * (e >> 1) + off;
+            if (kpos >= k_end)
+              sc[4 * j + e] = -CUDART_INF_F;
+            else if (!admissible(p, qpos, kpos) ||
+                     (p.q_seg && sSeg[s * STEP + kcol] != qseg[e >> 1]))
+              sc[4 * j + e] = NEG;
+          }
         }
       }
-    }
-    float mx[2] = {NEG, NEG};
+      float mx[2] = {NEG, NEG};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-    }
-    float alpha[2];
+      for (int j = 0; j < N / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float alpha[2];
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
-      const float mn = fmaxf(m[e], mx[e]);
-      alpha[e] = ex2(m[e] - mn);
-      m[e] = mn;
-      l[e] *= alpha[e];
-    }
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        const float mn = fmaxf(m[e], mx[e]);
+        alpha[e] = ex2(m[e] - mn);
+        m[e] = mn;
+        l[e] *= alpha[e];
+      }
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float pr = ex2(sc[j] - m[(j >> 1) & 1]);
-      sc[j] = pr;
-      l[(j >> 1) & 1] += pr;
-    }
+      for (int j = 0; j < N / 2; ++j) {
+        const float pr = ex2(sc[j] - m[(j >> 1) & 1]);
+        sc[j] = pr;
+        l[(j >> 1) & 1] += pr;
+      }
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
-    uint32_t pa[16];
-    to_a(sc, pa);
+      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      uint32_t pa[N / 4];
+      to_a(sc, pa);
 
-    mbar_wait(&full_v[s], parity);
-    wg_fence();
+      mbar_wait(&full_v[s], parity);
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < STEP / 16; ++kk) wgmma_rs(acc, pa + 4 * kk, mnmajor(tv, STEP, kk));
-    wg_commit();
-    wg_wait<0>();
-    keep(acc);
+      for (int kk = 0; kk < N / 16; ++kk)
+        product_rs<D>(acc, pa + 4 * kk, tv, STEP, hf * (N / 16) + kk);
+      wg_commit();
+      wg_wait<0>();
+      keep(acc);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
+    refill<D>(i, n, STAGES, empty, load_step);
   }
 
 #pragma unroll
@@ -597,9 +769,9 @@ struct DkdvTiles {
 // of the tile (S^T = K Q^T is formed by both), so each holds one 64 x D
 // accumulator; this thread keys kr0 and kr0 + 8, query columns 8 n + 2 c
 // (+1) of each 8-row chunk n.  Writes the warpgroup's partial (dK scaled).
-template <int D, bool DK>
+template <int D, bool DK, typename After>
 __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem& p, int b, int hh,
-                                              float* __restrict__ part) {
+                                              float* __restrict__ part, After after_step) {
   const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
   const int kr0 = t.k0 + (threadIdx.x / 32 % 4) * 16 + g;
   const int off = p.sk - p.sq;
@@ -610,7 +782,8 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem&
     for (int e = 0; e < 2; ++e)
       if (kr0 + 8 * e < p.sk) kseg[e] = p.kv_seg[(long long)b * p.sk + kr0 + 8 * e];
   }
-  float acc[D / 2], st[32], dpt[32];
+  constexpr int N = SUB<D>;
+  float acc[D / 2], st[N / 2], dpt[N / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
@@ -619,61 +792,68 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem&
     const bf16* tq = t.q + s * STEP * D;
     const bf16* tdo = t.dout + s * STEP * D;
     const float* tl = t.lse + s * STEP;
+    const float* td = t.delta + s * STEP;
     mbar_wait(&t.full[s], (i / STAGES) & 1);
-    // S^T = K Q^T (and for dK, dP^T = V dO^T): (64 keys, 64 queries)
-    wg_fence();
-    product64<D>(st, t.k, STEP, 0, tq);
-    wg_commit();
-    if (DK) {
-      product64<D>(dpt, t.v, STEP, 0, tdo);
+#pragma unroll
+    for (int hf = 0; hf < STEP / N; ++hf) {  // sub-steps of N queries
+      // S^T = K Q^T (and for dK, dP^T = V dO^T): (64 keys, N queries)
+      wg_fence();
+      product_ss<D, N>(st, t.k, STEP, 0, tq, hf * N);
       wg_commit();
-    }
-    wg_wait<0>();
-    keep(st);
-    if (DK) keep(dpt);
-
-    // P^T = exp(S^T scale - lse) on admissible pairs, 0 elsewhere (the mask
-    // under one uniform branch)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        st[4 * n + e] = ex2(st[4 * n + e] * sl2 - tl[8 * n + 2 * c + (e & 1)] * LOG2E);
-    if (p.q_seg != nullptr || j < t.f_lo || j >= t.f_hi) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qcol = 8 * n + 2 * c + (e & 1), kpos = kr0 + 8 * (e >> 1);
-          if (kpos >= p.sk || !admissible(p, q0 + qcol + off, kpos) ||
-              (p.q_seg && t.seg[s * STEP + qcol] != kseg[e >> 1]))
-            st[4 * n + e] = 0.f;
-        }
+      if (DK) {
+        product_ss<D, N>(dpt, t.v, STEP, 0, tdo, hf * N);
+        wg_commit();
       }
-    }
-    uint32_t fa[16];
-    if (DK) {  // dS^T = P^T (dP^T - delta)
-      const float* td = t.delta + s * STEP;
+      wg_wait<0>();
+      keep(st);
+      if (DK) keep(dpt);
+
+      // P^T = exp(S^T scale - lse) on admissible pairs, 0 elsewhere (the
+      // mask under one uniform branch)
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < N / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          dpt[4 * n + e] = st[4 * n + e] * (dpt[4 * n + e] - td[8 * n + 2 * c + (e & 1)]);
-      to_a(dpt, fa);
-    } else {
-      to_a(st, fa);
-    }
-
-    // dV += P^T dO or dK += dS^T Q: (64 keys, D), reduced over the 64 queries
-    const bf16* rhs = DK ? tq : tdo;
-    wg_fence();
+          st[4 * n + e] =
+              ex2(st[4 * n + e] * sl2 - tl[hf * N + 8 * n + 2 * c + (e & 1)] * LOG2E);
+      if (p.q_seg != nullptr || j < t.f_lo || j >= t.f_hi) {
 #pragma unroll
-    for (int kk = 0; kk < STEP / 16; ++kk) wgmma_rs(acc, fa + 4 * kk, mnmajor(rhs, STEP, kk));
-    wg_commit();
-    wg_wait<0>();
-    keep(acc);
+        for (int n = 0; n < N / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qcol = hf * N + 8 * n + 2 * c + (e & 1), kpos = kr0 + 8 * (e >> 1);
+            if (kpos >= p.sk || !admissible(p, q0 + qcol + off, kpos) ||
+                (p.q_seg && t.seg[s * STEP + qcol] != kseg[e >> 1]))
+              st[4 * n + e] = 0.f;
+          }
+        }
+      }
+      uint32_t fa[N / 4];
+      if (DK) {  // dS^T = P^T (dP^T - delta)
+#pragma unroll
+        for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[4 * n + e] =
+                st[4 * n + e] * (dpt[4 * n + e] - td[hf * N + 8 * n + 2 * c + (e & 1)]);
+        to_a(dpt, fa);
+      } else {
+        to_a(st, fa);
+      }
+
+      // dV += P^T dO or dK += dS^T Q: (64 keys, D), reduced over the N queries
+      const bf16* rhs = DK ? tq : tdo;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        product_rs<D>(acc, fa + 4 * kk, rhs, STEP, hf * (N / 16) + kk);
+      wg_commit();
+      wg_wait<0>();
+      keep(acc);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(&t.empty[s]);
+    after_step(i);
   }
 
   const float mul = DK ? p.scale : 1.f;
@@ -693,7 +873,7 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem&
 // free lo, free hi, Sq).  Writes dk_part / dv_part (B, H, Sk, D) f32, dK
 // already scaled.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1) attn_bwd_dkdv(
+__global__ void __launch_bounds__(CTA_THREADS<D>, 1) attn_bwd_dkdv(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
     const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk_part,
@@ -715,7 +895,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dkdv(
   const int* row = p.plan + blockIdx.z * PLAN_COLS;
   const int k0 = row[0], s_lo = row[1], s_hi = row[2];
   const int hh = blockIdx.x, b = blockIdx.y, kh = hh / (p.h / p.kvh);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const long long lrow = ((long long)b * p.h + hh) * p.sq;  // (b, hh) row of lse / delta
 
   if (threadIdx.x == 0) {
@@ -728,35 +908,32 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dkdv(
   }
   __syncthreads();
 
-  if (warp >= CONSUMER_WARPS) {  // producer warpgroup: one thread issues every load
-    regs_dec<PRODUCER_REGS>();
-    if (warp == CONSUMER_WARPS && lane == 0) {
-      mbar_expect_tx(bar_kv, 2 * M::STEP_BYTES);
-      tma_tile<D>(sK, STEP, &mk, bar_kv, k0, kh, b);
-      tma_tile<D>(sV, STEP, &mv, bar_kv, k0, kh, b);
-      for (int j = s_lo, i = 0; j < s_hi; ++j, ++i) {
-        const int s = i % STAGES, q0 = j * STEP;
-        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * M::STEP_BYTES + 2 * STEP * 4 + (p.q_seg ? STEP * 4 : 0));
-        tma_tile<D>(sQ + s * STEP * D, STEP, &mq, &full[s], q0, hh, b);
-        tma_tile<D>(sdO + s * STEP * D, STEP, &mdo, &full[s], q0, hh, b);
-        bulk_copy(sLse + s * STEP, lse + lrow + q0, STEP * 4, &full[s]);
-        bulk_copy(sDelta + s * STEP, delta + lrow + q0, STEP * 4, &full[s]);
-        if (p.q_seg)
-          bulk_copy(sSeg + s * STEP, p.q_seg + (long long)b * p.sq + q0, STEP * 4, &full[s]);
-      }
-    }
-    return;
-  }
-  regs_inc<CONSUMER_REGS>();
+  const int n = s_hi - s_lo;
+  auto load_kv = [&] {
+    mbar_expect_tx(bar_kv, 2 * M::STEP_BYTES);
+    tma_tile<D>(sK, STEP, &mk, bar_kv, k0, kh, b);
+    tma_tile<D>(sV, STEP, &mv, bar_kv, k0, kh, b);
+  };
+  auto load_step = [&](int i) {  // query step s_lo + i
+    const int s = i % STAGES, q0 = (s_lo + i) * STEP;
+    mbar_expect_tx(&full[s], 2 * M::STEP_BYTES + 2 * STEP * 4 + (p.q_seg ? STEP * 4 : 0));
+    tma_tile<D>(sQ + s * STEP * D, STEP, &mq, &full[s], q0, hh, b);
+    tma_tile<D>(sdO + s * STEP * D, STEP, &mdo, &full[s], q0, hh, b);
+    bulk_copy(sLse + s * STEP, lse + lrow + q0, STEP * 4, &full[s]);
+    bulk_copy(sDelta + s * STEP, delta + lrow + q0, STEP * 4, &full[s]);
+    if (p.q_seg)
+      bulk_copy(sSeg + s * STEP, p.q_seg + (long long)b * p.sq + q0, STEP * 4, &full[s]);
+  };
+  if (producer<D>(n, STAGES, empty, load_kv, load_step)) return;
+  auto after_step = [&](int i) { refill<D>(i, n, STAGES, empty, load_step); };
 
   const DkdvTiles t{sK, sV, sQ, sdO, sLse, sDelta, sSeg, full, empty,
                     k0, s_lo, s_hi, row[3], row[4]};
   mbar_wait(bar_kv, 0);
   if (warp < 4)
-    dkdv_consumer<D, false>(t, p, b, hh, dv_part);
+    dkdv_consumer<D, false>(t, p, b, hh, dv_part, after_step);
   else
-    dkdv_consumer<D, true>(t, p, b, hh, dk_part);
+    dkdv_consumer<D, true>(t, p, b, hh, dk_part, after_step);
 }
 
 // ---------------------------------------------------------------------------
@@ -798,21 +975,35 @@ __global__ void __launch_bounds__(256) attn_bwd_group_sum(
 // backward 4: dQ for one (128-query tile, head, batch), second pass
 // ---------------------------------------------------------------------------
 
-// a dQ CTA's shared memory: Q, dO, the K, V and key segment-id rings, barriers
-template <int D>
-struct DqSmem : Tiles<D> {
+// a dQ CTA's shared memory: Q, dO, the K, V and key segment-id rings of
+// `R` stages, barriers
+template <int D, int R>
+struct DqRing : Tiles<D> {
+  static constexpr int RING = R;
   static constexpr int DO = Tiles<D>::TILE_BYTES;
   static constexpr int K = 2 * Tiles<D>::TILE_BYTES;
-  static constexpr int V = K + STAGES * Tiles<D>::STEP_BYTES;
-  static constexpr int SEG = V + STAGES * Tiles<D>::STEP_BYTES;
-  static constexpr int BAR = SEG + STAGES * STEP * 4;
-  static constexpr size_t BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+  static constexpr int V = K + R * Tiles<D>::STEP_BYTES;
+  static constexpr int SEG = V + R * Tiles<D>::STEP_BYTES;
+  static constexpr int BAR = SEG + R * STEP * 4;
+  static constexpr size_t BYTES = BAR + 8 * (1 + 2 * R) + 1024;
 };
+
+// `STAGES` when they fit, else one.  At D = 256 the Q and dO tiles take 128
+// KB and two (K, V) stages another 128 KB, over the CTA's 227 KB; with one
+// stage (192 KB) the producer loads step i + 1's K and V only once both
+// consumer warpgroups have released step i, so the loads no longer overlap
+// the products.  The other ways to fit (64-row query tiles, or K and V
+// sharing a slot) change the schedule's tiles or serialize K against V
+// within a step; one stage keeps the D = 64 and 128 builds' schedule and
+// code, and the dQ pass is ~2/5 of the backward's products.
+template <int D>
+struct DqSmem
+    : DqRing<D, (DqRing<D, STAGES>::BYTES <= SMEM_MAX ? STAGES : 1)> {};
 
 // grid (H, B, query tiles in plan order); plan row: (q0, key step lo, hi,
 // free lo, free hi, Sk)
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
+__global__ void __launch_bounds__(CTA_THREADS<D>, 1) attn_bwd_dq(
     const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
     const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
@@ -827,7 +1018,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
   int* sSeg = reinterpret_cast<int*>(smem + M::SEG);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + M::BAR);
   uint64_t* full = bar_q + 1;
-  uint64_t* empty = full + STAGES;
+  uint64_t* empty = full + M::RING;
 
   const int* row = p.plan + blockIdx.z * PLAN_COLS;
   const int q0 = row[0], s_lo = row[1], s_hi = row[2], f_lo = row[3], f_hi = row[4];
@@ -836,7 +1027,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < M::RING; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMER_WARPS);
     }
@@ -844,25 +1035,21 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
   }
   __syncthreads();
 
-  if (warp >= CONSUMER_WARPS) {  // producer warpgroup: one thread issues every load
-    regs_dec<PRODUCER_REGS>();
-    if (warp == CONSUMER_WARPS && lane == 0) {
-      mbar_expect_tx(bar_q, 2 * M::TILE_BYTES);
-      tma_tile<D>(sQ, TILE, &mq, bar_q, q0, hh, b);
-      tma_tile<D>(sdO, TILE, &mdo, bar_q, q0, hh, b);
-      for (int j = s_lo, i = 0; j < s_hi; ++j, ++i) {
-        const int s = i % STAGES, k0 = j * STEP;
-        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * M::STEP_BYTES + (p.q_seg ? STEP * 4 : 0));
-        tma_tile<D>(sK + s * STEP * D, STEP, &mk, &full[s], k0, kh, b);
-        tma_tile<D>(sV + s * STEP * D, STEP, &mv, &full[s], k0, kh, b);
-        if (p.q_seg)
-          bulk_copy(sSeg + s * STEP, p.kv_seg + (long long)b * p.sk + k0, STEP * 4, &full[s]);
-      }
-    }
-    return;
-  }
-  regs_inc<CONSUMER_REGS>();
+  const int n = s_hi - s_lo;
+  auto load_q = [&] {
+    mbar_expect_tx(bar_q, 2 * M::TILE_BYTES);
+    tma_tile<D>(sQ, TILE, &mq, bar_q, q0, hh, b);
+    tma_tile<D>(sdO, TILE, &mdo, bar_q, q0, hh, b);
+  };
+  auto load_step = [&](int i) {  // key step s_lo + i
+    const int s = i % M::RING, k0 = (s_lo + i) * STEP;
+    mbar_expect_tx(&full[s], 2 * M::STEP_BYTES + (p.q_seg ? STEP * 4 : 0));
+    tma_tile<D>(sK + s * STEP * D, STEP, &mk, &full[s], k0, kh, b);
+    tma_tile<D>(sV + s * STEP * D, STEP, &mv, &full[s], k0, kh, b);
+    if (p.q_seg)
+      bulk_copy(sSeg + s * STEP, p.kv_seg + (long long)b * p.sk + k0, STEP * 4, &full[s]);
+  };
+  if (producer<D>(n, M::RING, empty, load_q, load_step)) return;
 
   // consumers: warpgroup wg owns query rows [q0 + 64 wg, +64); this thread
   // rows r0 and r0 + 8, key columns 8 n + 2 c (+1) of each 8-key chunk n
@@ -881,54 +1068,60 @@ __global__ void __launch_bounds__(THREADS, 1) attn_bwd_dq(
     rd[e] = delta[at];
     if (p.q_seg) qseg[e] = p.q_seg[(long long)b * p.sq + r];
   }
-  float acc[D / 2], sc[32], dp[32];
+  constexpr int N = SUB<D>;
+  float acc[D / 2], sc[N / 2], dp[N / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   mbar_wait(bar_q, 0);
 
   for (int j = s_lo, i = 0; j < s_hi; ++j, ++i) {
-    const int s = i % STAGES, k0 = j * STEP;
+    const int s = i % M::RING, k0 = j * STEP;
     const bf16* tk = sK + s * STEP * D;
     const bf16* tv = sV + s * STEP * D;
-    mbar_wait(&full[s], (i / STAGES) & 1);
-    // S = Q K^T and dP = dO V^T: (64 queries, 64 keys) each
-    wg_fence();
-    product64<D>(sc, sQ, TILE, wg * 64, tk);
-    wg_commit();
-    product64<D>(dp, sdO, TILE, wg * 64, tv);
-    wg_commit();
-    wg_wait<0>();
-    keep(sc);
-    keep(dp);
+    mbar_wait(&full[s], (i / M::RING) & 1);
+#pragma unroll
+    for (int hf = 0; hf < STEP / N; ++hf) {  // sub-steps of N keys
+      // S = Q K^T and dP = dO V^T: (64 queries, N keys) each
+      wg_fence();
+      product_ss<D, N>(sc, sQ, TILE, wg * 64, tk, hf * N);
+      wg_commit();
+      product_ss<D, N>(dp, sdO, TILE, wg * 64, tv, hf * N);
+      wg_commit();
+      wg_wait<0>();
+      keep(sc);
+      keep(dp);
 
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = ex2(sc[i] * sl2 - rl[(i >> 1) & 1]);
-    if (p.q_seg != nullptr || j < f_lo || j >= f_hi) {  // the mask, under one uniform branch
+      for (int i = 0; i < N / 2; ++i) sc[i] = ex2(sc[i] * sl2 - rl[(i >> 1) & 1]);
+      if (p.q_seg != nullptr || j < f_lo || j >= f_hi) {  // the mask, under one uniform branch
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+        for (int n = 0; n < N / 8; ++n) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kcol = 8 * n + 2 * c + (e & 1);
-          if (!admissible(p, r0 + 8 * (e >> 1) + off, k0 + kcol) ||
-              (p.q_seg && sSeg[s * STEP + kcol] != qseg[e >> 1]))
-            sc[4 * n + e] = 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const int kcol = hf * N + 8 * n + 2 * c + (e & 1);
+            if (!admissible(p, r0 + 8 * (e >> 1) + off, k0 + kcol) ||
+                (p.q_seg && sSeg[s * STEP + kcol] != qseg[e >> 1]))
+              sc[4 * n + e] = 0.f;
+          }
         }
       }
-    }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - rd[(i >> 1) & 1]);
-    uint32_t da[16];
-    to_a(dp, da);
+      for (int i = 0; i < N / 2; ++i) dp[i] = sc[i] * (dp[i] - rd[(i >> 1) & 1]);
+      uint32_t da[N / 4];
+      to_a(dp, da);
 
-    // dQ += dS K: (64 queries, D), reduced over the 64 keys
-    wg_fence();
+      // dQ += dS K: (64 queries, D), reduced over the N keys
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < STEP / 16; ++kk) wgmma_rs(acc, da + 4 * kk, mnmajor(tk, STEP, kk));
-    wg_commit();
-    wg_wait<0>();
-    keep(acc);
+      for (int kk = 0; kk < N / 16; ++kk)
+        product_rs<D>(acc, da + 4 * kk, tk, STEP, hf * (N / 16) + kk);
+      wg_commit();
+      wg_wait<0>();
+      keep(acc);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
+    refill<D>(i, n, M::RING, empty, load_step);
   }
 
 #pragma unroll
@@ -1006,8 +1199,8 @@ bool length_ok(int s) { return s > 0 && s % 64 == 0 && (s <= 128 || s % 128 == 0
 
 // the head dims instantiated below
 bool shape_ok(int b, int h, int kvh, int sq, int sk, int d) {
-  return b > 0 && kvh > 0 && h % kvh == 0 && (d == 128 || d == 64) && length_ok(sq) &&
-         length_ok(sk);
+  return b > 0 && kvh > 0 && h % kvh == 0 && (d == 64 || d == 128 || d == 256) &&
+         length_ok(sq) && length_ok(sk);
 }
 
 int tiles(int s) { return (s + TILE - 1) / TILE; }
@@ -1024,7 +1217,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
   static bool smem_set = false;
   cudaError_t e = allow_smem(attn_fwd<D>, FwdSmem<D>::BYTES, &smem_set);
   if (e != cudaSuccess) return (int)e;
-  attn_fwd<D><<<dim3(p.h, b, tiles(p.sq)), THREADS, FwdSmem<D>::BYTES, stream>>>(
+  attn_fwd<D><<<dim3(p.h, b, tiles(p.sq)), CTA_THREADS<D>, FwdSmem<D>::BYTES, stream>>>(
       mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), lo, p);
   return (int)cudaGetLastError();
 }
@@ -1054,7 +1247,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
       return -2;
     if ((e = allow_smem(attn_bwd_dkdv<D>, DkdvSmem<D>::BYTES, &dkdv_smem_set)) != cudaSuccess)
       return (int)e;
-    attn_bwd_dkdv<D><<<dim3(h, b, sk / STEP), THREADS, DkdvSmem<D>::BYTES, s>>>(
+    attn_bwd_dkdv<D><<<dim3(h, b, sk / STEP), CTA_THREADS<D>, DkdvSmem<D>::BYTES, s>>>(
         mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<float*>(dk_part), static_cast<float*>(dv_part), p);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -1074,7 +1267,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
     p.plan = static_cast<const int*>(plan_dq);
     if ((e = allow_smem(attn_bwd_dq<D>, DqSmem<D>::BYTES, &dq_smem_set)) != cudaSuccess)
       return (int)e;
-    attn_bwd_dq<D><<<dim3(h, b, tiles(sq)), THREADS, DqSmem<D>::BYTES, s>>>(
+    attn_bwd_dq<D><<<dim3(h, b, tiles(sq)), CTA_THREADS<D>, DqSmem<D>::BYTES, s>>>(
         mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(dq), lq, p);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -1084,9 +1277,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 }  // namespace
 
-static_assert(FwdSmem<128>::BYTES <= 232448 && DkdvSmem<128>::BYTES <= 232448 &&
-                  DqSmem<128>::BYTES <= 232448,
+// every instantiated head dim's CTAs fit in the SM's 227 KB
+template <int D>
+constexpr bool smem_fits() {
+  return FwdSmem<D>::BYTES <= SMEM_MAX && DkdvSmem<D>::BYTES <= SMEM_MAX &&
+         DqSmem<D>::BYTES <= SMEM_MAX;
+}
+static_assert(smem_fits<64>() && smem_fits<128>() && smem_fits<256>(),
               "a CTA's shared memory must fit in the SM's 227 KB");
+static_assert(DqSmem<64>::RING == STAGES && DqSmem<128>::RING == STAGES,
+              "the D = 64 and 128 dQ CTAs keep their two-stage ring");
 
 // strides: 3 per tensor, (batch, head, position) in elements; plan: the
 // forward schedule (tile_plan("fwd", ...)).  Returns 0, a CUDA error code,
@@ -1100,8 +1300,11 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
   const Problem p{h, kvh, sq, sk, causal, window, scale, static_cast<const int*>(q_seg),
                   static_cast<const int*>(kv_seg), static_cast<const int*>(plan)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 128 ? launch_fwd<128>(q, k, v, o, lse, p, b, strides, s)
-                  : launch_fwd<64>(q, k, v, o, lse, p, b, strides, s);
+  switch (d) {
+    case 64: return launch_fwd<64>(q, k, v, o, lse, p, b, strides, s);
+    case 128: return launch_fwd<128>(q, k, v, o, lse, p, b, strides, s);
+    default: return launch_fwd<256>(q, k, v, o, lse, p, b, strides, s);
+  }
 }
 
 // strides: q, k, v, o, dout; dq / dk / dv share q's / k's / v's strides;
@@ -1119,8 +1322,12 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   const Problem p{h, kvh, sq, sk, causal, window, scale, static_cast<const int*>(q_seg),
                   static_cast<const int*>(kv_seg), static_cast<const int*>(plan_dkdv)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 128 ? launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, dk_part, dv_part,
-                                    plan_dq, p, b, strides, s)
-                  : launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, dk_part, dv_part,
+  switch (d) {
+    case 64: return launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, dk_part, dv_part,
                                    plan_dq, p, b, strides, s);
+    case 128: return launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, dk_part, dv_part,
+                                     plan_dq, p, b, strides, s);
+    default: return launch_bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, dk_part, dv_part,
+                                    plan_dq, p, b, strides, s);
+  }
 }

@@ -332,9 +332,9 @@ paged_flash_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 #: (head dim, H / KV) the training source is built and held for: its
-#: kernels are templates on the head dim (128 and 64 instantiated) and take
-#: any group; these are the configs the port trains
-TRAINED = {(128, 8), (64, 1)}  # qwen2.5-3b; bert-large and bert-1.5b
+#: kernels are templates on the head dim (64, 128 and 256 instantiated) and
+#: take any group; these are the configs the port trains
+TRAINED = {(128, 8), (64, 1), (256, 10)}  # qwen2.5-3b; the BERT models; recurrentgemma-2b
 _LL = ctypes.c_longlong
 #: tile sizes of ``flash_attention.cu``: a forward / dQ CTA takes 128 query
 #: rows (two warpgroups of 64) and walks 64-key steps; a dK/dV CTA takes 64

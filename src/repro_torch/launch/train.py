@@ -13,6 +13,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch bert-1.5b \
         --full-config --optimizer lans --seq 128 --batch 768 --workers 4 \
         --microbatches 12 --steps 3 --drop-compute --auto-threshold  # B.1's micro-batch
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
+        --steps 3 --drop-compute --auto-threshold --device cpu  # smoke config
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
+        --full-config --seq 8192 --batch 8 --workers 4 --microbatches 2 --lr 1e-4 \
+        --steps 3 --drop-compute --tau 1.0
 
 Selects an architecture from the port's registry (``--arch``: one of
 ``ARCHITECTURES`` or the paper's ``PAPER_MODELS``, the reduced smoke config
@@ -22,9 +27,10 @@ DropCompute trainer, and runs on one device: CUDA unless ``--device cpu``.
 from one (parameters, optimizer state and the adapted tau-controller
 state), as the reference's launcher does.  A config that the training
 kernels are not built for is refused on CUDA before any work: attention
-other than head dim 128, group 8 or head dim 64, group 1, in bf16 (qwen's
-smoke config is f32 with head dim 32, the BERT smoke configs f32 with head
-dim 32), or SSD layers other than state 128, head dim 64 (mamba's smoke
+other than head dim 128, group 8, head dim 64, group 1 or head dim 256,
+group 10, in bf16 (qwen's smoke config is f32 with head dim 32, the BERT
+smoke configs f32 with head dim 32, recurrentgemma's f32 with head dim 64,
+group 2), or SSD layers other than state 128, head dim 64 (mamba's smoke
 config has state 16, head dim 32); run those with ``--device cpu``.
 
 ``--mesh N`` trains data-parallel on N ranks (``repro_torch.dist``): under

@@ -17,8 +17,8 @@ per-token loss weights.  The port trains and serves decoder-only stacks of
 'G'/'L' attention, 'R' (RG-LRU) and 'M' (Mamba-2) layers, and trains encoder
 stacks of 'B' (bidirectional) blocks, the paper's BERT models, which have
 no decode shapes and so are never served; other families raise
-``UnsupportedPatternError``.  On the card, training refuses 'R' layers
-(``require_trainable``).
+``UnsupportedPatternError``.  On the card, training refuses shapes its
+kernels are not built for (``require_trainable``).
 
 Parameters are nested dicts with the reference's path names and shapes
 (``models.convert.params_from_jax`` maps a JAX tree onto them).  Caches are
@@ -49,8 +49,8 @@ class UnsupportedPatternError(NotImplementedError):
     """A serving or training path was asked for a model it cannot run.
 
     Typed (and raised unconditionally, not ``assert``-ed) so callers can
-    catch it.  The port serves decoder-only 'G'/'L'/'R'/'M' stacks, trains
-    'G'/'L'/'M' stacks and trains 'B' encoder stacks; serving a 'B' stack,
+    catch it.  The port serves and trains decoder-only 'G'/'L'/'R'/'M'
+    stacks and trains 'B' encoder stacks; serving a 'B' stack,
     MoE, enc-dec and VLM models raise it."""
 
 
@@ -104,23 +104,16 @@ def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> N
     ``logit_softcap`` (not ported), and on the card a shape the training
     kernels are not built for (``kernels.flash_attention.UnbuiltShapeError``):
     for 'G'/'L'/'B' layers attention's head dim, group, compute dtype and
-    sequence length; for 'M' layers the SSD kernels' (state, head dim) and
-    the chunk length the scan runs at ``seq_len`` (``ssm.chunk_len``), which
-    the K6 backward takes as a multiple of its row tile up to its limit.
-    'R' (RG-LRU) layers are refused on the card: their local attention
-    needs K3 at recurrentgemma's head dim 256 and group 10, which is not
-    built, and the scan's gradient is not yet held against the
-    reference's."""
+    sequence length (an 'L' layer's window is any); for 'M' layers the SSD
+    kernels' (state, head dim) and the chunk length the scan runs at
+    ``seq_len`` (``ssm.chunk_len``), which the K6 backward takes as a
+    multiple of its row tile up to its limit.  'R' (RG-LRU) layers run no
+    kernel of their own (their scan and gates are plain PyTorch), so they
+    need only their stack's attention and norms."""
     require_stack(cfg, "training")
     L.require_no_softcap(cfg)
     if torch.device(device).type != "cuda":
         return
-    if "R" in cfg.pattern:
-        raise _fa.UnbuiltShapeError(
-            f"training 'R' (RG-LRU) layers on the card is not ported yet ({cfg.name}): it "
-            f"needs K3 built for head dim {cfg.hd}, group {cfg.n_heads // cfg.n_kv_heads} "
-            f"and the RG-LRU scan's gradient held against the reference (ROADMAP.md); "
-            f"serving 'R' runs on the card")
     if set(cfg.pattern) & {"G", "L", "B"}:
         _fa.require_trained(cfg.hd, cfg.n_heads // cfg.n_kv_heads, cfg.compute_dtype, seq_len)
     if "M" in cfg.pattern:

@@ -844,6 +844,19 @@ class TestFlashAttentionPlain:
             np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                        atol=2e-2)
 
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_recurrentgemma_heads_windowed(self, pallas_load, dtype):
+        """The (head dim 256, group 10) build's case: recurrentgemma-2b's 10
+        heads on one KV head, causal under a window whose edge falls inside
+        the kernel's 128-key blocks."""
+        want, got, _ = _both_fwd(_qkv(1, 10, 1, 256, 256, 256, seed=10), dtype, causal=True,
+                                 window=100)
+        if dtype == "float32":
+            assert_close(got, want, "kernel_f32")
+        else:  # the JAX suite's own bf16 tolerance (test_kernels.py:33)
+            np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                       atol=2e-2)
+
     @pytest.mark.parametrize("window", [0, 64])
     def test_segment_ids(self, pallas_load, window):
         seg = np.zeros((2, 256), np.int32)
@@ -912,6 +925,22 @@ class TestFlashAttentionBackwardPlain:
         tq, tk, tv, tdo = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do))
         out, lse = ref.flash_attention_fwd_ref(tq, tk, tv, causal=True, window=window)
         got = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, causal=True, window=window)
+        for g, w in zip(got, want):
+            assert_close(g.transpose(1, 2), w, "kernel_f32")
+
+    def test_matches_grad_of_banded_sdpa_at_recurrentgemma_heads(self):
+        """At (head dim 256, group 10) and 64 tokens under a 16-token window,
+        the reference's 'L' layer takes ``layers.sdpa_local_banded`` (sq >
+        2 x window): the explicit backward against its ``jax.grad``, f32."""
+        rng = np.random.default_rng(10)
+        q = rng.normal(size=(1, 64, 10, 256)).astype(np.float32)
+        k, v = (rng.normal(size=(1, 64, 1, 256)).astype(np.float32) for _ in range(2))
+        do = rng.normal(size=q.shape).astype(np.float32)
+        want = _jax_grads(lambda a, b, c: jlayers.sdpa_local_banded(a, b, c, 16),
+                          *map(jnp.asarray, (q, k, v, do)))
+        tq, tk, tv, tdo = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do))
+        out, lse = ref.flash_attention_fwd_ref(tq, tk, tv, causal=True, window=16)
+        got = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, causal=True, window=16)
         for g, w in zip(got, want):
             assert_close(g.transpose(1, 2), w, "kernel_f32")
 
@@ -1093,6 +1122,30 @@ class TestTilePlan:
         assert plan[-1].tolist() == [0, 0, 2, 0, 0, 128]
         dkdv = flash_attention.tile_plan("dkdv", 2048, 2048, True, 0)
         assert dkdv[0].tolist() == [0, 0, 32, 1, 32, 2048]  # key tile 0: every query step
+
+    def test_windowed_training_shape(self):
+        """recurrentgemma-2b's training attention (S 8,192, causal, window
+        2,048), the key-step ranges the card's checks plant faults in: every
+        admissible pair covered and every mask-free tile admissible; a
+        forward or dQ CTA past the first 2,048 rows walks (2,048 + 128) / 64
+        = 34 key steps, 4 of them masked (the window's lower edge, the
+        diagonal), a dK/dV CTA at most 33 query steps, 2 masked; the window
+        leaves 1,904 of the causal schedule's 4,160 forward steps."""
+        s, w = 8192, 2048
+        for kind, most, masked in (("fwd", 34, 4), ("dkdv", 33, 2), ("dq", 34, 4)):
+            plan, mask, visited, free = self._covered(kind, s, s, True, w)
+            assert not (mask & ~visited).any() and not (free & ~mask).any()
+            walk = plan[:, 2] - plan[:, 1]
+            assert walk.max() == most
+            assert (walk - (plan[:, 4] - plan[:, 3])).max() == masked
+        fwd = flash_attention.tile_plan("fwd", s, s, True, w)
+        assert fwd[0].tolist() == [2048, 0, 34, 2, 32, 2176]  # first of the full walks
+        last = fwd[fwd[:, 0] == s - 128][0].tolist()
+        assert last == [s - 128, 94, 128, 96, 126, s]  # keys 6,016-8,191: lo edge 6,017
+        assert int((fwd[:, 2] - fwd[:, 1]).sum()) == 1904
+        causal = flash_attention.tile_plan("fwd", s, s, True, 0)
+        assert int((causal[:, 2] - causal[:, 1]).sum()) == 4160
+        assert (flash_attention.tile_plan("dq", s, s, True, w)[:, 1:5] == fwd[:, 1:5]).all()
 
     def test_device_plan_is_made_once(self):
         a = flash_attention._plan_tensor("dq", 256, 256, True, 0, torch.device("cpu"))

@@ -338,6 +338,33 @@ class TestKernelsOnCard:
             assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
         assert all(torch.equal(x, y) for x, y in zip(grads, again))
 
+    @pytest.mark.parametrize("b,s,window", [(2, 512, 128), (1, 1024, 203), (1, 2048, 1000)],
+                             ids=["s512_w128", "window_mid_tile", "s2048_w1000"])
+    def test_flash_attention_d256_g10(self, cuda, b, s, window):
+        """The (head dim 256, group 10) build at recurrentgemma-2b's head
+        layout (10 heads on 1 KV head), causal with a sliding window: the
+        window's edge within one 128-key tile (``s512_w128``), inside tiles
+        and 64-row steps (``window_mid_tile``), and 16 key steps wide;
+        forward and backward against the plain versions row by row, two
+        backward runs bit-identical (no atomics), and the window dropped
+        (``window=0``), planted, outside the limit."""
+        q, k, v, do = attn_inputs(cuda, b, s, s, seed=s + window, h=10, kvh=1, d=256)
+        kw = dict(causal=True, window=window)
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        again = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        bad, _ = flash_attention.flash_attention_fwd(q, k, v, causal=True, window=0)
+        torch.cuda.synchronize()
+        assert out.stride() == q.stride()
+        assert row_rel_err(out, want) <= K3_ROW_TOL < row_rel_err(bad, want)
+        np.testing.assert_allclose(np32(lse), np32(want_lse), atol=1e-3, rtol=0)
+        for name, got, w in zip(("dq", "dk", "dv"), grads, wants):
+            assert got.shape == w.shape, name
+            assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
+        assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
     def test_flash_attention_check_catches_a_planted_fault(self, cuda):
         """The row metric passes the kernel and fails what a kernel skipping
         its diagonal key tile for the later half of the rows would return
@@ -383,6 +410,13 @@ class TestKernelsOnCard:
         q, k, v, _ = attn_inputs(cuda, 1, sq, sq, seed=7, h=h, kvh=kvh, d=64)
         with pytest.raises(flash_attention.UnbuiltShapeError):
             flash_attention.flash_attention_fwd(q, k, v, causal=False)
+
+    @pytest.mark.parametrize("h,kvh,sq", [(8, 2, 128), (10, 1, 96)])
+    def test_flash_attention_refuses_unbuilt_head_dim_256_shapes(self, cuda, h, kvh, sq):
+        """Head dim 256 is built for group 10 at lengths the kernels take."""
+        q, k, v, _ = attn_inputs(cuda, 1, sq, sq, seed=7, h=h, kvh=kvh, d=256)
+        with pytest.raises(flash_attention.UnbuiltShapeError):
+            flash_attention.flash_attention_fwd(q, k, v, window=64)
 
     @pytest.mark.parametrize("rows", [8, 2048, 257])
     @pytest.mark.parametrize("model", [False, True])

@@ -19,8 +19,8 @@ Same numpy inputs (or JAX-initialised weights carried across by
   over {dense, paged} x {dense step, packed step} x budgets, with slot
   reuse, and after a cancel;
 * the recurrent-state lifecycle (admission zeroes, fork copies, sharing off,
-  trim refuses), the weight carry-over, the configs, and the refusal to
-  train 'R' layers on the card.
+  trim refuses), the weight carry-over, the configs, and which 'R' configs
+  ``require_trainable`` takes on the card.
 """
 import dataclasses
 
@@ -528,13 +528,24 @@ class TestRecurrentLifecycle:
         assert all(torch.equal(a, b) for a, b in zip(before, after))
 
 
-def test_training_r_is_refused_on_the_card(engine_pair):
-    """'R' stacks build, run their cache-free forward and serve; training
-    them on the card is refused before any work, with the typed error that
-    names what is missing."""
+def test_training_r_on_the_card_takes_built_shapes(engine_pair):
+    """'R' stacks train on the card where their attention is built:
+    recurrentgemma-2b (head dim 256, group 10, window 2,048) at 8,192 and
+    2,048 tokens passes ``require_trainable``; the smoke configs (f32, head
+    dim 64, group 2; hybrid_tiny head dim 32) and a planted (256, 4) are
+    refused before any work with the typed error naming the head dim and
+    group; the CPU takes everything."""
     _, tc, _, _ = engine_pair
-    with pytest.raises(UnbuiltShapeError, match="training 'R'"):
-        model.require_trainable(tc, 16, torch.device("cuda"))
-    with pytest.raises(UnbuiltShapeError, match="head dim 256, group 10"):
-        model.require_trainable(get_config("recurrentgemma_2b"), 2048, torch.device("cuda"))
-    model.require_trainable(tc, 16, torch.device("cpu"))
+    cuda = torch.device("cuda")
+    full = get_config("recurrentgemma_2b")
+    for seq in (8192, 2048):
+        model.require_trainable(full, seq, cuda)
+    with pytest.raises(UnbuiltShapeError, match=f"head dim {tc.hd} and group H/KV = 2"):
+        model.require_trainable(tc, 16, cuda)
+    four = dataclasses.replace(full, n_heads=4)
+    with pytest.raises(UnbuiltShapeError, match="head dim 256 and group H/KV = 4"):
+        model.require_trainable(four, 8192, cuda)
+    with pytest.raises(UnbuiltShapeError, match="sequence lengths"):
+        model.require_trainable(full, 8000, cuda)
+    for cfg in (tc, four, full):
+        model.require_trainable(cfg, 16, torch.device("cpu"))

@@ -20,8 +20,8 @@ Same numpy inputs (or JAX-initialised weights carried across by
   ``tests/test_serve_model_zoo.py:91-189``);
 * the recurrent-state lifecycle (admission zeroes, fork copies, sharing
   off, trim refuses) and the typed refusals (training 'R' patterns on the
-  card; training 'M' at SSD shapes the kernels are not built for, K5 under
-  grad).
+  card at attention shapes the kernels are not built for; training 'M' at
+  SSD shapes the kernels are not built for, K5 under grad).
 """
 import dataclasses
 
@@ -564,16 +564,22 @@ class TestRecurrentLifecycle:
 
 
 def test_r_patterns_still_refuse():
-    """'R' stacks build and serve (``tests/test_torch_rglru.py``); what they
-    still refuse is training on the card, before any work."""
-    for name in ("hybrid_tiny", "recurrentgemma_2b"):
+    """'R' stacks build, serve (``tests/test_torch_rglru.py``) and train
+    (``tests/test_torch_rglru_train.py``); what they still refuse is
+    training on the card at a shape the attention kernels are not built
+    for, before any work: hybrid_tiny's head dim 32, group 2, and
+    recurrentgemma-2b at 16 tokens (it trains at 8,192)."""
+    cuda = torch.device("cuda")
+    for name, match in (("hybrid_tiny", "head dim 32 and group H/KV = 2"),
+                        ("recurrentgemma_2b", "sequence lengths")):
         jc = jget_config(name)
         tc = ModelConfig(**dataclasses.asdict(jc))
         assert "R" in tc.pattern
         model.init_params(tc, device="meta")
         model.require_chunkable(tc)
-        with pytest.raises(UnbuiltShapeError, match="training 'R'"):
-            model.require_trainable(tc, 16, torch.device("cuda"))
+        with pytest.raises(UnbuiltShapeError, match=match):
+            model.require_trainable(tc, 16, cuda)
+    model.require_trainable(tc, 8192, cuda)
 
 
 def test_training_m_is_refused_before_any_work(tiny, capsys):

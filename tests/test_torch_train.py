@@ -136,9 +136,10 @@ def test_training_refuses_what_is_not_ported():
     moe = ModelConfig(**dict(LG, n_experts=4))
     with pytest.raises(UnsupportedPatternError):
         model.forward_features({}, moe, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
-    # 'R' layers build and run forward, but training them on the card is refused
+    # 'R' layers train where their stack's attention is built: this one's
+    # (head dim 16, group 2) is not
     rec = ModelConfig(**dict(LG, layer_pattern="RG"))
-    with pytest.raises(UnbuiltShapeError, match="training 'R'"):
+    with pytest.raises(UnbuiltShapeError, match="head dim 16 and group H/KV = 2"):
         model.require_trainable(rec, 8, torch.device("cuda"))
 
 
