@@ -48,7 +48,10 @@ device time beside one RG-LRU mixer's and its products'
 (``rg_mixer_shares``), ``rg_train`` one eager and one graphed step of its
 phase 13c (recurrentgemma-2b at 26 layers, 4 workers x 2 micro-batches of
 one 8,192-token sequence; K3's (256, 10) build filed under K3), then the
-18 RG-LRU mixers' share of a kept micro-batch (``rg_train_mixer_share``).  ``kernels`` also times K3's (128, 8) build at the
+18 RG-LRU mixers' share of a kept micro-batch (``rg_train_mixer_share``),
+``sampled_serve`` and ``spec_serve`` its phase 14c and 14d engines
+(``sampled_profiles``: the sampler's share of the busy time, read from
+the eager run's trace, the proposer's of the wall).  ``kernels`` also times K3's (128, 8) build at the
 qwen training shape (``k3_timing``) with a digest of its outputs, gives a
 digest of K4's (128, 8) outputs (``k4_digests``) and times K4's (256, 10)
 build.  A copy of this script placed at the
@@ -202,14 +205,14 @@ def train_profile(cfg, seed: int, eager: bool, mesh=None, seqs: int = 1, run: st
                           clip_norm=1.0, seed=seed, latency=latency,
                           drop=cs.DropConfig(enabled=True, tau=tau), mesh=mesh)
     kept = int(masks[1].sum())
-    params = init_params(cfg, seed=seed, device="cuda")
+    params = init_params(cfg, seed=seed, device=cs.DEV)
     group = procs.local_group(backend="nccl", device="cuda") if mesh else contextlib.nullcontext()
     with group, cs.mode(eager):
-        res = cs.train(cfg, data, tcfg, params=params, device="cuda")
+        res = cs.train(cfg, data, tcfg, params=params, device=cs.DEV)
         wall = res.metrics["step_s"][1]
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            cs.train(cfg, data, tcfg, params=params, device="cuda")
+            cs.train(cfg, data, tcfg, params=params, device=cs.DEV)
             torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.name == "train_step" and e.device_type == torch.autograd.DeviceType.CPU)
@@ -250,7 +253,7 @@ def localsgd_profile(cfg, seed: int, eager: bool) -> dict:
     _, keep = cs.localsgd_keep(seed)
 
     def run():
-        params = init_params(cfg, seed=seed, device="cuda")
+        params = init_params(cfg, seed=seed, device=cs.DEV)
         return cs.localsgd_run(cfg, params, keep, seed, cs.TRAIN_SEQ, cs.LSGD_LR, eager)[1]
 
     wall = run()[-1]
@@ -309,9 +312,114 @@ def serve_profiles(cfg, params, prompts, make) -> None:
             cs.free_device()
 
 
+@contextlib.contextmanager
+def sampler_ranges():
+    """The engine's sampler call (``scheduler.sample_rows``) inside a
+    ``record_function("sample_rows")`` range, so that a trace files the
+    sampler's kernels under it (an eager run's: a graph's replay runs no
+    Python)."""
+    from repro_torch.serve import scheduler
+
+    sound = scheduler.sample_rows
+
+    def ranged(*args):
+        with torch.profiler.record_function("sample_rows"):
+            return sound(*args)
+
+    scheduler.sample_rows = ranged
+    try:
+        yield
+    finally:
+        scheduler.sample_rows = sound
+
+
+def range_device_ms(prof, name: str) -> float:
+    """Device ms of the kernels launched inside the host ranges ``name``
+    (each range's kernels and its children's, as the profiler links them)."""
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+
+
+def sampled_profiles(cfg, params, prompts, seed: int, part: str) -> None:
+    """``chip_smoke.py``'s 14c (``sampled_serve``: six sampled requests and
+    two greedy, paged, unpacked and packed) or 14d (``spec_serve``: the
+    same requests, paged unpacked, with ``NGramProposer`` and with the
+    target drafting for itself, k = ``SPEC_K``), eager then graphed, each
+    on an engine warmed on other tokens: the wall unprofiled, then the
+    profiled run's record, with the sampler's share of the busy time and
+    the proposer's share of the wall (its host time, the draft model's
+    steps and their syncs included).  The sampler's device ms are read from
+    the eager run's trace (``sampler_ranges``); the graphed run replays the
+    same steps' programs, so its share is the eager run's sampler ms over
+    its own busy time."""
+    from repro_torch.serve import DraftModelProposer, NGramProposer, SpecConfig
+
+    if part == "sampled_serve":
+        runs = [("none", None, packed) for packed in (False, True)]
+    else:
+        runs = [("ngram", lambda: SpecConfig(NGramProposer(), k=cs.SPEC_K), False),
+                ("self-draft", lambda: SpecConfig(
+                    DraftModelProposer(params, cfg, cs.SLOTS, cs.MAX_LEN), k=cs.SPEC_K), False)]
+    sampler = {}
+    for name, spec, packed in runs:
+        for eager in (True, False):
+            def warm():
+                eng = cs.spec_engine(cfg, params, [[(t + 1) % cfg.vocab_size for t in p]
+                                                   for p in prompts], packed, True, seed,
+                                     spec() if spec else None)
+                with cs.mode(eager):
+                    eng.run()
+                eng.reset_stats()
+                for i, p in enumerate(prompts):
+                    eng.submit(cs.Request(uid=i, prompt=list(p), max_new_tokens=cs.NEW_TOKENS,
+                                          sampling=cs.sampled_params(i, seed)))
+                propose_s = [0.0]
+                propose = eng._propose
+
+                def timed_propose():
+                    t0 = time.perf_counter()
+                    out = propose()
+                    propose_s[0] += time.perf_counter() - t0
+                    return out
+
+                eng._propose = timed_propose
+                return eng, propose_s
+
+            eng, propose_s = warm()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with cs.mode(eager):
+                eng.run()
+            torch.cuda.synchronize()
+            wall, n_steps = time.perf_counter() - t0, eng.steps
+            proposer_share = propose_s[0] / wall
+            del eng
+            cs.free_device()
+            eng, _ = warm()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with cs.mode(eager), sampler_ranges(), torch.profiler.profile(activities=acts) as prof:
+                eng.run()
+                torch.cuda.synchronize()
+            rec = {"tag": TAG, "run": part, "proposer": name,
+                   "layout": "packed" if packed else "unpacked",
+                   "mode": "eager" if eager else "graphed", "steps": n_steps,
+                   **profile_record(prof, wall, eng.steps)}
+            del eng
+            cs.free_device()
+            if eager:
+                sampler[name, packed] = range_device_ms(prof, "sample_rows")
+            rec["sampler_ms"] = sampler[name, packed] or "not measured"
+            rec["sampler_ms_from"] = "this run's trace" if eager else "the eager run's trace"
+            rec["sampler_share_of_busy"] = (sampler[name, packed] / rec["device_busy_ms"]
+                                            if sampler[name, packed] else "not measured")
+            rec["proposer_share_of_wall"] = proposer_share if spec else 0.0
+            rec["k4_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K4"))
+            print(json.dumps(rec), flush=True)
+
+
 TAG = ""
 PARTS = ("kernels", "k6_precision", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train",
-         "bert_train", "rg_serve", "rg_train")
+         "bert_train", "rg_serve", "rg_train", "sampled_serve", "spec_serve")
 #: the parts that time kernels alone, run only when named
 KERNEL_PARTS = ("kernels", "k6_precision")
 
@@ -480,7 +588,7 @@ def rg_mixer_shares(cfg, params, seed: int) -> dict:
             lens_np = np.full(cs.SLOTS, c, np.int64)
             plans = chunk_plans(cfg, state, pos_np, lens_np, c)
             plans = {k: torch.as_tensor(v, device="cuda") for k, v in plans.items()}
-            toks = torch.ones((cs.SLOTS, c), dtype=torch.long, device="cuda")
+            toks = torch.ones((cs.SLOTS, c), dtype=torch.long, device=cs.DEV)
             pos, lens = (torch.as_tensor(v, device="cuda") for v in (pos_np, lens_np))
             x = torch.randn(cs.SLOTS, c, cfg.d_model, device="cuda").to(cfg.compute_dtype)
             args = ((params, cfg, state, toks, pos, lens), dict(plans=plans),
@@ -623,8 +731,8 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=PARTS,
                     default=[p for p in PARTS if p not in KERNEL_PARTS],
                     help="parts to run, always in the order kernels, k6_precision, qwen, mamba, "
-                         "train, localsgd, dp, mamba_train, bert_train, rg_serve, rg_train "
-                         "(default: all but the first two)")
+                         "train, localsgd, dp, mamba_train, bert_train, rg_serve, rg_train, "
+                         "sampled_serve, spec_serve (default: all but the first two)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -646,6 +754,14 @@ def main() -> int:
             prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
             params = compute_params(init_params(cfg, seed=args.seed, device="cuda"), cfg)
             serve_profiles(cfg, params, prompts, cs.engine)
+        elif part in ("sampled_serve", "spec_serve"):  # phase 14c / 14d's engines
+            rng = np.random.default_rng(args.seed)
+            lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
+            prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+            params = compute_params(init_params(cfg, seed=args.seed, device="cuda"), cfg)
+            sampled_profiles(cfg, params, prompts, args.seed, part)
+            del params
+            cs.free_device()
         elif part == "mamba":
             mcfg = get_config("mamba2_130m")
             _, mprompts = cs.mamba_requests(mcfg, args.seed)

@@ -143,12 +143,13 @@ input copy is skipped, must fail the stream check.
    rank: every rank's replica, losses, drop fractions and tau trajectory the
    same, each rank's kept and computed micro-batches those of its workers'
    masks, drop fractions and tau exact, the losses within
-   ``GRAPH_LEAF_GAP`` of the one-rank run's and every final leaf within the
-   larger of ``GRAPH_LEAF_GAP`` and ``DP_ORDER_FACTOR`` times the gap the
-   one-rank run itself shows with its sums in the reverse order; each rank's step wall,
-   All-Reduce seconds and peak memory printed; then a planted fault (rank 1
-   skips one kept micro-batch) that the same checks must reject, the log
-   naming each that did; then the same two-rank runs, sound and planted,
+   ``GRAPH_LEAF_GAP`` of the one-rank run's and every final leaf within
+   ``DP_ORDER_FACTOR`` times the gap the one-rank run itself shows with its
+   sums in the reverse order (``DP_ZERO_GAP_FLOOR`` of its norm where that
+   gap is 0); each rank's step wall, All-Reduce seconds and peak memory
+   printed; then a planted fault (rank 1 skips one kept micro-batch) that
+   both the launch counts and the values must reject, the log naming each
+   check that did; then the same two-rank runs, sound and planted,
    for mamba2-130m at ``M_DP_LAYERS`` (24, its full depth; two replicas
    fit);
 10. Mamba-2 training — mamba2-130m at 24 layers (random weights from
@@ -277,7 +278,7 @@ from repro_torch.kernels import _build, flash_attention, masked_accum, ops, ref,
 from repro_torch.kernels import ssd_chunk  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.layers import _paged_quantize  # noqa: E402
-from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models import layers, ssm  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     compute_params,
     init_decode_cache,
@@ -287,6 +288,9 @@ from repro_torch.models.model import (  # noqa: E402
 )
 from repro_torch.models.transformer import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, KVCacheSpec, Request, pack_step  # noqa: E402
+from repro_torch.serve import DraftModelProposer, NGramProposer, SamplingParams  # noqa: E402
+from repro_torch.serve import SpecConfig, sampling, scheduler  # noqa: E402
+from repro_torch.serve import spec as spec_lib  # noqa: E402
 from repro_torch.train import TrainConfig, checkpoint, train  # noqa: E402
 from repro_torch.train.resilience import ControllerConfig, make_scenario  # noqa: E402
 
@@ -469,17 +473,21 @@ DP_LAYERS, DP_RANKS, DP_POOL_GIB, DP_TIMEOUT_S = 4, 2, 6.0, 600
 # pool reckoned from phase 10's (6.28 GB at 8,192 tokens a micro-batch)
 M_LSGD_LAYERS, M_DP_LAYERS, M_DP_POOL_GIB = 24, 24, 3.0
 # 9b's final leaves against one rank's differ only by the order of the f32
-# sums (each rank sums its own blocks, then the two sums are added), which
-# GRAPH_LEAF_GAP covers for a leaf whose gradient is well conditioned.  A
-# leaf whose gradient is a cancelling sum is not: the attention K bias, whose
-# every token's term nearly cancels (softmax ignores a shift of all keys but
-# for RoPE's rotation of it), read 6.4e-3 of its norm on an H100 at 4
-# layers (PERF.md, the data-parallel findings).  So the same one-rank run is
-# made again with each step's kept micro-batches added in the reverse order
-# (``reversed_sums``: the same sums, another order, no second rank), and
-# each leaf is held to the larger of GRAPH_LEAF_GAP and DP_ORDER_FACTOR
-# times that run's gap for it.
+# sums (each rank sums its own blocks, then the two sums are added).  How far
+# that moves a leaf depends on its gradient: a cancelling sum (the attention
+# K bias, whose every token's term nearly cancels) read 6.4e-3 of its norm on
+# an H100 at 4 layers, a well-conditioned one far less (PERF.md, the
+# data-parallel findings).  So the same one-rank run is made again with each
+# step's kept micro-batches added in the reverse order (``reversed_sums``:
+# the same sums, another order, no second rank), and each leaf is held to
+# DP_ORDER_FACTOR times that run's gap for it, with no wider floor: a fixed
+# floor of 1e-3 sat ~300x above what a skipped micro-batch does to
+# mamba2-130m's leaves.  A leaf whose order gap reads 0 (its sums came out
+# the same both ways) is held to DP_ZERO_GAP_FLOOR of its norm instead: four
+# f32 spacings (2^-23 relative each), room for one more order of the same
+# sums to round differently.
 DP_ORDER_FACTOR = 4
+DP_ZERO_GAP_FLOOR = 4 * 2.0 ** -23
 
 # phase 12, recurrentgemma-2b serving: its local attention's widths (10 heads
 # of 256 on 1 KV head, the (256, 10) build of K4) and window; 8 requests of
@@ -510,6 +518,35 @@ RG_K2_ROWS = (SLOTS, BUDGET + 1, SLOTS * CHUNK)
 # 3-layer (RRL) card-vs-CPU gradient check on 2 x 256 tokens
 RG_TRAIN_SEQ = 8192
 RG_K3_SHAPES = {"train": (1, RG_TRAIN_SEQ, RG_WINDOW), "short": (2, 512, 128)}
+
+# phase 14: decode_step, sampling, speculation.  Each 14a layout's first
+# DECODE_EAGER_STEPS steps also run eagerly (their logits must equal the
+# graphed steps' bit for bit; the planted faults run over them too); the
+# paged and ring layouts are held to the linear (dense) one by phase 4's
+# LOGITS_REL_TOL at every step, mamba's decode_step to the engine's C = 1
+# step by phase 5's MAMBA_LOGITS_ROW_TOL.  14b's sampler steps have
+# SAMPLER_ROWS rows at qwen's and recurrentgemma's vocabularies; the Gumbel
+# draws, card against CPU, within GUMBEL_TOL (absolute, relative): each
+# ``log`` may differ by an ulp between libraries (CUDA's logf and the CPU's;
+# the same as XLA against torch on the CPU: tests/test_torch_sampling.py),
+# an ulp of the inner log near 1 (~2^-24) divided by -log(u) ~ 1 carried
+# into the outer one, 2^-21 read at most.  14d verifies SPEC_K drafts a slot.
+DECODE_EAGER_STEPS = 64
+# mamba's cache leaves after one decode_step from the engine's own state,
+# bf16 compute, each relative to its norm: MAMBA_DECODE_LEAF_TOL, 4x the
+# sound reading (1.26e-2), 26x under the
+# planted fault's (decay skipped: 1.28).  Run free in f32 compute (f32
+# weights, each path on its own state for all 525 steps), the logits of
+# every step (``row_gap``) and every leaf at the end: MAMBA_F32_DECODE_TOL,
+# ~10x the sound reading (logits 9.5e-5, leaves 2.4e-5: f32 sums in other
+# orders, K6's 3xTF32 products, through 24 layers of random weights),
+# ~1,400x under the planted fault's (1.45; leaves 12.6).  Readings on an
+# H100 80GB HBM3 at 700 W (PERF.md, 14a).
+MAMBA_DECODE_LEAF_TOL = 0.05
+MAMBA_F32_DECODE_TOL = 1e-3
+SAMPLER_ROWS, SAMPLER_VOCABS = 8, (151_936, 256_000)
+GUMBEL_TOL = (2.0 ** -20, 2.0 ** -21)
+SPEC_K = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -1999,7 +2036,8 @@ def qwen_serving(cfg, params, prompts):
     """qwen2.5-3b's serving runs: eager (``disable_graphs``) unpacked and
     packed, the planted stale-input fault, then the graphed runs (the main
     path, the counters' window); the streams of each layout must be
-    identical, the fault's must not."""
+    identical, the fault's must not.  Returns the launches and, by
+    ``packed``, the graphed streams (phase 14's teachers)."""
     eager = {p: serve(cfg, params, prompts, p, eager=True) for p in (False, True)}
     at = first_token_replay(eager[False][2])
     with stale_inputs(at) as replays:
@@ -2016,7 +2054,7 @@ def qwen_serving(cfg, params, prompts):
         same_streams(f"qwen {'packed' if p else 'unpacked'}", graphed[p][0], eager[p][0])
     same = agreement(graphed[False][0], graphed[True][0])
     log(f"packed vs unpacked greedy agreement: {same}/{SLOTS * NEW_TOKENS}")
-    return counts
+    return counts, {p: graphed[p][0] for p in graphed}
 
 
 # ---------------------------------------------------------------------------
@@ -2213,7 +2251,7 @@ def mamba_phase(seed: int):
     free_device()
     log(f"mamba packed vs unpacked greedy agreement in f32 compute: "
         f"{f32_agreement(cfg, seed, prompts)}/{total}")
-    return counts, recs
+    return counts, recs, outs
 
 
 # ---------------------------------------------------------------------------
@@ -2918,14 +2956,15 @@ def dp_faults(got, one, masks, per_mb: dict, names, order_gaps: dict) -> dict:
     its masks) and the micro-batches it computed (its launches) exact;
     ``"values"``, against the one-rank run, the drop fractions and tau
     trajectory exact, the losses within ``GRAPH_LEAF_GAP`` and every final
-    leaf within the larger of ``GRAPH_LEAF_GAP`` and ``DP_ORDER_FACTOR``
-    times ``order_gaps`` (the one-rank run's own gap under another order of
-    its sums).  Prints the gaps first."""
+    leaf within ``DP_ORDER_FACTOR`` times ``order_gaps`` (the one-rank run's
+    own gap under another order of its sums; ``DP_ZERO_GAP_FLOOR`` where
+    that gap is 0).  Prints the gaps first."""
     faults = {"ranks": [], "values": []}
     r0, per = got[0], TRAIN_WORKERS // DP_RANKS
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
     gaps = leaf_gaps(names, r0["leaves"], one["leaves"])
-    limits = {k: max(GRAPH_LEAF_GAP, DP_ORDER_FACTOR * order_gaps[k]) for k in gaps}
+    limits = {k: DP_ORDER_FACTOR * order_gaps[k] if order_gaps[k] > 0 else DP_ZERO_GAP_FLOOR
+              for k in gaps}
     log(f"dp 9b vs one rank: losses {r0['losses']} / {one['losses']} (largest gap {loss_gap:.3e} "
         f"of the loss); final leaves, gap of its norm (the one-rank run's under reversed sums): "
         + ", ".join(f"{k} {v:.2e} ({order_gaps[k]:.2e})" for k, v in gaps.items()))
@@ -3021,9 +3060,12 @@ def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS,
             check(not failed, "; ".join(failed))
             log(f"dp 9b: two gloo ranks match one rank (drop fractions, tau trajectory and kept "
                 f"counts exact; losses within {GRAPH_LEAF_GAP}, {len(names)} leaves within "
-                f"their limits)")
+                f"{DP_ORDER_FACTOR}x their order gaps, {DP_ZERO_GAP_FLOOR:.1e} where that is 0)")
         else:
-            check(bool(failed), f"dp 9b {cfg.name}: the planted skipped micro-batch passed the checks")
+            check(bool(faults["ranks"]) and bool(faults["values"]),
+                  f"dp 9b {cfg.name}: the planted skipped micro-batch passed the checks by "
+                  f"launch counts ({faults['ranks'] or 'none failed'}) or by values "
+                  f"({faults['values'] or 'none failed'})")
             log(f"dp 9b {cfg.name} planted fault rejected; by the ranks' own checks: "
                 f"{'; '.join(faults['ranks']) or 'none'}; by the values against one rank: "
                 f"{'; '.join(faults['values']) or 'none'}")
@@ -3454,7 +3496,7 @@ def rg_phase(seed: int):
     check(counts["paged_attention"] > 0 and counts["rmsnorm"] > 0,
           f"recurrentgemma: kernels not run: {counts}")
     del params
-    return counts, recs
+    return counts, recs, outs
 
 
 # ---------------------------------------------------------------------------
@@ -3671,6 +3713,839 @@ def rg_train_phase(seed: int, rng):
     return errs, timing, k2b, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: decode_step, stochastic sampling and speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def decode_caches(cfg, params, seqs, layouts, max_len):
+    """A decode cache per layout for the teacher-forced sequences ``seqs``
+    (one a slot): ``"paged"`` (a ``KVCache`` state, every slot admitted and
+    its pages allocated up front), ``"linear"`` (dense slots, full-length
+    sliding-window buffers) and ``"ring"`` (dense slots, ``linear=False``: a
+    sliding-window layer keeps ``min(window, max_len)`` rows and wraps)."""
+    out = {}
+    for name in layouts:
+        if name == "paged":
+            kv = KVCacheSpec(num_slots=len(seqs), max_len=max_len, layout="paged",
+                             page_size=PAGE).build(params, cfg)
+            for i, s in enumerate(seqs):
+                check(kv.admit_slot(i, s[:-1], 1) == 0, "unexpected prefix sharing")
+                kv.prepare_write(i, 0, len(s))
+            out[name] = kv.state
+        else:
+            out[name] = init_decode_cache(params, cfg, len(seqs), max_len,
+                                          linear=name == "linear")
+    return out
+
+
+def copy_cache(cfg, params, cache, n_slots: int, max_len: int, layout: str):
+    """A fresh dense cache of ``layout`` (its pools with their spare rows)
+    holding ``cache``'s values: the branch a planted fault runs on."""
+    fresh = init_decode_cache(params, cfg, n_slots, max_len, linear=layout == "linear")
+    for dst, src in zip(tree_leaves(fresh), tree_leaves(cache)):
+        dst.copy_(src)
+    return fresh
+
+
+def teacher_step(seqs, t: int):
+    """Step ``t`` of a teacher-forced run: slot i feeds ``seqs[i][p]`` at
+    p = min(t, len - 1) (a finished slot feeds its last token again, alike
+    in every layout)."""
+    lens = np.asarray([len(s) for s in seqs])
+    pos = np.minimum(t, lens - 1).astype(np.int64)
+    tok = np.asarray([[s[p]] for s, p in zip(seqs, pos)], np.int64)
+    return tok, pos
+
+
+def logits_gap(got, want) -> torch.Tensor:
+    """max |got - want| / max |want| as a device scalar (no sync): phase 4's
+    paged-against-dense metric."""
+    g, w = got.float(), want.float()
+    return (g - w).abs().amax() / w.abs().amax()
+
+
+def row_gap(got, want) -> torch.Tensor:
+    """``row_rel_err`` over the vocabulary as a device scalar (no sync)."""
+    g, w = got.float(), want.float()
+    den = torch.linalg.vector_norm(w, dim=-1)
+    return (torch.linalg.vector_norm(g - w, dim=-1)
+            / den.clamp(min=2.0 ** -12 * den.amax() + 1e-30)).amax()
+
+
+def decode_run(cfg, params, seqs, layouts, ref: str, max_len: int, what: str,
+               snapshot_at=None):
+    """14a for one family: the teacher-forced ``seqs`` through
+    ``make_serve_step`` on every layout in lockstep, graphed (the counters'
+    window), each step's logits against ``ref``'s (``logits_gap``); first,
+    every layout's first DECODE_EAGER_STEPS steps eagerly, on caches of
+    their own, held to the graphed steps' logits bit for bit.
+    ``snapshot_at``: the dense caches copied just before that step (a
+    planted fault's branch).  Returns (gaps by layout, launches, greedy
+    agreement with the teacher's generated tokens, the snapshot, ``ref``'s
+    eager logits)."""
+    eager = {}
+    caches = decode_caches(cfg, params, seqs, layouts, max_len)
+    with graphs.disable_graphs():
+        for name in layouts:
+            step = dp_steps.make_serve_step(cfg)
+            eager[name] = []
+            for t in range(DECODE_EAGER_STEPS):
+                step(params, caches[name], *teacher_step(seqs, t))
+                eager[name].append(step.logits.clone())
+    del caches
+    free_device()
+    caches = decode_caches(cfg, params, seqs, layouts, max_len)
+    steps = {name: dp_steps.make_serve_step(cfg) for name in layouts}
+    gaps = {name: [] for name in layouts if name != ref}
+    differ = {name: torch.zeros((), dtype=torch.long, device=DEV) for name in layouts}
+    agree = torch.zeros((), dtype=torch.long, device=DEV)
+    snap = None
+    ops.reset_launch_counts()  # the main path starts here
+    for t in range(max(map(len, seqs))):
+        if t == snapshot_at:
+            snap = {name: copy_cache(cfg, params, caches[name], len(seqs), max_len, name)
+                    for name in layouts if name != "paged"}
+        tok, pos = teacher_step(seqs, t)
+        for name in layouts:
+            steps[name](params, caches[name], tok, pos)
+            if t < DECODE_EAGER_STEPS:
+                differ[name] += (steps[name].logits != eager[name][t]).any().long()
+        for name in gaps:
+            gaps[name].append(logits_gap(steps[name].logits, steps[ref].logits))
+        nxt = steps[ref].logits[:, -1].float().argmax(-1).cpu() if any(
+            len(s) - NEW_TOKENS - 1 <= t < len(s) - 1 for s in seqs) else None
+        if nxt is not None:
+            agree += sum(int(nxt[i] == s[t + 1]) for i, s in enumerate(seqs)
+                         if len(s) - NEW_TOKENS - 1 <= t < len(s) - 1)
+    counts = ops.launch_counts()  # ... and ends here
+    for name in layouts:
+        check(int(differ[name]) == 0,
+              f"14a {what} {name}: {int(differ[name])} of the first {DECODE_EAGER_STEPS} "
+              f"graphed steps' logits differ from the eager steps'")
+    return ({k: torch.stack(v).cpu() for k, v in gaps.items()}, counts, int(agree), snap,
+            eager[ref])
+
+
+def timed_calls(fn, calls: int = 20) -> float:
+    """Device ms of one call of ``fn``, by events around ``calls`` calls
+    after one off the clock (host copies and launch gaps included)."""
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(calls):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / calls
+
+
+def decode_ms(cfg, params, seqs, layouts, max_len) -> dict:
+    """ms a step at the teacher's last step: ``make_serve_step`` graphed and
+    eager on each layout, and the engine's decode step (``prefill_chunk``
+    with (B, 1) tokens as one graph, ``ContinuousBatcher``'s decode-only
+    program) on the first layout."""
+    caches = decode_caches(cfg, params, seqs, layouts, max_len)
+    tok, pos = teacher_step(seqs, max(map(len, seqs)) - 1)
+    out = {}
+    for name in layouts:
+        for eager in (False, True):
+            step = dp_steps.make_serve_step(cfg)
+            with mode(eager):
+                out[f"{name} {'eager' if eager else 'graphed'}"] = timed_calls(
+                    lambda: step(params, caches[name], tok, pos))
+    cache = caches[layouts[0]]
+    lens = np.ones(len(seqs), np.int64)
+    plans = model_lib.chunk_plans(cfg, cache, pos, lens, 1) or {}
+    kinds = sorted(plans)
+
+    def program(tokens, p, n, *pl):
+        return prefill_chunk(params, cfg, cache, tokens, p, n,
+                             plans=dict(zip(kinds, pl)) if pl else None)[0]
+
+    engine_step = graphs.StepGraph(program, DEV)
+    args = (tok, pos, lens, *[plans[k] for k in kinds])
+    out[f"engine decode step ({layouts[0]})"] = timed_calls(lambda: engine_step("c1", *args))
+    del caches, engine_step
+    free_device()
+    return out
+
+
+@contextlib.contextmanager
+def kv_written_late():
+    """A planted fault: every decode step writes its K/V one row late (at
+    position + 1), its queries, masks and tile plans unchanged."""
+    sound = layers.step_index
+
+    def faulty(cfg, kind, positions, cache, decode_pos=None, *args, **kw):
+        index = sound(cfg, kind, positions, cache, decode_pos, *args, **kw)
+        late = sound(cfg, kind, positions + 1, cache, decode_pos + 1, *args, **kw)
+        return dataclasses.replace(index, write_at=late.write_at)
+
+    layers.step_index = faulty
+    try:
+        yield
+    finally:
+        layers.step_index = sound
+
+
+@contextlib.contextmanager
+def ring_not_shifted():
+    """A planted fault: the ring buffer's wrapped rows (those past the
+    current slot) keep positions ``pos - slot + k``, not shifted back by
+    ``buf_len``: they read as future keys and are masked out."""
+    sound = layers._decode_index
+
+    def faulty(cache, window, decode_pos, rope):
+        index = sound(cache, window, decode_pos, rope)
+        if window <= 0:
+            return index
+        buf_len = cache["k"].shape[1]
+        kpos = torch.arange(buf_len, device=decode_pos.device)
+        pos_b = decode_pos.reshape(-1)
+        abs_pos = pos_b[:, None] - pos_b[:, None] % buf_len + kpos[None, :]  # no shift back
+        valid = ((abs_pos >= torch.clamp(pos_b[:, None] - window + 1, min=0))
+                 & (abs_pos <= pos_b[:, None]))
+        return dataclasses.replace(index, mask=valid[:, None, None, :])
+
+    layers._decode_index = faulty
+    try:
+        yield
+    finally:
+        layers._decode_index = sound
+
+
+@contextlib.contextmanager
+def decay_skipped():
+    """A planted fault: the single-token 'M' step leaves the state's decay
+    out (state + B dt x for state exp(-dt a) + B dt x)."""
+    sound = ssm._apply_decode
+
+    def faulty(xbc, dt, a, w, bconv, cfg, cache):
+        return sound(xbc, dt, torch.zeros_like(a), w, bconv, cfg, cache)
+
+    ssm._apply_decode = faulty
+    try:
+        yield
+    finally:
+        ssm._apply_decode = sound
+
+
+def qwen_decode(cfg, params, prompts, streams):
+    """14a, qwen2.5-3b at 36 layers: phase 4's requests teacher-forced on its
+    graphed unpacked streams through ``make_serve_step``, paged (K4) against
+    dense (plain attention) within LOGITS_REL_TOL at every step; the planted
+    fault (K/V written one row late, paged, eager) outside it."""
+    seqs = [list(p) + list(streams[i]) for i, p in enumerate(prompts)]
+    gaps, counts, agree, _, dense_eager = decode_run(cfg, params, seqs, ("dense", "paged"),
+                                                     "dense", MAX_LEN, "qwen")
+    steps = gaps["paged"].shape[0]
+    worst = float(gaps["paged"].max())
+    check(math.isfinite(worst) and worst <= LOGITS_REL_TOL,
+          f"14a qwen: paged vs dense decode logits gap {worst:.4f} over {LOGITS_REL_TOL}")
+    want = {k: 0 for k in counts}
+    want.update(paged_attention=cfg.n_layers * steps, rmsnorm=2 * (2 * cfg.n_layers + 1) * steps)
+    check(counts == want, f"14a qwen: launches {counts}, the code implies {want}")
+    bad_cache = decode_caches(cfg, params, seqs, ("paged",), MAX_LEN)["paged"]
+    bad = 0.0
+    with graphs.disable_graphs(), kv_written_late():
+        for t in range(DECODE_EAGER_STEPS):
+            got = model_lib.decode_step(params, cfg, bad_cache, *teacher_step(seqs, t))[0]
+            bad = max(bad, float(logits_gap(got, dense_eager[t])))
+    del bad_cache, dense_eager
+    check(bad > LOGITS_REL_TOL, f"14a qwen: the planted fault (K/V one row late) reads "
+                                f"{bad:.4f}, within {LOGITS_REL_TOL}")
+    ms = decode_ms(cfg, params, seqs, ("paged", "dense"), MAX_LEN)
+    log(f"14a qwen2.5-3b decode_step through make_serve_step, {steps} teacher-forced steps x "
+        f"{len(seqs)} slots: paged (K4) vs dense logits gap max {worst:.4f} (limit "
+        f"{LOGITS_REL_TOL}); planted fault (K/V one row late, {DECODE_EAGER_STEPS} eager "
+        f"steps) {bad:.4f}, rejected; first {DECODE_EAGER_STEPS} steps eager = graphed bit for "
+        f"bit; launches {counts} ({counts['paged_attention'] / steps:.0f} K4 and "
+        f"{counts['rmsnorm'] / steps / 2:.0f} K2 a step a layout); greedy agreement with phase "
+        f"4's streams {agree}/{len(seqs) * NEW_TOKENS}; ms a step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return counts, ms
+
+
+def rg_decode(cfg, params, prompts, streams):
+    """14a, recurrentgemma-2b at 26 layers: phase 12c's long request and two
+    of its eight, teacher-forced on 12c's graphed unpacked streams, on the
+    ring layout (the 'L' buffers of RG_WINDOW rows wrap at RG_WINDOW) and
+    the paged one (K4 (256, 10)), each against the linear layout within
+    LOGITS_REL_TOL at every step, past the wrap too; the planted fault (the
+    wrapped rows' positions not shifted back) branches from a snapshot
+    just after the wrap and must fall outside the limit."""
+    seqs = [list(prompts[i]) + list(streams[i]) for i in range(3)]
+    at = RG_WINDOW + 16
+    gaps, counts, agree, snap, _ = decode_run(cfg, params, seqs, ("linear", "ring", "paged"),
+                                              "linear", RG_MAX_LEN, "recurrentgemma",
+                                              snapshot_at=at)
+    steps = gaps["ring"].shape[0]
+    worst = {k: float(v.max()) for k, v in gaps.items()}
+    after = {k: float(v[RG_WINDOW:].max()) for k, v in gaps.items()}
+    check(all(math.isfinite(v) and v <= LOGITS_REL_TOL for v in worst.values()),
+          f"14a recurrentgemma: decode logits gaps {worst} over {LOGITS_REL_TOL}")
+    want = {k: 0 for k in counts}
+    want.update(paged_attention=cfg.pattern.count("L") * steps,
+                rmsnorm=3 * (2 * cfg.n_layers + 1) * steps)
+    check(counts == want, f"14a recurrentgemma: launches {counts}, the code implies {want}")
+    bad = 0.0
+    with graphs.disable_graphs():
+        for j in range(8):
+            tok, pos = teacher_step(seqs, at + j)
+            want_l = model_lib.decode_step(params, cfg, snap["linear"], tok, pos)[0]
+            with ring_not_shifted():
+                got = model_lib.decode_step(params, cfg, snap["ring"], tok, pos)[0]
+            bad = max(bad, float(logits_gap(got, want_l)))
+    del snap
+    free_device()
+    check(bad > LOGITS_REL_TOL, f"14a recurrentgemma: the planted fault (ring not shifted) "
+                                f"reads {bad:.4f}, within {LOGITS_REL_TOL}")
+    ms = decode_ms(cfg, params, seqs, ("paged", "ring"), RG_MAX_LEN)
+    log(f"14a recurrentgemma-2b decode_step through make_serve_step, {steps} teacher-forced "
+        f"steps x 3 slots (lens {[len(s) for s in seqs]}): logits gap against the linear "
+        f"layout max " + ", ".join(f"{k} {v:.4f} ({after[k]:.4f} past the wrap at {RG_WINDOW})"
+                                   for k, v in worst.items())
+        + f" (limit {LOGITS_REL_TOL}); planted fault (ring not shifted, 8 steps from {at}) "
+        f"{bad:.4f}, rejected; launches {counts} ({counts['paged_attention'] / steps:.0f} K4 "
+        f"a step on the paged layout); greedy agreement with 12c's streams {agree}/"
+        f"{3 * NEW_TOKENS}; ms a step: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return counts, ms
+
+
+def leaves_gap(got, want) -> torch.Tensor:
+    """The largest ||got - want|| / ||want|| over two cache trees' leaves
+    (a device scalar, no sync)."""
+    return torch.stack([torch.linalg.vector_norm(g.float() - w.float())
+                        / torch.linalg.vector_norm(w.float()).clamp(min=1e-30)
+                        for g, w in zip(tree_leaves(got), tree_leaves(want))]).amax()
+
+
+def mamba_free_f32(cfg, seed: int, seqs):
+    """14a's free-running check: mamba2-130m with f32 compute copies (its
+    f32 master weights from ``seed``), ``decode_step`` through
+    ``make_serve_step`` and the engine's step, ``prefill_chunk`` with C = 1
+    (K6), each on its own cache for all of ``seqs``'s teacher-forced steps.
+    Returns the largest logits ``row_gap`` over the steps, the
+    ``leaves_gap`` at the end, and the planted fault's (the state's decay
+    skipped over the first DECODE_EAGER_STEPS steps, eager, on a cache of
+    its own) largest logits gap and its leaves gap after those steps; then
+    the sound logits gap at the first step and the largest over the last
+    DECODE_EAGER_STEPS steps (a gap that builds up shows as a tail above
+    the start)."""
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = compute_params(init_params(c32, seed=seed, device=DEV), c32)
+    n, t_total = len(seqs), max(map(len, seqs))
+    lens = np.ones(n, np.int64)
+    dec, ref, bad = (init_decode_cache(params, c32, n, MAX_LEN, linear=True) for _ in range(3))
+    step = dp_steps.make_serve_step(c32)
+    chunk = graphs.StepGraph(
+        lambda tok, pos, ln: prefill_chunk(params, c32, ref, tok, pos, ln)[0], DEV)
+    errs, bad_rows = [], []
+    for t in range(t_total):
+        tok, pos = teacher_step(seqs, t)
+        step(params, dec, tok, pos)
+        want = chunk("c1", tok, pos, lens)[:, 0]
+        errs.append(row_gap(step.logits[:, 0], want))
+        if t < DECODE_EAGER_STEPS:
+            with graphs.disable_graphs(), decay_skipped():
+                out = model_lib.decode_step(params, c32, bad, tok, pos)[0][:, 0]
+            bad_rows.append(row_gap(out, want))
+            if t == DECODE_EAGER_STEPS - 1:
+                bad_leaf = leaves_gap(bad, ref)
+    got = (float(torch.stack(errs).max()), float(leaves_gap(dec, ref)),
+           float(torch.stack(bad_rows).max()), float(bad_leaf), float(errs[0]),
+           float(torch.stack(errs[-DECODE_EAGER_STEPS:]).max()))
+    del params, dec, ref, bad, step, chunk
+    free_device()
+    return got
+
+
+def mamba_decode(cfg, params, prompts, streams, seed: int):
+    """14a, mamba2-130m at 24 layers: ``decode_step`` (the reference's
+    single-token recurrence, no SSD kernel) teacher-forced on phase 5's
+    graphed dense unpacked streams through ``make_serve_step`` (the
+    counters' window), then held against the engine's step,
+    ``prefill_chunk`` with C = 1 (K6), two ways.  In bf16 compute, step by
+    step from the engine's own carried state (before each step the engine's
+    cache is copied into the decode cache): the step's logits (``row_gap``)
+    within MAMBA_LOGITS_ROW_TOL, every cache leaf after it (``leaves_gap``)
+    within MAMBA_DECODE_LEAF_TOL.  In f32 compute, each path on its own
+    state for the whole run (``mamba_free_f32``): logits and final leaves
+    within MAMBA_F32_DECODE_TOL, so that an error which builds up in the
+    state shows.  The planted fault (the state's decay skipped) must fall
+    outside every limit.  Run free in bf16, the two paths drift apart
+    through 24 layers of random weights (printed, not held)."""
+    seqs = [list(p) + list(streams[i]) for i, p in enumerate(prompts)]
+    n, t_total = len(seqs), max(map(len, seqs))
+    lens = np.ones(n, np.int64)
+    free_cache = init_decode_cache(params, cfg, n, MAX_LEN, linear=True)
+    step = dp_steps.make_serve_step(cfg)
+    free = []
+    ops.reset_launch_counts()  # the main path starts here
+    for t in range(t_total):
+        step(params, free_cache, *teacher_step(seqs, t))
+        free.append(step.logits[:, 0].clone())
+    counts = ops.launch_counts()  # ... and ends here
+    want = {k: 0 for k in counts}
+    want["rmsnorm"] = (cfg.n_layers + 1) * t_total
+    check(counts == want, f"14a mamba: launches {counts}, the code implies {want}")
+    check(all(bool(torch.isfinite(x).all()) for x in free[::64]), "14a mamba: non-finite logits")
+    ref, shared, bad = (init_decode_cache(params, cfg, n, MAX_LEN, linear=True) for _ in range(3))
+    chunk = graphs.StepGraph(
+        lambda tok, pos, ln: prefill_chunk(params, cfg, ref, tok, pos, ln)[0], DEV)
+    errs, leaf_errs, drift, bad_rows, bad_leaves = [], [], [], [], []
+    for t in range(t_total):
+        tok, pos = teacher_step(seqs, t)
+        for dst, src in zip(tree_leaves(shared) + (tree_leaves(bad) if t < DECODE_EAGER_STEPS
+                                                    else []),
+                            tree_leaves(ref) * (2 if t < DECODE_EAGER_STEPS else 1)):
+            dst.copy_(src)
+        step(params, shared, tok, pos)
+        if t < DECODE_EAGER_STEPS:
+            with graphs.disable_graphs(), decay_skipped():
+                out = model_lib.decode_step(params, cfg, bad, tok, pos)[0][:, 0]
+        want_t = chunk("c1", tok, pos, lens)[:, 0]
+        errs.append(row_gap(step.logits[:, 0], want_t))
+        leaf_errs.append(leaves_gap(shared, ref))
+        drift.append(row_gap(free[t], want_t))
+        if t < DECODE_EAGER_STEPS:
+            bad_rows.append(row_gap(out, want_t))
+            bad_leaves.append(leaves_gap(bad, ref))
+    worst, worst_leaf = float(torch.stack(errs).max()), float(torch.stack(leaf_errs).max())
+    bad_row, bad_leaf = float(torch.stack(bad_rows).max()), float(torch.stack(bad_leaves).max())
+    drift = float(torch.stack(drift).max())
+    del free, ref, shared, bad, chunk, free_cache
+    free_device()
+    f32_row, f32_leaf, f32_bad_row, f32_bad_leaf, f32_first, f32_tail = mamba_free_f32(
+        cfg, seed, seqs)
+    check(worst <= MAMBA_LOGITS_ROW_TOL and worst_leaf <= MAMBA_DECODE_LEAF_TOL,
+          f"14a mamba: decode_step vs the C = 1 step from the same state, logits row rel err "
+          f"{worst:.3e} (limit {MAMBA_LOGITS_ROW_TOL}), cache leaves {worst_leaf:.3e} (limit "
+          f"{MAMBA_DECODE_LEAF_TOL})")
+    check(bad_row > MAMBA_LOGITS_ROW_TOL and bad_leaf > MAMBA_DECODE_LEAF_TOL,
+          f"14a mamba: the planted fault (decay skipped) reads logits {bad_row:.3e}, leaves "
+          f"{bad_leaf:.3e}, within a limit")
+    check(f32_row <= MAMBA_F32_DECODE_TOL and f32_leaf <= MAMBA_F32_DECODE_TOL,
+          f"14a mamba: decode_step vs the C = 1 step run free in f32, logits row rel err "
+          f"{f32_row:.3e}, final cache leaves {f32_leaf:.3e}, over {MAMBA_F32_DECODE_TOL}")
+    check(min(f32_bad_row, f32_bad_leaf) > MAMBA_F32_DECODE_TOL,
+          f"14a mamba: the planted fault (decay skipped) run free in f32 reads logits "
+          f"{f32_bad_row:.3e}, leaves {f32_bad_leaf:.3e}, within {MAMBA_F32_DECODE_TOL}")
+    ms = decode_ms(cfg, params, seqs, ("linear",), MAX_LEN)
+    log(f"14a mamba2-130m decode_step through make_serve_step, {t_total} teacher-forced steps x "
+        f"{n} slots, graphed; against the engine's C = 1 step (K6) from the same state each "
+        f"step (bf16): logits row rel err max {worst:.3e} (limit {MAMBA_LOGITS_ROW_TOL}), cache "
+        f"leaves max {worst_leaf:.3e} (limit {MAMBA_DECODE_LEAF_TOL}); planted fault (decay "
+        f"skipped, {DECODE_EAGER_STEPS} eager steps) logits {bad_row:.3e}, leaves "
+        f"{bad_leaf:.3e}, rejected; each path run free on its own state in f32 compute: logits "
+        f"row rel err max {f32_row:.3e} (first step {f32_first:.3e}, last "
+        f"{DECODE_EAGER_STEPS} steps {f32_tail:.3e}), final cache leaves {f32_leaf:.3e} (limit "
+        f"{MAMBA_F32_DECODE_TOL}), planted fault logits {f32_bad_row:.3e}, leaves "
+        f"{f32_bad_leaf:.3e}, rejected; run free in bf16 the logits drift to {drift:.3e} "
+        f"(not held); launches {counts}; ms a step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return counts, ms
+
+
+# --- 14b: the sampler alone ---
+
+
+def sampler_rows(combos, seed: int, oidx_max: int = 2 ** 20):
+    """Per-row host arrays of one 8-row sampler step: row r takes
+    ``combos[r % len(combos)]`` (temperature, top-k, top-p); row 3 greedy;
+    seeds 0, 2^32 - 1 and others from ``seed``; output indices up to
+    ``oidx_max``."""
+    rows = SAMPLER_ROWS
+    seeds = np.asarray([0, 2 ** 32 - 1, seed, 7, 12345, 2 ** 31, 99 + seed, 3], np.int64)[:rows]
+    oidx = np.asarray([0, 1, oidx_max, 5, 31, 1000, oidx_max // 2, 17], np.int64)[:rows]
+    t = np.asarray([combos[r % len(combos)][0] for r in range(rows)], np.float32)
+    k = np.asarray([combos[r % len(combos)][1] for r in range(rows)], np.int64)
+    p = np.asarray([combos[r % len(combos)][2] for r in range(rows)], np.float32)
+    t[3] = 0.0
+    return seeds, oidx, t, k, p
+
+
+def sampler_phase(rng, seed: int):
+    """14b: the sampler on f32 logits from ``rng`` at 8 x V for qwen's and
+    recurrentgemma's vocabularies: the card's 32-bit words equal the CPU
+    port's bit for bit (the CPU tests hold those to ``jax.random``), the
+    Gumbel draws within GUMBEL_TOL, and every step's tokens (temperatures
+    {0, 0.7, 1.3} x top-k {0, 1, 50} x top-p {1, 0.9, 1e-6}, spread over
+    the rows of four steps, an untruncated step and an all-greedy one)
+    equal to the CPU port's; then graph replays of an all-greedy, an
+    untruncated and a top-k + top-p step at 8 x 151,936, beside argmax
+    alone."""
+    combos = [(t, k, p) for t in (0.7, 1.3) for k in (0, 1, 50) for p in (1.0, 0.9, 1e-6)]
+    steps = [combos[i:i + SAMPLER_ROWS] for i in range(0, len(combos), SAMPLER_ROWS)]
+    steps += [[(0.9, 0, 1.0)], [(0.0, 0, 1.0)]]
+    ms = {}
+    for v in SAMPLER_VOCABS:
+        lg = torch.from_numpy(rng.normal(size=(SAMPLER_ROWS, v)).astype(np.float32) * 3)
+        card = lg.to(DEV)
+        seeds, oidx = sampler_rows(steps[0], seed)[:2]
+        keys = [sampling.fold_in(sampling.prng_key(torch.from_numpy(seeds).to(d)),
+                                 torch.from_numpy(oidx).to(d)) for d in (DEV, "cpu")]
+        words = [sampling.random_bits(k, v) for k in keys]
+        check(torch.equal(words[0].cpu(), words[1]),
+              f"14b V {v}: the card's PRNG words differ from the CPU port's")
+        g_card, g_cpu = (sampling.gumbel_from_bits(w).cpu() for w in words)
+        gap = (g_card - g_cpu).abs()
+        within = bool((gap <= GUMBEL_TOL[0] + GUMBEL_TOL[1] * g_cpu.abs()).all())
+        check(within, f"14b V {v}: Gumbel draws card vs CPU up to {float(gap.max()):.3e}")
+        differ = []
+        for combo in steps:
+            rows = sampler_rows(combo, seed)
+            mode_ = sampling.sample_mode(*rows[2:])
+            got = sampling.sample_rows(card, *sampling.sampler_inputs(*rows, device=DEV),
+                                       mode_).cpu()
+            want = sampling.sample_rows(lg, *sampling.sampler_inputs(*rows), mode_)
+            for r in np.flatnonzero((got != want).numpy()):
+                top2 = torch.topk(lg[r] / max(float(rows[2][r]), 1e-30) + g_cpu[r], 2).values
+                differ.append(f"row {r} {combo[r % len(combo)]}: card {int(got[r])} cpu "
+                              f"{int(want[r])}, score gap {float(top2[0] - top2[1]):.3e}")
+        ratio = float((gap / (GUMBEL_TOL[0] + GUMBEL_TOL[1] * g_cpu.abs())).max())
+        log(f"14b sampler V {v}: words equal ({SAMPLER_ROWS} x {v}), Gumbel card vs CPU max gap "
+            f"{float(gap.max()):.3e}, at most {ratio:.3f} of its limit (atol, rtol "
+            f"{GUMBEL_TOL}); tokens of {len(steps)} steps x "
+            f"{SAMPLER_ROWS} rows equal" + (f" except {differ}" if differ else ""))
+        check(not differ, f"14b V {v}: tokens differ from the CPU port's: {differ}")
+        if v == SAMPLER_VOCABS[0]:
+            for name, combo in (("all greedy", [(0.0, 0, 1.0)]), ("untruncated", [(0.9, 0, 1.0)]),
+                                ("top-k + top-p", [(0.8, 50, 0.95)])):
+                rows = sampler_rows(combo, seed)
+                rows[2][:] = combo[0][0]
+                inputs = sampling.sampler_inputs(*rows, device=DEV)
+                mode_ = sampling.sample_mode(*rows[2:])
+                ms[name] = time_ms(lambda: sampling.sample_rows(card, *inputs, mode_))
+            ms["argmax alone"] = time_ms(lambda: card.argmax(-1))
+    log(f"14b sampler at {SAMPLER_ROWS} x {SAMPLER_VOCABS[0]}, device ms a step by graph replay "
+        f"(L2 flushed): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return ms
+
+
+# --- 14c / 14d: sampled and speculative serving ---
+
+
+def sampled_params(i: int, seed: int, sampled: bool = True):
+    """Request i's sampling params in 14c and 14d: requests 2 and 5 greedy,
+    the other six at temperature 0.8, top-p 0.95 (top-k 50 on 0, 3, 6),
+    seeds from ``seed``."""
+    if not sampled or i in (2, 5):
+        return SamplingParams()
+    return SamplingParams(temperature=0.8, top_p=0.95, top_k=50 if i % 3 == 0 else 0,
+                          seed=seed * 1000 + i)
+
+
+class _Rejected(Exception):
+    """The replay check found a step's tokens wrong: a planted fault's run
+    stops there."""
+
+
+class ReplayCheck:
+    """The structural check of 14c and 14d, on an eager engine: after every
+    step, each slot that took tokens is replayed from the step's own logits
+    rows (those the step sampled, ``ContinuousBatcher._picks``;
+    ``sampling.sample_one`` for the request's params and each column's true
+    output index; the verify columns through the sound
+    ``spec.accept_sampled`` with the granted drafts) and must emit what the
+    engine emitted.  ``fault``: ``"step_counter"`` (the sampler folds the
+    engine's step counter in place of each row's output index) or
+    ``"accept_past"`` (one draft accepted past the first mismatch), planted
+    in the engine's own path; the check then stops the run at its first
+    rejection (``_Rejected``)."""
+
+    def __init__(self, eng, fault=None):
+        self.eng, self.fault = eng, fault
+        self.replayed = 0
+        self.acted = 0  # steps or acceptances the planted fault changed
+        self.rejected = None
+
+    @contextlib.contextmanager
+    def installed(self):
+        eng, rec = self.eng, {}
+        sound_rows, sound_accept = scheduler.sample_rows, scheduler.accept_sampled
+        sound_step, sound_propose, sound_schedule = eng.step, eng._propose, eng._schedule
+        sound_picks = eng._picks
+
+        def rows(logits, seeds, out_idx, *rest):
+            rec["logits"] = logits
+            if self.fault == "step_counter" and out_idx is not None:
+                out_idx = torch.full_like(torch.as_tensor(out_idx, device=logits.device),
+                                          eng.steps)
+                self.acted += 1
+            return sound_rows(logits, seeds, out_idx, *rest)
+
+        def picks(*args):
+            out = sound_picks(*args)
+            rec["at"] = out[1]  # slot -> [(column, row of the sampled rows)]
+            return out
+
+        def accept(draft, sampled):
+            a, emitted = sound_accept(draft, sampled)
+            if self.fault == "accept_past" and a < len(draft):
+                self.acted += 1
+                a += 1
+                emitted = [int(t) for t in draft[:a]] + [int(sampled[a])]
+            return a, emitted
+
+        def propose():
+            rec["drafts"] = sound_propose()
+            return rec["drafts"]
+
+        def schedule(drafts):
+            rec["n"] = sound_schedule(drafts)
+            return rec["n"]
+
+        def step():
+            rec.clear()
+            before = {i: (s.req, s.pos, len(s.req.output), s.prefilling)
+                      for i, s in enumerate(eng.slots) if not s.free}
+            sound_step()
+            self.check(rec, before)
+
+        scheduler.sample_rows, scheduler.accept_sampled = rows, accept
+        eng.step, eng._propose, eng._schedule, eng._picks = step, propose, schedule, picks
+        try:
+            yield self
+        finally:
+            scheduler.sample_rows, scheduler.accept_sampled = sound_rows, sound_accept
+            del eng.step, eng._propose, eng._schedule, eng._picks
+
+    def check(self, rec, before):
+        logits, n, drafts = rec["logits"], rec["n"], rec.get("drafts", {})
+        for i, (r, pos0, out0, prefilling) in before.items():
+            if n[i] == 0:
+                continue
+            emitted = r.output[out0:]
+            base = pos0 + 1 - len(r.prompt)  # the output index of column 0's prediction
+            row_of = dict(rec["at"][i])  # the step's logits rows it sampled, by column
+
+            def replay(j):
+                self.replayed += 1
+                return sampling.sample_one(logits[row_of[j]], r.sampling, base + j)
+
+            if prefilling:
+                want = [replay(n[i] - 1)] if pos0 + n[i] >= len(r.prompt) else []
+            else:
+                draft = list(drafts.get(i, []))[: n[i] - 1]
+                want = spec_lib.accept_sampled(draft, [replay(j) for j in range(n[i])])[1]
+                want = want[: r.max_new_tokens - out0]
+            if emitted != want:
+                self.rejected = (f"step {self.eng.steps - 1}, request {r.uid}: emitted "
+                                 f"{emitted}, the replay {want}")
+                if self.fault is not None:
+                    raise _Rejected(self.rejected)
+                raise SmokeFailure(f"replay check: {self.rejected}")
+
+
+class JunkProposer(spec_lib.Proposer):
+    """Drafts that are almost never the target's tokens (a function of the
+    history's length): the planted acceptance fault's proposer."""
+
+    name = "junk"
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def propose_batch(self, asks):
+        return {s: [(7919 * len(h) + j) % self.vocab for j in range(k)] for s, h, k in asks}
+
+
+def spec_engine(cfg, params, prompts, packed: bool, sampled: bool, seed: int, spec=None):
+    eng = ContinuousBatcher(params, cfg, batch_slots=SLOTS, max_len=MAX_LEN, chunk_size=CHUNK,
+                            token_budget=BUDGET, cache="paged", page_size=PAGE, packed=packed,
+                            spec=spec)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=NEW_TOKENS,
+                           sampling=sampled_params(i, seed, sampled)))
+    return eng
+
+
+def sampled_serve(cfg, params, prompts, packed: bool, sampled: bool, seed: int, eager=False,
+                  spec=None, fault=None, tag=""):
+    """One 14c / 14d serving run of qwen2.5-3b (paged), checked: full-length
+    streams, no leaked page, the allocator's invariants, one K4 a layer and
+    73 K2 a step (plus 73 a draft-model step); eager runs under the replay
+    check (``ReplayCheck``).  Returns (streams, launches, record, summary,
+    replays checked); a planted fault's run returns its rejection."""
+    eng = spec_engine(cfg, params, prompts, packed, sampled, seed, spec() if spec else None)
+    checker = ReplayCheck(eng, fault) if eager else None
+    with (checker.installed() if checker else contextlib.nullcontext()):
+        try:
+            wall, runs, peak = run_engine(eng, eager)
+        except _Rejected as e:
+            return str(e)
+    if fault is not None:
+        check(checker.acted > 0, f"{tag}: the planted fault never acted")
+        return None
+    check(sorted(eng.finished) == list(range(SLOTS)), f"{tag}: unfinished requests")
+    for r in eng.finished.values():
+        check(len(r.output) == NEW_TOKENS and not r.truncated,
+              f"{tag}: request {r.uid} has {len(r.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output), f"{tag}: token out of range")
+    eng.kv.check_invariants()
+    check(eng.kv.used_pages == 0, f"{tag}: {eng.kv.used_pages} pages leaked")
+    draft_steps = getattr(eng.spec.proposer, "steps", 0) if eng.spec else 0
+    want = {k: 0 for k in runs}
+    want["paged_attention"] = cfg.n_layers * eng.steps
+    want["rmsnorm"] = (2 * cfg.n_layers + 1) * (eng.steps + draft_steps)
+    check(runs == want, f"{tag}: launches {runs} over {eng.steps} steps ({draft_steps} draft "
+                        f"steps), the code implies {want}")
+    rec = step_record(eng, prompts, wall, peak)
+    summary = eng.stats_summary()
+    verify = [st for st in eng.step_stats if st.draft_tokens > 0 and st.prefill_tokens == 0]
+    rec["verify_ms"] = statistics.median(st.wall_time * 1e3 for st in verify) if verify else None
+    # per verify step (all its slots) and per verify grant (a decode slot's)
+    rec["accepted_per_verify"] = (sum(st.accepted_tokens for st in verify) / len(verify)
+                                  if verify else None)
+    rec["accepted_per_grant"] = (sum(st.accepted_tokens for st in verify)
+                                 / sum(st.decode_tokens for st in verify) if verify else None)
+    rec["tokens_per_step"] = summary["generated_tokens"] / eng.steps
+    # the run's wall less the host seconds its graphs' warm-ups and captures
+    # took (each engine captures its own): the rate of a warm engine
+    graphs_of = [eng.step_graph] + ([eng.spec.proposer.step_graph]
+                                    if eng.spec and hasattr(eng.spec.proposer, "step_graph")
+                                    else [])
+    capture_s = sum(t for g in graphs_of for t, _ in g.stats().values())
+    rec["warm_tok_s"] = summary["generated_tokens"] / (wall - capture_s)
+    log(f"{tag}: {eng.steps} steps, launches {runs}; "
+        + (f"drafts {summary['draft_tokens']:.0f}, accepted {summary['accepted_tokens']:.0f} "
+           f"({summary['acceptance_rate']:.3f}), {rec['accepted_per_verify']:.2f} accepted a "
+           f"verify step ({rec['accepted_per_grant']:.2f} a slot's grant), median verify step "
+           f"{rec['verify_ms']:.2f} ms, "
+           if verify else "")
+        + f"{rec['tokens_per_step']:.2f} tokens a step, {rec['gen_tok_s']:.1f} generated tok/s "
+        f"over {wall:.2f} s ({rec['warm_tok_s']:.1f} with the captures left out); peak "
+        f"{peak:.2f} GiB"
+        + (f"; {checker.replayed} columns replayed" if checker else f"; {graph_line(eng)}"))
+    out = ({u: r.output for u, r in eng.finished.items()}, runs, rec, summary,
+           checker.replayed if checker else 0)
+    del eng
+    free_device()  # the engine's graphs (a reference cycle) and their pool
+    return out
+
+
+def sampled_phase(cfg, params, prompts, seed: int, greedy_streams):
+    """14c: sampled serving (six sampled requests, two greedy), unpacked
+    then packed: eager under the replay check, then graphed twice (the
+    counters' window): graphed = eager, the second graphed run = the first,
+    the greedy rows = phase 4's streams in the same layout; then the planted
+    fault (the step counter folded in place of the output index), which the
+    replay check must reject."""
+    outs, recs, counts = {}, {}, {k: 0 for k in ops.launch_counts()}
+    for packed in (False, True):
+        tag = f"14c sampled {'packed' if packed else 'unpacked'}"
+        eager = sampled_serve(cfg, params, prompts, packed, True, seed, eager=True,
+                              tag=f"{tag} eager")[0]
+        ops.reset_launch_counts()  # the main path starts here
+        g1 = sampled_serve(cfg, params, prompts, packed, True, seed, tag=f"{tag} graphed")
+        g2 = sampled_serve(cfg, params, prompts, packed, True, seed, tag=f"{tag} graphed again")
+        for k, v in ops.launch_counts().items():  # ... and ends here
+            counts[k] += v
+        same_streams(tag, g1[0], eager)
+        check(g2[0] == g1[0], f"{tag}: a second graphed run gave other streams")
+        for i in [i for i in (2, 5) if i in g1[0]]:
+            check(g1[0][i] == greedy_streams[packed][i],
+                  f"{tag}: greedy request {i} differs from phase 4's stream")
+        outs[packed], recs[packed] = g1[0], g1[2]
+    why = sampled_serve(cfg, params, prompts, False, True, seed, eager=True, fault="step_counter",
+                        tag="14c planted fault")
+    check(why is not None, "14c: the replay check lets the step counter in place of the output "
+                           "index pass")
+    log(f"14c planted fault (the step counter folded in place of the output index): rejected, "
+        f"{why}")
+    diff = [i for i in range(SLOTS) if outs[False][i] != greedy_streams[False][i]]
+    log(f"14c sampled packed vs unpacked agreement {agreement(outs[False], outs[True])}/"
+        f"{SLOTS * NEW_TOKENS}; sampled requests whose streams differ from the greedy run: {diff}")
+    return counts, outs, recs
+
+
+def spec_phase(cfg, params, prompts, seed: int, greedy_streams, sampled_streams, sampled_recs):
+    """14d: speculation on the paged unpacked engine, ``NGramProposer`` and
+    ``DraftModelProposer`` with the target's own parameters (k = 4), greedy
+    then with 14c's sampling: eager under the replay check (every emitted
+    token what ``accept_sampled`` gives on the verify step's own columns),
+    then graphed (the counters' window), graphed = eager, no leaked page,
+    36 K4 a step; then the planted fault (a draft accepted past the first
+    mismatch), which the replay check must reject."""
+    proposers = {"ngram": lambda: SpecConfig(NGramProposer(), k=SPEC_K),
+                 "self-draft": lambda: SpecConfig(DraftModelProposer(params, cfg, SLOTS, MAX_LEN),
+                                                  k=SPEC_K)}
+    counts = {k: 0 for k in ops.launch_counts()}
+    readings = {}
+    # the greedy baseline without speculation, on the same engine (14c's
+    # sampled runs are the sampled one)
+    greedy_rec = sampled_serve(cfg, params, prompts, False, False, seed,
+                               tag="14d greedy without speculation, graphed")[2]
+    for name, spec in proposers.items():
+        for sampled in (False, True):
+            tag = f"14d {name} {'sampled' if sampled else 'greedy'}"
+            eager = sampled_serve(cfg, params, prompts, False, sampled, seed, eager=True,
+                                  spec=spec, tag=f"{tag} eager")[0]
+            ops.reset_launch_counts()  # the main path starts here
+            got, runs, rec, summary, _ = sampled_serve(cfg, params, prompts, False, sampled, seed,
+                                                       spec=spec, tag=f"{tag} graphed")
+            for k, v in ops.launch_counts().items():  # ... and ends here
+                counts[k] += v
+            same_streams(tag, got, eager)
+            plain = sampled_streams if sampled else greedy_streams
+            base = sampled_recs if sampled else greedy_rec
+            readings[tag] = rec
+            log(f"{tag}: agreement with the streams without speculation "
+                f"{agreement(got, plain)}/{SLOTS * NEW_TOKENS}; generated tok/s with the "
+                f"captures left out {rec['warm_tok_s']:.1f} against {base['warm_tok_s']:.1f} "
+                f"without, {rec['tokens_per_step']:.2f} tokens a step against "
+                f"{base['tokens_per_step']:.2f}")
+    # planted on a run whose drafts are junk, so that mismatches (where the
+    # fault acts) come at once
+    why = sampled_serve(cfg, params, prompts, False, False, seed, eager=True,
+                        spec=lambda: SpecConfig(JunkProposer(cfg.vocab_size), k=SPEC_K),
+                        fault="accept_past", tag="14d planted fault")
+    check(why is not None, "14d: the replay check lets a draft accepted past the first mismatch "
+                           "pass")
+    log(f"14d planted fault (a draft accepted past the first mismatch): rejected, {why}")
+    return counts, readings
+
+
+def phase14(seed: int, rng, prompts, qwen_streams, rg_streams, mamba_streams):
+    """Phase 14: 14a ``decode_step`` at full width for qwen2.5-3b, then 14b
+    the sampler alone, 14c sampled serving and 14d speculation on qwen;
+    then 14a for recurrentgemma-2b and mamba2-130m.  Returns the launches of
+    each main path (qwen's, recurrentgemma's, mamba's) and the readings."""
+    cfg = get_config("qwen2_5_3b")
+    params = compute_params(init_params(cfg, seed=seed, device=DEV), cfg)
+    qwen_counts, qwen_ms = qwen_decode(cfg, params, prompts, qwen_streams[False])
+    free_device()
+    sampler_ms = sampler_phase(rng, seed)
+    free_device()
+    c_counts, sampled_streams, sampled_recs = sampled_phase(cfg, params, prompts, seed,
+                                                            qwen_streams)
+    free_device()
+    d_counts, spec_readings = spec_phase(cfg, params, prompts, seed, qwen_streams[False],
+                                         sampled_streams[False], sampled_recs[False])
+    del params
+    free_device()
+    rcfg = get_config("recurrentgemma_2b")
+    _, rprompts = rg_requests(rcfg, seed)
+    params = compute_params(init_params(rcfg, seed=seed, device=DEV), rcfg)
+    rg_counts, rg_ms = rg_decode(rcfg, params, rprompts, rg_streams)
+    del params
+    free_device()
+    mcfg = get_config("mamba2_130m")
+    _, mprompts = mamba_requests(mcfg, seed)
+    params = compute_params(init_params(mcfg, seed=seed, device=DEV), mcfg)
+    m_counts, m_ms = mamba_decode(mcfg, params, mprompts, mamba_streams, seed)
+    del params
+    free_device()
+    qwen_total = {k: qwen_counts[k] + c_counts[k] + d_counts[k] for k in qwen_counts}
+    log(f"launches, phase 14: qwen decode_step (14a) {qwen_counts}; sampled serving (14c) "
+        f"{c_counts}; speculation (14d) {d_counts}; recurrentgemma decode_step (14a) "
+        f"{rg_counts}; mamba decode_step (14a) {m_counts}")
+    return qwen_total, rg_counts, m_counts
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -3766,14 +4641,14 @@ def main() -> int:
     log(f"qwen2.5-3b: {cfg.param_count() / 1e9:.3f} B parameters, f32 init + bf16 "
         f"compute copy in {time.perf_counter() - t0:.1f} s; prompt lens {prompt_lens}")
     first_step_logits_check(cfg, params, prompts)
-    serve_counts = qwen_serving(cfg, params, prompts)
+    serve_counts, qwen_streams = qwen_serving(cfg, params, prompts)
     check(serve_counts["paged_attention"] > 0 and serve_counts["rmsnorm"] > 0,
           f"kernels not run: {serve_counts}")
     del params
     free_device()
 
     # 5. Mamba-2 serving at full width and depth
-    mamba_counts, _ = mamba_phase(args.seed)
+    mamba_counts, _, mamba_streams = mamba_phase(args.seed)
     free_device()
 
     # 6. training at full depth, then the 2-layer card-vs-CPU parity
@@ -3834,7 +4709,7 @@ def main() -> int:
     k2_rg_err, k2_rg_t = k2_rg_checks(rng)
     k4_rg_t = k4_timing(rng, rg_lens, dims=RG_DIMS, window=RG_WINDOW)
     free_device()
-    rg_counts, _ = rg_phase(args.seed)
+    rg_counts, _, rg_streams = rg_phase(args.seed)
     free_device()
 
     # 13. training the 'R' family: K3's (256, 10) build and K2's backward at d
@@ -3847,15 +4722,25 @@ def main() -> int:
           f"recurrentgemma train: kernels not run: {rg_train_counts}")
     free_device()
 
+    # 14. decode_step at full width (14a), the sampler alone (14b), sampled
+    # serving (14c) and speculation (14d)
+    p14_qwen, p14_rg, p14_mamba = phase14(args.seed, rng, prompts, qwen_streams,
+                                          rg_streams[False], mamba_streams["dense", False])
+    check(p14_qwen["paged_attention"] > 0 and p14_rg["paged_attention"] > 0
+          and p14_mamba["rmsnorm"] > 0, f"phase 14: kernels not run: {p14_qwen}, {p14_rg}, "
+                                        f"{p14_mamba}")
+    free_device()
+
     # K3's (128, 8) records keep the earlier paths' launches; the (64, 1)
     # build's records take phase 11's, the (256, 10) build's phase 13's; K4's
-    # (128, 8) record keeps the earlier paths', the (256, 10) build's takes
-    # phase 12's
+    # (128, 8) record keeps the earlier paths' and phase 14's qwen paths',
+    # the (256, 10) build's takes phase 12's and 14a's recurrentgemma path's
     k3_own = ("flash_attention", "flash_attention_bwd")
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
                 + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k]
                 + (0 if k in k3_own else bert_counts[k] + rg_train_counts[k])
-                + (0 if k == "paged_attention" else rg_counts[k])
+                + (0 if k == "paged_attention" else rg_counts[k] + p14_rg[k])
+                + p14_qwen[k] + p14_mamba[k]
                 for k in serve_counts}
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was launched no time on the main paths")
@@ -3871,7 +4756,8 @@ def main() -> int:
         dict(name="paged_attention_d256_g10", route="cuda",
              source="src/repro_torch/kernels/paged_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:238",
-             launches=rg_counts["paged_attention"], max_abs_err=k4_rg_err,
+             launches=rg_counts["paged_attention"] + p14_rg["paged_attention"],
+             max_abs_err=k4_rg_err,
              **{k: k4_rg_t["decode"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
              library_ms=None),
         dict(name="rmsnorm", route="cuda", source="src/repro_torch/kernels/rmsnorm.cu",
@@ -3932,7 +4818,8 @@ def main() -> int:
         f"training: {train_counts}; Local-SGD: {localsgd_counts}; Mamba-2 Local-SGD: "
         f"{m_localsgd_counts}; data parallel (9a): {dp_counts}; Mamba-2 training: "
         f"{mamba_train_counts}; BERT training (11c, 11d): {bert_counts}; recurrentgemma "
-        f"serving (12c): {rg_counts}; recurrentgemma training (13c): {rg_train_counts}")
+        f"serving (12c): {rg_counts}; recurrentgemma training (13c): {rg_train_counts}; phase "
+        f"14: qwen {p14_qwen}, recurrentgemma {p14_rg}, mamba {p14_mamba}")
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

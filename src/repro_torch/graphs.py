@@ -134,9 +134,12 @@ class _Entry:
 class StepGraph:
     """One captured graph per shape key of ``fn`` (see the module doc).
 
-    ``fn(*inputs)`` returns a tensor or a tuple of tensors.  ``__call__(key,
-    *inputs)`` takes the inputs as tensors or numpy arrays; ``key`` names
-    their shapes (a new key captures a new graph).  ``capture`` is the
+    ``fn(*inputs, **static)`` returns a tensor or a tuple of tensors.
+    ``__call__(key, *inputs, **static)`` takes the inputs as tensors or
+    numpy arrays; ``key`` names their shapes.  The ``static`` keyword
+    arguments are Python values that choose the program, such as a
+    sampler's mode: a graph is kept for each pair of ``key`` and
+    ``static`` (a new pair captures a new graph).  ``capture`` is the
     warm-up and capture strategy, :class:`CudaCapture` on the card; a test
     may pass a stand-in.  On the CPU (no ``capture``) and under
     :func:`disable_graphs` a call is ``fn(*inputs)``."""
@@ -168,12 +171,14 @@ class StepGraph:
         for dst, src in zip(static, inputs):
             dst.copy_(torch.from_numpy(src) if isinstance(src, np.ndarray) else src)
 
-    def __call__(self, key: Hashable, *inputs):
+    def __call__(self, key: Hashable, *inputs, **static):
         if self._capture is None or not graphs_enabled():
-            return self.fn(*inputs)
+            return self.fn(*inputs, **static)
+        if static:
+            key = (key, tuple(sorted(static.items())))
         entry = self._entries.get(key)
         if entry is None:
-            entry = self._record(key, inputs)
+            entry = self._record(key, inputs, static)
         else:
             if len(inputs) != len(entry.inputs) or any(
                     tuple(x.shape) != tuple(s.shape) for x, s in zip(inputs, entry.inputs)):
@@ -185,13 +190,14 @@ class StepGraph:
             kernel_ops.add_launches(entry.launches)
         return entry.outputs if len(entry.outputs) > 1 else entry.outputs[0]
 
-    def _record(self, key: Hashable, inputs) -> _Entry:
+    def _record(self, key: Hashable, inputs, consts) -> _Entry:
         t0 = time.perf_counter()
         static = tuple(self._device_input(x) for x in inputs)
-        warm = _as_tuple(self._capture.warm_up(lambda: self.fn(*static)))
+        warm = _as_tuple(self._capture.warm_up(lambda: self.fn(*static, **consts)))
         before = kernel_ops.launch_counts()
         try:
-            graph, out, pool_bytes = self._capture.capture(lambda: self.fn(*static), warm)
+            graph, out, pool_bytes = self._capture.capture(lambda: self.fn(*static, **consts),
+                                                           warm)
         except RuntimeError as e:
             raise GraphCaptureError(f"capturing the step of key {key!r} failed: {e}") from e
         finally:

@@ -1,5 +1,7 @@
 """The data-parallel DropCompute train step (port of
-``repro.launch.steps.make_train_step``, ``steps.py:119-227``).
+``repro.launch.steps.make_train_step``, ``steps.py:119-227``), and the
+prefill and single-token serve steps (``make_prefill_step``,
+``make_serve_step``, ``steps.py:235-254``).
 
 The reference builds one SPMD program: the (W, M) keep mask from the
 latencies, each example weighted by its (worker, micro-batch) keep bit, a
@@ -38,7 +40,10 @@ from ..core.dropcompute import (Accumulator, DropConfig, _mark, drop_mask, norma
                                 sum_kept)
 from ..core.engine import make_grad_fn
 from ..models.config import InputShape, ModelConfig
-from ..models.model import loss_fn, train_params
+from ..graphs import StepGraph
+from ..models import layers as L
+from ..models.model import (_cache_parts, decode_plans, decode_step, forward_features,
+                            loss_fn, params_device, train_params)
 from ..models.transformer import tree_leaves
 from ..optim import clip_by_global_norm, make as make_opt
 
@@ -134,3 +139,71 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, drop: DropConfig,
         raise ValueError(f"global batch {b} must divide into {n_workers} workers x {m} "
                          f"microbatches")
     return opt, TrainStep(cfg, drop, n_workers, m, b // (n_workers * m), opt, clip_norm, dist)
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode steps
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``step(params, batch) -> (B,)`` next tokens: the cache-free forward
+    (the training path, K3 on the card) and the logits of the last position
+    alone (``steps.py:235-245``: full-sequence logits at a large vocabulary
+    would not fit), argmax in f32."""
+    def step(params, batch):
+        x, _ = forward_features(params, cfg, batch)
+        logits = L.unembed(params["embed"], x[:, -1:], cfg)
+        return logits[:, -1].float().argmax(dim=-1)
+
+    return step
+
+
+class ServeStep:
+    """``step(params, cache, token, pos) -> (next_tok (B, 1), cache)``: one
+    ``decode_step`` and the argmax of its logits (``steps.py:248-254``).
+
+    On the card the step runs as one captured CUDA graph per shape of
+    ``token`` and ``pos`` (``graphs.StepGraph``), over the parameters and
+    the cache it was first called with (their tensors' addresses are in the
+    graph); a call with another parameter tree or cache starts new graphs.
+    A paged cache's tile plans are made on the host from ``pos``
+    (``decode_plans``), so ``pos`` is read back when it is a device tensor.
+    The returned tokens, and the step's logits (B, 1, V) left in
+    ``logits``, are the graph's outputs, overwritten by the next call; the
+    cache is updated in place."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self._bound = None
+        self.graph: Optional[StepGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+
+    def _program(self, token, pos, *plans):
+        plans = dict(zip(self._kinds, plans)) if plans else None
+        logits, _ = decode_step(self._params, self.cfg, self._cache, token, pos, plans=plans)
+        return logits[:, -1].float().argmax(dim=-1, keepdim=True), logits
+
+    def __call__(self, params, cache, token, pos):
+        data, tables, _ = _cache_parts(cache)
+        if self._bound != (id(params), id(data), id(tables)):
+            self._params, self._cache = params, cache
+            self._kinds = sorted(set(self.cfg.pattern) & {"G", "L"}) if tables is not None else []
+            self.graph = StepGraph(self._program, params_device(params))
+            self._bound = (id(params), id(data), id(tables))
+        self._cache = cache
+        plans = []
+        if tables is not None:
+            host_pos = pos.cpu().numpy() if isinstance(pos, torch.Tensor) else np.asarray(pos)
+            made = decode_plans(self.cfg, cache, host_pos)
+            plans = [made[k] for k in self._kinds]
+        token = token if isinstance(token, torch.Tensor) else np.asarray(token, np.int64)
+        pos = pos if isinstance(pos, torch.Tensor) else np.asarray(pos, np.int64)
+        key = (tuple(token.shape), tuple(pos.shape))
+        next_tok, self.logits = self.graph(key, token, pos, *plans)
+        return next_tok, cache
+
+
+def make_serve_step(cfg: ModelConfig) -> ServeStep:
+    """The single-token serve step (``ServeStep``)."""
+    return ServeStep(cfg)

@@ -4,10 +4,12 @@ from .config import InputShape, ModelConfig
 from .model import (
     UnsupportedPatternError,
     compute_params,
+    decode_step,
     init_decode_cache,
     init_params,
     packed_prefill,
     prefill_chunk,
+    verify_step,
 )
 
 __all__ = [
@@ -15,8 +17,10 @@ __all__ = [
     "ModelConfig",
     "UnsupportedPatternError",
     "compute_params",
+    "decode_step",
     "init_decode_cache",
     "init_params",
     "packed_prefill",
     "prefill_chunk",
+    "verify_step",
 ]

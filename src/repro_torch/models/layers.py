@@ -324,14 +324,24 @@ def step_index(
     plan: Optional[torch.Tensor] = None,
 ) -> StepIndex:
     """The addressing of ``apply_attention``'s cache branches (token-packed
-    ``layers.py:528-585``, chunked ``:601-658``) for one layer kind.
+    ``layers.py:528-585``, chunked ``:601-658``, paged decode ``:659-674``
+    and the dense single-token decode ``:675-708``) for one layer kind.
+    A single-token decode step (no ``seq_lens``, no ``slot_ids``, one
+    column) on the paged layout is the chunked addressing with C = 1 and
+    every slot active, so K4 gets a chunked step's tile plan.
     ``plan`` is the paged kernel's tile plan for this kind, made by the
-    caller (``model.chunk_plans`` / ``packed_plans``); without one it is made here from the
-    device tensors, a host round trip a captured step cannot make."""
+    caller (``model.chunk_plans`` / ``packed_plans`` / ``decode_plans``);
+    without one it is made here from the device tensors, a host round trip
+    a captured step cannot make."""
     window = cfg.sliding_window if kind == "L" else 0
     dev = positions.device
     rope = (rope_angles(positions, cfg.hd, cfg.rope_theta)
             if cfg.pos == "rope" else None)
+    decode = seq_lens is None and slot_ids is None and positions.shape[-1] == 1
+    if decode and page_tables is None:
+        return _decode_index(cache, window, decode_pos, rope)
+    if decode and decode_pos.dim() == 0:
+        raise ValueError("paged decode needs per-slot positions, got a scalar")
     if page_tables is not None:
         buf_len = page_tables.shape[-1] * page_size
     else:
@@ -393,6 +403,38 @@ def step_index(
     return StepIndex(rope, (flat.reshape(-1),), mask=mask[:, None])
 
 
+def _decode_index(cache: Dict[str, torch.Tensor], window: int, decode_pos: torch.Tensor,
+                  rope) -> StepIndex:
+    """A dense single-token decode step (``layers.py:675-708``): each slot
+    writes its K/V row at ``pos`` (``pos % buf_len`` in a sliding-window
+    layer's ring, whose ``buf_len`` rows exclude the pool's spare row) and
+    attends its buffer, the ring's rows mapped back to absolute positions.
+    ``decode_pos`` is a scalar (a lockstep batch: one position, a (1, L)
+    mask broadcast over the slots) or (B,) per-slot positions."""
+    b, buf_len = cache["k"].shape[:2]
+    dev = decode_pos.device
+    kpos = torch.arange(buf_len, device=dev)
+    pos_b = decode_pos.reshape(-1)  # (1,) or (B,)
+    if window > 0:
+        slot_b = pos_b % buf_len
+    elif decode_pos.dim() == 0:  # dynamic_update_slice clamps its start
+        slot_b = pos_b.clamp(max=buf_len - 1)
+    else:  # a scatter past the buffer is dropped: the spare row
+        slot_b = torch.where(pos_b < buf_len, pos_b, buf_len)
+    rows = torch.arange(b, device=dev)
+    flat = torch.where(slot_b < buf_len, rows * buf_len + slot_b, b * buf_len)
+    if window > 0:
+        # ring buffer: reconstruct each row's absolute position
+        base = pos_b[:, None] - slot_b[:, None]
+        abs_pos = torch.where(kpos[None, :] <= slot_b[:, None], base + kpos[None, :],
+                              base - buf_len + kpos[None, :])
+        valid = ((abs_pos >= torch.clamp(pos_b[:, None] - window + 1, min=0))
+                 & (abs_pos <= pos_b[:, None]))
+    else:
+        valid = kpos[None, :] <= pos_b[:, None]  # (B or 1, L)
+    return StepIndex(rope, (flat,), mask=valid[:, None, None, :])
+
+
 def apply_attention(
     p: Params,
     x: torch.Tensor,
@@ -409,8 +451,9 @@ def apply_attention(
     rope=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One attention block: over a serving cache (the cache branches of
-    ``layers.apply_attention``: token-packed ``:528-585`` and chunked
-    ``:601-658``, dense or paged layout), or, with ``cache=None``, over the
+    ``layers.apply_attention``: token-packed ``:528-585``, chunked
+    ``:601-658`` and single-token decode ``:659-708``, dense or paged
+    layout), or, with ``cache=None``, over the
     sequence itself (training; ``apply_attention_nocache``, whose RoPE
     angles ``rope`` a caller may make once for all layers).
 
@@ -419,7 +462,9 @@ def apply_attention(
     only that slot's rows at positions <= its own; ``slot_ids[j] < 0`` is
     padding.  Otherwise (chunked prefill): slot i consumes
     ``x[i, :seq_lens[i]]`` at absolute positions ``decode_pos[i]...``.
-    Both need a linear cache.  ``page_tables``/``page_size`` select the
+    Both need a linear cache.  With neither and one column (``decode_step``),
+    slot i's token is at ``decode_pos`` (a scalar or (B,)); a dense cache may
+    then be the ring layout (``init_attention_cache(linear=False)``).  ``page_tables``/``page_size`` select the
     paged layout: writes go through ``paged_index``, reads through the
     fused ``kernels.ops.paged_flash_attention``.  ``index`` is the step's
     ``step_index`` for this kind, made here when not given.  The cache's

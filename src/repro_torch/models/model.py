@@ -6,11 +6,13 @@
     cache = init_decode_cache(params, cfg, batch, L, linear=True)
     logits, cache = prefill_chunk(params, cfg, cache, tokens, pos, lens)
     logits, cache = packed_prefill(params, cfg, cache, tokens, slots, positions)
+    logits, cache = decode_step(params, cfg, cache, token, pos)   # (B, 1) tokens
+    logits, cache = verify_step(params, cfg, cache, tokens, pos, lens)
 
 A serving step reads the host only through its inputs: with a paged cache
 the caller passes the paged kernel's tile plans (``chunk_plans`` /
-``packed_plans``, made on the host), so the step can be captured in a CUDA
-graph (``repro_torch.graphs``).
+``packed_plans`` / ``decode_plans``, made on the host), so the step can be
+captured in a CUDA graph (``repro_torch.graphs``).
 
 ``batch`` is a dict: ``tokens`` (B, S) int, optional ``weights`` (B, S)
 per-token loss weights.  The port trains and serves decoder-only stacks of
@@ -224,8 +226,9 @@ def init_decode_cache(params: Tree, cfg: ModelConfig, batch: int, seq_len: int,
     """Pre-allocated dense KV cache on the parameters' device ('R' and 'M'
     layers: slot-indexed conv windows and recurrence states).
     ``linear=True`` (full-length sliding-window buffers) is what
-    ``prefill_chunk``/``packed_prefill`` need; the ring layout is kept for
-    the reference's shape but the port has no ring-buffer decode path."""
+    ``prefill_chunk``/``packed_prefill`` need; the default ring layout gives
+    a sliding-window layer ``min(window, seq_len)`` rows (and the spare
+    row), which only ``decode_step`` takes."""
     require_chunkable(cfg, "init_decode_cache")
     return {"stack": init_stack_cache(cfg, batch, seq_len, linear=linear,
                                       device=params_device(params))}
@@ -278,6 +281,14 @@ def packed_plans(cfg: ModelConfig, cache: Tree, slot_ids, positions):
                       np.asarray(slot_ids, np.int64), tables.shape[0], packed=True)
 
 
+def decode_plans(cfg: ModelConfig, cache: Tree, pos):
+    """``_step_plans`` of a paged ``decode_step`` from its numpy per-slot
+    ``pos``: the chunked step with C = 1 and every slot active
+    (``layers.step_index``)."""
+    pos = np.asarray(pos, np.int64).reshape(-1)
+    return chunk_plans(cfg, cache, pos, np.ones_like(pos), 1)
+
+
 def _device_plans(plans, device):
     return None if plans is None else {k: torch.as_tensor(v, device=device)
                                        for k, v in plans.items()}
@@ -305,6 +316,44 @@ def prefill_chunk(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_
         params["stack"], x, cfg, positions, data["stack"], decode_pos=pos,
         seq_lens=_long(seq_lens, dev), page_tables=tables, page_size=page_size,
         plans=_device_plans(plans, dev),
+    )
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    logits = L.unembed(params["embed"], x, cfg)
+    return logits, _cache_rebuild(cache, {"stack": new_stack})
+
+
+def verify_step(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_lens,
+                plans=None):
+    """Speculative decoding's verify step (``model.py:374-409``): row i
+    carries ``[t_last, d_1, .., d_k]`` at the slot's absolute positions and
+    column j of the (B, 1 + k, V) logits is the next-token distribution
+    after the row through column j.  It *is* ``prefill_chunk``: the drafts'
+    K/V lands in the cache, and the rejected positions are the caller's
+    rollback (a position-mask trim for dense slots, ``KVCache.trim_slot``
+    for the paged layout).  ``plans``: ``chunk_plans`` of the step."""
+    return prefill_chunk(params, cfg, cache, tokens, pos, seq_lens, plans=plans)
+
+
+def decode_step(params: Tree, cfg: ModelConfig, cache: Tree, token, pos, plans=None):
+    """One token per slot (``model.py:463-501``), the reference's
+    single-token oracle: ``token`` (B, 1) at ``pos``, a scalar (a lockstep
+    batch) or (B,) per-slot positions; every slot writes its K/V row and
+    advances its recurrent state.  A dense cache may be the ring layout
+    (``init_decode_cache(linear=False)``) or the linear one; a paged cache
+    (``KVState``) needs per-slot positions and runs K4 over the chunked
+    addressing with C = 1.  Returns (logits (B, 1, V), cache).  ``plans``
+    (paged cache): ``decode_plans`` of this step, made on the host, which a
+    captured step needs.  Enc-dec models raise ``UnsupportedPatternError``
+    (their cross-attention is not ported)."""
+    require_chunkable(cfg, "decode_step")
+    data, tables, page_size = _cache_parts(cache)
+    dev = params_device(params)
+    pos = _long(pos, dev)
+    positions = pos[:, None] if pos.dim() else pos.reshape(1)
+    x = L.embed(params["embed"], _long(token, dev), cfg, positions)
+    x, new_stack = apply_stack(
+        params["stack"], x, cfg, positions, data["stack"], decode_pos=pos,
+        page_tables=tables, page_size=page_size, plans=_device_plans(plans, dev),
     )
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg)
@@ -432,6 +481,8 @@ __all__ = [
     "UnsupportedPatternError",
     "chunk_plans",
     "compute_params",
+    "decode_plans",
+    "decode_step",
     "forward",
     "forward_features",
     "loss_fn",
@@ -445,4 +496,5 @@ __all__ = [
     "require_chunkable",
     "require_stack",
     "require_trainable",
+    "verify_step",
 ]

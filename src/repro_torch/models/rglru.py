@@ -20,8 +20,8 @@ reversed sequence (the reference leaves it to ``jax.grad``).
 
 Caches are updated in place (``models.layers``' convention): the per-slot
 conv window and recurrence state leaves of ``{"rglru": {"conv", "h"}}``.
-The reference's single-token decode branch is reached only by
-``decode_step``, which the port does not have yet; it raises here.
+The single-token branch (``decode_step``) takes one step of the
+recurrence, in the reference's decode form.
 """
 from __future__ import annotations
 
@@ -178,12 +178,9 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Pa
     (1, P, D); ``step`` the step's ``recurrent.packed_step``, made here when
     None): the carried h is injected at each segment's first token, whose
     a_t is zeroed in the scan (no flow across segments), and each segment's
-    last h is written back to its slot.  Returns (y, cache); the cache
-    leaves are updated in place."""
-    if cache is not None and seq_lens is None and slot_ids is None:
-        raise NotImplementedError(
-            "single-token decode of 'R' layers (decode_step) is not ported; serving "
-            "steps pass seq_lens (chunked) or slot_ids (packed)")
+    last h is written back to its slot.  With neither, single-token decode
+    (x is (B, 1, D)): h <- a h + sqrt(max(1 - a^2, 1e-12)) (i u).  Returns
+    (y, cache); the cache leaves are updated in place."""
     cd = cfg.compute_dtype
     u = x @ p["w_branch"].to(cd)
     g = x @ p["w_gate_branch"].to(cd)
@@ -209,6 +206,16 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Pa
         h = h + a_all * cache["h"][:, None]
         cache["conv"].copy_(conv_state)
         cache["h"].copy_(h[:, -1])
+    elif slot_ids is None:
+        # single-token decode (``rglru.py:162-170``) in the reference's own
+        # form, not ``_decay_and_update``'s, so the bits follow its decode
+        u_c, conv_state = _conv(u, w, bconv, cache["conv"])
+        uf = u_c.float()
+        r, i = _gates(p, uf)
+        a_t = torch.exp(-_C * r * _softplus(-lam))
+        h = a_t * cache["h"][:, None] + torch.sqrt(torch.clamp(1.0 - a_t ** 2, min=1e-12)) * (i * uf)
+        cache["conv"].copy_(conv_state)
+        cache["h"].copy_(h[:, 0])
     else:
         if step is None:
             step = packed_step(slot_ids, cache["h"].shape[0], cfg.rglru_conv)

@@ -24,8 +24,8 @@ path against the reference's padded one.
 
 Caches are updated in place (``models.layers``' convention): the per-slot
 conv window and SSM state leaves of ``{"ssd": {"conv", "state"}}``.  The
-reference's single-token decode branch is reached only by ``decode_step``,
-which the port does not have yet.
+single-token branch (``decode_step``) is the reference's plain recurrence,
+one state step a token, with no SSD kernel.
 """
 from __future__ import annotations
 
@@ -245,6 +245,26 @@ def _apply_packed(xbc, dt, a, w, bconv, cfg: ModelConfig, cache: Params,
     return y[None], xh[None]
 
 
+def _apply_decode(xbc, dt, a, w, bconv, cfg: ModelConfig, cache: Params):
+    """The single-token branch (``ssm.py:243-256``, ``decode_step``): x is
+    (B, 1, ·); the conv window shifts by one row and the state takes one
+    step of the recurrence, state <- state * exp(-dt a) + B dt x, read by
+    C.  No SSD kernel: the step is the reference's own recurrence."""
+    di, n, nh = _dims(cfg)
+    xp = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
+    xs, b, c = torch.split(_conv_taps(xp, w, bconv, 1), [di, n, n], dim=-1)
+    xh = xs.reshape(xs.shape[0], 1, nh, cfg.ssm_head_dim).float()
+    bf, cf = b.float()[:, 0], c.float()[:, 0]
+    dt1 = dt[:, 0]  # (B, H)
+    decay = torch.exp(-dt1 * a)  # (B, H)
+    upd = torch.einsum("bn,bh,bhp->bhnp", bf, dt1, xh[:, 0])  # state: (B, H, N, P)
+    state = cache["state"] * decay[..., None, None] + upd
+    y = torch.einsum("bn,bhnp->bhp", cf, state)[:, None]  # (B, 1, H, P)
+    cache["conv"].copy_(xp[:, -(cfg.ssm_conv - 1):])
+    cache["state"].copy_(state)
+    return y, xh
+
+
 def apply_ssd(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Params] = None,
               seq_lens: Optional[torch.Tensor] = None,
               slot_ids: Optional[torch.Tensor] = None,
@@ -255,8 +275,9 @@ def apply_ssd(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Para
     chunked-prefill step (row i consumes its first seq_lens[i] columns; dt
     is zeroed past them, an exact identity, and the carried state seeds
     the scan).  With ``slot_ids``, a token-packed step (x is (1, P, D);
-    ``step`` the step's ``recurrent.packed_step``, made here when None).  Returns
-    (y, cache); the cache leaves are updated in place."""
+    ``step`` the step's ``recurrent.packed_step``, made here when None).
+    With neither, single-token decode (x is (B, 1, D)).  Returns (y, cache);
+    the cache leaves are updated in place."""
     cd = cfg.compute_dtype
     proj = x @ p["w_in"].to(cd)
     z, xbc, dt, di, n, nh = _split_proj(cfg, proj)
@@ -283,9 +304,7 @@ def apply_ssd(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Para
     elif slot_ids is not None:
         y, xh = _apply_packed(xbc, dt, a, w, bconv, cfg, cache, slot_ids, step)
     else:
-        raise NotImplementedError(
-            "single-token decode of 'M' layers (decode_step) is not ported; serving "
-            "steps pass seq_lens (chunked) or slot_ids (packed)")
+        y, xh = _apply_decode(xbc, dt, a, w, bconv, cfg, cache)
 
     y = y + xh * p["d_skip"].float()[None, None, :, None]
     y = y.reshape(*y.shape[:2], di)

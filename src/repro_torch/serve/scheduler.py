@@ -16,16 +16,24 @@ graph (``repro_torch.graphs.StepGraph``, the reference's jitted
 greedy tokens, over the step's inputs and the paged kernel's tile plans
 (made on the host) copied into static buffers; admission, prefix sharing
 and copy-on-write page copies run eagerly between the replays, in place on
-the same tensors.  'R' (RG-LRU) and 'M' (Mamba-2) layers carry per-slot
+the same tensors.  Decode is sampled per request (``Request.sampling``,
+``serve.sampling``): the step's logits feed the sampler inside the same
+program, with each row's parameters and its key's output index copied into
+the step's static buffers like its tokens, so a sampled step replays as a
+graph like a greedy one (one graph per step shape and sampler program);
+the default params are greedy and give the greedy program's tokens.
+``spec=`` (``serve.spec``) verifies up to k proposed tokens per decode slot
+in one (B, k + 1) grant, keeps the prefix the target's sampled columns
+confirm plus a bonus token, and rolls the rejected tail back
+(``KVCache.trim_slot`` on the paged layout).  'R' (RG-LRU) and 'M' (Mamba-2) layers carry per-slot
 recurrent state, updated in place like the KV pools (so a replay carries
 it): a recycled slot's rows are zeroed on admission, and prefix sharing
 (and the in-flight prefix dedup that waits for it) is off for them.
 Scheduling, deferral and accounting match the reference exactly; ``tests/test_torch_serve.py`` holds the streams, step counts,
 per-step stats and block tables to it.
 
-Not ported yet (each raises a typed error): speculative decoding
-(``spec``), a device mesh (``dist``), MoE capacity dispatch
-(``capacity_factor``) and sampling with ``temperature > 0``.
+Not ported yet (each raises a typed error): a device mesh (``dist``) and
+MoE capacity dispatch (``capacity_factor``).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..graphs import StepGraph
 from ..models.config import ModelConfig
@@ -50,7 +59,8 @@ from ..models.model import (
 )
 from . import packing
 from .kv import KVCache, KVCacheSpec, reset_recurrent_state
-from .sampling import SamplingParams, greedy_tokens
+from .sampling import SamplingParams, sample_mode, sample_rows
+from .spec import Proposer, SpecConfig, accept_sampled
 
 __all__ = [
     "AdmissionError",
@@ -61,7 +71,6 @@ __all__ = [
     "StepStats",
     "UnsupportedDistError",
     "UnsupportedPatternError",
-    "UnsupportedSamplingError",
 ]
 
 
@@ -78,12 +87,6 @@ class AdmissionError(RuntimeError):
 class InvalidRequestError(ValueError):
     """A request the engine can never serve correctly (empty prompt,
     ``max_new_tokens < 1``, longer than a slot)."""
-
-
-class UnsupportedSamplingError(InvalidRequestError):
-    """A request asks for stochastic sampling (``temperature > 0``), which
-    the port does not have yet: it needs JAX's threefry bits to replay the
-    reference's seeded streams."""
 
 
 class EngineStateError(RuntimeError):
@@ -144,8 +147,8 @@ class Request:
 
 @dataclasses.dataclass
 class StepStats:
-    """Per-iteration scheduling record (the reference's fields; the
-    speculative and MoE ones stay 0 in the port)."""
+    """Per-iteration scheduling record (the reference's fields; the MoE
+    one stays 0 in the port)."""
 
     step: int
     decode_tokens: int  # decode slots fed (1 baseline token each)
@@ -154,8 +157,8 @@ class StepStats:
     wall_time: float  # host-measured step duration (seconds), device synced
     shared_tokens: int = 0  # prompt tokens covered by prefix-cache pages
     used_pages: int = 0  # paged layout: pages referenced after this step
-    draft_tokens: int = 0
-    accepted_tokens: int = 0
+    draft_tokens: int = 0  # speculative draft tokens verified this step
+    accepted_tokens: int = 0  # drafts the target model accepted
     queued_requests: int = 0  # requests waiting for a slot at step start
     #: scheduled tokens past ``token_budget`` this step (decode baselines
     #: and the starvation guard may exceed it by design); 0 with no budget
@@ -190,8 +193,10 @@ class ContinuousBatcher:
     ``max_queue`` (``submit`` raises ``AdmissionError`` beyond it),
     ``packed`` (token-packed step), ``cache`` ("dense", "paged" or a
     ``KVCacheSpec``), ``page_size``/``num_pages``/``kv_dtype`` (paged
-    knobs).  The engine runs on the parameters' device and casts them to
-    the compute dtype once (``models.model.compute_params``).
+    knobs), ``spec`` (a ``serve.spec.SpecConfig`` or a bare ``Proposer``:
+    speculative decoding, refused for 'R'/'M' stacks, whose carried state
+    cannot roll back).  The engine runs on the parameters' device and casts
+    them to the compute dtype once (``models.model.compute_params``).
     """
 
     def __init__(
@@ -216,13 +221,25 @@ class ContinuousBatcher:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         if token_budget is not None and token_budget < 1:
             raise ValueError(f"token_budget must be >= 1, got {token_budget}")
+        if isinstance(spec, Proposer):
+            spec = SpecConfig(proposer=spec)
+        self.spec = spec
         if spec is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported to repro_torch yet")
+            if not isinstance(spec, SpecConfig):
+                raise TypeError(f"spec must be a SpecConfig or a Proposer, got "
+                                f"{type(spec).__name__}")
+            spec.proposer.bind_engine(batch_slots, max_len)
         if dist is not None:
             raise UnsupportedDistError(
                 "repro_torch serves on one device; a Distribution is not supported yet")
         require_chunkable(cfg, "ContinuousBatcher")
+        if set(cfg.pattern) & {"R", "M"} and spec is not None:
+            # raised here, not on the first rejected draft: trim_slot would
+            # refuse mid-serve, stranding every in-flight request
+            raise UnsupportedPatternError(
+                "speculative decoding needs KV rollback of rejected drafts; recurrent "
+                "state ('R'/'M' layers) has already consumed them and cannot roll back "
+                "(see KVCache.trim_slot)")
         if capacity_factor is not None:
             # the reference's check; the port refuses MoE configs above
             raise ValueError(
@@ -244,7 +261,8 @@ class ContinuousBatcher:
             )
         self.packed = packed
         self.packed_capacity = (
-            packing.packed_capacity(batch_slots, chunk_size, token_budget)
+            packing.packed_capacity(batch_slots, chunk_size, token_budget,
+                                    draft_k=spec.k if spec is not None else 0)
             if packed else None
         )
         # pure-decode steps run a batch_slots-sized packed step
@@ -300,12 +318,6 @@ class ContinuousBatcher:
                 f"request {req.uid}: sampling must be a SamplingParams, "
                 f"got {type(req.sampling).__name__}"
             )
-        if not req.sampling.greedy:
-            raise UnsupportedSamplingError(
-                f"request {req.uid}: temperature={req.sampling.temperature} "
-                f"needs stochastic sampling, which repro_torch does not have "
-                f"yet (greedy only)"
-            )
         if len(req.prompt) + req.max_new_tokens > self.max_len:
             raise InvalidRequestError(
                 f"request {req.uid} too long: {len(req.prompt)} prompt + "
@@ -351,6 +363,8 @@ class ContinuousBatcher:
                 self.cancelled[uid] = r
                 if self.kv is not None:
                     self.kv.free_slot(i)
+                if self.spec is not None:
+                    self.spec.proposer.free_slot(i)
                 return True
         return False
 
@@ -406,24 +420,62 @@ class ContinuousBatcher:
         return bool(self.queue) or any(not s.free for s in self.slots)
 
     # ------------------------------------------------------------------
-    def _schedule(self) -> List[int]:
+    def _propose(self) -> Dict[int, List[int]]:
+        """Ask the proposer for drafts per decode slot, the ask clamped so a
+        verify grant never writes past the slot (``max_len``) or emits past
+        ``max_new_tokens`` (``scheduler.py:637-672``)."""
+        if self.spec is None:
+            return {}
+        decode_slots = [i for i, s in enumerate(self.slots) if not s.free and not s.prefilling]
+        # drafts come from the budget left after the decode baselines: no
+        # proposer work for tokens the scheduler can never grant
+        headroom = (self.spec.k if self.token_budget is None
+                    else self.token_budget - len(decode_slots))
+        if headroom <= 0:
+            return {}
+        asks = []
+        for i in decode_slots:
+            s = self.slots[i]
+            r = s.req
+            k = min(self.spec.k, headroom, r.max_new_tokens - len(r.output) - 1,
+                    self.max_len - s.pos - 1)
+            if k > 0:
+                asks.append((i, r.prompt + r.output, k))
+        if not asks:
+            return {}
+        drafts = self.spec.proposer.propose_batch(asks)
+        # never trust a proposer to honour the clamp it was given
+        return {i: list(drafts.get(i, ()))[:k] for i, _, k in asks}
+
+    def _schedule(self, drafts: Dict[int, List[int]]) -> List[int]:
         """Per-slot token counts for this step under the budget: decode
-        baselines first (unconditional), then prefill chunks in admission
-        order until ``token_budget`` is spent; the oldest prefill always
-        gets at least one token (starvation guard)."""
+        baselines first (unconditional), then draft tokens, then prefill
+        chunks, both in admission order, until ``token_budget`` is spent;
+        the oldest prefill always gets at least one token (starvation
+        guard)."""
         n = [0] * len(self.slots)
         spent = 0
-        prefill = []
+        prefill, decode = [], []
         for i, s in enumerate(self.slots):
             if s.free:
                 continue
             if not s.prefilling:
                 n[i] = 1
                 spent += 1
+                decode.append(i)
             else:
                 prefill.append(i)
-        prefill.sort(key=lambda i: (self.slots[i].req.admitted_step, self.slots[i].req.uid))
-        for rank, i in enumerate(prefill):
+
+        def by_age(i):
+            return self.slots[i].req.admitted_step, self.slots[i].req.uid
+
+        for i in sorted(decode, key=by_age):
+            want = len(drafts.get(i, ()))
+            left = want if self.token_budget is None else self.token_budget - spent
+            grant = min(want, max(left, 0))
+            n[i] += grant
+            spent += grant
+        for rank, i in enumerate(sorted(prefill, key=by_age)):
             s = self.slots[i]
             want = min(self.chunk_size, len(s.req.prompt) - s.pos)
             left = want if self.token_budget is None else self.token_budget - spent
@@ -434,28 +486,89 @@ class ContinuousBatcher:
             spent += grant
         return n
 
-    def _program(self, tokens, where, third, *plans):
-        """One step from the embedding through the greedy tokens: a dense
+    def _program(self, tokens, where, third, pick, *rest, mode: str = "greedy"):
+        """One step from the embedding through the sampled tokens: a dense
         (B, C) step (``where`` the slots' positions, ``third`` their token
         counts) or a packed one (``where`` the slot ids, ``third`` the
-        positions); ``plans`` the paged kernel's tile plans, one per
-        attention kind."""
+        positions).  ``pick`` (R,) lists the flattened logits rows the step
+        reads (``_picks``), which alone are sampled; ``rest`` the paged
+        kernel's tile plans, one per attention kind, then, unless ``mode``
+        is ``"greedy"``, the sampler's per-row seeds, output indices,
+        temperatures, top-k and top-p of the R rows."""
         step = packed_prefill if self.packed else prefill_chunk
+        n_plans = len(self._plan_kinds)
+        plans, sampler = rest[:n_plans], rest[n_plans:]
         logits, _ = step(self.params, self.cfg, self.cache, tokens, where, third,
                          plans=dict(zip(self._plan_kinds, plans)) if plans else None)
-        return greedy_tokens(logits)
+        rows = logits.reshape(-1, logits.shape[-1])[torch.as_tensor(pick, device=logits.device)]
+        return sample_rows(rows, *(sampler or (None,) * 5), mode)
 
-    def _run(self, key, tokens, where, third, plans) -> np.ndarray:
-        """Run the step program (its graph for ``key`` on the card) and read
-        its tokens back, which syncs the step."""
+    @property
+    def _pick_rows(self) -> int:
+        """R, the logits rows a step samples: one a slot (its last granted
+        column), ``k + 1`` a slot with speculation (a verify grant's every
+        column)."""
+        return len(self.slots) * (self.spec.k + 1 if self.spec is not None else 1)
+
+    def _picks(self, grants, first_row, out_idx):
+        """The rows a step reads and their sampler inputs: for each grant,
+        its last column (a prefill chunk's, which emits the slot's first
+        token once the prompt is in) or, for a decode or verify grant, every
+        column; ``first_row(i)`` is slot i's first row in the flattened
+        logits and ``out_idx(i, j)`` its column j's output index.  Returns
+        (pick (R,), {slot: [(column, position in pick)]}, the sampler's
+        per-row host arrays (seeds, output indices, temperatures, top-k,
+        top-p)); the rows past the needed ones repeat row 0 (greedy,
+        discarded)."""
+        r = self._pick_rows
+        pick = np.zeros(r, np.int64)
+        seeds, oidx = np.zeros(r, np.int64), np.zeros(r, np.int64)
+        temps, topk, topp = np.zeros(r, np.float32), np.zeros(r, np.int64), np.ones(r, np.float32)
+        where: Dict[int, List] = {}
+        at = 0
+        for i, _, toks in grants:
+            cols = [len(toks) - 1] if self.slots[i].prefilling else range(len(toks))
+            sp = self.slots[i].req.sampling
+            where[i] = []
+            for j in cols:
+                pick[at] = first_row(i) + j
+                seeds[at], oidx[at] = sp.seed & 0xFFFFFFFF, max(out_idx(i, j), 0)
+                temps[at], topk[at], topp[at] = sp.temperature, sp.top_k, sp.top_p
+                where[i].append((j, at))
+                at += 1
+        return pick, where, (seeds, oidx, temps, topk, topp)
+
+    def _run(self, key, tokens, where, third, plans, grants, first_row, out_idx
+             ) -> Dict[int, np.ndarray]:
+        """Run the step program (its graph for ``key`` and the sampler's
+        program on the card) and read its tokens back, which syncs the
+        step.  Returns {slot: the grant's per-column tokens}: the columns the
+        step reads (``_picks``) hold the sampled tokens, the others -1."""
+        pick, at, sampler = self._picks(grants, first_row, out_idx)
         plans = [plans[k] for k in self._plan_kinds] if plans else []
-        return self.step_graph(key, tokens, where, third, *plans).cpu().numpy()
+        mode = sample_mode(*sampler[2:])
+        extra = [] if mode == "greedy" else list(sampler)
+        got = self.step_graph(key, tokens, where, third, pick, *plans, *extra,
+                              mode=mode).cpu().numpy()
+        out = {}
+        for i, _, toks in grants:
+            out[i] = np.full(len(toks), -1, np.int64)
+            for j, a in at[i]:
+                out[i][j] = got[a]
+        return out
 
-    def _run_dense(self, grants) -> Dict[int, np.ndarray]:
-        """Dense (B, C) step; returns {slot: per-granted-column argmax}."""
+    def _run_dense(self, grants, out_base) -> Dict[int, np.ndarray]:
+        """Dense (B, C) step; returns {slot: per-granted-column sampled
+        tokens} (the last column the emitted or bonus token, a verify
+        grant's earlier ones what the verifier checks drafts against).
+        ``out_base`` maps a slot to the output index of its first column's
+        prediction (negative mid-prefill: such a column is never read)."""
         b = len(self.slots)
         mixed = any(self.slots[i].prefilling for i, _, _ in grants)
         c = self.chunk_size if mixed else 1
+        if self.spec is not None:
+            # verify grants are up to 1 + k wide, folded into fixed widths
+            c = max(c, self.spec.k + 1) if mixed else self.spec.k + 1
         tokens = np.zeros((b, c), np.int64)
         pos = np.zeros((b,), np.int64)
         lens = np.zeros((b,), np.int64)
@@ -463,25 +576,28 @@ class ContinuousBatcher:
             tokens[i, : len(toks)] = toks
             pos[i] = pos0
             lens[i] = len(toks)
-        next_tok = self._run((b, c), tokens, pos, lens,
-                             chunk_plans(self.cfg, self.cache, pos, lens, c))  # (B, C)
-        return {i: next_tok[i, : len(toks)] for i, _, toks in grants}
+        return self._run((b, c), tokens, pos, lens, chunk_plans(self.cfg, self.cache, pos, lens, c),
+                         grants, lambda i: i * c, lambda i, j: out_base[i] + j)
 
-    def _run_packed(self, grants) -> Dict[int, np.ndarray]:
+    def _run_packed(self, grants, out_base) -> Dict[int, np.ndarray]:
         """Token-packed (capacity,) step: pure-decode steps take the
-        batch_slots-sized program, anything else the mixed capacity."""
+        batch_slots-sized program, anything else (prefill, drafts) the mixed
+        capacity.  Each row samples with its slot's params and its own
+        output index (``PackedLayout.out_idx``), as the dense row of the
+        same (request, output index) does."""
         capacity = self.packed_capacity
         if all(len(toks) == 1 for _, _, toks in grants):
             capacity = self.packed_decode_capacity
-        layout = packing.pack_step(grants, capacity)
+        layout = packing.pack_step(grants, capacity, out_base=out_base)
         slot_ids = layout.slot_ids.astype(np.int64)
         positions = layout.positions.astype(np.int64)
-        next_tok = self._run(capacity, layout.tokens.astype(np.int64), slot_ids, positions,
-                             packed_plans(self.cfg, self.cache, slot_ids, positions))  # (P,)
-        return {i: next_tok[j : j + m] for i, (j, m) in layout.spans.items()}
+        return self._run(capacity, layout.tokens.astype(np.int64), slot_ids, positions,
+                         packed_plans(self.cfg, self.cache, slot_ids, positions), grants,
+                         lambda i: layout.spans[i][0],
+                         lambda i, j: int(layout.out_idx[layout.spans[i][0] + j]))
 
     def step(self):
-        """One engine iteration: mixed chunked-prefill + decode."""
+        """One engine iteration: mixed chunked-prefill + decode / verify."""
         t0 = time.perf_counter()
         queued0 = len(self.queue)
         self._shared_step = 0
@@ -495,9 +611,15 @@ class ContinuousBatcher:
                     if n_sh:
                         s.pos += n_sh
                         self._shared_step += n_sh
-        n = self._schedule()
-        decode_toks = prefill_toks = deferred = 0
+        drafts = self._propose()
+        n = self._schedule(drafts)
+        decode_toks = prefill_toks = deferred = draft_toks = accepted_toks = 0
         grants: List[packing.Grant] = []  # (slot, start pos, tokens)
+        granted_draft: Dict[int, List[int]] = {}
+        # slot -> output index of the grant's first column's prediction:
+        # column c at position pos + c predicts output pos + c + 1 -
+        # len(prompt), the index the sampler's key folds in
+        out_base: Dict[int, int] = {}
         for i, s in enumerate(self.slots):
             if s.free or n[i] == 0:
                 if not s.free and s.prefilling:
@@ -509,8 +631,13 @@ class ContinuousBatcher:
                 prefill_toks += n[i]
                 deferred += max(min(self.chunk_size, len(r.prompt) - s.pos) - n[i], 0)
             else:
-                toks = [r.output[-1] if r.output else r.prompt[-1]]
+                # the budget may have cut the proposer's draft
+                draft = drafts.get(i, [])[: n[i] - 1]
+                granted_draft[i] = draft
+                toks = [r.output[-1] if r.output else r.prompt[-1]] + draft
                 decode_toks += 1
+                draft_toks += len(draft)
+            out_base[i] = s.pos + 1 - len(r.prompt)
             grants.append((i, s.pos, toks))
 
         if self.kv is not None:
@@ -520,7 +647,8 @@ class ContinuousBatcher:
             self.cache = self.kv.state
         used_pages = self.kv.used_pages if self.kv is not None else 0
 
-        sampled = self._run_packed(grants) if self.packed else self._run_dense(grants)
+        sampled = (self._run_packed(grants, out_base) if self.packed
+                   else self._run_dense(grants, out_base))
         if self.kv is not None:
             self.kv.state = self.cache
 
@@ -535,9 +663,24 @@ class ContinuousBatcher:
                     self.kv.register_prompt_pages(i, r.prompt, s.pos)
                 if s.pos < len(r.prompt):
                     continue  # still mid-prompt; no token emitted this step
+                emitted = [int(sampled[i][n[i] - 1])]
             else:
-                s.pos += 1
-            r.output.append(int(sampled[i][n[i] - 1]))
+                # verify: keep the draft prefix the target's per-column
+                # samples confirm, plus the bonus token; roll back the rest
+                accepted, emitted = accept_sampled(granted_draft[i], sampled[i])
+                remaining = r.max_new_tokens - len(r.output)
+                if len(emitted) > remaining:
+                    # never stream past max_new_tokens; the request ends this
+                    # step and free_slot reclaims the untrimmed tail
+                    emitted = emitted[:remaining]
+                    accepted = len(emitted) - 1
+                    s.pos += 1 + accepted
+                else:
+                    s.pos += 1 + accepted
+                    if self.kv is not None and accepted < len(granted_draft[i]):
+                        self.kv.trim_slot(i, s.pos)
+                accepted_toks += accepted
+            r.output.extend(emitted)
             if r.first_token_at is None:
                 r.first_token_at = now
                 r.first_token_step = self.steps
@@ -548,12 +691,16 @@ class ContinuousBatcher:
                 s.req = None
                 if self.kv is not None:
                     self.kv.free_slot(i)
+                if self.spec is not None:
+                    self.spec.proposer.free_slot(i)
 
-        scheduled = decode_toks + prefill_toks
+        scheduled = decode_toks + draft_toks + prefill_toks
         stats = StepStats(
             self.steps, decode_toks, prefill_toks, deferred, now - t0,
             shared_tokens=self._shared_step,
             used_pages=used_pages,
+            draft_tokens=draft_toks,
+            accepted_tokens=accepted_toks,
             queued_requests=queued0,
             budget_overshoot=(
                 max(scheduled - self.token_budget, 0)
@@ -586,8 +733,7 @@ class ContinuousBatcher:
             self.kv.reset_accounting()
 
     def stats_summary(self) -> Dict[str, float]:
-        """Aggregate engine + latency statistics (the reference's keys,
-        less the speculative ones)."""
+        """Aggregate engine + latency statistics (the reference's keys)."""
         st = self.step_stats
         done = list(self.finished.values())
         ttfts = [r.ttft for r in done if r.ttft is not None]
@@ -612,11 +758,23 @@ class ContinuousBatcher:
             if self.kv is not None
             else {}
         )
+        n_draft = sum(s.draft_tokens for s in st)
+        n_accept = sum(s.accepted_tokens for s in st)
+        spec = (
+            {
+                "draft_tokens": float(n_draft),
+                "accepted_tokens": float(n_accept),
+                "acceptance_rate": n_accept / n_draft if n_draft else float("nan"),
+            }
+            if self.spec is not None
+            else {}
+        )
         generated = sum(len(r.output) for r in done)
         waits = [r.queue_wait for r in done if r.queue_wait is not None]
         admitted = [r.admitted_ttft for r in done if r.admitted_ttft is not None]
         return {
             **paged,
+            **spec,
             "generated_tokens": float(generated),
             "steps_per_token": self.steps / generated if generated else float("nan"),
             "truncated": float(sum(r.truncated for r in done)),

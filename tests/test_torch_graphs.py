@@ -47,6 +47,7 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import tree_leaves  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, KVCacheSpec, Request, pack_step  # noqa: E402
 from repro_torch.serve import scheduler  # noqa: E402
+from repro_torch.serve import sampling  # noqa: E402
 from test_torch_parity_util import assert_close, plan_scenario, walk_plan  # noqa: E402
 
 torch.set_num_threads(1)
@@ -338,8 +339,9 @@ def _no_reads_back(monkeypatch):
 @pytest.mark.parametrize("packed", [False, True], ids=["chunked", "packed"])
 def test_step_reads_nothing_back(qwen, mamba, monkeypatch, family, layout, packed):
     """Given its inputs on the device and its plans, a serving step (the
-    engine's step program) makes no host sync: no ``nonzero``, no copy back,
-    no plan made from device tensors."""
+    engine's step program, greedy and sampled with top-k and top-p) makes
+    no host sync: no ``nonzero``, no copy back, no plan made from device
+    tensors.  It samples the rows ``pick`` names, one a slot here."""
     jc, tc, jp, tp = qwen if family == "qwen" else mamba
     eng = ContinuousBatcher(tp, tc, batch_slots=B, max_len=MAX_LEN, chunk_size=CHUNK,
                             cache=layout, page_size=PAGE, packed=packed)
@@ -362,9 +364,14 @@ def test_step_reads_nothing_back(qwen, mamba, monkeypatch, family, layout, packe
         plans = model.chunk_plans(tc, eng.cache, pos, lens, CHUNK)
     args = [torch.as_tensor(np.asarray(x, np.int64)) for x in args]
     plans = [torch.from_numpy(plans[k]) for k in sorted(plans or {})]
+    rows = eng._pick_rows
+    pick = torch.arange(rows) * (1 if packed else CHUNK)
+    sampler = sampling.sampler_inputs(np.arange(rows), np.arange(rows), np.full(rows, 0.8),
+                                      np.full(rows, 5), np.full(rows, 0.9))
     with _no_reads_back(monkeypatch):
-        out = eng._program(*args, *plans)
-    assert out.shape == args[0].shape
+        out = eng._program(*args, pick, *plans)
+        sampled = eng._program(*args, pick, *plans, *sampler, mode="topk+topp")
+    assert out.shape == sampled.shape == (rows,)
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +446,22 @@ def test_new_shape_new_graph_repeated_shape_new_inputs():
     assert sg.keys == [(3,), (4,)]
     with pytest.raises(ValueError, match="shapes"):
         sg((3,), np.zeros(5), np.zeros(5))
+
+
+def _scaled_step(x, *, scale):
+    return x * scale
+
+
+def test_static_arguments_pick_their_own_graph():
+    """A keyword argument chooses the program, so the same shape key with
+    another value captures another graph; a repeated value replays."""
+    capture = FakeCapture()
+    sg = graphs.StepGraph(_scaled_step, "cpu", capture=capture)
+    assert torch.equal(sg((2,), np.ones(2), scale=2.0), torch.tensor([2.0, 2.0]))
+    assert torch.equal(sg((2,), np.ones(2), scale=3.0), torch.tensor([3.0, 3.0]))
+    assert torch.equal(sg((2,), np.full(2, 4.0), scale=2.0), torch.tensor([8.0, 8.0]))
+    assert len(capture.graphs) == 2 and [g.replays for g in capture.graphs] == [1, 0]
+    assert sg.keys == [((2,), (("scale", 2.0),)), ((2,), (("scale", 3.0),))]
 
 
 def test_outputs_are_overwritten_by_the_next_replay():

@@ -759,3 +759,119 @@ class TestGraphsOnCard:
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert counts == want_counts
         assert counts["masked_accum"] == len(got) * (7 + 4)
+
+
+#: GUMBEL_TOL of tests/test_torch_sampling.py: each ``log`` of the Gumbel
+#: draw may differ by an ulp between libraries (CUDA's against the CPU's)
+GUMBEL_TOL = dict(atol=2.0 ** -20, rtol=2.0 ** -21)
+#: chip_smoke.py's LOGITS_REL_TOL: paged (K4) against dense (plain) logits
+LOGITS_REL_TOL = 0.03
+
+
+@pytest.mark.gpu
+class TestDecodeAndSamplingOnCard:
+    @pytest.mark.parametrize("v", [503, 151_936])
+    def test_sampler_matches_the_cpu_port(self, cuda, v):
+        """The sampler on the card: the PRNG words equal the CPU port's bit
+        for bit (the CPU port is held to ``jax.random`` by
+        test_torch_sampling.py), the Gumbel draws within GUMBEL_TOL, and the
+        tokens of every program equal the CPU port's."""
+        from repro_torch.serve import sampling
+
+        rng = np.random.default_rng(v)
+        lg = torch.from_numpy(rng.normal(size=(8, v)).astype(np.float32) * 3)
+        seeds = np.asarray([0, 2**32 - 1, 1, 7, 12345, 2**31, 99, 3], np.int64)
+        oidx = np.asarray([0, 1, 2**20, 5, 31, 1000, 2**19, 17], np.int64)
+        keys = [sampling.fold_in(sampling.prng_key(torch.from_numpy(seeds).to(d)),
+                                 torch.from_numpy(oidx).to(d)) for d in (cuda, "cpu")]
+        words = [sampling.random_bits(k, v) for k in keys]
+        assert torch.equal(words[0].cpu(), words[1])
+        np.testing.assert_allclose(sampling.gumbel_from_bits(words[0]).cpu().numpy(),
+                                   sampling.gumbel_from_bits(words[1]).numpy(), **GUMBEL_TOL)
+        for t, k, p in [(0.0, 0, 1.0), (0.9, 0, 1.0), (0.7, 50, 1.0), (1.3, 0, 0.9),
+                        (0.8, 50, 0.95), (1.0, 1, 1e-6)]:
+            rows = (seeds, oidx, np.full(8, t, np.float32), np.full(8, k, np.int64),
+                    np.full(8, p, np.float32))
+            rows[2][3] = 0.0
+            mode = sampling.sample_mode(*rows[2:])
+            got = sampling.sample_rows(lg.to(cuda), *sampling.sampler_inputs(*rows, device=cuda),
+                                       mode)
+            want = sampling.sample_rows(lg, *sampling.sampler_inputs(*rows), mode)
+            assert torch.equal(got.cpu(), want), (t, k, p)
+
+    @pytest.mark.parametrize("name,layers", [("qwen2_5_3b", 2), ("recurrentgemma_2b", 3)])
+    def test_paged_decode_step_matches_dense(self, cuda, name, layers):
+        """``decode_step`` through ``make_serve_step`` at the published widths:
+        paged (K4) against the dense layout (plain attention; recurrentgemma's
+        on its ring) within LOGITS_REL_TOL at every step, and its graphed
+        steps equal to the eager steps bit for bit."""
+        from repro_torch.launch import steps
+        from repro_torch.serve import KVCacheSpec
+
+        cfg = dataclasses.replace(get_config(name), n_layers=layers)
+        params = model.compute_params(model.init_params(cfg, seed=0, device=cuda), cfg)
+        n, max_len = 3, 96
+        rng = np.random.default_rng(4)
+        seqs = rng.integers(0, cfg.vocab_size, (n, max_len))
+        offsets = np.asarray([0, 7, 30])
+
+        def caches():
+            kv = KVCacheSpec(num_slots=n, max_len=max_len, layout="paged",
+                             page_size=16).build(params, cfg)
+            for i in range(n):
+                assert kv.admit_slot(i, list(range(max_len - 1)), 1) == 0
+                kv.prepare_write(i, 0, max_len)
+            return {"paged": kv.state, "dense": model.init_decode_cache(params, cfg, n, max_len)}
+
+        def run(eager):
+            cs = caches()
+            serve = {k: steps.make_serve_step(cfg) for k in cs}
+            out = []
+            with (graphs.disable_graphs() if eager else contextlib.nullcontext()):
+                for t in range(max_len - offsets.max()):
+                    pos = offsets + t
+                    tok = seqs[np.arange(n), pos][:, None]
+                    for k in cs:
+                        serve[k](params, cs[k], tok, pos)
+                    out.append({k: serve[k].logits.clone() for k in cs})
+            return out
+
+        eager, graphed = run(True), run(False)
+        for e, g in zip(eager, graphed):
+            assert all(torch.equal(e[k], g[k]) for k in e)
+            gap = (g["paged"].float() - g["dense"].float()).abs().max()
+            assert float(gap) <= LOGITS_REL_TOL * float(g["dense"].float().abs().max())
+
+    @pytest.mark.parametrize("proposer", ["none", "ngram", "self-draft"])
+    def test_sampled_and_speculative_streams_graphed_equal_eager(self, cuda, proposer):
+        """Sampled requests (mixed with greedy ones), with and without
+        speculation, on the paged engine: the graphed streams equal the eager
+        ones, no page leaks, and each step launches one K4 a layer."""
+        from repro_torch.serve import (DraftModelProposer, NGramProposer, SamplingParams,
+                                       SpecConfig)
+
+        cfg, params = two_layers("qwen2_5_3b", cuda)
+        params = model.compute_params(params, cfg)
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 17, 70, 5)]
+
+        def serve():
+            spec = {"none": None, "ngram": SpecConfig(NGramProposer(), k=4),
+                    "self-draft": SpecConfig(DraftModelProposer(params, cfg, 4, 128), k=4)}[proposer]
+            eng = ContinuousBatcher(params, cfg, batch_slots=4, max_len=128, chunk_size=16,
+                                    token_budget=40, cache="paged", page_size=16, spec=spec)
+            for i, p in enumerate(prompts):
+                sp = SamplingParams() if i == 1 else SamplingParams(
+                    temperature=0.8, top_p=0.95, top_k=50 if i == 2 else 0, seed=i)
+                eng.submit(Request(uid=i, prompt=p, max_new_tokens=12, sampling=sp))
+            ops.reset_launch_counts()
+            eng.run()
+            torch.cuda.synchronize()
+            eng.kv.check_invariants()
+            assert eng.kv.used_pages == 0
+            assert ops.launch_counts()["paged_attention"] == cfg.n_layers * eng.steps
+            return {u: r.output for u, r in eng.finished.items()}
+
+        with graphs.disable_graphs():
+            want = serve()
+        assert serve() == want and all(len(v) == 12 for v in want.values())

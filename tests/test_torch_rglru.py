@@ -229,11 +229,22 @@ class TestApplyRglru:
                 np.testing.assert_array_equal(tcache["h"][s].numpy(), cache["h"][s])
 
     def test_decode_branch_is_not_ported(self, cfgs):
+        """The single-token branch (``decode_step``'s), which earlier slices
+        refused, against the reference's over several steps from a carried
+        state: outputs and both cache leaves."""
         jc, tc = cfgs
-        _, tp = block_params(jc, 0)
-        cache = {k: t(v) for k, v in block_cache(jc, 2, 0).items()}
-        with pytest.raises(NotImplementedError, match="decode_step"):
-            rglru.apply_rglru(tp, torch.zeros(2, 1, tc.d_model), tc, cache)
+        jp, tp = block_params(jc, 0)
+        cache = block_cache(jc, 3, 0)
+        tcache = {k: t(v) for k, v in cache.items()}
+        jcache = jnp_tree(cache)
+        rng = np.random.default_rng(4)
+        for _ in range(5):
+            x = rng.normal(size=(3, 1, jc.d_model)).astype(np.float32)
+            wy, jcache = jrg.apply_rglru(jp, jnp.asarray(x), jc, jcache)
+            gy, _ = rglru.apply_rglru(tp, t(x), tc, tcache)
+            assert_close(gy, wy, "model_f32")
+            for k in ("conv", "h"):
+                assert_close(tcache[k], jcache[k], "model_f32")
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -33,7 +33,6 @@ from repro_torch.serve import (  # noqa: E402
     Request,
     SamplingParams,
     UnsupportedDistError,
-    UnsupportedSamplingError,
     pack_step,
     packed_capacity,
 )
@@ -145,26 +144,30 @@ def test_int8_pages_token_match_tier(params):
 
 
 def test_typed_refusals(params):
+    """The engine's typed refusals; sampling and ``spec=``, which earlier
+    slices refused, are served now: a sampled request runs to its length,
+    and ``spec`` must be a ``SpecConfig`` or a ``Proposer``."""
     _, tp = params
     eng = ContinuousBatcher(tp, CFG, batch_slots=2, max_len=16)
-    with pytest.raises(UnsupportedSamplingError):
-        eng.submit(Request(uid=0, prompt=[1, 2], max_new_tokens=2,
-                           sampling=SamplingParams(temperature=0.7, seed=1)))
-    assert issubclass(UnsupportedSamplingError, InvalidRequestError)
+    eng.submit(Request(uid=0, prompt=[1, 2], max_new_tokens=2,
+                       sampling=SamplingParams(temperature=0.7, seed=1)))
+    with pytest.raises(InvalidRequestError, match="SamplingParams"):
+        eng.submit(Request(uid=4, prompt=[1, 2], max_new_tokens=2, sampling=object()))
     with pytest.raises(InvalidRequestError, match="too long"):
         eng.submit(Request(uid=1, prompt=[1] * 10, max_new_tokens=10))
     with pytest.raises(InvalidRequestError, match="empty prompt"):
         eng.submit(Request(uid=2, prompt=[], max_new_tokens=1))
     with pytest.raises(UnsupportedDistError):
         ContinuousBatcher(tp, CFG, batch_slots=2, max_len=16, dist=object())
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(TypeError, match="SpecConfig"):
         ContinuousBatcher(tp, CFG, batch_slots=2, max_len=16, spec=object())
     with pytest.raises(ValueError, match="n_experts=0"):
         ContinuousBatcher(tp, CFG, batch_slots=2, max_len=16, capacity_factor=1.25)
     # greedy params with top-k/top-p knobs are still greedy: accepted
     eng.submit(Request(uid=3, prompt=[1, 2], max_new_tokens=2,
                        sampling=SamplingParams(top_k=5, top_p=0.9)))
-    assert len(eng.run()[3].output) == 2
+    done = eng.run()
+    assert len(done[3].output) == 2 and len(done[0].output) == 2
 
 
 def test_paged_tables_match_reference_on_seeded_ops():

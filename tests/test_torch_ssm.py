@@ -301,11 +301,22 @@ class TestApplySsd:
                 assert_close(tcache[k], wc[k], "model_f32")
 
     def test_decode_branch_is_not_ported(self):
-        tc = get_config("mamba2_tiny")
-        _, tp = block_params(jget_config("mamba2_tiny"), 0)
-        cache = {k: t(v) for k, v in block_cache(jget_config("mamba2_tiny"), 2, 0).items()}
-        with pytest.raises(NotImplementedError, match="decode_step"):
-            ssm.apply_ssd(tp, torch.zeros(2, 1, tc.d_model), tc, cache)
+        """The single-token branch (``decode_step``'s), which earlier slices
+        refused, against the reference's over several steps from a carried
+        state: outputs and both cache leaves."""
+        jc, tc = jget_config("mamba2_tiny"), get_config("mamba2_tiny")
+        jp, tp = block_params(jc, 0)
+        cache = block_cache(jc, 3, 0)
+        tcache = {k: t(v) for k, v in cache.items()}
+        jcache = {k: jnp.asarray(v) for k, v in cache.items()}
+        rng = np.random.default_rng(4)
+        for _ in range(5):
+            x = rng.normal(size=(3, 1, jc.d_model)).astype(np.float32)
+            wy, jcache = jssm.apply_ssd(jp, jnp.asarray(x), jc, jcache)
+            gy, _ = ssm.apply_ssd(tp, t(x), tc, tcache)
+            assert_close(gy, wy, "model_f32")
+            for k in ("conv", "state"):
+                assert_close(tcache[k], jcache[k], "model_f32")
 
 
 # ---------------------------------------------------------------------------
