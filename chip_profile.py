@@ -51,7 +51,9 @@ one 8,192-token sequence; K3's (256, 10) build filed under K3), then the
 18 RG-LRU mixers' share of a kept micro-batch (``rg_train_mixer_share``),
 ``sampled_serve`` and ``spec_serve`` its phase 14c and 14d engines
 (``sampled_profiles``: the sampler's share of the busy time, read from
-the eager run's trace, the proposer's of the wall).  ``kernels`` also times K3's (128, 8) build at the
+the eager run's trace, the proposer's of the wall), ``zoo_serve`` the
+serving runs of its phase 15 for gemma3-27b (62 layers, bf16 parameters,
+its nine requests; K4's (128, 2) build filed under K4).  ``kernels`` also times K3's (128, 8) build at the
 qwen training shape (``k3_timing``) with a digest of its outputs, gives a
 digest of K4's (128, 8) outputs (``k4_digests``) and times K4's (256, 10)
 build.  A copy of this script placed at the
@@ -419,7 +421,7 @@ def sampled_profiles(cfg, params, prompts, seed: int, part: str) -> None:
 
 TAG = ""
 PARTS = ("kernels", "k6_precision", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train",
-         "bert_train", "rg_serve", "rg_train", "sampled_serve", "spec_serve")
+         "bert_train", "rg_serve", "rg_train", "sampled_serve", "spec_serve", "zoo_serve")
 #: the parts that time kernels alone, run only when named
 KERNEL_PARTS = ("kernels", "k6_precision")
 
@@ -732,7 +734,7 @@ def main() -> int:
                     default=[p for p in PARTS if p not in KERNEL_PARTS],
                     help="parts to run, always in the order kernels, k6_precision, qwen, mamba, "
                          "train, localsgd, dp, mamba_train, bert_train, rg_serve, rg_train, "
-                         "sampled_serve, spec_serve (default: all but the first two)")
+                         "sampled_serve, spec_serve, zoo_serve (default: all but the first two)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -782,6 +784,11 @@ def main() -> int:
             params = compute_params(init_params(rcfg, seed=args.seed, device="cuda"), rcfg)
             serve_profiles(rcfg, params, rprompts, cs.rg_engine)
             print(json.dumps(rg_mixer_shares(rcfg, params, args.seed)), flush=True)
+        elif part == "zoo_serve":  # phase 15's gemma3-27b serving runs
+            gcfg = cs.zoo_config("gemma3_27b")
+            _, gprompts = cs.zoo_requests(gcfg, args.seed, cs.ZOO.index("gemma3_27b"))
+            params = init_params(gcfg, seed=args.seed, device="cuda")
+            serve_profiles(gcfg, params, gprompts, cs.zoo_engine)
         elif part == "rg_train":  # phase 13c's step 1, eager then graphed; the mixers' share
             rcfg = get_config("recurrentgemma_2b")
             recs = {}

@@ -196,7 +196,7 @@ input copy is skipped, must fail the stream check.
    its steps' row counts, timed beside ``F.rms_norm``; 12b: a 3-layer
    (RRL) full-width model's first dense and packed steps over paged caches
    (K4 in the 'L' layer), card (kernels, bf16) against CPU (plain, f32),
-   logits within ``RG_LOGITS_ROW_TOL`` a row, a planted K4 fault outside
+   logits within ``LOGITS_ROW_TOL`` a row, a planted K4 fault outside
    it; 12c: recurrentgemma-2b at full width and depth (26 layers: 18 'R',
    8 'L'; random weights from ``--seed``, f32 master and a bf16 compute
    copy) through ``ContinuousBatcher(cache="paged", chunk_size=64,
@@ -224,7 +224,42 @@ input copy is skipped, must fail the stream check.
    ``--seed``) through ``train`` with AdamW, 4 workers x 2 micro-batches of
    one 8,192-token sequence, the training phase's tau rule, 3 steps, eager
    then graphed, with phase 10's checks and readings (launches: 2 K2 an 'R'
-   layer, and again under remat).
+   layer, and again under remat);
+14. decode, sampling and speculation — 14a ``decode_step`` at full width
+   (qwen2.5-3b paged against dense, recurrentgemma-2b ring and paged past
+   its 2,048-row wrap, mamba2-130m; planted faults); 14b the sampler card
+   against CPU; 14c sampled serving with a replay of every token; 14d
+   n-gram and self-draft speculation with a replay of every acceptance;
+15. the dense zoo — internlm2-1.8b (24 layers, 16 / 8 heads of 128),
+   starcoder2-7b (32 layers, 36 / 4 heads, LayerNorm, QKV bias, GELU) and
+   gemma3-27b (62 layers 'LLLLLG', window 1,024, 32 / 16 heads, QK-norm,
+   GeGLU, vocab 262,144, bf16 parameters: its f32 masters would not fit)
+   at full width and depth, random weights from ``--seed``, each through
+   the qwen run's engine (8 requests of 128-512 prompt tokens and, for
+   gemma3-27b, one of ``ZOO_LONG`` past its window; 32 new tokens each):
+   a 2-layer full-width card-vs-CPU logits check (gemma3-27b's as 'LG')
+   within ``LOGITS_ROW_TOL`` with a planted K4 fault outside it;
+   paged vs dense first-step logits within ``LOGITS_REL_TOL`` (gemma3-27b
+   also every 64-token chunk of the long prompt, past the window's edge);
+   unpacked and packed, eager then graphed (the counters' window): full
+   streams, no leaked pages, graphed equal to eager, one K4 an attention
+   layer and (RMSNorm) 2L + 1 K2 a step (none for starcoder2-7b's
+   LayerNorm); step times, tokens/s, peak memory and the init's peak;
+   K4's (128, 2) and (128, 9) builds are held in phase 3 (gemma3-27b's and
+   starcoder2-7b's widths, with phase 12a's planted faults) and timed at
+   each model's decode and mixed steps;
+16. the front-end — gemma3-27b through ``AsyncEngine`` over the paged,
+   packed engine, graphed: submissions while steps run (one during the
+   first, capturing step), greedy and seeded sampled requests, a cancel
+   mid-flight, a waiting-room overflow (``AdmissionError``) and a deadline
+   drop that reclaims its pages; every stream token-identical to the same
+   engine driven synchronously through the same schedule of submissions
+   and cancels (``EngineSchedule``), and a planted fault (one published
+   token dropped) rejected; TTFT of the requests whose wait saw no graph
+   capture (the metric) beside TTFT over all, captures included; then
+   ``examples/serve_http_torch.py``'s card command (``HTTP_ARGV``: it
+   builds gemma3-27b itself, bf16 parameters, serves on 127.0.0.1 at port
+   0 and runs its self-test), in process for its launch counts.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K4's (256, 10) build has a record of
@@ -241,11 +276,16 @@ the Mamba-2 training micro-batch (8,192 x 768).  K6 and K5's
 record rows are read at the mamba serving run's shapes: 8 rows of one
 64-row chunk (a 64-token
 prefill step), and the packed
-mixed step.
+mixed step.  K4's (128, 2) build's record (``paged_attention_d128_g2``) is
+read at gemma3-27b's decode step under its window, with internlm2-1.8b's
+and gemma3-27b's launches (15) and the front-end's (16); its (128, 9)
+build's (``paged_attention_d128_g9``) at starcoder2-7b's decode step with
+its launches.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -258,6 +298,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -290,6 +331,7 @@ from repro_torch.models.transformer import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, KVCacheSpec, Request, pack_step  # noqa: E402
 from repro_torch.serve import DraftModelProposer, NGramProposer, SamplingParams  # noqa: E402
 from repro_torch.serve import SpecConfig, sampling, scheduler  # noqa: E402
+from repro_torch.serve import AdmissionError, AsyncEngine, frontend  # noqa: E402
 from repro_torch.serve import spec as spec_lib  # noqa: E402
 from repro_torch.train import TrainConfig, checkpoint, train  # noqa: E402
 from repro_torch.train.resilience import ControllerConfig, make_scenario  # noqa: E402
@@ -499,13 +541,16 @@ RG_LONG = 2300
 RG_MAX_LEN = RG_LONG + NEW_TOKENS
 RG_BLOCKS = -(-RG_MAX_LEN // PAGE)
 RG_DIMS = (RG_H, RG_KV, RG_D, RG_BLOCKS)
-# 12b: a 3-layer (RRL: one 'L' layer) full-width model's first dense and
-# packed steps' logits, card (kernels, bf16) against the CPU (plain, f32),
-# by ``row_rel_err``: bf16 roundings over 3 layers, ~0.01 a row on an H100;
-# the planted K4 fault (heads 8-9 given zero queries, ``without_heads``)
-# reads ~0.15 there (PERF.md), so the limit sits between the two.
+# 12b and 15: a 2-3-layer full-width model's first dense and packed steps'
+# logits, card (kernels, bf16) against the CPU (plain, f32), by
+# ``row_rel_err`` (``logits_parity``): bf16 roundings of the weights'
+# compute copy and the activations read ~0.01 a row on an H100
+# (recurrentgemma's RRL, the dense zoo's 0.65-0.84%); a planted K4 fault
+# (the heads of each group's last n8 tile given zero queries,
+# ``without_heads``) reads 0.12-0.33 there (PERF.md), so the limit sits
+# between the two.
 RG_PARITY_LAYERS = 3
-RG_LOGITS_ROW_TOL = 0.05
+LOGITS_ROW_TOL = 0.05
 #: K2 at recurrentgemma's width: its decode step (8 rows), its packed mixed
 #: step (257) and its unpacked mixed step (8 x 64 = 512 rows) of 2,560
 RG_K2_ROWS = (SLOTS, BUDGET + 1, SLOTS * CHUNK)
@@ -547,6 +592,18 @@ MAMBA_F32_DECODE_TOL = 1e-3
 SAMPLER_ROWS, SAMPLER_VOCABS = 8, (151_936, 256_000)
 GUMBEL_TOL = (2.0 ** -20, 2.0 ** -21)
 SPEC_K = 4
+# phase 15, the dense zoo: internlm2-1.8b, starcoder2-7b and gemma3-27b at
+# full width and depth through the qwen run's engine, 8 requests of 128-512
+# prompt tokens and, for gemma3-27b, one more of ZOO_LONG tokens (past its
+# 1,024-token window), 32 new tokens each; their 2-layer card-vs-CPU check
+# is phase 12b's (``logits_parity``)
+ZOO = ("internlm2_1_8b", "starcoder2_7b", "gemma3_27b")
+ZOO_LONG = 1200
+ZOO_PARITY_LAYERS = 2
+# phase 16, the front-end over gemma3-27b: the waiting room and the engine
+# queue it feeds (a burst of 4 x FE_WAITING_ROOM requests of FE_BURST_PROMPT
+# tokens must meet AdmissionError)
+FE_WAITING_ROOM, FE_MAX_QUEUE, FE_BURST_PROMPT = 4, 4, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -634,16 +691,18 @@ def ptxas_lines(source: str, names: str = r"attn_[a-z_]+", head_dims: bool = Fal
     its build's ``ptxas -v`` report: registers at launch and the most bytes
     spilled (stores / loads) over its template instances (with
     ``head_dims``, one line per head-dim instance: K3's kernels are
-    templates on D), and whether ptxas serialized its wgmma instructions
-    for want of registers."""
+    templates on D, K4's on (D, g)), and whether ptxas serialized its wgmma
+    instructions for want of registers."""
     import re
 
-    kernel = re.compile(r"\d+(" + names + r")(?:ILi(\d+)E)?[EI]")
+    kernel = re.compile(r"\d+(" + names + r")(?:ILi(\d+)E(?:Li(\d+)E)?)?")
     seen, notes, name, spills = {}, [], None, (0, 0)
     for line in _build.ptxas_report(source).splitlines():
         m = kernel.search(line)
         if "Compiling entry function" in line and m:
-            name = f"{m.group(1)} (D {m.group(2)})" if head_dims and m.group(2) else m.group(1)
+            name = m.group(1)
+            if head_dims and m.group(2):
+                name += f" (D {m.group(2)}" + (f", g {m.group(3)})" if m.group(3) else ")")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
@@ -815,6 +874,13 @@ def drop_split(a, token: int, split: int, per: int):
     return dict(a, tables=tables, q_slots=slots)
 
 
+def padded_heads(g: int) -> int:
+    """The first head of a group's last n8 tile that a planted fault leaves
+    out: from 8 on where a second tile holds the group's last heads (g 9,
+    10), else from 1 (g 2: one tile, six padding lanes)."""
+    return 8 if g > 8 else 1
+
+
 def without_heads(a, first: int):
     """A planted K4 fault: the scenario with each group's query heads from
     ``first`` on zeroed, which the kernel then computes as a kernel whose
@@ -833,11 +899,14 @@ def k4_checks(rng, prompt_lens, dims=None, max_len=MAX_LEN, windows=(100, 200, 1
     hostile tables, padding and fully masked queries, an unsplit grid, the
     decode grid split many ways; each over the wrapper's plan, the step's
     plan and the packed step's padded plan.  Planted faults that must fail
-    the same check: a tile's last page skipped; at a group above 8 (two n8
-    tiles of heads), heads 8 on left out, and one split's partial dropped
-    from the merge.  Returns the largest absolute difference."""
+    the same check: a tile's last page skipped; at a group other than 8
+    (padding heads on an n8 tile), the heads of the group's last n8 tile
+    left out (``padded_heads``: from 8 on at g 9 and 10, from 1 at g 2), and
+    one split's partial dropped from the merge.  Returns the largest
+    absolute difference."""
     h, kv, d, blocks = dims or (H, KV, D, BLOCKS)
-    inst = flash_attention.instance(d, h // kv)
+    g = h // kv
+    inst = flash_attention.instance(d, g)
     ctx = [int(x) for x in rng.integers(PROMPT_MIN, max_len, SLOTS)]
     spans = [1, 64, 1, 9, 1, 33, 1, 1]  # decode, prefill chunks and verify-sized spans
     base = paged_scenario(rng, ctx, spans, dims=dims)
@@ -909,14 +978,15 @@ def k4_checks(rng, prompt_lens, dims=None, max_len=MAX_LEN, windows=(100, 200, 1
                                                    flash_attention._sm_count(0), inst.ctas_per_sm)
         if name.startswith("decode"):
             check(splits > 2, f"K4 {name}: {splits} splits, the decode grid should split > 2 ways")
-        if h // kv > 8 and name in ("bf16", "many_queries"):
-            bad = flash_attention.paged_flash_attention(**without_heads(a, 8), **kw)
+        if g != 8 and name in ("bf16", "many_queries"):
+            first = padded_heads(g)
+            bad = flash_attention.paged_flash_attention(**without_heads(a, first), **kw)
             bad_err = (bad.float() - want.float()).abs().max().item()
             check(not torch.allclose(bad.float(), want.float(), **K4_TOL),
                   f"K4 {name}: K4_TOL lets a planted fault pass (max |err| {bad_err})")
-            log(f"K4 {name}: planted fault (heads 8-{h // kv - 1} left out): "
+            log(f"K4 {name}: planted fault (heads {first}-{g - 1} left out): "
                 f"max|err|={bad_err:.3e}, rejected")
-        if h // kv > 8 and name == "decode":
+        if g != 8 and name == "decode":
             # the token where split 1 weighs most: the shortest context
             # that fills it
             tok = int(torch.where((a["q_slots"] >= 0) & (a["q_pos"] >= 2 * per * PAGE),
@@ -1875,18 +1945,19 @@ def k6_bwd_timing(rng):
 # ---------------------------------------------------------------------------
 
 
-def first_step_logits_check(cfg, params, prompts):
+def first_step_logits_check(cfg, params, prompts, max_len: int = MAX_LEN, tag: str = ""):
     """First prefill step (one 64-token chunk per slot) through the paged
-    cache (CUDA kernel) and the dense cache (plain attention)."""
+    cache (CUDA kernel) and the dense cache (plain attention), slots of
+    ``max_len`` positions."""
     tokens = np.stack([np.asarray(p[:CHUNK]) for p in prompts])
     pos = np.zeros(SLOTS, np.int64)
     lens = np.full(SLOTS, CHUNK, np.int64)
-    paged = KVCacheSpec(num_slots=SLOTS, max_len=MAX_LEN, layout="paged",
+    paged = KVCacheSpec(num_slots=SLOTS, max_len=max_len, layout="paged",
                         page_size=PAGE).build(params, cfg)
     for i, p in enumerate(prompts):
         check(paged.admit_slot(i, p, NEW_TOKENS) == 0, "unexpected prefix sharing")
     paged.prepare_step([(i, 0, p[:CHUNK]) for i, p in enumerate(prompts)])
-    dense = KVCacheSpec(num_slots=SLOTS, max_len=MAX_LEN, layout="dense").build(params, cfg)
+    dense = KVCacheSpec(num_slots=SLOTS, max_len=max_len, layout="dense").build(params, cfg)
     lp, _ = prefill_chunk(params, cfg, paged.state, tokens, pos, lens)
     ld, _ = prefill_chunk(params, cfg, dense.state, tokens, pos, lens)
     lp, ld = lp.float(), ld.float()
@@ -1895,7 +1966,7 @@ def first_step_logits_check(cfg, params, prompts):
     err = (lp - ld).abs().max().item()
     scale = ld.abs().max().item()
     agree = (lp.argmax(-1) == ld.argmax(-1)).float().mean().item()
-    log(f"first prefill step: paged vs dense logits max|err|={err:.4f} "
+    log(f"{tag}first prefill step: paged vs dense logits max|err|={err:.4f} "
         f"(max|logit|={scale:.2f}, ratio {err / scale:.4f}), greedy agreement {agree:.4f}")
     check(err <= LOGITS_REL_TOL * scale,
           f"paged vs dense logits differ by {err}, over {LOGITS_REL_TOL} x {scale}")
@@ -3335,13 +3406,16 @@ def k2_rg_checks(rng, eps=1e-6):
 
 @contextlib.contextmanager
 def planted_k4_fault():
-    """Route the model's K4 calls through the kernel with each group's
-    query heads from 8 on zeroed (``without_heads``): what a kernel whose
-    second n8 tile of heads read no Q computes."""
+    """Route the model's K4 calls through the kernel with the heads of each
+    group's last n8 tile zeroed (``without_heads`` from ``padded_heads``:
+    8 on at g 9 and 10, 1 on at g 2): what a kernel whose second n8 tile of
+    heads read no Q computes, or (g 2) one that read only a group's first
+    head."""
     sound = ops.paged_flash_attention  # what models.layers calls
 
     def faulty(q, k_pool, v_pool, *args, **kw):
-        a = without_heads({"q": q, "k_pool": k_pool}, 8)
+        a = without_heads({"q": q, "k_pool": k_pool},
+                          padded_heads(q.shape[1] // k_pool.shape[2]))
         return sound(a["q"], k_pool, v_pool, *args, **kw)
 
     ops.paged_flash_attention = faulty
@@ -3351,15 +3425,16 @@ def planted_k4_fault():
         ops.paged_flash_attention = sound
 
 
-def rg_first_steps(cfg, params, prompts):
+def first_steps(cfg, params, prompts, max_len: int = RG_MAX_LEN):
     """Logits (on the CPU, f32) of the serving run's first dense step (64
     prompt tokens in every slot) and first packed step (64 in each of the
-    four oldest slots, the budget's 256), each over a fresh paged cache, so
-    that the 'L' layers attend through K4 on the card."""
+    four oldest slots, the budget's 256), each over a fresh paged cache of
+    ``max_len`` positions a slot, so that the attention layers attend
+    through K4 on the card."""
     dev = params["embed"]["embedding"].device
 
     def state(grants):
-        kv = KVCacheSpec(num_slots=SLOTS, max_len=RG_MAX_LEN, layout="paged",
+        kv = KVCacheSpec(num_slots=SLOTS, max_len=max_len, layout="paged",
                          page_size=PAGE).build(params, cfg)
         for i, p in enumerate(prompts):
             check(kv.admit_slot(i, p, NEW_TOKENS) == 0, "unexpected prefix sharing")
@@ -3378,38 +3453,43 @@ def rg_first_steps(cfg, params, prompts):
     return {"dense": dense.float().cpu(), "packed": packed[valid].float().cpu()}
 
 
-def rg_parity(cfg, seed: int, prompts):
-    """12b: a 3-layer (RRL) full-width recurrentgemma: the first dense and
-    packed steps' logits on the card (kernels, bf16 compute) against the CPU
-    (plain versions, f32), by ``row_rel_err`` within ``RG_LOGITS_ROW_TOL``;
-    then the same metric with the planted K4 fault, which must fall outside
-    it."""
-    small = dataclasses.replace(cfg, n_layers=RG_PARITY_LAYERS)
-    check(small.pattern == "RRL", f"12b wants one 'L' layer, got {small.pattern}")
-    cpu_cfg = dataclasses.replace(small, dtype="float32")
-    params = init_params(cpu_cfg, seed=seed, device="cpu")
+def logits_parity(small, seed: int, prompts, max_len: int, what: str) -> dict:
+    """A few-layer full-width model (``small``): the first dense and packed
+    steps' logits (``first_steps``) on the card (kernels, bf16 compute)
+    against the CPU (plain versions, f32; the f32 weights drawn on the card
+    and copied), by ``row_rel_err`` within ``LOGITS_ROW_TOL``, with the
+    launches the code implies (``serve_launches``); then the planted K4
+    fault (``planted_k4_fault``), which must fall outside it."""
+    cpu_cfg = dataclasses.replace(small, dtype="float32", param_dtype="float32")
     t0 = time.perf_counter()
-    want = rg_first_steps(cpu_cfg, params, prompts)
+    params = init_params(cpu_cfg, seed=seed, device=DEV)
+    card = compute_params(params, small)
+    params = tree_map(lambda x: x.cpu(), params)
+    want = first_steps(cpu_cfg, params, prompts, max_len)
     t_cpu = time.perf_counter() - t0
-    card = compute_params(tree_map(lambda x: x.to(DEV), params), small)
     del params
 
     def errs(got):
         return {k: row_rel_err(got[k], w) for k, w in want.items()}
 
-    before = ops.launch_counts()["paged_attention"]
-    sound = errs(rg_first_steps(small, card, prompts))
-    check(ops.launch_counts()["paged_attention"] == before + 2, "12b: K4 did not run")
+    before = ops.launch_counts()
+    sound = errs(first_steps(small, card, prompts, max_len))
+    runs = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    check(runs == serve_launches(small, 2), f"{what} parity: launches {runs}")
     with planted_k4_fault():
-        bad = errs(rg_first_steps(small, card, prompts))
-    log(f"recurrentgemma parity {RG_PARITY_LAYERS} layers ({small.pattern}): first-step logits, "
-        f"row rel err card vs cpu: dense {sound['dense']:.2e}, packed {sound['packed']:.2e} "
-        f"(limit {RG_LOGITS_ROW_TOL}); planted K4 fault (heads 8-9 given zero queries) dense "
-        f"{bad['dense']:.2e}, packed {bad['packed']:.2e}; the CPU pass took {t_cpu:.1f} s")
-    check(all(math.isfinite(e) and e <= RG_LOGITS_ROW_TOL for e in sound.values()),
-          f"recurrentgemma first-step logits differ from the CPU's: {sound}")
-    check(min(bad.values()) > RG_LOGITS_ROW_TOL,
+        bad = errs(first_steps(small, card, prompts, max_len))
+    g = small.n_heads // small.n_kv_heads
+    log(f"{what} parity {small.n_layers} layers ({small.pattern}, full width): first-step "
+        f"logits, row rel err card vs cpu: dense {sound['dense']:.2e}, packed "
+        f"{sound['packed']:.2e} (limit {LOGITS_ROW_TOL}); planted K4 fault (heads "
+        f"{padded_heads(g)}-{g - 1} of each group given zero queries) dense {bad['dense']:.2e}, "
+        f"packed {bad['packed']:.2e}; the CPU pass (weights drawn on the card) took "
+        f"{t_cpu:.1f} s")
+    check(all(math.isfinite(e) and e <= LOGITS_ROW_TOL for e in sound.values()),
+          f"{what} first-step logits differ from the CPU's: {sound}")
+    check(min(bad.values()) > LOGITS_ROW_TOL,
           f"the logits metric lets a planted K4 fault pass: {bad}")
+    return sound
 
 
 def rg_requests(cfg, seed: int):
@@ -3430,15 +3510,26 @@ def rg_engine(cfg, params, prompts, packed: bool) -> ContinuousBatcher:
     return eng
 
 
-def rg_serve(cfg, params, prompts, packed: bool, eager: bool = False):
-    """One serving run of recurrentgemma-2b through the paged engine, eager
-    (``disable_graphs``) or graphed, checked: every request to full length,
-    no prefix-shared tokens, no leaked pages, and the launches the code
-    implies (one K4 a 'L' layer, two K2 a layer and the final norm, a step;
-    nothing else).  Returns the streams, the launches and the numbers."""
-    eng = rg_engine(cfg, params, prompts, packed)
+def serve_launches(cfg, steps: int) -> dict:
+    """The launches ``steps`` engine steps (or first-step calls) imply: one
+    K4 an attention layer ('G' or 'L'), two K2 a layer and the final norm
+    with RMSNorm (none with LayerNorm, which is plain); nothing else."""
+    want = {k: 0 for k in ops.launch_counts()}
+    want["paged_attention"] = sum(k in "GL" for k in cfg.pattern) * steps
+    want["rmsnorm"] = (2 * cfg.n_layers + 1) * steps if cfg.norm == "rmsnorm" else 0
+    return want
+
+
+def serve_run(cfg, params, prompts, packed: bool, eager: bool, make):
+    """One serving run through the paged engine ``make(cfg, params, prompts,
+    packed)`` builds, eager (``disable_graphs``) or graphed, checked: every
+    request to full length, no prefix-shared tokens (the prompts are random
+    draws), no leaked pages, and the launches the code implies
+    (``serve_launches``).  Returns the streams and the run's numbers."""
+    free_device()  # the earlier runs' engines: the peak read is this run's
+    eng = make(cfg, params, prompts, packed)
     wall, runs, peak = run_engine(eng, eager)
-    tag = f"recurrentgemma {'packed' if packed else 'unpacked'} {'eager' if eager else 'graphed'}"
+    tag = f"{cfg.name} {'packed' if packed else 'unpacked'} {'eager' if eager else 'graphed'}"
     check(sorted(eng.finished) == list(range(len(prompts))), f"{tag}: unfinished requests")
     for r in eng.finished.values():
         check(len(r.output) == NEW_TOKENS and not r.truncated,
@@ -3450,9 +3541,7 @@ def rg_serve(cfg, params, prompts, packed: bool, eager: bool = False):
     eng.kv.check_invariants()
     check(eng.kv.used_pages == 0, f"{tag}: {eng.kv.used_pages} pages leaked")
     steps = eng.steps
-    want = {k: 0 for k in runs}
-    want["paged_attention"] = cfg.pattern.count("L") * steps
-    want["rmsnorm"] = (2 * cfg.n_layers + 1) * steps
+    want = serve_launches(cfg, steps)
     check(runs == want, f"{tag}: launches {runs} over {steps} steps, the code implies {want}")
     rec = step_record(eng, prompts, wall, peak)
     log(f"serve {tag}: {steps} steps ({rec['mixed_steps']} mixed, "
@@ -3463,7 +3552,7 @@ def rg_serve(cfg, params, prompts, packed: bool, eager: bool = False):
         f"over {wall:.2f} s; peak device memory {peak:.2f} GiB; peak pages "
         f"{summary['peak_used_pages']:.0f}/{summary['num_pages']:.0f}"
         + ("" if eager else f"; {graph_line(eng)}"))
-    return {u: r.output for u, r in eng.finished.items()}, runs, rec
+    return {u: r.output for u, r in eng.finished.items()}, rec
 
 
 def rg_phase(seed: int):
@@ -3473,7 +3562,9 @@ def rg_phase(seed: int):
     counters' window; streams identical)."""
     cfg = get_config("recurrentgemma_2b")
     lens, prompts = rg_requests(cfg, seed)
-    rg_parity(cfg, seed, prompts[:SLOTS])
+    small = dataclasses.replace(cfg, n_layers=RG_PARITY_LAYERS)
+    check(small.pattern == "RRL", f"12b wants one 'L' layer, got {small.pattern}")
+    logits_parity(small, seed, prompts[:SLOTS], RG_MAX_LEN, "12b recurrentgemma")
     free_device()
     t0 = time.perf_counter()
     params = compute_params(init_params(cfg, seed=seed, device=DEV), cfg)
@@ -3483,11 +3574,11 @@ def rg_phase(seed: int):
         f"{cfg.param_count() / 1e9:.3f} B parameters, f32 init + bf16 compute copy in "
         f"{time.perf_counter() - t0:.1f} s; prompt lens {lens} (the first past the "
         f"{cfg.sliding_window}-token window)")
-    eager = {p: rg_serve(cfg, params, prompts, p, eager=True)[0] for p in (False, True)}
+    eager = {p: serve_run(cfg, params, prompts, p, True, rg_engine)[0] for p in (False, True)}
     outs, recs = {}, {}
     ops.reset_launch_counts()  # the main path starts here
     for p in (False, True):
-        outs[p], _, recs[p] = rg_serve(cfg, params, prompts, p)
+        outs[p], recs[p] = serve_run(cfg, params, prompts, p, False, rg_engine)
     counts = ops.launch_counts()  # ... and ends here
     for p in (False, True):
         same_streams(f"recurrentgemma {'packed' if p else 'unpacked'}", outs[p], eager[p])
@@ -4546,6 +4637,411 @@ def phase14(seed: int, rng, prompts, qwen_streams, rg_streams, mamba_streams):
     return qwen_total, rg_counts, m_counts
 
 
+# ---------------------------------------------------------------------------
+# the dense zoo (phase 15): internlm2-1.8b, starcoder2-7b, gemma3-27b
+# ---------------------------------------------------------------------------
+
+
+def zoo_config(name: str):
+    """The served config at full width and depth, with bf16 parameters as
+    the HTTP example serves it (gemma3-27b's f32 masters, 100.6 GiB, would
+    not fit the card; the init draws in f32 and casts, so bf16 leaves are
+    the values a compute copy of f32 masters would hold)."""
+    return dataclasses.replace(get_config(name), param_dtype="bfloat16")
+
+
+def zoo_requests(cfg, seed: int, index: int):
+    """A zoo model's prompt lengths and prompts (its own draws): with a
+    sliding window, the long request first (past the window), then the
+    serving run's 8 lengths of 128-512."""
+    rng = np.random.default_rng(seed + 15 + index)
+    lens = ([ZOO_LONG] if "L" in cfg.pattern else []) + [
+        int(n) for n in rng.integers(PROMPT_MIN, PROMPT_MAX + 1, SLOTS)]
+    return lens, [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def zoo_max_len(cfg) -> int:
+    return (ZOO_LONG if "L" in cfg.pattern else PROMPT_MAX) + NEW_TOKENS
+
+
+def zoo_dims(cfg):
+    """``paged_scenario``'s dims at a zoo model's widths and slot length."""
+    return cfg.n_heads, cfg.n_kv_heads, cfg.hd, -(-zoo_max_len(cfg) // PAGE)
+
+
+def window_edge_check(cfg, params, prompt, max_len: int) -> None:
+    """A prompt past the sliding window, prefilled chunk by chunk in one
+    slot through the paged cache (K4) and the dense cache (plain
+    attention): every chunk's logits within phase 4's ``LOGITS_REL_TOL``
+    of the largest logit (the worst past the window's edge printed)."""
+    kvs = {}
+    for layout in ("paged", "dense"):
+        kv = KVCacheSpec(num_slots=1, max_len=max_len, layout=layout,
+                         page_size=PAGE).build(params, cfg)
+        if layout == "paged":
+            check(kv.admit_slot(0, prompt, NEW_TOKENS) == 0, "unexpected prefix sharing")
+        kvs[layout] = kv
+    worst, worst_past = 0.0, 0.0
+    for p0 in range(0, len(prompt), CHUNK):
+        chunk = prompt[p0:p0 + CHUNK]
+        out = {}
+        for layout, kv in kvs.items():
+            if layout == "paged":
+                kv.prepare_step([(0, p0, chunk)])
+            logits, kv.state = prefill_chunk(params, cfg, kv.state, np.asarray([chunk]),
+                                             np.asarray([p0]), np.asarray([len(chunk)]))
+            out[layout] = logits.float()
+        ratio = ((out["paged"] - out["dense"]).abs().max() / out["dense"].abs().max()).item()
+        check(math.isfinite(ratio) and ratio <= LOGITS_REL_TOL,
+              f"{cfg.name}: chunk at {p0}: paged vs dense logits ratio {ratio}")
+        worst = max(worst, ratio)
+        if p0 + len(chunk) > cfg.sliding_window:
+            worst_past = max(worst_past, ratio)
+    log(f"{cfg.name}: a {len(prompt)}-token prompt in {CHUNK}-token chunks, paged (K4) vs dense "
+        f"logits, largest ratio {worst:.4f}, past the {cfg.sliding_window}-token window's edge "
+        f"{worst_past:.4f} (limit {LOGITS_REL_TOL})")
+
+
+def zoo_engine(cfg, params, prompts, packed: bool, **kw) -> ContinuousBatcher:
+    """A zoo model's serving engine (the qwen run's), requests submitted."""
+    eng = ContinuousBatcher(params, cfg, batch_slots=SLOTS, max_len=zoo_max_len(cfg),
+                            chunk_size=CHUNK, token_budget=BUDGET, cache="paged",
+                            page_size=PAGE, packed=packed, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=NEW_TOKENS))
+    return eng
+
+
+def zoo_model(name: str, index: int, seed: int, keep: bool = False):
+    """One zoo model: the 2-layer card-vs-CPU check, then the full model
+    (random weights from ``seed``): paged vs dense first-step logits (and,
+    with a window, a prompt past it chunk by chunk), served unpacked and
+    packed, eager then graphed (the counters' window); streams identical.
+    Returns (the graphed runs' launches, their records, and with ``keep``
+    the parameters and prompts, for the front-end phase)."""
+    cfg = zoo_config(name)
+    lens, prompts = zoo_requests(cfg, seed, index)
+    # 2 layers at full width: gemma3-27b's as 'LG', so that both kinds run
+    pattern = "LG" if "L" in cfg.pattern else cfg.layer_pattern
+    logits_parity(dataclasses.replace(cfg, n_layers=ZOO_PARITY_LAYERS, layer_pattern=pattern),
+                  seed, prompts[-SLOTS:], zoo_max_len(cfg), cfg.name)
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=DEV)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    weights = sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 2**30
+    log(f"{cfg.name}: {cfg.n_layers} layers ({cfg.layer_pattern}"
+        f"{f', window {cfg.sliding_window}' if 'L' in cfg.pattern else ''}), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B parameters, "
+        f"bf16 init in {time.perf_counter() - t0:.1f} s: {weights:.2f} GiB of weights, init peak "
+        f"{init_peak:.2f} GiB; full width and depth; prompt lens {lens}")
+    first_step_logits_check(cfg, params, prompts[-SLOTS:], zoo_max_len(cfg), f"{cfg.name} ")
+    if "L" in cfg.pattern:
+        window_edge_check(cfg, params, prompts[0], zoo_max_len(cfg))
+    free_device()
+    eager = {p: serve_run(cfg, params, prompts, p, True, zoo_engine)[0] for p in (False, True)}
+    outs, recs = {}, {}
+    ops.reset_launch_counts()  # the main path starts here
+    for p in (False, True):
+        outs[p], recs[p] = serve_run(cfg, params, prompts, p, False, zoo_engine)
+    counts = ops.launch_counts()  # ... and ends here
+    for p in (False, True):
+        same_streams(f"{cfg.name} {'packed' if p else 'unpacked'}", outs[p], eager[p])
+    log(f"{cfg.name} packed vs unpacked greedy agreement: "
+        f"{agreement(outs[False], outs[True])}/{len(prompts) * NEW_TOKENS}")
+    check(counts["paged_attention"] > 0, f"{cfg.name}: K4 not run: {counts}")
+    if not keep:
+        return counts, recs, None
+    return counts, recs, (cfg, params, prompts)
+
+
+# ---------------------------------------------------------------------------
+# the front-end on the card (phase 16)
+# ---------------------------------------------------------------------------
+
+
+def http_example():
+    """``examples/serve_http_torch.py`` as a module (its server and its
+    self-test)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "serve_http_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_http_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class EngineSchedule:
+    """What the front-end did to an engine, in order: each ``submit`` that
+    the engine accepted and each ``cancel``, with the engine step it came
+    before; and whether a step was running (``busy``) when each front-end
+    submission arrived; and the host-clock span of each step that captured
+    a new step graph (``captures``).  ``replay`` drives another engine
+    synchronously through the same schedule."""
+
+    def __init__(self, eng):
+        self.eng, self.ops, self.running = eng, [], threading.Event()
+        self.captures = []
+        submit, cancel, step = eng.submit, eng.cancel, eng.step
+
+        def recording_submit(req):
+            submit(req)  # raises AdmissionError when the queue is full
+            self.ops.append((eng.steps, "submit", req))
+
+        def recording_cancel(uid):
+            self.ops.append((eng.steps, "cancel", uid))
+            return cancel(uid)
+
+        def running_step():
+            self.running.set()
+            graphs_before, t0 = len(eng.step_graph.keys), time.perf_counter()
+            try:
+                step()
+            finally:
+                self.running.clear()
+                if len(eng.step_graph.keys) > graphs_before:
+                    self.captures.append((t0, time.perf_counter()))
+
+        eng.submit, eng.cancel, eng.step = recording_submit, recording_cancel, running_step
+
+    def replay(self, eng) -> dict:
+        """Drive ``eng`` through the recorded schedule (stepping it only
+        while it is busy, as the front-end's driver does); returns every
+        request's output (finished or cancelled)."""
+        ops_ = list(self.ops)
+        while True:
+            while ops_ and ops_[0][0] == eng.steps:
+                _, op, x = ops_.pop(0)
+                if op == "submit":
+                    eng.submit(Request(uid=x.uid, prompt=list(x.prompt),
+                                       max_new_tokens=x.max_new_tokens, sampling=x.sampling))
+                else:
+                    eng.cancel(x)
+            if not eng.busy:
+                check(not ops_, f"the schedule replay stalled at step {eng.steps}: {ops_[:2]}")
+                break
+            eng.step()
+        return {u: r.output for u, r in {**eng.finished, **eng.cancelled}.items()}
+
+
+@contextlib.contextmanager
+def published_token_dropped(uid: int, index: int):
+    """A planted front-end fault: request ``uid``'s ``index``-th token is
+    never published to its stream (the engine still produced it)."""
+    sound = frontend.RequestStream._push
+
+    def faulty(self, toks):
+        toks = list(toks)
+        seen = self._published  # tokens of this stream published before these
+        if self.uid == uid and seen <= index < seen + len(toks):
+            del toks[index - seen]
+        sound(self, toks)
+
+    frontend.RequestStream._push = faulty
+    try:
+        yield
+    finally:
+        frontend.RequestStream._push = sound
+
+
+def fe_streams_check(tag: str, streams, want) -> None:
+    """Every stream's published tokens equal the synchronous replay's
+    output of its request, token for token (a cancelled one's as far as it
+    went); a dropped stream's are empty."""
+    for s in streams:
+        got = s.tokens
+        ref_ = want.get(s.uid, [])
+        check(got == ref_, f"{tag}: stream {s.uid} ({s.status}) published {len(got)} tokens, "
+                           f"the synchronous engine {len(ref_)}; first difference at "
+                           f"{next((i for i, (a, b) in enumerate(zip(got, ref_)) if a != b), min(len(got), len(ref_)))}")
+
+
+async def fe_scenario(cfg, eng, prompts, seed: int, full: bool = True):
+    """The front-end scenario on one engine: staggered submissions while
+    steps run (the first while the first, capturing, step runs), greedy and
+    seeded sampled requests, and unless ``full`` is off a cancel mid-flight
+    (the long prompt, past the window), a waiting-room overflow
+    (``AdmissionError``) and a request dropped at its deadline.  Returns the
+    front-end, the engine's schedule, the streams, the cancelled and the
+    dropped stream, (AdmissionErrors, burst requests accepted) and the
+    submissions made while a step ran."""
+    sched = EngineSchedule(eng)
+    fe = AsyncEngine(eng, waiting_room=FE_WAITING_ROOM)
+    streams, mid_step, rejected, accepted = [], [], 0, 0
+    long_prompt = prompts[0]
+
+    async def mid_step_wait(after: int = -1):
+        # until a step later than step ``after`` runs (or nothing is left in
+        # flight to step): one submission a step, so the waiting room stays
+        # short however long a step (a capture) takes
+        while fe.in_flight and not (sched.running.is_set() and eng.steps > after):
+            await asyncio.sleep(0.0005)
+
+    async def submit(i, prompt, max_new, **kw):
+        s = await fe.submit(prompt, max_new, sampling=sampled_params(i, seed), **kw)
+        if sched.running.is_set():
+            mid_step.append((s.uid, eng.steps))
+        streams.append(s)
+        return s
+
+    async with fe:
+        for i in range(3):  # the first wave: the driver's first step captures
+            await submit(i, prompts[1 + i], NEW_TOKENS)
+        await mid_step_wait()
+        await submit(3, prompts[4], NEW_TOKENS)  # during the capturing step
+        if not full:
+            await asyncio.gather(*(s.collect() for s in streams))
+            return fe, sched, streams, None, None, 0, mid_step
+        await mid_step_wait(eng.steps)
+        victim = await submit(4, long_prompt, NEW_TOKENS)
+        for i in range(5, 8):  # staggered: one every few steps
+            await asyncio.sleep(0.05)
+            await mid_step_wait(eng.steps)
+            await submit(i, prompts[(i % SLOTS) + 1], NEW_TOKENS // 2)
+        got = 0
+        async for _ in victim:  # cancel the long one once it streams
+            got += 1
+            if got == 4:
+                victim.cancel()
+        # a deadline no first token can meet: dropped at the driver's next turn
+        doomed = await submit(100, prompts[3], NEW_TOKENS, deadline_s=0.0)
+        # the waiting room: a burst with no await point between submits
+        burst = prompts[2][:FE_BURST_PROMPT]
+        try:
+            for j in range(4 * FE_WAITING_ROOM):
+                await submit(8 + j, burst, 4)
+                accepted += 1
+        except AdmissionError:
+            rejected += 1
+        # (the victim's stream has ended: its iterator is exhausted)
+        await asyncio.gather(*(s.collect() for s in streams if s is not victim))
+    return fe, sched, streams, victim, doomed, (rejected, accepted), mid_step
+
+
+def ttft_line(streams, captures) -> str:
+    """p50 / p99 TTFT (ms, from the user's submit) of the requests whose
+    wait (submit to first token) overlapped no step that captured a graph
+    -- the steady-serving metric -- beside the same over every request
+    that got a first token, captures included."""
+    def spans_capture(r):
+        return any(r.submitted_at < t1 and t0 < r.first_token_at for t0, t1 in captures)
+
+    def pct(xs):
+        return (f"p50 {np.percentile(xs, 50) * 1e3:.1f} ms, p99 {np.percentile(xs, 99) * 1e3:.1f}"
+                f" ms over {len(xs)}" if xs else "none")
+
+    reqs = [s.request for s in streams if s.ttft is not None]
+    steady = [r.ttft for r in reqs if not spans_capture(r)]
+    return (f"TTFT from the submit, requests that waited through no capture (the metric): "
+            f"{pct(steady)}; every request, {len(captures)} capturing steps included: "
+            f"{pct([r.ttft for r in reqs])}")
+
+
+def frontend_phase(cfg, params, prompts, seed: int):
+    """Phase 16a: gemma3-27b through ``AsyncEngine`` over the paged, packed
+    engine, graphed (the counters' window): the scenario (``fe_scenario``),
+    every stream token-identical to the same engine driven synchronously
+    through the same schedule of submissions and cancels (a new engine:
+    ``EngineSchedule.replay``); a planted fault (one published token
+    dropped) that the check must reject."""
+    def engine():
+        return ContinuousBatcher(params, cfg, batch_slots=SLOTS, max_len=zoo_max_len(cfg),
+                                 chunk_size=CHUNK, token_budget=BUDGET, cache="paged",
+                                 page_size=PAGE, packed=True, max_queue=FE_MAX_QUEUE)
+
+    eng = engine()
+    ops.reset_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    fe, sched, streams, victim, doomed, (rejected, accepted), mid_step = asyncio.run(
+        fe_scenario(cfg, eng, prompts, seed))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()  # ... and ends here (the synchronous replays are not in it)
+    steps_async = eng.steps
+    check(counts == serve_launches(cfg, steps_async),
+          f"front-end launches {counts} over {steps_async} steps")
+    check(victim.status == "cancelled" and 4 <= len(victim.tokens) < NEW_TOKENS,
+          f"the cancelled stream: {victim.status}, {len(victim.tokens)} tokens")
+    check(doomed.status == "dropped" and doomed.events[-1].detail == "deadline"
+          and doomed.tokens == [], f"the deadline drop: {doomed.status} {doomed.events[-1]}")
+    check(rejected == 1 and accepted < 4 * FE_WAITING_ROOM,
+          "the waiting room took the whole burst: no AdmissionError")
+    check(any(step == 0 for _, step in mid_step),
+          f"no submission arrived during the first (capturing) step: {mid_step}")
+    check(len(mid_step) >= 3, f"too few submissions arrived mid-step: {mid_step}")
+    finished = [s for s in streams if s.status == "finished"]
+    check(len(finished) == len(streams) - 2, f"unfinished streams: "
+                                             f"{[(s.uid, s.status) for s in streams]}")
+    for s in finished:
+        check(len(s.tokens) == s.request.max_new_tokens, f"stream {s.uid}: {len(s.tokens)} tokens")
+    eng.kv.check_invariants()
+    check(eng.kv.used_pages == 0, f"front-end: {eng.kv.used_pages} pages leaked")
+    summ = fe.summary()
+    replay = engine()
+    want = sched.replay(replay)
+    fe_streams_check("front-end vs the synchronous engine", streams, want)
+    n_tok = sum(len(s.tokens) for s in streams)
+    sampled = sum(1 for s in streams if s.request.sampling.temperature > 0)
+    log(f"16 front-end over {cfg.name} (paged, packed, graphed): {len(streams)} requests "
+        f"({sampled} sampled, seeds from --seed), {len(mid_step)} submitted while a step ran "
+        f"(first during step {mid_step[0][1]}, the capturing step), a waiting-room burst cut "
+        f"at {accepted} by AdmissionError, one cancelled after "
+        f"{len(victim.tokens)} tokens, one dropped at its deadline ({doomed.events[-1].detail}); "
+        f"{steps_async} engine steps, {n_tok} tokens streamed in {wall:.2f} s "
+        f"(captures included); {ttft_line(streams, sched.captures)} (the engine's summary, "
+        f"finished requests, captures included: p50 {summ['p50_ttft'] * 1e3:.1f} ms, p99 "
+        f"{summ['p99_ttft'] * 1e3:.1f} ms); every stream equals the synchronous engine's through the same "
+        f"schedule ({replay.steps} steps, {len(want)} requests); {graph_line(eng)}")
+    check(replay.steps == steps_async, f"the replay took {replay.steps} steps, the front-end "
+                                       f"{steps_async}")
+    del replay
+    # the planted fault: one published token dropped, in a short run
+    small = engine()
+    with published_token_dropped(uid=1, index=2):
+        _, psched, pstreams, *_ = asyncio.run(fe_scenario(cfg, small, prompts, seed, full=False))
+    pwant = psched.replay(engine())
+    try:
+        fe_streams_check("planted", pstreams, pwant)
+    except SmokeFailure as e:
+        log(f"16 planted fault (request 1's third token never published): rejected: {e}")
+    else:
+        raise SmokeFailure("the stream check lets a dropped published token pass")
+    del small, pstreams
+    return counts
+
+
+#: the HTTP example's card command (README), run in process with its self-test
+HTTP_ARGV = ("--config", "gemma3_27b", "--max-len", "2048", "--port", "0", "--self-test")
+
+
+def http_phase() -> dict:
+    """Phase 16b: ``examples/serve_http_torch.py`` as a user runs it on the
+    card (``main`` with ``HTTP_ARGV``): it builds gemma3-27b at full width
+    and depth with bf16 parameters, serves it on 127.0.0.1 at port 0 and
+    runs its self-test against the server; the launches its engine's steps
+    imply, no leaked pages."""
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    eng = http_example().main(list(HTTP_ARGV))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()  # ... and ends here
+    check(counts == serve_launches(eng.cfg, eng.steps),
+          f"HTTP launches {counts} over {eng.steps} steps")
+    eng.kv.check_invariants()
+    check(eng.kv.used_pages == 0, f"HTTP example: {eng.kv.used_pages} pages leaked")
+    log(f"16b HTTP example `{' '.join(HTTP_ARGV)}` ({eng.cfg.name}, {eng.cfg.n_layers} layers, "
+        f"bf16 parameters, init included): self-test passed in {wall:.2f} s, {eng.steps} engine "
+        f"steps, K4 {counts['paged_attention']} ({sum(k in 'GL' for k in eng.cfg.pattern)} a "
+        f"step), K2 {counts['rmsnorm']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {graph_line(eng)}")
+    return counts
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -4559,6 +5055,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+
+    def phase_done(phase: str) -> None:
+        log(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4633,6 +5133,28 @@ def main() -> int:
     free_device()
     k6b_t = k6_bwd_timing(rng)
     free_device()
+    # K4's (128, 2) and (128, 9) builds at gemma3-27b's and starcoder2-7b's
+    # widths (phase 15's main paths), on their own stream of inputs; timed at
+    # each zoo model's decode and mixed steps
+    zrng = np.random.default_rng(args.seed + 15)
+    zcfg = {n: zoo_config(n) for n in ZOO}
+    zlens = {n: zoo_requests(zcfg[n], args.seed, i)[0][:SLOTS] for i, n in enumerate(ZOO)}
+    g3 = zcfg["gemma3_27b"]
+    k4_g2_err = k4_checks(zrng, zlens["gemma3_27b"], dims=zoo_dims(g3),
+                          max_len=zoo_max_len(g3),
+                          windows=(100, g3.sliding_window, g3.sliding_window))
+    free_device()
+    k4_g9_err = k4_checks(zrng, zlens["starcoder2_7b"], dims=zoo_dims(zcfg["starcoder2_7b"]))
+    free_device()
+    k4_zoo_t = {"gemma3_27b local": k4_timing(zrng, zlens["gemma3_27b"], dims=zoo_dims(g3),
+                                              window=g3.sliding_window),
+                "gemma3_27b global": k4_timing(zrng, zlens["gemma3_27b"], dims=zoo_dims(g3)),
+                "internlm2_1_8b": k4_timing(zrng, zlens["internlm2_1_8b"],
+                                            dims=zoo_dims(zcfg["internlm2_1_8b"])),
+                "starcoder2_7b": k4_timing(zrng, zlens["starcoder2_7b"],
+                                           dims=zoo_dims(zcfg["starcoder2_7b"]))}
+    free_device()
+    phase_done("3")
 
     # 4. serving at full width
     t0 = time.perf_counter()
@@ -4646,10 +5168,12 @@ def main() -> int:
           f"kernels not run: {serve_counts}")
     del params
     free_device()
+    phase_done("4")
 
     # 5. Mamba-2 serving at full width and depth
     mamba_counts, _, mamba_streams = mamba_phase(args.seed)
     free_device()
+    phase_done("5")
 
     # 6. training at full depth, then the 2-layer card-vs-CPU parity
     train_counts, train_graphed = train_phase(cfg, args.seed)
@@ -4658,6 +5182,7 @@ def main() -> int:
     free_device()
     parity_phase(cfg, args.seed)
     free_device()
+    phase_done("6")
 
     # 7. Local-SGD at full depth, then the 2-layer card-vs-CPU check; then
     # mamba2-130m through the same path (K6's backward in the local steps)
@@ -4669,10 +5194,12 @@ def main() -> int:
     m_localsgd_counts, _, _ = localsgd_phase(
         dataclasses.replace(mcfg, n_layers=M_LSGD_LAYERS), args.seed)
     free_device()
+    phase_done("7")
 
     # 8. checkpoints: save, resume, and the uninterrupted run
     checkpoint_phase(cfg, args.seed)
     free_device()
+    phase_done("8")
 
     # 9. data parallel: one NCCL rank at full depth, then two gloo ranks
     dp_counts = dp_nccl_phase(cfg, args.seed, train_graphed)
@@ -4682,6 +5209,7 @@ def main() -> int:
     free_device()
     dp_gloo_phase(mcfg, args.seed, layers=M_DP_LAYERS, pool_gib=M_DP_POOL_GIB)
     free_device()
+    phase_done("9")
 
     # 10. Mamba-2 training at full depth, its step-0 gradient, then the 2-layer
     # card-vs-CPU gradient parity
@@ -4692,6 +5220,7 @@ def main() -> int:
     free_device()
     mamba_train_parity(args.seed)
     free_device()
+    phase_done("10")
 
     # 11. the paper's BERT models: K3's (64, 1) build, the 2-layer card-vs-CPU
     # check, bert-1.5b at appendix B.1's setting, bert-large
@@ -4699,6 +5228,7 @@ def main() -> int:
     check(bert_counts["flash_attention"] > 0 and bert_counts["flash_attention_bwd"] > 0
           and bert_counts["masked_accum"] > 0, f"bert: kernels not run: {bert_counts}")
     free_device()
+    phase_done("11")
 
     # 12. recurrentgemma-2b serving: K4's (256, 10) build and K2 at d 2560
     # (12a), the 3-layer card-vs-CPU check (12b), the full model (12c)
@@ -4711,6 +5241,7 @@ def main() -> int:
     free_device()
     rg_counts, _, rg_streams = rg_phase(args.seed)
     free_device()
+    phase_done("12")
 
     # 13. training the 'R' family: K3's (256, 10) build and K2's backward at d
     # 2560 (13a), the 3-layer card-vs-CPU gradient check (13b), recurrentgemma-2b
@@ -4721,6 +5252,7 @@ def main() -> int:
           and rg_train_counts["rmsnorm_bwd"] > 0 and rg_train_counts["masked_accum"] > 0,
           f"recurrentgemma train: kernels not run: {rg_train_counts}")
     free_device()
+    phase_done("13")
 
     # 14. decode_step at full width (14a), the sampler alone (14b), sampled
     # serving (14c) and speculation (14d)
@@ -4730,16 +5262,38 @@ def main() -> int:
           and p14_mamba["rmsnorm"] > 0, f"phase 14: kernels not run: {p14_qwen}, {p14_rg}, "
                                         f"{p14_mamba}")
     free_device()
+    phase_done("14")
+
+    # 15. the dense zoo at full width and depth: internlm2-1.8b, starcoder2-7b,
+    # gemma3-27b (kept for 16)
+    zoo_counts, zoo_recs = {}, {}
+    for i, n in enumerate(ZOO):
+        zoo_counts[n], zoo_recs[n], kept = zoo_model(n, i, args.seed, keep=n == "gemma3_27b")
+        free_device()
+    phase_done("15")
+
+    # 16. the front-end over gemma3-27b: AsyncEngine (a), then the HTTP
+    # example's card command (b), after the kept parameters are dropped
+    fe_counts = frontend_phase(*kept, args.seed)
+    del kept
+    free_device()
+    http_counts = http_phase()
+    fe_counts = {k: v + http_counts[k] for k, v in fe_counts.items()}
+    free_device()
+    phase_done("16")
 
     # K3's (128, 8) records keep the earlier paths' launches; the (64, 1)
     # build's records take phase 11's, the (256, 10) build's phase 13's; K4's
     # (128, 8) record keeps the earlier paths' and phase 14's qwen paths',
     # the (256, 10) build's takes phase 12's and 14a's recurrentgemma path's
+    # K4's (128, 2) build's record takes internlm2-1.8b's and gemma3-27b's
+    # serving (15) and the front-end (16), its (128, 9) build's starcoder2-7b's
     k3_own = ("flash_attention", "flash_attention_bwd")
+    zoo = {k: sum(c[k] for c in zoo_counts.values()) + fe_counts[k] for k in fe_counts}
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
                 + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k]
                 + (0 if k in k3_own else bert_counts[k] + rg_train_counts[k])
-                + (0 if k == "paged_attention" else rg_counts[k] + p14_rg[k])
+                + (0 if k == "paged_attention" else rg_counts[k] + p14_rg[k] + zoo[k])
                 + p14_qwen[k] + p14_mamba[k]
                 for k in serve_counts}
     for k, v in launches.items():
@@ -4759,6 +5313,23 @@ def main() -> int:
              launches=rg_counts["paged_attention"] + p14_rg["paged_attention"],
              max_abs_err=k4_rg_err,
              **{k: k4_rg_t["decode"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None),
+        dict(name="paged_attention_d128_g2", route="cuda",
+             source="src/repro_torch/kernels/paged_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:238",
+             launches=(zoo_counts["internlm2_1_8b"]["paged_attention"]
+                       + zoo_counts["gemma3_27b"]["paged_attention"]
+                       + fe_counts["paged_attention"]),
+             max_abs_err=k4_g2_err,
+             **{k: k4_zoo_t["gemma3_27b local"]["decode"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None),
+        dict(name="paged_attention_d128_g9", route="cuda",
+             source="src/repro_torch/kernels/paged_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:238",
+             launches=zoo_counts["starcoder2_7b"]["paged_attention"], max_abs_err=k4_g9_err,
+             **{k: k4_zoo_t["starcoder2_7b"]["decode"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
              library_ms=None),
         dict(name="rmsnorm", route="cuda", source="src/repro_torch/kernels/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:27",
@@ -4819,7 +5390,17 @@ def main() -> int:
         f"{m_localsgd_counts}; data parallel (9a): {dp_counts}; Mamba-2 training: "
         f"{mamba_train_counts}; BERT training (11c, 11d): {bert_counts}; recurrentgemma "
         f"serving (12c): {rg_counts}; recurrentgemma training (13c): {rg_train_counts}; phase "
-        f"14: qwen {p14_qwen}, recurrentgemma {p14_rg}, mamba {p14_mamba}")
+        f"14: qwen {p14_qwen}, recurrentgemma {p14_rg}, mamba {p14_mamba}; dense zoo (15): "
+        f"{zoo_counts}; front-end (16): {fe_counts}")
+    for n, t in k4_zoo_t.items():
+        log(f"K4 at {n}'s steps: " + "; ".join(
+            f"{shape} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.2f}, plain "
+            f"{r['plain_ms'] * 1e3:.1f})" for shape, r in t.items()))
+    for n, recs in zoo_recs.items():
+        log(f"{n} graphed: " + "; ".join(
+            f"{'packed' if p else 'unpacked'} decode {r['decode_ms']:.2f} ms, mixed "
+            f"{r['mixed_ms']:.2f} ms, {r['gen_tok_s']:.1f} generated tok/s, peak "
+            f"{r['peak_gib']:.2f} GiB" for p, r in recs.items()))
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")

@@ -15,8 +15,11 @@ from typing import List
 
 ARCHITECTURES: List[str] = [
     "mamba2_130m",
+    "internlm2_1_8b",
     "recurrentgemma_2b",
     "qwen2_5_3b",
+    "starcoder2_7b",
+    "gemma3_27b",
 ]
 
 # The paper's own models (DropCompute §5: BERT-Large + BERT-1.5B); encoder

@@ -68,6 +68,8 @@ class Instance(NamedTuple):
 INSTANCES = {
     (128, 8): Instance(8, 2, 64, 3),  # qwen2.5-3b: 128 threads of at most 170 registers
     (256, 10): Instance(4, 1, 32, 2),  # recurrentgemma-2b: ~97 KB of shared memory a CTA
+    (128, 2): Instance(8, 2, 64, 3),  # internlm2-1.8b, gemma3-27b: (128, 8)'s cut, 6 idle heads
+    (128, 9): Instance(4, 1, 64, 2),  # starcoder2-7b: two n8 tiles, Q in shared memory, ~81 KB
 }
 SERVED = set(INSTANCES)
 #: the (128, 8) instance's tile tokens and CTAs an SM, the defaults of the

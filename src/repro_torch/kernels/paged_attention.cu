@@ -17,13 +17,14 @@
 //
 // Bound: ~4*D flops per (head, key) against 2*D*sizeof(kv) bytes per
 // (kv head, key) shared by the g = H/KV grouped heads: ~2 flop/B for bf16
-// at g = 8 (2.5 at g = 10), far under the card's ~295 flop/B, so the kernel
-// is bound by the bytes of the pages it reads (and, at decode sizes, by
-// latency).
+// at g = 8 (2.5 at g = 10, 0.5 at g = 2), far under the card's ~295 flop/B,
+// so the kernel is bound by the bytes of the pages it reads (and, at decode
+// sizes, by latency).
 //
-// Two instances (`Inst` below): (D 128, g 8), qwen2.5-3b, and (D 256,
-// g 10), recurrentgemma-2b's local attention; the numbers in brackets are
-// the second's.
+// Four instances (`Inst` below): (D 128, g 8), qwen2.5-3b; (D 256, g 10),
+// recurrentgemma-2b's local attention; (D 128, g 2), internlm2-1.8b and
+// gemma3-27b; (D 128, g 9), starcoder2-7b.  The numbers in brackets are
+// (256, 10)'s; (128, 2) is cut as (128, 8) is, and (128, 9) as (256, 10).
 //
 // Design.  The tile plan (`paged_tile_plan` in flash_attention.py, one row
 // per tile: first token, tokens, slot, block lo, block hi) cuts the step's
@@ -40,7 +41,8 @@
 //     pages are converted to bf16 in shared memory once a stage (exact).
 //   * Products on tensor cores, `mma.sync` m16n8k16 (bf16 in, f32 out), with
 //     keys on M and one token's heads on N, one n8 tile for g = 8 (two for
-//     g = 10, heads 10-15 zero and never written): S^T (16 keys x 8 heads)
+//     g = 10, heads 10-15 zero and never written; one for g = 2 with heads
+//     2-7 given zero queries, two for g = 9): S^T (16 keys x 8 heads)
 //     = K (16 x D) . Q^T, then O^T (D x 8) += V^T . P^T for each n8 tile,
 //     V^T by `ldmatrix.trans`, P^T by `movmatrix.trans` of S^T's fragment.
 //     A warp holds two tokens (one); 4 warps hold a tile of 8 (4) tokens,
@@ -51,7 +53,12 @@
 //     to shared memory (the tile's tokens, 16 swizzled rows each, zero rows
 //     for the padding heads) and each k-step's two n8 fragments come from
 //     one `ldmatrix.x4`; with 64 KB of 32-key stages and 32 KB of queries
-//     (~97 KB a CTA), two CTAs an SM.
+//     (~97 KB a CTA), two CTAs an SM.  (128, 9) takes the same layout with
+//     64-key stages (64 + 16 KB a CTA, two an SM).  A padding head (g = 2
+//     on its one tile, g = 9 or 10 on their second) computes a softmax of
+//     zero scores in its own columns, which no real head reads (every
+//     column's max, sum and accumulator are its own), and is never
+//     written: the idle lanes cost the products only.
 //   * Softmax: online, per (token, head), in registers, with that token's own
 //     position mask, window and softcap; int8's k_scale multiplies the
 //     scores and v_scale the rows of P (in f32, before P is rounded to bf16).
@@ -96,9 +103,21 @@ struct Inst<256, 10> {  // recurrentgemma-2b: the accumulator alone is 128 regis
   static constexpr int kTokensPerWarp = 1, kNTiles = 2, kStageKeys = 32, kCtasPerSm = 2;
   static constexpr bool kQInSmem = true;
 };
+template <>
+struct Inst<128, 2> {  // internlm2-1.8b, gemma3-27b: (128, 8)'s cut, heads 2-7 padding
+  static constexpr int kTokensPerWarp = 2, kNTiles = 1, kStageKeys = 64, kCtasPerSm = 3;
+  static constexpr bool kQInSmem = false;
+};
+template <>
+struct Inst<128, 9> {  // starcoder2-7b: (256, 10)'s cut, heads 9-15 padding, 64-key stages
+  static constexpr int kTokensPerWarp = 1, kNTiles = 2, kStageKeys = 64, kCtasPerSm = 2;
+  static constexpr bool kQInSmem = true;
+};
 static_assert(Inst<128, 8>::kTokensPerWarp * kWarps == 8 &&
-                  Inst<256, 10>::kTokensPerWarp * kWarps == 4,
-              "INSTANCES in flash_attention.py plans tiles of 8 and 4 tokens");
+                  Inst<256, 10>::kTokensPerWarp * kWarps == 4 &&
+                  Inst<128, 2>::kTokensPerWarp * kWarps == 8 &&
+                  Inst<128, 9>::kTokensPerWarp * kWarps == 4,
+              "INSTANCES in flash_attention.py plans tiles of 8, 4, 8 and 4 tokens");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -199,9 +218,10 @@ __global__ void __launch_bounds__(kThreads, Inst<D, G>::kCtasPerSm) paged_attent
   constexpr int kStageKeys = I::kStageKeys;
   constexpr int kChunks = kStageKeys / 16;  // 16-key mma tiles a stage
   static_assert(G <= kHp && kHp - G < 8, "a token's heads fill its n8 tiles");
-  static_assert(I::kQInSmem ? kNt == 2 : kHp == G,
+  static_assert(I::kQInSmem ? kNt == 2 : kNt == 1,
                 "Q from shared memory: one ldmatrix.x4 is two n8 tiles' fragments; from "
-                "registers: no padding heads to guard");
+                "registers: one n8 tile, its padding heads' fragments zero");
+  constexpr bool kPadded = kHp != G;  // padding heads on the (last) n8 tile
   static_assert(D % 16 == 0, "head dim in 16-wide mma steps");
   constexpr int kCh = S::kRowBytes / 16;  // 16-byte chunks a pool row
   constexpr int kPer16 = 16 / sizeof(KVT);
@@ -298,13 +318,14 @@ __global__ void __launch_bounds__(kThreads, Inst<D, G>::kCtasPerSm) paged_attent
     if constexpr (!I::kQInSmem) {
 #pragma unroll
       for (int nt = 0; nt < kNt; ++nt) {
-        const __nv_bfloat16* qr =
-            q + ((size_t)t * H + kvh * G + nt * 8 + (lane >> 2)) * D + 2 * (lane & 3);
+        // a padding head's lanes hold zero fragments and read nothing
+        const int head = nt * 8 + (lane >> 2);
+        const bool ok = j < n_mine && (!kPadded || head < G);
+        const __nv_bfloat16* qr = q + ((size_t)t * H + kvh * G + head) * D + 2 * (lane & 3);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          qf[j][kk][nt][0] = j < n_mine ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
-          qf[j][kk][nt][1] =
-              j < n_mine ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8) : 0u;
+          qf[j][kk][nt][0] = ok ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
+          qf[j][kk][nt][1] = ok ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8) : 0u;
         }
       }
     }
@@ -660,9 +681,10 @@ extern "C" int repro_paged_attention(
   }
   const int G = H / KV;
   // Only the shapes the port serves are instantiated, with bf16 queries over
-  // bf16 or int8 pools: qwen2.5-3b (D 128, g 8) and recurrentgemma-2b's local
-  // attention (D 256, g 10).  Another (D, g) adds its Inst<D, G> above, its
-  // launch here, and its entry to INSTANCES in flash_attention.py.
+  // bf16 or int8 pools: qwen2.5-3b (D 128, g 8), recurrentgemma-2b's local
+  // attention (D 256, g 10), internlm2-1.8b and gemma3-27b (D 128, g 2) and
+  // starcoder2-7b (D 128, g 9).  Another (D, g) adds its Inst<D, G> above,
+  // its launch here, and its entry to INSTANCES in flash_attention.py.
   if (!q_is_bf16) return -1;
   const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, q_pos, plan, out, part_acc,
                part_ml, T, tiles, G, KV, num_pages, page_size, num_slots, num_blocks, splits,
@@ -672,6 +694,10 @@ extern "C" int repro_paged_attention(
     e = kv_is_int8 ? launch<128, 8, int8_t, true>(a) : launch<128, 8, __nv_bfloat16, false>(a);
   } else if (D == 256 && G == 10) {
     e = kv_is_int8 ? launch<256, 10, int8_t, true>(a) : launch<256, 10, __nv_bfloat16, false>(a);
+  } else if (D == 128 && G == 2) {
+    e = kv_is_int8 ? launch<128, 2, int8_t, true>(a) : launch<128, 2, __nv_bfloat16, false>(a);
+  } else if (D == 128 && G == 9) {
+    e = kv_is_int8 ? launch<128, 9, int8_t, true>(a) : launch<128, 9, __nv_bfloat16, false>(a);
   } else {
     return -1;
   }

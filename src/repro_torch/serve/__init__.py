@@ -1,7 +1,8 @@
-"""Serving: paged KV cache, token packing, sampling, speculative decoding and
-the continuous-batching engine."""
+"""Serving: paged KV cache, token packing, sampling, speculative decoding, the
+continuous-batching engine and its asyncio front-end."""
 from ..models.model import UnsupportedPatternError
 from .block_table import OutOfPages, PagedTables, PageError
+from .frontend import AsyncEngine, RequestStream, StreamEvent
 from .kv import DenseSlots, KVCache, KVCacheSpec, KVState, Paged
 from .packing import PackedLayout, pack_step, packed_capacity
 from .sampling import (
@@ -32,6 +33,7 @@ from .spec import (
 
 __all__ = [
     "AdmissionError",
+    "AsyncEngine",
     "ContinuousBatcher",
     "DenseSlots",
     "DraftModelProposer",
@@ -49,9 +51,11 @@ __all__ = [
     "PageError",
     "Proposer",
     "Request",
+    "RequestStream",
     "SamplingParams",
     "SpecConfig",
     "StepStats",
+    "StreamEvent",
     "UnsupportedDistError",
     "UnsupportedPatternError",
     "accept_greedy",

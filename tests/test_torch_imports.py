@@ -14,8 +14,9 @@ pytest.importorskip("torch")
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 PORT = pathlib.Path(SRC) / "repro_torch"
-#: the scripts that drive the port on the card
+#: the scripts that drive the port on the card, and the port's examples
 CHIP_SCRIPTS = [PORT.parents[1] / "chip_smoke.py", PORT.parents[1] / "chip_profile.py"]
+EXAMPLES = [PORT.parents[1] / "examples" / "serve_http_torch.py"]
 
 
 def iter_port_modules():
@@ -48,7 +49,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                      "repro_torch.dist.procs", "repro_torch.launch.steps",
                      "repro_torch.configs.bert_large", "repro_torch.configs.bert_1_5b",
                      "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_2b",
-                     "repro_torch.configs.hybrid_tiny"):
+                     "repro_torch.configs.hybrid_tiny", "repro_torch.serve.frontend",
+                     "repro_torch.configs.internlm2_1_8b", "repro_torch.configs.starcoder2_7b",
+                     "repro_torch.configs.gemma3_27b"):
         assert expected in names, names
     code = (
         "import sys\n"
@@ -70,10 +73,31 @@ def test_every_port_module_imports_without_jax_or_repro():
                                      r"^\s*from\s+repro\b", r"^\s*import\s+repro\b"])
 def test_no_port_source_imports_jax_or_repro(pattern):
     rx = re.compile(pattern, re.MULTILINE)
-    files = sorted(PORT.rglob("*.py")) + CHIP_SCRIPTS
+    files = sorted(PORT.rglob("*.py")) + CHIP_SCRIPTS + EXAMPLES
     assert all(f.exists() for f in files)
     hits = [str(f) for f in files if rx.search(f.read_text())]
     assert not hits, hits
+
+
+@pytest.mark.parametrize("example", EXAMPLES, ids=lambda p: p.name)
+def test_port_examples_import_without_jax_or_repro(example):
+    """The port's examples load (module level: the port's serving stack and
+    its front-end) with ``jax`` and ``repro`` made unimportable."""
+    code = (
+        "import sys, importlib.util\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {str(example)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "print('OK', mod.AsyncEngine.__module__)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK repro_torch.serve.frontend" in out.stdout
 
 
 def test_kernel_modules_import_triton_lazily():

@@ -432,14 +432,42 @@ class TestPagedTilePlan:
                                                      inst.ctas_per_sm)
             assert splits > 1  # the split merge is exercised
 
+    @pytest.mark.parametrize("name,window", PLAN_CASES)
+    @pytest.mark.parametrize("kvh,h", [(4, 8), (1, 9)], ids=["g2", "g9"])
+    def test_walk_of_the_g2_and_g9_instances(self, name, window, kvh, h):
+        """The (128, 2) instance's schedule (tiles of 8 tokens, two a warp,
+        three CTAs an SM) over 4 KV heads of 2 queries, and the (128, 9)
+        one's (tiles of 4, a warp a token, 64-key stages, two CTAs an SM)
+        over one KV head of 9, walked at head dim 32, give the plain
+        version's output; padding and fully masked queries exact zeros."""
+        inst = flash_attention.INSTANCES[128, h // kvh]
+        a = plan_scenario(name, kvh=kvh, h=h, d=32)
+        softcap = 5.0 if window == 7 else 0.0
+        got, plan = walk_plan(a, window=window, softcap=softcap, inst=inst)
+        assert 1 <= plan[:, 1].min() and plan[:, 1].max() <= inst.tile_tokens
+        ta = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
+        want = ref.paged_attention_ref(**ta, window=window, softcap=softcap).numpy()
+        assert_close(got, want, "kernel_f32")
+        zero = a["q_slots"] < 0
+        if name == "fully_masked":
+            zero |= a["q_slots"] == 2
+        np.testing.assert_array_equal(got[zero], 0.0)
+        if name == "decode":
+            splits, _ = flash_attention.split_blocks(len(plan) * kvh, a["tables"].shape[1], 132,
+                                                     inst.ctas_per_sm)
+            assert splits > 1  # the split merge is exercised
+
     def test_instances(self):
         """The served (head dim, group) pairs and their cuts: (128, 8) keeps
-        tiles of 8 tokens and three CTAs an SM; (256, 10) takes 4 and 2.  An
-        unbuilt pair raises; its plans (made for the CPU's plain path, which
-        reads none) take the default tile."""
-        assert flash_attention.SERVED == {(128, 8), (256, 10)}
+        tiles of 8 tokens and three CTAs an SM; (256, 10) takes 4 and 2;
+        (128, 2) is cut as (128, 8), (128, 9) as (256, 10) with 64-key
+        stages.  An unbuilt pair raises; its plans (made for the CPU's plain
+        path, which reads none) take the default tile."""
+        assert flash_attention.SERVED == {(128, 8), (256, 10), (128, 2), (128, 9)}
         assert flash_attention.instance(128, 8) == (8, 2, 64, 3)
         assert flash_attention.instance(256, 10) == (4, 1, 32, 2)
+        assert flash_attention.instance(128, 2) == (8, 2, 64, 3)
+        assert flash_attention.instance(128, 9) == (4, 1, 64, 2)
         for inst in flash_attention.INSTANCES.values():
             assert inst.tile_tokens == 4 * inst.tokens_per_warp  # four warps a CTA
             assert inst.stage_keys % 16 == 0

@@ -208,6 +208,79 @@ class TestKernelsOnCard:
         for bad in (no_heads, dropped):
             assert not np.allclose(np32(bad), np32(want), **TOL["kernel_bf16_gpu"])
 
+    @pytest.mark.parametrize("int8", [False, True])
+    @pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 5.0)])
+    @pytest.mark.parametrize("decode", [False, True], ids=["packed", "decode"])
+    @pytest.mark.parametrize("h,kvh", [(32, 16), (36, 4)], ids=["d128_g2", "d128_g9"])
+    def test_paged_attention_d128_g2_g9(self, cuda, h, kvh, int8, window, softcap, decode):
+        """gemma3-27b's and internlm2-1.8b's group of 2 (32 heads over 16 KV
+        heads here: one n8 tile, heads 2-7 padding with zero queries, tiles
+        of 8 tokens) and starcoder2-7b's group of 9 (36 over 4: two n8
+        tiles, Q in shared memory, tiles of 4 tokens), head dim 128;
+        ``decode`` as in ``test_paged_attention``."""
+        inst = flash_attention.INSTANCES[128, h // kvh]
+        lens = (300, 40, 190) if decode else (40, 19, 33)
+        a = packed_scenario(page_size=16, kvh=kvh, h=h, d=128, seed=6, lens=lens)
+        if decode:
+            keep = np.r_[0, 0, 4, len(a["q_pos"]) - 1]
+            a["q"], a["q_pos"], a["q_slots"] = (a[k][keep] for k in ("q", "q_pos", "q_slots"))
+            splits, _ = flash_attention.split_blocks(
+                len(keep) * kvh, a["tables"].shape[1], flash_attention._sm_count(0),
+                inst.ctas_per_sm)
+            assert splits >= 2
+        else:
+            plan = flash_attention.paged_tile_plan(a["q_pos"], a["q_slots"], 16,
+                                                   a["tables"].shape[1], window, None,
+                                                   inst.tile_tokens)
+            assert plan[:, 1].max() == inst.tile_tokens
+        a["tables"][1, 0] = -2  # hostile entry
+        a["q_slots"][0] = -1  # padding query
+        ta = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
+        for k in ("q", "k_pool", "v_pool"):
+            ta[k] = ta[k].to(torch.bfloat16)
+        if int8:
+            for k in ("k", "v"):
+                codes, scale = quantize_pool(np32(ta[f"{k}_pool"]))
+                ta[f"{k}_pool"] = torch.from_numpy(codes).to(cuda)
+                ta[f"{k}_scale"] = torch.from_numpy(scale).to(cuda)
+        out = flash_attention.paged_flash_attention(**ta, window=window, softcap=softcap)
+        want = ref.paged_attention_ref(**ta, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(np32(out), np32(want), **TOL["kernel_bf16_gpu"])
+        assert (out[0] == 0).all()
+        g = h // kvh
+        assert (out[1:].view(-1, kvh, g, 128)[:, :, g - 1] != 0).any()  # the last head written
+
+    @pytest.mark.parametrize("h,kvh", [(32, 16), (36, 4)], ids=["d128_g2", "d128_g9"])
+    def test_paged_attention_d128_g2_g9_planted_faults(self, cuda, h, kvh):
+        """Both faults fail the tolerance: the kernel given zeros for the
+        queries of each group's last n8 tile's heads (head 1 at g 2, head 8
+        at g 9), and the plain version with one split's blocks masked for
+        one token (a merge that dropped that split's partial)."""
+        g = h // kvh
+        inst = flash_attention.INSTANCES[128, g]
+        a = packed_scenario(page_size=16, kvh=kvh, h=h, d=128, seed=7, lens=(300, 40, 190))
+        keep = np.r_[0, 4, len(a["q_pos"]) - 1]
+        a["q"], a["q_pos"], a["q_slots"] = (a[k][keep] for k in ("q", "q_pos", "q_slots"))
+        ta = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
+        for k in ("q", "k_pool", "v_pool"):
+            ta[k] = ta[k].to(torch.bfloat16)
+        want = ref.paged_attention_ref(**ta)
+        q_cut = ta["q"].clone()
+        q_cut.view(len(keep), kvh, g, 128)[:, :, 8 if g > 8 else 1:] = 0
+        no_heads = flash_attention.paged_flash_attention(**dict(ta, q=q_cut))
+        splits, per = flash_attention.split_blocks(len(keep) * kvh, a["tables"].shape[1],
+                                                   flash_attention._sm_count(0), inst.ctas_per_sm)
+        assert splits >= 2
+        tables = torch.cat([ta["tables"], ta["tables"][:1]])
+        tables[-1, per:2 * per] = -1  # split 1 of slot 0's first query
+        slots = ta["q_slots"].clone()
+        slots[0] = tables.shape[0] - 1
+        dropped = ref.paged_attention_ref(**dict(ta, tables=tables, q_slots=slots))
+        torch.cuda.synchronize()
+        for bad in (no_heads, dropped):
+            assert not np.allclose(np32(bad), np32(want), **TOL["kernel_bf16_gpu"])
+
     @pytest.mark.parametrize("h,d,dtype", [(14, 64, torch.bfloat16), (16, 128, torch.float32)])
     def test_paged_attention_refuses_unserved_shapes(self, cuda, h, d, dtype):
         a = packed_scenario(page_size=16, kvh=2, h=h, d=d, seed=3)
@@ -661,7 +734,8 @@ def two_layers(name, cuda):
 class TestGraphsOnCard:
     @pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
     @pytest.mark.parametrize("cache", ["dense", "paged"])
-    @pytest.mark.parametrize("name", ["qwen2_5_3b", "mamba2_130m"])
+    @pytest.mark.parametrize("name", ["qwen2_5_3b", "mamba2_130m", "internlm2_1_8b",
+                                      "starcoder2_7b", "gemma3_27b"])
     def test_graphed_streams_equal_eager(self, cuda, name, cache, packed):
         """The engine's steps captured as CUDA graphs (the default on the
         card) serve the eager engine's greedy streams, launch the same
@@ -799,7 +873,9 @@ class TestDecodeAndSamplingOnCard:
             want = sampling.sample_rows(lg, *sampling.sampler_inputs(*rows), mode)
             assert torch.equal(got.cpu(), want), (t, k, p)
 
-    @pytest.mark.parametrize("name,layers", [("qwen2_5_3b", 2), ("recurrentgemma_2b", 3)])
+    @pytest.mark.parametrize("name,layers", [("qwen2_5_3b", 2), ("recurrentgemma_2b", 3),
+                                             ("internlm2_1_8b", 2), ("starcoder2_7b", 2),
+                                             ("gemma3_27b", 2)])
     def test_paged_decode_step_matches_dense(self, cuda, name, layers):
         """``decode_step`` through ``make_serve_step`` at the published widths:
         paged (K4) against the dense layout (plain attention; recurrentgemma's
