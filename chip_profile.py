@@ -53,10 +53,18 @@ one 8,192-token sequence; K3's (256, 10) build filed under K3), then the
 (``sampled_profiles``: the sampler's share of the busy time, read from
 the eager run's trace, the proposer's of the wall), ``zoo_serve`` the
 serving runs of its phase 15 for gemma3-27b (62 layers, bf16 parameters,
-its nine requests; K4's (128, 2) build filed under K4).  ``kernels`` also times K3's (128, 8) build at the
+its nine requests; K4's (128, 2) build filed under K4), ``moe_serve`` the
+decode-only steps of its phase 17b engine for mixtral-8x22b (12 layers,
+full width, bf16; 8 requests of 128-512 tokens, all prefilled and one
+decode step run before the window: ``decode_profiles``), in the dense
+dispatch and at cf 1.25 (K4's (128, 6) build filed under K4; the expert
+products under cuBLAS, the dispatch's sort, scatter and gathers under
+index).  ``kernels`` also times K3's (128, 8) build at the
 qwen training shape (``k3_timing``) with a digest of its outputs, gives a
 digest of K4's (128, 8) outputs (``k4_digests``) and times K4's (256, 10)
-build.  A copy of this script placed at the
+build; ``k4_builds`` gives a digest and the decode and mixed times of each
+K4 build of a dense or 'R' model at that model's widths (run it from the root of
+two trees in turns to hold a change to their bits and times).  A copy of this script placed at the
 root of another checkout (a ``git archive`` of a later commit: its
 ``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
 checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
@@ -314,6 +322,54 @@ def serve_profiles(cfg, params, prompts, make) -> None:
             cs.free_device()
 
 
+#: decode-only steps a ``decode_profiles`` run times
+DECODE_STEPS = 16
+
+
+def decode_profiles(cfg, params, prompts, make, **tags) -> None:
+    """Decode-only steps of the unpacked engine ``make`` builds, eager and
+    graphed: every prompt prefilled and one decode step run first (the
+    decode graph captured), then ``DECODE_STEPS`` steps timed unprofiled on
+    one engine and profiled on another (one JSON line each, ``tags``
+    added)."""
+    def ready(eager):
+        eng = make(cfg, params, prompts, False)
+        with cs.mode(eager):
+            while eng.queue or any(s.req is not None and s.prefilling for s in eng.slots):
+                eng.step()
+            eng.step()
+        torch.cuda.synchronize()
+        return eng
+
+    for eager in (True, False):
+        eng = ready(eager)
+        t0 = time.perf_counter()
+        with cs.mode(eager):
+            for _ in range(DECODE_STEPS):
+                eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del eng
+        cs.free_device()
+        eng = ready(eager)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with cs.mode(eager), torch.profiler.profile(activities=acts) as prof:
+            for _ in range(DECODE_STEPS):
+                eng.step()
+            torch.cuda.synchronize()
+        check_decode = [st.prefill_tokens for st in eng.step_stats[-DECODE_STEPS:]]
+        if any(check_decode):
+            raise RuntimeError(f"decode_profiles: a profiled step prefilled: {check_decode}")
+        rec = {"tag": TAG, "run": "decode", "model": cfg.name, **tags,
+               "mode": "eager" if eager else "graphed", "steps": DECODE_STEPS,
+               "overflow_a_step": [st.expert_overflow for st in eng.step_stats[-DECODE_STEPS:]],
+               **profile_record(prof, wall, DECODE_STEPS)}
+        rec["k4_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K4"))
+        print(json.dumps(rec), flush=True)
+        del eng
+        cs.free_device()
+
+
 @contextlib.contextmanager
 def sampler_ranges():
     """The engine's sampler call (``scheduler.sample_rows``) inside a
@@ -420,10 +476,11 @@ def sampled_profiles(cfg, params, prompts, seed: int, part: str) -> None:
 
 
 TAG = ""
-PARTS = ("kernels", "k6_precision", "qwen", "mamba", "train", "localsgd", "dp", "mamba_train",
-         "bert_train", "rg_serve", "rg_train", "sampled_serve", "spec_serve", "zoo_serve")
+PARTS = ("kernels", "k6_precision", "k4_builds", "qwen", "mamba", "train", "localsgd", "dp",
+         "mamba_train", "bert_train", "rg_serve", "rg_train", "sampled_serve", "spec_serve",
+         "zoo_serve", "moe_serve")
 #: the parts that time kernels alone, run only when named
-KERNEL_PARTS = ("kernels", "k6_precision")
+KERNEL_PARTS = ("kernels", "k6_precision", "k4_builds")
 
 
 #: K6's (sequences, chunks, rows) at the mamba serving run's decode and
@@ -492,27 +549,49 @@ def k3_digests(seed: int) -> dict:
             for name, x in outs.items()}
 
 
-def k4_digests(seed: int) -> dict:
-    """sha256 of K4's outputs over qwen2.5-3b's decode and mixed steps
-    (``chip_smoke.decode_scenario`` / ``paged_scenario`` at its widths, the
-    wrapper's own plan), bf16 and int8 pools, on inputs from their own
-    stream (``seed`` + 3): two trees' digests are equal exactly when their
-    (128, 8) builds give the same bits."""
+def k4_digests(seed: int, dims=None, window: int = 0) -> dict:
+    """sha256 of K4's outputs over a decode and a mixed step
+    (``chip_smoke.decode_scenario`` / ``paged_scenario`` at ``dims``,
+    qwen2.5-3b's by default, the wrapper's own plan), bf16 and int8 pools,
+    on inputs from their own stream (``seed`` + 3): two trees' digests are
+    equal exactly when their builds give the same bits."""
     import hashlib
 
     rng = np.random.default_rng(seed + 3)
     lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
     outs = {}
-    for name, a in (("decode", cs.decode_scenario(rng, lens)),
-                    ("mixed", cs.paged_scenario(rng, lens, [cs.CHUNK] * 4 + [1] * 4))):
-        outs[name] = cs.flash_attention.paged_flash_attention(**a)
+    for name, a in (("decode", cs.decode_scenario(rng, lens, dims=dims)),
+                    ("mixed", cs.paged_scenario(rng, lens, [cs.CHUNK] * 4 + [1] * 4, dims=dims))):
+        outs[name] = cs.flash_attention.paged_flash_attention(**a, window=window)
         kq, ks = cs._paged_quantize(a["k_pool"])
         vq, vs = cs._paged_quantize(a["v_pool"])
         outs[f"{name}_int8"] = cs.flash_attention.paged_flash_attention(
-            **dict(a, k_pool=kq, v_pool=vq, k_scale=ks, v_scale=vs))
+            **dict(a, k_pool=kq, v_pool=vq, k_scale=ks, v_scale=vs), window=window)
     torch.cuda.synchronize()
     return {k: hashlib.sha256(v.float().cpu().numpy().tobytes()).hexdigest()[:16]
             for k, v in outs.items()}
+
+
+#: K4's builds for the dense and 'R' models at their widths: (head dim, group, KV
+#: heads, window, slot blocks) of qwen2.5-3b, recurrentgemma-2b, gemma3-27b's
+#: local layers and starcoder2-7b
+K4_BUILDS = ((128, 8, 2, 0, 34), (256, 10, 1, 2048, 147), (128, 2, 16, 1024, 77),
+             (128, 9, 4, 0, 34))
+
+
+def k4_builds(seed: int) -> dict:
+    """Each of ``K4_BUILDS`` at a decode and a mixed step: its digests
+    (``k4_digests``) and its time (``chip_smoke.k4_timing``, us, at the
+    digests' prompt lengths)."""
+    rec = {"tag": TAG, "run": "k4_builds"}
+    for d, g, kv, window, blocks in K4_BUILDS:
+        dims = (kv * g, kv, d, blocks)
+        rng = np.random.default_rng(seed + 3)
+        lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
+        t = cs.k4_timing(rng, lens, dims=dims, window=window)
+        rec[f"{d},{g}"] = {"digests": k4_digests(seed, dims, window),
+                           "us": {shape: round(r["ms"] * 1e3, 2) for shape, r in t.items()}}
+    return rec
 
 
 def kernel_times(seed: int) -> dict:
@@ -732,9 +811,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", nargs="+", choices=PARTS,
                     default=[p for p in PARTS if p not in KERNEL_PARTS],
-                    help="parts to run, always in the order kernels, k6_precision, qwen, mamba, "
-                         "train, localsgd, dp, mamba_train, bert_train, rg_serve, rg_train, "
-                         "sampled_serve, spec_serve, zoo_serve (default: all but the first two)")
+                    help="parts to run, always in the order kernels, k6_precision, k4_builds, "
+                         "qwen, mamba, train, localsgd, dp, mamba_train, bert_train, rg_serve, "
+                         "rg_train, sampled_serve, spec_serve, zoo_serve, moe_serve (default: "
+                         "all but the first three)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -750,6 +830,8 @@ def main() -> int:
             print(json.dumps(kernel_times(args.seed)), flush=True)
         elif part == "k6_precision":
             print(json.dumps(k6_bwd_precision(args.seed)), flush=True)
+        elif part == "k4_builds":
+            print(json.dumps(k4_builds(args.seed)), flush=True)
         elif part == "qwen":
             rng = np.random.default_rng(args.seed)
             lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]
@@ -789,6 +871,16 @@ def main() -> int:
             _, gprompts = cs.zoo_requests(gcfg, args.seed, cs.ZOO.index("gemma3_27b"))
             params = init_params(gcfg, seed=args.seed, device="cuda")
             serve_profiles(gcfg, params, gprompts, cs.zoo_engine)
+        elif part == "moe_serve":  # phase 17b's mixtral-8x22b decode steps, both dispatches
+            mcfg = cs.moe_config("mixtral_8x22b")
+            _, mprompts = cs.zoo_requests(mcfg, args.seed,
+                                          len(cs.ZOO) + cs.MOE.index("mixtral_8x22b"))
+            params = init_params(mcfg, seed=args.seed, device="cuda")
+            for cf in (None, mcfg.capacity_factor):
+                decode_profiles(mcfg, params, mprompts[-cs.SLOTS:],
+                                lambda c, p, pr, pk, cf=cf: cs.zoo_engine(c, p, pr, pk,
+                                                                          capacity_factor=cf),
+                                dispatch="dense" if cf is None else f"capacity {cf}")
         elif part == "rg_train":  # phase 13c's step 1, eager then graphed; the mixers' share
             rcfg = get_config("recurrentgemma_2b")
             recs = {}

@@ -147,9 +147,10 @@ input copy is skipped, must fail the stream check.
    ``DP_ORDER_FACTOR`` times the gap the one-rank run itself shows with its
    sums in the reverse order (``DP_ZERO_GAP_FLOOR`` of its norm where that
    gap is 0); each rank's step wall, All-Reduce seconds and peak memory
-   printed; then a planted fault (rank 1 skips one kept micro-batch) that
-   both the launch counts and the values must reject, the log naming each
-   check that did; then the same two-rank runs, sound and planted,
+   printed; then, in the same two processes, a planted fault (rank 1 skips
+   one kept micro-batch) that both the launch counts and the values must
+   reject, the log naming each check that did; then the same two-rank
+   runs, sound and planted,
    for mamba2-130m at ``M_DP_LAYERS`` (24, its full depth; two replicas
    fit);
 10. Mamba-2 training — mamba2-130m at 24 layers (random weights from
@@ -179,9 +180,10 @@ input copy is skipped, must fail the stream check.
    and backward alone beside it; 11b: a 2-layer bert-1.5b (d 1600) on 2 x
    128 tokens, ``loss_sum`` and every gradient leaf on the card against the
    CPU as in phase 10, a planted K3 fault (causal in place of
-   bidirectional) outside it; 11c: bert-1.5b at full width and depth (48
-   layers, d 1600, 25 heads of 64, 1,536.8 M parameters, random weights
-   from ``--seed``) through ``train`` with LANS, 4 workers x 12
+   bidirectional) outside it; 11c: bert-1.5b at full width cut to
+   ``BERT_LAYERS`` of its 48 layers (d 1600, 25 heads of 64; the whole
+   model 1,536.8 M parameters; random weights from ``--seed``; the cut
+   keeps the smoke inside its time limit) through ``train`` with LANS, 4 workers x 12
    micro-batches of 16 x 128 tokens, the training phase's tau rule, 3
    steps, eager then graphed, with phase 10's checks and readings; 11d:
    bert-large at 24 layers with LAMB, 4 workers x 2 micro-batches of 16 x
@@ -259,7 +261,32 @@ input copy is skipped, must fail the stream check.
    capture (the metric) beside TTFT over all, captures included; then
    ``examples/serve_http_torch.py``'s card command (``HTTP_ARGV``: it
    builds gemma3-27b itself, bf16 parameters, serves on 127.0.0.1 at port
-   0 and runs its self-test), in process for its launch counts.
+   0 and runs its self-test), in process for its launch counts;
+17. the MoE family — 17a K4's (128, 6) build (mixtral-8x22b: 48 / 8 heads,
+   one n8 tile, heads 6-7 padding) and (128, 16) build (qwen3-moe-235b-a22b:
+   64 / 4 heads, two full n8 tiles) held as phase 3 holds K4 (decode and
+   mixed grids, bf16 and int8 pools, mixtral's 4,096 window past its edge,
+   planted faults) and timed at each model's decode and mixed steps; K2 at
+   d 6144 and 4096; then per model 17c a 2-layer full-width card-vs-CPU
+   check: the first MoE layer on the card's own input (dense dispatch and
+   capacity at cf 1.25 and inf; routes equal but at near-ties under
+   ``MOE_LAYER_TIE``, a planted bf16 router rejected; rows within
+   ``MOE_ROW_TOL``) and the first steps' logits with the card's routes
+   pinned to the CPU's (the routes it would take otherwise at near-ties
+   under ``MOE_MODEL_TIE``, a planted router off by one rejected), with
+   planted K4 and router (no top-k renormalisation) faults outside the
+   limits; 17b the model at ``MOE_LAYERS`` layers and full width
+   (bf16 weights drawn on the card; the depth cut is the one one card
+   forces): paged vs dense first step, mixtral's ``MOE_LONG``-token prompt
+   chunk by chunk past its window, then the zoo's engine with 8 requests of
+   128-512 tokens (mixtral one more of ``MOE_LONG``), unpacked and packed,
+   in the dense dispatch and at the config's capacity factor, eager then
+   graphed (the counters' window): full streams, no leaks, graphed equal to
+   eager, L K4 and 2L + 1 K2 a step, each step's ``expert_overflow``
+   equal to a plain recount from its own router ids (eager) and the same
+   graphed; step times, tokens/s, peaks beside the weights, overflow a
+   step.  Every serving phase collects the earlier runs' engines and
+   parameters before it draws its own and reads its peaks after a reset.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K4's (256, 10) build has a record of
@@ -280,7 +307,9 @@ mixed step.  K4's (128, 2) build's record (``paged_attention_d128_g2``) is
 read at gemma3-27b's decode step under its window, with internlm2-1.8b's
 and gemma3-27b's launches (15) and the front-end's (16); its (128, 9)
 build's (``paged_attention_d128_g9``) at starcoder2-7b's decode step with
-its launches.
+its launches; its (128, 6) and (128, 16) builds' (``paged_attention_d128_g6``,
+``paged_attention_d128_g16``) at mixtral-8x22b's and qwen3-moe-235b-a22b's
+decode steps with their serving's launches (17).
 """
 from __future__ import annotations
 
@@ -319,7 +348,7 @@ from repro_torch.kernels import _build, flash_attention, masked_accum, ops, ref,
 from repro_torch.kernels import ssd_chunk  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.layers import _paged_quantize  # noqa: E402
-from repro_torch.models import layers, ssm  # noqa: E402
+from repro_torch.models import layers, moe, ssm  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     compute_params,
     init_decode_cache,
@@ -466,6 +495,9 @@ PARITY_CONTROL_FACTOR = 2
 # bidirectional build checked at bert-1.5b's micro-batch (B 16, 25 heads,
 # S 128) and at bert-large's phase-2 length (B 2, 16 heads, S 512)
 BERT_SEQS, BERT_SEQ, BERT_MB = 16, 128, 12
+# 11c's depth: bert-1.5b's full width at half its 48 layers (the eager run
+# alone took 54 s of the smoke at 48)
+BERT_LAYERS = 24
 BERT_LARGE_MB, BERT_LARGE_STEPS = 2, 2
 BERT_D = 64
 BERT_K3_SHAPES = {"bert_1_5b": (16, 25, 128), "bert_large_s512": (2, 16, 512)}
@@ -604,6 +636,49 @@ ZOO_PARITY_LAYERS = 2
 # queue it feeds (a burst of 4 x FE_WAITING_ROOM requests of FE_BURST_PROMPT
 # tokens must meet AdmissionError)
 FE_WAITING_ROOM, FE_MAX_QUEUE, FE_BURST_PROMPT = 4, 4, 16
+# phase 17, the MoE family: mixtral-8x22b and qwen3-moe-235b-a22b at full
+# width cut to MOE_LAYERS layers (one layer is 4.66 / 4.63 GiB of bf16
+# weights; 12 with the embeddings are 56.7 / 57.9 GiB, the weights gemma3-27b
+# serves with plus its headroom on an 80 GB card), through the zoo's engine
+# in the dense dispatch and at the config's capacity factor (1.25), 8
+# requests of 128-512 prompt tokens and, for mixtral, one more of MOE_LONG
+# tokens (past its 4,096-token window), 32 new tokens each
+MOE = ("mixtral_8x22b", "qwen3_moe_235b_a22b")
+MOE_LAYERS, MOE_LONG, MOE_PARITY_LAYERS = 12, 4600, 2
+# 17c: the MoE layer on the card's own input against the CPU's f32, row by
+# row over the tokens routed alike: the card's bf16 expert weights and
+# products (2^-9 relative each) against f32; a router that skips the top-k
+# renormalisation scales each output by the kept probability mass (0.2-0.6
+# at top-2 of 8, less at top-8 of 128), far outside it
+MOE_ROW_TOL = 0.02
+# Two runs of one MoE model that differ only in rounding can route a token
+# at a near-tie of its k-th and (k+1)-th router logits to other experts, and
+# its changed output reaches every later layer; so the run under test takes
+# the other run's routes (``routes_pinned``), and the routes it would take
+# otherwise are held by ``route_flips``: the router logits close, every
+# token routed elsewhere at a stated near-tie of the pinned run's logits,
+# at most MOE_FLIP_SHARE of a layer's tokens routed elsewhere, and each
+# token's own top-k consistent with its own logits.
+# 17c's MoE layer on the card's own input: both routers read the same f32
+# input and f32 weights, so their logits differ by the order of f32 sums
+# alone (4.0-4.6e-7 of the largest on the card, no token routed
+# elsewhere); they must agree within MOE_LAYER_LOGITS of the largest, and a
+# token may go elsewhere only at a gap under MOE_LAYER_TIE logits.  A
+# router computed in bf16 (planted, ``router_in_bf16``) reads 2.8-2.9e-3.
+MOE_LAYER_TIE, MOE_LAYER_LOGITS = 1e-4, 1e-5
+# Whole models (17c's 2 layers, card against CPU; 17b's 12 layers, paged
+# against dense): the routers read hidden states that differ by bf16
+# roundings (the logits within LOGITS_REL_TOL of their largest).  A token
+# may go elsewhere only at a gap under MOE_MODEL_TIE logits: the sound runs
+# on the card flipped tokens at gaps up to 0.010 (2 layers), 0.025 (12
+# layers) and 0.039-0.052 (mixtral's long prompt), on at most 0.078 of a
+# layer's tokens; a router whose k-th choice is its (k+1)-th (planted,
+# ``router_off_by_one``) moves 0.98-1.0 of them, at gaps up to 0.25
+# (qwen3-moe) and 1.3 (mixtral).  Readings: PERF.md.
+MOE_MODEL_TIE, MOE_FLIP_SHARE = 0.1, 0.25
+# 17c's 2-layer steps take this many prompt tokens a slot (8 slots dense,
+# 8 packed): the CPU's f32 pass runs every expert on every token
+MOE_PARITY_CHUNK = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -1192,8 +1267,8 @@ def k2_timing(rng, d=2048, eps=1e-6):
     record's), the kernel's own time as one graph of back-to-back launches
     over rotating inputs of at least 100 MB in all with every output its
     own (``launch_ms``) and as the profiler's device time a launch
-    (``prof_ms``), the plain version, ``F.rms_norm`` (one replay and back to
-    back), and the bound."""
+    (``prof_ms``, None if the profiler returned nothing), the plain
+    version, ``F.rms_norm`` (one replay and back to back), and the bound."""
     rows_out = {}
     for shape, rows, d in (("decode", SLOTS, d), ("mixed", BUDGET + 1, d), ("train", TRAIN_SEQ, d),
                            ("mamba_train", M_TRAIN_SEQS * TRAIN_SEQ, 768)):
@@ -1207,8 +1282,9 @@ def k2_timing(rng, d=2048, eps=1e-6):
         kern = time_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True))
         b2b = back_to_back_ms(lambda xi: rmsnorm.rmsnorm(xi, s, eps=eps, model=True), xs, launches)
         # the only kernel the call launches (also the Triton forward's name)
-        prof = kernel_split_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True),
-                               {"k2": "rmsnorm"})["k2"]
+        parts = kernel_split_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True),
+                                {"k2": "rmsnorm"})
+        prof = None if parts is None else parts["k2"]
         plain = time_ms(lambda: ref.rmsnorm_model(x, s, eps))
         lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), weight=sb, eps=eps))
         lib_b2b = back_to_back_ms(
@@ -1219,7 +1295,7 @@ def k2_timing(rng, d=2048, eps=1e-6):
                                bound_by=by, rows=rows)
         log(f"K2 time {shape:11s} rows={rows:4d} d={d}: kernel {kern * 1e3:.2f} us (one replay), "
             f"{b2b * 1e3:.2f} us a launch back to back ({launches} in a graph), profiler "
-            f"{prof * 1e3:.2f} us; plain {plain * 1e3:.1f} us; F.rms_norm {lib * 1e3:.2f} us, "
+            f"{split_text(parts)}; plain {plain * 1e3:.1f} us; F.rms_norm {lib * 1e3:.2f} us, "
             f"{lib_b2b * 1e3:.2f} back to back; bound {b * 1e3:.2f} us ({by})")
         del xs
     return rows_out
@@ -1336,39 +1412,65 @@ K3_BWD_KERNELS = {"delta": "attn_bwd_delta", "dkdv": "attn_bwd_dkdv",
                   "group_sum": "attn_bwd_group_sum", "dq": "attn_bwd_dq"}
 
 
-def kernel_split_ms(fn, kernels, iters: int = 10, sessions: int = 3) -> dict:
+def kernel_split_ms(fn, kernels, iters: int = 10, sessions: int = 3):
     """Median device time of each of ``fn``'s kernels (``kernels``: label ->
     a substring of the kernel's name), from ``torch.profiler`` over eager
-    calls with L2 flushed before each; fails if a kernel is missing.  Late
-    in a long run the profiler has returned only some of a session's
-    kernel records (4-5 of 10, after phase 10): a session short of
-    ``iters`` records of any kernel is made again, up to ``sessions``
-    times, and the last one's medians are kept if it saw every kernel."""
+    calls with L2 flushed before each (``split_from_sessions`` reads the
+    sessions)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    for _ in range(sessions):
+
+    def session():
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        times = {label: [] for label in kernels}
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            for label, name in kernels.items():
-                if name in ev.name:
-                    times[label].append((ev.time_range.end - ev.time_range.start) / 1e3)
-        seen = {k: len(t) for k, t in times.items()}
-        if min(seen.values()) == iters:
+        return [(ev.name, (ev.time_range.end - ev.time_range.start) / 1e3) for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+    return split_from_sessions(session, kernels, iters, sessions)
+
+
+def split_from_sessions(session, kernels, iters: int, sessions: int):
+    """Medians by label of the device records (name, ms) that ``session()``
+    returns for ``iters`` calls.  Late in a long run the profiler has
+    returned only some of a session's kernel records (4-5 of 10, after
+    phase 10), and none at all, not even the flush's fills (phase 11 on an
+    H100): a session short of ``iters`` records of any kernel is made
+    again, up to ``sessions`` times.  The last session that returned any
+    device record decides: it fails the run if a kernel is missing from it.
+    If no session returned one, the split is not measured and this returns
+    None (``split_text`` says so), as ``longest_kernel`` does."""
+    times, records = None, 0
+    for _ in range(sessions):
+        evs = session()
+        if not evs:
+            continue
+        records = len(evs)
+        times = {label: [ms for ev_name, ms in evs if name in ev_name]
+                 for label, name in kernels.items()}
+        if min(len(t) for t in times.values()) == iters:
             break
-    check(min(seen.values()) > 0, f"the profiler saw {seen} launches of {iters} calls: a kernel "
-          f"is missing")
+    if times is None:
+        log(f"profiler: no device record in {sessions} sessions of {iters} calls; the split by "
+            f"launch is not measured")
+        return None
+    seen = {k: len(t) for k, t in times.items()}
+    check(min(seen.values()) > 0, f"the profiler saw {seen} launches of {iters} calls among "
+          f"{records} device records: a kernel is missing")
     if min(seen.values()) < iters:
         log(f"profiler: {seen} records of {iters} calls' launches after {sessions} sessions; "
             f"medians of those")
     return {label: statistics.median(t) for label, t in times.items()}
+
+
+def split_text(parts) -> str:
+    """``kernel_split_ms``'s result for a log line, in microseconds."""
+    if parts is None:
+        return "not measured"
+    return ", ".join(f"{n} {t * 1e3:.1f}" for n, t in parts.items()) + " us"
 
 
 def k3_timing(rng):
@@ -1402,10 +1504,10 @@ def k3_timing(rng):
     fb, fby = bound_ms(io + 4 * lse.numel(), 4.0 * D * H * pairs)
     bb, bby = bound_ms(io + 2 * q.numel() + 4 * lse.numel() + 2 * (q.numel() + 2 * k.numel()),
                        10.0 * D * H * pairs)
-    split = ", ".join(f"{n} {t * 1e3:.1f}" for n, t in parts.items())
+    split = split_text(parts)
     log(f"K3 time S={TRAIN_SEQ} causal: fwd kernel {fwd * 1e3:.1f} us, plain {plain_fwd * 1e3:.1f} "
         f"us, SDPA {lib_fwd * 1e3:.1f} us, bound {fb * 1e3:.1f} us ({fby}); bwd kernels "
-        f"{bwd * 1e3:.1f} us (device time by launch, profiler: {split} us), plain "
+        f"{bwd * 1e3:.1f} us (device time by launch, profiler: {split}), plain "
         f"{plain_bwd * 1e3:.1f} us, SDPA bwd alone {lib_bwd * 1e3:.1f} us (graph-captured "
         f"autograd.grad), bound {bb * 1e3:.1f} us ({bby}); fwd+bwd kernels "
         f"{(fwd + bwd) * 1e3:.1f} us, SDPA fwd+bwd {lib_both * 1e3:.1f} us (eager, events)")
@@ -1511,12 +1613,12 @@ def k3_bert_timing(rng):
         fb, fby = bound_ms(io + 4 * lse.numel(), 4.0 * BERT_D * pairs)
         bb, bby = bound_ms(io + 2 * q.numel() + 4 * lse.numel() + 2 * 3 * q.numel(),
                            10.0 * BERT_D * pairs)
-        split = ", ".join(f"{n} {t * 1e3:.1f}" for n, t in parts.items())
+        split = split_text(parts)
         log(f"K3 bert time {name} (B {b}, H {h}, S {s}, D {BERT_D}, bidirectional): fwd kernel "
             f"{fwd * 1e3:.1f} us one replay, {fwd_b2b * 1e3:.1f} us back to back ({launches} in "
             f"a graph), plain {plain_fwd * 1e3:.1f} us, SDPA {lib_fwd * 1e3:.1f} us, bound "
             f"{fb * 1e3:.1f} us ({fby}); bwd kernels {bwd * 1e3:.1f} us one replay, "
-            f"{bwd_b2b * 1e3:.1f} us back to back (device time by launch, profiler: {split} us), "
+            f"{bwd_b2b * 1e3:.1f} us back to back (device time by launch, profiler: {split}), "
             f"plain {plain_bwd * 1e3:.1f} us, SDPA bwd alone {lib_bwd * 1e3:.1f} us, bound "
             f"{bb * 1e3:.1f} us ({bby})")
         rows[name] = (dict(ms=fwd, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby,
@@ -1931,9 +2033,9 @@ def k6_bwd_timing(rng):
         outs = ssd_chunk.ssd_chunk_bwd(*a, y, dy)
         nbytes, flops = ssd_bwd_cost(bs, nc, l, [*a, y, dy, *outs])
         b, by = ssd_bound(nbytes, flops)
-        split = ", ".join(f"{n} {t * 1e3:.1f}" for n, t in parts.items())
+        split = split_text(parts)
         log(f"K6 bwd time B={bs} NC={nc} L={l}: kernel {kern * 1e3:.1f} us (device time by "
-            f"launch, profiler: {split} us), plain {plain * 1e3:.1f} us, "
+            f"launch, profiler: {split}), plain {plain * 1e3:.1f} us, "
             f"{ssd_bounds(nbytes, flops)}; scratch {ssd_chunk.scratch_bytes(bs * nc, l) / 1e6:.1f} MB")
         rows[l] = dict(ms=kern, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
         del a, y, dy, outs
@@ -1948,7 +2050,9 @@ def k6_bwd_timing(rng):
 def first_step_logits_check(cfg, params, prompts, max_len: int = MAX_LEN, tag: str = ""):
     """First prefill step (one 64-token chunk per slot) through the paged
     cache (CUDA kernel) and the dense cache (plain attention), slots of
-    ``max_len`` positions."""
+    ``max_len`` positions; an MoE model's paged step takes the dense step's
+    routes (``routes_pinned``), each route it would take otherwise a
+    near-tie (``sound_routes``)."""
     tokens = np.stack([np.asarray(p[:CHUNK]) for p in prompts])
     pos = np.zeros(SLOTS, np.int64)
     lens = np.full(SLOTS, CHUNK, np.int64)
@@ -1958,9 +2062,14 @@ def first_step_logits_check(cfg, params, prompts, max_len: int = MAX_LEN, tag: s
         check(paged.admit_slot(i, p, NEW_TOKENS) == 0, "unexpected prefix sharing")
     paged.prepare_step([(i, 0, p[:CHUNK]) for i, p in enumerate(prompts)])
     dense = KVCacheSpec(num_slots=SLOTS, max_len=max_len, layout="dense").build(params, cfg)
-    lp, _ = prefill_chunk(params, cfg, paged.state, tokens, pos, lens)
-    ld, _ = prefill_chunk(params, cfg, dense.state, tokens, pos, lens)
+    routes, own = [], []
+    with routed_if_moe(cfg, routes):
+        ld, _ = prefill_chunk(params, cfg, dense.state, tokens, pos, lens)
+    with pinned_if_moe(cfg, routes, own):
+        lp, _ = prefill_chunk(params, cfg, paged.state, tokens, pos, lens)
     lp, ld = lp.float(), ld.float()
+    if cfg.n_experts:  # the paged step takes the dense step's routes
+        sound_routes(own, routes, MOE_MODEL_TIE, f"{tag}first prefill step, paged vs dense")
     check(tuple(lp.shape) == (SLOTS, CHUNK, cfg.vocab_size), f"logits shape {tuple(lp.shape)}")
     check(bool(torch.isfinite(lp).all() and torch.isfinite(ld).all()), "non-finite logits")
     err = (lp - ld).abs().max().item()
@@ -2027,6 +2136,7 @@ def step_record(eng, prompts, wall, peak) -> dict:
 def serve(cfg, params, prompts, packed: bool, eager: bool = False, tag: str = ""):
     """One qwen serving run, eager (``disable_graphs``) or graphed, checked;
     returns the streams, the run's launches and its numbers."""
+    free_device()  # the earlier runs' engines: the peak read is this run's
     eng = engine(cfg, params, prompts, packed)
     wall, runs, peak = run_engine(eng, eager)
     tag = f"{tag or ('eager' if eager else 'graphed')} {'packed' if packed else 'unpacked'}"
@@ -2221,6 +2331,7 @@ def mamba_serve(cfg, params, prompts, cache: str, packed: bool, eager: bool = Fa
     """One serving run of the mamba phase, eager (``disable_graphs``) or
     graphed, checked; returns the streams, the run's launches and its
     numbers."""
+    free_device()  # the earlier runs' engines: the peak read is this run's
     eng = mamba_engine(cfg, params, prompts, cache, packed)
     wall, runs, peak = run_engine(eng, eager)
     tag = (f"mamba {cache} {'packed' if packed else 'unpacked'} "
@@ -2967,15 +3078,25 @@ def skip_first_kept_microbatch() -> None:
     Accumulator.add = add
 
 
-def dp_rank(rank: int, world: int, cfg, seed: int, tau: float, plant: bool,
-            seqs: int = 1) -> dict:
-    """One 9b rank (a spawned process on GPU 0, gloo): the training phase's
-    run at ``cfg``'s depth with ``mesh`` the 2-rank gloo group; returns its
-    readings, whether its final replica equals rank 0's (a broadcast of each
-    leaf compared on the card) and, on rank 0, the final leaves."""
+def dp_rank(rank: int, world: int, cfg, seed: int, tau: float, seqs: int = 1) -> list:
+    """One 9b rank (a spawned process on GPU 0, gloo): ``dp_rank_run``
+    sound, then with the planted fault (rank 1 skips its next kept
+    micro-batch), one spawn's start-up serving both.  Returns the two runs'
+    readings in that order."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    if plant and rank == 1:
+    sound = dp_rank_run(rank, world, cfg, seed, tau, seqs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 1:
         skip_first_kept_microbatch()
+    return [sound, dp_rank_run(rank, world, cfg, seed, tau, seqs)]
+
+
+def dp_rank_run(rank: int, world: int, cfg, seed: int, tau: float, seqs: int) -> dict:
+    """The training phase's run at ``cfg``'s depth with ``mesh`` the 2-rank
+    gloo group; returns its readings, whether its final replica equals rank
+    0's (a broadcast of each leaf compared on the card) and, on rank 0, the
+    final leaves."""
     dev = f"{DEV}:0"
     mesh = Distribution.from_spec(str(world), device=dev, backend="gloo")
     params = init_params(cfg, seed=seed, device=dev)
@@ -3073,8 +3194,9 @@ def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS,
     data and latencies (2 workers a rank x 2 micro-batches of one 2048-token
     sequence, 3 steps) on two gloo ranks sharing the card, against 9a's code
     at the same depth on one rank, which must pass every check of
-    ``dp_faults``; then the same with a planted fault (rank 1 skips one kept
-    micro-batch), which they must reject, and the log says which did."""
+    ``dp_faults``; then, in the same two spawned processes (``dp_rank``),
+    the same with a planted fault (rank 1 skips one kept micro-batch),
+    which they must reject, and the log says which did."""
     small = dataclasses.replace(cfg, n_layers=layers)
     tau, masks = dp_tau(cfg, seed)
     mode_line = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
@@ -3111,11 +3233,13 @@ def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS,
     per_mb = launches_per_microbatch(small, len(names))
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
-    for plant in (False, True):
-        t0 = time.perf_counter()
-        got = procs.spawn(dp_rank, DP_RANKS, backend="gloo", device=f"{DEV}:0",
-                          timeout_s=DP_TIMEOUT_S, workdir=root, args=(small, seed, tau, plant))
-        spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs = procs.spawn(dp_rank, DP_RANKS, backend="gloo", device=f"{DEV}:0",
+                       timeout_s=DP_TIMEOUT_S, workdir=root, args=(small, seed, tau))
+    log(f"dp 9b {cfg.name}: {DP_RANKS} ranks spawned once for the sound run and the planted "
+        f"fault's, joined in {time.perf_counter() - t0:.1f} s")
+    for i, plant in enumerate((False, True)):
+        got = [r[i] for r in runs]
         tag = (f"{cfg.name} planted fault (rank 1 skips one kept micro-batch)" if plant
                else f"{cfg.name} sound")
         for r, g in enumerate(got):
@@ -3124,7 +3248,6 @@ def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS,
                 f"{[round(x, 3) for x in g['allreduce_s']]} ({4 * small.param_count() + 12} "
                 f"bytes, gloo through the host); peak {g['peak_gib']:.2f} GiB; train "
                 f"{g['wall_s']:.1f} s; launches {g['counts']}")
-        log(f"dp 9b {tag}: {DP_RANKS} ranks spawned and joined in {spawn_s:.1f} s")
         faults = dp_faults(got, one, masks, per_mb, names, order_gaps)
         failed = faults["ranks"] + faults["values"]
         if not plant:
@@ -3141,6 +3264,7 @@ def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS,
                 f"{'; '.join(faults['ranks']) or 'none'}; by the values against one rank: "
                 f"{'; '.join(faults['values']) or 'none'}")
         del got
+    del runs
 
 
 # ---------------------------------------------------------------------------
@@ -3340,8 +3464,9 @@ def bert_phase(seed: int, rng):
     build (``k3_bert_checks``, ``k3_bert_timing``); 11b a 2-layer
     bert-1.5b (d 1600) on 2 x 128 tokens, card against CPU
     (``train_parity``, the planted fault ``bidirectional_made_causal``);
-    11c bert-1.5b at full width and depth through the trainer at appendix
-    B.1's micro-batch and accumulations with LANS (``full_train_phase``);
+    11c bert-1.5b at full width and ``BERT_LAYERS`` layers through the
+    trainer at appendix B.1's micro-batch and accumulations with LANS
+    (``full_train_phase``);
     11d bert-large at 24 layers with LAMB.  Returns (the K3 errors and
     timings, the graphed runs' launches summed over 11c and 11d)."""
     errs = k3_bert_checks(rng)
@@ -3353,9 +3478,10 @@ def bert_phase(seed: int, rng):
     train_parity(cfg, seed, tokens, bidirectional_made_causal, "bert parity",
                  "causal in place of bidirectional", "flash_attention_bwd")
     free_device()
-    log(f"bert-1.5b: {cfg.param_count() / 1e6:.1f} M parameters (the reference's param_count)")
-    counts = full_train_phase(cfg, seed, "bert-1.5b train", BERT_SEQS, BERT_SEQ, BERT_MB,
-                              optimizer="lans")
+    log(f"bert-1.5b: {cfg.param_count() / 1e6:.1f} M parameters (the reference's param_count); "
+        f"11c runs {BERT_LAYERS} of its {cfg.n_layers} layers")
+    counts = full_train_phase(dataclasses.replace(cfg, n_layers=BERT_LAYERS), seed,
+                              "bert-1.5b train", BERT_SEQS, BERT_SEQ, BERT_MB, optimizer="lans")
     free_device()
     large = full_train_phase(get_config("bert_large"), seed, "bert-large train", BERT_SEQS,
                              BERT_SEQ, BERT_LARGE_MB, BERT_LARGE_STEPS, optimizer="lamb")
@@ -3368,15 +3494,16 @@ def bert_phase(seed: int, rng):
 # ---------------------------------------------------------------------------
 
 
-def k2_rg_checks(rng, eps=1e-6):
+def k2_rg_checks(rng, eps=1e-6, d: int = 2560):
     """12a: K2's forward at recurrentgemma's width (d 2,560: 5,120-byte
-    rows, the bulk-copy path in bf16) at its serving steps' row counts
-    (``RG_K2_ROWS``), f32 and bf16, both modes, against its plain version
-    (``k2_held``), two runs bit-identical, its plan printed; then timed by
-    graph replay with L2 flushed, bf16 model mode (the model's call),
-    beside its plain version, ``F.rms_norm`` and its bound.  Returns (the
-    largest absolute difference, {rows: times})."""
-    d, sms = 2560, rmsnorm._sm_count(0)
+    rows, the bulk-copy path in bf16; 17a: mixtral's 6,144 and
+    qwen3-moe's 4,096) at the serving steps' row counts (``RG_K2_ROWS``),
+    f32 and bf16, both modes, against its plain version (``k2_held``), two
+    runs bit-identical, its plan printed; then timed by graph replay with
+    L2 flushed, bf16 model mode (the model's call), beside its plain
+    version, ``F.rms_norm`` and its bound.  Returns (the largest absolute
+    difference, {rows: times})."""
+    sms = rmsnorm._sm_count(0)
     s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV)
     max_err, times = 0.0, {}
     for rows in RG_K2_ROWS:
@@ -3425,10 +3552,11 @@ def planted_k4_fault():
         ops.paged_flash_attention = sound
 
 
-def first_steps(cfg, params, prompts, max_len: int = RG_MAX_LEN):
+def first_steps(cfg, params, prompts, max_len: int = RG_MAX_LEN, chunk: int = CHUNK):
     """Logits (on the CPU, f32) of the serving run's first dense step (64
     prompt tokens in every slot) and first packed step (64 in each of the
-    four oldest slots, the budget's 256), each over a fresh paged cache of
+    four oldest slots, the budget's 256; ``chunk``: the tokens a slot
+    takes, 64 as the serving run's), each over a fresh paged cache of
     ``max_len`` positions a slot, so that the attention layers attend
     through K4 on the card."""
     dev = params["embed"]["embedding"].device
@@ -3441,11 +3569,11 @@ def first_steps(cfg, params, prompts, max_len: int = RG_MAX_LEN):
         kv.prepare_step(grants)
         return kv.state
 
-    grants = [(i, 0, list(p[:CHUNK])) for i, p in enumerate(prompts)]
+    grants = [(i, 0, list(p[:chunk])) for i, p in enumerate(prompts)]
     tokens = np.stack([np.asarray(g[2]) for g in grants])
     dense, _ = prefill_chunk(params, cfg, state(grants), tokens, np.zeros(SLOTS, np.int64),
-                             np.full(SLOTS, CHUNK, np.int64))
-    grants = grants[:BUDGET // CHUNK]
+                             np.full(SLOTS, chunk, np.int64))
+    grants = grants[:BUDGET // chunk]
     lay = pack_step(grants, BUDGET + 1)
     packed, _ = packed_prefill(params, cfg, state(grants), lay.tokens, lay.slot_ids,
                                lay.positions)
@@ -3761,13 +3889,13 @@ def k3_rg_timing(rng):
     fb, fby = bound_ms(io + 4 * lse.numel(), 4.0 * RG_D * pairs)
     bb, bby = bound_ms(io + 2 * q.numel() + 4 * lse.numel() + 2 * (q.numel() + 2 * k.numel()),
                        10.0 * RG_D * pairs)
-    split = ", ".join(f"{n} {t * 1e3:.1f}" for n, t in parts.items())
+    split = split_text(parts)
     log(f"K3 rg time (B {b}, H {RG_H}, KV {RG_KV}, S {s}, D {RG_D}, window {w}, {pairs} "
         f"admissible pairs): fwd kernel {fwd * 1e3:.1f} us one replay, {fwd_b2b * 1e3:.1f} us "
         f"back to back, plain {plain_fwd * 1e3:.1f} us, SDPA with the band mask "
         f"{lib_fwd * 1e3:.1f} us ({lib_fwd_kernel}), bound {fb * 1e3:.1f} us ({fby}); bwd "
         f"kernels {bwd * 1e3:.1f} us one replay, {bwd_b2b * 1e3:.1f} us back to back (device "
-        f"time by launch, profiler: {split} us), plain {plain_bwd * 1e3:.1f} us, SDPA bwd alone "
+        f"time by launch, profiler: {split}), plain {plain_bwd * 1e3:.1f} us, SDPA bwd alone "
         f"{lib_bwd * 1e3:.1f} us ({lib_bwd_kernel}), bound {bb * 1e3:.1f} us ({bby})")
     return (dict(ms=fwd, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby, library_ms=lib_fwd),
             dict(ms=bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby, library_ms=lib_bwd))
@@ -4650,18 +4778,25 @@ def zoo_config(name: str):
     return dataclasses.replace(get_config(name), param_dtype="bfloat16")
 
 
+def long_prompt(cfg) -> int:
+    """The long request's length for a zoo or MoE model with a sliding
+    window: past its window (``ZOO_LONG``, ``MOE_LONG``)."""
+    return MOE_LONG if cfg.n_experts else ZOO_LONG
+
+
 def zoo_requests(cfg, seed: int, index: int):
-    """A zoo model's prompt lengths and prompts (its own draws): with a
-    sliding window, the long request first (past the window), then the
-    serving run's 8 lengths of 128-512."""
+    """A zoo (or, from index ``len(ZOO)`` on, an MoE) model's prompt
+    lengths and prompts (its own draws): with a sliding window, the long
+    request first (past the window), then the serving run's 8 lengths of
+    128-512."""
     rng = np.random.default_rng(seed + 15 + index)
-    lens = ([ZOO_LONG] if "L" in cfg.pattern else []) + [
+    lens = ([long_prompt(cfg)] if "L" in cfg.pattern else []) + [
         int(n) for n in rng.integers(PROMPT_MIN, PROMPT_MAX + 1, SLOTS)]
     return lens, [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
 
 
 def zoo_max_len(cfg) -> int:
-    return (ZOO_LONG if "L" in cfg.pattern else PROMPT_MAX) + NEW_TOKENS
+    return (long_prompt(cfg) if "L" in cfg.pattern else PROMPT_MAX) + NEW_TOKENS
 
 
 def zoo_dims(cfg):
@@ -4673,7 +4808,9 @@ def window_edge_check(cfg, params, prompt, max_len: int) -> None:
     """A prompt past the sliding window, prefilled chunk by chunk in one
     slot through the paged cache (K4) and the dense cache (plain
     attention): every chunk's logits within phase 4's ``LOGITS_REL_TOL``
-    of the largest logit (the worst past the window's edge printed)."""
+    of the largest logit (the worst past the window's edge printed); an MoE
+    model's paged steps take the dense steps' routes, as in
+    ``first_step_logits_check``."""
     kvs = {}
     for layout in ("paged", "dense"):
         kv = KVCacheSpec(num_slots=1, max_len=max_len, layout=layout,
@@ -4681,16 +4818,23 @@ def window_edge_check(cfg, params, prompt, max_len: int) -> None:
         if layout == "paged":
             check(kv.admit_slot(0, prompt, NEW_TOKENS) == 0, "unexpected prefix sharing")
         kvs[layout] = kv
-    worst, worst_past = 0.0, 0.0
+    worst, worst_past, reads = 0.0, 0.0, []
     for p0 in range(0, len(prompt), CHUNK):
         chunk = prompt[p0:p0 + CHUNK]
-        out = {}
-        for layout, kv in kvs.items():
+        out, routes, own = {}, [], []
+        for layout in ("dense", "paged"):  # an MoE model's paged step takes the dense routes
+            kv = kvs[layout]
             if layout == "paged":
                 kv.prepare_step([(0, p0, chunk)])
-            logits, kv.state = prefill_chunk(params, cfg, kv.state, np.asarray([chunk]),
-                                             np.asarray([p0]), np.asarray([len(chunk)]))
+            with (routed_if_moe(cfg, routes) if layout == "dense"
+                  else pinned_if_moe(cfg, routes, own)):
+                logits, kv.state = prefill_chunk(params, cfg, kv.state, np.asarray([chunk]),
+                                                 np.asarray([p0]), np.asarray([len(chunk)]))
             out[layout] = logits.float()
+        if cfg.n_experts:
+            _, read, why = route_flips(own, routes, MOE_MODEL_TIE, f"{cfg.name}: chunk at {p0}")
+            check(why is None, why)
+            reads.append(read)
         ratio = ((out["paged"] - out["dense"]).abs().max() / out["dense"].abs().max()).item()
         check(math.isfinite(ratio) and ratio <= LOGITS_REL_TOL,
               f"{cfg.name}: chunk at {p0}: paged vs dense logits ratio {ratio}")
@@ -4699,11 +4843,17 @@ def window_edge_check(cfg, params, prompt, max_len: int) -> None:
             worst_past = max(worst_past, ratio)
     log(f"{cfg.name}: a {len(prompt)}-token prompt in {CHUNK}-token chunks, paged (K4) vs dense "
         f"logits, largest ratio {worst:.4f}, past the {cfg.sliding_window}-token window's edge "
-        f"{worst_past:.4f} (limit {LOGITS_REL_TOL})")
+        f"{worst_past:.4f} (limit {LOGITS_REL_TOL})"
+        + (f"; the paged steps take the dense steps' routes, and would route "
+           f"{sum(r['flips'] for r in reads)} token(s) elsewhere, at most "
+           f"{max(r['share'] for r in reads):.3f} of a chunk's at a layer, largest gap of a flip "
+           f"{max(r['gap'] for r in reads):.3e} (near-tie under {MOE_MODEL_TIE}), router logits "
+           f"within {max(r['logits'] for r in reads):.2e}" if cfg.n_experts else ""))
 
 
 def zoo_engine(cfg, params, prompts, packed: bool, **kw) -> ContinuousBatcher:
-    """A zoo model's serving engine (the qwen run's), requests submitted."""
+    """A zoo or MoE model's serving engine (the qwen run's), requests
+    submitted."""
     eng = ContinuousBatcher(params, cfg, batch_slots=SLOTS, max_len=zoo_max_len(cfg),
                             chunk_size=CHUNK, token_budget=BUDGET, cache="paged",
                             page_size=PAGE, packed=packed, **kw)
@@ -5042,6 +5192,494 @@ def http_phase() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the MoE family (phase 17): mixtral-8x22b, qwen3-moe-235b-a22b
+# ---------------------------------------------------------------------------
+
+
+def moe_config(name: str, layers: int = MOE_LAYERS):
+    """The published config (bf16 parameter storage, as published) cut to
+    ``layers`` layers: every width as published."""
+    return dataclasses.replace(get_config(name), n_layers=layers)
+
+
+@contextlib.contextmanager
+def router_not_renormalised():
+    """A planted fault: the router's top-k probabilities used as they come
+    out of the softmax, without the Mixtral renormalisation to sum 1."""
+    sound = moe._router
+
+    def faulty(p, x2d, cfg):
+        _, top_i, aux = sound(p, x2d, cfg)
+        probs = torch.softmax(moe.router_logits(p, x2d), dim=-1)
+        return torch.gather(probs, 1, top_i), top_i, aux
+
+    moe._router = faulty
+    try:
+        yield
+    finally:
+        moe._router = sound
+
+
+@contextlib.contextmanager
+def router_in_bf16():
+    """A planted fault: the router's logits computed in bf16 (its input and
+    weights rounded to bf16, the product a bf16 tensor)."""
+    sound = moe.router_logits
+    moe.router_logits = lambda p, x2d: (x2d.to(torch.bfloat16)
+                                        @ p["router"].to(torch.bfloat16)).float()
+    try:
+        yield
+    finally:
+        moe.router_logits = sound
+
+
+@contextlib.contextmanager
+def router_off_by_one():
+    """A planted fault: each token's k-th choice replaced by its (k+1)-th,
+    weighed by its own probability, renormalised."""
+    sound = moe._router
+
+    def faulty(p, x2d, cfg):
+        _, _, aux = sound(p, x2d, cfg)
+        probs = torch.softmax(moe.router_logits(p, x2d), dim=-1)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).indices
+        ids = torch.cat([top[:, :cfg.top_k - 1], top[:, cfg.top_k:]], dim=1)
+        top_p = torch.gather(probs, 1, ids)
+        return top_p / top_p.sum(dim=-1, keepdim=True), ids, aux
+
+    moe._router = faulty
+    try:
+        yield
+    finally:
+        moe._router = sound
+
+
+def route_record(ids, logits, k: int):
+    """One router call's record on the host: its ids (T, k), the gap between
+    its k-th and (k+1)-th logits (T,) and its logits (T, E)."""
+    z = logits.sort(dim=-1, descending=True).values
+    return ids.cpu(), (z[:, k - 1] - z[:, k]).cpu(), logits.cpu()
+
+
+@contextlib.contextmanager
+def router_calls(record: list):
+    """Record each router call (``route_record``)."""
+    sound = moe._router
+
+    def spy(p, x2d, cfg):
+        out = sound(p, x2d, cfg)
+        record.append(route_record(out[1], moe.router_logits(p, x2d), cfg.top_k))
+        return out
+
+    moe._router = spy
+    try:
+        yield
+    finally:
+        moe._router = sound
+
+
+@contextlib.contextmanager
+def routes_pinned(pinned: list, own: list):
+    """Each router call takes its top-k ids from ``pinned`` (another run's
+    ``router_calls`` records, in call order) and weighs them by its own
+    probabilities, renormalised as the router does; its own ids and gaps
+    go to ``own``.  Two runs that should differ only by their attention
+    (the card's kernels against the CPU's plain versions, or the paged
+    kernel against plain attention) then route alike, so a near-tie that
+    rounds the other way in one of them does not send a token elsewhere
+    and carry its difference through every later layer."""
+    sound = moe._router
+    calls = iter(pinned)
+
+    def forced(p, x2d, cfg):
+        _, mine, aux = sound(p, x2d, cfg)
+        logits = moe.router_logits(p, x2d)
+        own.append(route_record(mine, logits, cfg.top_k))
+        ids = next(calls)[0].to(x2d.device)
+        top_p = torch.gather(torch.softmax(logits, dim=-1), 1, ids)
+        return top_p / top_p.sum(dim=-1, keepdim=True), ids, aux
+
+    moe._router = forced
+    try:
+        yield
+    finally:
+        moe._router = sound
+
+
+def route_flips(own, pinned, tie: float, what: str, rows=None,
+                logits_tol: float = LOGITS_REL_TOL):
+    """The routes a run would take otherwise: the tokens (the first
+    ``rows``: a packed step's real ones) whose own expert set differs from
+    the pinned one at some layer (``own`` and ``pinned``: ``route_record``s,
+    layer by layer).  The rules, layer by layer: the router logits agree
+    within ``logits_tol`` of their largest; every token routed elsewhere has
+    a pinned gap between its k-th and (k+1)-th logits under ``tie``; at
+    most ``MOE_FLIP_SHARE`` of the tokens are routed elsewhere; and the
+    gap lies under twice the token's largest logit change (else one of the
+    two top-k's is not the top-k of its logits: a consistency check, which
+    any two correct top-k's pass).  Returns (the tokens' mask, the
+    readings: flips, the largest share of a layer, the largest gap of a
+    token routed elsewhere, the largest logit change relative to the
+    largest logit; the first rule broken, or None)."""
+    if len(own) != len(pinned):
+        return None, {}, f"{what}: {len(own)} router calls, {len(pinned)} pinned"
+    rows = rows or own[0][0].shape[0]
+    out = torch.zeros(rows, dtype=torch.bool)
+    read = {"flips": 0, "share": 0.0, "gap": 0.0, "logits": 0.0}
+    why = None
+    for layer, ((ids_a, _, z_a), (ids_b, gap, z_b)) in enumerate(zip(own, pinned)):
+        dz = (z_a[:rows] - z_b[:rows]).abs().max(dim=1).values
+        rel = dz.max().item() / z_b[:rows].abs().max().item()
+        differ = (ids_a[:rows].sort(dim=1).values != ids_b[:rows].sort(dim=1).values).any(1)
+        g = gap[:rows][differ]
+        share = differ.float().mean().item()
+        worst = g.max().item() if g.numel() else 0.0
+        read = {"flips": read["flips"] + int(differ.sum()), "share": max(read["share"], share),
+                "gap": max(read["gap"], worst), "logits": max(read["logits"], rel)}
+        rules = ((rel <= logits_tol, f"router logits differ by {rel:.3e} of their largest "
+                                     f"(limit {logits_tol})"),
+                 (worst < tie, f"{g.numel()} token(s) routed elsewhere at a logit gap up to "
+                               f"{worst:.3e} (a near-tie is under {tie})"),
+                 (share <= MOE_FLIP_SHARE, f"{share:.3f} of the tokens routed elsewhere "
+                                           f"(limit {MOE_FLIP_SHARE})"),
+                 (bool((g <= 2 * dz[differ]).all()), "a top-k that is not its logits' top-k"))
+        why = why or next((f"{what}: layer {layer}: {msg}" for ok, msg in rules if not ok), None)
+        out |= differ
+    return out, read, why
+
+
+def route_readings(read: dict) -> str:
+    """``route_flips``'s readings, for the log."""
+    return (f"{read['flips']} flips, at most {read['share']:.3f} of a layer's tokens, largest "
+            f"gap of a flip {read['gap']:.3e}, router logits within {read['logits']:.2e}")
+
+
+def sound_routes(own, pinned, tie: float, what: str, **kw) -> torch.Tensor:
+    """``route_flips`` of a sound run: fails on a broken rule; returns the
+    mask and logs the readings."""
+    flips, read, why = route_flips(own, pinned, tie, what, **kw)
+    check(why is None, why)
+    log(f"{what}: routes the run would take otherwise: {route_readings(read)} (near-tie "
+        f"under {tie})")
+    return flips
+
+
+def faulty_routes(own, pinned, tie: float, what: str, **kw) -> None:
+    """``route_flips`` of a run with a planted router fault: fails unless a
+    rule rejects it; logs the readings and the rule."""
+    _, read, why = route_flips(own, pinned, tie, what, **kw)
+    check(why is not None, f"{what}: the route checks let a planted router fault pass: "
+                           f"{route_readings(read)}")
+    log(f"{what}: rejected ({why}); {route_readings(read)}")
+
+
+def pinned_if_moe(cfg, pinned: list, own: list):
+    """``routes_pinned`` for an MoE config, nothing for another."""
+    return routes_pinned(pinned, own) if cfg.n_experts else contextlib.nullcontext()
+
+
+def routed_if_moe(cfg, record: list):
+    """``router_calls`` for an MoE config, nothing for another."""
+    return router_calls(record) if cfg.n_experts else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def first_moe_input(box: list):
+    """Keep the first MoE layer call's input (x, params) of the block."""
+    sound = moe.apply_moe
+
+    def spy(p, x, cfg, impl="sort", valid=None):
+        if not box:
+            box.append((x.detach().clone(), p))
+        return sound(p, x, cfg, impl=impl, valid=valid)
+
+    moe.apply_moe = spy
+    try:
+        yield
+    finally:
+        moe.apply_moe = sound
+
+
+def moe_layer_check(card_x, card_p, cpu_p, card_cfg, cpu_cfg) -> dict:
+    """17c: one MoE layer on the card's own input (the first layer's, the
+    card's bf16 hidden states; the CPU takes them in f32, its weights the
+    f32 masters): the card's routes against the CPU's (``route_flips`` with
+    ``MOE_LAYER_TIE`` and ``MOE_LAYER_LOGITS``: both routers read the same
+    f32 input and f32 weights, so only summation order moves a logit), a
+    planted bf16 router rejected by the same rules; the outputs of the
+    tokens routed alike row by row within ``MOE_ROW_TOL`` in the dense
+    dispatch and the capacity dispatch at cf 1.25 and inf (the overflow
+    counts equal when no token flips); cf inf against the dense dispatch on
+    the card, bits or the largest gap; a planted router fault (no
+    renormalisation) must fall outside the row limit."""
+    b, s, d = card_x.shape
+    x_cpu = card_x.float().cpu()
+    what = f"{card_cfg.name} MoE layer"
+
+    def routes(p, x, cfg):
+        rec = []
+        with router_calls(rec):
+            moe._router(p, x.reshape(b * s, d), cfg)
+        return rec
+
+    cpu_routes = routes(cpu_p, x_cpu, cpu_cfg)
+    flips = sound_routes(routes(card_p, card_x, card_cfg), cpu_routes, MOE_LAYER_TIE, what,
+                         logits_tol=MOE_LAYER_LOGITS)
+    with router_in_bf16():
+        faulty_routes(routes(card_p, card_x, card_cfg), cpu_routes, MOE_LAYER_TIE,
+                      f"{what}, planted bf16 router", logits_tol=MOE_LAYER_LOGITS)
+    keep = ~flips.reshape(b, s)
+    out = {"flips": int(flips.sum())}
+    ys, cpu = {}, {}
+    for name, impl, cf in (("dense", "dense", None), ("cf 1.25", "capacity", 1.25),
+                           ("cf inf", "capacity", math.inf)):
+        kc = card_cfg if cf is None else dataclasses.replace(card_cfg, capacity_factor=cf)
+        kp = cpu_cfg if cf is None else dataclasses.replace(cpu_cfg, capacity_factor=cf)
+        y, _, ovf = moe.apply_moe(card_p, card_x, kc, impl=impl)
+        # at cf inf the CPU's capacity form gives its dense form's bits
+        # (tests/test_torch_moe.py): the dense result stands for it
+        cpu[name] = (cpu["dense"] if name == "cf inf"
+                     else moe.apply_moe(cpu_p, x_cpu, kp, impl=impl))
+        yc, _, ovfc = cpu[name]
+        ys[name] = y
+        err = row_rel_err(y.float().cpu()[keep], yc[keep])
+        check(math.isfinite(err) and err <= MOE_ROW_TOL,
+              f"{card_cfg.name} MoE layer {name}: row rel err {err} over {MOE_ROW_TOL}")
+        if not out["flips"]:
+            check(int(ovf) == int(ovfc), f"{card_cfg.name} MoE layer {name}: overflow "
+                                         f"{int(ovf)} on the card, {int(ovfc)} on the CPU")
+        out[name] = (err, int(ovf))
+    with router_not_renormalised():
+        bad, _, _ = moe.apply_moe(card_p, card_x, card_cfg, impl="dense")
+    out["planted"] = row_rel_err(bad.float().cpu()[keep], cpu["dense"][0][keep])
+    check(out["planted"] > MOE_ROW_TOL,
+          f"{card_cfg.name} MoE layer: the limit lets a router fault pass: {out['planted']}")
+    out["inf_vs_dense"] = (ys["cf inf"].float() - ys["dense"].float()).abs().max().item()
+    log(f"{card_cfg.name} MoE layer 0 on the card's own input ({b} x {s} tokens): "
+        f"{out['flips']} routing flips (near-tie under {MOE_LAYER_TIE}); "
+        f"row rel err card vs cpu: dense {out['dense'][0]:.2e}, cf 1.25 {out['cf 1.25'][0]:.2e} "
+        f"(overflow {out['cf 1.25'][1]}), cf inf {out['cf inf'][0]:.2e} (limit {MOE_ROW_TOL}); "
+        f"planted router fault (top-k not renormalised) {out['planted']:.2e}, rejected; cf inf "
+        f"vs dense on the card: largest gap {out['inf_vs_dense']:.3e}"
+        + (" (the same bits)" if out["inf_vs_dense"] == 0 else ""))
+    return out
+
+
+def moe_parity(small, seed: int, prompts, max_len: int) -> dict:
+    """17c: a 2-layer full-width MoE model, card (kernels, bf16 compute)
+    against the CPU (plain versions, f32 masters drawn on the card and
+    copied), at ``MOE_PARITY_CHUNK`` tokens a slot: the first layer's MoE
+    on the card's own input (``moe_layer_check``); the first dense and
+    packed steps' logits (``first_steps``) row by row within
+    ``LOGITS_ROW_TOL``, the card's routes pinned to the CPU's
+    (``routes_pinned``) and each route the card would take otherwise a
+    near-tie under ``MOE_MODEL_TIE`` (``sound_routes``; a router off by one,
+    ``router_off_by_one``, must be rejected), with the launches the code
+    implies; then two planted faults, K4's (``planted_k4_fault``, routes
+    pinned) and the router's (``router_not_renormalised``), which must fall
+    outside the limit."""
+    cpu_cfg = dataclasses.replace(small, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cpu_cfg, seed=seed, device=DEV)
+    card = compute_params(params, small)
+    params = tree_map(lambda x: x.cpu(), params)
+    cpu_recs = []
+    with router_calls(cpu_recs):
+        want = first_steps(cpu_cfg, params, prompts, max_len, MOE_PARITY_CHUNK)
+    t_cpu = time.perf_counter() - t0
+    cpu_moe0 = {k: v[0] for k, v in params["stack"]["groups"][0]["moe"].items()}
+    del params
+
+    def card_steps(pin: bool, own: list):
+        with routes_pinned(cpu_recs, own) if pin else contextlib.nullcontext():
+            return first_steps(small, card, prompts, max_len, MOE_PARITY_CHUNK)
+
+    def errs(run):
+        return {k: row_rel_err(run[k].reshape(-1, w.shape[-1]), w.reshape(-1, w.shape[-1]))
+                for k, w in want.items()}
+
+    own, box = [], []
+    before = ops.launch_counts()
+    with first_moe_input(box):
+        got = card_steps(True, own)
+    runs = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    check(runs == serve_launches(small, 2), f"{small.name} parity: launches {runs}")
+    layer_out = moe_layer_check(box[0][0], box[0][1], cpu_moe0, small, cpu_cfg)
+    n = small.n_layers
+    flips = {"dense": sound_routes(own[:n], cpu_recs[:n], MOE_MODEL_TIE,
+                                   f"{small.name} parity, dense step"),
+             "packed": sound_routes(own[n:], cpu_recs[n:], MOE_MODEL_TIE,
+                                    f"{small.name} parity, packed step",
+                                    rows=want["packed"].shape[0])}
+    bad_routes = []
+    with router_off_by_one(), router_calls(bad_routes):
+        card_steps(False, [])
+    faulty_routes(bad_routes[:n], cpu_recs[:n], MOE_MODEL_TIE,
+                  f"{small.name} parity, dense step, planted router off by one")
+    sound = errs(got)
+    with planted_k4_fault():
+        bad_k4 = errs(card_steps(True, []))
+    with router_not_renormalised():
+        bad_router = errs(card_steps(False, []))
+    g = small.n_heads // small.n_kv_heads
+    log(f"{small.name} parity {small.n_layers} layers ({small.pattern}, full width, "
+        f"{MOE_PARITY_CHUNK} tokens a slot): first-step logits, row rel err card vs cpu with the "
+        f"card's routes pinned to the CPU's: dense {sound['dense']:.2e}, packed "
+        f"{sound['packed']:.2e} (limit {LOGITS_ROW_TOL}); tokens the card would route elsewhere "
+        f"(near-ties under {MOE_MODEL_TIE}): dense {int(flips['dense'].sum())} of "
+        f"{flips['dense'].numel()}, packed {int(flips['packed'].sum())} of "
+        f"{flips['packed'].numel()}; planted K4 fault (heads {padded_heads(g)}-{g - 1} of each "
+        f"group given zero queries) dense {bad_k4['dense']:.2e}, packed {bad_k4['packed']:.2e}; "
+        f"planted router fault (top-k not renormalised, routes its own) dense "
+        f"{bad_router['dense']:.2e}, packed {bad_router['packed']:.2e}; the CPU pass (weights "
+        f"drawn on the card) took {t_cpu:.1f} s")
+    check(all(math.isfinite(e) and e <= LOGITS_ROW_TOL for e in sound.values()),
+          f"{small.name} first-step logits differ from the CPU's: {sound}")
+    for what, bad in (("K4", bad_k4), ("router", bad_router)):
+        check(min(bad.values()) > LOGITS_ROW_TOL,
+              f"the logits metric lets a planted {what} fault pass: {bad}")
+    return dict(sound, layer=layer_out, flips={k: int(v.sum()) for k, v in flips.items()})
+
+
+class OverflowRecount:
+    """Recounts each capacity dispatch's dropped routes plainly, from its
+    own router ids and padding mask: per expert, the routed choices of the
+    real tokens past the capacity, summed over the layers of an engine step
+    (``on_step``, a step callback).  Eager runs only (it reads the host)."""
+
+    def __init__(self):
+        self.steps: list = []
+        self._pending = 0
+
+    def __enter__(self):
+        self._sound = moe.apply_moe_capacity
+
+        def spy(p, x, cfg, valid=None):
+            b, s, d = x.shape
+            _, ids, _ = moe._router(p, x.reshape(b * s, d), cfg)
+            real = (torch.ones(b * s, dtype=torch.bool, device=x.device) if valid is None
+                    else torch.broadcast_to(valid, (b, s)).reshape(b * s))
+            counts = torch.bincount(ids[real].reshape(-1), minlength=cfg.n_experts).cpu().numpy()
+            self._pending += int(np.maximum(counts - moe.capacity(cfg, b * s), 0).sum())
+            return self._sound(p, x, cfg, valid=valid)
+
+        moe.apply_moe_capacity = spy
+        return self
+
+    def __exit__(self, *exc):
+        moe.apply_moe_capacity = self._sound
+
+    def on_step(self, stats) -> None:
+        self.steps.append(self._pending)
+        self._pending = 0
+
+
+def moe_model(name: str, index: int, seed: int):
+    """One MoE model: the 2-layer card-vs-CPU check (``moe_parity``), then
+    the model at ``MOE_LAYERS`` layers and full width (bf16 weights drawn on
+    the card from ``seed``): paged vs dense first-step logits (and, with a
+    window, the long prompt chunk by chunk past it), then served unpacked
+    and packed in the dense dispatch and at the config's capacity factor,
+    eager then graphed (the counters' window): streams identical, each
+    step's overflow equal to the eager run's plain recount
+    (``OverflowRecount``).  Returns (the graphed runs' launches, their
+    records by (dispatch, packed))."""
+    cfg = moe_config(name)
+    lens, prompts = zoo_requests(cfg, seed, len(ZOO) + index)
+    free_device()
+    moe_parity(moe_config(name, MOE_PARITY_LAYERS), seed, prompts[-SLOTS:], zoo_max_len(cfg))
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=DEV)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    weights = sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 2**30
+    log(f"{cfg.name}: {cfg.n_layers} of {get_config(name).n_layers} layers ({cfg.layer_pattern}"
+        f"{f', window {cfg.sliding_window}' if 'L' in cfg.pattern else ''}), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, {cfg.n_experts} "
+        f"experts top-{cfg.top_k} of d_ff {cfg.expert_d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, bf16 init in {time.perf_counter() - t0:.1f} "
+        f"s: {weights:.2f} GiB of weights, init peak {init_peak:.2f} GiB; full width; prompt "
+        f"lens {lens}")
+    first_step_logits_check(cfg, params, prompts[-SLOTS:], zoo_max_len(cfg), f"{cfg.name} ")
+    if "L" in cfg.pattern:
+        window_edge_check(cfg, params, prompts[0], zoo_max_len(cfg))
+    free_device()
+    counts = {k: 0 for k in ops.launch_counts()}
+    recs = {}
+    for cf in (None, cfg.capacity_factor):
+        dispatch = "dense" if cf is None else f"capacity {cf}"
+        eager, recounts = {}, {}
+        for packed in (False, True):
+            recount = OverflowRecount()
+
+            def make(c, p, pr, pk, recount=recount, cf=cf):
+                eng = zoo_engine(c, p, pr, pk, capacity_factor=cf)
+                eng.add_step_callback(recount.on_step)
+                return eng
+
+            with recount:
+                eager[packed], rec = serve_run(cfg, params, prompts, packed, True, make)
+            recounts[packed] = recount.steps
+            got = [st.expert_overflow for st in rec["step_stats"]]
+            check(got == recount.steps, f"{cfg.name} {dispatch}: overflow a step {got}, the "
+                                        f"plain recount {recount.steps}")
+        ops.reset_launch_counts()  # the main path starts here
+        for packed in (False, True):
+            outs, rec = serve_run(cfg, params, prompts, packed, False,
+                                  lambda c, p, pr, pk, cf=cf: zoo_engine(c, p, pr, pk,
+                                                                         capacity_factor=cf))
+            tag = f"{cfg.name} {dispatch} {'packed' if packed else 'unpacked'}"
+            same_streams(tag, outs, eager[packed])
+            ovf = [st.expert_overflow for st in rec["step_stats"]]
+            check(ovf == recounts[packed], f"{tag}: graphed overflow {ovf}, eager "
+                                           f"{recounts[packed]}")
+            if cf is None:
+                check(not any(ovf), f"{tag}: the dense dispatch dropped routes")
+            rec["overflow"] = ovf
+            recs[dispatch, packed] = rec
+        for k, v in ops.launch_counts().items():  # ... and ends here
+            counts[k] += v
+        log(f"{cfg.name} {dispatch}: overflow a step, unpacked: mean "
+            f"{statistics.mean(recounts[False]):.1f}, max {max(recounts[False])}; packed: mean "
+            f"{statistics.mean(recounts[True]):.1f}, max {max(recounts[True])} (each step's equal "
+            f"to its plain recount from its own router ids)")
+    check(counts["paged_attention"] > 0, f"{cfg.name}: K4 not run: {counts}")
+    for (dispatch, packed), r in recs.items():
+        log(f"{cfg.name} {dispatch} {'packed' if packed else 'unpacked'} graphed: decode "
+            f"{r['decode_ms']:.2f} ms, mixed {r['mixed_ms']:.2f} ms, {r['gen_tok_s']:.1f} "
+            f"generated tok/s, peak {r['peak_gib']:.2f} GiB beside {weights:.2f} GiB of weights")
+    del params
+    return counts, recs
+
+
+def moe_phase(seed: int, rng) -> dict:
+    """Phase 17: K4's (128, 6) and (128, 16) builds and K2 at d 6144 and
+    4096 against their plain versions, timed (17a); per model the 2-layer
+    card-vs-CPU check (17c) and the served model (17b)."""
+    out = {"k4": {}, "k2": {}, "counts": {}, "recs": {}}
+    for i, name in enumerate(MOE):
+        cfg = moe_config(name)
+        lens = zoo_requests(cfg, seed, len(ZOO) + i)[0][:SLOTS]
+        win = cfg.sliding_window if "L" in cfg.pattern else 100
+        g = cfg.n_heads // cfg.n_kv_heads
+        err = k4_checks(rng, lens, dims=zoo_dims(cfg), max_len=zoo_max_len(cfg),
+                        windows=(100, win, win))
+        free_device()
+        t = k4_timing(rng, lens, dims=zoo_dims(cfg),
+                      window=cfg.sliding_window if "L" in cfg.pattern else 0)
+        out["k4"][cfg.hd, g] = (err, t)
+        free_device()
+        out["k2"][cfg.d_model] = k2_rg_checks(rng, d=cfg.d_model)
+        free_device()
+    for i, name in enumerate(MOE):
+        out["counts"][name], out["recs"][name] = moe_model(name, i, seed)
+        free_device()
+    return out
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -5282,6 +5920,14 @@ def main() -> int:
     free_device()
     phase_done("16")
 
+    # 17. the MoE family: K4's (128, 6) and (128, 16) builds and K2 at d 6144
+    # and 4096 (17a), then per model the 2-layer card-vs-CPU check (17c) and
+    # the model at 12 layers, full width, in both dispatches (17b)
+    p17 = moe_phase(args.seed, np.random.default_rng(args.seed + 17))
+    moe_counts = p17["counts"]
+    free_device()
+    phase_done("17")
+
     # K3's (128, 8) records keep the earlier paths' launches; the (64, 1)
     # build's records take phase 11's, the (256, 10) build's phase 13's; K4's
     # (128, 8) record keeps the earlier paths' and phase 14's qwen paths',
@@ -5289,7 +5935,10 @@ def main() -> int:
     # K4's (128, 2) build's record takes internlm2-1.8b's and gemma3-27b's
     # serving (15) and the front-end (16), its (128, 9) build's starcoder2-7b's
     k3_own = ("flash_attention", "flash_attention_bwd")
-    zoo = {k: sum(c[k] for c in zoo_counts.values()) + fe_counts[k] for k in fe_counts}
+    # K4's (128, 6) build's record takes mixtral-8x22b's serving (17), its
+    # (128, 16) build's qwen3-moe-235b-a22b's
+    zoo = {k: sum(c[k] for c in zoo_counts.values()) + fe_counts[k]
+           + sum(c[k] for c in moe_counts.values()) for k in fe_counts}
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
                 + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k]
                 + (0 if k in k3_own else bert_counts[k] + rg_train_counts[k])
@@ -5331,6 +5980,14 @@ def main() -> int:
              **{k: k4_zoo_t["starcoder2_7b"]["decode"][k]
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
              library_ms=None),
+        *[dict(name=f"paged_attention_d128_g{g}", route="cuda",
+               source="src/repro_torch/kernels/paged_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:238",
+               launches=moe_counts[n]["paged_attention"], max_abs_err=p17["k4"][128, g][0],
+               **{k: p17["k4"][128, g][1]["decode"][k]
+                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+               library_ms=None)
+          for g, n in ((6, "mixtral_8x22b"), (16, "qwen3_moe_235b_a22b"))],
         dict(name="rmsnorm", route="cuda", source="src/repro_torch/kernels/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:27",
              launches=launches["rmsnorm"], max_abs_err=k2_err,
@@ -5385,15 +6042,21 @@ def main() -> int:
     log(f"K2 bwd at d 768 (8,192 rows): max abs err {k2b768_err:.3e}, {k2b768_t}")
     log(f"K2 fwd at d 2560 (recurrentgemma): max abs err {k2_rg_err:.3e}, {k2_rg_t}")
     log(f"K2 bwd at d 2560 (8,192 rows): max abs err {k2b2560_err:.3e}, {k2b2560_t}")
+    for d, (err, t) in p17["k2"].items():
+        log(f"K2 fwd at d {d} (17a): max abs err {err:.3e}, {t}")
     log(f"launches, qwen serving: {serve_counts}; mamba serving: {mamba_counts}; "
         f"training: {train_counts}; Local-SGD: {localsgd_counts}; Mamba-2 Local-SGD: "
         f"{m_localsgd_counts}; data parallel (9a): {dp_counts}; Mamba-2 training: "
         f"{mamba_train_counts}; BERT training (11c, 11d): {bert_counts}; recurrentgemma "
         f"serving (12c): {rg_counts}; recurrentgemma training (13c): {rg_train_counts}; phase "
         f"14: qwen {p14_qwen}, recurrentgemma {p14_rg}, mamba {p14_mamba}; dense zoo (15): "
-        f"{zoo_counts}; front-end (16): {fe_counts}")
+        f"{zoo_counts}; front-end (16): {fe_counts}; MoE serving (17): {moe_counts}")
     for n, t in k4_zoo_t.items():
         log(f"K4 at {n}'s steps: " + "; ".join(
+            f"{shape} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.2f}, plain "
+            f"{r['plain_ms'] * 1e3:.1f})" for shape, r in t.items()))
+    for (d, g), (_, t) in p17["k4"].items():
+        log(f"K4 ({d}, {g}) at its MoE model's steps: " + "; ".join(
             f"{shape} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.2f}, plain "
             f"{r['plain_ms'] * 1e3:.1f})" for shape, r in t.items()))
     for n, recs in zoo_recs.items():

@@ -70,6 +70,8 @@ INSTANCES = {
     (256, 10): Instance(4, 1, 32, 2),  # recurrentgemma-2b: ~97 KB of shared memory a CTA
     (128, 2): Instance(8, 2, 64, 3),  # internlm2-1.8b, gemma3-27b: (128, 8)'s cut, 6 idle heads
     (128, 9): Instance(4, 1, 64, 2),  # starcoder2-7b: two n8 tiles, Q in shared memory, ~81 KB
+    (128, 6): Instance(8, 2, 64, 3),  # mixtral-8x22b: (128, 8)'s cut, 2 idle heads
+    (128, 16): Instance(4, 1, 64, 2),  # qwen3-moe-235b-a22b: (128, 9)'s cut, no idle head
 }
 SERVED = set(INSTANCES)
 #: the (128, 8) instance's tile tokens and CTAs an SM, the defaults of the

@@ -21,10 +21,12 @@
 // so the kernel is bound by the bytes of the pages it reads (and, at decode
 // sizes, by latency).
 //
-// Four instances (`Inst` below): (D 128, g 8), qwen2.5-3b; (D 256, g 10),
+// Six instances (`Inst` below): (D 128, g 8), qwen2.5-3b; (D 256, g 10),
 // recurrentgemma-2b's local attention; (D 128, g 2), internlm2-1.8b and
-// gemma3-27b; (D 128, g 9), starcoder2-7b.  The numbers in brackets are
-// (256, 10)'s; (128, 2) is cut as (128, 8) is, and (128, 9) as (256, 10).
+// gemma3-27b; (D 128, g 9), starcoder2-7b; (D 128, g 6), mixtral-8x22b;
+// (D 128, g 16), qwen3-moe-235b-a22b.  The numbers in brackets are
+// (256, 10)'s; (128, 2) and (128, 6) are cut as (128, 8) is, and (128, 9)
+// and (128, 16) as (256, 10).
 //
 // Design.  The tile plan (`paged_tile_plan` in flash_attention.py, one row
 // per tile: first token, tokens, slot, block lo, block hi) cuts the step's
@@ -41,8 +43,9 @@
 //     pages are converted to bf16 in shared memory once a stage (exact).
 //   * Products on tensor cores, `mma.sync` m16n8k16 (bf16 in, f32 out), with
 //     keys on M and one token's heads on N, one n8 tile for g = 8 (two for
-//     g = 10, heads 10-15 zero and never written; one for g = 2 with heads
-//     2-7 given zero queries, two for g = 9): S^T (16 keys x 8 heads)
+//     g = 10, heads 10-15 zero and never written; one for g = 2 or 6 with
+//     heads 2-7 or 6-7 given zero queries, two for g = 9 and, unpadded,
+//     g = 16): S^T (16 keys x 8 heads)
 //     = K (16 x D) . Q^T, then O^T (D x 8) += V^T . P^T for each n8 tile,
 //     V^T by `ldmatrix.trans`, P^T by `movmatrix.trans` of S^T's fragment.
 //     A warp holds two tokens (one); 4 warps hold a tile of 8 (4) tokens,
@@ -53,9 +56,10 @@
 //     to shared memory (the tile's tokens, 16 swizzled rows each, zero rows
 //     for the padding heads) and each k-step's two n8 fragments come from
 //     one `ldmatrix.x4`; with 64 KB of 32-key stages and 32 KB of queries
-//     (~97 KB a CTA), two CTAs an SM.  (128, 9) takes the same layout with
-//     64-key stages (64 + 16 KB a CTA, two an SM).  A padding head (g = 2
-//     on its one tile, g = 9 or 10 on their second) computes a softmax of
+//     (~97 KB a CTA), two CTAs an SM.  (128, 9) and (128, 16) take the same
+//     layout with 64-key stages (64 + 16 KB a CTA, two an SM).  A padding
+//     head (g = 2 or 6 on its one tile, g = 9 or 10 on their second)
+//     computes a softmax of
 //     zero scores in its own columns, which no real head reads (every
 //     column's max, sum and accumulator are its own), and is never
 //     written: the idle lanes cost the products only.
@@ -113,11 +117,23 @@ struct Inst<128, 9> {  // starcoder2-7b: (256, 10)'s cut, heads 9-15 padding, 64
   static constexpr int kTokensPerWarp = 1, kNTiles = 2, kStageKeys = 64, kCtasPerSm = 2;
   static constexpr bool kQInSmem = true;
 };
+template <>
+struct Inst<128, 6> {  // mixtral-8x22b: (128, 8)'s cut, heads 6-7 padding
+  static constexpr int kTokensPerWarp = 2, kNTiles = 1, kStageKeys = 64, kCtasPerSm = 3;
+  static constexpr bool kQInSmem = false;
+};
+template <>
+struct Inst<128, 16> {  // qwen3-moe-235b-a22b: (128, 9)'s cut, two full n8 tiles
+  static constexpr int kTokensPerWarp = 1, kNTiles = 2, kStageKeys = 64, kCtasPerSm = 2;
+  static constexpr bool kQInSmem = true;
+};
 static_assert(Inst<128, 8>::kTokensPerWarp * kWarps == 8 &&
                   Inst<256, 10>::kTokensPerWarp * kWarps == 4 &&
                   Inst<128, 2>::kTokensPerWarp * kWarps == 8 &&
-                  Inst<128, 9>::kTokensPerWarp * kWarps == 4,
-              "INSTANCES in flash_attention.py plans tiles of 8, 4, 8 and 4 tokens");
+                  Inst<128, 9>::kTokensPerWarp * kWarps == 4 &&
+                  Inst<128, 6>::kTokensPerWarp * kWarps == 8 &&
+                  Inst<128, 16>::kTokensPerWarp * kWarps == 4,
+              "INSTANCES in flash_attention.py plans tiles of 8, 4, 8, 4, 8 and 4 tokens");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -682,8 +698,9 @@ extern "C" int repro_paged_attention(
   const int G = H / KV;
   // Only the shapes the port serves are instantiated, with bf16 queries over
   // bf16 or int8 pools: qwen2.5-3b (D 128, g 8), recurrentgemma-2b's local
-  // attention (D 256, g 10), internlm2-1.8b and gemma3-27b (D 128, g 2) and
-  // starcoder2-7b (D 128, g 9).  Another (D, g) adds its Inst<D, G> above,
+  // attention (D 256, g 10), internlm2-1.8b and gemma3-27b (D 128, g 2),
+  // starcoder2-7b (D 128, g 9), mixtral-8x22b (D 128, g 6) and
+  // qwen3-moe-235b-a22b (D 128, g 16).  Another (D, g) adds its Inst<D, G> above,
   // its launch here, and its entry to INSTANCES in flash_attention.py.
   if (!q_is_bf16) return -1;
   const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, q_pos, plan, out, part_acc,
@@ -698,6 +715,10 @@ extern "C" int repro_paged_attention(
     e = kv_is_int8 ? launch<128, 2, int8_t, true>(a) : launch<128, 2, __nv_bfloat16, false>(a);
   } else if (D == 128 && G == 9) {
     e = kv_is_int8 ? launch<128, 9, int8_t, true>(a) : launch<128, 9, __nv_bfloat16, false>(a);
+  } else if (D == 128 && G == 6) {
+    e = kv_is_int8 ? launch<128, 6, int8_t, true>(a) : launch<128, 6, __nv_bfloat16, false>(a);
+  } else if (D == 128 && G == 16) {
+    e = kv_is_int8 ? launch<128, 16, int8_t, true>(a) : launch<128, 16, __nv_bfloat16, false>(a);
   } else {
     return -1;
   }

@@ -146,13 +146,14 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, drop: DropConfig,
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, moe_impl: str = "sort"):
     """``step(params, batch) -> (B,)`` next tokens: the cache-free forward
-    (the training path, K3 on the card) and the logits of the last position
-    alone (``steps.py:235-245``: full-sequence logits at a large vocabulary
+    (the training path, K3 on the card; MoE layers in ``moe_impl``
+    dispatch) and the logits of the last position alone
+    (``steps.py:235-245``: full-sequence logits at a large vocabulary
     would not fit), argmax in f32."""
     def step(params, batch):
-        x, _ = forward_features(params, cfg, batch)
+        x, _ = forward_features(params, cfg, batch, moe_impl=moe_impl)
         logits = L.unembed(params["embed"], x[:, -1:], cfg)
         return logits[:, -1].float().argmax(dim=-1)
 
@@ -171,17 +172,20 @@ class ServeStep:
     (``decode_plans``), so ``pos`` is read back when it is a device tensor.
     The returned tokens, and the step's logits (B, 1, V) left in
     ``logits``, are the graph's outputs, overwritten by the next call; the
-    cache is updated in place."""
+    cache is updated in place.  MoE layers run ``moe_impl`` dispatch
+    (``"dense"``, the reference's default for this step)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, moe_impl: str = "dense"):
         self.cfg = cfg
+        self.moe_impl = moe_impl
         self._bound = None
         self.graph: Optional[StepGraph] = None
         self.logits: Optional[torch.Tensor] = None
 
     def _program(self, token, pos, *plans):
         plans = dict(zip(self._kinds, plans)) if plans else None
-        logits, _ = decode_step(self._params, self.cfg, self._cache, token, pos, plans=plans)
+        logits, _ = decode_step(self._params, self.cfg, self._cache, token, pos, plans=plans,
+                                moe_impl=self.moe_impl)
         return logits[:, -1].float().argmax(dim=-1, keepdim=True), logits
 
     def __call__(self, params, cache, token, pos):
@@ -204,6 +208,6 @@ class ServeStep:
         return next_tok, cache
 
 
-def make_serve_step(cfg: ModelConfig) -> ServeStep:
+def make_serve_step(cfg: ModelConfig, moe_impl: str = "dense") -> ServeStep:
     """The single-token serve step (``ServeStep``)."""
-    return ServeStep(cfg)
+    return ServeStep(cfg, moe_impl)

@@ -5,6 +5,7 @@
     loss_sum, w = loss_fn(params, cfg, batch)              # DropCompute GradFn
     cache = init_decode_cache(params, cfg, batch, L, linear=True)
     logits, cache = prefill_chunk(params, cfg, cache, tokens, pos, lens)
+    logits, cache, aux = prefill_chunk(..., moe_impl="capacity", return_aux=True)
     logits, cache = packed_prefill(params, cfg, cache, tokens, slots, positions)
     logits, cache = decode_step(params, cfg, cache, token, pos)   # (B, 1) tokens
     logits, cache = verify_step(params, cfg, cache, tokens, pos, lens)
@@ -18,9 +19,13 @@ captured in a CUDA graph (``repro_torch.graphs``).
 per-token loss weights.  The port trains and serves decoder-only stacks of
 'G'/'L' attention, 'R' (RG-LRU) and 'M' (Mamba-2) layers, and trains encoder
 stacks of 'B' (bidirectional) blocks, the paper's BERT models, which have
-no decode shapes and so are never served; other families raise
-``UnsupportedPatternError``.  On the card, training refuses shapes its
-kernels are not built for (``require_trainable``).
+no decode shapes and so are never served.  'G'/'L' blocks with experts
+(``n_experts > 0``, ``models.moe``) are initialised, run forward and served
+(dispatch ``moe_impl``: ``"sort"`` by default for ``forward``, ``"dense"``
+for the serving steps, ``"capacity"`` for the engine's capacity factor),
+but not trained yet; other families raise ``UnsupportedPatternError``.  On
+the card, training refuses shapes its kernels are not built for
+(``require_trainable``).
 
 Parameters are nested dicts with the reference's path names and shapes
 (``models.convert.params_from_jax`` maps a JAX tree onto them).  Caches are
@@ -52,15 +57,13 @@ class UnsupportedPatternError(NotImplementedError):
 
     Typed (and raised unconditionally, not ``assert``-ed) so callers can
     catch it.  The port serves and trains decoder-only 'G'/'L'/'R'/'M'
-    stacks and trains 'B' encoder stacks; serving a 'B' stack,
-    MoE, enc-dec and VLM models raise it."""
+    stacks, serves MoE stacks and trains 'B' encoder stacks; serving a 'B'
+    stack, training an MoE stack, enc-dec and VLM models raise it."""
 
 
 def _require_family(cfg: ModelConfig, what: str) -> None:
     if cfg.is_encdec:
         raise UnsupportedPatternError(f"{what} does not support enc-dec models")
-    if cfg.n_experts > 0:
-        raise UnsupportedPatternError(f"{what} does not support MoE models in the port yet")
     if cfg.prefix_len > 0:
         raise UnsupportedPatternError(f"{what} does not support VLM prefixes in the port yet")
 
@@ -69,11 +72,20 @@ def _require_family(cfg: ModelConfig, what: str) -> None:
 _DECODER = {"G", "L", "R", "M"}
 
 
+def _require_no_router(cfg: ModelConfig, what: str) -> None:
+    """MoE training (the router's aux term under DropCompute, K3 at the MoE
+    models' (head dim, group)) is the next slice of the port."""
+    if cfg.n_experts > 0:
+        raise UnsupportedPatternError(
+            f"{what} does not support MoE models in the port yet: MoE training (the router's "
+            f"aux loss under DropCompute) is the port's next slice; MoE models serve")
+
+
 def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
     """Raise ``UnsupportedPatternError`` unless the port can run ``cfg``
     through multi-token serving steps: decoder-only stacks of 'G'/'L'
-    attention, 'R' (RG-LRU) and 'M' (Mamba-2) layers without experts or a
-    VLM prefix.
+    attention (with or without experts), 'R' (RG-LRU) and 'M' (Mamba-2)
+    layers without a VLM prefix.
     A 'B' encoder stack has no decode shapes and is refused here (the
     serving engine, the paged layout, ``init_decode_cache`` and the
     prefill steps all ask)."""
@@ -90,7 +102,7 @@ def require_stack(cfg: ModelConfig, what: str = "the PyTorch port") -> None:
     and run it without caches (initialisation, the training forward): the
     serving stacks of ``require_chunkable``, or an encoder stack of 'B'
     blocks alone (bidirectional attention: the BERT models), in both cases
-    without experts, a VLM prefix or an encoder-decoder split."""
+    without a VLM prefix or an encoder-decoder split."""
     pattern = set(cfg.pattern)
     if not (pattern <= _DECODER or pattern == {"B"}):
         raise UnsupportedPatternError(
@@ -102,7 +114,8 @@ def require_stack(cfg: ModelConfig, what: str = "the PyTorch port") -> None:
 
 def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> None:
     """Raise before any work what the training path would raise at its
-    first layer: a family the port does not run (``UnsupportedPatternError``),
+    first layer: a family the port does not run or train, MoE among them
+    (``UnsupportedPatternError``),
     ``logit_softcap`` (not ported), and on the card a shape the training
     kernels are not built for (``kernels.flash_attention.UnbuiltShapeError``):
     for 'G'/'L'/'B' layers attention's head dim, group, compute dtype and
@@ -113,6 +126,7 @@ def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> N
     kernel of their own (their scan and gates are plain PyTorch), so they
     need only their stack's attention and norms."""
     require_stack(cfg, "training")
+    _require_no_router(cfg, "training")
     L.require_no_softcap(cfg)
     if torch.device(device).type != "cuda":
         return
@@ -148,9 +162,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
 
 #: leaves the reference reads in f32 whatever the compute dtype (QK-norm
 #: scales; the SSD block's decay, step bias, skip and gated-norm scale; the
-#: RG-LRU block's gates and decay)
+#: RG-LRU block's gates and decay; the MoE router, ``moe.py:47``)
 _F32_LEAVES = ("q_norm", "k_norm", "a_log", "dt_bias", "d_skip", "norm_scale",
-               "gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b", "lam")
+               "gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b", "lam", "router")
 
 
 def compute_params(params: Tree, cfg: ModelConfig) -> Tree:
@@ -158,7 +172,7 @@ def compute_params(params: Tree, cfg: ModelConfig) -> Tree:
     already cast, made once (a serving engine calls this at construction).
     Leaves read in f32 (QK-norm scales, LayerNorm affine, the SSD block's
     ``a_log``, ``dt_bias``, ``d_skip``, ``norm_scale``, the RG-LRU block's
-    gates and ``lam``) stay as they are.
+    gates and ``lam``, the MoE router) stay as they are.
     The cast is deterministic, so outputs are unchanged; for the f32
     master / bf16 compute recipe it halves the bytes each step reads.
     Idempotent: casting a cast tree returns the same tensors."""
@@ -294,8 +308,24 @@ def _device_plans(plans, device):
                                        for k, v in plans.items()}
 
 
+def _device_scalar(v, dtype, dev) -> torch.Tensor:
+    """``apply_stack``'s aux or overflow total as a device scalar: a tensor
+    (an MoE stack's) cast, a Python number (a stack without experts) filled
+    in on the device (a fill kernel, where ``as_tensor`` would copy from the
+    host, which a CUDA-graph capture refuses)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype)
+    return torch.full((), v, dtype=dtype, device=dev)
+
+
+def _step_aux(overflow, dev) -> Dict[str, torch.Tensor]:
+    """A serving step's stats (``return_aux``): the MoE routes dropped past
+    capacity, a device int64 scalar (0 without a capacity dispatch)."""
+    return {"expert_overflow": _device_scalar(overflow, torch.long, dev)}
+
+
 def prefill_chunk(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_lens,
-                  plans=None):
+                  plans=None, moe_impl: str = "dense", return_aux: bool = False):
     """Process up to C prompt tokens per slot in one step (chunked prefill).
 
     Slot i consumes ``tokens[i, :seq_lens[i]]`` at absolute positions
@@ -303,7 +333,10 @@ def prefill_chunk(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_
     columns write nothing.  Returns (logits (B, C, V), cache).  With C == 1
     and seq_lens in {0, 1} this is a decode step that skips idle slots.
     ``plans`` (paged cache): ``chunk_plans`` of this step, made on the host;
-    without them the step makes them from its device tensors."""
+    without them the step makes them from its device tensors.  ``moe_impl``
+    is the MoE layers' dispatch (``"capacity"``: padding columns take no
+    expert capacity); ``return_aux=True`` adds a third element, the step's
+    stats (``{"expert_overflow"}``, ``model.py:320-370``)."""
     require_chunkable(cfg, "chunked prefill")
     data, tables, page_size = _cache_parts(cache)
     dev = params_device(params)
@@ -312,18 +345,21 @@ def prefill_chunk(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_
     c = tokens.shape[1]
     positions = pos[:, None] + torch.arange(c, device=dev)[None, :]  # (B, C)
     x = L.embed(params["embed"], tokens, cfg, positions)
-    x, new_stack = apply_stack(
+    x, new_stack, _, overflow = apply_stack(
         params["stack"], x, cfg, positions, data["stack"], decode_pos=pos,
         seq_lens=_long(seq_lens, dev), page_tables=tables, page_size=page_size,
-        plans=_device_plans(plans, dev),
+        plans=_device_plans(plans, dev), moe_impl=moe_impl,
     )
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg)
-    return logits, _cache_rebuild(cache, {"stack": new_stack})
+    out_cache = _cache_rebuild(cache, {"stack": new_stack})
+    if return_aux:
+        return logits, out_cache, _step_aux(overflow, dev)
+    return logits, out_cache
 
 
 def verify_step(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_lens,
-                plans=None):
+                plans=None, moe_impl: str = "dense"):
     """Speculative decoding's verify step (``model.py:374-409``): row i
     carries ``[t_last, d_1, .., d_k]`` at the slot's absolute positions and
     column j of the (B, 1 + k, V) logits is the next-token distribution
@@ -331,10 +367,12 @@ def verify_step(params: Tree, cfg: ModelConfig, cache: Tree, tokens, pos, seq_le
     K/V lands in the cache, and the rejected positions are the caller's
     rollback (a position-mask trim for dense slots, ``KVCache.trim_slot``
     for the paged layout).  ``plans``: ``chunk_plans`` of the step."""
-    return prefill_chunk(params, cfg, cache, tokens, pos, seq_lens, plans=plans)
+    return prefill_chunk(params, cfg, cache, tokens, pos, seq_lens, plans=plans,
+                         moe_impl=moe_impl)
 
 
-def decode_step(params: Tree, cfg: ModelConfig, cache: Tree, token, pos, plans=None):
+def decode_step(params: Tree, cfg: ModelConfig, cache: Tree, token, pos, plans=None,
+                moe_impl: str = "dense"):
     """One token per slot (``model.py:463-501``), the reference's
     single-token oracle: ``token`` (B, 1) at ``pos``, a scalar (a lockstep
     batch) or (B,) per-slot positions; every slot writes its K/V row and
@@ -351,9 +389,10 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree, token, pos, plans=N
     pos = _long(pos, dev)
     positions = pos[:, None] if pos.dim() else pos.reshape(1)
     x = L.embed(params["embed"], _long(token, dev), cfg, positions)
-    x, new_stack = apply_stack(
+    x, new_stack, _, _ = apply_stack(
         params["stack"], x, cfg, positions, data["stack"], decode_pos=pos,
         page_tables=tables, page_size=page_size, plans=_device_plans(plans, dev),
+        moe_impl=moe_impl,
     )
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg)
@@ -361,24 +400,30 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree, token, pos, plans=N
 
 
 def packed_prefill(params: Tree, cfg: ModelConfig, cache: Tree, tokens, slot_ids,
-                   positions, plans=None):
+                   positions, plans=None, moe_impl: str = "dense", return_aux: bool = False):
     """Token-packed engine step: one row per granted token, ``slot_ids[j] <
     0`` marks padding.  Each token writes its K/V at (slot, position) and
     attends only within its own slot.  Returns (logits (P, V), cache).
-    ``plans`` (paged cache): ``packed_plans`` of this step."""
+    ``plans`` (paged cache): ``packed_plans`` of this step; ``moe_impl``
+    and ``return_aux`` as in ``prefill_chunk`` (padding rows take no
+    expert capacity)."""
     require_chunkable(cfg, "packed prefill")
     data, tables, page_size = _cache_parts(cache)
     dev = params_device(params)
     tokens = _long(tokens, dev)[None]  # (1, P)
     pos2 = _long(positions, dev)[None]  # (1, P)
     x = L.embed(params["embed"], tokens, cfg, pos2)
-    x, new_stack = apply_stack(
+    x, new_stack, _, overflow = apply_stack(
         params["stack"], x, cfg, pos2, data["stack"], slot_ids=_long(slot_ids, dev),
         page_tables=tables, page_size=page_size, plans=_device_plans(plans, dev),
+        moe_impl=moe_impl,
     )
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg)
-    return logits[0], _cache_rebuild(cache, {"stack": new_stack})
+    out_cache = _cache_rebuild(cache, {"stack": new_stack})
+    if return_aux:
+        return logits[0], out_cache, _step_aux(overflow, dev)
+    return logits[0], out_cache
 
 
 # ---------------------------------------------------------------------------
@@ -386,27 +431,29 @@ def packed_prefill(params: Tree, cfg: ModelConfig, cache: Tree, tokens, slot_ids
 # ---------------------------------------------------------------------------
 
 
-def forward_features(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward_features(params: Tree, cfg: ModelConfig, batch: Dict[str, Any],
+                     moe_impl: str = "sort") -> Tuple[torch.Tensor, torch.Tensor]:
     """(final hidden states (B, S, d), aux loss scalar) — ``model.py:100-140``
     for G/L/R/M decoders and 'B' encoders: embed (learned positions where
     ``cfg.pos`` says so), the stack without caches (remat per group under
     ``cfg.remat``; 'R' and 'M' layers run their cache-free scans, 'B' layers
-    bidirectional attention), the final norm."""
+    bidirectional attention, MoE layers the ``moe_impl`` dispatch), the
+    final norm.  The aux loss is the MoE layers' summed load-balancing
+    term (0 without experts)."""
     require_stack(cfg, "training")
     dev = params_device(params)
     tokens = _long(batch["tokens"], dev)
     positions = torch.arange(tokens.shape[1], device=dev)
     x = L.embed(params["embed"], tokens, cfg, positions)
-    x, _ = apply_stack(params["stack"], x, cfg, positions)
+    x, _, aux, _ = apply_stack(params["stack"], x, cfg, positions, moe_impl=moe_impl)
     x = L.apply_norm(params["final_norm"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=dev)
+    return x, _device_scalar(aux, torch.float32, dev)
 
 
-def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]
+def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, Any], moe_impl: str = "sort"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits (B, S, V), aux loss scalar)."""
-    x, aux = forward_features(params, cfg, batch)
+    x, aux = forward_features(params, cfg, batch, moe_impl=moe_impl)
     return L.unembed(params["embed"], x, cfg), aux
 
 
@@ -461,14 +508,18 @@ def _targets_weights(batch, dev):
 def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-token CE as (loss_sum, token_weight_sum) — ``model.py:197``.
-    The port's families have no router, so the reference's aux term is 0."""
+    MoE models raise ``UnsupportedPatternError`` (their router's aux term
+    is not trained yet); every other family has no aux term."""
+    _require_no_router(cfg, "loss_fn")
     x, _ = forward_features(params, cfg, batch)
     targets, w = _targets_weights(batch, x.device)
     return _ce_sums(params, cfg, x[:, :-1], targets, w)
 
 
 def per_token_losses(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]):
-    """(B, S-1) CE, weights and aux — for the per-example-weight step."""
+    """(B, S-1) CE, weights and aux — for the per-example-weight step (MoE
+    models raise, as in ``loss_fn``)."""
+    _require_no_router(cfg, "per_token_losses")
     logits, aux = forward(params, cfg, batch)
     targets, w = _targets_weights(batch, logits.device)
     lg = logits[:, :-1].float()

@@ -28,12 +28,14 @@ confirm plus a bonus token, and rolls the rejected tail back
 (``KVCache.trim_slot`` on the paged layout).  'R' (RG-LRU) and 'M' (Mamba-2) layers carry per-slot
 recurrent state, updated in place like the KV pools (so a replay carries
 it): a recycled slot's rows are zeroed on admission, and prefix sharing
-(and the in-flight prefix dedup that waits for it) is off for them.
+(and the in-flight prefix dedup that waits for it) is off for them.  MoE
+layers run the dense dispatch, or with ``capacity_factor`` the capacity
+form (``models.moe.apply_moe_capacity``), whose dropped routes each step
+reads back into ``StepStats.expert_overflow``.
 Scheduling, deferral and accounting match the reference exactly; ``tests/test_torch_serve.py`` holds the streams, step counts,
 per-step stats and block tables to it.
 
-Not ported yet (each raises a typed error): a device mesh (``dist``) and
-MoE capacity dispatch (``capacity_factor``).
+Not ported yet (raises a typed error): a device mesh (``dist``).
 """
 from __future__ import annotations
 
@@ -147,8 +149,7 @@ class Request:
 
 @dataclasses.dataclass
 class StepStats:
-    """Per-iteration scheduling record (the reference's fields; the MoE
-    one stays 0 in the port)."""
+    """Per-iteration scheduling record (the reference's fields)."""
 
     step: int
     decode_tokens: int  # decode slots fed (1 baseline token each)
@@ -163,6 +164,8 @@ class StepStats:
     #: scheduled tokens past ``token_budget`` this step (decode baselines
     #: and the starvation guard may exceed it by design); 0 with no budget
     budget_overshoot: int = 0
+    #: routed (token, expert) choices the capacity-factor MoE dispatch
+    #: dropped to the residual path this step (0 for the dense dispatch)
     expert_overflow: int = 0
 
     @property
@@ -195,8 +198,12 @@ class ContinuousBatcher:
     ``KVCacheSpec``), ``page_size``/``num_pages``/``kv_dtype`` (paged
     knobs), ``spec`` (a ``serve.spec.SpecConfig`` or a bare ``Proposer``:
     speculative decoding, refused for 'R'/'M' stacks, whose carried state
-    cannot roll back).  The engine runs on the parameters' device and casts
-    them to the compute dtype once (``models.model.compute_params``).
+    cannot roll back), ``capacity_factor`` (MoE configs only: expert
+    buffers of ``ceil(cf * tokens * top_k / n_experts)`` rows, routes past
+    them dropped to the residual path and counted in
+    ``StepStats.expert_overflow``; None runs every expert on every token).
+    The engine runs on the parameters' device and casts them to the
+    compute dtype once (``models.model.compute_params``).
     """
 
     def __init__(
@@ -240,12 +247,17 @@ class ContinuousBatcher:
                 "speculative decoding needs KV rollback of rejected drafts; recurrent "
                 "state ('R'/'M' layers) has already consumed them and cannot roll back "
                 "(see KVCache.trim_slot)")
-        if capacity_factor is not None:
-            # the reference's check; the port refuses MoE configs above
-            raise ValueError(
-                "capacity_factor is an MoE dispatch knob but the "
-                f"config has n_experts={cfg.n_experts}"
-            )
+        if capacity_factor is not None:  # ``scheduler.py:367-382``
+            if cfg.n_experts <= 0:
+                raise ValueError(
+                    "capacity_factor is an MoE dispatch knob but the "
+                    f"config has n_experts={cfg.n_experts}"
+                )
+            if not capacity_factor > 0:
+                raise ValueError(f"capacity_factor must be > 0, got {capacity_factor}")
+            # a step shape's expert buffers are sized once, from the config
+            cfg = dataclasses.replace(cfg, capacity_factor=float(capacity_factor))
+        self.moe_impl = "capacity" if capacity_factor is not None else "dense"
         if isinstance(cache, KVCacheSpec):
             kv_spec = cache
             if kv_spec.num_slots != batch_slots or kv_spec.max_len != max_len:
@@ -289,6 +301,7 @@ class ContinuousBatcher:
         self.steps = 0
         self.step_stats: List[StepStats] = []
         self._shared_step = 0
+        self._overflow_step = 0
         self._step_callbacks: List = []
         #: the attention kinds whose tile plans a paged step takes, in order
         self._plan_kinds = sorted(set(cfg.pattern) & {"G", "L"}) if self.kv is not None else []
@@ -494,14 +507,17 @@ class ContinuousBatcher:
         reads (``_picks``), which alone are sampled; ``rest`` the paged
         kernel's tile plans, one per attention kind, then, unless ``mode``
         is ``"greedy"``, the sampler's per-row seeds, output indices,
-        temperatures, top-k and top-p of the R rows."""
+        temperatures, top-k and top-p of the R rows.  Returns (the sampled
+        tokens, the step's dropped routes: a device scalar, 0 but in the
+        capacity dispatch)."""
         step = packed_prefill if self.packed else prefill_chunk
         n_plans = len(self._plan_kinds)
         plans, sampler = rest[:n_plans], rest[n_plans:]
-        logits, _ = step(self.params, self.cfg, self.cache, tokens, where, third,
-                         plans=dict(zip(self._plan_kinds, plans)) if plans else None)
+        logits, _, aux = step(self.params, self.cfg, self.cache, tokens, where, third,
+                              plans=dict(zip(self._plan_kinds, plans)) if plans else None,
+                              moe_impl=self.moe_impl, return_aux=True)
         rows = logits.reshape(-1, logits.shape[-1])[torch.as_tensor(pick, device=logits.device)]
-        return sample_rows(rows, *(sampler or (None,) * 5), mode)
+        return sample_rows(rows, *(sampler or (None,) * 5), mode), aux["expert_overflow"]
 
     @property
     def _pick_rows(self) -> int:
@@ -548,8 +564,10 @@ class ContinuousBatcher:
         plans = [plans[k] for k in self._plan_kinds] if plans else []
         mode = sample_mode(*sampler[2:])
         extra = [] if mode == "greedy" else list(sampler)
-        got = self.step_graph(key, tokens, where, third, pick, *plans, *extra,
-                              mode=mode).cpu().numpy()
+        got, overflow = self.step_graph(key, tokens, where, third, pick, *plans, *extra,
+                                        mode=mode)
+        got = got.cpu().numpy()
+        self._overflow_step = int(overflow)  # ``scheduler.py:788``
         out = {}
         for i, _, toks in grants:
             out[i] = np.full(len(toks), -1, np.int64)
@@ -601,6 +619,7 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         queued0 = len(self.queue)
         self._shared_step = 0
+        self._overflow_step = 0  # set by the step runner from the step's stats
         self._admit()
         if self.kv is not None:
             # lazy prefix sharing: an older request may have finished
@@ -706,6 +725,7 @@ class ContinuousBatcher:
                 max(scheduled - self.token_budget, 0)
                 if self.token_budget is not None else 0
             ),
+            expert_overflow=self._overflow_step,
         )
         self.step_stats.append(stats)
         self.steps += 1
@@ -729,6 +749,7 @@ class ContinuousBatcher:
         self.finished = {}
         self.cancelled = {}
         self._shared_step = 0
+        self._overflow_step = 0
         if self.kv is not None:
             self.kv.reset_accounting()
 
@@ -786,8 +807,8 @@ class ContinuousBatcher:
             ),
             "budget_overshoot_tokens": float(sum(s.budget_overshoot for s in st)),
             "max_budget_overshoot": float(max((s.budget_overshoot for s in st), default=0)),
-            "expert_overflow_tokens": 0.0,
-            "max_expert_overflow": 0.0,
+            "expert_overflow_tokens": float(sum(s.expert_overflow for s in st)),
+            "max_expert_overflow": float(max((s.expert_overflow for s in st), default=0)),
             "mean_queued_requests": float(
                 np.mean([s.queued_requests for s in st]) if st else 0.0
             ),

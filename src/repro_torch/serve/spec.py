@@ -144,7 +144,10 @@ class DraftModelProposer(Proposer):
         self.steps = 0  # draft-model steps run
 
     def _program(self, tokens, pos, lens):
-        logits, _ = prefill_chunk(self.params, self.cfg, self.cache, tokens, pos, lens)
+        # the draft runs the dense MoE dispatch whatever the target's
+        # (``serve/spec.py:186``)
+        logits, _ = prefill_chunk(self.params, self.cfg, self.cache, tokens, pos, lens,
+                                  moe_impl="dense")
         return greedy_tokens(logits)
 
     def _step(self, tokens, pos, lens) -> np.ndarray:

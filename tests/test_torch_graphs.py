@@ -369,9 +369,10 @@ def test_step_reads_nothing_back(qwen, mamba, monkeypatch, family, layout, packe
     sampler = sampling.sampler_inputs(np.arange(rows), np.arange(rows), np.full(rows, 0.8),
                                       np.full(rows, 5), np.full(rows, 0.9))
     with _no_reads_back(monkeypatch):
-        out = eng._program(*args, pick, *plans)
-        sampled = eng._program(*args, pick, *plans, *sampler, mode="topk+topp")
+        out, overflow = eng._program(*args, pick, *plans)
+        sampled, _ = eng._program(*args, pick, *plans, *sampler, mode="topk+topp")
     assert out.shape == sampled.shape == (rows,)
+    assert int(overflow) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 PORT = pathlib.Path(SRC) / "repro_torch"
 #: the scripts that drive the port on the card, and the port's examples
 CHIP_SCRIPTS = [PORT.parents[1] / "chip_smoke.py", PORT.parents[1] / "chip_profile.py"]
-EXAMPLES = [PORT.parents[1] / "examples" / "serve_http_torch.py"]
+EXAMPLES = [PORT.parents[1] / "examples" / "serve_http_torch.py",
+            PORT.parents[1] / "examples" / "serve_torch.py"]
 
 
 def iter_port_modules():
@@ -81,8 +82,9 @@ def test_no_port_source_imports_jax_or_repro(pattern):
 
 @pytest.mark.parametrize("example", EXAMPLES, ids=lambda p: p.name)
 def test_port_examples_import_without_jax_or_repro(example):
-    """The port's examples load (module level: the port's serving stack and
-    its front-end) with ``jax`` and ``repro`` made unimportable."""
+    """The port's examples load (module level: the port's serving stack,
+    and for the HTTP example its front-end) with ``jax`` and ``repro`` made
+    unimportable."""
     code = (
         "import sys, importlib.util\n"
         "sys.modules['jax'] = None\n"
@@ -90,14 +92,14 @@ def test_port_examples_import_without_jax_or_repro(example):
         f"spec = importlib.util.spec_from_file_location('ex', {str(example)!r})\n"
         "mod = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(mod)\n"
-        "print('OK', mod.AsyncEngine.__module__)\n"
+        "print('OK', mod.ContinuousBatcher.__module__)\n"
     )
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert "OK repro_torch.serve.frontend" in out.stdout
+    assert "OK repro_torch.serve.scheduler" in out.stdout
 
 
 def test_kernel_modules_import_triton_lazily():

@@ -460,10 +460,14 @@ class TestPagedTilePlan:
     def test_instances(self):
         """The served (head dim, group) pairs and their cuts: (128, 8) keeps
         tiles of 8 tokens and three CTAs an SM; (256, 10) takes 4 and 2;
-        (128, 2) is cut as (128, 8), (128, 9) as (256, 10) with 64-key
-        stages.  An unbuilt pair raises; its plans (made for the CPU's plain
-        path, which reads none) take the default tile."""
-        assert flash_attention.SERVED == {(128, 8), (256, 10), (128, 2), (128, 9)}
+        (128, 2) and (128, 6) are cut as (128, 8), (128, 9) and (128, 16) as
+        (256, 10) with 64-key stages.  An unbuilt pair raises; its plans
+        (made for the CPU's plain path, which reads none) take the default
+        tile."""
+        assert flash_attention.SERVED == {(128, 8), (256, 10), (128, 2), (128, 9), (128, 6),
+                                          (128, 16)}
+        assert flash_attention.instance(128, 6) == (8, 2, 64, 3)
+        assert flash_attention.instance(128, 16) == (4, 1, 64, 2)
         assert flash_attention.instance(128, 8) == (8, 2, 64, 3)
         assert flash_attention.instance(256, 10) == (4, 1, 32, 2)
         assert flash_attention.instance(128, 2) == (8, 2, 64, 3)

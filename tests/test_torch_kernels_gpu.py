@@ -10,6 +10,8 @@ it runs there on its own:
 """
 import contextlib
 import dataclasses
+import gc
+from math import inf
 
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ from repro_torch.core import local_sgd  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
 from repro_torch.kernels import ssd_chunk  # noqa: E402
-from repro_torch.models import model  # noqa: E402
+from repro_torch.models import ModelConfig, model, moe  # noqa: E402
 from repro_torch.models.transformer import tree_leaves  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, Request  # noqa: E402
 from test_torch_parity_util import (  # noqa: E402
@@ -211,13 +213,16 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("int8", [False, True])
     @pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 5.0)])
     @pytest.mark.parametrize("decode", [False, True], ids=["packed", "decode"])
-    @pytest.mark.parametrize("h,kvh", [(32, 16), (36, 4)], ids=["d128_g2", "d128_g9"])
+    @pytest.mark.parametrize("h,kvh", [(32, 16), (36, 4), (48, 8), (64, 4)],
+                             ids=["d128_g2", "d128_g9", "d128_g6", "d128_g16"])
     def test_paged_attention_d128_g2_g9(self, cuda, h, kvh, int8, window, softcap, decode):
         """gemma3-27b's and internlm2-1.8b's group of 2 (32 heads over 16 KV
         heads here: one n8 tile, heads 2-7 padding with zero queries, tiles
         of 8 tokens) and starcoder2-7b's group of 9 (36 over 4: two n8
-        tiles, Q in shared memory, tiles of 4 tokens), head dim 128;
-        ``decode`` as in ``test_paged_attention``."""
+        tiles, Q in shared memory, tiles of 4 tokens), and the MoE models':
+        mixtral-8x22b's group of 6 (48 over 8, one n8 tile, heads 6-7
+        padding) and qwen3-moe-235b-a22b's 16 (64 over 4, two full n8
+        tiles), head dim 128; ``decode`` as in ``test_paged_attention``."""
         inst = flash_attention.INSTANCES[128, h // kvh]
         lens = (300, 40, 190) if decode else (40, 19, 33)
         a = packed_scenario(page_size=16, kvh=kvh, h=h, d=128, seed=6, lens=lens)
@@ -251,12 +256,14 @@ class TestKernelsOnCard:
         g = h // kvh
         assert (out[1:].view(-1, kvh, g, 128)[:, :, g - 1] != 0).any()  # the last head written
 
-    @pytest.mark.parametrize("h,kvh", [(32, 16), (36, 4)], ids=["d128_g2", "d128_g9"])
+    @pytest.mark.parametrize("h,kvh", [(32, 16), (36, 4), (48, 8), (64, 4)],
+                             ids=["d128_g2", "d128_g9", "d128_g6", "d128_g16"])
     def test_paged_attention_d128_g2_g9_planted_faults(self, cuda, h, kvh):
         """Both faults fail the tolerance: the kernel given zeros for the
-        queries of each group's last n8 tile's heads (head 1 at g 2, head 8
-        at g 9), and the plain version with one split's blocks masked for
-        one token (a merge that dropped that split's partial)."""
+        queries of each group's last n8 tile's heads (from head 1 at g 2 and
+        6, from head 8 at g 9 and 16), and the plain version with one
+        split's blocks masked for one token (a merge that dropped that
+        split's partial)."""
         g = h // kvh
         inst = flash_attention.INSTANCES[128, g]
         a = packed_scenario(page_size=16, kvh=kvh, h=h, d=128, seed=7, lens=(300, 40, 190))
@@ -725,7 +732,11 @@ class TestKernelsOnCard:
 
 
 def two_layers(name, cuda):
-    """A model at its published widths with 2 layers (random weights, seed 0)."""
+    """A model at its published widths with 2 layers (random weights, seed 0),
+    drawn after the earlier tests' engines are collected (a captured
+    engine's graphs and their pool keep it alive until then)."""
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config(name), n_layers=2)
     return cfg, model.init_params(cfg, seed=0, device=cuda)
 
@@ -735,7 +746,8 @@ class TestGraphsOnCard:
     @pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
     @pytest.mark.parametrize("cache", ["dense", "paged"])
     @pytest.mark.parametrize("name", ["qwen2_5_3b", "mamba2_130m", "internlm2_1_8b",
-                                      "starcoder2_7b", "gemma3_27b"])
+                                      "starcoder2_7b", "gemma3_27b", "mixtral_8x22b",
+                                      "qwen3_moe_235b_a22b"])
     def test_graphed_streams_equal_eager(self, cuda, name, cache, packed):
         """The engine's steps captured as CUDA graphs (the default on the
         card) serve the eager engine's greedy streams, launch the same
@@ -951,3 +963,80 @@ class TestDecodeAndSamplingOnCard:
         with graphs.disable_graphs():
             want = serve()
         assert serve() == want and all(len(v) == 12 for v in want.values())
+
+
+def moe_layer(cuda, n_experts, top_k, d=512, f=256, seed=0):
+    """An MoE layer (bf16 compute, f32 router) and bf16 inputs (4 x 64 x d)
+    on the card."""
+    cfg = ModelConfig(d_model=d, n_experts=n_experts, top_k=top_k, moe_d_ff=f,
+                      dtype="bfloat16", param_dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    p = moe.init_moe(gen, cfg, device=cuda)
+    p["router"] = p["router"].float()
+    x = torch.randn(4, 64, d, generator=gen, device=cuda).to(torch.bfloat16)
+    return cfg, p, x
+
+
+@pytest.mark.gpu
+class TestMoEOnCard:
+    @pytest.mark.parametrize("n_experts,top_k", [(8, 2), (128, 8)], ids=["top2of8", "top8of128"])
+    def test_dispatch_forms_agree(self, cuda, n_experts, top_k):
+        """mixtral's and qwen3-moe's routing shapes: the capacity form at cf
+        inf against the dense form (within the kernel tolerance; the two
+        multiply the same (E, t, d) shapes and combine alike, so equal bits
+        are expected); at cf 0.5 and 1.25 the overflow equals a plain
+        recount from the router's ids, and the dense form on the card
+        against the CPU's on the same inputs."""
+        cfg, p, x = moe_layer(cuda, n_experts, top_k)
+        yd, _ = moe.apply_moe_dense(p, x, cfg)
+        yi, _, ovf = moe.apply_moe_capacity(p, x, dataclasses.replace(cfg, capacity_factor=inf))
+        assert int(ovf) == 0
+        np.testing.assert_allclose(np32(yi), np32(yd), **TOL["kernel_bf16_gpu"])
+        assert torch.equal(yi, yd)
+        t = x.shape[0] * x.shape[1]
+        _, ids, _ = moe._router(p, x.reshape(t, -1), cfg)
+        counts = torch.bincount(ids.reshape(-1), minlength=n_experts).cpu().numpy()
+        for cf in (0.5, 1.25):
+            c = dataclasses.replace(cfg, capacity_factor=cf)
+            _, _, ovf = moe.apply_moe_capacity(p, x, c)
+            assert int(ovf) == int(np.maximum(counts - moe.capacity(c, t), 0).sum())
+        cpu_p = {k: v.cpu() for k, v in p.items()}
+        yc, _ = moe.apply_moe_dense(cpu_p, x.cpu(), cfg)
+        assert row_rel_err(np32(yd), np32(yc)) < 2e-2
+
+    def test_dispatch_is_deterministic_and_graphs(self, cuda):
+        """The capacity form twice gives the same bits, and captured in a
+        CUDA graph its replay gives the eager call's bits."""
+        cfg, p, x = moe_layer(cuda, 128, 8)
+        c = dataclasses.replace(cfg, capacity_factor=1.25)
+        a = moe.apply_moe_capacity(p, x, c)[0]
+        assert torch.equal(a, moe.apply_moe_capacity(p, x, c)[0])
+        step = graphs.StepGraph(lambda x_: moe.apply_moe_capacity(p, x_, c)[0], x.device)
+        step("k", x)  # the warm-up and capture
+        assert torch.equal(step("k", x), a)
+
+    @pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+    @pytest.mark.parametrize("name", ["mixtral_8x22b", "qwen3_moe_235b_a22b"])
+    def test_capacity_engine_graphed_equals_eager(self, cuda, name, packed):
+        """A 2-layer full-width MoE model served paged at the config's
+        capacity factor: graphed streams and each step's overflow equal to
+        the eager run's, some routes dropped."""
+        cfg, params = two_layers(name, cuda)
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 17, 70, 5, 33)]
+
+        def serve():
+            eng = ContinuousBatcher(params, cfg, batch_slots=4, max_len=128, chunk_size=16,
+                                    token_budget=40, cache="paged", page_size=16, packed=packed,
+                                    capacity_factor=cfg.capacity_factor)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+            eng.run()
+            return ({u: r.output for u, r in eng.finished.items()},
+                    [st.expert_overflow for st in eng.step_stats])
+
+        with graphs.disable_graphs():
+            want = serve()
+        got = serve()
+        assert got == want and len(got[0]) == len(prompts)
+        assert sum(got[1]) > 0

@@ -148,12 +148,17 @@ def test_compute_dtype_and_cast_once():
 
 
 def test_unsupported_patterns_raise_typed():
-    # 'R' and 'M' decoder layers are ported; an encoder block among decoder
-    # blocks, experts, an encoder-decoder split and a VLM prefix are not
-    for kw in (dict(layer_pattern="BG"), dict(layer_pattern="RB"), dict(n_experts=4),
+    # 'R' and 'M' decoder layers and (for serving) experts are ported; an
+    # encoder block among decoder blocks, an encoder-decoder split and a VLM
+    # prefix are not, nor is training with experts
+    for kw in (dict(layer_pattern="BG"), dict(layer_pattern="RB"),
                dict(enc_layers=2), dict(prefix_len=4)):
         with pytest.raises(UnsupportedPatternError):
             model.init_params(ModelConfig(**kw), device="cpu")
+    moe = ModelConfig(n_experts=4)
+    with pytest.raises(UnsupportedPatternError):
+        model.loss_fn(model.init_params(moe, device="cpu"), moe,
+                      {"tokens": torch.zeros((1, 8), dtype=torch.long)})
 
 
 def test_params_from_jax_checks_the_tree(pair):

@@ -261,15 +261,15 @@ def test_r_block_matches_jax(name):
     x = np.random.default_rng(4).normal(size=(2, 9, jc.d_model)).astype(np.float32)
     pos = jnp.arange(9)
     wy = jtf.apply_block(jp, jnp.asarray(x), jc, "R", pos)[0]
-    gy, _ = transformer.apply_block(tp, t(x), tc, "R", torch.arange(9), None)
+    gy, _, _, _ = transformer.apply_block(tp, t(x), tc, "R", torch.arange(9), None)
     assert_close(gy, wy, "model_f32")
     cache = block_cache(jc, 2, 5)
     lens = np.asarray([9, 4], np.int32)
     wy, wc, _, _ = jtf.apply_block(jp, jnp.asarray(x), jc, "R", pos,
                                    cache={"rglru": jnp_tree(cache)}, seq_lens=jnp.asarray(lens))
     tcache = {"rglru": {k: t(v) for k, v in cache.items()}}
-    gy, _ = transformer.apply_block(tp, t(x), tc, "R", torch.arange(9), tcache,
-                                    seq_lens=t(lens))
+    gy, _, _, _ = transformer.apply_block(tp, t(x), tc, "R", torch.arange(9), tcache,
+                                          seq_lens=t(lens))
     assert_close(gy[0], np.asarray(wy)[0], "model_f32")
     assert_close(gy[1, :4], np.asarray(wy)[1, :4], "model_f32")
     for k in ("conv", "h"):

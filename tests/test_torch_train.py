@@ -133,9 +133,9 @@ def test_training_refuses_what_is_not_ported():
     params = model.init_params(cap, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="softcap"):
         model.loss_fn(params, cap, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
-    moe = ModelConfig(**dict(LG, n_experts=4))
+    moe = ModelConfig(**dict(LG, n_experts=4))  # MoE serves; its training is not ported
     with pytest.raises(UnsupportedPatternError):
-        model.forward_features({}, moe, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+        model.loss_fn({}, moe, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
     # 'R' layers train where their stack's attention is built: this one's
     # (head dim 16, group 2) is not
     rec = ModelConfig(**dict(LG, layer_pattern="RG"))
