@@ -58,8 +58,10 @@ decode-only steps of its phase 17b engine for mixtral-8x22b (12 layers,
 full width, bf16; 8 requests of 128-512 tokens, all prefilled and one
 decode step run before the window: ``decode_profiles``), in the dense
 dispatch and at cf 1.25 (K4's (128, 6) build filed under K4; the expert
-products under cuBLAS, the dispatch's sort, scatter and gathers under
-index).  ``kernels`` also times K3's (128, 8) build at the
+products under cuBLAS, the dispatch's sort under sort, its scatter and
+gathers under index), ``moe_train`` one kept micro-batch of its phase 18c
+for each MoE model (1 layer, full width, bf16: ``moe_microbatch_profile``,
+the expert products also timed apart at the dispatch's buffer).  ``kernels`` also times K3's (128, 8) build at the
 qwen training shape (``k3_timing``) with a digest of its outputs, gives a
 digest of K4's (128, 8) outputs (``k4_digests``) and times K4's (256, 10)
 build; ``k4_builds`` gives a digest and the decode and mixed times of each
@@ -116,6 +118,7 @@ FAMILIES = (  # first match wins; K4's and K2 backward's two kernels are sub-row
     ("K6 ssd_chunk", re.compile(r"ssd_chunk_kernel")),
     ("K5 ssd_segment", re.compile(r"ssd_segment_kernel")),
     ("matmul (cuBLAS)", re.compile(r"gemm|xmma|nvjet|cutlass|cublas|splitK", re.I)),
+    ("sort", re.compile(r"RadixSort|sort", re.I)),
     ("index / scatter / gather", re.compile(r"index|scatter|gather", re.I)),
     ("reduce / argmax / softmax", re.compile(r"reduce|argmax|softmax", re.I)),
     ("copy / cast", re.compile(r"copy|cast|convert", re.I)),
@@ -475,10 +478,93 @@ def sampled_profiles(cfg, params, prompts, seed: int, part: str) -> None:
             print(json.dumps(rec), flush=True)
 
 
+#: kept micro-batches a ``moe_microbatch_profile`` run times
+MOE_MB_REPS = 4
+
+
+def expert_ffn_ms(cfg, t: int) -> dict:
+    """One MoE layer's expert products (``moe._expert_ffn``: gate, up, the
+    activation, down) at the sort dispatch's (E, capacity, d) buffer of
+    ``t`` tokens, bf16: the forward and its backward alone
+    (``chip_smoke.grad_only_ms``), each one graph replay, L2 flushed."""
+    from repro_torch.models import moe
+
+    cap = max(int(t * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)
+    gen = torch.Generator(device=cs.DEV).manual_seed(0)
+    p = moe.init_moe(gen, cfg, device=cs.DEV)
+    keys = sorted(k for k in p if k != "router")
+    xe = torch.randn(cfg.n_experts, cap, cfg.d_model, generator=gen, device=cs.DEV).to(
+        torch.bfloat16)
+    leaves = tuple(x.detach().requires_grad_() for x in (xe, *(p[k] for k in keys)))
+
+    def fwd(x, *ws):
+        return moe._expert_ffn(dict(zip(keys, ws)), x, cfg)
+
+    with torch.no_grad():
+        fwd_ms = cs.time_ms(lambda: fwd(*leaves))
+    return {"fwd_ms": fwd_ms, "bwd_ms": cs.grad_only_ms(fwd, leaves, torch.ones_like(xe)),
+            "capacity": cap}
+
+
+def moe_microbatch_profile(name: str, seed: int, eager: bool) -> dict:
+    """One kept micro-batch of ``chip_smoke.py``'s phase 18c (the model at
+    full width, ``MOE_TRAIN_LAYERS`` layer, bf16; its first micro-batch of
+    one ``MOE_TRAIN_SEQ`` sequence): ``core.Accumulator.add`` (forward,
+    backward, K1 into the bf16 sums), eager or graphed (after a warm-up
+    that builds and captures), ``MOE_MB_REPS`` times on the host clock, then
+    under the profiler: device time by family a micro-batch (the dispatch's
+    sort apart from its index / scatter / gather), idle share, host
+    launches.  The expert products are timed apart at the dispatch's
+    buffer (``expert_ffn_ms``), times the layers and the remat forward."""
+    from repro_torch.core import Accumulator
+    from repro_torch.core.engine import make_grad_fn
+    from repro_torch.data import microbatches_at
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.transformer import tree_leaves
+
+    cfg = cs.moe_config(name, cs.MOE_TRAIN_LAYERS)
+    seq = cs.MOE_TRAIN_SEQ[name]
+    data, _, _, _ = cs.train_setup(cfg, seed, 1, seq)
+    mbs = microbatches_at(0, data, cs.TRAIN_WORKERS * cs.TRAIN_MB)
+    mb = {"tokens": torch.from_numpy(mbs["tokens"][0]).to(cs.DEV, torch.long),
+          "weights": torch.from_numpy(mbs["weights"][0]).to(cs.DEV)}
+    params = init_params(cfg, seed=seed, device=cs.DEV)
+    compute = model_lib.train_params(params, cfg)
+    grad_fn = make_grad_fn(lambda p, b: model_lib.loss_fn(p, cfg, b))
+    acc = Accumulator(grad_fn, compute, [p.dtype for p in tree_leaves(params)])
+    with cs.mode(eager):
+        acc.add(mb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MOE_MB_REPS):
+            acc.add(mb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / MOE_MB_REPS
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(MOE_MB_REPS):
+                acc.add(mb)
+            torch.cuda.synchronize()
+    rec = {"tag": TAG, "run": "moe_train", "model": cfg.name, "mode": "eager" if eager else "graphed",
+           "tokens": seq, **profile_record(prof, wall * MOE_MB_REPS, MOE_MB_REPS)}
+    rec["families_ms"] = {k: v / MOE_MB_REPS for k, v in rec["families_ms"].items()}
+    rec["families_launches"] = {k: v / MOE_MB_REPS for k, v in rec["families_launches"].items()}
+    rec["top_kernels_ms"] = {k: v / MOE_MB_REPS for k, v in rec["top_kernels_ms"].items()}
+    rec["wall_ms"], rec["device_busy_ms"] = rec["wall_ms"] / MOE_MB_REPS, \
+        rec["device_busy_ms"] / MOE_MB_REPS
+    del acc, compute, params
+    cs.free_device()
+    ex = expert_ffn_ms(cfg, seq)
+    rec["expert_ffn"] = ex
+    rec["expert_gemms_ms"] = cfg.n_layers * (ex["fwd_ms"] * (2 if cfg.remat else 1) + ex["bwd_ms"])
+    rec["other_cublas_ms"] = rec["families_ms"].get("matmul (cuBLAS)", 0.0) - rec["expert_gemms_ms"]
+    return rec
+
+
 TAG = ""
 PARTS = ("kernels", "k6_precision", "k4_builds", "qwen", "mamba", "train", "localsgd", "dp",
          "mamba_train", "bert_train", "rg_serve", "rg_train", "sampled_serve", "spec_serve",
-         "zoo_serve", "moe_serve")
+         "zoo_serve", "moe_serve", "moe_train")
 #: the parts that time kernels alone, run only when named
 KERNEL_PARTS = ("kernels", "k6_precision", "k4_builds")
 
@@ -881,6 +967,11 @@ def main() -> int:
                                 lambda c, p, pr, pk, cf=cf: cs.zoo_engine(c, p, pr, pk,
                                                                           capacity_factor=cf),
                                 dispatch="dense" if cf is None else f"capacity {cf}")
+        elif part == "moe_train":  # one kept micro-batch of phase 18c, each model
+            for name in cs.MOE:
+                for eager in (True, False):
+                    print(json.dumps(moe_microbatch_profile(name, args.seed, eager)), flush=True)
+                    cs.free_device()
         elif part == "rg_train":  # phase 13c's step 1, eager then graphed; the mixers' share
             rcfg = get_config("recurrentgemma_2b")
             recs = {}

@@ -77,8 +77,8 @@ input copy is skipped, must fail the stream check.
 4. serving — qwen2.5-3b at full width (36 layers, random weights from
    ``--seed``) through ``ContinuousBatcher(cache="paged", chunk_size=64,
    token_budget=256)``, unpacked then packed, 8 requests of 128-512 prompt
-   tokens and 32 new tokens each; the launch counters must show 36
-   paged-attention and 73 RMSNorm launches per engine step (a replay adds
+   tokens and 32 new tokens each; the launch counters must show L
+   paged-attention and 2L + 1 RMSNorm launches per engine step (a replay adds
    what its capture recorded), and the first prefill step's logits must
    agree with the dense-cache engine's plain attention; the planted
    stale-input fault runs here;
@@ -95,7 +95,8 @@ input copy is skipped, must fail the stream check.
    K6 or K5 fault must fall outside it; last, the dense decode step's
    device time with the port's 16-row chunk against the reference's
    256-row padding, and the packed-vs-unpacked agreement in f32;
-6. training — qwen2.5-3b at 36 layers through ``repro_torch.train.train``:
+6. training — qwen2.5-3b at ``QWEN_TRAIN_LAYERS`` (4 of 36) layers through
+   ``repro_torch.train.train``:
    f32 master weights, bf16 compute, remat, synthetic packed sequences of
    2048 tokens, 4 virtual workers x 2 micro-batches of one sequence,
    AdamW (lr 1e-4, clip 1.0), DropCompute at a fixed tau (the median of
@@ -103,12 +104,12 @@ input copy is skipped, must fail the stream check.
    Losses must be finite, the drop fractions those of the numpy latency
    draws, and the launch counters those the code implies per kept
    micro-batch; the final parameters and step 0's accumulated gradient
-   (36 layers) of the graphed run against the eager run's; then a 2-layer
+   of the graphed run against the eager run's; then a 2-layer
    full-width model at 256 tokens must give
    ``loss_sum`` and every gradient leaf on the card (kernels, bf16)
    within a stated tolerance of the CPU's (plain versions, f32), and a
    planted K3 backward fault must fall outside it;
-7. Local-SGD + DropCompute (appendix B.3) — qwen2.5-3b at 36 layers through
+7. Local-SGD + DropCompute (appendix B.3) — qwen2.5-3b at ``QWEN_TRAIN_LAYERS`` through
    ``core.local_sgd.LocalSGD`` (f32 P, W and S trees, the bf16 compute
    copy, remat): 2 workers x 2 local steps of one 2048-token sequence x 2
    rounds, lr 1e-4, the keep mask of fig. 12's single-server straggler
@@ -117,11 +118,11 @@ input copy is skipped, must fail the stream check.
    to eager (losses and final parameters), the launch counters the code
    implies (14 K1 launches a kept step, none a dropped step, 14 a worker
    for S += W), each round's wall seconds, each local step's device ms and
-   the allocated peak; then a 2-layer full-width model at 256 tokens,
+   the allocated peak; then a 1-layer full-width model at 256 tokens,
    lr 1e-2: round losses and every leaf's update on the card (kernels,
    bf16) within a stated tolerance of the CPU's (plain versions, f32), and
    a planted K1 fault (the scale's sign flipped for one leaf) outside it;
-   then mamba2-130m at ``M_LSGD_LAYERS`` (24, its full depth) through the
+   then mamba2-130m at ``M_LAYERS`` (8 of its 24) through the
    same run, eager then graphed, with the same checks but the parity (the
    local steps run K6 forward and backward, the post-step losses K6's
    forward);
@@ -132,14 +133,14 @@ input copy is skipped, must fail the stream check.
    the uninterrupted 3-step run's bit for bit; the bytes written and the
    save and restore seconds are printed, the directory deleted;
 9. data parallel (``repro_torch.dist``, the trainer's ``mesh=``) — 9a: the
-   training phase's run (36 layers) as one rank of a one-rank NCCL group in
+   training phase's run (``QWEN_TRAIN_LAYERS``) as one rank of a one-rank NCCL group in
    this process: losses, drop fractions and every final leaf bit-identical
    to the training phase's graphed run, the launches its kept micro-batches
-   imply, each step's All-Reduce device ms (12.34 GB of f32 in place);
-   9b: the same data and latencies at 4 layers of the same widths on two
+   imply, each step's All-Reduce device ms (the accumulator's f32 in place);
+   9b: the same data and latencies at ``DP_LAYERS`` (4) layers of the same widths on two
    ranks sharing the card (spawned processes, gloo with CUDA tensors, 2
    workers a rank; the card's compute mode must be ``Default`` and its free
-   memory twice a rank's reckoning) against 9a's code at 4 layers on one
+   memory twice a rank's reckoning) against 9a's code at those layers on one
    rank: every rank's replica, losses, drop fractions and tau trajectory the
    same, each rank's kept and computed micro-batches those of its workers'
    masks, drop fractions and tau exact, the losses within
@@ -151,8 +152,7 @@ input copy is skipped, must fail the stream check.
    one kept micro-batch) that both the launch counts and the values must
    reject, the log naming each check that did; then the same two-rank
    runs, sound and planted,
-   for mamba2-130m at ``M_DP_LAYERS`` (24, its full depth; two replicas
-   fit);
+   for mamba2-130m at ``M_LAYERS`` (8 of its 24);
 10. Mamba-2 training — mamba2-130m at 24 layers (random weights from
    ``--seed``, f32 master, bf16 compute copy, remat) through ``train``: the
    training phase's 4 workers x 2 micro-batches, each of 4 packed
@@ -181,7 +181,7 @@ input copy is skipped, must fail the stream check.
    128 tokens, ``loss_sum`` and every gradient leaf on the card against the
    CPU as in phase 10, a planted K3 fault (causal in place of
    bidirectional) outside it; 11c: bert-1.5b at full width cut to
-   ``BERT_LAYERS`` of its 48 layers (d 1600, 25 heads of 64; the whole
+   ``BERT_LAYERS`` (6) of its 48 layers (d 1600, 25 heads of 64; the whole
    model 1,536.8 M parameters; random weights from ``--seed``; the cut
    keeps the smoke inside its time limit) through ``train`` with LANS, 4 workers x 12
    micro-batches of 16 x 128 tokens, the training phase's tau rule, 3
@@ -222,21 +222,22 @@ input copy is skipped, must fail the stream check.
    256 tokens, ``loss_sum`` and every gradient leaf on the card against the
    CPU as in phase 10 (the RG-LRU leaves printed apart), a planted K3
    backward fault (``one_head_dkdv``) outside it; 13c: recurrentgemma-2b at
-   full width and depth (26 layers, 2,836 M parameters, random weights from
+   full width, ``RG_TRAIN_LAYERS`` (3) of its 26 layers (random weights from
    ``--seed``) through ``train`` with AdamW, 4 workers x 2 micro-batches of
    one 8,192-token sequence, the training phase's tau rule, 3 steps, eager
    then graphed, with phase 10's checks and readings (launches: 2 K2 an 'R'
    layer, and again under remat);
 14. decode, sampling and speculation — 14a ``decode_step`` at full width
-   (qwen2.5-3b paged against dense, recurrentgemma-2b ring and paged past
-   its 2,048-row wrap, mamba2-130m; planted faults); 14b the sampler card
+   (qwen2.5-3b paged against dense at ``Q_DECODE_LAYERS``, recurrentgemma-2b
+   ring and paged past its 2,048-row wrap at ``RG_LAYERS``, mamba2-130m at
+   ``M_LAYERS``; planted faults); 14b the sampler card
    against CPU; 14c sampled serving with a replay of every token; 14d
    n-gram and self-draft speculation with a replay of every acceptance;
-15. the dense zoo — internlm2-1.8b (24 layers, 16 / 8 heads of 128),
-   starcoder2-7b (32 layers, 36 / 4 heads, LayerNorm, QKV bias, GELU) and
-   gemma3-27b (62 layers 'LLLLLG', window 1,024, 32 / 16 heads, QK-norm,
-   GeGLU, vocab 262,144, bf16 parameters: its f32 masters would not fit)
-   at full width and depth, random weights from ``--seed``, each through
+15. the dense zoo — internlm2-1.8b (4 of 24 layers, 16 / 8 heads of 128),
+   starcoder2-7b (4 of 32 layers, 36 / 4 heads, LayerNorm, QKV bias, GELU)
+   and gemma3-27b (6 of 62 layers, 'LLLLLG' once, window 1,024, 32 / 16
+   heads, QK-norm, GeGLU, vocab 262,144, bf16 parameters: its f32 masters
+   would not fit) at full width (``ZOO_LAYERS``), random weights from ``--seed``, each through
    the qwen run's engine (8 requests of 128-512 prompt tokens and, for
    gemma3-27b, one of ``ZOO_LONG`` past its window; 32 new tokens each):
    a 2-layer full-width card-vs-CPU logits check (gemma3-27b's as 'LG')
@@ -267,7 +268,7 @@ input copy is skipped, must fail the stream check.
    64 / 4 heads, two full n8 tiles) held as phase 3 holds K4 (decode and
    mixed grids, bf16 and int8 pools, mixtral's 4,096 window past its edge,
    planted faults) and timed at each model's decode and mixed steps; K2 at
-   d 6144 and 4096; then per model 17c a 2-layer full-width card-vs-CPU
+   d 6144 and 4096; then per model 17c a ``MOE_PARITY_LAYERS``-layer (1) full-width card-vs-CPU
    check: the first MoE layer on the card's own input (dense dispatch and
    capacity at cf 1.25 and inf; routes equal but at near-ties under
    ``MOE_LAYER_TIE``, a planted bf16 router rejected; rows within
@@ -276,8 +277,8 @@ input copy is skipped, must fail the stream check.
    under ``MOE_MODEL_TIE``, a planted router off by one rejected), with
    planted K4 and router (no top-k renormalisation) faults outside the
    limits; 17b the model at ``MOE_LAYERS`` layers and full width
-   (bf16 weights drawn on the card; the depth cut is the one one card
-   forces): paged vs dense first step, mixtral's ``MOE_LONG``-token prompt
+   (bf16 weights drawn on the card; 2 of 56 / 94 layers: one card holds
+   12, the smoke's time limit takes 2): paged vs dense first step, mixtral's ``MOE_LONG``-token prompt
    chunk by chunk past its window, then the zoo's engine with 8 requests of
    128-512 tokens (mixtral one more of ``MOE_LONG``), unpacked and packed,
    in the dense dispatch and at the config's capacity factor, eager then
@@ -286,7 +287,30 @@ input copy is skipped, must fail the stream check.
    equal to a plain recount from its own router ids (eager) and the same
    graphed; step times, tokens/s, peaks beside the weights, overflow a
    step.  Every serving phase collects the earlier runs' engines and
-   parameters before it draws its own and reads its peaks after a reset.
+   parameters before it draws its own and reads its peaks after a reset;
+18. training the MoE family — 18a K3 at its new training pairs, each at its
+   model's training shape (``K3_PAIRS``: (128, 6) at mixtral-8x22b's 1 x 48
+   x 8,192 under the 4,096 window, (128, 16) at qwen3-moe's 1 x 64 x 4,096,
+   (128, 2) and (128, 9) at internlm2-1.8b's and starcoder2-7b's 1 x 2,048),
+   forward and backward against the plain versions (a KV head at a time)
+   row by row with planted faults (the diagonal step skipped; the window
+   dropped or its edge moved, or the causal flag off), timed beside SDPA
+   and the bound; K2's backward at 8,192 x 6,144 and 4,096 x 4,096; K1's
+   bf16 form (the accumulator of bf16 master parameters) on an 805 M-element
+   expert leaf, bit for bit; 18b per model a 1-layer full-width card-vs-CPU
+   check of ``loss_fn`` on 256 tokens (loss_sum, its CE and aux parts, every
+   gradient leaf; the card's routes pinned to the CPU's, ids, drops and aux;
+   phase 10's limits; the expert, router and attention leaves logged apart;
+   planted faults: the routing weights detached, the aux term dropped; its
+   CPU passes run in a process spawned after phase 3, beside the card's
+   work of phases 4-18, its card runs after 18c); 18c
+   each model at full width, ``MOE_TRAIN_LAYERS`` layer, bf16 parameters,
+   through ``repro_torch.train.train`` (4 workers x 2 micro-batches of one
+   ``MOE_TRAIN_SEQ`` sequence, the training phase's tau rule, 3 steps),
+   eager then graphed: the drop fractions of the latency draws, the launches
+   the code implies, graphed equal to eager, ms a kept micro-batch, kept
+   tokens/s, the routes each router call dropped at cf 1.25 and the peak
+   beside the reckoning.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K4's (256, 10) build has a record of
@@ -309,7 +333,12 @@ and gemma3-27b's launches (15) and the front-end's (16); its (128, 9)
 build's (``paged_attention_d128_g9``) at starcoder2-7b's decode step with
 its launches; its (128, 6) and (128, 16) builds' (``paged_attention_d128_g6``,
 ``paged_attention_d128_g16``) at mixtral-8x22b's and qwen3-moe-235b-a22b's
-decode steps with their serving's launches (17).
+decode steps with their serving's launches (17).  K3's (128, 6) and
+(128, 16) pairs have records of their own (``flash_attention_d128_g6`` and
+``_g16``, and their backwards), read at their models' training shapes with
+phase 18c's launches, and so has K1's bf16 form (``masked_accum_bf16``),
+read on mixtral's expert leaf with phase 18c's launches; K1's f32 record
+keeps the earlier phases'.
 """
 from __future__ import annotations
 
@@ -322,6 +351,7 @@ import gc
 import json
 import math
 import os
+import queue
 import statistics
 import shutil
 import subprocess
@@ -329,6 +359,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -495,9 +526,9 @@ PARITY_CONTROL_FACTOR = 2
 # bidirectional build checked at bert-1.5b's micro-batch (B 16, 25 heads,
 # S 128) and at bert-large's phase-2 length (B 2, 16 heads, S 512)
 BERT_SEQS, BERT_SEQ, BERT_MB = 16, 128, 12
-# 11c's depth: bert-1.5b's full width at half its 48 layers (the eager run
-# alone took 54 s of the smoke at 48)
-BERT_LAYERS = 24
+# 11c's depth: bert-1.5b's full width at an eighth of its 48 layers (the
+# eager run alone took 54 s of the smoke at 48, 22.5 s at 24)
+BERT_LAYERS = 6
 BERT_LARGE_MB, BERT_LARGE_STEPS = 2, 2
 BERT_D = 64
 BERT_K3_SHAPES = {"bert_1_5b": (16, 25, 128), "bert_large_s512": (2, 16, 512)}
@@ -520,7 +551,7 @@ LSGD_TAU = LSGD_H * 0.1 * 1.6
 # (``f32_spacing``; a result across a binade edge has twice the spacing), so
 # the limit is two spacings of the plain sum plus one of the product.  Where
 # the add cancels, the sum's spacing is far below the product's.
-# The 2-layer card-vs-CPU Local-SGD check: lr 1e-2 (an update of 1e-4 would
+# The card-vs-CPU Local-SGD check (LSGD_PARITY_LAYERS): lr 1e-2 (an update of 1e-4 would
 # sit near the f32 spacing of the weights, so the comparison would read
 # rounding); each leaf's update over the run, dP = P_final - P_start, is a
 # sum of -lr x gradients, each within the gradient parity's 5%
@@ -539,13 +570,13 @@ CKPT_LAYERS, CKPT_WORKERS, CKPT_MB, CKPT_STEPS, CKPT_AT = 2, 2, 2, 3, 1
 
 # the data-parallel phase: 9b runs the training phase's data and latencies
 # (4 workers x 2 micro-batches, 3 steps) on 2 gloo ranks sharing the card, at
-# 4 layers so that two replicas fit on it; each rank's training pool is
+# DP_LAYERS layers so that two replicas fit on it; each rank's training pool is
 # reckoned at 6 GiB (PERF.md); the spawned group's time limit
 DP_LAYERS, DP_RANKS, DP_POOL_GIB, DP_TIMEOUT_S = 4, 2, 6.0, 600
 # mamba2-130m through phases 7 and 9b (its micro-batches one 2048-token
-# sequence, as qwen's there): the full depth in both; a 9b rank's training
+# sequence, as qwen's there), at M_LAYERS in both; a 9b rank's training
 # pool reckoned from phase 10's (6.28 GB at 8,192 tokens a micro-batch)
-M_LSGD_LAYERS, M_DP_LAYERS, M_DP_POOL_GIB = 24, 24, 3.0
+M_DP_POOL_GIB = 3.0
 # 9b's final leaves against one rank's differ only by the order of the f32
 # sums (each rank sums its own blocks, then the two sums are added).  How far
 # that moves a leaf depends on its gradient: a cancelling sum (the attention
@@ -638,13 +669,13 @@ ZOO_PARITY_LAYERS = 2
 FE_WAITING_ROOM, FE_MAX_QUEUE, FE_BURST_PROMPT = 4, 4, 16
 # phase 17, the MoE family: mixtral-8x22b and qwen3-moe-235b-a22b at full
 # width cut to MOE_LAYERS layers (one layer is 4.66 / 4.63 GiB of bf16
-# weights; 12 with the embeddings are 56.7 / 57.9 GiB, the weights gemma3-27b
-# serves with plus its headroom on an 80 GB card), through the zoo's engine
+# weights; 12 with the embeddings, 56.7 / 57.9 GiB, are what one 80 GB card
+# holds; 2 keep the smoke inside its time limit), through the zoo's engine
 # in the dense dispatch and at the config's capacity factor (1.25), 8
 # requests of 128-512 prompt tokens and, for mixtral, one more of MOE_LONG
 # tokens (past its 4,096-token window), 32 new tokens each
 MOE = ("mixtral_8x22b", "qwen3_moe_235b_a22b")
-MOE_LAYERS, MOE_LONG, MOE_PARITY_LAYERS = 12, 4600, 2
+MOE_LAYERS, MOE_LONG, MOE_PARITY_LAYERS = 2, 4600, 1
 # 17c: the MoE layer on the card's own input against the CPU's f32, row by
 # row over the tokens routed alike: the card's bf16 expert weights and
 # products (2^-9 relative each) against f32; a router that skips the top-k
@@ -676,9 +707,51 @@ MOE_LAYER_TIE, MOE_LAYER_LOGITS = 1e-4, 1e-5
 # ``router_off_by_one``) moves 0.98-1.0 of them, at gaps up to 0.25
 # (qwen3-moe) and 1.3 (mixtral).  Readings: PERF.md.
 MOE_MODEL_TIE, MOE_FLIP_SHARE = 0.1, 0.25
-# 17c's 2-layer steps take this many prompt tokens a slot (8 slots dense,
+# 17c's steps take this many prompt tokens a slot (8 slots dense,
 # 8 packed): the CPU's f32 pass runs every expert on every token
 MOE_PARITY_CHUNK = 8
+# Depth cuts for the smoke's time limit (each with its seconds and its
+# planted faults' readings before and after in PERF.md §4): these paths run
+# fewer layers at full width, every check and planted fault kept.
+# qwen2.5-3b's decode_step runs (14a) at Q_DECODE_LAYERS of 36 (its serving
+# in 4, 14c and 14d stays at 36: at 12 layers 14c's planted sampling fault
+# went unseen); its training (6), Local-SGD run (7) and the one-rank
+# data-parallel run (9a, held to 6's) at QWEN_TRAIN_LAYERS; mamba2-130m (5,
+# 7, 9b, 10, 14a) at M_LAYERS of 24; recurrentgemma-2b's serving (12c) and
+# decode_step (14a) at RG_LAYERS of 26 ('RRL' three times), its training
+# (13c) at RG_TRAIN_LAYERS ('RRL'); the dense zoo (15, and gemma3-27b behind
+# the front-end in 16a, which serves 15's model) at ZOO_LAYERS of 24, 32 and
+# 62 ('LLLLLG' once); also BERT_LAYERS (11c: 24 before), MOE_LAYERS (17b: 12
+# before) and MOE_PARITY_LAYERS (17c: 2 before).  Shallower cuts (qwen
+# training 12, Mamba-2 and recurrentgemma's serving at full depth, its
+# training 9, bert-1.5b 12) ran 948-975 s on hosts whose CPU-bound phases
+# ran slow (PERF.md §4).
+Q_DECODE_LAYERS, QWEN_TRAIN_LAYERS, M_LAYERS, RG_LAYERS, RG_TRAIN_LAYERS = 12, 4, 8, 9, 3
+#: the Local-SGD card-vs-CPU check's depth (7: 2 before)
+LSGD_PARITY_LAYERS = 1
+ZOO_LAYERS = {"internlm2_1_8b": 4, "starcoder2_7b": 4, "gemma3_27b": 6}
+# phase 18, training the MoE family: mixtral-8x22b and qwen3-moe-235b-a22b at
+# full width cut to MOE_TRAIN_LAYERS layer (one layer with the embeddings,
+# 2.907 / 3.732 B parameters, takes 40.7 / 52.2 GB of trees with bf16 sums:
+# bf16 master (its own compute copy), accumulator and micro-batch gradient,
+# f32 AdamW moments, 14 B a parameter (``memory_reckoning``); 46.5 / 59.7
+# with f32 sums; two layers of mixtral would take 75.8 before any
+# activation),
+# bf16 parameters as published, the sort dispatch at cf 1.25; one sequence
+# of MOE_TRAIN_SEQ tokens a micro-batch (mixtral's past its 4,096 window),
+# the training phase's 4 workers x 2 micro-batches and tau rule, 3 steps;
+# the 1-layer card-vs-CPU check on PARITY_SEQ tokens.  K3's new training
+# pairs, each held at its model's training shape: (head dim, group) ->
+# (model, H, KV, B, S, window); internlm2-1.8b and starcoder2-7b at the
+# training phase's 1 x TRAIN_SEQ
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_SEQ = {"mixtral_8x22b": 8192, "qwen3_moe_235b_a22b": 4096}
+K3_PAIRS = {
+    (128, 6): ("mixtral_8x22b", 48, 8, 1, 8192, 4096),
+    (128, 16): ("qwen3_moe_235b_a22b", 64, 4, 1, 4096, 0),
+    (128, 2): ("internlm2_1_8b", 16, 8, 1, TRAIN_SEQ, 0),
+    (128, 9): ("starcoder2_7b", 36, 4, 1, TRAIN_SEQ, 0),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -2393,11 +2466,11 @@ def f32_agreement(cfg, seed: int, prompts) -> int:
 
 
 def mamba_phase(seed: int):
-    """mamba2-130m at full width and depth: the 2-layer parity first, then
+    """mamba2-130m at full width, ``M_LAYERS`` layers: the 2-layer parity first, then
     the four serving runs eager (``disable_graphs``) and graphed (the
     counters' window; streams identical), then the decode step with and
     without the shortened chunk (in turns)."""
-    cfg = get_config("mamba2_130m")
+    cfg = dataclasses.replace(get_config("mamba2_130m"), n_layers=M_LAYERS)
     lens, prompts = mamba_requests(cfg, seed)
     mamba_parity(cfg, seed, prompts)
     free_device()
@@ -2537,7 +2610,7 @@ def check_gaps(what: str, gaps: dict) -> None:
 
 
 def train_phase(cfg, seed: int):
-    """qwen2.5-3b at full depth through ``repro_torch.train.train``, eager
+    """qwen2.5-3b (``QWEN_TRAIN_LAYERS``) through ``repro_torch.train.train``, eager
     (``disable_graphs``) then graphed (the counters' window): losses and
     final parameters compared, launch counters checked in both.  Returns the
     graphed run's launches and its (losses, final leaves on the host, drop
@@ -2593,7 +2666,7 @@ def train_phase(cfg, seed: int):
 
 
 def grad_phase(cfg, seed: int, seqs: int = 1):
-    """One step's accumulated gradient at full depth (step 0's micro-batches
+    """One step's accumulated gradient of ``cfg`` (step 0's micro-batches
     of ``seqs`` sequences, its keep mask), eager and graphed: bit-identical,
     or within ``GRAPH_LEAF_GAP`` of each leaf's norm; then the capture's
     cost."""
@@ -2816,7 +2889,7 @@ def localsgd_launches(cfg, n_leaves: int, kept: int, dropped: int) -> dict:
 
 
 def localsgd_phase(cfg, seed: int):
-    """``cfg`` (qwen2.5-3b at 36 layers; mamba2-130m at ``M_LSGD_LAYERS``),
+    """``cfg`` (qwen2.5-3b at ``QWEN_TRAIN_LAYERS``; mamba2-130m at ``M_LAYERS``),
     eager then graphed (the counters' window): finite round losses, graphed
     equal to eager (losses and final parameters), the launches the code
     implies, device ms of each kept and dropped local step, the allocated
@@ -2867,10 +2940,11 @@ def localsgd_phase(cfg, seed: int):
 
 
 def localsgd_parity(cfg, seed: int, keep):
-    """A 2-layer full-width model at 256 tokens: the round losses and every
-    leaf's update on the card (kernels, bf16 compute) against the CPU
-    (plain versions, f32), and the same metric with a planted K1 fault."""
-    small = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    """A ``LSGD_PARITY_LAYERS``-layer full-width model at 256 tokens: the
+    round losses and every leaf's update on the card (kernels, bf16
+    compute) against the CPU (plain versions, f32), and the same metric
+    with a planted K1 fault."""
+    small = dataclasses.replace(cfg, n_layers=LSGD_PARITY_LAYERS)
     cpu_cfg = dataclasses.replace(small, dtype="float32")
     start = init_params(cpu_cfg, seed=seed, device="cpu")
 
@@ -2893,7 +2967,7 @@ def localsgd_parity(cfg, seed: int, keep):
     errs, bad = leaf_errs(card_d), leaf_errs(bad_d)
     worst, bad_worst = max(errs, key=errs.get), max(bad, key=bad.get)
     el = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
-    log(f"localsgd parity {PARITY_LAYERS} layers seq {PARITY_SEQ} lr {LSGD_PARITY_LR}: round "
+    log(f"localsgd parity {LSGD_PARITY_LAYERS} layers seq {PARITY_SEQ} lr {LSGD_PARITY_LR}: round "
         f"losses card {card_l} / cpu {cpu_l} (rel {el:.2e}); the CPU run took {t_cpu:.1f} s")
     log("localsgd parity per-leaf ||dP_card - dP_cpu|| / ||dP_cpu||: "
         + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
@@ -2995,7 +3069,7 @@ def checkpoint_phase(cfg, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# data parallel: 9a one NCCL rank at full depth, 9b two gloo ranks on the card
+# data parallel: 9a one NCCL rank, 9b two gloo ranks on the card
 # ---------------------------------------------------------------------------
 
 
@@ -3190,7 +3264,7 @@ def dp_faults(got, one, masks, per_mb: dict, names, order_gaps: dict) -> dict:
 def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS,
                   pool_gib: float = DP_POOL_GIB) -> None:
     """9b: ``cfg``'s widths at ``layers`` layers (qwen2.5-3b at
-    ``DP_LAYERS``; mamba2-130m at ``M_DP_LAYERS``), the training phase's
+    ``DP_LAYERS``; mamba2-130m at ``M_LAYERS``), the training phase's
     data and latencies (2 workers a rank x 2 micro-batches of one 2048-token
     sequence, 3 steps) on two gloo ranks sharing the card, against 9a's code
     at the same depth on one rank, which must pass every check of
@@ -3272,16 +3346,23 @@ def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS,
 # ---------------------------------------------------------------------------
 
 
-def memory_reckoning(meta, optimizer: str = "adamw") -> dict:
+def memory_reckoning(cfg, meta, optimizer: str = "adamw") -> dict:
     """GB of the training run's persistent trees, from the parameter tree
-    (``meta`` tensors): the f32 master, the optimizer's m and v (AdamW,
-    LAMB and LANS each keep two f32 moments), the f32 accumulator, and the
-    bf16 compute copy of every leaf but the embedding (which the copy shares
-    with the master: ``model.train_params``)."""
-    total = sum(x.numel() for x in tree_leaves(meta))
-    emb = meta["embed"]["embedding"].numel()
-    return {"master f32": 4 * total / 1e9, f"{optimizer} m, v": 8 * total / 1e9,
-            "accumulator": 4 * total / 1e9, "bf16 compute copy": 2 * (total - emb) / 1e9}
+    (``meta`` tensors): the master (f32, or bf16 where the config says), the
+    optimizer's m and v (AdamW, LAMB and LANS each keep two f32 moments), the
+    accumulator (the trainer's sums take the masters' dtype), the compute
+    copy (``model.train_params``: the leaves it casts; the embedding and a
+    leaf already in the compute dtype are shared with the master), and one
+    micro-batch's gradient of the compute copy."""
+    leaves = tree_leaves(meta)
+    comp = tree_leaves(model_lib.train_params(meta, cfg))
+    total = sum(x.numel() for x in leaves)
+    master = sum(x.numel() * x.element_size() for x in leaves)
+    copy = sum(c.numel() * c.element_size() for c, p in zip(comp, leaves) if c is not p)
+    grad = sum(c.numel() * c.element_size() for c in comp)
+    return {f"master {cfg.param_dtype}": master / 1e9, f"{optimizer} m, v": 8 * total / 1e9,
+            "accumulator": master / 1e9, "compute copy": copy / 1e9,
+            "a micro-batch's gradient": grad / 1e9}
 
 
 def full_train_phase(cfg, seed: int, what: str, seqs: int, seq: int = TRAIN_SEQ,
@@ -3295,8 +3376,10 @@ def full_train_phase(cfg, seed: int, what: str, seqs: int, seq: int = TRAIN_SEQ,
     run's losses and final parameters against the eager run's; step walls,
     ms a kept micro-batch, kept tokens/s and the peak beside the reckoning.
     Returns the graphed run's launches."""
-    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32",
-          f"{what}: the training phases want remat, bf16 compute, f32 master weights")
+    check(cfg.remat and cfg.dtype == "bfloat16"
+          and cfg.param_dtype == ("bfloat16" if cfg.n_experts else "float32"),
+          f"{what}: the training phases want remat, bf16 compute, f32 master weights (the MoE "
+          f"models bf16, as published)")
     n, m = TRAIN_WORKERS, mb
     shape = dict(seqs=seqs, seq=seq, mb=mb, steps=steps)
     _, _, tau, masks = train_setup(cfg, seed, **shape)
@@ -3310,14 +3393,25 @@ def full_train_phase(cfg, seed: int, what: str, seqs: int, seq: int = TRAIN_SEQ,
     want = {k: kept * v for k, v in per_mb.items()}
     kept_per_step = [int(k.sum()) for k in masks]
     tokens_mb = seqs * seq
-    reck = memory_reckoning(meta, optimizer)
+    reck = memory_reckoning(cfg, meta, optimizer)
     runs = {}
     for eager in (True, False):
         tag = "eager" if eager else "graphed"
         if not eager:
             ops.reset_launch_counts()  # this training path starts here
-        res, params, counts, peak, wall = train_run(cfg, seed, eager, **shape,
-                                                    optimizer=optimizer)
+        routes = []
+        with routes_recorded(routes) if cfg.n_experts and eager else contextlib.nullcontext():
+            res, params, counts, peak, wall = train_run(cfg, seed, eager, **shape,
+                                                        optimizer=optimizer)
+        if routes:  # under remat the backward routes each layer again
+            drops = sort_drops(cfg, routes)
+            calls = (2 if cfg.remat else 1) * cfg.n_layers * kept
+            check(len(drops) == calls, f"{what}: {len(drops)} router calls, {calls} for "
+                                       f"{kept} kept micro-batches")
+            log(f"{what} {tag}: routes dropped by each router call at cf {cfg.capacity_factor}, "
+                f"of {tokens_mb * cfg.top_k} choices ({cfg.n_layers} layer(s) a kept "
+                f"micro-batch{', each routed again by the remat backward' if cfg.remat else ''}): "
+                f"{drops} (mean {statistics.mean(drops):.1f})")
         check(all(math.isfinite(x) for x in res.losses),
               f"{what} {tag}: non-finite losses {res.losses}")
         check(res.drop_fractions == want_drops, f"{what} {tag}: drop fractions "
@@ -3685,10 +3779,10 @@ def serve_run(cfg, params, prompts, packed: bool, eager: bool, make):
 
 def rg_phase(seed: int):
     """12b and 12c: the 3-layer card-vs-CPU check, then recurrentgemma-2b at
-    full width and depth (random weights from ``seed``, f32 master and a
+    full width, ``RG_LAYERS`` layers (random weights from ``seed``, f32 master and a
     bf16 compute copy) served unpacked and packed, eager then graphed (the
     counters' window; streams identical)."""
-    cfg = get_config("recurrentgemma_2b")
+    cfg = dataclasses.replace(get_config("recurrentgemma_2b"), n_layers=RG_LAYERS)
     lens, prompts = rg_requests(cfg, seed)
     small = dataclasses.replace(cfg, n_layers=RG_PARITY_LAYERS)
     check(small.pattern == "RRL", f"12b wants one 'L' layer, got {small.pattern}")
@@ -3923,11 +4017,12 @@ def rg_train_phase(seed: int, rng):
                  "dK/dV from one query head of each group", "flash_attention_bwd",
                  layers=RG_PARITY_LAYERS, show="rglru")
     free_device()
+    cut = dataclasses.replace(cfg, n_layers=RG_TRAIN_LAYERS)
     log(f"recurrentgemma-2b: {cfg.param_count() / 1e6:.1f} M parameters (the reference's "
-        f"param_count), {cfg.n_layers} layers ({cfg.pattern.count('R')} 'R', "
-        f"{cfg.pattern.count('L')} 'L'); cuts: none (full width and depth, "
-        f"{RG_TRAIN_SEQ}-token sequences)")
-    counts = full_train_phase(cfg, seed, "recurrentgemma train", 1, RG_TRAIN_SEQ)
+        f"param_count) at {cfg.n_layers} layers; trained at full width, {cut.n_layers} layers "
+        f"({cut.pattern.count('R')} 'R', {cut.pattern.count('L')} 'L'), {RG_TRAIN_SEQ}-token "
+        f"sequences")
+    counts = full_train_phase(cut, seed, "recurrentgemma train", 1, RG_TRAIN_SEQ)
     free_device()
     return errs, timing, k2b, counts
 
@@ -4152,7 +4247,7 @@ def decay_skipped():
 
 
 def qwen_decode(cfg, params, prompts, streams):
-    """14a, qwen2.5-3b at 36 layers: phase 4's requests teacher-forced on its
+    """14a, qwen2.5-3b at ``Q_DECODE_LAYERS``: phase 4's requests teacher-forced on its
     graphed unpacked streams through ``make_serve_step``, paged (K4) against
     dense (plain attention) within LOGITS_REL_TOL at every step; the planted
     fault (K/V written one row late, paged, eager) outside it."""
@@ -4188,7 +4283,7 @@ def qwen_decode(cfg, params, prompts, streams):
 
 
 def rg_decode(cfg, params, prompts, streams):
-    """14a, recurrentgemma-2b at 26 layers: phase 12c's long request and two
+    """14a, recurrentgemma-2b at ``RG_LAYERS``: phase 12c's long request and two
     of its eight, teacher-forced on 12c's graphed unpacked streams, on the
     ring layout (the 'L' buffers of RG_WINDOW rows wrap at RG_WINDOW) and
     the paged one (K4 (256, 10)), each against the linear layout within
@@ -4282,7 +4377,7 @@ def mamba_free_f32(cfg, seed: int, seqs):
 
 
 def mamba_decode(cfg, params, prompts, streams, seed: int):
-    """14a, mamba2-130m at 24 layers: ``decode_step`` (the reference's
+    """14a, mamba2-130m at ``M_LAYERS``: ``decode_step`` (the reference's
     single-token recurrence, no SSD kernel) teacher-forced on phase 5's
     graphed dense unpacked streams through ``make_serve_step`` (the
     counters' window), then held against the engine's step,
@@ -4687,7 +4782,7 @@ def spec_phase(cfg, params, prompts, seed: int, greedy_streams, sampled_streams,
     then with 14c's sampling: eager under the replay check (every emitted
     token what ``accept_sampled`` gives on the verify step's own columns),
     then graphed (the counters' window), graphed = eager, no leaked page,
-    36 K4 a step; then the planted fault (a draft accepted past the first
+    L K4 a step; then the planted fault (a draft accepted past the first
     mismatch), which the replay check must reject."""
     proposers = {"ngram": lambda: SpecConfig(NGramProposer(), k=SPEC_K),
                  "self-draft": lambda: SpecConfig(DraftModelProposer(params, cfg, SLOTS, MAX_LEN),
@@ -4734,9 +4829,12 @@ def phase14(seed: int, rng, prompts, qwen_streams, rg_streams, mamba_streams):
     then 14a for recurrentgemma-2b and mamba2-130m.  Returns the launches of
     each main path (qwen's, recurrentgemma's, mamba's) and the readings."""
     cfg = get_config("qwen2_5_3b")
-    params = compute_params(init_params(cfg, seed=seed, device=DEV), cfg)
-    qwen_counts, qwen_ms = qwen_decode(cfg, params, prompts, qwen_streams[False])
+    dcfg = dataclasses.replace(cfg, n_layers=Q_DECODE_LAYERS)
+    params = compute_params(init_params(dcfg, seed=seed, device=DEV), dcfg)
+    qwen_counts, qwen_ms = qwen_decode(dcfg, params, prompts, qwen_streams[False])
+    del params
     free_device()
+    params = compute_params(init_params(cfg, seed=seed, device=DEV), cfg)
     sampler_ms = sampler_phase(rng, seed)
     free_device()
     c_counts, sampled_streams, sampled_recs = sampled_phase(cfg, params, prompts, seed,
@@ -4746,13 +4844,13 @@ def phase14(seed: int, rng, prompts, qwen_streams, rg_streams, mamba_streams):
                                          sampled_streams[False], sampled_recs[False])
     del params
     free_device()
-    rcfg = get_config("recurrentgemma_2b")
+    rcfg = dataclasses.replace(get_config("recurrentgemma_2b"), n_layers=RG_LAYERS)
     _, rprompts = rg_requests(rcfg, seed)
     params = compute_params(init_params(rcfg, seed=seed, device=DEV), rcfg)
     rg_counts, rg_ms = rg_decode(rcfg, params, rprompts, rg_streams)
     del params
     free_device()
-    mcfg = get_config("mamba2_130m")
+    mcfg = dataclasses.replace(get_config("mamba2_130m"), n_layers=M_LAYERS)
     _, mprompts = mamba_requests(mcfg, seed)
     params = compute_params(init_params(mcfg, seed=seed, device=DEV), mcfg)
     m_counts, m_ms = mamba_decode(mcfg, params, mprompts, mamba_streams, seed)
@@ -4771,11 +4869,12 @@ def phase14(seed: int, rng, prompts, qwen_streams, rg_streams, mamba_streams):
 
 
 def zoo_config(name: str):
-    """The served config at full width and depth, with bf16 parameters as
-    the HTTP example serves it (gemma3-27b's f32 masters, 100.6 GiB, would
-    not fit the card; the init draws in f32 and casts, so bf16 leaves are
-    the values a compute copy of f32 masters would hold)."""
-    return dataclasses.replace(get_config(name), param_dtype="bfloat16")
+    """The served config at full width and ``ZOO_LAYERS`` layers, with bf16
+    parameters as the HTTP example serves it (gemma3-27b's f32 masters,
+    100.6 GiB, would not fit the card; the init draws in f32 and casts, so
+    bf16 leaves are the values a compute copy of f32 masters would hold)."""
+    return dataclasses.replace(get_config(name), param_dtype="bfloat16",
+                               n_layers=ZOO_LAYERS[name])
 
 
 def long_prompt(cfg) -> int:
@@ -4887,7 +4986,8 @@ def zoo_model(name: str, index: int, seed: int, keep: bool = False):
         f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, vocab "
         f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B parameters, "
         f"bf16 init in {time.perf_counter() - t0:.1f} s: {weights:.2f} GiB of weights, init peak "
-        f"{init_peak:.2f} GiB; full width and depth; prompt lens {lens}")
+        f"{init_peak:.2f} GiB; full width, {cfg.n_layers} of {get_config(name).n_layers} "
+        f"layers; prompt lens {lens}")
     first_step_logits_check(cfg, params, prompts[-SLOTS:], zoo_max_len(cfg), f"{cfg.name} ")
     if "L" in cfg.pattern:
         window_edge_check(cfg, params, prompts[0], zoo_max_len(cfg))
@@ -5258,53 +5358,59 @@ def router_off_by_one():
 def route_record(ids, logits, k: int):
     """One router call's record on the host: its ids (T, k), the gap between
     its k-th and (k+1)-th logits (T,) and its logits (T, E)."""
+    logits = logits.detach()
     z = logits.sort(dim=-1, descending=True).values
-    return ids.cpu(), (z[:, k - 1] - z[:, k]).cpu(), logits.cpu()
+    return ids.detach().cpu(), (z[:, k - 1] - z[:, k]).cpu(), logits.cpu()
 
 
 @contextlib.contextmanager
-def router_calls(record: list):
-    """Record each router call (``route_record``)."""
-    sound = moe._router
-
-    def spy(p, x2d, cfg):
-        out = sound(p, x2d, cfg)
-        record.append(route_record(out[1], moe.router_logits(p, x2d), cfg.top_k))
-        return out
-
-    moe._router = spy
+def patched(module, attr: str, wrap):
+    """``module.attr`` replaced by ``wrap(sound)`` while the context lasts."""
+    sound = getattr(module, attr)
+    setattr(module, attr, wrap(sound))
     try:
         yield
     finally:
-        moe._router = sound
+        setattr(module, attr, sound)
 
 
-@contextlib.contextmanager
+def router_calls(record: list):
+    """Record each router call (``route_record``)."""
+
+    def wrap(sound):
+        def spy(p, x2d, cfg):
+            out = sound(p, x2d, cfg)
+            record.append(route_record(out[1], moe.router_logits(p, x2d), cfg.top_k))
+            return out
+        return spy
+
+    return patched(moe, "_router", wrap)
+
+
 def routes_pinned(pinned: list, own: list):
     """Each router call takes its top-k ids from ``pinned`` (another run's
     ``router_calls`` records, in call order) and weighs them by its own
-    probabilities, renormalised as the router does; its own ids and gaps
-    go to ``own``.  Two runs that should differ only by their attention
-    (the card's kernels against the CPU's plain versions, or the paged
-    kernel against plain attention) then route alike, so a near-tie that
-    rounds the other way in one of them does not send a token elsewhere
-    and carry its difference through every later layer."""
-    sound = moe._router
+    probabilities, renormalised as the router does (``moe.routed``), with
+    the load-balancing term of those ids; the dispatch's capacity drops
+    follow the ids too.  Its own ids and gaps go to ``own``.  Two runs that
+    should differ only by their attention (the card's kernels against the
+    CPU's plain versions, or the paged kernel against plain attention) then
+    route alike, so a near-tie that rounds the other way in one of them
+    does not send a token elsewhere and carry its difference through every
+    later layer."""
     calls = iter(pinned)
 
-    def forced(p, x2d, cfg):
-        _, mine, aux = sound(p, x2d, cfg)
-        logits = moe.router_logits(p, x2d)
-        own.append(route_record(mine, logits, cfg.top_k))
-        ids = next(calls)[0].to(x2d.device)
-        top_p = torch.gather(torch.softmax(logits, dim=-1), 1, ids)
-        return top_p / top_p.sum(dim=-1, keepdim=True), ids, aux
+    def wrap(sound):
+        def forced(p, x2d, cfg):
+            _, mine, _ = sound(p, x2d, cfg)
+            logits = moe.router_logits(p, x2d)
+            own.append(route_record(mine, logits, cfg.top_k))
+            ids = next(calls)[0].to(x2d.device)
+            top_p, aux = moe.routed(torch.softmax(logits, dim=-1), ids, cfg)
+            return top_p, ids, aux
+        return forced
 
-    moe._router = forced
-    try:
-        yield
-    finally:
-        moe._router = sound
+    return patched(moe, "_router", wrap)
 
 
 def route_flips(own, pinned, tie: float, what: str, rows=None,
@@ -5467,7 +5573,7 @@ def moe_layer_check(card_x, card_p, cpu_p, card_cfg, cpu_cfg) -> dict:
 
 
 def moe_parity(small, seed: int, prompts, max_len: int) -> dict:
-    """17c: a 2-layer full-width MoE model, card (kernels, bf16 compute)
+    """17c: a ``MOE_PARITY_LAYERS``-layer full-width MoE model, card (kernels, bf16 compute)
     against the CPU (plain versions, f32 masters drawn on the card and
     copied), at ``MOE_PARITY_CHUNK`` tokens a slot: the first layer's MoE
     on the card's own input (``moe_layer_check``); the first dense and
@@ -5680,6 +5786,472 @@ def moe_phase(seed: int, rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training the MoE family
+# ---------------------------------------------------------------------------
+
+
+def k3_pair_inputs(rng, b: int, h: int, kvh: int, s: int, d: int = 128):
+    """q, k, v, dO as transposed (B, heads, S, d) views of (B, S, heads, d)
+    bf16 storage, the layout the model passes."""
+
+    def t(heads):
+        x = torch.from_numpy(rng.standard_normal((b, s, heads, d), dtype=np.float32))
+        return x.to(DEV, torch.bfloat16).transpose(1, 2)
+
+    return t(h), t(kvh), t(kvh), t(h)
+
+
+def k3_plain_by_kv_head(q, k, v, out, lse, do, **kw):
+    """The plain forward (out, lse) and backward (dq, dk, dv, on ``out`` and
+    ``lse``) one KV head and its group of query heads at a time: the same
+    function as one call (the heads are independent), in a KV head's share
+    of the memory (one call at mixtral's 48 heads x 8,192 would hold
+    several 12.9 GB f32 score tensors)."""
+    kvh = k.shape[1]
+    g = q.shape[1] // kvh
+    parts = []
+    for j in range(kvh):
+        hs, ks = slice(j * g, (j + 1) * g), slice(j, j + 1)
+        o, l = ref.flash_attention_fwd_ref(q[:, hs], k[:, ks], v[:, ks], **kw)
+        parts.append((o, l, *ref.flash_attention_bwd_ref(q[:, hs], k[:, ks], v[:, ks],
+                                                         out[:, hs], lse[:, hs], do[:, hs], **kw)))
+    return [torch.cat(x, dim=1) for x in zip(*parts)]
+
+
+def k3_pair_checks(rng, pair):
+    """18a: K3 at ``pair`` (head dim, group) on its model's training shape
+    (``K3_PAIRS``): forward (out, lse) and backward (dq, dk, dv) against the
+    plain versions row by row, two backward runs bit-identical, and planted
+    faults the same metric must reject in each of out, dq, dk and dv: the
+    causal diagonal's step skipped (``diagonal_skipped``), and with a window
+    ``window=0`` passed and the window's edge a step inward
+    (``window_edge_moved``), without one the causal flag off.  Returns (fwd
+    max|err|, bwd max|err|)."""
+    name, h, kvh, b, s, w = K3_PAIRS[pair]
+    kw = dict(causal=True, window=w)
+    q, k, v, do = k3_pair_inputs(rng, b, h, kvh, s)
+    fwd, bwd = flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd
+    out, lse = fwd(q, k, v, **kw)
+    grads = bwd(q, k, v, out, lse, do, **kw)
+    again = bwd(q, k, v, out, lse, do, **kw)
+    faults = {}
+    if w:
+        faults["window 0"] = [fwd(q, k, v, causal=True)[0], *bwd(q, k, v, out, lse, do)]
+        with planted_plan(window_edge_moved):
+            faults["window edge a step inward"] = [fwd(q, k, v, **kw)[0],
+                                                   *bwd(q, k, v, out, lse, do, **kw)]
+    else:
+        faults["causal flag off"] = [fwd(q, k, v, causal=False)[0],
+                                     *bwd(q, k, v, out, lse, do, causal=False)]
+    with planted_plan(diagonal_skipped):
+        faults["diagonal step skipped"] = [fwd(q, k, v, **kw)[0], *bwd(q, k, v, out, lse, do, **kw)]
+    want, want_lse, *wants = k3_plain_by_kv_head(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    what = f"K3 ({pair[0]}, {pair[1]}) at {name}'s B {b}, H {h}, KV {kvh}, S {s}"
+    check(all(bool(torch.isfinite(x.float()).all()) for x in (out, lse, *grads)),
+          f"{what}: non-finite output")
+    errs = [row_rel_err(g, x) for g, x in zip((out, *grads), (want, *wants))]
+    e_lse = (lse - want_lse).abs().max().item()
+    bad = {f: [row_rel_err(g, x) for g, x in zip(got, (want, *wants))] for f, got in faults.items()}
+    log(f"{what}, causal{f', window {w}' if w else ''}: row rel err out {errs[0]:.2e} (lse abs "
+        f"{e_lse:.1e}) dq {errs[1]:.2e} dk {errs[2]:.2e} dv {errs[3]:.2e}; planted faults (out, "
+        f"dq, dk, dv): " + "; ".join(f"{f} {', '.join(f'{x:.2e}' for x in e)}"
+                                     for f, e in bad.items()))
+    check(max(errs) <= K3_ROW_TOL, f"{what}: row relative errors {errs}")
+    check(e_lse <= K3_LSE_TOL, f"{what}: lse off by {e_lse}")
+    for f, e in bad.items():
+        check(min(e) > K3_ROW_TOL, f"{what}: the row metric lets a planted fault ({f}) pass: {e}")
+    check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+          f"{what}: two backward runs differ (it has no atomics: it must not)")
+    fwd_err = (out.float() - want.float()).abs().max().item()
+    bwd_err = max((g.float() - x.float()).abs().max().item() for g, x in zip(grads, wants))
+    return fwd_err, bwd_err
+
+
+def k3_pair_timing(rng, pair):
+    """18a: K3 at ``pair`` on its model's training shape: forward and
+    backward, one graph replay each (L2 flushed); the plain versions (a KV
+    head at a time, ``k3_plain_by_kv_head``); SDPA forward and its backward
+    alone (GQA; a boolean band mask under a window, else ``is_causal``),
+    with the kernel each ran; the bounds from the admissible pairs.  Returns
+    (fwd, bwd) record fields."""
+    name, h, kvh, b, s, w = K3_PAIRS[pair]
+    d = pair[0]
+    kw = dict(causal=True, window=w)
+    q, k, v, do = k3_pair_inputs(rng, b, h, kvh, s)
+    out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+    fwd = time_ms(lambda: flash_attention.flash_attention_fwd(q, k, v, **kw))
+    bwd = time_ms(lambda: flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+    plain = time_ms_eager(lambda: k3_plain_by_kv_head(q, k, v, out, lse, do, **kw), iters=3)
+    kvh_1 = (q[:, :h // kvh], k[:, :1], v[:, :1])
+    plain_fwd_share = time_ms_eager(lambda: ref.flash_attention_fwd_ref(*kvh_1, **kw), iters=3)
+    plain_fwd = plain_fwd_share * kvh
+    plain_bwd = max(plain - plain_fwd, 0.0)
+    free_device()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = ref.attention_mask(s, s, True, w, device=DEV)[None]  # (1, 1, S, S)
+    sdpa_kw = dict(attn_mask=mask) if w else dict(is_causal=True)
+
+    def lib(a, bb, c):
+        return sdpa(a, bb, c, enable_gqa=True, **sdpa_kw)
+
+    lib_fwd = time_ms(lambda: lib(q, k, v))
+    lib_fwd_kernel = longest_kernel(lambda: lib(q, k, v))
+    leaves = tuple(x.detach().requires_grad_() for x in (q, k, v))
+    lib_bwd = grad_only_ms(lib, leaves, do)
+    lib_bwd_kernel = longest_kernel(lambda: torch.autograd.grad(lib(*leaves), leaves, do))
+    del leaves
+    free_device()
+    pairs = b * h * int(mask.sum().item())  # admissible (query, key) pairs, every head
+    io = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # bf16 q, k, v, o
+    fb, fby = bound_ms(io + 4 * lse.numel(), 4.0 * d * pairs)
+    bb, bby = bound_ms(io + 2 * q.numel() + 4 * lse.numel() + 2 * (q.numel() + 2 * k.numel()),
+                       10.0 * d * pairs)
+    log(f"K3 ({d}, {pair[1]}) time at {name}'s B {b}, H {h}, KV {kvh}, S {s}"
+        f"{f', window {w}' if w else ''} ({pairs} admissible pairs): fwd kernel "
+        f"{fwd * 1e3:.1f} us, plain {plain_fwd * 1e3:.1f} us (a KV head's "
+        f"{plain_fwd_share * 1e3:.1f} x {kvh}), SDPA {lib_fwd * 1e3:.1f} us ({lib_fwd_kernel}), "
+        f"bound {fb * 1e3:.1f} us ({fby}); bwd kernels {bwd * 1e3:.1f} us, plain "
+        f"{plain_bwd * 1e3:.1f} us (fwd and bwd a KV head at a time {plain * 1e3:.1f} us, less "
+        f"the fwd), SDPA bwd alone {lib_bwd * 1e3:.1f} us ({lib_bwd_kernel}), bound "
+        f"{bb * 1e3:.1f} us ({bby})")
+    return (dict(ms=fwd, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby, library_ms=lib_fwd),
+            dict(ms=bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby, library_ms=lib_bwd))
+
+
+def k1_bf16_checks_and_timing(rng, shape=(8, 6144, 16384)):
+    """18a: K1's bf16 form (the accumulator in the bf16 masters' dtype) on
+    the largest leaf of a mixtral-8x22b layer (an expert stack: w_gate,
+    w_in, w_out), bf16 gradients, keep 0 and 1, against its plain version
+    bit for bit; timed beside ``acc.add_`` and the bound (2 + 2 + 2 bytes an
+    element)."""
+    n = math.prod(shape)
+    acc = torch.empty(shape, dtype=torch.bfloat16, device=DEV).normal_()
+    g = torch.empty(shape, dtype=torch.bfloat16, device=DEV).normal_()
+    for keep in (0.0, 1.0):
+        want = ref.masked_accum_ref(acc, g, keep, 1.0)
+        got = masked_accum.masked_accum(acc.clone(), g, keep, 1.0)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 and torch.equal(got, want),
+              f"K1 bf16 keep={keep}: differs from the plain version")
+        del want, got
+        log(f"K1 bf16 accumulator {shape} ({n} elements), bf16 grads keep={keep}: the plain "
+            f"version's bits")
+    kern = time_ms(lambda: masked_accum.masked_accum(acc, g, 1.0, 1.0), iters=10)
+    plain = time_ms(lambda: ref.masked_accum_ref(acc, g, 1.0, 1.0), iters=5)
+    library = time_ms(lambda: acc.add_(g), iters=10)
+    b, by = bound_ms(n * (2 + 2 + 2), 2.0 * n)
+    log(f"K1 bf16 time {n / 1e6:.0f} M elements: kernel {kern:.3f} ms, plain {plain:.3f} ms, "
+        f"acc.add_ {library:.3f} ms, bound {b:.3f} ms ({by})")
+    return 0.0, dict(ms=kern, plain_ms=plain, library_ms=library, bound_ms=b, bound_by=by)
+
+
+@contextlib.contextmanager
+def routing_weights_detached():
+    """A planted fault: the routes' weights (``top_p``) carry no gradient to
+    the router."""
+    sound = moe.routed
+
+    def faulty(probs, top_i, cfg):
+        top_p, aux = sound(probs, top_i, cfg)
+        return top_p.detach(), aux
+
+    moe.routed = faulty
+    try:
+        yield
+    finally:
+        moe.routed = sound
+
+
+@contextlib.contextmanager
+def aux_dropped():
+    """A planted fault: the router's load-balancing term left out (0, no
+    gradient)."""
+    sound = moe.routed
+
+    def faulty(probs, top_i, cfg):
+        top_p, aux = sound(probs, top_i, cfg)
+        return top_p, torch.zeros_like(aux)
+
+    moe.routed = faulty
+    try:
+        yield
+    finally:
+        moe.routed = sound
+
+
+def aux_recorded(box: list):
+    """Keep the aux loss ``forward_features`` hands ``loss_fn``."""
+
+    def wrap(sound):
+        def spy(*args, **kw):
+            x, aux = sound(*args, **kw)
+            box.append(aux.detach().float().cpu())
+            return x, aux
+        return spy
+
+    return patched(model_lib, "forward_features", wrap)
+
+
+def leaf_group(path: str) -> str:
+    return ("experts" if "/moe/w_" in path else "router" if "/moe/router" in path
+            else "attention" if "/attn/" in path else "other")
+
+
+def moe_parity_tokens(cfg, seed: int) -> torch.Tensor:
+    """18b's tokens: one sequence of PARITY_SEQ from ``seed``."""
+    return torch.from_numpy(np.random.default_rng(seed + 18).integers(
+        0, cfg.vocab_size, (1, PARITY_SEQ)))
+
+
+def moe_parity_run(p, c, dev, tokens, routes: list, pinned=None, plant=contextlib.nullcontext):
+    """One ``loss_fn`` gradient of 18b: ((loss_sum, its CE part, its aux
+    part), the gradient leaves by path); the router's calls recorded into
+    ``routes`` (``router_calls``), or, given ``pinned``, their ids pinned to
+    it and the run's own recorded (``routes_pinned``)."""
+    aux = []
+    grad_fn = make_grad_fn(lambda pp, mb: model_lib.loss_fn(pp, c, mb))
+    route = routes_pinned(pinned, routes) if pinned is not None else router_calls(routes)
+    with plant(), aux_recorded(aux), route:
+        g, ls, ws = grad_fn(model_lib.train_params(p, c), {"tokens": tokens.to(dev)})
+    part = c.router_aux_weight * float(aux[0]) * float(ws)
+    return (float(ls), float(ls) - part, part), dict(named_leaves(g))
+
+
+def leaf_rel_errs(g: dict, want: dict, dev) -> dict:
+    """||g - want|| / ||want|| of each leaf, computed on ``dev``."""
+    return {k: (torch.linalg.vector_norm(g[k].float() - w.to(dev))
+                / torch.linalg.vector_norm(w.to(dev))).item() for k, w in want.items()}
+
+
+def moe_parity_cpu(cfg, seed: int, cpu_params) -> dict:
+    """18b's CPU passes of ``cfg`` (``MOE_TRAIN_LAYERS`` layers, full width)
+    on ``cpu_params`` (the card's bf16 weights as f32): the reference (plain
+    versions, f32 compute) and the control (the same in bf16 compute, its
+    routes pinned to the reference's), without remat (the same sums:
+    ``tests/test_torch_moe_train.py``), a quarter less work.  Returns the
+    reference's losses, leaves and routes, each leaf's control gap and the
+    two passes' seconds."""
+    cpu_cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32", remat=False)
+    ctl_cfg = dataclasses.replace(cpu_cfg, dtype="bfloat16")
+    tokens = moe_parity_tokens(cfg, seed)
+    t0 = time.perf_counter()
+    routes = []
+    loss, grads = moe_parity_run(cpu_params, cpu_cfg, "cpu", tokens, routes)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ctl_g = moe_parity_run(cpu_params, ctl_cfg, "cpu", tokens, [], routes)
+    control = leaf_rel_errs(ctl_g, grads, "cpu")
+    return {"loss": loss, "grads": grads, "routes": routes, "control": control, "t_cpu": t_cpu,
+            "t_ctl": time.perf_counter() - t0}
+
+
+def moe_train_parity(cfg, seed: int, params, cpu: dict) -> dict:
+    """18b: a ``MOE_TRAIN_LAYERS``-layer full-width MoE model on PARITY_SEQ
+    tokens: ``loss_fn``'s loss_sum, its CE and aux parts, and every gradient
+    leaf on the card (kernels, bf16 parameters ``params`` and compute)
+    against the CPU's (``moe_parity_cpu``: plain versions, f32 parameters of
+    the same values, f32 compute), the card's routes pinned to the CPU's
+    (``routes_pinned``: the ids, so the capacity drops and the aux term
+    too; the card's remat backward routes each layer again, in reverse
+    layer order, so it is pinned to the CPU's routes then reversed; the
+    routes it would take otherwise held by ``route_flips`` at
+    ``MOE_MODEL_TIE``).  Phase 10's limits: the loss and each of its parts
+    within PARITY_LOSS_REL_TOL, each leaf within the larger of
+    PARITY_LEAF_REL_TOL and PARITY_CONTROL_FACTOR times the CPU's own bf16
+    gap for it.  Two planted faults must each put a reading over its limit:
+    the routing weights detached (``routing_weights_detached``) and the aux
+    term dropped (``aux_dropped``).  The expert, router and attention leaves
+    are logged apart."""
+    what = f"{cfg.name} train parity"
+    tokens = moe_parity_tokens(cfg, seed)
+    cpu_loss, control = cpu["loss"], cpu["control"]
+    cpu_g = {k: v.to(DEV) for k, v in cpu["grads"].items()}  # moved once for the three runs
+    pinned = cpu["routes"] + cpu["routes"][::-1] if cfg.remat else cpu["routes"]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    before = ops.launch_counts()
+    own = []
+    card_loss, card_g = moe_parity_run(params, cfg, DEV, tokens, own, pinned)
+    after = ops.launch_counts()
+    errs = leaf_rel_errs(card_g, cpu_g, DEV)
+    del card_g
+    limit = {k: max(PARITY_LEAF_REL_TOL, PARITY_CONTROL_FACTOR * control[k]) for k in errs}
+    sound_routes(own, pinned, MOE_MODEL_TIE, what)
+    loss_errs = [rel(a, b) for a, b in zip(card_loss, cpu_loss)]
+    parts = ("loss_sum", "its CE part", "its aux part")
+    log(f"{what}: {cfg.n_layers} layer, full width, tokens {tuple(tokens.shape)}: "
+        + ", ".join(f"{n} card {a:.4f} / cpu {b:.4f} (rel {e:.2e})"
+                    for n, a, b, e in zip(parts, card_loss, cpu_loss, loss_errs))
+        + f" (limit {PARITY_LOSS_REL_TOL}); the CPU f32 pass took {cpu['t_cpu']:.1f} s, its "
+        f"bf16 control {cpu['t_ctl']:.1f} s (in a process beside the card's work); launches " + ", ".join(
+            f"{k} {after[k] - before[k]}" for k in ("flash_attention", "flash_attention_bwd",
+                                                    "rmsnorm", "rmsnorm_bwd")))
+    for group in ("experts", "router", "attention", "other"):
+        log(f"{what} {group} leaves ||g_card - g_cpu|| / ||g_cpu|| (CPU bf16 control; limit): "
+            + ", ".join(f"{k} {e:.2e} ({control[k]:.2e}; {limit[k]:.2e})"
+                        for k, e in errs.items() if leaf_group(k) == group))
+    check(after["flash_attention_bwd"] - before["flash_attention_bwd"] == cfg.n_layers,
+          f"{what}: the card run did not go through K3's backward once a layer")
+    check(math.isfinite(card_loss[0]) and all(math.isfinite(e) for e in errs.values()),
+          f"{what}: non-finite card result")
+    check(max(loss_errs) <= PARITY_LOSS_REL_TOL, f"{what}: loss relative differences "
+                                                 f"{dict(zip(parts, loss_errs))}")
+    over = {k: e for k, e in errs.items() if e > limit[k]}
+    check(not over, f"{what}: leaves over their limits {over}")
+    for fault, plant in (("routing weights detached", routing_weights_detached),
+                         ("aux term dropped", aux_dropped)):
+        bad_loss, bad_g = moe_parity_run(params, cfg, DEV, tokens, [], pinned, plant)
+        bad = leaf_rel_errs(bad_g, cpu_g, DEV)
+        del bad_g
+        bad_loss_errs = [rel(a, b) for a, b in zip(bad_loss, cpu_loss)]
+        caught = {k: e for k, e in bad.items() if e > limit[k]}
+        caught.update({n: e for n, e in zip(parts, bad_loss_errs) if e > PARITY_LOSS_REL_TOL})
+        log(f"{what} planted fault ({fault}): " + ", ".join(
+            f"{n} rel {e:.2e}" for n, e in zip(parts, bad_loss_errs)) + "; router leaves "
+            + ", ".join(f"{k} {e:.2e}" for k, e in bad.items() if leaf_group(k) == "router")
+            + f"; over their limits: {sorted(caught)}")
+        check(bool(caught), f"{what}: the limits let a planted fault ({fault}) pass")
+    return {"loss": loss_errs, "leaves": errs}
+
+
+def routes_recorded(record: list):
+    """Keep each router call's ids (``moe.route_ids``; eager runs only)."""
+
+    def wrap(sound):
+        def spy(probs, k):
+            ids = sound(probs, k)
+            record.append(ids.detach().clone())
+            return ids
+        return spy
+
+    return patched(moe, "route_ids", wrap)
+
+
+def sort_drops(cfg, record: list) -> list:
+    """Each recorded sort-dispatch call's dropped routes: per expert, the
+    choices past the capacity ``max(int(t k / E cf), 1)`` of its t tokens
+    (one segment: t is at most ``moe._SEGMENT_TOKENS`` here)."""
+    out = []
+    for ids in record:
+        t = ids.shape[0]
+        cap = max(int(t * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)
+        counts = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts).cpu().numpy()
+        out.append(int(np.maximum(counts - cap, 0).sum()))
+    return out
+
+
+def moe_cpu_passes(jobs, out, done, device: str = DEV) -> None:
+    """18b's CPU passes in a process of their own (``MoeCpuPasses``; the
+    card runs the smoke's other work meanwhile): each model's
+    weights drawn on ``device`` from its seed (the values the main process
+    draws again for its card run), kept on the CPU, then in f32 through
+    ``moe_parity_cpu``; each result, or the traceback of a failure, is put
+    on ``out`` as (name, result).  The process waits for ``done`` before it
+    ends: the receiver maps the results' tensors from it."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 3) - 2))  # two cores for the card's host work
+    try:
+        drawn = [(name, cfg, seed, tree_map(lambda x: x.cpu(),
+                                            init_params(cfg, seed=seed, device=device)))
+                 for name, cfg, seed in jobs]
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        while drawn:
+            name, cfg, seed, params = drawn.pop(0)
+            out.put((name, moe_parity_cpu(cfg, seed, tree_map(lambda x: x.float(), params))))
+            del params
+    except BaseException:  # noqa: BLE001 - handed to the main process
+        out.put(("error", traceback.format_exc()))
+    done.wait()
+
+
+def moe_cpu_result(proc, results, timeout_s: float = 600.0):
+    """The next (name, result) of ``moe_cpu_passes``; fails on its error,
+    or when its process ends or ``timeout_s`` passes without one."""
+    end = time.monotonic() + timeout_s
+    while True:
+        try:
+            name, res = results.get(timeout=5.0)
+        except queue.Empty:
+            check(proc.is_alive(), f"18b: the CPU passes' process ended (exit code "
+                                   f"{proc.exitcode}) without a result")
+            check(time.monotonic() < end, f"18b: no CPU pass result within {timeout_s} s")
+            continue
+        check(name != "error", f"18b: the CPU passes failed:\n{res}")
+        return name, res
+
+
+class MoeCpuPasses:
+    """18b's CPU passes (``moe_cpu_passes``) in a spawned, daemonic process
+    (the interpreter's exit stops it if a phase fails): the smoke starts it
+    after phase 3, so that its CPU work runs beside the card's work of the
+    phases between, and phase 18 reads each model's result
+    (``result``)."""
+
+    def __init__(self, seed: int):
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.cfgs = {name: moe_config(name, MOE_TRAIN_LAYERS) for name in MOE}
+        self.results, self.done = ctx.Queue(), ctx.Event()
+        self.proc = ctx.Process(target=moe_cpu_passes, daemon=True, args=(
+            [(n, c, seed) for n, c in self.cfgs.items()], self.results, self.done))
+        self.proc.start()
+
+    def result(self):
+        return moe_cpu_result(self.proc, self.results)
+
+    def close(self) -> None:
+        self.done.set()
+        self.proc.join(60)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+
+
+def moe_train_phase(seed: int, rng, cpu_passes: MoeCpuPasses) -> dict:
+    """Phase 18, training the MoE family: 18a K3 at its four new training
+    pairs (``k3_pair_checks``, ``k3_pair_timing``), K2's backward at
+    mixtral's 8,192 x 6,144 and qwen3-moe's 4,096 x 4,096, K1's bf16 form
+    on an 805 M-element expert leaf; 18c each model at full width,
+    ``MOE_TRAIN_LAYERS`` layer, through ``repro_torch.train.train``
+    (``full_train_phase``); 18b per model the 1-layer card-vs-CPU gradient
+    check (``moe_train_parity``) against ``cpu_passes``' results, which it
+    then stops.  Returns the readings, records and the graphed runs'
+    launches."""
+    out = {"k3": {}, "k2b": {}, "counts": {}}
+    cfgs = cpu_passes.cfgs
+    try:
+        for pair in K3_PAIRS:
+            out["k3"][pair] = (k3_pair_checks(rng, pair), k3_pair_timing(rng, pair))
+            free_device()
+        for d, rows in ((6144, MOE_TRAIN_SEQ["mixtral_8x22b"]),
+                        (4096, MOE_TRAIN_SEQ["qwen3_moe_235b_a22b"])):
+            out["k2b"][d] = k2_bwd_checks_and_timing(rng, d=d, rows=rows)
+            free_device()
+        out["k1"] = k1_bf16_checks_and_timing(rng)
+        free_device()
+        for name, cfg in cfgs.items():
+            log(f"{cfg.name}: {cfg.n_layers} of {get_config(name).n_layers} layers, full width, "
+                f"{cfg.param_count() / 1e9:.3f} B parameters in bf16; the sort dispatch at cf "
+                f"{cfg.capacity_factor}")
+            out["counts"][name] = full_train_phase(cfg, seed, f"{cfg.name} train", 1,
+                                                   MOE_TRAIN_SEQ[name])
+            free_device()
+        for _ in cfgs:
+            t0 = time.perf_counter()
+            name, cpu = cpu_passes.result()
+            log(f"18b: {name}'s CPU passes in; waited {time.perf_counter() - t0:.1f} s for them")
+            moe_train_parity(cfgs[name], seed, init_params(cfgs[name], seed=seed, device=DEV),
+                             cpu)
+            del cpu
+            free_device()
+    finally:
+        cpu_passes.close()
+    return out
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -5793,6 +6365,9 @@ def main() -> int:
                                            dims=zoo_dims(zcfg["starcoder2_7b"]))}
     free_device()
     phase_done("3")
+    # 18b's CPU passes from here on, in a process of their own beside the
+    # card's work (read in phase 18)
+    moe_cpu = MoeCpuPasses(args.seed)
 
     # 4. serving at full width
     t0 = time.perf_counter()
@@ -5813,24 +6388,25 @@ def main() -> int:
     free_device()
     phase_done("5")
 
-    # 6. training at full depth, then the 2-layer card-vs-CPU parity
-    train_counts, train_graphed = train_phase(cfg, args.seed)
+    # 6. training at QWEN_TRAIN_LAYERS, then the 2-layer card-vs-CPU parity
+    qcfg = dataclasses.replace(cfg, n_layers=QWEN_TRAIN_LAYERS)
+    train_counts, train_graphed = train_phase(qcfg, args.seed)
     free_device()
-    grad_phase(cfg, args.seed)
+    grad_phase(qcfg, args.seed)
     free_device()
     parity_phase(cfg, args.seed)
     free_device()
     phase_done("6")
 
-    # 7. Local-SGD at full depth, then the 2-layer card-vs-CPU check; then
+    # 7. Local-SGD at QWEN_TRAIN_LAYERS, then the 1-layer card-vs-CPU check; then
     # mamba2-130m through the same path (K6's backward in the local steps)
-    localsgd_counts, _, keep = localsgd_phase(cfg, args.seed)
+    localsgd_counts, _, keep = localsgd_phase(qcfg, args.seed)
     free_device()
     localsgd_parity(cfg, args.seed, keep)
     free_device()
     mcfg = get_config("mamba2_130m")
     m_localsgd_counts, _, _ = localsgd_phase(
-        dataclasses.replace(mcfg, n_layers=M_LSGD_LAYERS), args.seed)
+        dataclasses.replace(mcfg, n_layers=M_LAYERS), args.seed)
     free_device()
     phase_done("7")
 
@@ -5839,22 +6415,22 @@ def main() -> int:
     free_device()
     phase_done("8")
 
-    # 9. data parallel: one NCCL rank at full depth, then two gloo ranks
-    dp_counts = dp_nccl_phase(cfg, args.seed, train_graphed)
+    # 9. data parallel: one NCCL rank (6's run), then two gloo ranks
+    dp_counts = dp_nccl_phase(qcfg, args.seed, train_graphed)
     del train_graphed
     free_device()
     dp_gloo_phase(cfg, args.seed)
     free_device()
-    dp_gloo_phase(mcfg, args.seed, layers=M_DP_LAYERS, pool_gib=M_DP_POOL_GIB)
+    dp_gloo_phase(mcfg, args.seed, layers=M_LAYERS, pool_gib=M_DP_POOL_GIB)
     free_device()
     phase_done("9")
 
-    # 10. Mamba-2 training at full depth, its step-0 gradient, then the 2-layer
+    # 10. Mamba-2 training at M_LAYERS, its step-0 gradient, then the 2-layer
     # card-vs-CPU gradient parity
-    mamba_train_counts = full_train_phase(get_config("mamba2_130m"), args.seed, "mamba train",
-                                          M_TRAIN_SEQS)
+    mamba_train_counts = full_train_phase(dataclasses.replace(mcfg, n_layers=M_LAYERS),
+                                          args.seed, "mamba train", M_TRAIN_SEQS)
     free_device()
-    grad_phase(get_config("mamba2_130m"), args.seed, seqs=M_TRAIN_SEQS)
+    grad_phase(dataclasses.replace(mcfg, n_layers=M_LAYERS), args.seed, seqs=M_TRAIN_SEQS)
     free_device()
     mamba_train_parity(args.seed)
     free_device()
@@ -5921,12 +6497,24 @@ def main() -> int:
     phase_done("16")
 
     # 17. the MoE family: K4's (128, 6) and (128, 16) builds and K2 at d 6144
-    # and 4096 (17a), then per model the 2-layer card-vs-CPU check (17c) and
-    # the model at 12 layers, full width, in both dispatches (17b)
+    # and 4096 (17a), then per model the 1-layer card-vs-CPU check (17c) and
+    # the model at MOE_LAYERS layers, full width, in both dispatches (17b)
     p17 = moe_phase(args.seed, np.random.default_rng(args.seed + 17))
     moe_counts = p17["counts"]
     free_device()
     phase_done("17")
+
+    # 18. training the MoE family: K3 at its four new training pairs, K2's
+    # backward at d 6144 and 4096, K1's bf16 form (18a); per model the 1-layer
+    # card-vs-CPU gradient check (18b) and the model at full width, 1 layer,
+    # through DropCompute (18c)
+    p18 = moe_train_phase(args.seed, np.random.default_rng(args.seed + 18), moe_cpu)
+    moe_train = p18["counts"]
+    for n, c in moe_train.items():
+        check(c["flash_attention"] > 0 and c["flash_attention_bwd"] > 0 and c["rmsnorm_bwd"] > 0
+              and c["masked_accum"] > 0, f"{n} train: kernels not run: {c}")
+    free_device()
+    phase_done("18")
 
     # K3's (128, 8) records keep the earlier paths' launches; the (64, 1)
     # build's records take phase 11's, the (256, 10) build's phase 13's; K4's
@@ -5939,8 +6527,12 @@ def main() -> int:
     # (128, 16) build's qwen3-moe-235b-a22b's
     zoo = {k: sum(c[k] for c in zoo_counts.values()) + fe_counts[k]
            + sum(c[k] for c in moe_counts.values()) for k in fe_counts}
+    # K3's (128, 6) and (128, 16) pairs' records take phase 18c's MoE training
+    # launches, K1's bf16 form's record its accumulator's; K2 takes them too
+    moe_k2 = {k: sum(c[k] for c in moe_train.values()) if k in ("rmsnorm", "rmsnorm_bwd") else 0
+              for k in serve_counts}
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
-                + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k]
+                + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k] + moe_k2[k]
                 + (0 if k in k3_own else bert_counts[k] + rg_train_counts[k])
                 + (0 if k == "paged_attention" else rg_counts[k] + p14_rg[k] + zoo[k])
                 + p14_qwen[k] + p14_mamba[k]
@@ -6023,10 +6615,22 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:91",
              launches=rg_train_counts["flash_attention_bwd"], max_abs_err=k3r_bwd_err,
              **k3r_t[1]),
+        *[dict(name=f"{kind}_d128_g{g}", route="cuda",
+               source="src/repro_torch/kernels/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:91",
+               launches=moe_train[n][kind], max_abs_err=p18["k3"][128, g][0][i],
+               **p18["k3"][128, g][1][i])
+          for g, n in ((6, "mixtral_8x22b"), (16, "qwen3_moe_235b_a22b"))
+          for i, kind in enumerate(("flash_attention", "flash_attention_bwd"))],
         dict(name="masked_accum", route="triton",
              source="src/repro_torch/kernels/masked_accum.py",
              replaces="src/repro/kernels/masked_accum.py:33",
              launches=launches["masked_accum"], max_abs_err=k1_err, **k1_t),
+        dict(name="masked_accum_bf16", route="triton",
+             source="src/repro_torch/kernels/masked_accum.py",
+             replaces="src/repro/kernels/masked_accum.py:33",
+             launches=sum(c["masked_accum"] for c in moe_train.values()),
+             max_abs_err=p18["k1"][0], **p18["k1"][1]),
         dict(name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_chunk.py:104",
              launches=launches["ssd_chunk"], max_abs_err=k6_err, **k6_t["serve"],
@@ -6044,13 +6648,19 @@ def main() -> int:
     log(f"K2 bwd at d 2560 (8,192 rows): max abs err {k2b2560_err:.3e}, {k2b2560_t}")
     for d, (err, t) in p17["k2"].items():
         log(f"K2 fwd at d {d} (17a): max abs err {err:.3e}, {t}")
+    for d, (err, t) in p18["k2b"].items():
+        log(f"K2 bwd at d {d} (18a): max abs err {err:.3e}, {t}")
+    for (d, g), ((fe, be), (ft, bt)) in p18["k3"].items():
+        log(f"K3 ({d}, {g}) (18a, {K3_PAIRS[d, g][0]}'s shape): max abs err fwd {fe:.3e}, bwd "
+            f"{be:.3e}; fwd {ft}; bwd {bt}")
     log(f"launches, qwen serving: {serve_counts}; mamba serving: {mamba_counts}; "
         f"training: {train_counts}; Local-SGD: {localsgd_counts}; Mamba-2 Local-SGD: "
         f"{m_localsgd_counts}; data parallel (9a): {dp_counts}; Mamba-2 training: "
         f"{mamba_train_counts}; BERT training (11c, 11d): {bert_counts}; recurrentgemma "
         f"serving (12c): {rg_counts}; recurrentgemma training (13c): {rg_train_counts}; phase "
         f"14: qwen {p14_qwen}, recurrentgemma {p14_rg}, mamba {p14_mamba}; dense zoo (15): "
-        f"{zoo_counts}; front-end (16): {fe_counts}; MoE serving (17): {moe_counts}")
+        f"{zoo_counts}; front-end (16): {fe_counts}; MoE serving (17): {moe_counts}; MoE "
+        f"training (18c): {moe_train}")
     for n, t in k4_zoo_t.items():
         log(f"K4 at {n}'s steps: " + "; ".join(
             f"{shape} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.2f}, plain "

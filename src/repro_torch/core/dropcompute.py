@@ -8,9 +8,13 @@ are kept; only the batch size becomes stochastic.
 The reference scans over micro-batches under ``lax.cond`` (a dropped
 micro-batch runs the zero branch).  The port decides on the host: a
 dropped micro-batch is skipped, so it costs nothing, and each kept one's
-gradients are added into an f32 accumulator by the masked-accumulate
-kernel (``kernels.ops.masked_accum``, K1).  Adding the reference's zeros
-for a dropped micro-batch changes no bit, so both give the same sums.
+gradients are added into the accumulator by the masked-accumulate kernel
+(``kernels.ops.masked_accum``, K1).  Adding the reference's zeros for a
+dropped micro-batch changes no bit, so both give the same sums.  The
+accumulator is f32, or takes each leaf's dtype from the tree the caller
+names: the reference sums in the parameters' dtype (``g0 =
+jax.tree.map(jnp.zeros_like, params)``), so bf16 master parameters (the
+MoE models') get bf16 sums, one rounding a kept micro-batch.
 
 The accumulator is an :class:`Accumulator`: allocated once and zeroed in
 place each step, with its micro-batch step (forward, backward, the K1
@@ -29,7 +33,7 @@ import torch
 
 from ..graphs import StepGraph
 from ..kernels import ops as kernel_ops
-from ..models.transformer import tree_leaves, tree_map
+from ..models.transformer import tree_leaves, tree_unflatten
 
 Tree = Any
 
@@ -147,8 +151,8 @@ def elapsed_s(marks) -> list:
 
 
 def add_microbatch(grad_fn, params: Tree, mb: dict, acc_leaves: list):
-    """One kept micro-batch: its gradients added into the f32 accumulator
-    leaves by K1 (``kernels.ops.masked_accum``); returns its (loss_sum,
+    """One kept micro-batch: its gradients added into the accumulator leaves
+    by K1 (``kernels.ops.masked_accum``); returns its (loss_sum,
     weight_sum)."""
     g, loss_sum, w_sum = grad_fn(params, mb)
     for a, gl in zip(acc_leaves, tree_leaves(g)):
@@ -157,9 +161,12 @@ def add_microbatch(grad_fn, params: Tree, mb: dict, acc_leaves: list):
 
 
 class Accumulator:
-    """The f32 gradient accumulator of ``params`` (a tree shaped like them,
+    """The gradient accumulator of ``params`` (a tree shaped like them,
     ``tree``), allocated once and zeroed in place each step, and the step
-    that adds one kept micro-batch into it (``add_microbatch``).  On the
+    that adds one kept micro-batch into it (``add_microbatch``).  Its
+    leaves are f32, or of ``dtypes`` (one a leaf, in ``tree_leaves``
+    order: the master parameters' dtypes where ``params`` is their compute
+    copy).  On the
     card that step runs as one CUDA graph per micro-batch shape (its
     forward, backward and K1 adds over ``params`` and the accumulator at
     fixed addresses; the micro-batch's tensors copied into static
@@ -167,11 +174,13 @@ class Accumulator:
     replaced.  Its (loss_sum, weight_sum) outputs are overwritten by the
     next ``add``: read or add them before it."""
 
-    def __init__(self, grad_fn, params: Tree):
+    def __init__(self, grad_fn, params: Tree, dtypes=None):
         self.params = params
-        dev = tree_leaves(params)[0].device
-        self.tree = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev),
-                             params)
+        leaves = tree_leaves(params)
+        dev = leaves[0].device
+        dtypes = dtypes or [torch.float32] * len(leaves)
+        self.tree = tree_unflatten(params, [torch.zeros(p.shape, dtype=dt, device=dev)
+                                            for p, dt in zip(leaves, dtypes)])
         self.leaves = tree_leaves(self.tree)
         self._grad_fn = grad_fn
         self._names: list = []  # the micro-batch's keys, set by ``add``
@@ -224,17 +233,21 @@ def sum_kept(acc: Accumulator, microbatches: dict, keep: np.ndarray):
     return loss_sum, w_sum, marks
 
 
+def grad_denom(w_sum: torch.Tensor, kept, m: int, normalize: str) -> torch.Tensor:
+    """Algorithm 1's denominator: the computed weight ("computed"), or the
+    weight the full ``m`` micro-batches would have had ("nominal");
+    ``kept`` (the kept micro-batches' count) is a number or a tensor."""
+    if normalize == "computed":
+        return torch.clamp(w_sum, min=1.0)
+    kept_t = torch.as_tensor(kept, dtype=torch.float32, device=w_sum.device)
+    return torch.clamp(w_sum / torch.clamp(kept_t, min=1.0) * m, min=1.0)
+
+
 def normalize_grads(acc_leaves: list, w_sum: torch.Tensor, kept, m: int,
                     normalize: str) -> torch.Tensor:
-    """Divide the summed gradients in place by Algorithm 1's denominator
-    and return it: the computed weight ("computed"), or the weight the
-    full ``m`` micro-batches would have had ("nominal"); ``kept`` (the
-    kept micro-batches' count) is a number or a tensor."""
-    if normalize == "computed":
-        denom = torch.clamp(w_sum, min=1.0)
-    else:
-        kept_t = torch.as_tensor(kept, dtype=torch.float32, device=w_sum.device)
-        denom = torch.clamp(w_sum / torch.clamp(kept_t, min=1.0) * m, min=1.0)
+    """Divide the summed gradients in place by ``grad_denom`` and return
+    it."""
+    denom = grad_denom(w_sum, kept, m, normalize)
     for a in acc_leaves:
         a.div_(denom)
     return denom

@@ -338,7 +338,15 @@ paged_flash_attention.launches = 0
 #: (head dim, H / KV) the training source is built and held for: its
 #: kernels are templates on the head dim (64, 128 and 256 instantiated) and
 #: take any group; these are the configs the port trains
-TRAINED = {(128, 8), (64, 1), (256, 10)}  # qwen2.5-3b; the BERT models; recurrentgemma-2b
+TRAINED = {
+    (128, 8),  # qwen2.5-3b
+    (64, 1),  # the BERT models
+    (256, 10),  # recurrentgemma-2b
+    (128, 6),  # mixtral-8x22b
+    (128, 16),  # qwen3-moe-235b-a22b
+    (128, 2),  # internlm2-1.8b, gemma3-27b
+    (128, 9),  # starcoder2-7b
+}
 _LL = ctypes.c_longlong
 #: tile sizes of ``flash_attention.cu``: a forward / dQ CTA takes 128 query
 #: rows (two warpgroups of 64) and walks 64-key steps; a dK/dV CTA takes 64

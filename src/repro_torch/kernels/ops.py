@@ -174,7 +174,7 @@ def flash_attention(q, k, v, causal=True, window=0, q_segment_ids=None, kv_segme
 
 
 def masked_accum(acc, grad, keep=1.0, scale=1.0):
-    """``acc += keep * scale * grad`` in place on the f32 accumulator (K1):
+    """``acc += keep * scale * grad`` in place on the f32 or bf16 accumulator (K1):
     the Triton kernel on the card, ``ref.masked_accum_ref`` on the CPU.
     ``keep`` and ``scale`` are host floats.  Returns ``acc``."""
     if _device_type(acc) == "cuda":

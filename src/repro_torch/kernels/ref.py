@@ -248,10 +248,13 @@ def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
 
 def masked_accum_ref(acc: torch.Tensor, grad: torch.Tensor, keep: float,
                      scale: float = 1.0) -> torch.Tensor:
-    """acc + keep * scale * grad in f32 (``repro.kernels.ref.masked_accum_ref``):
-    the coefficient keep * scale is formed in f32 first, as JAX does."""
+    """acc + keep * scale * grad (``repro.kernels.ref.masked_accum_ref``): the
+    coefficient keep * scale formed in f32 first, as JAX does; the grad
+    rounded to the accumulator's dtype, the sum taken in f32 and rounded to
+    it (a bf16 accumulator: ``a + g.astype(a.dtype)`` of two bf16 arrays in
+    XLA; f32: no rounding)."""
     coef = float(np.float32(keep) * np.float32(scale))
-    return acc + coef * grad.float()
+    return (acc.float() + coef * grad.to(acc.dtype).float()).to(acc.dtype)
 
 
 # ---------------------------------------------------------------------------

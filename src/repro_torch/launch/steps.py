@@ -16,14 +16,23 @@ pjit.  Here each rank is a process holding ``W / R`` of the ``W`` workers
 2. its kept (worker, micro-batch) blocks of the global batch, rows
    ``(w·M + j)·mbw`` on as in the reference's ``to_micro``, through the
    ``core.Accumulator`` (on the card one CUDA-graph replay each; K1 adds
-   into the f32 accumulator); a dropped block is skipped where the
+   into the accumulator, of ``accum_dtype``: f32 by default, as the
+   reference's; the trainer asks for the master parameters' dtype, as its
+   ``accumulate_grads`` sums); a dropped block is skipped where the
    reference weighs it by 0, which gives the same sums;
 3. one sum All-Reduce of the accumulator's leaves and of the 3-float
    ``[loss_sum, w_sum, kept]``, outside the graphs (in place on the
    accumulator, whose leaves keep their addresses); a rank that keeps
    nothing joins it with zeros;
 4. normalisation by the global sums (the reference's ``:209-214``), clip,
-   and the optimizer step on the rank's replica, in place.
+   and the optimizer step on the rank's replica, in place: the sums are
+   read in f32 a slice at a time inside the optimizer step, as the
+   reference's f32 quotient ``g / denom`` (for bf16 sums, a bf16 sum over
+   an f32 denominator), times the clip factor, so no normalised tree is
+   written.
+
+``moe_impl`` is the MoE layers' dispatch in the loss, ``state_dtype`` the
+AdamW moments' dtype (``steps.py:127-129``).
 
 No ``DistributedDataParallel``: its reducer fires inside every backward,
 inside every captured micro-batch graph, and the reference too reduces
@@ -36,8 +45,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..core.dropcompute import (Accumulator, DropConfig, _mark, drop_mask, normalize_grads,
-                                sum_kept)
+from ..core.dropcompute import Accumulator, DropConfig, _mark, drop_mask, grad_denom, sum_kept
 from ..core.engine import make_grad_fn
 from ..models.config import InputShape, ModelConfig
 from ..graphs import StepGraph
@@ -45,26 +53,30 @@ from ..models import layers as L
 from ..models.model import (_cache_parts, decode_plans, decode_step, forward_features,
                             loss_fn, params_device, train_params)
 from ..models.transformer import tree_leaves
-from ..optim import clip_by_global_norm, make as make_opt
+from ..optim import clip_scale, global_norm, make as make_opt
 
 Tree = Any
 
 
 class TrainStep:
     """One rank's step, ``step(params, opt_state, batch, latencies) ->
-    (params, opt_state, metrics)``: ``params`` (the f32 master tree) and
+    (params, opt_state, metrics)``: ``params`` (the master tree) and
     ``opt_state`` are updated in place and returned; ``batch`` is the global
     batch (``tokens``, ``weights``: (B, S) numpy arrays or tensors) and
     ``latencies`` the (W, M) draw.  ``drop`` may be replaced between calls
     (a new tau needs no capture).  The compute copy and the accumulator are
-    made at the first call and kept: later calls refill them in place."""
+    made at the first call and kept: later calls refill them in place.
+    The accumulator's leaves are ``accum_dtype``, or the master leaves'
+    dtypes when it is None."""
 
     def __init__(self, cfg: ModelConfig, drop: DropConfig, n_workers: int, m: int, mbw: int,
-                 opt, clip_norm: float, dist=None):
+                 opt, clip_norm: float, dist=None, moe_impl: str = "sort",
+                 accum_dtype: Optional[torch.dtype] = torch.float32):
         self.cfg, self.drop, self.opt, self.clip_norm, self.dist = cfg, drop, opt, clip_norm, dist
         self.n_workers, self.m, self.mbw = n_workers, m, mbw
+        self.accum_dtype = accum_dtype
         self.workers = dist.workers_of(dist.rank, n_workers) if dist else range(n_workers)
-        self.grad_fn = make_grad_fn(lambda p, mb: loss_fn(p, cfg, mb))
+        self.grad_fn = make_grad_fn(lambda p, mb: loss_fn(p, cfg, mb, moe_impl=moe_impl))
         self.compute: Optional[Tree] = None
         self.accumulator: Optional[Accumulator] = None
         self._params = None
@@ -86,7 +98,9 @@ class TrainStep:
         own = mask[self.workers.start:self.workers.stop].reshape(-1)
         if self._params is not params:
             self.compute = train_params(params, self.cfg)
-            self.accumulator = Accumulator(self.grad_fn, self.compute)
+            masters = tree_leaves(params)
+            self.accumulator = Accumulator(self.grad_fn, self.compute, [
+                self.accum_dtype or p.dtype for p in masters])
             self._params = params
         else:
             train_params(params, self.cfg, out=self.compute)
@@ -102,11 +116,11 @@ class TrainStep:
         allreduce_marks = [(start, _mark(dev))]
         loss_sum, w_sum, kept = sums.unbind()
 
-        normalize_grads(acc.leaves, w_sum, kept, w * m, self.drop.normalize)
-        grads = acc.tree
-        if self.clip_norm > 0:
-            grads = clip_by_global_norm(grads, self.clip_norm)
-        opt_state = self.opt.step(grads, opt_state, params)
+        denom = grad_denom(w_sum, kept, w * m, self.drop.normalize)
+        scale = (clip_scale(global_norm(acc.tree) / denom, self.clip_norm)
+                 if self.clip_norm > 0 else None)
+        opt_state = self.opt.step(acc.tree, opt_state, params,
+                                  prep=lambda g: _normalized(g, denom, scale))
         metrics = {
             "loss": loss_sum / torch.clamp(w_sum, min=1.0),
             # tensor by tensor: true division, the reference's f32 quotient (by
@@ -120,25 +134,40 @@ class TrainStep:
         return params, opt_state, metrics
 
 
+def _normalized(g: torch.Tensor, denom: torch.Tensor, scale: Optional[torch.Tensor]):
+    """A gradient sum's values in f32 over the denominator, times the clip
+    factor ``scale`` (None: no clipping)."""
+    g = g.float() / denom
+    return g if scale is None else g * scale
+
+
 def make_train_step(cfg: ModelConfig, shape: InputShape, drop: DropConfig,
                     n_workers: Optional[int] = None, dist=None, optimizer: str = "adamw",
                     lr: float = 1e-4, clip_norm: float = 1.0,
-                    weight_decay: Optional[float] = None):
+                    weight_decay: Optional[float] = None, moe_impl: str = "sort",
+                    state_dtype: torch.dtype = torch.float32,
+                    accum_dtype: Optional[torch.dtype] = torch.float32):
     """Returns (opt, step) for this rank (``TrainStep``).  ``n_workers`` (W)
     may be given or taken from ``dist`` (a ``dist.Distribution``, one worker
     a rank); without ``dist`` the step computes all W workers and issues no
-    collective.  Use ``dist.train_step(...)`` for the step in a bundle."""
+    collective.  ``moe_impl``, ``state_dtype`` (AdamW's moments) and
+    ``accum_dtype`` (the gradient sums; None: the master parameters')
+    as the reference's (``steps.py:119-160``).  Use ``dist.train_step(...)``
+    for the step in a bundle."""
     if n_workers is None:
         if dist is None:
             raise TypeError("make_train_step needs n_workers= or dist=")
         n_workers = dist.dp_size
-    opt = make_opt(optimizer, lr, **({} if weight_decay is None else
-                                     {"weight_decay": weight_decay}))
+    opt_kw = {} if weight_decay is None else {"weight_decay": weight_decay}
+    if optimizer == "adamw":
+        opt_kw["state_dtype"] = state_dtype
+    opt = make_opt(optimizer, lr, **opt_kw)
     m, b = shape.microbatches, shape.global_batch
     if b % (n_workers * m):
         raise ValueError(f"global batch {b} must divide into {n_workers} workers x {m} "
                          f"microbatches")
-    return opt, TrainStep(cfg, drop, n_workers, m, b // (n_workers * m), opt, clip_norm, dist)
+    return opt, TrainStep(cfg, drop, n_workers, m, b // (n_workers * m), opt, clip_norm, dist,
+                          moe_impl=moe_impl, accum_dtype=accum_dtype)
 
 
 # ---------------------------------------------------------------------------

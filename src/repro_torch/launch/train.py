@@ -27,11 +27,16 @@ DropCompute trainer, and runs on one device: CUDA unless ``--device cpu``.
 from one (parameters, optimizer state and the adapted tau-controller
 state), as the reference's launcher does.  A config that the training
 kernels are not built for is refused on CUDA before any work: attention
-other than head dim 128, group 8, head dim 64, group 1 or head dim 256,
-group 10, in bf16 (qwen's smoke config is f32 with head dim 32, the BERT
+at a (head dim, group) outside ``kernels.flash_attention.TRAINED`` or not
+in bf16 (qwen's smoke config is f32 with head dim 32, the BERT and MoE
 smoke configs f32 with head dim 32, recurrentgemma's f32 with head dim 64,
 group 2), or SSD layers other than state 128, head dim 64 (mamba's smoke
-config has state 16, head dim 32); run those with ``--device cpu``.
+config has state 16, head dim 32); run those with ``--device cpu``.  The
+MoE models train in the sort dispatch with their router's aux loss:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \
+        --steps 3 --seq 32 --batch 8 --workers 2 --microbatches 2 \
+        --drop-compute --tau 0.6 --device cpu  # smoke config
 
 ``--mesh N`` trains data-parallel on N ranks (``repro_torch.dist``): under
 ``torchrun`` each process joins the group it made; run alone, the launcher

@@ -20,12 +20,12 @@ per-token loss weights.  The port trains and serves decoder-only stacks of
 'G'/'L' attention, 'R' (RG-LRU) and 'M' (Mamba-2) layers, and trains encoder
 stacks of 'B' (bidirectional) blocks, the paper's BERT models, which have
 no decode shapes and so are never served.  'G'/'L' blocks with experts
-(``n_experts > 0``, ``models.moe``) are initialised, run forward and served
-(dispatch ``moe_impl``: ``"sort"`` by default for ``forward``, ``"dense"``
-for the serving steps, ``"capacity"`` for the engine's capacity factor),
-but not trained yet; other families raise ``UnsupportedPatternError``.  On
-the card, training refuses shapes its kernels are not built for
-(``require_trainable``).
+(``n_experts > 0``, ``models.moe``) are trained and served (dispatch
+``moe_impl``: ``"sort"`` by default for ``forward`` and ``loss_fn``, whose
+loss adds the router's load-balancing term, ``"dense"`` for the serving
+steps, ``"capacity"`` for the engine's capacity factor); other families
+raise ``UnsupportedPatternError``.  On the card, training refuses shapes
+its kernels are not built for (``require_trainable``).
 
 Parameters are nested dicts with the reference's path names and shapes
 (``models.convert.params_from_jax`` maps a JAX tree onto them).  Caches are
@@ -57,8 +57,8 @@ class UnsupportedPatternError(NotImplementedError):
 
     Typed (and raised unconditionally, not ``assert``-ed) so callers can
     catch it.  The port serves and trains decoder-only 'G'/'L'/'R'/'M'
-    stacks, serves MoE stacks and trains 'B' encoder stacks; serving a 'B'
-    stack, training an MoE stack, enc-dec and VLM models raise it."""
+    stacks, with or without experts, and trains 'B' encoder stacks; serving
+    a 'B' stack, enc-dec and VLM models raise it."""
 
 
 def _require_family(cfg: ModelConfig, what: str) -> None:
@@ -70,15 +70,6 @@ def _require_family(cfg: ModelConfig, what: str) -> None:
 
 #: the decoder layer kinds the port builds and serves
 _DECODER = {"G", "L", "R", "M"}
-
-
-def _require_no_router(cfg: ModelConfig, what: str) -> None:
-    """MoE training (the router's aux term under DropCompute, K3 at the MoE
-    models' (head dim, group)) is the next slice of the port."""
-    if cfg.n_experts > 0:
-        raise UnsupportedPatternError(
-            f"{what} does not support MoE models in the port yet: MoE training (the router's "
-            f"aux loss under DropCompute) is the port's next slice; MoE models serve")
 
 
 def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
@@ -114,7 +105,7 @@ def require_stack(cfg: ModelConfig, what: str = "the PyTorch port") -> None:
 
 def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> None:
     """Raise before any work what the training path would raise at its
-    first layer: a family the port does not run or train, MoE among them
+    first layer: a family the port does not run or train
     (``UnsupportedPatternError``),
     ``logit_softcap`` (not ported), and on the card a shape the training
     kernels are not built for (``kernels.flash_attention.UnbuiltShapeError``):
@@ -126,7 +117,6 @@ def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> N
     kernel of their own (their scan and gates are plain PyTorch), so they
     need only their stack's attention and norms."""
     require_stack(cfg, "training")
-    _require_no_router(cfg, "training")
     L.require_no_softcap(cfg)
     if torch.device(device).type != "cuda":
         return
@@ -505,22 +495,25 @@ def _targets_weights(batch, dev):
     return targets, w
 
 
-def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]
+def loss_fn(params: Tree, cfg: ModelConfig, batch: Dict[str, Any], moe_impl: str = "sort"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Next-token CE as (loss_sum, token_weight_sum) — ``model.py:197``.
-    MoE models raise ``UnsupportedPatternError`` (their router's aux term
-    is not trained yet); every other family has no aux term."""
-    _require_no_router(cfg, "loss_fn")
-    x, _ = forward_features(params, cfg, batch)
+    """Next-token CE as (loss_sum, token_weight_sum) — ``model.py:197-212``:
+    an MoE model's loss_sum adds ``router_aux_weight * aux * w_sum``, its
+    layers' load-balancing term (``moe_impl``: their dispatch); without
+    experts the term is 0 and is not added."""
+    x, aux = forward_features(params, cfg, batch, moe_impl=moe_impl)
     targets, w = _targets_weights(batch, x.device)
-    return _ce_sums(params, cfg, x[:, :-1], targets, w)
+    loss_sum, w_sum = _ce_sums(params, cfg, x[:, :-1], targets, w)
+    if cfg.n_experts:
+        loss_sum = loss_sum + cfg.router_aux_weight * aux * w_sum
+    return loss_sum, w_sum
 
 
-def per_token_losses(params: Tree, cfg: ModelConfig, batch: Dict[str, Any]):
-    """(B, S-1) CE, weights and aux — for the per-example-weight step (MoE
-    models raise, as in ``loss_fn``)."""
-    _require_no_router(cfg, "per_token_losses")
-    logits, aux = forward(params, cfg, batch)
+def per_token_losses(params: Tree, cfg: ModelConfig, batch: Dict[str, Any],
+                     moe_impl: str = "sort"):
+    """(B, S-1) CE, weights and the aux loss (``model.py:215-222``) — for
+    the per-example-weight step, which weighs the aux term itself."""
+    logits, aux = forward(params, cfg, batch, moe_impl=moe_impl)
     targets, w = _targets_weights(batch, logits.device)
     lg = logits[:, :-1].float()
     lse = torch.logsumexp(lg, dim=-1)

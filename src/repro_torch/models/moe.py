@@ -25,6 +25,18 @@ token instead, runs and graphed replays agree bit for bit.  At ``cf =
 inf`` the capacity form gives the dense form's bits: both multiply the
 same (E, t, d) shapes and combine the same rows the same way.
 
+Every form is differentiable, and its backward is deterministic too: the
+dispatch writes a token's k copies into the buffer from the token's rows
+broadcast over its k choices (each choice's slot in token order), so the
+backward gathers the k cotangents and sums them by a reduction over k; no
+scatter it makes has a repeated index (the reference's ``x2d[st]`` read
+would scatter-add the k copies, atomics on the card).  The combine's
+repeated rows are the clamped rows of dropped choices, whose weight is 0.
+
+The router's ids come from ``route_ids`` (a check can pin them: the
+forward, the capacity drops and the aux term then all follow the pinned
+ids), its weights and load-balancing term from ``routed``.
+
 Ties between router probabilities resolve to the lower expert index, as
 ``jax.lax.top_k`` does (a stable descending sort); the stable sorts by
 expert keep token order within an expert, as ``jnp.argsort`` does.  The
@@ -78,19 +90,35 @@ def router_logits(p: Params, x2d: torch.Tensor) -> torch.Tensor:
     return x2d.float() @ p["router"].float()
 
 
-def _router(p: Params, x2d: torch.Tensor, cfg: ModelConfig):
-    """x2d (T, d) -> (probs (T, k), ids (T, k), aux loss) (``moe.py:45-57``):
-    f32 logits and softmax, top-k, the Mixtral renormalisation, and the
-    Switch load-balancing term E * sum_e f_e * P_e."""
-    probs = torch.softmax(router_logits(p, x2d), dim=-1)
-    top_p, top_i = top_k(probs, cfg.top_k)
+def route_ids(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """The experts each token is routed to: the top-k of its probabilities
+    (T, E) -> (T, k)."""
+    return top_k(probs, k)[1]
+
+
+def routed(probs: torch.Tensor, top_i: torch.Tensor, cfg: ModelConfig):
+    """(weights (T, k), aux loss) of the routes ``top_i`` (``moe.py:50-57``):
+    their probabilities renormalised to sum 1 (Mixtral), and the Switch
+    load-balancing term E * sum_e f_e * P_e, f_e the share of choices
+    routed to expert e (no gradient), P_e its mean probability."""
+    top_p = torch.gather(probs, 1, top_i)  # the top-k values, with their gradient
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     e = cfg.n_experts
     ids = top_i.reshape(-1)
-    counts = torch.zeros(e, dtype=torch.float32, device=x2d.device).index_add_(
-        0, ids, torch.ones(ids.shape, dtype=torch.float32, device=x2d.device))
+    counts = torch.zeros(e, dtype=torch.float32, device=probs.device).index_add_(
+        0, ids, torch.ones(ids.shape, dtype=torch.float32, device=probs.device))
     f_e = counts / counts.sum().clamp_min(1.0)
     aux = e * torch.sum(f_e * probs.mean(dim=0))
+    return top_p, aux
+
+
+def _router(p: Params, x2d: torch.Tensor, cfg: ModelConfig):
+    """x2d (T, d) -> (probs (T, k), ids (T, k), aux loss) (``moe.py:45-57``):
+    f32 logits and softmax, the ids (``route_ids``), their renormalised
+    weights and the load-balancing term (``routed``)."""
+    probs = torch.softmax(router_logits(p, x2d), dim=-1)
+    top_i = route_ids(probs, cfg.top_k)
+    top_p, aux = routed(probs, top_i, cfg)
     return top_p, top_i, aux
 
 
@@ -105,11 +133,6 @@ def _expert_ffn(p: Params, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = F.gelu(torch.bmm(xe, p["w_in"].to(cd)), approximate="tanh")
     return torch.bmm(h, p["w_out"].to(cd))
-
-
-def _choices(t: int, k: int, device) -> torch.Tensor:
-    """The token of each flattened (token, choice) pair: (t * k,)."""
-    return torch.arange(t, device=device)[:, None].expand(t, k).reshape(-1)
 
 
 def _combine(rows: torch.Tensor, slot_tk: torch.Tensor, w_tk: torch.Tensor,
@@ -136,25 +159,27 @@ def _dispatch(p: Params, x2d: torch.Tensor, cfg: ModelConfig, flat_e: torch.Tens
     dev = x2d.device
     order = torch.argsort(flat_e, stable=True)  # within an expert, token order
     se = flat_e[order]
-    st = _choices(t, k, dev)[order]
     counts = torch.zeros(buckets, dtype=torch.long, device=dev).index_add_(
         0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=dev) - starts[se]
-    routed = se < e
-    keep = routed & (pos < cap)
+    real = se < e
+    keep = real & (pos < cap)
     slot = torch.where(keep, se * cap + pos, e * cap)  # dropped -> the scratch row
-    buf = torch.zeros(e * cap + 1, d, dtype=cd, device=dev)
-    buf[slot] = x2d[st].to(cd)  # only the scratch row is written twice
-    ye = _expert_ffn(p, buf[: e * cap].view(e, cap, d), cfg).reshape(e * cap, d)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(t * k, device=dev)
+    slot_tk = slot[inv].view(t, k)  # each choice's slot, in token order
+    buf = torch.zeros(e * cap + 1, d, dtype=cd, device=dev)
+    # a token's row broadcast over its k choices: only the scratch row is
+    # written twice, and the backward sums the k cotangents over k
+    buf[slot_tk] = x2d.to(cd)[:, None, :].expand(t, k, d)
+    ye = _expert_ffn(p, buf[: e * cap].view(e, cap, d), cfg).reshape(e * cap, d)
     kept = keep[inv]
     # a dropped choice reads a real row with weight 0 (the reference masks
     # the row and the weight)
-    y = _combine(ye, slot[inv].clamp_max(e * cap - 1).reshape(t, k),
-                 torch.where(kept.reshape(t, k), top_p, 0.0), top_i, cd)
-    return y, kept, routed[inv]
+    y = _combine(ye, slot_tk.clamp_max(e * cap - 1),
+                 torch.where(kept.view(t, k), top_p, 0.0), top_i, cd)
+    return y, kept, real[inv]
 
 
 def apply_moe_sort(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -210,8 +235,8 @@ def apply_moe_capacity(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if valid is not None:
         real = torch.broadcast_to(valid, (b, s)).reshape(t)
         flat_e = torch.where(real[:, None].expand(t, k).reshape(-1), flat_e, e)
-    y, kept, routed = _dispatch(p, x2d, cfg, flat_e, top_p, top_i, capacity(cfg, t), e + 1)
-    overflow = (routed & ~kept).sum()
+    y, kept, real = _dispatch(p, x2d, cfg, flat_e, top_p, top_i, capacity(cfg, t), e + 1)
+    overflow = (real & ~kept).sum()
     return y.reshape(b, s, d), aux, overflow
 
 
@@ -268,5 +293,7 @@ __all__ = [
     "apply_moe_spmd",
     "capacity",
     "init_moe",
+    "route_ids",
+    "routed",
     "top_k",
 ]

@@ -5,6 +5,7 @@ from .optimizers import (
     adamw,
     apply_updates,
     clip_by_global_norm,
+    clip_scale,
     global_norm,
     lamb,
     lans,
@@ -19,6 +20,7 @@ __all__ = [
     "adamw",
     "apply_updates",
     "clip_by_global_norm",
+    "clip_scale",
     "global_norm",
     "lamb",
     "lans",

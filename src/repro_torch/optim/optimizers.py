@@ -12,6 +12,10 @@ state`` applies the same per-leaf update in place, leaf by leaf (and, for
 the elementwise AdamW and SGD, slice by slice of a large leaf), so a
 training step never holds a whole tree of updates and new moments beside
 the old ones: at qwen2.5-3b's 3.1 B parameters each such tree is 11.5 GiB.
+``step``'s ``prep`` maps each gradient leaf (slice) to the values the
+update reads, so the gradient sums (f32 or bf16) are normalised and
+clipped in f32 a slice at a time (``launch.steps.TrainStep``) rather
+than as a whole tree.
 States are updated in place by both (the port's choice where JAX returns
 new arrays).
 """
@@ -39,6 +43,12 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
                                    zip(tree_leaves(params), tree_leaves(updates))])
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor ``clip_by_global_norm`` scales gradients of global norm
+    ``norm`` by: min(1, max_norm / (norm + 1e-9))."""
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square() for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
@@ -47,8 +57,7 @@ def global_norm(tree: Tree) -> torch.Tensor:
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
     """Scale ``grads`` so their global norm is at most ``max_norm``, in
     place (the tree is returned)."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    scale = clip_scale(global_norm(grads), max_norm)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
     return grads
@@ -69,15 +78,18 @@ def _make(init, leaf_update, elementwise: bool, per_leaf_grad=None) -> Optimizer
     ``elementwise``) and ``init``.  ``per_leaf_grad`` preprocesses each
     whole gradient leaf first (LANS's per-layer normalisation)."""
 
-    def run(grads, state, params, outs, write):
+    def run(grads, state, params, outs, write, prep=None):
         """The per-leaf update over every leaf (slice by slice when
         ``elementwise``): states in place, ``write(out, p, u)`` for each
-        leaf's (slice's) output and update."""
+        leaf's (slice's) output and update; ``prep`` maps each leaf's
+        (slice's) gradient to the values the update reads."""
         count = state["count"] + 1
         cols = [tree_leaves(state[k]) for k in state if k != "count"]
         g_leaves = tree_leaves(grads)
         for g, st, p, out in zip(g_leaves, zip(*cols) if cols else [()] * len(g_leaves),
                                  tree_leaves(params), outs):
+            if prep is not None and not elementwise:
+                g = prep(g)
             if per_leaf_grad is not None:
                 g = per_leaf_grad(g)
             views = [x.view(-1) for x in (g, *st, p, out)] if elementwise else [g, *st, p, out]
@@ -85,6 +97,8 @@ def _make(init, leaf_update, elementwise: bool, per_leaf_grad=None) -> Optimizer
                      if elementwise else [...])
             for span in spans:
                 gs, *ss, ps, os_ = (x[span] for x in views)
+                if prep is not None and elementwise:
+                    gs = prep(gs)
                 u, new = leaf_update(gs, ss, ps, count)
                 for dst, src in zip(ss, new):
                     dst.copy_(src.to(dst.dtype))
@@ -97,9 +111,9 @@ def _make(init, leaf_update, elementwise: bool, per_leaf_grad=None) -> Optimizer
         run(grads, state, params, outs, lambda o, p, u: o.copy_(u))
         return tree_unflatten(params, outs), state
 
-    def step(grads, state, params):
+    def step(grads, state, params, prep=None):
         run(grads, state, params, tree_leaves(params),
-            lambda o, p, u: o.copy_((p + u).to(o.dtype)))
+            lambda o, p, u: o.copy_((p + u).to(o.dtype)), prep)
         return state
 
     return Optimizer(init, update, step)

@@ -16,13 +16,16 @@ after ``calibration_steps``) or online (``online_tau``: a
 A tau change needs no new capture (the keep mask never enters a graph),
 so the controller's recompile cost is 0.
 
-A step (``launch.steps.TrainStep``): the f32 master parameters are cast
+A step (``launch.steps.TrainStep``): the master parameters are cast
 into a compute copy (``models.train_params``, one buffer refilled in
-place each step), each kept micro-batch's forward and backward adds its
-gradients into an f32 accumulator (``core.dropcompute.sum_kept``; the
-masked-accumulate kernel; the accumulator is one buffer zeroed in place
-each step), then the gradients are normalised and clipped and the
-optimizer updates the master parameters in place (``Optimizer.step``).
+place each step; bf16 masters, the MoE models', are their own copy), each
+kept micro-batch's forward and backward adds its gradients into an
+accumulator in the masters' dtype, as the reference's ``accumulate_grads``
+sums (``core.dropcompute.sum_kept``; the masked-accumulate kernel; the
+accumulator is one buffer zeroed in place each step), then the gradients
+are normalised and clipped and the optimizer updates the master
+parameters in place (``Optimizer.step``).  The data-parallel path sums in
+f32, as the reference's ``make_train_step`` does by default.
 On the card each kept
 micro-batch is one CUDA-graph replay (``core.Accumulator``, the
 reference's ``jax.jit(step)`` at ``trainer.py:150``); Algorithm 1's keep
@@ -162,7 +165,7 @@ def train(
     """Train on one device (CUDA unless ``device`` names another), or with
     ``tcfg.mesh`` as one rank of the data-parallel group (every rank calls
     ``train`` alike; ``device`` as ``procs.rank_device`` reads it: by
-    default the GPU of the rank's local rank).  ``params`` (the f32 master
+    default the GPU of the rank's local rank).  ``params`` (the master
     tree) are moved there and updated in place (the reference returns new
     arrays); without them they are drawn from ``tcfg.seed``.  Returns the
     trained parameters with the per-step losses, simulated times, drop
@@ -200,8 +203,8 @@ def train(
         bundle = dist.train_step(model_cfg, shape, tcfg.drop, n_workers=n, **kw)
         opt, train_step = bundle.opt, bundle.fn
         dist.shard(params)
-    else:  # all N workers on this device, no collective
-        opt, train_step = make_train_step(model_cfg, shape, tcfg.drop, n, **kw)
+    else:  # all N workers on this device, no collective; sums in the masters' dtype
+        opt, train_step = make_train_step(model_cfg, shape, tcfg.drop, n, accum_dtype=None, **kw)
     opt_state = opt.init(params)
 
     tau = tcfg.drop.tau

@@ -11,6 +11,7 @@ configs:
 * ``params_from_jax`` round trip, bit for bit;
 * prefill logits (dense and paged caches, chunked and packed steps) and
   ``decode_step`` logits and caches within ``TOL["model_f32"]``;
+* ``loss_fn``'s sums and every leaf's gradient against ``jax.grad``;
 * the engine's greedy streams, step counts and per-step schedule on the
   dense and paged layouts, chunked and packed, equal to the JAX engine's,
   with requests long enough to cross gemma3's sliding window;
@@ -258,6 +259,26 @@ def test_forward_matches_jax(pair):
     with torch.no_grad():
         got, _ = model.forward(tp, tc, {"tokens": torch.from_numpy(tokens)})
     assert_close(got, want, "model_f32")
+
+
+def test_loss_and_every_grad_leaf_match_jax_grad(pair):
+    """``loss_fn``'s (loss_sum, w_sum) and the gradient of every leaf against
+    ``jax.grad`` of the reference's, on 2 x 33 tokens with token weights
+    (past gemma3's smoke window 16)."""
+    from repro_torch import core
+
+    jc, tc, jp, tp = pair
+    rng = np.random.default_rng(33)
+    batch = {"tokens": rng.integers(0, jc.vocab_size, (2, 33)).astype(np.int32),
+             "weights": (rng.random((2, 33)) > 0.2).astype(np.float32)}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (ls, w), jg = jax.value_and_grad(lambda p: jmodel.loss_fn(p, jc, jb), has_aux=True)(jp)
+    grad_fn = core.make_grad_fn(lambda p, mb: model.loss_fn(p, tc, mb))
+    g, tls, tw = grad_fn(model.train_params(tp, tc),
+                         {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert_close(tls, ls, "model_f32")
+    assert float(tw) == float(w)
+    assert_tree_close(g, jg, "model_f32")
 
 
 # ---------------------------------------------------------------------------

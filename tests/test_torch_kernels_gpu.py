@@ -445,6 +445,36 @@ class TestKernelsOnCard:
             assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
         assert all(torch.equal(x, y) for x, y in zip(grads, again))
 
+    @pytest.mark.parametrize("h,kvh,b,s,window", [
+        (48, 8, 1, 2048, 1000), (64, 4, 1, 1024, 0), (16, 8, 2, 512, 0), (32, 16, 1, 1024, 203),
+        (36, 4, 1, 1024, 0)],
+        ids=["g6_mixtral_window", "g16_qwen3_moe", "g2_internlm2", "g2_gemma3_window",
+             "g9_starcoder2"])
+    def test_flash_attention_trained_groups(self, cuda, h, kvh, b, s, window):
+        """The head-dim-128 build at the groups the MoE and dense-zoo models
+        train with (``TRAINED``): mixtral-8x22b's 48 heads over 8 (group 6,
+        windowed), qwen3-moe's 64 over 4 (16), internlm2-1.8b's and
+        gemma3-27b's group 2 and starcoder2-7b's 36 over 4 (9); forward and
+        backward against the plain versions row by row, two backward runs
+        bit-identical, and a planted fault (the window dropped, or the
+        causal mask) outside the limit."""
+        assert (128, h // kvh) in flash_attention.TRAINED
+        q, k, v, do = attn_inputs(cuda, b, s, s, seed=h + s, h=h, kvh=kvh)
+        kw = dict(causal=True, window=window)
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        again = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        bad, _ = flash_attention.flash_attention_fwd(q, k, v, causal=bool(window), window=0)
+        torch.cuda.synchronize()
+        assert row_rel_err(out, want) <= K3_ROW_TOL < row_rel_err(bad, want)
+        np.testing.assert_allclose(np32(lse), np32(want_lse), atol=1e-3, rtol=0)
+        for name, got, w in zip(("dq", "dk", "dv"), grads, wants):
+            assert got.shape == w.shape, name
+            assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
+        assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
     def test_flash_attention_check_catches_a_planted_fault(self, cuda):
         """The row metric passes the kernel and fails what a kernel skipping
         its diagonal key tile for the later half of the rows would return
@@ -553,6 +583,25 @@ class TestKernelsOnCard:
                 assert torch.equal(got, want), (keep, scale)
         kept = masked_accum.masked_accum(acc.clone(), g, 0.0)
         assert torch.equal(kept, acc)  # keep = 0 leaves the accumulator untouched
+
+    @pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("n", [4096, 65536 + 3])
+    def test_masked_accum_bf16(self, cuda, gdtype, n):
+        """The bf16 accumulator (bf16 master parameters): the gradient
+        rounded to bf16, the sum in f32, one rounding to bf16, equal to the
+        plain version bit for bit; keep 0 leaves it untouched."""
+        rng = np.random.default_rng(n + 1)
+        acc = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda, torch.bfloat16)
+        g = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda, gdtype)
+        for keep in (0.0, 1.0):
+            for scale in (1.0, 0.125):
+                want = ref.masked_accum_ref(acc, g, keep, scale)
+                got = masked_accum.masked_accum(acc.clone(), g, keep, scale)
+                torch.cuda.synchronize()
+                assert got.dtype == torch.bfloat16 and torch.equal(got, want), (keep, scale)
+        assert torch.equal(masked_accum.masked_accum(acc.clone(), g, 0.0), acc)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            masked_accum.masked_accum(acc.half(), g, 1.0)
 
     @pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
     def test_masked_accum_local_step(self, cuda, gdtype):
@@ -1014,6 +1063,25 @@ class TestMoEOnCard:
         step = graphs.StepGraph(lambda x_: moe.apply_moe_capacity(p, x_, c)[0], x.device)
         step("k", x)  # the warm-up and capture
         assert torch.equal(step("k", x), a)
+
+    @pytest.mark.parametrize("impl", ["sort", "capacity", "dense"])
+    def test_backward_is_deterministic(self, cuda, impl):
+        """Two backward passes of the MoE layer (mixtral's top-2 of 8, cf
+        0.5: routes dropped) give the same bits for x and every parameter:
+        no scatter of the backward has a repeated index."""
+        cfg, p, x = moe_layer(cuda, 8, 2)
+        cfg = dataclasses.replace(cfg, capacity_factor=0.5)
+        cot = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                          device=cuda).to(x.dtype)
+        runs = []
+        for _ in range(2):
+            leaves = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+            xx = x.detach().clone().requires_grad_()
+            y, aux, _ = moe.apply_moe(leaves, xx, cfg, impl=impl)
+            (torch.sum(y.float() * cot.float()) + aux).backward()
+            runs.append([xx.grad] + [leaves[k].grad for k in sorted(leaves)])
+        torch.cuda.synchronize()
+        assert all(g is not None and torch.equal(a, g) for a, g in zip(*runs))
 
     @pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
     @pytest.mark.parametrize("name", ["mixtral_8x22b", "qwen3_moe_235b_a22b"])

@@ -23,6 +23,7 @@ from repro.models import model as jmodel  # noqa: E402
 from repro.serve import KVCacheSpec as JSpec  # noqa: E402
 from repro.serve import pack_step as jpack_step  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.dist import UnsupportedDistError  # noqa: E402
 from repro_torch.models import ModelConfig, UnsupportedPatternError, model  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import tree_leaves  # noqa: E402
@@ -148,17 +149,17 @@ def test_compute_dtype_and_cast_once():
 
 
 def test_unsupported_patterns_raise_typed():
-    # 'R' and 'M' decoder layers and (for serving) experts are ported; an
-    # encoder block among decoder blocks, an encoder-decoder split and a VLM
-    # prefix are not, nor is training with experts
+    # 'R' and 'M' decoder layers and experts (served and trained) are ported;
+    # an encoder block among decoder blocks, an encoder-decoder split and a
+    # VLM prefix are not, nor is the experts' mesh dispatch (no model axis)
     for kw in (dict(layer_pattern="BG"), dict(layer_pattern="RB"),
                dict(enc_layers=2), dict(prefix_len=4)):
         with pytest.raises(UnsupportedPatternError):
             model.init_params(ModelConfig(**kw), device="cpu")
     moe = ModelConfig(n_experts=4)
-    with pytest.raises(UnsupportedPatternError):
+    with pytest.raises(UnsupportedDistError):
         model.loss_fn(model.init_params(moe, device="cpu"), moe,
-                      {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+                      {"tokens": torch.zeros((1, 8), dtype=torch.long)}, moe_impl="spmd")
 
 
 def test_params_from_jax_checks_the_tree(pair):

@@ -17,7 +17,7 @@ f32, at ``moe_tiny`` and the smoke configs of mixtral-8x22b ('L', window
   dense dispatch and at three capacity factors; a seeded sampled run and
   an n-gram speculative run on ``moe_tiny``;
 * ``params_from_jax`` and a reference npz checkpoint of an MoE tree;
-* the refusals: MoE training (``loss_fn``, ``train``) and the mesh form.
+* the refusals: the mesh form, in serving and in training.
 """
 import dataclasses
 import math
@@ -45,7 +45,6 @@ from repro_torch.kernels import flash_attention  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models import model, moe  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
-from repro_torch.models.model import UnsupportedPatternError  # noqa: E402
 from repro_torch.models.transformer import tree_leaves  # noqa: E402
 from repro_torch.serve import (ContinuousBatcher, KVCacheSpec, NGramProposer,  # noqa: E402
                                Request, SamplingParams, SpecConfig)
@@ -518,18 +517,27 @@ def test_capacity_factor_checks():
 
 
 def test_moe_training_is_refused():
+    """MoE training runs (``tests/test_torch_moe_train.py``) except where
+    the port has no path: the expert-parallel dispatch (no model axis), a
+    model mesh, and on the card an attention shape the training kernels are
+    not built for (moe_tiny's head dim 32, group 1)."""
     from repro_torch import train
     from repro_torch.data import DataConfig
 
     _, tc, _, tp = engine_params("moe_tiny")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(UnsupportedPatternError, match="MoE training"):
-        model.loss_fn(tp, tc, batch)
-    with pytest.raises(UnsupportedPatternError, match="MoE training"):
-        model.per_token_losses(tp, tc, batch)
-    with pytest.raises(UnsupportedPatternError, match="MoE training"):
+    with pytest.raises(UnsupportedDistError, match="model axis"):
+        model.loss_fn(tp, tc, batch, moe_impl="spmd")
+    with pytest.raises(UnsupportedDistError, match="model axis"):
+        model.per_token_losses(tp, tc, batch, moe_impl="spmd")
+    with pytest.raises(UnsupportedDistError):
         train.train(tc, DataConfig(vocab_size=tc.vocab_size, seq_len=8, batch_size=2),
-                    train.TrainConfig(steps=1, n_workers=1, microbatches=1), device="cpu")
+                    train.TrainConfig(steps=1, n_workers=1, microbatches=1, mesh="2,2"),
+                    device="cpu")
+    with pytest.raises(flash_attention.UnbuiltShapeError, match="head dim 32 and group"):
+        model.require_trainable(tc, 64, torch.device("cuda"))
+    ls, w = model.loss_fn(tp, tc, batch)
+    assert torch.isfinite(ls) and float(w) == 7
 
 
 # ---------------------------------------------------------------------------
