@@ -61,7 +61,12 @@ dispatch and at cf 1.25 (K4's (128, 6) build filed under K4; the expert
 products under cuBLAS, the dispatch's sort under sort, its scatter and
 gathers under index), ``moe_train`` one kept micro-batch of its phase 18c
 for each MoE model (1 layer, full width, bf16: ``moe_microbatch_profile``,
-the expert products also timed apart at the dispatch's buffer).  ``kernels`` also times K3's (128, 8) build at the
+the expert products also timed apart at the dispatch's buffer),
+``whisper_serve`` its phase 19b's encode (the serving path's direct call)
+and one decode step eager and graphed (``whisper_serve_profiles``),
+``whisper_train`` one kept micro-batch of its phase 19c eager and graphed
+(whisper-tiny at full width and depth; K3's (64, 1) build at the ragged
+lengths filed under K3).  ``kernels`` also times K3's (128, 8) build at the
 qwen training shape (``k3_timing``) with a digest of its outputs, gives a
 digest of K4's (128, 8) outputs (``k4_digests``) and times K4's (256, 10)
 build; ``k4_builds`` gives a digest and the decode and mixed times of each
@@ -506,21 +511,58 @@ def expert_ffn_ms(cfg, t: int) -> dict:
             "capacity": cap}
 
 
+def repeated_profile(fn, reps: int, eager: bool) -> dict:
+    """``fn`` called ``reps`` times, eager or graphed (after one call that
+    builds and captures): the wall a call on the host clock, then the
+    ``profile_record`` of ``reps`` calls under the profiler with its device
+    ms, kernels and launches divided to one call."""
+    with cs.mode(eager):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    rec = {"mode": "eager" if eager else "graphed", **profile_record(prof, wall, reps)}
+    for key in ("families_ms", "families_launches", "top_kernels_ms"):
+        rec[key] = {k: v / reps for k, v in rec[key].items()}
+    rec["wall_ms"], rec["device_busy_ms"] = rec["wall_ms"] / reps, rec["device_busy_ms"] / reps
+    return rec
+
+
+def microbatch_profile(cfg, params, mb: dict, eager: bool, reps: int) -> dict:
+    """One kept micro-batch ``mb`` of ``cfg`` from ``params``:
+    ``core.Accumulator.add`` (forward, backward, K1 into sums of the
+    masters' dtypes), profiled by ``repeated_profile``."""
+    from repro_torch.core import Accumulator
+    from repro_torch.core.engine import make_grad_fn
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.transformer import tree_leaves
+
+    compute = model_lib.train_params(params, cfg)
+    grad_fn = make_grad_fn(lambda p, b: model_lib.loss_fn(p, cfg, b))
+    acc = Accumulator(grad_fn, compute, [p.dtype for p in tree_leaves(params)])
+    rec = repeated_profile(lambda: acc.add(mb), reps, eager)
+    del acc, compute
+    cs.free_device()
+    return rec
+
+
 def moe_microbatch_profile(name: str, seed: int, eager: bool) -> dict:
     """One kept micro-batch of ``chip_smoke.py``'s phase 18c (the model at
     full width, ``MOE_TRAIN_LAYERS`` layer, bf16; its first micro-batch of
-    one ``MOE_TRAIN_SEQ`` sequence): ``core.Accumulator.add`` (forward,
-    backward, K1 into the bf16 sums), eager or graphed (after a warm-up
-    that builds and captures), ``MOE_MB_REPS`` times on the host clock, then
-    under the profiler: device time by family a micro-batch (the dispatch's
-    sort apart from its index / scatter / gather), idle share, host
-    launches.  The expert products are timed apart at the dispatch's
+    one ``MOE_TRAIN_SEQ`` sequence), ``MOE_MB_REPS`` times
+    (``microbatch_profile``): device time by family a micro-batch (the
+    dispatch's sort apart from its index / scatter / gather), idle share,
+    host launches.  The expert products are timed apart at the dispatch's
     buffer (``expert_ffn_ms``), times the layers and the remat forward."""
-    from repro_torch.core import Accumulator
-    from repro_torch.core.engine import make_grad_fn
     from repro_torch.data import microbatches_at
-    from repro_torch.models import model as model_lib
-    from repro_torch.models.transformer import tree_leaves
 
     cfg = cs.moe_config(name, cs.MOE_TRAIN_LAYERS)
     seq = cs.MOE_TRAIN_SEQ[name]
@@ -529,30 +571,9 @@ def moe_microbatch_profile(name: str, seed: int, eager: bool) -> dict:
     mb = {"tokens": torch.from_numpy(mbs["tokens"][0]).to(cs.DEV, torch.long),
           "weights": torch.from_numpy(mbs["weights"][0]).to(cs.DEV)}
     params = init_params(cfg, seed=seed, device=cs.DEV)
-    compute = model_lib.train_params(params, cfg)
-    grad_fn = make_grad_fn(lambda p, b: model_lib.loss_fn(p, cfg, b))
-    acc = Accumulator(grad_fn, compute, [p.dtype for p in tree_leaves(params)])
-    with cs.mode(eager):
-        acc.add(mb)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(MOE_MB_REPS):
-            acc.add(mb)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / MOE_MB_REPS
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(MOE_MB_REPS):
-                acc.add(mb)
-            torch.cuda.synchronize()
-    rec = {"tag": TAG, "run": "moe_train", "model": cfg.name, "mode": "eager" if eager else "graphed",
-           "tokens": seq, **profile_record(prof, wall * MOE_MB_REPS, MOE_MB_REPS)}
-    rec["families_ms"] = {k: v / MOE_MB_REPS for k, v in rec["families_ms"].items()}
-    rec["families_launches"] = {k: v / MOE_MB_REPS for k, v in rec["families_launches"].items()}
-    rec["top_kernels_ms"] = {k: v / MOE_MB_REPS for k, v in rec["top_kernels_ms"].items()}
-    rec["wall_ms"], rec["device_busy_ms"] = rec["wall_ms"] / MOE_MB_REPS, \
-        rec["device_busy_ms"] / MOE_MB_REPS
-    del acc, compute, params
+    rec = {"tag": TAG, "run": "moe_train", "model": cfg.name, "tokens": seq,
+           **microbatch_profile(cfg, params, mb, eager, MOE_MB_REPS)}
+    del params
     cs.free_device()
     ex = expert_ffn_ms(cfg, seq)
     rec["expert_ffn"] = ex
@@ -561,10 +582,59 @@ def moe_microbatch_profile(name: str, seed: int, eager: bool) -> dict:
     return rec
 
 
+#: calls a whisper profile times and profiles
+WHISPER_REPS = 10
+
+
+def whisper_serve_profiles(seed: int) -> None:
+    """``chip_smoke.py``'s phase 19b run (whisper-tiny at full width and
+    depth, bf16 compute copy; its 8 requests of 1,500 frames): one batched
+    ``encode`` (a direct call, as the serving path makes it, K3's forward
+    at 8 x 6 x 1,500), then one decode step through ``make_serve_step``
+    at the last position, eager and graphed; ``WHISPER_REPS`` calls each
+    (``repeated_profile``), one JSON line each."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+
+    cfg = cs.whisper_config()
+    params = compute_params(init_params(cfg, seed=seed, device=cs.DEV), cfg)
+    frames = cs.whisper_frames(cfg, seed, cs.W_REQUESTS).to(cs.DEV)
+    first = cs.whisper_tokens(cfg, seed, (cs.W_REQUESTS, 1), offset=1).to(cs.DEV)
+    rec = repeated_profile(lambda: model_lib.encode(params, cfg, frames), WHISPER_REPS, True)
+    rec["mode"] = "eager (the serving path's own: no graph)"
+    print(json.dumps({"tag": TAG, "run": "whisper_encode", "requests": cs.W_REQUESTS,
+                      **rec}), flush=True)
+    cache = model_lib.init_decode_cache(params, cfg, cs.W_REQUESTS, cs.W_NEW,
+                                        enc_out=model_lib.encode(params, cfg, frames))
+    pos = np.full(cs.W_REQUESTS, cs.W_NEW - 1, np.int64)
+    for eager in (True, False):
+        step = steps.make_serve_step(cfg)
+        rec = repeated_profile(lambda: step(params, cache, first, pos), WHISPER_REPS, eager)
+        print(json.dumps({"tag": TAG, "run": "whisper_decode_step",
+                          "requests": cs.W_REQUESTS, **rec}), flush=True)
+        del step
+        cs.free_device()
+
+
+def whisper_train_profiles(seed: int) -> None:
+    """One kept micro-batch of ``chip_smoke.py``'s phase 19c (whisper-tiny
+    at full width and depth, f32 masters, 16 x (1,500 frames + 448
+    tokens)), eager and graphed (``microbatch_profile``), one JSON line
+    each."""
+    cfg = cs.whisper_config()
+    mb = cs.whisper_batch(cfg, seed, 0, cs.W_MB_SEQS)
+    params = init_params(cfg, seed=seed, device=cs.DEV)
+    for eager in (True, False):
+        rec = microbatch_profile(cfg, params, mb, eager, WHISPER_REPS)
+        rec["k3_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K3"))
+        print(json.dumps({"tag": TAG, "run": "whisper_train", "sequences": cs.W_MB_SEQS,
+                          **rec}), flush=True)
+
+
 TAG = ""
 PARTS = ("kernels", "k6_precision", "k4_builds", "qwen", "mamba", "train", "localsgd", "dp",
          "mamba_train", "bert_train", "rg_serve", "rg_train", "sampled_serve", "spec_serve",
-         "zoo_serve", "moe_serve", "moe_train")
+         "zoo_serve", "moe_serve", "moe_train", "whisper_serve", "whisper_train")
 #: the parts that time kernels alone, run only when named
 KERNEL_PARTS = ("kernels", "k6_precision", "k4_builds")
 
@@ -899,8 +969,8 @@ def main() -> int:
                     default=[p for p in PARTS if p not in KERNEL_PARTS],
                     help="parts to run, always in the order kernels, k6_precision, k4_builds, "
                          "qwen, mamba, train, localsgd, dp, mamba_train, bert_train, rg_serve, "
-                         "rg_train, sampled_serve, spec_serve, zoo_serve, moe_serve (default: "
-                         "all but the first three)")
+                         "rg_train, sampled_serve, spec_serve, zoo_serve, moe_serve, moe_train, "
+                         "whisper_serve, whisper_train (default: all but the first three)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -972,6 +1042,10 @@ def main() -> int:
                 for eager in (True, False):
                     print(json.dumps(moe_microbatch_profile(name, args.seed, eager)), flush=True)
                     cs.free_device()
+        elif part == "whisper_serve":  # phase 19b: an encode, a decode step
+            whisper_serve_profiles(args.seed)
+        elif part == "whisper_train":  # phase 19c: one kept micro-batch
+            whisper_train_profiles(args.seed)
         elif part == "rg_train":  # phase 13c's step 1, eager then graphed; the mixers' share
             rcfg = get_config("recurrentgemma_2b")
             recs = {}

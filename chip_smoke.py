@@ -11,7 +11,10 @@ pool size printed); the graphed runs are the main path (the launch
 counters' window) and must give the eager runs' streams, losses and
 gradient leaves (bit-identical, or within ``GRAPH_LEAF_GAP`` of a leaf's
 norm with the leaf that differs named).  A planted fault, one replay whose
-input copy is skipped, must fail the stream check.
+input copy is skipped, must fail the stream check.  The CPU passes of the
+card-vs-CPU checks of phases 7, 15, 18b and 19c run in a process spawned
+after phase 3 (``CpuPasses``), beside the card's work; each phase reads
+its result where it needs it.
 
 1. device — the card's name and power limit (``nvidia-smi``); fails
    without CUDA;
@@ -302,15 +305,32 @@ input copy is skipped, must fail the stream check.
    gradient leaf; the card's routes pinned to the CPU's, ids, drops and aux;
    phase 10's limits; the expert, router and attention leaves logged apart;
    planted faults: the routing weights detached, the aux term dropped; its
-   CPU passes run in a process spawned after phase 3, beside the card's
-   work of phases 4-18, its card runs after 18c); 18c
+   CPU passes in ``CpuPasses``' process, its card runs after 18c); 18c
    each model at full width, ``MOE_TRAIN_LAYERS`` layer, bf16 parameters,
    through ``repro_torch.train.train`` (4 workers x 2 micro-batches of one
    ``MOE_TRAIN_SEQ`` sequence, the training phase's tau rule, 3 steps),
    eager then graphed: the drop fractions of the latency draws, the launches
    the code implies, graphed equal to eager, ms a kept micro-batch, kept
    tokens/s, the routes each router call dropped at cf 1.25 and the peak
-   beside the reckoning.
+   beside the reckoning;
+19. the enc-dec family, whisper-tiny (4 + 4 layers, 6 heads of 64, vocab
+   51,865, random weights from ``--seed``, stub frames from numpy) — 19a
+   K3's (64, 1) build at ragged lengths (``W_K3_SHAPES``: 19c's micro-batch
+   of 16 at the encoder's 1,500 frames, the decoder's 448 tokens, causal,
+   and cross-attention 448 x 1,500; and 100, causal) forward and backward
+   against the plain versions row by row, with planted faults made through
+   the schedule (the tail tile's mask skipped, the TPU kernel's floored
+   range, the last key tile's dK/dV dropped), timed beside SDPA and the
+   bound; 19b 8 requests of 1,500 seeded frames, one batched encode and
+   128 greedy tokens each through ``make_serve_step`` (the cross K/V held
+   in the decode cache), eager then graphed, bit for bit, every step's
+   logits against the teacher-forced ``forward``, a 2-layer card-vs-CPU
+   logits check with a planted fault (another request's cross K/V); 19c
+   ``make_train_step`` with frames, 4 workers x 2 micro-batches of 16 x
+   (1,500 frames + 448 tokens), AdamW, 3 steps, eager then graphed, the
+   launches the code implies, and a 2-layer card-vs-CPU loss and leaf check
+   (its CPU passes in ``CpuPasses``' process) with a planted fault (the cross K/V
+   detached from the encoder).
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K4's (256, 10) build has a record of
@@ -338,7 +358,12 @@ decode steps with their serving's launches (17).  K3's (128, 6) and
 ``_g16``, and their backwards), read at their models' training shapes with
 phase 18c's launches, and so has K1's bf16 form (``masked_accum_bf16``),
 read on mixtral's expert leaf with phase 18c's launches; K1's f32 record
-keeps the earlier phases'.
+keeps the earlier phases' and takes 19c's.  K3's (64, 1) build has records
+at whisper-tiny's three ragged shapes (``flash_attention_d64_g1_s1500``,
+``_s448``, ``_s448x1500`` and their backwards), read at 19c's micro-batch
+with 19c's launches at each shape, and at 19b's batched encode
+(``flash_attention_d64_g1_s1500_b8``) with 19b's, each as K3's wrappers
+tallied them by (B, Sq, Sk).
 """
 from __future__ import annotations
 
@@ -370,6 +395,7 @@ from repro_torch import graphs  # noqa: E402  (fails outside a checkout)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Accumulator, DropConfig, LatencyModel, NoiseModel  # noqa: E402
 from repro_torch.core import accumulate_grads, drop_mask  # noqa: E402
+from repro_torch.core.dropcompute import elapsed_s  # noqa: E402
 from repro_torch.core.engine import make_grad_fn  # noqa: E402
 from repro_torch.core.local_sgd import LocalSGD, StragglerScenario  # noqa: E402
 from repro_torch.data import DataConfig, microbatches_at  # noqa: E402
@@ -378,6 +404,7 @@ from repro_torch.launch import steps as dp_steps  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
 from repro_torch.kernels import ssd_chunk  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models.config import InputShape  # noqa: E402
 from repro_torch.models.layers import _paged_quantize  # noqa: E402
 from repro_torch.models import layers, moe, ssm  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
@@ -2939,36 +2966,56 @@ def localsgd_phase(cfg, seed: int):
     return counts, mask_seed, keep
 
 
-def localsgd_parity(cfg, seed: int, keep):
+def localsgd_parity_config(cfg):
+    """7's card-vs-CPU model: ``cfg`` at ``LSGD_PARITY_LAYERS`` layers, f32
+    weights (the CPU pass computes in f32, the card in ``cfg``'s dtype)."""
+    return dataclasses.replace(cfg, n_layers=LSGD_PARITY_LAYERS, dtype="float32")
+
+
+def localsgd_updates(c, start, keep, seed: int, dev, fault=None):
+    """(round losses, each leaf's update in f64 on the host) of a Local-SGD
+    run of ``c`` from ``start`` (host tensors, copied to ``dev``)."""
+    p = tree_map(lambda x: x.clone().to(dev), start)
+    losses, _, _, _ = localsgd_run(c, p, keep, seed, PARITY_SEQ, LSGD_PARITY_LR, fault_leaf=fault)
+    return losses, {k: (x.cpu().double() - s.double())
+                    for (k, x), s in zip(named_leaves(p), tree_leaves(start))}
+
+
+def localsgd_parity_cpu(cpu_cfg, seed: int, cpu_params) -> dict:
+    """7's CPU pass (in the CPU passes' process): the Local-SGD run of the
+    f32 ``cpu_params`` (drawn on the card from ``seed``) on the CPU, with
+    ``localsgd_keep``'s mask: its round losses and leaf updates."""
+    t0 = time.perf_counter()
+    losses, updates = localsgd_updates(cpu_cfg, cpu_params, localsgd_keep(seed)[1], seed, "cpu")
+    return {"losses": losses, "updates": updates, "t_cpu": time.perf_counter() - t0}
+
+
+def localsgd_parity(cfg, seed: int, keep, cpu: dict):
     """A ``LSGD_PARITY_LAYERS``-layer full-width model at 256 tokens: the
     round losses and every leaf's update on the card (kernels, bf16
-    compute) against the CPU (plain versions, f32), and the same metric
-    with a planted K1 fault."""
+    compute) against the CPU (``cpu``: ``localsgd_parity_cpu``'s result,
+    plain versions, f32, from the same weights drawn on the card), and the
+    same metric with a planted K1 fault."""
     small = dataclasses.replace(cfg, n_layers=LSGD_PARITY_LAYERS)
-    cpu_cfg = dataclasses.replace(small, dtype="float32")
-    start = init_params(cpu_cfg, seed=seed, device="cpu")
+    start = tree_map(lambda x: x.cpu(), init_params(localsgd_parity_config(cfg), seed=seed,
+                                                     device=DEV))
 
     def run(c, dev, fault=None):
-        p = tree_map(lambda x: x.clone().to(dev), start)
-        losses, _, _, _ = localsgd_run(c, p, keep, seed, PARITY_SEQ, LSGD_PARITY_LR,
-                                       fault_leaf=fault)
-        return losses, {k: (x.cpu().double() - s.double())
-                        for (k, x), s in zip(named_leaves(p), tree_leaves(start))}
+        return localsgd_updates(c, start, keep, seed, dev, fault)
 
     def leaf_errs(d):
         return {k: float(torch.linalg.vector_norm(d[k] - w) / torch.linalg.vector_norm(w))
                 for k, w in cpu_d.items()}
 
-    t0 = time.perf_counter()
-    cpu_l, cpu_d = run(cpu_cfg, "cpu")
-    t_cpu = time.perf_counter() - t0
+    cpu_l, cpu_d, t_cpu = cpu["losses"], cpu["updates"], cpu["t_cpu"]
     card_l, card_d = run(small, DEV)
     _, bad_d = run(small, DEV, LSGD_FAULT_LEAF)
     errs, bad = leaf_errs(card_d), leaf_errs(bad_d)
     worst, bad_worst = max(errs, key=errs.get), max(bad, key=bad.get)
     el = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
     log(f"localsgd parity {LSGD_PARITY_LAYERS} layers seq {PARITY_SEQ} lr {LSGD_PARITY_LR}: round "
-        f"losses card {card_l} / cpu {cpu_l} (rel {el:.2e}); the CPU run took {t_cpu:.1f} s")
+        f"losses card {card_l} / cpu {cpu_l} (rel {el:.2e}); the CPU run took {t_cpu:.1f} s (in "
+        f"the CPU passes' process)")
     log("localsgd parity per-leaf ||dP_card - dP_cpu|| / ||dP_cpu||: "
         + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
     log(f"localsgd parity worst leaf {worst} {errs[worst]:.2e}; planted fault (K1 scale sign "
@@ -3675,21 +3722,37 @@ def first_steps(cfg, params, prompts, max_len: int = RG_MAX_LEN, chunk: int = CH
     return {"dense": dense.float().cpu(), "packed": packed[valid].float().cpu()}
 
 
-def logits_parity(small, seed: int, prompts, max_len: int, what: str) -> dict:
+def f32_weights(cfg):
+    """``cfg`` with f32 compute and parameters: a card-vs-CPU check's CPU
+    model, whose weights the card draws from the seed and copies."""
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+
+
+def logits_parity_cpu(cpu_cfg, seed: int, cpu_params, prompts, max_len: int) -> dict:
+    """``logits_parity``'s CPU pass: the first steps' logits of ``cpu_cfg``
+    on the CPU (plain versions, f32) from ``cpu_params``."""
+    t0 = time.perf_counter()
+    return {"want": first_steps(cpu_cfg, cpu_params, prompts, max_len),
+            "t_cpu": time.perf_counter() - t0}
+
+
+def logits_parity(small, seed: int, prompts, max_len: int, what: str, cpu: dict = None) -> dict:
     """A few-layer full-width model (``small``): the first dense and packed
     steps' logits (``first_steps``) on the card (kernels, bf16 compute)
     against the CPU (plain versions, f32; the f32 weights drawn on the card
     and copied), by ``row_rel_err`` within ``LOGITS_ROW_TOL``, with the
     launches the code implies (``serve_launches``); then the planted K4
-    fault (``planted_k4_fault``), which must fall outside it."""
-    cpu_cfg = dataclasses.replace(small, dtype="float32", param_dtype="float32")
-    t0 = time.perf_counter()
+    fault (``planted_k4_fault``), which must fall outside it.  ``cpu``,
+    when given, is the CPU pass's result (``logits_parity_cpu`` in the CPU
+    passes' process); without it the CPU pass runs here."""
+    cpu_cfg = f32_weights(small)
     params = init_params(cpu_cfg, seed=seed, device=DEV)
     card = compute_params(params, small)
-    params = tree_map(lambda x: x.cpu(), params)
-    want = first_steps(cpu_cfg, params, prompts, max_len)
-    t_cpu = time.perf_counter() - t0
+    if cpu is None:
+        cpu = logits_parity_cpu(cpu_cfg, seed, tree_map(lambda x: x.cpu(), params), prompts,
+                                max_len)
     del params
+    want, t_cpu = cpu["want"], cpu["t_cpu"]
 
     def errs(got):
         return {k: row_rel_err(got[k], w) for k, w in want.items()}
@@ -4961,19 +5024,29 @@ def zoo_engine(cfg, params, prompts, packed: bool, **kw) -> ContinuousBatcher:
     return eng
 
 
-def zoo_model(name: str, index: int, seed: int, keep: bool = False):
+def zoo_parity_case(name: str, index: int, seed: int):
+    """15's 2-layer card-vs-CPU check of a zoo model: (the model at
+    ``ZOO_PARITY_LAYERS`` layers, full width, gemma3-27b's as 'LG' so that
+    both kinds run; the serving run's last ``SLOTS`` prompts; its cache
+    length)."""
+    cfg = zoo_config(name)
+    pattern = "LG" if "L" in cfg.pattern else cfg.layer_pattern
+    small = dataclasses.replace(cfg, n_layers=ZOO_PARITY_LAYERS, layer_pattern=pattern)
+    return small, zoo_requests(cfg, seed, index)[1][-SLOTS:], zoo_max_len(cfg)
+
+
+def zoo_model(name: str, index: int, seed: int, keep: bool = False, cpu: dict = None):
     """One zoo model: the 2-layer card-vs-CPU check, then the full model
     (random weights from ``seed``): paged vs dense first-step logits (and,
     with a window, a prompt past it chunk by chunk), served unpacked and
     packed, eager then graphed (the counters' window); streams identical.
     Returns (the graphed runs' launches, their records, and with ``keep``
-    the parameters and prompts, for the front-end phase)."""
+    the parameters and prompts, for the front-end phase).  ``cpu``: the
+    check's CPU pass, from the CPU passes' process (``zoo_parity_case``)."""
     cfg = zoo_config(name)
     lens, prompts = zoo_requests(cfg, seed, index)
-    # 2 layers at full width: gemma3-27b's as 'LG', so that both kinds run
-    pattern = "LG" if "L" in cfg.pattern else cfg.layer_pattern
-    logits_parity(dataclasses.replace(cfg, n_layers=ZOO_PARITY_LAYERS, layer_pattern=pattern),
-                  seed, prompts[-SLOTS:], zoo_max_len(cfg), cfg.name)
+    small, parity_prompts, max_len = zoo_parity_case(name, index, seed)
+    logits_parity(small, seed, parity_prompts, max_len, cfg.name, cpu)
     free_device()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5791,15 +5864,17 @@ def moe_phase(seed: int, rng) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def k3_pair_inputs(rng, b: int, h: int, kvh: int, s: int, d: int = 128):
+def k3_pair_inputs(rng, b: int, h: int, kvh: int, s: int, d: int = 128, sk: int = None):
     """q, k, v, dO as transposed (B, heads, S, d) views of (B, S, heads, d)
-    bf16 storage, the layout the model passes."""
+    bf16 storage, the layout the model passes; k and v ``sk`` long when
+    given (cross-attention)."""
 
-    def t(heads):
-        x = torch.from_numpy(rng.standard_normal((b, s, heads, d), dtype=np.float32))
+    def t(heads, n):
+        x = torch.from_numpy(rng.standard_normal((b, n, heads, d), dtype=np.float32))
         return x.to(DEV, torch.bfloat16).transpose(1, 2)
 
-    return t(h), t(kvh), t(kvh), t(h)
+    sk = s if sk is None else sk
+    return t(h, s), t(kvh, sk), t(kvh, sk), t(h, s)
 
 
 def k3_plain_by_kv_head(q, k, v, out, lse, do, **kw):
@@ -6144,63 +6219,84 @@ def sort_drops(cfg, record: list) -> list:
     return out
 
 
-def moe_cpu_passes(jobs, out, done, device: str = DEV) -> None:
-    """18b's CPU passes in a process of their own (``MoeCpuPasses``; the
-    card runs the smoke's other work meanwhile): each model's
-    weights drawn on ``device`` from its seed (the values the main process
-    draws again for its card run), kept on the CPU, then in f32 through
-    ``moe_parity_cpu``; each result, or the traceback of a failure, is put
-    on ``out`` as (name, result).  The process waits for ``done`` before it
-    ends: the receiver maps the results' tensors from it."""
+def run_cpu_passes(jobs, out, done, device: str = DEV) -> None:
+    """The smoke's card-vs-CPU checks' CPU passes (7's, 15's, 18b's and
+    19c's) in a process of their own (``CpuPasses``; the card runs the
+    smoke's other work meanwhile), in the order of ``jobs``: a job
+    (name, cfg, seed[, fn, *args]) has its weights drawn on ``device`` from
+    its seed (the values the main process draws again for its card run),
+    copied to the CPU in f32, and passed to ``fn(cfg, seed, cpu_params,
+    *args)`` (without ``fn``: ``moe_parity_cpu``, or ``whisper_parity_cpu``
+    for an enc-dec model); each result, or the traceback of a failure, is
+    put on ``out`` as (name, result).  The process waits for ``done``
+    before it ends: the receiver maps the results' tensors from it."""
     torch.set_num_threads(max(1, (os.cpu_count() or 3) - 2))  # two cores for the card's host work
     try:
-        drawn = [(name, cfg, seed, tree_map(lambda x: x.cpu(),
-                                            init_params(cfg, seed=seed, device=device)))
-                 for name, cfg, seed in jobs]
-        if device != "cpu":
-            torch.cuda.empty_cache()
-        while drawn:
-            name, cfg, seed, params = drawn.pop(0)
-            out.put((name, moe_parity_cpu(cfg, seed, tree_map(lambda x: x.float(), params))))
+        for name, cfg, seed, *rest in jobs:
+            params = tree_map(lambda x: x.cpu().float(), init_params(cfg, seed=seed, device=device))
+            if device != "cpu":
+                torch.cuda.empty_cache()
+            fn, args = (rest[0], rest[1:]) if rest else (
+                whisper_parity_cpu if cfg.is_encdec else moe_parity_cpu, ())
+            out.put((name, fn(cfg, seed, params, *args)))
             del params
     except BaseException:  # noqa: BLE001 - handed to the main process
         out.put(("error", traceback.format_exc()))
     done.wait()
 
 
-def moe_cpu_result(proc, results, timeout_s: float = 600.0):
-    """The next (name, result) of ``moe_cpu_passes``; fails on its error,
+def cpu_pass_result(proc, results, timeout_s: float = 600.0):
+    """The next (name, result) of ``run_cpu_passes``; fails on its error,
     or when its process ends or ``timeout_s`` passes without one."""
     end = time.monotonic() + timeout_s
     while True:
         try:
             name, res = results.get(timeout=5.0)
         except queue.Empty:
-            check(proc.is_alive(), f"18b: the CPU passes' process ended (exit code "
+            check(proc.is_alive(), f"the CPU passes' process ended (exit code "
                                    f"{proc.exitcode}) without a result")
-            check(time.monotonic() < end, f"18b: no CPU pass result within {timeout_s} s")
+            check(time.monotonic() < end, f"no CPU pass result within {timeout_s} s")
             continue
-        check(name != "error", f"18b: the CPU passes failed:\n{res}")
+        check(name != "error", f"the CPU passes failed:\n{res}")
         return name, res
 
 
-class MoeCpuPasses:
-    """18b's CPU passes (``moe_cpu_passes``) in a spawned, daemonic process
-    (the interpreter's exit stops it if a phase fails): the smoke starts it
-    after phase 3, so that its CPU work runs beside the card's work of the
-    phases between, and phase 18 reads each model's result
-    (``result``)."""
+class CpuPasses:
+    """The card-vs-CPU checks' CPU passes (``run_cpu_passes``) in a spawned,
+    daemonic process (the interpreter's exit stops it if a phase fails):
+    the smoke starts it after phase 3, so that its CPU work runs beside the
+    card's work, and the phases read each result (``result``), in the order
+    they need them: 7's Local-SGD run (``LSGD``), 15's zoo checks (``zoo
+    <name>``), 19c's ``W_PARITY_LAYERS``-layer whisper-tiny (``WHISPER``),
+    18's MoE models (``cfgs``)."""
+
+    LSGD = "localsgd"
 
     def __init__(self, seed: int):
         ctx = torch.multiprocessing.get_context("spawn")
         self.cfgs = {name: moe_config(name, MOE_TRAIN_LAYERS) for name in MOE}
-        self.results, self.done = ctx.Queue(), ctx.Event()
-        self.proc = ctx.Process(target=moe_cpu_passes, daemon=True, args=(
-            [(n, c, seed) for n, c in self.cfgs.items()], self.results, self.done))
+        jobs = [(self.LSGD, localsgd_parity_config(get_config("qwen2_5_3b")), seed,
+                 localsgd_parity_cpu)]
+        for i, n in enumerate(ZOO):
+            small, prompts, max_len = zoo_parity_case(n, i, seed)
+            jobs.append((f"zoo {n}", f32_weights(small), seed, logits_parity_cpu, prompts,
+                         max_len))
+        jobs.append((WHISPER, whisper_config(W_PARITY_LAYERS), seed))
+        jobs += [(n, c, seed) for n, c in self.cfgs.items()]
+        self.results, self.done, self.got = ctx.Queue(), ctx.Event(), {}
+        self.proc = ctx.Process(target=run_cpu_passes, daemon=True, args=(
+            jobs, self.results, self.done))
         self.proc.start()
 
-    def result(self):
-        return moe_cpu_result(self.proc, self.results)
+    def result(self, name: str):
+        """``name``'s result, once the process has put it (results that
+        come before it are kept for their own call)."""
+        t0 = time.perf_counter()
+        while name not in self.got:
+            got, res = cpu_pass_result(self.proc, self.results)
+            self.got[got] = res
+        log(f"the CPU passes' {name}: waited {time.perf_counter() - t0:.1f} s for it")
+        return self.got.pop(name)
 
     def close(self) -> None:
         self.done.set()
@@ -6210,45 +6306,614 @@ class MoeCpuPasses:
             self.proc.join()
 
 
-def moe_train_phase(seed: int, rng, cpu_passes: MoeCpuPasses) -> dict:
+def moe_train_phase(seed: int, rng, cpu_passes: CpuPasses) -> dict:
     """Phase 18, training the MoE family: 18a K3 at its four new training
     pairs (``k3_pair_checks``, ``k3_pair_timing``), K2's backward at
     mixtral's 8,192 x 6,144 and qwen3-moe's 4,096 x 4,096, K1's bf16 form
     on an 805 M-element expert leaf; 18c each model at full width,
     ``MOE_TRAIN_LAYERS`` layer, through ``repro_torch.train.train``
     (``full_train_phase``); 18b per model the 1-layer card-vs-CPU gradient
-    check (``moe_train_parity``) against ``cpu_passes``' results, which it
-    then stops.  Returns the readings, records and the graphed runs'
-    launches."""
+    check (``moe_train_parity``) against ``cpu_passes``' results.  Returns
+    the readings, records and the graphed runs' launches."""
     out = {"k3": {}, "k2b": {}, "counts": {}}
     cfgs = cpu_passes.cfgs
-    try:
-        for pair in K3_PAIRS:
-            out["k3"][pair] = (k3_pair_checks(rng, pair), k3_pair_timing(rng, pair))
-            free_device()
-        for d, rows in ((6144, MOE_TRAIN_SEQ["mixtral_8x22b"]),
-                        (4096, MOE_TRAIN_SEQ["qwen3_moe_235b_a22b"])):
-            out["k2b"][d] = k2_bwd_checks_and_timing(rng, d=d, rows=rows)
-            free_device()
-        out["k1"] = k1_bf16_checks_and_timing(rng)
+    for pair in K3_PAIRS:
+        out["k3"][pair] = (k3_pair_checks(rng, pair), k3_pair_timing(rng, pair))
         free_device()
-        for name, cfg in cfgs.items():
-            log(f"{cfg.name}: {cfg.n_layers} of {get_config(name).n_layers} layers, full width, "
-                f"{cfg.param_count() / 1e9:.3f} B parameters in bf16; the sort dispatch at cf "
-                f"{cfg.capacity_factor}")
-            out["counts"][name] = full_train_phase(cfg, seed, f"{cfg.name} train", 1,
-                                                   MOE_TRAIN_SEQ[name])
-            free_device()
-        for _ in cfgs:
-            t0 = time.perf_counter()
-            name, cpu = cpu_passes.result()
-            log(f"18b: {name}'s CPU passes in; waited {time.perf_counter() - t0:.1f} s for them")
-            moe_train_parity(cfgs[name], seed, init_params(cfgs[name], seed=seed, device=DEV),
-                             cpu)
-            del cpu
-            free_device()
+    for d, rows in ((6144, MOE_TRAIN_SEQ["mixtral_8x22b"]),
+                    (4096, MOE_TRAIN_SEQ["qwen3_moe_235b_a22b"])):
+        out["k2b"][d] = k2_bwd_checks_and_timing(rng, d=d, rows=rows)
+        free_device()
+    out["k1"] = k1_bf16_checks_and_timing(rng)
+    free_device()
+    for name, cfg in cfgs.items():
+        log(f"{cfg.name}: {cfg.n_layers} of {get_config(name).n_layers} layers, full width, "
+            f"{cfg.param_count() / 1e9:.3f} B parameters in bf16; the sort dispatch at cf "
+            f"{cfg.capacity_factor}")
+        out["counts"][name] = full_train_phase(cfg, seed, f"{cfg.name} train", 1,
+                                               MOE_TRAIN_SEQ[name])
+        free_device()
+    for name, cfg in cfgs.items():
+        cpu = cpu_passes.result(name)
+        moe_train_parity(cfg, seed, init_params(cfg, seed=seed, device=DEV), cpu)
+        del cpu
+        free_device()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the enc-dec family (whisper-tiny)
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper_tiny"
+#: whisper-tiny's encoder frames and its decoder's text context (OpenAI's
+#: published n_audio_ctx and n_text_ctx); its attention is 6 heads of 64
+W_FRAMES, W_TEXT = 1500, 448
+#: 19b: requests (each its own seeded frames), greedy tokens a request; the
+#: card-vs-CPU check's requests and teacher-forced steps
+W_REQUESTS, W_NEW, W_PARITY_REQUESTS, W_PARITY_STEPS = 8, 128, 2, 16
+#: 19c: sequences a micro-batch (the training phase's 4 workers x 2
+#: micro-batches and 3 steps), sequences in the card-vs-CPU check
+W_MB_SEQS, W_PARITY_SEQS = 16, 2
+#: encoder and decoder layers of the card-vs-CPU checks (19b, 19c)
+W_PARITY_LAYERS = 2
+#: 19a: K3's ragged shapes, name -> (B, Sq, Sk, causal): 19c's micro-batch
+#: (its encoder's, decoder's and cross-attention's, each a JSON record of
+#: the forward and the backward), 19b's batched encode (a forward record)
+#: and a length below 128 off 64
+W_K3_SHAPES = {"s1500": (W_MB_SEQS, W_FRAMES, W_FRAMES, False),
+               "s448": (W_MB_SEQS, W_TEXT, W_TEXT, True),
+               "s448x1500": (W_MB_SEQS, W_TEXT, W_FRAMES, False),
+               "s1500_b8": (W_REQUESTS, W_FRAMES, W_FRAMES, False),
+               "s100": (W_MB_SEQS, 100, 100, True)}
+
+
+def whisper_config(layers: int = 0):
+    """whisper-tiny as published, or cut to ``layers`` encoder and decoder
+    layers (every width as published)."""
+    cfg = get_config(WHISPER)
+    return dataclasses.replace(cfg, n_layers=layers, enc_layers=layers) if layers else cfg
+
+
+def tail_mask_skipped(kind, plan, sq):
+    """A planted K3 fault: every forward key step marked mask-free and its
+    end moved to the walk's, so the tail tile's keys past Sk (TMA's zeros)
+    score as keys."""
+    if kind == "fwd":
+        plan[:, 3], plan[:, 4] = plan[:, 1], plan[:, 2]
+        plan[:, 5] = plan[:, 2] * flash_attention.STEP
+
+
+def last_key_tile_dropped(kind, plan, sq):
+    """A planted K3 fault: the dK/dV CTA of the last key tile walks nothing."""
+    if kind == "dkdv":
+        last = plan[:, 0] == plan[:, 0].max()
+        plan[last, 2] = plan[last, 1]
+        plan[last, 3] = plan[last, 4] = plan[last, 1]
+
+
+def tpu_range_floored(kind, plan, sq):
+    """A planted K3 fault: the forward walks the TPU kernel's range with its
+    block count floored (``t_hi = sk // bk``, what the plan took before
+    ragged lengths), so keys past the last whole 128-key block are dropped."""
+    if kind == "fwd":
+        cut = int(plan[:, 5].max()) // 128 * 128 // flash_attention.STEP
+        plan[:, 2] = np.minimum(plan[:, 2], cut)
+        plan[:, 4] = np.minimum(plan[:, 4], cut)
+        plan[:, 3] = np.minimum(plan[:, 3], plan[:, 4])
+        plan[:, 5] = np.minimum(plan[:, 5], cut * flash_attention.STEP)
+
+
+def k3_ragged_checks(rng):
+    """19a: K3's (64, 1) build at ``W_K3_SHAPES`` (6 heads of 64): forward
+    (out, lse) and backward (dq, dk, dv) against the plain versions row by
+    row, two backward runs bit-identical, and planted faults through the
+    schedule (``planted_plan``), each run as a kernel with the fault would
+    run (its forward, then its backward on its own out and lse), each
+    rejected by the readings it moves: the tail tile's mask skipped (where
+    Sk is off 64: its 28-36 zero keys of 1,500 move each row's softmax by
+    ~2%, at the row limit, and its lse by ~0.02, far over K3_LSE_TOL), the
+    TPU kernel's floored range (above 128 off 128: out, lse and every
+    gradient), the last key tile's dK/dV dropped (dk, dv).  Returns {shape:
+    (fwd max|err|, bwd max|err|)}."""
+    fwd, bwd = flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd
+    out_errs = {}
+    for name, (b, sq, sk, causal) in W_K3_SHAPES.items():
+        q, k, v, do = k3_pair_inputs(rng, b, 6, 6, sq, d=64, sk=sk)
+        kw = dict(causal=causal)
+        out, lse = fwd(q, k, v, **kw)
+        grads = bwd(q, k, v, out, lse, do, **kw)
+        again = bwd(q, k, v, out, lse, do, **kw)
+        # each fault's run and the readings (out, dq, dk, dv, lse) that must reject it
+        faults, caught_by = {}, {}
+        plants = [("last key tile's dK/dV dropped", last_key_tile_dropped, (2, 3))]
+        if sk % flash_attention.STEP:
+            plants.append(("tail mask skipped", tail_mask_skipped, (4,)))
+        if flash_attention._ragged(sq, sk):
+            plants.append(("TPU range floored", tpu_range_floored, (0, 1, 2, 3, 4)))
+        for fault, edit, readings in plants:
+            with planted_plan(edit):
+                bad_out, bad_lse = fwd(q, k, v, **kw)
+                faults[fault] = [bad_out, *bwd(q, k, v, bad_out, bad_lse, do, **kw), bad_lse]
+            caught_by[fault] = readings
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        what = (f"K3 (64, 1) {name}: B {b}, H = KV = 6, Sq {sq}, Sk {sk}, "
+                f"{'causal' if causal else 'bidirectional'}")
+        check(all(bool(torch.isfinite(x.float()).all()) for x in (out, lse, *grads)),
+              f"{what}: non-finite output")
+        errs = [row_rel_err(g, x) for g, x in zip((out, *grads), (want, *wants))]
+        e_lse = (lse - want_lse).abs().max().item()
+        limits = [K3_ROW_TOL] * 4 + [K3_LSE_TOL]
+        bad = {f: [row_rel_err(g, x) for g, x in zip(got[:4], (want, *wants))]
+               + [(got[4] - want_lse).abs().max().item()] for f, got in faults.items()}
+        log(f"{what}: row rel err out {errs[0]:.2e} (lse abs {e_lse:.1e}) dq {errs[1]:.2e} dk "
+            f"{errs[2]:.2e} dv {errs[3]:.2e}; planted faults (out, dq, dk, dv row rel, lse abs): "
+            + "; ".join(f"{f} {', '.join(f'{x:.2e}' for x in e)}" for f, e in bad.items()))
+        check(max(errs) <= K3_ROW_TOL, f"{what}: row relative errors {errs}")
+        check(e_lse <= K3_LSE_TOL, f"{what}: lse off by {e_lse}")
+        for f, e in bad.items():
+            check(all(e[i] > limits[i] for i in caught_by[f]),
+                  f"{what}: the limits let a planted fault ({f}) pass: {e}")
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"{what}: two backward runs differ (it has no atomics: it must not)")
+        out_errs[name] = ((out.float() - want.float()).abs().max().item(),
+                          max((g.float() - x.float()).abs().max().item()
+                              for g, x in zip(grads, wants)))
+        del want, wants, faults, grads, again
+        free_device()
+    return out_errs
+
+
+def k3_ragged_timing(rng):
+    """19a: K3's (64, 1) build at ``W_K3_SHAPES``: forward and backward, one
+    graph replay each (L2 flushed); the plain versions; SDPA's forward and
+    its backward alone (``is_causal`` top-left, which at Sq = Sk is the
+    kernel's right-aligned mask); the bounds from the admissible pairs.
+    Returns {shape: (fwd, bwd) record fields}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, (b, sq, sk, causal) in W_K3_SHAPES.items():
+        q, k, v, do = k3_pair_inputs(rng, b, 6, 6, sq, d=64, sk=sk)
+        kw = dict(causal=causal)
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+        fwd = time_ms(lambda: flash_attention.flash_attention_fwd(q, k, v, **kw))
+        bwd = time_ms(lambda: flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        plain_fwd = time_ms_eager(lambda: ref.flash_attention_fwd_ref(q, k, v, **kw), iters=3)
+        plain_bwd = time_ms_eager(lambda: ref.flash_attention_bwd_ref(q, k, v, want, want_lse,
+                                                                      do, **kw), iters=3)
+        lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=causal))
+        lib_bwd = sdpa_bwd_ms(q, k, v, do, causal=causal)
+        pairs = b * 6 * int(ref.attention_mask(sq, sk, causal, 0, device=DEV).sum().item())
+        io = 2 * (2 * q.numel() + k.numel() + v.numel())  # bf16 q, k, v, o
+        fb, fby = bound_ms(io + 4 * lse.numel(), 4.0 * 64 * pairs)
+        bb, bby = bound_ms(io + 2 * q.numel() + 4 * lse.numel() + 2 * (q.numel() + 2 * k.numel()),
+                           10.0 * 64 * pairs)
+        log(f"K3 (64, 1) time {name} (B {b}, H 6, Sq {sq}, Sk {sk}, "
+            f"{'causal' if causal else 'bidirectional'}, {pairs} admissible pairs): fwd kernel "
+            f"{fwd * 1e3:.1f} us, plain {plain_fwd * 1e3:.1f} us, SDPA {lib_fwd * 1e3:.1f} us, "
+            f"bound {fb * 1e3:.1f} us ({fby}); bwd kernels {bwd * 1e3:.1f} us, plain "
+            f"{plain_bwd * 1e3:.1f} us, SDPA bwd alone {lib_bwd * 1e3:.1f} us, bound "
+            f"{bb * 1e3:.1f} us ({bby})")
+        rows[name] = (dict(ms=fwd, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby,
+                           library_ms=lib_fwd),
+                      dict(ms=bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby,
+                           library_ms=lib_bwd))
+        del want, out, lse
+        free_device()
+    return rows
+
+
+def whisper_frames(cfg, seed: int, n: int, offset: int = 0) -> torch.Tensor:
+    """``n`` requests' stub front-end frames (n, 1500, d), f32 from a numpy
+    generator of ``seed`` (the same values in the CPU passes' process)."""
+    rng = np.random.default_rng(seed * 1000 + 19 + offset)
+    return torch.from_numpy(rng.standard_normal((n, W_FRAMES, cfg.d_model), dtype=np.float32))
+
+
+def whisper_tokens(cfg, seed: int, shape, offset: int = 0) -> torch.Tensor:
+    rng = np.random.default_rng(seed * 1000 + 190 + offset)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+
+
+def launch_window(before: dict):
+    """The launches since ``before`` (``ops.launch_counts(by_shape=True)``):
+    (by kernel name, by (kernel name, (B, Sq, Sk)) for the shapes launched)."""
+    got = {k: v - before.get(k, 0) for k, v in ops.launch_counts(by_shape=True).items()}
+    return ({k: v for k, v in got.items() if isinstance(k, str)},
+            {k: v for k, v in got.items() if not isinstance(k, str) and v})
+
+
+def k3_shape_launches(b: int, sq: int, sk: int, fwd: int, bwd: int) -> dict:
+    """A K3 tally at one (B, Sq, Sk): ``fwd`` forwards, ``bwd`` backwards."""
+    return {k: n for k, n in ((("flash_attention", (b, sq, sk)), fwd),
+                              (("flash_attention_bwd", (b, sq, sk)), bwd)) if n}
+
+
+def whisper_generate(cfg, params, frames, first, eager: bool):
+    """19b's serving run: one batched ``encode`` of every request's frames,
+    the decode cache holding each layer's cross K/V, then ``W_NEW`` greedy
+    tokens a request through ``make_serve_step`` (graphed unless ``eager``).
+    Returns (tokens fed (B, W_NEW), each step's logits, launches by kernel
+    and by shape, the encode's and the steps' walls, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts(by_shape=True)
+    step = dp_steps.make_serve_step(cfg)
+    fed, logits = [first], []
+    with mode(eager):
+        t0 = time.perf_counter()
+        enc = model_lib.encode(params, cfg, frames)
+        cache = init_decode_cache(params, cfg, len(frames), W_NEW, enc_out=enc)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in range(W_NEW):
+            nxt, _ = step(params, cache, fed[-1], np.full(len(frames), t, np.int64))
+            logits.append(step.logits.clone())
+            fed.append(nxt.clone())
+        torch.cuda.synchronize()
+        t_steps = time.perf_counter() - t0
+    return (torch.cat(fed[:-1], 1), logits, launch_window(before), t_enc, t_steps,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def whisper_cross_kv_swapped(cache, layers=None) -> None:
+    """A planted fault: each request's decode reads the next request's
+    cross K/V (the cache's rows rolled along the batch), in every decoder
+    layer or in the first ``layers``."""
+    for kv in cache["cross_kv"][:layers]:
+        for x in kv:
+            x.copy_(x.roll(1, 0))
+
+
+def whisper_one_layer_swapped(cache) -> None:
+    """A milder planted fault: the first decoder layer's cross K/V alone
+    from the next request."""
+    whisper_cross_kv_swapped(cache, 1)
+
+
+def whisper_decode_logits(cfg, params, frames, tokens, fault=None):
+    """(each teacher-forced step's logits (B, steps, V) f32, the forward's
+    logits of the same tokens) for ``frames`` and ``tokens`` (B, steps):
+    ``decode_step`` over a dense cache (``fault(cache)`` applied to it
+    first), and ``forward``."""
+    with torch.no_grad():
+        enc = model_lib.encode(params, cfg, frames)
+        cache = init_decode_cache(params, cfg, len(frames), tokens.shape[1], enc_out=enc)
+        if fault is not None:
+            fault(cache)
+        steps = [model_lib.decode_step(params, cfg, cache, tokens[:, t:t + 1], t)[0].float()
+                 for t in range(tokens.shape[1])]
+        full, _ = model_lib.forward(params, cfg, {"tokens": tokens, "frames": frames})
+    return torch.cat(steps, 1), full.float()
+
+
+def whisper_serve_parity(seed: int):
+    """19b's ``W_PARITY_LAYERS``-layer full-width check: the first
+    ``W_PARITY_REQUESTS`` requests' ``W_PARITY_STEPS`` teacher-forced decode
+    steps and the teacher-forced ``forward`` (K3 at 1,500 frames and the
+    cross shape) on the card (bf16 compute) against the CPU (plain
+    versions, f32; the f32 weights drawn on the card and copied), row by
+    row within ``LOGITS_ROW_TOL``; the planted fault (each request decoding
+    against another's cross K/V) outside it.  A milder fault, one layer's
+    cross K/V from another request, is logged with what the limit makes
+    of it and not required to be rejected: it shows the margin."""
+    cfg = whisper_config(W_PARITY_LAYERS)
+    cpu_cfg = dataclasses.replace(cfg, dtype="float32")
+    frames = whisper_frames(cfg, seed, W_PARITY_REQUESTS)
+    tokens = whisper_tokens(cfg, seed, (W_PARITY_REQUESTS, W_PARITY_STEPS))
+    params = init_params(cfg, seed=seed, device=DEV)
+    card = compute_params(params, cfg)
+    t0 = time.perf_counter()
+    want = [x.to(DEV) for x in whisper_decode_logits(
+        cpu_cfg, tree_map(lambda x: x.cpu(), params), frames, tokens)]
+    t_cpu = time.perf_counter() - t0
+    del params
+    got = whisper_decode_logits(cfg, card, frames.to(DEV), tokens.to(DEV))
+    bad = whisper_decode_logits(cfg, card, frames.to(DEV), tokens.to(DEV),
+                                whisper_cross_kv_swapped)
+    mild = whisper_decode_logits(cfg, card, frames.to(DEV), tokens.to(DEV),
+                                 whisper_one_layer_swapped)
+    sound = [row_rel_err(g, w) for g, w in zip(got, want)]
+    faulty = row_rel_err(bad[0], want[0])
+    milder = row_rel_err(mild[0], want[0])
+    log(f"19b parity {W_PARITY_LAYERS} + {W_PARITY_LAYERS} layers (full width), "
+        f"{W_PARITY_REQUESTS} requests x {W_PARITY_STEPS} teacher-forced tokens, card vs CPU "
+        f"row rel err: decode steps {sound[0]:.2e}, forward {sound[1]:.2e} (limit "
+        f"{LOGITS_ROW_TOL}); planted fault (another request's cross K/V) decode {faulty:.2e} "
+        f"({faulty / LOGITS_ROW_TOL:.2f}x the limit); milder fault (layer 0's cross K/V alone "
+        f"from another request) decode {milder:.2e} "
+        f"({'rejected' if milder > LOGITS_ROW_TOL else 'passes the limit'}); "
+        f"the CPU pass (weights drawn on the card) took {t_cpu:.1f} s")
+    check(all(math.isfinite(e) and e <= LOGITS_ROW_TOL for e in sound),
+          f"19b: card logits differ from the CPU's: {sound}")
+    check(faulty > LOGITS_ROW_TOL, f"19b: the logits metric lets a planted fault (another "
+                                   f"request's cross K/V) pass: {faulty}")
+    return sound
+
+
+def whisper_serve(seed: int, card: str):
+    """19b: whisper-tiny served at full width and depth (bf16 compute copy
+    of f32 weights from ``seed``): ``W_REQUESTS`` requests, each its own
+    ``W_FRAMES`` seeded frames, one batched encode and ``W_NEW`` greedy
+    tokens each through ``make_serve_step``, eager then graphed (the
+    counters' window): graphed equal to eager bit for bit (tokens and every
+    step's logits), every step's logits against the teacher-forced
+    ``forward`` of the same tokens within ``LOGITS_ROW_TOL`` a row, the
+    launches the code implies (the encoder's K3 forwards; a decode step
+    runs no kernel of its own: plain attention, LayerNorm); ms an encode, ms
+    a decode step, tokens/s, peak.  Returns the graphed run's launches by
+    kernel and by shape."""
+    cfg = whisper_config()
+    sound = whisper_serve_parity(seed)
+    params = compute_params(init_params(cfg, seed=seed, device=DEV), cfg)
+    frames = whisper_frames(cfg, seed, W_REQUESTS).to(DEV)
+    first = whisper_tokens(cfg, seed, (W_REQUESTS, 1), offset=1).to(DEV)
+    e_fed, e_logits, _, e_enc, e_steps, _ = whisper_generate(cfg, params, frames, first, True)
+    ops.reset_launch_counts()  # the serving path starts here
+    fed, logits, (counts, shapes), t_enc, t_steps, peak = whisper_generate(
+        cfg, params, frames, first, False)
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.enc_layers
+    check(counts == want, f"19b: launches {counts}, the code implies {want}")
+    want_shapes = k3_shape_launches(W_REQUESTS, W_FRAMES, W_FRAMES, cfg.enc_layers, 0)
+    check(shapes == want_shapes, f"19b: K3 launches by shape {shapes}, the code implies "
+                                 f"{want_shapes}")
+    check(torch.equal(fed, e_fed) and all(torch.equal(a, b) for a, b in zip(logits, e_logits)),
+          "19b: graphed tokens or logits differ from the eager run's")
+    with torch.no_grad():
+        teacher = model_lib.forward(params, cfg, {"tokens": fed, "frames": frames})[0]
+    gaps = torch.stack([row_gap(lg[:, 0], teacher[:, t]) for t, lg in enumerate(logits)]).cpu()
+    worst = float(gaps.max())
+    check(math.isfinite(worst) and worst <= LOGITS_ROW_TOL,
+          f"19b: decode logits vs the teacher-forced forward {worst:.4f} over {LOGITS_ROW_TOL}")
+    step = dp_steps.make_serve_step(cfg)
+    cache = init_decode_cache(params, cfg, W_REQUESTS, W_NEW,
+                              enc_out=model_lib.encode(params, cfg, frames))
+    pos = np.full(W_REQUESTS, W_NEW - 1, np.int64)
+    step_ms = {"graphed": timed_calls(lambda: step(params, cache, first, pos))}
+    with graphs.disable_graphs():
+        step_ms["eager"] = timed_calls(lambda: step(params, cache, first, pos))
+    enc_ms = time_ms_eager(lambda: model_lib.encode(params, cfg, frames))
+    tok_s = W_REQUESTS * W_NEW / t_steps
+    log(f"19b whisper-tiny served ({cfg.enc_layers} + {cfg.n_layers} layers, full width, "
+        f"{card}): {W_REQUESTS} requests x {W_FRAMES} frames, {W_NEW} greedy tokens each; "
+        f"graphed = eager bit for bit (tokens, every step's logits); decode vs teacher-forced "
+        f"forward row gap max {worst:.2e} (limit {LOGITS_ROW_TOL}); card vs CPU {sound[0]:.2e} / "
+        f"{sound[1]:.2e}; launches {counts}; encode {enc_ms:.3f} ms (device, events; the run's "
+        f"first, with the cache's cross K/V: {t_enc * 1e3:.1f} ms graphed, {e_enc * 1e3:.1f} ms "
+        f"eager, host clock); a decode step {step_ms['graphed']:.3f} ms graphed, "
+        f"{step_ms['eager']:.3f} ms eager; {W_NEW} steps {t_steps:.3f} s graphed "
+        f"({tok_s:.1f} tokens/s), {e_steps:.3f} s eager; peak {peak:.2f} GiB")
+    del params, cache, step, logits, e_logits
+    free_device()
+    return counts, shapes, dict(encode_ms=enc_ms, step_ms=step_ms["graphed"], tok_s=tok_s,
+                                peak=peak)
+
+
+def whisper_batch(cfg, seed: int, step: int, n: int) -> dict:
+    """Step ``step``'s global batch of ``n`` sequences: ``W_TEXT`` tokens,
+    unit weights and ``W_FRAMES`` bf16 frames each, on the card."""
+    return {"tokens": whisper_tokens(cfg, seed, (n, W_TEXT), offset=2 + step).to(DEV),
+            "weights": torch.ones((n, W_TEXT), device=DEV),
+            "frames": whisper_frames(cfg, seed, n, offset=2 + step).to(DEV, torch.bfloat16)}
+
+
+def whisper_train_run(cfg, seed: int, eager: bool, latencies, tau: float, batches):
+    """19c's run: ``make_train_step`` (AdamW, lr 1e-4, clip 1.0) over the
+    training phase's workers and micro-batches, DropCompute at ``tau``, one
+    step a batch; returns (losses, completed fractions, each step's kept
+    micro-batches' seconds, final parameters on the host, launches by kernel
+    and by shape, peak GiB)."""
+    n, m = TRAIN_WORKERS, TRAIN_MB
+    shape = InputShape("whisper", W_TEXT, n * m * W_MB_SEQS, "train", microbatches=m)
+    opt, step = dp_steps.make_train_step(cfg, shape, DropConfig(enabled=True, tau=tau), n,
+                                         lr=1e-4, clip_norm=1.0)
+    params = init_params(cfg, seed=seed, device=DEV)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts(by_shape=True)
+    losses, fractions, mb_s = [], [], []
+    with mode(eager):
+        for batch, lat in zip(batches, latencies):
+            params, state, metrics = step(params, state, batch, lat)
+            losses.append(float(metrics["loss"]))
+            fractions.append(float(metrics["completed_fraction"]))
+            mb_s.append(elapsed_s(metrics["microbatch_marks"]))
+    torch.cuda.synchronize()
+    return (losses, fractions, mb_s, [x.cpu() for x in tree_leaves(params)],
+            launch_window(before), torch.cuda.max_memory_allocated() / 2**30)
+
+
+def whisper_parity_loss(p, c, dev, tokens, frames, plant=contextlib.nullcontext):
+    """One ``loss_fn`` gradient of 19c's check: (loss_sum, the gradient
+    leaves by path)."""
+    grad_fn = make_grad_fn(lambda pp, mb: model_lib.loss_fn(pp, c, mb))
+    with plant():
+        g, ls, _ = grad_fn(model_lib.train_params(p, c),
+                           {"tokens": tokens.to(dev), "frames": frames.to(dev)})
+    return float(ls), dict(named_leaves(g))
+
+
+def whisper_parity_cpu(cfg, seed: int, cpu_params) -> dict:
+    """19c's CPU passes of ``cfg`` (``W_PARITY_LAYERS`` layers, full width)
+    on ``cpu_params`` (the card's f32 weights): the reference (plain
+    versions, f32 compute) and the control (the same in bf16 compute),
+    without remat (the same sums), on ``W_PARITY_SEQS`` sequences of
+    ``W_TEXT`` tokens and ``W_FRAMES`` frames.  Returns the reference's
+    loss and leaves, each leaf's control gap and the passes' seconds."""
+    tokens = whisper_tokens(cfg, seed, (W_PARITY_SEQS, W_TEXT), offset=9)
+    frames = whisper_frames(cfg, seed, W_PARITY_SEQS, offset=9)
+    cpu_cfg = dataclasses.replace(cfg, dtype="float32", remat=False)
+    t0 = time.perf_counter()
+    loss, grads = whisper_parity_loss(cpu_params, cpu_cfg, "cpu", tokens, frames)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ctl = whisper_parity_loss(cpu_params, dataclasses.replace(cpu_cfg, dtype="bfloat16"),
+                                 "cpu", tokens, frames)
+    control = leaf_rel_errs(ctl, grads, "cpu")
+    return {"loss": loss, "grads": grads, "control": control, "t_cpu": t_cpu,
+            "t_ctl": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def cross_kv_detached():
+    """A planted fault: every decoder block's cross K/V made from a detached
+    encoder output, so the encoder's leaves lose their gradient."""
+    sound = model_lib._cross_kv
+
+    def faulty(blk, enc_out, cfg):
+        return sound(blk, enc_out.detach(), cfg)
+
+    model_lib._cross_kv = faulty
+    try:
+        yield
     finally:
-        cpu_passes.close()
+        model_lib._cross_kv = sound
+
+
+def whisper_train_parity(seed: int, cpu: dict) -> dict:
+    """19c's ``W_PARITY_LAYERS``-layer full-width check of ``loss_fn`` on
+    ``W_PARITY_SEQS`` sequences: the loss sum and every gradient leaf on the
+    card (kernels, bf16 compute, remat) against the CPU's (``cpu``, from
+    ``whisper_parity_cpu`` in the CPU passes' process), phase 10's limits
+    (the loss within PARITY_LOSS_REL_TOL, each leaf within the larger of
+    PARITY_LEAF_REL_TOL and PARITY_CONTROL_FACTOR times the CPU's own bf16
+    gap); the planted fault (the cross K/V detached from the encoder) must
+    put leaves over their limits."""
+    cfg = whisper_config(W_PARITY_LAYERS)
+    tokens = whisper_tokens(cfg, seed, (W_PARITY_SEQS, W_TEXT), offset=9)
+    frames = whisper_frames(cfg, seed, W_PARITY_SEQS, offset=9)
+    params = init_params(cfg, seed=seed, device=DEV)
+    cpu_g = {k: v.to(DEV) for k, v in cpu["grads"].items()}
+    before = ops.launch_counts()
+    loss, g = whisper_parity_loss(params, cfg, DEV, tokens, frames)
+    after = ops.launch_counts()
+    errs = leaf_rel_errs(g, cpu_g, DEV)
+    limit = {k: max(PARITY_LEAF_REL_TOL, PARITY_CONTROL_FACTOR * cpu["control"][k]) for k in errs}
+    loss_err = abs(loss - cpu["loss"]) / abs(cpu["loss"])
+    bad_loss, bad_g = whisper_parity_loss(params, cfg, DEV, tokens, frames, cross_kv_detached)
+    bad = leaf_rel_errs(bad_g, cpu_g, DEV)
+    caught = sorted(k for k, e in bad.items() if e > limit[k])
+    worst = max(errs, key=lambda k: errs[k] / limit[k])
+    log(f"19c parity {W_PARITY_LAYERS} + {W_PARITY_LAYERS} layers (full width), "
+        f"{W_PARITY_SEQS} x ({W_FRAMES} frames + {W_TEXT} tokens): loss_sum card {loss:.4f} / "
+        f"cpu {cpu['loss']:.4f} (rel {loss_err:.2e}, limit {PARITY_LOSS_REL_TOL}); worst leaf "
+        f"against its limit {worst} {errs[worst]:.2e} (CPU bf16 control "
+        f"{cpu['control'][worst]:.2e}; limit {limit[worst]:.2e}); encoder leaves "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items() if k.startswith("/encoder"))
+        + f"; the CPU f32 pass took {cpu['t_cpu']:.1f} s, its bf16 control {cpu['t_ctl']:.1f} s "
+        f"(in the CPU passes' process); launches " + ", ".join(
+            f"{k} {after[k] - before[k]}" for k in ("flash_attention", "flash_attention_bwd"))
+        + f"; planted fault (cross K/V detached from the encoder): loss rel "
+        f"{abs(bad_loss - cpu['loss']) / abs(cpu['loss']):.2e}, {len(caught)} leaves over their "
+        f"limits, e.g. {caught[:3]}")
+    check(after["flash_attention_bwd"] - before["flash_attention_bwd"]
+          == cfg.enc_layers + 2 * cfg.n_layers,
+          "19c: the card run did not go through K3's backward once an attention")
+    check(math.isfinite(loss) and all(math.isfinite(e) for e in errs.values()),
+          "19c: non-finite card result")
+    check(loss_err <= PARITY_LOSS_REL_TOL, f"19c: loss relative difference {loss_err}")
+    over = {k: e for k, e in errs.items() if e > limit[k]}
+    check(not over, f"19c: leaves over their limits {over}")
+    check(any(k.startswith("/encoder") for k in caught),
+          f"19c: the limits let a planted fault (cross K/V detached) pass: {caught}")
+    return {"loss": loss_err, "leaves": errs}
+
+
+def whisper_train(seed: int, cpu_passes, card: str):
+    """19c: whisper-tiny at full width and depth trained through DropCompute
+    (``make_train_step``: ``TRAIN_WORKERS`` workers x ``TRAIN_MB``
+    micro-batches of ``W_MB_SEQS`` x (``W_FRAMES`` frames + ``W_TEXT``
+    tokens), AdamW, ``TRAIN_STEPS`` steps, tau at the median of the latency
+    draws' sums), eager then graphed (the counters' window): completed
+    fractions of the draws, the launches the code implies a kept
+    micro-batch (3 K3 forwards a layer pair and 3 more in the remat
+    backward, 3 K3 backwards, K1 a leaf), graphed losses and final
+    parameters equal to the eager run's; ms a kept micro-batch, kept
+    tokens/s, peak; K3's launches by shape, as the wrappers tallied them,
+    against those the code implies at the encoder's, decoder's and cross
+    shapes.  Then the 2-layer card-vs-CPU check (``whisper_train_parity``).
+    Returns the graphed run's launches by kernel and by shape."""
+    cfg = whisper_config()
+    n, m, steps = TRAIN_WORKERS, TRAIN_MB, TRAIN_STEPS
+    latency = LatencyModel(base=0.45, noise=NoiseModel(kind="paper_lognormal"))
+    draws = [latency.sample_at(s, n, m, seed=seed + 1) for s in range(steps)]
+    tau = float(np.median(np.stack(draws).sum(-1)))
+    masks = [drop_mask(t, tau, 1).numpy() for t in draws]
+    want_fractions = [float(np.float32(k.sum()) / np.float32(k.size)) for k in masks]
+    kept = int(sum(k.sum() for k in masks))
+    check(0 < kept < n * m * steps, f"19c: tau {tau} should drop some micro-batches, not all")
+    batches = [whisper_batch(cfg, seed, s, n * m * W_MB_SEQS) for s in range(steps)]
+    names = [k for k, _ in named_leaves(init_params(cfg, seed=seed, device="meta"))]
+    per_mb = {k: 0 for k in ops.KERNELS}
+    attention = cfg.enc_layers + 2 * cfg.n_layers  # encoder, decoder self and cross
+    per_mb.update(flash_attention=2 * attention, flash_attention_bwd=attention,
+                  masked_accum=len(names))
+    want = {k: kept * v for k, v in per_mb.items()}
+    want_shapes = {}  # remat: two forwards an attention a kept micro-batch
+    for sq, sk, layers in ((W_FRAMES, W_FRAMES, cfg.enc_layers), (W_TEXT, W_TEXT, cfg.n_layers),
+                           (W_TEXT, W_FRAMES, cfg.n_layers)):
+        want_shapes.update(k3_shape_launches(W_MB_SEQS, sq, sk, kept * 2 * layers,
+                                             kept * layers))
+    runs = {}
+    for eager in (True, False):
+        tag = "eager" if eager else "graphed"
+        if not eager:
+            ops.reset_launch_counts()  # the training path starts here
+        losses, fractions, mb_s, final, (counts, shapes), peak = whisper_train_run(
+            cfg, seed, eager, draws, tau, batches)
+        check(all(math.isfinite(x) for x in losses), f"19c {tag}: non-finite losses {losses}")
+        check(fractions == want_fractions, f"19c {tag}: completed fractions {fractions}, the "
+                                           f"latency draws give {want_fractions}")
+        check(counts == want, f"19c {tag}: launches {counts}, the code implies {want}")
+        check(shapes == want_shapes, f"19c {tag}: K3 launches by shape {shapes}, the code "
+                                     f"implies {want_shapes}")
+        ms = [t * 1e3 for ts in mb_s for t in ts]
+        tokens = W_MB_SEQS * (W_TEXT + W_FRAMES)
+        log(f"19c whisper-tiny train {tag} ({cfg.enc_layers} + {cfg.n_layers} layers, full "
+            f"width, {card}): {n} workers x {m} micro-batches of {W_MB_SEQS} x ({W_FRAMES} "
+            f"frames + {W_TEXT} tokens), AdamW, tau {tau:.4f} s, completed {fractions}, losses "
+            f"{losses}; ms a kept micro-batch {[round(x, 2) for x in ms]} (median "
+            f"{statistics.median(ms):.2f}: {tokens / statistics.median(ms) * 1e3:.0f} frames + "
+            f"tokens a second); peak {peak:.2f} GiB; launches {counts}; K3 by (B, Sq, Sk) "
+            f"{shapes}")
+        runs[tag] = (losses, final, statistics.median(ms), peak)
+        free_device()
+    (got, got_p, mb_ms, peak), (want_l, want_p, _, _) = runs["graphed"], runs["eager"]
+    same = [a == b for a, b in zip(got, want_l)]
+    log(f"19c: graphed vs eager losses {'bit-identical' if all(same) else 'differ'}: {got} / "
+        f"{want_l}")
+    if not all(same):
+        at = same.index(False)
+        gap = abs(got[at] - want_l[at]) / abs(want_l[at])
+        check(gap < GRAPH_LEAF_GAP, f"19c: step {at}'s loss differs by {gap}")
+    check_gaps(f"19c: final parameters after {steps} steps", leaf_gaps(names, got_p, want_p))
+    del batches, runs
+    free_device()
+    whisper_train_parity(seed, cpu_passes.result(WHISPER))
+    return counts, shapes, dict(mb_ms=mb_ms, peak=peak)
+
+
+def whisper_phase(seed: int, rng, cpu_passes, card: str) -> dict:
+    """Phase 19, the enc-dec family: 19a K3's (64, 1) build at whisper's
+    ragged shapes (``k3_ragged_checks``, ``k3_ragged_timing``), 19b
+    whisper-tiny served (``whisper_serve``), 19c trained
+    (``whisper_train``).  Returns the readings, records and launches."""
+    out = {"k3": k3_ragged_checks(rng), "k3_t": k3_ragged_timing(rng)}
+    free_device()
+    out["serve_counts"], serve_shapes, out["serve"] = whisper_serve(seed, card)
+    out["train_counts"], train_shapes, out["train"] = whisper_train(seed, cpu_passes, card)
+    # K3's launches at each of W_K3_SHAPES on the main paths, as the wrappers
+    # tallied them: 19c's graphed run (B 16) and 19b's graphed encode (B 8)
+    tally = {**train_shapes, **serve_shapes}
+    out["launches"] = {name: tuple(tally.get((kind, (b, sq, sk)), 0)
+                                   for kind in ("flash_attention", "flash_attention_bwd"))
+                       for name, (b, sq, sk, _) in W_K3_SHAPES.items()}
     return out
 
 
@@ -6365,9 +7030,9 @@ def main() -> int:
                                            dims=zoo_dims(zcfg["starcoder2_7b"]))}
     free_device()
     phase_done("3")
-    # 18b's CPU passes from here on, in a process of their own beside the
-    # card's work (read in phase 18)
-    moe_cpu = MoeCpuPasses(args.seed)
+    # the card-vs-CPU checks' CPU passes (7's, 15's, 18b's, 19c's) from here
+    # on, in a process of their own beside the card's work
+    cpu_passes = CpuPasses(args.seed)
 
     # 4. serving at full width
     t0 = time.perf_counter()
@@ -6402,7 +7067,7 @@ def main() -> int:
     # mamba2-130m through the same path (K6's backward in the local steps)
     localsgd_counts, _, keep = localsgd_phase(qcfg, args.seed)
     free_device()
-    localsgd_parity(cfg, args.seed, keep)
+    localsgd_parity(cfg, args.seed, keep, cpu_passes.result(CpuPasses.LSGD))
     free_device()
     mcfg = get_config("mamba2_130m")
     m_localsgd_counts, _, _ = localsgd_phase(
@@ -6482,7 +7147,8 @@ def main() -> int:
     # gemma3-27b (kept for 16)
     zoo_counts, zoo_recs = {}, {}
     for i, n in enumerate(ZOO):
-        zoo_counts[n], zoo_recs[n], kept = zoo_model(n, i, args.seed, keep=n == "gemma3_27b")
+        zoo_counts[n], zoo_recs[n], kept = zoo_model(n, i, args.seed, keep=n == "gemma3_27b",
+                                                     cpu=cpu_passes.result(f"zoo {n}"))
         free_device()
     phase_done("15")
 
@@ -6508,13 +7174,29 @@ def main() -> int:
     # backward at d 6144 and 4096, K1's bf16 form (18a); per model the 1-layer
     # card-vs-CPU gradient check (18b) and the model at full width, 1 layer,
     # through DropCompute (18c)
-    p18 = moe_train_phase(args.seed, np.random.default_rng(args.seed + 18), moe_cpu)
-    moe_train = p18["counts"]
-    for n, c in moe_train.items():
-        check(c["flash_attention"] > 0 and c["flash_attention_bwd"] > 0 and c["rmsnorm_bwd"] > 0
-              and c["masked_accum"] > 0, f"{n} train: kernels not run: {c}")
+    try:
+        p18 = moe_train_phase(args.seed, np.random.default_rng(args.seed + 18), cpu_passes)
+        moe_train = p18["counts"]
+        for n, c in moe_train.items():
+            check(c["flash_attention"] > 0 and c["flash_attention_bwd"] > 0
+                  and c["rmsnorm_bwd"] > 0 and c["masked_accum"] > 0,
+                  f"{n} train: kernels not run: {c}")
+        free_device()
+        phase_done("18")
+
+        # 19. the enc-dec family: K3's (64, 1) build at whisper-tiny's ragged
+        # shapes (19a), whisper-tiny served (19b) and trained through
+        # DropCompute (19c), each at full width and depth with a 2-layer
+        # card-vs-CPU check
+        p19 = whisper_phase(args.seed, np.random.default_rng(args.seed + 19), cpu_passes, card)
+    finally:
+        cpu_passes.close()
+    w_train = p19["train_counts"]
+    check(p19["serve_counts"]["flash_attention"] > 0 and w_train["flash_attention"] > 0
+          and w_train["flash_attention_bwd"] > 0 and w_train["masked_accum"] > 0,
+          f"whisper: kernels not run: serving {p19['serve_counts']}, training {w_train}")
     free_device()
-    phase_done("18")
+    phase_done("19")
 
     # K3's (128, 8) records keep the earlier paths' launches; the (64, 1)
     # build's records take phase 11's, the (256, 10) build's phase 13's; K4's
@@ -6531,9 +7213,11 @@ def main() -> int:
     # launches, K1's bf16 form's record its accumulator's; K2 takes them too
     moe_k2 = {k: sum(c[k] for c in moe_train.values()) if k in ("rmsnorm", "rmsnorm_bwd") else 0
               for k in serve_counts}
+    # K3's (64, 1) records at whisper's ragged shapes take phase 19's launches
+    # by shape; whisper's K1 launches (f32 masters) join K1's f32 record
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
                 + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k] + moe_k2[k]
-                + (0 if k in k3_own else bert_counts[k] + rg_train_counts[k])
+                + (0 if k in k3_own else bert_counts[k] + rg_train_counts[k] + w_train[k])
                 + (0 if k == "paged_attention" else rg_counts[k] + p14_rg[k] + zoo[k])
                 + p14_qwen[k] + p14_mamba[k]
                 for k in serve_counts}
@@ -6622,6 +7306,18 @@ def main() -> int:
                **p18["k3"][128, g][1][i])
           for g, n in ((6, "mixtral_8x22b"), (16, "qwen3_moe_235b_a22b"))
           for i, kind in enumerate(("flash_attention", "flash_attention_bwd"))],
+        *[dict(name=f"{kind}_d64_g1_{shape}", route="cuda",
+               source="src/repro_torch/kernels/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:91",
+               launches=p19["launches"][shape][i], max_abs_err=p19["k3"][shape][i],
+               **p19["k3_t"][shape][i])
+          for shape in ("s1500", "s448", "s448x1500")
+          for i, kind in enumerate(("flash_attention", "flash_attention_bwd"))],
+        dict(name="flash_attention_d64_g1_s1500_b8", route="cuda",
+             source="src/repro_torch/kernels/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:91",
+             launches=p19["launches"]["s1500_b8"][0], max_abs_err=p19["k3"]["s1500_b8"][0],
+             **p19["k3_t"]["s1500_b8"][0]),
         dict(name="masked_accum", route="triton",
              source="src/repro_torch/kernels/masked_accum.py",
              replaces="src/repro/kernels/masked_accum.py:33",
@@ -6660,7 +7356,8 @@ def main() -> int:
         f"serving (12c): {rg_counts}; recurrentgemma training (13c): {rg_train_counts}; phase "
         f"14: qwen {p14_qwen}, recurrentgemma {p14_rg}, mamba {p14_mamba}; dense zoo (15): "
         f"{zoo_counts}; front-end (16): {fe_counts}; MoE serving (17): {moe_counts}; MoE "
-        f"training (18c): {moe_train}")
+        f"training (18c): {moe_train}; whisper serving (19b): {p19['serve_counts']}; whisper "
+        f"training (19c): {w_train}")
     for n, t in k4_zoo_t.items():
         log(f"K4 at {n}'s steps: " + "; ".join(
             f"{shape} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.2f}, plain "

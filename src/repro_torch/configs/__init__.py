@@ -22,6 +22,7 @@ ARCHITECTURES: List[str] = [
     "starcoder2_7b",
     "qwen3_moe_235b_a22b",
     "gemma3_27b",
+    "whisper_tiny",
 ]
 
 # The paper's own models (DropCompute §5: BERT-Large + BERT-1.5B); encoder

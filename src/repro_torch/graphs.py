@@ -26,9 +26,10 @@ instead, and on the CPU a ``StepGraph`` always calls ``fn`` directly (CUDA
 graphs do not exist there).  A capture that fails raises
 :class:`GraphCaptureError`; nothing falls back to the eager path.
 
-Launch counters (``kernels.ops.launch_counts``) count what the card runs: a
-capture runs nothing, so the launches its wrappers counted are taken back
-and recorded with the graph, and every replay adds them again.
+Launch counters (``kernels.ops.launch_counts``, by kernel and by shape)
+count what the card runs: a capture runs nothing, so the launches its
+wrappers counted are taken back and recorded with the graph, and every
+replay adds them again.
 """
 from __future__ import annotations
 
@@ -126,7 +127,7 @@ class _Entry:
     graph: Any
     inputs: Tuple[torch.Tensor, ...]
     outputs: Tuple[torch.Tensor, ...]
-    launches: Dict[str, int]
+    launches: Dict[Hashable, int]
     capture_s: float
     pool_bytes: int
 
@@ -194,14 +195,15 @@ class StepGraph:
         t0 = time.perf_counter()
         static = tuple(self._device_input(x) for x in inputs)
         warm = _as_tuple(self._capture.warm_up(lambda: self.fn(*static, **consts)))
-        before = kernel_ops.launch_counts()
+        before = kernel_ops.launch_counts(by_shape=True)
         try:
             graph, out, pool_bytes = self._capture.capture(lambda: self.fn(*static, **consts),
                                                            warm)
         except RuntimeError as e:
             raise GraphCaptureError(f"capturing the step of key {key!r} failed: {e}") from e
         finally:
-            counted = {k: v - before[k] for k, v in kernel_ops.launch_counts().items()}
+            counted = {k: v - before.get(k, 0)
+                       for k, v in kernel_ops.launch_counts(by_shape=True).items()}
             kernel_ops.add_launches({k: -v for k, v in counted.items()})  # nothing ran
         entry = _Entry(graph, static, out, {k: v for k, v in counted.items() if v},
                        time.perf_counter() - t0, int(pool_bytes))

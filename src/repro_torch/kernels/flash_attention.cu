@@ -20,6 +20,14 @@
 //   a query with no admissible key returns, as
 //   the TPU kernel does, the mean of the values in that range (every score
 //   -1e30, every weight exp(0)), and a query whose range is empty returns 0.
+//   Sq and Sk are any positive lengths.  At a length the TPU kernel does not
+//   take (above 128 and not a multiple of 128: whisper-tiny's 1,500 frames
+//   and 448 tokens) the range is its blocks' counted up, cut at Sk, which at
+//   any query with a key is every admissible key.  The last tile of a
+//   ragged length is partial: TMA reads its rows past S as zeros, so the
+//   schedule never marks it free and the mask gives keys at or past Sk
+//   -inf in the forward and P = 0 in the backward, and query rows at or
+//   past Sq P = 0 in the dK/dV pass; their outputs are not stored.
 //
 // Backward (grads of o through the saved lse): dq, dk, dv in q's / k's /
 // v's layouts.  P is recomputed per tile from q, k and lse; the (S, S)
@@ -34,6 +42,9 @@
 //      order and writes bf16 dK, dV;
 //   4. `attn_bwd_dq`: dQ by a second pass, one CTA per (128-query tile,
 //      head, batch) over 64-key steps.
+// The backward reads lse and delta in 64-row bulk copies of rows `ls`
+// floats apart: Sq, or at a length that is not a multiple of 64 Sq rounded
+// up to one, the wrapper's pad holding lse = +inf and delta = 0 (P = 0).
 //
 // Bound: at Sq = Sk = 2048, D = 128, causal, the forward does ~4*D flops per
 // admissible (head, key, query) against ~(q + k + v + o) bytes read once:
@@ -72,8 +83,8 @@
 // attention, group 10, window 2,048: a tile is four slabs, the D-wide
 // products two m64n128k16 halves, and a consumer thread's 64 x 256 f32
 // accumulator takes 128 of its 232 registers; the dQ CTA's K / V ring has
-// one stage, `DqSmem`); Sq and Sk must be multiples of 64, and of 128
-// above 128; the wrapper raises on any other shape.
+// one stage, `DqSmem`).  With segment ids Sq and Sk must be multiples of
+// 64 (their ids are copied 64 at a time); the wrapper raises on others.
 //
 // At recurrentgemma-2b's training shape (10 heads on 1 KV head, S 8,192,
 // window 2,048, causal: 14.7 M admissible (query, key) pairs a head, 146.8
@@ -117,6 +128,7 @@ struct Layout {  // element strides of a (B, heads, S, D) tensor, D contiguous
 
 struct Problem {
   int h, kvh, sq, sk, causal, window;
+  int ls;  // floats between the (b, h) rows of lse and delta: Sq, or padded (backward)
   float scale;
   const int* q_seg;   // (B, Sq) or null
   const int* kv_seg;  // (B, Sk) or null
@@ -701,7 +713,7 @@ __global__ void __launch_bounds__(CTA_THREADS<D>, 1) attn_fwd(
       *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * e] * inv, acc[4 * j + 2 * e + 1] * inv);
     if (c == 0)
-      lse[((long long)b * p.h + hh) * p.sq + r] =
+      lse[((long long)b * p.h + hh) * p.ls + r] =
           m[e] == NEG ? NEG : (m[e] + __log2f(fmaxf(l[e], 1e-30f))) * LN2;
   }
 }
@@ -714,7 +726,7 @@ __global__ void __launch_bounds__(CTA_THREADS<D>, 1) attn_fwd(
 template <int D>
 __global__ void __launch_bounds__(128) attn_bwd_delta(
     const bf16* __restrict__ o, const bf16* __restrict__ dout, float* __restrict__ delta,
-    Layout lo, Layout ldo, int b_count, int h, int sq) {
+    Layout lo, Layout ldo, int b_count, int h, int sq, int ls) {
   constexpr int LANES = D / 8;
   const long long rowid = ((long long)blockIdx.x * 128 + threadIdx.x) / LANES;
   const int col = (threadIdx.x % LANES) * 8;
@@ -734,7 +746,7 @@ __global__ void __launch_bounds__(128) attn_bwd_delta(
   }
 #pragma unroll
   for (int sh = LANES / 2; sh > 0; sh >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, sh);
-  if (threadIdx.x % LANES == 0) delta[rowid] = acc;  // (B, H, Sq): rowid = (b * h + hh) * sq + i
+  if (threadIdx.x % LANES == 0) delta[((long long)b * h + hh) * ls + i] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -822,7 +834,7 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvTiles& t, const Problem&
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int qcol = hf * N + 8 * n + 2 * c + (e & 1), kpos = kr0 + 8 * (e >> 1);
-            if (kpos >= p.sk || !admissible(p, q0 + qcol + off, kpos) ||
+            if (kpos >= p.sk || q0 + qcol >= p.sq || !admissible(p, q0 + qcol + off, kpos) ||
                 (p.q_seg && t.seg[s * STEP + qcol] != kseg[e >> 1]))
               st[4 * n + e] = 0.f;
           }
@@ -896,7 +908,7 @@ __global__ void __launch_bounds__(CTA_THREADS<D>, 1) attn_bwd_dkdv(
   const int k0 = row[0], s_lo = row[1], s_hi = row[2];
   const int hh = blockIdx.x, b = blockIdx.y, kh = hh / (p.h / p.kvh);
   const int warp = threadIdx.x / 32;
-  const long long lrow = ((long long)b * p.h + hh) * p.sq;  // (b, hh) row of lse / delta
+  const long long lrow = ((long long)b * p.h + hh) * p.ls;  // (b, hh) row of lse / delta
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -1063,7 +1075,7 @@ __global__ void __launch_bounds__(CTA_THREADS<D>, 1) attn_bwd_dq(
   for (int e = 0; e < 2; ++e) {
     const int r = r0 + 8 * e;
     if (r >= p.sq) continue;  // a 64-row problem: the tile's second half is padding
-    const long long at = ((long long)b * p.h + hh) * p.sq + r;
+    const long long at = ((long long)b * p.h + hh) * p.ls + r;
     rl[e] = lse[at] * LOG2E;
     rd[e] = delta[at];
     if (p.q_seg) qseg[e] = p.q_seg[(long long)b * p.sq + r];
@@ -1099,7 +1111,7 @@ __global__ void __launch_bounds__(CTA_THREADS<D>, 1) attn_bwd_dq(
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int kcol = hf * N + 8 * n + 2 * c + (e & 1);
-            if (!admissible(p, r0 + 8 * (e >> 1) + off, k0 + kcol) ||
+            if (k0 + kcol >= p.sk || !admissible(p, r0 + 8 * (e >> 1) + off, k0 + kcol) ||
                 (p.q_seg && sSeg[s * STEP + kcol] != qseg[e >> 1]))
               sc[4 * n + e] = 0.f;
           }
@@ -1194,16 +1206,17 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
   return e;
 }
 
-// a multiple of 64, and of 128 above 128
-bool length_ok(int s) { return s > 0 && s % 64 == 0 && (s <= 128 || s % 128 == 0); }
+// any positive length; with segment ids a multiple of 64
+bool length_ok(int s, bool seg) { return s > 0 && (!seg || s % 64 == 0); }
 
 // the head dims instantiated below
-bool shape_ok(int b, int h, int kvh, int sq, int sk, int d) {
+bool shape_ok(int b, int h, int kvh, int sq, int sk, int d, bool seg) {
   return b > 0 && kvh > 0 && h % kvh == 0 && (d == 64 || d == 128 || d == 256) &&
-         length_ok(sq) && length_ok(sk);
+         length_ok(sq, seg) && length_ok(sk, seg);
 }
 
 int tiles(int s) { return (s + TILE - 1) / TILE; }
+int steps(int s) { return (s + STEP - 1) / STEP; }
 
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, const Problem& p,
@@ -1237,7 +1250,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
     const long long rows = (long long)b * h * sq;
     attn_bwd_delta<D><<<(unsigned)((rows * (D / 8) + 127) / 128), 128, 0, s>>>(
         static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(delta),
-        lo, ldo, b, h, sq);
+        lo, ldo, b, h, sq, p.ls);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   {  // 2. dK, dV partials
@@ -1247,7 +1260,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
       return -2;
     if ((e = allow_smem(attn_bwd_dkdv<D>, DkdvSmem<D>::BYTES, &dkdv_smem_set)) != cudaSuccess)
       return (int)e;
-    attn_bwd_dkdv<D><<<dim3(h, b, sk / STEP), CTA_THREADS<D>, DkdvSmem<D>::BYTES, s>>>(
+    attn_bwd_dkdv<D><<<dim3(h, b, steps(sk)), CTA_THREADS<D>, DkdvSmem<D>::BYTES, s>>>(
         mq, mdo, mk, mv, static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<float*>(dk_part), static_cast<float*>(dv_part), p);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -1296,8 +1309,10 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
                                          const void* plan, int b, int h, int kvh, int sq, int sk,
                                          int d, const long long* strides, int causal, int window,
                                          float scale, void* stream) {
-  if (!shape_ok(b, h, kvh, sq, sk, d) || (q_seg == nullptr) != (kv_seg == nullptr)) return -1;
-  const Problem p{h, kvh, sq, sk, causal, window, scale, static_cast<const int*>(q_seg),
+  if (!shape_ok(b, h, kvh, sq, sk, d, q_seg != nullptr) ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
+    return -1;
+  const Problem p{h, kvh, sq, sk, causal, window, sq, scale, static_cast<const int*>(q_seg),
                   static_cast<const int*>(kv_seg), static_cast<const int*>(plan)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
@@ -1308,18 +1323,21 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
 }
 
 // strides: q, k, v, o, dout; dq / dk / dv share q's / k's / v's strides;
-// delta (B, H, Sq) and dk_part / dv_part (B, H, Sk, D) are f32 scratch;
-// plans: tile_plan("dkdv", ...) and tile_plan("dq", ...).
+// lse and delta (B, H, ls) f32 (ls >= Sq, a multiple of 64 unless Sq is ls;
+// the pad holds lse = +inf, delta = 0) and dk_part / dv_part (B, H, Sk, D)
+// f32 scratch; plans: tile_plan("dkdv", ...) and tile_plan("dq", ...).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
                                          void* delta, void* dq, void* dk, void* dv,
                                          void* dk_part, void* dv_part, const void* q_seg,
                                          const void* kv_seg, const void* plan_dkdv,
                                          const void* plan_dq, int b, int h, int kvh, int sq,
-                                         int sk, int d, const long long* strides, int causal,
-                                         int window, float scale, void* stream) {
-  if (!shape_ok(b, h, kvh, sq, sk, d) || (q_seg == nullptr) != (kv_seg == nullptr)) return -1;
-  const Problem p{h, kvh, sq, sk, causal, window, scale, static_cast<const int*>(q_seg),
+                                         int sk, int d, int ls, const long long* strides,
+                                         int causal, int window, float scale, void* stream) {
+  if (!shape_ok(b, h, kvh, sq, sk, d, q_seg != nullptr) ||
+      (q_seg == nullptr) != (kv_seg == nullptr) || ls < sq || (ls != sq && ls % STEP))
+    return -1;
+  const Problem p{h, kvh, sq, sk, causal, window, ls, scale, static_cast<const int*>(q_seg),
                   static_cast<const int*>(kv_seg), static_cast<const int*>(plan_dkdv)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {

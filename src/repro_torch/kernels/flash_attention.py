@@ -33,7 +33,8 @@ visits, which of those skip the mask and the CTAs' launch order, is
 ``tile_plan``, made here once per shape and read by the kernels as a
 device table.  ``flash_attention_fwd.launches`` /
 ``flash_attention_bwd.launches`` count calls (the backward's four
-launches count as one call).
+launches count as one call), and their ``shapes`` the same calls by
+(B, Sq, Sk).
 """
 from __future__ import annotations
 
@@ -365,7 +366,7 @@ def load_train_library() -> ctypes.CDLL:
         return lib
     lib._signed = True
     lib.repro_flash_attention_fwd.argtypes = [_P] * 8 + [_I] * 6 + [_P, _I, _I, _F, _P]
-    lib.repro_flash_attention_bwd.argtypes = [_P] * 16 + [_I] * 6 + [_P, _I, _I, _F, _P]
+    lib.repro_flash_attention_bwd.argtypes = [_P] * 16 + [_I] * 7 + [_P, _I, _I, _F, _P]
     lib.repro_flash_attention_fwd.restype = ctypes.c_int
     lib.repro_flash_attention_bwd.restype = ctypes.c_int
     return lib
@@ -373,27 +374,35 @@ def load_train_library() -> ctypes.CDLL:
 
 class UnbuiltShapeError(ValueError):
     """A shape or dtype that a kernel is not built for: training attention
-    at a head dim, group, dtype or sequence length ``flash_attention.cu``
-    does not take, or SSD inputs at a state size, head dim, dtype or chunk
-    length ``ssd_chunk.cu`` does not take (``kernels.ssd_chunk`` raises this
-    class too, so one ``except`` covers both)."""
+    at a head dim, group or dtype ``flash_attention.cu`` does not take (or
+    segment ids at a length that is not a multiple of 64), or SSD inputs at
+    a state size, head dim, dtype or chunk length ``ssd_chunk.cu`` does not
+    take (``kernels.ssd_chunk`` raises this class too, so one ``except``
+    covers both)."""
 
 
-def _length_ok(s: int) -> bool:
-    return s > 0 and s % 64 == 0 and (s <= 128 or s % 128 == 0)
-
-
-def require_trained(head_dim: int, group: int, dtype: torch.dtype, *lengths: int) -> None:
+def require_trained(head_dim: int, group: int, dtype: torch.dtype, *lengths: int,
+                    segments: bool = False) -> None:
     """Raise ``UnbuiltShapeError`` unless the training kernels take attention
-    with this head dim, group (H / KV), dtype and query / key lengths."""
+    with this head dim, group (H / KV), dtype and query / key lengths: any
+    positive lengths, multiples of ``STEP`` with segment ids (the kernels
+    copy a step's ids in one bulk copy)."""
     if (head_dim, group) not in TRAINED:
         raise UnbuiltShapeError(f"head dim {head_dim} and group H/KV = {group}: the kernels "
                                 f"are built for (head dim, group) in {sorted(TRAINED)}")
     if dtype != torch.bfloat16:
         raise UnbuiltShapeError(f"the kernels take bfloat16 q, k, v, not {dtype}")
-    if not all(_length_ok(s) for s in lengths):
-        raise UnbuiltShapeError(f"sequence lengths {lengths}: the kernels take multiples "
-                                f"of 64, and of 128 above 128")
+    if not all(s > 0 for s in lengths):
+        raise UnbuiltShapeError(f"sequence lengths {lengths}: the kernels take positive lengths")
+    if segments and any(s % STEP for s in lengths):
+        raise UnbuiltShapeError(f"sequence lengths {lengths}: with segment ids the kernels "
+                                f"take multiples of {STEP}")
+
+
+def _ragged(sq: int, sk: int) -> bool:
+    """Lengths the TPU kernel does not take: above its 128-row block and not
+    a multiple of it (it asserts divisibility, ``:119``)."""
+    return any(s > 128 and s % 128 for s in (sq, sk))
 
 
 def _key_ranges(sq: int, sk: int, causal: bool, window: int):
@@ -430,8 +439,13 @@ def tile_plan(kind: str, sq: int, sk: int, causal: bool, window: int) -> np.ndar
 
     ``"fwd"`` walks the TPU kernel's visited range at its default 128/128
     blocks (``src/repro/kernels/flash_attention.py:45-53``), so a query
-    with no admissible key gets the mean of the same values; the backward
-    plans walk every tile holding an admissible pair, and only those."""
+    with no admissible key gets the mean of the same values; at a length
+    that kernel does not take (``_ragged``) the block count is rounded up
+    and the range cut at Sk, and ``inner end`` is Sk: every admissible key
+    is visited, as the reference's plain ``sdpa`` attends them at those
+    lengths.  The backward plans walk every tile holding an admissible
+    pair, and only those.  A tile that holds elements past the length is
+    never free."""
     outer_n, inner = PLAN_KINDS[kind]
     n_outer, n_inner = (sk, sq) if kind == "dkdv" else (sq, sk)
     lo, hi = (_query_ranges if kind == "dkdv" else _key_ranges)(sq, sk, causal, window)
@@ -441,12 +455,13 @@ def tile_plan(kind: str, sq: int, sk: int, causal: bool, window: int) -> np.ndar
         end = n_inner
         if kind == "fwd":  # _attn_kernel's lo / hi for the block holding these rows
             bq, bk = min(128, sq), min(128, sk)
-            t_hi = sk // bk
+            t_hi = -(-sk // bk)
             if causal:
                 t_hi = min((start + bq - 1 + sk - sq) // bk + 1, t_hi)
             t_lo = max((start + sk - sq - window + 1) // bk, 0) if window > 0 else 0
-            end = max(t_hi, 0) * bk
-            s_lo, s_hi = t_lo * bk // inner, -(-end // inner)
+            reach = min(max(t_hi, 0) * bk, sk)
+            end = sk if _ragged(sq, sk) else reach
+            s_lo, s_hi = t_lo * bk // inner, -(-reach // inner)
         else:
             some = b > a
             s_lo = int(a[some].min()) // inner if some.any() else 0
@@ -491,7 +506,7 @@ def _check_train(q, k, v, q_segment_ids, kv_segment_ids):
     if kb != b or dk != d or h % kvh:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair: want equal "
                          f"batch and head dim, and H a multiple of KV")
-    require_trained(d, h // kvh, q.dtype, sq, sk)
+    require_trained(d, h // kvh, q.dtype, sq, sk, segments=q_segment_ids is not None)
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
     if q_segment_ids is not None:
@@ -549,7 +564,7 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, q_segment_ids=None,
             1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash-attention forward launch failed (code {err})")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, b, sq, sk)
     return out, lse
 
 
@@ -558,7 +573,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=0,
     """(dq, dk, dv), each in its input's layout, from the CUDA backward:
     delta = rowsum(dO * O); dK, dV per (key tile, query head) as f32
     partials, summed over each group in a fixed order; dQ by a second pass.
-    Deterministic, no atomics."""
+    Deterministic, no atomics.  At a query length that is not a multiple of
+    ``STEP`` lse and delta go to the kernels in rows padded to one (lse =
+    +inf and delta = 0 in the pad, so P = 0 there): the dK/dV pass copies
+    them a 64-row step at a time."""
     dims, qs, ks = _check_train(q, k, v, q_segment_ids, kv_segment_ids)
     b, h, kvh, sq, sk, d = dims
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, sq):
@@ -566,11 +584,18 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=0,
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("out and dout must have q's dtype, lse float32")
     q, k, v, out, dout = (_rows(x) for x in (q, k, v, out, dout))
-    lse = _aligned(lse.contiguous())
+    ls = -(-sq // STEP) * STEP
+    if ls == sq:
+        lse = _aligned(lse.contiguous())
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    else:
+        padded = torch.full((b, h, ls), math.inf, dtype=torch.float32, device=q.device)
+        padded[..., :sq] = lse
+        lse = padded
+        delta = torch.zeros((b, h, ls), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.stride() != q.stride() or dk.stride() != k.stride() or dv.stride() != v.stride():
         raise RuntimeError("gradient buffers must share their inputs' strides")
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dk_part = torch.empty((b, h, sk, d), dtype=torch.float32, device=q.device)
     dv_part = torch.empty_like(dk_part)
     plans = [_plan_tensor(kind, sq, sk, bool(causal), int(window), q.device)
@@ -580,14 +605,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=0,
         err = lib.repro_flash_attention_bwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(dout), _ptr(lse), _ptr(delta),
             _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dk_part), _ptr(dv_part), _ptr(qs), _ptr(ks),
-            _ptr(plans[0]), _ptr(plans[1]), b, h, kvh, sq, sk, d,
+            _ptr(plans[0]), _ptr(plans[1]), b, h, kvh, sq, sk, d, ls,
             _strides(q, k, v, out, dout), int(causal), int(window), 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash-attention backward launch failed (code {err})")
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, b, sq, sk)
     return dq, dk, dv
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = 0
+def _count(wrapper, *shape: int) -> None:
+    """One launch of ``wrapper``'s kernel, also tallied by its shape."""
+    wrapper.launches += 1
+    wrapper.shapes[shape] = wrapper.shapes.get(shape, 0) + 1
+
+
+flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+#: launches by (B, Sq, Sk) since the last reset (``ops.launch_counts(by_shape=True)``)
+flash_attention_fwd.shapes, flash_attention_bwd.shapes = {}, {}

@@ -19,7 +19,7 @@ requires grad.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Hashable
 
 import torch
 
@@ -43,22 +43,36 @@ KERNELS = {
 }
 
 
-def launch_counts() -> Dict[str, int]:
-    """Launches of each hand-written kernel since the last reset."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def launch_counts(by_shape: bool = False) -> Dict[Hashable, int]:
+    """Launches of each hand-written kernel since the last reset, by kernel
+    name.  With ``by_shape`` the kernels that also tally their launches by
+    problem shape (``shapes``: K3's forward and backward, by (B, Sq, Sk))
+    add one entry for each shape they launched at, keyed (name, shape)."""
+    counts: Dict[Hashable, int] = {name: fn.launches for name, fn in KERNELS.items()}
+    if by_shape:
+        counts.update({(name, shape): n for name, fn in KERNELS.items()
+                       for shape, n in getattr(fn, "shapes", {}).items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
 
 
-def add_launches(counts: Dict[str, int]) -> None:
-    """Add ``counts`` (kernel name -> launches) to the counters: a CUDA
-    graph's replay launches what its capture recorded
+def add_launches(counts: Dict[Hashable, int]) -> None:
+    """Add ``counts`` (``launch_counts``' keys -> launches) to the counters:
+    a CUDA graph's replay launches what its capture recorded
     (``graphs.StepGraph``), with no wrapper called."""
-    for name, n in counts.items():
-        KERNELS[name].launches += n
+    for key, n in counts.items():
+        if isinstance(key, tuple):
+            name, shape = key
+            tally = KERNELS[name].shapes
+            tally[shape] = tally.get(shape, 0) + n
+        else:
+            KERNELS[key].launches += n
 
 
 def _device_type(x: torch.Tensor) -> str:

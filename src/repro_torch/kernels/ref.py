@@ -114,16 +114,18 @@ def visited_keys(sq: int, sk: int, causal: bool, window: int, device=None):
     (``flash_attention.py:45-53``), for the 128-row query block holding
     the row.  A query with no admissible key returns the mean of the
     values in this range (``:110-112``); the CUDA kernel walks the same
-    range in 64-key tiles."""
+    range in 64-key tiles.  At a length that kernel does not take (above
+    128 and not a multiple of 128) its block count is rounded up and the
+    range cut at Sk (``flash_attention.tile_plan``)."""
     bq, bk = min(128, sq), min(128, sk)
     qs0 = _floordiv(torch.arange(sq, device=device), bq) * bq
-    hi = torch.full((sq,), sk // bk, device=device)
+    hi = torch.full((sq,), -(-sk // bk), device=device)
     if causal:
         hi = torch.minimum(_floordiv(qs0 + bq - 1 + sk - sq, bk) + 1, hi)
     lo = torch.zeros_like(hi)
     if window > 0:
         lo = torch.clamp(_floordiv(qs0 + sk - sq - window + 1, bk), min=0)
-    return lo * bk, hi * bk
+    return lo * bk, torch.clamp(hi * bk, max=sk)
 
 
 def attention_mask(sq: int, sk: int, causal: bool, window: int,

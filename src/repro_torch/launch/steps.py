@@ -62,7 +62,8 @@ class TrainStep:
     """One rank's step, ``step(params, opt_state, batch, latencies) ->
     (params, opt_state, metrics)``: ``params`` (the master tree) and
     ``opt_state`` are updated in place and returned; ``batch`` is the global
-    batch (``tokens``, ``weights``: (B, S) numpy arrays or tensors) and
+    batch (``tokens``, ``weights``: (B, S) numpy arrays or tensors; an
+    enc-dec model's ``frames`` (B, F, d) beside them) and
     ``latencies`` the (W, M) draw.  ``drop`` may be replaced between calls
     (a new tau needs no capture).  The compute copy and the accumulator are
     made at the first call and kept: later calls refill them in place.
@@ -82,12 +83,17 @@ class TrainStep:
         self._params = None
 
     def _blocks(self, batch: dict, dev: torch.device) -> dict:
-        """This rank's (worker, micro-batch) blocks, (W/R · M, mbw, S) each."""
+        """This rank's (worker, micro-batch) blocks of every leaf of the
+        batch, (W/R · M, mbw, ...) each, as the reference's ``to_micro``
+        maps the whole batch: ``tokens`` as int64, ``weights`` as f32, any
+        other leaf (``frames``) in its own dtype."""
         lo, hi = self.workers.start * self.m * self.mbw, self.workers.stop * self.m * self.mbw
+        dtypes = {"tokens": torch.long, "weights": torch.float32}
         out = {}
-        for k, dtype in (("tokens", torch.long), ("weights", torch.float32)):
-            x = torch.as_tensor(batch[k])[lo:hi]
-            out[k] = x.reshape(len(self.workers) * self.m, self.mbw, *x.shape[1:]).to(dev, dtype)
+        for k, v in batch.items():
+            x = torch.as_tensor(v)[lo:hi]
+            out[k] = x.reshape(len(self.workers) * self.m, self.mbw, *x.shape[1:]).to(
+                dev, dtypes.get(k, x.dtype))
         return out
 
     def __call__(self, params: Tree, opt_state, batch: dict, latencies):
@@ -199,6 +205,10 @@ class ServeStep:
     graph); a call with another parameter tree or cache starts new graphs.
     A paged cache's tile plans are made on the host from ``pos``
     (``decode_plans``), so ``pos`` is read back when it is a device tensor.
+    An enc-dec model's cache (``init_decode_cache(..., enc_out=)``) holds
+    each layer's cross K/V: the graph reads them in place, as static
+    buffers, so a new request batch's encoder output is written into them
+    (``copy_``) or given in a new cache.
     The returned tokens, and the step's logits (B, 1, V) left in
     ``logits``, are the graph's outputs, overwritten by the next call; the
     cache is updated in place.  MoE layers run ``moe_impl`` dispatch

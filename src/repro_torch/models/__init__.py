@@ -1,10 +1,11 @@
 """Model definitions for the port's training and serving paths ('G'/'L'/'R'/'M'
-decoder and 'B' encoder stacks)."""
+decoder and 'B' encoder stacks, and the enc-dec family)."""
 from .config import InputShape, ModelConfig
 from .model import (
     UnsupportedPatternError,
     compute_params,
     decode_step,
+    encode,
     init_decode_cache,
     init_params,
     packed_prefill,
@@ -18,6 +19,7 @@ __all__ = [
     "UnsupportedPatternError",
     "compute_params",
     "decode_step",
+    "encode",
     "init_decode_cache",
     "init_params",
     "packed_prefill",

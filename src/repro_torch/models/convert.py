@@ -4,7 +4,9 @@
 ``repro.models.model.init_params`` with its leaves turned into numpy
 arrays (``jax.tree.map(np.asarray, params)``) and returns the port's tree:
 same path names, the stacked ``groups`` tuple plus the ``tail`` list
-(``transformer.py:195-206``).  Each leaf is checked against the port's own
+(``transformer.py:195-206``); an enc-dec tree's ``encoder`` (``blocks``,
+``final_norm``, ``pos_embedding``) and its tail-only decoder's
+``cross_norm`` / ``cross_attn`` come across the same way.  Each leaf is checked against the port's own
 initializer (run on the ``meta`` device) for shape and dtype, so a tree
 from another config fails here and not as a shape error mid-step.
 """

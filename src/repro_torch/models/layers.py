@@ -153,17 +153,23 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
     return (x @ w.to(cd).reshape(d, -1)).reshape(*x.shape[:-1], *w.shape[1:])
 
 
+def _in_proj(p: Params, x: torch.Tensor, cfg: ModelConfig, name: str) -> torch.Tensor:
+    """x's projection by ``w<name>`` ('q', 'k' or 'v'), plus ``b<name>``
+    under ``qkv_bias``: (B, S, heads, D) in the compute dtype."""
+    y = _proj(x, p["w" + name], cfg.compute_dtype)
+    return y + p["b" + name].to(cfg.compute_dtype) if cfg.qkv_bias else y
+
+
+def _out_proj(p: Params, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The attention output (B, S, H, D) through ``wo``: (B, S, d)."""
+    wo = p["wo"].to(cfg.compute_dtype)
+    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, rope):
     """Projections, bias, QK-norm and RoPE (``rope``: ``rope_angles`` of the
     step's positions, or None without rotary positions)."""
-    cd = cfg.compute_dtype
-    q = _proj(x, p["wq"], cd)
-    k = _proj(x, p["wk"], cd)
-    v = _proj(x, p["wv"], cd)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(cd)
-        k = k + p["bk"].to(cd)
-        v = v + p["bv"].to(cd)
+    q, k, v = (_in_proj(p, x, cfg, name) for name in "qkv")
     if cfg.use_qk_norm:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
@@ -503,9 +509,7 @@ def apply_attention(
             out = sdpa(q, cache["k"].to(cd), cache["v"].to(cd), index.mask,
                        cfg.logit_softcap)
 
-    wo = p["wo"].to(cd)
-    y = out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
-    return y, cache
+    return _out_proj(p, out, cfg), cache
 
 
 def require_no_softcap(cfg: ModelConfig) -> None:
@@ -534,8 +538,30 @@ def apply_attention_nocache(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: 
     window = cfg.sliding_window if kind == "L" else 0
     out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                      causal=kind != "B", window=window).transpose(1, 2)
-    wo = p["wo"].to(cfg.compute_dtype)
-    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return _out_proj(p, out, cfg)
+
+
+def apply_cross_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, enc_kv,
+                          cached: bool = False) -> torch.Tensor:
+    """The 'X' kind of ``layers.apply_attention`` (``:514-524``): x (B, S,
+    d) attends, without a mask, the encoder's ``enc_kv`` = (K, V), each
+    (B, F, KV, D) in the compute dtype (``model._cross_kv``).  The query
+    projection takes ``bq`` under ``qkv_bias``; there is no RoPE.  Without
+    a cache (training, the teacher-forced forward) the attention is K3,
+    ``kernels.ops.flash_attention`` with ``causal=False`` (the reference's
+    ``sdpa`` up to 2,048 queries, ``sdpa_flash`` above: one function);
+    in a dense-cache ``decode_step`` (``cached``, one query row) it is the
+    plain ``sdpa``, as the dense decode branch's self-attention is and the
+    reference's is."""
+    q = _in_proj(p, x, cfg, "q")
+    k, v = enc_kv
+    if cached:
+        out = sdpa(q, k, v, None, cfg.logit_softcap)
+    else:
+        require_no_softcap(cfg)
+        out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                         causal=False).transpose(1, 2)
+    return _out_proj(p, out, cfg)
 
 
 def init_attention_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,

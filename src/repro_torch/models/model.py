@@ -4,6 +4,7 @@
     logits, aux = forward(params, cfg, batch)              # train / prefill
     loss_sum, w = loss_fn(params, cfg, batch)              # DropCompute GradFn
     cache = init_decode_cache(params, cfg, batch, L, linear=True)
+    cache = init_decode_cache(params, cfg, batch, L, enc_out=encode(params, cfg, frames))  # enc-dec
     logits, cache = prefill_chunk(params, cfg, cache, tokens, pos, lens)
     logits, cache, aux = prefill_chunk(..., moe_impl="capacity", return_aux=True)
     logits, cache = packed_prefill(params, cfg, cache, tokens, slots, positions)
@@ -16,7 +17,8 @@ the caller passes the paged kernel's tile plans (``chunk_plans`` /
 captured in a CUDA graph (``repro_torch.graphs``).
 
 ``batch`` is a dict: ``tokens`` (B, S) int, optional ``weights`` (B, S)
-per-token loss weights.  The port trains and serves decoder-only stacks of
+per-token loss weights, and for an enc-dec model ``frames`` (B, F, d), the
+encoder's stub front-end embeddings.  The port trains and serves decoder-only stacks of
 'G'/'L' attention, 'R' (RG-LRU) and 'M' (Mamba-2) layers, and trains encoder
 stacks of 'B' (bidirectional) blocks, the paper's BERT models, which have
 no decode shapes and so are never served.  'G'/'L' blocks with experts
@@ -24,7 +26,12 @@ no decode shapes and so are never served.  'G'/'L' blocks with experts
 ``moe_impl``: ``"sort"`` by default for ``forward`` and ``loss_fn``, whose
 loss adds the router's load-balancing term, ``"dense"`` for the serving
 steps, ``"capacity"`` for the engine's capacity factor); other families
-raise ``UnsupportedPatternError``.  On the card, training refuses shapes
+raise ``UnsupportedPatternError``.  Enc-dec models (whisper-tiny: a 'B'
+encoder over the frames, a decoder of 'G' blocks with cross-attention)
+train and serve through ``decode_step`` on a dense cache
+(``init_decode_cache(..., enc_out=encode(...))``, which holds each decoder
+layer's cross K/V); the engine, the prefill steps and the paged layout
+refuse them, as the reference's do.  On the card, training refuses shapes
 its kernels are not built for (``require_trainable``).
 
 Parameters are nested dicts with the reference's path names and shapes
@@ -47,7 +54,7 @@ from ..kernels import ssd_chunk as _ssd
 from . import layers as L
 from .config import ModelConfig
 from .ssm import chunk_len
-from .transformer import apply_stack, init_stack, init_stack_cache, tree_leaves
+from .transformer import apply_stack, init_block, init_stack, init_stack_cache, tree_leaves
 
 Tree = Any
 
@@ -57,13 +64,12 @@ class UnsupportedPatternError(NotImplementedError):
 
     Typed (and raised unconditionally, not ``assert``-ed) so callers can
     catch it.  The port serves and trains decoder-only 'G'/'L'/'R'/'M'
-    stacks, with or without experts, and trains 'B' encoder stacks; serving
-    a 'B' stack, enc-dec and VLM models raise it."""
+    stacks, with or without experts, trains 'B' encoder stacks, and trains
+    and decodes enc-dec models; serving a 'B' stack, multi-token serving
+    steps of an enc-dec model and VLM models raise it."""
 
 
-def _require_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.is_encdec:
-        raise UnsupportedPatternError(f"{what} does not support enc-dec models")
+def _require_no_prefix(cfg: ModelConfig, what: str) -> None:
     if cfg.prefix_len > 0:
         raise UnsupportedPatternError(f"{what} does not support VLM prefixes in the port yet")
 
@@ -76,31 +82,40 @@ def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
     """Raise ``UnsupportedPatternError`` unless the port can run ``cfg``
     through multi-token serving steps: decoder-only stacks of 'G'/'L'
     attention (with or without experts), 'R' (RG-LRU) and 'M' (Mamba-2)
-    layers without a VLM prefix.
+    layers without a VLM prefix or an encoder.
     A 'B' encoder stack has no decode shapes and is refused here (the
     serving engine, the paged layout, ``init_decode_cache`` and the
-    prefill steps all ask)."""
+    prefill steps all ask); so is an enc-dec model, which serves through
+    ``decode_step`` alone (``model.py:249-250``)."""
     if not set(cfg.pattern) <= _DECODER:
         raise UnsupportedPatternError(
             f"{what} supports 'G'/'L'/'R'/'M' layer patterns in the PyTorch port, got "
             f"{cfg.pattern!r}"
         )
-    _require_family(cfg, what)
+    if cfg.is_encdec:
+        raise UnsupportedPatternError(f"{what} does not support enc-dec models")
+    _require_no_prefix(cfg, what)
 
 
 def require_stack(cfg: ModelConfig, what: str = "the PyTorch port") -> None:
     """Raise ``UnsupportedPatternError`` unless the port can build ``cfg``
     and run it without caches (initialisation, the training forward): the
-    serving stacks of ``require_chunkable``, or an encoder stack of 'B'
-    blocks alone (bidirectional attention: the BERT models), in both cases
-    without a VLM prefix or an encoder-decoder split."""
+    serving stacks of ``require_chunkable``, an encoder stack of 'B'
+    blocks alone (bidirectional attention: the BERT models), or an enc-dec
+    model whose decoder is 'G' blocks (its encoder is 'B' blocks and each
+    decoder block adds cross-attention: whisper-tiny), without a VLM
+    prefix."""
     pattern = set(cfg.pattern)
+    if cfg.is_encdec and pattern != {"G"}:
+        raise UnsupportedPatternError(
+            f"{what} supports enc-dec decoders of 'G' layers in the PyTorch port, got "
+            f"{cfg.pattern!r}")
     if not (pattern <= _DECODER or pattern == {"B"}):
         raise UnsupportedPatternError(
             f"{what} supports 'G'/'L'/'R'/'M' decoder or 'B' encoder layer patterns in the "
             f"PyTorch port, got {cfg.pattern!r}"
         )
-    _require_family(cfg, what)
+    _require_no_prefix(cfg, what)
 
 
 def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> None:
@@ -115,13 +130,21 @@ def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> N
     ``seq_len`` (``ssm.chunk_len``), which the K6 backward takes as a
     multiple of its row tile up to its limit.  'R' (RG-LRU) layers run no
     kernel of their own (their scan and gates are plain PyTorch), so they
-    need only their stack's attention and norms."""
+    need only their stack's attention and norms.  An enc-dec model's
+    attention runs at three shapes: the encoder's ``cfg.enc_seq`` frames,
+    the decoder's ``seq_len`` tokens, and cross-attention's (``seq_len``,
+    ``cfg.enc_seq``)."""
     require_stack(cfg, "training")
     L.require_no_softcap(cfg)
     if torch.device(device).type != "cuda":
         return
     if set(cfg.pattern) & {"G", "L", "B"}:
-        _fa.require_trained(cfg.hd, cfg.n_heads // cfg.n_kv_heads, cfg.compute_dtype, seq_len)
+        shapes = [(seq_len,)]
+        if cfg.is_encdec:
+            shapes += [(cfg.enc_seq,), (seq_len, cfg.enc_seq)]
+        for lengths in shapes:
+            _fa.require_trained(cfg.hd, cfg.n_heads // cfg.n_kv_heads, cfg.compute_dtype,
+                                *lengths)
     if "M" in cfg.pattern:
         _ssd.require_built(cfg.ssm_state, cfg.ssm_head_dim)
         chunk = chunk_len(seq_len, cfg.ssm_chunk)
@@ -135,7 +158,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
     """Random parameters drawn from ``torch.Generator(seed)`` on ``device``
     (CUDA unless the caller passes another; ``"meta"`` allocates nothing).
     Same tree as ``repro.models.model.init_params``; different numbers
-    (the two frameworks' generators differ)."""
+    (the two frameworks' generators differ).  An enc-dec model's decoder
+    is the ``tail`` of ``n_layers`` 'G' blocks with cross-attention, and
+    its ``encoder`` holds ``enc_layers`` 'B' blocks, a final norm and
+    learned positions of ``enc_seq`` rows (``model.py:50-63``)."""
     cfg.validate()
     require_stack(cfg, "the PyTorch port")
     dev = torch.device("meta") if device == "meta" else resolve_device(device)
@@ -143,11 +169,44 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Tree:
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-    return {
+    p = {
         "embed": L.init_embedding(gen, cfg, device=dev),
         "stack": init_stack(gen, cfg, device=dev),
         "final_norm": L.init_norm(cfg, device=dev),
     }
+    if cfg.is_encdec:
+        p["encoder"] = {
+            "blocks": [init_block(gen, cfg, "B", device=dev) for _ in range(cfg.enc_layers)],
+            "final_norm": L.init_norm(cfg, device=dev),
+            "pos_embedding": L.dense_init(gen, (cfg.enc_seq, cfg.d_model), in_axis=1,
+                                          dtype=cfg.params_dtype, device=dev),
+        }
+    return p
+
+
+def encode(params: Tree, cfg: ModelConfig, frames) -> torch.Tensor:
+    """frames (B, F, d), the stub front-end's embeddings, -> the encoder's
+    output (B, F, d) in the compute dtype (``model.py:72-85``): learned
+    positions added, the 'B' blocks (bidirectional attention through K3,
+    each block checkpointed under ``cfg.remat``), the final norm."""
+    enc = params["encoder"]
+    dev = params_device(params)
+    cd = cfg.compute_dtype
+    x = torch.as_tensor(frames, device=dev).to(cd)
+    x = x + enc["pos_embedding"][None, :x.shape[1]].to(cd)
+    positions = torch.arange(x.shape[1], device=dev)
+    # the encoder is a tail-only stack of 'B' blocks
+    enc_cfg = dataclasses.replace(cfg, layer_pattern="B", n_layers=cfg.enc_layers)
+    x, _, _, _ = apply_stack({"groups": (), "tail": enc["blocks"]}, x, enc_cfg, positions)
+    return L.apply_norm(enc["final_norm"], x, cfg)
+
+
+def _cross_kv(blk: Tree, enc_out: torch.Tensor, cfg: ModelConfig):
+    """A decoder block's cross-attention K and V (B, F, KV, D) from the
+    encoder's output (``model.py:88-92``: the projections alone, no bias)."""
+    cd = cfg.compute_dtype
+    return (L._proj(enc_out, blk["cross_attn"]["wk"], cd),
+            L._proj(enc_out, blk["cross_attn"]["wv"], cd))
 
 
 #: leaves the reference reads in f32 whatever the compute dtype (QK-norm
@@ -226,13 +285,27 @@ def _cache_rebuild(cache, new_data):
 
 
 def init_decode_cache(params: Tree, cfg: ModelConfig, batch: int, seq_len: int,
-                      linear: bool = False) -> Tree:
+                      enc_out: Optional[torch.Tensor] = None, linear: bool = False) -> Tree:
     """Pre-allocated dense KV cache on the parameters' device ('R' and 'M'
     layers: slot-indexed conv windows and recurrence states).
     ``linear=True`` (full-length sliding-window buffers) is what
     ``prefill_chunk``/``packed_prefill`` need; the default ring layout gives
     a sliding-window layer ``min(window, seq_len)`` rows (and the spare
-    row), which only ``decode_step`` takes."""
+    row), which only ``decode_step`` takes.
+
+    An enc-dec model's cache (``model.py:292-309``) mirrors its tail-only
+    decoder (one self-attention cache a layer) and holds ``cross_kv``,
+    each layer's (K, V) of the encoder's output ``enc_out`` (B, F, d),
+    made here once and read by every ``decode_step``; without ``enc_out``
+    it raises ``ValueError``."""
+    if cfg.is_encdec:
+        require_stack(cfg, "init_decode_cache")
+        if enc_out is None:
+            raise ValueError("enc-dec decode needs encoder output (enc_out)")
+        dev = params_device(params)
+        return {"stack": init_stack_cache(cfg, batch, seq_len, linear=linear, device=dev),
+                "cross_kv": [_cross_kv(blk, enc_out.to(dev), cfg)
+                             for blk in params["stack"]["tail"]]}
     require_chunkable(cfg, "init_decode_cache")
     return {"stack": init_stack_cache(cfg, batch, seq_len, linear=linear,
                                       device=params_device(params))}
@@ -371,22 +444,30 @@ def decode_step(params: Tree, cfg: ModelConfig, cache: Tree, token, pos, plans=N
     (``KVState``) needs per-slot positions and runs K4 over the chunked
     addressing with C = 1.  Returns (logits (B, 1, V), cache).  ``plans``
     (paged cache): ``decode_plans`` of this step, made on the host, which a
-    captured step needs.  Enc-dec models raise ``UnsupportedPatternError``
-    (their cross-attention is not ported)."""
-    require_chunkable(cfg, "decode_step")
+    captured step needs.  An enc-dec model (``model.py:476-490``) runs its
+    decoder blocks over the cache ``init_decode_cache(..., enc_out=)`` made,
+    each with its layer's ``cross_kv``; a paged cache raises
+    ``UnsupportedPatternError``, as the reference's does."""
     data, tables, page_size = _cache_parts(cache)
+    if cfg.is_encdec:
+        if tables is not None:
+            raise UnsupportedPatternError("paged KV does not support enc-dec models")
+        require_stack(cfg, "decode_step")
+    else:
+        require_chunkable(cfg, "decode_step")
     dev = params_device(params)
     pos = _long(pos, dev)
     positions = pos[:, None] if pos.dim() else pos.reshape(1)
     x = L.embed(params["embed"], _long(token, dev), cfg, positions)
+    cross = data.get("cross_kv")
     x, new_stack, _, _ = apply_stack(
         params["stack"], x, cfg, positions, data["stack"], decode_pos=pos,
         page_tables=tables, page_size=page_size, plans=_device_plans(plans, dev),
-        moe_impl=moe_impl,
+        moe_impl=moe_impl, enc_kv=None if cross is None else (lambda i, _: cross[i]),
     )
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x, cfg)
-    return logits, _cache_rebuild(cache, {"stack": new_stack})
+    return logits, _cache_rebuild(cache, {**data, "stack": new_stack})
 
 
 def packed_prefill(params: Tree, cfg: ModelConfig, cache: Tree, tokens, slot_ids,
@@ -429,13 +510,24 @@ def forward_features(params: Tree, cfg: ModelConfig, batch: Dict[str, Any],
     ``cfg.remat``; 'R' and 'M' layers run their cache-free scans, 'B' layers
     bidirectional attention, MoE layers the ``moe_impl`` dispatch), the
     final norm.  The aux loss is the MoE layers' summed load-balancing
-    term (0 without experts)."""
+    term (0 without experts).  An enc-dec model (``model.py:118-133``)
+    encodes ``batch["frames"]`` and runs each decoder block with its
+    cross K/V of the encoder's output (the K/V projections and the block
+    checkpointed together under ``cfg.remat``)."""
     require_stack(cfg, "training")
     dev = params_device(params)
     tokens = _long(batch["tokens"], dev)
     positions = torch.arange(tokens.shape[1], device=dev)
     x = L.embed(params["embed"], tokens, cfg, positions)
-    x, _, aux, _ = apply_stack(params["stack"], x, cfg, positions, moe_impl=moe_impl)
+    enc_kv = None
+    if cfg.is_encdec:
+        enc_out = encode(params, cfg, batch["frames"])
+
+        def enc_kv(i, blk):
+            return _cross_kv(blk, enc_out, cfg)
+
+    x, _, aux, _ = apply_stack(params["stack"], x, cfg, positions, moe_impl=moe_impl,
+                               enc_kv=enc_kv)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return x, _device_scalar(aux, torch.float32, dev)
 
@@ -527,6 +619,7 @@ __all__ = [
     "compute_params",
     "decode_plans",
     "decode_step",
+    "encode",
     "forward",
     "forward_features",
     "loss_fn",

@@ -1,6 +1,7 @@
 """Block assembly for G/L attention (with an MLP or, when ``n_experts > 0``,
-an MoE layer), 'B' encoder, 'R' (RG-LRU) and 'M' (Mamba-2) stacks (port
-of ``repro.models.transformer``).
+an MoE layer; an enc-dec decoder's blocks add cross-attention), 'B'
+encoder, 'R' (RG-LRU) and 'M' (Mamba-2) stacks (port of
+``repro.models.transformer``).
 
 Layers are organised as in the reference (``transformer.py:188-206``):
 
@@ -61,7 +62,9 @@ def tree_unflatten(template: Tree, leaves) -> Tree:
     return out
 
 
-def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Tree:
+def init_block(gen, cfg: ModelConfig, kind: str, device=None, cross: bool = False) -> Tree:
+    """One block's parameters; ``cross=True`` adds an enc-dec decoder
+    block's ``cross_norm`` and ``cross_attn`` (``transformer.py:81-83``)."""
     if kind == "M":  # ``transformer.py:88-89``: one norm and the SSD mixer
         return {"norm1": L.init_norm(cfg, device=device),
                 "ssd": SSD.init_ssd(gen, cfg, device=device)}
@@ -78,13 +81,17 @@ def init_block(gen, cfg: ModelConfig, kind: str, device=None) -> Tree:
         p["moe"] = MoE.init_moe(gen, cfg, device=device)
     else:
         p["mlp"] = L.init_mlp(gen, cfg, device=device)
+    if cross:
+        p["cross_norm"] = L.init_norm(cfg, device=device)
+        p["cross_attn"] = L.init_attention(gen, cfg, device=device)
     return p
 
 
 def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor, cache: Tree, decode_pos=None,
                 seq_lens=None, slot_ids=None, page_tables=None,
-                page_size: int = 0, index=None, rope=None, moe_impl: str = "sort"):
+                page_size: int = 0, index=None, rope=None, moe_impl: str = "sort",
+                enc_kv=None):
     """Returns (x, cache, aux loss, expert_overflow) as the reference's
     block does (``transformer.py:110``); the cache is updated in place.  The
     last two are the MoE layer's (``moe.apply_moe`` by ``moe_impl``; the
@@ -95,7 +102,10 @@ def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
     ``recurrent.packed_step`` for 'R' and 'M' on a packed step.
     ``cache=None`` runs the training path (``rope``: the sequence's RoPE
     angles, made once per forward); a 'B' block runs only there, as 'G'
-    does but with bidirectional attention (``transformer.py:114-143``)."""
+    does but with bidirectional attention (``transformer.py:114-143``).
+    ``enc_kv``, the encoder's (K, V) for this block (``model._cross_kv``),
+    adds the cross sub-block of an enc-dec decoder block between its
+    self-attention and its MLP (``transformer.py:123-126``)."""
     h = L.apply_norm(p["norm1"], x, cfg)
     if kind == "M":  # ``transformer.py:156-167``
         y, _ = SSD.apply_ssd(p["ssd"], h, cfg, None if cache is None else cache["ssd"],
@@ -111,6 +121,9 @@ def apply_block(p: Tree, x: torch.Tensor, cfg: ModelConfig, kind: str,
             page_tables=page_tables, page_size=page_size, index=index, rope=rope,
         )
     x = x + y
+    if enc_kv is not None:
+        h = L.apply_norm(p["cross_norm"], x, cfg)
+        x = x + L.apply_cross_attention(p["cross_attn"], h, cfg, enc_kv, cached=cache is not None)
     h = L.apply_norm(p["norm2"], x, cfg)
     if "moe" not in p:
         return x + L.apply_mlp(p["mlp"], h, cfg), cache, 0.0, 0
@@ -137,6 +150,8 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
 
 
 def _unit_and_groups(cfg: ModelConfig) -> Tuple[str, int, int]:
+    if cfg.is_encdec:  # tail-only stacks, one block a layer (``model.py:56-63``)
+        return "", 0, cfg.n_layers
     unit = cfg.layer_pattern
     n_groups = cfg.n_layers // len(unit)
     tail = cfg.n_layers % len(unit)
@@ -164,8 +179,9 @@ def init_stack(gen, cfg: ModelConfig, device=None) -> Tree:
         _stacked(lambda kind=kind: init_block(gen, cfg, kind, device=device), n_groups)
         for kind in unit
     )
-    tail_ps = [
-        init_block(gen, cfg, cfg.pattern[n_groups * len(unit) + i], device=device)
+    tail_ps = [  # an enc-dec decoder's blocks add cross-attention
+        init_block(gen, cfg, cfg.pattern[n_groups * len(unit) + i], device=device,
+                   cross=cfg.is_encdec)
         for i in range(tail)
     ]
     return {"groups": groups, "tail": tail_ps}
@@ -188,7 +204,7 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def _apply_stack_train(params: Tree, x: torch.Tensor, cfg: ModelConfig,
-                       positions: torch.Tensor, moe_impl: str = "sort"):
+                       positions: torch.Tensor, moe_impl: str = "sort", enc_kv=None):
     """Every layer without caches (training / plain forward): (x, the
     layers' summed MoE aux loss, 0.0 without experts).  Under
     ``cfg.remat`` with grad enabled, each group's blocks run inside one
@@ -197,25 +213,28 @@ def _apply_stack_train(params: Tree, x: torch.Tensor, cfg: ModelConfig,
     backward runs each group's forward again.  No block draws random
     numbers (no dropout), so the recomputation needs no saved RNG state
     (``preserve_rng_state=False``: saving it would read the generator's
-    state, which a CUDA-graph capture of the step refuses)."""
+    state, which a CUDA-graph capture of the step refuses).  ``enc_kv`` (see
+    ``apply_stack``) is called inside its block's checkpoint, so the cross
+    K/V projections are recomputed with the block."""
     unit, n_groups, _ = _unit_and_groups(cfg)
     rope = (L.rope_angles(positions, cfg.hd, cfg.rope_theta) if cfg.pos == "rope" else None)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
 
-    def run(x_, blocks, kinds):
+    def run(x_, blocks, kinds, layer):
         a_ = 0.0
         for p, kind in zip(blocks, kinds):
             x_, _, a, _ = apply_block(p, x_, cfg, kind, positions, None, rope=rope,
-                                      moe_impl=moe_impl)
+                                      moe_impl=moe_impl,
+                                      enc_kv=None if enc_kv is None else enc_kv(layer, p))
             a_ = a_ + a
         return x_, a_
 
-    def group(x_, blocks, kinds):
+    def group(x_, blocks, kinds, layer=None):
         if remat:
-            return checkpoint(run, x_, blocks, kinds, use_reentrant=False,
+            return checkpoint(run, x_, blocks, kinds, layer, use_reentrant=False,
                               preserve_rng_state=False)
-        return run(x_, blocks, kinds)
+        return run(x_, blocks, kinds, layer)
 
     # one unbind per stacked leaf: its backward stacks the layers' gradients
     # once (indexing each layer would add a full-size zeros tensor per layer)
@@ -226,7 +245,7 @@ def _apply_stack_train(params: Tree, x: torch.Tensor, cfg: ModelConfig,
         x, a = group(x, blocks, unit)
         aux = aux + a
     for i, p in enumerate(params["tail"]):
-        x, a = group(x, [p], cfg.pattern[n_groups * len(unit) + i])
+        x, a = group(x, [p], cfg.pattern[n_groups * len(unit) + i], i)
         aux = aux + a
     return x, aux
 
@@ -234,7 +253,7 @@ def _apply_stack_train(params: Tree, x: torch.Tensor, cfg: ModelConfig,
 def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, caches: Optional[Tree] = None, decode_pos=None,
                 seq_lens=None, slot_ids=None, page_tables=None,
-                page_size: int = 0, plans=None, moe_impl: str = "sort"):
+                page_size: int = 0, plans=None, moe_impl: str = "sort", enc_kv=None):
     """Apply every layer: (x, caches, aux loss, expert_overflow), the
     reference's four-tuple (``transformer.py:223-313``; the last two summed
     over the MoE layers, 0.0 and 0 without experts, the overflow 0 unless
@@ -243,9 +262,13 @@ def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
     (``layers.step_index``, given ``plans[kind]``, the paged kernel's tile
     plan of each attention kind, when ``plans`` is a dict; for 'R' and 'M'
     on a packed step, ``recurrent.packed_step``) made once per layer kind.
-    With ``caches=None`` (training), the caches are None."""
+    With ``caches=None`` (training), the caches are None.  An enc-dec
+    decoder's ``enc_kv(i, p)`` gives tail block ``i``'s cross-attention
+    (K, V) from its parameters ``p``: the encoder output's projections
+    (``model._cross_kv``) in training, the cache's ``cross_kv[i]`` in a
+    decode step."""
     if caches is None:
-        x, aux = _apply_stack_train(params, x, cfg, positions, moe_impl=moe_impl)
+        x, aux = _apply_stack_train(params, x, cfg, positions, moe_impl=moe_impl, enc_kv=enc_kv)
         return x, None, aux, 0
     unit, n_groups, tail = _unit_and_groups(cfg)
     kw = dict(decode_pos=decode_pos, seq_lens=seq_lens, slot_ids=slot_ids,
@@ -253,7 +276,7 @@ def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
     indices = {}
     totals = [0.0, 0]
 
-    def block(p, kind, c, x):
+    def block(p, kind, c, x, layer=None):
         if kind not in indices:
             if kind in ("R", "M"):
                 slots, k = ((c["rglru"]["h"].shape[0], cfg.rglru_conv) if kind == "R"
@@ -263,7 +286,9 @@ def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
                 indices[kind] = L.step_index(cfg, kind, positions, c["attn"], **kw,
                                              plan=(plans or {}).get(kind))
         x, _, aux, overflow = apply_block(p, x, cfg, kind, positions, c, index=indices[kind],
-                                          moe_impl=moe_impl, **kw)
+                                          moe_impl=moe_impl,
+                                          enc_kv=None if enc_kv is None else enc_kv(layer, p),
+                                          **kw)
         totals[0] = totals[0] + aux
         totals[1] = totals[1] + overflow
         return x
@@ -274,5 +299,5 @@ def apply_stack(params: Tree, x: torch.Tensor, cfg: ModelConfig,
             c = tree_map(lambda t: t[gi], caches["groups"][j])
             x = block(p, kind, c, x)
     for i, p in enumerate(params["tail"]):
-        x = block(p, cfg.pattern[n_groups * len(unit) + i], caches["tail"][i], x)
+        x = block(p, cfg.pattern[n_groups * len(unit) + i], caches["tail"][i], x, i)
     return x, caches, totals[0], totals[1]

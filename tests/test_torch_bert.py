@@ -240,15 +240,17 @@ def test_mixed_b_stacks_are_refused():
 
 
 def test_kernels_are_built_for_berts_attention():
-    """K3 takes head dim 64, group 1, bf16 at bert's lengths (128, 512);
-    not group 2 or 96 tokens; the published BERT configs pass the
-    trainer's up-front check on the card, their f32 smoke configs do not."""
+    """K3 takes head dim 64, group 1, bf16 at bert's lengths (128, 512) and
+    at ragged ones (96); not group 2, nor 96 tokens with segment ids; the
+    published BERT configs pass the trainer's up-front check on the card,
+    their f32 smoke configs do not."""
     flash_attention.require_trained(64, 1, torch.bfloat16, 128)
     flash_attention.require_trained(64, 1, torch.bfloat16, 512, 512)
+    flash_attention.require_trained(64, 1, torch.bfloat16, 96)
     with pytest.raises(UnbuiltShapeError, match="group"):
         flash_attention.require_trained(64, 2, torch.bfloat16, 128)
     with pytest.raises(UnbuiltShapeError, match="sequence lengths"):
-        flash_attention.require_trained(64, 1, torch.bfloat16, 96)
+        flash_attention.require_trained(64, 1, torch.bfloat16, 96, segments=True)
     cuda = torch.device("cuda")
     model.require_trainable(get_config("bert_1_5b"), 128, cuda)
     model.require_trainable(get_config("bert_large"), 512, cuda)

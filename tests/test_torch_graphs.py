@@ -390,9 +390,10 @@ class FakeGraph:
         self.fn, self.outputs, self.replays = fn, outputs, 0
 
     def replay(self):
-        before = ops.launch_counts()
+        before = ops.launch_counts(by_shape=True)
         new = self.fn()
-        ops.add_launches({k: before[k] - v for k, v in ops.launch_counts().items()})
+        ops.add_launches({k: before.get(k, 0) - v
+                          for k, v in ops.launch_counts(by_shape=True).items()})
         for o, n in zip(self.outputs, new if isinstance(new, tuple) else (new,)):
             o.copy_(n)
         self.replays += 1
@@ -409,9 +410,10 @@ class FakeCapture:
 
     def warm_up(self, fn):
         self.warm_ups += 1
-        before = ops.launch_counts()
+        before = ops.launch_counts(by_shape=True)
         out = fn()
-        self.counted = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        self.counted = {k: v - before.get(k, 0)
+                        for k, v in ops.launch_counts(by_shape=True).items()}
         return out
 
     def capture(self, fn, warm):
@@ -482,6 +484,28 @@ def test_replays_count_the_captured_launches():
     for i in range(4):
         sg((2,), np.full(2, float(i)), np.zeros(2))
     assert ops.launch_counts()["rmsnorm"] == 4  # warm-up, then 3 replays; capture none
+
+
+def _shaped_step(x):
+    """A step of one K3 forward 'launch' at (B, Sq, Sk) = (2, 3, 5)."""
+    fwd = ops.KERNELS["flash_attention"]
+    fwd.launches += 1
+    fwd.shapes[2, 3, 5] = fwd.shapes.get((2, 3, 5), 0) + 1
+    return x + 1
+
+
+def test_replays_count_the_captured_launches_by_shape():
+    """The shape tally follows the kernel's count through capture and
+    replays, and a reset clears it."""
+    ops.reset_launch_counts()
+    sg = graphs.StepGraph(_shaped_step, "cpu", capture=FakeCapture())
+    for i in range(4):
+        sg((2,), np.full(2, float(i)))
+    counts = ops.launch_counts(by_shape=True)
+    assert counts["flash_attention"] == 4 and counts["flash_attention", (2, 3, 5)] == 4
+    assert ops.launch_counts() == {**{k: 0 for k in ops.KERNELS}, "flash_attention": 4}
+    ops.reset_launch_counts()
+    assert not ops.KERNELS["flash_attention"].shapes
 
 
 def test_skipped_input_copy_gives_stale_outputs(monkeypatch):

@@ -34,6 +34,7 @@ from test_torch_parity_util import (  # noqa: E402
     TOL,
     bf16_ulps,
     dscale_without_rows,
+    load_smoke,
     norm_rel_err,
     np32,
     packed_scenario,
@@ -445,6 +446,61 @@ class TestKernelsOnCard:
             assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
         assert all(torch.equal(x, y) for x, y in zip(grads, again))
 
+    @pytest.mark.parametrize("h,kvh,d,b,sq,sk,causal,window", [
+        (6, 6, 64, 2, 1500, 1500, False, 0), (6, 6, 64, 4, 448, 448, True, 0),
+        (6, 6, 64, 4, 448, 1500, False, 0), (6, 6, 64, 3, 100, 100, True, 0),
+        (6, 6, 64, 2, 90, 200, False, 0),
+        (16, 2, 128, 1, 1000, 1000, True, 0), (16, 2, 128, 2, 90, 90, True, 0),
+        (10, 1, 256, 1, 8000, 8000, True, 2048), (10, 1, 256, 2, 1000, 1000, True, 700),
+        (12, 2, 128, 1, 1000, 1000, True, 700),
+        (32, 2, 128, 1, 1000, 1000, True, 0), (4, 2, 128, 2, 300, 300, True, 203),
+        (18, 2, 128, 1, 1000, 1000, True, 0)],
+        ids=["whisper_encoder", "whisper_decoder", "whisper_cross", "s100_causal",
+             "s90_cross", "d128_g8_s1000", "d128_g8_s90", "d256_g10_s8000_window",
+             "d256_g10_s1000_window", "d128_g6_s1000_window", "d128_g16_s1000", "d128_g2_s300_window", "d128_g9_s1000"])
+    def test_flash_attention_ragged(self, cuda, h, kvh, d, b, sq, sk, causal, window):
+        """Every (head dim, group) build at lengths off its tiles: the (64, 1)
+        build with whisper-tiny's 6 heads at its encoder's 1,500 frames, its
+        decoder's 448 tokens (causal), cross-attention 448 x 1,500, and
+        lengths below 128 off 64; and each other build of ``TRAINED`` at
+        its models' head counts over 1 or 2 KV heads, causal, at 1,000
+        tokens (and 90 for qwen2.5-3b's), recurrentgemma-2b's at 8,000
+        with its 2,048 window and at 1,000 with a window, mixtral-8x22b's and gemma3-27b's with a
+        window.  Forward and backward against the plain versions row by
+        row, two backward runs bit-identical, and two of ``chip_smoke.py``'s
+        planted faults made through the schedule (its ``planted_plan``):
+        the tail key tile's mask skipped (keys past Sk read as zeros: at
+        1,500 keys they move a row's softmax ~2%, at the row limit, and its
+        lse ~0.02, so the lse rejects it), and the last key tile's dK/dV
+        dropped."""
+        assert (d, h // kvh) in flash_attention.TRAINED
+        smoke = load_smoke()
+        q, k, v, do = attn_inputs(cuda, b, sq, sk, seed=sq + sk, h=h, kvh=kvh, d=d)
+        kw = dict(causal=causal, window=window)
+        fwd, bwd = flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd
+        out, lse = fwd(q, k, v, **kw)
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        grads = bwd(q, k, v, out, lse, do, **kw)
+        wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        again = bwd(q, k, v, out, lse, do, **kw)
+        with smoke.planted_plan(smoke.tail_mask_skipped):
+            _, tail_lse = fwd(q, k, v, **kw)
+        with smoke.planted_plan(smoke.last_key_tile_dropped):
+            dropped = bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert out.stride() == q.stride()
+        assert row_rel_err(out, want) <= K3_ROW_TOL
+        np.testing.assert_allclose(np32(lse), np32(want_lse), atol=1e-3, rtol=0)
+        for name, got, w in zip(("dq", "dk", "dv"), grads, wants):
+            assert got.shape == w.shape, name
+            assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
+            assert bool(torch.isfinite(got.float()).all()), name
+        assert all(torch.equal(x, y) for x, y in zip(grads, again))
+        if sk % flash_attention.STEP:  # a partial tail tile: its zero keys must not count
+            assert np.abs(np32(tail_lse) - np32(want_lse)).max() > 1e-3
+        for got, w in zip(dropped[1:], wants[1:]):
+            assert row_rel_err(got, w) > K3_ROW_TOL
+
     @pytest.mark.parametrize("h,kvh,b,s,window", [
         (48, 8, 1, 2048, 1000), (64, 4, 1, 1024, 0), (16, 8, 2, 512, 0), (32, 16, 1, 1024, 203),
         (36, 4, 1, 1024, 0)],
@@ -507,21 +563,21 @@ class TestKernelsOnCard:
         assert q.grad.shape == q.shape and k.grad.shape == k.shape
 
     @pytest.mark.parametrize("h,kvh,sq,dtype", [(14, 2, 128, torch.bfloat16),
-                                                (16, 2, 96, torch.bfloat16),
+                                                (16, 2, 0, torch.bfloat16),
                                                 (16, 2, 128, torch.float32)])
     def test_flash_attention_refuses_unbuilt_shapes(self, cuda, h, kvh, sq, dtype):
         q, k, v, _ = attn_inputs(cuda, 1, sq, sq, seed=7, h=h, kvh=kvh)
         with pytest.raises((ValueError, TypeError)):
             flash_attention.flash_attention_fwd(q.to(dtype), k.to(dtype), v.to(dtype))
 
-    @pytest.mark.parametrize("h,kvh,sq", [(16, 8, 128), (16, 16, 96)])
+    @pytest.mark.parametrize("h,kvh,sq", [(16, 8, 128), (16, 16, 0)])
     def test_flash_attention_refuses_unbuilt_head_dim_64_shapes(self, cuda, h, kvh, sq):
         """Head dim 64 is built for group 1 at lengths the kernels take."""
         q, k, v, _ = attn_inputs(cuda, 1, sq, sq, seed=7, h=h, kvh=kvh, d=64)
         with pytest.raises(flash_attention.UnbuiltShapeError):
             flash_attention.flash_attention_fwd(q, k, v, causal=False)
 
-    @pytest.mark.parametrize("h,kvh,sq", [(8, 2, 128), (10, 1, 96)])
+    @pytest.mark.parametrize("h,kvh,sq", [(8, 2, 128), (10, 1, 0)])
     def test_flash_attention_refuses_unbuilt_head_dim_256_shapes(self, cuda, h, kvh, sq):
         """Head dim 256 is built for group 10 at lengths the kernels take."""
         q, k, v, _ = attn_inputs(cuda, 1, sq, sq, seed=7, h=h, kvh=kvh, d=256)

@@ -479,11 +479,11 @@ def test_smoke_parity_faults_move_their_reading(fault):
 
 
 def test_smoke_cpu_passes_and_route_records():
-    """18b's CPU passes (``moe_cpu_passes``, run here in this process on
+    """18b's CPU passes (``run_cpu_passes``, run here in this process on
     the CPU; on the card a spawned one) draw the weights from the seed and
     put one result a model: one router call a run (no remat on the CPU), a
     control gap for every leaf; a failure comes back as its traceback,
-    which ``moe_cpu_result`` raises.  18c's route record
+    which ``cpu_pass_result`` raises.  18c's route record
     (``routes_recorded``) keeps every call's ids, and ``sort_drops`` counts
     the choices past capacity."""
     import queue
@@ -502,17 +502,17 @@ def test_smoke_cpu_passes_and_route_records():
             return True
 
     try:
-        smoke.moe_cpu_passes([("a", tc, 0)], out, done, device="cpu")
-        smoke.moe_cpu_passes([("b", None, 0)], out, done, device="cpu")  # fails: no config
+        smoke.run_cpu_passes([("a", tc, 0)], out, done, device="cpu")
+        smoke.run_cpu_passes([("b", None, 0)], out, done, device="cpu")  # fails: no config
     finally:
         torch.set_num_threads(threads)
-    name, res = smoke.moe_cpu_result(Alive(), out)
+    name, res = smoke.cpu_pass_result(Alive(), out)
     assert name == "a" and len(res["routes"]) == 1 and set(res["control"]) == set(res["grads"])
     want = model.init_params(tc, seed=0, device="cpu")
     assert res["loss"][0] == pytest.approx(smoke.moe_parity_run(want, dataclasses.replace(
         tc, remat=False), "cpu", smoke.moe_parity_tokens(tc, 0), [])[0][0], rel=1e-5)
     with pytest.raises(smoke.SmokeFailure, match="the CPU passes failed"):
-        smoke.moe_cpu_result(Alive(), out)
+        smoke.cpu_pass_result(Alive(), out)
     rec = []
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, tc.vocab_size, (1, 40)))
     with smoke.routes_recorded(rec):

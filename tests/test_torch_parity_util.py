@@ -55,6 +55,19 @@ SSD_ROW_TOL = 1e-4
 SSD_BWD_TOL = 1e-4
 
 
+def load_smoke(name: str = "chip_smoke_helpers"):
+    """``chip_smoke.py`` at the repository's root, as a module (its planted
+    faults and helpers; it imports no JAX)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def np32(x) -> np.ndarray:
     """Any array-like (JAX array, torch tensor, numpy) as f32 numpy."""
     if isinstance(x, torch.Tensor):

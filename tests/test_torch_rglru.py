@@ -556,7 +556,6 @@ def test_training_r_on_the_card_takes_built_shapes(engine_pair):
     four = dataclasses.replace(full, n_heads=4)
     with pytest.raises(UnbuiltShapeError, match="head dim 256 and group H/KV = 4"):
         model.require_trainable(four, 8192, cuda)
-    with pytest.raises(UnbuiltShapeError, match="sequence lengths"):
-        model.require_trainable(full, 8000, cuda)
+    model.require_trainable(full, 8000, cuda)  # a ragged length: K3 takes any
     for cfg in (tc, four, full):
         model.require_trainable(cfg, 16, torch.device("cpu"))

@@ -578,18 +578,20 @@ def test_r_patterns_still_refuse():
     """'R' stacks build, serve (``tests/test_torch_rglru.py``) and train
     (``tests/test_torch_rglru_train.py``); what they still refuse is
     training on the card at a shape the attention kernels are not built
-    for, before any work: hybrid_tiny's head dim 32, group 2, and
-    recurrentgemma-2b at 16 tokens (it trains at 8,192)."""
+    for, before any work: hybrid_tiny's head dim 32, group 2.
+    recurrentgemma-2b trains at 8,192 tokens, and at 16 (K3 takes any
+    length)."""
     cuda = torch.device("cuda")
-    for name, match in (("hybrid_tiny", "head dim 32 and group H/KV = 2"),
-                        ("recurrentgemma_2b", "sequence lengths")):
+    for name in ("hybrid_tiny", "recurrentgemma_2b"):
         jc = jget_config(name)
         tc = ModelConfig(**dataclasses.asdict(jc))
         assert "R" in tc.pattern
         model.init_params(tc, device="meta")
         model.require_chunkable(tc)
-        with pytest.raises(UnbuiltShapeError, match=match):
-            model.require_trainable(tc, 16, cuda)
+        if name == "hybrid_tiny":
+            with pytest.raises(UnbuiltShapeError, match="head dim 32 and group H/KV = 2"):
+                model.require_trainable(tc, 16, cuda)
+    model.require_trainable(tc, 16, cuda)
     model.require_trainable(tc, 8192, cuda)
 
 
