@@ -66,7 +66,12 @@ the expert products also timed apart at the dispatch's buffer),
 and one decode step eager and graphed (``whisper_serve_profiles``),
 ``whisper_train`` one kept micro-batch of its phase 19c eager and graphed
 (whisper-tiny at full width and depth; K3's (64, 1) build at the ragged
-lengths filed under K3).  ``kernels`` also times K3's (128, 8) build at the
+lengths filed under K3), ``vlm_serve`` the decode-only steps of its phase
+20b engine (internvl2-1b at full width and depth, bf16 compute copy, text
+only; its 8 requests of 128-512 tokens: ``decode_profiles``; K4's (64, 7)
+build filed under K4), ``vlm_train`` one kept micro-batch of its phase 20c
+eager and graphed (4 x (256 patch rows + 1,792 tokens), f32 masters; K3's
+(64, 7) build filed under K3).  ``kernels`` also times K3's (128, 8) build at the
 qwen training shape (``k3_timing``) with a digest of its outputs, gives a
 digest of K4's (128, 8) outputs (``k4_digests``) and times K4's (256, 10)
 build; ``k4_builds`` gives a digest and the decode and mixed times of each
@@ -631,10 +636,30 @@ def whisper_train_profiles(seed: int) -> None:
                           **rec}), flush=True)
 
 
+#: kept micro-batches a VLM training profile times and profiles
+VLM_MB_REPS = 4
+
+
+def vlm_train_profiles(seed: int) -> None:
+    """One kept micro-batch of ``chip_smoke.py``'s phase 20c (internvl2-1b at
+    full width and depth, f32 masters, its step 0's first micro-batch of 4 x
+    (256 patch rows + 1,792 tokens)), eager and graphed
+    (``microbatch_profile``), one JSON line each."""
+    cfg = cs.vlm_config()
+    mb = cs.vlm_batch(cfg, seed, 0, cs.V_MB_SEQS)
+    params = init_params(cfg, seed=seed, device=cs.DEV)
+    for eager in (True, False):
+        rec = microbatch_profile(cfg, params, mb, eager, VLM_MB_REPS)
+        rec["k3_ms"] = sum(v for k, v in rec["families_ms"].items() if k.startswith("K3"))
+        print(json.dumps({"tag": TAG, "run": "vlm_train", "model": cfg.name,
+                          "sequences": cs.V_MB_SEQS, **rec}), flush=True)
+
+
 TAG = ""
 PARTS = ("kernels", "k6_precision", "k4_builds", "qwen", "mamba", "train", "localsgd", "dp",
          "mamba_train", "bert_train", "rg_serve", "rg_train", "sampled_serve", "spec_serve",
-         "zoo_serve", "moe_serve", "moe_train", "whisper_serve", "whisper_train")
+         "zoo_serve", "moe_serve", "moe_train", "whisper_serve", "whisper_train", "vlm_serve",
+         "vlm_train")
 #: the parts that time kernels alone, run only when named
 KERNEL_PARTS = ("kernels", "k6_precision", "k4_builds")
 
@@ -970,7 +995,8 @@ def main() -> int:
                     help="parts to run, always in the order kernels, k6_precision, k4_builds, "
                          "qwen, mamba, train, localsgd, dp, mamba_train, bert_train, rg_serve, "
                          "rg_train, sampled_serve, spec_serve, zoo_serve, moe_serve, moe_train, "
-                         "whisper_serve, whisper_train (default: all but the first three)")
+                         "whisper_serve, whisper_train, vlm_serve, vlm_train (default: all but "
+                         "the first three)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -1046,6 +1072,13 @@ def main() -> int:
             whisper_serve_profiles(args.seed)
         elif part == "whisper_train":  # phase 19c: one kept micro-batch
             whisper_train_profiles(args.seed)
+        elif part == "vlm_serve":  # phase 20b's internvl2-1b decode steps, text-only
+            vcfg = cs.vlm_config()
+            _, vprompts = cs.vlm_requests(vcfg, args.seed)
+            params = compute_params(init_params(vcfg, seed=args.seed, device="cuda"), vcfg)
+            decode_profiles(vcfg, params, vprompts, cs.zoo_engine)
+        elif part == "vlm_train":  # phase 20c: one kept micro-batch
+            vlm_train_profiles(args.seed)
         elif part == "rg_train":  # phase 13c's step 1, eager then graphed; the mixers' share
             rcfg = get_config("recurrentgemma_2b")
             recs = {}

@@ -12,8 +12,8 @@ counters' window) and must give the eager runs' streams, losses and
 gradient leaves (bit-identical, or within ``GRAPH_LEAF_GAP`` of a leaf's
 norm with the leaf that differs named).  A planted fault, one replay whose
 input copy is skipped, must fail the stream check.  The CPU passes of the
-card-vs-CPU checks of phases 7, 15, 18b and 19c run in a process spawned
-after phase 3 (``CpuPasses``), beside the card's work; each phase reads
+card-vs-CPU checks of phases 7, 10, 11b, 13b, 15, 18b, 19c, 20b and 20c run in a
+process spawned after phase 3 (``CpuPasses``), beside the card's work; each phase reads
 its result where it needs it.
 
 1. device — the card's name and power limit (``nvidia-smi``); fails
@@ -171,7 +171,8 @@ its result where it needs it.
    256 tokens: ``loss_sum`` and every gradient leaf on the card (kernels,
    bf16) against the CPU (plain, f32), each leaf within the larger of 5%
    and twice the CPU's own bf16 gap, and a planted K6-backward fault (dcum
-   without its row part) outside it;
+   without its row part) outside it (its CPU passes in ``CpuPasses``'
+   process, on f32 weights drawn on the card);
 11. the paper's own models (BERT, 'B' encoder blocks, appendix B.1) —
    11a: K3's (head dim 64, group 1) bidirectional build at bert-1.5b's
    micro-batch (B 16, H = KV = 25, S 128) and bert-large's phase-2 length
@@ -183,7 +184,7 @@ its result where it needs it.
    and backward alone beside it; 11b: a 2-layer bert-1.5b (d 1600) on 2 x
    128 tokens, ``loss_sum`` and every gradient leaf on the card against the
    CPU as in phase 10, a planted K3 fault (causal in place of
-   bidirectional) outside it; 11c: bert-1.5b at full width cut to
+   bidirectional) outside it (its CPU passes as in phase 10); 11c: bert-1.5b at full width cut to
    ``BERT_LAYERS`` (6) of its 48 layers (d 1600, 25 heads of 64; the whole
    model 1,536.8 M parameters; random weights from ``--seed``; the cut
    keeps the smoke inside its time limit) through ``train`` with LANS, 4 workers x 12
@@ -224,7 +225,8 @@ its result where it needs it.
    ``F.rms_norm``'s backward; 13b: a 3-layer (RRL) full-width model on 2 x
    256 tokens, ``loss_sum`` and every gradient leaf on the card against the
    CPU as in phase 10 (the RG-LRU leaves printed apart), a planted K3
-   backward fault (``one_head_dkdv``) outside it; 13c: recurrentgemma-2b at
+   backward fault (``one_head_dkdv``) outside it (its CPU passes in
+   ``CpuPasses``' process, on f32 weights drawn on the card); 13c: recurrentgemma-2b at
    full width, ``RG_TRAIN_LAYERS`` (3) of its 26 layers (random weights from
    ``--seed``) through ``train`` with AdamW, 4 workers x 2 micro-batches of
    one 8,192-token sequence, the training phase's tau rule, 3 steps, eager
@@ -330,7 +332,38 @@ its result where it needs it.
    (1,500 frames + 448 tokens), AdamW, 3 steps, eager then graphed, the
    launches the code implies, and a 2-layer card-vs-CPU loss and leaf check
    (its CPU passes in ``CpuPasses``' process) with a planted fault (the cross K/V
-   detached from the encoder).
+   detached from the encoder);
+20. the VLM family, internvl2-1b (24 layers, d 896, 14 heads of 64 over 2,
+   vocab 151,655, a 256-row stub patch prefix; random weights from
+   ``--seed``, prefixes from numpy), at full width and depth — 20a K3's
+   (64, 7) build (``V_K3_SHAPES``: 20c's micro-batch, 4 x 14 heads x
+   2,048, and 20b's two ragged prefill lengths, 589 and 726, all causal)
+   forward and backward against the plain versions row by row, with
+   planted faults (the last key tile's dK/dV dropped, the diagonal step
+   skipped, dK/dV summed over one query head a group; at the ragged
+   lengths the tail mask skipped and the TPU kernel's floored range), and
+   K4's (64, 7) build by phase 3's ``k4_checks`` (bf16 and int8 pools,
+   its planted faults) and ``k4_timing`` at internvl2-1b's decode and mixed
+   steps, each timed beside its bound (K3 beside SDPA too); K2 at d 896
+   (1,792-byte bf16 rows): its forward at the serving steps', the prefill
+   steps' and the training micro-batch's row counts (``k2_rg_checks``, a
+   planted fault, each row's last 16-byte vector out of its sum, outside
+   the ulp limit) and its backward at the training micro-batch's 8,192
+   rows (``k2_bwd_checks_and_timing``), each timed beside ``F.rms_norm``;
+   20b a 2-layer
+   card-vs-CPU check of the prefill logits with the prefix (every text row
+   within LOGITS_ROW_TOL; planted faults: the prefix dropped, its strip off
+   by one row), the serving run's 8 requests served text-only (as the
+   reference's engine serves a VLM) through the paged engine, unpacked and
+   packed, eager then graphed, streams identical, then
+   ``make_prefill_step`` with seeded prefixes at the two ragged lengths;
+   20c ``make_train_step`` with the prefix, 4 workers x 2 micro-batches of
+   4 x (256 + 1,792), f32 masters, bf16 compute, remat, AdamW, 3 steps,
+   eager then graphed bit for bit, the launches the code implies, ms a kept
+   micro-batch and the peak beside the reckoning, and a 2-layer card-vs-CPU
+   loss and leaf check (its CPU passes in ``CpuPasses``' process) that must
+   reject both planted prefix faults.  The phase logs its seconds, and the
+   smoke its whole time.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.  K4's (256, 10) build has a record of
@@ -363,7 +396,13 @@ at whisper-tiny's three ragged shapes (``flash_attention_d64_g1_s1500``,
 ``_s448``, ``_s448x1500`` and their backwards), read at 19c's micro-batch
 with 19c's launches at each shape, and at 19b's batched encode
 (``flash_attention_d64_g1_s1500_b8``) with 19b's, each as K3's wrappers
-tallied them by (B, Sq, Sk).
+tallied them by (B, Sq, Sk).  K3's (64, 7) build's records
+(``flash_attention_d64_g7`` and its backward) are read at 20c's
+micro-batch with phase 20's launches (20b's prefill steps and 20c's
+graphed run), K4's (64, 7) build's (``paged_attention_d64_g7``) at
+internvl2-1b's decode step with 20b's serving launches; phase 20's K2
+launches join K2's records and its K1 launches (f32 masters) K1's f32
+record.
 """
 from __future__ import annotations
 
@@ -3531,65 +3570,112 @@ def bidirectional_made_causal():
         ops.flash_attention_fwd, ops.flash_attention_bwd = fwd, bwd
 
 
-def mamba_train_parity(seed: int):
+def mamba_parity_tokens(cfg, seed: int) -> torch.Tensor:
+    """10's check's tokens: 1 x ``PARITY_SEQ``, drawn from the seed with numpy."""
+    return torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab_size, (1, PARITY_SEQ)))
+
+
+def bert_parity_tokens(cfg, seed: int) -> torch.Tensor:
+    """11b's tokens: 2 x ``BERT_SEQ``, drawn from the seed with numpy."""
+    return torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, (2, BERT_SEQ)))
+
+
+def mamba_train_parity(seed: int, cpu: dict):
     """``train_parity`` of mamba2-130m at 256 tokens with a planted
     K6-backward fault (dcum without its row part)."""
     cfg = get_config("mamba2_130m")
-    rng = np.random.default_rng(seed + 2)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, PARITY_SEQ)))
-    train_parity(cfg, seed, tokens, dcum_row_dropped, "mamba train parity",
-                 "dcum without its row part", "ssd_chunk_bwd")
+    train_parity(cfg, seed, {"tokens": mamba_parity_tokens(cfg, seed)},
+                 {"dcum without its row part": planted(dcum_row_dropped)},
+                 "mamba train parity", "ssd_chunk_bwd", cpu)
 
 
-def train_parity(cfg, seed: int, tokens, plant, what: str, fault: str, kernel: str,
-                 layers: int = PARITY_LAYERS, show: str = None):
-    """A ``layers``-layer full-width ``cfg`` on ``tokens``: loss_sum and
-    every gradient leaf on the card (kernels, bf16 compute) against the CPU
-    (plain versions, f32); each leaf within the larger of
-    PARITY_LEAF_REL_TOL and PARITY_CONTROL_FACTOR times the CPU's own bf16
-    gap; the card run must go through the backward kernel ``kernel`` once
-    a layer that has it; the same metric on the planted fault ``plant`` (a
-    context manager; ``fault`` names it) must put some leaf over its limit.
-    ``show``: the leaves whose path holds it get a log line of their own."""
-    small = dataclasses.replace(cfg, n_layers=layers)
-    cpu_cfg = dataclasses.replace(small, dtype="float32")
-    params = init_params(cpu_cfg, seed=seed, device="cpu")
+def planted(plant):
+    """``plant`` (a context manager of no arguments) as a fault of
+    ``train_parity``: the same (cfg, batch) with it on."""
+    @contextlib.contextmanager
+    def fault(cfg, batch):
+        with plant():
+            yield cfg, batch
+    return fault
 
-    def run(p, c, dev):
-        grad_fn = make_grad_fn(lambda pp, mb: model_lib.loss_fn(pp, c, mb))
-        g, ls, _ = grad_fn(model_lib.train_params(p, c), {"tokens": tokens.to(dev)})
-        return float(ls), {k: x.float().cpu() for k, x in named_leaves(g)}
 
-    def leaf_errs(g):
-        return {k: (torch.linalg.vector_norm(g[k] - w) / torch.linalg.vector_norm(w)).item()
-                for k, w in cpu_g.items()}
+def train_parity_run(p, c, dev, batch):
+    """One ``loss_fn`` gradient of ``train_parity``: (loss_sum, the gradient
+    leaves by path, f32 on the host)."""
+    grad_fn = make_grad_fn(lambda pp, mb: model_lib.loss_fn(pp, c, mb))
+    g, ls, _ = grad_fn(model_lib.train_params(p, c), {k: v.to(dev) for k, v in batch.items()})
+    return float(ls), {k: x.float().cpu() for k, x in named_leaves(g)}
 
+
+def train_parity_cpu(cpu_cfg, seed: int, cpu_params, batch, ctl_dtype: str) -> dict:
+    """``train_parity``'s CPU passes on ``cpu_params``: the reference (plain
+    versions, ``cpu_cfg``'s f32 compute) and the control (the same in
+    ``ctl_dtype`` compute), both without remat (the same sums).  Returns
+    the reference's loss and leaves, each leaf's control gap and the
+    reference pass's seconds."""
+    cpu_cfg = dataclasses.replace(cpu_cfg, remat=False)
     t0 = time.perf_counter()
-    cpu_loss, cpu_g = run(params, cpu_cfg, "cpu")
+    loss, grads = train_parity_run(cpu_params, cpu_cfg, "cpu", batch)
     t_cpu = time.perf_counter() - t0
-    _, ctl_g = run(params, small, "cpu")  # the CPU's plain versions in bf16
-    control = leaf_errs(ctl_g)
-    card_params = tree_map(lambda x: x.to(DEV), params)
+    _, ctl = train_parity_run(cpu_params, dataclasses.replace(cpu_cfg, dtype=ctl_dtype), "cpu",
+                              batch)
+    return {"loss": loss, "grads": grads, "control": leaf_rel_errs(ctl, grads, "cpu"),
+            "t_cpu": t_cpu}
+
+
+def train_parity_job(name: str, cfg, seed: int, batch, layers: int = PARITY_LAYERS):
+    """A ``train_parity`` check's job for the CPU passes' process
+    (``CpuPasses``): the ``layers``-layer ``cfg``'s f32 weights drawn on the
+    card, and ``train_parity_cpu`` on ``batch`` with a control in
+    ``cfg``'s compute dtype."""
+    small = dataclasses.replace(cfg, n_layers=layers)
+    return (name, dataclasses.replace(small, dtype="float32"), seed, train_parity_cpu, batch,
+            small.dtype)
+
+
+def train_parity(cfg, seed: int, batch, faults: dict, what: str, kernel: str, cpu: dict,
+                 layers: int = PARITY_LAYERS, show: str = None):
+    """A ``layers``-layer full-width ``cfg`` on ``batch``: loss_sum and
+    every gradient leaf on the card (kernels, bf16 compute) against the CPU
+    (``cpu``: ``train_parity_cpu``'s result from the CPU passes' process,
+    plain versions, f32, on the same f32 weights drawn on the card from the
+    seed); each leaf within the larger of PARITY_LEAF_REL_TOL and
+    PARITY_CONTROL_FACTOR times the CPU's own bf16 gap; the card run must
+    go through the backward kernel ``kernel`` once a layer that has it;
+    each planted fault of ``faults`` (name -> a context manager of (cfg,
+    batch) that yields the (cfg, batch) to run, ``planted``) must put some
+    leaf over its limit.  ``show``: the leaves whose path holds it get a
+    log line of their own."""
+    small = dataclasses.replace(cfg, n_layers=layers)
+    card_params = init_params(dataclasses.replace(small, dtype="float32"), seed=seed, device=DEV)
+    cpu_loss, cpu_g, control, t_cpu = cpu["loss"], cpu["grads"], cpu["control"], cpu["t_cpu"]
     before = ops.launch_counts()
-    card_loss, card_g = run(card_params, small, DEV)
+    card_loss, card_g = train_parity_run(card_params, small, DEV, batch)
     after = ops.launch_counts()
-    with plant():
-        _, bad_g = run(card_params, small, DEV)
+    bad = {}
+    for name, fault in faults.items():
+        with fault(small, batch) as (c, b):
+            bad[name] = leaf_rel_errs(train_parity_run(card_params, c, DEV, b)[1], cpu_g, "cpu")
     el = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    errs, bad = leaf_errs(card_g), leaf_errs(bad_g)
+    errs = leaf_rel_errs(card_g, cpu_g, "cpu")
     limit = {k: max(PARITY_LEAF_REL_TOL, PARITY_CONTROL_FACTOR * control[k]) for k in errs}
     over = {k: e for k, e in errs.items() if e > limit[k]}
-    caught = {k: e for k, e in bad.items() if e > limit[k]}
     want_launches = launches_per_microbatch(small, 0)[kernel]
-    log(f"{what} {layers} layers ({small.pattern}), tokens {tuple(tokens.shape)}: loss_sum "
-        f"card {card_loss:.4f} / cpu {cpu_loss:.4f} (rel {el:.2e}); the CPU f32 pass took "
-        f"{t_cpu:.1f} s; launches {kernel} {after[kernel] - before[kernel]}")
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    log(f"{what} {layers} layers ({small.pattern}), batch {shapes}: loss_sum card "
+        f"{card_loss:.4f} / cpu {cpu_loss:.4f} (rel {el:.2e}); the CPU f32 pass took "
+        f"{t_cpu:.1f} s (in the CPU passes' process); launches {kernel} "
+        f"{after[kernel] - before[kernel]}")
     log(f"{what} per-leaf ||g_card - g_cpu|| / ||g_cpu|| (CPU bf16 control; limit): "
         + ", ".join(f"{k} {e:.2e} ({control[k]:.2e}; {limit[k]:.2e})" for k, e in errs.items()))
     if show:
         log(f"{what} {show} leaves (card gap; CPU bf16 gap): " + ", ".join(
             f"{k} {e:.2e} ({control[k]:.2e})" for k, e in errs.items() if show in k))
-    log(f"{what} planted fault ({fault}): " + ", ".join(f"{k} {e:.2e}" for k, e in bad.items()))
+    for name, e in bad.items():
+        log(f"{what} planted fault ({name}), {sum(e[k] > limit[k] for k in e)} of {len(e)} "
+            f"leaves over their limits: " + ", ".join(f"{k} {x:.2e}" for k, x in e.items()))
     check(want_launches > 0 and after[kernel] - before[kernel] == want_launches,
           f"{what}: the card run did not go through {kernel} once a layer that has it "
           f"({want_launches})")
@@ -3597,14 +3683,17 @@ def train_parity(cfg, seed: int, tokens, plant, what: str, fault: str, kernel: s
           f"{what}: non-finite card result")
     check(el <= PARITY_LOSS_REL_TOL, f"{what}: loss_sum relative difference {el}")
     check(not over, f"{what}: leaves over their limits {over}")
-    check(bool(caught), f"{what}: the metric lets a planted fault ({fault}) pass: {bad}")
+    for name, e in bad.items():
+        check(any(e[k] > limit[k] for k in e),
+              f"{what}: the metric lets a planted fault ({name}) pass: {e}")
 
 
-def bert_phase(seed: int, rng):
+def bert_phase(seed: int, rng, cpu_passes):
     """Phase 11, the paper's own models: 11a K3's (64, 1) bidirectional
     build (``k3_bert_checks``, ``k3_bert_timing``); 11b a 2-layer
     bert-1.5b (d 1600) on 2 x 128 tokens, card against CPU
-    (``train_parity``, the planted fault ``bidirectional_made_causal``);
+    (``train_parity``, the planted fault ``bidirectional_made_causal``; its
+    CPU passes from ``cpu_passes``' process);
     11c bert-1.5b at full width and ``BERT_LAYERS`` layers through the
     trainer at appendix B.1's micro-batch and accumulations with LANS
     (``full_train_phase``);
@@ -3614,10 +3703,9 @@ def bert_phase(seed: int, rng):
     timing = k3_bert_timing(rng)
     free_device()
     cfg = get_config("bert_1_5b")
-    tokens = torch.from_numpy(np.random.default_rng(seed + 3).integers(
-        0, cfg.vocab_size, (2, BERT_SEQ)))
-    train_parity(cfg, seed, tokens, bidirectional_made_causal, "bert parity",
-                 "causal in place of bidirectional", "flash_attention_bwd")
+    train_parity(cfg, seed, {"tokens": bert_parity_tokens(cfg, seed)},
+                 {"causal in place of bidirectional": planted(bidirectional_made_causal)},
+                 "bert parity", "flash_attention_bwd", cpu_passes.result(CpuPasses.BERT))
     free_device()
     log(f"bert-1.5b: {cfg.param_count() / 1e6:.1f} M parameters (the reference's param_count); "
         f"11c runs {BERT_LAYERS} of its {cfg.n_layers} layers")
@@ -3635,19 +3723,21 @@ def bert_phase(seed: int, rng):
 # ---------------------------------------------------------------------------
 
 
-def k2_rg_checks(rng, eps=1e-6, d: int = 2560):
+def k2_rg_checks(rng, eps=1e-6, d: int = 2560, row_counts=RG_K2_ROWS, plant: bool = False):
     """12a: K2's forward at recurrentgemma's width (d 2,560: 5,120-byte
     rows, the bulk-copy path in bf16; 17a: mixtral's 6,144 and
-    qwen3-moe's 4,096) at the serving steps' row counts (``RG_K2_ROWS``),
-    f32 and bf16, both modes, against its plain version (``k2_held``), two
-    runs bit-identical, its plan printed; then timed by graph replay with
-    L2 flushed, bf16 model mode (the model's call), beside its plain
-    version, ``F.rms_norm`` and its bound.  Returns (the largest absolute
-    difference, {rows: times})."""
+    qwen3-moe's 4,096; 20a: internvl2-1b's 896) at ``row_counts`` (by
+    default the serving steps', ``RG_K2_ROWS``), f32 and bf16, both modes,
+    against its plain version (``k2_held``), two runs bit-identical, its
+    plan printed; with ``plant``, the planted fault
+    (``rmsnorm_without_last_vector``) must fail the bf16 ulp check at each
+    row count; then timed by graph replay with L2 flushed, bf16 model mode
+    (the model's call), beside its plain version, ``F.rms_norm`` and its
+    bound.  Returns (the largest absolute difference, {rows: times})."""
     sms = rmsnorm._sm_count(0)
     s = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(DEV)
     max_err, times = 0.0, {}
-    for rows in RG_K2_ROWS:
+    for rows in row_counts:
         x32 = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(DEV)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
@@ -3660,6 +3750,13 @@ def k2_rg_checks(rng, eps=1e-6, d: int = 2560):
                 max_err = max(max_err, k2_held(out, x, s, eps, model, tag))
                 check(torch.equal(out, rmsnorm.rmsnorm(x, s, eps=eps, model=model)),
                       f"{tag}: two runs differ")
+                if plant and dtype == torch.bfloat16:
+                    bad = rmsnorm_without_last_vector(x, s, eps, model)
+                    ulps = (k2_model_ulps(bad, x, s, eps)[0] if model
+                            else ulps16(bad, k2_plain(x, s, eps, model)))
+                    check(ulps > K2_BF16_ULPS, f"{tag}: the ulp check lets a planted fault pass")
+                    log(f"{tag}: planted fault (each row's last 16-byte vector left out of its "
+                        f"sum) {ulps} ulps against the limit {K2_BF16_ULPS}: rejected")
         x = x32.to(torch.bfloat16)
         sb = s.to(torch.bfloat16)
         kern = time_ms(lambda: rmsnorm.rmsnorm(x, s, eps=eps, model=True))
@@ -4058,12 +4155,19 @@ def k3_rg_timing(rng):
             dict(ms=bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby, library_ms=lib_bwd))
 
 
-def rg_train_phase(seed: int, rng):
+def rg_parity_tokens(cfg, seed: int) -> torch.Tensor:
+    """13b's tokens: 2 x ``PARITY_SEQ``, drawn from the seed with numpy."""
+    return torch.from_numpy(np.random.default_rng(seed + 5).integers(
+        0, cfg.vocab_size, (2, PARITY_SEQ)))
+
+
+def rg_train_phase(seed: int, rng, cpu_passes):
     """Phase 13, training the 'R' family: 13a K3's (256, 10) build
     (``k3_rg_checks``, ``k3_rg_timing``) and K2's backward at
     recurrentgemma's width (8,192 x 2,560); 13b a 3-layer (RRL)
     recurrentgemma-2b on 2 x 256 tokens, card against CPU (``train_parity``,
-    the planted fault ``one_head_dkdv``, the RG-LRU leaves printed apart);
+    the planted fault ``one_head_dkdv``, the RG-LRU leaves printed apart;
+    its CPU passes from ``cpu_passes``' process);
     13c recurrentgemma-2b at full width and depth through the trainer
     (``full_train_phase``: one sequence of ``RG_TRAIN_SEQ`` tokens a
     micro-batch).  Returns (the K3 errors and timings, K2's backward's
@@ -4074,11 +4178,10 @@ def rg_train_phase(seed: int, rng):
     k2b = k2_bwd_checks_and_timing(rng, d=2560, rows=RG_TRAIN_SEQ)
     free_device()
     cfg = get_config("recurrentgemma_2b")
-    tokens = torch.from_numpy(np.random.default_rng(seed + 5).integers(
-        0, cfg.vocab_size, (2, PARITY_SEQ)))
-    train_parity(cfg, seed, tokens, one_head_dkdv, "recurrentgemma train parity",
-                 "dK/dV from one query head of each group", "flash_attention_bwd",
-                 layers=RG_PARITY_LAYERS, show="rglru")
+    train_parity(cfg, seed, {"tokens": rg_parity_tokens(cfg, seed)},
+                 {"dK/dV from one query head of each group": planted(one_head_dkdv)},
+                 "recurrentgemma train parity", "flash_attention_bwd",
+                 cpu_passes.result(CpuPasses.RG), layers=RG_PARITY_LAYERS, show="rglru")
     free_device()
     cut = dataclasses.replace(cfg, n_layers=RG_TRAIN_LAYERS)
     log(f"recurrentgemma-2b: {cfg.param_count() / 1e6:.1f} M parameters (the reference's "
@@ -6220,8 +6323,8 @@ def sort_drops(cfg, record: list) -> list:
 
 
 def run_cpu_passes(jobs, out, done, device: str = DEV) -> None:
-    """The smoke's card-vs-CPU checks' CPU passes (7's, 15's, 18b's and
-    19c's) in a process of their own (``CpuPasses``; the card runs the
+    """The smoke's card-vs-CPU checks' CPU passes (7's, 10's, 11b's, 13b's,
+    15's, 18b's, 19c's, 20b's and 20c's) in a process of their own (``CpuPasses``; the card runs the
     smoke's other work meanwhile), in the order of ``jobs``: a job
     (name, cfg, seed[, fn, *args]) has its weights drawn on ``device`` from
     its seed (the values the main process draws again for its card run),
@@ -6266,23 +6369,38 @@ class CpuPasses:
     daemonic process (the interpreter's exit stops it if a phase fails):
     the smoke starts it after phase 3, so that its CPU work runs beside the
     card's work, and the phases read each result (``result``), in the order
-    they need them: 7's Local-SGD run (``LSGD``), 15's zoo checks (``zoo
-    <name>``), 19c's ``W_PARITY_LAYERS``-layer whisper-tiny (``WHISPER``),
-    18's MoE models (``cfgs``)."""
+    they need them: 7's Local-SGD run (``LSGD``), 10's 2-layer mamba2-130m
+    (``MAMBA``), 11b's 2-layer bert-1.5b (``BERT``), 13b's 3-layer
+    recurrentgemma-2b (``RG``), 15's zoo checks (``zoo <name>``), 19c's
+    ``W_PARITY_LAYERS``-layer whisper-tiny (``WHISPER``), 18's MoE models
+    (``cfgs``), 20b's and 20c's ``V_PARITY_LAYERS``-layer internvl2-1b
+    (``VLM_PREFILL``, ``VLM_TRAIN``)."""
 
-    LSGD = "localsgd"
+    LSGD, MAMBA, BERT, RG = "localsgd", "mamba train", "bert train", "rg train"
+    VLM_PREFILL, VLM_TRAIN = "vlm prefill", "vlm train"
 
     def __init__(self, seed: int):
         ctx = torch.multiprocessing.get_context("spawn")
         self.cfgs = {name: moe_config(name, MOE_TRAIN_LAYERS) for name in MOE}
+        mamba, bert, rg = (get_config(n) for n in ("mamba2_130m", "bert_1_5b",
+                                                   "recurrentgemma_2b"))
         jobs = [(self.LSGD, localsgd_parity_config(get_config("qwen2_5_3b")), seed,
-                 localsgd_parity_cpu)]
+                 localsgd_parity_cpu),
+                train_parity_job(self.MAMBA, mamba, seed,
+                                 {"tokens": mamba_parity_tokens(mamba, seed)}),
+                train_parity_job(self.BERT, bert, seed, {"tokens": bert_parity_tokens(bert, seed)}),
+                train_parity_job(self.RG, rg, seed, {"tokens": rg_parity_tokens(rg, seed)},
+                                 RG_PARITY_LAYERS)]
         for i, n in enumerate(ZOO):
             small, prompts, max_len = zoo_parity_case(n, i, seed)
             jobs.append((f"zoo {n}", f32_weights(small), seed, logits_parity_cpu, prompts,
                          max_len))
         jobs.append((WHISPER, whisper_config(W_PARITY_LAYERS), seed))
         jobs += [(n, c, seed) for n, c in self.cfgs.items()]
+        small = vlm_config(V_PARITY_LAYERS)
+        jobs += [(self.VLM_PREFILL, f32_weights(small), seed, vlm_prefill_cpu),
+                 train_parity_job(self.VLM_TRAIN, small, seed, vlm_parity_batch(small, seed),
+                                  V_PARITY_LAYERS)]
         self.results, self.done, self.got = ctx.Queue(), ctx.Event(), {}
         self.proc = ctx.Process(target=run_cpu_passes, daemon=True, args=(
             jobs, self.results, self.done))
@@ -6404,22 +6522,27 @@ def tpu_range_floored(kind, plan, sq):
         plan[:, 5] = np.minimum(plan[:, 5], cut * flash_attention.STEP)
 
 
-def k3_ragged_checks(rng):
-    """19a: K3's (64, 1) build at ``W_K3_SHAPES`` (6 heads of 64): forward
-    (out, lse) and backward (dq, dk, dv) against the plain versions row by
-    row, two backward runs bit-identical, and planted faults through the
-    schedule (``planted_plan``), each run as a kernel with the fault would
-    run (its forward, then its backward on its own out and lse), each
-    rejected by the readings it moves: the tail tile's mask skipped (where
-    Sk is off 64: its 28-36 zero keys of 1,500 move each row's softmax by
-    ~2%, at the row limit, and its lse by ~0.02, far over K3_LSE_TOL), the
-    TPU kernel's floored range (above 128 off 128: out, lse and every
-    gradient), the last key tile's dK/dV dropped (dk, dv).  Returns {shape:
-    (fwd max|err|, bwd max|err|)}."""
+def k3_ragged_checks(rng, shapes=None, h: int = 6, kvh: int = 6):
+    """19a: K3's (64, 1) build at ``W_K3_SHAPES`` (6 heads of 64), and 20a
+    its (64, 7) build at ``V_K3_SHAPES`` (``shapes``, ``h`` heads over
+    ``kvh``): forward (out, lse) and backward (dq, dk, dv) against the plain
+    versions row by row, two backward runs bit-identical, and planted
+    faults through the schedule (``planted_plan``), each run as a kernel
+    with the fault would run (its forward, then its backward on its own out
+    and lse), each rejected by the readings it moves: the tail tile's mask
+    skipped (where Sk is off 64: its 28-36 zero keys of 1,500 move each
+    row's softmax by ~2%, at the row limit, and its lse by ~0.02, far over
+    K3_LSE_TOL), the TPU kernel's floored range (above 128 off 128: out, lse
+    and every gradient), the last key tile's dK/dV dropped (dk, dv).  With
+    a group (h > kvh) two more: the causal diagonal's step skipped (out and
+    every gradient) and the group sum of dK/dV over one query head of each
+    group (dk, dv: the backward on dO with the other heads' rows zeroed).
+    Returns {shape: (fwd max|err|, bwd max|err|)}."""
     fwd, bwd = flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd
     out_errs = {}
-    for name, (b, sq, sk, causal) in W_K3_SHAPES.items():
-        q, k, v, do = k3_pair_inputs(rng, b, 6, 6, sq, d=64, sk=sk)
+    g = h // kvh
+    for name, (b, sq, sk, causal) in (shapes or W_K3_SHAPES).items():
+        q, k, v, do = k3_pair_inputs(rng, b, h, kvh, sq, d=64, sk=sk)
         kw = dict(causal=causal)
         out, lse = fwd(q, k, v, **kw)
         grads = bwd(q, k, v, out, lse, do, **kw)
@@ -6431,15 +6554,22 @@ def k3_ragged_checks(rng):
             plants.append(("tail mask skipped", tail_mask_skipped, (4,)))
         if flash_attention._ragged(sq, sk):
             plants.append(("TPU range floored", tpu_range_floored, (0, 1, 2, 3, 4)))
+        if g > 1 and causal:
+            plants.append(("diagonal step skipped", diagonal_skipped, (0, 1, 2, 3)))
         for fault, edit, readings in plants:
             with planted_plan(edit):
                 bad_out, bad_lse = fwd(q, k, v, **kw)
                 faults[fault] = [bad_out, *bwd(q, k, v, bad_out, bad_lse, do, **kw), bad_lse]
             caught_by[fault] = readings
+        if g > 1:
+            first = (torch.arange(h, device=DEV) % g == 0)[None, :, None, None]
+            faults["dK/dV from one query head a group"] = [
+                out, *bwd(q, k, v, out, lse, do * first, **kw), lse]
+            caught_by["dK/dV from one query head a group"] = (2, 3)
         want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
         wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
-        what = (f"K3 (64, 1) {name}: B {b}, H = KV = 6, Sq {sq}, Sk {sk}, "
+        what = (f"K3 (64, {g}) {name}: B {b}, H {h}, KV {kvh}, Sq {sq}, Sk {sk}, "
                 f"{'causal' if causal else 'bidirectional'}")
         check(all(bool(torch.isfinite(x.float()).all()) for x in (out, lse, *grads)),
               f"{what}: non-finite output")
@@ -6466,16 +6596,18 @@ def k3_ragged_checks(rng):
     return out_errs
 
 
-def k3_ragged_timing(rng):
-    """19a: K3's (64, 1) build at ``W_K3_SHAPES``: forward and backward, one
-    graph replay each (L2 flushed); the plain versions; SDPA's forward and
+def k3_ragged_timing(rng, shapes=None, h: int = 6, kvh: int = 6):
+    """19a: K3's (64, 1) build at ``W_K3_SHAPES`` (20a: at ``shapes``, ``h``
+    heads over ``kvh``): forward and backward, one graph replay each (L2
+    flushed); the plain versions; SDPA's forward (GQA where h > kvh) and
     its backward alone (``is_causal`` top-left, which at Sq = Sk is the
     kernel's right-aligned mask); the bounds from the admissible pairs.
     Returns {shape: (fwd, bwd) record fields}."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = dict(enable_gqa=True) if h != kvh else {}
     rows = {}
-    for name, (b, sq, sk, causal) in W_K3_SHAPES.items():
-        q, k, v, do = k3_pair_inputs(rng, b, 6, 6, sq, d=64, sk=sk)
+    for name, (b, sq, sk, causal) in (shapes or W_K3_SHAPES).items():
+        q, k, v, do = k3_pair_inputs(rng, b, h, kvh, sq, d=64, sk=sk)
         kw = dict(causal=causal)
         out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
         fwd = time_ms(lambda: flash_attention.flash_attention_fwd(q, k, v, **kw))
@@ -6484,14 +6616,14 @@ def k3_ragged_timing(rng):
         plain_fwd = time_ms_eager(lambda: ref.flash_attention_fwd_ref(q, k, v, **kw), iters=3)
         plain_bwd = time_ms_eager(lambda: ref.flash_attention_bwd_ref(q, k, v, want, want_lse,
                                                                       do, **kw), iters=3)
-        lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=causal))
+        lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=causal, **gqa))
         lib_bwd = sdpa_bwd_ms(q, k, v, do, causal=causal)
-        pairs = b * 6 * int(ref.attention_mask(sq, sk, causal, 0, device=DEV).sum().item())
+        pairs = b * h * int(ref.attention_mask(sq, sk, causal, 0, device=DEV).sum().item())
         io = 2 * (2 * q.numel() + k.numel() + v.numel())  # bf16 q, k, v, o
         fb, fby = bound_ms(io + 4 * lse.numel(), 4.0 * 64 * pairs)
         bb, bby = bound_ms(io + 2 * q.numel() + 4 * lse.numel() + 2 * (q.numel() + 2 * k.numel()),
                            10.0 * 64 * pairs)
-        log(f"K3 (64, 1) time {name} (B {b}, H 6, Sq {sq}, Sk {sk}, "
+        log(f"K3 (64, {h // kvh}) time {name} (B {b}, H {h}, KV {kvh}, Sq {sq}, Sk {sk}, "
             f"{'causal' if causal else 'bidirectional'}, {pairs} admissible pairs): fwd kernel "
             f"{fwd * 1e3:.1f} us, plain {plain_fwd * 1e3:.1f} us, SDPA {lib_fwd * 1e3:.1f} us, "
             f"bound {fb * 1e3:.1f} us ({fby}); bwd kernels {bwd * 1e3:.1f} us, plain "
@@ -6917,6 +7049,389 @@ def whisper_phase(seed: int, rng, cpu_passes, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the VLM family (internvl2-1b)
+# ---------------------------------------------------------------------------
+
+VLM = "internvl2_1b"
+#: internvl2-1b's attention (14 heads of 64 over 2: K3 and K4 at (64, 7))
+#: and its stub front-end's patch rows (``prefix_len``)
+V_H, V_KV, V_PREFIX = 14, 2, 256
+#: 20c's micro-batch: V_MB_SEQS sequences of the V_PREFIX patch rows and
+#: V_TEXT tokens, the training phase's TRAIN_SEQ attention positions (its 4
+#: workers x 2 micro-batches, 3 steps)
+V_MB_SEQS = 4
+V_TEXT = TRAIN_SEQ - V_PREFIX
+#: 20b's ``make_prefill_step`` batches: V_PREFILL_SEQS requests of each text
+#: length, in the serving requests' 128-512 range, with the prefix off
+#: every tile (589 and 726 attention positions)
+V_PREFILL_TEXT, V_PREFILL_SEQS = (333, 470), 4
+#: the 2-layer card-vs-CPU checks (20b's prefill logits, 20c's gradient):
+#: layers, sequences and text tokens (after the V_PREFIX patch rows)
+V_PARITY_LAYERS, V_PARITY_SEQS, V_PARITY_TEXT = 2, 2, 333
+#: 20a: K3's (64, 7) build at 20c's micro-batch and 20b's prefill shapes,
+#: name -> (B, Sq, Sk, causal)
+V_K3_SHAPES = {f"s{s}": (b, s, s, True) for b, s in
+               [(V_MB_SEQS, TRAIN_SEQ)] + [(V_PREFILL_SEQS, V_PREFIX + t) for t in V_PREFILL_TEXT]}
+#: 20a: K2's forward at d 896, the row counts of 20b's engine steps
+#: (``RG_K2_ROWS``), its prefill steps and 20c's micro-batch
+V_K2_ROWS = RG_K2_ROWS + tuple(V_PREFILL_SEQS * (V_PREFIX + t) for t in V_PREFILL_TEXT) + (
+    V_MB_SEQS * TRAIN_SEQ,)
+
+
+def vlm_config(layers: int = 0):
+    """internvl2-1b as published, or cut to ``layers`` (every width as
+    published)."""
+    cfg = get_config(VLM)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def vlm_prefix(cfg, seed: int, n: int, offset: int = 0) -> torch.Tensor:
+    """``n`` sequences' stub patch embeddings (n, 256, d), f32 from a numpy
+    generator of ``seed`` (the same values in the CPU passes' process)."""
+    rng = np.random.default_rng(seed * 1000 + 20 + offset)
+    return torch.from_numpy(rng.standard_normal((n, cfg.prefix_len, cfg.d_model),
+                                                dtype=np.float32))
+
+
+def vlm_tokens(cfg, seed: int, shape, offset: int = 0) -> torch.Tensor:
+    rng = np.random.default_rng(seed * 1000 + 200 + offset)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+
+
+def vlm_requests(cfg, seed: int):
+    """20b's serving requests (text-only, as the reference's engine serves a
+    VLM): the serving run's 8 lengths of 128-512, its own draws."""
+    rng = np.random.default_rng(seed + 20)
+    lens = [int(n) for n in rng.integers(PROMPT_MIN, PROMPT_MAX + 1, SLOTS)]
+    return lens, [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def vlm_parity_batch(cfg, seed: int) -> dict:
+    """The 2-layer checks' batch: ``V_PARITY_SEQS`` x ``V_PARITY_TEXT``
+    tokens and their prefixes (f32, on the host)."""
+    return {"tokens": vlm_tokens(cfg, seed, (V_PARITY_SEQS, V_PARITY_TEXT), offset=9),
+            "prefix": vlm_prefix(cfg, seed, V_PARITY_SEQS, offset=9)}
+
+
+class _StripOffByOne:
+    """``model_lib``'s view of ``layers`` with the final norm's rows moved
+    one down: the text rows a VLM's forward keeps after it are then rows
+    ``prefix_len - 1 .. -1``, a strip off by one (the last patch row kept,
+    the last text row lost).  Only ``model.py``'s own norms go through it
+    (the stack's blocks call ``layers`` directly)."""
+
+    def __getattr__(self, name):
+        return getattr(layers, name)
+
+    @staticmethod
+    def apply_norm(p, x, cfg):
+        y = layers.apply_norm(p, x, cfg)
+        return torch.cat([y[:, :1], y[:, :-1]], dim=1)
+
+
+@contextlib.contextmanager
+def prefix_strip_off_by_one(cfg, batch):
+    """A planted fault: the VLM's prefix strip off by one row
+    (``_StripOffByOne``) on the same (cfg, batch)."""
+    sound = model_lib.L
+    model_lib.L = _StripOffByOne()
+    try:
+        yield cfg, batch
+    finally:
+        model_lib.L = sound
+
+
+@contextlib.contextmanager
+def prefix_dropped(cfg, batch):
+    """A planted fault: (cfg, batch) of a model that drops the prefix (the
+    text alone, at positions from 0)."""
+    yield dataclasses.replace(cfg, prefix_len=0), {"tokens": batch["tokens"]}
+
+
+#: 20b's and 20c's planted faults, name -> a context manager of (cfg, batch)
+PREFIX_FAULTS = {"prefix dropped": prefix_dropped, "strip off by one row": prefix_strip_off_by_one}
+
+
+def vlm_prefill_cpu(cpu_cfg, seed: int, cpu_params) -> dict:
+    """20b's CPU pass: the 2-layer model's ``forward`` logits of every text
+    row with the prefix (plain versions, f32) on ``cpu_params`` (the card's
+    f32 weights)."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = model_lib.forward(cpu_params, cpu_cfg, vlm_parity_batch(cpu_cfg, seed))[0]
+    return {"want": want.float(), "t_cpu": time.perf_counter() - t0}
+
+
+def vlm_prefill_parity(seed: int, cpu: dict) -> list:
+    """20b's ``V_PARITY_LAYERS``-layer full-width check: the prefill logits
+    of every text row of ``V_PARITY_SEQS`` x (256 patch rows +
+    ``V_PARITY_TEXT`` tokens) on the card (K3 (64, 7) at 589 positions, bf16
+    compute) against the CPU's (``vlm_prefill_cpu``, f32, the same f32
+    weights drawn on the card from the seed), row by row within
+    ``LOGITS_ROW_TOL``, the last row (the one ``make_prefill_step`` reads)
+    too; two planted faults outside it: the prefix dropped, the strip off
+    by one row."""
+    cfg = vlm_config(V_PARITY_LAYERS)
+    cpu_cfg = f32_weights(cfg)
+    batch = {k: v.to(DEV) for k, v in vlm_parity_batch(cfg, seed).items()}
+    card = compute_params(init_params(cpu_cfg, seed=seed, device=DEV), cfg)
+    want = cpu["want"].to(DEV)
+
+    def errs(fault=lambda c, b: contextlib.nullcontext((c, b))):
+        with torch.no_grad(), fault(cfg, batch) as (c, b):
+            got = model_lib.forward(card, c, b)[0].float()
+        return row_rel_err(got, want), row_rel_err(got[:, -1], want[:, -1])
+
+    before = ops.launch_counts()
+    sound = errs()
+    runs = ops.launch_counts()["flash_attention"] - before["flash_attention"]
+    bad = {f: errs(fault) for f, fault in PREFIX_FAULTS.items()}
+    log(f"20b parity {cfg.n_layers} layers (full width), {V_PARITY_SEQS} x ({V_PREFIX} patch rows "
+        f"+ {V_PARITY_TEXT} tokens): prefill logits card vs CPU row rel err, every text row "
+        f"{sound[0]:.2e}, the last {sound[1]:.2e} (limit {LOGITS_ROW_TOL}); planted faults "
+        + "; ".join(f"{f} {e[0]:.2e} / {e[1]:.2e}" for f, e in bad.items())
+        + f"; K3 launches {runs}; the CPU pass (in the CPU passes' process) took "
+        f"{cpu['t_cpu']:.1f} s")
+    check(runs == cfg.n_layers, f"20b parity: {runs} K3 launches, {cfg.n_layers} layers")
+    check(all(math.isfinite(e) and e <= LOGITS_ROW_TOL for e in sound),
+          f"20b parity: card prefill logits differ from the CPU's: {sound}")
+    for f, e in bad.items():
+        check(max(e) > LOGITS_ROW_TOL, f"20b parity: the row metric lets a planted fault ({f}) "
+                                       f"pass: {e}")
+    del card, want
+    return list(sound)
+
+
+def vlm_prefill_steps(cfg, params, seed: int):
+    """20b's prefill steps: ``make_prefill_step`` on ``V_PREFILL_SEQS``
+    requests of each ``V_PREFILL_TEXT`` length with their seeded prefixes
+    (bf16, as the reference's prefill inputs), the launches the code implies
+    (a K3 forward a layer at each (B, 256 + text), no backward); each
+    step's device ms (events, L2 flushed), outside the counters' window.
+    Returns (launches by kernel, by shape, {length: ms})."""
+    step = dp_steps.make_prefill_step(cfg)
+    batches = {t: {"tokens": vlm_tokens(cfg, seed, (V_PREFILL_SEQS, t), offset=3 + i).to(DEV),
+                   "prefix": vlm_prefix(cfg, seed, V_PREFILL_SEQS, offset=3 + i).to(
+                       DEV, torch.bfloat16)}
+               for i, t in enumerate(V_PREFILL_TEXT)}
+    before = ops.launch_counts(by_shape=True)
+    toks = {}
+    with torch.no_grad():
+        for t, b in batches.items():
+            toks[t] = step(params, b)
+    counts, shapes = launch_window(before)
+    want = {}
+    for t in V_PREFILL_TEXT:
+        want.update(k3_shape_launches(V_PREFILL_SEQS, V_PREFIX + t, V_PREFIX + t, cfg.n_layers, 0))
+        check(tuple(toks[t].shape) == (V_PREFILL_SEQS,)
+              and bool(((toks[t] >= 0) & (toks[t] < cfg.vocab_size)).all()),
+              f"20b: prefill tokens at {t} text tokens: {toks[t]}")
+    check(shapes == want, f"20b: prefill K3 launches by shape {shapes}, the code implies {want}")
+    with torch.no_grad():
+        ms = {t: time_ms_eager(lambda b=b: step(params, b)) for t, b in batches.items()}
+    log(f"20b make_prefill_step ({cfg.n_layers} layers, full width): {V_PREFILL_SEQS} requests x "
+        f"({V_PREFIX} patch rows + " + ", ".join(
+            f"{t} tokens) -> {[int(x) for x in toks[t].tolist()]} in {ms[t]:.2f} ms"
+            for t in V_PREFILL_TEXT) + f" (device, events); K3 by (B, Sq, Sk) {shapes}")
+    return counts, shapes, ms
+
+
+def vlm_serve(seed: int, cpu_passes) -> dict:
+    """20b: the 2-layer prefill check (``vlm_prefill_parity``), then
+    internvl2-1b at full width and depth (f32 weights from ``seed``, bf16
+    compute copy) served text-only through the zoo's paged engine, as the
+    reference's engine serves a VLM: the serving run's 8 requests of
+    128-512 + 32 tokens, the first step paged (K4 (64, 7)) against dense,
+    unpacked and packed, eager then graphed (the counters' window), streams
+    identical; then ``make_prefill_step`` with the prefix
+    (``vlm_prefill_steps``).  Returns the graphed runs' and the prefill
+    steps' launches, K3's by shape, and the records."""
+    sound = vlm_prefill_parity(seed, cpu_passes.result(CpuPasses.VLM_PREFILL))
+    free_device()
+    cfg = vlm_config()
+    lens, prompts = vlm_requests(cfg, seed)
+    t0 = time.perf_counter()
+    params = compute_params(init_params(cfg, seed=seed, device=DEV), cfg)
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / "
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, vocab {cfg.vocab_size}, {cfg.prefix_len} patch "
+        f"rows, {cfg.param_count() / 1e9:.3f} B parameters, f32 init + bf16 compute copy in "
+        f"{time.perf_counter() - t0:.1f} s; full width and depth; prompt lens {lens}")
+    first_step_logits_check(cfg, params, prompts, zoo_max_len(cfg), f"{cfg.name} ")
+    free_device()
+    eager = {p: serve_run(cfg, params, prompts, p, True, zoo_engine)[0] for p in (False, True)}
+    outs, recs = {}, {}
+    ops.reset_launch_counts()  # the serving path starts here
+    for p in (False, True):
+        outs[p], recs[p] = serve_run(cfg, params, prompts, p, False, zoo_engine)
+    counts = ops.launch_counts()  # ... and ends here
+    for p in (False, True):
+        same_streams(f"{cfg.name} {'packed' if p else 'unpacked'}", outs[p], eager[p])
+    check(counts["paged_attention"] > 0, f"{cfg.name}: K4 not run: {counts}")
+    p_counts, p_shapes, p_ms = vlm_prefill_steps(cfg, params, seed)
+    del params
+    free_device()
+    return {"counts": counts, "prefill_counts": p_counts, "prefill_shapes": p_shapes,
+            "prefill_ms": p_ms, "recs": recs, "parity": sound}
+
+
+def vlm_batch(cfg, seed: int, step: int, n: int) -> dict:
+    """Step ``step``'s global batch of ``n`` sequences: ``V_TEXT`` tokens,
+    unit weights and the ``V_PREFIX`` bf16 patch rows each, on the card."""
+    return {"tokens": vlm_tokens(cfg, seed, (n, V_TEXT), offset=20 + step).to(DEV),
+            "weights": torch.ones((n, V_TEXT), device=DEV),
+            "prefix": vlm_prefix(cfg, seed, n, offset=20 + step).to(DEV, torch.bfloat16)}
+
+
+def vlm_train_run(cfg, seed: int, eager: bool, latencies, tau: float, batches):
+    """20c's run: ``make_train_step`` (AdamW, lr 1e-4, clip 1.0) over the
+    training phase's workers and micro-batches, DropCompute at ``tau``, one
+    step a batch; returns (losses, completed fractions, each step's kept
+    micro-batches' seconds, final parameters on the host, launches by kernel
+    and by shape, peak GiB)."""
+    n, m = TRAIN_WORKERS, TRAIN_MB
+    shape = InputShape("vlm", TRAIN_SEQ, n * m * V_MB_SEQS, "train", microbatches=m)
+    opt, step = dp_steps.make_train_step(cfg, shape, DropConfig(enabled=True, tau=tau), n,
+                                         lr=1e-4, clip_norm=1.0)
+    params = init_params(cfg, seed=seed, device=DEV)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts(by_shape=True)
+    losses, fractions, mb_s = [], [], []
+    with mode(eager):
+        for batch, lat in zip(batches, latencies):
+            params, state, metrics = step(params, state, batch, lat)
+            losses.append(float(metrics["loss"]))
+            fractions.append(float(metrics["completed_fraction"]))
+            mb_s.append(elapsed_s(metrics["microbatch_marks"]))
+    torch.cuda.synchronize()
+    return (losses, fractions, mb_s, [x.cpu() for x in tree_leaves(params)],
+            launch_window(before), torch.cuda.max_memory_allocated() / 2**30)
+
+
+def vlm_train(seed: int, cpu_passes, card: str) -> dict:
+    """20c: internvl2-1b at full width and depth trained through DropCompute
+    (``make_train_step``: ``TRAIN_WORKERS`` workers x ``TRAIN_MB``
+    micro-batches of ``V_MB_SEQS`` x (``V_PREFIX`` patch rows + ``V_TEXT``
+    tokens), f32 masters, bf16 compute, remat, AdamW, ``TRAIN_STEPS`` steps,
+    tau at the median of the latency draws' sums), eager then graphed (the
+    counters' window): completed fractions of the draws, the launches the
+    code implies a kept micro-batch (``launches_per_microbatch``), K3's by
+    shape (all at (V_MB_SEQS, 2,048)), graphed losses and final parameters
+    equal to the eager run's bit for bit; ms a kept micro-batch, peak
+    beside ``memory_reckoning``.  Then the 2-layer card-vs-CPU check of
+    ``loss_fn`` with the prefix (``train_parity`` on the 2-layer checks'
+    batch, both ``PREFIX_FAULTS`` planted).  Returns the graphed run's launches by kernel
+    and by shape and its numbers."""
+    cfg = vlm_config()
+    check(cfg.prefix_len == V_PREFIX and cfg.remat and cfg.dtype == "bfloat16"
+          and cfg.param_dtype == "float32", f"20c: {cfg}")
+    n, m, steps = TRAIN_WORKERS, TRAIN_MB, TRAIN_STEPS
+    latency = LatencyModel(base=0.45, noise=NoiseModel(kind="paper_lognormal"))
+    draws = [latency.sample_at(s, n, m, seed=seed + 1) for s in range(steps)]
+    tau = float(np.median(np.stack(draws).sum(-1)))
+    masks = [drop_mask(t, tau, 1).numpy() for t in draws]
+    want_fractions = [float(np.float32(k.sum()) / np.float32(k.size)) for k in masks]
+    kept = int(sum(k.sum() for k in masks))
+    check(0 < kept < n * m * steps, f"20c: tau {tau} should drop some micro-batches, not all")
+    batches = [vlm_batch(cfg, seed, s, n * m * V_MB_SEQS) for s in range(steps)]
+    meta = init_params(cfg, seed=seed, device="meta")
+    names = [k for k, _ in named_leaves(meta)]
+    per_mb = launches_per_microbatch(cfg, len(names))
+    want = {k: kept * v for k, v in per_mb.items()}
+    want_shapes = k3_shape_launches(V_MB_SEQS, TRAIN_SEQ, TRAIN_SEQ, kept * 2 * cfg.n_layers,
+                                    kept * cfg.n_layers)
+    reck = memory_reckoning(cfg, meta)
+    runs = {}
+    for eager in (True, False):
+        tag = "eager" if eager else "graphed"
+        if not eager:
+            ops.reset_launch_counts()  # the training path starts here
+        losses, fractions, mb_s, final, (counts, shapes), peak = vlm_train_run(
+            cfg, seed, eager, draws, tau, batches)
+        check(all(math.isfinite(x) for x in losses), f"20c {tag}: non-finite losses {losses}")
+        check(fractions == want_fractions, f"20c {tag}: completed fractions {fractions}, the "
+                                           f"latency draws give {want_fractions}")
+        check(counts == want, f"20c {tag}: launches {counts}, the code implies {want}")
+        check(shapes == want_shapes, f"20c {tag}: K3 launches by shape {shapes}, the code "
+                                     f"implies {want_shapes}")
+        ms = [t * 1e3 for ts in mb_s for t in ts]
+        log(f"20c {cfg.name} train {tag} ({cfg.n_layers} layers, full width, {card}): {n} "
+            f"workers x {m} micro-batches of {V_MB_SEQS} x ({V_PREFIX} patch rows + {V_TEXT} "
+            f"tokens), AdamW, tau {tau:.4f} s, completed {fractions}, losses {losses}; ms a kept "
+            f"micro-batch {[round(x, 2) for x in ms]} (median {statistics.median(ms):.2f}: "
+            f"{V_MB_SEQS * TRAIN_SEQ / statistics.median(ms) * 1e3:.0f} positions a second); "
+            f"peak {peak:.2f} GiB ({peak * 2**30 / 1e9:.2f} GB) against the reckoning "
+            + ", ".join(f"{k} {v:.2f}" for k, v in reck.items())
+            + f" GB; launches {counts}; K3 by (B, Sq, Sk) {shapes}")
+        runs[tag] = (losses, final, statistics.median(ms), peak)
+        free_device()
+    (got, got_p, mb_ms, peak), (want_l, want_p, _, _) = runs["graphed"], runs["eager"]
+    gaps = leaf_gaps(names, got_p, want_p)
+    log(f"20c: graphed vs eager losses {got} / {want_l}; final parameters differ in "
+        f"{sum(1 for v in gaps.values() if v)} of {len(gaps)} leaves")
+    check(got == want_l and not any(gaps.values()),
+          "20c: the graphed run differs from the eager run (bit for bit expected)")
+    del batches, runs
+    free_device()
+    train_parity(cfg, seed, vlm_parity_batch(cfg, seed), PREFIX_FAULTS, "20c parity",
+                 "flash_attention_bwd", cpu_passes.result(CpuPasses.VLM_TRAIN),
+                 layers=V_PARITY_LAYERS)
+    free_device()
+    return {"counts": counts, "shapes": shapes, "mb_ms": mb_ms, "peak": peak,
+            "reckoning": sum(reck.values())}
+
+
+def vlm_kernels(rng, seed: int) -> dict:
+    """20a: K3's (64, 7) build at ``V_K3_SHAPES`` (``k3_ragged_checks``,
+    ``k3_ragged_timing`` with 14 heads over 2), K4's (64, 7) instance at
+    internvl2-1b's widths and serving slots (``k4_checks``: bf16 and int8
+    pools, with its planted faults; ``k4_timing`` at its decode and mixed
+    steps), K2's forward (``k2_rg_checks`` at ``V_K2_ROWS``, with its planted
+    fault) and backward (``k2_bwd_checks_and_timing`` at the training
+    micro-batch) at d 896, and ptxas's report of the K4 build at D 64."""
+    out = {"k3": k3_ragged_checks(rng, V_K3_SHAPES, V_H, V_KV)}
+    free_device()
+    out["k3_t"] = k3_ragged_timing(rng, V_K3_SHAPES, V_H, V_KV)
+    free_device()
+    cfg = vlm_config()
+    lens = vlm_requests(cfg, seed)[0]
+    out["k4"] = k4_checks(rng, lens, dims=zoo_dims(cfg), max_len=zoo_max_len(cfg))
+    free_device()
+    out["k4_t"] = k4_timing(rng, lens, dims=zoo_dims(cfg))
+    free_device()
+    out["k2"] = k2_rg_checks(rng, d=cfg.d_model, row_counts=V_K2_ROWS, plant=True)
+    out["k2b"] = k2_bwd_checks_and_timing(rng, d=cfg.d_model, rows=V_MB_SEQS * TRAIN_SEQ)
+    free_device()
+    ptx = [line for line in ptxas_lines(flash_attention.SOURCE, r"paged_attention_[a-z]+",
+                                        head_dims=True) if "(D 64, g 7)" in line]
+    log("20a ptxas -v, K4 at D 64: " + "; ".join(ptx))
+    check(any(line.startswith("paged_attention_tc (D 64, g 7)") for line in ptx),
+          f"20a: no ptxas line of K4's (64, 7) build: {ptx}")
+    return out
+
+
+def vlm_phase(seed: int, rng, cpu_passes, card: str) -> dict:
+    """Phase 20, the VLM family: 20a K3's and K4's (64, 7) builds
+    (``vlm_kernels``), 20b internvl2-1b served text-only and prefilled with
+    its prefix (``vlm_serve``), 20c trained with it (``vlm_train``), each at
+    full width and depth with a 2-layer card-vs-CPU check.  Returns the
+    readings, records and launches."""
+    t0 = time.perf_counter()
+    out = vlm_kernels(rng, seed)
+    out["serve"] = vlm_serve(seed, cpu_passes)
+    out["train"] = vlm_train(seed, cpu_passes, card)
+    # K3's (64, 7) launches on phase 20's main paths: 20b's prefill steps and
+    # 20c's graphed training run (K3 at (64, 7) runs nowhere else)
+    k3 = {k: out["serve"]["prefill_counts"][k] + out["train"]["counts"][k]
+          for k in ("flash_attention", "flash_attention_bwd")}
+    out["launches"] = {**k3, "paged_attention": out["serve"]["counts"]["paged_attention"]}
+    log(f"phase 20 took {time.perf_counter() - t0:.1f} s; launches on its main paths {out['launches']}")
+    return out
+
+
 def free_device() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -7030,8 +7545,9 @@ def main() -> int:
                                            dims=zoo_dims(zcfg["starcoder2_7b"]))}
     free_device()
     phase_done("3")
-    # the card-vs-CPU checks' CPU passes (7's, 15's, 18b's, 19c's) from here
-    # on, in a process of their own beside the card's work
+    # the card-vs-CPU checks' CPU passes (7's, 10's, 11b's, 13b's, 15's,
+    # 18b's, 19c's, 20b's, 20c's) from here on, in a process of their own
+    # beside the card's work
     cpu_passes = CpuPasses(args.seed)
 
     # 4. serving at full width
@@ -7097,13 +7613,13 @@ def main() -> int:
     free_device()
     grad_phase(dataclasses.replace(mcfg, n_layers=M_LAYERS), args.seed, seqs=M_TRAIN_SEQS)
     free_device()
-    mamba_train_parity(args.seed)
+    mamba_train_parity(args.seed, cpu_passes.result(CpuPasses.MAMBA))
     free_device()
     phase_done("10")
 
     # 11. the paper's BERT models: K3's (64, 1) build, the 2-layer card-vs-CPU
     # check, bert-1.5b at appendix B.1's setting, bert-large
-    (k3d_fwd_err, k3d_bwd_err), k3d_t, bert_counts = bert_phase(args.seed, rng)
+    (k3d_fwd_err, k3d_bwd_err), k3d_t, bert_counts = bert_phase(args.seed, rng, cpu_passes)
     check(bert_counts["flash_attention"] > 0 and bert_counts["flash_attention_bwd"] > 0
           and bert_counts["masked_accum"] > 0, f"bert: kernels not run: {bert_counts}")
     free_device()
@@ -7126,7 +7642,7 @@ def main() -> int:
     # 2560 (13a), the 3-layer card-vs-CPU gradient check (13b), recurrentgemma-2b
     # at full width and depth through DropCompute (13c)
     (k3r_fwd_err, k3r_bwd_err), k3r_t, (k2b2560_err, k2b2560_t), rg_train_counts = \
-        rg_train_phase(args.seed, rng)
+        rg_train_phase(args.seed, rng, cpu_passes)
     check(rg_train_counts["flash_attention"] > 0 and rg_train_counts["flash_attention_bwd"] > 0
           and rg_train_counts["rmsnorm_bwd"] > 0 and rg_train_counts["masked_accum"] > 0,
           f"recurrentgemma train: kernels not run: {rg_train_counts}")
@@ -7189,14 +7705,24 @@ def main() -> int:
         # DropCompute (19c), each at full width and depth with a 2-layer
         # card-vs-CPU check
         p19 = whisper_phase(args.seed, np.random.default_rng(args.seed + 19), cpu_passes, card)
+        w_train = p19["train_counts"]
+        check(p19["serve_counts"]["flash_attention"] > 0 and w_train["flash_attention"] > 0
+              and w_train["flash_attention_bwd"] > 0 and w_train["masked_accum"] > 0,
+              f"whisper: kernels not run: serving {p19['serve_counts']}, training {w_train}")
+        free_device()
+        phase_done("19")
+
+        # 20. the VLM family: K3's and K4's (64, 7) builds (20a), internvl2-1b
+        # served text-only and prefilled with its patch prefix (20b) and
+        # trained with it through DropCompute (20c), each at full width and
+        # depth with a 2-layer card-vs-CPU check
+        p20 = vlm_phase(args.seed, np.random.default_rng(args.seed + 20), cpu_passes, card)
     finally:
         cpu_passes.close()
-    w_train = p19["train_counts"]
-    check(p19["serve_counts"]["flash_attention"] > 0 and w_train["flash_attention"] > 0
-          and w_train["flash_attention_bwd"] > 0 and w_train["masked_accum"] > 0,
-          f"whisper: kernels not run: serving {p19['serve_counts']}, training {w_train}")
+    check(all(v > 0 for v in p20["launches"].values()),
+          f"internvl2-1b: the (64, 7) builds not run: {p20['launches']}")
     free_device()
-    phase_done("19")
+    phase_done("20")
 
     # K3's (128, 8) records keep the earlier paths' launches; the (64, 1)
     # build's records take phase 11's, the (256, 10) build's phase 13's; K4's
@@ -7214,10 +7740,15 @@ def main() -> int:
     moe_k2 = {k: sum(c[k] for c in moe_train.values()) if k in ("rmsnorm", "rmsnorm_bwd") else 0
               for k in serve_counts}
     # K3's (64, 1) records at whisper's ragged shapes take phase 19's launches
-    # by shape; whisper's K1 launches (f32 masters) join K1's f32 record
+    # by shape; whisper's K1 launches (f32 masters) join K1's f32 record; the
+    # (64, 7) records take phase 20's K3 and K4 launches, its K2 and K1 (f32)
+    # launches join theirs
+    vlm = {k: p20["serve"]["counts"][k] + p20["serve"]["prefill_counts"][k]
+           + p20["train"]["counts"][k] for k in serve_counts}
     launches = {k: serve_counts[k] + mamba_counts[k] + train_counts[k] + localsgd_counts[k]
                 + m_localsgd_counts[k] + dp_counts[k] + mamba_train_counts[k] + moe_k2[k]
-                + (0 if k in k3_own else bert_counts[k] + rg_train_counts[k] + w_train[k])
+                + (0 if k in k3_own else bert_counts[k] + rg_train_counts[k] + w_train[k]
+                   + (0 if k == "paged_attention" else vlm[k]))
                 + (0 if k == "paged_attention" else rg_counts[k] + p14_rg[k] + zoo[k])
                 + p14_qwen[k] + p14_mamba[k]
                 for k in serve_counts}
@@ -7313,6 +7844,18 @@ def main() -> int:
                **p19["k3_t"][shape][i])
           for shape in ("s1500", "s448", "s448x1500")
           for i, kind in enumerate(("flash_attention", "flash_attention_bwd"))],
+        *[dict(name=f"{kind}_d64_g7", route="cuda",
+               source="src/repro_torch/kernels/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:91",
+               launches=p20["launches"][kind], max_abs_err=p20["k3"]["s2048"][i],
+               **p20["k3_t"]["s2048"][i])
+          for i, kind in enumerate(("flash_attention", "flash_attention_bwd"))],
+        dict(name="paged_attention_d64_g7", route="cuda",
+             source="src/repro_torch/kernels/paged_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:238",
+             launches=p20["launches"]["paged_attention"], max_abs_err=p20["k4"],
+             **{k: p20["k4_t"]["decode"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None),
         dict(name="flash_attention_d64_g1_s1500_b8", route="cuda",
              source="src/repro_torch/kernels/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:91",
@@ -7346,6 +7889,10 @@ def main() -> int:
         log(f"K2 fwd at d {d} (17a): max abs err {err:.3e}, {t}")
     for d, (err, t) in p18["k2b"].items():
         log(f"K2 bwd at d {d} (18a): max abs err {err:.3e}, {t}")
+    log(f"K2 fwd at d 896 (20a, rows {V_K2_ROWS}): max abs err {p20['k2'][0]:.3e}, "
+        f"{p20['k2'][1]}")
+    log(f"K2 bwd at d 896 (20a, {V_MB_SEQS * TRAIN_SEQ} rows): max abs err "
+        f"{p20['k2b'][0]:.3e}, {p20['k2b'][1]}")
     for (d, g), ((fe, be), (ft, bt)) in p18["k3"].items():
         log(f"K3 ({d}, {g}) (18a, {K3_PAIRS[d, g][0]}'s shape): max abs err fwd {fe:.3e}, bwd "
             f"{be:.3e}; fwd {ft}; bwd {bt}")
@@ -7357,7 +7904,20 @@ def main() -> int:
         f"14: qwen {p14_qwen}, recurrentgemma {p14_rg}, mamba {p14_mamba}; dense zoo (15): "
         f"{zoo_counts}; front-end (16): {fe_counts}; MoE serving (17): {moe_counts}; MoE "
         f"training (18c): {moe_train}; whisper serving (19b): {p19['serve_counts']}; whisper "
-        f"training (19c): {w_train}")
+        f"training (19c): {w_train}; internvl2-1b serving (20b): {p20['serve']['counts']}, its "
+        f"prefill steps: {p20['serve']['prefill_counts']}; internvl2-1b training (20c): "
+        f"{p20['train']['counts']}")
+    log("K4 (64, 7) at internvl2-1b's steps: " + "; ".join(
+        f"{shape} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.2f}, plain "
+        f"{r['plain_ms'] * 1e3:.1f})" for shape, r in p20["k4_t"].items()))
+    for shape, (f, b) in p20["k3_t"].items():
+        log(f"K3 (64, 7) {shape}: fwd {f['ms'] * 1e3:.1f} us (bound {f['bound_ms'] * 1e3:.1f}, "
+            f"SDPA {f['library_ms'] * 1e3:.1f}), bwd {b['ms'] * 1e3:.1f} us (bound "
+            f"{b['bound_ms'] * 1e3:.1f}, SDPA {b['library_ms'] * 1e3:.1f})")
+    for p, r in p20["serve"]["recs"].items():
+        log(f"internvl2-1b graphed {'packed' if p else 'unpacked'}: decode {r['decode_ms']:.2f} "
+            f"ms, mixed {r['mixed_ms']:.2f} ms, {r['gen_tok_s']:.1f} generated tok/s, peak "
+            f"{r['peak_gib']:.2f} GiB")
     for n, t in k4_zoo_t.items():
         log(f"K4 at {n}'s steps: " + "; ".join(
             f"{shape} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.2f}, plain "
@@ -7374,6 +7934,7 @@ def main() -> int:
     for k in kernels:
         check(all(isinstance(k[f], float) and math.isfinite(k[f])
                   for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")), f"bad record {k}")
+    log(f"chip_smoke: the whole smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}), flush=True)

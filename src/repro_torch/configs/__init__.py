@@ -2,11 +2,11 @@
 
 Each module exposes ``config()`` (the exact published architecture) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).  The
-port carries the configs it runs; the rest of the reference's
-registry is queued in ROADMAP.md; ``PAPER_MODELS`` are the paper's own
-BERT models, as in the reference.  ``mamba2_tiny``, ``hybrid_tiny`` and
-``moe_tiny`` (CPU-sized 'M', 'R' and MoE configs for the serving parity
-tests) stay out of ``ARCHITECTURES``, as in the reference.
+port carries every config of the reference's registry, in its order;
+``PAPER_MODELS`` are the paper's own BERT models, as in the reference.
+``mamba2_tiny``, ``hybrid_tiny`` and ``moe_tiny`` (CPU-sized 'M', 'R' and
+MoE configs for the serving parity tests) stay out of ``ARCHITECTURES``,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ ARCHITECTURES: List[str] = [
     "recurrentgemma_2b",
     "qwen2_5_3b",
     "mixtral_8x22b",
+    "internvl2_1b",
     "starcoder2_7b",
     "qwen3_moe_235b_a22b",
     "gemma3_27b",

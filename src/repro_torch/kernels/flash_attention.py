@@ -73,6 +73,7 @@ INSTANCES = {
     (128, 9): Instance(4, 1, 64, 2),  # starcoder2-7b: two n8 tiles, Q in shared memory, ~81 KB
     (128, 6): Instance(8, 2, 64, 3),  # mixtral-8x22b: (128, 8)'s cut, 2 idle heads
     (128, 16): Instance(4, 1, 64, 2),  # qwen3-moe-235b-a22b: (128, 9)'s cut, no idle head
+    (64, 7): Instance(8, 2, 64, 4),  # internvl2-1b: (128, 8)'s cut, 1 idle head, ~33 KB a CTA
 }
 SERVED = set(INSTANCES)
 #: the (128, 8) instance's tile tokens and CTAs an SM, the defaults of the
@@ -347,6 +348,7 @@ TRAINED = {
     (128, 16),  # qwen3-moe-235b-a22b
     (128, 2),  # internlm2-1.8b, gemma3-27b
     (128, 9),  # starcoder2-7b
+    (64, 7),  # internvl2-1b
 }
 _LL = ctypes.c_longlong
 #: tile sizes of ``flash_attention.cu``: a forward / dQ CTA takes 128 query

@@ -21,12 +21,12 @@
 // so the kernel is bound by the bytes of the pages it reads (and, at decode
 // sizes, by latency).
 //
-// Six instances (`Inst` below): (D 128, g 8), qwen2.5-3b; (D 256, g 10),
+// Seven instances (`Inst` below): (D 128, g 8), qwen2.5-3b; (D 256, g 10),
 // recurrentgemma-2b's local attention; (D 128, g 2), internlm2-1.8b and
 // gemma3-27b; (D 128, g 9), starcoder2-7b; (D 128, g 6), mixtral-8x22b;
-// (D 128, g 16), qwen3-moe-235b-a22b.  The numbers in brackets are
-// (256, 10)'s; (128, 2) and (128, 6) are cut as (128, 8) is, and (128, 9)
-// and (128, 16) as (256, 10).
+// (D 128, g 16), qwen3-moe-235b-a22b; (D 64, g 7), internvl2-1b.  The
+// numbers in brackets are (256, 10)'s; (128, 2), (128, 6) and (64, 7) are
+// cut as (128, 8) is, and (128, 9) and (128, 16) as (256, 10).
 //
 // Design.  The tile plan (`paged_tile_plan` in flash_attention.py, one row
 // per tile: first token, tokens, slot, block lo, block hi) cuts the step's
@@ -57,8 +57,13 @@
 //     for the padding heads) and each k-step's two n8 fragments come from
 //     one `ldmatrix.x4`; with 64 KB of 32-key stages and 32 KB of queries
 //     (~97 KB a CTA), two CTAs an SM.  (128, 9) and (128, 16) take the same
-//     layout with 64-key stages (64 + 16 KB a CTA, two an SM).  A padding
-//     head (g = 2 or 6 on its one tile, g = 9 or 10 on their second)
+//     layout with 64-key stages (64 + 16 KB a CTA, two an SM).  At D 64
+//     (g = 7) a bf16 row is 128 bytes, eight 16-byte chunks, so the swizzle
+//     `chunk ^ (row & 7)` stays inside the row and an int8 row's four
+//     chunks convert to eight; Q^T and the accumulator take half D 128's
+//     registers and the ring half its bytes (32 KB of 64-key stages, ~33
+//     KB a CTA), so four CTAs an SM.  A padding
+//     head (g = 2, 6 or 7 on its one tile, g = 9 or 10 on their second)
 //     computes a softmax of
 //     zero scores in its own columns, which no real head reads (every
 //     column's max, sum and accumulator are its own), and is never
@@ -127,13 +132,19 @@ struct Inst<128, 16> {  // qwen3-moe-235b-a22b: (128, 9)'s cut, two full n8 tile
   static constexpr int kTokensPerWarp = 1, kNTiles = 2, kStageKeys = 64, kCtasPerSm = 2;
   static constexpr bool kQInSmem = true;
 };
+template <>
+struct Inst<64, 7> {  // internvl2-1b: (128, 8)'s cut, head 7 padding, ~33 KB: four CTAs an SM
+  static constexpr int kTokensPerWarp = 2, kNTiles = 1, kStageKeys = 64, kCtasPerSm = 4;
+  static constexpr bool kQInSmem = false;
+};
 static_assert(Inst<128, 8>::kTokensPerWarp * kWarps == 8 &&
                   Inst<256, 10>::kTokensPerWarp * kWarps == 4 &&
                   Inst<128, 2>::kTokensPerWarp * kWarps == 8 &&
                   Inst<128, 9>::kTokensPerWarp * kWarps == 4 &&
                   Inst<128, 6>::kTokensPerWarp * kWarps == 8 &&
-                  Inst<128, 16>::kTokensPerWarp * kWarps == 4,
-              "INSTANCES in flash_attention.py plans tiles of 8, 4, 8, 4, 8 and 4 tokens");
+                  Inst<128, 16>::kTokensPerWarp * kWarps == 4 &&
+                  Inst<64, 7>::kTokensPerWarp * kWarps == 8,
+              "INSTANCES in flash_attention.py plans tiles of 8, 4, 8, 4, 8, 4 and 8 tokens");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -699,8 +710,9 @@ extern "C" int repro_paged_attention(
   // Only the shapes the port serves are instantiated, with bf16 queries over
   // bf16 or int8 pools: qwen2.5-3b (D 128, g 8), recurrentgemma-2b's local
   // attention (D 256, g 10), internlm2-1.8b and gemma3-27b (D 128, g 2),
-  // starcoder2-7b (D 128, g 9), mixtral-8x22b (D 128, g 6) and
-  // qwen3-moe-235b-a22b (D 128, g 16).  Another (D, g) adds its Inst<D, G> above,
+  // starcoder2-7b (D 128, g 9), mixtral-8x22b (D 128, g 6),
+  // qwen3-moe-235b-a22b (D 128, g 16) and internvl2-1b (D 64, g 7).
+  // Another (D, g) adds its Inst<D, G> above,
   // its launch here, and its entry to INSTANCES in flash_attention.py.
   if (!q_is_bf16) return -1;
   const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, q_pos, plan, out, part_acc,
@@ -719,6 +731,8 @@ extern "C" int repro_paged_attention(
     e = kv_is_int8 ? launch<128, 6, int8_t, true>(a) : launch<128, 6, __nv_bfloat16, false>(a);
   } else if (D == 128 && G == 16) {
     e = kv_is_int8 ? launch<128, 16, int8_t, true>(a) : launch<128, 16, __nv_bfloat16, false>(a);
+  } else if (D == 64 && G == 7) {
+    e = kv_is_int8 ? launch<64, 7, int8_t, true>(a) : launch<64, 7, __nv_bfloat16, false>(a);
   } else {
     return -1;
   }

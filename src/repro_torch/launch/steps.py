@@ -63,7 +63,8 @@ class TrainStep:
     (params, opt_state, metrics)``: ``params`` (the master tree) and
     ``opt_state`` are updated in place and returned; ``batch`` is the global
     batch (``tokens``, ``weights``: (B, S) numpy arrays or tensors; an
-    enc-dec model's ``frames`` (B, F, d) beside them) and
+    enc-dec model's ``frames`` (B, F, d) or a VLM's ``prefix`` (B, P, d)
+    beside them) and
     ``latencies`` the (W, M) draw.  ``drop`` may be replaced between calls
     (a new tau needs no capture).  The compute copy and the accumulator are
     made at the first call and kept: later calls refill them in place.
@@ -86,7 +87,7 @@ class TrainStep:
         """This rank's (worker, micro-batch) blocks of every leaf of the
         batch, (W/R · M, mbw, ...) each, as the reference's ``to_micro``
         maps the whole batch: ``tokens`` as int64, ``weights`` as f32, any
-        other leaf (``frames``) in its own dtype."""
+        other leaf (``frames``, ``prefix``) in its own dtype."""
         lo, hi = self.workers.start * self.m * self.mbw, self.workers.stop * self.m * self.mbw
         dtypes = {"tokens": torch.long, "weights": torch.float32}
         out = {}
@@ -186,7 +187,9 @@ def make_prefill_step(cfg: ModelConfig, moe_impl: str = "sort"):
     (the training path, K3 on the card; MoE layers in ``moe_impl``
     dispatch) and the logits of the last position alone
     (``steps.py:235-245``: full-sequence logits at a large vocabulary
-    would not fit), argmax in f32."""
+    would not fit), argmax in f32.  A VLM's ``batch`` carries its
+    ``prefix`` (B, P, d) beside the text tokens, as the reference's prefill
+    inputs (``steps.py:78-81``); the last position is the text's."""
     def step(params, batch):
         x, _ = forward_features(params, cfg, batch, moe_impl=moe_impl)
         logits = L.unembed(params["embed"], x[:, -1:], cfg)

@@ -17,8 +17,10 @@ the caller passes the paged kernel's tile plans (``chunk_plans`` /
 captured in a CUDA graph (``repro_torch.graphs``).
 
 ``batch`` is a dict: ``tokens`` (B, S) int, optional ``weights`` (B, S)
-per-token loss weights, and for an enc-dec model ``frames`` (B, F, d), the
-encoder's stub front-end embeddings.  The port trains and serves decoder-only stacks of
+per-token loss weights, for an enc-dec model ``frames`` (B, F, d), the
+encoder's stub front-end embeddings, and for a VLM ``prefix`` (B, P, d),
+the stub vision front-end's patch embeddings, which the training forward
+places before the text (``forward_features``).  The port trains and serves decoder-only stacks of
 'G'/'L' attention, 'R' (RG-LRU) and 'M' (Mamba-2) layers, and trains encoder
 stacks of 'B' (bidirectional) blocks, the paper's BERT models, which have
 no decode shapes and so are never served.  'G'/'L' blocks with experts
@@ -31,7 +33,9 @@ encoder over the frames, a decoder of 'G' blocks with cross-attention)
 train and serve through ``decode_step`` on a dense cache
 (``init_decode_cache(..., enc_out=encode(...))``, which holds each decoder
 layer's cross K/V); the engine, the prefill steps and the paged layout
-refuse them, as the reference's do.  On the card, training refuses shapes
+refuse them, as the reference's do.  VLM models (internvl2-1b) train and
+prefill with their patch prefix and serve text-only, as the reference's
+engine does.  On the card, training refuses shapes
 its kernels are not built for (``require_trainable``).
 
 Parameters are nested dicts with the reference's path names and shapes
@@ -64,14 +68,10 @@ class UnsupportedPatternError(NotImplementedError):
 
     Typed (and raised unconditionally, not ``assert``-ed) so callers can
     catch it.  The port serves and trains decoder-only 'G'/'L'/'R'/'M'
-    stacks, with or without experts, trains 'B' encoder stacks, and trains
-    and decodes enc-dec models; serving a 'B' stack, multi-token serving
-    steps of an enc-dec model and VLM models raise it."""
-
-
-def _require_no_prefix(cfg: ModelConfig, what: str) -> None:
-    if cfg.prefix_len > 0:
-        raise UnsupportedPatternError(f"{what} does not support VLM prefixes in the port yet")
+    stacks, with or without experts or a VLM prefix (served text-only),
+    trains 'B' encoder stacks, and trains and decodes enc-dec models;
+    serving a 'B' stack and multi-token serving steps of an enc-dec model
+    raise it."""
 
 
 #: the decoder layer kinds the port builds and serves
@@ -82,7 +82,8 @@ def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
     """Raise ``UnsupportedPatternError`` unless the port can run ``cfg``
     through multi-token serving steps: decoder-only stacks of 'G'/'L'
     attention (with or without experts), 'R' (RG-LRU) and 'M' (Mamba-2)
-    layers without a VLM prefix or an encoder.
+    layers without an encoder.  A VLM is served text-only: its serving
+    steps take no prefix, as the reference's (``model.py:238-250``).
     A 'B' encoder stack has no decode shapes and is refused here (the
     serving engine, the paged layout, ``init_decode_cache`` and the
     prefill steps all ask); so is an enc-dec model, which serves through
@@ -94,7 +95,6 @@ def require_chunkable(cfg: ModelConfig, what: str = "chunked prefill") -> None:
         )
     if cfg.is_encdec:
         raise UnsupportedPatternError(f"{what} does not support enc-dec models")
-    _require_no_prefix(cfg, what)
 
 
 def require_stack(cfg: ModelConfig, what: str = "the PyTorch port") -> None:
@@ -103,8 +103,7 @@ def require_stack(cfg: ModelConfig, what: str = "the PyTorch port") -> None:
     serving stacks of ``require_chunkable``, an encoder stack of 'B'
     blocks alone (bidirectional attention: the BERT models), or an enc-dec
     model whose decoder is 'G' blocks (its encoder is 'B' blocks and each
-    decoder block adds cross-attention: whisper-tiny), without a VLM
-    prefix."""
+    decoder block adds cross-attention: whisper-tiny)."""
     pattern = set(cfg.pattern)
     if cfg.is_encdec and pattern != {"G"}:
         raise UnsupportedPatternError(
@@ -115,7 +114,6 @@ def require_stack(cfg: ModelConfig, what: str = "the PyTorch port") -> None:
             f"{what} supports 'G'/'L'/'R'/'M' decoder or 'B' encoder layer patterns in the "
             f"PyTorch port, got {cfg.pattern!r}"
         )
-    _require_no_prefix(cfg, what)
 
 
 def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> None:
@@ -133,9 +131,19 @@ def require_trainable(cfg: ModelConfig, seq_len: int, device: torch.device) -> N
     need only their stack's attention and norms.  An enc-dec model's
     attention runs at three shapes: the encoder's ``cfg.enc_seq`` frames,
     the decoder's ``seq_len`` tokens, and cross-attention's (``seq_len``,
-    ``cfg.enc_seq``)."""
+    ``cfg.enc_seq``).
+
+    For a VLM ``seq_len`` is the attention length, the ``cfg.prefix_len``
+    patch rows and the text after them, as the reference's
+    ``InputShape.seq_len`` counts it (``steps.py:64``: a batch holds
+    ``seq_len - prefix_len`` text tokens); K3 runs at ``seq_len``, and a
+    ``seq_len`` that leaves fewer than two text tokens (no next-token
+    target) raises ``ValueError``."""
     require_stack(cfg, "training")
     L.require_no_softcap(cfg)
+    if cfg.prefix_len and seq_len - cfg.prefix_len < 2:
+        raise ValueError(f"seq_len {seq_len} counts the {cfg.prefix_len} prefix rows: it leaves "
+                         f"{seq_len - cfg.prefix_len} text tokens, fewer than 2")
     if torch.device(device).type != "cuda":
         return
     if set(cfg.pattern) & {"G", "L", "B"}:
@@ -513,12 +521,22 @@ def forward_features(params: Tree, cfg: ModelConfig, batch: Dict[str, Any],
     term (0 without experts).  An enc-dec model (``model.py:118-133``)
     encodes ``batch["frames"]`` and runs each decoder block with its
     cross K/V of the encoder's output (the K/V projections and the block
-    checkpointed together under ``cfg.remat``)."""
+    checkpointed together under ``cfg.remat``).  A VLM
+    (``model.py:110-115``, ``:138-139``) embeds the text at its own
+    positions, places ``batch["prefix"]`` (B, ``prefix_len``, d), cast to
+    the compute dtype, before it, runs the stack at RoPE positions over
+    prefix and text, and strips the prefix rows after the final norm, so S
+    is the text's length (a VLM batch without ``prefix`` raises
+    ``KeyError``, as the reference's)."""
     require_stack(cfg, "training")
     dev = params_device(params)
     tokens = _long(batch["tokens"], dev)
     positions = torch.arange(tokens.shape[1], device=dev)
     x = L.embed(params["embed"], tokens, cfg, positions)
+    if cfg.prefix_len > 0:
+        prefix = torch.as_tensor(batch["prefix"], device=dev).to(cfg.compute_dtype)
+        x = torch.cat([prefix, x], dim=1)
+        positions = torch.arange(x.shape[1], device=dev)
     enc_kv = None
     if cfg.is_encdec:
         enc_out = encode(params, cfg, batch["frames"])
@@ -529,12 +547,14 @@ def forward_features(params: Tree, cfg: ModelConfig, batch: Dict[str, Any],
     x, _, aux, _ = apply_stack(params["stack"], x, cfg, positions, moe_impl=moe_impl,
                                enc_kv=enc_kv)
     x = L.apply_norm(params["final_norm"], x, cfg)
+    if cfg.prefix_len > 0:
+        x = x[:, cfg.prefix_len:]
     return x, _device_scalar(aux, torch.float32, dev)
 
 
 def forward(params: Tree, cfg: ModelConfig, batch: Dict[str, Any], moe_impl: str = "sort"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, S, V), aux loss scalar)."""
+    """(logits (B, S, V), aux loss scalar); a VLM's S is its text's."""
     x, aux = forward_features(params, cfg, batch, moe_impl=moe_impl)
     return L.unembed(params["embed"], x, cfg), aux
 

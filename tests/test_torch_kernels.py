@@ -329,6 +329,34 @@ PLAN_CASES = [("mixed", 0), ("mixed", 7), ("mixed", 100), ("decode", 0), ("decod
               ("interleaved", 6)]
 
 
+def check_walk(name, window, int8=False, inst=None, kvh=2, **dims):
+    """``walk_plan`` of ``plan_scenario(name, kvh=kvh, **dims)`` (its pools
+    quantized to int8 when ``int8``; softcap 5 at window 7) by ``inst``'s
+    schedule (the (128, 8) one when None) against
+    ``ref.paged_attention_ref``: tiles of at most the instance's tokens,
+    the output within ``kernel_f32``, padding and fully masked queries
+    exact zeros, and the decode scenario's grid split."""
+    inst = inst or flash_attention.INSTANCES[128, 8]
+    a = plan_scenario(name, kvh=kvh, **dims)
+    if int8:
+        a["k_pool"], a["k_scale"] = quantize_pool(a["k_pool"])
+        a["v_pool"], a["v_scale"] = quantize_pool(a["v_pool"])
+    softcap = 5.0 if window == 7 else 0.0
+    got, plan = walk_plan(a, window=window, softcap=softcap, inst=inst)
+    assert 1 <= plan[:, 1].min() and plan[:, 1].max() <= inst.tile_tokens
+    ta = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
+    want = ref.paged_attention_ref(**ta, window=window, softcap=softcap).numpy()
+    assert_close(got, want, "kernel_f32")
+    zero = a["q_slots"] < 0
+    if name == "fully_masked":
+        zero |= a["q_slots"] == 2
+    np.testing.assert_array_equal(got[zero], 0.0)
+    if name == "decode":
+        splits, _ = flash_attention.split_blocks(len(plan) * kvh, a["tables"].shape[1], 132,
+                                                 inst.ctas_per_sm)
+        assert splits > 1  # the split merge is exercised
+
+
 class TestPagedTilePlan:
     @pytest.mark.parametrize("name,window", PLAN_CASES)
     def test_tiles_partition_the_tokens(self, name, window):
@@ -388,22 +416,7 @@ class TestPagedTilePlan:
         to warps, online softmax, the warps' and the splits' merges) gives
         ``ref.paged_attention_ref``'s output; padding and fully masked
         queries exact zeros."""
-        a = plan_scenario(name)
-        if int8:
-            a["k_pool"], a["k_scale"] = quantize_pool(a["k_pool"])
-            a["v_pool"], a["v_scale"] = quantize_pool(a["v_pool"])
-        softcap = 5.0 if window == 7 else 0.0
-        got, plan = walk_plan(a, window=window, softcap=softcap)
-        ta = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
-        want = ref.paged_attention_ref(**ta, window=window, softcap=softcap).numpy()
-        assert_close(got, want, "kernel_f32")
-        zero = a["q_slots"] < 0
-        if name == "fully_masked":
-            zero |= a["q_slots"] == 2
-        np.testing.assert_array_equal(got[zero], 0.0)
-        if name == "decode":
-            splits, _ = flash_attention.split_blocks(len(plan) * 2, a["tables"].shape[1], 132)
-            assert splits > 1  # the split merge is exercised
+        check_walk(name, window, int8)
 
     @pytest.mark.parametrize("name,window", PLAN_CASES)
     @pytest.mark.parametrize("int8", [False, True])
@@ -412,25 +425,8 @@ class TestPagedTilePlan:
         token, 32-key stages of two chunks, two CTAs an SM for the split),
         walked over 10 heads on one KV head, gives the plain version's
         output; padding and fully masked queries exact zeros."""
-        inst = flash_attention.INSTANCES[256, 10]
-        a = plan_scenario(name, kvh=1, h=10, d=32)
-        if int8:
-            a["k_pool"], a["k_scale"] = quantize_pool(a["k_pool"])
-            a["v_pool"], a["v_scale"] = quantize_pool(a["v_pool"])
-        softcap = 5.0 if window == 7 else 0.0
-        got, plan = walk_plan(a, window=window, softcap=softcap, inst=inst)
-        assert 1 <= plan[:, 1].min() and plan[:, 1].max() <= inst.tile_tokens == 4
-        ta = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
-        want = ref.paged_attention_ref(**ta, window=window, softcap=softcap).numpy()
-        assert_close(got, want, "kernel_f32")
-        zero = a["q_slots"] < 0
-        if name == "fully_masked":
-            zero |= a["q_slots"] == 2
-        np.testing.assert_array_equal(got[zero], 0.0)
-        if name == "decode":
-            splits, _ = flash_attention.split_blocks(len(plan), a["tables"].shape[1], 132,
-                                                     inst.ctas_per_sm)
-            assert splits > 1  # the split merge is exercised
+        assert flash_attention.INSTANCES[256, 10].tile_tokens == 4
+        check_walk(name, window, int8, flash_attention.INSTANCES[256, 10], kvh=1, h=10, d=32)
 
     @pytest.mark.parametrize("name,window", PLAN_CASES)
     @pytest.mark.parametrize("kvh,h", [(4, 8), (1, 9)], ids=["g2", "g9"])
@@ -440,32 +436,48 @@ class TestPagedTilePlan:
         one's (tiles of 4, a warp a token, 64-key stages, two CTAs an SM)
         over one KV head of 9, walked at head dim 32, give the plain
         version's output; padding and fully masked queries exact zeros."""
-        inst = flash_attention.INSTANCES[128, h // kvh]
-        a = plan_scenario(name, kvh=kvh, h=h, d=32)
-        softcap = 5.0 if window == 7 else 0.0
-        got, plan = walk_plan(a, window=window, softcap=softcap, inst=inst)
-        assert 1 <= plan[:, 1].min() and plan[:, 1].max() <= inst.tile_tokens
-        ta = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
-        want = ref.paged_attention_ref(**ta, window=window, softcap=softcap).numpy()
-        assert_close(got, want, "kernel_f32")
-        zero = a["q_slots"] < 0
-        if name == "fully_masked":
-            zero |= a["q_slots"] == 2
-        np.testing.assert_array_equal(got[zero], 0.0)
-        if name == "decode":
-            splits, _ = flash_attention.split_blocks(len(plan) * kvh, a["tables"].shape[1], 132,
-                                                     inst.ctas_per_sm)
-            assert splits > 1  # the split merge is exercised
+        check_walk(name, window, False, flash_attention.INSTANCES[128, h // kvh], kvh=kvh, h=h,
+                   d=32)
+
+    @pytest.mark.parametrize("name,window", PLAN_CASES)
+    @pytest.mark.parametrize("int8", [False, True])
+    def test_walk_of_the_d64_g7_instance(self, name, window, int8):
+        """internvl2-1b's (64, 7) instance (tiles of 8 tokens, two a warp,
+        64-key stages, four CTAs an SM for the split), walked at head dim 64
+        over 2 KV heads of 7 queries (head 7 of the n8 tile padding), gives
+        the plain version's output; padding and fully masked queries exact
+        zeros, and the decode grid splits."""
+        assert flash_attention.INSTANCES[64, 7].tile_tokens == 8
+        check_walk(name, window, int8, flash_attention.INSTANCES[64, 7], kvh=2, h=14, d=64)
+
+    def test_instances_mirror_the_source(self):
+        """``INSTANCES`` is the source's ``Inst<D, G>`` table: each
+        specialisation's tile tokens (4 warps of ``kTokensPerWarp``), stage
+        keys and ``kCtasPerSm`` (its ``__launch_bounds__``, which sets where
+        ``split_blocks`` stops splitting a decode grid), and no other."""
+        import pathlib
+        import re
+
+        src = (pathlib.Path(flash_attention.__file__).with_name(flash_attention.SOURCE)
+               .read_text())
+        got = {}
+        for d, g, body in re.findall(r"struct Inst<(\d+), (\d+)> \{(.*?)\};", src, re.S):
+            val = {k: int(v) for k, v in re.findall(r"(k[A-Za-z]+) = (\d+)", body)}
+            got[int(d), int(g)] = (4 * val["kTokensPerWarp"], val["kTokensPerWarp"],
+                                   val["kStageKeys"], val["kCtasPerSm"])
+        assert got == {k: tuple(v) for k, v in flash_attention.INSTANCES.items()}
 
     def test_instances(self):
         """The served (head dim, group) pairs and their cuts: (128, 8) keeps
         tiles of 8 tokens and three CTAs an SM; (256, 10) takes 4 and 2;
-        (128, 2) and (128, 6) are cut as (128, 8), (128, 9) and (128, 16) as
-        (256, 10) with 64-key stages.  An unbuilt pair raises; its plans
+        (128, 2), (128, 6) and (64, 7) are cut as (128, 8) (four CTAs an SM at
+        D 64), (128, 9) and (128, 16) as (256, 10) with 64-key stages.  An
+        unbuilt pair raises; its plans
         (made for the CPU's plain path, which reads none) take the default
         tile."""
         assert flash_attention.SERVED == {(128, 8), (256, 10), (128, 2), (128, 9), (128, 6),
-                                          (128, 16)}
+                                          (128, 16), (64, 7)}
+        assert flash_attention.instance(64, 7) == (8, 2, 64, 4)
         assert flash_attention.instance(128, 6) == (8, 2, 64, 3)
         assert flash_attention.instance(128, 16) == (4, 1, 64, 2)
         assert flash_attention.instance(128, 8) == (8, 2, 64, 3)

@@ -214,19 +214,22 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("int8", [False, True])
     @pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 5.0)])
     @pytest.mark.parametrize("decode", [False, True], ids=["packed", "decode"])
-    @pytest.mark.parametrize("h,kvh", [(32, 16), (36, 4), (48, 8), (64, 4)],
-                             ids=["d128_g2", "d128_g9", "d128_g6", "d128_g16"])
-    def test_paged_attention_d128_g2_g9(self, cuda, h, kvh, int8, window, softcap, decode):
+    @pytest.mark.parametrize("h,kvh,d", [(32, 16, 128), (36, 4, 128), (48, 8, 128), (64, 4, 128),
+                                         (14, 2, 64)],
+                             ids=["d128_g2", "d128_g9", "d128_g6", "d128_g16", "d64_g7"])
+    def test_paged_attention_d128_g2_g9(self, cuda, h, kvh, d, int8, window, softcap, decode):
         """gemma3-27b's and internlm2-1.8b's group of 2 (32 heads over 16 KV
         heads here: one n8 tile, heads 2-7 padding with zero queries, tiles
         of 8 tokens) and starcoder2-7b's group of 9 (36 over 4: two n8
         tiles, Q in shared memory, tiles of 4 tokens), and the MoE models':
         mixtral-8x22b's group of 6 (48 over 8, one n8 tile, heads 6-7
         padding) and qwen3-moe-235b-a22b's 16 (64 over 4, two full n8
-        tiles), head dim 128; ``decode`` as in ``test_paged_attention``."""
-        inst = flash_attention.INSTANCES[128, h // kvh]
+        tiles), head dim 128; internvl2-1b's group of 7 at head dim 64 (14
+        over 2: one n8 tile, head 7 padding, 64-byte int8 rows); ``decode``
+        as in ``test_paged_attention``."""
+        inst = flash_attention.INSTANCES[d, h // kvh]
         lens = (300, 40, 190) if decode else (40, 19, 33)
-        a = packed_scenario(page_size=16, kvh=kvh, h=h, d=128, seed=6, lens=lens)
+        a = packed_scenario(page_size=16, kvh=kvh, h=h, d=d, seed=6, lens=lens)
         if decode:
             keep = np.r_[0, 0, 4, len(a["q_pos"]) - 1]
             a["q"], a["q_pos"], a["q_slots"] = (a[k][keep] for k in ("q", "q_pos", "q_slots"))
@@ -255,19 +258,20 @@ class TestKernelsOnCard:
         np.testing.assert_allclose(np32(out), np32(want), **TOL["kernel_bf16_gpu"])
         assert (out[0] == 0).all()
         g = h // kvh
-        assert (out[1:].view(-1, kvh, g, 128)[:, :, g - 1] != 0).any()  # the last head written
+        assert (out[1:].view(-1, kvh, g, d)[:, :, g - 1] != 0).any()  # the last head written
 
-    @pytest.mark.parametrize("h,kvh", [(32, 16), (36, 4), (48, 8), (64, 4)],
-                             ids=["d128_g2", "d128_g9", "d128_g6", "d128_g16"])
-    def test_paged_attention_d128_g2_g9_planted_faults(self, cuda, h, kvh):
+    @pytest.mark.parametrize("h,kvh,d", [(32, 16, 128), (36, 4, 128), (48, 8, 128), (64, 4, 128),
+                                         (14, 2, 64)],
+                             ids=["d128_g2", "d128_g9", "d128_g6", "d128_g16", "d64_g7"])
+    def test_paged_attention_d128_g2_g9_planted_faults(self, cuda, h, kvh, d):
         """Both faults fail the tolerance: the kernel given zeros for the
-        queries of each group's last n8 tile's heads (from head 1 at g 2 and
-        6, from head 8 at g 9 and 16), and the plain version with one
+        queries of each group's last n8 tile's heads (from head 1 at g 2, 6
+        and 7, from head 8 at g 9 and 16), and the plain version with one
         split's blocks masked for one token (a merge that dropped that
         split's partial)."""
         g = h // kvh
-        inst = flash_attention.INSTANCES[128, g]
-        a = packed_scenario(page_size=16, kvh=kvh, h=h, d=128, seed=7, lens=(300, 40, 190))
+        inst = flash_attention.INSTANCES[d, g]
+        a = packed_scenario(page_size=16, kvh=kvh, h=h, d=d, seed=7, lens=(300, 40, 190))
         keep = np.r_[0, 4, len(a["q_pos"]) - 1]
         a["q"], a["q_pos"], a["q_slots"] = (a[k][keep] for k in ("q", "q_pos", "q_slots"))
         ta = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
@@ -275,7 +279,7 @@ class TestKernelsOnCard:
             ta[k] = ta[k].to(torch.bfloat16)
         want = ref.paged_attention_ref(**ta)
         q_cut = ta["q"].clone()
-        q_cut.view(len(keep), kvh, g, 128)[:, :, 8 if g > 8 else 1:] = 0
+        q_cut.view(len(keep), kvh, g, d)[:, :, 8 if g > 8 else 1:] = 0
         no_heads = flash_attention.paged_flash_attention(**dict(ta, q=q_cut))
         splits, per = flash_attention.split_blocks(len(keep) * kvh, a["tables"].shape[1],
                                                    flash_attention._sm_count(0), inst.ctas_per_sm)
@@ -289,7 +293,7 @@ class TestKernelsOnCard:
         for bad in (no_heads, dropped):
             assert not np.allclose(np32(bad), np32(want), **TOL["kernel_bf16_gpu"])
 
-    @pytest.mark.parametrize("h,d,dtype", [(14, 64, torch.bfloat16), (16, 128, torch.float32)])
+    @pytest.mark.parametrize("h,d,dtype", [(12, 64, torch.bfloat16), (16, 128, torch.float32)])
     def test_paged_attention_refuses_unserved_shapes(self, cuda, h, d, dtype):
         a = packed_scenario(page_size=16, kvh=2, h=h, d=d, seed=3)
         ta = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
@@ -454,10 +458,12 @@ class TestKernelsOnCard:
         (10, 1, 256, 1, 8000, 8000, True, 2048), (10, 1, 256, 2, 1000, 1000, True, 700),
         (12, 2, 128, 1, 1000, 1000, True, 700),
         (32, 2, 128, 1, 1000, 1000, True, 0), (4, 2, 128, 2, 300, 300, True, 203),
-        (18, 2, 128, 1, 1000, 1000, True, 0)],
+        (18, 2, 128, 1, 1000, 1000, True, 0),
+        (14, 2, 64, 4, 256 + 333, 256 + 333, True, 0), (14, 2, 64, 4, 256 + 470, 256 + 470, True, 0)],
         ids=["whisper_encoder", "whisper_decoder", "whisper_cross", "s100_causal",
              "s90_cross", "d128_g8_s1000", "d128_g8_s90", "d256_g10_s8000_window",
-             "d256_g10_s1000_window", "d128_g6_s1000_window", "d128_g16_s1000", "d128_g2_s300_window", "d128_g9_s1000"])
+             "d256_g10_s1000_window", "d128_g6_s1000_window", "d128_g16_s1000", "d128_g2_s300_window", "d128_g9_s1000",
+             "d64_g7_s589", "d64_g7_s726"])
     def test_flash_attention_ragged(self, cuda, h, kvh, d, b, sq, sk, causal, window):
         """Every (head dim, group) build at lengths off its tiles: the (64, 1)
         build with whisper-tiny's 6 heads at its encoder's 1,500 frames, its
@@ -466,7 +472,8 @@ class TestKernelsOnCard:
         its models' head counts over 1 or 2 KV heads, causal, at 1,000
         tokens (and 90 for qwen2.5-3b's), recurrentgemma-2b's at 8,000
         with its 2,048 window and at 1,000 with a window, mixtral-8x22b's and gemma3-27b's with a
-        window.  Forward and backward against the plain versions row by
+        window, internvl2-1b's (64, 7) at two prefill lengths of its 256
+        patch rows and a prompt.  Forward and backward against the plain versions row by
         row, two backward runs bit-identical, and two of ``chip_smoke.py``'s
         planted faults made through the schedule (its ``planted_plan``):
         the tail key tile's mask skipped (keys past Sk read as zeros: at
@@ -501,21 +508,23 @@ class TestKernelsOnCard:
         for got, w in zip(dropped[1:], wants[1:]):
             assert row_rel_err(got, w) > K3_ROW_TOL
 
-    @pytest.mark.parametrize("h,kvh,b,s,window", [
-        (48, 8, 1, 2048, 1000), (64, 4, 1, 1024, 0), (16, 8, 2, 512, 0), (32, 16, 1, 1024, 203),
-        (36, 4, 1, 1024, 0)],
+    @pytest.mark.parametrize("h,kvh,b,s,window,d", [
+        (48, 8, 1, 2048, 1000, 128), (64, 4, 1, 1024, 0, 128), (16, 8, 2, 512, 0, 128),
+        (32, 16, 1, 1024, 203, 128), (36, 4, 1, 1024, 0, 128), (14, 2, 4, 2048, 0, 64)],
         ids=["g6_mixtral_window", "g16_qwen3_moe", "g2_internlm2", "g2_gemma3_window",
-             "g9_starcoder2"])
-    def test_flash_attention_trained_groups(self, cuda, h, kvh, b, s, window):
-        """The head-dim-128 build at the groups the MoE and dense-zoo models
-        train with (``TRAINED``): mixtral-8x22b's 48 heads over 8 (group 6,
+             "g9_starcoder2", "d64_g7_internvl2"])
+    def test_flash_attention_trained_groups(self, cuda, h, kvh, b, s, window, d):
+        """The builds at the groups the MoE, dense-zoo and VLM models train
+        with (``TRAINED``): mixtral-8x22b's 48 heads over 8 (group 6,
         windowed), qwen3-moe's 64 over 4 (16), internlm2-1.8b's and
-        gemma3-27b's group 2 and starcoder2-7b's 36 over 4 (9); forward and
-        backward against the plain versions row by row, two backward runs
-        bit-identical, and a planted fault (the window dropped, or the
-        causal mask) outside the limit."""
-        assert (128, h // kvh) in flash_attention.TRAINED
-        q, k, v, do = attn_inputs(cuda, b, s, s, seed=h + s, h=h, kvh=kvh)
+        gemma3-27b's group 2, starcoder2-7b's 36 over 4 (9) at head dim 128,
+        and internvl2-1b's 14 over 2 (7) at head dim 64 on its training
+        micro-batch (4 x 2,048); forward and backward against the plain
+        versions row by row, two backward runs bit-identical, and planted
+        faults outside the limit: the window dropped, or the causal mask;
+        dK and dV summed over one query head of each group."""
+        assert (d, h // kvh) in flash_attention.TRAINED
+        q, k, v, do = attn_inputs(cuda, b, s, s, seed=h + s, h=h, kvh=kvh, d=d)
         kw = dict(causal=True, window=window)
         out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
         want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
@@ -523,6 +532,8 @@ class TestKernelsOnCard:
         wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
         again = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
         bad, _ = flash_attention.flash_attention_fwd(q, k, v, causal=bool(window), window=0)
+        first = (torch.arange(h, device=cuda) % (h // kvh) == 0)[None, :, None, None]
+        _, one_dk, one_dv = flash_attention.flash_attention_bwd(q, k, v, out, lse, do * first, **kw)
         torch.cuda.synchronize()
         assert row_rel_err(out, want) <= K3_ROW_TOL < row_rel_err(bad, want)
         np.testing.assert_allclose(np32(lse), np32(want_lse), atol=1e-3, rtol=0)
@@ -530,6 +541,8 @@ class TestKernelsOnCard:
             assert got.shape == w.shape, name
             assert row_rel_err(got, w) <= K3_ROW_TOL, (name, row_rel_err(got, w))
         assert all(torch.equal(x, y) for x, y in zip(grads, again))
+        for got, w in zip((one_dk, one_dv), wants[1:]):
+            assert row_rel_err(got, w) > K3_ROW_TOL
 
     def test_flash_attention_check_catches_a_planted_fault(self, cuda):
         """The row metric passes the kernel and fails what a kernel skipping
@@ -572,7 +585,7 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("h,kvh,sq", [(16, 8, 128), (16, 16, 0)])
     def test_flash_attention_refuses_unbuilt_head_dim_64_shapes(self, cuda, h, kvh, sq):
-        """Head dim 64 is built for group 1 at lengths the kernels take."""
+        """Head dim 64 is built for groups 1 and 7 at lengths the kernels take."""
         q, k, v, _ = attn_inputs(cuda, 1, sq, sq, seed=7, h=h, kvh=kvh, d=64)
         with pytest.raises(flash_attention.UnbuiltShapeError):
             flash_attention.flash_attention_fwd(q, k, v, causal=False)
@@ -852,7 +865,7 @@ class TestGraphsOnCard:
     @pytest.mark.parametrize("cache", ["dense", "paged"])
     @pytest.mark.parametrize("name", ["qwen2_5_3b", "mamba2_130m", "internlm2_1_8b",
                                       "starcoder2_7b", "gemma3_27b", "mixtral_8x22b",
-                                      "qwen3_moe_235b_a22b"])
+                                      "qwen3_moe_235b_a22b", "internvl2_1b"])
     def test_graphed_streams_equal_eager(self, cuda, name, cache, packed):
         """The engine's steps captured as CUDA graphs (the default on the
         card) serve the eager engine's greedy streams, launch the same

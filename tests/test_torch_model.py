@@ -149,15 +149,16 @@ def test_compute_dtype_and_cast_once():
 
 
 def test_unsupported_patterns_raise_typed():
-    # 'R' and 'M' decoder layers, experts (served and trained) and an
-    # encoder-decoder split with a 'G' decoder are ported; an encoder block
-    # among decoder blocks, an enc-dec decoder of other blocks and a VLM
-    # prefix are not, nor is the experts' mesh dispatch (no model axis)
+    # 'R' and 'M' decoder layers, experts (served and trained), an
+    # encoder-decoder split with a 'G' decoder and a VLM prefix are ported;
+    # an encoder block among decoder blocks and an enc-dec decoder of other
+    # blocks are not, nor is the experts' mesh dispatch (no model axis)
     for kw in (dict(layer_pattern="BG"), dict(layer_pattern="RB"),
-               dict(enc_layers=2, layer_pattern="L"), dict(prefix_len=4)):
+               dict(enc_layers=2, layer_pattern="L")):
         with pytest.raises(UnsupportedPatternError):
             model.init_params(ModelConfig(**kw), device="cpu")
-    model.init_params(ModelConfig(enc_layers=2), device="cpu")
+    for kw in (dict(enc_layers=2), dict(prefix_len=4)):
+        model.init_params(ModelConfig(**kw), device="cpu")
     moe = ModelConfig(n_experts=4)
     with pytest.raises(UnsupportedDistError):
         model.loss_fn(model.init_params(moe, device="cpu"), moe,

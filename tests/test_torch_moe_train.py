@@ -531,11 +531,12 @@ def test_smoke_cpu_passes_and_route_records():
 def test_training_kernels_take_the_published_models(name, seq):
     """On the card ``require_trainable`` admits the MoE models and the dense
     zoo at their published widths: K3 is held at (128, 6), (128, 16),
-    (128, 2) and (128, 9) beside its earlier three pairs."""
+    (128, 2) and (128, 9) beside its earlier three pairs and internvl2-1b's
+    (64, 7)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention
 
     cfg = get_config(name)
     assert (cfg.hd, cfg.n_heads // cfg.n_kv_heads) in flash_attention.TRAINED
-    assert len(flash_attention.TRAINED) == 7
+    assert len(flash_attention.TRAINED) == 8
     model.require_trainable(cfg, seq, torch.device("cuda"))

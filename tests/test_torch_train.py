@@ -33,7 +33,7 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.kernels.flash_attention import UnbuiltShapeError  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.models import ModelConfig, UnsupportedPatternError, model  # noqa: E402
+from repro_torch.models import ModelConfig, model  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.train.resilience import ControllerConfig, make_scenario  # noqa: E402
 from test_torch_parity_util import TOL, assert_close, assert_tree_close, tree_np  # noqa: E402
@@ -133,9 +133,12 @@ def test_training_refuses_what_is_not_ported():
     params = model.init_params(cap, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="softcap"):
         model.loss_fn(params, cap, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
-    vlm = ModelConfig(**dict(LG, prefix_len=4))  # VLM prefixes are not ported
-    with pytest.raises(UnsupportedPatternError):
-        model.loss_fn({}, vlm, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+    # a VLM trains with its patch prefix: a batch without one is refused
+    # (KeyError, as the reference's)
+    vlm = ModelConfig(**dict(LG, prefix_len=4))
+    with pytest.raises(KeyError, match="prefix"):
+        model.loss_fn(model.init_params(vlm, seed=0, device="cpu"), vlm,
+                      {"tokens": torch.zeros((1, 8), dtype=torch.long)})
     # 'R' layers train where their stack's attention is built: this one's
     # (head dim 16, group 2) is not
     rec = ModelConfig(**dict(LG, layer_pattern="RG"))
