@@ -36,7 +36,8 @@ backward against copies of its source with its two precision choices
 runs, ``train`` the training step, ``localsgd`` the last round of
 ``chip_smoke.py``'s Local-SGD run (qwen2.5-3b, 36 layers), ``dp`` one
 graphed training step of ``chip_smoke.py``'s phase 9a (one NCCL rank,
-``mesh="1"``) with its ``dp_allreduce`` span apart, ``mamba_train`` one
+``mesh="1"``) with its ``dp_allreduce``, ``dp_reduce_scatter`` and
+``dp_all_gather`` spans apart, ``mamba_train`` one
 eager and one graphed step of its phase 10 (mamba2-130m at 24 layers,
 micro-batches of 4 x 2048 tokens; K6's forward and its backward's kernels
 filed apart), ``bert_train`` one eager and one graphed step of its phase
@@ -76,7 +77,11 @@ qwen training shape (``k3_timing``) with a digest of its outputs, gives a
 digest of K4's (128, 8) outputs (``k4_digests``) and times K4's (256, 10)
 build; ``k4_builds`` gives a digest and the decode and mixed times of each
 K4 build of a dense or 'R' model at that model's widths (run it from the root of
-two trees in turns to hold a change to their bits and times).  A copy of this script placed at the
+two trees in turns to hold a change to their bits and times); ``opt_step``
+times the training step's optimizer tail on one device, LANS over
+bert-1.5b's tree and LAMB over bert-large's at full depth
+(``opt_step_times``; from the root of two trees in turns it holds a change
+to the optimizers).  A copy of this script placed at the
 root of another checkout (a ``git archive`` of a later commit: its
 ``chip_smoke.py`` must have ``mode`` and ``train_setup``) imports that
 checkout's ``chip_smoke.py`` and kernels, so one call can time two trees
@@ -104,6 +109,8 @@ import chip_smoke as cs
 from repro_torch.configs import get_config
 from repro_torch.dist import procs
 from repro_torch.models.model import compute_params, init_params
+from repro_torch.models.transformer import tree_leaves, tree_unflatten
+from repro_torch.optim import make as make_opt
 
 FAMILIES = (  # first match wins; K4's and K2 backward's two kernels are sub-rows
     # (each pattern also names the kernel the previous version had there, so
@@ -154,7 +161,8 @@ def kernel_intervals(prof):
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start
                 and not getattr(e, "is_user_annotation", False)
-                and e.name not in ("train_step", "localsgd_round", "dp_allreduce")):
+                and e.name not in ("train_step", "localsgd_round", "dp_allreduce",
+                                   "dp_reduce_scatter", "dp_all_gather")):
             out.append((e.name, e.time_range.start, e.time_range.end))
     return out
 
@@ -214,8 +222,12 @@ def train_profile(cfg, seed: int, eager: bool, mesh=None, seqs: int = 1, run: st
     the trainer's ``train_step`` span of step 1 (host launches in it, device
     kernels that start in it); its wall time is step 1's ``step_s`` of an
     unprofiled run.  With ``mesh`` ("1": ``chip_smoke``'s phase 9a, one
-    NCCL rank in this process) the record adds the step's ``dp_allreduce``
-    span: its host ms and the device ms of the kernels that start in it.
+    NCCL rank in this process) the record adds the step's collective spans,
+    ``dp_allreduce``, ``dp_reduce_scatter`` and ``dp_all_gather``: each
+    one's host ms and the device ms of the kernels that start in it (on one
+    rank nothing is split: the reduce-scatter span is empty and the
+    all-gather span holds the compute copy's casts; 9b's and 9c's two
+    ranks time them with events, ``chip_smoke.dp_gloo_phase``).
     ``seqs`` > 1 (``chip_smoke``'s phase 10: mamba2-130m, micro-batches of
     ``M_TRAIN_SEQS`` sequences) needs a ``chip_smoke.py`` whose
     ``train_setup`` takes ``seqs``; ``shape`` (``seq``, ``mb``: phase 11's
@@ -243,16 +255,17 @@ def train_profile(cfg, seed: int, eager: bool, mesh=None, seqs: int = 1, run: st
     run = run or ("dp" if mesh else ("mamba_train" if seqs > 1 else "train"))
     rec = {"tag": TAG, "run": run, "mode": "eager" if eager else "graphed",
            "kept_microbatches": kept, **profile_record(prof, wall, kept, window=(lo, hi))}
-    if mesh:
-        ar = [(e.time_range.start, e.time_range.end) for e in prof.events()
-              if e.name == "dp_allreduce" and e.device_type == torch.autograd.DeviceType.CPU
-              and lo <= e.time_range.start <= hi]
-        (a_lo, a_hi), = ar
-        rec["dp_allreduce_host_ms"] = (a_hi - a_lo) / 1e3
-        rec["dp_allreduce_device_ms"] = sum(
-            (e - s) / 1e3 for _, s, e in kernel_intervals(prof) if a_lo <= s <= a_hi)
-        rec["dp_allreduce_kernels"] = sorted({name for name, s, _ in kernel_intervals(prof)
-                                              if a_lo <= s <= a_hi})
+    if mesh:  # the step's collectives, each a span of its own
+        for span in ("dp_allreduce", "dp_reduce_scatter", "dp_all_gather"):
+            (a_lo, a_hi), = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                             if e.name == span
+                             and e.device_type == torch.autograd.DeviceType.CPU
+                             and lo <= e.time_range.start <= hi]
+            rec[f"{span}_host_ms"] = (a_hi - a_lo) / 1e3
+            rec[f"{span}_device_ms"] = sum(
+                (e - s) / 1e3 for _, s, e in kernel_intervals(prof) if a_lo <= s <= a_hi)
+            rec[f"{span}_kernels"] = sorted({name for name, s, _ in kernel_intervals(prof)
+                                            if a_lo <= s <= a_hi})
     rec["k2_bwd_ms"] = sum(v for k, v in rec["families_ms"].items()
                            if k.startswith("K2 rmsnorm: backward"))
     rec["k6_bwd_ms"] = sum(v for k, v in rec["families_ms"].items()
@@ -656,12 +669,13 @@ def vlm_train_profiles(seed: int) -> None:
 
 
 TAG = ""
-PARTS = ("kernels", "k6_precision", "k4_builds", "qwen", "mamba", "train", "localsgd", "dp",
-         "mamba_train", "bert_train", "rg_serve", "rg_train", "sampled_serve", "spec_serve",
-         "zoo_serve", "moe_serve", "moe_train", "whisper_serve", "whisper_train", "vlm_serve",
-         "vlm_train")
-#: the parts that time kernels alone, run only when named
-KERNEL_PARTS = ("kernels", "k6_precision", "k4_builds")
+PARTS = ("kernels", "k6_precision", "k4_builds", "opt_step", "qwen", "mamba", "train",
+         "localsgd", "dp", "mamba_train", "bert_train", "rg_serve", "rg_train", "sampled_serve",
+         "spec_serve", "zoo_serve", "moe_serve", "moe_train", "whisper_serve", "whisper_train",
+         "vlm_serve", "vlm_train")
+#: the parts that time one piece alone (kernels, the optimizer step), run
+#: only when named
+KERNEL_PARTS = ("kernels", "k6_precision", "k4_builds", "opt_step")
 
 
 #: K6's (sequences, chunks, rows) at the mamba serving run's decode and
@@ -986,6 +1000,54 @@ def k6_bwd_precision(seed: int) -> dict:
     return {"tag": TAG, "run": "k6_precision", "rows": rows}
 
 
+#: (config, optimizer) of the step tails ``opt_step_times`` times: phase
+#: 11c's two BERT runs at their full depth
+OPT_STEP_RUNS = (("bert_1_5b", "lans"), ("bert_large", "lamb"))
+
+
+def opt_step_times(seed: int, steps: int = 4) -> dict:
+    """The training step's optimizer tail on one device: ``opt.step`` as
+    ``launch.steps.TrainStep`` calls it (each gradient sum read in f32 over
+    the denominator, times the clip factor, a slice at a time) over each
+    model of ``OPT_STEP_RUNS`` at its full depth, from random f32 gradient
+    sums.  Per model, each step's device ms (CUDA events around the step;
+    the device waits on the host's launches inside it), its host ms, and
+    the peak allocated above the trees (GiB); the first step is a warm-up,
+    reported apart."""
+    out = {"tag": TAG, "run": "opt_step"}
+    for name, opt_name in OPT_STEP_RUNS:
+        cfg = get_config(name)
+        params = init_params(cfg, seed=seed, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        grads = tree_unflatten(params, [torch.randn(p.shape, generator=gen, device="cuda")
+                                        for p in tree_leaves(params)])
+        opt = make_opt(opt_name, 1e-4)
+        state = opt.init(params)
+        denom = torch.tensor(48.0, device="cuda")
+        scale = torch.tensor(0.5, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        device_ms, host_ms = [], []
+        for _ in range(steps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            opt.step(grads, state, params, prep=lambda g: g.float() / denom * scale)
+            b.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            device_ms.append(a.elapsed_time(b))
+        out[name] = {"optimizer": opt_name, "n_layers": cfg.n_layers,
+                     "parameters": sum(p.numel() for p in tree_leaves(params)),
+                     "leaves": len(tree_leaves(params)), "warmup_device_ms": device_ms[0],
+                     "device_ms": device_ms[1:], "host_ms": host_ms[1:],
+                     "peak_above_trees_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        del params, grads, state, opt
+        cs.free_device()
+    return out
+
+
 def main() -> int:
     global TAG
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -993,10 +1055,10 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=PARTS,
                     default=[p for p in PARTS if p not in KERNEL_PARTS],
                     help="parts to run, always in the order kernels, k6_precision, k4_builds, "
-                         "qwen, mamba, train, localsgd, dp, mamba_train, bert_train, rg_serve, "
+                         "opt_step, qwen, mamba, train, localsgd, dp, mamba_train, bert_train, rg_serve, "
                          "rg_train, sampled_serve, spec_serve, zoo_serve, moe_serve, moe_train, "
                          "whisper_serve, whisper_train, vlm_serve, vlm_train (default: all but "
-                         "the first three)")
+                         "the first four)")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     TAG = args.tag
@@ -1014,6 +1076,8 @@ def main() -> int:
             print(json.dumps(k6_bwd_precision(args.seed)), flush=True)
         elif part == "k4_builds":
             print(json.dumps(k4_builds(args.seed)), flush=True)
+        elif part == "opt_step":
+            print(json.dumps(opt_step_times(args.seed)), flush=True)
         elif part == "qwen":
             rng = np.random.default_rng(args.seed)
             lens = [int(n) for n in rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1, cs.SLOTS)]

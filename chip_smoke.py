@@ -135,27 +135,42 @@ its result where it needs it.
    losses, drop fractions, tau trajectory and final parameters must equal
    the uninterrupted 3-step run's bit for bit; the bytes written and the
    save and restore seconds are printed, the directory deleted;
-9. data parallel (``repro_torch.dist``, the trainer's ``mesh=``) — 9a: the
-   training phase's run (``QWEN_TRAIN_LAYERS``) as one rank of a one-rank NCCL group in
-   this process: losses, drop fractions and every final leaf bit-identical
-   to the training phase's graphed run, the launches its kept micro-batches
-   imply, each step's All-Reduce device ms (the accumulator's f32 in place);
-   9b: the same data and latencies at ``DP_LAYERS`` (4) layers of the same widths on two
-   ranks sharing the card (spawned processes, gloo with CUDA tensors, 2
-   workers a rank; the card's compute mode must be ``Default`` and its free
-   memory twice a rank's reckoning) against 9a's code at those layers on one
-   rank: every rank's replica, losses, drop fractions and tau trajectory the
-   same, each rank's kept and computed micro-batches those of its workers'
-   masks, drop fractions and tau exact, the losses within
-   ``GRAPH_LEAF_GAP`` of the one-rank run's and every final leaf within
-   ``DP_ORDER_FACTOR`` times the gap the one-rank run itself shows with its
-   sums in the reverse order (``DP_ZERO_GAP_FLOOR`` of its norm where that
-   gap is 0); each rank's step wall, All-Reduce seconds and peak memory
-   printed; then, in the same two processes, a planted fault (rank 1 skips
-   one kept micro-batch) that both the launch counts and the values must
-   reject, the log naming each check that did; then the same two-rank
-   runs, sound and planted,
-   for mamba2-130m at ``M_LAYERS`` (8 of its 24);
+9. data parallel (``repro_torch.dist``, the trainer's ``mesh=``), each rank
+   holding its ZeRO slices of the master parameters and the optimizer
+   state (the reference's path rules, ``dist.sharding``) — 9a: the
+   training phase's run (``QWEN_TRAIN_LAYERS``) as one rank of a one-rank
+   NCCL group in this process (every slice the whole leaf): losses, drop
+   fractions and every final leaf bit-identical to the training phase's
+   graphed run, the launches its kept micro-batches imply, each step's
+   All-Reduce, reduce-scatter and all-gather device ms; 9b: the same data
+   and latencies at ``DP_LAYERS`` (4) layers of the same widths, and
+   mamba2-130m at ``M_LAYERS`` (8 of its 24), and 9c: bert-1.5b at
+   ``BERT_LAYERS`` with 11c's shape and LANS (appendix B.1's ZeRO setting),
+   each on two ranks sharing the card (spawned once for all three:
+   processes, gloo with CUDA tensors, 2 workers a rank; the card's compute
+   mode must be ``Default`` and its free memory twice a rank's sharded
+   reckoning) against its own run on one NCCL rank: every rank's gathered
+   tree, losses, drop fractions and tau trajectory the same, each rank's
+   kept and computed micro-batches those of its workers' masks, drop
+   fractions and tau exact, the losses within ``GRAPH_LEAF_GAP`` of the
+   one-rank run's and every final leaf, by its largest element and by the
+   norm of its difference, within ``DP_ORDER_FACTOR`` times the gap the
+   one-rank run itself shows with its micro-batches summed in the reverse
+   order (``DP_ZERO_GAP_FLOOR`` of its norm where that gap is 0); the
+   one-rank run sums its norms' squares as the two ranks do, from their
+   slices in rank order (``sliced_norms``); each rank's step wall,
+   all-reduce, reduce-scatter and all-gather seconds and peak memory
+   (beside its sharded and replicated reckonings) printed; then, in the
+   same two processes, a sound ``DP_FAULT_STEPS``-step run that must pass
+   the same checks against one-rank runs of as many steps, and three
+   planted faults each model must reject in such a run: rank 1 skips one
+   kept micro-batch (the
+   launch counts and the values), (a) rank 1's slices land at rank 0's rows
+   in every all-gather and (b) one split leaf's gradient skips the
+   reduce-scatter (the values), the log naming each check that did; 9c's
+   plain one-rank run (the single-device path) records its allocations and
+   splits them at its peak (trees, optimizer temporaries, a micro-batch's
+   forward and backward);
 10. Mamba-2 training — mamba2-130m at 24 layers (random weights from
    ``--seed``, f32 master, bf16 compute copy, remat) through ``train``: the
    training phase's 4 workers x 2 micro-batches, each of 4 packed
@@ -416,6 +431,7 @@ import json
 import math
 import os
 import queue
+import resource
 import statistics
 import shutil
 import subprocess
@@ -439,6 +455,7 @@ from repro_torch.core.engine import make_grad_fn  # noqa: E402
 from repro_torch.core.local_sgd import LocalSGD, StragglerScenario  # noqa: E402
 from repro_torch.data import DataConfig, microbatches_at  # noqa: E402
 from repro_torch.dist import Distribution, procs  # noqa: E402
+from repro_torch.optim import ShardNorms  # noqa: E402
 from repro_torch.launch import steps as dp_steps  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, masked_accum, ops, ref, rmsnorm  # noqa: E402
 from repro_torch.kernels import ssd_chunk  # noqa: E402
@@ -636,29 +653,42 @@ CKPT_LAYERS, CKPT_WORKERS, CKPT_MB, CKPT_STEPS, CKPT_AT = 2, 2, 2, 3, 1
 
 # the data-parallel phase: 9b runs the training phase's data and latencies
 # (4 workers x 2 micro-batches, 3 steps) on 2 gloo ranks sharing the card, at
-# DP_LAYERS layers so that two replicas fit on it; each rank's training pool is
-# reckoned at 6 GiB (PERF.md); the spawned group's time limit
-DP_LAYERS, DP_RANKS, DP_POOL_GIB, DP_TIMEOUT_S = 4, 2, 6.0, 600
-# mamba2-130m through phases 7 and 9b (its micro-batches one 2048-token
-# sequence, as qwen's there), at M_LAYERS in both; a 9b rank's training
-# pool reckoned from phase 10's (6.28 GB at 8,192 tokens a micro-batch)
-M_DP_POOL_GIB = 3.0
-# 9b's final leaves against one rank's differ only by the order of the f32
-# sums (each rank sums its own blocks, then the two sums are added).  How far
-# that moves a leaf depends on its gradient: a cancelling sum (the attention
-# K bias, whose every token's term nearly cancels) read 6.4e-3 of its norm on
-# an H100 at 4 layers, a well-conditioned one far less (PERF.md, the
-# data-parallel findings).  So the same one-rank run is made again with each
-# step's kept micro-batches added in the reverse order (``reversed_sums``:
-# the same sums, another order, no second rank), and each leaf is held to
+# DP_LAYERS layers of qwen2.5-3b and M_LAYERS of mamba2-130m, 9c bert-1.5b at
+# BERT_LAYERS with 11c's shape and LANS, each rank holding its ZeRO slices;
+# the spawned group's time limit (one spawn runs every model's sound run
+# and its planted faults)
+DP_LAYERS, DP_RANKS, DP_TIMEOUT_S = 4, 2, 900
+# 9b's and 9c's final leaves against one rank's differ only by the order of
+# the f32 sums: each rank sums its own blocks, then the two sums are added.
+# How far that moves a leaf depends on its gradient: a cancelling sum (the
+# attention K bias, whose every token's term nearly cancels) read 6.4e-3 of
+# its norm on an H100 at 4 layers, a well-conditioned one far less (PERF.md,
+# the data-parallel findings).  So the same one-rank run is made again with
+# each step's kept micro-batches added in the reverse order
+# (``reversed_sums``; no second rank), and each leaf is held to
 # DP_ORDER_FACTOR times that run's gap for it, with no wider floor: a fixed
 # floor of 1e-3 sat ~300x above what a skipped micro-batch does to
-# mamba2-130m's leaves.  A leaf whose order gap reads 0 (its sums came out
-# the same both ways) is held to DP_ZERO_GAP_FLOOR of its norm instead: four
-# f32 spacings (2^-23 relative each), room for one more order of the same
-# sums to round differently.
+# mamba2-130m's leaves.  Both one-rank runs take their norms (the clip's
+# global norm, LAMB's and LANS's per-leaf norms) as the two ranks do, each
+# split leaf's sum of squares from its two slices added in rank order
+# (``sliced_norms``): summed from the whole leaf, the global norm rounds a
+# spacing away from the ranks', and a clip factor one spacing off turns
+# the rounding of every gradient element (on an H100 qwen's leaves then
+# moved ~10x more on two sharded ranks than under reversed micro-batches:
+# PERF.md, the sharding findings).  A gap is read two ways, each against
+# the same reading of the order gap: the largest element's difference and
+# the norm of the difference, each over the leaf's norm (``leaf_gaps``,
+# ``leaf_rms_gaps``).  A leaf whose order gap reads 0 (its sums came out
+# the same both ways) is held to DP_ZERO_GAP_FLOOR of its norm instead:
+# four f32 spacings (2^-23 relative each), room for one more order of the
+# same sums to round differently.
 DP_ORDER_FACTOR = 4
 DP_ZERO_GAP_FLOOR = 4 * 2.0 ** -23
+# the steps of a run under a planted fault: every fault shows in the first
+# step's update (and the skip in its loss and launches); the one-rank runs
+# are made at this depth too, and so is a sound two-rank run, which must
+# pass where the faults must fail
+DP_FAULT_STEPS = 1
 
 # phase 12, recurrentgemma-2b serving: its local attention's widths (10 heads
 # of 256 on 1 KV head, the (256, 10) build of K4) and window; 8 requests of
@@ -2662,6 +2692,18 @@ def leaf_gaps(names, got, want) -> dict:
     return gaps
 
 
+def leaf_rms_gaps(names, got, want) -> dict:
+    """Per named leaf: 0 when the two are bit-identical, else the norm of
+    their difference over the leaf's norm (each pair moved to the card in
+    turn)."""
+    gaps = {}
+    for k, g, w in zip(names, got, want):
+        g, w = g.to(DEV).float(), w.to(DEV).float()
+        gaps[k] = 0.0 if torch.equal(g, w) else float(
+            torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    return gaps
+
+
 def check_gaps(what: str, gaps: dict) -> None:
     """Bit-identical, or else the call that differs named with its largest
     gap, which must stay below 1e-3 of its leaf's norm."""
@@ -3155,17 +3197,19 @@ def checkpoint_phase(cfg, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# data parallel: 9a one NCCL rank, 9b two gloo ranks on the card
+# data parallel: 9a one NCCL rank, 9b and 9c two gloo ranks on the card (ZeRO)
 # ---------------------------------------------------------------------------
 
 
 def dp_nccl_phase(cfg, seed: int, graphed):
     """9a: the training phase's run as one rank of a one-rank NCCL group in
-    this process (``mesh="1"``, graphed): losses, drop fractions and every
-    final leaf must equal the training phase's graphed run bit for bit, and
-    the launches those of its kept micro-batches.  Prints each step's
-    All-Reduce device ms (CUDA events around the collective).  Returns the
-    launches."""
+    this process (``mesh="1"``, graphed; the sharded path, where every
+    slice is the whole leaf): losses, drop fractions and every final leaf
+    must equal the training phase's graphed run bit for bit, and the
+    launches those of its kept micro-batches.  Prints each step's
+    All-Reduce device ms (CUDA events around the collective), and its
+    reduce-scatter and all-gather ms (nothing is split on one rank: the
+    gather span holds the compute copy's casts).  Returns the launches."""
     want_losses, want_leaves, want_drops = graphed
     _, _, tau, masks = train_setup(cfg, seed)
     kept = int(sum(k.sum() for k in masks))
@@ -3175,12 +3219,15 @@ def dp_nccl_phase(cfg, seed: int, graphed):
         ops.reset_launch_counts()  # the data-parallel path starts here (read in train_run)
         res, params, counts, peak, wall = train_run(cfg, seed, eager=False, mesh="1")
     nbytes = 4 * sum(x.numel() for x in tree_leaves(params)) + 12
-    ar_ms = [x * 1e3 for x in res.metrics["allreduce_s"]]
+    ms = {k: [round(x * 1e3, 3) for x in res.metrics[f"{k}_s"]]
+          for k in ("allreduce", "reduce_scatter", "all_gather")}
     log(f"dp 9a one NCCL rank, {cfg.n_layers} layers: losses {res.losses}, drop fractions "
         f"{res.drop_fractions}, kept {res.metrics['kept_local']}; step wall s "
         f"{[round(x, 3) for x in res.metrics['step_s']]}; all-reduce device ms a step "
-        f"{[round(x, 3) for x in ar_ms]} over {nbytes} bytes (15 in-place calls); peak device "
-        f"memory {peak:.2f} GiB; whole call {wall:.1f} s")
+        f"{ms['allreduce']} over {nbytes} bytes (15 in-place calls); reduce-scatter ms "
+        f"{ms['reduce_scatter']} (no leaf split on one rank); all-gather span ms (the compute "
+        f"copy's casts) {ms['all_gather']}; peak device memory {peak:.2f} GiB; whole call "
+        f"{wall:.1f} s")
     log(f"dp 9a launches over {kept} kept micro-batches: {counts}")
     check(counts == want_counts, f"dp 9a launches {counts}, the code implies {want_counts}")
     check(res.losses == want_losses, f"dp 9a losses {res.losses} / train {want_losses}")
@@ -3194,12 +3241,28 @@ def dp_nccl_phase(cfg, seed: int, graphed):
     return counts
 
 
-def dp_tau(cfg, seed: int, seqs: int = 1):
-    """(tau, masks) for 9b: the training phase's tau (the median of the
+def dp_jobs(qcfg, mcfg) -> list:
+    """The two-rank runs of 9b (qwen2.5-3b at ``DP_LAYERS``, mamba2-130m at
+    ``M_LAYERS``: the training phase's shape and AdamW) and 9c (bert-1.5b at
+    ``BERT_LAYERS``: 11c's micro-batch of 16 x 128 tokens, 12 accumulations
+    a worker, LANS, as appendix B.1 trains it with ZeRO); the two ranks run
+    each after its sound run under every planted fault (``DP_FAULTS``)."""
+    shape = dict(seqs=1, seq=TRAIN_SEQ, mb=TRAIN_MB)
+    bert = dataclasses.replace(get_config("bert_1_5b"), n_layers=BERT_LAYERS)
+    return [dict(tag="9b", cfg=dataclasses.replace(qcfg, n_layers=DP_LAYERS), shape=shape,
+                 optimizer="adamw"),
+            dict(tag="9b", cfg=dataclasses.replace(mcfg, n_layers=M_LAYERS), shape=shape,
+                 optimizer="adamw"),
+            dict(tag="9c", cfg=bert, shape=dict(seqs=BERT_SEQS, seq=BERT_SEQ, mb=BERT_MB),
+                 optimizer="lans")]
+
+
+def dp_tau(cfg, seed: int, seqs: int = 1, seq: int = TRAIN_SEQ, mb: int = TRAIN_MB):
+    """(tau, masks) for 9b / 9c: the training phase's tau (the median of the
     workers' latency sums) unless some rank then drops nothing in the run;
     else the first of a few other quantiles under which every rank drops."""
-    _, latency, _, _ = train_setup(cfg, seed, seqs)
-    draws = np.stack([latency.sample_at(step, TRAIN_WORKERS, TRAIN_MB, seed=seed + 1)
+    _, latency, _, _ = train_setup(cfg, seed, seqs, seq, mb)
+    draws = np.stack([latency.sample_at(step, TRAIN_WORKERS, mb, seed=seed + 1)
                       for step in range(TRAIN_STEPS)])
     per = TRAIN_WORKERS // DP_RANKS
     for q in (50, 40, 60, 30, 70):
@@ -3211,61 +3274,153 @@ def dp_tau(cfg, seed: int, seqs: int = 1):
     raise SmokeFailure("no tau drops a micro-batch on every rank")
 
 
-def dp_rank_bytes(cfg, pool_gib: float) -> dict:
-    """A 9b rank's device memory, reckoned: the f32 master, AdamW's m and v,
-    the f32 accumulator, the bf16 compute copy (the embedding stays the
-    master) and the training pool (``DP_POOL_GIB`` for qwen's 4 layers,
-    ``M_DP_POOL_GIB`` for mamba2-130m)."""
-    named = named_leaves(init_params(cfg, seed=0, device="meta"))
-    p = sum(x.numel() for _, x in named)
-    body = sum(x.numel() for k, x in named if not k.startswith("/embed/"))
-    return {"f32 master": 4 * p, "AdamW m and v": 8 * p, "accumulator": 4 * p,
-            "bf16 compute copy": 2 * body, "training pool": int(pool_gib * 2**30)}
+def dp_rank_bytes(cfg, pool: float, ranks: int = 1) -> dict:
+    """A 9b / 9c rank's device memory, reckoned, with the leaves placed as
+    the rules place them over ``ranks`` data ranks (1: replicated, as 9b
+    reckoned it before ZeRO): the f32 master and the optimizer's m and v (a split leaf's
+    slice), the f32 accumulator (whole; the reduce-scatter writes a split
+    leaf's sum over its own rows), the compute copy (the bf16 body; the
+    embedding is the master where it is whole and a gathered f32 buffer
+    where it is split) and the training pool (``pool`` bytes: the one-rank
+    run's peak less what its process held before it and less its
+    trees)."""
+    meta = init_params(cfg, seed=0, device="meta")
+    dims = Distribution.from_spec(str(ranks), device=DEV).split_dims(meta)
+    comp = tree_leaves(model_lib.train_params(meta, cfg))
+    out = dict.fromkeys(("f32 master", "m and v", "accumulator", "compute copy"), 0)
+    for p, c, d in zip(tree_leaves(meta), comp, dims):
+        n = p.numel()
+        own = n if d is None else n // ranks
+        out["f32 master"] += 4 * own
+        out["m and v"] += 8 * own
+        out["accumulator"] += 4 * n
+        out["compute copy"] += n * c.element_size() if d is not None or c is not p else 0
+    out["training pool"] = int(pool)
+    return out
 
 
-def skip_first_kept_microbatch() -> None:
-    """A planted fault: this process's first kept micro-batch is never
-    added (its loss and weight come back 0)."""
+def reckoning_text(reck: dict) -> str:
+    parts = ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in reck.items())
+    return f"{parts}; total {sum(reck.values()) / 2**30:.2f} GiB"
+
+
+@contextlib.contextmanager
+def skipped_microbatch(rank: int):
+    """A planted fault: rank 1's first kept micro-batch is never added (its
+    loss and weight come back 0)."""
     sound, done = Accumulator.add, []
 
     def add(self, mb):
-        if not done:
+        if rank == 1 and not done:
             done.append(True)
             zero = torch.zeros((), device=self.leaves[0].device)
             return zero, zero
         return sound(self, mb)
 
     Accumulator.add = add
+    try:
+        yield
+    finally:
+        Accumulator.add = sound
 
 
-def dp_rank(rank: int, world: int, cfg, seed: int, tau: float, seqs: int = 1) -> list:
-    """One 9b rank (a spawned process on GPU 0, gloo): ``dp_rank_run``
-    sound, then with the planted fault (rank 1 skips its next kept
-    micro-batch), one spawn's start-up serving both.  Returns the two runs'
-    readings in that order."""
+@contextlib.contextmanager
+def shard_at_rank0_rows(rank: int):
+    """Planted fault (a): rank 1's slice of every split leaf lands at rank
+    0's rows in each all-gather (the step's compute copy and the gathered
+    result), on every rank."""
+    sound = Distribution.all_gather
+
+    def gather(self, out, part, dim):
+        sound(self, out, part, dim)
+        n = part.shape[dim]
+        out.narrow(dim, 0, n).copy_(out.narrow(dim, n, n))
+
+    Distribution.all_gather = gather
+    try:
+        yield
+    finally:
+        Distribution.all_gather = sound
+
+
+@contextlib.contextmanager
+def reduce_scatter_skipped(rank: int):
+    """Planted fault (b): the first split leaf's gradient skips the
+    reduce-scatter on every rank, each keeping its own sum's slice."""
+    sound, first = Distribution.reduce_scatter, []
+
+    def reduce_scatter(self, out, whole, dim):
+        if not first:
+            first.append(whole)
+        if whole is first[0]:
+            out.copy_(self.part_of(whole, dim))
+            return
+        sound(self, out, whole, dim)
+
+    Distribution.reduce_scatter = reduce_scatter
+    try:
+        yield
+    finally:
+        Distribution.reduce_scatter = sound
+
+
+#: 9b's and 9c's planted faults (run in the same two processes after the
+#: sound run) and whether the ranks' own checks must catch each (counts):
+#: a skipped micro-batch shows in rank 1's launches; faults (a) and (b) keep
+#: every rank's counts and replicas, and only the values against one rank
+#: can show them
+DP_FAULTS = {"skip": ("rank 1 skips one kept micro-batch", skipped_microbatch, True),
+             "rows": ("(a) rank 1's slice at rank 0's rows", shard_at_rank0_rows, False),
+             "scatter": ("(b) one split leaf's gradient not reduce-scattered",
+                         reduce_scatter_skipped, False)}
+
+
+def dp_runs() -> list:
+    """(planted fault or None, steps) of each two-rank run of a 9b / 9c job,
+    in order: the sound run, the sound run at ``DP_FAULT_STEPS`` (the
+    faults' control), then each fault of ``DP_FAULTS``."""
+    return [(None, TRAIN_STEPS), (None, DP_FAULT_STEPS)] + [(f, DP_FAULT_STEPS)
+                                                             for f in DP_FAULTS]
+
+
+def dp_rank(rank: int, world: int, jobs: list, seed: int, taus: list, ones: list) -> list:
+    """One 9b / 9c rank (a spawned process on GPU 0, gloo): each job's runs
+    (``dp_rank_run``) of ``dp_runs``, sound and under each planted fault,
+    one spawn's start-up serving them all; ``ones``: per job, the files of
+    the one-rank runs' final leaves by their steps.  Returns, per job, the
+    runs' readings in that order."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    sound = dp_rank_run(rank, world, cfg, seed, tau, seqs)
-    gc.collect()
-    torch.cuda.empty_cache()
-    if rank == 1:
-        skip_first_kept_microbatch()
-    return [sound, dp_rank_run(rank, world, cfg, seed, tau, seqs)]
+    out = []
+    for job, tau, one in zip(jobs, taus, ones):
+        runs = []
+        for fault, steps in dp_runs():
+            plant = DP_FAULTS[fault][1](rank) if fault else contextlib.nullcontext()
+            with plant:
+                runs.append(dp_rank_run(rank, world, job, seed, tau, steps, one[steps]))
+            gc.collect()
+            torch.cuda.empty_cache()
+        out.append(runs)
+    return out
 
 
-def dp_rank_run(rank: int, world: int, cfg, seed: int, tau: float, seqs: int) -> dict:
-    """The training phase's run at ``cfg``'s depth with ``mesh`` the 2-rank
-    gloo group; returns its readings, whether its final replica equals rank
-    0's (a broadcast of each leaf compared on the card) and, on rank 0, the
-    final leaves."""
+def dp_rank_run(rank: int, world: int, job: dict, seed: int, tau: float, steps: int,
+                one: str) -> dict:
+    """The job's ``steps``-step training run (the trainer's own seeded
+    weights) with ``mesh`` the 2-rank gloo group; returns its readings,
+    whether its gathered final tree equals rank 0's (a broadcast of each
+    leaf compared on the card) and, on rank 0, its final leaves' gaps to
+    the one-rank run's (``one``: their file), by each reading of
+    ``DP_GAPS``, taken on the card (no tree leaves the process)."""
     dev = f"{DEV}:0"
+    cfg, shape = job["cfg"], job["shape"]
     mesh = Distribution.from_spec(str(world), device=dev, backend="gloo")
-    params = init_params(cfg, seed=seed, device=dev)
-    data, latency, _, _ = train_setup(cfg, seed, seqs)
+    data, latency, _, _ = train_setup(cfg, seed, **shape)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = train(cfg, data, train_config(seed, latency, tau, mesh=mesh), params=params, device=dev)
+    res = train(cfg, data, train_config(seed, latency, tau, shape["mb"], steps,
+                                        optimizer=job["optimizer"], mesh=mesh), device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -3277,17 +3432,22 @@ def dp_rank_run(rank: int, world: int, cfg, seed: int, tau: float, seqs: int) ->
         same = same and torch.equal(theirs, leaf)
     out = {"losses": res.losses, "drop_fractions": res.drop_fractions,
            "tau_trajectory": res.tau_trajectory, "step_s": res.metrics["step_s"],
-           "allreduce_s": res.metrics["allreduce_s"], "kept_local": res.metrics["kept_local"],
+           "allreduce_s": res.metrics["allreduce_s"],
+           "reduce_scatter_s": res.metrics["reduce_scatter_s"],
+           "all_gather_s": res.metrics["all_gather_s"], "kept_local": res.metrics["kept_local"],
            "counts": counts, "peak_gib": peak, "wall_s": wall, "same_as_rank0": same}
     if rank == 0:
-        out["leaves"] = [x.cpu() for x in tree_leaves(params)]
+        names = [k for k, _ in named_leaves(params)]
+        want = torch.load(one, map_location="cpu", mmap=True)
+        out["gaps"] = {k: fn(names, tree_leaves(params), want) for k, fn in DP_GAPS.items()}
+        del want
     return out
 
 
 @contextlib.contextmanager
 def reversed_sums():
-    """Each step's kept micro-batches added in the reverse order (the data-
-    parallel step's ``sum_kept``): the same sums in another f32 order."""
+    """The data-parallel step's sums in another f32 order: each step's kept
+    micro-batches added in the reverse order (``sum_kept``)."""
     sound = dp_steps.sum_kept
 
     def reverse(acc, microbatches, keep):
@@ -3300,34 +3460,208 @@ def reversed_sums():
         dp_steps.sum_kept = sound
 
 
-def dp_faults(got, one, masks, per_mb: dict, names, order_gaps: dict) -> dict:
-    """9b's ranks (``got``) against the one-rank run (``one``: losses, drop
-    fractions, tau trajectory, final leaves).  Returns the checks that fail,
-    by kind: ``"ranks"``, every rank's replica, losses, drop fractions and
-    tau trajectory the same as rank 0's, and each rank's kept count (from
-    its masks) and the micro-batches it computed (its launches) exact;
-    ``"values"``, against the one-rank run, the drop fractions and tau
-    trajectory exact, the losses within ``GRAPH_LEAF_GAP`` and every final
-    leaf within ``DP_ORDER_FACTOR`` times ``order_gaps`` (the one-rank run's
-    own gap under another order of its sums; ``DP_ZERO_GAP_FLOOR`` where
-    that gap is 0).  Prints the gaps first."""
+@contextlib.contextmanager
+def sliced_norms(mesh: str = str(DP_RANKS)):
+    """A one-rank step (``mesh="1"``: every leaf whole) whose norms are
+    summed as the data ranks of ``mesh`` sum theirs: each leaf those ranks
+    split, its sum of squares is each rank's part (``ShardNorms``'s own
+    ``part``) of that rank's slice, added in rank order, and nothing is
+    reduced.  The ranks take the clip's global norm over their rows of the
+    accumulator (views) and the optimizer's norms over tensors of their own
+    (copies); so are the slices taken here, and each part rounds as that
+    rank's does."""
+    ranks = Distribution.from_spec(mesh, device=DEV)
+    sound, rank_part = dp_steps.TrainStep._bind, ShardNorms._field_defaults["part"]
+
+    def bind(self, params):
+        sound(self, params)
+        dims, k, acc = ranks.split_dims(dp_steps.abstract_params(self.cfg)), ranks.data_size, \
+            self.grads
+
+        def part(x, i):
+            n = x.shape[dims[i]] // k
+            total = None
+            for r in range(k):
+                s = x.narrow(dims[i], r * n, n)
+                if x is not acc[i]:
+                    s = s.clone(memory_format=torch.contiguous_format)
+                total = rank_part(s, i) if total is None else total + rank_part(s, i)
+            return total
+
+        self.shards = ShardNorms([d is not None for d in dims], lambda v: None, part)
+
+    dp_steps.TrainStep._bind = bind
+    try:
+        yield
+    finally:
+        dp_steps.TrainStep._bind = sound
+
+
+#: what allocated a block, read from its allocation's Python frames (the
+#: innermost of repro_torch's own frames that names one of these wins): the
+#: trees (parameters, optimizer state, the accumulator, the compute copy,
+#: the gradient slices), the optimizer's and the clip's temporaries, and a
+#: micro-batch's forward (what it saves for the backward; under remat each
+#: layer's input); a block with none of these frames was allocated by the
+#: autograd engine's own thread: a micro-batch's backward (its gradients,
+#: the remat recompute, workspace)
+MEMORY_PARTS = (
+    ("trees", ("init_params", "_moment_init", "_bind", "shard", "part_of", "__init__")),
+    ("optimizer and clip temporaries", ("run", "global_norm", "_normalized", "clip_scale")),
+    ("a micro-batch's forward", ("loss_fn", "grad_fn", "add_microbatch")),
+)
+
+
+def memory_part(frames) -> str:
+    """The ``MEMORY_PARTS`` name of one allocation (its frames innermost
+    first; repro_torch's own frames only)."""
+    own = [f["name"] for f in frames if "repro_torch" in f.get("filename", "")]
+    for name in own:
+        for part, fns in MEMORY_PARTS:
+            if name in fns:
+                return part
+    return "a micro-batch's backward (autograd's thread)"
+
+
+def memory_at_peak(trace) -> dict:
+    """Bytes allocated at the recorded run's peak, by ``memory_part``, and
+    the function that made the peak's last allocation: the allocator's
+    trace replayed (alloc adds, a free request removes) to the event where
+    the allocated total is highest."""
+    live, total, peak, at = {}, 0, -1, 0
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            total += e["size"]
+            if total > peak:
+                peak, at = total, i
+        elif e["action"] in ("free_requested", "free_completed") and e["addr"] in live:
+            total -= live.pop(e["addr"])
+    live = {}
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] in ("free_requested", "free_completed"):
+            live.pop(e["addr"], None)
+    parts = {}
+    for e in live.values():
+        part = memory_part(e.get("frames", []))
+        parts[part] = parts.get(part, 0) + e["size"]
+    last = [f["name"] for f in trace[at].get("frames", [])
+            if "repro_torch" in f.get("filename", "")][:3]
+    return {"peak": peak, "parts": parts, "at": " < ".join(last) or "not in repro_torch"}
+
+
+def dp_one_rank(job: dict, seed: int, tau: float, record: bool = False) -> dict:
+    """The job's comparator: one NCCL rank in this process, its norms summed
+    as two ranks sum theirs (``sliced_norms``), sound and with its
+    micro-batches summed in the reverse order (the order gaps), at
+    ``TRAIN_STEPS`` and at ``DP_FAULT_STEPS`` steps (the sound runs' and the
+    planted faults' comparators), each run's final leaves kept on the card.
+    ``record``: one more run, the plain one
+    rank (the single-device path, whole norms), with its allocations
+    recorded (``torch.cuda.memory._record_memory_history``, Python frames)
+    and split at its peak (``memory_at_peak``)."""
+    cfg, shape = job["cfg"], job["shape"]
+    runs = {}
+    for order, steps in [("sound", TRAIN_STEPS), ("reversed", TRAIN_STEPS),
+                         ("sound", DP_FAULT_STEPS), ("reversed", DP_FAULT_STEPS)] + \
+            ([("plain", TRAIN_STEPS)] if record else []):
+        recording = order == "plain"
+        with procs.local_group(backend="nccl", device=DEV), (
+                reversed_sums() if order == "reversed" else contextlib.nullcontext()), (
+                contextlib.nullcontext() if recording else sliced_norms()):
+            base = torch.cuda.memory_allocated()
+            if recording:
+                torch.cuda.memory._record_memory_history(
+                    enabled="all", context="alloc", stacks="python", max_entries=4_000_000)
+            res, params, _, peak1, wall1 = train_run(cfg, seed, eager=False, tau=tau, mesh="1",
+                                                     optimizer=job["optimizer"], steps=steps,
+                                                     **shape)
+            if recording:
+                snap = torch.cuda.memory._snapshot()
+                torch.cuda.memory._record_memory_history(enabled=None)
+                runs["memory"] = dict(memory_at_peak(snap["device_traces"][0]), base=base,
+                                      max_allocated=peak1 * 2**30)
+                del snap
+        runs[order, steps] = {"losses": res.losses, "drop_fractions": res.drop_fractions,
+                              "tau_trajectory": res.tau_trajectory, "peak_gib": peak1,
+                              "base_gib": base / 2**30,
+                              "leaves": [x.detach() for x in tree_leaves(params)]}
+        log(f"dp {job['tag']} {cfg.name} one rank ({order} order of the sums, "
+            f"{'whole norms' if recording else 'norms summed from two slices'}), {steps} steps, "
+            f"{cfg.n_layers} layers ({cfg.param_count()} parameters), {job['optimizer']}: losses "
+            f"{res.losses}, drop fractions {res.drop_fractions}; step wall s "
+            f"{[round(x, 3) for x in res.metrics['step_s']]}; peak {peak1:.2f} GiB; {wall1:.1f} s")
+        runs["names"] = [k for k, _ in named_leaves(params)]
+        del res, params
+        free_device()
+    return runs
+
+
+def dp_memory_split(job: dict, mem: dict, trees: dict) -> None:
+    """Logs the one-rank comparator's allocated bytes at its peak by what
+    made them, beside the reckoned trees, and how each part scales with
+    depth."""
+    cfg = job["cfg"]
+    parts = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in
+                      sorted(mem["parts"].items(), key=lambda x: -x[1]))
+    log(f"dp {job['tag']} {cfg.name} one-rank memory at its peak ({cfg.n_layers} layers; "
+        f"recorded allocations): {mem['peak'] / 1e9:.3f} GB traced + {mem['base'] / 1e9:.3f} GB "
+        f"allocated before (max allocated {mem['max_allocated'] / 1e9:.3f} GB): {parts}; the "
+        f"peak's last allocation in {mem['at']}; the reckoned trees "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in trees.items()) + " GB")
+    check(abs(mem["peak"] + mem["base"] - mem["max_allocated"]) <= 0.01 * mem["max_allocated"],
+          f"dp {job['tag']}: the recorded peak {mem['peak'] + mem['base']} is not the allocator's "
+          f"{mem['max_allocated']}")
+
+
+#: the two readings of a leaf's gap (each over the leaf's norm)
+DP_GAPS = {"largest element": leaf_gaps, "norm of the difference": leaf_rms_gaps}
+
+
+def dp_order_gaps(names, rev, sound) -> dict:
+    """Per ``DP_GAPS`` reading, the one-rank run's gaps under reversed sums."""
+    return {k: fn(names, rev, sound) for k, fn in DP_GAPS.items()}
+
+
+def dp_faults(got, one, masks, per_mb: dict, order_gaps: dict, tag: str) -> dict:
+    """The ranks' runs (``got``; rank 0's with its final leaves' gaps to the
+    one-rank run's) against the one-rank run (``one``: losses, drop
+    fractions, tau trajectory) of as many steps as ``masks``.  Returns the checks that fail, by kind: ``"ranks"``, every
+    rank's gathered tree, losses, drop fractions and tau trajectory the same
+    as rank 0's, and each rank's kept count (from its masks) and the
+    micro-batches it computed (its launches) exact; ``"values"``, against
+    the one-rank run, the drop fractions and tau trajectory exact, the
+    losses within ``GRAPH_LEAF_GAP`` and every final leaf's gap, by each
+    reading of ``DP_GAPS``, within ``DP_ORDER_FACTOR`` times ``order_gaps``
+    (the one-rank run's own gap by that reading under another order of its
+    sums; ``DP_ZERO_GAP_FLOOR`` where that gap is 0).  Prints the gaps
+    first."""
     faults = {"ranks": [], "values": []}
     r0, per = got[0], TRAIN_WORKERS // DP_RANKS
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
-    gaps = leaf_gaps(names, r0["leaves"], one["leaves"])
-    limits = {k: DP_ORDER_FACTOR * order_gaps[k] if order_gaps[k] > 0 else DP_ZERO_GAP_FLOOR
-              for k in gaps}
-    log(f"dp 9b vs one rank: losses {r0['losses']} / {one['losses']} (largest gap {loss_gap:.3e} "
-        f"of the loss); final leaves, gap of its norm (the one-rank run's under reversed sums): "
-        + ", ".join(f"{k} {v:.2e} ({order_gaps[k]:.2e})" for k, v in gaps.items()))
+    log(f"dp {tag} vs one rank: losses {r0['losses']} / {one['losses']} (largest gap "
+        f"{loss_gap:.3e} of the loss)")
+    for reading in DP_GAPS:
+        gaps, order = r0["gaps"][reading], order_gaps[reading]
+        limits = {k: DP_ORDER_FACTOR * order[k] if order[k] > 0 else DP_ZERO_GAP_FLOOR
+                  for k in gaps}
+        worst = max(gaps, key=lambda k: gaps[k] / limits[k])
+        log(f"dp {tag} vs one rank, final leaves by the {reading} over the leaf's norm (the "
+            f"one-rank run's under reversed sums): " + ", ".join(
+                f"{k} {v:.2e} ({order[k]:.2e})" for k, v in gaps.items())
+            + f"; the largest over its limit: {worst} {gaps[worst] / limits[worst]:.3g}x")
+        faults["values"] += [f"leaf {k} differs by {gaps[k]:.3e} of its norm ({reading}), its "
+                             f"limit {limits[k]:.3e}" for k in gaps if gaps[k] >= limits[k]]
     for r, res in enumerate(got):
         own = [int(k[r * per:(r + 1) * per].sum()) for k in masks]
         want = {k: sum(own) * v for k, v in per_mb.items()}
         computed = res["counts"]["masked_accum"] / per_mb["masked_accum"]
-        log(f"dp 9b rank {r}: kept {res['kept_local']} (its workers' masks {own}), computed "
+        log(f"dp {tag} rank {r}: kept {res['kept_local']} (its workers' masks {own}), computed "
             f"{computed:g} micro-batches")
         for ok, msg in (
-                (res["same_as_rank0"], f"rank {r}'s final replica differs from rank 0's"),
+                (res["same_as_rank0"], f"rank {r}'s gathered tree differs from rank 0's"),
                 (all(res[k] == r0[k] for k in ("losses", "drop_fractions", "tau_trajectory")),
                  f"rank {r}'s losses, drops or tau differ from rank 0's"),
                 (res["kept_local"] == own, f"rank {r} kept {res['kept_local']}, its masks {own}"),
@@ -3342,89 +3676,126 @@ def dp_faults(got, one, masks, per_mb: dict, names, order_gaps: dict) -> dict:
         faults["values"].append("tau trajectories differ")
     if loss_gap >= GRAPH_LEAF_GAP:
         faults["values"].append(f"losses differ by {loss_gap} of the loss")
-    faults["values"] += [f"leaf {k} differs by {gaps[k]:.3e} of its norm, its limit "
-                         f"{limits[k]:.3e}" for k in gaps if gaps[k] >= limits[k]]
     return faults
 
 
-def dp_gloo_phase(cfg, seed: int, layers: int = DP_LAYERS,
-                  pool_gib: float = DP_POOL_GIB) -> None:
-    """9b: ``cfg``'s widths at ``layers`` layers (qwen2.5-3b at
-    ``DP_LAYERS``; mamba2-130m at ``M_LAYERS``), the training phase's
-    data and latencies (2 workers a rank x 2 micro-batches of one 2048-token
-    sequence, 3 steps) on two gloo ranks sharing the card, against 9a's code
-    at the same depth on one rank, which must pass every check of
-    ``dp_faults``; then, in the same two spawned processes (``dp_rank``),
-    the same with a planted fault (rank 1 skips one kept micro-batch),
-    which they must reject, and the log says which did."""
-    small = dataclasses.replace(cfg, n_layers=layers)
-    tau, masks = dp_tau(cfg, seed)
+def dp_gloo_phase(jobs: list, seed: int) -> None:
+    """9b and 9c: each job's widths at its depth (``dp_jobs``), its data and
+    latencies on two gloo ranks sharing the card, each rank holding its
+    slices of the split leaves (ZeRO), against the job's run on one NCCL
+    rank (``dp_one_rank``), which must pass every check of ``dp_faults``;
+    then, in the same two spawned processes (``dp_rank``, one spawn for
+    every job: ``dp_runs``), ``DP_FAULT_STEPS``-step runs, held to the
+    one-rank runs of as many steps: sound, which must pass, and under each
+    planted fault of ``DP_FAULTS``, which they must reject, and the log
+    says which checks did.  Each rank's peak is
+    printed beside the sharded reckoning and the replicated one
+    (``dp_rank_bytes``), each step's all-reduce, reduce-scatter and
+    all-gather seconds beside the bytes they move; 9c's plain one-rank run
+    records its allocations and splits them at its peak
+    (``dp_memory_split``)."""
     mode_line = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                                capture_output=True, text=True, check=True).stdout.strip()
-    log(f"dp 9b {cfg.name}: compute mode {mode_line}; tau {tau:.4f} s, masks "
-        f"{[k.tolist() for k in masks]}")
+    log(f"dp 9b / 9c: compute mode {mode_line}")
     check(mode_line.splitlines()[0] == "Default",
           f"two processes on one card need compute mode Default, not {mode_line}")
-    runs = {}
-    for order in ("sound", "reversed"):
-        with procs.local_group(backend="nccl", device=DEV), (
-                reversed_sums() if order == "reversed" else contextlib.nullcontext()):
-            res, params, _, peak1, wall1 = train_run(small, seed, eager=False, tau=tau, mesh="1")
-        runs[order] = {"losses": res.losses, "drop_fractions": res.drop_fractions,
-                       "tau_trajectory": res.tau_trajectory,
-                       "leaves": [x.cpu() for x in tree_leaves(params)]}
-        log(f"dp 9b {cfg.name} one rank ({order} order of the sums), {layers} layers "
-            f"({small.param_count()} parameters): losses {res.losses}, drop fractions "
-            f"{res.drop_fractions}; step wall s {[round(x, 3) for x in res.metrics['step_s']]}; "
-            f"peak {peak1:.2f} GiB; {wall1:.1f} s")
-        names = [k for k, _ in named_leaves(params)]
-        del res, params
-        free_device()
-    one = runs["sound"]
-    order_gaps = leaf_gaps(names, runs["reversed"]["leaves"], one["leaves"])
-    del runs
-    reckon = dp_rank_bytes(small, pool_gib)
-    free, total = torch.cuda.mem_get_info()
-    parts = ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in reckon.items())
-    log(f"dp 9b rank memory, reckoned: {parts}; total {sum(reckon.values()) / 2**30:.2f} GiB a "
-        f"rank; free on the card {free / 2**30:.2f} of {total / 2**30:.2f} GiB")
-    check(free >= 2 * sum(reckon.values()),
-          f"two ranks want 2 x {sum(reckon.values())} bytes, the card has {free} free")
-    per_mb = launches_per_microbatch(small, len(names))
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
+    taus, readings, ones = [], [], []
+    for j, job in enumerate(jobs):
+        cfg = job["cfg"]
+        tau, masks = dp_tau(cfg, seed, **job["shape"])
+        log(f"dp {job['tag']} {cfg.name}: tau {tau:.4f} s, masks {[k.tolist() for k in masks]}")
+        runs = dp_one_rank(job, seed, tau, record=job["tag"] == "9c")
+        names = runs["names"]
+        order_gaps = {steps: dp_order_gaps(names, runs["reversed", steps]["leaves"],
+                                           runs["sound", steps]["leaves"])
+                      for steps in (TRAIN_STEPS, DP_FAULT_STEPS)}
+        # the ranks read the one-rank runs' leaves from files: no tree is
+        # held on the host, where two ranks' gloo staging and the CPU passes
+        # already take much of the machine's memory
+        ones.append({})
+        for steps in (TRAIN_STEPS, DP_FAULT_STEPS):
+            ones[-1][steps] = os.path.join(root, f"dp_one_{j}_{steps}.pt")
+            torch.save([x.cpu() for x in runs["sound", steps]["leaves"]], ones[-1][steps])
+        replicated = dp_rank_bytes(cfg, 0)
+        one = runs["sound", TRAIN_STEPS]
+        pool = max(0.0, (one["peak_gib"] - one["base_gib"]) * 2**30 - sum(replicated.values()))
+        reck = {1: dp_rank_bytes(cfg, pool), DP_RANKS: dp_rank_bytes(cfg, pool, DP_RANKS)}
+        if "memory" in runs:
+            dp_memory_split(job, runs["memory"], {k: v for k, v in reck[1].items()
+                                                  if k != "training pool"})
+        log(f"dp {job['tag']} {cfg.name} a rank's memory, reckoned (the pool: the one-rank "
+            f"run's peak {one['peak_gib']:.2f} GiB less the {one['base_gib']:.2f} GiB this "
+            f"process held before it and its trees): replicated "
+            f"{reckoning_text(reck[1])}; sharded over {DP_RANKS} {reckoning_text(reck[DP_RANKS])}")
+        taus.append(tau)
+        readings.append(dict(one={steps: {k: v for k, v in runs["sound", steps].items()
+                                          if k != "leaves"}
+                                  for steps in (TRAIN_STEPS, DP_FAULT_STEPS)},
+                             names=names, order_gaps=order_gaps, masks=masks, reck=reck,
+                             per_mb=launches_per_microbatch(cfg, len(names))))
+        del runs
+        free_device()
+    free, total = torch.cuda.mem_get_info()
+    want = max(sum(r["reck"][DP_RANKS].values()) for r in readings)
+    log(f"dp 9b / 9c: free on the card {free / 2**30:.2f} of {total / 2**30:.2f} GiB; two ranks "
+        f"want 2 x {want / 2**30:.2f} GiB (the largest sharded reckoning)")
+    check(free >= 2 * want, f"two ranks want 2 x {want} bytes, the card has {free} free")
     t0 = time.perf_counter()
-    runs = procs.spawn(dp_rank, DP_RANKS, backend="gloo", device=f"{DEV}:0",
-                       timeout_s=DP_TIMEOUT_S, workdir=root, args=(small, seed, tau))
-    log(f"dp 9b {cfg.name}: {DP_RANKS} ranks spawned once for the sound run and the planted "
-        f"fault's, joined in {time.perf_counter() - t0:.1f} s")
-    for i, plant in enumerate((False, True)):
-        got = [r[i] for r in runs]
-        tag = (f"{cfg.name} planted fault (rank 1 skips one kept micro-batch)" if plant
-               else f"{cfg.name} sound")
-        for r, g in enumerate(got):
-            log(f"dp 9b {tag}, rank {r}: losses {g['losses']}, drops {g['drop_fractions']}; "
-                f"step wall s {[round(x, 3) for x in g['step_s']]}; all-reduce s "
-                f"{[round(x, 3) for x in g['allreduce_s']]} ({4 * small.param_count() + 12} "
-                f"bytes, gloo through the host); peak {g['peak_gib']:.2f} GiB; train "
-                f"{g['wall_s']:.1f} s; launches {g['counts']}")
-        faults = dp_faults(got, one, masks, per_mb, names, order_gaps)
-        failed = faults["ranks"] + faults["values"]
-        if not plant:
-            check(not failed, "; ".join(failed))
-            log(f"dp 9b: two gloo ranks match one rank (drop fractions, tau trajectory and kept "
-                f"counts exact; losses within {GRAPH_LEAF_GAP}, {len(names)} leaves within "
-                f"{DP_ORDER_FACTOR}x their order gaps, {DP_ZERO_GAP_FLOOR:.1e} where that is 0)")
-        else:
-            check(bool(faults["ranks"]) and bool(faults["values"]),
-                  f"dp 9b {cfg.name}: the planted skipped micro-batch passed the checks by "
-                  f"launch counts ({faults['ranks'] or 'none failed'}) or by values "
-                  f"({faults['values'] or 'none failed'})")
-            log(f"dp 9b {cfg.name} planted fault rejected; by the ranks' own checks: "
-                f"{'; '.join(faults['ranks']) or 'none'}; by the values against one rank: "
-                f"{'; '.join(faults['values']) or 'none'}")
-        del got
-    del runs
+    try:
+        out = procs.spawn(dp_rank, DP_RANKS, backend="gloo", device=f"{DEV}:0",
+                          timeout_s=DP_TIMEOUT_S, workdir=root, args=(jobs, seed, taus, ones))
+    finally:
+        for one in ones:
+            for path in one.values():
+                os.remove(path)
+    log(f"dp 9b / 9c: {DP_RANKS} ranks spawned once for {len(jobs)} models' sound runs of "
+        f"{TRAIN_STEPS} and {DP_FAULT_STEPS} steps and {len(jobs) * len(DP_FAULTS)} planted "
+        f"faults, joined in "
+        f"{time.perf_counter() - t0:.1f} s; host peak resident memory (ru_maxrss) this process "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB, its largest "
+        f"finished child {resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20:.2f} GiB")
+    problems = []  # every model's readings are printed before any check fails
+    for j, (job, rd) in enumerate(zip(jobs, readings)):
+        cfg, tag = job["cfg"], f"{job['tag']} {job['cfg'].name}"
+        for i, (fault, steps) in enumerate(dp_runs()):
+            got = [r[j][i] for r in out]
+            what = (f"{tag} planted fault {DP_FAULTS[fault][0]}" if fault
+                    else f"{tag} sound, {steps} steps")
+            for r, g in enumerate(got):
+                log(f"dp {what}, rank {r}: losses {g['losses']}, drops {g['drop_fractions']}; "
+                    f"step wall s {[round(x, 3) for x in g['step_s']]}; all-reduce s "
+                    f"{[round(x, 3) for x in g['allreduce_s']]}, reduce-scatter s "
+                    f"{[round(x, 3) for x in g['reduce_scatter_s']]}, all-gather s "
+                    f"{[round(x, 3) for x in g['all_gather_s']]} (gloo through the host); peak "
+                    f"{g['peak_gib']:.2f} GiB against {sum(rd['reck'][DP_RANKS].values()) / 2**30:.2f} "
+                    f"sharded, {sum(rd['reck'][1].values()) / 2**30:.2f} replicated (reckoned); "
+                    f"train {g['wall_s']:.1f} s; launches {g['counts']}")
+            faults = dp_faults(got, rd["one"][steps], rd["masks"][:steps], rd["per_mb"],
+                               rd["order_gaps"][steps], what)
+            failed = faults["ranks"] + faults["values"]
+            if not fault:
+                if failed:
+                    problems.append(f"dp {what}: " + "; ".join(failed))
+                else:
+                    log(f"dp {tag}: two sharded gloo ranks match one rank over {steps} steps "
+                        f"(drop fractions, tau "
+                        f"trajectory and kept counts exact; losses within {GRAPH_LEAF_GAP}, "
+                        f"{len(rd['names'])} leaves within {DP_ORDER_FACTOR}x their order "
+                        f"gaps by the largest element and by the norm of the difference, "
+                        f"{DP_ZERO_GAP_FLOOR:.1e} where that is 0)")
+                continue
+            if not faults["values"] or (DP_FAULTS[fault][2] and not faults["ranks"]):
+                problems.append(f"dp {what} passed the checks by launch counts "
+                                f"({faults['ranks'] or 'none failed'}) or by values "
+                                f"({faults['values'] or 'none failed'})")
+            else:
+                log(f"dp {what} rejected; by the ranks' own checks: "
+                    f"{'; '.join(faults['ranks']) or 'none'}; by the values against one rank: "
+                    f"{len(faults['values'])} failed: {'; '.join(faults['values'][:4])}")
+    del out
+    check(not problems, " | ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -7596,13 +7967,12 @@ def main() -> int:
     free_device()
     phase_done("8")
 
-    # 9. data parallel: one NCCL rank (6's run), then two gloo ranks
+    # 9. data parallel: one NCCL rank (6's run), then two gloo ranks holding
+    # ZeRO slices: qwen2.5-3b and mamba2-130m (9b), bert-1.5b with LANS (9c)
     dp_counts = dp_nccl_phase(qcfg, args.seed, train_graphed)
     del train_graphed
     free_device()
-    dp_gloo_phase(cfg, args.seed)
-    free_device()
-    dp_gloo_phase(mcfg, args.seed, layers=M_LAYERS, pool_gib=M_DP_POOL_GIB)
+    dp_gloo_phase(dp_jobs(cfg, mcfg), args.seed)
     free_device()
     phase_done("9")
 

@@ -1,26 +1,36 @@
 """``Distribution``: the data-parallel path's one object (port of
-``repro.dist.api``, ``api.py:57-162``, on the data axis).
+``repro.dist.api``, ``api.py:57-162``, on the pod and data axes).
 
 A ``Distribution`` holds a mesh (``dist.mesh``), this rank's device and
 the backend, and talks to the ``torch.distributed`` process group this
-process belongs to (``dist.procs`` makes one).  Each rank is a process;
-the mesh's data size is the number of ranks, and each rank computes the
-micro-batches of ``W / R`` of the ``W`` DropCompute workers.  Parameters
-and optimizer state are replicated: ``shard`` makes a tree the same on
-every rank (a broadcast from rank 0, where the reference places it with
-``jax.device_put``), and ``all_reduce_sum`` is the step's one gradient
-All-Reduce.
+process belongs to (``dist.procs`` makes one).  Each rank is a process at
+the mesh coordinates ``mesh.coords`` gives it; the product of the data
+axes' sizes is the number of ranks, and each rank computes the
+micro-batches of ``W / R`` of the ``W`` DropCompute workers.
+
+Placements are the reference's path rules (``dist.sharding``): with a data
+axis above 1, every leaf whose spec names "data" is stored as this rank's
+slice along that dimension (ZeRO: the master parameters and the optimizer
+moments alike), split over the data ranks of the rank's pod and the same on
+every pod; the other leaves are whole on every rank.  ``shard`` turns rank
+0's whole tree into this rank's slices, ``gather`` puts a whole tree back
+together, and the step's collectives (``all_reduce_sum`` over every rank,
+``reduce_scatter`` and ``all_gather`` of one leaf along its split
+dimension, ``sum_over_data`` for norms) run on the subgroups of the mesh.
+One rank, or a data axis of 1, splits nothing: every leaf is whole.
 
     dist = Distribution.from_spec("2", device="cpu")   # --mesh 2, gloo
     bundle = dist.train_step(cfg, shape, drop, n_workers=4)
-    params, opt_state, metrics = bundle(params, opt_state, batch, latencies)
+    params = dist.shard(params)                         # this rank's slices
+    params, opt_state, metrics = bundle(params, bundle.opt.init(params), batch, latencies)
 
-The model axis (tensor parallelism), the FSDP rules and the serving steps
-are not ported: a mesh with ``model > 1`` raises ``UnsupportedDistError``.
+The model axis (tensor parallelism) and the serving steps are not ported:
+a mesh with ``model > 1`` raises ``UnsupportedDistError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Any, Callable, Optional, Tuple, Union
 
@@ -28,9 +38,10 @@ import torch
 import torch.distributed as tdist
 
 from ..launch import steps as S
-from ..models.transformer import tree_leaves
+from ..optim import ShardNorms
 from . import mesh as mesh_lib
 from . import procs
+from . import sharding as rules
 
 Tree = Any
 
@@ -78,6 +89,29 @@ class Distribution:
     # -- constructors -------------------------------------------------------
 
     @classmethod
+    def for_devices(cls, n_devices: Optional[int] = None, model_parallel: int = 1, device=None,
+                    backend: Optional[str] = None) -> "Distribution":
+        """A (data, model) mesh over ``n_devices`` ranks (None: one a visible
+        CUDA device).  ``model_parallel`` above 1 raises
+        ``UnsupportedDistError`` (the model axis is not ported)."""
+        n = torch.cuda.device_count() if n_devices is None else n_devices
+        if n < 1 or n % model_parallel:
+            raise ValueError(f"{n} devices do not split into a model axis of {model_parallel}")
+        return cls(mesh_lib.make_mesh((n // model_parallel, model_parallel), ("data", "model")),
+                   None if device is None else str(device), backend)
+
+    @classmethod
+    def production(cls, multi_pod: bool = False, device=None,
+                   backend: Optional[str] = None) -> "Distribution":
+        """The reference's production mesh, (data 16, model 16) or (pod 2,
+        data 16, model 16).  Its 16-way model axis raises
+        ``UnsupportedDistError`` until the model axis is ported."""
+        dims = (2, 16, 16) if multi_pod else (16, 16)
+        names = ("pod", "data", "model") if multi_pod else ("data", "model")
+        return cls(mesh_lib.make_mesh(dims, names), None if device is None else str(device),
+                   backend)
+
+    @classmethod
     def from_spec(cls, spec: Union[str, Tuple[int, ...]], device=None,
                   backend: Optional[str] = None) -> "Distribution":
         """Parse a ``--mesh`` flag: "4" -> (data=4,); "4,1" -> (data, model);
@@ -99,6 +133,20 @@ class Distribution:
     @property
     def tp_size(self) -> int:
         return mesh_lib.tp_size(self.mesh)
+
+    @property
+    def data_size(self) -> int:
+        """The ranks a split leaf is split over (a pod's data ranks)."""
+        return self.mesh.shape.get("data", 1)
+
+    @property
+    def pod_size(self) -> int:
+        return self.mesh.shape.get("pod", 1)
+
+    @property
+    def coords(self):
+        """This rank's mesh coordinates (``mesh.coords``)."""
+        return mesh_lib.coords(self.mesh, self.rank)
 
     @property
     def rank(self) -> int:
@@ -143,21 +191,150 @@ class Distribution:
         k = n_workers // r
         return range(rank * k, (rank + 1) * k)
 
+    # -- placements (ref ``api.py:102-126``) --------------------------------
+
+    def spec_for_path(self, path: str, shape) -> tuple:
+        return rules.spec_for_path(path, shape, self.mesh)
+
+    def param_shardings(self, params: Tree) -> Tree:
+        return rules.param_shardings(params, self.mesh)
+
+    def opt_shardings(self, opt_state: Tree) -> Tree:
+        return rules.opt_shardings(opt_state, self.mesh)
+
+    def cache_shardings(self, cache: Tree, shard_seq: bool = False) -> Tree:
+        return rules.cache_shardings(cache, self.mesh, shard_seq=shard_seq)
+
+    def batch_shardings(self, cfg, shape) -> Tree:
+        return S.batch_shardings(cfg, shape, self.mesh)
+
+    def replicated(self) -> tuple:
+        return ()
+
+    def split_dim(self, spec) -> Optional[int]:
+        """The dimension a leaf of ``spec`` is split along over the data
+        ranks; None when the leaf is whole on every rank (no "data" entry,
+        or a data axis of 1)."""
+        if self.data_size == 1:
+            return None
+        return next((i for i, e in enumerate(spec) if e == "data"), None)
+
+    def split_dims(self, whole: Tree) -> list:
+        """``split_dim`` of every leaf of the whole parameter tree ``whole``
+        (tensors or meta tensors), in ``tree_leaves`` order."""
+        return [self.split_dim(s) for s in rules.leaf_specs(whole, self.mesh)]
+
+    def own_rows(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's rows of the whole leaf ``x`` along ``dim``: a view."""
+        n = x.shape[dim] // self.data_size
+        return x.narrow(dim, self.coords["data"] * n, n)
+
+    def part_of(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``x`` along ``dim``, as a
+        tensor of its own."""
+        return self.own_rows(x, dim).clone(memory_format=torch.contiguous_format)
+
+    def whole_shape(self, part_shape, dim: int) -> tuple:
+        shape = list(part_shape)
+        shape[dim] *= self.data_size
+        return tuple(shape)
+
+    def shard(self, tree: Tree, shardings: Optional[Tree] = None) -> Tree:
+        """This rank's slices of rank 0's tree (the reference's
+        ``jax.device_put`` onto ``shardings``, by default
+        ``param_shardings(tree)``): each tensor is broadcast from rank 0 in
+        place, then a split leaf's slice is taken (``part_of``); whole
+        leaves, and Python numbers, are returned as they are."""
+        if shardings is None:
+            shardings = self.param_shardings(tree)
+
+        def leaf(x, spec):
+            if not isinstance(x, torch.Tensor):
+                return x
+            tdist.broadcast(x, src=0)
+            dim = self.split_dim(spec)
+            return x if dim is None else self.part_of(x, dim)
+
+        return rules.zip_map(leaf, tree, shardings)
+
+    def gather(self, tree: Tree, shardings: Tree) -> Tree:
+        """The whole tree from every rank's slices (``shardings``: the whole
+        tree's specs, as ``shard`` took them): a split leaf gathered into a
+        new tensor on every rank, a whole leaf returned as it is."""
+        def leaf(x, spec):
+            dim = self.split_dim(spec) if isinstance(x, torch.Tensor) else None
+            if dim is None:
+                return x
+            out = torch.empty(self.whole_shape(x.shape, dim), dtype=x.dtype, device=x.device)
+            self.all_gather(out, x, dim)
+            return out
+
+        return rules.zip_map(leaf, tree, shardings)
+
+    def shard_norms(self, split) -> Optional[ShardNorms]:
+        """The optimizer's ``ShardNorms`` for leaves that are split where
+        ``split`` says (None when none is)."""
+        return ShardNorms(list(split), self.sum_over_data) if any(split) else None
+
     # -- collectives --------------------------------------------------------
 
-    def shard(self, tree: Tree) -> Tree:
-        """Make ``tree``'s tensors rank 0's on every rank, in place (a
-        broadcast from rank 0; the reference's ``jax.device_put``)."""
-        for leaf in tree_leaves(tree):
-            if isinstance(leaf, torch.Tensor):
-                tdist.broadcast(leaf, src=0)
-        return tree
+    @functools.cached_property
+    def _groups(self):
+        """(data group, pod group) of this rank: the ranks that share its pod
+        (a split leaf's slices) and those that share its data coordinate
+        (the same slices on the other pods); None is the default (world)
+        group.  Every rank makes every subgroup, in the same order, as
+        ``new_group`` asks."""
+        pods, data = self.pod_size, self.data_size
+        if pods == 1:
+            return None, None
+        me, mesh = self.coords, self.mesh
+        data_group = pod_group = None
+        for p in range(pods):
+            g = tdist.new_group([mesh_lib.rank_of(mesh, pod=p, data=d) for d in range(data)])
+            data_group = g if p == me["pod"] else data_group
+        for d in range(data):
+            g = tdist.new_group([mesh_lib.rank_of(mesh, pod=p, data=d) for p in range(pods)])
+            pod_group = g if d == me["data"] else pod_group
+        return data_group, pod_group
 
     def all_reduce_sum(self, tensors) -> None:
-        """Sum each tensor over the ranks, in place: one collective each,
+        """Sum each tensor over every rank, in place: one collective each,
         in the order given, issued on the current stream's work."""
         for t in tensors:
             tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+
+    def sum_over_data(self, t: torch.Tensor) -> None:
+        """Sum ``t`` over this rank's data group, in place: partial sums of
+        split leaves (a pod holds every slice once)."""
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=self._groups[0])
+
+    def reduce_scatter(self, out: torch.Tensor, whole: torch.Tensor, dim: int) -> None:
+        """``out`` = this rank's slice along ``dim`` of the sum of every
+        rank's ``whole``: a reduce-scatter over the rank's data group, then
+        an all-reduce of the slice over its pod group, into a buffer of its
+        own that is then copied to ``out`` (which may be ``whole``'s own
+        rows).  The collective splits dim 0, so an inner ``dim`` is moved
+        first through a contiguous copy."""
+        data_group, pod_group = self._groups
+        buf = torch.empty(out.movedim(dim, 0).shape, dtype=out.dtype, device=out.device)
+        tdist.reduce_scatter_tensor(buf, whole if dim == 0 else whole.movedim(dim, 0).contiguous(),
+                                    group=data_group)
+        if self.pod_size > 1:
+            tdist.all_reduce(buf, op=tdist.ReduceOp.SUM, group=pod_group)
+        out.copy_(buf.movedim(0, dim))
+
+    def all_gather(self, out: torch.Tensor, part: torch.Tensor, dim: int) -> None:
+        """``out`` (a whole leaf) = every data rank's ``part`` in its place
+        along ``dim``, over this rank's data group (an inner ``dim`` through
+        a contiguous buffer, as ``reduce_scatter``)."""
+        data_group = self._groups[0]
+        if dim == 0:
+            tdist.all_gather_into_tensor(out, part.contiguous(), group=data_group)
+            return
+        buf = torch.empty(out.movedim(dim, 0).shape, dtype=out.dtype, device=out.device)
+        tdist.all_gather_into_tensor(buf, part.movedim(dim, 0).contiguous(), group=data_group)
+        out.copy_(buf.movedim(0, dim))
 
     def barrier(self) -> None:
         dev = self.device

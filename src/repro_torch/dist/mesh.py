@@ -31,6 +31,29 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.dims))
 
+    @property
+    def size(self) -> int:
+        return axes_size(self, self.axis_names)
+
+
+def coords(mesh: Mesh, rank: int) -> Dict[str, int]:
+    """The mesh coordinates of ``rank``, row-major over the axes (the last
+    axis fastest)."""
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} is not in mesh {mesh.shape}")
+    out = {}
+    for name, dim in zip(reversed(mesh.axis_names), reversed(mesh.dims)):
+        rank, out[name] = divmod(rank, dim)
+    return {name: out[name] for name in mesh.axis_names}
+
+
+def rank_of(mesh: Mesh, **at: int) -> int:
+    """The rank at mesh coordinates ``at`` (an axis left out is 0)."""
+    r = 0
+    for name, dim in zip(mesh.axis_names, mesh.dims):
+        r = r * dim + at.get(name, 0)
+    return r
+
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     return Mesh(tuple(int(d) for d in axis_shapes), tuple(axis_names))

@@ -2,6 +2,7 @@
 from .optimizers import (
     OPTIMIZERS,
     Optimizer,
+    ShardNorms,
     adamw,
     apply_updates,
     clip_by_global_norm,
@@ -17,6 +18,7 @@ from .schedule import constant, warmup_cosine, warmup_linear
 __all__ = [
     "OPTIMIZERS",
     "Optimizer",
+    "ShardNorms",
     "adamw",
     "apply_updates",
     "clip_by_global_norm",

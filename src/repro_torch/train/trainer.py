@@ -47,13 +47,19 @@ The data-parallel path (``mesh="N"``, the reference's SPMD path,
 ``trainer.py:123-131``, ``:177-201``): each of the N ranks of the process
 group runs ``train`` with the same arguments and holds ``W / N`` of the W
 workers.  Its step (built by ``Distribution.train_step``) takes its own
-workers' rows of the global batch and joins one gradient All-Reduce.  The
-latency draws, masks, tau selection and simulated times are the same host
-numpy on every rank (from the shared ``(seed, step)`` draws), so the ranks'
-tau trajectories agree with no collective.  Parameters are made the same on
-every rank (``Distribution.shard``) after init and after a restore; rank 0
-writes the checkpoints.  A mesh with ``model > 1`` raises
-``UnsupportedDistError``.
+workers' rows of the global batch.  The latency draws, masks, tau
+selection and simulated times are the same host numpy on every rank (from
+the shared ``(seed, step)`` draws), so the ranks' tau trajectories agree
+with no collective.  The master parameters and the optimizer state are
+placed by the reference's rules (``dist.sharding``, ZeRO): with a data axis
+above 1 each rank keeps its slices of the split leaves
+(``Distribution.shard`` of rank 0's tree after init; a restore reads the
+whole trees on every rank and takes the slices), and the step gathers and
+reduce-scatters them.  A checkpoint gathers the whole trees on every rank
+and rank 0 writes them, in the single-device format, so it loads in
+either trainer; ``TrainResult.params`` is the whole tree gathered after
+the last step (the tree passed in is not updated).  A mesh with
+``model > 1`` raises ``UnsupportedDistError``.
 """
 from __future__ import annotations
 
@@ -167,13 +173,17 @@ def train(
     ``train`` alike; ``device`` as ``procs.rank_device`` reads it: by
     default the GPU of the rank's local rank).  ``params`` (the master
     tree) are moved there and updated in place (the reference returns new
-    arrays); without them they are drawn from ``tcfg.seed``.  Returns the
+    arrays; on the data-parallel path each rank updates its slices, and the
+    whole tree is returned); without them they are drawn from
+    ``tcfg.seed``.  Returns the
     trained parameters with the per-step losses, simulated times, drop
     fractions and tau trajectory; ``metrics`` adds each step's wall seconds
     (``step_s``) and each kept micro-batch's seconds on the device's
     timeline (``microbatch_s``), and on the data-parallel path each step's
-    All-Reduce seconds on the same timeline (``allreduce_s``) and the
-    micro-batches this rank kept (``kept_local``).  A config the training
+    seconds on the same timeline in its All-Reduce (``allreduce_s``), its
+    reduce-scatters (``reduce_scatter_s``) and its all-gathers of the
+    compute copy (``all_gather_s``), and the micro-batches this rank kept
+    (``kept_local``).  A config the training
     kernels are not built for, a mesh without its process group, or workers
     that do not split over the ranks raise before any work."""
     dist = _resolve_dist(tcfg.mesh, device)
@@ -202,7 +212,11 @@ def train(
     if dist is not None:
         bundle = dist.train_step(model_cfg, shape, tcfg.drop, n_workers=n, **kw)
         opt, train_step = bundle.opt, bundle.fn
-        dist.shard(params)
+        # placements from the whole trees' shapes (ZeRO: the split leaves'
+        # slices of the masters and of the moments are this rank's)
+        specs = {"params": dist.param_shardings(params),
+                 "opt": dist.opt_shardings(opt.init(tree_map(lambda p: p.to("meta"), params)))}
+        params = dist.shard(params, specs["params"])
     else:  # all N workers on this device, no collective; sums in the masters' dtype
         opt, train_step = make_train_step(model_cfg, shape, tcfg.drop, n, accum_dtype=None, **kw)
     opt_state = opt.init(params)
@@ -216,14 +230,18 @@ def train(
         controller = TauController(ccfg, tcfg.tc, tau=tau, total_steps=tcfg.steps,
                                    default_recompile_cost_s=0.0)
 
-    # resume: params / opt state (in place, on every rank) plus the adapted
-    # tau and controller
+    # resume: params / opt state (in place; on the data-parallel path read
+    # into whole trees on every rank, then this rank's slices taken) plus
+    # the adapted tau and controller
     start_step = 0
     if tcfg.resume_from:
-        restored, start_step = ckpt.restore(tcfg.resume_from, {"params": params, "opt": opt_state})
-        opt_state = restored["opt"]
+        state = {"params": params, "opt": opt_state}
         if dist is not None:
-            dist.shard(params)
+            state = dist.gather(state, specs)
+        state, start_step = ckpt.restore(tcfg.resume_from, state)
+        if dist is not None:
+            state = dist.shard(state, specs)
+        params, opt_state = state["params"], state["opt"]
         state = ckpt.resilience_state(tcfg.resume_from)
         if state:
             tau = float("inf") if state.get("tau") is None else float(state["tau"])
@@ -235,7 +253,11 @@ def train(
     trajectory: List[Tuple[int, float]] = [(start_step, tau)]
 
     def save_ckpt(step_now: int) -> None:
-        """Rank 0 writes; every rank waits for the files."""
+        """Every rank gathers the whole trees; rank 0 writes; every rank
+        waits for the files."""
+        tree = {"params": params, "opt": opt_state}
+        if dist is not None:
+            tree = dist.gather(tree, specs)
         if dist is None or dist.rank == 0:
             res_state = {
                 "tau": None if not np.isfinite(tau) else float(tau),
@@ -244,13 +266,12 @@ def train(
                 "trajectory": [[int(s), (None if not np.isfinite(t) else float(t))]
                                for s, t in (controller.trajectory if controller else trajectory)],
             }
-            ckpt.save(tcfg.ckpt_dir, {"params": params, "opt": opt_state}, step_now,
-                      extra={"resilience": res_state})
+            ckpt.save(tcfg.ckpt_dir, tree, step_now, extra={"resilience": res_state})
         if dist is not None:
             dist.barrier()
 
     losses, sim_times, drops, step_s, microbatch_s = [], [], [], [], []
-    allreduce_s, kept_local = [], []
+    allreduce_s, reduce_scatter_s, all_gather_s, kept_local = [], [], [], []
     for step in range(start_step, tcfg.steps):
         b = batch_at(step, data_cfg)  # the global batch; the step takes its workers' rows
         batch = {k: b[k] for k in ("tokens", "weights")}
@@ -305,6 +326,8 @@ def train(
         microbatch_s.append(elapsed_s(stats["microbatch_marks"]))
         if dist is not None:
             allreduce_s.append(elapsed_s(stats["allreduce_marks"])[0])
+            reduce_scatter_s.append(elapsed_s(stats["reduce_scatter_marks"])[0])
+            all_gather_s.append(elapsed_s(stats["all_gather_marks"])[0])
             kept_local.append(stats["kept_local"])
         telemetry.record(step, t, host_step_s=host_step_s, tau=tau, drop_fraction=drop_frac)
         if tcfg.ckpt_dir and tcfg.ckpt_every and (step + 1) % tcfg.ckpt_every == 0:
@@ -321,7 +344,9 @@ def train(
         "microbatch_s": microbatch_s,
     }
     if dist is not None:
-        metrics.update(allreduce_s=allreduce_s, kept_local=kept_local)
+        metrics.update(allreduce_s=allreduce_s, reduce_scatter_s=reduce_scatter_s,
+                       all_gather_s=all_gather_s, kept_local=kept_local)
+        params = dist.gather(params, specs["params"])
     if eval_fn is not None:
         metrics["eval"] = float(eval_fn(params))
     return TrainResult(params, losses, sim_times, drops, float(tau), metrics,

@@ -8,7 +8,11 @@ its SPMD path on one CPU device: ``launch.steps.make_train_step`` jitted
 come from the reference's ``init_params`` through ``params_from_jax``,
 inputs from a seeded numpy stream, tolerances from ``TOL``.  Drop masks,
 drop fractions, tau trajectories and simulated times are exact; losses and
-parameters differ only by the order of the f32 sums over ranks.
+parameters differ only by the order of the f32 sums over ranks.  With more
+than one data rank every rank holds its ZeRO slices of the masters and the
+optimizer state (``dist.sharding``'s rules): the steps run on 2 ranks (data
+2) and 4 (pod 2 x data 2), and are also held to the port's own one rank and
+their norms to the whole leaves'.
 """
 import dataclasses
 import multiprocessing
@@ -47,17 +51,27 @@ from repro_torch.dist import (  # noqa: E402
     make_mesh,
     procs,
 )
+from repro_torch.launch import steps as port_steps  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import InputShape, ModelConfig  # noqa: E402
 from repro_torch.models.transformer import tree_leaves  # noqa: E402
+from repro_torch.optim import ShardNorms, global_norm, make as make_opt  # noqa: E402
 from repro_torch.train.resilience import ControllerConfig  # noqa: E402
-from test_torch_parity_util import assert_close, assert_tree_close  # noqa: E402
+from test_torch_parity_util import TOL, assert_close, assert_tree_close  # noqa: E402
 import test_torch_dist_util as ranks  # noqa: E402
 
 torch.set_num_threads(1)
 
 #: the time limit of every spawned group, seconds
 GROUP_TIMEOUT_S = 120
+#: a sharded run's leaves against one rank's: within this many times the one
+#: rank's own gap under another order of its sums (``chip_smoke.py``'s
+#: DP_ORDER_FACTOR), and never held below DP_ZERO_GAP_FLOOR of the leaf's
+#: norm (four f32 spacings; the card's rule uses it where the order gap is
+#: 0, and after one CPU step a leaf's order gap can sit far below one
+#: spacing of its norm: bert's position table read 4.7e-11)
+DP_ORDER_FACTOR = 4
+DP_ZERO_GAP_FLOOR = 4 * 2.0 ** -23
 
 
 def np_tree(jtree):
@@ -146,71 +160,241 @@ def test_a_failed_rank_raises_and_a_hung_rank_is_killed():
 
 SMALL = dict(name="t", n_layers=2, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64,
              vocab_size=101, dtype="float32", remat=False)
+#: the configs of the step cases: SMALL (its 101-row embedding does not split
+#: over 2 ranks, so it stays whole), SMALL with an even vocabulary (the tied
+#: embedding split, gathered in f32 for the compute copy) and bert-1.5b's
+#: smoke config (appendix B.1's LANS model: 'B' blocks, LayerNorm, biases)
+CONFIGS = {"small": SMALL, "even": dict(SMALL, vocab_size=128), "bert": "bert_1_5b"}
 SHAPE = ("t", 16, 8, "train")
 ONES = np.ones((4, 2), np.float32)  # each worker: keep 1 of 2 at tau 1.5
 # ranks 1 (of 2) and 2-3 (of 4) keep nothing at tau 1.0 with no minimum
 SKEWED = np.array([[0.1, 0.1], [0.1, 0.1], [5.0, 5.0], [5.0, 5.0]], np.float32)
-# (drop, latencies, optimizer, lr).  SGD's update is -lr x the gradient, so
-# at the reference test's lr 1e-2 it holds the all-reduced, normalised
-# gradient itself to TOL (1.5e-8 apart at one rank).  AdamW's first step is
-# lr x g / (|g| + eps): a gradient element near 0 turns its update by the
-# order of its f32 sum (the reference sums a micro-batch over all workers'
-# rows in one loss, the port each worker's block), 3.4e-4 on one element of
-# 4,096 at lr 1e-2 with one rank; it is held at the trainer tests' 1e-3.
+# (config, drop, latencies, optimizer, lr).  SGD's update is -lr x the
+# gradient, so at the reference test's lr 1e-2 it holds the all-reduced,
+# normalised gradient itself to TOL (1.5e-8 apart at one rank).  AdamW's
+# first step is lr x g / (|g| + eps): a gradient element near 0 turns its
+# update by the order of its f32 sum (the reference sums a micro-batch over
+# all workers' rows in one loss, the port each worker's block), 3.4e-4 on
+# one element of 4,096 at lr 1e-2 with one rank; it is held at the trainer
+# tests' 1e-3, as are LAMB and LANS (trust ratios of whole leaves).
 CASES = {
-    "computed_sgd": (dict(tau=1.5), ONES, "sgd", 1e-2),
-    "nominal_sgd": (dict(tau=1.5, normalize="nominal"), ONES, "sgd", 1e-2),
-    "computed_adamw": (dict(tau=1.5), ONES, "adamw", 1e-3),
-    "nominal_adamw": (dict(tau=1.5, normalize="nominal"), ONES, "adamw", 1e-3),
-    "keeps_nothing": (dict(tau=1.0, min_microbatches=0), SKEWED, "adamw", 1e-3),
+    "computed_sgd": ("small", dict(tau=1.5), ONES, "sgd", 1e-2),
+    "nominal_sgd": ("small", dict(tau=1.5, normalize="nominal"), ONES, "sgd", 1e-2),
+    "computed_adamw": ("small", dict(tau=1.5), ONES, "adamw", 1e-3),
+    "nominal_adamw": ("small", dict(tau=1.5, normalize="nominal"), ONES, "adamw", 1e-3),
+    "keeps_nothing": ("small", dict(tau=1.0, min_microbatches=0), SKEWED, "adamw", 1e-3),
+    "computed_lamb": ("small", dict(tau=1.5), ONES, "lamb", 1e-3),
+    "computed_lans": ("small", dict(tau=1.5), ONES, "lans", 1e-3),
+    "even_adamw": ("even", dict(tau=1.5), ONES, "adamw", 1e-3),
+    "even_lans": ("even", dict(tau=1.5), ONES, "lans", 1e-3),
+    "bert_sgd": ("bert", dict(tau=1.5), ONES, "sgd", 1e-2),
+    "bert_adamw": ("bert", dict(tau=1.5), ONES, "adamw", 1e-3),
+    "bert_lamb": ("bert", dict(tau=1.5), ONES, "lamb", 1e-3),
+    "bert_lans": ("bert", dict(tau=1.5), ONES, "lans", 1e-3),
 }
+#: the meshes of the 2- and 4-rank spawns: data 2; pod 2 x data 2 (each
+#: leaf split over a pod's two data ranks and the same on both pods)
+MESHES = {2: "2", 4: "2,2,1"}
+
+
+def _configs(name):
+    c = CONFIGS[name]
+    if isinstance(c, str):
+        return jget_smoke(c), get_smoke_config(c)
+    return JConfig(**c), ModelConfig(**c)
 
 
 @pytest.fixture(scope="module")
 def step_inputs():
-    jc = JConfig(**SMALL)
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jc)
-    rng = np.random.default_rng(7)
-    batch = {"tokens": rng.integers(0, 101, size=(8, 16)).astype(np.int32),
-             "weights": (rng.random((8, 16)) > 0.1).astype(np.float32)}
+    """Per config its reference parameters (numpy) and batch; per case the
+    reference's jitted single-device step (parameters, loss, completed
+    fraction)."""
+    inputs = {}
+    for name in CONFIGS:
+        jc, tc = _configs(name)
+        rng = np.random.default_rng(7)
+        batch = {"tokens": rng.integers(0, jc.vocab_size, size=(8, 16)).astype(np.int32),
+                 "weights": (rng.random((8, 16)) > 0.1).astype(np.float32)}
+        inputs[name] = (jc, tc, jmodel.init_params(jax.random.PRNGKey(0), jc), batch)
     want = {}
-    for name, (kw, lat, optimizer, lr) in CASES.items():
+    for case, (name, kw, lat, optimizer, lr) in CASES.items():
+        jc, _, jp, batch = inputs[name]
         opt, step = jsteps.make_train_step(jc, JShape(*SHAPE, microbatches=2),
                                            jcore.DropConfig(enabled=True, **kw), n_workers=4,
                                            optimizer=optimizer, lr=lr)
         p, _, m = jax.jit(step)(jp, opt.init(jp), batch, lat)
-        want[name] = (p, float(m["loss"]), float(m["completed_fraction"]))
-    return jp, batch, want
+        want[case] = (p, float(m["loss"]), float(m["completed_fraction"]))
+    return inputs, want
+
+
+def _jobs(inputs):
+    jobs = []
+    for name, kw, lat, optimizer, lr in CASES.values():
+        _, tc, jp, batch = inputs[name]
+        jobs.append({"cfg": tc, "shape": InputShape(*SHAPE, microbatches=2), "params": np_tree(jp),
+                     "batch": batch, "drop": core.DropConfig(enabled=True, **kw),
+                     "latencies": lat, "optimizer": optimizer, "lr": lr})
+    return jobs
+
+
+@pytest.fixture(scope="module")
+def one_rank_runs(step_inputs):
+    """Per case the port's step on this process: the single-device
+    ``make_train_step`` (no collective: today's replicated path), one rank
+    of a one-rank gloo group (every leaf whole), and, per mesh of
+    ``MESHES``, that rank with its norms summed as the mesh's data ranks sum
+    theirs (``chip_smoke.sliced_norms``), sound and with its micro-batches
+    summed in the reverse order (``chip_smoke.reversed_sums``: the order
+    gap)."""
+    inputs, _ = step_inputs
+    jobs = _jobs(inputs)
+    smoke = ranks._smoke()
+    single = []
+    for job in jobs:
+        opt, step = port_steps.make_train_step(job["cfg"], job["shape"], job["drop"], 4,
+                                               optimizer=job["optimizer"], lr=job["lr"])
+        p = ranks._params(job["params"], job["cfg"])
+        step(p, opt.init(p), job["batch"], job["latencies"])
+        single.append(p)
+    sliced = {}
+    with procs.local_group(device="cpu"):
+        one = ranks.run_sharded(0, 1, "1", jobs, norm_job(inputs))["steps"]
+        for world, mesh in MESHES.items():
+            with smoke.sliced_norms(mesh):
+                sound = ranks.run_sharded(0, 1, "1", jobs, norm_job(inputs))["steps"]
+                with smoke.reversed_sums():
+                    rev = ranks.run_sharded(0, 1, "1", jobs, norm_job(inputs))["steps"]
+            sliced[world] = list(zip(sound, rev))
+    return {case: (single[i], one[i], {w: runs[i] for w, runs in sliced.items()})
+            for i, case in enumerate(CASES)}
+
+
+def norm_job(inputs):
+    """The norm check's inputs: the even config's reference parameters and
+    gradients drawn from a seeded numpy stream, one a leaf."""
+    _, tc, jp, _ = inputs["even"]
+    leaves = tree_leaves(ranks._params(np_tree(jp), tc))
+    rng = np.random.default_rng(11)
+    return {"cfg": tc, "params": np_tree(jp),
+            "grads": [rng.normal(size=tuple(x.shape)).astype(np.float32) for x in leaves]}
 
 
 @pytest.fixture(scope="module", params=[2, 4])
 def step_runs(request, step_inputs):
-    jp, batch, _ = step_inputs
-    cases = [{"drop": core.DropConfig(enabled=True, **kw), "latencies": lat,
-              "optimizer": optimizer, "lr": lr}
-             for kw, lat, optimizer, lr in CASES.values()]
-    out = procs.spawn(ranks.run_steps, request.param, device="cpu", timeout_s=GROUP_TIMEOUT_S,
-                      args=(ModelConfig(**SMALL), InputShape(*SHAPE, microbatches=2),
-                            np_tree(jp), batch, cases))
-    return request.param, {name: [r[i] for r in out] for i, name in enumerate(CASES)}
+    inputs, _ = step_inputs
+    world = request.param
+    out = procs.spawn(ranks.run_sharded, world, device="cpu", timeout_s=GROUP_TIMEOUT_S,
+                      args=(MESHES[world], _jobs(inputs), norm_job(inputs)))
+    return world, {name: [r["steps"][i] for r in out] for i, name in enumerate(CASES)}, \
+        [r["norms"] for r in out]
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_step_matches_reference(step_inputs, step_runs, case):
-    _, _, want = step_inputs
-    world, runs = step_runs
+    _, want = step_inputs
+    world, runs, _ = step_runs
     want_p, want_loss, want_frac = want[case]
     got = runs[case][0]
     assert_close(got["loss"], want_loss, "model_f32")
     assert got["completed_fraction"] == want_frac
     assert_tree_close(got["params"], want_p, "model_f32")
-    for other in runs[case][1:]:  # the ranks' replicas agree exactly
+    for other in runs[case][1:]:  # the ranks' gathered trees agree exactly
         assert other["loss"] == got["loss"] and same_tree(other["params"], got["params"])
     kept = [r["kept_local"] for r in runs[case]]
     if case == "keeps_nothing":
         assert want_frac == 0.5 and kept[-1] == 0 and sum(kept) == 4
     else:
         assert want_frac == 0.5 and kept == [4 // world] * world
+    assert all(r["split"] > 0 for r in runs[case])  # ZeRO: each rank holds slices
+
+
+#: a leaf's gap to another, over the other's norm: by the largest element
+#: and by the norm of the difference (``chip_smoke.DP_GAPS``)
+GAPS = {"largest element": lambda a, b: (a - b).abs().max(),
+        "norm of the difference": lambda a, b: torch.linalg.vector_norm(a - b)}
+
+
+def order_faults(got, one, rev) -> list:
+    """The leaves of ``got`` farther from the one-rank run ``one``, by either
+    reading of ``GAPS``, than ``DP_ORDER_FACTOR`` times the one-rank run's
+    own gap by that reading under another order of its sums (``rev``), and
+    than ``DP_ZERO_GAP_FLOOR`` of the leaf's norm."""
+    out = []
+    for reading, diff in GAPS.items():
+        def gap(a, b):
+            return float(diff(a, b) / torch.linalg.vector_norm(b))
+
+        for i, (g, o, r) in enumerate(zip(tree_leaves(got), tree_leaves(one),
+                                          tree_leaves(rev))):
+            limit = max(DP_ORDER_FACTOR * gap(r, o), DP_ZERO_GAP_FLOOR)
+            if gap(g, o) >= limit:
+                out.append((reading, i, gap(g, o), limit))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_step_matches_one_rank(one_rank_runs, step_runs, case):
+    """R sharded ranks against the port's one rank with its norms summed as
+    theirs: the same kept counts and completed fraction exactly, every leaf
+    within its order gap; one rank of a group against the single-device
+    step bit for bit."""
+    world, runs, _ = step_runs
+    single, one, sliced = one_rank_runs[case]
+    sound, rev = sliced[world]
+    assert same_tree(one["params"], single)
+    assert one["split"] == 0 and sound["split"] == 0
+    got = runs[case][0]
+    assert got["completed_fraction"] == sound["completed_fraction"]
+    assert sum(r["kept_local"] for r in runs[case]) == sound["kept_local"]
+    assert abs(got["loss"] - sound["loss"]) <= 1e-6 * abs(sound["loss"])
+    assert order_faults(got["params"], sound["params"], rev["params"]) == []
+
+
+def _norm_gaps(got: list, want: list) -> float:
+    """The largest relative gap between two runs' recorded norms (the square
+    roots of the reduced sums of squares) and between the trust ratios
+    ||p|| / ||r|| they give (each pass's vector holds, per split leaf, the
+    parameter's part, then its directions')."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        gn, wn = g.sqrt(), w.sqrt()
+        worst = max(worst, float(((gn - wn).abs() / wn).max()))
+    return worst
+
+
+@pytest.mark.parametrize("what", ["lamb", "lans", "global"])
+def test_shard_norms_are_the_whole_leaves(step_inputs, step_runs, what):
+    """The norms the optimizer takes under ZeRO (every split leaf's sums of
+    squares over its data ranks) equal the whole leaves' within rtol 1e-6;
+    with the planted fault (each rank's own slice's norm) they do not."""
+    inputs, _ = step_inputs
+    world, _, norms = step_runs
+    job = norm_job(inputs)
+    split = [d is not None for d in Distribution.from_spec(MESHES[world], device="cpu")
+             .split_dims(ranks._params(job["params"], job["cfg"]))]
+    assert any(split) and not all(split)
+    params = ranks._whole(job["params"], job["cfg"])
+    grads = ranks._whole(job["params"], job["cfg"], job["grads"])
+    want = []
+    shards = ShardNorms(split, ranks._recorder(lambda v: None, want))
+    if what == "global":
+        global_norm(grads, shards)
+        assert_close(want[0], torch.stack([torch.linalg.vector_norm(g).square() for g, s in
+                                           zip(tree_leaves(grads), split) if s]), "kernel_f32")
+    else:
+        opt = make_opt(what, 1e-3)
+        opt.step(grads, opt.init(params), params, shards=shards)
+        if what == "lamb":  # trust ratios ||p|| / ||r|| of the whole leaves
+            ratios = [want[0][0::2].sqrt() / want[0][1::2].sqrt()]
+    assert len(want) == (2 if what == "lans" else 1)
+    for r in norms:
+        assert len(r[what, False]) == len(want)
+        assert _norm_gaps(r[what, False], want) < 1e-6
+        assert _norm_gaps(r[what, True], want) > 1e-6  # the planted local norm is caught
+        if what == "lamb":
+            got = r[what, False][0]
+            np.testing.assert_allclose((got[0::2].sqrt() / got[1::2].sqrt()).numpy(),
+                                       ratios[0].numpy(), rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +453,26 @@ def test_train_matches_reference(train_runs, run):
     kept = np.array([r[run]["kept_local"] for r in got]).sum(0)
     np.testing.assert_array_equal(kept, [round(8 * (1 - d)) for d in g["drop_fractions"]])
     assert all(len(r[run]["allreduce_s"]) == len(w.losses) for r in got)
+
+
+@pytest.mark.parametrize("fault", ["shard_at_rank0_rows", "reduce_scatter_skipped"])
+def test_planted_zero_faults_are_caught(train_runs, fault):
+    """``chip_smoke.py``'s planted faults on the sharded path, (a) rank 1's
+    slices written at rank 0's rows in every all-gather and (b) one split
+    leaf's gradient left out of the reduce-scatter: the static run, whose
+    sound leaves match the reference within ``TOL["model_f32"]``, moves
+    leaves outside that tolerance of the sound run's, on every rank alike
+    (so only the values show them)."""
+    _, _, _, want, got, _ = train_runs
+    w = want["static"]
+    sound, planted = got[0]["static"], got[0][fault]
+    assert_tree_close(sound["params"], w.params, "model_f32")
+    assert planted["drop_fractions"] == w.drop_fractions
+    off = [i for i, (g, x) in enumerate(zip(tree_leaves(planted["params"]),
+                                            tree_leaves(sound["params"])))
+           if not torch.allclose(g, x, **TOL["model_f32"])]
+    assert off, f"{fault}: every leaf within the tolerance"
+    assert same_tree(got[1][fault]["params"], planted["params"])
 
 
 @pytest.mark.parametrize("run", ["static", "auto", "online"])
